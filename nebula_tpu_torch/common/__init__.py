@@ -1,0 +1,1 @@
+"""common layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""graph layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""tools layer of the PyTorch port (see the package docstring)."""
