@@ -4,38 +4,53 @@ Hopper card.
 
     python3 chip_smoke.py [--vertices N] [--edges M] [--seed S]
                           [--requests R] [--threads T] [--cap C]
-                          [--widths LIST] [--profile R]
+                          [--widths LIST] [--path-requests P]
+                          [--path-threads PT] [--profile R]
 
 The defaults are the serve cell; ``--vertices 16777216 --edges
 105000000 --cap 256 --widths 128`` is the round-5 scale shape, and
-``--profile R`` adds a profiled serve window after phase 4.
+``--profile R`` adds a profiled window of each traffic kind after
+phase 6.
 
 Phases, in order; any failure exits non-zero:
 
-1. device   the card's name, compute capability, and its name and power
-            limit as nvidia-smi prints them
-2. build    compile the CUDA kernels from ``nebula_tpu_torch/tpu/csrc``
-            with nvcc (sm_90a) and load them
-3. kernels  each of the four kernels against its plain PyTorch version
-            on the serve graph's real tables, at W = 128 (B = 1024 lanes)
-            and W = 16 (B = 128): exact equality, CUDA-event times for
-            the kernel, the plain version and, where one exists, the
-            PyTorch library call computing the same function, and the
-            card's bound for the work
-4. serve    a seeded power-law graph (default 2^19 vertices, 2^22 edges,
-            stored in both directions) served by ``TorchQueryRuntime``:
-            R multi-hop GO requests from T threads, 64 of them checked
-            exactly against a numpy oracle; every kernel must have been
-            launched on this path
-5. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
-6. the last line ``{"ok": true, "device": {...}}``
+1. device    the card's name, compute capability, and its name and
+             power limit as nvidia-smi prints them
+2. build     compile the CUDA kernels from ``nebula_tpu_torch/tpu/csrc``
+             with nvcc (sm_90a) and load them
+3. kernels   each kernel against its plain PyTorch version on the serve
+             graph's real tables, at W = 128 (B = 1024 lanes) and W = 16
+             (B = 128): exact equality, CUDA-event times for the kernel,
+             the plain version and, where one exists, the PyTorch
+             library call computing the same function, and the card's
+             bound for the work.  The continuous session's four
+             kernels, then the windowed path's: the packed frontier
+             upload, ``ell_go`` at 3 steps (exact and UPTO), the
+             COUNT(*) fold, the BFS level pass and its int8 form
+4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
+             edges, stored in both directions) served by
+             ``TorchQueryRuntime`` in continuous mode: R GO requests
+             from T threads, 64 checked exactly against a numpy oracle
+5. windowed  the same R requests with ``go_dispatch_mode=windowed``,
+             ``tpu_sparse_go=false`` and ``tpu_adaptive_single=false``
+             (the dense ``ell_go`` route), 64 checked against the oracle
+6. path      P ``FIND SHORTEST PATH ... UPTO 5 STEPS`` requests (1 src,
+             1 dst each) from PT threads, 64 checked against a numpy
+             BFS and path enumeration, then a checked sample of ``FIND
+             ALL PATH ... UPTO 3 STEPS``
+7. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
+8. the last line ``{"ok": true, "device": {...}}``
 
-The script imports nothing of the JAX package.  It needs one CUDA card
-and refuses to run (non-zero exit, no result) without one.
+Every launch count is zeroed just before each of phases 4-6 drives the
+port and read just after it; every kernel of a phase's path must have
+been launched there.  The script imports nothing of the JAX package.
+It needs one CUDA card and refuses to run (non-zero exit, no result)
+without one.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import threading
@@ -49,8 +64,21 @@ REPLACES = {
     "lane_join": "nebula_tpu/tpu/ell.py:691",
     "lane_extract": "nebula_tpu/tpu/ell.py:726",
     "lane_clear": "nebula_tpu/tpu/ell.py:713",
+    "frontier_upload": "nebula_tpu/tpu/runtime.py:3251",
+    "ell_go": "nebula_tpu/tpu/ell.py:572",
+    "go_count": "nebula_tpu/tpu/ell.py:572",
+    "bfs_level": "nebula_tpu/tpu/ell.py:1080",
+    "bfs_depth_i8": "nebula_tpu/tpu/ell.py:1121",
 }
 SOURCE = "nebula_tpu_torch/tpu/csrc/ell_lanes.cu"
+# which counted phase runs each kernel on its main path
+PATH_KERNELS = {
+    "serve": ("go_hop", "lane_join", "lane_extract", "lane_clear"),
+    "windowed": ("frontier_upload", "go_hop", "ell_go", "go_count"),
+    "path": ("frontier_upload", "go_hop", "bfs_level", "bfs_depth_i8"),
+}
+MAX_PATHS = 1000               # the port's FIND PATH result cap
+PATH_PHASE_S = 120.0           # the path phase stops issuing past this
 
 
 # ============================================================== oracle
@@ -88,6 +116,118 @@ class GoOracle:
         return np.sort(self.dst[active]), traversed
 
 
+class PathOracle:
+    """Plain numpy/Python semantics of ``FIND SHORTEST|ALL PATH FROM s
+    TO t OVER e UPTO k STEPS`` on a forward edge list, independent of
+    the port: level-synchronous BFS depths from the sources (a level
+    runs while the frontier is nonempty, fewer than k levels ran and,
+    for SHORTEST, a target is still unreached), then the paths walked
+    back from the target over the in-edges.  Paths print as
+    ``v0 <e,0> v1 <e,0> v2 ...`` (one edge type, rank 0)."""
+
+    INF = np.iinfo(np.int32).max
+
+    def __init__(self, go: GoOracle):
+        self.src, self.dst = go.src, go.dst
+        self.size = go.vmax + 1
+        self.key = (self.src << 32) | self.dst     # sorted, unique
+        order = np.argsort(self.dst, kind="stable")
+        self.in_src = self.src[order]
+        self.in_ptr = np.searchsorted(self.dst[order],
+                                      np.arange(self.size + 1))
+
+    def preds(self, v: int) -> np.ndarray:
+        return self.in_src[self.in_ptr[v]:self.in_ptr[v + 1]]
+
+    def depths(self, srcs, dsts, max_steps: int, shortest: bool):
+        """int32 [vmax + 1] depths (INF = unreached) and levels run."""
+        depth = np.full(self.size, self.INF, np.int32)
+        f = np.zeros(self.size, bool)
+        f[np.asarray(srcs, np.int64)] = True
+        depth[f] = 0
+        tgt = np.zeros(self.size, bool)
+        tgt[np.asarray(dsts, np.int64)] = True
+        step = 0
+        while step < max_steps and f.any() and not (
+                shortest and not (tgt & (depth == self.INF)).any()):
+            nxt = np.zeros(self.size, bool)
+            nxt[self.dst[f[self.src]]] = True
+            f = nxt & (depth == self.INF)
+            depth[f] = step + 1
+            step += 1
+        return depth, step
+
+    def shortest_paths(self, srcs, dst: int, depth) -> list:
+        """Every shortest path from the sources to ``dst`` (at most
+        MAX_PATHS + 1 of them)."""
+        out: list = []
+        src_set = set(int(s) for s in srcs)
+
+        def walk(v, tail):
+            if len(out) > MAX_PATHS:
+                return
+            if depth[v] == 0:
+                if v in src_set:
+                    out.append([v] + tail)
+                return
+            for u in self.preds(v).tolist():
+                if depth[u] == depth[v] - 1:
+                    walk(u, [v] + tail)
+
+        if 0 < depth[dst] < self.INF:
+            walk(dst, [])
+        return out
+
+    def all_paths(self, srcs, dst: int, max_steps: int) -> list:
+        """Every simple path of 1..max_steps edges from a source to
+        ``dst`` (at most MAX_PATHS + 1 of them)."""
+        out: list = []
+        src_set = set(int(s) for s in srcs)
+
+        def walk(v, tail, seen):
+            if len(out) > MAX_PATHS:
+                return
+            if v in src_set and tail:
+                out.append([v] + tail)
+            if len(tail) == max_steps:
+                return
+            for u in self.preds(v).tolist():
+                if u not in seen:
+                    walk(u, [v] + tail, seen | {u})
+
+        walk(dst, [], {dst})
+        return out
+
+    def check(self, rows, want_paths, srcs, dst: int, length=None) -> None:
+        """Each row is a chain of existing edges from a source to
+        ``dst`` (of ``length`` edges when given); where the oracle found
+        fewer than MAX_PATHS paths, the sets are equal."""
+        got = []
+        for (p,) in rows:
+            tok = p.split(" ")
+            vs = [int(t) for t in tok[0::2]]
+            if any(t != "<e,0>" for t in tok[1::2]):
+                raise AssertionError(f"path {p!r}: unexpected edge label")
+            if vs[0] not in srcs or vs[-1] != dst:
+                raise AssertionError(f"path {p!r} does not join "
+                                     f"{srcs} to {dst}")
+            if length is not None and len(vs) - 1 != length:
+                raise AssertionError(f"path {p!r} is not {length} long")
+            hop = (np.asarray(vs[:-1], np.int64) << 32) \
+                | np.asarray(vs[1:], np.int64)
+            pos = np.minimum(np.searchsorted(self.key, hop),
+                             len(self.key) - 1)
+            if not (self.key[pos] == hop).all():
+                raise AssertionError(f"path {p!r} uses a missing edge")
+            got.append(tuple(vs))
+        if len(got) != len(set(got)):
+            raise AssertionError("a path is repeated")
+        if len(want_paths) < MAX_PATHS and \
+                set(got) != {tuple(p) for p in want_paths}:
+            raise AssertionError(f"{len(got)} paths, the oracle has "
+                                 f"{len(want_paths)}")
+
+
 # ============================================================= helpers
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -114,6 +254,29 @@ def max_abs_err(torch, a, b) -> int:
 
 def bytes_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def restored_ms(torch, run, restore, iters: int, warmup: int = 2) -> float:
+    """Mean ms of ``run()`` on a state ``restore()`` rebuilds before each
+    call (the kernel rewrites its input), less the restore's own time."""
+    def both():
+        restore()
+        run()
+    return max(0.0, cuda_ms(torch, both, iters, warmup)
+               - cuda_ms(torch, restore, iters, warmup))
+
+
+def require_equal(torch, name: str, B: int, *pairs) -> int:
+    """Raise unless every (kernel, plain) pair is equal; max_abs_err."""
+    torch.cuda.synchronize()
+    for a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} != its plain version at B={B}")
+    return max(max_abs_err(torch, a, b) for a, b in pairs)
+
+
+def popcount(torch, ell_ops, fp) -> int:
+    return int(ell_ops._unpack_ref(fp).sum(dtype=torch.int64).item())
 
 
 # ============================================================ phase 3
@@ -276,6 +439,170 @@ def kernel_phase(torch, ell_ops, tables, eslot, hrows, ix, B: int,
     return res
 
 
+def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
+                       B: int, over, rng) -> dict:
+    """The windowed path's kernels against their plain versions at lane
+    width B on the serve tables, on the inputs that path gives them: a
+    batch of B queries with one start each.  Returns {name: numbers}."""
+    dev = tables.nbr.device
+    W = B // 8
+    R1 = ix.n_rows + 1
+    i32 = torch.int32
+    slots = int(tables.nbr.numel())
+    hub_bytes = 4 * ((ix.n_rows - ix.n) + int(hrows.numel()))
+    res = {}
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    def coords(vertices):
+        """The padded start list runtime._upload_frontier_packed gives
+        the kernel: query q starts at ``vertices[q]``."""
+        S = len(vertices)
+        Sp = max(8, 1 << (S - 1).bit_length())
+        rows_h = np.full(Sp, ix.n_rows, np.int32)
+        words_h = np.zeros(Sp, np.int32)
+        vals_h = np.zeros(Sp, np.uint8)
+        q = np.arange(S)
+        rows_h[:S] = ix.perm[vertices]
+        words_h[:S] = q >> 3
+        vals_h[:S] = np.left_shift(1, q & 7)
+        return up(rows_h), up(words_h), up(vals_h), Sp
+
+    # ---- K1 frontier upload
+    rows_t, words_t, vals_t, Sp = coords(rng.integers(0, ix.n, B))
+    fk = torch.empty((R1, W), dtype=torch.uint8, device=dev)
+    fr = torch.empty_like(fk)
+    ell_ops.frontier_upload(fk, rows_t, words_t, vals_t)
+    ell_ops.frontier_upload_ref(fr, rows_t, words_t, vals_t)
+    err = require_equal(torch, "frontier_upload", B, (fk, fr))
+    f0 = fk.clone()
+    ms = cuda_ms(torch, lambda: ell_ops.frontier_upload(
+        fk, rows_t, words_t, vals_t), 50)
+    plain = cuda_ms(torch, lambda: ell_ops.frontier_upload_ref(
+        fr, rows_t, words_t, vals_t), 50)
+    idx = (rows_t.long(), words_t.long())
+
+    def lib_upload():
+        fr.zero_()
+        fr.index_put_(idx, vals_t, accumulate=True)
+    lib = cuda_ms(torch, lib_upload, 50)
+    res["frontier_upload"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bytes_ms(R1 * W + 9 * Sp), bound_by="bytes",
+        library_ms=lib)
+
+    # ---- ell_go at 3 steps, exact and UPTO (two hops each)
+    work = torch.empty_like(f0)
+
+    def restore():
+        work.copy_(f0)
+    go_bytes = 8 * slots + 2 * R1 * W + hub_bytes
+    go_rows = {}
+    outs = {}
+    for upto in (False, True):
+        gk = ell_ops.ell_go(f0.clone(), tables, eslot, hrows, over, 3, upto)
+        gr = ell_ops.ell_go_ref(f0.clone(), tables, eslot, hrows, over, 3,
+                                upto)
+        err = require_equal(torch, f"ell_go upto={upto}", B, (gk, gr))
+        outs[upto] = gk
+        ms = restored_ms(torch, lambda: ell_ops.ell_go(
+            work, tables, eslot, hrows, over, 3, upto), restore, 20)
+        plain = restored_ms(torch, lambda: ell_ops.ell_go_ref(
+            work, tables, eslot, hrows, over, 3, upto), restore, 2, 1)
+        go_rows[upto] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=bytes_ms(go_bytes + (R1 * W if upto
+                                                           else 0)),
+                             bound_by="bytes", library_ms=None, steps=3,
+                             live_bits=popcount(torch, ell_ops, gk))
+    res["ell_go"] = dict(go_rows[False], upto=go_rows[True])
+
+    # ---- K2 the COUNT(*) fold of the exact 3-step frontier
+    out = outs[False]
+    deg = rt._deg_dev(m, ix, tuple(over))
+    ck = torch.empty(B, dtype=i32, device=dev)
+    cr = torch.empty_like(ck)
+    ell_ops.go_count(out, deg, ck)
+    ell_ops.go_count_ref(out, deg, cr)
+    err = require_equal(torch, "go_count", B, (ck, cr))
+    ms = cuda_ms(torch, lambda: ell_ops.go_count(out, deg, ck), 50)
+    plain = cuda_ms(torch, lambda: ell_ops.go_count_ref(out, deg, cr), 5)
+
+    def unpack():
+        return ell_ops._unpack_ref(out).double()
+    unpack_ms = cuda_ms(torch, unpack, 3, 1)
+    bits = unpack()
+    degd = deg.double()
+    lib = cuda_ms(torch, lambda: torch.mv(bits.t(), degd), 10)
+    if not torch.equal(torch.mv(bits.t(), degd).to(torch.int64),
+                       ck.to(torch.int64)):
+        raise AssertionError(f"torch.mv disagrees with go_count at B={B}")
+    del bits
+    res["go_count"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                           bound_ms=bytes_ms(R1 * W + 4 * R1 + 4 * B),
+                           bound_by="bytes", library_ms=lib,
+                           library_unpack_ms=unpack_ms)
+
+    # ---- K3 through the whole BFS (UPTO 5, stop when found) ...
+    t_rows, t_words, t_vals, _ = coords(rng.integers(0, ix.n, B))
+    t0 = torch.empty_like(f0)
+    ell_ops.frontier_upload(t0, t_rows, t_words, t_vals)
+    dk, lk = ell_ops.ell_bfs(f0.clone(), t0, tables, eslot, hrows, over, 5)
+    dr, lr = ell_ops.ell_bfs_ref(f0.clone(), t0, tables, eslot, hrows,
+                                 over, 5)
+    err_bfs = require_equal(torch, "ell_bfs", B, (dk, dr))
+    if lk != lr:
+        raise AssertionError(f"ell_bfs ran {lk} levels, plain {lr}")
+    bfs_ms = cuda_ms(torch, lambda: ell_ops.ell_bfs(
+        f0.clone(), t0, tables, eslot, hrows, over, 5), 5, 1)
+    # ... and alone, on level 1's state: the first pass, one hop, then
+    # the level under test
+    d0 = torch.empty((R1, B), dtype=torch.int16, device=dev)
+    flags = torch.zeros((2, 2), dtype=i32, device=dev)
+    first_in = f0.clone()
+    ell_ops.bfs_level(first_in, t0, d0, flags[0], 0, first=True)
+    first_ms = cuda_ms(torch, lambda: ell_ops.bfs_level(
+        first_in, t0, d0, flags[0], 0, first=True), 20)
+    nxt0 = torch.empty_like(f0)
+    ell_ops.go_hop(f0, None, nxt0, tables, eslot, hrows, over)
+    nk, dk1, fk1 = nxt0.clone(), d0.clone(), flags[1].clone()
+    nr, dr1, fr1 = nxt0.clone(), d0.clone(), flags[1].clone()
+    ell_ops.bfs_level(nk, t0, dk1, fk1, 0)
+    ell_ops.bfs_level_ref(nr, t0, dr1, fr1, 0, False, True)
+    err = max(err_bfs, require_equal(torch, "bfs_level", B, (nk, nr),
+                                     (dk1, dr1), (fk1, fr1)))
+    changed_words = int((nk.view(i32) != nxt0.view(i32)).sum().item())
+    live = popcount(torch, ell_ops, nxt0)
+    newly = popcount(torch, ell_ops, nk)
+    t_other = popcount(torch, ell_ops, t0 & ~nxt0)
+    level_bytes = 2 * R1 * W + 4 * changed_words + 2 * (live + newly
+                                                        + t_other)
+    ms = restored_ms(torch, lambda: ell_ops.bfs_level(nk, t0, dk1, fk1, 0),
+                     lambda: (nk.copy_(nxt0), dk1.copy_(d0)), 20)
+    plain = restored_ms(torch, lambda: ell_ops.bfs_level_ref(
+        nr, t0, dr1, fr1, 0, False, True),
+        lambda: (nr.copy_(nxt0), dr1.copy_(d0)), 5)
+    res["bfs_level"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=bytes_ms(level_bytes), bound_by="bytes",
+                            library_ms=None, first_ms=first_ms,
+                            first_bound_ms=bytes_ms(R1 * W + 2 * R1 * B),
+                            bfs_ms=bfs_ms, bfs_levels=lk,
+                            live_bits=live, newly_bits=newly)
+
+    # ---- the int8 form of the result
+    ok8 = torch.empty((R1, B), dtype=torch.int8, device=dev)
+    or8 = torch.empty_like(ok8)
+    ell_ops.bfs_depth_i8(dk1, ok8)
+    ell_ops.bfs_depth_i8_ref(dk1, or8)
+    err = require_equal(torch, "bfs_depth_i8", B, (ok8, or8))
+    ms = cuda_ms(torch, lambda: ell_ops.bfs_depth_i8(dk1, ok8), 50)
+    plain = cuda_ms(torch, lambda: ell_ops.bfs_depth_i8_ref(dk1, or8), 20)
+    res["bfs_depth_i8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=bytes_ms(3 * R1 * B),
+                               bound_by="bytes", library_ms=None)
+    return res
+
+
 # ============================================================ phase 4
 def request_mix(rng, n: int, requests: int):
     """The serve traffic: one start vid each, 2-4 steps, a quarter UPTO;
@@ -334,22 +661,10 @@ def drive(rt, mix, threads: int, keep=frozenset()):
     return wall, lat, kept
 
 
-def serve_phase(torch, rt, ell_ops, oracle: GoOracle, n: int,
-                requests: int, threads: int, seed: int) -> dict:
-    """The main path, counted: every launch count is zeroed just before
-    the requests and read just after; 64 answers are checked exactly
-    against the oracle.  Returns the numbers."""
-    rng = np.random.default_rng(seed + 1)
-    mix = request_mix(rng, n, requests)
+def check_go(oracle: GoOracle, mix, results, check) -> list:
+    """Hold the kept answers to the oracle; returns the edges each
+    traversed."""
     starts, steps, upto, count = mix
-    check = set(rng.choice(requests, min(64, requests),
-                           replace=False).tolist())
-    # warm the stream (session anchor, table upload) outside the window
-    rt.serve_go(1, [1], [1], 2, {1: "e"})
-    torch.cuda.synchronize()
-    ell_ops.reset_launches()
-    wall, lat, results = drive(rt, mix, threads, check)
-    launches = dict(ell_ops.LAUNCHES)
     traversed = []
     for i in sorted(check):
         want, tr = oracle.go([int(starts[i])], int(steps[i]),
@@ -365,10 +680,33 @@ def serve_phase(torch, rt, ell_ops, oracle: GoOracle, n: int,
             if cols != ["e._dst"] or not np.array_equal(got, want):
                 raise AssertionError(f"request {i}: rows differ from the "
                                      f"oracle ({len(got)} vs {len(want)})")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"{k} was never launched on the serve "
+    return traversed
+
+
+def require_launched(launches: dict, phase: str) -> None:
+    for k in PATH_KERNELS[phase]:
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was never launched on the {phase} "
                                  f"path")
+
+
+def serve_phase(torch, rt, ell_ops, oracle: GoOracle, n: int,
+                requests: int, threads: int, seed: int) -> dict:
+    """The main path, counted: every launch count is zeroed just before
+    the requests and read just after; 64 answers are checked exactly
+    against the oracle.  Returns the numbers."""
+    rng = np.random.default_rng(seed + 1)
+    mix = request_mix(rng, n, requests)
+    check = set(rng.choice(requests, min(64, requests),
+                           replace=False).tolist())
+    # warm the stream (session anchor, table upload) outside the window
+    rt.serve_go(1, [1], [1], 2, {1: "e"})
+    torch.cuda.synchronize()
+    ell_ops.reset_launches()
+    wall, lat, results = drive(rt, mix, threads, check)
+    launches = dict(ell_ops.LAUNCHES)
+    traversed = check_go(oracle, mix, results, check)
+    require_launched(launches, "serve")
     st = rt.continuous.streams()[0].stats
     qps = requests / wall
     return dict(requests=requests, threads=threads, wall_s=wall, qps=qps,
@@ -381,18 +719,211 @@ def serve_phase(torch, rt, ell_ops, oracle: GoOracle, n: int,
                 runtime=dict(rt.stats))
 
 
+WINDOWED = {"go_dispatch_mode": "windowed", "tpu_sparse_go": False,
+            "tpu_adaptive_single": False}
+
+
+@contextlib.contextmanager
+def windowed_mode(flags):
+    """The dense windowed route: WINDOWED set, restored on exit."""
+    old = {k: flags.get(k) for k in WINDOWED}
+    for k, v in WINDOWED.items():
+        flags.set(k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            flags.set(k, v)
+
+
+def windowed_phase(torch, rt, ell_ops, flags, oracle: GoOracle, n: int,
+                   requests: int, threads: int, seed: int) -> dict:
+    """Phase 4's request mix (same seed) through the windowed dispatcher
+    and the dense ``ell_go`` route, counted and checked the same way."""
+    rng = np.random.default_rng(seed + 1)
+    mix = request_mix(rng, n, requests)
+    check = set(rng.choice(requests, min(64, requests),
+                           replace=False).tolist())
+    with windowed_mode(flags):
+        # warm the count fold's degree vector outside the window
+        rt.serve_go(1, [1], [1], 2, {1: "e"}, reduce=("count",))
+        torch.cuda.synchronize()
+        before = dict(rt.dispatcher.stats)
+        rt0 = dict(rt.stats)
+        ell_ops.reset_launches()
+        wall, lat, results = drive(rt, mix, threads, check)
+        launches = dict(ell_ops.LAUNCHES)
+    traversed = check_go(oracle, mix, results, check)
+    require_launched(launches, "windowed")
+    batches = rt.dispatcher.stats["batches"] - before["batches"]
+    queries = (rt.dispatcher.stats["batched_queries"]
+               - before["batched_queries"])
+    qps = requests / wall
+    return dict(requests=requests, threads=threads, wall_s=wall, qps=qps,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                checked=len(check),
+                edges_traversed_per_query=float(np.mean(traversed)),
+                edges_traversed_per_s=float(np.mean(traversed)) * qps,
+                batches=batches, mean_batch=queries / max(batches, 1),
+                max_batch=rt.dispatcher.stats["max_batch"],
+                launches=launches,
+                runtime={k: rt.stats[k] - rt0[k] for k in rt0})
+
+
+def drive_paths(rt, srcs, dsts, threads: int):
+    """``FIND SHORTEST PATH FROM srcs[i] TO dsts[i] OVER e UPTO 5 STEPS``
+    from ``threads`` client threads; no request starts once the drive
+    passes PATH_PHASE_S.  Returns (wall seconds, {i: latency s},
+    {i: answer}); raises if any request failed."""
+    results, lat = {}, {}
+    errors = []
+    next_i = [0]
+    lock = threading.Lock()
+    t_start = time.perf_counter()
+
+    def worker():
+        while True:
+            with lock:
+                i = next_i[0]
+                next_i[0] += 1
+            if i >= len(srcs) or \
+                    time.perf_counter() - t_start > PATH_PHASE_S:
+                return
+            t0 = time.perf_counter()
+            try:
+                out = rt.serve_find_path(1, [int(srcs[i])], [int(dsts[i])],
+                                         [1], 5, True, {1: "e"})
+            except Exception as ex:     # noqa: BLE001 — raised below
+                with lock:
+                    errors.append(f"request {i}: {ex!r}")
+                return
+            with lock:
+                lat[i] = time.perf_counter() - t0
+                results[i] = out
+
+    pool = [threading.Thread(target=worker, name=f"smoke-path-{k}")
+            for k in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    wall = time.perf_counter() - t_start
+    if errors:
+        raise AssertionError(f"{len(errors)} requests failed: {errors[:3]}")
+    return wall, lat, results
+
+
+def path_phase(torch, rt, ell_ops, oracle: PathOracle, vids: np.ndarray,
+               requests: int, threads: int, seed: int) -> dict:
+    """FIND SHORTEST PATH traffic, counted: ``requests`` (1 src, 1 dst,
+    UPTO 5 STEPS) from ``threads`` threads, issuing stopped once the
+    phase passes PATH_PHASE_S; 64 checked against the oracle (the depth
+    row over every vertex, then the paths), then a checked sample of
+    FIND ALL PATH UPTO 3 STEPS."""
+    rng = np.random.default_rng(seed + 3)
+    srcs = rng.choice(vids, requests)
+    dsts = rng.choice(vids, requests)
+    check = set(rng.choice(requests, min(64, requests),
+                           replace=False).tolist())
+    names = {1: "e"}
+    rt.serve_find_path(1, [int(srcs[0])], [int(dsts[0])], [1], 5, True,
+                       names)
+    torch.cuda.synchronize()
+    rt0 = dict(rt.stats)
+    before = dict(rt.dispatcher.stats)
+    ell_ops.reset_launches()
+    wall, lat, results = drive_paths(rt, srcs, dsts, threads)
+    launches = dict(ell_ops.LAUNCHES)
+    require_launched(launches, "path")
+    served = len(results)
+    stats = {k: rt.stats[k] - rt0[k] for k in rt0}
+    batches = rt.dispatcher.stats["batches"] - before["batches"]
+
+    m = rt.mirror(1)
+    checked = reachable = n_paths = 0
+    for i in sorted(check & set(results)):
+        s, t = int(srcs[i]), int(dsts[i])
+        want, _levels = oracle.depths([s], [t], 5, True)
+        got = rt.bfs_batch(1, [[s]], [[t]], [1], 5, True)[0]
+        got32 = np.where(got == np.iinfo(np.int16).max, oracle.INF,
+                         got.astype(np.int32))
+        if not np.array_equal(got32, want[m.vids]):
+            raise AssertionError(f"path request {i}: depth row differs")
+        if (np.delete(want, m.vids) != oracle.INF).any():
+            raise AssertionError("the oracle reached a vertex with no edge")
+        cols, rows = results[i]
+        if cols != ["path"]:
+            raise AssertionError(f"path request {i}: columns {cols}")
+        d = int(want[t])
+        if d == oracle.INF or d == 0:
+            if rows:
+                raise AssertionError(f"path request {i}: rows for an "
+                                     f"unreached target")
+        else:
+            reachable += 1
+            oracle.check(rows, oracle.shortest_paths([s], t, want), [s], t,
+                         length=d)
+        n_paths += len(rows)
+        checked += 1
+    # random pairs are mostly out of reach at 5 steps, so two seeded
+    # samples aim at targets the oracle reaches: SHORTEST at 2..5 levels
+    # and ALL at 1..3 (uncounted, after the window)
+    sample = np.random.default_rng(seed + 4)
+    aimed = {"shortest": [0, 0], "all": [0, 0]}
+    t_all = 0.0
+    for kind, k, lo, count in (("shortest", 5, 2, 24), ("all", 3, 1, 8)):
+        for s in sample.choice(vids, count).tolist():
+            reach, _ = oracle.depths([s], [], k, False)
+            cand = np.nonzero((reach >= lo) & (reach <= k))[0]
+            if not len(cand):
+                continue
+            t = int(sample.choice(cand))
+            t0 = time.perf_counter()
+            cols, rows = rt.serve_find_path(1, [s], [t], [1], k,
+                                            kind == "shortest", names)
+            if kind == "shortest":
+                want, _ = oracle.depths([s], [t], k, True)
+                oracle.check(rows, oracle.shortest_paths([s], t, want),
+                             [s], t, length=int(want[t]))
+            else:
+                t_all += time.perf_counter() - t0
+                oracle.check(rows, oracle.all_paths([s], t, k), [s], t)
+            if not rows:
+                raise AssertionError(f"FIND {kind} PATH {s} -> {t}: no "
+                                     f"path to a reached target")
+            aimed[kind][0] += 1
+            aimed[kind][1] += len(rows)
+    lats = np.asarray(list(lat.values()))
+    return dict(requests=requests, served=served, threads=threads,
+                wall_s=wall, qps=served / wall,
+                p50_ms=float(np.percentile(lats, 50) * 1e3),
+                p99_ms=float(np.percentile(lats, 99) * 1e3),
+                checked=checked, checked_reachable=reachable,
+                checked_paths=n_paths, batches=batches,
+                mean_batch=served / max(batches, 1),
+                levels_per_dispatch=stats["bfs_levels"]
+                / max(stats["bfs_dispatches"], 1),
+                bfs_host_s=stats["t_bfs_s"],
+                reconstruct_host_s=stats["t_paths_s"],
+                reconstruct_cpu_s=stats["cpu_paths_s"], launches=launches,
+                runtime=stats,
+                aimed_shortest_checked=aimed["shortest"][0],
+                aimed_shortest_paths=aimed["shortest"][1],
+                all_path_checked=aimed["all"][0],
+                all_path_rows=aimed["all"][1], all_path_s=t_all)
+
+
 # ========================================================= --profile
-def profile_phase(torch, rt, n: int, requests: int, threads: int,
-                  seed: int) -> dict:
-    """A further serve window under torch.profiler (CPU + CUDA): the
-    card's busy time by kernel and its idle share over the window.  Not
-    part of the default run; device times are None when the profiler
-    recorded none."""
+def profile_phase(torch, run) -> dict:
+    """``run() -> (requests, wall seconds)`` under torch.profiler (CPU +
+    CUDA): the card's busy time by kernel and its idle share over the
+    window.  Not part of the default run; device times are None when
+    the profiler recorded none."""
     from torch.profiler import ProfilerActivity, profile
-    mix = request_mix(np.random.default_rng(seed + 2), n, requests)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall, _lat, _kept = drive(rt, mix, threads)
+        requests, wall = run()
         torch.cuda.synchronize()
     per = {}
     for e in prof.key_averages():
@@ -410,6 +941,28 @@ def profile_phase(torch, rt, n: int, requests: int, threads: int,
                 top_device_us={k: v for k, v in top})
 
 
+def profile_all(torch, rt, flags, vids, args) -> dict:
+    """``--profile R``: a further window of each traffic kind — R
+    continuous GO, R windowed GO, R / 4 FIND SHORTEST PATH — each under
+    the profiler, on fresh seeds."""
+    R = args.profile
+    mix = request_mix(np.random.default_rng(args.seed + 2), args.vertices,
+                      R)
+
+    def go():
+        return R, drive(rt, mix, args.threads)[0]
+
+    out = {"serve": profile_phase(torch, go)}
+    with windowed_mode(flags):
+        out["windowed"] = profile_phase(torch, go)
+    rng = np.random.default_rng(args.seed + 5)
+    P = max(1, R // 4)
+    ends = rng.choice(vids, (2, P))
+    out["path"] = profile_phase(torch, lambda: (
+        P, drive_paths(rt, ends[0], ends[1], args.path_threads)[0]))
+    return out
+
+
 # ================================================================ main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -422,10 +975,13 @@ def main(argv=None) -> int:
                     help="tpu_ell_cap override (default: the flag's 512)")
     ap.add_argument("--widths", default=None,
                     help="go_batch_widths override (default 128,1024)")
+    ap.add_argument("--path-requests", type=int, default=512)
+    ap.add_argument("--path-threads", type=int, default=16)
     ap.add_argument("--profile", type=int, default=0, metavar="R",
-                    help="after the serve phase, serve R more requests "
-                         "under torch.profiler and print the card's "
-                         "busy time and idle share")
+                    help="after phase 6, serve R more continuous and R "
+                         "more windowed GO requests and R/4 FIND PATH "
+                         "requests, each under torch.profiler, and print "
+                         "the card's busy time and idle share")
     args = ap.parse_args(argv)
 
     import torch
@@ -485,40 +1041,64 @@ def main(argv=None) -> int:
         rng = np.random.default_rng(args.seed + 7)
         per_width = {}
         for B in (1024, 128):
+            t0 = time.perf_counter()
             per_width[B] = kernel_phase(torch, ell_ops, tables, eslot,
                                         hrows, ix, B, (1,), rng)
+            per_width[B].update(batch_kernel_phase(
+                torch, ell_ops, rt, m, ix, tables, eslot, hrows, B, (1,),
+                rng))
             for k, v in per_width[B].items():
                 log(f"[kernel] {k} B={B} W={B // 8} equal=True "
                     + " ".join(f"{a}={b}" for a, b in v.items()))
+            log(f"[kernel] B={B} phase {time.perf_counter() - t0:.2f} s")
 
-        # ---- 4. serve
+        # ---- 4. serve (continuous)
         oracle = GoOracle(src, dst)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,
                             args.requests, args.threads, args.seed)
         log("[serve] " + json.dumps(serve))
+
+        # ---- 5. windowed
+        windowed = windowed_phase(torch, rt, ell_ops, flags, oracle,
+                                  args.vertices, args.requests,
+                                  args.threads, args.seed)
+        log("[windowed] " + json.dumps(windowed))
+        log("[compare] continuous vs windowed, same mix: " + json.dumps({
+            k: [serve[k], windowed[k]]
+            for k in ("qps", "p50_ms", "p99_ms", "edges_traversed_per_s")}))
+
+        # ---- 6. path
+        t0 = time.perf_counter()
+        path = path_phase(torch, rt, ell_ops, PathOracle(oracle), m.vids,
+                          args.path_requests, args.path_threads, args.seed)
+        log("[path] " + json.dumps(path))
+        log(f"[path] phase {time.perf_counter() - t0:.2f} s, "
+            f"{path['served']} of {path['requests']} requests served")
         if args.profile:
-            prof = profile_phase(torch, rt, args.vertices, args.profile,
-                                 args.threads, args.seed)
-            log("[profile] " + json.dumps(prof))
+            for k, v in profile_all(torch, rt, flags, m.vids, args).items():
+                log(f"[profile] {k} " + json.dumps(v))
     finally:
         rt.close()
 
-    # ---- 5. kernels line: the serve rung's numbers (B=128, W=16),
-    # with the W=128 numbers beside them
+    # ---- 7. kernels line: the serve rung's numbers (B=128, W=16),
+    # with the W=128 numbers beside them; launches from the counted
+    # phases that run each kernel
+    phases = {"serve": serve["launches"], "windowed": windowed["launches"],
+              "path": path["launches"]}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = []
-    for k in ("go_hop", "lane_join", "lane_extract", "lane_clear"):
+    for k in REPLACES:
+        by_phase = {p: ln[k] for p, ln in phases.items()
+                    if k in PATH_KERNELS[p]}
         row = dict(name=k, route="cuda", source=SOURCE,
-                   replaces=REPLACES[k], launches=serve["launches"][k],
-                   equal=True, width_words=16)
+                   replaces=REPLACES[k], launches=sum(by_phase.values()),
+                   launches_by_phase=by_phase, equal=True, width_words=16)
         v = per_width[128][k]
-        row.update({a: v[a] for a in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by",
-                                      "library_ms")})
-        if k == "go_hop":
-            row["gather_model_ms"] = v["gather_model_ms"]
-        row["w128"] = {a: per_width[1024][k][a]
-                       for a in ("max_abs_err", "ms", "plain_ms",
-                                 "bound_ms", "library_ms")}
+        row.update({a: v[a] for a in keys})
+        row.update({a: b for a, b in v.items() if a not in keys})
+        row["w128"] = {a: b for a, b in per_width[1024][k].items()
+                       if a != "bound_by"}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

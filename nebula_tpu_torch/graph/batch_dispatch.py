@@ -1,5 +1,18 @@
-"""Continuous hop-boundary dispatch — the slice of
-``nebula_tpu/graph/batch_dispatch.py:371-1190`` that serves multi-hop GO.
+"""The dispatch tier — the slice of ``nebula_tpu/graph/batch_dispatch.py``
+that coalesces concurrent device queries.
+
+``GoBatchDispatcher.submit_batched`` is the one seam every device query
+enters.  An eligible multi-hop GO key (``ContinuousGoScheduler.
+route_eligible``) rides the continuous tier below; everything else —
+windowed-mode GO, single-step GO, FIND PATH's BFS — queues per shape
+key, one waiter becomes the batch leader, and the whole batch rides one
+runtime call.  The leader of a two-phase runtime call (``_Pending``)
+hands leadership on once the device work is launched, so the next batch
+launches while this one fetches and assembles; ``go_batch_inflight``
+bounds the batches in flight, and an adaptive pooling window
+(``_WindowController``) lets arrivals gather before a leader launches.
+Not yet ported from the windowed tier: admission shedding, deadlines,
+KILL QUERY and the device busy meter.
 
 One ``_ContinuousStream`` per (space, OVER set) owns a device session
 (tpu/runtime.py ``_ContinuousGoSession``) and a pump thread that runs
@@ -23,6 +36,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from ..common.flags import flags
 from ..storage.device import TpuDecline
 
 
@@ -361,6 +375,29 @@ class ContinuousGoScheduler:
         self._lock = threading.Lock()
         self._streams: Dict[Tuple, _ContinuousStream] = {}
 
+    @staticmethod
+    def route_eligible(key: Tuple) -> bool:
+        """Static routing decision from the shape key alone:
+        ('go_batch_execute', space, et_tuple, steps, upto, reduce).
+        Session-level eligibility (an empty mirror) is the stream's
+        ContinuousUnavailable fallback."""
+        if flags.get("go_dispatch_mode") != "continuous":
+            return False
+        if not flags.get("tpu_packed_frontier", True):
+            return False
+        if int(flags.get("tpu_mesh_devices") or 0) > 1:
+            return False
+        if key[0] != "go_batch_execute" or len(key) < 6:
+            return False
+        try:
+            steps = int(key[3])
+        except (TypeError, ValueError):
+            return False
+        reduce = key[5]
+        if reduce is not None and reduce[0] not in ("count", "limit"):
+            return False
+        return steps >= 2
+
     def submit(self, space_id: int, et_tuple: Tuple, payload, steps: int,
                upto: bool, reduce):
         """Ride the (space, OVER set) stream; returns (result, mirror)."""
@@ -392,3 +429,286 @@ class ContinuousGoScheduler:
     def shutdown(self, timeout_s: float = 10.0) -> None:
         for st in self.streams():
             st.stop(timeout_s=timeout_s)
+
+
+# ==================================================== windowed tier
+class _Request:
+    __slots__ = ("payload", "done", "result", "mirror", "error")
+
+    def __init__(self, payload):
+        self.payload = payload   # per-query input, method-defined (GO:
+        self.done = False        # _GoQuery; BFS: (srcs, dsts)); the
+        self.result = None       # leader maps ids against ONE mirror
+        self.mirror = None
+        self.error = None
+
+
+class _KeyState:
+    __slots__ = ("cond", "queue", "dispatching", "rt_ema_s")
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.queue: List[_Request] = []
+        self.dispatching = False
+        # EMA of this key's batch round-trip (leader entering _run ->
+        # results materialized); feeds the adaptive batch window.  0.0
+        # until the first batch completes, so a fresh key never sleeps
+        # on a guess.
+        self.rt_ema_s = 0.0
+
+
+class _PrioritySlots:
+    """Counted pipeline slots whose waiters are served in priority
+    order (lower value first; FIFO within a class): when a slot frees
+    under contention, a cheap interactive GO leader takes it ahead of
+    a deep FIND PATH BFS leader.  With no contention this is a plain
+    semaphore."""
+
+    def __init__(self, n: int):
+        self._cond = threading.Condition()
+        self._free = max(1, int(n))
+        self._seq = 0
+        self._waiters: List[Tuple[int, int]] = []   # heap (prio, seq)
+
+    def acquire(self, priority: int = 1) -> None:
+        with self._cond:
+            self._seq += 1
+            me = (int(priority), self._seq)
+            heapq.heappush(self._waiters, me)
+            try:
+                while self._free <= 0 or self._waiters[0] != me:
+                    self._cond.wait()
+            except BaseException:
+                # an interrupted waiter must not wedge the queue head
+                self._waiters = [w for w in self._waiters if w != me]
+                heapq.heapify(self._waiters)
+                self._cond.notify_all()
+                raise
+            heapq.heappop(self._waiters)
+            self._free -= 1
+            if self._free > 0 and self._waiters:
+                # two release()s can land while the old head is inside
+                # one wait(): popping ourselves makes a NEW head that
+                # nobody will notify again — hand the spare slot on
+                self._cond.notify_all()
+
+    def release(self) -> None:
+        with self._cond:
+            self._free += 1
+            self._cond.notify_all()
+
+
+class _WindowController:
+    """Closed-loop cap on the pooling window: tracks the queue depth
+    leaders observe and scales ``go_batch_window_max_ms`` down as depth
+    grows — cap = max_ms / (1 + depth_ema / depth_ref).  An idle
+    dispatcher keeps the full window; a saturated queue drives the wait
+    toward zero because arrivals already pool behind the in-flight
+    batches.  (The reference also tracks dispatch latency here for its
+    gauges, which the port does not export yet.)"""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.depth_ema = 0.0
+
+    def observe_depth(self, depth: int) -> None:
+        with self._lock:
+            self.depth_ema = 0.8 * self.depth_ema + 0.2 * float(depth)
+
+    def cap_s(self) -> float:
+        cap_raw = flags.get("go_batch_window_max_ms")
+        cap_s = (25.0 if cap_raw is None else float(cap_raw)) / 1000.0
+        ref_raw = flags.get("admission_window_depth_ref")
+        ref = 8.0 if ref_raw is None else float(ref_raw)
+        if ref <= 0:
+            return cap_s
+        with self._lock:
+            depth = self.depth_ema
+        return cap_s / (1.0 + depth / ref)
+
+
+class GoBatchDispatcher:
+    """Coalesces concurrent device queries into one runtime call per
+    shape key; routes continuous-eligible GO to the seat-map tier."""
+
+    def __init__(self, runtime):
+        self.runtime = runtime
+        self._lock = threading.Lock()
+        self._keys: Dict[Tuple, _KeyState] = {}
+        self._inflight = _PrioritySlots(
+            max(1, int(flags.get("go_batch_inflight") or 3)))
+        self.window = _WindowController()
+        self.stats = {"batches": 0, "batched_queries": 0, "max_batch": 0,
+                      "query_errors": 0}
+        self.continuous = ContinuousGoScheduler(runtime)
+
+    def _state(self, key: Tuple) -> _KeyState:
+        with self._lock:
+            st = self._keys.get(key)
+            if st is None:
+                st = self._keys[key] = _KeyState()
+            return st
+
+    @staticmethod
+    def _priority_for_key(key: Tuple) -> int:
+        """Per-query-class priority (lower = sooner): 1-hop and reduced
+        GO ahead of multi-hop GO ahead of FIND PATH BFS."""
+        method = key[0]
+        if method == "go_batch_execute":
+            steps = key[3] if len(key) > 3 else 1
+            if len(key) > 5 and key[5] is not None:
+                return 0             # reduced fetch: interactive class
+            try:
+                return 0 if int(steps) <= 1 else 1
+            except (TypeError, ValueError):
+                return 1
+        if method == "bfs_batch_dispatch":
+            return 2
+        return 1
+
+    def submit_batched(self, key: Tuple, payload):
+        """Coalesce any batched runtime entry point: ``key[0]`` names a
+        runtime method with signature ``fn(space_id, payloads, *key[2:])
+        -> (per-query results, mirror)`` — or a two-phase ``_Pending``
+        (an object with ``.finish()``) whose launch half has already
+        run.  Requests sharing the key ride one device dispatch.  A
+        per-query result that is an Exception instance is raised only
+        for its own submitter.  An eligible multi-hop GO key rides the
+        continuous tier; a stream that cannot anchor a session bounces
+        the rider back here."""
+        if ContinuousGoScheduler.route_eligible(key):
+            try:
+                return self.continuous.submit(key[1], key[2], payload,
+                                              int(key[3]), bool(key[4]),
+                                              key[5])
+            except ContinuousUnavailable:
+                pass                    # windowed fallback below
+        st = self._state(key)
+        req = _Request(payload)
+        st.cond.acquire()
+        try:
+            st.queue.append(req)
+            while not req.done:
+                if st.dispatching or not st.queue:
+                    st.cond.wait()
+                    continue
+                # become the leader for the next batch.  ANY failure
+                # between taking leadership and entering _run (whose
+                # finally hands it back) must reset `dispatching`
+                st.dispatching = True
+                sem_held = False
+                # a lone request skips the pooling wait (nothing to pool
+                # with), and so does a queue already at go_batch_max
+                qlen = len(st.queue)
+                self.window.observe_depth(qlen)
+                no_wait = qlen <= 1 or \
+                    qlen >= int(flags.get("go_batch_max") or 1024)
+                rt_ema_s = st.rt_ema_s
+                try:
+                    # take the pipeline slot BEFORE snapshotting the
+                    # batch: while go_batch_inflight batches are on the
+                    # device, arrivals pool and the next leader takes
+                    # them all
+                    st.cond.release()
+                    try:
+                        window = self._window_s(rt_ema_s)
+                        if no_wait:
+                            window = 0.0
+                        if window > 0:
+                            time.sleep(window)
+                        self._inflight.acquire(self._priority_for_key(key))
+                        sem_held = True
+                    finally:
+                        st.cond.acquire()
+                    max_b = int(flags.get("go_batch_max") or 1024)
+                    batch = st.queue[:max_b]
+                    del st.queue[:max_b]
+                except BaseException:       # cond is held here
+                    if sem_held:
+                        self._inflight.release()
+                    st.dispatching = False
+                    st.cond.notify_all()
+                    raise
+                st.cond.release()
+                released = [False]
+
+                def release_leadership():
+                    # device work for this batch is queued; the next
+                    # leader may launch while we fetch and assemble
+                    with st.cond:
+                        st.dispatching = False
+                        st.cond.notify_all()
+                    released[0] = True
+
+                try:
+                    self._run(key, batch, release_leadership)
+                finally:
+                    st.cond.acquire()
+                    if not released[0]:
+                        st.dispatching = False
+                    st.cond.notify_all()
+        finally:
+            st.cond.release()
+        if req.error is not None:
+            raise req.error
+        return req.result, req.mirror
+
+    def _window_s(self, rt_ema_s: float) -> float:
+        """Pooling wait (seconds) before the leader takes a pipeline
+        slot: ``go_batch_window_ms`` when set (>= 0), else
+        ``go_batch_window_frac`` of the key's round-trip EMA, capped by
+        the closed-loop controller."""
+        raw = flags.get("go_batch_window_ms")
+        window_ms = float(raw if raw is not None else -1)
+        if window_ms >= 0:
+            return window_ms / 1000.0
+        frac_raw = flags.get("go_batch_window_frac")
+        frac = 0.12 if frac_raw is None else float(frac_raw)
+        return min(rt_ema_s * frac, self.window.cap_s())
+
+    def _run(self, key: Tuple, batch: List[_Request],
+             release_leadership) -> None:
+        method, space_id = key[0], key[1]
+        st_key = self._state(key)
+        t_run0 = time.perf_counter()
+        n_errors = 0
+        try:
+            # the leader already holds an in-flight slot (acquired
+            # before the batch snapshot in submit_batched)
+            try:
+                fn = getattr(self.runtime, method)
+                res = fn(space_id, [r.payload for r in batch], *key[2:])
+                if hasattr(res, "finish"):   # two-phase _Pending
+                    release_leadership()
+                    results, mirror = res.finish()
+                else:
+                    results, mirror = res
+                dur = time.perf_counter() - t_run0
+                with st_key.cond:
+                    st_key.rt_ema_s = dur if st_key.rt_ema_s == 0.0 \
+                        else 0.7 * st_key.rt_ema_s + 0.3 * dur
+            finally:
+                self._inflight.release()
+            for i, r in enumerate(batch):
+                out = results[i]
+                if isinstance(out, Exception):
+                    r.error = out                # only this waiter fails
+                    n_errors += 1
+                else:
+                    r.result = out
+                    r.mirror = mirror
+        except BaseException as ex:        # noqa: BLE001 — batch-level
+            for r in batch:                # failure wakes every waiter
+                if r.error is None and r.result is None:
+                    r.error = ex
+            if not isinstance(ex, Exception):
+                raise                      # KeyboardInterrupt etc.
+        finally:
+            with self._lock:   # leaders for different keys run concurrently
+                self.stats["batches"] += 1
+                self.stats["batched_queries"] += len(batch)
+                self.stats["query_errors"] += n_errors
+                self.stats["max_batch"] = max(self.stats["max_batch"],
+                                              len(batch))
+            for r in batch:
+                r.done = True

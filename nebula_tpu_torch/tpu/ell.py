@@ -1,5 +1,5 @@
 """Degree-bucketed ELL tables — the host half of ``nebula_tpu/tpu/ell.py``
-(``:54-359``, ``:483-500``, ``:780-808``, ``:1127``).
+(``:51-359``, ``:483-500``, ``:780-808``, ``:1127``).
 
 A hop pulls ``next[v, :] = OR_j f[nbr[v, j], :] & [et[v, j] in OVER]``
 over packed lane words.  Vertices are relabeled so that one degree
@@ -21,6 +21,11 @@ from typing import List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+INT16_INF = np.int16(2**15 - 1)     # ell.py:51: an unreached BFS depth
+# kernels.py:37, kept here (the port has no tpu/kernels.py): an
+# unreached depth once FIND PATH widens the depth rows to int32
+INT32_INF = np.int32(2**31 - 1)
 
 
 def _next_pow2(x: np.ndarray) -> np.ndarray:
@@ -160,6 +165,10 @@ class EllIndex:
         (== n_rows, the pad row: the hub merge skips owners past the
         table, so an unclaimed spare merges nowhere)."""
         return self.n_rows
+
+    def to_old(self, frontier_new: np.ndarray) -> np.ndarray:
+        """[.., B] rows in new-id space -> old dense-id space."""
+        return frontier_new[self.perm]
 
     # -------------------------------------------------------------- shape
     def shape_sig(self) -> Tuple:

@@ -1,17 +1,29 @@
-"""Continuous-dispatch multi-hop GO over torch tensors — the slice of
-``nebula_tpu/tpu/runtime.py`` that the default serving mode runs.
+"""The port's device runtime over torch tensors — the slices of
+``nebula_tpu/tpu/runtime.py`` that serve GO and FIND PATH.
 
 ``TorchQueryRuntime`` holds per-space mirrors (``load_space`` stands in
 for the reference's KV fold), their ELL indexes and device tables, and
-a ``ContinuousGoScheduler`` (graph/batch_dispatch.py) that keeps one
-lane batch in flight per (space, OVER set).  ``serve_go`` is the entry
-point: it answers ``GO [UPTO] N STEPS FROM ... OVER e YIELD e._dst
-[| YIELD COUNT(*)]`` and declines everything else with ``TpuDecline``.
+a ``GoBatchDispatcher`` (graph/batch_dispatch.py) that every device
+query enters.  The entry points:
+
+- ``serve_go`` answers ``GO [UPTO] N STEPS FROM ... OVER e YIELD
+  e._dst [| YIELD COUNT(*)]``.  With ``go_dispatch_mode=continuous``
+  (the default) multi-hop GO rides one in-flight lane batch per
+  (space, OVER set) (``_ContinuousGoSession``); windowed mode and
+  single-step GO ride the coalescing dispatcher into
+  ``go_batch_execute`` and the dense ``ell_go`` / ``ell_go_count``
+  programs.
+- ``serve_find_path`` answers ``FIND SHORTEST|ALL PATH``: batched BFS
+  depths on the card (``ell_bfs``), then the host's parent walk
+  (``_reconstruct_paths``).
+
+Everything else raises ``TpuDecline``; the windowed route's sparse,
+adaptive and mesh kernels are not ported yet and their branches of
+``_launch_frontiers`` decline naming the kernel they need.
 
 Semantics held exactly: ``GO N STEPS`` is N-1 device hops, then the
 host-side final hop over the frontier's out-edges in the OVER set
-(``_frontier_edges_multi``); UPTO lanes read the union accumulator,
-which includes depth 0 because join sets the start bits in it too.
+(``_frontier_edges_multi``); UPTO reads the union of depths 0..N-1.
 """
 from __future__ import annotations
 
@@ -23,12 +35,36 @@ import numpy as np
 import torch
 
 from ..common.flags import flags
-from ..graph.batch_dispatch import ContinuousGoScheduler
+from ..graph.batch_dispatch import ContinuousGoScheduler, GoBatchDispatcher
 from ..storage.device import TpuDecline
 from . import ell_ops
 from .csr import CsrMirror
 from .device import DeviceLike, resolve_device
-from .ell import DeviceTables, EllIndex, lanes_width
+from .ell import (INT16_INF, INT32_INF, DeviceTables, EllIndex,
+                  lanes_width, unpack_lanes_host)
+
+
+class _Pending:
+    """Two-phase dispatcher contract: the leader launched device work
+    (async on the card's stream); ``finish()`` blocks on the transfer
+    and completes the host half.  While one batch finishes, the next
+    batch's leader may launch."""
+
+    __slots__ = ("finish",)
+
+    def __init__(self, finish):
+        self.finish = finish
+
+
+class _DeviceCounts:
+    """What a count-reduced launch's resolver returns instead of
+    per-query frontier vertex lists: the card already collapsed the
+    result to per-query candidate-edge counts (int64[nq])."""
+
+    __slots__ = ("arr",)
+
+    def __init__(self, arr: np.ndarray):
+        self.arr = arr
 
 
 class _GoQuery:
@@ -49,19 +85,48 @@ def _ladder() -> List[int]:
 
 
 class TorchQueryRuntime:
-    """The port's device runtime for continuous multi-hop GO."""
+    """The port's device runtime: GO (continuous and windowed) and
+    FIND PATH."""
 
     def __init__(self, device: DeviceLike = None):
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self.mirrors: Dict[int, CsrMirror] = {}
-        self.stats = {"go_device": 0, "go_reduced": 0, "fetch_bytes": 0,
-                      "fetch_wait_s": 0.0}
-        self.continuous = ContinuousGoScheduler(self)
+        # counters; the t_*_s entries are host wall seconds, summed over
+        # the threads that spent them: the windowed leader's launch
+        # (enqueue), fetch and assembly, FIND PATH's BFS dispatch
+        # (levels, flag reads and the depth fetch) and its host parent
+        # walk; cpu_paths_s is the walk's own CPU time (thread_time),
+        # which leaves out the waits for the GIL that t_paths_s counts
+        self.stats = {"go_device": 0, "go_reduced": 0, "go_dense": 0,
+                      "path_device": 0, "bfs_dispatches": 0,
+                      "bfs_levels": 0, "fetch_bytes": 0,
+                      "fetch_wait_s": 0.0, "t_launch_s": 0.0,
+                      "t_fetch_s": 0.0, "t_assemble_s": 0.0,
+                      "t_bfs_s": 0.0, "t_paths_s": 0.0,
+                      "cpu_paths_s": 0.0}
+        self.dispatcher = GoBatchDispatcher(self)
+
+    @property
+    def continuous(self) -> ContinuousGoScheduler:
+        """The dispatcher's continuous tier (one stream per (space,
+        OVER set))."""
+        return self.dispatcher.continuous
 
     def close(self) -> None:
         """Stop every stream's pump thread (seated riders are failed)."""
         self.continuous.shutdown()
+
+    def _bump(self, key: str, n=1) -> None:
+        with self._lock:
+            self.stats[key] += n
+
+    def _tick(self, key: str, t0: float) -> float:
+        """Add the seconds since ``t0`` to a stats bucket; returns now."""
+        now = time.perf_counter()
+        with self._lock:
+            self.stats[key] += now - t0
+        return now
 
     # --------------------------------------------------- mirror lifecycle
     def load_space(self, space_id: int, mirror: CsrMirror) -> None:
@@ -123,15 +188,17 @@ class TorchQueryRuntime:
                  reduce=None, yield_cols: Optional[Sequence[str]] = None,
                  where=None, limit: Optional[int] = None
                  ) -> Tuple[List[str], List[List[int]]]:
-        """Serve one multi-hop GO; returns (columns, rows).
+        """Serve one GO; returns (columns, rows).
 
         ``etypes`` are signed (negative = REVERSELY) and must name one
         edge alias in ``etype_to_alias``; the result column is
         ``"<alias>._dst"`` with one row per final-hop edge, or with
         ``reduce=("count",)`` the single row ``[[n]]`` under
-        ``"__count__"``.  WHERE, other YIELD columns, LIMIT, other
-        reductions, ``steps < 2`` and unloaded spaces raise
-        TpuDecline."""
+        ``"__count__"``.  The request enters the dispatcher as
+        ``_go_via_dispatcher`` (runtime.py:1352) submits it: multi-hop
+        GO rides the continuous stream in continuous mode, everything
+        else ``go_batch_execute``.  WHERE, other YIELD columns, LIMIT,
+        other reductions and unloaded spaces raise TpuDecline."""
         if where is not None:
             raise TpuDecline("WHERE is not served by the device slice")
         if limit is not None:
@@ -139,9 +206,6 @@ class TorchQueryRuntime:
         if reduce is not None and tuple(reduce) != ("count",):
             raise TpuDecline(f"reduction {reduce!r} is not served")
         steps = int(steps)
-        if steps < 2:
-            raise TpuDecline("single-step GO is not served by the "
-                             "continuous device path")
         et_tuple = tuple(sorted(set(int(e) for e in etypes)))
         if not et_tuple or 0 in et_tuple:
             raise TpuDecline("GO needs an OVER edge type")
@@ -154,12 +218,74 @@ class TorchQueryRuntime:
                              f"only {column}")
         if self.mirror(space_id) is None:
             raise TpuDecline(f"space {space_id} is not loaded")
-        with self._lock:
-            self.stats["go_device"] += 1
-        result, _m = self.continuous.submit(
-            space_id, et_tuple, _GoQuery(start_vids, column), steps,
-            bool(upto), None if reduce is None else tuple(reduce))
+        self._bump("go_device")
+        result, _m = self.dispatcher.submit_batched(
+            ("go_batch_execute", space_id, et_tuple, steps, bool(upto),
+             None if reduce is None else tuple(reduce)),
+            _GoQuery(start_vids, column))
         return result
+
+    # ------------------------------------------------ batch entry point
+    def go_batch_execute(self, space_id: int, queries: List[_GoQuery],
+                         et_tuple: Tuple[int, ...], steps: int,
+                         upto: bool = False, reduce=None) -> _Pending:
+        """Dispatcher leader entry: one device launch for the whole
+        batch's frontier advance, then one vectorized host pass.  The
+        returned _Pending's finish() yields (results, mirror), results[i]
+        being (columns, rows)."""
+        t0 = time.perf_counter()
+        launch = self._launch_frontiers(
+            space_id, [q.start_vids for q in queries], et_tuple, steps,
+            upto=upto, reduce=reduce)
+        self._tick("t_launch_s", t0)
+
+        def finish():
+            t1 = time.perf_counter()
+            vs_lists, m = launch()
+            t1 = self._tick("t_fetch_s", t1)
+            if reduce is not None and reduce[0] == "count":
+                results = self._count_results(m, vs_lists, et_tuple)
+                self._bump("go_reduced", len(queries))
+            else:
+                results = self._assemble_results(m, queries, vs_lists,
+                                                 et_tuple)
+            self._tick("t_assemble_s", t1)
+            return results, m
+
+        return _Pending(finish)
+
+    def go_batch(self, space_id: int, starts_per_query,
+                 etypes: Sequence[int], steps: int) -> np.ndarray:
+        """Run B concurrent multi-hop GOs; returns bool [B, n] final
+        frontiers (the final-hop *destinations*, i.e. ``steps``
+        advances — the kernel's steps counts like kernels._go_body, so
+        pass steps + 1) in the mirror's dense-id space.  Oversized
+        batches run in go_batch_max chunks."""
+        et_tuple = tuple(sorted(set(int(e) for e in etypes)))
+        self._bump("go_device", len(starts_per_query))
+        if not starts_per_query:
+            m = self.mirror(space_id)
+            return np.zeros((0, 0 if m is None else m.n), dtype=bool)
+        max_b = int(flags.get("go_batch_max") or 1024)
+        outs = []
+        for lo in range(0, len(starts_per_query), max_b):
+            out, _ = self._go_batch_frontiers(
+                space_id, starts_per_query[lo:lo + max_b], et_tuple,
+                steps + 1)
+            outs.append(out)
+        return np.concatenate(outs, axis=0) if len(outs) > 1 else outs[0]
+
+    def _go_batch_frontiers(self, space_id: int, starts_per_query,
+                            et_tuple: Tuple[int, ...], kernel_steps: int):
+        """``kernel_steps - 1`` frontier advances for B queries; returns
+        (bool [B, n] frontiers in dense-id space, mirror)."""
+        resolver = self._launch_frontiers(space_id, starts_per_query,
+                                          et_tuple, kernel_steps)
+        vs_lists, m = resolver()
+        out = np.zeros((len(starts_per_query), m.n), dtype=bool)
+        for q, vs in enumerate(vs_lists):
+            out[q, vs] = True
+        return out, m
 
     # ------------------------------------- continuous dispatch seam
     def continuous_session(self, space_id: int,
@@ -209,11 +335,16 @@ class TorchQueryRuntime:
 
     def _count_results(self, m: CsrMirror, vs_lists,
                        et_tuple: Tuple[int, ...]):
-        """Per-query COUNT(*) from the fetched frontier lists folded
-        through the cached per-vertex degree vector."""
-        deg = self._deg_host(m, et_tuple)
-        return [(["__count__"], [[int(deg[vs].sum()) if len(vs) else 0]])
-                for vs in vs_lists]
+        """Per-query COUNT(*): either the card already counted
+        (_DeviceCounts) or the fetched frontier lists fold through the
+        cached per-vertex degree vector."""
+        if isinstance(vs_lists, _DeviceCounts):
+            counts = vs_lists.arr.tolist()
+        else:
+            deg = self._deg_host(m, et_tuple)
+            counts = [int(deg[vs].sum()) if len(vs) else 0
+                      for vs in vs_lists]
+        return [(["__count__"], [[int(c)]]) for c in counts]
 
     def _assemble_results(self, m: CsrMirror, queries: List[_GoQuery],
                           vs_lists, et_tuple: Tuple[int, ...]):
@@ -241,6 +372,25 @@ class TorchQueryRuntime:
                 .astype(np.int64)
             cache[et_tuple] = deg
         return deg
+
+    def _deg_dev(self, m: CsrMirror, ix: EllIndex,
+                 et_tuple: Tuple[int, ...]) -> torch.Tensor:
+        """int32[n_rows+1] NEW-id-space device copy of _deg_host (zero
+        for hub extra rows and the pad row, so junk extras never
+        count), cached per (mirror, OVER) and device."""
+        cache = getattr(m, "_deg_dev_cache", None)
+        if cache is None:
+            cache = m._deg_dev_cache = {}
+        key = (et_tuple, str(self.device))
+        dev = cache.get(key)
+        if dev is None:
+            if len(cache) >= 8:
+                cache.clear()
+            deg = np.zeros(ix.n_rows + 1, np.int32)
+            deg[ix.perm] = np.minimum(self._deg_host(m, et_tuple),
+                                      2**31 - 1).astype(np.int32)
+            dev = cache[key] = torch.from_numpy(deg).to(self.device)
+        return dev
 
     def _note_fetch(self, arr: np.ndarray, waited_s: float) -> None:
         """Account the bytes one resolver pulled off the device and the
@@ -304,6 +454,329 @@ class TorchQueryRuntime:
         keep = self._etype_edge_mask(m, et_tuple)[idx]
         idx, qseg = idx[keep], qseg[keep]
         return idx, qseg, np.searchsorted(qseg, np.arange(nq + 1))
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """Copy a device result to the host (blocking), accounting its
+        bytes and the wait."""
+        t0 = time.perf_counter()
+        host = t.cpu().numpy()
+        self._note_fetch(host, time.perf_counter() - t0)
+        return host
+
+    # ------------------------------------------------ frontier launch
+    @staticmethod
+    def _sparse_ladder() -> List[int]:
+        """The pinned sparse start-capacity ladder (ascending)."""
+        return sorted(int(x) for x in
+                      str(flags.get("tpu_sparse_c0s") or
+                          "256,2048").split(",") if x.strip())
+
+    @classmethod
+    def _sparse_c0(cls, total_starts: int) -> Optional[int]:
+        """Smallest pinned sparse start-capacity holding the batch, or
+        None when the batch is empty / outgrows the ladder."""
+        if total_starts <= 0:
+            return None
+        for w in cls._sparse_ladder():
+            if total_starts <= w:
+                return w
+        return None
+
+    @staticmethod
+    def _batch_width(nq: int) -> int:
+        """Pad the query count to a pinned ladder width
+        (``go_batch_widths``), as the reference does to keep its set of
+        program shapes small; past the ladder, the next power of two."""
+        for w in _ladder():
+            if nq <= w:
+                return w
+        return max(_ladder()[-1], 1 << (nq - 1).bit_length())
+
+    def _launch_frontiers(self, space_id: int, starts_per_query,
+                          et_tuple: Tuple[int, ...], steps: int,
+                          upto: bool = False, reduce=None):
+        """Start the device work for ``steps - 1`` frontier advances of
+        B queries; returns a zero-arg resolver -> (per-query ascending
+        dense-id frontier arrays, or _DeviceCounts, and the mirror).
+        The reference's selection order: host-only (steps == 1) →
+        mesh → sparse pair-list → sparse split → adaptive single →
+        dense bit-packed.  The mesh, sparse and adaptive kernels are
+        not ported: a batch that the reference would send there
+        raises TpuDecline naming the kernel.  ``upto`` returns the
+        UNION of depths 0..steps-1."""
+        m = self.mirror(space_id)
+        if m is None:
+            raise TpuDecline(f"space {space_id} is not loaded")
+        nq = len(starts_per_query)
+        if steps < 1:
+            empty = [np.zeros(0, np.int64)] * nq
+            return lambda: (empty, m)
+
+        # one flat (dense id, query) vector, deduped by one lexsort
+        lens = [len(s) for s in starts_per_query]
+        flat: List[int] = []
+        for s in starts_per_query:
+            flat.extend(int(v) for v in s)
+        d_all = m.to_dense(np.asarray(flat, dtype=np.int64))
+        q_all = np.repeat(np.arange(nq, dtype=np.int64),
+                          np.asarray(lens, np.int64))
+        keep = d_all >= 0
+        d_all, q_all = d_all[keep].astype(np.int64), q_all[keep]
+        order = np.lexsort((d_all, q_all))
+        d_all, q_all = d_all[order], q_all[order]
+        if len(d_all):
+            first = np.ones(len(d_all), dtype=bool)
+            first[1:] = (q_all[1:] != q_all[:-1]) | (d_all[1:] != d_all[:-1])
+            d_all, q_all = d_all[first], q_all[first]
+        qbounds = np.searchsorted(q_all, np.arange(nq + 1))
+
+        if steps == 1 or m.m == 0:
+            # frontier before the final hop IS the start set
+            starts_v = [d_all[qbounds[q]:qbounds[q + 1]]
+                        for q in range(nq)]
+            return lambda: (starts_v, m)
+
+        ix = self.ell(m)
+        c0 = self._sparse_c0(len(d_all))
+        if int(flags.get("tpu_mesh_devices") or 0) > 1:
+            raise TpuDecline("mesh-sharded GO needs the mesh_sparse_go / "
+                             "ell_go_sharded kernels (ell.py:2052, "
+                             ":1712), not ported")
+        if flags.get("tpu_sparse_go") and c0 is not None:
+            raise TpuDecline("sparse batched GO needs the sparse_go "
+                             "kernel (ell.py:1222), not ported")
+        if flags.get("tpu_sparse_go") and c0 is None and nq > 1 \
+                and (np.diff(qbounds) <= max(self._sparse_ladder())).all():
+            # the reference splits the batch into ladder-sized sparse
+            # sub-launches (_launch_sparse_split); only a query that
+            # alone outgrows the ladder sends it to the dense pull
+            raise TpuDecline("split sparse batched GO needs the "
+                             "sparse_go kernel (ell.py:1222), not ported")
+        if nq == 1 and not upto and reduce is None \
+                and flags.get("tpu_adaptive_single") \
+                and len(d_all) <= int(flags.get("tpu_adaptive_k") or 2048):
+            raise TpuDecline("single-query GO needs the adaptive_go kernel "
+                             "(ell.py:1493), not ported")
+        return self._launch_dense(m, ix, d_all, q_all, nq, et_tuple, steps,
+                                  upto=upto, reduce=reduce)
+
+    def _launch_dense(self, m: CsrMirror, ix: EllIndex, d_all: np.ndarray,
+                      q_all: np.ndarray, nq: int,
+                      et_tuple: Tuple[int, ...], steps: int,
+                      upto: bool = False, reduce=None):
+        """The packed single-chip dense route (runtime.py:2020): upload
+        the start lanes, enqueue ``ell_go`` or, for COUNT(*),
+        ``ell_go_count``; the resolver fetches the live word columns (or
+        the nq counts).  Unlike the reference, whose count kernel is
+        built without ``upto`` (its front end never sends UPTO with a
+        count reduction), the count here folds the UPTO union, as the
+        continuous path's count does."""
+        if not flags.get("tpu_packed_frontier", True):
+            raise TpuDecline("tpu_packed_frontier=false needs the unpacked "
+                             "ell_go kernel (ell.py:1140), not ported")
+        B = self._batch_width(nq)
+        f0 = self._upload_frontier_packed(ix, ix.perm[d_all],
+                                          q_all.astype(np.int32), B)
+        tables = self._device_tables(m, ix)
+        eslot, hrows = self._hub_merge_dev(m, ix)
+        count_mode = reduce is not None and reduce[0] == "count"
+        if count_mode:
+            out_dev = ell_ops.ell_go_count(
+                f0, self._deg_dev(m, ix, et_tuple), tables, eslot, hrows,
+                et_tuple, steps, upto)
+        else:
+            out_dev = ell_ops.ell_go(f0, tables, eslot, hrows, et_tuple,
+                                     steps, upto)
+        self._bump("go_dense")
+
+        if count_mode:
+            def resolve_counts():
+                counts = self._fetch(out_dev[:nq])
+                return _DeviceCounts(counts.astype(np.int64)), m
+            return resolve_counts
+
+        def resolve():
+            # slice to the live query words ON DEVICE before the fetch
+            nwp = min(lanes_width(B), max(1, -(-nq // 8)))
+            lanes = self._fetch(out_dev[:, :nwp])   # [R1, nwp] uint8
+            old = unpack_lanes_host(lanes, nq)[ix.perm]   # [n, nq]
+            qs, vs = np.nonzero(old.T)
+            bounds = np.searchsorted(qs, np.arange(nq + 1))
+            return [vs[bounds[q]:bounds[q + 1]] for q in range(nq)], m
+
+        return resolve
+
+    def _upload_frontier_packed(self, ix: EllIndex, new_ids: np.ndarray,
+                                qcols: np.ndarray, B: int) -> torch.Tensor:
+        """The packed start frontier uint8 [rows+1, B/8] built ON the
+        card from the flat (new-id row, query col) coordinates
+        (runtime.py:3251).  (row, query) pairs are deduped HERE, so two
+        bits never collide in one cell and the kernel's add is an or;
+        the list pads to a power of two of at least 8 entries aimed at
+        the pad row, which ends zero."""
+        if len(new_ids):
+            key = np.asarray(new_ids, np.int64) * max(B, 1) \
+                + np.asarray(qcols, np.int64)
+            _, first = np.unique(key, return_index=True)
+            new_ids = np.asarray(new_ids)[first]
+            qcols = np.asarray(qcols)[first]
+        S = len(new_ids)
+        Sp = max(8, 1 << (max(S, 1) - 1).bit_length())
+        rows_p = np.full(Sp, ix.n_rows, np.int32)
+        word_p = np.zeros(Sp, np.int32)
+        vals_p = np.zeros(Sp, np.uint8)
+        rows_p[:S] = new_ids
+        word_p[:S] = qcols >> 3
+        vals_p[:S] = np.uint8(1) << (qcols & 7).astype(np.uint8)
+        out = torch.empty((ix.n_rows + 1, lanes_width(B)), dtype=torch.uint8,
+                          device=self.device)
+
+        def up(a):
+            return torch.from_numpy(a).to(self.device)
+        return ell_ops.frontier_upload(out, up(rows_p), up(word_p),
+                                       up(vals_p))
+
+    # ================================================== FIND PATH
+    @staticmethod
+    def _flat_coords(m: CsrMirror, ix: EllIndex, per_query, nq: int):
+        """Per-query vid lists -> flat (new-id rows, query ids) with
+        unknown vids dropped."""
+        lens = [len(s) for s in per_query]
+        flat: List[int] = []
+        for s in per_query:
+            flat.extend(int(v) for v in s)
+        d = m.to_dense(flat)
+        q = np.repeat(np.arange(nq, dtype=np.int32),
+                      np.asarray(lens, np.int64))
+        keep = d >= 0
+        return ix.perm[d[keep]], q[keep]
+
+    def _bfs_depths(self, space_id: int, m: CsrMirror, starts_per_query,
+                    targets_per_query, et_tuple: Tuple[int, ...],
+                    max_steps: int, shortest: bool) -> np.ndarray:
+        """Batched BFS core against an already-fetched mirror: int16
+        [B, n] depths (INT16_INF = unreached), the packed single-chip
+        route of runtime.py:3319."""
+        if int(flags.get("tpu_mesh_devices") or 0) > 1:
+            raise TpuDecline("mesh-sharded FIND PATH needs the "
+                             "mesh_sparse_bfs / ell_bfs_sharded kernels "
+                             "(ell.py:2179, :1799), not ported")
+        if not flags.get("tpu_packed_frontier", True):
+            raise TpuDecline("tpu_packed_frontier=false needs the unpacked "
+                             "ell_bfs kernel (ell.py:1616), not ported")
+        t0 = time.perf_counter()
+        ix = self.ell(m)
+        nq = len(starts_per_query)
+        B = self._batch_width(nq)
+        tables = self._device_tables(m, ix)
+        eslot, hrows = self._hub_merge_dev(m, ix)
+        f0 = self._upload_frontier_packed(
+            ix, *self._flat_coords(m, ix, starts_per_query, nq), B)
+        t0p = self._upload_frontier_packed(
+            ix, *self._flat_coords(m, ix, targets_per_query, nq), B)
+        self._bump("path_device", nq)
+        d_dev, levels = ell_ops.ell_bfs(f0, t0p, tables, eslot, hrows,
+                                        et_tuple, max_steps,
+                                        stop_when_found=shortest)
+        nqp = min(B, max(8, -(-nq // 8) * 8))
+        host = self._fetch(d_dev[:, :nqp])[:, :nq]   # device slice
+        with self._lock:
+            self.stats["bfs_dispatches"] += 1
+            self.stats["bfs_levels"] += levels
+        self._tick("t_bfs_s", t0)
+        if host.dtype == np.int8:        # in-kernel compression (-1=INF)
+            d = np.where(host < 0, INT16_INF, host).astype(np.int16)
+        else:
+            d = host
+        return ix.to_old(d).T
+
+    def bfs_batch(self, space_id: int, starts_per_query, targets_per_query,
+                  etypes: Sequence[int], max_steps: int,
+                  shortest: bool = True) -> np.ndarray:
+        """Batched BFS depths: int16 [B, n] (INT16_INF = unreached)."""
+        if len(starts_per_query) != len(targets_per_query):
+            raise ValueError(
+                f"bfs_batch: {len(starts_per_query)} start lists vs "
+                f"{len(targets_per_query)} target lists")
+        rows, _ = self.bfs_batch_dispatch(
+            space_id, list(zip(starts_per_query, targets_per_query)),
+            tuple(sorted(set(int(e) for e in etypes))), max_steps,
+            shortest)
+        return np.asarray(rows)
+
+    def bfs_batch_dispatch(self, space_id: int, pairs,
+                           et_tuple: Tuple[int, ...], max_steps: int,
+                           shortest: bool):
+        """Dispatcher entry: ``pairs`` is [(srcs, dsts), ...]; returns
+        (depth rows, mirror)."""
+        m = self.mirror(space_id)
+        if m is None:
+            raise TpuDecline(f"space {space_id} is not loaded")
+        d = self._bfs_depths(space_id, m, [p[0] for p in pairs],
+                             [p[1] for p in pairs], et_tuple, max_steps,
+                             shortest)
+        return list(d), m
+
+    def run_find_path(self, space_id: int, srcs: Sequence[int],
+                      dsts: Sequence[int], etypes: Sequence[int],
+                      max_steps: int, shortest: bool,
+                      etype_names: Dict[int, str]
+                      ) -> Tuple[List[str], List[List[str]]]:
+        """FIND PATH: BFS depths on the card, coalesced with concurrent
+        same-shaped FIND PATHs by the dispatcher, then the host's
+        parent walk.  Returns (["path"], rows)."""
+        if not srcs or not dsts:
+            return ["path"], []
+        et_tuple = tuple(sorted(set(int(e) for e in etypes)))
+        d16, m = self.dispatcher.submit_batched(
+            ("bfs_batch_dispatch", space_id, et_tuple, int(max_steps),
+             bool(shortest)), (list(srcs), list(dsts)))
+        if m.m == 0:
+            return ["path"], []
+        depth = np.where(d16 == INT16_INF, INT32_INF,
+                         d16.astype(np.int32))
+        t0, c0 = time.perf_counter(), time.thread_time()
+        out = _reconstruct_paths(m, depth, srcs, dsts, et_tuple,
+                                 int(max_steps), bool(shortest),
+                                 etype_names,
+                                 self._in_edges(m, et_tuple))
+        self._tick("t_paths_s", t0)
+        self._bump("cpu_paths_s", time.thread_time() - c0)
+        return out
+
+    def serve_find_path(self, space_id: int, srcs: Sequence[int],
+                        dsts: Sequence[int], etypes: Sequence[int],
+                        max_steps: int, shortest: bool,
+                        etype_names: Dict[int, str]
+                        ) -> Tuple[List[str], List[List[str]]]:
+        """Serve one ``FIND SHORTEST|ALL PATH FROM srcs TO dsts OVER ...
+        UPTO max_steps STEPS``; returns (columns, rows) with one
+        formatted path string per row, sorted.  ``etypes`` are signed
+        (negative = REVERSELY); ``etype_names`` maps a signed etype to
+        the name a path prints.  Raises TpuDecline for an unloaded
+        space."""
+        if self.mirror(space_id) is None:
+            raise TpuDecline(f"space {space_id} is not loaded")
+        return self.run_find_path(space_id, srcs, dsts, etypes, max_steps,
+                                  shortest, etype_names)
+
+    def _in_edges(self, m: CsrMirror, et_tuple: Tuple[int, ...]):
+        """(edge ids, their dst) of the OVER-set edges, stably sorted by
+        dst — the in-edge view the parent walk reads, cached per
+        (mirror, OVER).  The reference argsorts all m edges on every
+        call and skips the other etypes edge by edge; the rows come out
+        the same."""
+        cache = getattr(m, "_in_edge_cache", None)
+        if cache is None:
+            cache = m._in_edge_cache = {}
+        got = cache.get(et_tuple)
+        if got is None:
+            if len(cache) >= 8:
+                cache.clear()
+            ok = np.nonzero(self._etype_edge_mask(m, et_tuple))[0]
+            order = ok[np.argsort(m.edge_dst[ok], kind="stable")]
+            got = cache[et_tuple] = (order, m.edge_dst[order])
+        return got
 
 
 # ================================================ continuous dispatch
@@ -445,3 +918,74 @@ class _ContinuousGoSession:
         for lane in lanes:
             keep[lane >> 3] &= np.uint8(0xFF ^ (1 << (lane & 7)))
         ell_ops.lane_clear(self.fp, self.accp, self._up(keep))
+
+
+# ================================================== path reconstruction
+MAX_PATHS = 1000
+
+
+def _reconstruct_paths(m: CsrMirror, depth: np.ndarray, srcs, dsts,
+                       et_tuple, max_steps: int, shortest: bool,
+                       etype_names: Dict[int, str], in_edges_ok
+                       ) -> Tuple[List[str], List[List[str]]]:
+    """Host half of FIND PATH (runtime.py:3765): the parent walk over
+    the CSR's in-edge view.  ``depth`` is int32 [n] (INT32_INF =
+    unreached); ``in_edges_ok`` is (OVER-set edge ids sorted by dst,
+    their dst).  Each vertex's candidate edges are filtered in one
+    numpy step and then walked in the reference's order, so MAX_PATHS
+    truncates at the same path.  Returns (["path"], sorted rows)."""
+    order, sorted_dst = in_edges_ok
+    src_set = {int(i) for i in m.to_dense(srcs) if i >= 0}
+    paths: List[str] = []
+
+    def in_edges(v: int) -> np.ndarray:
+        lo = np.searchsorted(sorted_dst, v, "left")
+        hi = np.searchsorted(sorted_dst, v, "right")
+        return order[lo:hi]
+
+    def step_of(e: int, v: int):
+        return (int(m.edge_etype[e]), int(m.edge_rank[e]), v)
+
+    def fmt(chain, start_dense: int) -> str:
+        parts = [str(int(m.vids[start_dense]))]
+        for (etype, rank, node) in chain:
+            parts.append(f"<{etype_names.get(etype, etype)},{rank}>")
+            parts.append(str(int(m.vids[node])))
+        return " ".join(parts)
+
+    if shortest:
+        def build_shortest(v: int, acc, d: int):
+            if len(paths) >= MAX_PATHS:
+                return
+            if d == 0:
+                if v in src_set:
+                    paths.append(fmt(acc, v))
+                return
+            es = in_edges(v)
+            for e in es[depth[m.edge_src[es]] == d - 1].tolist():
+                build_shortest(int(m.edge_src[e]), [step_of(e, v)] + acc,
+                               d - 1)
+
+        for dd in m.to_dense(dsts):
+            dd = int(dd)
+            if dd >= 0 and 0 < depth[dd] < INT32_INF:
+                build_shortest(dd, [], int(depth[dd]))
+    else:
+        # ALL: every edge whose src was discovered within max_steps-1
+        # is a parent edge (FindPathExecutor records exactly those)
+        def build_all(v: int, acc, visited):
+            if len(paths) >= MAX_PATHS or len(acc) > max_steps:
+                return
+            if v in src_set and acc:
+                paths.append(fmt(acc, v))
+            es = in_edges(v)
+            for e in es[depth[m.edge_src[es]] <= max_steps - 1].tolist():
+                u = int(m.edge_src[e])
+                if u not in visited:
+                    build_all(u, [step_of(e, v)] + acc, visited | {u})
+
+        for dd in m.to_dense(dsts):
+            dd = int(dd)
+            if dd >= 0:
+                build_all(dd, [], {dd})
+    return ["path"], [[p] for p in sorted(paths)]

@@ -181,10 +181,9 @@ def test_smoke_oracle_matches_cluster(served):
 
 
 def test_unsupported_requests_decline(served):
-    _ok, rt, space, et, _src, _dst = served
+    ok, rt, space, et, _src, _dst = served
     alias = {et: "e"}
     cases = [
-        dict(steps=1),
         dict(where="e.w > 3"),
         dict(limit=3),
         dict(reduce=("limit", 3)),
@@ -204,6 +203,11 @@ def test_unsupported_requests_decline(served):
     cols, _rows = rt.serve_go(space, [1], [et], 2, alias,
                               yield_cols=["e._dst"])
     assert cols == ["e._dst"]
+    # single-step GO is served (by the windowed route, on the host)
+    cols, rows = rt.serve_go(space, [1], [et], 1, alias)
+    assert cols == ["e._dst"]
+    assert sorted(map(tuple, rows)) == \
+        sorted(map(tuple, ok("GO 1 STEPS FROM 1 OVER e YIELD e._dst").rows))
 
 
 def test_space_loads_once(served):
