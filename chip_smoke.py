@@ -10,7 +10,7 @@ Hopper card.
 The defaults are the serve cell; ``--vertices 16777216 --edges
 105000000 --cap 256 --widths 128`` is the round-5 scale shape, and
 ``--profile R`` adds a profiled window of each traffic kind after
-phase 6.
+phase 8.
 
 Phases, in order; any failure exits non-zero:
 
@@ -26,7 +26,15 @@ Phases, in order; any failure exits non-zero:
              bound for the work.  The continuous session's four
              kernels, then the windowed path's: the packed frontier
              upload, ``ell_go`` at 3 steps (exact and UPTO), the
-             COUNT(*) fold, the BFS level pass and its int8 form
+             COUNT(*) fold, the BFS level pass and its int8 form; then
+             the sparse GO program (K4 expand, K5 compact, K6 reduce)
+             at c0 256 and 2048, 3 and 4 steps, with a tight-cap batch
+             that overflows, and the adaptive program (K4, K5, K7, the
+             lane layout change, the hop) at the default K and a K
+             that forces the dense switch: every kernel call of those
+             runs is held against its plain version on copies of its
+             operands, and each program's output against the program's
+             plain version
 4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
              edges, stored in both directions) served by
              ``TorchQueryRuntime`` in continuous mode: R GO requests
@@ -34,14 +42,24 @@ Phases, in order; any failure exits non-zero:
 5. windowed  the same R requests with ``go_dispatch_mode=windowed``,
              ``tpu_sparse_go=false`` and ``tpu_adaptive_single=false``
              (the dense ``ell_go`` route), 64 checked against the oracle
-6. path      P ``FIND SHORTEST PATH ... UPTO 5 STEPS`` requests (1 src,
+6. sparse    R requests of the same kinds (another seed) windowed with
+             every other flag at its default (the sparse route, its
+             split and its dense rerun on overflow); a quarter of the
+             plain exact-depth ones end in ``| LIMIT 10``; 64 checked
+             against the oracle (LIMIT: min(10, total) rows, each one
+             of the full answer's)
+7. adaptive  256 single-start plain GO requests, one after another from
+             one thread, windowed with ``tpu_sparse_go=false`` (the
+             adaptive route), a sixteenth of them from a hub so that
+             the dense arm runs; 64 checked against the oracle
+8. path      P ``FIND SHORTEST PATH ... UPTO 5 STEPS`` requests (1 src,
              1 dst each) from PT threads, 64 checked against a numpy
              BFS and path enumeration, then a checked sample of ``FIND
              ALL PATH ... UPTO 3 STEPS``
-7. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
-8. the last line ``{"ok": true, "device": {...}}``
+9. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
+10. the last line ``{"ok": true, "device": {...}}``
 
-Every launch count is zeroed just before each of phases 4-6 drives the
+Every launch count is zeroed just before each of phases 4-8 drives the
 port and read just after it; every kernel of a phase's path must have
 been launched there.  The script imports nothing of the JAX package.
 It needs one CUDA card and refuses to run (non-zero exit, no result)
@@ -69,14 +87,31 @@ REPLACES = {
     "go_count": "nebula_tpu/tpu/ell.py:572",
     "bfs_level": "nebula_tpu/tpu/ell.py:1080",
     "bfs_depth_i8": "nebula_tpu/tpu/ell.py:1121",
+    "sparse_expand": "nebula_tpu/tpu/ell.py:1315",
+    "pair_compact": "nebula_tpu/tpu/ell.py:1346",
+    "pair_reduce": "nebula_tpu/tpu/ell.py:1386",
+    "sparse_go": "nebula_tpu/tpu/ell.py:1222",
+    "sparse_go_count": "nebula_tpu/tpu/ell.py:1222",
+    "sparse_go_limit": "nebula_tpu/tpu/ell.py:1222",
+    "adaptive_switch": "nebula_tpu/tpu/ell.py:1593",
+    "bitmap_lanes": "nebula_tpu/tpu/ell.py:1582",
+    "adaptive_go": "nebula_tpu/tpu/ell.py:1493",
 }
-SOURCE = "nebula_tpu_torch/tpu/csrc/ell_lanes.cu"
+SOURCES = {k: "nebula_tpu_torch/tpu/csrc/ell_lanes.cu"
+           for k in list(REPLACES)[:9]}
+SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/sparse_go.cu"
+                for k in list(REPLACES)[9:]})
 # which counted phase runs each kernel on its main path
 PATH_KERNELS = {
     "serve": ("go_hop", "lane_join", "lane_extract", "lane_clear"),
     "windowed": ("frontier_upload", "go_hop", "ell_go", "go_count"),
+    "sparse": ("sparse_expand", "pair_compact", "pair_reduce",
+               "sparse_go", "sparse_go_count", "sparse_go_limit"),
+    "adaptive": ("sparse_expand", "pair_compact", "adaptive_switch",
+                 "bitmap_lanes", "go_hop", "adaptive_go"),
     "path": ("frontier_upload", "go_hop", "bfs_level", "bfs_depth_i8"),
 }
+LIMIT_N = 10                   # the sparse phase's | LIMIT n
 MAX_PATHS = 1000               # the port's FIND PATH result cap
 PATH_PHASE_S = 120.0           # the path phase stops issuing past this
 
@@ -98,22 +133,37 @@ class GoOracle:
         self.vmax = int(max(self.src.max(initial=0),
                             self.dst.max(initial=0)))
 
+    def out_edges(self, f: np.ndarray) -> np.ndarray:
+        """Indices of every out-edge of the vids ``f`` (sorted, unique):
+        the keys are sorted by src, so each vid's edges are one range."""
+        lo = np.searchsorted(self.src, f, "left")
+        cnt = np.searchsorted(self.src, f, "right") - lo
+        first = np.cumsum(cnt) - cnt
+        return np.repeat(lo - first, cnt) + np.arange(int(cnt.sum()))
+
+    def frontier_sizes(self, starts, steps: int):
+        """The frontier's vids at depths 0..steps-1 (what the adaptive
+        route's switch reads)."""
+        f = np.unique(np.asarray(starts, np.int64))
+        out = [f]
+        for _ in range(steps - 1):
+            f = np.unique(self.dst[self.out_edges(f)])
+            out.append(f)
+        return out
+
     def go(self, starts, steps: int, upto: bool):
         """(sorted final-hop dst vids, edges traversed)."""
-        size = max(self.vmax, max(starts)) + 1
-        f = np.zeros(size, dtype=bool)
-        f[np.asarray(starts, np.int64)] = True
-        acc = f.copy()
+        f = np.unique(np.asarray(starts, np.int64))
+        acc = f
         traversed = 0
         for _ in range(steps - 1):
-            active = f[self.src]
-            traversed += int(active.sum())
-            f = np.zeros(size, dtype=bool)
-            f[self.dst[active]] = True
-            acc |= f
-        active = (acc if upto else f)[self.src]
-        traversed += int(active.sum())
-        return np.sort(self.dst[active]), traversed
+            idx = self.out_edges(f)
+            traversed += len(idx)
+            f = np.unique(self.dst[idx])
+            acc = np.union1d(acc, f)
+        idx = self.out_edges(acc if upto else f)
+        traversed += len(idx)
+        return np.sort(self.dst[idx]), traversed
 
 
 class PathOracle:
@@ -128,6 +178,7 @@ class PathOracle:
     INF = np.iinfo(np.int32).max
 
     def __init__(self, go: GoOracle):
+        self.go = go
         self.src, self.dst = go.src, go.dst
         self.size = go.vmax + 1
         self.key = (self.src << 32) | self.dst     # sorted, unique
@@ -142,17 +193,14 @@ class PathOracle:
     def depths(self, srcs, dsts, max_steps: int, shortest: bool):
         """int32 [vmax + 1] depths (INF = unreached) and levels run."""
         depth = np.full(self.size, self.INF, np.int32)
-        f = np.zeros(self.size, bool)
-        f[np.asarray(srcs, np.int64)] = True
+        f = np.unique(np.asarray(srcs, np.int64))
         depth[f] = 0
-        tgt = np.zeros(self.size, bool)
-        tgt[np.asarray(dsts, np.int64)] = True
+        tgt = np.unique(np.asarray(dsts, np.int64))
         step = 0
-        while step < max_steps and f.any() and not (
-                shortest and not (tgt & (depth == self.INF)).any()):
-            nxt = np.zeros(self.size, bool)
-            nxt[self.dst[f[self.src]]] = True
-            f = nxt & (depth == self.INF)
+        while step < max_steps and len(f) and not (
+                shortest and not (depth[tgt] == self.INF).any()):
+            nxt = np.unique(self.dst[self.go.out_edges(f)])
+            f = nxt[depth[nxt] == self.INF]
             depth[f] = step + 1
             step += 1
         return depth, step
@@ -246,6 +294,19 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def timed(torch, fn):
+    """(``fn()``, its milliseconds on the card by CUDA events): one
+    call, for the plain versions that are slow at full size."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -603,6 +664,375 @@ def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
     return res
 
 
+# =================================================== phase 3, sparse
+SPIN_CYCLES = 8_000_000   # about 4 ms of the card's clock
+PROBE_REPS = 8            # timed calls of each probed kernel call
+
+
+def queued_ms(torch, fn, iters: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card alone: a spin kernel
+    holds the card while the host enqueues the calls, so the events
+    bracket only their device work (``fn`` must not wait on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+class Probe:
+    """Stands in for one kernel wrapper inside a program run: every call
+    also runs the plain version on copies of the tensor operands, holds
+    every operand equal afterwards, and times both with CUDA events.
+    The kernel is timed over PROBE_REPS more calls, each on its own
+    copy of the operands as they were, queued behind a spin kernel
+    that holds the card while the host enqueues them, so the events
+    bracket device work alone (``enqueue_ms``, the longest host time
+    from the spin to the last event, must stay below the spin's).
+    ``pre(args)`` / ``post(args)`` give the
+    bytes the call must move (read before and after the call);
+    ``lib(args)``, when given, times the PyTorch library call computing
+    the same function."""
+
+    def __init__(self, torch, name, kern, ref, pre=None, post=None,
+                 lib=None):
+        self.torch, self.name = torch, name
+        self.kern, self.ref = kern, ref
+        self.pre, self.post, self.lib = pre, post, lib
+        self.calls = 0
+        self.k_ms = self.r_ms = self.enqueue_ms = 0.0
+        self.bytes = 0
+        self.lib_ms = []
+
+    def __call__(self, *args):
+        torch = self.torch
+        nb = self.pre(args) if self.pre else 0
+        if self.lib is not None:
+            t = self.lib(args)
+            if t is not None:
+                self.lib_ms.append(t)
+        copies = [[a.clone() if isinstance(a, torch.Tensor) else a
+                   for a in args] for _ in range(1 + PROBE_REPS)]
+        out = self.kern(*args)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        self.ref(*copies[0])
+        ev[1].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(args, copies[0])):
+            if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+                raise AssertionError(f"{self.name} != its plain version "
+                                     f"(operand {k})")
+        t0 = time.perf_counter()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[2].record()
+        for c in copies[1:]:
+            self.kern(*c)
+        ev[3].record()
+        self.enqueue_ms = max(self.enqueue_ms,
+                              (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        self.r_ms += ev[0].elapsed_time(ev[1])
+        self.k_ms += ev[2].elapsed_time(ev[3]) / PROBE_REPS
+        self.bytes += nb + (self.post(args) if self.post else 0)
+        self.calls += 1
+        return out
+
+    def numbers(self) -> dict:
+        c = max(self.calls, 1)
+        return dict(max_abs_err=0, ms=self.k_ms / c, plain_ms=self.r_ms / c,
+                    bound_ms=bytes_ms(self.bytes / c), bound_by="bytes",
+                    library_ms=(float(np.mean(self.lib_ms))
+                                if self.lib_ms else None),
+                    enqueue_ms=self.enqueue_ms,
+                    calls=self.calls)
+
+
+def _arg(args, i):
+    """Positional operand i of a probed call, None when not passed."""
+    return args[i] if len(args) > i else None
+
+
+def sparse_probes(torch, ell_ops, tables, ix):
+    """Probes of K4-K7, the lane layout change and the hop, with their
+    bytes bounds from this run's data (8 bytes per slot of the rows a
+    push walks, the bitmap words read, zeroed and written, the pairs
+    written; K6 the live pairs, their degrees and its output) and the
+    library yardsticks (``torch.unique`` of the hop's candidate keys for
+    K5, which waits on the card for its output's size, so its time
+    includes the host's part; ``index_add_`` for K6's COUNT)."""
+    dev = tables.nbr.device
+    n, n_rows = tables.n, tables.n_rows
+    R1 = n_rows + 1
+    d_row = torch.repeat_interleave(
+        torch.tensor(tables.D, device=dev),
+        torch.tensor(tables.rows, device=dev))
+    ctx = {}
+
+    def walked(args):
+        ids, qid, ecnt, e0 = args[:4]
+        rows, rq, ce = ell_ops.expand_rows(ids, qid, ecnt, e0, n, n_rows)
+        return rows, rq, int(d_row[rows].sum())
+
+    def expand_pre(args):
+        ids, ecnt = args[0], args[2]
+        if _arg(args, 10):                   # self mode: the start marks
+            return 8 * ids.numel()
+        rows, rq, slots = walked(args)
+        ctx["slots"] = ctx.get("slots", 0) + slots
+        if args[1] is not None:              # a sparse GO hop
+            qs, us = ell_ops._slot_targets(rows, rq, tables,
+                                           tuple(-t for t in args[5]))
+            ctx["keys"] = qs * (args[7] * 32) + us
+        return 8 * ids.numel() + (8 * ids.numel() if ecnt is not None
+                                  else 0) + 8 * slots
+
+    def expand_post(args):
+        return 4 * int((args[6] != 0).sum())
+
+    def compact_pre(args):
+        mark, uni, copy_to = args[0], _arg(args, 8), _arg(args, 9)
+        words = mark.numel()
+        return (4 * words + 4 * int((mark != 0).sum())
+                + (8 * words if uni is not None else 0)
+                + (4 * words if copy_to is not None else 0)
+                + (8 if args[4] is not None else 4) * args[2])
+
+    def compact_lib(args):
+        keys = ctx.pop("keys", None)
+        if keys is None:
+            return None
+        return cuda_ms(torch, lambda: torch.unique(keys, sorted=True), 5, 1)
+
+    def reduce_pre(args):
+        # the live pairs (and, for COUNT and LIMIT, their degrees) read
+        # and the output written; the kernels also read the padded tail
+        # of the capacity-sized list, a cost of the design kept apart
+        op, ids, qid, deg, out = args[:5]
+        live = int((qid != ell_ops.BIG_Q).sum())
+        ctx["padded_read_bytes"] = 8 * (ids.numel() - live)
+        return 8 * live + (4 * live if op else 0) + 4 * out.numel()
+
+    def reduce_lib(args):
+        op, ids, qid, deg = args[:4]
+        if op != ell_ops.REDUCE_COUNT:
+            return None
+        live = qid != ell_ops.BIG_Q
+        q, w = qid[live].long(), deg[ids[live].long()].long()
+        acc = torch.zeros(args[9], dtype=torch.int64, device=dev)
+
+        def fold():
+            acc.zero_()
+            acc.index_add_(0, q, w)
+        return queued_ms(torch, fold, 10)
+
+    def switch_ref(fr, hub, n_, n_rows_, ctl):
+        return ell_ops.adaptive_switch_ref(fr, fr.shape[0], hub, n_,
+                                           n_rows_, ctl)
+
+    hop_bytes = 8 * int(tables.nbr.numel()) + 8 * R1 \
+        + 4 * ((n_rows - n) * 2)
+
+    probes = {
+        "sparse_expand": Probe(torch, "sparse_expand", ell_ops.sparse_expand,
+                               ell_ops.sparse_expand_ref, expand_pre,
+                               expand_post),
+        "pair_compact": Probe(torch, "pair_compact", ell_ops.pair_compact,
+                              ell_ops.pair_compact_ref, compact_pre,
+                              lib=compact_lib),
+        "pair_reduce": Probe(torch, "pair_reduce", ell_ops.pair_reduce,
+                             ell_ops.pair_reduce_ref, reduce_pre,
+                             lib=reduce_lib),
+        "adaptive_switch": Probe(torch, "adaptive_switch",
+                                 ell_ops.adaptive_switch, switch_ref,
+                                 lambda a: 5 * a[0].numel() + 16),
+        "bitmap_lanes": Probe(torch, "bitmap_lanes", ell_ops.bitmap_lanes,
+                              ell_ops.bitmap_lanes_ref,
+                              lambda a: 4 * R1 + (R1 + 7) // 8),
+        "go_hop": Probe(torch, "go_hop", ell_ops.go_hop, ell_ops.go_hop_ref,
+                        lambda a: hop_bytes),
+    }
+    return probes, ctx
+
+
+def sparse_batch(ix, starts, c0: int, nq: int):
+    """The runtime's start layout for ``nq`` queries sharing the given
+    start vertices round-robin (old dense ids), padded to c0."""
+    S = min(len(starts), c0)
+    new = ix.perm[np.asarray(starts[:S], np.int64)]
+    q = np.arange(S) % nq
+    order = np.lexsort((new, q))
+    ids = np.full(c0, ix.n_rows, np.int32)
+    qid = np.zeros(c0, np.int32)
+    ids[:S], qid[:S] = new[order], q[order]
+    return ids, qid
+
+
+# the run each program's and kernel's kernels-line row comes from: the
+# programs and K4, K5 at the headline batch, K6 from its COUNT fold, K7
+# and adaptive_go at the default K, the layout change from the K whose
+# dense arm runs
+ROW_FROM = {"sparse_go": "c0_256_s3_plain",
+            "sparse_go_count": "c0_256_s3_count",
+            "sparse_go_limit": "c0_256_s3_limit",
+            "adaptive_go": "adaptive_K2048_s3",
+            "sparse_expand": "c0_256_s3_plain",
+            "pair_compact": "c0_256_s3_plain",
+            "pair_reduce": "c0_256_s3_count",
+            "adaptive_switch": "adaptive_K2048_s3",
+            "bitmap_lanes": "adaptive_K8_s3"}
+
+
+def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
+                        over, starts) -> tuple:
+    """The sparse and adaptive programs against their plain versions on
+    the serve tables, every kernel call probed.  ``starts`` are old
+    dense ids from the serve mix.  Returns ({name: numbers}, {run:
+    numbers}): the kernels' rows (ROW_FROM), the programs' at the
+    headline (c0 256, 3 steps, an 8-query batch like the windowed
+    batches; adaptive: the default K, 3 steps), and every run."""
+    from nebula_tpu_torch.tpu.ell import sparse_caps
+    d_max = max(tables.D)
+    ecnt, e0 = rt._hub_expansion_dev(m, ix)
+    deg = rt._deg_dev(m, ix, tuple(over))
+    R1 = ix.n_rows + 1
+    spin_ms = cuda_ms(torch, lambda: torch.cuda._sleep(SPIN_CYCLES), 3, 1)
+
+    # (label, c0, queries, starts, steps, cap, variants): an 8-query
+    # batch as the windowed dispatcher forms them, the largest batch
+    # (go_batch_max queries), and a tight cap that overflows
+    configs = [
+        ("c0_256_s3", 256, 8, 8, 3, 1 << 17, ("plain", "upto", "count",
+                                               "limit")),
+        ("c0_256_s4", 256, 8, 8, 4, 1 << 17, ("plain",)),
+        ("c0_256_s3_tight", 256, 8, 8, 3, 8, ("plain",)),
+        ("c0_2048_s3", 2048, 1024, 1024, 3, 1 << 17, ("plain", "count")),
+        ("c0_2048_s4", 2048, 1024, 1024, 4, 1 << 17, ("plain",)),
+    ]
+    runs = {}
+    # the tight batch starts on the mix's widest vertices, so that it
+    # overflows at any graph size
+    wide = starts[np.argsort(-rt._deg_host(m, tuple(over))[starts],
+                             kind="stable")]
+    for label, c0, nq, S, steps, cap, variants in configs:
+        chosen = wide if label.endswith("tight") else starts
+        ids_h, qid_h = sparse_batch(ix, chosen[:S], c0, nq)
+        ids, qid = rt._up(ids_h), rt._up(qid_h)
+        caps = sparse_caps(c0, d_max, steps, cap)
+        qmax = max(1024, nq)
+        for var in variants:
+            run_label = f"{label}_{var}"
+            kw = dict(upto=var == "upto", count=var == "count",
+                      limit=LIMIT_N if var == "limit" else None)
+            probes, ctx = sparse_probes(torch, ell_ops, tables, ix)
+            out = ell_ops._sparse_go_steps(
+                ids, qid, ecnt, e0, deg, tables, tuple(over), steps, caps,
+                qmax, nq, kw["upto"], kw["limit"], kw["count"],
+                probes["sparse_expand"], probes["pair_compact"],
+                probes["pair_reduce"])
+            want, plain = timed(torch, lambda: ell_ops.sparse_go_ref(
+                ids, qid, ecnt, e0, deg, tables, tuple(over), steps, caps,
+                qmax, **kw))
+            if int(out[1]) != int(want[1]) or (
+                    not int(want[1]) and not torch.equal(out, want)):
+                raise AssertionError(f"sparse_go {run_label} != its "
+                                     f"plain version")
+
+            def run():
+                return ell_ops.sparse_go(ids, qid, ecnt, e0, deg, tables,
+                                         tuple(over), steps, caps, qmax,
+                                         nq, **kw)
+            ms = cuda_ms(torch, run, 5, 1)
+            prog_bytes = 8 * c0 + 8 * ctx.get("slots", 0) \
+                + 4 * out.numel()
+            name = ("sparse_go_count" if var == "count" else
+                    "sparse_go_limit" if var == "limit" else "sparse_go")
+            kernels = {k: p.numbers() for k, p in probes.items()
+                       if p.calls}
+            if "padded_read_bytes" in ctx:
+                kernels["pair_reduce"]["padded_read_bytes"] = \
+                    ctx["padded_read_bytes"]
+            runs[run_label] = dict(
+                name=name, max_abs_err=0, ms=ms, plain_ms=plain,
+                bound_ms=bytes_ms(prog_bytes), bound_by="bytes",
+                library_ms=None,
+                device_ms=sum(p.k_ms for p in probes.values()),
+                overflow=int(want[1]),
+                count=int(want[0]), caps=list(caps), queries=nq, starts=S,
+                steps=steps, kernels=kernels)
+    flags_seen = {r["overflow"] for r in runs.values()}
+    if flags_seen != {0, 1}:
+        raise AssertionError(f"sparse runs saw overflow flags {flags_seen}, "
+                             f"not both")
+
+    # ---- adaptive: one start of the mix with 16 to 128 out-edges, the
+    # default K and a K that its first hop outgrows
+    hub = rt._hub_dev(m, ix)
+    deg_h = rt._deg_host(m, tuple(over))[starts]
+    pick = np.nonzero((deg_h > 16) & (deg_h <= 128))[0]
+    first = int(starts[pick[0] if len(pick) else 0])
+    start = rt._up(ix.perm[np.asarray([first], np.int64)].astype(np.int32))
+    dev = start.device
+    switched = {}
+    for K in (2048, 8):
+        for steps in (3, 4):
+            label = f"adaptive_K{K}_s{steps}"
+            probes, ctx = sparse_probes(torch, ell_ops, tables, ix)
+            out = ell_ops._adaptive_steps(
+                start, hub, tables, eslot, hrows, tuple(over), steps, K,
+                probes["sparse_expand"], probes["pair_compact"],
+                probes["adaptive_switch"], probes["bitmap_lanes"],
+                probes["go_hop"])
+            want, plain = timed(torch, lambda: ell_ops.adaptive_go_ref(
+                start, hub, tables, eslot, hrows, tuple(over), steps, K))
+            keep = torch.ones(out.numel() * 8, dtype=torch.bool, device=dev)
+            keep[ix.n:R1 - 1] = False            # hub extra rows: junk
+            bits = ell_ops._unpack_ref(out[None, :])[0][:keep.numel()]
+            wbits = ell_ops._unpack_ref(want[None, :])[0][:keep.numel()]
+            if not torch.equal(bits[keep], wbits[keep]):
+                raise AssertionError(f"adaptive_go K={K} steps={steps} != "
+                                     f"its plain version")
+            # the dense arm ran: the layout change was launched
+            dense = probes["bitmap_lanes"].calls > 0
+            switched[(K, steps)] = dense
+
+            def run_a():
+                return ell_ops.adaptive_go(start, hub, tables, eslot, hrows,
+                                           tuple(over), steps, K)
+            ms = cuda_ms(torch, run_a, 5, 1)
+            prog_bytes = sum(p.bytes for k, p in probes.items()
+                             if k in ("sparse_expand", "go_hop")) \
+                + (R1 + 7) // 8
+            runs[label] = dict(
+                name="adaptive_go", max_abs_err=0, ms=ms, plain_ms=plain,
+                bound_ms=bytes_ms(prog_bytes), bound_by="bytes",
+                library_ms=None,
+                device_ms=sum(p.k_ms for p in probes.values()),
+                dense_switch=dense, K=K, steps=steps,
+                kernels={k: p.numbers() for k, p in probes.items()
+                         if p.calls})
+    if not (switched[(8, 3)] and switched[(8, 4)]):
+        raise AssertionError(f"the small K did not force the dense arm: "
+                             f"{switched}")
+    late = {f"{label}.{k}": v["enqueue_ms"] for label, r in runs.items()
+            for k, v in r["kernels"].items() if v["enqueue_ms"] >= spin_ms}
+    log(f"[kernel] spin {spin_ms:.3f} ms; calls whose host enqueue "
+        f"outlasted it (their ms include host time): {late or 'none'}")
+    kernel_rows = {}
+    for k, label in ROW_FROM.items():
+        row = runs[label]["kernels"][k] if k in runs[label]["kernels"] \
+            else {a: b for a, b in runs[label].items()
+                  if a not in ("kernels", "name")}
+        kernel_rows[k] = dict(row, run=label)
+    return kernel_rows, runs
+
+
 # ============================================================ phase 4
 def request_mix(rng, n: int, requests: int):
     """The serve traffic: one start vid each, 2-4 steps, a quarter UPTO;
@@ -614,11 +1044,12 @@ def request_mix(rng, n: int, requests: int):
     return starts, steps, upto, count
 
 
-def drive(rt, mix, threads: int, keep=frozenset()):
+def drive(rt, mix, threads: int, keep=frozenset(), limits=None):
     """Serve every request of ``mix`` through ``serve_go`` from
-    ``threads`` client threads.  Returns (wall seconds, per-request
-    latency seconds, {i: answer} for i in ``keep``); raises if any
-    request failed."""
+    ``threads`` client threads (request i ends in ``| LIMIT LIMIT_N``
+    where ``limits[i]``).  Returns (wall seconds, per-request latency
+    seconds, {i: answer} for i in ``keep``); raises if any request
+    failed."""
     starts, steps, upto, count = mix
     requests = len(starts)
     kept = {}
@@ -638,7 +1069,9 @@ def drive(rt, mix, threads: int, keep=frozenset()):
             try:
                 out = rt.serve_go(1, [int(starts[i])], [1], int(steps[i]),
                                   {1: "e"}, upto=bool(upto[i]),
-                                  reduce=("count",) if count[i] else None)
+                                  reduce=("count",) if count[i] else None,
+                                  limit=LIMIT_N if limits is not None
+                                  and limits[i] else None)
             except Exception as ex:     # noqa: BLE001 — raised below
                 with lock:
                     errors.append(f"request {i}: {ex!r}")
@@ -661,9 +1094,10 @@ def drive(rt, mix, threads: int, keep=frozenset()):
     return wall, lat, kept
 
 
-def check_go(oracle: GoOracle, mix, results, check) -> list:
-    """Hold the kept answers to the oracle; returns the edges each
-    traversed."""
+def check_go(oracle: GoOracle, mix, results, check, limits=None) -> list:
+    """Hold the kept answers to the oracle (a LIMIT request: min(LIMIT_N,
+    total) rows, each one of the full answer's, counted with their
+    multiplicity); returns the edges each traversed."""
     starts, steps, upto, count = mix
     traversed = []
     for i in sorted(check):
@@ -671,6 +1105,18 @@ def check_go(oracle: GoOracle, mix, results, check) -> list:
                              bool(upto[i]))
         traversed.append(tr)
         cols, rows = results[i]
+        if limits is not None and limits[i]:
+            got = np.asarray([r[0] for r in rows], np.int64)
+            vals, n_want = np.unique(want, return_counts=True)
+            gv, n_got = np.unique(got, return_counts=True)
+            pos = np.searchsorted(vals, gv)
+            if cols != ["e._dst"] or len(got) != min(LIMIT_N, len(want)) \
+                    or (pos >= len(vals)).any() \
+                    or (vals[np.minimum(pos, len(vals) - 1)] != gv).any() \
+                    or (n_got > n_want[np.minimum(pos, len(vals) - 1)]).any():
+                raise AssertionError(f"request {i}: LIMIT {LIMIT_N} rows "
+                                     f"are not a cut of the oracle's")
+            continue
         if count[i]:
             if cols != ["__count__"] or rows != [[len(want)]]:
                 raise AssertionError(f"request {i}: count {rows} != "
@@ -721,19 +1167,22 @@ def serve_phase(torch, rt, ell_ops, oracle: GoOracle, n: int,
 
 WINDOWED = {"go_dispatch_mode": "windowed", "tpu_sparse_go": False,
             "tpu_adaptive_single": False}
+SPARSE = {"go_dispatch_mode": "windowed"}      # the rest at defaults
+ADAPTIVE = {"go_dispatch_mode": "windowed", "tpu_sparse_go": False}
 
 
 @contextlib.contextmanager
-def windowed_mode(flags):
-    """The dense windowed route: WINDOWED set, restored on exit."""
-    old = {k: flags.get(k) for k in WINDOWED}
-    for k, v in WINDOWED.items():
+def flag_mode(flags, values):
+    """``values`` set on the port's flags, restored on exit."""
+    old = {k: flags.get(k) for k in values}
+    for k, v in values.items():
         flags.set(k, v)
     try:
         yield
     finally:
         for k, v in old.items():
             flags.set(k, v)
+
 
 
 def windowed_phase(torch, rt, ell_ops, flags, oracle: GoOracle, n: int,
@@ -744,7 +1193,7 @@ def windowed_phase(torch, rt, ell_ops, flags, oracle: GoOracle, n: int,
     mix = request_mix(rng, n, requests)
     check = set(rng.choice(requests, min(64, requests),
                            replace=False).tolist())
-    with windowed_mode(flags):
+    with flag_mode(flags, WINDOWED):
         # warm the count fold's degree vector outside the window
         rt.serve_go(1, [1], [1], 2, {1: "e"}, reduce=("count",))
         torch.cuda.synchronize()
@@ -769,6 +1218,139 @@ def windowed_phase(torch, rt, ell_ops, flags, oracle: GoOracle, n: int,
                 max_batch=rt.dispatcher.stats["max_batch"],
                 launches=launches,
                 runtime={k: rt.stats[k] - rt0[k] for k in rt0})
+
+
+def sparse_phase(torch, rt, ell_ops, flags, oracle: GoOracle, n: int,
+                 requests: int, threads: int, seed: int) -> dict:
+    """The serve mix's kinds on another seed, windowed with every other
+    flag at its default: the sparse route (COUNT and LIMIT pushed down,
+    wide batches split, overflowing batches rerun dense).  A quarter of
+    the plain exact-depth requests end in ``| LIMIT LIMIT_N``.  Counted
+    and checked as phase 5."""
+    rng = np.random.default_rng(seed + 11)
+    mix = request_mix(rng, n, requests)
+    _starts, _steps, upto, count = mix
+    limits = ~upto & ~count & (rng.random(requests) < 0.25)
+    # 64 checked: a quarter of them LIMIT requests, the rest the others
+    lim_i, rest_i = np.nonzero(limits)[0], np.nonzero(~limits)[0]
+    n_lim = min(16, len(lim_i))
+    check = set(rng.choice(lim_i, n_lim, replace=False).tolist()) | set(
+        rng.choice(rest_i, min(64 - n_lim, len(rest_i)),
+                   replace=False).tolist())
+    with flag_mode(flags, SPARSE):
+        # warm the degree and hub tables outside the window
+        rt.serve_go(1, [1], [1], 3, {1: "e"}, reduce=("count",))
+        rt.serve_go(1, [1], [1], 3, {1: "e"}, limit=LIMIT_N)
+        torch.cuda.synchronize()
+        before = dict(rt.dispatcher.stats)
+        rt0 = dict(rt.stats)
+        ell_ops.reset_launches()
+        wall, lat, results = drive(rt, mix, threads, check, limits)
+        launches = dict(ell_ops.LAUNCHES)
+    traversed = check_go(oracle, mix, results, check, limits)
+    require_launched(launches, "sparse")
+    stats = {k: rt.stats[k] - rt0[k] for k in rt0}
+    batches = rt.dispatcher.stats["batches"] - before["batches"]
+    queries = (rt.dispatcher.stats["batched_queries"]
+               - before["batched_queries"])
+    qps = requests / wall
+    return dict(requests=requests, threads=threads, wall_s=wall, qps=qps,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                checked=len(check),
+                checked_limit=int(sum(limits[i] for i in check)),
+                limit_requests=int(limits.sum()),
+                edges_traversed_per_query=float(np.mean(traversed)),
+                edges_traversed_per_s=float(np.mean(traversed)) * qps,
+                batches=batches, mean_batch=queries / max(batches, 1),
+                go_sparse=stats["go_sparse"],
+                sparse_overflows=stats["sparse_overflows"],
+                go_sparse_split=stats["go_sparse_split"],
+                go_dense=stats["go_dense"],
+                overflow_share=stats["sparse_overflows"]
+                / max(stats["go_sparse"], 1),
+                launches=launches, runtime=stats)
+
+
+def adaptive_switches(oracle: GoOracle, hub_old: np.ndarray, m, start,
+                      steps: int, K: int) -> bool:
+    """Whether the adaptive program runs a dense hop for this request
+    (ell.py:1593): before each hop a hub in the frontier, or a previous
+    sparse hop whose result passed K ids, sends it dense."""
+    sizes = oracle.frontier_sizes([start], steps)
+    sparse = True
+    for h in range(steps - 1):
+        d = m.to_dense(sizes[h])
+        if sparse and not hub_old[d[d >= 0]].any():
+            if len(sizes[h + 1]) > K:
+                sparse = False
+        else:
+            return True
+    return False
+
+
+def adaptive_phase(torch, rt, ell_ops, flags, oracle: GoOracle, n: int,
+                   requests: int, seed: int) -> dict:
+    """``requests`` single-start plain GO requests at 2-4 steps, one
+    after another from one thread, windowed with tpu_sparse_go=false:
+    each rides the adaptive route alone.  A sixteenth of them start on
+    a hub (the hubs of least out-degree, at 2 steps), so that the
+    program's dense arm runs on this path.  64 checked against the
+    oracle, 8 of them hub starts; the requests that ran a dense hop are
+    counted from the launches (each launches the layout change twice)
+    and, among the checked, predicted from the oracle's frontiers."""
+    rng = np.random.default_rng(seed + 13)
+    starts = rng.integers(1, n + 1, requests)
+    steps = rng.integers(2, 5, requests)
+    m = rt.mirror(1)
+    ix = rt.ell(m)
+    hub_old = ix.hub_table()[ix.perm]
+    out_deg = rt._deg_host(m, (1,))
+    pool = np.nonzero(hub_old & (out_deg > 0))[0]
+    if not len(pool):
+        raise AssertionError("the graph has no hub to start from")
+    pool = m.vids[pool[np.argsort(out_deg[pool], kind="stable")[:64]]]
+    at_hub = rng.choice(requests, max(1, requests // 16), replace=False)
+    starts[at_hub] = rng.choice(pool, len(at_hub))
+    steps[at_hub] = 2
+    none = np.zeros(requests, dtype=bool)
+    mix = (starts, steps, none, none)
+    n_hub_check = min(8, len(at_hub))
+    rest = np.setdiff1d(np.arange(requests), at_hub)
+    check = set(rng.choice(at_hub, n_hub_check, replace=False).tolist()) \
+        | set(rng.choice(rest, min(64 - n_hub_check, len(rest)),
+                         replace=False).tolist())
+    with flag_mode(flags, ADAPTIVE):
+        rt.serve_go(1, [1], [1], 3, {1: "e"})
+        torch.cuda.synchronize()
+        rt0 = dict(rt.stats)
+        ell_ops.reset_launches()
+        wall, lat, results = drive(rt, mix, 1, check)
+        launches = dict(ell_ops.LAUNCHES)
+    traversed = check_go(oracle, mix, results, check)
+    require_launched(launches, "adaptive")
+    stats = {k: rt.stats[k] - rt0[k] for k in rt0}
+    if stats["go_adaptive"] != requests:
+        raise AssertionError(f"{stats['go_adaptive']} of {requests} "
+                             f"requests rode the adaptive route")
+    dense = launches["bitmap_lanes"] // 2
+    if dense < len(at_hub):
+        raise AssertionError(f"{dense} requests ran a dense hop, fewer "
+                             f"than the {len(at_hub)} hub starts")
+    K = int(flags.get("tpu_adaptive_k") or 2048)
+    checked_dense = sum(adaptive_switches(oracle, hub_old, m,
+                                          int(starts[i]), int(steps[i]), K)
+                        for i in check)
+    qps = requests / wall
+    return dict(requests=requests, threads=1, wall_s=wall, qps=qps,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                checked=len(check), hub_starts=len(at_hub),
+                checked_hub_starts=n_hub_check, dense_requests=dense,
+                checked_dense_switch=int(checked_dense),
+                edges_traversed_per_query=float(np.mean(traversed)),
+                go_adaptive=stats["go_adaptive"], launches=launches,
+                runtime=stats)
 
 
 def drive_paths(rt, srcs, dsts, threads: int):
@@ -943,8 +1525,9 @@ def profile_phase(torch, run) -> dict:
 
 def profile_all(torch, rt, flags, vids, args) -> dict:
     """``--profile R``: a further window of each traffic kind — R
-    continuous GO, R windowed GO, R / 4 FIND SHORTEST PATH — each under
-    the profiler, on fresh seeds."""
+    continuous GO, R windowed GO on the dense route and R on the sparse
+    route, R / 16 sequential adaptive GO, R / 4 FIND SHORTEST PATH —
+    each under the profiler, on fresh seeds."""
     R = args.profile
     mix = request_mix(np.random.default_rng(args.seed + 2), args.vertices,
                       R)
@@ -953,8 +1536,15 @@ def profile_all(torch, rt, flags, vids, args) -> dict:
         return R, drive(rt, mix, args.threads)[0]
 
     out = {"serve": profile_phase(torch, go)}
-    with windowed_mode(flags):
+    with flag_mode(flags, WINDOWED):
         out["windowed"] = profile_phase(torch, go)
+    with flag_mode(flags, SPARSE):
+        out["sparse"] = profile_phase(torch, go)
+    A = max(1, R // 16)
+    single = (mix[0][:A], mix[1][:A], np.zeros(A, bool), np.zeros(A, bool))
+    with flag_mode(flags, ADAPTIVE):
+        out["adaptive"] = profile_phase(
+            torch, lambda: (A, drive(rt, single, 1)[0]))
     rng = np.random.default_rng(args.seed + 5)
     P = max(1, R // 4)
     ends = rng.choice(vids, (2, P))
@@ -978,10 +1568,12 @@ def main(argv=None) -> int:
     ap.add_argument("--path-requests", type=int, default=512)
     ap.add_argument("--path-threads", type=int, default=16)
     ap.add_argument("--profile", type=int, default=0, metavar="R",
-                    help="after phase 6, serve R more continuous and R "
-                         "more windowed GO requests and R/4 FIND PATH "
-                         "requests, each under torch.profiler, and print "
-                         "the card's busy time and idle share")
+                    help="after phase 8, serve R more continuous, R "
+                         "dense and R sparse windowed GO requests, R/16 "
+                         "adaptive GO and R/4 FIND PATH requests, each "
+                         "under torch.profiler, and print the card's busy "
+                         "time and idle share")
+    ap.add_argument("--adaptive-requests", type=int, default=256)
     args = ap.parse_args(argv)
 
     import torch
@@ -1012,8 +1604,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build(force=True)
     _build.load()
+    steps = _build.LAST_BUILD
     log(f"[build] nvcc {_build.NVCC_FLAGS[1]} "
-        f"{time.perf_counter() - t0:.2f} s -> {_build.LIB_PATH}")
+        f"{time.perf_counter() - t0:.2f} s -> {_build.LIB_PATH}; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in steps.items())
+        + f" (the sources compile together; one after another they "
+        f"would take {sum(steps.values()):.2f} s)")
 
     if args.cap is not None:
         flags.set("tpu_ell_cap", args.cap)
@@ -1051,6 +1647,17 @@ def main(argv=None) -> int:
                 log(f"[kernel] {k} B={B} W={B // 8} equal=True "
                     + " ".join(f"{a}={b}" for a, b in v.items()))
             log(f"[kernel] B={B} phase {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        mix_starts = m.to_dense(request_mix(
+            np.random.default_rng(args.seed + 1), args.vertices,
+            args.requests)[0])
+        sparse_rows, sparse_runs = sparse_kernel_phase(
+            torch, ell_ops, rt, m, ix, tables, eslot, hrows, (1,),
+            mix_starts[mix_starts >= 0])
+        for label, v in sparse_runs.items():
+            log(f"[kernel] {label} equal=True " + json.dumps(v))
+        log(f"[kernel] sparse and adaptive phase "
+            f"{time.perf_counter() - t0:.2f} s")
 
         # ---- 4. serve (continuous)
         oracle = GoOracle(src, dst)
@@ -1067,7 +1674,23 @@ def main(argv=None) -> int:
             k: [serve[k], windowed[k]]
             for k in ("qps", "p50_ms", "p99_ms", "edges_traversed_per_s")}))
 
-        # ---- 6. path
+        # ---- 6. sparse (windowed at default flags)
+        t0 = time.perf_counter()
+        sparse = sparse_phase(torch, rt, ell_ops, flags, oracle,
+                              args.vertices, args.requests, args.threads,
+                              args.seed)
+        log("[sparse] " + json.dumps(sparse))
+        log(f"[sparse] phase {time.perf_counter() - t0:.2f} s")
+
+        # ---- 7. adaptive (single queries, sparse route off)
+        t0 = time.perf_counter()
+        adaptive = adaptive_phase(torch, rt, ell_ops, flags, oracle,
+                                  args.vertices, args.adaptive_requests,
+                                  args.seed)
+        log("[adaptive] " + json.dumps(adaptive))
+        log(f"[adaptive] phase {time.perf_counter() - t0:.2f} s")
+
+        # ---- 8. path
         t0 = time.perf_counter()
         path = path_phase(torch, rt, ell_ops, PathOracle(oracle), m.vids,
                           args.path_requests, args.path_threads, args.seed)
@@ -1080,25 +1703,34 @@ def main(argv=None) -> int:
     finally:
         rt.close()
 
-    # ---- 7. kernels line: the serve rung's numbers (B=128, W=16),
-    # with the W=128 numbers beside them; launches from the counted
-    # phases that run each kernel
+    # ---- 9. kernels line: the serve rung's numbers (B=128, W=16),
+    # with the W=128 numbers beside them, and for the sparse and
+    # adaptive programs and their kernels the runs ROW_FROM names (the
+    # programs: c0 256, 3 steps, an 8-query batch; adaptive K 2048, 3
+    # steps); launches from the counted phases that run each kernel
     phases = {"serve": serve["launches"], "windowed": windowed["launches"],
-              "path": path["launches"]}
+              "sparse": sparse["launches"],
+              "adaptive": adaptive["launches"], "path": path["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
     for k in REPLACES:
         by_phase = {p: ln[k] for p, ln in phases.items()
                     if k in PATH_KERNELS[p]}
-        row = dict(name=k, route="cuda", source=SOURCE,
+        row = dict(name=k, route="cuda", source=SOURCES[k],
                    replaces=REPLACES[k], launches=sum(by_phase.values()),
-                   launches_by_phase=by_phase, equal=True, width_words=16)
-        v = per_width[128][k]
-        row.update({a: v[a] for a in keys})
-        row.update({a: b for a, b in v.items() if a not in keys})
-        row["w128"] = {a: b for a, b in per_width[1024][k].items()
-                       if a != "bound_by"}
+                   launches_by_phase=by_phase, equal=True)
+        if k in per_width[128]:
+            v = per_width[128][k]
+            row["width_words"] = 16
+            row.update({a: v[a] for a in keys})
+            row.update({a: b for a, b in v.items() if a not in keys})
+            row["w128"] = {a: b for a, b in per_width[1024][k].items()
+                           if a != "bound_by"}
+        else:
+            v = sparse_rows[k]
+            row.update({a: v[a] for a in keys})
+            row.update({a: b for a, b in v.items() if a not in keys})
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -168,6 +168,14 @@ flags.define("tpu_sparse_c0s", "256,2048",
              "the sparse batched GO kernel; a batch rides the smallest "
              "width holding its start count — per-hop caps (and sort "
              "sizes) scale from it")
+flags.define("tpu_sparse_cap", 1 << 17,
+             "final-frontier pair capacity of the sparse batched GO "
+             "kernel; a hop whose deduped (query, vertex) pairs exceed "
+             "its cap falls back to the dense kernel")
+flags.define("tpu_sparse_growth", 8,
+             "geometric growth of intermediate sparse-hop caps "
+             "(~expected out-degree); tighter = cheaper sorts, more "
+             "dense fallbacks (ell.sparse_caps)")
 flags.define(
     "tpu_mesh_devices", 0,
     "shard the ELL tables over this many devices (a 1-D 'parts' Mesh). "

@@ -1,11 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-``load()`` compiles ``csrc/ell_lanes.cu`` with nvcc into
-``_build_out/libell_lanes.so`` beside this file (a directory git
-ignores) at first use, rebuilding when the source is newer than the
-library, and loads it with ctypes.  The source has a plain C interface
-and includes no PyTorch header, so a build takes seconds.  A failed
-build raises with nvcc's stderr; nothing falls back to another path.
+``load()`` compiles ``csrc/ell_lanes.cu`` and ``csrc/sparse_go.cu``
+with nvcc into ``_build_out/libell_lanes.so`` beside this file (a
+directory git ignores) at first use, rebuilding when a source is newer
+than the library, and loads it with ctypes.  Each source compiles to an
+object in its own nvcc process, all started together, and one more
+nvcc call links them; ``LAST_BUILD`` keeps each step's seconds.  The
+sources have a plain C interface and include no PyTorch header, so a
+build takes seconds.  A failed build raises with nvcc's stderr;
+nothing falls back to another path.
 """
 from __future__ import annotations
 
@@ -14,18 +17,24 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 OUT_DIR = os.path.join(HERE, "_build_out")
-SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),)
+SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
+           os.path.join(CSRC, "sparse_go.cu"))
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# seconds of the last build's steps: each source's compile (they run
+# together) and the link
+LAST_BUILD: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -52,21 +61,51 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in SOURCES)
 
 
+def _run_all(cmds) -> list:
+    """Run the nvcc commands concurrently; returns each one's seconds,
+    or raises with the stderr of the first that failed, after every one
+    has ended."""
+    def one(cmd):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        return r, time.perf_counter() - t0
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        done = list(pool.map(one, cmds))
+    for cmd, (r, _s) in zip(cmds, done):
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}): "
+                               f"{' '.join(cmd)}\n{r.stderr}")
+    return [s for _r, s in done]
+
+
 def build(force: bool = False) -> str:
     """Compile the sources into LIB_PATH when missing or stale; returns
-    the library path.  The library is written under a temporary name
-    and renamed, so a concurrent reader never loads half a file."""
+    the library path.  Every source compiles to an object in parallel,
+    then one call links them.  The library is written under a
+    temporary name and renamed, so a concurrent reader never loads half
+    a file."""
     if not force and not _stale():
         return LIB_PATH
     nvcc = find_nvcc()
     os.makedirs(OUT_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                           f"{' '.join(cmd)}\n{res.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    tmp = f"{LIB_PATH}.{tag}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [os.path.join(OUT_DIR, os.path.basename(src) + f".{tag}.o")
+            for src in SOURCES]
+    try:
+        secs = _run_all([[nvcc, *compile_flags, "-c", "-o", obj, src]
+                         for src, obj in zip(SOURCES, objs)])
+        link = _run_all([[nvcc, *NVCC_FLAGS, "-o", tmp, *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)
+    LAST_BUILD.clear()
+    LAST_BUILD.update({os.path.basename(src): t
+                       for src, t in zip(SOURCES, secs)})
+    LAST_BUILD["link"] = link[0]
     return LIB_PATH
 
 
@@ -80,9 +119,10 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(build())
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        p64, p32 = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(
+            ctypes.c_int32)
         lib.ell_go_hop.argtypes = [
-            vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_int64), i32,
-            vp, vp, i64, ctypes.POINTER(ctypes.c_int32), i32, i64, i64,
+            vp, vp, vp, vp, vp, p64, i32, vp, vp, i64, p32, i32, i64, i64,
             i64, vp]
         lib.ell_lane_join.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64,
                                       vp]
@@ -95,10 +135,24 @@ def load() -> ctypes.CDLL:
         lib.ell_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
                                       i64, vp]
         lib.ell_bfs_depth_i8.argtypes = [vp, vp, i64, vp]
+        # csrc/sparse_go.cu
+        lib.sg_expand.argtypes = [vp, vp, i64, vp, vp, vp, vp, p64, i32,
+                                  p32, i32, i64, i64, i64, vp, vp, i64,
+                                  i32, vp]
+        lib.sg_compact_blocks.argtypes = [i64]
+        lib.sg_compact_blocks.restype = i64
+        lib.sg_compact.argtypes = [vp, i64, i64, i64, vp, vp, vp, vp, i64,
+                                   vp, vp, i32, i64, vp]
+        lib.sg_reduce.argtypes = [i32, vp, vp, i64, vp, vp, i32, i64, i64,
+                                  i64, i64, i64, i64, vp, vp, vp]
+        lib.ad_switch.argtypes = [vp, i64, vp, i64, i64, vp, vp]
+        lib.ad_bitmap_lanes.argtypes = [i32, vp, vp, i64, vp]
         for fn in (lib.ell_go_hop, lib.ell_lane_join,
                    lib.ell_lane_extract, lib.ell_lane_clear,
                    lib.ell_frontier_upload, lib.ell_go_count,
-                   lib.ell_bfs_level, lib.ell_bfs_depth_i8):
+                   lib.ell_bfs_level, lib.ell_bfs_depth_i8, lib.sg_expand,
+                   lib.sg_compact, lib.sg_reduce, lib.ad_switch,
+                   lib.ad_bitmap_lanes):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib

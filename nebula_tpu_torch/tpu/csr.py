@@ -60,6 +60,44 @@ def _finish(mirror: CsrMirror) -> CsrMirror:
     return mirror
 
 
+def _dense_index(vids: np.ndarray, a: np.ndarray) -> np.ndarray:
+    """``searchsorted(vids, a)`` for values that all occur in ``vids``:
+    a table lookup when the vid range is at most a few times ``a``'s
+    length (random searches are what a mirror build waits on), else the
+    search."""
+    lo, hi = int(vids[0]), int(vids[-1])
+    if hi - lo > 4 * len(a) + 1024:
+        return np.searchsorted(vids, a)
+    lut = np.empty(hi - lo + 1, np.int64)
+    lut[vids - lo] = np.arange(len(vids))
+    return lut[a - lo]
+
+
+def _sorted_rows(src_d, e_all, r_all, dst_d, n: int):
+    """The rows sorted by (src, etype, rank, dst), a repeated key kept
+    once (as the KV key does): one sort of a packed int64 key when every
+    rank is 0 and the fields fit in 63 bits (the usual case), else a
+    lexsort."""
+    vb = max(int(n - 1).bit_length(), 1)
+    e_lo = int(e_all.min())
+    eb = max((int(e_all.max()) - e_lo).bit_length(), 1)
+    if not r_all.any() and 2 * vb + eb <= 63:
+        key = np.sort((src_d << (vb + eb)) | ((e_all - e_lo) << vb)
+                      | dst_d)
+        keep = np.ones(len(key), dtype=bool)
+        keep[1:] = key[1:] != key[:-1]
+        key = key[keep]
+        return (key >> (vb + eb), ((key >> vb) & ((1 << eb) - 1)) + e_lo,
+                np.zeros(len(key), np.int64), key & ((1 << vb) - 1))
+    order = np.lexsort((dst_d, r_all, e_all, src_d))
+    src_d, dst_d = src_d[order], dst_d[order]
+    e_all, r_all = e_all[order], r_all[order]
+    keep = np.ones(len(order), dtype=bool)
+    keep[1:] = ((src_d[1:] != src_d[:-1]) | (e_all[1:] != e_all[:-1])
+                | (r_all[1:] != r_all[:-1]) | (dst_d[1:] != dst_d[:-1]))
+    return src_d[keep], e_all[keep], r_all[keep], dst_d[keep]
+
+
 def mirror_from_edges(src_vids, dst_vids, etype, rank=None,
                       space_id: int = 0) -> CsrMirror:
     """What ``build_mirror`` folds from KV for an edge-only space.
@@ -90,19 +128,14 @@ def mirror_from_edges(src_vids, dst_vids, etype, rank=None,
     d_all = np.concatenate([dst, src])
     e_all = np.concatenate([et, -et])
     r_all = np.concatenate([rk, rk])
-    src_d = np.searchsorted(m.vids, s_all)
-    dst_d = np.searchsorted(m.vids, d_all)
-    order = np.lexsort((dst_d, r_all, e_all, src_d))
-    src_d, dst_d = src_d[order], dst_d[order]
-    e_all, r_all = e_all[order], r_all[order]
-    # drop repeats of one key (sorted, so repeats are adjacent)
-    keep = np.ones(len(order), dtype=bool)
-    keep[1:] = ((src_d[1:] != src_d[:-1]) | (e_all[1:] != e_all[:-1])
-                | (r_all[1:] != r_all[:-1]) | (dst_d[1:] != dst_d[:-1]))
-    m.edge_src = src_d[keep].astype(np.int32)
-    m.edge_dst = dst_d[keep].astype(np.int32)
-    m.edge_etype = e_all[keep].astype(np.int32)
-    m.edge_rank = r_all[keep].astype(np.int64)
+    src_d = _dense_index(m.vids, s_all)
+    dst_d = _dense_index(m.vids, d_all)
+    src_d, e_all, r_all, dst_d = _sorted_rows(src_d, e_all, r_all, dst_d,
+                                              m.n)
+    m.edge_src = src_d.astype(np.int32)
+    m.edge_dst = dst_d.astype(np.int32)
+    m.edge_etype = e_all.astype(np.int32)
+    m.edge_rank = r_all.astype(np.int64)
     m.m = len(m.edge_src)
     return _finish(m)
 

@@ -1,0 +1,668 @@
+// Sparse pair-list GO and the adaptive single-query GO for Hopper
+// (sm_90a), behind a plain C interface that
+// nebula_tpu_torch/tpu/ell_ops.py loads with ctypes.
+//
+// Replaces nebula_tpu/tpu/ell.py:1222 make_batched_sparse_go_kernel
+// (sparse_go, sparse_go_count, sparse_go_limit) and ell.py:1493
+// make_adaptive_go_kernel (adaptive_go).  The reference carries each
+// hop's frontier as a (query, vertex) pair list and dedups it with a
+// sort of every candidate slot; here the candidates land as bits of a
+// mark bitmap [nq, R1w] uint32 (R1w = ceil((n_rows + 1) / 32) words per
+// query row), and a scan over that bitmap yields the same pair list —
+// sorted by (query, vertex), deduped, cut to the hop's cap, with the
+// unique count before the cut — without a sort:
+//
+//   K4 sparse_expand   one warp per live pair walks the pair's main row
+//                      and, for a hub, its extra-row run, and atomicOrs
+//                      bit (q, u) for every slot whose etype is in the
+//                      negated OVER set (the push direction).  It adds
+//                      the pair's extra-row count to the hop's 64-bit
+//                      hub budget total.  Self mode marks (q, v) itself
+//                      (the UPTO union's and the adaptive bitmap's
+//                      start state).
+//   K5 pair_compact    per-block popcounts, one block's exclusive scan
+//                      of the block sums (the count, the cap and hub
+//                      budget checks, the sticky overflow), then the
+//                      first c_out set bits written in (q, v) order;
+//                      the words read are re-zeroed for the next hop,
+//                      and optionally ORed into the UPTO union bitmap
+//                      or copied into the adaptive state bitmap.
+//   K6 pair_reduce     the output: the plain pair list in its layout,
+//                      the COUNT fold (per-query int32 sum of deg), or
+//                      the LIMIT cut (each query's shortest prefix whose
+//                      exclusive degree sum is < limit, zero-degree
+//                      vertices dropped) compacted to c_red.
+//   K7 adaptive_switch the adaptive program's per-hop decision: the
+//                      previous sparse hop's overflow, the hub test on
+//                      the frontier list, the mode word of this hop.
+//   bitmap_lanes       the adaptive dense arm's layout change: the
+//                      state bitmap as lane 0 of a [R1, 4]-byte lane
+//                      frontier for the dense hop (ell_go_hop), and
+//                      back.
+//
+// Every kernel runs on the caller's stream, allocates nothing and does
+// not synchronise; each entry point returns cudaGetLastError() after its
+// launches (0 = launched, -1 = an argument the kernels cannot take).
+// The adaptive program's host reads K7's mode word before each sparse
+// hop and launches only the arm it names.
+// Bound on this card: bytes — K4 the live pairs' slot rows (8 bytes per
+// slot) and their bitmap words, K5 the bitmap words read (and zeroed)
+// plus the pairs written, K6 the pair list and the degrees it reads.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kScanThreads = 1024;            // single-block scans
+constexpr int kRounds = 8;                    // K5: words per thread
+constexpr long long kChunk = (long long)kThreads * kRounds;
+constexpr int kMaxBuckets = 32;
+constexpr int kMaxOver = 32;
+constexpr int32_t kBigQ = 1 << 30;            // ell.py BIG_Q
+constexpr int32_t kI32Max = 0x7FFFFFFF;
+
+// ctl: int64 [8], the program's device-side scalars.
+constexpr int kCnt = 0;       // last compaction's unique count
+constexpr int kOvf = 1;       // sticky overflow
+constexpr int kHubTotal = 2;  // this hop's hub extra rows (K4 adds)
+constexpr int kHubBig = 3;    // this hop saw a clamped per-pair count
+constexpr int kMode = 4;      // adaptive: 1 sparse arm, 2 dense arm
+constexpr int kSparse = 5;    // adaptive: sticky "may stay sparse"
+
+struct Buckets {
+    long long row0[kMaxBuckets];
+    long long slot0[kMaxBuckets];
+    int D[kMaxBuckets];
+    int n;
+};
+
+struct OverSet {
+    int et[kMaxOver];
+    int n;
+};
+
+inline unsigned blocks_for(long long threads, int per_block) {
+    long long b = (threads + per_block - 1) / per_block;
+    if (b > (1LL << 30)) b = 1LL << 30;
+    return (unsigned)(b < 1 ? 1 : b);
+}
+
+// Exclusive scan of this block's per-thread values (blockDim a multiple
+// of 32, at most 1024); returns the thread's exclusive prefix and the
+// block total through *total.  All threads must call it.
+__device__ long long block_excl_scan(long long x, long long* total) {
+    __shared__ long long warp_tot[32];
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    const int nw = (blockDim.x + 31) >> 5;
+    long long incl = x;
+    for (int off = 1; off < 32; off <<= 1) {
+        const long long y = __shfl_up_sync(0xFFFFFFFFu, incl, off);
+        if (lane >= off) incl += y;
+    }
+    if (lane == 31) warp_tot[wid] = incl;
+    __syncthreads();
+    if (wid == 0) {
+        long long t = lane < nw ? warp_tot[lane] : 0;
+        for (int off = 1; off < 32; off <<= 1) {
+            const long long y = __shfl_up_sync(0xFFFFFFFFu, t, off);
+            if (lane >= off) t += y;
+        }
+        if (lane < nw) warp_tot[lane] = t;       // inclusive warp bases
+    }
+    __syncthreads();
+    const long long base = wid > 0 ? warp_tot[wid - 1] : 0;
+    *total = warp_tot[nw - 1];
+    __syncthreads();                             // warp_tot reused next call
+    return base + incl - x;
+}
+
+// Warp-wide inclusive sum (all 32 lanes active).
+__device__ __forceinline__ long long warp_incl(long long x) {
+    const int lane = threadIdx.x & 31;
+    for (int off = 1; off < 32; off <<= 1) {
+        const long long y = __shfl_up_sync(0xFFFFFFFFu, x, off);
+        if (lane >= off) x += y;
+    }
+    return x;
+}
+
+__device__ __forceinline__ int bucket_of(const Buckets& bk, long long r) {
+    int b = 0;
+    for (int k = 1; k < bk.n; ++k)
+        if (bk.row0[k] <= r) b = k;
+    return b;
+}
+
+// ---------------------------------------------------------------- K4
+// One warp per input pair (p < c_in).  The pair (q, v) is live unless v
+// is the sentinel n_rows.  Rows walked: v, then (when the tables have
+// extra rows) e0[v] .. e0[v] + ecnt[v] - 1; each lane takes every 32nd
+// slot of a row.  The budget: ecnt[v] summed into ctl[kHubTotal] in 64
+// bits, and ctl[kHubBig] raised when ecnt[v] > c_lim (the reference's
+// clamp, _segmented_hub_iota ell.py:402).  qid may be null (one query).
+__global__ void sparse_expand_kernel(const int32_t* __restrict__ ids,
+                                     const int32_t* __restrict__ qid,
+                                     long long c_in,
+                                     const int32_t* __restrict__ ecnt,
+                                     const int32_t* __restrict__ e0,
+                                     const int32_t* __restrict__ nbr,
+                                     const int32_t* __restrict__ et,
+                                     Buckets bk, OverSet neg, long long n,
+                                     long long n_rows, long long R1w,
+                                     uint32_t* __restrict__ mark,
+                                     long long* __restrict__ ctl,
+                                     long long c_lim, int self_mode) {
+    const int lane = threadIdx.x & 31;
+    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+    for (long long p = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
+                       >> 5;
+         p < c_in; p += warps) {
+        const long long v = ids[p];
+        if (v < 0 || v >= n_rows) continue;      // sentinel: inactive
+        const long long q = qid ? qid[p] : 0;
+        uint32_t* row = mark + q * R1w;
+        if (self_mode) {
+            if (lane == 0) atomicOr(row + (v >> 5), 1u << (v & 31));
+            continue;
+        }
+        long long ce = 0, first = 0;
+        if (ecnt != nullptr) {
+            const long long vi = v < n ? v : n;
+            ce = ecnt[vi];
+            first = e0[vi];
+            if (lane == 0 && ce > 0) {
+                atomicAdd(reinterpret_cast<unsigned long long*>(
+                              ctl + kHubTotal),
+                          (unsigned long long)ce);
+                if (ce > c_lim) ctl[kHubBig] = 1;
+            }
+        }
+        for (long long k = -1; k < ce; ++k) {
+            const long long r = k < 0 ? v : first + k;
+            if (r < 0 || r >= n_rows) continue;
+            const int b = bucket_of(bk, r);
+            const int D = bk.D[b];
+            const long long base = bk.slot0[b] + (r - bk.row0[b]) * D;
+            for (int j = lane; j < D; j += 32) {
+                const int e = et[base + j];
+                bool ok = false;
+                for (int t = 0; t < neg.n; ++t) ok |= (e == neg.et[t]);
+                if (!ok) continue;
+                const long long u = nbr[base + j];
+                if (u < 0 || u >= n_rows) continue;
+                atomicOr(row + (u >> 5), 1u << (u & 31));
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------------------- K5
+// Pass 1: popcount of each block's kChunk words -> boff[block].
+__global__ void pair_count_kernel(const uint32_t* __restrict__ mark,
+                                  long long words,
+                                  unsigned long long* __restrict__ boff) {
+    const long long w0 = (long long)blockIdx.x * kChunk;
+    long long c = 0;
+    for (int r = 0; r < kRounds; ++r) {
+        const long long w = w0 + (long long)r * kThreads + threadIdx.x;
+        if (w < words) c += __popc(mark[w]);
+    }
+    long long total;
+    block_excl_scan(c, &total);
+    if (threadIdx.x == 0) boff[blockIdx.x] = (unsigned long long)total;
+}
+
+// One block of kScanThreads: vals[0..n) -> their exclusive prefix sums,
+// in place; returns the total.  Each thread owns a contiguous run.
+__device__ long long scan_inplace(unsigned long long* vals, long long n) {
+    const long long per = (n + blockDim.x - 1) / blockDim.x;
+    const long long lo = per * threadIdx.x;
+    const long long hi = lo + per < n ? lo + per : n;
+    long long local = 0;
+    for (long long i = lo; i < hi; ++i) local += (long long)vals[i];
+    long long total;
+    long long run = block_excl_scan(local, &total);
+    for (long long i = lo; i < hi; ++i) {
+        const long long x = (long long)vals[i];
+        vals[i] = (unsigned long long)run;
+        run += x;
+    }
+    return total;
+}
+
+// Pass 2 (one block): block offsets, the unique count into ctl[kCnt],
+// and the sticky overflow: count > c_out, or (ex >= 0) the hop's hub
+// budget total > ex or a clamped per-pair count; the budget resets for
+// the next hop.
+__global__ void pair_scan_kernel(unsigned long long* __restrict__ boff,
+                                 long long nb, long long c_out,
+                                 long long ex, long long* __restrict__ ctl) {
+    const long long total = scan_inplace(boff, nb);
+    if (threadIdx.x == 0) {
+        ctl[kCnt] = total;
+        bool ovf = total > c_out;
+        if (ex >= 0) {
+            ovf |= ctl[kHubTotal] > ex || ctl[kHubBig] != 0;
+            ctl[kHubTotal] = 0;
+            ctl[kHubBig] = 0;
+        }
+        if (ovf) ctl[kOvf] = 1;
+    }
+}
+
+// Pass 3: the first c_out set bits in word order ((q, v) order) as
+// (ids_out, qid_out) pairs; positions past the count get the pads
+// (n_rows, BIG_Q).  Each word read is zeroed (zero), ORed into uni, or
+// copied into copy_to, as asked.  qid_out may be null.
+__global__ void pair_compact_kernel(uint32_t* __restrict__ mark,
+                                    long long words, long long R1w,
+                                    long long c_out,
+                                    int32_t* __restrict__ ids_out,
+                                    int32_t* __restrict__ qid_out,
+                                    const unsigned long long* __restrict__
+                                        boff,
+                                    const long long* __restrict__ ctl,
+                                    uint32_t* __restrict__ uni,
+                                    uint32_t* __restrict__ copy_to,
+                                    int zero, long long n_rows) {
+    long long base = (long long)boff[blockIdx.x];
+    const long long w0 = (long long)blockIdx.x * kChunk;
+    for (int r = 0; r < kRounds; ++r) {
+        const long long w = w0 + (long long)r * kThreads + threadIdx.x;
+        const uint32_t v = w < words ? mark[w] : 0u;
+        long long round_total;
+        long long pos = base + block_excl_scan(__popc(v), &round_total);
+        if (v != 0u && pos < c_out) {
+            const long long q = w / R1w;
+            const long long vb = (w - q * R1w) * 32;
+            uint32_t bits = v;
+            while (bits && pos < c_out) {
+                const int k = __ffs(bits) - 1;
+                bits &= bits - 1u;
+                ids_out[pos] = (int32_t)(vb + k);
+                if (qid_out) qid_out[pos] = (int32_t)q;
+                ++pos;
+            }
+        }
+        if (w < words) {
+            if (uni) uni[w] |= v;
+            if (copy_to) copy_to[w] = v;
+            if (zero && v) mark[w] = 0u;
+        }
+        base += round_total;
+    }
+    const long long total = ctl[kCnt];
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         g < c_out; g += stride) {
+        if (g < total) continue;
+        ids_out[g] = (int32_t)n_rows;
+        if (qid_out) qid_out[g] = kBigQ;
+    }
+}
+
+// ---------------------------------------------------------------- K6
+// Output layouts (ell.py:1440-1466): pack32 -> out[2 + i] = q * R1 + v
+// (2^31-1 unused); else out[2 + i] = q (-1 unused), out[2 + c + i] = v
+// (n_rows unused).
+__device__ __forceinline__ void put_pair(int32_t* out, int pack32,
+                                         long long i, long long c,
+                                         long long q, long long v,
+                                         long long R1) {
+    if (pack32) {
+        out[2 + i] = (int32_t)(q * R1 + v);
+    } else {
+        out[2 + i] = (int32_t)q;
+        out[2 + c + i] = (int32_t)v;
+    }
+}
+
+__device__ __forceinline__ void put_pad(int32_t* out, int pack32,
+                                        long long i, long long c,
+                                        long long n_rows) {
+    if (pack32) {
+        out[2 + i] = kI32Max;
+    } else {
+        out[2 + i] = -1;
+        out[2 + c + i] = (int32_t)n_rows;
+    }
+}
+
+__device__ __forceinline__ void put_head(int32_t* out,
+                                         const long long* ctl) {
+    out[0] = (int32_t)ctl[kCnt];
+    out[1] = ctl[kOvf] ? 1 : 0;
+}
+
+// The plain result: the final pair list in its layout.
+__global__ void pair_emit_kernel(const int32_t* __restrict__ ids,
+                                 const int32_t* __restrict__ qid,
+                                 long long c, int32_t* __restrict__ out,
+                                 int pack32, long long R1,
+                                 long long n_rows,
+                                 const long long* __restrict__ ctl) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t0 == 0) put_head(out, ctl);
+    for (long long i = t0; i < c; i += stride) {
+        const int32_t q = qid[i];
+        if (q == kBigQ) put_pad(out, pack32, i, c, n_rows);
+        else put_pair(out, pack32, i, c, q, ids[i], R1);
+    }
+}
+
+// COUNT: out[2 + q] += deg[v] over the live pairs, as uint32 (int32 with
+// wrap-around, the reference's .at[].add); out[2:] is zero before.
+__global__ void pair_count_fold_kernel(const int32_t* __restrict__ ids,
+                                       const int32_t* __restrict__ qid,
+                                       long long c,
+                                       const int32_t* __restrict__ deg,
+                                       int32_t* __restrict__ out,
+                                       long long qmax,
+                                       const long long* __restrict__ ctl) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t0 == 0) put_head(out, ctl);
+    for (long long i = t0; i < c; i += stride) {
+        const int32_t q = qid[i];
+        if (q == kBigQ || q < 0 || q >= qmax) continue;
+        const uint32_t w = (uint32_t)deg[ids[i]];
+        if (w)
+            atomicAdd(reinterpret_cast<uint32_t*>(out + 2 + q), w);
+    }
+}
+
+// First index in [0, c) whose qid is >= q (qids are nondecreasing:
+// the list is sorted by (q, v), the pads BIG_Q at its end).
+__device__ long long lower_q(const int32_t* qid, long long c, long long q) {
+    long long lo = 0, hi = c;
+    while (lo < hi) {
+        const long long mid = (lo + hi) >> 1;
+        if ((long long)qid[mid] < q) lo = mid + 1;
+        else hi = mid;
+    }
+    return lo;
+}
+
+// LIMIT, pass 1: one warp per query q < nq walks its segment of the
+// sorted list in 32-pair chunks with a warp scan of the degrees (64-bit,
+// so the prefix is exact), and counts the kept pairs: deg > 0 and
+// exclusive prefix < limit.  The prefix only grows, so the walk stops
+// at the first chunk reaching the limit.  kept[q] gets the count.
+__device__ long long limit_walk(const int32_t* ids, const int32_t* qid,
+                                long long c, const int32_t* deg,
+                                long long q, long long limit,
+                                int32_t* out, int pack32, long long c_red,
+                                long long R1, long long at) {
+    const int lane = threadIdx.x & 31;
+    const long long lo = lower_q(qid, c, q);
+    const long long hi = lower_q(qid, c, q + 1);
+    long long run = 0, kept = 0;
+    for (long long s = lo; s < hi; s += 32) {
+        const long long i = s + lane;
+        const long long w = i < hi ? (long long)deg[ids[i]] : 0;
+        const long long incl = warp_incl(w);
+        const long long excl = run + incl - w;
+        const bool keep = i < hi && w > 0 && excl < limit;
+        const unsigned ball = __ballot_sync(0xFFFFFFFFu, keep);
+        if (out != nullptr && keep) {
+            const long long pos =
+                at + kept + __popc(ball & ((1u << lane) - 1u));
+            if (pos < c_red) put_pair(out, pack32, pos, c_red, q, ids[i], R1);
+        }
+        kept += __popc(ball);
+        run += __shfl_sync(0xFFFFFFFFu, incl, 31);
+        if (run >= limit) break;
+    }
+    return kept;
+}
+
+__global__ void limit_count_kernel(const int32_t* __restrict__ ids,
+                                   const int32_t* __restrict__ qid,
+                                   long long c,
+                                   const int32_t* __restrict__ deg,
+                                   long long nq, long long limit,
+                                   unsigned long long* __restrict__ kept) {
+    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+    for (long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
+                       >> 5;
+         q < nq; q += warps) {
+        const long long k = limit_walk(ids, qid, c, deg, q, limit, nullptr,
+                                       0, 0, 0, 0);
+        if ((threadIdx.x & 31) == 0) kept[q] = (unsigned long long)k;
+    }
+}
+
+// LIMIT, pass 2 (one block): query offsets, the kept count into
+// ctl[kCnt] and overflow when it passes c_red.
+__global__ void limit_scan_kernel(unsigned long long* __restrict__ kept,
+                                  long long nq, long long c_red,
+                                  long long* __restrict__ ctl) {
+    const long long total = scan_inplace(kept, nq);
+    if (threadIdx.x == 0) {
+        ctl[kCnt] = total;
+        if (total > c_red) ctl[kOvf] = 1;
+    }
+}
+
+// LIMIT, pass 3: the same walk writes each query's kept pairs at its
+// offset (first c_red overall); then the pads and the head.
+__global__ void limit_write_kernel(const int32_t* __restrict__ ids,
+                                   const int32_t* __restrict__ qid,
+                                   long long c,
+                                   const int32_t* __restrict__ deg,
+                                   long long nq, long long limit,
+                                   const unsigned long long* __restrict__
+                                       kept,
+                                   int32_t* __restrict__ out, int pack32,
+                                   long long c_red, long long R1,
+                                   long long n_rows,
+                                   const long long* __restrict__ ctl) {
+    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
+    for (long long q = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
+                       >> 5;
+         q < nq; q += warps)
+        limit_walk(ids, qid, c, deg, q, limit, out, pack32, c_red, R1,
+                   (long long)kept[q]);
+    const long long total = ctl[kCnt];
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t0 == 0) put_head(out, ctl);
+    for (long long g = t0; g < c_red; g += stride)
+        if (g >= total) put_pad(out, pack32, g, c_red, n_rows);
+}
+
+// ---------------------------------------------------------------- K7
+// Before each adaptive hop (one block): a sparse previous hop whose
+// unique count passed K ends the sparse mode for good; the sparse arm
+// runs this hop only while the mode holds and no vertex of the
+// frontier list is a hub (hub[min(v, n)], the list padded with n_rows).
+__global__ void adaptive_switch_kernel(const int32_t* __restrict__ fr,
+                                       long long K,
+                                       const uint8_t* __restrict__ hub,
+                                       long long n, long long n_rows,
+                                       long long* __restrict__ ctl) {
+    int hit = 0;
+    for (long long i = threadIdx.x; i < K; i += blockDim.x) {
+        const long long v = fr[i];
+        if (v != n_rows && hub[v < n ? v : n]) hit = 1;
+    }
+    hit = __syncthreads_or(hit);
+    if (threadIdx.x == 0) {
+        long long sparse = ctl[kSparse];
+        if (ctl[kMode] == 1 && ctl[kCnt] > K) sparse = 0;
+        const bool take_sparse = sparse != 0 && !hit;
+        ctl[kMode] = take_sparse ? 1 : 2;
+        ctl[kSparse] = take_sparse ? 1 : 0;
+    }
+}
+
+// The dense arm's layout change: to_lanes writes lane[r] = bit r
+// of the state bitmap (lane 0 of a [R1, 4]-byte frontier, one 32-bit
+// word per row, little-endian); from_lanes rebuilds the bitmap from bit
+// 0 of each row's word.
+__global__ void bitmap_to_lanes_kernel(const uint32_t* __restrict__ bits,
+                                       uint32_t* __restrict__ lanes,
+                                       long long R1) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         r < R1; r += stride)
+        lanes[r] = (bits[r >> 5] >> (r & 31)) & 1u;
+}
+
+__global__ void bitmap_from_lanes_kernel(const uint32_t* __restrict__ lanes,
+                                         uint32_t* __restrict__ bits,
+                                         long long R1, long long R1w) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         w < R1w; w += stride) {
+        uint32_t x = 0u;
+        for (int k = 0; k < 32; ++k) {
+            const long long r = w * 32 + k;
+            if (r < R1 && (lanes[r] & 1u)) x |= 1u << k;
+        }
+        bits[w] = x;
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4.  bucket_desc: host int64 [n_buckets * 3] (row0, slot0, D); neg:
+// host int32 [n_neg], the negated OVER set.  ecnt / e0 null: no hub
+// expansion.  qid null: every pair is query 0.
+int sg_expand(const void* ids, const void* qid, int64_t c_in,
+              const void* ecnt, const void* e0, const void* nbr,
+              const void* et, const int64_t* bucket_desc, int n_buckets,
+              const int32_t* neg, int n_neg, int64_t n, int64_t n_rows,
+              int64_t R1w, void* mark, void* ctl, int64_t c_lim,
+              int self_mode, void* stream) {
+    if (n_buckets < 1 || n_buckets > kMaxBuckets || n_neg < 0 ||
+        n_neg > kMaxOver || c_in < 0 || R1w <= 0)
+        return -1;
+    if (c_in == 0) return 0;
+    Buckets bk;
+    bk.n = n_buckets;
+    for (int b = 0; b < n_buckets; ++b) {
+        bk.row0[b] = bucket_desc[3 * b];
+        bk.slot0[b] = bucket_desc[3 * b + 1];
+        bk.D[b] = (int)bucket_desc[3 * b + 2];
+    }
+    OverSet ov;
+    ov.n = n_neg;
+    for (int k = 0; k < n_neg; ++k) ov.et[k] = neg[k];
+    sparse_expand_kernel<<<blocks_for(c_in * 32, kThreads), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+        (const int32_t*)ids, (const int32_t*)qid, c_in,
+        (const int32_t*)ecnt, (const int32_t*)e0, (const int32_t*)nbr,
+        (const int32_t*)et, bk, ov, n, n_rows, R1w, (uint32_t*)mark,
+        (long long*)ctl, c_lim, self_mode);
+    return (int)cudaGetLastError();
+}
+
+// K5.  boff: uint64 scratch of sg_compact_blocks(words) entries.
+// ex < 0: no hub budget check (the union's and the adaptive
+// compaction).
+int64_t sg_compact_blocks(int64_t words) {
+    return (words + kChunk - 1) / kChunk;
+}
+
+int sg_compact(void* mark, int64_t words, int64_t R1w, int64_t c_out,
+               void* ids_out, void* qid_out, void* boff, void* ctl,
+               int64_t ex, void* uni, void* copy_to, int zero,
+               int64_t n_rows, void* stream) {
+    if (words <= 0 || R1w <= 0 || c_out <= 0) return -1;
+    cudaStream_t s = (cudaStream_t)stream;
+    const long long nb = sg_compact_blocks(words);
+    if (nb > (1LL << 30)) return -1;
+    pair_count_kernel<<<(unsigned)nb, kThreads, 0, s>>>(
+        (const uint32_t*)mark, words, (unsigned long long*)boff);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    pair_scan_kernel<<<1, kScanThreads, 0, s>>>(
+        (unsigned long long*)boff, nb, c_out, ex, (long long*)ctl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    pair_compact_kernel<<<(unsigned)nb, kThreads, 0, s>>>(
+        (uint32_t*)mark, words, R1w, c_out, (int32_t*)ids_out,
+        (int32_t*)qid_out, (const unsigned long long*)boff,
+        (const long long*)ctl, (uint32_t*)uni, (uint32_t*)copy_to, zero,
+        n_rows);
+    return (int)cudaGetLastError();
+}
+
+// K6.  op 0: the plain layout of the c-pair list; 1: COUNT into
+// out[2 .. 2 + qmax) (zero before); 2: LIMIT cut compacted to c_red
+// (scratch: uint64 [nq]).  out[0..1] get (count, overflow) from ctl.
+int sg_reduce(int op, const void* ids, const void* qid, int64_t c,
+              const void* deg, void* out, int pack32, int64_t R1,
+              int64_t n_rows, int64_t nq, int64_t qmax, int64_t limit,
+              int64_t c_red, void* scratch, void* ctl, void* stream) {
+    if (c <= 0 || R1 <= 0) return -1;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (op == 0) {
+        pair_emit_kernel<<<blocks_for(c, kThreads), kThreads, 0, s>>>(
+            (const int32_t*)ids, (const int32_t*)qid, c, (int32_t*)out,
+            pack32, R1, n_rows, (const long long*)ctl);
+        return (int)cudaGetLastError();
+    }
+    if (op == 1) {
+        if (qmax <= 0) return -1;
+        pair_count_fold_kernel<<<blocks_for(c, kThreads), kThreads, 0,
+                                 s>>>(
+            (const int32_t*)ids, (const int32_t*)qid, c,
+            (const int32_t*)deg, (int32_t*)out, qmax,
+            (const long long*)ctl);
+        return (int)cudaGetLastError();
+    }
+    if (op != 2 || nq <= 0 || c_red <= 0 || limit < 0) return -1;
+    const unsigned warp_blocks = blocks_for(nq * 32, kThreads);
+    limit_count_kernel<<<warp_blocks, kThreads, 0, s>>>(
+        (const int32_t*)ids, (const int32_t*)qid, c, (const int32_t*)deg,
+        nq, limit, (unsigned long long*)scratch);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    limit_scan_kernel<<<1, kScanThreads, 0, s>>>(
+        (unsigned long long*)scratch, nq, c_red, (long long*)ctl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const long long pad_threads = c_red > nq * 32 ? c_red : nq * 32;
+    limit_write_kernel<<<blocks_for(pad_threads, kThreads), kThreads, 0,
+                         s>>>(
+        (const int32_t*)ids, (const int32_t*)qid, c, (const int32_t*)deg,
+        nq, limit, (const unsigned long long*)scratch, (int32_t*)out,
+        pack32, c_red, R1, n_rows, (const long long*)ctl);
+    return (int)cudaGetLastError();
+}
+
+// K7.  hub: uint8 [n + 1]; fr: int32 [K] padded with n_rows.
+int ad_switch(const void* fr, int64_t K, const void* hub, int64_t n,
+              int64_t n_rows, void* ctl, void* stream) {
+    if (K <= 0 || n < 0) return -1;
+    adaptive_switch_kernel<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)fr, K, (const uint8_t*)hub, n, n_rows,
+        (long long*)ctl);
+    return (int)cudaGetLastError();
+}
+
+// to_lanes 1: bits (uint32 [R1w]) -> lanes (uint32 [R1]); 0: back.
+int ad_bitmap_lanes(int to_lanes, void* bits, void* lanes, int64_t R1,
+                    void* stream) {
+    if (R1 <= 0) return -1;
+    const long long R1w = (R1 + 31) / 32;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (to_lanes)
+        bitmap_to_lanes_kernel<<<blocks_for(R1, kThreads), kThreads, 0,
+                                 s>>>(
+            (const uint32_t*)bits, (uint32_t*)lanes, R1);
+    else
+        bitmap_from_lanes_kernel<<<blocks_for(R1w, kThreads), kThreads, 0,
+                                   s>>>(
+            (const uint32_t*)lanes, (uint32_t*)bits, R1, R1w);
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,5 +1,6 @@
 """Degree-bucketed ELL tables — the host half of ``nebula_tpu/tpu/ell.py``
-(``:51-359``, ``:483-500``, ``:780-808``, ``:1127``).
+(``:51-359``, ``:457``, ``:483-500``, ``:780-808``, ``:1127``,
+``:1189-1220``, ``:1475``).
 
 A hop pulls ``next[v, :] = OR_j f[nbr[v, j], :] & [et[v, j] in OVER]``
 over packed lane words.  Vertices are relabeled so that one degree
@@ -196,6 +197,39 @@ class EllIndex:
         owners, slot = np.unique(self.extra_owner, return_inverse=True)
         return slot.astype(np.int32), owners.astype(np.int32)
 
+    def hub_table(self) -> np.ndarray:
+        """bool[n+1]: vertex owns hub extra rows (slot spill) — the
+        adaptive single-query program switches to the dense pull when
+        one enters its frontier, because a push from the main row alone
+        would miss the spilled slots (the batched sparse program expands
+        hubs into their extra rows instead: ``hub_expansion``).
+        Unclaimed growth spares (owner = the spare sentinel, past every
+        real vertex) are filtered: they belong to nobody yet."""
+        is_hub = np.zeros(self.n + 1, dtype=bool)
+        if len(self.extra_owner):
+            u = np.unique(self.extra_owner)
+            is_hub[u[u < self.n]] = True
+        return is_hub
+
+    def hub_expansion(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(ecnt int32[n+1], e0 int32[n+1]): per-vertex extra-row run —
+        hub vertex v owns rows [e0[v], e0[v] + ecnt[v]) besides its main
+        row v (extras of one owner are contiguous: ``build`` appends
+        them in owner order).  Non-hubs: ecnt 0, e0 n_rows.  The batched
+        sparse program pushes out of a hub's spilled slots through it."""
+        ecnt = np.zeros(self.n + 1, np.int32)
+        e0 = np.full(self.n + 1, self.n_rows, np.int32)
+        if len(self.extra_owner):
+            owners, first = np.unique(self.extra_owner, return_index=True)
+            cnts = np.bincount(self.extra_owner, minlength=self.n)
+            ecnt[:self.n] = cnts[:self.n].astype(np.int32)
+            # unclaimed growth spares carry the out-of-range spare
+            # sentinel as owner — scattering THAT into e0 would walk
+            # off the array; they have no expansion until claimed
+            real = owners < self.n
+            e0[owners[real]] = (self.n + first[real]).astype(np.int32)
+        return ecnt, e0
+
     # ------------------------------------------------------------- device
     def device_tables(self, device: torch.device) -> DeviceTables:
         """The buckets flattened onto ``device`` (a fresh upload; the
@@ -309,3 +343,64 @@ def dense_hop_bytes(ell: EllIndex, lane_bytes_per_row: int,
     per_advance = sum(nbr.shape[0] * (nbr.shape[1] + 2)
                       for nbr in ell.bucket_nbr) * lane_bytes_per_row
     return max(steps - 1, 1) * per_advance
+
+
+def unpack_bits(packed: np.ndarray, R1: int) -> np.ndarray:
+    """Host half of the reference's ``pack_bits`` (ell.py:439, row-major
+    bits, little bit order): uint8 [G, B] -> bool [R1, B]."""
+    return np.unpackbits(packed, axis=0, bitorder="little")[:R1] > 0
+
+
+# ====================================================================
+# Sparse pair-list GO: static capacities and the output's host decode.
+# ====================================================================
+def sparse_caps(c0: int, d_max: int, steps: int, cap: int,
+                growth: int = 8) -> Tuple[int, ...]:
+    """Static per-hop pair-list capacities of the sparse batched GO
+    (ell.py:1189): intermediate caps grow geometrically from the start
+    capacity (``growth`` ~ the expected out-degree), the final cap gets
+    the full budget.  A hop that outgrows its cap reports overflow and
+    the caller reruns dense — capacity is a performance knob, never a
+    correctness one."""
+    caps = [max(8, c0)]
+    for h in range(max(steps - 1, 0)):
+        hard = max(8, caps[-1]) * max(d_max, 1)   # can't exceed expansion
+        if h == steps - 2:
+            caps.append(min(cap, hard))
+        else:
+            caps.append(min(cap, hard,
+                            max(8, c0) * (max(growth, 2) ** (h + 1))))
+    return tuple(caps)
+
+
+def sparse_limit_cap(caps: Tuple[int, ...], c0: int, limit: int) -> int:
+    """Output capacity of a LIMIT-reduced sparse GO (ell.py:1212): each
+    kept vertex has final-hop degree >= 1, so a query keeps at most
+    ``limit`` pairs and at most c0 queries are live — ``limit * c0``
+    rounded up to a power of two, never above the unreduced cap."""
+    return int(min(caps[-1],
+                   1 << (max(8, limit * max(c0, 1)) - 1).bit_length()))
+
+
+def sparse_pack32(qmax: int, n_rows: int) -> bool:
+    """Whether a (query, vertex) pair packs into one int32 key
+    ``q * (n_rows + 1) + v`` for every query index below ``qmax``
+    (ell.py:1318): the output then holds one key per pair."""
+    return qmax * (n_rows + 1) <= 2**31 - 1
+
+
+def sparse_go_pairs(out: np.ndarray, pack32: bool, R1: int):
+    """Decode a sparse GO output array -> (cnt, overflow, qids, new
+    ids) (ell.py:1475): with ``pack32`` the keys ``q * R1 + i`` (unused
+    places 2^31-1), else the qids (-1 unused) then the ids."""
+    out = np.asarray(out)
+    cnt, overflow = int(out[0]), bool(out[1])
+    if pack32:
+        keys = out[2:]
+        keys = keys[keys != np.int32(2**31 - 1)]
+        return cnt, overflow, keys // R1, keys % R1
+    c_fin = (len(out) - 2) // 2
+    qids = out[2:2 + c_fin]
+    ids = out[2 + c_fin:]
+    live = qids >= 0
+    return cnt, overflow, qids[live], ids[live]

@@ -2,14 +2,16 @@
 (``nebula_tpu/tpu/ell.py:665-743``: ``ell_go_hop``, ``ell_lane_join``,
 ``ell_lane_extract``, ``ell_lane_clear``) and the windowed path's
 packed frontier upload (``tpu/runtime.py:3251``), batched dense GO and
-its COUNT(*) fold (``ell.py:572``) and batched BFS (``ell.py:1080``).
+its COUNT(*) fold (``ell.py:572``), batched BFS (``ell.py:1080``), the
+sparse pair-list GO with its COUNT(*) and LIMIT variants
+(``ell.py:1222``) and the adaptive single-query GO (``ell.py:1493``).
 
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``, a transcription of the JAX function on the
 same layout); on a CUDA device it launches its hand-written kernel from
-``csrc/ell_lanes.cu`` and adds one to its entry in ``LAUNCHES``, or
-raises — there is no fallback from one to the other.  Any other device
-raises.
+``csrc/ell_lanes.cu`` or ``csrc/sparse_go.cu`` and adds one to its
+entry in ``LAUNCHES``, or raises — there is no fallback from one to the
+other.  Any other device raises.
 
 The reference's kernels are pure and donate the pair; the port updates
 in place where it can and says so per function: join, clear and the
@@ -27,13 +29,18 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .ell import INT16_INF, DeviceTables
+from .ell import (INT16_INF, DeviceTables, sparse_limit_cap,
+                  sparse_pack32)
 
 LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
                             "lane_extract": 0, "lane_clear": 0,
                             "frontier_upload": 0, "ell_go": 0,
                             "go_count": 0, "bfs_level": 0,
-                            "bfs_depth_i8": 0}
+                            "bfs_depth_i8": 0, "sparse_expand": 0,
+                            "pair_compact": 0, "pair_reduce": 0,
+                            "adaptive_switch": 0, "bitmap_lanes": 0,
+                            "sparse_go": 0, "sparse_go_count": 0,
+                            "sparse_go_limit": 0, "adaptive_go": 0}
 MAX_OVER = 32        # csrc kMaxOver
 MAX_BUCKETS = 32     # csrc kMaxBuckets
 MAX_COUNT_W = 1024   # csrc ell_go_count: W / 4 <= kThreads
@@ -106,6 +113,31 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 def _ok(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cuda error {rc}")
+
+
+def _bucket_desc(tables: DeviceTables):
+    """The buckets' (row0, slot0, D) triples as the host int64 array the
+    kernels take by value."""
+    nb = len(tables.D)
+    return (ctypes.c_int64 * (3 * nb))(
+        *[v for b in range(nb)
+          for v in (tables.row0[b], tables.slot0[b], tables.D[b])])
+
+
+def _over_check(over: Sequence[int]) -> Tuple[int, ...]:
+    over = tuple(sorted(set(int(e) for e in over)))
+    if not 0 < len(over) <= MAX_OVER:
+        raise ValueError(f"OVER set of {len(over)} etypes (1..{MAX_OVER})")
+    return over
+
+
+def _tables_check(tables: DeviceTables, dev: torch.device) -> None:
+    _check(tables.nbr, "tables.nbr", torch.int32,
+           tuple(tables.nbr.shape), dev)
+    _check(tables.et, "tables.et", torch.int32, tuple(tables.nbr.shape),
+           dev)
+    if not 0 < len(tables.D) <= MAX_BUCKETS:
+        raise ValueError(f"{len(tables.D)} buckets (1..{MAX_BUCKETS})")
 
 
 # ================================================================ hop
@@ -187,26 +219,16 @@ def go_hop(fp: torch.Tensor, accp: Optional[torch.Tensor],
     if hrows.dim() != 1:
         raise ValueError("hrows must be 1-D")
     _check(hrows, "hrows", torch.int32, tuple(hrows.shape), dev)
-    _check(tables.nbr, "tables.nbr", torch.int32,
-           tuple(tables.nbr.shape), dev)
-    _check(tables.et, "tables.et", torch.int32, tuple(tables.nbr.shape),
-           dev)
-    over = tuple(sorted(set(int(e) for e in over)))
-    if not 0 < len(over) <= MAX_OVER:
-        raise ValueError(f"OVER set of {len(over)} etypes (1..{MAX_OVER})")
-    if not 0 < len(tables.D) <= MAX_BUCKETS:
-        raise ValueError(f"{len(tables.D)} buckets (1..{MAX_BUCKETS})")
+    _tables_check(tables, dev)
+    over = _over_check(over)
     if not _route(dev):
         return go_hop_ref(fp, accp, out, tables, eslot, hrows, over)
     _aligned(fp, out, *(() if accp is None else (accp,)))
-    desc = (ctypes.c_int64 * (3 * len(tables.D)))(
-        *[v for b in range(len(tables.D))
-          for v in (tables.row0[b], tables.slot0[b], tables.D[b])])
     ov = (ctypes.c_int32 * len(over))(*over)
     rc = _lib().ell_go_hop(
         fp.data_ptr(), None if accp is None else accp.data_ptr(),
         out.data_ptr(),
-        tables.nbr.data_ptr(), tables.et.data_ptr(), desc,
+        tables.nbr.data_ptr(), tables.et.data_ptr(), _bucket_desc(tables),
         len(tables.D), eslot.data_ptr(), hrows.data_ptr(), n_extras, ov,
         len(over), tables.n, tables.n_rows, W, _stream(dev))
     _ok(rc, "ell_go_hop")
@@ -583,3 +605,819 @@ def ell_bfs(f0p: torch.Tensor, t0p: torch.Tensor, tables: DeviceTables,
     ``jax.lax.while_loop``'s condition does."""
     return _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps,
                      stop_when_found, go_hop, bfs_level, bfs_depth_i8)
+
+
+# ====================================================================
+# Sparse pair-list GO (ell.py:1222) and adaptive single-query GO
+# (ell.py:1493).  The kernels (csrc/sparse_go.cu) carry a hop's
+# frontier as bits of a mark bitmap [nq, R1w] (int32 words used as
+# uint32, R1w = ceil((n_rows + 1) / 32)); a scan of the bitmap gives
+# the reference's sorted, deduped, capped (query, vertex) pair list.
+# Device-side scalars ride one int64 ``ctl`` [8] tensor (CTL_*).
+# ====================================================================
+BIG_Q = 1 << 30                 # ell.py BIG_Q: the qid of an unused pair
+I32_MAX = 2**31 - 1             # the pack32 key of an unused pair
+CTL_CNT, CTL_OVF, CTL_HUB_TOTAL, CTL_HUB_BIG, CTL_MODE, CTL_SPARSE = \
+    range(6)
+CTL_SIZE = 8
+MODE_SPARSE, MODE_DENSE = 1, 2  # the adaptive program's mode word
+COMPACT_CHUNK = 2048            # csrc kChunk: bitmap words per K5 block
+
+
+def _words(R1: int) -> int:
+    return (R1 + 31) // 32
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding uint32 values (or int32 sums) -> the int32 with the
+    same low 32 bits (two's complement wrap)."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _bits_of(words: torch.Tensor) -> torch.Tensor:
+    """int32 words -> bool [numel * 32] (bit k of word w is entry
+    32w + k)."""
+    sh = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words.reshape(-1, 1) >> sh) & 1).reshape(-1).bool()
+
+
+def _mark_bits(mark: torch.Tensor, R1w: int, q: torch.Tensor,
+               u: torch.Tensor) -> None:
+    """In place: set bit (q, u) of the [nq, R1w] bitmap ``mark``."""
+    if not len(u):
+        return
+    flat = torch.unique(q.long() * (R1w * 32) + u.long())
+    acc = torch.zeros(mark.numel(), dtype=torch.int64, device=mark.device)
+    acc.index_add_(0, flat >> 5, torch.ones_like(flat) << (flat & 31))
+    mark |= _to_i32(acc)
+
+
+def _vec(t: Optional[torch.Tensor], name: str, dtype: torch.dtype,
+         dev: torch.device, n: Optional[int] = None) -> int:
+    """Check a 1-D contiguous tensor; returns its length."""
+    if t is None or t.dim() != 1:
+        raise ValueError(f"{name} must be a 1-D tensor")
+    _check(t, name, dtype, (t.shape[0] if n is None else n,), dev)
+    return t.shape[0]
+
+
+# ------------------------------------------------------ K4 expand
+def _slot_targets(rows: torch.Tensor, rq: torch.Tensor,
+                  tables: DeviceTables, etypes: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q, u) for every slot of the given rows whose etype is in
+    ``etypes`` (u a real row, never the sentinel)."""
+    et_t = torch.tensor(list(etypes), dtype=torch.int32, device=rows.device)
+    qs, us = [], []
+    for b in range(len(tables.D)):
+        r0, nb = tables.row0[b], tables.rows[b]
+        sel = (rows >= r0) & (rows < r0 + nb)
+        if not bool(sel.any()):
+            continue
+        nbr, et = tables.bucket(b)
+        loc = rows[sel] - r0
+        cand = nbr[loc].long()
+        ok = torch.isin(et[loc], et_t) & (cand >= 0) \
+            & (cand < tables.n_rows)
+        qs.append(rq[sel][:, None].expand_as(cand)[ok])
+        us.append(cand[ok])
+    if not qs:
+        z = torch.zeros(0, dtype=torch.int64, device=rows.device)
+        return z, z
+    return torch.cat(qs), torch.cat(us)
+
+
+def expand_rows(ids, qid, ecnt, e0, n, n_rows):
+    """K4's work list: (rows, their queries, per-pair extra-row counts)
+    for the live pairs — each main row, then (given ``ecnt``/``e0``)
+    each hub's extra-row run."""
+    v = ids.long()
+    q = qid.long() if qid is not None else torch.zeros_like(v)
+    live = (v >= 0) & (v < n_rows)
+    v, q = v[live], q[live]
+    rows, rq = [v], [q]
+    ce = torch.zeros_like(v)
+    if ecnt is not None:
+        vi = v.clamp(max=n)
+        ce = ecnt.long()[vi]
+        tot = int(ce.sum())
+        if tot:
+            start = torch.cumsum(ce, 0) - ce
+            k = torch.arange(tot, device=v.device) \
+                - start.repeat_interleave(ce)
+            rows.append(e0.long()[vi].repeat_interleave(ce) + k)
+            rq.append(q.repeat_interleave(ce))
+    r, rq_ = torch.cat(rows), torch.cat(rq)
+    ok = (r >= 0) & (r < n_rows)
+    return r[ok], rq_[ok], ce
+
+
+def sparse_expand_ref(ids, qid, ecnt, e0, tables, over, mark, R1w, ctl,
+                      c_lim, self_mode=False):
+    """Plain version of ``sparse_expand`` (K4)."""
+    n, n_rows = tables.n, tables.n_rows
+    if self_mode:
+        v, q, _ce = expand_rows(ids, qid, None, None, n, n_rows)
+        _mark_bits(mark, R1w, q, v)
+        return mark
+    rows, rq, ce = expand_rows(ids, qid, ecnt, e0, n, n_rows)
+    ctl[CTL_HUB_TOTAL] += ce.sum()
+    if bool((ce > c_lim).any()):
+        ctl[CTL_HUB_BIG] = 1
+    qs, us = _slot_targets(rows, rq, tables, tuple(-t for t in over))
+    _mark_bits(mark, R1w, qs, us)
+    return mark
+
+
+def sparse_expand(ids: torch.Tensor, qid: Optional[torch.Tensor],
+                  ecnt: Optional[torch.Tensor], e0: Optional[torch.Tensor],
+                  tables: DeviceTables, over: Sequence[int],
+                  mark: torch.Tensor, R1w: int, ctl: torch.Tensor,
+                  c_lim: int, self_mode: bool = False) -> torch.Tensor:
+    """K4: push every live pair (qid[i], ids[i]) (ids == n_rows:
+    inactive; ``qid=None``: all query 0) out of its main row and, given
+    ``ecnt``/``e0`` (ell.EllIndex.hub_expansion), out of its hub
+    extra-row run: bit (q, u) of ``mark`` int32 [nq * R1w] is set for
+    every slot u whose etype is in the negated OVER set.  The pairs'
+    extra-row counts add to ``ctl[CTL_HUB_TOTAL]``; a count past
+    ``c_lim`` sets ``ctl[CTL_HUB_BIG]``.  ``self_mode`` marks (q, v)
+    itself instead.  Contract: every live qid < nq."""
+    dev = ids.device
+    c_in = _vec(ids, "ids", torch.int32, dev)
+    if qid is not None:
+        _vec(qid, "qid", torch.int32, dev, c_in)
+    if (ecnt is None) != (e0 is None):
+        raise ValueError("ecnt and e0 come together")
+    if ecnt is not None:
+        _vec(ecnt, "ecnt", torch.int32, dev, tables.n + 1)
+        _vec(e0, "e0", torch.int32, dev, tables.n + 1)
+    words = _vec(mark, "mark", torch.int32, dev)
+    if R1w != _words(tables.n_rows + 1) or words % R1w:
+        raise ValueError(f"mark has {words} words, not rows of {R1w}")
+    _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    over = _over_check(over)
+    _tables_check(tables, dev)
+    if not _route(dev):
+        return sparse_expand_ref(ids, qid, ecnt, e0, tables, over, mark,
+                                 R1w, ctl, c_lim, self_mode)
+    neg = (ctypes.c_int32 * len(over))(*[-t for t in over])
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    rc = _lib().sg_expand(
+        ids.data_ptr(), ptr(qid), c_in, ptr(ecnt), ptr(e0),
+        tables.nbr.data_ptr(), tables.et.data_ptr(), _bucket_desc(tables),
+        len(tables.D), neg, len(over), tables.n, tables.n_rows, R1w,
+        mark.data_ptr(), ctl.data_ptr(), c_lim, int(self_mode),
+        _stream(dev))
+    _ok(rc, "sg_expand")
+    LAUNCHES["sparse_expand"] += 1
+    return mark
+
+
+# ----------------------------------------------------- K5 compact
+def pair_compact_ref(mark, R1w, c_out, ids_out, qid_out, ctl, ex,
+                     n_rows, uni=None, copy_to=None, zero=True):
+    """Plain version of ``pair_compact`` (K5)."""
+    idx = torch.nonzero(_bits_of(mark)).reshape(-1)
+    total = idx.numel()
+    ctl[CTL_CNT] = total
+    ovf = total > c_out
+    if ex >= 0:
+        ovf = ovf or int(ctl[CTL_HUB_TOTAL]) > ex \
+            or int(ctl[CTL_HUB_BIG]) != 0
+        ctl[CTL_HUB_TOTAL] = 0
+        ctl[CTL_HUB_BIG] = 0
+    if ovf:
+        ctl[CTL_OVF] = 1
+    k = min(total, c_out)
+    row_bits = R1w * 32
+    ids_out[:k] = (idx[:k] % row_bits).to(torch.int32)
+    ids_out[k:c_out] = n_rows
+    if qid_out is not None:
+        qid_out[:k] = (idx[:k] // row_bits).to(torch.int32)
+        qid_out[k:c_out] = BIG_Q
+    if uni is not None:
+        uni |= mark
+    if copy_to is not None:
+        copy_to.copy_(mark)
+    if zero:
+        mark.zero_()
+    return ids_out, qid_out
+
+
+def pair_compact(mark: torch.Tensor, R1w: int, c_out: int,
+                 ids_out: torch.Tensor, qid_out: Optional[torch.Tensor],
+                 ctl: torch.Tensor, ex: int, n_rows: int,
+                 uni: Optional[torch.Tensor] = None,
+                 copy_to: Optional[torch.Tensor] = None,
+                 zero: bool = True):
+    """K5: the set bits of ``mark`` [nq * R1w] in (query, vertex) order
+    -> the first ``c_out`` as (``ids_out``, ``qid_out``) int32 [>= c_out]
+    pairs, the rest of the first c_out places padded (n_rows, BIG_Q);
+    ``ctl[CTL_CNT]`` gets the count before the cut and
+    ``ctl[CTL_OVF]`` is raised when it passes ``c_out`` or, for
+    ``ex >= 0``, when this hop's hub budget (``ctl[CTL_HUB_TOTAL]``
+    past ``ex``, or ``ctl[CTL_HUB_BIG]``) overflowed; the budget then
+    resets.  The words read are ORed into ``uni``, copied into
+    ``copy_to`` and (``zero``) cleared, as asked.  Returns (ids_out,
+    qid_out)."""
+    dev = mark.device
+    words = _vec(mark, "mark", torch.int32, dev)
+    if R1w <= 0 or words % R1w or c_out <= 0:
+        raise ValueError(f"mark of {words} words, rows of {R1w}, "
+                         f"c_out {c_out}")
+    if ids_out.numel() < c_out:
+        raise ValueError(f"ids_out holds {ids_out.numel()} < {c_out}")
+    _vec(ids_out, "ids_out", torch.int32, dev)
+    if qid_out is not None:
+        _vec(qid_out, "qid_out", torch.int32, dev, ids_out.shape[0])
+    for t, name in ((uni, "uni"), (copy_to, "copy_to")):
+        if t is not None:
+            _vec(t, name, torch.int32, dev, words)
+    _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    if not _route(dev):
+        return pair_compact_ref(mark, R1w, c_out, ids_out, qid_out, ctl,
+                                ex, n_rows, uni, copy_to, zero)
+    lib = _lib()
+    boff = torch.empty(int(lib.sg_compact_blocks(words)), dtype=torch.int64,
+                       device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    rc = lib.sg_compact(mark.data_ptr(), words, R1w, c_out,
+                        ids_out.data_ptr(), ptr(qid_out), boff.data_ptr(),
+                        ctl.data_ptr(), ex, ptr(uni), ptr(copy_to),
+                        int(zero), n_rows, _stream(dev))
+    _ok(rc, "sg_compact")
+    LAUNCHES["pair_compact"] += 1
+    return ids_out, qid_out
+
+
+# ------------------------------------------------------ K6 reduce
+REDUCE_EMIT, REDUCE_COUNT, REDUCE_LIMIT = 0, 1, 2
+
+
+def _emit_layout(out: torch.Tensor, ids: torch.Tensor, qid: torch.Tensor,
+                 pack32: bool, R1: int, n_rows: int) -> None:
+    c = ids.shape[0]
+    live = qid != BIG_Q
+    if pack32:
+        key = qid.long() * R1 + ids.long()
+        out[2:2 + c] = torch.where(live, key, I32_MAX).to(torch.int32)
+    else:
+        out[2:2 + c] = torch.where(live, qid, -1)
+        out[2 + c:2 + 2 * c] = torch.where(live, ids, n_rows)
+
+
+def pair_reduce_ref(op, ids, qid, deg, out, pack32, R1, n_rows, nq, qmax,
+                    limit, c_red, ctl):
+    """Plain version of ``pair_reduce`` (K6)."""
+    live = qid != BIG_Q
+    if op == REDUCE_EMIT:
+        _emit_layout(out, ids, qid, pack32, R1, n_rows)
+    elif op == REDUCE_COUNT:
+        q = qid.long()
+        ok = live & (q >= 0) & (q < qmax)
+        acc = torch.zeros(qmax, dtype=torch.int64, device=ids.device)
+        acc.index_add_(0, q[ok], deg.long()[ids.long()[ok]])
+        out[2:2 + qmax] = _to_i32(out[2:2 + qmax].long() + acc)
+    else:
+        q = qid.long()
+        w = torch.where(live, deg.long()[ids.long().clamp(max=n_rows)], 0)
+        # segment-local exclusive degree prefix, exact in int64
+        excl = torch.cumsum(w, 0) - w
+        first = torch.ones_like(live)
+        first[1:] = q[1:] != q[:-1]
+        seg = torch.cumsum(first.long(), 0) - 1
+        base = excl[first][seg]
+        keep = live & (q < nq) & (w > 0) & ((excl - base) < limit)
+        kept = torch.nonzero(keep).reshape(-1)
+        kcnt = kept.numel()
+        ctl[CTL_CNT] = kcnt
+        if kcnt > c_red:
+            ctl[CTL_OVF] = 1
+        k = min(kcnt, c_red)
+        sel_i = torch.full((c_red,), n_rows, dtype=torch.int32,
+                           device=ids.device)
+        sel_q = torch.full((c_red,), BIG_Q, dtype=torch.int32,
+                           device=ids.device)
+        sel_i[:k] = ids[kept[:k]]
+        sel_q[:k] = qid[kept[:k]]
+        _emit_layout(out, sel_i, sel_q, pack32, R1, n_rows)
+    out[0] = _to_i32(ctl[CTL_CNT:CTL_CNT + 1])[0]
+    out[1] = 1 if int(ctl[CTL_OVF]) else 0
+    return out
+
+
+def pair_reduce(op: int, ids: torch.Tensor, qid: torch.Tensor,
+                deg: Optional[torch.Tensor], out: torch.Tensor,
+                pack32: bool, R1: int, n_rows: int, nq: int, qmax: int,
+                limit: int, c_red: int, ctl: torch.Tensor) -> torch.Tensor:
+    """K6, the result of a sparse GO from its final pair list (``ids``,
+    ``qid`` int32 [c], sorted by (qid, id), pads (n_rows, BIG_Q) last):
+
+    - REDUCE_EMIT: ``out`` int32 [2 + c] (``pack32``: keys q * R1 + id,
+      2^31-1 unused) or [2 + 2c] (qids, -1 unused, then ids);
+    - REDUCE_COUNT: ``out`` int32 [2 + qmax], zero before: per-query
+      int32 (wrapping) sums of ``deg`` over the pairs;
+    - REDUCE_LIMIT: ``out`` as EMIT at ``c_red``: per query (< nq) the
+      shortest prefix whose exclusive degree sum is < ``limit``,
+      zero-degree vertices dropped; ``ctl[CTL_CNT]`` becomes the kept
+      count, overflow when it passes ``c_red``.
+
+    ``out[0:2]`` = (ctl count, ctl overflow)."""
+    dev = ids.device
+    c = _vec(ids, "ids", torch.int32, dev)
+    _vec(qid, "qid", torch.int32, dev, c)
+    _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    if op not in (REDUCE_EMIT, REDUCE_COUNT, REDUCE_LIMIT) or c == 0:
+        raise ValueError(f"reduce op {op} over {c} pairs")
+    if op != REDUCE_EMIT:
+        _vec(deg, "deg", torch.int32, dev, n_rows + 1)
+    width = {REDUCE_EMIT: c, REDUCE_COUNT: qmax,
+             REDUCE_LIMIT: c_red}[op]
+    if width <= 0 or nq <= 0 or (op == REDUCE_LIMIT and limit < 0):
+        raise ValueError(f"reduce op {op}: width {width}, nq {nq}, "
+                         f"limit {limit}")
+    pairs = op != REDUCE_COUNT and not pack32
+    _vec(out, "out", torch.int32, dev, 2 + (2 if pairs else 1) * width)
+    if not _route(dev):
+        return pair_reduce_ref(op, ids, qid, deg, out, pack32, R1, n_rows,
+                               nq, qmax, limit, c_red, ctl)
+    scratch = torch.empty(nq if op == REDUCE_LIMIT else 1,
+                          dtype=torch.int64, device=dev)
+    rc = _lib().sg_reduce(op, ids.data_ptr(), qid.data_ptr(), c,
+                          None if deg is None else deg.data_ptr(),
+                          out.data_ptr(), int(pack32), R1, n_rows, nq, qmax,
+                          limit, c_red, scratch.data_ptr(), ctl.data_ptr(),
+                          _stream(dev))
+    _ok(rc, "sg_reduce")
+    LAUNCHES["pair_reduce"] += 1
+    return out
+
+
+# ------------------------------------------------- sparse GO program
+def _sparse_args(ids, qid, ecnt, e0, deg, tables, over, steps, caps, qmax,
+                 nq, upto, limit, count):
+    dev = ids.device
+    S = _vec(ids, "ids", torch.int32, dev)
+    _vec(qid, "qid", torch.int32, dev, S)
+    _vec(ecnt, "ecnt", torch.int32, dev, tables.n + 1)
+    _vec(e0, "e0", torch.int32, dev, tables.n + 1)
+    if count and limit is not None:
+        raise ValueError("COUNT and LIMIT do not combine")
+    if count or limit is not None:
+        _vec(deg, "deg", torch.int32, dev, tables.n_rows + 1)
+    if steps < 2 or len(caps) != steps or min(caps) <= 0 or S == 0:
+        raise ValueError(f"steps {steps} with caps {caps} over {S} "
+                         f"starts (the program runs >= 1 hop)")
+    if upto and caps[-1] < S:
+        raise ValueError(f"UPTO pads the {S} starts to the final cap "
+                         f"{caps[-1]}, which is smaller")
+    if limit is not None and limit < 0:
+        raise ValueError(f"LIMIT {limit}")
+    if not 0 < nq <= qmax:
+        raise ValueError(f"nq {nq} outside 1..qmax {qmax}")
+    _tables_check(tables, dev)
+    return _over_check(over)
+
+
+def _sparse_go_steps(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
+                     qmax, nq, upto, limit, count, expand, compact, reduce):
+    """The sparse GO program as a sequence of K4-K6 calls (``expand``,
+    ``compact``, ``reduce`` are the kernels' wrappers or their plain
+    versions).  The overflow flag is sticky; once set, later hops still
+    run but the output's other entries are not defined."""
+    dev = ids.device
+    n, n_rows = tables.n, tables.n_rows
+    R1 = n_rows + 1
+    R1w = _words(R1)
+    n_extras = n_rows - n
+    ex_pow2 = (1 << max(n_extras * max(qmax, 1) - 1, 1).bit_length()
+               if n_extras else 0)
+    ctl = torch.zeros(CTL_SIZE, dtype=torch.int64, device=dev)
+    mark = torch.zeros(nq * R1w, dtype=torch.int32, device=dev)
+    uni = torch.zeros_like(mark) if upto else None
+    if upto:
+        expand(ids, qid, None, None, tables, over, uni, R1w, ctl, 0, True)
+    cmax = max(caps[1:])
+    bufs = [(torch.empty(cmax, dtype=torch.int32, device=dev),
+             torch.empty(cmax, dtype=torch.int32, device=dev))
+            for _ in range(2)]
+    cur_i, cur_q = ids, qid
+    for h in range(steps - 1):
+        c_in, c_out = cur_i.shape[0], caps[h + 1]
+        ex = min(c_in, ex_pow2) if n_extras else -1
+        c_lim = max(1, (2**31 - 1) // max(c_in, 1))
+        expand(cur_i, cur_q, ecnt if n_extras else None,
+               e0 if n_extras else None, tables, over, mark, R1w, ctl,
+               c_lim)
+        nxt_i, nxt_q = bufs[h % 2]
+        compact(mark, R1w, c_out, nxt_i, nxt_q, ctl, ex, n_rows, uni)
+        cur_i, cur_q = nxt_i[:c_out], nxt_q[:c_out]
+    c_fin = caps[-1]
+    if upto:
+        fin_i, fin_q = bufs[(steps - 1) % 2]
+        compact(uni, R1w, c_fin, fin_i, fin_q, ctl, -1, n_rows, None,
+                None, False)
+        cur_i, cur_q = fin_i[:c_fin], fin_q[:c_fin]
+    pack32 = sparse_pack32(qmax, n_rows)
+    if count:
+        out = torch.zeros(2 + qmax, dtype=torch.int32, device=dev)
+        return reduce(REDUCE_COUNT, cur_i, cur_q, deg, out, pack32, R1,
+                      n_rows, nq, qmax, 0, 0, ctl)
+    if limit is not None:
+        c_red = sparse_limit_cap(caps, caps[0], limit)
+        out = torch.empty(2 + (1 if pack32 else 2) * c_red,
+                          dtype=torch.int32, device=dev)
+        return reduce(REDUCE_LIMIT, cur_i, cur_q, deg, out, pack32, R1,
+                      n_rows, nq, qmax, limit, c_red, ctl)
+    out = torch.empty(2 + (1 if pack32 else 2) * c_fin, dtype=torch.int32,
+                      device=dev)
+    return reduce(REDUCE_EMIT, cur_i, cur_q, deg, out, pack32, R1, n_rows,
+                  nq, qmax, 0, 0, ctl)
+
+
+def _dedup_compact_ref(flat_q, flat_i, c_out, sentinel, R1):
+    """ell.py:1372 dedup_compact: sorted unique (q, i) pairs with valid
+    ids (!= sentinel), the count before the cut, the first c_out kept
+    (pads (sentinel, BIG_Q)).  One int64 key serves both of the
+    reference's key layouts: their pair order and count are the same."""
+    valid = flat_i != sentinel
+    key = torch.where(valid, flat_q.long() * R1 + flat_i.long(),
+                      torch.iinfo(torch.int64).max)
+    srt, _ = torch.sort(key)
+    uniq = (srt != torch.iinfo(torch.int64).max)
+    uniq[1:] &= srt[1:] != srt[:-1]
+    pref = torch.cumsum(uniq.long(), 0)
+    cnt = int(pref[-1]) if len(pref) else 0
+    take = uniq & (pref <= c_out)
+    kept = srt[take]
+    out_i = torch.full((c_out,), sentinel, dtype=torch.int32,
+                       device=flat_i.device)
+    out_q = torch.full((c_out,), BIG_Q, dtype=torch.int32,
+                       device=flat_i.device)
+    out_i[:len(kept)] = (kept % R1).to(torch.int32)
+    out_q[:len(kept)] = (kept // R1).to(torch.int32)
+    return out_i, out_q, cnt
+
+
+def _hub_iota_ref(cnt_raw, e0_vals, qid, EX, sentinel):
+    """ell.py:402 _segmented_hub_iota: up to EX (row, qid) expansion
+    pairs over the compacted runs and the wrap-free budget check."""
+    c_in = cnt_raw.shape[0]
+    c_lim = max(1, (2**31 - 1) // max(c_in, 1))
+    over_big = bool((cnt_raw > c_lim).any())
+    cnt = cnt_raw.long().clamp(max=c_lim)
+    tot = torch.cumsum(cnt, 0)
+    total = int(tot[-1]) if len(tot) else 0
+    overflow = over_big or total > EX
+    s = tot - cnt
+    has = cnt > 0
+    rank = torch.cumsum(has.long(), 0) - 1
+    dev = cnt_raw.device
+    pos = torch.where(has, rank, EX)
+    inb = pos < EX
+    run_e0 = torch.zeros(EX, dtype=torch.int64, device=dev)
+    run_q = torch.full((EX,), BIG_Q, dtype=torch.int64, device=dev)
+    run_s = torch.full((EX,), 2**30, dtype=torch.int64, device=dev)
+    run_e0[pos[inb]] = e0_vals.long()[inb]
+    run_q[pos[inb]] = qid.long()[inb]
+    run_s[pos[inb]] = s[inb]
+    j = torch.arange(EX, dtype=torch.int64, device=dev)
+    seg = torch.searchsorted(run_s, j, right=True) - 1
+    segc = seg.clamp(0, max(EX - 1, 0))
+    live = (j < min(total, EX)) & (seg >= 0)
+    rows = torch.where(live, run_e0[segc] + (j - run_s[segc]), sentinel)
+    qs = torch.where(live, run_q[segc], BIG_Q)
+    return rows, qs, overflow
+
+
+def sparse_go_ref(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
+                  qmax, upto=False, limit=None, count=False):
+    """Plain version of ``sparse_go``: ell.py:1222 ``go_impl``
+    transcribed (candidate matrix, sort dedup, hub iota, limit cut,
+    count) on the port's flat tables.  The one departure: the LIMIT
+    cut's per-query prefix is taken segment-locally in int64, where the
+    reference takes an int32 global cumsum less a cummax base, which
+    agrees while the batch's total final-hop degree stays below 2^31."""
+    dev = ids.device
+    n, n_rows = tables.n, tables.n_rows
+    sentinel, R1 = n_rows, n_rows + 1
+    neg = torch.tensor([-t for t in over], dtype=torch.int32, device=dev)
+    d_max = max(tables.D)
+    n_extras = n_rows - n
+    ex_pow2 = (1 << max(n_extras * max(qmax, 1) - 1, 1).bit_length()
+               if n_extras else 0)
+
+    def hop(ids_, qid_, c_out):
+        c_in = ids_.shape[0]
+        gids, gqs, ovf_hub = ids_, qid_, False
+        if n_extras:
+            vi = ids_.long().clamp(max=n)
+            raw = torch.where(ids_ == sentinel, 0, ecnt.long()[vi])
+            ext_rows, ext_q, ovf_hub = _hub_iota_ref(
+                raw, e0.long()[vi], qid_, min(c_in, ex_pow2), sentinel)
+            gids = torch.cat([ids_.long(), ext_rows])
+            gqs = torch.cat([qid_.long(), ext_q])
+        gids = gids.long()
+        cand = torch.full((gids.shape[0], d_max), sentinel,
+                          dtype=torch.int64, device=dev)
+        for b in range(len(tables.D)):
+            r0, nbk, D = tables.row0[b], tables.rows[b], tables.D[b]
+            nbr, et = tables.bucket(b)
+            loc = gids - r0
+            inb = (loc >= 0) & (loc < nbk)
+            safe = torch.where(inb, loc, 0)
+            rows = nbr[safe].long()
+            ok = inb[:, None] & torch.isin(et[safe], neg)
+            block = torch.where(ok, rows, sentinel)
+            cand[:, :D] = torch.where(inb[:, None], block, cand[:, :D])
+        flat_i = cand.reshape(-1)
+        flat_q = gqs.repeat_interleave(d_max)
+        out_i, out_q, cnt = _dedup_compact_ref(flat_q, flat_i, c_out,
+                                               sentinel, R1)
+        return out_i, out_q, (cnt > c_out) or ovf_hub, cnt
+
+    cur_i = ids.clone()
+    cur_q = torch.where(ids == sentinel, BIG_Q, qid)
+    overflow = False
+    cnt = int((ids != sentinel).sum())
+    c_fin = caps[-1]
+    if upto:
+        pad = c_fin - cur_i.shape[0]
+        acc_i = torch.cat([cur_i, torch.full((pad,), sentinel,
+                                             dtype=torch.int32,
+                                             device=dev)])
+        acc_q = torch.cat([cur_q, torch.full((pad,), BIG_Q,
+                                             dtype=torch.int32,
+                                             device=dev)])
+    for h in range(steps - 1):
+        cur_i, cur_q, ovf_h, cnt = hop(cur_i, cur_q, caps[h + 1])
+        overflow = overflow or ovf_h
+        if upto:
+            acc_i, acc_q, cnt = _dedup_compact_ref(
+                torch.cat([acc_q, cur_q]), torch.cat([acc_i, cur_i]),
+                c_fin, sentinel, R1)
+            overflow = overflow or cnt > c_fin
+    if upto:
+        cur_i, cur_q = acc_i, acc_q
+    ctl = torch.zeros(CTL_SIZE, dtype=torch.int64, device=dev)
+    ctl[CTL_CNT] = cnt
+    ctl[CTL_OVF] = int(overflow)
+    pack32 = sparse_pack32(qmax, n_rows)
+    nq = int(cur_q[cur_q != BIG_Q].max()) + 1 if bool(
+        (cur_q != BIG_Q).any()) else 1
+    if count:
+        out = torch.zeros(2 + qmax, dtype=torch.int32, device=dev)
+        return pair_reduce_ref(REDUCE_COUNT, cur_i, cur_q, deg, out,
+                               pack32, R1, n_rows, nq, qmax, 0, 0, ctl)
+    if limit is not None:
+        c_red = sparse_limit_cap(caps, caps[0], limit)
+        out = torch.empty(2 + (1 if pack32 else 2) * c_red,
+                          dtype=torch.int32, device=dev)
+        return pair_reduce_ref(REDUCE_LIMIT, cur_i, cur_q, deg, out,
+                               pack32, R1, n_rows, nq, qmax, limit, c_red,
+                               ctl)
+    out = torch.empty(2 + (1 if pack32 else 2) * c_fin, dtype=torch.int32,
+                      device=dev)
+    return pair_reduce_ref(REDUCE_EMIT, cur_i, cur_q, deg, out, pack32,
+                           R1, n_rows, nq, qmax, 0, 0, ctl)
+
+
+def sparse_go(ids: torch.Tensor, qid: torch.Tensor, ecnt: torch.Tensor,
+              e0: torch.Tensor, deg: Optional[torch.Tensor],
+              tables: DeviceTables, over: Sequence[int], steps: int,
+              caps: Sequence[int], qmax: int, nq: int, upto: bool = False,
+              limit: Optional[int] = None, count: bool = False
+              ) -> torch.Tensor:
+    """Sparse batched GO (ell.py:1222 make_batched_sparse_go_kernel),
+    ``steps - 1`` hops of B queries' frontiers as one (query, vertex)
+    pair list.  ``ids``/``qid`` int32 [S]: start new ids (n_rows =
+    inactive) and their queries (< nq <= qmax); ``ecnt``/``e0``
+    (ell.EllIndex.hub_expansion); ``deg`` int32 [n_rows + 1] for COUNT
+    and LIMIT; ``caps`` (ell.sparse_caps) the per-hop pair caps.
+    Returns the reference's int32 array: [count, overflow, pairs...]
+    with the pairs sorted by (qid, id), deduped, cut to the caps —
+    packed keys q * (n_rows + 1) + id (2^31-1 unused) when
+    ``ell.sparse_pack32(qmax, n_rows)``, else qids (-1 unused) then
+    ids; with ``upto`` the union of depths 0..steps-1; with ``count``
+    [count, overflow, per-query int32 degree sums [qmax]]; with
+    ``limit`` each query's shortest prefix whose exclusive degree sum
+    is below ``limit`` (zero-degree vertices dropped), at
+    ``ell.sparse_limit_cap``.  Overflow (a hop past its cap, the hub
+    budget, the UPTO union past the final cap, the LIMIT cut past its
+    cap) is sticky: the caller reruns dense; the other entries are then
+    not defined.  Launches K4-K6 on the card."""
+    over = _sparse_args(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
+                        qmax, nq, upto, limit, count)
+    caps = tuple(int(c) for c in caps)
+    if not _route(ids.device):
+        return sparse_go_ref(ids, qid, ecnt, e0, deg, tables, over, steps,
+                             caps, qmax, upto, limit, count)
+    out = _sparse_go_steps(ids, qid, ecnt, e0, deg, tables, over, steps,
+                           caps, qmax, nq, upto, limit, count,
+                           sparse_expand, pair_compact, pair_reduce)
+    LAUNCHES["sparse_go_count" if count else
+             "sparse_go_limit" if limit is not None else "sparse_go"] += 1
+    return out
+
+
+# ------------------------------------------------ K7 and the lanes
+def adaptive_switch_ref(fr, K, hub, n, n_rows, ctl):
+    """Plain version of ``adaptive_switch`` (K7)."""
+    v = fr.long()
+    live = v != n_rows
+    hit = bool((hub[v.clamp(max=n)].bool() & live).any())
+    sparse = int(ctl[CTL_SPARSE]) != 0
+    if int(ctl[CTL_MODE]) == MODE_SPARSE and int(ctl[CTL_CNT]) > K:
+        sparse = False
+    take = sparse and not hit
+    ctl[CTL_MODE] = MODE_SPARSE if take else MODE_DENSE
+    ctl[CTL_SPARSE] = 1 if take else 0
+    return ctl
+
+
+def adaptive_switch(fr: torch.Tensor, hub: torch.Tensor, n: int,
+                    n_rows: int, ctl: torch.Tensor) -> torch.Tensor:
+    """K7, before each adaptive hop: a sparse previous hop whose count
+    (``ctl[CTL_CNT]``) passed K = len(fr) ends the sparse mode for good;
+    this hop's mode word ``ctl[CTL_MODE]`` is MODE_SPARSE while the
+    mode holds and no vertex of the frontier list ``fr`` int32 [K]
+    (padded with n_rows) is a hub (``hub`` uint8 [n + 1]), else
+    MODE_DENSE (and the sparse mode ends)."""
+    dev = fr.device
+    K = _vec(fr, "fr", torch.int32, dev)
+    _vec(hub, "hub", torch.uint8, dev, n + 1)
+    _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    if K == 0:
+        raise ValueError("empty frontier list")
+    if not _route(dev):
+        return adaptive_switch_ref(fr, K, hub, n, n_rows, ctl)
+    rc = _lib().ad_switch(fr.data_ptr(), K, hub.data_ptr(), n, n_rows,
+                          ctl.data_ptr(), _stream(dev))
+    _ok(rc, "ad_switch")
+    LAUNCHES["adaptive_switch"] += 1
+    return ctl
+
+
+def bitmap_lanes_ref(to_lanes, bits, lanes, R1):
+    """Plain version of ``bitmap_lanes``."""
+    words = lanes.view(torch.int32).reshape(-1)
+    if to_lanes:
+        words.copy_(_bits_of(bits)[:R1].to(torch.int32))
+        return lanes
+    b = torch.zeros(bits.numel() * 32, dtype=torch.int64,
+                    device=bits.device)
+    b[:R1] = (words & 1).long()
+    sh = torch.arange(32, dtype=torch.int64, device=bits.device)
+    bits.copy_(_to_i32((b.reshape(-1, 32) << sh).sum(dim=1)))
+    return bits
+
+
+def bitmap_lanes(to_lanes: bool, bits: torch.Tensor, lanes: torch.Tensor,
+                 R1: int) -> torch.Tensor:
+    """The adaptive dense arm's layout change: ``to_lanes`` writes row r
+    of ``lanes`` uint8 [R1, 4] as lane 0 = bit r of ``bits`` int32
+    [ceil(R1 / 32)] (the other lanes zero); otherwise ``bits`` is
+    rebuilt from lane 0 of each row."""
+    dev = bits.device
+    _vec(bits, "bits", torch.int32, dev, _words(R1))
+    _check(lanes, "lanes", torch.uint8, (R1, 4), dev)
+    if not _route(dev):
+        return bitmap_lanes_ref(to_lanes, bits, lanes, R1)
+    _aligned(lanes)
+    rc = _lib().ad_bitmap_lanes(int(to_lanes), bits.data_ptr(),
+                                lanes.data_ptr(), R1, _stream(dev))
+    _ok(rc, "ad_bitmap_lanes")
+    LAUNCHES["bitmap_lanes"] += 1
+    return lanes if to_lanes else bits
+
+
+# ------------------------------------------------ adaptive program
+def _adaptive_args(starts, hub, tables, eslot, hrows, over, steps, K):
+    dev = starts.device
+    S = _vec(starts, "starts", torch.int32, dev)
+    _vec(hub, "hub", torch.uint8, dev, tables.n + 1)
+    _vec(eslot, "eslot", torch.int32, dev, tables.n_rows - tables.n)
+    _vec(hrows, "hrows", torch.int32, dev)
+    if K <= 0 or S > K:
+        raise ValueError(f"{S} starts for a K={K} frontier list")
+    if steps < 1:
+        raise ValueError(f"steps {steps}")
+    _tables_check(tables, dev)
+    return _over_check(over)
+
+
+def _adaptive_steps(starts, hub, tables, eslot, hrows, over, steps, K,
+                    expand, compact, switch, lanes, hop):
+    """The adaptive program as a sequence of kernel calls.  While the
+    sparse mode holds, each hop starts with K7 and one host read of its
+    mode word (a sync and an 8-byte copy): the sparse arm is K4 (the
+    push of the list) and K5 (the compaction to K ids, the state
+    bitmap replaced by every candidate).  The first dense hop ends the
+    sparse mode for good, so the rest of the hops run dense with no
+    further read: the state bitmap becomes lane 0 of a lane frontier
+    once, ``go_hop`` pulls it once per hop, and it comes back once.
+    The state bitmap always holds the reference's ``bitmap``."""
+    dev = starts.device
+    n, n_rows = tables.n, tables.n_rows
+    R1 = n_rows + 1
+    R1w = _words(R1)
+    fr = torch.full((K,), n_rows, dtype=torch.int32, device=dev)
+    fr[:starts.shape[0]] = starts
+    ctl = torch.zeros(CTL_SIZE, dtype=torch.int64, device=dev)
+    ctl[CTL_SPARSE] = 1
+    state = torch.zeros(R1w, dtype=torch.int32, device=dev)
+    expand(fr, None, None, None, tables, over, state, R1w, ctl, 0, True)
+    hops = steps - 1
+    cand = torch.zeros_like(state) if hops else None
+    while hops:
+        switch(fr, hub, n, n_rows, ctl)
+        if int(ctl[CTL_MODE]) != MODE_SPARSE:
+            break
+        expand(fr, None, None, None, tables, over, cand, R1w, ctl, 0)
+        compact(cand, R1w, K, fr, None, ctl, -1, n_rows, None, state, True)
+        hops -= 1
+    if hops:
+        f_in = torch.empty((R1, 4), dtype=torch.uint8, device=dev)
+        f_out = torch.empty_like(f_in)
+        lanes(True, state, f_in, R1)
+        for _ in range(hops):
+            hop(f_in, None, f_out, tables, eslot, hrows, over)
+            f_in, f_out = f_out, f_in
+        lanes(False, state, f_in, R1)
+    return state.view(torch.uint8)[:(R1 + 7) // 8]
+
+
+def adaptive_go_ref(starts, hub, tables, eslot, hrows, over, steps, K):
+    """Plain version of ``adaptive_go``: ell.py:1493 transcribed (the
+    list push with a sort dedup, the bitmap of the candidates, the dense
+    pull through ``go_hop_ref`` on lane 0)."""
+    dev = starts.device
+    n, n_rows = tables.n, tables.n_rows
+    sentinel, R1 = n_rows, n_rows + 1
+    neg = tuple(-t for t in over)
+
+    def bitmap_of(v):
+        bm = torch.zeros(R1, dtype=torch.bool, device=dev)
+        bm[v.long()] = True
+        bm[sentinel] = False
+        return bm
+
+    fr = torch.full((K,), sentinel, dtype=torch.int32, device=dev)
+    fr[:starts.shape[0]] = starts
+    bitmap = bitmap_of(fr)
+    sparse = True
+    for _ in range(steps - 1):
+        live = fr != sentinel
+        hub_hit = bool((hub[fr.long().clamp(max=n)].bool() & live).any())
+        if sparse and not hub_hit:
+            _q, cand = _slot_targets(fr.long()[live],
+                                     torch.zeros(int(live.sum()),
+                                                 dtype=torch.int64,
+                                                 device=dev),
+                                     tables, neg)
+            uniq = torch.unique(cand)             # sorted, sentinel-free
+            cnt2 = uniq.numel()
+            fr = torch.full((K,), sentinel, dtype=torch.int32, device=dev)
+            fr[:min(cnt2, K)] = uniq[:K].to(torch.int32)
+            overflow = cnt2 > K
+            bitmap = bitmap_of(cand) if overflow else bitmap_of(fr)
+            sparse = not overflow
+        else:
+            f = torch.zeros((R1, 4), dtype=torch.uint8, device=dev)
+            f[:, 0] = bitmap.to(torch.uint8)
+            out, _ = go_hop_ref(f, None, torch.empty_like(f), tables,
+                                eslot, hrows, over)
+            bitmap = (out[:, 0] & 1).bool()
+            fr = torch.full((K,), sentinel, dtype=torch.int32, device=dev)
+            sparse = False
+    G = (R1 + 7) // 8
+    bits = torch.zeros(G * 8, dtype=torch.uint8, device=dev)
+    bits[:R1] = bitmap.to(torch.uint8)
+    sh = torch.arange(8, dtype=torch.uint8, device=dev)
+    return (bits.reshape(G, 8) << sh).sum(dim=1, dtype=torch.uint8)
+
+
+def adaptive_go(starts: torch.Tensor, hub: torch.Tensor,
+                tables: DeviceTables, eslot: torch.Tensor,
+                hrows: torch.Tensor, over: Sequence[int], steps: int,
+                K: int = 2048) -> torch.Tensor:
+    """Single-query GO (ell.py:1493 make_adaptive_go_kernel): ``steps -
+    1`` hops from ``starts`` int32 [<= K] (new ids): a push over the
+    frontier list while it fits K ids and holds no hub (``hub`` uint8
+    [n + 1], ell.EllIndex.hub_table), else, for good, the dense pull of
+    the whole bitmap (``go_hop`` with the hub merge).  Returns uint8
+    [ceil((n_rows + 1) / 8)]: the frontier's bitmap, row-major, little
+    bit order (ell.unpack_bits inverts it); hub extra rows may hold
+    junk, as in the reference.  Launches K4, K5 and K7 per sparse hop,
+    and the lane layout change and the hop once a hop runs dense."""
+    over = _adaptive_args(starts, hub, tables, eslot, hrows, over, steps,
+                          K)
+    if not _route(starts.device):
+        return adaptive_go_ref(starts, hub, tables, eslot, hrows, over,
+                               steps, K)
+    out = _adaptive_steps(starts, hub, tables, eslot, hrows, over, steps,
+                          K, sparse_expand, pair_compact, adaptive_switch,
+                          bitmap_lanes, go_hop)
+    LAUNCHES["adaptive_go"] += 1
+    return out

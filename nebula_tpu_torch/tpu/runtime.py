@@ -7,19 +7,23 @@ a ``GoBatchDispatcher`` (graph/batch_dispatch.py) that every device
 query enters.  The entry points:
 
 - ``serve_go`` answers ``GO [UPTO] N STEPS FROM ... OVER e YIELD
-  e._dst [| YIELD COUNT(*)]``.  With ``go_dispatch_mode=continuous``
-  (the default) multi-hop GO rides one in-flight lane batch per
-  (space, OVER set) (``_ContinuousGoSession``); windowed mode and
-  single-step GO ride the coalescing dispatcher into
-  ``go_batch_execute`` and the dense ``ell_go`` / ``ell_go_count``
-  programs.
+  e._dst [| YIELD COUNT(*)] [| LIMIT n]``.  With
+  ``go_dispatch_mode=continuous`` (the default) multi-hop GO rides one
+  in-flight lane batch per (space, OVER set)
+  (``_ContinuousGoSession``); windowed mode and single-step GO ride
+  the coalescing dispatcher into ``go_batch_execute``, whose
+  ``_launch_frontiers`` picks the reference's route: the sparse
+  pair-list program (``sparse_go``, its COUNT and LIMIT variants, split
+  into ladder-sized launches for wide batches), the adaptive
+  single-query program (``adaptive_go``) or the dense ``ell_go`` /
+  ``ell_go_count`` programs.
 - ``serve_find_path`` answers ``FIND SHORTEST|ALL PATH``: batched BFS
   depths on the card (``ell_bfs``), then the host's parent walk
   (``_reconstruct_paths``).
 
-Everything else raises ``TpuDecline``; the windowed route's sparse,
-adaptive and mesh kernels are not ported yet and their branches of
-``_launch_frontiers`` decline naming the kernel they need.
+Everything else raises ``TpuDecline``; the mesh kernels and the
+unpacked dense kernels are not ported yet and their branches decline
+naming the kernel they need.
 
 Semantics held exactly: ``GO N STEPS`` is N-1 device hops, then the
 host-side final hop over the frontier's out-edges in the OVER set
@@ -41,7 +45,8 @@ from . import ell_ops
 from .csr import CsrMirror
 from .device import DeviceLike, resolve_device
 from .ell import (INT16_INF, INT32_INF, DeviceTables, EllIndex,
-                  lanes_width, unpack_lanes_host)
+                  lanes_width, sparse_caps, sparse_go_pairs, sparse_pack32,
+                  unpack_bits, unpack_lanes_host)
 
 
 class _Pending:
@@ -99,6 +104,8 @@ class TorchQueryRuntime:
         # walk; cpu_paths_s is the walk's own CPU time (thread_time),
         # which leaves out the waits for the GIL that t_paths_s counts
         self.stats = {"go_device": 0, "go_reduced": 0, "go_dense": 0,
+                      "go_sparse": 0, "go_sparse_split": 0,
+                      "sparse_overflows": 0, "go_adaptive": 0,
                       "path_device": 0, "bfs_dispatches": 0,
                       "bfs_levels": 0, "fetch_bytes": 0,
                       "fetch_wait_s": 0.0, "t_launch_s": 0.0,
@@ -156,30 +163,49 @@ class TorchQueryRuntime:
             m._ell = ix
         return ix
 
-    def _device_tables(self, m: CsrMirror, ix: EllIndex) -> DeviceTables:
-        """The ELL buckets on this runtime's device, cached per mirror
-        (EllIndex has __slots__, so the cache hangs on the mirror)."""
-        cache = getattr(m, "_tables_cache", None)
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        """A host array copied to this runtime's device."""
+        return torch.from_numpy(a).to(self.device)
+
+    def _mirror_cached(self, m: CsrMirror, attr: str, build):
+        """``build()`` cached on the mirror per device under ``attr``
+        (EllIndex has __slots__, so device caches hang on the mirror)."""
+        cache = getattr(m, attr, None)
         if cache is None:
-            cache = m._tables_cache = {}
+            cache = {}
+            setattr(m, attr, cache)
         key = str(self.device)
         if key not in cache:
-            cache[key] = ix.device_tables(self.device)
+            cache[key] = build()
         return cache[key]
+
+    def _device_tables(self, m: CsrMirror, ix: EllIndex) -> DeviceTables:
+        """The ELL buckets on this runtime's device, cached per mirror."""
+        return self._mirror_cached(m, "_tables_cache",
+                                   lambda: ix.device_tables(self.device))
 
     def _hub_merge_dev(self, m: CsrMirror, ix: EllIndex
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(eslot, hrows) on the device for the hop's OR-merge
         (ell.EllIndex.hub_merge), cached per mirror."""
-        cache = getattr(m, "_hub_merge_cache", None)
-        if cache is None:
-            cache = m._hub_merge_cache = {}
-        key = str(self.device)
-        if key not in cache:
-            eslot, hrows = ix.hub_merge()
-            cache[key] = (torch.from_numpy(eslot).to(self.device),
-                          torch.from_numpy(hrows).to(self.device))
-        return cache[key]
+        return self._mirror_cached(
+            m, "_hub_merge_cache",
+            lambda: tuple(self._up(a) for a in ix.hub_merge()))
+
+    def _hub_dev(self, m: CsrMirror, ix: EllIndex) -> torch.Tensor:
+        """uint8[n+1] hub table (ell.EllIndex.hub_table) on the device
+        for the adaptive program, cached per mirror."""
+        return self._mirror_cached(
+            m, "_hub_dev_cache",
+            lambda: self._up(ix.hub_table().astype(np.uint8)))
+
+    def _hub_expansion_dev(self, m: CsrMirror, ix: EllIndex
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ecnt, e0) on the device for the sparse program's exact hub
+        push (ell.EllIndex.hub_expansion), cached per mirror."""
+        return self._mirror_cached(
+            m, "_hub_exp_cache",
+            lambda: tuple(self._up(a) for a in ix.hub_expansion()))
 
     # ------------------------------------------------------ entry point
     def serve_go(self, space_id: int, start_vids: Sequence[int],
@@ -194,17 +220,28 @@ class TorchQueryRuntime:
         edge alias in ``etype_to_alias``; the result column is
         ``"<alias>._dst"`` with one row per final-hop edge, or with
         ``reduce=("count",)`` the single row ``[[n]]`` under
-        ``"__count__"``.  The request enters the dispatcher as
+        ``"__count__"``.  ``limit=n`` is ``GO ... | LIMIT n``: the
+        request carries ``reduce=("limit", n)``, which the sparse route
+        cuts on the card, and the first n assembled rows are returned,
+        as the reference's pipe does (traverse.py:1037-1050); a
+        device-cut LIMIT may keep another deterministic subset than the
+        dense route's first rows.  The request enters the dispatcher as
         ``_go_via_dispatcher`` (runtime.py:1352) submits it: multi-hop
         GO rides the continuous stream in continuous mode, everything
-        else ``go_batch_execute``.  WHERE, other YIELD columns, LIMIT,
-        other reductions and unloaded spaces raise TpuDecline."""
+        else ``go_batch_execute``.  WHERE, other YIELD columns, other
+        reductions, LIMIT with UPTO or a reduction (the reference's
+        ``_go_reduce_shape`` never pushes those down) and unloaded
+        spaces raise TpuDecline."""
         if where is not None:
             raise TpuDecline("WHERE is not served by the device slice")
-        if limit is not None:
-            raise TpuDecline("LIMIT is not served by the device slice")
         if reduce is not None and tuple(reduce) != ("count",):
             raise TpuDecline(f"reduction {reduce!r} is not served")
+        if limit is not None:
+            if upto or reduce is not None or int(limit) < 0:
+                raise TpuDecline("LIMIT is pushed down only onto a plain "
+                                 "exact-depth GO")
+            limit = int(limit)
+            reduce = ("limit", limit)
         steps = int(steps)
         et_tuple = tuple(sorted(set(int(e) for e in etypes)))
         if not et_tuple or 0 in et_tuple:
@@ -223,6 +260,9 @@ class TorchQueryRuntime:
             ("go_batch_execute", space_id, et_tuple, steps, bool(upto),
              None if reduce is None else tuple(reduce)),
             _GoQuery(start_vids, column))
+        if limit is not None:
+            cols, rows = result
+            return cols, rows[:limit]
         return result
 
     # ------------------------------------------------ batch entry point
@@ -247,6 +287,8 @@ class TorchQueryRuntime:
                 results = self._count_results(m, vs_lists, et_tuple)
                 self._bump("go_reduced", len(queries))
             else:
+                if reduce is not None:       # LIMIT: the caller slices
+                    self._bump("go_reduced", len(queries))
                 results = self._assemble_results(m, queries, vs_lists,
                                                  et_tuple)
             self._tick("t_assemble_s", t1)
@@ -311,8 +353,9 @@ class TorchQueryRuntime:
                            queries: List[_GoQuery], reduces,
                            vs_lists, et_tuple: Tuple[int, ...]):
         """Post-frontier half for a leave cohort: COUNT riders fold the
-        cached degree vector over their frontier, the rest assemble
-        their ``_dst`` rows.  results[i] is (columns, rows)."""
+        cached degree vector over their frontier, the rest (LIMIT riders
+        too: their caller slices) assemble their ``_dst`` rows.
+        results[i] is (columns, rows)."""
         results: List[object] = [None] * len(queries)
         count_idx = [i for i, red in enumerate(reduces)
                      if red is not None and red[0] == "count"]
@@ -329,8 +372,12 @@ class TorchQueryRuntime:
             sub = self._assemble_results(
                 m, [queries[i] for i in other_idx],
                 [vs_lists[i] for i in other_idx], et_tuple)
+            n_lim = 0
             for j, i in enumerate(other_idx):
                 results[i] = sub[j]
+                n_lim += reduces[i] is not None
+            if n_lim:
+                self._bump("go_reduced", n_lim)
         return results
 
     def _count_results(self, m: CsrMirror, vs_lists,
@@ -498,12 +545,12 @@ class TorchQueryRuntime:
         """Start the device work for ``steps - 1`` frontier advances of
         B queries; returns a zero-arg resolver -> (per-query ascending
         dense-id frontier arrays, or _DeviceCounts, and the mirror).
-        The reference's selection order: host-only (steps == 1) →
-        mesh → sparse pair-list → sparse split → adaptive single →
-        dense bit-packed.  The mesh, sparse and adaptive kernels are
-        not ported: a batch that the reference would send there
-        raises TpuDecline naming the kernel.  ``upto`` returns the
-        UNION of depths 0..steps-1."""
+        The reference's selection order (runtime.py:1664-1693):
+        host-only (steps == 1) → mesh → sparse pair-list → sparse split
+        → adaptive single → dense bit-packed.  The mesh kernels are not
+        ported: with ``tpu_mesh_devices`` > 1 a batch raises TpuDecline
+        naming them.  ``upto`` returns the UNION of depths
+        0..steps-1."""
         m = self.mirror(space_id)
         if m is None:
             raise TpuDecline(f"space {space_id} is not loaded")
@@ -543,22 +590,176 @@ class TorchQueryRuntime:
                              "ell_go_sharded kernels (ell.py:2052, "
                              ":1712), not ported")
         if flags.get("tpu_sparse_go") and c0 is not None:
-            raise TpuDecline("sparse batched GO needs the sparse_go "
-                             "kernel (ell.py:1222), not ported")
-        if flags.get("tpu_sparse_go") and c0 is None and nq > 1 \
-                and (np.diff(qbounds) <= max(self._sparse_ladder())).all():
-            # the reference splits the batch into ladder-sized sparse
-            # sub-launches (_launch_sparse_split); only a query that
-            # alone outgrows the ladder sends it to the dense pull
-            raise TpuDecline("split sparse batched GO needs the "
-                             "sparse_go kernel (ell.py:1222), not ported")
+            return self._launch_sparse(m, ix, d_all, q_all, nq, et_tuple,
+                                       steps, c0, upto=upto, reduce=reduce)
+        if flags.get("tpu_sparse_go") and c0 is None and nq > 1:
+            # total starts outgrew the sparse ladder: split at query
+            # boundaries into ladder-sized sparse launches; only a query
+            # that alone outgrows the ladder sends the batch dense
+            launched = self._launch_sparse_split(
+                m, ix, d_all, q_all, nq, et_tuple, steps, qbounds,
+                upto=upto, reduce=reduce)
+            if launched is not None:
+                return launched
         if nq == 1 and not upto and reduce is None \
                 and flags.get("tpu_adaptive_single") \
                 and len(d_all) <= int(flags.get("tpu_adaptive_k") or 2048):
-            raise TpuDecline("single-query GO needs the adaptive_go kernel "
-                             "(ell.py:1493), not ported")
+            return self._launch_adaptive(m, ix, d_all, et_tuple, steps)
         return self._launch_dense(m, ix, d_all, q_all, nq, et_tuple, steps,
                                   upto=upto, reduce=reduce)
+
+    def _launch_sparse_split(self, m: CsrMirror, ix: EllIndex,
+                             d_all: np.ndarray, q_all: np.ndarray, nq: int,
+                             et_tuple: Tuple[int, ...], steps: int,
+                             qbounds: np.ndarray, upto: bool = False,
+                             reduce=None):
+        """Greedy query-boundary split of an over-wide batch into sparse
+        launches, each within the c0 ladder (runtime.py:1695); all are
+        enqueued back to back and the resolver stitches the per-query
+        results in submission order.  None when one query alone
+        outgrows the ladder (only the dense pull can hold it)."""
+        cap_max = max(self._sparse_ladder())
+        groups: List[Tuple[int, int]] = []
+        lo = 0
+        while lo < nq:
+            hi = lo + 1
+            while hi < nq and qbounds[hi + 1] - qbounds[lo] <= cap_max:
+                hi += 1
+            if qbounds[hi] - qbounds[lo] > cap_max:
+                return None          # one query alone outgrows the ladder
+            groups.append((lo, hi))
+            lo = hi
+        parts = []
+        for g_lo, g_hi in groups:
+            seg = slice(int(qbounds[g_lo]), int(qbounds[g_hi]))
+            d_seg = d_all[seg]
+            q_seg = q_all[seg] - g_lo
+            c0g = self._sparse_c0(len(d_seg))
+            if c0g is None:          # empty group (queries w/o starts)
+                parts.append((g_lo, g_hi, None))
+                continue
+            parts.append((g_lo, g_hi, self._launch_sparse(
+                m, ix, d_seg, q_seg, g_hi - g_lo, et_tuple, steps, c0g,
+                upto=upto, reduce=reduce)))
+        self._bump("go_sparse_split")
+
+        def resolve():
+            if reduce is not None and reduce[0] == "count":
+                # count launches resolve to _DeviceCounts (device- or
+                # dense-rerun counted): stitch the per-query numbers
+                counts = np.zeros(nq, np.int64)
+                for g_lo, g_hi, r in parts:
+                    if r is None:
+                        continue        # start-less queries count 0
+                    vals, mm = r()
+                    if isinstance(vals, _DeviceCounts):
+                        counts[g_lo:g_hi] = vals.arr
+                    else:               # defensive: vertex lists
+                        deg = self._deg_host(mm, et_tuple)
+                        counts[g_lo:g_hi] = [
+                            int(deg[np.asarray(v, np.int64)].sum())
+                            if len(v) else 0 for v in vals]
+                return _DeviceCounts(counts), m
+            out: List[np.ndarray] = [np.zeros(0, np.int64)] * nq
+            for g_lo, g_hi, r in parts:
+                if r is None:
+                    continue
+                vs, _mm = r()
+                out[g_lo:g_hi] = vs
+            return out, m
+
+        return resolve
+
+    def _launch_sparse(self, m: CsrMirror, ix: EllIndex, d_all: np.ndarray,
+                       q_all: np.ndarray, nq: int,
+                       et_tuple: Tuple[int, ...], steps: int, c0: int,
+                       upto: bool = False, reduce=None):
+        """The sparse pair-list route (runtime.py:1806): the starts in
+        per-query new-id order, ``sparse_go`` (``limit``: the LIMIT
+        pushdown; ``count``: per-query counts) on the card; the
+        resolver decodes the pairs and re-sorts them by (query, old
+        id), or reruns the batch dense when the program overflowed.
+        Unlike the reference, whose COUNT variant is built without
+        ``upto`` (its front end never sends UPTO with a count), the
+        count here folds the UPTO union, as the dense route's does."""
+        d_max = max(ix.bucket_D) if ix.bucket_D else 1
+        cap = int(flags.get("tpu_sparse_cap") or (1 << 17))
+        caps = sparse_caps(c0, d_max, steps, cap,
+                           growth=int(flags.get("tpu_sparse_growth") or 8))
+        if upto and caps[-1] < c0:
+            # the union starts as the c0 start places padded to the
+            # final cap (the reference cannot build this shape)
+            return self._launch_dense(m, ix, d_all, q_all, nq, et_tuple,
+                                      steps, upto=upto, reduce=reduce)
+        qmax = max(int(flags.get("go_batch_max") or 1024), nq)
+        limit = int(reduce[1]) if reduce is not None \
+            and reduce[0] == "limit" else None
+        count_mode = reduce is not None and reduce[0] == "count"
+        S = len(d_all)
+        ids = np.full(c0, ix.n_rows, np.int32)
+        qid = np.zeros(c0, np.int32)
+        new = ix.perm[d_all]
+        order = np.lexsort((new, q_all))     # per-query ascending new ids
+        ids[:S] = new[order]
+        qid[:S] = q_all[order]
+        ecnt, e0 = self._hub_expansion_dev(m, ix)
+        deg = self._deg_dev(m, ix, et_tuple) \
+            if (limit is not None or count_mode) else None
+        out_dev = ell_ops.sparse_go(
+            self._up(ids), self._up(qid), ecnt, e0, deg,
+            self._device_tables(m, ix), et_tuple, steps, caps, qmax, nq,
+            upto=upto, limit=limit, count=count_mode)
+        self._bump("go_sparse")
+
+        def dense():
+            self._bump("sparse_overflows")
+            return self._launch_dense(m, ix, d_all, q_all, nq, et_tuple,
+                                      steps, upto=upto, reduce=reduce)()
+
+        if count_mode:
+            def resolve_counts():
+                out_host = self._fetch(out_dev)
+                if bool(out_host[1]):            # overflow: dense rerun
+                    return dense()
+                return _DeviceCounts(
+                    out_host[2:2 + nq].astype(np.int64)), m
+            return resolve_counts
+
+        def resolve():
+            out_host = self._fetch(out_dev)
+            _cnt, overflow, qids, vids_new = sparse_go_pairs(
+                out_host, sparse_pack32(qmax, ix.n_rows), ix.n_rows + 1)
+            if overflow:
+                return dense()
+            vs_old = ix.inv[vids_new].astype(np.int64)
+            # by (query, old dense id): the dense route's row order
+            order2 = np.lexsort((vs_old, qids))
+            qids, vs_old = qids[order2], vs_old[order2]
+            bounds = np.searchsorted(qids, np.arange(nq + 1))
+            return [vs_old[bounds[q]:bounds[q + 1]] for q in range(nq)], m
+
+        return resolve
+
+    def _launch_adaptive(self, m: CsrMirror, ix: EllIndex,
+                         d_all: np.ndarray, et_tuple: Tuple[int, ...],
+                         steps: int):
+        """The adaptive single-query route (runtime.py:1998):
+        ``adaptive_go`` on the card, then the fetched bitmap read in
+        old-id order."""
+        K = int(flags.get("tpu_adaptive_k") or 2048)
+        eslot, hrows = self._hub_merge_dev(m, ix)
+        starts = self._up(ix.perm[d_all].astype(np.int32))
+        out_dev = ell_ops.adaptive_go(starts, self._hub_dev(m, ix),
+                                      self._device_tables(m, ix), eslot,
+                                      hrows, et_tuple, steps, K)
+        self._bump("go_adaptive")
+
+        def resolve():
+            packed = self._fetch(out_dev)
+            bitmap = unpack_bits(packed[:, None], ix.n_rows + 1)[:, 0]
+            return [np.nonzero(bitmap[ix.perm])[0]], m
+
+        return resolve
 
     def _launch_dense(self, m: CsrMirror, ix: EllIndex, d_all: np.ndarray,
                       q_all: np.ndarray, nq: int,
@@ -630,11 +831,8 @@ class TorchQueryRuntime:
         vals_p[:S] = np.uint8(1) << (qcols & 7).astype(np.uint8)
         out = torch.empty((ix.n_rows + 1, lanes_width(B)), dtype=torch.uint8,
                           device=self.device)
-
-        def up(a):
-            return torch.from_numpy(a).to(self.device)
-        return ell_ops.frontier_upload(out, up(rows_p), up(word_p),
-                                       up(vals_p))
+        return ell_ops.frontier_upload(out, self._up(rows_p),
+                                       self._up(word_p), self._up(vals_p))
 
     # ================================================== FIND PATH
     @staticmethod
@@ -814,9 +1012,6 @@ class _ContinuousGoSession:
         self.accp = torch.zeros_like(self.fp)
         self._spare = torch.empty_like(self.fp)
 
-    def _up(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
     def join(self, joiners) -> None:
         """Set the arrivals' start bits in their lanes: ``joiners`` is
         [(lane, start_vids)].  Unmappable vids drop; (row, lane) pairs
@@ -842,8 +1037,8 @@ class _ContinuousGoSession:
         rows_p[:S] = self.ix.perm[d_k]
         words_p[:S] = lane_k >> 3
         vals_p[:S] = np.left_shift(1, lane_k & 7)
-        ell_ops.lane_join(self.fp, self.accp, self._up(rows_p),
-                          self._up(words_p), self._up(vals_p))
+        ell_ops.lane_join(self.fp, self.accp, self.rt._up(rows_p),
+                          self.rt._up(words_p), self.rt._up(vals_p))
 
     def hop(self) -> None:
         """Advance every seated lane one hop; ``accp`` unions the new
@@ -870,8 +1065,8 @@ class _ContinuousGoSession:
             sel_p[j] = 1 if upto else 0
         out = torch.empty((self.ix.n_rows + 1, P), dtype=torch.uint8,
                           device=self.device)
-        ell_ops.lane_extract(self.fp, self.accp, self._up(words_p),
-                             self._up(sel_p), out)
+        ell_ops.lane_extract(self.fp, self.accp, self.rt._up(words_p),
+                             self.rt._up(sel_p), out)
         event = None
         if self.device.type == "cuda":
             host = torch.empty(out.shape, dtype=torch.uint8,
@@ -917,7 +1112,7 @@ class _ContinuousGoSession:
         keep = np.full(self.W, 0xFF, np.uint8)
         for lane in lanes:
             keep[lane >> 3] &= np.uint8(0xFF ^ (1 << (lane & 7)))
-        ell_ops.lane_clear(self.fp, self.accp, self._up(keep))
+        ell_ops.lane_clear(self.fp, self.accp, self.rt._up(keep))
 
 
 # ================================================== path reconstruction

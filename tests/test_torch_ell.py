@@ -91,6 +91,30 @@ def test_mirror_from_edges_dedups_and_rejects_bad_input():
         tcsr.mirror_from_edges([1], [2], -1)
 
 
+@pytest.mark.parametrize("spread,n_et", [(1, 1), (1, 3), (10 ** 9, 2)])
+def test_mirror_from_edges_sorts_like_the_kv_scan(spread, n_et):
+    """Rank-0 edges take the packed-key sort and (vids spread wide) the
+    searched dense ids: rows as a plain lexsort of (src, etype, rank,
+    dst) with repeats dropped gives them."""
+    rng = np.random.default_rng(n_et)
+    src = rng.integers(1, 300, 3000) * spread
+    dst = rng.integers(1, 300, 3000) * spread
+    et = rng.integers(1, n_et + 1, 3000)
+    m = tcsr.mirror_from_edges(src, dst, et)
+    vids = np.unique(np.concatenate([src, dst]))
+    s_all = np.searchsorted(vids, np.concatenate([src, dst]))
+    d_all = np.searchsorted(vids, np.concatenate([dst, src]))
+    e_all = np.concatenate([et, -et])
+    key = np.unique(np.stack([s_all, e_all, d_all], 1), axis=0)
+    assert np.array_equal(m.vids, vids)
+    assert np.array_equal(m.edge_src, key[:, 0])
+    assert np.array_equal(m.edge_etype, key[:, 1])
+    assert np.array_equal(m.edge_dst, key[:, 2])
+    assert not m.edge_rank.any() and m.m == len(key)
+    assert [a.dtype for a in (m.edge_src, m.edge_dst, m.edge_etype,
+                              m.edge_rank)] == [np.int32] * 3 + [np.int64]
+
+
 @pytest.mark.parametrize("cap,slack", [(8, 8), (8, 0), (32, 8), (512, 8)])
 def test_ell_build_equals_reference(ref_mirror, cap, slack):
     m = ref_mirror[0]

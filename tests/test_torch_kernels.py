@@ -242,8 +242,10 @@ def test_build_runs_nvcc_only_when_the_library_is_stale(tmp_path,
     nvcc.chmod(0o755)
     src = tmp_path / "k.cu"
     src.write_text("// kernel\n")
+    src2 = tmp_path / "k2.cu"
+    src2.write_text("// kernel\n")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
-    monkeypatch.setattr(_build, "SOURCES", (str(src),))
+    monkeypatch.setattr(_build, "SOURCES", (str(src), str(src2)))
     monkeypatch.setattr(_build, "OUT_DIR", str(tmp_path / "out"))
     lib = tmp_path / "out" / "libell_lanes.so"
     monkeypatch.setattr(_build, "LIB_PATH", str(lib))
@@ -251,13 +253,16 @@ def test_build_runs_nvcc_only_when_the_library_is_stale(tmp_path,
     def n_calls():
         return len(calls.read_text().splitlines()) if calls.exists() else 0
 
-    assert _build.build() == str(lib) and n_calls() == 1   # missing
+    # a build is one compile per source and one link
+    assert _build.build() == str(lib) and n_calls() == 3   # missing
+    assert set(_build.LAST_BUILD) == {"k.cu", "k2.cu", "link"}
     _build.build()
-    assert n_calls() == 1                                  # fresh
+    assert n_calls() == 3                                  # fresh
     later = os.path.getmtime(lib) + 10
-    os.utime(src, (later, later))
+    os.utime(src2, (later, later))
     _build.build()
-    assert n_calls() == 2                                  # source newer
+    assert n_calls() == 6                                  # source newer
     _build.build(force=True)
-    assert n_calls() == 3
-    assert not [p for p in os.listdir(tmp_path / "out") if p.endswith(".tmp")]
+    assert n_calls() == 9
+    assert not [p for p in os.listdir(tmp_path / "out")
+                if p.endswith(".tmp") or p.endswith(".o")]

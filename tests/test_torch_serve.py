@@ -185,7 +185,7 @@ def test_unsupported_requests_decline(served):
     alias = {et: "e"}
     cases = [
         dict(where="e.w > 3"),
-        dict(limit=3),
+        dict(limit=3, upto=True),
         dict(reduce=("limit", 3)),
         dict(yield_cols=["e._dst", "e.w"]),
         dict(yield_cols=["e._src"]),
@@ -203,6 +203,11 @@ def test_unsupported_requests_decline(served):
     cols, _rows = rt.serve_go(space, [1], [et], 2, alias,
                               yield_cols=["e._dst"])
     assert cols == ["e._dst"]
+    # GO | LIMIT n is served: the continuous stream's full rows, cut
+    # as the cluster's pipe cuts them
+    cols, rows = rt.serve_go(space, [1], [et], 2, alias, limit=3)
+    assert cols == ["e._dst"]
+    assert rows == ok("GO 2 STEPS FROM 1 OVER e YIELD e._dst | LIMIT 3").rows
     # single-step GO is served (by the windowed route, on the host)
     cols, rows = rt.serve_go(space, [1], [et], 1, alias)
     assert cols == ["e._dst"]

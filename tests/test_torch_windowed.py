@@ -3,7 +3,10 @@ against the JAX functions they replace: the packed frontier upload
 (``TpuQueryRuntime._upload_frontier_packed``, runtime.py:3251), batched
 dense GO with its UPTO and COUNT(*) variants
 (``make_batched_go_lanes_kernel``, ell.py:572) and batched BFS
-(``make_batched_bfs_lanes_kernel``, ell.py:1080).
+(``make_batched_bfs_lanes_kernel``, ell.py:1080); then windowed GO
+served end to end against a JAX cluster, on the dense route and, at
+the default flags, on the sparse, split, adaptive and overflow-rerun
+routes with ``| YIELD COUNT(*)`` and ``| LIMIT n``.
 
 The same seeded numpy inputs go through the JAX function on CPU jax and
 the port's wrapper on CPU torch (the plain route).  Bitsets, int8/int16
@@ -225,7 +228,34 @@ def _kernel_calls(tix):
     R1 = tix.n_rows + 1
     f = torch.full((R1, 16), 0xFF, dtype=torch.uint8)
     i32 = torch.zeros(8, dtype=torch.int32)
+    tables = tix.device_tables(CPU)
+    R1w = (R1 + 31) // 32
+    words = torch.full((R1w,), -1, dtype=torch.int32)
+    ctl = torch.zeros(ell_ops.CTL_SIZE, dtype=torch.int64)
+    ids = torch.full((8,), tix.n_rows, dtype=torch.int32)
+    ecnt, e0 = (_t(a) for a in tix.hub_expansion())
+    deg = torch.zeros(R1, dtype=torch.int32)
+    hub = _t(tix.hub_table().astype(np.uint8))
+    eslot, hrows = (_t(a) for a in tix.hub_merge())
+    lanes = torch.full((R1, 4), 0xFF, dtype=torch.uint8)
     return {
+        "sparse_expand": (words, lambda: ell_ops.sparse_expand(
+            ids, i32, ecnt, e0, tables, (1,), words, R1w, ctl, 1)),
+        "pair_compact": (words, lambda: ell_ops.pair_compact(
+            words, R1w, 8, i32.clone(), None, ctl, -1, tix.n_rows)),
+        "pair_reduce": (lanes, lambda: ell_ops.pair_reduce(
+            ell_ops.REDUCE_COUNT, ids, i32, deg,
+            torch.zeros(2 + 8, dtype=torch.int32), True, R1, tix.n_rows,
+            1, 8, 0, 0, ctl)),
+        "adaptive_switch": (lanes, lambda: ell_ops.adaptive_switch(
+            ids, hub, tix.n, tix.n_rows, ctl)),
+        "bitmap_lanes": (lanes, lambda: ell_ops.bitmap_lanes(
+            True, words, lanes, R1)),
+        "sparse_go": (words, lambda: ell_ops.sparse_go(
+            ids, i32, ecnt, e0, deg, tables, (1,), 3, (8, 64, 64), 1024,
+            1, upto=True)),
+        "adaptive_go": (lanes, lambda: ell_ops.adaptive_go(
+            ids[:2], hub, tables, eslot, hrows, (1,), 3)),
         "frontier_upload": (f, lambda: ell_ops.frontier_upload(
             f, i32, i32, torch.zeros(8, dtype=torch.uint8))),
         "go_count": (f, lambda: ell_ops.go_count(
@@ -241,12 +271,17 @@ def _kernel_calls(tix):
 
 
 @pytest.mark.parametrize("name", ["frontier_upload", "go_count",
-                                  "bfs_level", "bfs_depth_i8"])
+                                  "bfs_level", "bfs_depth_i8",
+                                  "sparse_expand", "pair_compact",
+                                  "pair_reduce", "adaptive_switch",
+                                  "bitmap_lanes", "sparse_go",
+                                  "adaptive_go"])
 def test_new_kernel_routes_never_fall_back(ells, monkeypatch, name):
     """On the kernel route a wrapper whose library cannot load raises,
     counts no launch and leaves its buffers untouched."""
     _jix, tix, _port, _ref = ells
     buf, call = _kernel_calls(tix)[name]
+    fill = buf.clone()
 
     def no_lib():
         raise RuntimeError("kernel library unavailable")
@@ -255,7 +290,7 @@ def test_new_kernel_routes_never_fall_back(ells, monkeypatch, name):
     before = dict(ell_ops.LAUNCHES)
     with pytest.raises(RuntimeError, match="unavailable"):
         call()
-    assert bool((buf == 0xFF).all())
+    assert torch.equal(buf, fill)
     assert ell_ops.LAUNCHES == before
 
 
@@ -312,7 +347,9 @@ def windowed():
     from nebula_tpu_torch.common.flags import flags
     from nebula_tpu_torch.tpu.csr import MIRROR_FIELDS, mirror_from_reference
     c = LocalCluster(num_storage=1, tpu_backend=True)
-    old_ref = _set_flags(ref_flags, WINDOWED)
+    # both sides build the same ELL tables (cap 8: hub extra rows), so
+    # a device-cut LIMIT keeps the same rows on both
+    old_ref = _set_flags(ref_flags, dict(WINDOWED, tpu_ell_cap=8))
     old = _set_flags(flags, dict(WINDOWED, tpu_ell_cap=8))
     rt_ = None
     try:
@@ -338,6 +375,7 @@ def windowed():
         rt_ = TorchQueryRuntime(device="cpu")
         rt_.load_space(space, mirror_from_reference(
             {f: getattr(m, f) for f in MIRROR_FIELDS}, space_id=space))
+        ok.cluster = c
         yield ok, rt_, space, et
     finally:
         if rt_ is not None:
@@ -460,6 +498,9 @@ def test_continuous_and_windowed_answers_agree(windowed):
     assert cont_rows == windowed_rows
 
 
+SERVED_ROUTES = {"sparse_go": "go_sparse", "adaptive_go": "go_adaptive"}
+
+
 @pytest.mark.parametrize("setting,starts,needs", [
     ({"tpu_sparse_go": True}, [1, 2], "sparse_go"),
     ({"tpu_adaptive_single": True}, [1], "adaptive_go"),
@@ -468,13 +509,24 @@ def test_continuous_and_windowed_answers_agree(windowed):
 ])
 def test_unported_routes_decline_naming_their_kernel(windowed, setting,
                                                      starts, needs):
+    """The mesh and unpacked routes decline naming their kernel; the
+    sparse and adaptive routes (ported) serve, their counter moves and
+    the rows equal the cluster's."""
     from nebula_tpu_torch.common.flags import flags
     from nebula_tpu_torch.storage.device import TpuDecline
-    _ok, rt_, space, et = windowed
+    ok, rt_, space, et = windowed
     old = _set_flags(flags, setting)
     try:
-        with pytest.raises(TpuDecline, match=needs):
-            rt_.serve_go(space, starts, [et], 3, {et: "e"})
+        if needs in SERVED_ROUTES:
+            before = rt_.stats[SERVED_ROUTES[needs]]
+            cols, rows = rt_.serve_go(space, starts, [et], 3, {et: "e"})
+            assert rt_.stats[SERVED_ROUTES[needs]] == before + 1
+            want = ok(f"GO 3 STEPS FROM {','.join(map(str, starts))} "
+                      f"OVER e YIELD e._dst").rows
+            assert cols == ["e._dst"] and rows == want
+        else:
+            with pytest.raises(TpuDecline, match=needs):
+                rt_.serve_go(space, starts, [et], 3, {et: "e"})
     finally:
         _set_flags(flags, old)
     # single-step GO needs no kernel and is served on every route
@@ -507,3 +559,236 @@ def test_go_batch_tool_surface_matches_a_host_walk(windowed):
             nxt[m.edge_dst[mask & f[m.edge_src]]] = True
             f = nxt
         assert np.array_equal(got[q], f)
+
+
+# ==================================== served at the default flags
+DEFAULT_ROUTES = {"tpu_sparse_go": True, "tpu_adaptive_single": True}
+
+
+@pytest.fixture
+def default_flags(windowed):
+    """The windowed fixture with the sparse and adaptive routes at their
+    default (on) on both the cluster and the port, which share one ELL
+    layout; yields (ok, port runtime, space, etype, cluster runtime)."""
+    from nebula_tpu.common.flags import flags as ref_flags
+    from nebula_tpu_torch.common.flags import flags
+    ok, rt_, space, et = windowed
+    ref_rt = ok.cluster.tpu_runtime
+    ref_ix = ref_rt.ell(ref_rt.mirror(space))
+    assert np.array_equal(ref_ix.perm, rt_.ell(rt_.mirror(space)).perm)
+    old_ref = _set_flags(ref_flags, DEFAULT_ROUTES)
+    old = _set_flags(flags, DEFAULT_ROUTES)
+    try:
+        yield ok, rt_, space, et, ref_rt
+    finally:
+        _set_flags(ref_flags, old_ref)
+        _set_flags(flags, old)
+
+
+def _limit_mix(rng, n_queries):
+    """_go_mix with ``| LIMIT n`` on a third of the plain exact-depth
+    requests: (ngql, starts, steps, upto, count, reverse, limit)."""
+    out = []
+    for i, spec in enumerate(_go_mix(rng, n_queries)):
+        q, starts, steps, upto, count, reverse = spec
+        limit = None
+        if not (upto or count) and i % 3 == 0:
+            limit = int(rng.integers(1, 7))
+            q = f"{q} | LIMIT {limit}"
+        out.append((q, starts, steps, upto, count, reverse, limit))
+    return out
+
+
+def _serve_limited(rt_, space, et, spec):
+    _q, starts, steps, upto, count, reverse, limit = spec
+    e = -et if reverse else et
+    return rt_.serve_go(space, starts, [e], steps, {e: "e"}, upto=upto,
+                        reduce=("count",) if count else None, limit=limit)
+
+
+def test_default_flags_go_matches_cluster_in_order(default_flags):
+    """GO, GO | YIELD COUNT(*) and GO | LIMIT n one request at a time:
+    both sides take the same (sparse or adaptive) route, so even the
+    device-cut LIMIT rows are equal in order."""
+    ok, rt_, space, et, ref_rt = default_flags
+    before = dict(rt_.stats)
+    ref_before = dict(ref_rt.stats)
+    mix = _limit_mix(np.random.default_rng(37), 45)
+    assert sum(s[6] is not None for s in mix) >= 5
+    for spec in mix:
+        cols, rows = _serve_limited(rt_, space, et, spec)
+        want = ok(spec[0]).rows
+        assert cols == (["__count__"] if spec[4] else ["e._dst"]), spec[0]
+        if spec[4] and not want:          # COUNT over no rows: no row
+            assert rows == [[0]], spec[0]
+        else:
+            assert rows == want, spec[0]
+    assert rt_.stats["go_sparse"] > before["go_sparse"]
+    assert ref_rt.stats["go_sparse"] > ref_before["go_sparse"]
+    assert rt_.stats["go_reduced"] > before["go_reduced"]
+    assert rt_.stats["go_dense"] == before["go_dense"]
+    # a lone query with no known start vid: the adaptive route
+    cols, rows = rt_.serve_go(space, [10 ** 6], [et], 3, {et: "e"})
+    assert rows == ok("GO 3 STEPS FROM 1000000 OVER e YIELD e._dst").rows
+    assert rows == [] and rt_.stats["go_adaptive"] == \
+        before["go_adaptive"] + 1
+
+
+def test_default_flags_concurrent_go_matches_cluster(default_flags):
+    """A concurrent mix (no LIMIT) coalesces into sparse launches whose
+    rows, compared as sorted rows, equal the cluster's."""
+    import threading
+
+    from nebula_tpu_torch.common.flags import flags
+    ok, rt_, space, et, _ref_rt = default_flags
+    mix = [s for s in _go_mix(np.random.default_rng(43), 60)
+           if s[2] == 3 and not s[5]][:30]
+    want = [sorted(map(tuple, ok(s[0]).rows)) for s in mix]
+    got = [None] * len(mix)
+    errors = []
+
+    def worker(i):
+        try:
+            got[i] = sorted(map(tuple, _serve(rt_, space, et, mix[i])[1]))
+        except Exception as ex:     # noqa: BLE001 — asserted below
+            errors.append((mix[i][0], ex))
+
+    old = _set_flags(flags, {"go_batch_window_ms": 30})
+    before = dict(rt_.dispatcher.stats)
+    sparse0 = rt_.stats["go_sparse"]
+    try:
+        pool = [threading.Thread(target=worker, args=(i,))
+                for i in range(len(mix))]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=120)
+    finally:
+        _set_flags(flags, old)
+    assert not errors, errors
+    assert got == want
+    stats = rt_.dispatcher.stats
+    assert stats["batches"] - before["batches"] < len(mix)
+    assert rt_.stats["go_sparse"] > sparse0
+
+
+@pytest.mark.parametrize("reduce", [None, "upto", ("count",), "limit"])
+def test_forced_split_matches_cluster(default_flags, reduce):
+    """tpu_sparse_c0s="4,8": a batch of 12 queries with 2-3 starts each
+    outgrows the ladder and splits into sparse launches at query
+    boundaries; every query's rows equal the cluster's (for LIMIT the
+    first n rows the pipe keeps)."""
+    from nebula_tpu_torch.common.flags import flags
+    from nebula_tpu_torch.tpu.runtime import _GoQuery
+    ok, rt_, space, et, _ref_rt = default_flags
+    rng = np.random.default_rng(53)
+    starts = [[int(v) for v in rng.integers(1, N_VERTICES + 1,
+                                            int(rng.integers(2, 4)))]
+              for _ in range(12)]
+    upto = reduce == "upto"
+    red = ("limit", 4) if reduce == "limit" else \
+        (reduce if isinstance(reduce, tuple) else None)
+    old = _set_flags(flags, {"tpu_sparse_c0s": "4,8"})
+    split0 = rt_.stats["go_sparse_split"]
+    try:
+        pending = rt_.go_batch_execute(
+            space, [_GoQuery(s, "e._dst") for s in starts], (et,), 3,
+            upto=upto, reduce=red)
+        results, _m = pending.finish()
+    finally:
+        _set_flags(flags, old)
+    assert rt_.stats["go_sparse_split"] == split0 + 1
+    for s, (cols, rows) in zip(starts, results):
+        q = (f"GO {'UPTO ' if upto else ''}3 STEPS FROM "
+             f"{','.join(map(str, s))} OVER e YIELD e._dst")
+        if reduce == ("count",):
+            want = ok(q + " | YIELD COUNT(*)").rows or [[0]]
+        elif reduce == "limit":
+            want = ok(q + " | LIMIT 4").rows
+            rows = rows[:4]
+        else:
+            want = ok(q).rows
+        assert rows == want, q
+
+
+def test_forced_overflow_reruns_dense_and_matches(default_flags):
+    """A tight tpu_sparse_cap on both sides: hops outgrow their caps,
+    the batch reruns on the dense route, and every answer (LIMIT
+    included: both sides cut the dense rows the same way) equals the
+    cluster's."""
+    from nebula_tpu.common.flags import flags as ref_flags
+    from nebula_tpu_torch.common.flags import flags
+    ok, rt_, space, et, ref_rt = default_flags
+    tight = {"tpu_sparse_c0s": "8,64", "tpu_sparse_cap": 8}
+    mix = [s for s in _limit_mix(np.random.default_rng(59), 30)
+           if s[2] >= 3]
+    old_ref = _set_flags(ref_flags, tight)
+    old = _set_flags(flags, tight)
+    before = dict(rt_.stats)
+    try:
+        for spec in mix:
+            cols, rows = _serve_limited(rt_, space, et, spec)
+            want = ok(spec[0]).rows
+            if spec[4] and not want:
+                assert rows == [[0]], spec[0]
+            else:
+                assert rows == want, spec[0]
+    finally:
+        _set_flags(ref_flags, old_ref)
+        _set_flags(flags, old)
+    assert rt_.stats["sparse_overflows"] > before["sparse_overflows"]
+    assert rt_.stats["go_dense"] > before["go_dense"]
+    assert ref_rt.stats["sparse_overflows"] > 0
+
+
+def test_upto_with_a_cap_below_the_start_rung_runs_dense(default_flags):
+    """A final sparse cap smaller than the start rung leaves no room to
+    pad the UPTO union's starts: the batch takes the dense route."""
+    from nebula_tpu_torch.common.flags import flags
+    ok, rt_, space, et, _ref_rt = default_flags
+    old = _set_flags(flags, {"tpu_sparse_cap": 8})
+    before = dict(rt_.stats)
+    try:
+        cols, rows = rt_.serve_go(space, [1, 2], [et], 3, {et: "e"},
+                                  upto=True)
+    finally:
+        _set_flags(flags, old)
+    assert rt_.stats["go_dense"] == before["go_dense"] + 1
+    assert rt_.stats["go_sparse"] == before["go_sparse"]
+    assert sorted(map(tuple, rows)) == sorted(map(tuple, ok(
+        "GO UPTO 3 STEPS FROM 1,2 OVER e YIELD e._dst").rows))
+
+
+def test_limit_in_continuous_mode_matches_cluster(default_flags):
+    """GO | LIMIT n in continuous mode rides the stream with the full
+    frontier and the same slice as the cluster's continuous tier."""
+    from nebula_tpu.common.flags import flags as ref_flags
+    from nebula_tpu_torch.common.flags import flags
+    ok, rt_, space, et, _ref_rt = default_flags
+    mix = [s for s in _limit_mix(np.random.default_rng(61), 36)
+           if s[6] is not None and s[2] > 1]
+    assert len(mix) >= 4
+    cont = {"go_dispatch_mode": "continuous"}
+    old_ref = _set_flags(ref_flags, cont)
+    old = _set_flags(flags, cont)
+    reduced0 = rt_.stats["go_reduced"]
+    try:
+        for spec in mix:
+            cols, rows = _serve_limited(rt_, space, et, spec)
+            assert cols == ["e._dst"]
+            assert rows == ok(spec[0]).rows, spec[0]
+        assert rt_.continuous.streams()
+    finally:
+        _set_flags(ref_flags, old_ref)
+        _set_flags(flags, old)
+    assert rt_.stats["go_reduced"] >= reduced0 + len(mix)
+
+
+def test_limit_declines_with_upto_or_a_reduction(default_flags):
+    from nebula_tpu_torch.storage.device import TpuDecline
+    _ok, rt_, space, et, _ref_rt = default_flags
+    for kw in ({"upto": True}, {"reduce": ("count",)}):
+        with pytest.raises(TpuDecline, match="LIMIT"):
+            rt_.serve_go(space, [1], [et], 3, {et: "e"}, limit=3, **kw)
+    cols, rows = rt_.serve_go(space, [1], [et], 3, {et: "e"}, limit=0)
+    assert cols == ["e._dst"] and rows == []
