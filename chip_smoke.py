@@ -6,11 +6,12 @@ Hopper card.
                           [--requests R] [--threads T] [--cap C]
                           [--widths LIST] [--path-requests P]
                           [--path-threads PT] [--profile R]
+                          [--fused-requests F] [--fused-threads FT]
 
 The defaults are the serve cell; ``--vertices 16777216 --edges
 105000000 --cap 256 --widths 128`` is the round-5 scale shape, and
 ``--profile R`` adds a profiled window of each traffic kind after
-phase 8.
+phase 9.
 
 Phases, in order; any failure exits non-zero:
 
@@ -34,9 +35,19 @@ Phases, in order; any failure exits non-zero:
              that forces the dense switch: every kernel call of those
              runs is held against its plain version on copies of its
              operands, and each program's output against the program's
-             plain version
+             plain version; then the edge-list kernels on the graph's
+             edge arrays and generated columns: ``edge_hop`` (with
+             ``scatter_reduce_`` amax as its library yardstick),
+             ``edge_final``, ``edge_seed``, ``expr_filter`` for each
+             predicate of phase 8's family in each of its modes,
+             ``edge_bfs_level``, the programs ``go`` and
+             ``go_filtered`` at 1-3 steps from 1 and 256 starts, and
+             ``bfs`` on a connected and an unreachable pair, all
+             exactly
 4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
-             edges, stored in both directions) served by
+             edges, stored in both directions, with seeded columns:
+             edge ``w`` int, ``score`` double, ``kind`` string, tag
+             ``person(age)`` on 15/16 of the vertices) served by
              ``TorchQueryRuntime`` in continuous mode: R GO requests
              from T threads, 64 checked exactly against a numpy oracle
 5. windowed  the same R requests with ``go_dispatch_mode=windowed``,
@@ -52,14 +63,22 @@ Phases, in order; any failure exits non-zero:
              one thread, windowed with ``tpu_sparse_go=false`` (the
              adaptive route), a sixteenth of them from a hub so that
              the dense arm runs; 64 checked against the oracle
-8. path      P ``FIND SHORTEST PATH ... UPTO 5 STEPS`` requests (1 src,
+8. fused     F ``GO 1-3 STEPS FROM v OVER e WHERE P YIELD e._dst, e.w``
+             requests from FT threads on the fused route (``$$.person.age``
+             also yielded behind the predicate that reads it), P from
+             a family of 8 (int, float and string compares, && and ||,
+             % 7, $$ and $^ tag props, a vid compare, a guarded /), a
+             quarter DISTINCT, three quarters in pushed mode; 64
+             checked against a numpy oracle written without the port's
+             compiler
+9. path      P ``FIND SHORTEST PATH ... UPTO 5 STEPS`` requests (1 src,
              1 dst each) from PT threads, 64 checked against a numpy
              BFS and path enumeration, then a checked sample of ``FIND
              ALL PATH ... UPTO 3 STEPS``
-9. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
-10. the last line ``{"ok": true, "device": {...}}``
+10. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
+11. the last line ``{"ok": true, "device": {...}}``
 
-Every launch count is zeroed just before each of phases 4-8 drives the
+Every launch count is zeroed just before each of phases 4-9 drives the
 port and read just after it; every kernel of a phase's path must have
 been launched there.  The script imports nothing of the JAX package.
 It needs one CUDA card and refuses to run (non-zero exit, no result)
@@ -96,11 +115,31 @@ REPLACES = {
     "adaptive_switch": "nebula_tpu/tpu/ell.py:1593",
     "bitmap_lanes": "nebula_tpu/tpu/ell.py:1582",
     "adaptive_go": "nebula_tpu/tpu/ell.py:1493",
+    "edge_seed": "nebula_tpu/tpu/kernels.py:256",
+    "edge_hop": "nebula_tpu/tpu/kernels.py:264",
+    "edge_final": "nebula_tpu/tpu/kernels.py:264",
+    "expr_filter": "nebula_tpu/tpu/expr_compile.py:468",
+    "edge_bfs_level": "nebula_tpu/tpu/kernels.py:315",
+    "go": "nebula_tpu/tpu/kernels.py:284",
+    "go_filtered": "nebula_tpu/tpu/kernels.py:296",
+    "bfs": "nebula_tpu/tpu/kernels.py:315",
 }
 SOURCES = {k: "nebula_tpu_torch/tpu/csrc/ell_lanes.cu"
            for k in list(REPLACES)[:9]}
 SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/sparse_go.cu"
-                for k in list(REPLACES)[9:]})
+                for k in list(REPLACES)[9:18]})
+SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/edge_go.cu"
+                for k in ("edge_seed", "edge_hop", "edge_final",
+                          "edge_bfs_level", "go", "bfs")})
+SOURCES.update({"expr_filter": "nebula_tpu_torch/tpu/csrc/expr_filter.cu",
+                "go_filtered": "nebula_tpu_torch/tpu/csrc/edge_go.cu "
+                               "+ expr_filter.cu"})
+# the edge-list programs no runtime path calls (the reference's only
+# caller of go is _run_go_kernel's no-filter branch, which
+# _execute_fused never takes; bfs has only its registry entry)
+NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level")
+EDGE_KERNELS = ("edge_seed", "edge_hop", "edge_final", "expr_filter",
+                "edge_bfs_level", "go", "go_filtered", "bfs")
 # which counted phase runs each kernel on its main path
 PATH_KERNELS = {
     "serve": ("go_hop", "lane_join", "lane_extract", "lane_clear"),
@@ -109,6 +148,8 @@ PATH_KERNELS = {
                "sparse_go", "sparse_go_count", "sparse_go_limit"),
     "adaptive": ("sparse_expand", "pair_compact", "adaptive_switch",
                  "bitmap_lanes", "go_hop", "adaptive_go"),
+    "fused": ("edge_seed", "expr_filter", "edge_hop", "edge_final",
+              "go_filtered"),
     "path": ("frontier_upload", "go_hop", "bfs_level", "bfs_depth_i8"),
 }
 LIMIT_N = 10                   # the sparse phase's | LIMIT n
@@ -1496,6 +1537,532 @@ def path_phase(torch, rt, ell_ops, oracle: PathOracle, vids: np.ndarray,
                 all_path_rows=aimed["all"][1], all_path_s=t_all)
 
 
+# ============================================== the fused WHERE route
+FUSED_TAG = 2                  # person's tag id in the serve space
+KINDS = [f"k{i:02d}" for i in range(16)]    # e.kind's 16 values, sorted
+E_ = ["edge", "e"]
+# the [fused] phase's predicate family: int, float (literals exact in
+# float32) and string compares, && and ||, % 7, $$ / $^ tag props, a
+# vid compare, a guarded integer /; the vid literal is set per graph
+FUSED_PREDICATES = [
+    ["rel", ">", E_ + ["w"], ["lit", 500]],
+    ["rel", "<=", E_ + ["score"], ["lit", 2.5]],
+    ["logic", "||", ["rel", "==", E_ + ["kind"], ["lit", "k03"]],
+     ["rel", ">", E_ + ["kind"], ["lit", "k12"]]],
+    ["logic", "&&", ["rel", "==", ["arith", "%", E_ + ["w"], ["lit", 7]],
+                     ["lit", 3]],
+     ["rel", ">", E_ + ["score"], ["lit", 1.0]]],
+    ["rel", ">", ["dst", "person", "age"], ["lit", 40]],
+    ["logic", "&&", ["rel", "<", ["src", "person", "age"], ["lit", 30]],
+     ["rel", "<", E_ + ["w"], ["lit", 700]]],
+    ["rel", "<", ["e_dst", "e"], ["lit", None]],
+    ["rel", ">", ["arith", "/", ["lit", 1000], E_ + ["w"]], ["lit", 3]],
+]
+# graphd (remnant) mode reads only the edge columns, valid on every
+# candidate, and takes no div guard, so none of its requests declines;
+# pushed mode leaves out the || predicate: the reference declines a
+# pushed || over a column with an invalid row (runtime.py:2585), and
+# an edge column's rows of the other direction are invalid
+GRAPHD_PREDICATES = (0, 1, 2, 3, 6)
+PUSHED_PREDICATES = (0, 1, 3, 4, 5, 6, 7)
+AGE_PREDICATE = 4              # YIELD $$.person.age only behind it
+
+
+def _modes(p: int) -> tuple:
+    """The pushed modes predicate ``p`` is served in."""
+    return tuple(pm for pm, ok in ((True, p in PUSHED_PREDICATES),
+                                   (False, p in GRAPHD_PREDICATES)) if ok)
+
+
+def fused_predicates(n: int) -> list:
+    out = json.loads(json.dumps(FUSED_PREDICATES))
+    out[6][3][1] = n // 2
+    return out
+
+
+def fused_columns(src, dst, n: int, seed: int):
+    """The serve graph's generated columns, seeded: edge ``w`` int
+    0..999, ``score`` double (multiples of 1/8), ``kind`` string (16
+    values), aligned to the input edges; tag ``person(age)`` on 15/16 of
+    the vids 1..n.  Returns (edge_props, vertex_props, raw arrays)."""
+    from nebula_tpu_torch.interface.common import SupportedType as T
+    rng = np.random.default_rng(seed + 17)
+    k = len(src)
+    w = rng.integers(0, 1000, k)
+    score = rng.integers(0, 64, k) / 8.0
+    kind = rng.integers(0, len(KINDS), k)
+    tagged = rng.random(n + 1) >= 1 / 16
+    tagged[0] = False                   # vids start at 1
+    age = rng.integers(0, 100, n + 1)
+    vids = np.nonzero(tagged)[0]
+    edge_props = {1: {"w": (T.INT, w), "score": (T.DOUBLE, score),
+                      "kind": (T.STRING, kind, np.asarray(KINDS))}}
+    vertex_props = {FUSED_TAG: (vids, {"age": (T.INT, age[vids])})}
+    return edge_props, vertex_props, dict(w=w, score=score, kind=kind,
+                                          tagged=tagged, age=age)
+
+
+class FusedOracle:
+    """Plain numpy semantics of ``GO N STEPS FROM v OVER e WHERE P YIELD
+    e._dst, e.w [, $$.person.age] [DISTINCT]`` on the forward edge list,
+    independent of the port's compiler: an edge key keeps the values of
+    its last input occurrence (a later write of the key wins); N-1 hops
+    as GoOracle; the final hop's out-edges in (src, dst) order; each
+    predicate written directly in int32 / float32 as the card evaluates
+    it; in pushed mode a row whose predicate reads an absent tag prop,
+    or divides by zero, drops."""
+
+    def __init__(self, go: GoOracle, src, dst, raw, n: int):
+        self.go = go
+        key = (np.asarray(src, np.int64) << 32) | np.asarray(dst, np.int64)
+        uk, first = np.unique(key[::-1], return_index=True)
+        if not np.array_equal(uk, (go.src << 32) | go.dst):
+            raise AssertionError("oracle keys disagree")
+        last = len(key) - 1 - first
+        self.w = raw["w"][last].astype(np.int32)
+        self.score = raw["score"][last].astype(np.float32)
+        self.kind = raw["kind"][last]
+        self.tagged, self.age = raw["tagged"], raw["age"].astype(np.int32)
+        self.vid_lit = n // 2
+
+    def where(self, p: int, idx: np.ndarray, pushed: bool) -> np.ndarray:
+        w, s, k = self.w[idx], self.score[idx], self.kind[idx]
+        sv, dv = self.go.src[idx], self.go.dst[idx]
+        if p == 0:
+            return w > 500
+        if p == 1:
+            return s <= np.float32(2.5)
+        if p == 2:
+            return (k == 3) | (k > 12)
+        if p == 3:
+            return (w % 7 == 3) & (s > np.float32(1.0))
+        if p == 4:
+            return self.tagged[dv] & (self.age[dv] > 40)
+        if p == 5:
+            return self.tagged[sv] & (self.age[sv] < 30) & (w < 700)
+        if p == 6:
+            return dv < self.vid_lit
+        if p == 7:
+            return (w != 0) & (1000 // np.maximum(w, 1) > 3)
+        raise ValueError(p)
+
+    def rows(self, start: int, steps: int, p: int, pushed: bool,
+             distinct: bool):
+        """(columns, rows) of one request."""
+        f = self.go.frontier_sizes([start], steps)[-1]
+        idx = self.go.out_edges(f)
+        idx = idx[self.where(p, idx, pushed)]
+        cols = [self.go.dst[idx], self.w[idx]]
+        names = ["e._dst", "e.w"]
+        if p == AGE_PREDICATE:
+            cols.append(self.age[self.go.dst[idx]])
+            names.append("$$.person.age")
+        rows = [list(r) for r in zip(*[c.tolist() for c in cols])]
+        if distinct:
+            seen, out = set(), []
+            for r in rows:
+                if tuple(r) not in seen:
+                    seen.add(tuple(r))
+                    out.append(r)
+            rows = out
+        return names, rows
+
+
+def fused_request_blobs(preds):
+    """(where blob, yield specs) per predicate, encoded by the port."""
+    from nebula_tpu_torch.filter.expressions import _from_wire, encode_expr
+    ys = [(encode_expr(_from_wire(["e_dst", "e"])), None),
+          (encode_expr(_from_wire(E_ + ["w"])), None)]
+    age = [(encode_expr(_from_wire(["dst", "person", "age"])), None)]
+    return [(encode_expr(_from_wire(p)),
+             ys + (age if i == AGE_PREDICATE else []))
+            for i, p in enumerate(preds)]
+
+
+def _slot_bytes(prog, m_edges: int, n: int) -> int:
+    """The bytes an ExprProgram must move: each edge-aligned column and
+    validity byte once an edge, each vertex column once a vertex (every
+    value is some edge's), the src / dst index once an edge where a
+    vertex column is gathered, one output byte an edge."""
+    size = {0: 1, 1: 4, 2: 4}
+    total, idx = m_edges, set()
+    for _key, kind, typ in prog.slots:
+        if kind == 0:
+            total += size[typ] * m_edges
+        else:
+            total += size[typ] * n
+            idx.add(kind)
+    return total + 4 * m_edges * len(idx)
+
+
+def transcendental_check(torch, edge_ops, rt, m, src, dst) -> dict:
+    """K10 on CUDA's libm against the plain version's torch functions:
+    ``log(e.w + 1) + sin(e.score) + exp2(e.score) - cbrt(e.w) > 6``.
+    The two may differ by a few ulp, so the masks must agree exactly
+    wherever the plain value lies 1e-4 or more from the threshold."""
+    from nebula_tpu_torch.filter.expressions import _from_wire
+    from nebula_tpu_torch.tpu.expr_compile import ExprCompiler
+    from nebula_tpu_torch.tpu.expr_program import trace_filter
+    w, sc = E_ + ["w"], E_ + ["score"]
+    v = ["arith", "-", ["arith", "+", ["arith", "+", [
+        "fn", "log", [["arith", "+", w, ["lit", 1.0]]]],
+        ["fn", "sin", [sc]]], ["fn", "exp2", [sc]]], ["fn", "cbrt", [w]]]
+    plan = rt._plan_go(1, {"e": 1}, _from_wire(["rel", ">", v,
+                                                 ["lit", 6.0]]), True)
+    prog = rt._filter_program(m, 1, plan)
+    env = rt._env_cols(m, {"e": 1}, plan.filter_used, True)
+    slots = [env[k] for k, _kind, _t in prog.slots]
+    comp = ExprCompiler(m, 1, rt._schema(1), {"e": 1})
+    cval = comp.compile(_from_wire(v))
+    types = {k: 2 if rt._col_dtype(m, d) == np.float32 else 1
+             for k, d in comp.used.items()}
+    vprog = trace_filter(cval, comp.used, [], False, types, root="value")
+    value = edge_ops.run_program(vprog, [env[k] for k, _kd, _t in
+                                         vprog.slots], src, dst)
+    ek = torch.empty(m.m, dtype=torch.bool, device=src.device)
+    er = torch.empty_like(ek)
+    edge_ops.expr_filter(prog, slots, src, dst, ek)
+    edge_ops.expr_filter_ref(prog, slots, src, dst, er)
+    far = (value - 6.0).abs() >= 1e-4
+    torch.cuda.synchronize()
+    if not torch.equal(ek[far], er[far]):
+        raise AssertionError("expr_filter on the transcendentals differs "
+                             "from its plain version away from the "
+                             "threshold")
+    return dict(ops=sorted(set(prog.ops)), near=int((~far).sum()),
+                near_differ=int((ek != er)[~far].sum()), kept=int(ek.sum()))
+
+
+def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
+                      blobs, rng) -> tuple:
+    """The edge-list kernels and programs against their plain versions
+    on the serve graph's real edge arrays and generated columns,
+    exactly: K8 ``edge_hop``, K9 ``edge_final`` (with and without the
+    WHERE mask), ``edge_seed``, K10 ``expr_filter`` for each predicate
+    of the [fused] family in its modes, K11 ``edge_bfs_level``; the
+    programs ``go`` and ``go_filtered`` at 1-3 steps from 1 and 256
+    starts, ``bfs`` on a connected and an unreachable pair.  Returns
+    ({kernel: numbers}, {run: numbers})."""
+    from nebula_tpu_torch.filter.expressions import decode_expr
+    csr = rt._device_csr(m)
+    src, dst, et = csr["edge_src"], csr["edge_dst"], csr["edge_etype"]
+    dev = src.device
+    n, M = m.n, m.m
+    over = (1,)
+    rows, runs = {}, {}
+    b = torch.bool
+
+    def same(name, a, b_):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b_):
+            raise AssertionError(f"{name} != its plain version")
+
+    # ---- K8 edge_hop: a frontier with about 2% of the vertices set
+    f = torch.from_numpy(rng.random(n) < 0.02).to(dev)
+    ok_, orf = torch.empty_like(f), torch.empty_like(f)
+    edge_ops.edge_hop(f, ok_, src, dst, et, over)
+    edge_ops.edge_hop_ref(f, orf, src, dst, et, over)
+    same("edge_hop", ok_, orf)
+    active = (f[src.long()] & (et == 1)).to(torch.uint8)
+    dst64 = dst.long()
+    out8 = torch.zeros(n, dtype=torch.uint8, device=dev)
+
+    def lib_hop():
+        out8.zero_()
+        out8.scatter_reduce_(0, dst64, active, "amax")
+    rows["edge_hop"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(torch, lambda: edge_ops.edge_hop(f, ok_, src, dst, et,
+                                                    over), 20),
+        plain_ms=cuda_ms(torch, lambda: edge_ops.edge_hop_ref(
+            f, orf, src, dst, et, over), 3, 1),
+        bound_ms=bytes_ms(12 * M + 2 * n), bound_by="bytes",
+        library_ms=cuda_ms(torch, lib_hop, 20),
+        frontier=int(f.sum()), reached=int(ok_.sum()))
+    same("scatter_reduce_ (the library yardstick)", out8.bool(), ok_)
+
+    # ---- K9 edge_final, without and with a WHERE mask
+    fmask = torch.from_numpy(rng.random(M) < 0.5).to(dev)
+    fk, fr = (torch.empty(M, dtype=b, device=dev) for _ in range(2))
+    for mask in (None, fmask):
+        edge_ops.edge_final(f, src, et, over, mask, fk)
+        edge_ops.edge_final_ref(f, src, et, over, mask, fr)
+        same("edge_final", fk, fr)
+    rows["edge_final"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(torch, lambda: edge_ops.edge_final(f, src, et, over,
+                                                      fmask, fk), 20),
+        plain_ms=cuda_ms(torch, lambda: edge_ops.edge_final_ref(
+            f, src, et, over, fmask, fr), 3, 1),
+        bound_ms=bytes_ms(10 * M + n), bound_by="bytes", library_ms=None,
+        ms_no_mask=cuda_ms(torch, lambda: edge_ops.edge_final(
+            f, src, et, over, None, fk), 20),
+        bound_ms_no_mask=bytes_ms(9 * M + n))
+
+    # ---- edge_seed: 256 starts (-1 padded to 512)
+    idx_h = np.full(512, -1, np.int32)
+    idx_h[:256] = rng.integers(0, n, 256)
+    idx = torch.from_numpy(idx_h).to(dev)
+    sk, sr = (torch.empty(n, dtype=b, device=dev) for _ in range(2))
+    edge_ops.edge_seed(sk, idx)
+    edge_ops.edge_seed_ref(sr, idx)
+    same("edge_seed", sk, sr)
+    rows["edge_seed"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(torch, lambda: edge_ops.edge_seed(sk, idx), 20),
+        plain_ms=cuda_ms(torch, lambda: edge_ops.edge_seed_ref(sr, idx),
+                         5, 1),
+        bound_ms=bytes_ms(n + 4 * 512), bound_by="bytes", library_ms=None)
+
+    # ---- K10 expr_filter: every predicate of the family in its modes
+    alias = {"e": 1}
+    per_pred = []
+    progs = {}
+    for i, (where, _ys) in enumerate(blobs):
+        for pushed in _modes(i):
+            plan = rt._plan_go(1, alias, decode_expr(where), pushed)
+            prog = rt._filter_program(m, 1, plan)
+            env = rt._env_cols(m, alias, plan.filter_used, pushed)
+            slots = [env[k] for k, _kind, _t in prog.slots]
+            progs[(i, pushed)] = (prog, slots)
+            ek, er = (torch.empty(M, dtype=b, device=dev) for _ in range(2))
+            edge_ops.expr_filter(prog, slots, src, dst, ek)
+            edge_ops.expr_filter_ref(prog, slots, src, dst, er)
+            same(f"expr_filter predicate {i} pushed={pushed}", ek, er)
+            per_pred.append(dict(
+                predicate=i, pushed=pushed, instructions=len(prog),
+                registers=prog.n_regs, kept=int(ek.sum()),
+                ms=cuda_ms(torch, lambda: edge_ops.expr_filter(
+                    prog, slots, src, dst, ek), 10),
+                plain_ms=cuda_ms(torch, lambda: edge_ops.expr_filter_ref(
+                    prog, slots, src, dst, er), 2, 1),
+                bound_ms=bytes_ms(_slot_bytes(prog, M, n))))
+    head = next(r for r in per_pred if r["predicate"] == 3 and r["pushed"])
+    rows["expr_filter"] = dict(
+        max_abs_err=0, ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by="bytes", library_ms=None,
+        headline="predicate 3 (w % 7 == 3 && score > 1.0), pushed",
+        predicates=per_pred,
+        transcendental=transcendental_check(torch, edge_ops, rt, m, src,
+                                            dst))
+
+    # ---- K11 edge_bfs_level: a first level, then one after a hop
+    d = torch.empty(n, dtype=torch.int32, device=dev)
+    tk = torch.from_numpy(rng.random(n) < 0.001).to(dev)
+    reached = torch.empty_like(f)
+    edge_ops.edge_hop(f, reached, src, dst, et, over)
+    d0 = torch.empty_like(d)
+    fl = torch.zeros(2, dtype=torch.int32, device=dev)
+    edge_ops.edge_bfs_level(f.clone(), d0, tk, fl, 0, True, True)
+    dk, dr = d0.clone(), d0.clone()
+    rk, rr = reached.clone(), reached.clone()
+    flk, flr = (torch.zeros(2, dtype=torch.int32, device=dev)
+                for _ in range(2))
+    edge_ops.edge_bfs_level(rk, dk, tk, flk, 0, False, True)
+    edge_ops.edge_bfs_level_ref(rr, dr, tk, flr, 0, False, True)
+    for a, c in ((dk, dr), (rk, rr), (flk, flr)):
+        same("edge_bfs_level", a, c)
+    rb = reached.clone()
+
+    def level_run():
+        rb.copy_(reached)
+        dk.copy_(d0)
+        edge_ops.edge_bfs_level(rb, dk, tk, flk, 0, False, True)
+
+    def level_plain():
+        rb.copy_(reached)
+        dr.copy_(d0)
+        edge_ops.edge_bfs_level_ref(rb, dr, tk, flr, 0, False, True)
+
+    def restore():
+        rb.copy_(reached)
+        dk.copy_(d0)
+    rows["edge_bfs_level"] = dict(
+        max_abs_err=0, ms=restored_ms(torch, level_run, restore, 20),
+        plain_ms=restored_ms(torch, level_plain, restore, 3, 1),
+        bound_ms=bytes_ms(11 * n), bound_by="bytes", library_ms=None)
+
+    # ---- programs: go and go_filtered (predicate 3, pushed) at 1-3
+    # steps from 1 and 256 starts
+    prog3, slots3 = progs[(3, True)]
+    sizes = {"edge_seed": n, "edge_hop": 12 * M + 2 * n,
+             "edge_final": 9 * M + n}
+    for S in (1, 256):
+        st_h = np.full(max(8, 1 << (S - 1).bit_length()), -1, np.int32)
+        st_h[:S] = rng.integers(0, n, S)
+        st = torch.from_numpy(st_h).to(dev)
+        for steps in (1, 2, 3):
+            for name in ("go", "go_filtered"):
+                extra = (prog3, slots3) if name == "go_filtered" else ()
+                kern = getattr(edge_ops, name)
+                ref = getattr(edge_ops, name + "_ref")
+                out = kern(src, dst, et, st, n, steps, over, *extra)
+                (want, plain) = timed(torch, lambda: ref(
+                    src, dst, et, st, n, steps, over, *extra))
+                for a, c in zip(out, want):
+                    same(f"{name} S={S} steps={steps}", a, c)
+                nb = sizes["edge_seed"] + 4 * st.numel() \
+                    + (steps - 1) * sizes["edge_hop"] + sizes["edge_final"] \
+                    + (M + _slot_bytes(prog3, M, n) if extra else 0)
+                runs[f"{name}_S{S}_s{steps}"] = dict(
+                    name=name, max_abs_err=0,
+                    ms=cuda_ms(torch, lambda: kern(src, dst, et, st, n,
+                                                   steps, over, *extra), 10),
+                    plain_ms=plain, bound_ms=bytes_ms(nb), bound_by="bytes",
+                    library_ms=None, starts=S, steps=steps,
+                    kept=int(out[0].sum()))
+
+    # ---- bfs: a connected pair (a target 2-4 levels away) and an
+    # unreachable one (a vid with no in-edge over e), 5 levels
+    srcs_o = oracle.src
+    s_v = int(srcs_o[np.argmax(np.bincount(srcs_o))])     # a hub start
+    path_o = PathOracle(oracle)
+    depth, _lv = path_o.depths([s_v], [], 4, False)
+    far = np.nonzero((depth >= 2) & (depth <= 4))[0]
+    no_in = np.setdiff1d(np.unique(srcs_o), np.unique(oracle.dst))
+    pairs = {"connected": (s_v, int(far[0]) if len(far) else s_v)}
+    if len(no_in):
+        pairs["unreachable"] = (s_v, int(no_in[0]))
+    else:
+        log("[kernel] bfs: every vertex has an in-edge; no unreachable "
+            "pair in this graph")
+    for label, (a, t) in pairs.items():
+        sa = torch.from_numpy(np.asarray(
+            [m.to_dense([a])[0]] + [-1] * 7, np.int32)).to(dev)
+        ta = torch.from_numpy(np.asarray(
+            [m.to_dense([t])[0]] + [-1] * 7, np.int32)).to(dev)
+        got, levels = edge_ops.bfs(src, dst, et, sa, ta, n, 5, over)
+        (want, wl), plain = timed(torch, lambda: edge_ops.bfs_ref(
+            src, dst, et, sa, ta, n, 5, over))
+        same(f"bfs {label}", got, want)
+        if levels != wl:
+            raise AssertionError(f"bfs {label}: {levels} levels, the plain "
+                                 f"version ran {wl}")
+        dt = int(got[m.to_dense([t])[0]])
+        want_d = int(depth[t]) if label == "connected" else None
+        if label == "connected" and dt != want_d:
+            raise AssertionError(f"bfs connected depth {dt} != {want_d}")
+        if label == "unreachable" and dt != edge_ops.INT32_INF:
+            raise AssertionError("bfs reached an unreachable target")
+        nb = 2 * n + levels * (12 * M + 2 * n + 11 * n) + 9 * n
+        runs[f"bfs_{label}"] = dict(
+            name="bfs", max_abs_err=0,
+            ms=cuda_ms(torch, lambda: edge_ops.bfs(src, dst, et, sa, ta, n,
+                                                   5, over), 5, 1),
+            plain_ms=plain, bound_ms=bytes_ms(nb), bound_by="bytes",
+            library_ms=None, levels=levels, target_depth=dt)
+    rows["go"] = dict(runs["go_S1_s3"])
+    rows["go_filtered"] = dict(runs["go_filtered_S1_s3"])
+    rows["bfs"] = dict(runs["bfs_connected"])
+    return rows, runs
+
+
+def drive_fused(rt, reqs, blobs, threads: int, keep):
+    """Serve every fused request from ``threads`` client threads.
+    Returns (wall s, latency s per request, {i: answer} for i in
+    ``keep``); raises if any request failed."""
+    kept = {}
+    lat = np.zeros(len(reqs))
+    errors = []
+    next_i = [0]
+    lock = threading.Lock()
+
+    def worker():
+        while True:
+            with lock:
+                i = next_i[0]
+                next_i[0] += 1
+            if i >= len(reqs):
+                return
+            start, steps, p, pushed, distinct = reqs[i]
+            where, ys = blobs[p]
+            t0 = time.perf_counter()
+            try:
+                out = rt.serve_go(1, [start], [1], steps, {1: "e"},
+                                  where_blob=where, yield_specs=ys,
+                                  distinct=distinct, pushed_mode=pushed)
+            except Exception as ex:     # noqa: BLE001 — raised below
+                with lock:
+                    errors.append(f"request {i}: {ex!r}")
+                return
+            lat[i] = time.perf_counter() - t0
+            if i in keep:
+                kept[i] = out
+
+    pool = [threading.Thread(target=worker, name=f"smoke-fused-{k}")
+            for k in range(threads)]
+    t0 = time.perf_counter()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"{len(errors)} fused requests failed: "
+                             f"{errors[:3]}")
+    return wall, lat, kept
+
+
+def fused_phase(torch, rt, edge_ops, fo: FusedOracle, blobs, n: int,
+                requests: int, threads: int, seed: int) -> dict:
+    """``GO N STEPS FROM v OVER e WHERE P YIELD e._dst, e.w`` (and
+    ``$$.person.age`` behind its own predicate) on the fused route:
+    ``requests`` from ``threads`` threads, one start vid, 1-3 steps, P
+    from the family, a quarter DISTINCT, three quarters in pushed mode
+    (graphd mode reads only the all-valid edge columns).  Counted: the
+    launch counts are zeroed just before the requests and read just
+    after; 64 answers are checked exactly against FusedOracle."""
+    rng = np.random.default_rng(seed + 19)
+    starts = rng.integers(1, n + 1, requests)
+    steps = rng.integers(1, 4, requests)
+    pushed = rng.random(requests) < 0.75
+    distinct = rng.random(requests) < 0.25
+    preds = np.where(pushed, rng.choice(PUSHED_PREDICATES, requests),
+                     rng.choice(GRAPHD_PREDICATES, requests))
+    reqs = [(int(starts[i]), int(steps[i]), int(preds[i]),
+             bool(pushed[i]), bool(distinct[i])) for i in range(requests)]
+    check = set(rng.choice(requests, min(64, requests),
+                           replace=False).tolist())
+    # compile every (predicate, mode) program and upload the columns
+    # outside the window, as a server holds them warm
+    for i, (where, ys) in enumerate(blobs):
+        for pm in _modes(i):
+            rt.serve_go(1, [1], [1], 1, {1: "e"}, where_blob=where,
+                        yield_specs=ys, pushed_mode=pm)
+    torch.cuda.synchronize()
+    rt0 = dict(rt.stats)
+    edge_ops.reset_launches()
+    wall, lat, results = drive_fused(rt, reqs, blobs, threads, check)
+    launches = dict(edge_ops.LAUNCHES)
+    stats = {k: rt.stats[k] - rt0[k] for k in rt0}
+    n_rows = 0
+    for i in sorted(check):
+        start, st, p, pm, dist = reqs[i]
+        want = fo.rows(start, st, p, pm, dist)
+        got = (list(results[i][0]), [list(r) for r in results[i][1]])
+        if got != (want[0], want[1]):
+            raise AssertionError(
+                f"fused request {i} (start {start}, {st} steps, predicate "
+                f"{p}, pushed {pm}, distinct {dist}): {len(got[1])} rows, "
+                f"the oracle has {len(want[1])}")
+        n_rows += len(want[1])
+    require_launched(launches, "fused")
+    if stats["go_fused"] != requests:
+        raise AssertionError(f"{stats['go_fused']} of {requests} requests "
+                             f"rode the fused route")
+    qps = requests / wall
+    return dict(requests=requests, threads=threads, wall_s=wall, qps=qps,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3),
+                checked=len(check), checked_rows=n_rows,
+                pushed=int(pushed.sum()), distinct=int(distinct.sum()),
+                launch_s=stats["t_fused_launch_s"],
+                fetch_s=stats["t_fused_fetch_s"],
+                materialize_s=stats["t_fused_materialize_s"],
+                fetch_bytes=stats["fetch_bytes"], launches=launches,
+                runtime=stats)
+
+
 # ========================================================= --profile
 def profile_phase(torch, run) -> dict:
     """``run() -> (requests, wall seconds)`` under torch.profiler (CPU +
@@ -1523,11 +2090,12 @@ def profile_phase(torch, run) -> dict:
                 top_device_us={k: v for k, v in top})
 
 
-def profile_all(torch, rt, flags, vids, args) -> dict:
+def profile_all(torch, rt, flags, vids, args, blobs) -> dict:
     """``--profile R``: a further window of each traffic kind — R
     continuous GO, R windowed GO on the dense route and R on the sparse
-    route, R / 16 sequential adaptive GO, R / 4 FIND SHORTEST PATH —
-    each under the profiler, on fresh seeds."""
+    route, R / 16 sequential adaptive GO, R / 4 fused GO with a WHERE,
+    R / 4 FIND SHORTEST PATH — each under the profiler, on fresh
+    seeds."""
     R = args.profile
     mix = request_mix(np.random.default_rng(args.seed + 2), args.vertices,
                       R)
@@ -1547,6 +2115,13 @@ def profile_all(torch, rt, flags, vids, args) -> dict:
             torch, lambda: (A, drive(rt, single, 1)[0]))
     rng = np.random.default_rng(args.seed + 5)
     P = max(1, R // 4)
+    fr = np.random.default_rng(args.seed + 6)
+    pushed = fr.random(P) < 0.75
+    reqs = [(int(fr.integers(1, args.vertices + 1)), int(fr.integers(1, 4)),
+             int(fr.choice(PUSHED_PREDICATES if pm else GRAPHD_PREDICATES)),
+             bool(pm), bool(fr.random() < 0.25)) for pm in pushed]
+    out["fused"] = profile_phase(torch, lambda: (
+        P, drive_fused(rt, reqs, blobs, args.fused_threads, set())[0]))
     ends = rng.choice(vids, (2, P))
     out["path"] = profile_phase(torch, lambda: (
         P, drive_paths(rt, ends[0], ends[1], args.path_threads)[0]))
@@ -1568,12 +2143,15 @@ def main(argv=None) -> int:
     ap.add_argument("--path-requests", type=int, default=512)
     ap.add_argument("--path-threads", type=int, default=16)
     ap.add_argument("--profile", type=int, default=0, metavar="R",
-                    help="after phase 8, serve R more continuous, R "
+                    help="after phase 9, serve R more continuous, R "
                          "dense and R sparse windowed GO requests, R/16 "
-                         "adaptive GO and R/4 FIND PATH requests, each "
+                         "adaptive GO, R/4 fused GO and R/4 FIND PATH "
+                         "requests, each "
                          "under torch.profiler, and print the card's busy "
                          "time and idle share")
     ap.add_argument("--adaptive-requests", type=int, default=256)
+    ap.add_argument("--fused-requests", type=int, default=512)
+    ap.add_argument("--fused-threads", type=int, default=16)
     args = ap.parse_args(argv)
 
     import torch
@@ -1582,7 +2160,8 @@ def main(argv=None) -> int:
               "card", file=sys.stderr)
         return 2
     from nebula_tpu_torch.common.flags import flags
-    from nebula_tpu_torch.tpu import _build, ell_ops
+    from nebula_tpu_torch.meta.schema import SchemaView
+    from nebula_tpu_torch.tpu import _build, edge_ops, ell_ops
     from nebula_tpu_torch.tpu.csr import mirror_from_edges
     from nebula_tpu_torch.tpu.device import (resolve_device,
                                              smi_name_and_power_limit)
@@ -1620,10 +2199,14 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     src, dst = powerlaw_graph(args.vertices, args.edges, 2.2, 20000,
                               args.seed)
-    m = mirror_from_edges(src, dst, 1, space_id=1)
+    edge_props, vertex_props, raw = fused_columns(src, dst, args.vertices,
+                                                  args.seed)
+    m = mirror_from_edges(src, dst, 1, space_id=1, edge_props=edge_props,
+                          vertex_props=vertex_props)
     rt = TorchQueryRuntime()
     try:
-        rt.load_space(1, m)
+        rt.load_space(1, m, SchemaView().add_space(
+            1, {"person": FUSED_TAG}, {"e": 1}))
         ix = rt.ell(m)
         tables = rt._device_tables(m, ix)
         eslot, hrows = rt._hub_merge_dev(m, ix)
@@ -1658,9 +2241,19 @@ def main(argv=None) -> int:
             log(f"[kernel] {label} equal=True " + json.dumps(v))
         log(f"[kernel] sparse and adaptive phase "
             f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        oracle = GoOracle(src, dst)
+        blobs = fused_request_blobs(fused_predicates(args.vertices))
+        edge_rows, edge_runs = edge_kernel_phase(torch, edge_ops, rt, m,
+                                                 oracle, blobs, rng)
+        for label, v in edge_runs.items():
+            log(f"[kernel] {label} equal=True " + json.dumps(v))
+        for k in ("edge_seed", "edge_hop", "edge_final", "expr_filter",
+                  "edge_bfs_level"):
+            log(f"[kernel] {k} equal=True " + json.dumps(edge_rows[k]))
+        log(f"[kernel] edge-list phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 4. serve (continuous)
-        oracle = GoOracle(src, dst)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,
                             args.requests, args.threads, args.seed)
         log("[serve] " + json.dumps(serve))
@@ -1690,7 +2283,16 @@ def main(argv=None) -> int:
         log("[adaptive] " + json.dumps(adaptive))
         log(f"[adaptive] phase {time.perf_counter() - t0:.2f} s")
 
-        # ---- 8. path
+        # ---- 8. fused (GO ... WHERE ... YIELD on the fused route)
+        t0 = time.perf_counter()
+        fo = FusedOracle(oracle, src, dst, raw, args.vertices)
+        fused = fused_phase(torch, rt, edge_ops, fo, blobs, args.vertices,
+                            args.fused_requests, args.fused_threads,
+                            args.seed)
+        log("[fused] " + json.dumps(fused))
+        log(f"[fused] phase {time.perf_counter() - t0:.2f} s")
+
+        # ---- 9. path
         t0 = time.perf_counter()
         path = path_phase(torch, rt, ell_ops, PathOracle(oracle), m.vids,
                           args.path_requests, args.path_threads, args.seed)
@@ -1698,7 +2300,8 @@ def main(argv=None) -> int:
         log(f"[path] phase {time.perf_counter() - t0:.2f} s, "
             f"{path['served']} of {path['requests']} requests served")
         if args.profile:
-            for k, v in profile_all(torch, rt, flags, m.vids, args).items():
+            for k, v in profile_all(torch, rt, flags, m.vids, args,
+                                    blobs).items():
                 log(f"[profile] {k} " + json.dumps(v))
     finally:
         rt.close()
@@ -1710,7 +2313,8 @@ def main(argv=None) -> int:
     # steps); launches from the counted phases that run each kernel
     phases = {"serve": serve["launches"], "windowed": windowed["launches"],
               "sparse": sparse["launches"],
-              "adaptive": adaptive["launches"], "path": path["launches"]}
+              "adaptive": adaptive["launches"], "fused": fused["launches"],
+              "path": path["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -1720,7 +2324,12 @@ def main(argv=None) -> int:
         row = dict(name=k, route="cuda", source=SOURCES[k],
                    replaces=REPLACES[k], launches=sum(by_phase.values()),
                    launches_by_phase=by_phase, equal=True)
-        if k in per_width[128]:
+        if k in EDGE_KERNELS:
+            v = edge_rows[k]
+            row.update({a: v[a] for a in keys})
+            row.update({a: b for a, b in v.items() if a not in keys})
+            row["runtime_path"] = k not in NO_RUNTIME_PATH
+        elif k in per_width[128]:
             v = per_width[128][k]
             row["width_words"] = 16
             row.update({a: v[a] for a in keys})

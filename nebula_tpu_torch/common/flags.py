@@ -181,3 +181,12 @@ flags.define(
     "shard the ELL tables over this many devices (a 1-D 'parts' Mesh). "
     "0 = single-device. The TPU analogue of the reference's "
     "multi-storaged partition spread (SURVEY.md §2.12)")
+
+# the fused WHERE route (nebula_tpu/tpu/runtime.py:171)
+flags.define(
+    "tpu_filter_mode", "auto",
+    "where a GO's WHERE filter evaluates on the device path: 'auto' "
+    "(default — the mask fuses into the GO program whenever "
+    "expr_compile covers the predicate), 'host' (float64 numpy over "
+    "the candidate edges on the dispatcher, not ported: such a GO "
+    "declines) or 'device' (fuse always; no cross-query batching)")

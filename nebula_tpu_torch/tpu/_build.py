@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``load()`` compiles ``csrc/ell_lanes.cu`` and ``csrc/sparse_go.cu``
-with nvcc into ``_build_out/libell_lanes.so`` beside this file (a
+``load()`` compiles ``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``,
+``csrc/edge_go.cu`` and ``csrc/expr_filter.cu`` with nvcc into
+``_build_out/libell_lanes.so`` beside this file (a
 directory git ignores) at first use, rebuilding when a source is newer
 than the library, and loads it with ctypes.  Each source compiles to an
 object in its own nvcc process, all started together, and one more
@@ -25,7 +26,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 OUT_DIR = os.path.join(HERE, "_build_out")
 SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
-           os.path.join(CSRC, "sparse_go.cu"))
+           os.path.join(CSRC, "sparse_go.cu"),
+           os.path.join(CSRC, "edge_go.cu"),
+           os.path.join(CSRC, "expr_filter.cu"))
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -147,12 +150,24 @@ def load() -> ctypes.CDLL:
                                   i64, i64, i64, i64, vp, vp, vp]
         lib.ad_switch.argtypes = [vp, i64, vp, i64, i64, vp, vp]
         lib.ad_bitmap_lanes.argtypes = [i32, vp, vp, i64, vp]
+        # csrc/edge_go.cu and csrc/expr_filter.cu (the slot table
+        # travels by value, as edge_ops._Slots)
+        from .edge_ops import _Slots
+        lib.edge_seed.argtypes = [vp, vp, i64, i64, vp]
+        lib.edge_hop.argtypes = [vp, vp, vp, vp, vp, i64, i64, p32, i32,
+                                 vp]
+        lib.edge_final.argtypes = [vp, vp, vp, vp, vp, i64, p32, i32, vp]
+        lib.edge_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
+                                       vp]
+        lib.expr_filter.argtypes = [vp, i32, i32, _Slots, vp, vp, i64, vp,
+                                    vp]
         for fn in (lib.ell_go_hop, lib.ell_lane_join,
                    lib.ell_lane_extract, lib.ell_lane_clear,
                    lib.ell_frontier_upload, lib.ell_go_count,
                    lib.ell_bfs_level, lib.ell_bfs_depth_i8, lib.sg_expand,
                    lib.sg_compact, lib.sg_reduce, lib.ad_switch,
-                   lib.ad_bitmap_lanes):
+                   lib.ad_bitmap_lanes, lib.edge_seed, lib.edge_hop,
+                   lib.edge_final, lib.edge_bfs_level, lib.expr_filter):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib

@@ -17,13 +17,20 @@ query enters.  The entry points:
   into ladder-sized launches for wide batches), the adaptive
   single-query program (``adaptive_go``) or the dense ``ell_go`` /
   ``ell_go_count`` programs.
+  Given the reference's expression parameters (``where_blob``,
+  ``yield_specs``, ``distinct``, ``pushed_mode``), a GO whose WHERE
+  compiles takes the fused route as ``_go_via_dispatcher`` sends it
+  (``runtime.py:1376-1390``): ``_execute_fused`` runs one query
+  outside the dispatcher, the edge-list ``go_filtered`` program with
+  the compiled WHERE (``expr_filter``) on the card, then YIELD
+  materialization on the host.
 - ``serve_find_path`` answers ``FIND SHORTEST|ALL PATH``: batched BFS
   depths on the card (``ell_bfs``), then the host's parent walk
   (``_reconstruct_paths``).
 
-Everything else raises ``TpuDecline``; the mesh kernels and the
-unpacked dense kernels are not ported yet and their branches decline
-naming the kernel they need.
+Everything else raises ``TpuDecline``; the mesh kernels, the unpacked
+dense kernels and the dispatcher's host filter and materialization
+are not ported yet and their branches decline naming what they need.
 
 Semantics held exactly: ``GO N STEPS`` is N-1 device hops, then the
 host-side final hop over the frontier's out-edges in the OVER set
@@ -39,14 +46,22 @@ import numpy as np
 import torch
 
 from ..common.flags import flags
+from ..filter.expressions import (EdgeDstIdExpr, Expression, ExprContext,
+                                  ExprError, LogicalExpr, decode_expr)
 from ..graph.batch_dispatch import ContinuousGoScheduler, GoBatchDispatcher
-from ..storage.device import TpuDecline
-from . import ell_ops
+from ..graph.interim import ConstCol, DictCol, _col_tolist, default_col_name
+from ..meta.schema import SchemaView
+from ..storage.device import DeviceExecError, TpuDecline
+from . import edge_ops, ell_ops
 from .csr import CsrMirror
 from .device import DeviceLike, resolve_device
 from .ell import (INT16_INF, INT32_INF, DeviceTables, EllIndex,
                   lanes_width, sparse_caps, sparse_go_pairs, sparse_pack32,
                   unpack_bits, unpack_lanes_host)
+from .expr_compile import (K_BOOL, K_FLOAT, K_STR, K_STRCODE, K_VIDRANK,
+                           CompileError, CVal, Env, ExprCompiler)
+from .expr_program import B as T_BOOL, F as T_FLOAT, I as T_INT
+from .expr_program import ExprProgram, trace_filter
 
 
 class _Pending:
@@ -83,6 +98,69 @@ class _GoQuery:
         self.column = column
 
 
+class _GoPlan:
+    """A planned GO with a compiled WHERE (runtime.py:71)."""
+
+    __slots__ = ("mirror", "alias_to_etype", "filter_cval", "filter_used",
+                 "pushed_mode", "compiler", "expr_str", "sc_or")
+
+    def __init__(self, mirror, alias_to_etype, filter_cval, filter_used,
+                 pushed_mode, compiler, expr_str, sc_or=False):
+        self.mirror = mirror
+        self.alias_to_etype = alias_to_etype
+        self.filter_cval = filter_cval
+        self.filter_used = filter_used      # dict key -> descriptor
+        self.pushed_mode = pushed_mode      # True: skip-invalid (storage
+        self.compiler = compiler            # semantics); False: raise
+        self.expr_str = expr_str            # canonical WHERE text (cache key)
+        # WHERE contains a disjunction: `x || missing` short-circuits
+        # on the CPU path (row kept without touching the prop), which
+        # the vectorized validity mask cannot reproduce — rows with
+        # invalid used props must decline then
+        self.sc_or = sc_or
+
+
+def _filter_has_or(expr) -> bool:
+    """True when the predicate can short-circuit PAST a prop read in a
+    way the validity AND-mask cannot reproduce (runtime.py:94): any
+    disjunction, and any non-logical operator over a logical subtree."""
+    if expr is None:
+        return False
+
+    def scan(nd, under_non_logical: bool) -> bool:
+        if isinstance(nd, LogicalExpr):
+            if nd.op != "&&" or under_non_logical:
+                return True
+            return any(scan(c, False) for c in nd.children())
+        return any(scan(c, True) for c in nd.children())
+
+    return scan(expr, False)
+
+
+def _pad_pow2(arr: np.ndarray, fill=-1, min_size: int = 8) -> np.ndarray:
+    """``arr`` padded with ``fill`` to a power of two of at least
+    ``min_size`` (runtime.py:166)."""
+    size = max(min_size, 1 << (max(len(arr), 1) - 1).bit_length())
+    if len(arr) >= size:
+        return arr
+    return np.concatenate([arr, np.full(size - len(arr), fill,
+                                        dtype=arr.dtype)])
+
+
+class _YieldCol:
+    """One decoded YIELD column: its expression and alias."""
+
+    __slots__ = ("expr", "alias")
+
+    def __init__(self, expr: Expression, alias: Optional[str]):
+        self.expr = expr
+        self.alias = alias
+
+
+_DEVICE_TYPE = {np.dtype(bool): T_BOOL, np.dtype(np.int32): T_INT,
+                np.dtype(np.float32): T_FLOAT}
+
+
 def _ladder() -> List[int]:
     return sorted(int(w) for w in
                   str(flags.get("go_batch_widths") or
@@ -111,7 +189,14 @@ class TorchQueryRuntime:
                       "fetch_wait_s": 0.0, "t_launch_s": 0.0,
                       "t_fetch_s": 0.0, "t_assemble_s": 0.0,
                       "t_bfs_s": 0.0, "t_paths_s": 0.0,
-                      "cpu_paths_s": 0.0}
+                      "cpu_paths_s": 0.0, "go_fused": 0,
+                      "t_fused_launch_s": 0.0, "t_fused_fetch_s": 0.0,
+                      "t_fused_materialize_s": 0.0}
+        self.schemas: Dict[int, SchemaView] = {}
+        # compiled WHERE programs per (space, mirror, pushed mode, OVER
+        # aliases, WHERE text), as the reference caches its fused
+        # kernels by build_version; nothing is compiled per shape
+        self._programs: Dict[tuple, ExprProgram] = {}
         self.dispatcher = GoBatchDispatcher(self)
 
     @property
@@ -136,14 +221,19 @@ class TorchQueryRuntime:
         return now
 
     # --------------------------------------------------- mirror lifecycle
-    def load_space(self, space_id: int, mirror: CsrMirror) -> None:
-        """Publish ``mirror`` for ``space_id``.  A space loads once: the
-        generation drain/re-anchor that would let a stream move to a
-        new mirror is not ported yet, so a second load raises."""
+    def load_space(self, space_id: int, mirror: CsrMirror,
+                   schema: Optional[SchemaView] = None) -> None:
+        """Publish ``mirror`` for ``space_id``, with the space's tag and
+        edge names (``schema``; a WHERE naming a tag needs them).  A
+        space loads once: the generation drain/re-anchor that would let
+        a stream move to a new mirror is not ported yet, so a second
+        load raises."""
         with self._lock:
             if space_id in self.mirrors:
                 raise ValueError(f"space {space_id} is already loaded")
             self.mirrors[space_id] = mirror
+            self.schemas[space_id] = schema if schema is not None \
+                else SchemaView()
 
     def mirror(self, space_id: int) -> Optional[CsrMirror]:
         with self._lock:
@@ -212,9 +302,19 @@ class TorchQueryRuntime:
                  etypes: Sequence[int], steps: int,
                  etype_to_alias: Dict[int, str], upto: bool = False,
                  reduce=None, yield_cols: Optional[Sequence[str]] = None,
-                 where=None, limit: Optional[int] = None
-                 ) -> Tuple[List[str], List[List[int]]]:
+                 where=None, limit: Optional[int] = None,
+                 where_blob: Optional[bytes] = None, yield_specs=None,
+                 distinct: bool = False, pushed_mode: bool = True
+                 ) -> Tuple[List[str], List[List[object]]]:
         """Serve one GO; returns (columns, rows).
+
+        With the reference's expression parameters (runtime.py:1309):
+        ``where_blob`` the encoded WHERE tree, ``yield_specs`` a list of
+        (encoded YIELD expression, alias or None), ``distinct`` and
+        ``pushed_mode`` (True: storaged's filter semantics, an invalid
+        prop drops the row; False: graphd's remnant filter, where a
+        real x/0 or an invalid prop on a candidate declines), the GO is
+        routed by ``_serve_go_exprs``.  Otherwise:
 
         ``etypes`` are signed (negative = REVERSELY) and must name one
         edge alias in ``etype_to_alias``; the result column is
@@ -232,8 +332,16 @@ class TorchQueryRuntime:
         reductions, LIMIT with UPTO or a reduction (the reference's
         ``_go_reduce_shape`` never pushes those down) and unloaded
         spaces raise TpuDecline."""
+        if where_blob is not None or yield_specs is not None:
+            if where is not None or yield_cols is not None:
+                raise TpuDecline("WHERE and YIELD come either as blobs "
+                                 "or as where / yield_cols, not both")
+            return self._serve_go_exprs(
+                space_id, start_vids, etypes, steps, etype_to_alias,
+                upto, reduce, limit, where_blob, yield_specs, distinct,
+                pushed_mode)
         if where is not None:
-            raise TpuDecline("WHERE is not served by the device slice")
+            raise TpuDecline("a WHERE is served only as where_blob")
         if reduce is not None and tuple(reduce) != ("count",):
             raise TpuDecline(f"reduction {reduce!r} is not served")
         if limit is not None:
@@ -264,6 +372,464 @@ class TorchQueryRuntime:
             cols, rows = result
             return cols, rows[:limit]
         return result
+
+    # ---------------------------------------- GO with WHERE and YIELD
+    def _schema(self, space_id: int) -> SchemaView:
+        with self._lock:
+            return self.schemas.get(space_id) or SchemaView()
+
+    def _serve_go_exprs(self, space_id: int, start_vids: Sequence[int],
+                        etypes: Sequence[int], steps: int,
+                        etype_to_alias: Dict[int, str], upto: bool,
+                        reduce, limit: Optional[int],
+                        where_blob: Optional[bytes], yield_specs,
+                        distinct: bool, pushed_mode: bool):
+        """The reference ``serve_go``'s routing (runtime.py:1309-1390):
+        decode the trees, plan, and send a compiled WHERE with no UPTO
+        and no reduction to ``_execute_fused`` when ``tpu_filter_mode``
+        is ``auto`` or ``device``.  A GO without WHERE whose YIELD is
+        only ``<alias>._dst`` rides the dispatcher as before.  The rest
+        rides the reference's dispatcher host filter and group
+        materialization, which are not ported: it declines."""
+        try:
+            where_expr = decode_expr(where_blob) if where_blob else None
+            ycols = [_YieldCol(decode_expr(blob), alias)
+                     for blob, alias in (yield_specs or [])]
+        except Exception as e:      # noqa: BLE001 — undecodable tree
+            raise TpuDecline(f"undecodable expression: {e}")
+        et_tuple = tuple(sorted(set(int(e) for e in etypes)))
+        if not et_tuple or 0 in et_tuple:
+            raise TpuDecline("GO needs an OVER edge type")
+        aliases = {etype_to_alias.get(e) for e in et_tuple}
+        if len(aliases) != 1 or None in aliases:
+            raise TpuDecline("the device slice serves one OVER edge alias")
+        if upto and int(flags.get("tpu_mesh_devices") or 0) > 1:
+            raise TpuDecline("UPTO on a mesh-sharded space")
+        if self.mirror(space_id) is None:
+            raise TpuDecline(f"space {space_id} is not loaded")
+        if limit is not None:
+            reduce = ("limit", int(limit))
+        alias_to_etype = {a: et for et, a in etype_to_alias.items()}
+        plan = self._plan_go(space_id, alias_to_etype, where_expr,
+                             bool(pushed_mode))
+        if plan is None:
+            raise TpuDecline("device cannot reproduce this query")
+        fmode = flags.get("tpu_filter_mode")
+        if plan.filter_cval is not None and not upto and reduce is None \
+                and fmode in ("device", "auto"):
+            self._bump("go_device")
+            self._bump("go_fused")
+            return self._execute_fused(space_id, plan, start_vids, et_tuple,
+                                       int(steps), etype_to_alias, ycols,
+                                       bool(distinct), where_expr,
+                                       DeviceExecError)
+        alias = aliases.pop()
+        if where_expr is None and not distinct and ycols and all(
+                isinstance(c.expr, EdgeDstIdExpr) and c.expr.alias == alias
+                for c in ycols):
+            cols, rows = self.serve_go(
+                space_id, start_vids, etypes, steps, etype_to_alias,
+                upto=upto, reduce=None if limit is not None else reduce,
+                limit=limit)
+            if cols == ["__count__"]:
+                return cols, rows
+            return ([c.alias or default_col_name(c.expr) for c in ycols],
+                    [r * len(ycols) for r in rows])
+        if where_expr is not None and fmode not in ("device", "auto"):
+            why = f"tpu_filter_mode={fmode}"
+        elif where_expr is not None:
+            why = "WHERE with UPTO or a pipe reduction"
+        else:
+            why = "YIELD expressions other than <alias>._dst"
+        raise TpuDecline(f"{why} rides the dispatcher's host filter and "
+                         f"group materialization (_host_filter, "
+                         f"_assemble_group, _materialize_group; "
+                         f"runtime.py:2666, :2457, :2923), not ported")
+
+    def _plan_go(self, space_id: int, alias_to_etype: Dict[str, int],
+                 where_expr: Optional[Expression],
+                 pushed_mode: bool) -> Optional[_GoPlan]:
+        """Compile a GO plan against the space's mirror, or None when
+        the device can't reproduce the CPU semantics (runtime.py:1200):
+        an uncompilable WHERE, a rank column beyond int32, or div guards
+        in graphd mode (the device cannot raise on a real x/0)."""
+        m = self.mirror(space_id)
+        if m is None:
+            return None
+        filter_cval = None
+        filter_used: Dict[str, Tuple] = {}
+        compiler = ExprCompiler(m, space_id, self._schema(space_id),
+                                alias_to_etype)
+        if where_expr is not None:
+            try:
+                filter_cval = compiler.compile(where_expr)
+            except CompileError:
+                return None
+            filter_used = dict(compiler.used)
+            if "rank" in filter_used and not self._rank_device_ok(m):
+                return None
+            if compiler.div_guards and not pushed_mode:
+                return None
+        return _GoPlan(
+            m, alias_to_etype, filter_cval, filter_used,
+            pushed_mode=pushed_mode, compiler=compiler,
+            expr_str=(str(where_expr) if where_expr is not None else None),
+            sc_or=_filter_has_or(where_expr))
+
+    @staticmethod
+    def _rank_device_ok(m: CsrMirror) -> bool:
+        """int32-representability of the rank column (runtime.py:1174),
+        a host check."""
+        return m.m == 0 or bool(m.edge_rank.min() > -2**31
+                                and m.edge_rank.max() < 2**31)
+
+    def _device_csr(self, m: CsrMirror) -> Dict[str, Optional[torch.Tensor]]:
+        """The edge arrays and the int32 rank (None when it does not
+        fit) on this runtime's device, uploaded once per mirror
+        (runtime.py:1153 ``_device_csr`` / ``_to_device``)."""
+        return self._mirror_cached(m, "_csr_dev_cache",
+                                   lambda: self._to_device(m))
+
+    def _to_device(self, m: CsrMirror) -> Dict[str, Optional[torch.Tensor]]:
+        dev = {"edge_src": self._up(m.edge_src),
+               "edge_dst": self._up(m.edge_dst),
+               "edge_etype": self._up(m.edge_etype)}
+        dev["rank"] = self._up(m.edge_rank.astype(np.int32)) \
+            if self._rank_device_ok(m) else None
+        return dev
+
+    def _execute_fused(self, space_id: int, plan: _GoPlan,
+                       start_vids: Sequence[int], et_tuple: Tuple[int, ...],
+                       steps: int, etype_to_alias: Dict[int, str],
+                       yield_cols, distinct: bool, where_expr, ExcType):
+        """The fused-filter route (runtime.py:2571): the compiled WHERE
+        runs inside the GO program on the card, one query, no
+        cross-query batching; the final edge mask and the frontier come
+        back and the host materializes the YIELD columns of the kept
+        edges in ascending edge order."""
+        m = plan.mirror
+        columns = [c.alias or default_col_name(c.expr) for c in yield_cols]
+        if steps < 1 or not start_vids or m.m == 0:
+            return columns, []
+        if plan.pushed_mode and plan.sc_or:
+            # the kernel ANDs validity into the mask; a disjunction
+            # short-circuits past missing props on the CPU path
+            for _k, desc in plan.filter_used.items():
+                if desc[0] == "edge":
+                    col = m.edge_cols[(desc[1], desc[2])]
+                elif desc[0] == "vertex":
+                    col = m.vertex_cols[(desc[1], desc[2])]
+                else:
+                    continue
+                if not col.valid.all():
+                    raise TpuDecline(
+                        "fused WHERE with || reads a partially-invalid "
+                        "column; CPU short-circuit semantics decide")
+        t0 = time.perf_counter()
+        start_idx = _pad_pow2(m.to_dense(start_vids))
+        final_dev, frontier_dev = self._run_go_kernel(
+            m, space_id, steps, et_tuple, plan, start_idx)
+        t0 = self._tick("t_fused_launch_s", t0)
+        final_mask = self._fetch(final_dev)
+        frontier = self._fetch(frontier_dev)
+        t0 = self._tick("t_fused_fetch_s", t0)
+        idx = np.nonzero(final_mask)[0]
+        if not plan.pushed_mode:
+            vs = np.nonzero(frontier[:m.n])[0]
+            cand_idx = self._frontier_edges(m, vs, et_tuple)
+            inv = self._invalid_candidates(m, plan.filter_used, cand_idx)
+            if inv is not None and inv.any():
+                raise TpuDecline(
+                    "WHERE reads a prop invalid on candidate rows; "
+                    "CPU short-circuit semantics decide")
+        rows = self._materialize(m, space_id, plan.alias_to_etype,
+                                 etype_to_alias, yield_cols, idx, ExcType)
+        if distinct:
+            seen = set()
+            out = []
+            for r in rows:
+                key = tuple(r)
+                if key not in seen:
+                    seen.add(key)
+                    out.append(r)
+            rows = out
+        self._tick("t_fused_materialize_s", t0)
+        return columns, rows
+
+    def _run_go_kernel(self, m: CsrMirror, space_id: int, steps: int,
+                       et_tuple: Tuple[int, ...], plan: _GoPlan,
+                       start_idx: np.ndarray):
+        """Launch ``go`` (no WHERE) or ``go_filtered`` (runtime.py:2725);
+        returns the device (final edge mask, frontier)."""
+        dev = self._device_csr(m)
+        start = self._up(np.ascontiguousarray(start_idx, np.int32))
+        if plan.filter_cval is None:
+            return edge_ops.go(dev["edge_src"], dev["edge_dst"],
+                               dev["edge_etype"], start, m.n, steps,
+                               et_tuple)
+        prog = self._filter_program(m, space_id, plan)
+        env = self._env_cols(m, plan.alias_to_etype, plan.filter_used,
+                             with_valid=plan.pushed_mode)
+        slots = [env[key] for key, _kind, _t in prog.slots]
+        return edge_ops.go_filtered(dev["edge_src"], dev["edge_dst"],
+                                    dev["edge_etype"], start, m.n, steps,
+                                    et_tuple, prog, slots)
+
+    def _filter_program(self, m: CsrMirror, space_id: int, plan: _GoPlan
+                        ) -> ExprProgram:
+        """The plan's WHERE as an ExprProgram, compiled once per (space,
+        mirror, pushed mode, OVER aliases, WHERE text).  A program the
+        kernel cannot hold raises TpuDecline."""
+        key = (space_id, id(m), m.build_version, plan.pushed_mode,
+               tuple(sorted(plan.alias_to_etype.items())), plan.expr_str)
+        with self._lock:
+            prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        types = {k: _DEVICE_TYPE[np.dtype(self._col_dtype(m, desc))]
+                 for k, desc in plan.filter_used.items()}
+        try:
+            prog = trace_filter(plan.filter_cval, plan.filter_used,
+                                plan.compiler.div_guards, plan.pushed_mode,
+                                types)
+        except CompileError as e:
+            raise TpuDecline(f"WHERE does not lower to the device: {e}")
+        with self._lock:
+            if len(self._programs) >= 256:
+                self._programs.clear()
+            return self._programs.setdefault(key, prog)
+
+    @staticmethod
+    def _col_dtype(m: CsrMirror, desc: Tuple):
+        if desc[0] == "edge":
+            return m.edge_cols[(desc[1], desc[2])].device_values().dtype
+        if desc[0] == "vertex":
+            return m.vertex_cols[(desc[1], desc[2])].device_values().dtype
+        return np.int32        # rank, etype_alias, src_idx, dst_idx
+
+    def _env_cols(self, m: CsrMirror, alias_to_etype: Dict[str, int],
+                  used: Dict[str, Tuple], with_valid: bool
+                  ) -> Dict[str, torch.Tensor]:
+        """Device env for a compiled filter: {key: tensor} (+ "valid:key"
+        when ``with_valid``); columns upload once per mirror and
+        device."""
+        cache = self._mirror_cached(m, "_env_dev_cache", dict)
+        env: Dict[str, torch.Tensor] = {}
+        dev = self._device_csr(m)
+
+        def cached(key, build):
+            t = cache.get(key)
+            if t is None:
+                t = cache.setdefault(key, self._up(np.ascontiguousarray(
+                    build())))
+            return t
+
+        for k, desc in used.items():
+            if desc[0] in ("edge", "vertex"):
+                col = m.edge_cols[(desc[1], desc[2])] \
+                    if desc[0] == "edge" \
+                    else m.vertex_cols[(desc[1], desc[2])]
+                if with_valid:
+                    env["valid:" + k] = cached(("valid", desc[0], desc[1],
+                                                desc[2]),
+                                               lambda c=col: c.valid)
+                env[k] = cached((desc[0], desc[1], desc[2]),
+                                lambda c=col: c.device_values())
+            elif desc[0] == "rank":
+                env["rank"] = dev["rank"]
+            elif desc[0] == "etype_alias":
+                akey = ("etype_alias",) + tuple(sorted(
+                    alias_to_etype.items()))
+                env["etype_alias"] = cached(
+                    akey, lambda: self._etype_alias_codes(m, alias_to_etype))
+            elif desc[0] == "src_idx":
+                env["src_idx"] = dev["edge_src"]
+            elif desc[0] == "dst_idx":
+                env["dst_idx"] = dev["edge_dst"]
+        return env
+
+    @staticmethod
+    def _etype_alias_codes(m: CsrMirror,
+                           alias_to_etype: Dict[str, int]) -> np.ndarray:
+        """int32[m]: per-edge code into the sorted alias dictionary
+        (runtime.py:2815), cached per mirror and alias map."""
+        cache = getattr(m, "_alias_code_cache", None)
+        if cache is None:
+            cache = m._alias_code_cache = {}
+        key = tuple(sorted(alias_to_etype.items()))
+        codes = cache.get(key)
+        if codes is not None:
+            return codes
+        if len(cache) >= 8:
+            cache.clear()
+        alias_pos = {a: i for i, a in enumerate(sorted(alias_to_etype))}
+        codes = np.zeros(m.m, dtype=np.int32)
+        for a, et in alias_to_etype.items():
+            codes[m.edge_etype == et] = alias_pos[a]
+        cache[key] = codes
+        return codes
+
+    def _frontier_edges(self, m: CsrMirror, vs: np.ndarray,
+                        et_tuple: Tuple[int, ...]) -> np.ndarray:
+        """Final-hop candidate edges of the frontier vertices ``vs`` as
+        an ascending index array (runtime.py:2866)."""
+        idx, _, _ = self._frontier_edges_multi(m, [vs], et_tuple)
+        return idx
+
+    @staticmethod
+    def _invalid_candidates(m: CsrMirror, used: Dict[str, Tuple],
+                            cand: np.ndarray) -> Optional[np.ndarray]:
+        """bool[cand]: the candidate edge reads an invalid used prop
+        (runtime.py:2552), or None when nothing is used."""
+        if not used or len(cand) == 0:
+            return None
+        inv = np.zeros(len(cand), dtype=bool)
+        for _k, desc in used.items():
+            if desc[0] == "edge":
+                col = m.edge_cols[(desc[1], desc[2])]
+                inv |= ~col.valid[cand]
+            elif desc[0] == "vertex":
+                col = m.vertex_cols[(desc[1], desc[2])]
+                gather = m.edge_src[cand] if desc[3] == "src" \
+                    else m.edge_dst[cand]
+                inv |= ~col.valid[gather]
+        return inv
+
+    def _gather_cols(self, m: CsrMirror, alias_to_etype: Dict[str, int],
+                     used: Dict[str, Tuple],
+                     idx: np.ndarray) -> Dict[str, np.ndarray]:
+        """numpy columns over edge rows ``idx`` for host evaluation of
+        compiled expressions (runtime.py:2620)."""
+        cols: Dict[str, np.ndarray] = {}
+        for k, desc in used.items():
+            if desc[0] == "edge":
+                cols[k] = m.edge_cols[(desc[1], desc[2])].values[idx]
+            elif desc[0] == "vertex":
+                col = m.vertex_cols[(desc[1], desc[2])]
+                gather = m.edge_src[idx] if desc[3] == "src" \
+                    else m.edge_dst[idx]
+                cols[k] = col.values[gather]
+            elif desc[0] == "rank":
+                cols["rank"] = m.edge_rank[idx]
+            elif desc[0] == "src_idx":
+                cols["src_idx"] = m.edge_src[idx]
+            elif desc[0] == "dst_idx":
+                cols["dst_idx"] = m.edge_dst[idx]
+            elif desc[0] == "etype_alias":
+                cols["etype_alias"] = \
+                    self._etype_alias_codes(m, alias_to_etype)[idx]
+        return cols
+
+    def _materialize(self, m: CsrMirror, space_id: int,
+                     alias_to_etype: Dict[str, int],
+                     etype_to_alias: Dict[int, str], yield_cols,
+                     idx: np.ndarray, exc_type) -> List[List[object]]:
+        """YIELD columns of the kept edges ``idx`` (runtime.py:3002):
+        numpy at full int64 / float64 precision when every column
+        compiles, else per-row evaluation, which reproduces the CPU
+        executor's errors."""
+        if len(idx) == 0:
+            return []
+        compiler = ExprCompiler(m, space_id, self._schema(space_id),
+                                alias_to_etype)
+        try:
+            cvals = [compiler.compile(c.expr) for c in yield_cols]
+        except CompileError:
+            return self._materialize_per_row(
+                m, space_id, alias_to_etype, etype_to_alias, yield_cols,
+                idx, exc_type)
+        inv = self._invalid_candidates(m, compiler.used, idx)
+        if inv is not None and inv.any():
+            return self._materialize_per_row(
+                m, space_id, alias_to_etype, etype_to_alias,
+                yield_cols, idx, exc_type)
+        env = Env(np, self._gather_cols(m, alias_to_etype, compiler.used,
+                                        idx))
+        for g in compiler.div_guards:
+            if np.any(g(env)):
+                return self._materialize_per_row(
+                    m, space_id, alias_to_etype, etype_to_alias,
+                    yield_cols, idx, exc_type)
+        out_cols: List[List[object]] = []
+        k_edges = len(idx)
+        for cv, yc in zip(cvals, yield_cols):
+            arr = cv.fn(env)
+            out_cols.append(_col_tolist(
+                self._decode_col(m, cv, yc, arr, idx, k_edges,
+                                 etype_to_alias)))
+        if len(out_cols) == 1:
+            return [[v] for v in out_cols[0]]
+        return [list(t) for t in zip(*out_cols)]
+
+    @staticmethod
+    def _decode_col(m: CsrMirror, cv: CVal, yc, arr, idx: np.ndarray,
+                    k: int, etype_to_alias: Dict[int, str]):
+        """One YIELD column -> a flat column container (runtime.py:3049)."""
+        if cv.kind == K_VIDRANK:
+            return m.vids[np.asarray(arr)]
+        if cv.kind == K_STR:
+            return ConstCol(cv.const, k)
+        if cv.kind == K_STRCODE:
+            return DictCol(np.asarray(arr),
+                           [str(v) for v in cv.dictionary])
+        a = np.broadcast_to(np.asarray(arr), (k,))
+        if cv.kind == K_BOOL:
+            return a.astype(bool)
+        if cv.kind == K_FLOAT:
+            return a.astype(np.float64)
+        return a.astype(np.int64)
+
+    def _materialize_per_row(self, m: CsrMirror, space_id: int,
+                             alias_to_etype: Dict[str, int],
+                             etype_to_alias: Dict[int, str], yield_cols,
+                             idx: np.ndarray, exc_type
+                             ) -> List[List[object]]:
+        """Row-at-a-time evaluation with the CPU executor's getter
+        semantics (runtime.py:3067)."""
+        schema = self._schema(space_id)
+        tag_ids: Dict[str, Optional[int]] = {}
+
+        def tag_id(tag: str) -> Optional[int]:
+            if tag not in tag_ids:
+                r = schema.to_tag_id(space_id, tag)
+                tag_ids[tag] = r.value() if r.ok() else None
+            return tag_ids[tag]
+
+        rows = []
+        for e in idx.tolist():
+            src_i, dst_i = int(m.edge_src[e]), int(m.edge_dst[e])
+            et = int(m.edge_etype[e])
+            ctx = ExprContext()
+
+            def vget(which_i, tag, prop):
+                t = tag_id(tag)
+                col = m.vertex_cols.get((t, prop)) if t is not None else None
+                if col is None or not col.valid[which_i]:
+                    raise ExprError(f"{tag}.{prop} unavailable")
+                return col.host_value(which_i)
+
+            ctx.get_src_tag_prop = lambda tag, prop, _i=src_i: \
+                vget(_i, tag, prop)
+            ctx.get_dst_tag_prop = lambda tag, prop, _i=dst_i: \
+                vget(_i, tag, prop)
+
+            def eget(alias, prop, _e=e, _et=et):
+                col = m.edge_cols.get((_et, prop))
+                if col is None or not col.valid[_e]:
+                    raise ExprError(f"{alias}.{prop} unavailable")
+                return col.host_value(_e)
+
+            ctx.get_alias_prop = eget
+            ctx.get_edge_dst_id = lambda a, _i=dst_i: int(m.vids[_i])
+            ctx.get_edge_src_id = lambda a, _i=src_i: int(m.vids[_i])
+            ctx.get_edge_rank = lambda a, _e=e: int(m.edge_rank[_e])
+            ctx.get_edge_type = lambda a, _et=et: \
+                etype_to_alias.get(_et, str(_et))
+            try:
+                rows.append([c.expr.eval(ctx) for c in yield_cols])
+            except ExprError as ex:
+                raise exc_type(str(ex))
+        return rows
 
     # ------------------------------------------------ batch entry point
     def go_batch_execute(self, space_id: int, queries: List[_GoQuery],

@@ -1,6 +1,7 @@
 """The port stands alone: every ``nebula_tpu_torch`` module imports with
-jax blocked and loads nothing of the JAX package, and ``chip_smoke.py``
-neither imports the reference nor runs without a CUDA card."""
+jax and msgpack blocked and loads nothing of the JAX package, and
+``chip_smoke.py`` neither imports the reference nor runs without a CUDA
+card."""
 import ast
 import json
 import os
@@ -13,6 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any jax import now fails
+sys.modules["msgpack"] = None        # the expression codec is the port's
 import nebula_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
     nebula_tpu_torch.__path__, "nebula_tpu_torch."))
@@ -20,6 +22,9 @@ for name in names:
     importlib.import_module(name)
 ref = sorted(k for k in sys.modules
              if k == "nebula_tpu" or k.startswith("nebula_tpu."))
+from nebula_tpu_torch.filter.expressions import (decode_expr, encode_expr,
+                                                 PrimaryExpr)
+assert str(decode_expr(encode_expr(PrimaryExpr(5)))) == "5"
 jax = sorted(k for k in sys.modules
              if (k == "jax" or k.startswith("jax.")) and sys.modules[k])
 import json, threading
@@ -41,7 +46,16 @@ def test_every_port_module_imports_without_jax_or_reference():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     for name in ("nebula_tpu_torch.tpu.runtime", "nebula_tpu_torch.tpu.ell_ops",
                  "nebula_tpu_torch.graph.batch_dispatch",
-                 "nebula_tpu_torch.tools.graphgen"):
+                 "nebula_tpu_torch.tools.graphgen",
+                 "nebula_tpu_torch.tpu.edge_ops",
+                 "nebula_tpu_torch.tpu.expr_compile",
+                 "nebula_tpu_torch.tpu.expr_program",
+                 "nebula_tpu_torch.filter.expressions",
+                 "nebula_tpu_torch.filter.functions",
+                 "nebula_tpu_torch.filter.wire",
+                 "nebula_tpu_torch.graph.interim",
+                 "nebula_tpu_torch.interface.common",
+                 "nebula_tpu_torch.meta.schema"):
         assert name in out["modules"]
     assert out["ref"] == [], f"reference modules loaded: {out['ref']}"
     assert out["jax"] == [], f"jax modules loaded: {out['jax']}"
@@ -78,7 +92,7 @@ def test_port_sources_name_no_reference_import():
     for path in files:
         for mod in _imported_roots(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "nebula_tpu"):
+            if top in ("jax", "jaxlib", "nebula_tpu", "msgpack"):
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert not bad, bad
 
