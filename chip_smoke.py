@@ -7,6 +7,8 @@ Hopper card.
                           [--widths LIST] [--path-requests P]
                           [--path-threads PT] [--profile R]
                           [--fused-requests F] [--fused-threads FT]
+                          [--write-vertices WN] [--write-edges WM]
+                          [--write-seconds WS]
 
 The defaults are the serve cell; ``--vertices 16777216 --edges
 105000000 --cap 256 --widths 128`` is the round-5 scale shape, and
@@ -43,7 +45,13 @@ Phases, in order; any failure exits non-zero:
              ``edge_bfs_level``, the programs ``go`` and
              ``go_filtered`` at 1-3 steps from 1 and 256 starts, and
              ``bfs`` on a connected and an unreachable pair, all
-             exactly
+             exactly; then ``ell_absorb`` on the graph's flat tables for
+             three absorb plans made by ``plan_ell_absorb``: 4096 edge
+             events (updates, deletes, inserts on non-hub owners, both
+             directions), a growth-spare claim, and every bucket's last
+             row with pads at every bucket's end; equal to the plain
+             version and to the host's next generation, the input
+             tables unchanged
 4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
              edges, stored in both directions, with seeded columns:
              edge ``w`` int, ``score`` double, ``kind`` string, tag
@@ -75,10 +83,29 @@ Phases, in order; any failure exits non-zero:
              1 dst each) from PT threads, 64 checked against a numpy
              BFS and path enumeration, then a checked sample of ``FIND
              ALL PATH ... UPTO 3 STEPS``
-10. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
-11. the last line ``{"ok": true, "device": {...}}``
+10. write    a space in the port's own store (default 2^17 vertices,
+             2^19 edges of ``e(w int)`` written in both directions
+             through the processors, tag ``person(age)`` on 15/16 of
+             the vertices, 8 parts), folded by the per-row
+             ``build_mirror``; then for WS seconds 2 writers (the
+             reference soak's mix: in-place updates of a live edge's
+             ``w``, round-robin inserts of new ranks, FIFO deletes,
+             every 16th write a vertex ``person.age``), each edge
+             write checked for read-your-writes by a fused GO from
+             both ends and a continuous ``GO 1 TO 2 STEPS`` from its
+             src, and WRITE_READERS readers (GO 1-3 STEPS, a quarter
+             COUNT(*), an eighth a fused ``WHERE e.w > k``, a
+             sixteenth FIND SHORTEST PATH); no rebuild and no delta
+             overflow in the window, absorbs > 0, the continuous
+             stream re-anchored; 64 queries against a numpy oracle, then the rebuild
+             oracle (a fresh fold gives the same answers and the same
+             ELL slots); then three forced windows: a growth claim,
+             4097 edge events (a counted overflow and a rebuild) and
+             an edge to a new vertex (a rebuild)
+11. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
+12. the last line ``{"ok": true, "device": {...}}``
 
-Every launch count is zeroed just before each of phases 4-9 drives the
+Every launch count is zeroed just before each of phases 4-10 drives the
 port and read just after it; every kernel of a phase's path must have
 been launched there.  The script imports nothing of the JAX package.
 It needs one CUDA card and refuses to run (non-zero exit, no result)
@@ -123,6 +150,7 @@ REPLACES = {
     "go": "nebula_tpu/tpu/kernels.py:284",
     "go_filtered": "nebula_tpu/tpu/kernels.py:296",
     "bfs": "nebula_tpu/tpu/kernels.py:315",
+    "ell_absorb": "nebula_tpu/tpu/ell.py:1011",
 }
 SOURCES = {k: "nebula_tpu_torch/tpu/csrc/ell_lanes.cu"
            for k in list(REPLACES)[:9]}
@@ -134,6 +162,7 @@ SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/edge_go.cu"
 SOURCES.update({"expr_filter": "nebula_tpu_torch/tpu/csrc/expr_filter.cu",
                 "go_filtered": "nebula_tpu_torch/tpu/csrc/edge_go.cu "
                                "+ expr_filter.cu"})
+SOURCES["ell_absorb"] = "nebula_tpu_torch/tpu/csrc/ell_absorb.cu"
 # the edge-list programs no runtime path calls (the reference's only
 # caller of go is _run_go_kernel's no-filter branch, which
 # _execute_fused never takes; bfs has only its registry entry)
@@ -151,6 +180,8 @@ PATH_KERNELS = {
     "fused": ("edge_seed", "expr_filter", "edge_hop", "edge_final",
               "go_filtered"),
     "path": ("frontier_upload", "go_hop", "bfs_level", "bfs_depth_i8"),
+    "write": ("ell_absorb", "go_hop", "lane_join", "lane_extract",
+              "lane_clear"),
 }
 LIMIT_N = 10                   # the sparse phase's | LIMIT n
 MAX_PATHS = 1000               # the port's FIND PATH result cap
@@ -710,21 +741,30 @@ SPIN_CYCLES = 8_000_000   # about 4 ms of the card's clock
 PROBE_REPS = 8            # timed calls of each probed kernel call
 
 
-def queued_ms(torch, fn, iters: int) -> float:
-    """Mean milliseconds of ``fn()`` on the card alone: a spin kernel
-    holds the card while the host enqueues the calls, so the events
-    bracket only their device work (``fn`` must not wait on the card)."""
+def queued_times(torch, fn, iters: int) -> tuple:
+    """(mean milliseconds of ``fn()`` on the card alone, host
+    milliseconds to enqueue them all): a spin kernel holds the card
+    while the host enqueues the calls, so the events bracket only their
+    device work as long as the enqueue stays below the spin's time
+    (``fn`` must not wait on the card)."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
     torch.cuda._sleep(SPIN_CYCLES)
     t0.record()
     for _ in range(iters):
         fn()
     t1.record()
+    enqueue_ms = (time.perf_counter() - h0) * 1e3
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    return t0.elapsed_time(t1) / iters, enqueue_ms
+
+
+def queued_ms(torch, fn, iters: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card alone (queued_times)."""
+    return queued_times(torch, fn, iters)[0]
 
 
 class Probe:
@@ -2063,6 +2103,727 @@ def fused_phase(torch, rt, edge_ops, fo: FusedOracle, blobs, n: int,
                 runtime=stats)
 
 
+# ====================================================== phase 3: absorb
+ABSORB_ITERS = 20
+
+
+def _row_fill(ix):
+    """(filled slots, width) per ELL row, in new-id order."""
+    filled = np.concatenate([(nbr != ix.n_rows).sum(axis=1)
+                             for nbr in ix.bucket_nbr])
+    width = np.concatenate([np.full(nbr.shape[0], nbr.shape[1])
+                            for nbr in ix.bucket_nbr])
+    return filled.astype(np.int64), width.astype(np.int64)
+
+
+def absorb_windows(m, ix, rng, events: int = 4096):
+    """Three absorb plans over the serve ELL, made by the port's
+    ``plan_ell_absorb``: (a) ``events`` edge events (both directions)
+    of in-place updates, deletes and inserts on non-hub owners; (b) a
+    non-hub vertex grown past its width (a growth-spare claim); (c)
+    rows that include every bucket's last row (every growth spare
+    claimed, so the widest bucket's too) and no bucket's first row,
+    with pads at every bucket's end.  Returns {label: (plan, claims,
+    events)}."""
+    from nebula_tpu_torch.tpu.ell import plan_ell_absorb
+    n = ix.n
+    ecnt, _e0 = ix.hub_expansion()
+    filled, width = _row_fill(ix)
+    nonhub_new = np.zeros(ix.n_rows, bool)
+    nonhub_new[:n] = ecnt[:n] == 0
+    nonhub = nonhub_new[ix.perm]                 # by old dense id
+    free = np.where(nonhub_new[:n], width[:n] - filled[:n], 0)[ix.perm]
+    out = {}
+
+    def plan(ins, dels, claims_ok=True):
+        ins = np.asarray(ins, np.int64).reshape(-1, 3)
+        dels = np.asarray(dels, np.int64).reshape(-1, 3)
+        claims = []
+        p = plan_ell_absorb(ix, ins[:, 1], ins[:, 0],
+                            ins[:, 2].astype(np.int32), dels[:, 1],
+                            dels[:, 0], dels[:, 2].astype(np.int32),
+                            claims_out=claims if claims_ok else None)
+        if p is None:
+            raise AssertionError("an absorb plan the ELL should hold "
+                                 "declined")
+        return p, claims
+
+    # (a) forward edges between non-hub owners: 45 % updates, 25 %
+    # deletes, the rest inserts between owners with a free slot
+    fwd = np.nonzero((m.edge_etype == 1) & nonhub[m.edge_src]
+                     & nonhub[m.edge_dst])[0]
+    k = events // 2
+    n_upd, n_del = int(k * 0.45), int(k * 0.25)
+    pick = rng.choice(fwd, n_upd + n_del, replace=False)
+    rows_of = [(int(m.edge_src[e]), int(m.edge_dst[e])) for e in pick]
+    both = lambda s, d: [(s, d, 1), (d, s, -1)]      # noqa: E731
+    ins, dels = [], []
+    for s, d in rows_of[:n_upd]:
+        ins += both(s, d)
+        dels += both(s, d)
+    for s, d in rows_of[n_upd:]:
+        dels += both(s, d)
+    room = free.copy()
+    open_v = np.nonzero(room >= 1)[0]
+    n_ins = 0
+    while n_ins < k - n_upd - n_del:
+        s, d = (int(v) for v in rng.choice(open_v, 2))
+        if s == d or room[s] < 1 or room[d] < 1:
+            continue
+        room[s] -= 1
+        room[d] -= 1
+        ins += both(s, d)
+        n_ins += 1
+    p, c = plan(ins, dels, claims_ok=False)
+    out["a_4096_events"] = (p, c, len(ins) - 2 * n_upd + len(dels))
+
+    # (b) a full non-hub row in a bucket narrower than the cap grows
+    cap_w = int(ix.bucket_D[-1])
+    full = np.nonzero(nonhub & (free == 0)
+                      & (width[:n][ix.perm] < cap_w)
+                      & (filled[:n][ix.perm] > 0))[0]
+    v = int(rng.choice(full))
+    srcs = rng.choice(np.nonzero(free >= 1)[0], 3, replace=False)
+    p, c = plan([(int(u), v, 1) for u in srcs], [])
+    if not c:
+        raise AssertionError("window (b) claimed no growth spare")
+    out["b_growth_claim"] = (p, c, 3)
+
+    # (c) every bucket's last row, no bucket's first row; the widest
+    # bucket's last rows are growth spares: one small vertex claims
+    # them all
+    row0 = np.cumsum([0] + [nbr.shape[0] for nbr in ix.bucket_nbr])
+    firsts = set(row0[:-1].tolist())
+    ins, dels = [], []
+    targets = [int(row0[b + 1] - 1) for b in range(len(ix.bucket_nbr) - 1)]
+    b0 = [r for r in range(1, int(row0[1]) - 1) if r < n]
+    targets += [int(r) for r in rng.choice(b0, min(8, len(b0)),
+                                           replace=False)]
+    for r in targets:
+        owner = int(ix.inv[r])
+        b = int(np.searchsorted(row0, r, "right") - 1)
+        nbr_row = ix.bucket_nbr[b][r - row0[b]]
+        et_row = ix.bucket_et[b][r - row0[b]]
+        if nbr_row[0] != ix.n_rows:               # swap one slot
+            dels.append((int(ix.inv[nbr_row[0]]), owner, int(et_row[0])))
+        ins.append((int(rng.integers(0, n)), owner, 1))
+    spares = int((ix.extra_owner == ix.spare_sentinel()).sum())
+    cands = [int(r) for r in range(1, int(row0[1]) - 1)
+             if r not in targets and r not in firsts and r < n
+             and nonhub_new[r]]
+    g = int(ix.inv[cands[0]])
+    need = (spares - 1) * cap_w + 1 + int(width[cands[0]]
+                                          - filled[cands[0]])
+    ins += [(int(u), g, 1) for u in rng.integers(0, n, need)]
+    p, c = plan(ins, dels)
+    if len(c) != spares:
+        raise AssertionError(f"window (c) claimed {len(c)} of {spares} "
+                             f"spares")
+    touched = {b: v[0] for b, v in p.items()}
+    for b, nbr in enumerate(ix.bucket_nbr):
+        if b not in touched or nbr.shape[0] - 1 not in touched[b] \
+                or 0 in touched[b]:
+            raise AssertionError(f"window (c) bucket {b} does not hold "
+                                 f"its last row without its first")
+    out["c_bucket_ends"] = (p, c, len(ins) + len(dels))
+    return out
+
+
+def absorb_kernel_phase(torch, ell_ops, rt, m, ix, tables, rng) -> dict:
+    """``ell_absorb`` against its plain version on the serve graph's real
+    flat tables, for each window of ``absorb_windows``: both output
+    tables equal the plain version's and the host index's next
+    generation exactly, and the input tables are byte-identical before
+    and after (no donation).  Times: the kernel's device time over
+    PROBE_REPS calls queued behind a spin kernel (``ms``; ``event_ms``
+    the CUDA-event time of ABSORB_ITERS back-to-back calls, launch path
+    included), the plain version, and the library yardstick (``clone``
+    of both tables, then ``index_copy_`` of each bucket's in-range
+    rows).  The bound is the bytes the function must move: both tables
+    read and written, every padded row index read, and the contents of
+    the in-range replacement rows only (a pad row's are never read)."""
+    from nebula_tpu_torch.tpu.ell import (absorb_update_arrays,
+                                          apply_ell_absorb_host)
+    dev = tables.nbr.device
+    spin_ms = cuda_ms(torch, lambda: torch.cuda._sleep(SPIN_CYCLES), 3, 1)
+    out = {}
+    for label, (plan, claims, events) in absorb_windows(m, ix,
+                                                        rng).items():
+        counts, upd = absorb_update_arrays(ix, plan)
+        rows, nn, ne = rt._absorb_args(upd)
+        nbr0, et0 = tables.nbr.clone(), tables.et.clone()
+        got = ell_ops.ell_absorb(tables, rows, nn, ne)
+        want = ell_ops.ell_absorb_ref(tables, rows, nn, ne)
+        host = apply_ell_absorb_host(ix, plan, ix.m, claims=claims) \
+            .device_tables(dev)
+        require_equal(torch, f"ell_absorb {label}", 0,
+                      (got.nbr, want.nbr), (got.et, want.et),
+                      (got.nbr, host.nbr), (got.et, host.et))
+        if not (torch.equal(tables.nbr, nbr0)
+                and torch.equal(tables.et, et0)):
+            raise AssertionError(f"ell_absorb {label} changed its input "
+                                 f"tables")
+        del got, want, host, nbr0, et0
+        kern = lambda: ell_ops.ell_absorb(tables, rows, nn, ne)  # noqa: E731
+        event_ms = cuda_ms(torch, kern, ABSORB_ITERS)
+        ms, enqueue_ms = queued_times(torch, kern, PROBE_REPS)
+        if enqueue_ms >= spin_ms:
+            log(f"[kernel] ell_absorb {label}: host enqueue {enqueue_ms:.3f}"
+                f" ms outlasted the spin ({spin_ms:.3f} ms); its device "
+                f"time holds launch gaps")
+        plain_ms = cuda_ms(torch, lambda: ell_ops.ell_absorb_ref(
+            tables, rows, nn, ne), 3, warmup=1)
+        keep = [(r.long() < tables.rows[b]).nonzero().squeeze(1)
+                for b, r in enumerate(rows)]
+        idx = [rows[b].long()[keep[b]] for b in range(len(rows))]
+        n_in = [nn[b][keep[b]].contiguous() for b in range(len(rows))]
+        e_in = [ne[b][keep[b]].contiguous() for b in range(len(rows))]
+
+        def lib():
+            a, e = tables.nbr.clone(), tables.et.clone()
+            for b in range(len(rows)):
+                lo, k = tables.slot0[b], tables.rows[b] * tables.D[b]
+                shape = (tables.rows[b], tables.D[b])
+                a[lo:lo + k].view(shape).index_copy_(0, idx[b], n_in[b])
+                e[lo:lo + k].view(shape).index_copy_(0, idx[b], e_in[b])
+            return a, e
+        lib_ms = cuda_ms(torch, lib, ABSORB_ITERS)
+        slots = int(tables.nbr.numel())
+        kp = counts[0]
+        real = sum(int(k.numel()) for k in keep)
+        if real != sum(len(v[0]) for v in plan.values()):
+            raise AssertionError(f"ell_absorb {label}: the in-range rows "
+                                 f"are not the plan's rows")
+        nbytes = 16 * slots + 4 * len(rows) * kp \
+            + 8 * sum(int(k.numel()) * d for k, d in zip(keep, tables.D))
+        out[label] = dict(max_abs_err=0, ms=ms, event_ms=event_ms,
+                          enqueue_ms=enqueue_ms, spin_ms=spin_ms,
+                          plain_ms=plain_ms,
+                          bound_ms=bytes_ms(nbytes), bound_by="bytes",
+                          library_ms=lib_ms, bytes=nbytes, slots=slots,
+                          kp=kp, rows_replaced=real,
+                          pads=len(rows) * kp - real, claims=len(claims),
+                          events=events, inputs_unchanged=True)
+    row = dict(out["a_4096_events"])
+    row["windows"] = {k: {a: v[a] for a in ("ms", "event_ms", "enqueue_ms",
+                                             "plain_ms", "library_ms",
+                                             "bound_ms", "rows_replaced",
+                                             "pads", "claims", "events")}
+                      for k, v in out.items()}
+    return {"ell_absorb": row}
+
+
+# ============================================================ [write]
+WRITE_SPACE = 7
+WRITE_PARTS = 8
+WRITE_ET = 1
+WRITE_TAG = 2
+WRITE_READERS = 16
+
+
+class WriteOracle:
+    """Plain numpy semantics of GO over a live edge set with ranks, held
+    apart from the port: ``live`` maps (src, dst, rank) to ``w``.  The
+    frontier advances over the distinct (src, dst) pairs (GoOracle); the
+    final hop yields one row per live edge of the frontier, with its
+    ``w``."""
+
+    def __init__(self, live: dict):
+        keys = np.asarray(list(live.keys()), np.int64).reshape(-1, 3)
+        w = np.asarray(list(live.values()), np.int64)
+        order = np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))
+        self.src, self.dst = keys[order, 0], keys[order, 1]
+        self.w = w[order]
+        self.go = GoOracle(self.src, self.dst)
+
+    def rows(self, starts, steps: int, upto: bool = False):
+        """Final-hop (dst, w) rows, sorted."""
+        fs = self.go.frontier_sizes(starts, steps)
+        f = np.unique(np.concatenate(fs)) if upto else fs[-1]
+        sel = np.isin(self.src, f)
+        out = np.stack([self.dst[sel], self.w[sel]], axis=1)
+        return out[np.lexsort((out[:, 1], out[:, 0]))]
+
+
+class WriteSpace:
+    """The [write] phase's space, held in the port's own store and
+    written through its processors: edge ``e(w int)`` stored in both
+    directions as the insert executor writes it, tag ``person(age
+    int)`` on 15/16 of the vertices, ``WRITE_PARTS`` parts.  Beside the
+    live edges it keeps their forward adjacency (``adj``: src -> {dst:
+    live ranks}) and, after the load, every new (src, dst) key in write
+    order (``added``)."""
+
+    def __init__(self, n: int, m: int, seed: int):
+        from nebula_tpu_torch.codec.rows import encode_row
+        from nebula_tpu_torch.interface.common import (ColumnDef, Schema,
+                                                       SupportedType)
+        from nebula_tpu_torch.kvstore.store import NebulaStore
+        from nebula_tpu_torch.meta.schema_manager import AdHocSchemaManager
+        from nebula_tpu_torch.storage.processors import (
+            AddEdgesProcessor, AddVerticesProcessor, DeleteProcessor)
+        from nebula_tpu_torch.tools.graphgen import powerlaw_graph
+        self.encode = encode_row
+        self.store = NebulaStore()
+        for p in range(1, WRITE_PARTS + 1):
+            self.store.add_part(WRITE_SPACE, p)
+        self.sm = AdHocSchemaManager()
+        self.e = Schema([ColumnDef("w", SupportedType.INT)])
+        self.person = Schema([ColumnDef("age", SupportedType.INT)])
+        self.sm.add_edge_schema(WRITE_SPACE, WRITE_ET, "e", self.e)
+        self.sm.add_tag_schema(WRITE_SPACE, WRITE_TAG, "person",
+                               self.person)
+        self.add_e = AddEdgesProcessor(self.store, self.sm)
+        self.add_v = AddVerticesProcessor(self.store, self.sm)
+        self.dele = DeleteProcessor(self.store, self.sm)
+        rng = np.random.default_rng(seed + 41)
+        src, dst = powerlaw_graph(n, m, 2.2, 20000, seed + 40)
+        w = rng.integers(0, 1000, m)
+        tagged = rng.random(n + 1) >= 1 / 16
+        tagged[0] = False
+        self.ages = {int(v): int(a) for v, a in zip(
+            np.nonzero(tagged)[0], rng.integers(0, 100, int(tagged.sum())))}
+        self.live = {}
+        self.adj = {}
+        self.added = []
+        self.lock = threading.Lock()
+        t0 = time.perf_counter()
+        chunk = 1 << 16
+        for lo in range(0, m, chunk):
+            self.write_edges([(int(s), int(d), 0, int(x)) for s, d, x in
+                              zip(src[lo:lo + chunk], dst[lo:lo + chunk],
+                                  w[lo:lo + chunk])])
+        self.write_ages(list(self.ages.items()))
+        self.added.clear()
+        self.load_s = time.perf_counter() - t0
+        self.out_deg = np.bincount(src, minlength=n + 1)
+
+    def _part(self, vid: int) -> int:
+        return (vid & 0xFFFFFFFFFFFFFFFF) % WRITE_PARTS + 1
+
+    def write_edges(self, edges, both: bool = True) -> None:
+        """One AddEdges request: (src, dst, rank, w) each, the reverse
+        row too unless ``both`` is False."""
+        parts = {}
+        for s, d, r, w in edges:
+            row = self.encode(self.e, {"w": w})
+            for a, sgn, b in ((s, 1, d), (d, -1, s))[:2 if both else 1]:
+                parts.setdefault(self._part(a), []).append(
+                    {"src": a, "etype": sgn * WRITE_ET, "rank": r,
+                     "dst": b, "props": row})
+        self.add_e.process({"space_id": WRITE_SPACE, "parts": parts})
+        with self.lock:
+            for s, d, r, w in edges:
+                if (s, d, r) not in self.live:
+                    nb = self.adj.setdefault(s, {})
+                    nb[d] = nb.get(d, 0) + 1
+                    self.added.append((s, d))
+                self.live[(s, d, r)] = w
+
+    def delete_edges(self, keys) -> None:
+        parts = {}
+        for s, d, r in keys:
+            for a, sgn, b in ((s, 1, d), (d, -1, s)):
+                parts.setdefault(self._part(a), []).append(
+                    [a, sgn * WRITE_ET, r, b])
+        self.dele.delete_edges({"space_id": WRITE_SPACE, "parts": parts})
+        with self.lock:
+            for k in keys:
+                if k in self.live:
+                    del self.live[k]
+                    nb = self.adj[k[0]]
+                    nb[k[1]] -= 1
+                    if not nb[k[1]]:
+                        del nb[k[1]]
+
+    def reach2(self, s: int) -> set:
+        """The dsts of ``GO 1 TO 2 STEPS FROM s`` over the live edges
+        (call under ``lock``)."""
+        hop1 = set(self.adj.get(s, ()))
+        return hop1.union(*(self.adj.get(x, ()) for x in hop1))
+
+    def write_ages(self, pairs) -> None:
+        parts = {}
+        for v, a in pairs:
+            parts.setdefault(self._part(v), []).append(
+                {"id": v, "tags": [[WRITE_TAG,
+                                    self.encode(self.person, {"age": a})]]})
+        self.add_v.process({"space_id": WRITE_SPACE, "parts": parts})
+        with self.lock:
+            self.ages.update(dict(pairs))
+
+    def oracle(self) -> WriteOracle:
+        with self.lock:
+            return WriteOracle(dict(self.live))
+
+
+def write_blobs():
+    """Encoded trees of the [write] phase's reads."""
+    from nebula_tpu_torch.filter.expressions import _from_wire, encode_expr
+    enc = lambda w: encode_expr(_from_wire(w))      # noqa: E731
+    return dict(
+        ydst=[(enc(["e_dst", "e"]), None)],
+        yw=[(enc(["e_dst", "e"]), None), (enc(E_ + ["w"]), None)],
+        w_ge0=enc(["rel", ">=", E_ + ["w"], ["lit", 0]]),
+        w_gt=lambda k: enc(["rel", ">", E_ + ["w"], ["lit", int(k)]]),
+        age_eq=lambda a: enc(["rel", "==", ["src", "person", "age"],
+                              ["lit", int(a)]]))
+
+
+def _slot_multiset(m, ix) -> np.ndarray:
+    """Every filled ELL slot as (owner vid, slot vid, etype), sorted."""
+    row0 = 0
+    parts = []
+    for nbr, et in zip(ix.bucket_nbr, ix.bucket_et):
+        rows = np.arange(row0, row0 + nbr.shape[0])
+        row0 += nbr.shape[0]
+        owner = np.where(rows < ix.n, rows, 0)
+        extra = rows >= ix.n
+        owner[extra] = ix.extra_owner[rows[extra] - ix.n]
+        r, c = np.nonzero(nbr != ix.n_rows)
+        keep = owner[r] < ix.n
+        r, c = r[keep], c[keep]
+        parts.append(np.stack([m.vids[ix.inv[owner[r]]],
+                               m.vids[ix.inv[nbr[r, c]]],
+                               et[r, c].astype(np.int64)], axis=1))
+    a = np.concatenate(parts)
+    return a[np.lexsort((a[:, 2], a[:, 1], a[:, 0]))]
+
+
+def write_phase(torch, ell_ops, n: int, m: int, seconds: float,
+                readers: int, seed: int, device=None) -> dict:
+    """The write path, counted (see the module docstring, phase 10);
+    ``device`` is the runtime's (None: the card)."""
+    from nebula_tpu_torch.common import protocol
+    from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
+    out = {}
+    t0 = time.perf_counter()
+    ws = WriteSpace(n, m, seed)
+    out["load_s"] = ws.load_s
+    out["stored_edge_rows"] = 2 * len(ws.live)
+    rt = TorchQueryRuntime(stores=[ws.store], schema_man=ws.sm,
+                           device=device)
+    blobs = write_blobs()
+    S, E, A = WRITE_SPACE, WRITE_ET, {WRITE_ET: "e"}
+
+    def go_w(start, steps, et=E, where=None):
+        return rt.serve_go(S, [start], [et], steps, {et: "e"},
+                           where_blob=where or blobs["w_ge0"],
+                           yield_specs=blobs["yw"])
+    try:
+        t1 = time.perf_counter()
+        m0 = rt.mirror(S)
+        out["fold_s"] = time.perf_counter() - t1
+        out["mirror"] = dict(n=m0.n, m=m0.m)
+        # warm every route (ELL, tables, programs) outside the window
+        rt.serve_go(S, [1], [E], 2, A, yield_specs=blobs["ydst"])
+        rt.serve_go(S, [1], [E], 2, A, yield_specs=blobs["ydst"],
+                    reduce=("count",))
+        go_w(1, 2, where=blobs["w_gt"](500))
+        go_w(1, 1, et=-E)
+        rt.serve_find_path(S, [1], [2], [E], 5, True, {E: "e"})
+        torch.cuda.synchronize()
+        out["warm_s"] = time.perf_counter() - t1 - out["fold_s"]
+        ix = rt.ell(m0)
+        filled, width = _row_fill(ix)
+        ecnt, _e0 = ix.hub_expansion()
+        room_new = np.where(ecnt[:ix.n] == 0,
+                            width[:ix.n] - filled[:ix.n], 0)
+        room = room_new[ix.perm]                      # by old dense id
+        cands = [int(v) for v in m0.vids[np.nonzero(room >= 4)[0]]]
+        rng_c = np.random.default_rng(seed + 43)
+        rng_c.shuffle(cands)
+        aged = [v for v in sorted(ws.ages) if ws.out_deg[v] > 0]
+
+        stop = [time.perf_counter() + seconds]
+        errors, lat_w, lat_r, ryw, ryw_cont = [], [], [], [0], [0]
+        op_seq = [10_000]
+        glock = threading.Lock()
+
+        def check_ryw(kind, key, w_old, w_new):
+            s, d, _r = key
+            fwd = {tuple(r) for r in go_w(s, 1)[1]}
+            rev = {tuple(r) for r in go_w(d, 1, et=-E)[1]}
+            if kind == "delete":
+                bad = (d, w_old) in fwd or (s, w_old) in rev
+            else:
+                bad = (d, w_new) not in fwd or (s, w_new) not in rev \
+                    or (w_old is not None and ((d, w_old) in fwd
+                                               or (s, w_old) in rev))
+            if bad:
+                raise AssertionError(f"{kind} {key} w {w_old}->{w_new} "
+                                     f"not visible after its ack")
+
+        def check_continuous(kind, key):
+            """Read-your-writes on the continuous tier: ``GO 1 TO 2 STEPS
+            FROM src YIELD e._dst`` holds dst after an insert or an
+            update; after a delete it holds dst only if dst is within
+            two hops of src over the live edges at the query's admission
+            or over an edge added while it ran (from src or to dst)."""
+            s, d, _r = key
+            with ws.lock:
+                p0 = len(ws.added)
+                reach = ws.reach2(s) if kind == "delete" else None
+            got = {r[0] for r in rt.serve_go(S, [s], [E], 2, A, upto=True,
+                                             yield_specs=blobs["ydst"])[1]}
+            if kind != "delete":
+                bad = d not in got
+            else:
+                with ws.lock:
+                    racing = any(a == s or b == d for a, b in ws.added[p0:])
+                bad = d in got and d not in reach and not racing
+            if bad:
+                raise AssertionError(f"continuous GO UPTO 2 FROM {s}: "
+                                     f"{kind} {key} not visible after its "
+                                     f"ack")
+            ryw_cont[0] += 1
+
+        def writer(wid):
+            wrng = np.random.default_rng(seed + 100 + wid)
+            mine = {}                         # key -> w, insertion order
+            cursor = wid * max(1, len(cands) // 2)
+            i = 0
+            while time.perf_counter() < stop[0]:
+                i += 1
+                with glock:
+                    op_seq[0] += 1
+                    w = op_seq[0]
+                t0 = time.perf_counter()
+                if i % 16 == 0:
+                    v = aged[int(wrng.integers(0, len(aged)))]
+                    a = (ws.ages[v] + 1 + int(wrng.integers(0, 98))) % 100
+                    ws.write_ages([(v, a)])
+                    lat_w.append(time.perf_counter() - t0)
+                    rows = rt.serve_go(S, [v], [E], 1, A,
+                                       where_blob=blobs["age_eq"](a),
+                                       yield_specs=blobs["ydst"])[1]
+                    if not rows:
+                        raise AssertionError(f"age {a} of {v} not visible "
+                                             f"after its ack")
+                    ryw[0] += 1
+                    continue
+                roll = wrng.random()
+                if mine and (len(mine) >= 1024 or roll < 0.25):
+                    kind = "delete" if len(mine) >= 1024 \
+                        or roll < 0.125 else "update"
+                elif roll < 0.45 and mine:
+                    kind = "update"
+                else:
+                    kind = "insert"
+                if kind == "delete":
+                    key = next(iter(mine))            # FIFO: the oldest
+                    w_old = mine.pop(key)
+                    ws.delete_edges([key])
+                    w_new = None
+                elif kind == "update":
+                    keys = list(mine)
+                    key = keys[int(wrng.integers(0, len(keys)))]
+                    w_old = mine[key]
+                    mine[key] = w
+                    ws.write_edges([key + (w,)])
+                    w_new = w
+                else:
+                    cursor += 1
+                    s = cands[cursor % len(cands)]
+                    d = cands[(cursor * 7 + 3) % len(cands)]
+                    key = (s, d, w)
+                    mine[key] = w
+                    ws.write_edges([key + (w,)])
+                    w_old, w_new = None, w
+                lat_w.append(time.perf_counter() - t0)
+                check_ryw(kind, key, w_old, w_new)
+                check_continuous(kind, key)
+                ryw[0] += 1
+
+        def reader(rid):
+            rrng = np.random.default_rng(seed + 200 + rid)
+            i = rid
+            while time.perf_counter() < stop[0]:
+                r = i % 16
+                i += readers
+                v = int(rrng.integers(1, n + 1))
+                steps = int(rrng.integers(1, 4))
+                t0 = time.perf_counter()
+                if r == 0:
+                    rt.serve_find_path(S, [v], [int(rrng.integers(1, n + 1))],
+                                       [E], 5, True, {E: "e"})
+                elif r in (1, 9):
+                    go_w(v, steps, where=blobs["w_gt"](
+                        rrng.integers(0, 1000)))
+                else:
+                    rt.serve_go(S, [v], [E], steps, A,
+                                yield_specs=blobs["ydst"],
+                                reduce=("count",) if r in (2, 6, 10, 14)
+                                else None)
+                lat_r.append(time.perf_counter() - t0)
+
+        def guard(fn, k):
+            try:
+                fn(k)
+            except Exception as ex:        # noqa: BLE001 — raised below
+                errors.append(f"{fn.__name__} {k}: {ex!r}")
+                stop[0] = 0.0
+
+        def stream_stats():
+            return {k: sum(st.stats[k] for st in rt.continuous.streams())
+                    for k in ("anchors", "drains")}
+
+        st0 = dict(rt.stats)
+        ss0 = stream_stats()
+        gen0 = rt.mirror(S).generation
+        ell_ops.reset_launches()
+        pool = [threading.Thread(target=guard, args=(writer, k))
+                for k in range(2)]
+        pool += [threading.Thread(target=guard, args=(reader, k))
+                 for k in range(readers)]
+        t_w = time.perf_counter()
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+        wall = time.perf_counter() - t_w
+        launches = dict(ell_ops.LAUNCHES)
+        if errors:
+            raise AssertionError(f"{len(errors)} write-phase failures: "
+                                 f"{errors[:3]}")
+        m1 = rt.mirror(S)
+        st = {k: rt.stats[k] - st0[k] for k in
+              ("mirror_builds", "mirror_absorbs", "mirror_deltas",
+               "mirror_absorb_failed", "mirror_delta_overflow",
+               "mirror_slot_grows", "t_absorb_s", "t_absorb_splice_s",
+               "t_absorb_ell_s")}
+        walls = np.asarray(list(rt.absorb_wall_s)[-st["mirror_deltas"]:]
+                           if st["mirror_deltas"] else [0.0])
+        if st["mirror_builds"] != 0 or st["mirror_delta_overflow"] != 0 \
+                or st["mirror_absorbs"] <= 0:
+            raise AssertionError(f"the steady window rebuilt or absorbed "
+                                 f"nothing: {st}")
+        stream = {k: v - ss0[k] for k, v in stream_stats().items()}
+        if stream["anchors"] < 1:
+            raise AssertionError(f"the continuous stream never re-anchored "
+                                 f"on a new generation: {stream}")
+        require_launched(launches, "write")
+        out.update(
+            window_s=wall, writes_acked=len(lat_w),
+            writes_per_s=len(lat_w) / wall, ryw_checked=ryw[0],
+            ryw_continuous_checked=ryw_cont[0],
+            stream=stream,
+            write_p50_ms=float(np.percentile(lat_w, 50) * 1e3),
+            reads=len(lat_r), reader_qps=len(lat_r) / wall,
+            reader_p50_ms=float(np.percentile(lat_r, 50) * 1e3),
+            reader_p99_ms=float(np.percentile(lat_r, 99) * 1e3),
+            absorb_windows=st["mirror_deltas"],
+            absorb_p50_ms=float(np.percentile(walls, 50) * 1e3),
+            absorb_p99_ms=float(np.percentile(walls, 99) * 1e3),
+            generations=int(m1.generation - gen0), counters=st,
+            launches=launches)
+
+        # ---- 64 queries against the oracle, then the rebuild oracle
+        def answers(qs):
+            got = []
+            for v, steps, kind, k in qs:
+                if kind == "fused":
+                    rows = go_w(v, steps, where=blobs["w_gt"](k))[1]
+                    got.append(sorted(tuple(r) for r in rows))
+                else:
+                    rows = rt.serve_go(S, [v], [E], steps, A,
+                                       yield_specs=blobs["ydst"],
+                                       reduce=("count",) if kind == "count"
+                                       else None)[1]
+                    got.append(rows if kind == "count"
+                               else sorted(r[0] for r in rows))
+            return got
+
+        def oracle_check(qs, got, label):
+            orc = ws.oracle()
+            for (v, steps, kind, k), g in zip(qs, got):
+                rows = orc.rows([v], steps)
+                if kind == "fused":
+                    want = sorted(tuple(int(x) for x in r)
+                                  for r in rows if r[1] > k)
+                elif kind == "count":
+                    want = [[len(rows)]]
+                else:
+                    want = sorted(int(x) for x in rows[:, 0])
+                if g != want:
+                    raise AssertionError(f"{label}: GO {steps} STEPS FROM "
+                                         f"{v} ({kind}) differs from the "
+                                         f"oracle")
+
+        qrng = np.random.default_rng(seed + 300)
+        touched = [k[0] for k in list(ws.live)[-256:]]
+
+        def queries(count):
+            qs = []
+            for j in range(count):
+                v = int(touched[j % len(touched)]) if j % 2 \
+                    else int(qrng.integers(1, n + 1))
+                kind = ("plain", "count", "fused", "plain")[j % 4]
+                qs.append((v, int(qrng.integers(1, 4)), kind,
+                           int(qrng.integers(0, 1000))))
+            return qs
+        qs = queries(64)
+        got = answers(qs)
+        oracle_check(qs, got, "after the window")
+        ix_a = rt.ell(m1)
+        slots_a = _slot_multiset(m1, ix_a)
+        t2 = time.perf_counter()
+        with rt._lock:
+            rt.mirrors.clear()
+        m2 = rt.mirror(S)
+        out["rebuild_fold_s"] = time.perf_counter() - t2
+        if answers(qs) != got:
+            raise AssertionError("the rebuilt mirror answers differently")
+        if not np.array_equal(_slot_multiset(m2, rt.ell(m2)), slots_a):
+            raise AssertionError("the rebuilt ELL holds other slots")
+        out["oracle_checked"] = len(qs)
+
+        # ---- forced windows
+        forced = {}
+
+        def forced_window(label, write, reason, **delta):
+            base = dict(rt.stats)
+            write()
+            qs = queries(16)
+            oracle_check(qs, answers(qs), label)
+            got_d = {k: rt.stats[k] - base[k] for k in delta}
+            if got_d != delta or rt.last_absorb_reason != reason:
+                raise AssertionError(f"{label}: {got_d} "
+                                     f"{rt.last_absorb_reason}, expected "
+                                     f"{delta} {reason}")
+            forced[label] = dict(got_d, reason=reason)
+
+        ix2 = rt.ell(m2)
+        filled, width = _row_fill(ix2)
+        ecnt, _e0 = ix2.hub_expansion()
+        nonhub = np.zeros(ix2.n, bool)
+        nonhub[:] = ecnt[:ix2.n] == 0
+        full_new = np.nonzero(nonhub & (filled[:ix2.n] == width[:ix2.n])
+                              & (width[:ix2.n] < ix2.bucket_D[-1]))[0]
+        free_new = np.nonzero(nonhub & (filled[:ix2.n]
+                                        < width[:ix2.n]))[0]
+        v = int(m2.vids[ix2.inv[full_new[0]]])
+        us = [int(m2.vids[ix2.inv[r]]) for r in free_new[:3]]
+        forced_window("growth", lambda: ws.write_edges(
+            [(u, v, 7, 5000 + j) for j, u in enumerate(us)]),
+            protocol.ABSORBED, mirror_slot_grows=1, mirror_builds=0)
+        burst = [(cands[j % len(cands)], cands[(3 * j + 1) % len(cands)],
+                  20 + j, 6000 + j) for j in range(2048)]
+        forced_window("overflow_4097", lambda: (
+            ws.write_edges(burst), ws.write_edges(
+                [(cands[0], cands[1], 19, 9999)], both=False)),
+            protocol.ABSORB_DELTA_OVERFLOW, mirror_delta_overflow=1,
+            mirror_builds=1)
+        forced_window("new_vertex", lambda: ws.write_edges(
+            [(1, n + 1000, 0, 1)]), protocol.ABSORB_VERTEX_PLAN_CHANGE,
+            mirror_builds=1)
+        out["forced"] = forced
+        out["phase_s"] = time.perf_counter() - t0
+        return out
+    finally:
+        rt.close()
+
+
 # ========================================================= --profile
 def profile_phase(torch, run) -> dict:
     """``run() -> (requests, wall seconds)`` under torch.profiler (CPU +
@@ -2152,6 +2913,11 @@ def main(argv=None) -> int:
     ap.add_argument("--adaptive-requests", type=int, default=256)
     ap.add_argument("--fused-requests", type=int, default=512)
     ap.add_argument("--fused-threads", type=int, default=16)
+    ap.add_argument("--write-vertices", type=int, default=1 << 17)
+    ap.add_argument("--write-edges", type=int, default=1 << 19,
+                    help="forward edges of the [write] space (each "
+                         "stored in both directions)")
+    ap.add_argument("--write-seconds", type=float, default=20.0)
     args = ap.parse_args(argv)
 
     import torch
@@ -2252,6 +3018,12 @@ def main(argv=None) -> int:
                   "edge_bfs_level"):
             log(f"[kernel] {k} equal=True " + json.dumps(edge_rows[k]))
         log(f"[kernel] edge-list phase {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        absorb_rows = absorb_kernel_phase(torch, ell_ops, rt, m, ix,
+                                          tables, rng)
+        log("[kernel] ell_absorb equal=True inputs_unchanged=True "
+            + json.dumps(absorb_rows["ell_absorb"]))
+        log(f"[kernel] absorb phase {time.perf_counter() - t0:.2f} s")
 
         # ---- 4. serve (continuous)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,
@@ -2306,7 +3078,17 @@ def main(argv=None) -> int:
     finally:
         rt.close()
 
-    # ---- 9. kernels line: the serve rung's numbers (B=128, W=16),
+    # ---- 10. write (a store-backed space written while it is read)
+    t0 = time.perf_counter()
+    write = write_phase(torch, ell_ops, args.write_vertices,
+                        args.write_edges, args.write_seconds,
+                        WRITE_READERS, args.seed)
+    log("[write] " + json.dumps(write))
+    log(f"[write] phase {time.perf_counter() - t0:.2f} s")
+    log("[compare] reader qps while writing vs [serve]: " + json.dumps(
+        [write["reader_qps"], serve["qps"]]))
+
+    # ---- 11. kernels line: the serve rung's numbers (B=128, W=16),
     # with the W=128 numbers beside them, and for the sparse and
     # adaptive programs and their kernels the runs ROW_FROM names (the
     # programs: c0 256, 3 steps, an 8-query batch; adaptive K 2048, 3
@@ -2314,7 +3096,7 @@ def main(argv=None) -> int:
     phases = {"serve": serve["launches"], "windowed": windowed["launches"],
               "sparse": sparse["launches"],
               "adaptive": adaptive["launches"], "fused": fused["launches"],
-              "path": path["launches"]}
+              "path": path["launches"], "write": write["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -2329,6 +3111,10 @@ def main(argv=None) -> int:
             row.update({a: v[a] for a in keys})
             row.update({a: b for a, b in v.items() if a not in keys})
             row["runtime_path"] = k not in NO_RUNTIME_PATH
+        elif k in absorb_rows:
+            v = absorb_rows[k]
+            row.update({a: v[a] for a in keys})
+            row.update({a: b for a, b in v.items() if a not in keys})
         elif k in per_width[128]:
             v = per_width[128][k]
             row["width_words"] = 16

@@ -190,3 +190,23 @@ flags.define(
     "expr_compile covers the predicate), 'host' (float64 numpy over "
     "the candidate edges on the dispatcher, not ported: such a GO "
     "declines) or 'device' (fuse always; no cross-query batching)")
+
+# the write path's flags (nebula_tpu/kvstore/store.py:53,
+# nebula_tpu/tpu/runtime.py:254-267).  mirror_refresh_mode is not
+# defined: its async rebuild is not ported, so setting it fails
+flags.define(
+    "store_delta_log_cap", 4096,
+    "committed-mutation delta-log entries kept per space (one per "
+    "version bump).  A delta cursor older than the trim point forces "
+    "the mirror onto the rebuild path")
+flags.define(
+    "mirror_delta_max", 4096,
+    "max committed edge events one absorption window folds into the "
+    "resident tables; a burst past this pays the full CSR/ELL rebuild "
+    "instead (counted as mirror_delta_overflow)")
+flags.define(
+    "mirror_absorb", True,
+    "fold committed write deltas into the resident ELL/CSR tables "
+    "device-side as immutable mirror GENERATIONS (the ell_absorb "
+    "kernel): a sustained write stream costs O(delta) per absorption "
+    "instead of O(m) per rebuild.  Off restores rebuild-per-write")

@@ -23,11 +23,19 @@ the hop-tick loop:
     enqueue their lane extraction + clear -> resolve and assemble hop
     k-1's leavers while hop k runs on the card -> wake their waiters
 
+A new mirror generation drains the stream (batch_dispatch.py:488-520,
+:652-718): riders already seated finish on the generation their
+session captured, new arrivals wait, and once the seat map is empty the
+stream re-anchors on the current generation.  Only riders queued
+before a tick's generation check are seated in that tick, so a query
+admitted after generation g publishes never seats on an older session
+(read-your-writes).
+
 Not yet ported (the reference has them): deadline eviction and
-admission shedding, generation drain/re-anchor, widening to the next
-lane rung when the seat map saturates, the flight recorder, tracing
-spans, the live-query registry and the circuit breaker.  A rider that
-finds every lane taken waits in the queue for a lane to free.
+admission shedding, widening to the next lane rung when the seat map
+saturates, the flight recorder, tracing spans, the live-query registry
+and the circuit breaker.  A rider that finds every lane taken waits in
+the queue for a lane to free.
 """
 from __future__ import annotations
 
@@ -123,13 +131,15 @@ class _ContinuousStream:
         self.queue: List[_Rider] = []
         self.seated: Dict[int, _Rider] = {}
         self.ledger: Optional[_LaneLedger] = None
+        self.draining = False           # generation change: no seats
         self.stopping = False
         # counters the tests and the smoke run read (under cond); the
         # t_*_s entries are host seconds the pump spent per phase: the
         # enqueue of each device op, the wait for a cohort's fetch, and
         # its assembly
         self.stats = {"ticks": 0, "joins": 0, "midflight_joins": 0,
-                      "leaves": 0, "lane_reuses": 0, "t_join_s": 0.0,
+                      "leaves": 0, "lane_reuses": 0, "anchors": 0,
+                      "drains": 0, "t_join_s": 0.0,
                       "t_hop_s": 0.0, "t_extract_s": 0.0,
                       "t_clear_s": 0.0, "t_fetch_s": 0.0,
                       "t_assemble_s": 0.0}
@@ -194,6 +204,7 @@ class _ContinuousStream:
             self.queue.clear()
             self.seated.clear()
             self.ledger = None
+            self.draining = False
             for r in riders:
                 if r.error is None and r.result is None:
                     r.error = ex
@@ -201,28 +212,50 @@ class _ContinuousStream:
             self.cond.notify_all()
 
     def _anchor(self) -> None:
-        """Ensure a device session (pump thread, outside the condition:
-        the first anchor builds the ELL index and uploads the tables)."""
-        if self.session is not None:
-            return
+        """Ensure a device session over the CURRENT mirror generation
+        (pump thread, outside the condition: ``mirror()`` may absorb or
+        build, and the first anchor builds the ELL index and uploads
+        the tables).  A generation change while lanes are seated flips
+        ``draining`` instead: the seated riders finish on what they
+        captured, and the stream re-anchors once they have left."""
+        rt = self.sched.runtime
+        sess = self.session
+        if sess is not None:
+            if rt.mirror(self.space_id) is sess.m:
+                with self.cond:
+                    self.draining = False
+                return
+            with self.cond:
+                if self.seated:
+                    if not self.draining:
+                        self.stats["drains"] += 1
+                    self.draining = True
+                    return
+            self.session = None
         with self.cond:
             backlog = len(self.queue)
-        sess = self.sched.runtime.continuous_session(
-            self.space_id, self.et_tuple, min_lanes=backlog)
+        sess = rt.continuous_session(self.space_id, self.et_tuple,
+                                     min_lanes=backlog)
         if sess is None:
             raise ContinuousUnavailable(
                 f"space {self.space_id} cannot ride continuous dispatch")
         self.session = sess
         with self.cond:
+            self.draining = False
             self.ledger = _LaneLedger(sess.B)
             self._used_lanes = set()
+            self.stats["anchors"] += 1
 
     def _tick(self, pending):
         """One hop tick; returns this tick's leave cohort (or None).
         ``pending`` is the PREVIOUS tick's cohort — it resolves and
         assembles here, after this tick's hop is enqueued."""
         with self.cond:
-            want_seats = bool(self.queue) and not self.stopping
+            # riders present BEFORE this tick's generation check are
+            # the only seatable ones: a later arrival waits for the next
+            # tick's check, so it never seats on an older generation
+            n_eligible = len(self.queue)
+            want_seats = n_eligible > 0 and not self.stopping
         if want_seats:
             try:
                 self._anchor()
@@ -238,10 +271,13 @@ class _ContinuousStream:
         sess = self.session
         joiners: List[_Rider] = []
         with self.cond:
-            if sess is not None and not self.stopping:
+            if sess is not None and not self.draining \
+                    and not self.stopping:
                 # mid-flight: hops are already running for earlier riders
                 was_running = bool(self.seated)
-                while self.queue and self.ledger.free_count() > 0:
+                while self.queue and n_eligible > 0 \
+                        and self.ledger.free_count() > 0:
+                    n_eligible -= 1
                     r = self.queue.pop(0)
                     r.lane = self.ledger.alloc()
                     if r.lane in self._used_lanes:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``load()`` compiles ``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``,
-``csrc/edge_go.cu`` and ``csrc/expr_filter.cu`` with nvcc into
+``csrc/edge_go.cu``, ``csrc/expr_filter.cu`` and ``csrc/ell_absorb.cu``
+with nvcc into
 ``_build_out/libell_lanes.so`` beside this file (a
 directory git ignores) at first use, rebuilding when a source is newer
 than the library, and loads it with ctypes.  Each source compiles to an
@@ -28,7 +29,8 @@ OUT_DIR = os.path.join(HERE, "_build_out")
 SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "sparse_go.cu"),
            os.path.join(CSRC, "edge_go.cu"),
-           os.path.join(CSRC, "expr_filter.cu"))
+           os.path.join(CSRC, "expr_filter.cu"),
+           os.path.join(CSRC, "ell_absorb.cu"))
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -161,13 +163,17 @@ def load() -> ctypes.CDLL:
                                        vp]
         lib.expr_filter.argtypes = [vp, i32, i32, _Slots, vp, vp, i64, vp,
                                     vp]
+        # csrc/ell_absorb.cu (the bucket table by value)
+        from .ell_ops import _AbsorbBuckets
+        lib.ell_absorb.argtypes = [vp, vp, vp, vp, i64, _AbsorbBuckets, vp]
         for fn in (lib.ell_go_hop, lib.ell_lane_join,
                    lib.ell_lane_extract, lib.ell_lane_clear,
                    lib.ell_frontier_upload, lib.ell_go_count,
                    lib.ell_bfs_level, lib.ell_bfs_depth_i8, lib.sg_expand,
                    lib.sg_compact, lib.sg_reduce, lib.ad_switch,
                    lib.ad_bitmap_lanes, lib.edge_seed, lib.edge_hop,
-                   lib.edge_final, lib.edge_bfs_level, lib.expr_filter):
+                   lib.edge_final, lib.edge_bfs_level, lib.expr_filter,
+                   lib.ell_absorb):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib

@@ -1,25 +1,59 @@
 """Per-space CSR mirror — the counterpart of ``nebula_tpu/tpu/csr.py``.
 
-The reference folds the mirror from the KV store (``build_mirror``).
-The port has no KV layer yet, so ``mirror_from_edges`` builds the same
-arrays from an edge list (with optional edge and vertex property
-columns), and ``mirror_from_reference`` takes them as the reference
-computed them, property columns included.
+``build_mirror`` folds a space's KV parts into a ``CsrMirror`` with the
+reference's per-row builder (``_build_mirror_slow``, ``csr.py:751-933``;
+the vectorized bulk builder waits for a later slice).  The write path's
+host half follows it: ``build_delta_mirror`` folds a window of
+committed edge events into an overlay, ``absorb_overlay`` splices it
+into the next generation's CSR (``_merge_edge_cols`` and
+``_refinalize_numeric`` for the columns), and ``plan_vertex_events`` /
+``commit_vertex_plan`` apply vertex-row writes in place, values first
+and valid bits last (``csr.py:247-725``).
 
-Property columns (``Column``, a copy of ``csr.py:70-210`` less the
-write path's ``absorb_form``) are re-encoded into order-preserving
-device spaces as the reference does: strings become codes into a
-sorted per-column dictionary, int columns int32 when the value range
-fits, else float32 when exactly representable, else the column is
-marked uncompilable and a WHERE touching it declines.
+``mirror_from_edges`` builds the same arrays from an edge list (with
+optional edge and vertex property columns), and
+``mirror_from_reference`` takes them as the reference computed them,
+property columns included.
+
+Property columns (``Column``, ``csr.py:70-210``) are re-encoded into
+order-preserving device spaces as the reference does: strings become
+codes into a sorted per-column dictionary, int columns int32 when the
+value range fits, else float32 when exactly representable, else the
+column is marked uncompilable and a WHERE touching it declines.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-from ..interface.common import SupportedType
+from ..codec.rows import RowReader
+from ..common.clock import now_s
+from ..common.keys import KeyUtils
+from ..interface.common import Schema, SupportedType
+
+
+def _now_s() -> float:
+    return now_s()
+
+
+_NO_ABSORB = object()   # Column.absorb_form: "this write needs a rebuild"
+
+
+def _ttl_expiry(reader: RowReader):
+    """Absolute expiry time (seconds) of a row under its schema's TTL, or
+    None when the schema has no TTL / the column is unusable
+    (``csr.py:52``)."""
+    prop = reader.schema.schema_prop
+    if not prop.ttl_col or not prop.ttl_duration:
+        return None
+    try:
+        base = reader.get(prop.ttl_col)
+    except KeyError:
+        return None
+    if not isinstance(base, (int, float)) or isinstance(base, bool):
+        return None
+    return base + prop.ttl_duration
 
 
 class _DictRaw:
@@ -122,6 +156,46 @@ class Column:
                 self._int32_ok = True
         return self._int32_ok
 
+    def absorb_form(self, v):
+        """The storable form of an in-place write of ``v`` to this
+        column, or _NO_ABSORB when the write would change how the
+        device represents the column (the single source of the same
+        int32/float32 rules device_values serves by — keep in sync):
+
+          * strings: only values already in the dictionary (growing it
+            re-encodes every row's code, torn for racing readers) —
+            returns (raw, code);
+          * int64 on the int32 path: v must fit int32;
+          * int64 on the float32-exact path / float64: v must
+            round-trip through float32, or device and CPU comparisons
+            diverge at the boundary."""
+        if self.stype == SupportedType.STRING:
+            if self.dictionary is None:
+                return _NO_ABSORB
+            s = v if isinstance(v, str) else str(v)
+            pos = int(np.searchsorted(self.dictionary, s))
+            if pos >= len(self.dictionary) \
+                    or str(self.dictionary[pos]) != s:
+                return _NO_ABSORB       # new string: dictionary grows
+            return (s, pos)
+        try:
+            if self.values.dtype == np.int64 and self.device_ok:
+                if self._is_int32_representable():
+                    if not (-2**31 < int(v) < 2**31):
+                        return _NO_ABSORB
+                elif int(np.int64(np.float32(v))) != int(v):
+                    return _NO_ABSORB
+            if self.values.dtype == np.float64 and self.device_ok:
+                if float(np.float64(np.float32(v))) != float(v):
+                    return _NO_ABSORB
+        except (OverflowError, ValueError):
+            # e.g. int64-max values where np.float32 rounds UP to 2^63
+            # and the int64() round-trip overflows (raises on NumPy 2):
+            # any conversion failure means "can't absorb", never an
+            # exception escaping into the live query's mirror() call
+            return _NO_ABSORB
+        return v
+
     def host_value(self, i: int):
         """Python value at row i (for result rows)."""
         if self.stype == SupportedType.STRING:
@@ -161,6 +235,16 @@ class CsrMirror:
         self.vertex_cols: Dict[Tuple[int, str], Column] = {}
         self.has_tag: Dict[int, np.ndarray] = {}
         self.build_version = -1
+        # earliest future TTL expiry among mirrored rows (seconds), or
+        # None; the runtime rebuilds once it passes
+        self.expires_at_s = None
+
+    def note_expiry(self, exp_s: float) -> None:
+        if self.expires_at_s is None or exp_s < self.expires_at_s:
+            self.expires_at_s = exp_s
+
+    def expired_now(self) -> bool:
+        return self.expires_at_s is not None and _now_s() >= self.expires_at_s
 
     # ---- lookups -----------------------------------------------------
     def to_dense(self, vids) -> np.ndarray:
@@ -380,3 +464,650 @@ def mirror_from_reference(arrays: Mapping[str, np.ndarray],
             raise ValueError(f"vertex column {key} has {len(c.valid)} "
                              f"rows, not {m.n}")
     return m
+
+
+def iter_leader_parts(space_id: int, stores):
+    """Yield (store, part_id) for every part this scan must fold: parts
+    sorted per store, leaders only, first claiming store wins (a stale
+    leadership claim mid-transfer must not fold a part twice).  The
+    SINGLE source of the part-selection rule shared by the per-row and
+    bulk mirror builders — their bit-identical contract depends on
+    scanning the same part set."""
+    folded: set = set()
+    for store in stores:
+        for part in sorted(store.part_ids(space_id)):
+            if part in folded:
+                continue
+            p = store.part(space_id, part)
+            if p is None or not p.is_leader():
+                continue
+            folded.add(part)
+            yield store, part
+
+
+def _scatter_bool(src: np.ndarray, remap: np.ndarray,
+                  n: int) -> np.ndarray:
+    out = np.zeros(n, dtype=bool)
+    out[remap] = src
+    return out
+
+
+def _base_edge_index(base: CsrMirror, src_d: int, et: int, rank: int,
+                     dst_d: int) -> int:
+    """Base edge row for one identity, or -1.  Row slices are tiny
+    (one vertex's out-edges), so the linear probe is fine at delta
+    scale."""
+    lo, hi = int(base.row_ptr[src_d]), int(base.row_ptr[src_d + 1])
+    for e in range(lo, hi):
+        if int(base.edge_etype[e]) == et \
+                and int(base.edge_rank[e]) == rank \
+                and int(base.edge_dst[e]) == dst_d:
+            return e
+    return -1
+
+
+def build_delta_mirror(base: CsrMirror, events, schema_man,
+                       space_id: int) -> Optional[CsrMirror]:
+    """Fold committed edge mutation EVENTS into a small overlay mirror
+    over ``base`` (SURVEY §7 hard part (a): mutations without the O(m)
+    rebuild).  Events are the store's typed delta stream
+    (kvstore/store.py delta_since): ("put", key, value) inserts AND
+    in-place updates, ("del", identity32) whole-edge deletes.
+
+    The overlay carries, beyond its own appended rows:
+      * ``base_dead``   — sorted base edge rows superseded by an update
+                          or killed by a delete (candidate assembly
+                          excludes them);
+      * ``extra_vids``  — endpoint vids the base doesn't know (the
+                          overlay's dense space grows to the sorted
+                          union; ``remap_from_base`` translates base
+                          dense ids);
+      * ``has_deletes`` — a base edge died with no same-identity
+                          replacement, which changes reachability: the
+                          runtime must not run multi-hop frontier
+                          advances over the base ELL then (it forces
+                          the rebuild for those queries only).
+
+    Returns None — full rebuild — for TTL'd rows and unresolvable
+    schemas.  Same-identity overwrite ordering assumes the forward
+    wall clock that inverted-timestamp versioning itself relies on.
+    """
+    sm = schema_man
+    # collapse in commit order: the last event per edge identity wins
+    # (vertex events are applied in place by plan_vertex_events + commit_vertex_plan, not
+    # through the edge overlay)
+    final: Dict[Tuple[int, int, int, int], Optional[bytes]] = {}
+    for ev in events:
+        if ev[0] == "vput":
+            continue
+        if ev[0] == "put":
+            _part, src, et, rank, dst, _ver = KeyUtils.parse_edge(ev[1])
+            final[(src, et, rank, dst)] = ev[2]
+        else:       # ("del", identity32): all versions of one edge
+            _part, src, et, rank, dst, _ = KeyUtils.parse_edge(
+                ev[1] + b"\x00" * 8)     # pad the absent version field
+            final[(src, et, rank, dst)] = None
+
+    puts = {k: v for k, v in final.items() if v is not None}
+    dels = [k for k, v in final.items() if v is None]
+
+    # ---- extended dense vid space (new endpoint vids) ----------------
+    put_idents = list(puts.keys())
+    src_vids = np.asarray([i[0] for i in put_idents], dtype=np.int64)
+    dst_vids = np.asarray([i[3] for i in put_idents], dtype=np.int64)
+    known_src = base.to_dense(src_vids)
+    known_dst = base.to_dense(dst_vids)
+    extra = np.unique(np.concatenate([
+        src_vids[known_src < 0] if len(put_idents) else
+        np.zeros(0, np.int64),
+        dst_vids[known_dst < 0] if len(put_idents) else
+        np.zeros(0, np.int64)]))
+
+    d = CsrMirror(space_id)
+    d.base_dead = np.zeros(0, dtype=np.int64)
+    d.extra_vids = extra
+    d.remap_from_base = None
+    d.has_deletes = False
+    if len(extra) == 0:
+        d.vids = base.vids             # shared dense-id space
+        d.n = base.n
+        d.vertex_cols = base.vertex_cols   # vertex side unchanged by
+        d.has_tag = base.has_tag           # edge mutations
+    else:
+        # re-seat the shared vertex side in the grown dense space.
+        # Vectorized scatters only (no per-row Python, no re-encode:
+        # dictionaries and device_ok carry over — added rows are
+        # invalid, never read), and cached on the base keyed by the
+        # extra set: absorptions repeat over the accumulated event
+        # list, and this runs under the runtime lock
+        ext_key = extra.tobytes()
+        cached = getattr(base, "_ext_vertex_cache", None)
+        if cached is not None and cached[0] == ext_key:
+            d.vids, d.n, d.remap_from_base, d.vertex_cols, d.has_tag = \
+                cached[1:]
+        else:
+            d.vids = np.unique(np.concatenate([base.vids, extra]))
+            d.n = len(d.vids)
+            remap = np.searchsorted(d.vids, base.vids).astype(np.int32)
+            d.remap_from_base = remap
+            d.vertex_cols = {}
+            for key, c in base.vertex_cols.items():
+                nc = Column(c.name, c.stype, d.n)
+                nc.valid[remap] = c.valid
+                nc.device_ok = c.device_ok
+                if c.raw is not None:
+                    raw = np.empty(d.n, dtype=object)
+                    raw[:] = ""
+                    raw[remap] = np.asarray(c.raw, dtype=object)
+                    nc.raw = raw
+                    nc.dictionary = c.dictionary
+                    codes = np.zeros(d.n, dtype=np.int32)
+                    codes[remap] = c.values
+                    nc.values = codes
+                else:
+                    nc.values[remap] = c.values
+                d.vertex_cols[key] = nc
+            d.has_tag = {t: _scatter_bool(flags_arr, remap, d.n)
+                         for t, flags_arr in base.has_tag.items()}
+            base._ext_vertex_cache = (ext_key, d.vids, d.n,
+                                      d.remap_from_base, d.vertex_cols,
+                                      d.has_tag)
+
+    # ---- base rows superseded / deleted ------------------------------
+    # (vectorized endpoint translation — known_src/known_dst already
+    # cover the puts; one batch covers the dels.  The per-identity row
+    # probe stays Python but walks only one vertex's slice each.)
+    dead: List[int] = []
+    for i, (src, et, rank, dst) in enumerate(put_idents):
+        sd, dd = int(known_src[i]), int(known_dst[i])
+        if sd < 0 or dd < 0:
+            continue                    # brand-new edge: nothing to kill
+        e = _base_edge_index(base, sd, et, rank, dd)
+        if e >= 0:
+            dead.append(e)              # in-place update: override
+    if dels:
+        del_sd = base.to_dense(
+            np.asarray([k[0] for k in dels], dtype=np.int64))
+        del_dd = base.to_dense(
+            np.asarray([k[3] for k in dels], dtype=np.int64))
+        for i, (src, et, rank, dst) in enumerate(dels):
+            sd, dd = int(del_sd[i]), int(del_dd[i])
+            if sd < 0 or dd < 0:
+                continue                # deleting an unknown edge: no-op
+            e = _base_edge_index(base, sd, et, rank, dd)
+            if e >= 0:
+                dead.append(e)
+                d.has_deletes = True    # reachability changed
+    d.base_dead = np.unique(np.asarray(dead, dtype=np.int64))
+
+    m = len(put_idents)
+    d.m = m
+    if m == 0:
+        d.row_ptr = np.zeros(d.n + 1, dtype=np.int32)
+        return d
+    src_d = d.to_dense(src_vids)
+    dst_d = d.to_dense(dst_vids)
+    etype_a = np.asarray([i[1] for i in put_idents], dtype=np.int32)
+    rank_a = np.asarray([i[2] for i in put_idents], dtype=np.int64)
+    order = np.lexsort((dst_d, rank_a, etype_a, src_d))
+    d.edge_src = src_d[order].astype(np.int32)
+    d.edge_dst = dst_d[order].astype(np.int32)
+    d.edge_etype = etype_a[order]
+    d.edge_rank = rank_a[order]
+
+    cols: Dict[Tuple[int, str], Column] = {}
+    for et in np.unique(d.edge_etype).tolist():
+        schema = sm.get_edge_schema(space_id, abs(et), -1)
+        if schema is None:
+            return None
+        for col in schema.columns:
+            cols[(et, col.name)] = Column(col.name, col.type, m)
+    vals = [puts[put_idents[j]] for j in order]
+    for i, blob in enumerate(vals):
+        if not blob:
+            continue
+        et = int(d.edge_etype[i])
+        try:
+            reader = RowReader.from_resolver(
+                blob, lambda ver, _et=abs(et): sm.get_edge_schema(
+                    space_id, _et, ver))
+        except KeyError:
+            return None
+        if _ttl_expiry(reader) is not None:
+            return None                # TTL rows need the rebuild path
+        for cname in reader.schema.names():
+            c = cols.get((et, cname))
+            if c is None:
+                continue
+            try:
+                v = reader.get(cname)
+            except KeyError:
+                continue
+            if c.raw is not None:
+                c.raw[i] = v if isinstance(v, str) else str(v)
+            else:
+                c.values[i] = v
+            c.valid[i] = True
+    for c in cols.values():
+        c.finalize()
+    d.edge_cols = cols
+    counts = np.bincount(d.edge_src, minlength=d.n)
+    d.row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return d
+
+
+def _refinalize_numeric(c: Column) -> None:
+    """Re-run finalize()'s device-representability decision on a
+    MERGED numeric column: two individually device_ok sides can mix
+    representation classes (base on the float32-exact path, overlay
+    int32-representable but not float32-exact), and the merged column
+    must re-earn its device_ok on the union of values — through the
+    same Column.numeric_device_ok decision a fresh build uses."""
+    c._int32_ok = None
+    if c.device_ok and c.values is not None and len(c.values):
+        c.device_ok = Column.numeric_device_ok(c.values)
+
+
+def _merge_edge_cols(base: CsrMirror, d: CsrMirror, keep: np.ndarray,
+                     order: np.ndarray,
+                     m_new: int) -> Dict[Tuple[int, str], Column]:
+    """Columnar half of absorb_overlay: splice overlay columns into
+    the kept base rows and restore canonical order.  Dictionary-coded
+    strings re-encode through the sorted UNION dictionary when the
+    sides' dictionaries differ (codes stay order-preserving, so
+    compiled comparisons keep translating); rows a side doesn't carry
+    stay invalid."""
+    kept = int(keep.sum())
+    cols: Dict[Tuple[int, str], Column] = {}
+    for key in set(base.edge_cols) | set(d.edge_cols):
+        b = base.edge_cols.get(key)
+        o = d.edge_cols.get(key)
+        ref = b if b is not None else o
+        c = Column.__new__(Column)
+        c.name, c.stype = ref.name, ref.stype
+        c.dictionary = None
+        c.raw = None
+        c._int32_ok = None
+        c.device_ok = (b is None or b.device_ok) \
+            and (o is None or o.device_ok)
+        valid = np.zeros(m_new, dtype=bool)
+        if b is not None:
+            valid[:kept] = b.valid[keep]
+        if o is not None:
+            valid[kept:] = o.valid
+        c.valid = valid[order]
+        if ref.stype == SupportedType.STRING:
+            raw = np.empty(m_new, dtype=object)
+            raw[:] = ""
+            if b is not None and b.raw is not None:
+                raw[:kept] = np.asarray(b.raw, dtype=object)[keep]
+            if o is not None and o.raw is not None:
+                raw[kept:] = np.asarray(o.raw, dtype=object)
+            c.raw = raw[order]
+            dicts = [x.dictionary for x in (b, o)
+                     if x is not None and x.dictionary is not None]
+            same = len(dicts) == 2 and np.array_equal(dicts[0], dicts[1])
+            codes = np.zeros(m_new, np.int32)
+            if len(dicts) <= 1 or same:
+                c.dictionary = dicts[0] if dicts else \
+                    np.zeros(0, dtype=object)
+                if b is not None:
+                    codes[:kept] = b.values[keep]
+                if o is not None:
+                    codes[kept:] = o.values
+            else:
+                union = np.unique(np.concatenate(dicts))
+                c.dictionary = union
+                remap_b = np.searchsorted(union, b.dictionary)
+                codes[:kept] = remap_b[b.values[keep]]
+                remap_o = np.searchsorted(union, o.dictionary)
+                codes[kept:] = remap_o[o.values]
+            c.values = codes[order].astype(np.int32)
+        else:
+            vals = np.zeros(m_new, dtype=ref.values.dtype)
+            if b is not None:
+                vals[:kept] = b.values[keep]
+            if o is not None:
+                vals[kept:] = o.values
+            c.values = vals[order]
+            _refinalize_numeric(c)
+        cols[key] = c
+    return cols
+
+
+def absorb_overlay(base: CsrMirror, d: CsrMirror) -> Optional[CsrMirror]:
+    """Fold an edge overlay (build_delta_mirror) into a NEW CsrMirror
+    — the host-CSR half of incremental delta absorption (the device
+    half is ell.make_ell_absorb_kernel; docs/durability.md "The
+    generation state machine").
+
+    The vertex side (vids / vertex_cols / has_tag) is SHARED with the
+    base: vertex writes commit in place (commit_vertex_plan) under the
+    documented values-first/valid-last bounded-staleness stance.  The
+    edge side is a vectorized splice — base rows minus the overlay's
+    tombstones (base_dead), plus the overlay rows, restored to the
+    canonical (src, etype, rank, dst) scan order every other builder
+    produces — O(m) host memcpy, never a store re-scan.
+
+    Returns None when the overlay grew the dense-id space
+    (extra_vids: a vertex-plan change only the rebuild can serve)."""
+    if len(getattr(d, "extra_vids", ())):
+        return None
+    keep = np.ones(base.m, dtype=bool)
+    dead = getattr(d, "base_dead", None)
+    if dead is not None and len(dead):
+        keep[np.asarray(dead, dtype=np.int64)] = False
+    out = CsrMirror(base.space_id)
+    out.vids, out.n = base.vids, base.n
+    out.vertex_cols = base.vertex_cols
+    out.has_tag = base.has_tag
+    out.expires_at_s = base.expires_at_s
+    src = np.concatenate([base.edge_src[keep], d.edge_src])
+    dst = np.concatenate([base.edge_dst[keep], d.edge_dst])
+    et = np.concatenate([base.edge_etype[keep], d.edge_etype])
+    rank = np.concatenate([base.edge_rank[keep], d.edge_rank])
+    order = np.lexsort((dst, rank, et, src))
+    out.edge_src = src[order].astype(np.int32)
+    out.edge_dst = dst[order].astype(np.int32)
+    out.edge_etype = et[order].astype(np.int32)
+    out.edge_rank = rank[order]
+    out.m = len(out.edge_src)
+    out.edge_cols = _merge_edge_cols(base, d, keep, order, out.m)
+    counts = np.bincount(out.edge_src, minlength=out.n)
+    out.row_ptr = np.concatenate([[0], np.cumsum(counts)]) \
+        .astype(np.int32)
+    return out
+
+
+def plan_vertex_events(base: CsrMirror, events, schema_man,
+                       space_id: int):
+    """Validate committed vertex-row writes ("vput" events) against the
+    base mirror and return an apply plan for commit_vertex_plan — the
+    vertex-side half of incremental maintenance.  NOTHING is mutated
+    here: the caller commits the plan only after every other
+    absorption step has succeeded, so no decline path can expose half
+    of a commit batch.  Returns None ("do the full rebuild") for any
+    write the in-place path can't reproduce exactly:
+
+      * a vid or tag the base doesn't know (dense space / column set
+        would change);
+      * string values NOT already in the column's dictionary (growing
+        or re-sorting a dictionary re-encodes every row's code, which
+        a concurrently evaluating plan would read torn; writing an
+        EXISTING value is a single-element code store, safe like the
+        numeric case — this covers the common re-insert-row-to-update-
+        one-field pattern);
+      * TTL'd schemas (need expiry tracking);
+      * values that break a column's device representability (the
+        compiled plans assume the checked range).
+
+    Numeric single-element stores are effectively atomic on the host;
+    queries racing an absorption see either the old or the new value —
+    the same bounded-staleness window every mirror refresh already has.
+    """
+    sm = schema_man
+    # newest write per (vid, tag) wins (commit order)
+    newest: Dict[Tuple[int, int], bytes] = {}
+    for ev in events:
+        if ev[0] != "vput":
+            continue
+        _part, vid, tag, _ver = KeyUtils.parse_vertex(ev[1])
+        newest[(vid, tag)] = ev[2]
+    plan = []        # (dense, tag, tag_cols, present | None)
+    for (vid, tag), blob in newest.items():
+        dense = int(base.to_dense([vid])[0])
+        if dense < 0 or tag not in base.has_tag:
+            return None
+        tag_cols = {cname: c for (t, cname), c in base.vertex_cols.items()
+                    if t == tag}
+        if not blob:
+            plan.append((dense, tag, tag_cols, None))
+            continue
+        try:
+            reader = RowReader.from_resolver(
+                blob, lambda ver, _t=tag: sm.get_tag_schema(space_id, _t,
+                                                            ver))
+        except KeyError:
+            return None
+        if _ttl_expiry(reader) is not None:
+            return None
+        present: Dict[str, object] = {}
+        for cname in reader.schema.names():
+            c = tag_cols.get(cname)
+            if c is None:
+                return None             # schema drift: rebuild
+            try:
+                present[cname] = reader.get(cname)
+            except KeyError:
+                pass
+        for cname, v in list(present.items()):
+            absorbed = tag_cols[cname].absorb_form(v)
+            if absorbed is _NO_ABSORB:
+                return None
+            present[cname] = absorbed
+        plan.append((dense, tag, tag_cols, present))
+    return plan
+
+
+def commit_vertex_plan(base: CsrMirror, plan) -> None:
+    """Apply a plan_vertex_events plan IN PLACE.  Values first,
+    validity flags LAST: a reader racing the absorption then sees each
+    column as either its old state (stale valid bit) or its new state
+    (fresh value + fresh bit) — never valid=True over a not-yet-written
+    value."""
+    for dense, tag, tag_cols, present in plan:
+        if present is None:
+            # the newest committed row is empty: it REPLACES the old
+            # one, so no column survives (rebuild semantics —
+            # build_mirror's first-wins dedup never reads older rows)
+            for c in tag_cols.values():
+                c.valid[dense] = False
+        else:
+            for cname, v in present.items():
+                c = tag_cols[cname]
+                if c.stype == SupportedType.STRING:
+                    s, code = v
+                    c.raw[dense] = s
+                    c.values[dense] = code
+                else:
+                    c.values[dense] = v
+            for cname, c in tag_cols.items():
+                c.valid[dense] = cname in present
+        base.has_tag[tag][dense] = True
+    # grown-space vertex copies (extras cache) are now stale
+    if plan and getattr(base, "_ext_vertex_cache", None) is not None:
+        base._ext_vertex_cache = None
+
+
+def build_mirror(space_id: int, stores, schema_man) -> CsrMirror:
+    """Scan every part of ``space_id`` across the given stores and fold
+    the KV ranges into a CsrMirror (``csr.py:751``).  The reference
+    first tries its vectorized bulk builder (``csr_bulk.py`` and the
+    native batch codec, not ported); the port always runs the per-row
+    builder, which the reference keeps as the bulk path's oracle."""
+    return _build_mirror_slow(space_id, stores, schema_man)
+
+
+def _build_mirror_slow(space_id: int, stores, schema_man) -> CsrMirror:
+    """The per-row reference builder (see build_mirror)."""
+    sm = schema_man
+    edge_schema_cache: Dict[Tuple[int, int], Optional[Schema]] = {}
+    tag_schema_cache: Dict[Tuple[int, int], Optional[Schema]] = {}
+
+    def edge_schema(etype: int, ver: int) -> Optional[Schema]:
+        key = (etype, ver)
+        if key not in edge_schema_cache:
+            edge_schema_cache[key] = sm.get_edge_schema(
+                space_id, abs(etype), ver)
+        return edge_schema_cache[key]
+
+    def tag_schema(tag_id: int, ver: int) -> Optional[Schema]:
+        key = (tag_id, ver)
+        if key not in tag_schema_cache:
+            tag_schema_cache[key] = sm.get_tag_schema(space_id, tag_id, ver)
+        return tag_schema_cache[key]
+
+    # ---- pass 1: scan KV, dedup multi-version, collect raw tuples ----
+    # keys sort latest-version-first within (rank, dst) / (vid, tag), so
+    # dedup is "first wins" in scan order.
+    edges: List[Tuple[int, int, int, int, bytes]] = []  # src,etype,rank,dst,val
+    verts: List[Tuple[int, int, bytes]] = []            # vid,tag,val
+    seen_edge_prev: Optional[Tuple[int, int, int, int]] = None
+    seen_vert_prev: Optional[Tuple[int, int]] = None
+    for store, part in iter_leader_parts(space_id, stores):
+        seen_edge_prev = seen_vert_prev = None
+        for key, val in store.prefix(space_id, part,
+                                     KeyUtils.part_prefix(part)):
+            if KeyUtils.is_edge(key):
+                _, src, et, rank, dst, _ = KeyUtils.parse_edge(key)
+                ident = (src, et, rank, dst)
+                if ident == seen_edge_prev:
+                    continue          # older version of same edge
+                seen_edge_prev = ident
+                edges.append((src, et, rank, dst, val))
+            elif KeyUtils.is_vertex(key):
+                _, vid, tag, _ = KeyUtils.parse_vertex(key)
+                ident = (vid, tag)
+                if ident == seen_vert_prev:
+                    continue
+                seen_vert_prev = ident
+                verts.append((vid, tag, val))
+
+    mirror = CsrMirror(space_id)
+
+    # ---- dense vertex space ------------------------------------------
+    vid_parts = [np.asarray([v for v, _, _ in verts], dtype=np.int64)]
+    if edges:
+        e_src = np.asarray([e[0] for e in edges], dtype=np.int64)
+        e_dst = np.asarray([e[3] for e in edges], dtype=np.int64)
+        vid_parts += [e_src, e_dst]
+    all_vids = np.concatenate(vid_parts) if vid_parts else \
+        np.zeros(0, dtype=np.int64)
+    mirror.vids = np.unique(all_vids)
+    mirror.n = len(mirror.vids)
+    n = mirror.n
+
+    # ---- edge arrays (sort by (src_dense, etype, rank, dst)) ---------
+    m = len(edges)
+    mirror.m = m
+    if m:
+        src_d = np.searchsorted(mirror.vids, e_src).astype(np.int32)
+        dst_d = np.searchsorted(mirror.vids, e_dst).astype(np.int32)
+        etype_a = np.asarray([e[1] for e in edges], dtype=np.int32)
+        rank_a = np.asarray([e[2] for e in edges], dtype=np.int64)
+        order = np.lexsort((dst_d, rank_a, etype_a, src_d))
+        mirror.edge_src = src_d[order]
+        mirror.edge_dst = dst_d[order]
+        mirror.edge_etype = etype_a[order]
+        mirror.edge_rank = rank_a[order]
+
+        # ---- edge prop columns ---------------------------------------
+        etypes_present = np.unique(mirror.edge_etype)
+        cols: Dict[Tuple[int, str], Column] = {}
+        for et in etypes_present.tolist():
+            schema = edge_schema(et, -1)
+            if schema is None:
+                continue
+            for col in schema.columns:
+                cols[(et, col.name)] = Column(col.name, col.type, m)
+        vals_in_order = [edges[i][4] for i in order]
+        et_in_order = mirror.edge_etype
+        keep = np.ones(m, dtype=bool)
+        for i, blob in enumerate(vals_in_order):
+            et = int(et_in_order[i])
+            if not blob:
+                continue
+            try:
+                reader = RowReader.from_resolver(
+                    blob, lambda ver, _et=et: edge_schema(_et, ver))
+            except KeyError:
+                continue
+            # TTL parity: the CPU read path skips expired rows
+            # (processors._ttl_expired); expired edges must not traverse
+            exp = _ttl_expiry(reader)
+            if exp is not None:
+                if exp < _now_s():
+                    keep[i] = False
+                    continue
+                mirror.note_expiry(exp)
+            for cname in reader.schema.names():
+                c = cols.get((et, cname))
+                if c is None:
+                    continue
+                try:
+                    v = reader.get(cname)
+                except KeyError:
+                    continue
+                if c.raw is not None:
+                    c.raw[i] = v if isinstance(v, str) else str(v)
+                else:
+                    c.values[i] = v
+                c.valid[i] = True
+        if not keep.all():
+            mirror.edge_src = mirror.edge_src[keep]
+            mirror.edge_dst = mirror.edge_dst[keep]
+            mirror.edge_etype = mirror.edge_etype[keep]
+            mirror.edge_rank = mirror.edge_rank[keep]
+            kept_idx = np.nonzero(keep)[0]
+            for c in cols.values():
+                c.valid = c.valid[keep]
+                if c.raw is not None:
+                    c.raw = [c.raw[j] for j in kept_idx]
+                else:
+                    c.values = c.values[keep]
+            m = len(mirror.edge_src)
+            mirror.m = m
+        for c in cols.values():
+            c.finalize()
+        mirror.edge_cols = cols
+        counts = np.bincount(mirror.edge_src, minlength=n)
+        mirror.row_ptr = np.concatenate(
+            [[0], np.cumsum(counts)]).astype(np.int32)
+    else:
+        mirror.row_ptr = np.zeros(n + 1, dtype=np.int32)
+
+    # ---- vertex (tag) prop columns -----------------------------------
+    vcols: Dict[Tuple[int, str], Column] = {}
+    tag_ids = sorted({t for _, t, _ in verts})
+    for t in tag_ids:
+        schema = tag_schema(t, -1)
+        if schema is None:
+            continue
+        for col in schema.columns:
+            vcols[(t, col.name)] = Column(col.name, col.type, n)
+        mirror.has_tag[t] = np.zeros(n, dtype=bool)
+    for vid, t, blob in verts:
+        di = int(np.searchsorted(mirror.vids, np.int64(vid)))
+        if not blob:
+            if t in mirror.has_tag:
+                mirror.has_tag[t][di] = True
+            continue
+        try:
+            reader = RowReader.from_resolver(
+                blob, lambda ver, _t=t: tag_schema(_t, ver))
+        except KeyError:
+            continue
+        exp = _ttl_expiry(reader)
+        if exp is not None:
+            if exp < _now_s():
+                continue    # expired tag row: CPU path treats it as absent
+            mirror.note_expiry(exp)
+        if t in mirror.has_tag:
+            mirror.has_tag[t][di] = True
+        for cname in reader.schema.names():
+            c = vcols.get((t, cname))
+            if c is None:
+                continue
+            try:
+                v = reader.get(cname)
+            except KeyError:
+                continue
+            if c.raw is not None:
+                c.raw[di] = v if isinstance(v, str) else str(v)
+            else:
+                c.values[di] = v
+            c.valid[di] = True
+    for c in vcols.values():
+        c.finalize()
+    mirror.vertex_cols = vcols
+    return mirror

@@ -15,10 +15,15 @@ vertex; a hop OR-merges them into their owner row.
 The numpy ``build`` is the reference's numpy path verbatim (the native
 C++ build path waits for a later slice).  ``device_tables`` lays the
 buckets out flat on a torch device for the kernels in ``ell_ops.py``.
+The write path's host half is the reference's too (``ell.py:809-1008``):
+``plan_ell_absorb`` computes every affected row's replacement content
+(with growth-spare claims), ``apply_ell_absorb_host`` the next
+generation's copy-on-write host index, and ``absorb_update_arrays``
+the padded per-bucket arguments of ``ell_ops.ell_absorb``.
 """
 from __future__ import annotations
 
-from typing import List, Mapping, NamedTuple, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -307,6 +312,201 @@ def _append_growth_spares(ell: EllIndex, slack: int) -> EllIndex:
          np.full(int(slack), new_sent, np.int32)]).astype(np.int32)
     ell.n_rows = int(new_sent)
     return ell
+
+
+def plan_ell_absorb(ell: EllIndex,
+                    ins_dst: np.ndarray, ins_src: np.ndarray,
+                    ins_et: np.ndarray,
+                    del_dst: np.ndarray, del_src: np.ndarray,
+                    del_et: np.ndarray, claims_out: Optional[list] = None):
+    """Replacement-row plan for absorbing overlay edges into ``ell``.
+
+    Inputs are OLD-dense-id edge rows exactly as the CsrMirror stores
+    them (both directions present as separate rows; reverse rides
+    -etype).  Returns {bucket: (local_rows int32[k], nbr [k, D_b],
+    et [k, D_b])} — the full new content of every affected row — or
+    None when any owner's new slot count outgrows its resident
+    capacity (main row + existing extra rows), which only the rebuild
+    can serve.  Work is O(delta x row width): only affected owners'
+    rows are read and rewritten.
+
+    In-place slot growth: when ``claims_out`` is a list and the index
+    holds unclaimed growth spares (EllIndex.build growth_slack), an
+    overflowing owner that is NOT already a hub claims enough spare
+    rows to hold its new degree — ``(spare_index, owner_new_id)``
+    pairs are appended to ``claims_out`` and the plan rewrites the
+    claimed rows like any other.  Narrow by design: existing-vertex
+    slot extension only — hubs (and previously-grown vertices, which
+    look like hubs) and new-vertex ingest still take the rebuild, and
+    claims always consume the LOWEST free spares so the free set stays
+    a contiguous suffix (hub_expansion's contiguity contract)."""
+    import bisect
+    from collections import Counter
+
+    if ell.n == 0:
+        return None if (len(ins_dst) or len(del_dst)) else {}
+    sentinel = np.int32(ell.n_rows)
+    ecnt, e0 = ell.hub_expansion()
+    bstarts: List[int] = []
+    acc = 0
+    for nbr in ell.bucket_nbr:
+        bstarts.append(acc)
+        acc += nbr.shape[0]
+    free_spares: List[int] = []
+    if claims_out is not None and len(ell.extra_owner):
+        free_spares = np.nonzero(
+            ell.extra_owner == np.int32(ell.spare_sentinel()))[0] \
+            .tolist()
+
+    owners: Dict[int, Tuple[Counter, list]] = {}
+
+    def owner_of(dst_old: int):
+        r = int(ell.perm[dst_old])
+        o = owners.get(r)
+        if o is None:
+            o = owners[r] = (Counter(), [])
+        return o
+
+    for i in range(len(ins_dst)):
+        owner_of(int(ins_dst[i]))[1].append(
+            (int(ell.perm[int(ins_src[i])]), int(ins_et[i])))
+    for i in range(len(del_dst)):
+        owner_of(int(del_dst[i]))[0][
+            (int(ell.perm[int(del_src[i])]), int(del_et[i]))] += 1
+
+    upd: Dict[int, Tuple[list, list, list]] = {}
+    for r, (dels_c, ins_l) in owners.items():
+        rows = [r] + list(range(int(e0[r]), int(e0[r]) + int(ecnt[r])))
+        entries: list = []
+        widths: List[Tuple[int, int, int]] = []
+        for row in rows:
+            b = bisect.bisect_right(bstarts, row) - 1
+            local = row - bstarts[b]
+            nbr_row = ell.bucket_nbr[b][local]
+            et_row = ell.bucket_et[b][local]
+            widths.append((b, local, int(nbr_row.shape[0])))
+            fill = nbr_row != sentinel
+            entries.extend(zip(nbr_row[fill].tolist(),
+                               et_row[fill].tolist()))
+        if dels_c:
+            left = Counter(dels_c)
+            kept = []
+            for ent in entries:
+                if left.get(ent, 0) > 0:
+                    left[ent] -= 1
+                else:
+                    kept.append(ent)
+            if any(v > 0 for v in left.values()):
+                # a tombstone names an edge the table doesn't hold —
+                # the overlay and the tables disagree; only the
+                # rebuild can reconcile
+                return None
+            entries = kept
+        entries.extend(ins_l)
+        total_w = sum(w for _b, _l, w in widths)
+        if len(entries) > total_w:
+            # in-place slot growth: claim spare rows for a NON-hub
+            # owner whose degree outgrew its resident width (narrow
+            # scope — a hub, or a vertex grown in an earlier window,
+            # already owns extras whose contiguity a scattered claim
+            # would break: those still rebuild)
+            if not free_spares or int(ecnt[r]) > 0:
+                return None      # slot overflow past the hub budget
+            d_spare = int(ell.bucket_nbr[-1].shape[1])
+            need = -(-(len(entries) - total_w) // d_spare)
+            if need > len(free_spares):
+                return None      # growth slack exhausted: rebuild
+            take, free_spares[:need] = free_spares[:need], []
+            for idx in take:
+                row = ell.n + int(idx)
+                b = bisect.bisect_right(bstarts, row) - 1
+                widths.append((b, row - bstarts[b], d_spare))
+                claims_out.append((int(idx), int(r)))
+        pos = 0
+        for b, local, w in widths:
+            take = entries[pos:pos + w]
+            pos += w
+            nn = np.full(w, sentinel, np.int32)
+            ne = np.zeros(w, np.int32)
+            if take:
+                nn[:len(take)] = [t[0] for t in take]
+                ne[:len(take)] = [t[1] for t in take]
+            rb = upd.setdefault(b, ([], [], []))
+            rb[0].append(local)
+            rb[1].append(nn)
+            rb[2].append(ne)
+    return {b: (np.asarray(v[0], np.int32), np.vstack(v[1]),
+                np.vstack(v[2]))
+            for b, v in upd.items()}
+
+
+def apply_ell_absorb_host(ell: EllIndex, plan, m_new: int,
+                          claims=()) -> EllIndex:
+    """Next-generation EllIndex: identical shapes/permutation (cached
+    kernels keyed by shape_sig keep serving), updated slot content.
+    Buckets WITH updates are copied before the scatter; untouched
+    buckets (and perm/inv — and extra_owner when no spare was
+    claimed) share memory with the old generation, whose arrays stay
+    exactly as published — the immutable-generation contract
+    in-flight dispatches rely on.  ``claims`` are plan_ell_absorb's
+    (spare_index, owner) growth claims: the next generation's
+    extra_owner is a COPY with those spares assigned (table SHAPES
+    still survive — only n_hubs, a kernel-argument size, moves)."""
+    out = EllIndex()
+    out.n, out.m = ell.n, m_new
+    out.perm, out.inv = ell.perm, ell.inv
+    out.bucket_D = list(ell.bucket_D)
+    out.extra_owner = ell.extra_owner
+    if claims:
+        eo = ell.extra_owner.copy()
+        for idx, owner in claims:
+            eo[idx] = owner
+        out.extra_owner = eo
+    out.n_rows = ell.n_rows
+    out.bucket_nbr = list(ell.bucket_nbr)
+    out.bucket_et = list(ell.bucket_et)
+    for b, (rows, nn, ne) in plan.items():
+        nbr = ell.bucket_nbr[b].copy()
+        et = ell.bucket_et[b].copy()
+        nbr[rows] = nn
+        et[rows] = ne
+        out.bucket_nbr[b] = nbr
+        out.bucket_et[b] = et
+    return out
+
+
+def absorb_update_arrays(ell: EllIndex, plan):
+    """Device-kernel argument form of an absorb plan (``ell.py:970``):
+    per bucket, (rows, nbr_rows, et_rows) padded to ONE uniform pow-2
+    count kp >= 8 — the rung of the largest per-bucket update set (the
+    reference bounds its jit cache with it; the port keeps the layout
+    so its kernel takes the reference's arguments).  Pad entries carry
+    the index ``bucket row count``, out of range for the bucket and
+    dropped by the scatter (``ell_ops.ell_absorb``).  Returns (counts
+    tuple, the per-bucket arrays)."""
+    per_bucket = []
+    kmax = 1
+    for b, nbr_np in enumerate(ell.bucket_nbr):
+        nbk, D = nbr_np.shape
+        rows, nn, ne = plan.get(b, (np.zeros(0, np.int32),
+                                    np.zeros((0, D), np.int32),
+                                    np.zeros((0, D), np.int32)))
+        per_bucket.append((nbk, D, rows, nn, ne))
+        kmax = max(kmax, len(rows))
+    kp = max(8, 1 << (kmax - 1).bit_length())
+    counts: List[int] = []
+    outs = []
+    for nbk, D, rows, nn, ne in per_bucket:
+        k = len(rows)
+        rp = np.full(kp, nbk, np.int32)
+        pn = np.full((kp, D), np.int32(ell.n_rows), np.int32)
+        pe = np.zeros((kp, D), np.int32)
+        rp[:k] = rows
+        pn[:k] = nn
+        pe[:k] = ne
+        counts.append(kp)
+        outs.append((rp, pn, pe))
+    return tuple(counts), outs
 
 
 # ====================================================================

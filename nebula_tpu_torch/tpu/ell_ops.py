@@ -4,12 +4,15 @@
 packed frontier upload (``tpu/runtime.py:3251``), batched dense GO and
 its COUNT(*) fold (``ell.py:572``), batched BFS (``ell.py:1080``), the
 sparse pair-list GO with its COUNT(*) and LIMIT variants
-(``ell.py:1222``) and the adaptive single-query GO (``ell.py:1493``).
+(``ell.py:1222``), the adaptive single-query GO (``ell.py:1493``) and
+the write path's ``ell_absorb`` (``ell.py:1011``), which derives the
+next mirror generation's tables from the resident ones.
 
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``, a transcription of the JAX function on the
 same layout); on a CUDA device it launches its hand-written kernel from
-``csrc/ell_lanes.cu`` or ``csrc/sparse_go.cu`` and adds one to its
+``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu`` or ``csrc/ell_absorb.cu``
+and adds one to its
 entry in ``LAUNCHES``, or raises — there is no fallback from one to the
 other.  Any other device raises.
 
@@ -40,7 +43,8 @@ LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
                             "pair_compact": 0, "pair_reduce": 0,
                             "adaptive_switch": 0, "bitmap_lanes": 0,
                             "sparse_go": 0, "sparse_go_count": 0,
-                            "sparse_go_limit": 0, "adaptive_go": 0}
+                            "sparse_go_limit": 0, "adaptive_go": 0,
+                            "ell_absorb": 0}
 MAX_OVER = 32        # csrc kMaxOver
 MAX_BUCKETS = 32     # csrc kMaxBuckets
 MAX_COUNT_W = 1024   # csrc ell_go_count: W / 4 <= kThreads
@@ -1421,3 +1425,85 @@ def adaptive_go(starts: torch.Tensor, hub: torch.Tensor,
                           bitmap_lanes, go_hop)
     LAUNCHES["adaptive_go"] += 1
     return out
+
+
+# ============================================================= absorb
+class _AbsorbBuckets(ctypes.Structure):
+    """``AbsorbBuckets`` of csrc/ell_absorb.cu, passed by value."""
+    _fields_ = [("rows", ctypes.c_void_p * MAX_BUCKETS),
+                ("un", ctypes.c_void_p * MAX_BUCKETS),
+                ("ue", ctypes.c_void_p * MAX_BUCKETS),
+                ("slot0", ctypes.c_longlong * MAX_BUCKETS),
+                ("nrows", ctypes.c_longlong * MAX_BUCKETS),
+                ("D", ctypes.c_int * MAX_BUCKETS),
+                ("n", ctypes.c_int), ("kp", ctypes.c_int)]
+
+
+def _absorb_check(tables: DeviceTables, rows, nn, ne) -> int:
+    """Validate the reference's per-bucket arguments; returns kp."""
+    nb = len(tables.D)
+    if not (len(rows) == len(nn) == len(ne) == nb):
+        raise ValueError(f"absorb arguments for {len(rows)}, {len(nn)}, "
+                         f"{len(ne)} buckets; the tables have {nb}")
+    dev = tables.nbr.device
+    _tables_check(tables, dev)
+    kp = int(rows[0].shape[0]) if nb else 0
+    if kp < 1:
+        raise ValueError("absorb needs kp >= 1 update rows per bucket")
+    for b in range(nb):
+        _check(rows[b], f"rows[{b}]", torch.int32, (kp,), dev)
+        for t, nm in ((nn[b], "nn"), (ne[b], "ne")):
+            _check(t, f"{nm}[{b}]", torch.int32, (kp, tables.D[b]), dev)
+    return kp
+
+
+def ell_absorb_ref(tables: DeviceTables, rows, nn, ne) -> DeviceTables:
+    """Plain version of ``ell_absorb`` (ell.py:1011): clone both tables,
+    then per bucket set the in-range rows through its [rows_b, D_b]
+    view; pad entries (index rows_b) drop."""
+    out = tables._replace(nbr=tables.nbr.clone(), et=tables.et.clone())
+    for b in range(len(tables.D)):
+        r = rows[b].long()
+        keep = (r >= 0) & (r < tables.rows[b])
+        nbr_b, et_b = out.bucket(b)
+        nbr_b[r[keep]] = nn[b][keep]
+        et_b[r[keep]] = ne[b][keep]
+    return out
+
+
+def ell_absorb(tables: DeviceTables, rows: Sequence[torch.Tensor],
+               nn: Sequence[torch.Tensor], ne: Sequence[torch.Tensor]
+               ) -> DeviceTables:
+    """The next generation's tables: fresh copies of ``tables.nbr`` and
+    ``tables.et`` with, per bucket b, row ``rows[b][i]`` replaced by
+    ``nn[b][i]`` / ``ne[b][i]`` (int32 [kp] and [kp, D_b], the
+    reference's ``absorb_update_arrays`` form).  Entries whose row is
+    not below the bucket's row count are dropped.  The inputs are
+    only read (the published generation keeps them); returns a
+    DeviceTables of the same geometry over the new tensors."""
+    kp = _absorb_check(tables, rows, nn, ne)
+    dev = tables.nbr.device
+    if not _route(dev):
+        return ell_absorb_ref(tables, rows, nn, ne)
+    out_nbr = torch.empty_like(tables.nbr)
+    out_et = torch.empty_like(tables.et)
+    for t in (tables.nbr, tables.et, out_nbr, out_et):
+        if t.data_ptr() % 16:
+            raise ValueError("ell_absorb's tables must be 16-byte aligned "
+                             "(the copy moves int4 words)")
+    nb = len(tables.D)
+    bk = _AbsorbBuckets()
+    for b in range(nb):
+        bk.rows[b] = rows[b].data_ptr()
+        bk.un[b] = nn[b].data_ptr()
+        bk.ue[b] = ne[b].data_ptr()
+        bk.slot0[b] = tables.slot0[b]
+        bk.nrows[b] = tables.rows[b]
+        bk.D[b] = tables.D[b]
+    bk.n, bk.kp = nb, kp
+    rc = _lib().ell_absorb(tables.nbr.data_ptr(), tables.et.data_ptr(),
+                           out_nbr.data_ptr(), out_et.data_ptr(),
+                           int(tables.nbr.numel()), bk, _stream(dev))
+    _ok(rc, "ell_absorb")
+    LAUNCHES["ell_absorb"] += 1
+    return tables._replace(nbr=out_nbr, et=out_et)

@@ -1,10 +1,30 @@
 """The port's device runtime over torch tensors — the slices of
 ``nebula_tpu/tpu/runtime.py`` that serve GO and FIND PATH.
 
-``TorchQueryRuntime`` holds per-space mirrors (``load_space`` stands in
-for the reference's KV fold), their ELL indexes and device tables, and
-a ``GoBatchDispatcher`` (graph/batch_dispatch.py) that every device
-query enters.  The entry points:
+``TorchQueryRuntime`` holds per-space mirrors, their ELL indexes and
+device tables, and a ``GoBatchDispatcher`` (graph/batch_dispatch.py)
+that every device query enters.  A space's mirror comes from one of two
+places:
+
+- the runtime's stores (``TorchQueryRuntime(stores=[...],
+  schema_man=...)``, runtime.py:452-470): ``mirror()`` folds the
+  space's parts with the per-row builder (``csr.build_mirror``) and,
+  once committed writes move the store versions, folds their delta
+  into the NEXT immutable generation (runtime.py:655-1118):
+  ``_try_absorb`` -> ``_absorb_once`` (vertex writes planned first and
+  committed last) -> ``_absorb_build``, whose device half is the
+  ``ell_absorb`` kernel deriving the next generation's ELL tables from
+  the resident ones.  A window that cannot absorb (a new vertex, a
+  delta past ``mirror_delta_max``, a slot overflow, an opaque or
+  truncated log) is counted and rebuilds from the store.  In-flight
+  queries finish on the generation they captured; a query admitted
+  after a publish sees it.  The reference's asynchronous rebuild
+  (``mirror_refresh_mode=async``) and peer-delta absorption are not
+  ported;
+- ``load_space``, which installs a ready-made mirror that never
+  changes (the earlier slices' tests and smoke phases).
+
+The entry points:
 
 - ``serve_go`` answers ``GO [UPTO] N STEPS FROM ... OVER e YIELD
   e._dst [| YIELD COUNT(*)] [| LIMIT n]``.  With
@@ -38,6 +58,7 @@ host-side final hop over the frontier's out-edges in the OVER set
 """
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -45,6 +66,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..common import protocol
 from ..common.flags import flags
 from ..filter.expressions import (EdgeDstIdExpr, Expression, ExprContext,
                                   ExprError, LogicalExpr, decode_expr)
@@ -53,11 +75,13 @@ from ..graph.interim import ConstCol, DictCol, _col_tolist, default_col_name
 from ..meta.schema import SchemaView
 from ..storage.device import DeviceExecError, TpuDecline
 from . import edge_ops, ell_ops
-from .csr import CsrMirror
+from .csr import (CsrMirror, absorb_overlay, build_delta_mirror,
+                  build_mirror, commit_vertex_plan, plan_vertex_events)
 from .device import DeviceLike, resolve_device
 from .ell import (INT16_INF, INT32_INF, DeviceTables, EllIndex,
-                  lanes_width, sparse_caps, sparse_go_pairs, sparse_pack32,
-                  unpack_bits, unpack_lanes_host)
+                  absorb_update_arrays, apply_ell_absorb_host, lanes_width,
+                  plan_ell_absorb, sparse_caps, sparse_go_pairs,
+                  sparse_pack32, unpack_bits, unpack_lanes_host)
 from .expr_compile import (K_BOOL, K_FLOAT, K_STR, K_STRCODE, K_VIDRANK,
                            CompileError, CVal, Env, ExprCompiler)
 from .expr_program import B as T_BOOL, F as T_FLOAT, I as T_INT
@@ -169,12 +193,24 @@ def _ladder() -> List[int]:
 
 class TorchQueryRuntime:
     """The port's device runtime: GO (continuous and windowed) and
-    FIND PATH."""
+    FIND PATH, over mirrors folded from ``stores`` (``NebulaStore``s,
+    with ``schema_man`` resolving their schemas and names) or loaded
+    ready-made (``load_space``)."""
 
-    def __init__(self, device: DeviceLike = None):
+    def __init__(self, stores=None, schema_man=None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
+        self.stores = list(stores or [])
+        self.sm = schema_man
         self._lock = threading.Lock()
+        self._build_locks: Dict[int, threading.Lock] = {}
         self.mirrors: Dict[int, CsrMirror] = {}
+        self._loaded: set = set()       # spaces installed by load_space
+        # the outcome of the newest absorption attempt (a protocol
+        # reason) and the wall seconds of the newest absorbed windows
+        self.last_absorb_reason: Optional[str] = None
+        self.absorb_wall_s: collections.deque = collections.deque(
+            maxlen=65536)
         # counters; the t_*_s entries are host wall seconds, summed over
         # the threads that spent them: the windowed leader's launch
         # (enqueue), fetch and assembly, FIND PATH's BFS dispatch
@@ -191,7 +227,19 @@ class TorchQueryRuntime:
                       "t_bfs_s": 0.0, "t_paths_s": 0.0,
                       "cpu_paths_s": 0.0, "go_fused": 0,
                       "t_fused_launch_s": 0.0, "t_fused_fetch_s": 0.0,
-                      "t_fused_materialize_s": 0.0}
+                      "t_fused_materialize_s": 0.0,
+                      # the write path (runtime.py:485-500): full folds,
+                      # absorbed generations, absorbed windows (vertex-
+                      # only ones included), declines, declines past
+                      # mirror_delta_max, growth-spare claims, the
+                      # absorb wall seconds, and of those the host CSR
+                      # splice's and the ELL half's (plan, host copy,
+                      # replacement-row upload, kernel enqueue)
+                      "mirror_builds": 0, "mirror_absorbs": 0,
+                      "mirror_deltas": 0, "mirror_absorb_failed": 0,
+                      "mirror_delta_overflow": 0, "mirror_slot_grows": 0,
+                      "t_absorb_s": 0.0, "t_absorb_splice_s": 0.0,
+                      "t_absorb_ell_s": 0.0}
         self.schemas: Dict[int, SchemaView] = {}
         # compiled WHERE programs per (space, mirror, pushed mode, OVER
         # aliases, WHERE text), as the reference caches its fused
@@ -223,21 +271,304 @@ class TorchQueryRuntime:
     # --------------------------------------------------- mirror lifecycle
     def load_space(self, space_id: int, mirror: CsrMirror,
                    schema: Optional[SchemaView] = None) -> None:
-        """Publish ``mirror`` for ``space_id``, with the space's tag and
-        edge names (``schema``; a WHERE naming a tag needs them).  A
-        space loads once: the generation drain/re-anchor that would let
-        a stream move to a new mirror is not ported yet, so a second
-        load raises."""
+        """Publish a ready-made ``mirror`` for ``space_id``, with the
+        space's tag and edge names (``schema``; a WHERE naming a tag
+        needs them).  A loaded space is served as it is: it has no store
+        behind it, so nothing absorbs into it, and a second load
+        raises."""
         with self._lock:
-            if space_id in self.mirrors:
+            if space_id in self.mirrors or space_id in self._loaded:
                 raise ValueError(f"space {space_id} is already loaded")
+            self._loaded.add(space_id)
             self.mirrors[space_id] = mirror
             self.schemas[space_id] = schema if schema is not None \
                 else SchemaView()
 
+    def _store_versions(self, space_id: int, stores) -> List[int]:
+        return [s.mutation_version(space_id) for s in stores]
+
+    @staticmethod
+    def _space_version(space_id: int, stores, vers: List[int]) -> int:
+        v = 0
+        for s, sv in zip(stores, vers):
+            v += sv
+            v += 7919 * len(s.part_ids(space_id))
+        return v
+
+    @staticmethod
+    def _fresh(m: CsrMirror, ver: int) -> bool:
+        return getattr(m, "_fresh_version", m.build_version) == ver \
+            and not m.expired_now()
+
     def mirror(self, space_id: int) -> Optional[CsrMirror]:
+        """The space's current generation (runtime.py:678): a loaded
+        mirror as it is; for a store-backed space, the published
+        generation when it is fresh, else the committed delta absorbed
+        into the next generation, else a rebuild from the stores under
+        the space's build lock.  None when no store holds the space."""
         with self._lock:
-            return self.mirrors.get(space_id)
+            if space_id in self._loaded:
+                return self.mirrors.get(space_id)
+        stores = self.stores
+        if not any(s.part_ids(space_id) for s in stores):
+            return None
+        # versions captured BEFORE any scan: a write landing during the
+        # build leaves the published version stale, so the next query
+        # absorbs or rebuilds it
+        vers = self._store_versions(space_id, stores)
+        ver = self._space_version(space_id, stores, vers)
+        with self._lock:
+            m = self.mirrors.get(space_id)
+            if m is not None and self._fresh(m, ver):
+                return m
+            stale = m is not None and not m.expired_now()
+        if stale:
+            a = self._try_absorb(space_id, ver)
+            if a is not None:
+                return a
+        with self._build_lock(space_id):
+            # re-captured: a build for an older version published over a
+            # newer mirror would regress freshness
+            vers = self._store_versions(space_id, stores)
+            ver = self._space_version(space_id, stores, vers)
+            with self._lock:
+                m = self.mirrors.get(space_id)
+                if m is not None and self._fresh(m, ver):
+                    return m
+            built = build_mirror(space_id, stores, self.sm)
+            with self._lock:
+                return self._publish(space_id, built, ver, stores, vers)
+
+    def _build_lock(self, space_id: int) -> threading.Lock:
+        with self._lock:
+            lk = self._build_locks.get(space_id)
+            if lk is None:
+                lk = self._build_locks[space_id] = threading.Lock()
+            return lk
+
+    def _publish(self, space_id: int, m: CsrMirror, ver: int, stores,
+                 vers: List[int], cursors: Optional[Dict[int, int]] = None,
+                 absorbed_from: Optional[CsrMirror] = None) -> CsrMirror:
+        """Install a mirror GENERATION (caller holds the lock): a full
+        build, whose delta cursors are the store versions captured
+        before its scan, or an absorbed next generation with the
+        cursors after its window (runtime.py:757).  Published
+        generations are immutable: in-flight queries keep the object
+        and the device tables they captured.  The space's compiled
+        WHERE programs are dropped (runtime.py:816-823): an absorb can
+        re-type a column, and a mirror's id() may be reused."""
+        m.build_version = ver
+        m._fresh_version = ver       # advanced by vertex-only absorbs
+        m._delta_cursors = cursors if cursors is not None \
+            else {i: v for i, v in enumerate(vers)}
+        m._part_sig = tuple(len(s.part_ids(space_id)) for s in stores)
+        prev = absorbed_from if absorbed_from is not None \
+            else self.mirrors.get(space_id)
+        m.generation = getattr(prev, "generation", 0) + 1
+        if absorbed_from is not None:
+            self.stats["mirror_absorbs"] += 1
+            self.stats["mirror_deltas"] += 1
+        else:
+            self.stats["mirror_builds"] += 1
+        self.mirrors[space_id] = m
+        self._programs = {k: v for k, v in self._programs.items()
+                          if k[0] != space_id}
+        return m
+
+    # ------------------------------------------------ delta absorption
+    def _try_absorb(self, space_id: int,
+                    caller_ver: int) -> Optional[CsrMirror]:
+        """Fold committed write deltas into the resident tables as the
+        NEXT immutable generation (runtime.py:829), under the space's
+        build lock.  None: this window cannot absorb and the caller
+        rebuilds; the decline is counted once per declined version (a
+        negative cache on the mirror), not once per query."""
+        if not flags.get("mirror_absorb", True):
+            return None
+        with self._build_lock(space_id):
+            with self._lock:
+                m = self.mirrors.get(space_id)
+                if m is None or m.expired_now():
+                    return None
+                if getattr(m, "_fresh_version",
+                           m.build_version) == caller_ver:
+                    return m     # absorbed or rebuilt while we waited
+                if getattr(m, "_delta_cursors", None) is None:
+                    return None
+                if getattr(m, "_absorb_declined_ver",
+                           None) == caller_ver:
+                    return None  # already declined at this version
+            # re-captured once under the build lock: absorb up to the
+            # latest committed state, and publish with matching cursors
+            stores = self.stores
+            vers = self._store_versions(space_id, stores)
+            ver = self._space_version(space_id, stores, vers)
+            with self._lock:
+                if getattr(m, "_fresh_version", m.build_version) == ver:
+                    return m
+            t0 = time.perf_counter()
+            out, reason, n_events = self._absorb_once(space_id, m, ver,
+                                                      stores, vers)
+            with self._lock:
+                self.last_absorb_reason = reason
+            if out is None:
+                with self._lock:
+                    m._absorb_declined_ver = ver
+                self._note_absorb_failure(space_id, reason, n_events)
+                return None
+            wall = time.perf_counter() - t0
+            with self._lock:
+                self.stats["t_absorb_s"] += wall
+                self.absorb_wall_s.append(wall)
+            return out
+
+    def _note_absorb_failure(self, space_id: int, reason: str,
+                             n_events: int) -> None:
+        """A decline is a rebuild about to happen: count it (delta-budget
+        overflows get their own counter)."""
+        with self._lock:
+            self.stats["mirror_absorb_failed"] += 1
+            if reason == protocol.ABSORB_DELTA_OVERFLOW:
+                self.stats["mirror_delta_overflow"] += 1
+
+    def _absorb_once(self, space_id: int, m: CsrMirror, ver: int,
+                     stores, vers):
+        """One absorption attempt against the published mirror ``m``
+        (caller holds the build lock; runtime.py:884).  Returns
+        (mirror | None, reason, event count): the next generation, or
+        ``m`` itself for a vertex-only window (its in-place commit is
+        the absorb), or None with the decline reason.  Everything that
+        can decline runs before anything is committed."""
+        sig = tuple(len(s.part_ids(space_id)) for s in stores)
+        if getattr(m, "_part_sig", None) != sig:
+            return None, protocol.ABSORB_PART_MOVED, 0
+        if len(stores) != len(m._delta_cursors):
+            return None, protocol.ABSORB_PEER_SET_CHANGED, 0
+        new_events = []
+        cursors = dict(m._delta_cursors)
+        for i, s in enumerate(stores):
+            if vers[i] == cursors[i]:
+                continue
+            evs = s.delta_since(space_id, cursors[i])
+            if evs is None:
+                return None, protocol.ABSORB_OPAQUE_EVENTS, 0
+            new_events.extend(evs)
+            cursors[i] = vers[i]
+        n_events = len(new_events)
+        edge_events = [e for e in new_events if e[0] != "vput"]
+        if len(edge_events) > int(flags.get("mirror_delta_max") or 4096):
+            return None, protocol.ABSORB_DELTA_OVERFLOW, n_events
+        vplan = plan_vertex_events(m, new_events, self.sm, space_id)
+        if vplan is None:
+            return None, protocol.ABSORB_VERTEX_UNABSORBABLE, n_events
+
+        def commit_in_place():
+            with self._lock:
+                self._commit_vertices(m, vplan)
+                m._delta_cursors = cursors
+                m._fresh_version = ver
+                self.stats["mirror_deltas"] += 1
+            return m
+
+        if not edge_events:
+            return commit_in_place(), protocol.ABSORB_VERTEX_IN_PLACE, \
+                n_events
+        d = build_delta_mirror(m, edge_events, self.sm, space_id)
+        if d is None:
+            return None, protocol.ABSORB_OVERLAY_UNBUILDABLE, n_events
+        if len(d.extra_vids):
+            return None, protocol.ABSORB_VERTEX_PLAN_CHANGE, n_events
+        if d.m == 0 and not len(d.base_dead):
+            return commit_in_place(), protocol.ABSORB_NO_OP, n_events
+        new_m = self._absorb_build(space_id, m, d)
+        if new_m is None:
+            return None, protocol.ABSORB_SLOT_OVERFLOW, n_events
+        with self._lock:
+            self._commit_vertices(m, vplan)
+            self._publish(space_id, new_m, ver, stores, vers,
+                          cursors=cursors, absorbed_from=m)
+        return new_m, protocol.ABSORBED, n_events
+
+    @staticmethod
+    def _commit_vertices(m: CsrMirror, vplan) -> None:
+        """Commit a vertex plan in place (csr.commit_vertex_plan: values
+        first, valid bits last), then retire the device copies of the
+        vertex columns: the next fused query uploads them afresh, and an
+        upload racing this commit lands under the old epoch, which no
+        later query reads."""
+        if not vplan:
+            return
+        commit_vertex_plan(m, vplan)
+        m._vertex_epoch = getattr(m, "_vertex_epoch", 0) + 1
+        for cache in (getattr(m, "_env_dev_cache", None) or {}).values():
+            for key in [k for k in cache if "vertex" in k[:2]]:
+                cache.pop(key, None)
+
+    def _absorb_build(self, space_id: int, m: CsrMirror,
+                      d) -> Optional[CsrMirror]:
+        """The CSR and ELL halves of one absorption (runtime.py:1035):
+        the merged host CSR (a new mirror sharing the vertex side), the
+        replacement-row plan, the copy-on-write host ELL, and on the
+        device ``ell_absorb``, whose output becomes the new mirror's
+        tables — the upload is the replacement rows, never the tables.
+        Hub caches carry over only when no growth spare was claimed
+        (a claim changes extra_owner, which they derive from); nothing
+        else carries.  None = slot overflow."""
+        t_start = time.perf_counter()
+        ix = self.ell(m)
+        dead = np.asarray(getattr(d, "base_dead", ()), dtype=np.int64)
+        # the ELL keys rows by DST (slots hold srcs)
+        claims: List = []
+        plan = plan_ell_absorb(
+            ix, d.edge_dst, d.edge_src, d.edge_etype,
+            m.edge_dst[dead], m.edge_src[dead], m.edge_etype[dead],
+            claims_out=claims)
+        if plan is None:
+            return None
+        t0 = time.perf_counter()
+        new_m = absorb_overlay(m, d)
+        t1 = self._tick("t_absorb_splice_s", t0)
+        if new_m is None:
+            return None
+        ix2 = apply_ell_absorb_host(ix, plan, new_m.m, claims=claims)
+        tables = (getattr(m, "_tables_cache", None) or {}).get(
+            str(self.device))
+        if tables is not None:
+            _counts, upd = absorb_update_arrays(ix, plan)
+            rows, nn, ne = self._absorb_args(upd)
+            new_m._tables_cache = {str(self.device): ell_ops.ell_absorb(
+                tables, rows, nn, ne)}
+        self._bump("t_absorb_ell_s",
+                   time.perf_counter() - t_start - (t1 - t0))
+        new_m._ell = ix2
+        if not claims:
+            for attr in ("_hub_dev_cache", "_hub_exp_cache",
+                         "_hub_merge_cache"):
+                val = getattr(m, attr, None)
+                if val is not None:
+                    setattr(new_m, attr, val)
+        else:
+            self._bump("mirror_slot_grows", len(claims))
+            new_m._slot_claims = len(claims)
+        return new_m
+
+    def _absorb_args(self, upd):
+        """absorb_update_arrays' per-bucket (rows, nbr rows, et rows) as
+        device tensors: one host buffer, one upload, per-bucket views."""
+        parts = [a.reshape(-1) for trip in upd for a in trip]
+        flat = self._up(np.ascontiguousarray(np.concatenate(parts),
+                                             np.int32))
+        views = []
+        off = 0
+        for a in parts:
+            views.append(flat[off:off + a.size])
+            off += a.size
+        rows, nn, ne = [], [], []
+        for b, (r, un, ue) in enumerate(upd):
+            rows.append(views[3 * b])
+            nn.append(views[3 * b + 1].view(un.shape))
+            ne.append(views[3 * b + 2].view(ue.shape))
+        return rows, nn, ne
 
     @staticmethod
     def ell(m: CsrMirror) -> EllIndex:
@@ -374,9 +705,11 @@ class TorchQueryRuntime:
         return result
 
     # ---------------------------------------- GO with WHERE and YIELD
-    def _schema(self, space_id: int) -> SchemaView:
+    def _schema(self, space_id: int):
+        """The space's names: a loaded space's SchemaView, else the
+        runtime's schema manager."""
         with self._lock:
-            return self.schemas.get(space_id) or SchemaView()
+            return self.schemas.get(space_id) or self.sm or SchemaView()
 
     def _serve_go_exprs(self, space_id: int, start_vids: Sequence[int],
                         etypes: Sequence[int], steps: int,
@@ -612,16 +945,20 @@ class TorchQueryRuntime:
                   ) -> Dict[str, torch.Tensor]:
         """Device env for a compiled filter: {key: tensor} (+ "valid:key"
         when ``with_valid``); columns upload once per mirror and
-        device."""
+        device.  Vertex columns change in place when a vertex write
+        commits (``_commit_vertices``), so their entries are keyed by
+        the mirror's vertex epoch and uploaded from a copy, the valid
+        bits before the values (runtime.py:2799-2817)."""
         cache = self._mirror_cached(m, "_env_dev_cache", dict)
         env: Dict[str, torch.Tensor] = {}
         dev = self._device_csr(m)
+        epoch = getattr(m, "_vertex_epoch", 0)
 
         def cached(key, build):
             t = cache.get(key)
             if t is None:
-                t = cache.setdefault(key, self._up(np.ascontiguousarray(
-                    build())))
+                t = cache.setdefault(key, self._up(np.array(build(),
+                                                            copy=True)))
             return t
 
         for k, desc in used.items():
@@ -629,11 +966,12 @@ class TorchQueryRuntime:
                 col = m.edge_cols[(desc[1], desc[2])] \
                     if desc[0] == "edge" \
                     else m.vertex_cols[(desc[1], desc[2])]
+                stamp = (epoch,) if desc[0] == "vertex" else ()
                 if with_valid:
                     env["valid:" + k] = cached(("valid", desc[0], desc[1],
-                                                desc[2]),
+                                                desc[2]) + stamp,
                                                lambda c=col: c.valid)
-                env[k] = cached((desc[0], desc[1], desc[2]),
+                env[k] = cached((desc[0], desc[1], desc[2]) + stamp,
                                 lambda c=col: c.device_values())
             elif desc[0] == "rank":
                 env["rank"] = dev["rank"]
