@@ -8,7 +8,8 @@ Hopper card.
                           [--path-threads PT] [--profile R]
                           [--fused-requests F] [--fused-threads FT]
                           [--write-vertices WN] [--write-edges WM]
-                          [--write-seconds WS]
+                          [--write-seconds WS] [--unpacked-requests U]
+                          [--unpacked-path-requests UP]
 
 The defaults are the serve cell; ``--vertices 16777216 --edges
 105000000 --cap 256 --widths 128`` is the round-5 scale shape, and
@@ -51,7 +52,19 @@ Phases, in order; any failure exits non-zero:
              directions), a growth-spare claim, and every bucket's last
              row with pads at every bucket's end; equal to the plain
              version and to the host's next generation, the input
-             tables unchanged
+             tables unchanged; then the packing-off route's kernels
+             (``csrc/ell_int8.cu``) at B = 1024 and 128 on the inputs
+             that route gives them: K12 ``frontier_upload_i8`` (with
+             ``index_put_`` as its library yardstick), K13 ``go_hop_i8``
+             (three chained hops, exact and UPTO, and one hop of an
+             arbitrary int8 frontier), ``ell_go_i8`` at 1-4 steps
+             (exact and UPTO, row-packed; timed at 3) beside the packed
+             ``ell_go`` on the
+             same starts and tables (the same vertex sets), K14
+             ``pack_rows``, ``ell_bfs_i8`` (UPTO 5, a connected and an
+             unreachable pair among random lanes) and K15
+             ``bfs_level_i8``; and all of them once more, untimed, at
+             the off-ladder width B = 10 (the byte-tail path)
 4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
              edges, stored in both directions, with seeded columns:
              edge ``w`` int, ``score`` double, ``kind`` string, tag
@@ -102,10 +115,26 @@ Phases, in order; any failure exits non-zero:
              ELL slots); then three forced windows: a growth claim,
              4097 edge events (a counted overflow and a rebuild) and
              an edge to a new vertex (a rebuild)
-11. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
-12. the last line ``{"ok": true, "device": {...}}``
+11. unpacked ``tpu_packed_frontier=false`` on the serve graph, one
+             counted window in three parts: (a) U requests of phase 4's
+             kinds (another seed, a quarter of the plain exact-depth
+             ones ``| LIMIT 10``) from T threads in the default
+             continuous mode, with ``tpu_sparse_cap`` 1024 so that
+             batches overflow: no continuous stream may anchor or take a
+             rider, the sparse route and its dense rerun on the unpacked
+             ``ell_go`` must both answer; (b) the same requests on the
+             dense route (``go_dispatch_mode=windowed``,
+             ``tpu_sparse_go=false``, ``tpu_adaptive_single=false``:
+             UPTO, COUNT(*) counted on the host, LIMIT), then a burst
+             of 256 one-shape ``GO 3 STEPS`` from 256 threads whose
+             widest batch must pass 128 (the 1024 rung); (c) UP ``FIND
+             SHORTEST PATH ... UPTO 5 STEPS`` from PT threads, every
+             answer checked, and 8 aimed ``FIND ALL PATH ... UPTO 3
+             STEPS``; 64 GO answers of (a) and of (b) checked
+12. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
+13. the last line ``{"ok": true, "device": {...}}``
 
-Every launch count is zeroed just before each of phases 4-10 drives the
+Every launch count is zeroed just before each of phases 4-11 drives the
 port and read just after it; every kernel of a phase's path must have
 been launched there.  The script imports nothing of the JAX package.
 It needs one CUDA card and refuses to run (non-zero exit, no result)
@@ -151,7 +180,15 @@ REPLACES = {
     "go_filtered": "nebula_tpu/tpu/kernels.py:296",
     "bfs": "nebula_tpu/tpu/kernels.py:315",
     "ell_absorb": "nebula_tpu/tpu/ell.py:1011",
+    "frontier_upload_i8": "nebula_tpu/tpu/runtime.py:3228",
+    "go_hop_i8": "nebula_tpu/tpu/ell.py:1140",
+    "pack_rows": "nebula_tpu/tpu/ell.py:439",
+    "bfs_level_i8": "nebula_tpu/tpu/ell.py:1616",
+    "ell_go_i8": "nebula_tpu/tpu/ell.py:1140",
+    "ell_bfs_i8": "nebula_tpu/tpu/ell.py:1616",
 }
+INT8_KERNELS = ("frontier_upload_i8", "go_hop_i8", "pack_rows",
+                "bfs_level_i8", "ell_go_i8", "ell_bfs_i8")
 SOURCES = {k: "nebula_tpu_torch/tpu/csrc/ell_lanes.cu"
            for k in list(REPLACES)[:9]}
 SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/sparse_go.cu"
@@ -163,6 +200,9 @@ SOURCES.update({"expr_filter": "nebula_tpu_torch/tpu/csrc/expr_filter.cu",
                 "go_filtered": "nebula_tpu_torch/tpu/csrc/edge_go.cu "
                                "+ expr_filter.cu"})
 SOURCES["ell_absorb"] = "nebula_tpu_torch/tpu/csrc/ell_absorb.cu"
+SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/ell_int8.cu"
+                for k in INT8_KERNELS})
+SOURCES["ell_bfs_i8"] += " + ell_lanes.cu"
 # the edge-list programs no runtime path calls (the reference's only
 # caller of go is _run_go_kernel's no-filter branch, which
 # _execute_fused never takes; bfs has only its registry entry)
@@ -182,6 +222,9 @@ PATH_KERNELS = {
     "path": ("frontier_upload", "go_hop", "bfs_level", "bfs_depth_i8"),
     "write": ("ell_absorb", "go_hop", "lane_join", "lane_extract",
               "lane_clear"),
+    "unpacked": ("frontier_upload_i8", "go_hop_i8", "pack_rows",
+                 "bfs_level_i8", "bfs_depth_i8", "ell_go_i8",
+                 "ell_bfs_i8"),
 }
 LIMIT_N = 10                   # the sparse phase's | LIMIT n
 MAX_PATHS = 1000               # the port's FIND PATH result cap
@@ -734,6 +777,310 @@ def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                                bound_ms=bytes_ms(3 * R1 * B),
                                bound_by="bytes", library_ms=None)
     return res
+
+
+# ====================================================== phase 3, int8
+TAIL_B = 10                    # an off-ladder width: the byte-tail path
+
+
+def int8_pairs(m):
+    """A connected (start, target) pair two forward hops apart and an
+    unreachable one (a target with no in-edge), as old dense ids."""
+    fwd = m.edge_etype == 1
+    in_deg = np.bincount(m.edge_dst[fwd], minlength=m.n)
+    for k in np.nonzero(fwd)[0]:
+        mid = m.edge_dst[k]
+        nxt = m.edge_dst[fwd & (m.edge_src == mid)]
+        s = int(m.edge_src[k])
+        far = [int(t) for t in nxt if t != s and
+               not (fwd & (m.edge_src == s) & (m.edge_dst == t)).any()]
+        if far:
+            break
+    else:
+        raise AssertionError("no vertex two hops from another")
+    sources = np.nonzero(in_deg == 0)[0]
+    sources = sources[sources != s]
+    if not len(sources):
+        raise AssertionError("the graph has no vertex without in-edges")
+    return (s, far[0]), (s, int(sources[0]))
+
+
+def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
+                      over, rng) -> dict:
+    """The packing-off route's kernels (K12-K15) and programs
+    (``ell_go_i8``, ``ell_bfs_i8``) against their plain versions at lane
+    width B on the serve tables, on the inputs that route gives them: a
+    batch of B queries with one start each, uploaded by K12.  Exact
+    equality throughout; the hop also on an arbitrary int8 frontier.
+    Returns {name: numbers}."""
+    dev = tables.nbr.device
+    R1 = ix.n_rows + 1
+    G = -(-R1 // 8)
+    i8 = torch.int8
+    slots = int(tables.nbr.numel())
+    hub_bytes = 4 * ((ix.n_rows - ix.n) + int(hrows.numel()))
+    res = {}
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def coords(vertices):
+        """runtime._upload_frontier's padded list: query q starts at
+        ``vertices[q]`` (old dense ids)."""
+        S = len(vertices)
+        Sp = max(8, 1 << (S - 1).bit_length())
+        rows_h = np.full(Sp, ix.n_rows, np.int32)
+        cols_h = np.zeros(Sp, np.int32)
+        rows_h[:S] = ix.perm[vertices]
+        cols_h[:S] = np.arange(S)
+        return up(rows_h), up(cols_h), S
+
+    # ---- K12 upload
+    starts = rng.integers(0, ix.n, B)
+    rows_t, cols_t, S = coords(starts)
+    Sp = int(rows_t.numel())
+    fk = torch.empty((R1, B), dtype=i8, device=dev)
+    fr = torch.empty_like(fk)
+    ell_ops.frontier_upload_i8(fk, rows_t, cols_t, S)
+    ell_ops.frontier_upload_i8_ref(fr, rows_t, cols_t, S)
+    err = require_equal(torch, "frontier_upload_i8", B, (fk, fr))
+    f0 = fk.clone()
+    ms = cuda_ms(torch, lambda: ell_ops.frontier_upload_i8(
+        fk, rows_t, cols_t, S), 50)
+    plain = cuda_ms(torch, lambda: ell_ops.frontier_upload_i8_ref(
+        fr, rows_t, cols_t, S), 20)
+    vals = torch.zeros(Sp, dtype=i8, device=dev)
+    vals[:S] = 1
+    idx = (rows_t.long(), cols_t.long())
+    lib = cuda_ms(torch, lambda: torch.zeros(
+        (R1, B), dtype=i8, device=dev).index_put_(idx, vals), 50)
+    res["frontier_upload_i8"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=bytes_ms(R1 * B + 8 * Sp), bound_by="bytes",
+        library_ms=lib)
+
+    # ---- K13 hop: three chained advances, exact and with the UPTO
+    # accumulator, then one advance of an arbitrary int8 frontier
+    err = 0
+    for upto in (False, True):
+        ck, cr = f0.clone(), f0.clone()
+        ak = f0.clone() if upto else None
+        ar = f0.clone() if upto else None
+        ok_, orf = torch.empty_like(f0), torch.empty_like(f0)
+        for _ in range(3):
+            ell_ops.go_hop_i8(ck, ak, ok_, tables, eslot, hrows, over)
+            ell_ops.go_hop_i8_ref(cr, ar, orf, tables, eslot, hrows, over)
+            pairs = [(ok_, orf)] + ([(ak, ar)] if upto else [])
+            err = max(err, require_equal(torch, f"go_hop_i8 upto={upto}",
+                                         B, *pairs))
+            ck, ok_ = ok_, ck
+            cr, orf = orf, cr
+    arb = torch.randint(-128, 128, (R1, B), dtype=i8, device=dev)
+    ok_, orf = torch.empty_like(arb), torch.empty_like(arb)
+    ell_ops.go_hop_i8(arb, None, ok_, tables, eslot, hrows, over)
+    ell_ops.go_hop_i8_ref(arb, None, orf, tables, eslot, hrows, over)
+    err = max(err, require_equal(torch, "go_hop_i8 arbitrary", B,
+                                 (ok_, orf)))
+    del arb, orf
+    out = torch.empty_like(f0)
+    ms = cuda_ms(torch, lambda: ell_ops.go_hop_i8(
+        f0, None, out, tables, eslot, hrows, over), 20)
+    plain = cuda_ms(torch, lambda: ell_ops.go_hop_i8_ref(
+        f0, None, out, tables, eslot, hrows, over), 2, warmup=1)
+    hop_bytes = 8 * slots + 2 * R1 * B + hub_bytes
+    res["go_hop_i8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=bytes_ms(hop_bytes), bound_by="bytes",
+                            library_ms=None, bytes=hop_bytes)
+
+    # ---- the program at 3 steps, exact and UPTO, row-packed; the
+    # packed ell_go beside it on the same starts and tables
+    work = torch.empty_like(f0)
+
+    def restore():
+        work.copy_(f0)
+    go_rows = {}
+    for upto in (False, True):
+        gk = ell_ops.ell_go_i8(f0.clone(), tables, eslot, hrows, over, 3,
+                               upto, pack=True)
+        gr = ell_ops.ell_go_i8_ref(f0.clone(), tables, eslot, hrows, over,
+                                   3, upto, pack=True)
+        err = require_equal(torch, f"ell_go_i8 upto={upto}", B, (gk, gr))
+        ms = restored_ms(torch, lambda: ell_ops.ell_go_i8(
+            work, tables, eslot, hrows, over, 3, upto, pack=True),
+            restore, 10)
+        plain = restored_ms(torch, lambda: ell_ops.ell_go_i8_ref(
+            work, tables, eslot, hrows, over, 3, upto, pack=True),
+            restore, 1, 1)
+        go_bytes = 8 * slots + R1 * B + G * B + hub_bytes
+        go_rows[upto] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=bytes_ms(go_bytes), bound_by="bytes",
+                             library_ms=None, steps=3,
+                             live_bits=int(ell_ops._unpack_ref(gk).sum(
+                                 dtype=torch.int64).item()))
+        if not upto:
+            packed_out = gk
+    # the other depths, untimed: 1, 2 and 4 steps, exact and UPTO
+    for steps in (1, 2, 4):
+        for upto in (False, True):
+            require_equal(torch, f"ell_go_i8 steps={steps} upto={upto}", B,
+                          (ell_ops.ell_go_i8(f0.clone(), tables, eslot,
+                                             hrows, over, steps, upto,
+                                             pack=True),
+                           ell_ops.ell_go_i8_ref(f0.clone(), tables, eslot,
+                                                 hrows, over, steps, upto,
+                                                 pack=True)))
+    # the packed route on the same starts: its lane bits are the same
+    # vertex set as the int8 route's row bits
+    W = B // 8
+    f0p = torch.empty((R1, W), dtype=torch.uint8, device=dev)
+    pval = torch.zeros(Sp, dtype=torch.uint8, device=dev)
+    pval[:S] = (1 << (cols_t[:S] & 7)).to(torch.uint8)
+    ell_ops.frontier_upload(f0p, rows_t, cols_t >> 3, pval)
+    lanes = ell_ops.ell_go(f0p.clone(), tables, eslot, hrows, over, 3)
+    bits_i8 = ell_ops._unpack_ref(packed_out.t().contiguous())[:, :R1]
+    bits_lanes = ell_ops._unpack_ref(lanes)[:, :B].t()
+    if not torch.equal(bits_i8, bits_lanes):
+        raise AssertionError(f"ell_go_i8 and ell_go disagree at B={B}")
+    workp = torch.empty_like(f0p)
+    packed_ms = restored_ms(torch, lambda: ell_ops.ell_go(
+        workp, tables, eslot, hrows, over, 3),
+        lambda: workp.copy_(f0p), 10)
+    res["ell_go_i8"] = dict(go_rows[False], upto=go_rows[True],
+                            packed_ell_go_ms=packed_ms,
+                            int8_over_packed=go_rows[False]["ms"]
+                            / max(packed_ms, 1e-9))
+
+    # ---- K14 the row pack of a 3-step frontier
+    x = ell_ops.ell_go_i8(f0.clone(), tables, eslot, hrows, over, 3)
+    pk = torch.empty((G, B), dtype=torch.uint8, device=dev)
+    pr = torch.empty_like(pk)
+    ell_ops.pack_rows(x, pk)
+    ell_ops.pack_rows_ref(x, pr)
+    err = require_equal(torch, "pack_rows", B, (pk, pr))
+    ms = cuda_ms(torch, lambda: ell_ops.pack_rows(x, pk), 50)
+    plain = cuda_ms(torch, lambda: ell_ops.pack_rows_ref(x, pr), 5)
+    res["pack_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=bytes_ms(R1 * B + G * B),
+                            bound_by="bytes", library_ms=None)
+
+    # ---- the BFS (UPTO 5, stop when found): lane 0 a connected pair,
+    # lane 1 an unreachable one, the rest random
+    (s0, t0_), (s1, t1_) = int8_pairs(m)
+    starts_b = starts.copy()
+    starts_b[:2] = (s0, s1)
+    targets = rng.integers(0, ix.n, B)
+    targets[:2] = (t0_, t1_)
+    b_rows, b_cols, bS = coords(starts_b)
+    t_rows, t_cols, tS = coords(targets)
+    fb = torch.empty_like(f0)
+    tb = torch.empty_like(f0)
+    ell_ops.frontier_upload_i8(fb, b_rows, b_cols, bS)
+    ell_ops.frontier_upload_i8(tb, t_rows, t_cols, tS)
+    dk, lk = ell_ops.ell_bfs_i8(fb.clone(), tb, tables, eslot, hrows,
+                                over, 5)
+    dr, lr = ell_ops.ell_bfs_i8_ref(fb.clone(), tb, tables, eslot, hrows,
+                                    over, 5)
+    err_bfs = require_equal(torch, "ell_bfs_i8", B, (dk, dr))
+    if lk != lr:
+        raise AssertionError(f"ell_bfs_i8 ran {lk} levels, plain {lr}")
+    d_conn = int(dk[int(ix.perm[t0_]), 0].item())
+    d_none = int(dk[int(ix.perm[t1_]), 1].item())
+    if d_conn != 2 or d_none != -1:
+        raise AssertionError(f"BFS depths {d_conn} (want 2) and {d_none} "
+                             f"(want -1) on the aimed lanes")
+    wb = torch.empty_like(fb)
+    bfs_ms = restored_ms(torch, lambda: ell_ops.ell_bfs_i8(
+        wb, tb, tables, eslot, hrows, over, 5), lambda: wb.copy_(fb), 3, 1)
+    bfs_plain = restored_ms(torch, lambda: ell_ops.ell_bfs_i8_ref(
+        wb, tb, tables, eslot, hrows, over, 5), lambda: wb.copy_(fb), 1, 1)
+    res["ell_bfs_i8"] = dict(max_abs_err=err_bfs, ms=bfs_ms,
+                             plain_ms=bfs_plain, levels=lk,
+                             bound_ms=bytes_ms(8 * slots + 3 * R1 * B
+                                               + hub_bytes),
+                             bound_by="bytes", library_ms=None,
+                             connected_depth=d_conn, unreachable_depth=d_none)
+
+    # ---- K15 the level pass: the first pass, then level 1 after a hop
+    d0 = torch.empty((R1, B), dtype=torch.int16, device=dev)
+    flg = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    first_in = fb.clone()
+    ell_ops.bfs_level_i8(first_in, tb, d0, flg[0], 0, first=True)
+    dr0, fr0 = torch.empty_like(d0), torch.zeros(2, dtype=torch.int32,
+                                                 device=dev)
+    ell_ops.bfs_level_i8_ref(fb.clone(), tb, dr0, fr0, 0, True, True)
+    require_equal(torch, "bfs_level_i8 first", B, (d0, dr0), (flg[0], fr0))
+    first_ms = cuda_ms(torch, lambda: ell_ops.bfs_level_i8(
+        first_in, tb, d0, flg[0], 0, first=True), 20)
+    nxt0 = torch.empty_like(fb)
+    ell_ops.go_hop_i8(fb, None, nxt0, tables, eslot, hrows, over)
+    nk, dk1, fk1 = nxt0.clone(), d0.clone(), flg[1].clone()
+    nr, dr1, fr1 = nxt0.clone(), d0.clone(), flg[1].clone()
+    ell_ops.bfs_level_i8(nk, tb, dk1, fk1, 0)
+    ell_ops.bfs_level_i8_ref(nr, tb, dr1, fr1, 0, False, True)
+    err = require_equal(torch, "bfs_level_i8", B, (nk, nr), (dk1, dr1),
+                        (fk1, fr1))
+    live = int((nxt0 > 0).sum().item())
+    newly = int((nk > 0).sum().item())
+    changed = int((nk != nxt0).sum().item())
+    level_bytes = 2 * R1 * B + changed + 2 * (live + newly)
+    ms = restored_ms(torch, lambda: ell_ops.bfs_level_i8(nk, tb, dk1, fk1,
+                                                         0),
+                     lambda: (nk.copy_(nxt0), dk1.copy_(d0)), 20)
+    plain = restored_ms(torch, lambda: ell_ops.bfs_level_i8_ref(
+        nr, tb, dr1, fr1, 0, False, True),
+        lambda: (nr.copy_(nxt0), dr1.copy_(d0)), 5)
+    res["bfs_level_i8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                               bound_ms=bytes_ms(level_bytes),
+                               bound_by="bytes", library_ms=None,
+                               first_ms=first_ms,
+                               first_bound_ms=bytes_ms(4 * R1 * B),
+                               live_lanes=live, newly_lanes=newly)
+    return res
+
+
+def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over,
+                    rng) -> dict:
+    """The byte-tail path (B % 4 != 0, a width flags can set off the
+    ladder): upload, hop with the UPTO accumulator, row pack, the BFS
+    and its level pass, each equal to its plain version; untimed."""
+    dev = tables.nbr.device
+    B = TAIL_B
+    R1 = ix.n_rows + 1
+    S = 4 * B
+    rows_h = np.full(64, ix.n_rows, np.int32)
+    cols_h = np.zeros(64, np.int32)
+    rows_h[:S] = ix.perm[rng.integers(0, ix.n, S)]
+    cols_h[:S] = np.arange(S) % B
+    rows_t = torch.from_numpy(rows_h).to(dev)
+    cols_t = torch.from_numpy(cols_h).to(dev)
+    fk = torch.empty((R1, B), dtype=torch.int8, device=dev)
+    fr = torch.empty_like(fk)
+    ell_ops.frontier_upload_i8(fk, rows_t, cols_t, S)
+    ell_ops.frontier_upload_i8_ref(fr, rows_t, cols_t, S)
+    require_equal(torch, "frontier_upload_i8", B, (fk, fr))
+    for upto in (False, True):
+        for pack in (False, True):
+            gk = ell_ops.ell_go_i8(fk.clone(), tables, eslot, hrows, over,
+                                   4, upto, pack)
+            gr = ell_ops.ell_go_i8_ref(fk.clone(), tables, eslot, hrows,
+                                       over, 4, upto, pack)
+            require_equal(torch, f"ell_go_i8 upto={upto} pack={pack}", B,
+                          (gk, gr))
+    arb = torch.randint(-128, 128, (R1, B), dtype=torch.int8, device=dev)
+    ok_, orf = torch.empty_like(arb), torch.empty_like(arb)
+    ak, ar = arb.clone(), arb.clone()
+    ell_ops.go_hop_i8(arb, ak, ok_, tables, eslot, hrows, over)
+    ell_ops.go_hop_i8_ref(arb, ar, orf, tables, eslot, hrows, over)
+    require_equal(torch, "go_hop_i8 arbitrary", B, (ok_, orf), (ak, ar))
+    tk = fk.roll(1, dims=0).contiguous()
+    dk, lk = ell_ops.ell_bfs_i8(fk.clone(), tk, tables, eslot, hrows, over,
+                                5, False)
+    dr, lr = ell_ops.ell_bfs_i8_ref(fk.clone(), tk, tables, eslot, hrows,
+                                    over, 5, False)
+    require_equal(torch, "ell_bfs_i8", B, (dk, dr))
+    if lk != lr:
+        raise AssertionError(f"ell_bfs_i8 ran {lk} levels, plain {lr}")
+    return dict(B=B, levels=lk, equal=True)
 
 
 # =================================================== phase 3, sparse
@@ -2824,6 +3171,182 @@ def write_phase(torch, ell_ops, n: int, m: int, seconds: float,
         rt.close()
 
 
+# ===================================================== phase 11, unpacked
+UNPACKED = {"tpu_packed_frontier": False}
+# part (a) at default routes, with a sparse cap low enough that batches
+# overflow and rerun dense: at the default cap (131072 pairs) the
+# [sparse] phase's batches never overflowed, and at 8192 two of 286 did
+UNPACKED_SPARSE_CAP = 1024
+BURST = 256                    # part (b)'s one-shape burst: > 128 queries
+
+
+def unpacked_mix(rng, n: int, requests: int):
+    """Phase 4's mix with ``| LIMIT LIMIT_N`` on a quarter of the plain
+    exact-depth requests: (mix, limits)."""
+    mix = request_mix(rng, n, requests)
+    _starts, _steps, upto, count = mix
+    return mix, ~upto & ~count & (rng.random(requests) < 0.25)
+
+
+def go_check_set(rng, limits, requests: int) -> set:
+    """64 requests to check, 16 of them LIMIT requests."""
+    lim_i, rest_i = np.nonzero(limits)[0], np.nonzero(~limits)[0]
+    n_lim = min(16, len(lim_i))
+    return set(rng.choice(lim_i, n_lim, replace=False).tolist()) | set(
+        rng.choice(rest_i, min(64 - n_lim, len(rest_i)),
+                   replace=False).tolist())
+
+
+def lat_stats(requests: int, wall: float, lat) -> dict:
+    lat = np.asarray(lat)
+    return dict(requests=requests, wall_s=wall, qps=requests / wall,
+                p50_ms=float(np.percentile(lat, 50) * 1e3),
+                p99_ms=float(np.percentile(lat, 99) * 1e3))
+
+
+def unpacked_phase(torch, rt, ell_ops, flags, oracle: GoOracle,
+                   path_oracle: PathOracle, vids: np.ndarray, n: int,
+                   requests: int, threads: int, path_requests: int,
+                   path_threads: int, seed: int) -> dict:
+    """``tpu_packed_frontier=false`` on the serve graph, counted as one
+    window (launch counts zeroed before part a, read after part c):
+    (a) the mix in the default continuous mode (no stream may anchor:
+    every GO takes the windowed sparse route, its overflowing batches
+    rerun on the unpacked ``ell_go``); (b) the same mix on the dense
+    route (``go_dispatch_mode=windowed``, sparse and adaptive off), then
+    a burst of BURST one-shape requests so that a batch passes 128 and
+    the 1024 rung runs; (c) FIND SHORTEST PATH and FIND ALL PATH.  64
+    GO answers of each of (a) and (b) and every path answer are checked
+    against the oracles."""
+    out = {}
+    rng = np.random.default_rng(seed + 17)
+    mix, limits = unpacked_mix(rng, n, requests)
+    check = go_check_set(rng, limits, requests)
+    streams = rt.continuous.streams()
+    anchored0 = [dict(s.stats) for s in streams]
+    cap = {"tpu_sparse_cap": UNPACKED_SPARSE_CAP}
+    with flag_mode(flags, UNPACKED), flag_mode(flags, cap):
+        if rt.continuous_session(1, (1,)) is not None:
+            raise AssertionError("a continuous session anchored with "
+                                 "packing off")
+        # warm the degree and hub tables outside the window
+        rt.serve_go(1, [1], [1], 3, {1: "e"}, reduce=("count",))
+        torch.cuda.synchronize()
+        ell_ops.reset_launches()
+        rt0 = dict(rt.stats)
+        wall, lat, results = drive(rt, mix, threads, check, limits)
+        stats = {k: rt.stats[k] - rt0[k] for k in rt0}
+    a_launch = dict(ell_ops.LAUNCHES)
+    check_go(oracle, mix, results, check, limits)
+    if len(rt.continuous.streams()) != len(streams) or any(
+            s.stats["anchors"] != a["anchors"] or s.stats["joins"] !=
+            a["joins"] for s, a in zip(streams, anchored0)):
+        raise AssertionError("a continuous stream anchored or took riders "
+                             "with packing off")
+    if not (stats["go_sparse"] and stats["sparse_overflows"]
+            and stats["go_dense"]):
+        raise AssertionError(f"part (a) did not ride the sparse route and "
+                             f"its dense rerun: {stats}")
+    out["a"] = dict(lat_stats(requests, wall, lat), threads=threads,
+                    checked=len(check), go_sparse=stats["go_sparse"],
+                    sparse_overflows=stats["sparse_overflows"],
+                    go_dense=stats["go_dense"],
+                    limit_requests=int(limits.sum()),
+                    sparse_cap=UNPACKED_SPARSE_CAP)
+
+    # (b) the dense route, then the wide burst
+    rng_b = np.random.default_rng(seed + 19)
+    check_b = go_check_set(rng_b, limits, requests)
+    with flag_mode(flags, UNPACKED), flag_mode(flags, WINDOWED):
+        rt0 = dict(rt.stats)
+        d0 = dict(rt.dispatcher.stats)
+        wall, lat, results = drive(rt, mix, threads, check_b, limits)
+        stats = {k: rt.stats[k] - rt0[k] for k in rt0}
+        batches = rt.dispatcher.stats["batches"] - d0["batches"]
+        rt.dispatcher.stats["max_batch"] = 0      # a running max
+        burst = (rng_b.integers(1, n + 1, BURST), np.full(BURST, 3),
+                 np.zeros(BURST, bool), np.zeros(BURST, bool))
+        with flag_mode(flags, {"go_batch_window_ms": 300}):
+            b_wall, b_lat, _ = drive(rt, burst, BURST)
+        burst_max = rt.dispatcher.stats["max_batch"]
+    check_go(oracle, mix, results, check_b, limits)
+    if stats["go_sparse"] or stats["go_adaptive"] or not stats["go_dense"]:
+        raise AssertionError(f"part (b) left the dense route: {stats}")
+    if burst_max <= 128:
+        raise AssertionError(f"the burst's widest batch was {burst_max}, "
+                             f"so the 1024 rung never ran")
+    out["b"] = dict(lat_stats(requests, wall, lat), threads=threads,
+                    checked=len(check_b), go_dense=stats["go_dense"],
+                    batches=batches,
+                    mean_batch=requests / max(batches, 1),
+                    burst=dict(lat_stats(BURST, b_wall, b_lat),
+                               threads=BURST, max_batch=burst_max))
+
+    # (c) FIND SHORTEST PATH from path_threads threads, then FIND ALL
+    # PATH on aimed pairs
+    rng_c = np.random.default_rng(seed + 23)
+    srcs = rng_c.choice(vids, path_requests)
+    dsts = rng_c.choice(vids, path_requests)
+    with flag_mode(flags, UNPACKED):
+        rt0 = dict(rt.stats)
+        wall, plat, presults = drive_paths(rt, srcs, dsts, path_threads)
+        stats = {k: rt.stats[k] - rt0[k] for k in rt0}
+        if len(presults) != path_requests:
+            raise AssertionError(f"{len(presults)} of {path_requests} path "
+                                 f"requests served")
+        reachable = 0
+        for i in range(path_requests):
+            s, t = int(srcs[i]), int(dsts[i])
+            want, _ = path_oracle.depths([s], [t], 5, True)
+            cols, rows = presults[i]
+            d = int(want[t])
+            if cols != ["path"]:
+                raise AssertionError(f"path request {i}: columns {cols}")
+            if d == path_oracle.INF or d == 0:
+                if rows:
+                    raise AssertionError(f"path request {i}: rows for an "
+                                         f"unreached target")
+                continue
+            reachable += 1
+            path_oracle.check(rows, path_oracle.shortest_paths([s], t, want),
+                              [s], t, length=d)
+        all_rows = all_checked = 0
+        t_all = time.perf_counter()
+        for s in rng_c.choice(vids, 64).tolist():
+            if all_checked == 8:
+                break
+            reach, _ = path_oracle.depths([s], [], 3, False)
+            cand = np.nonzero((reach >= 1) & (reach <= 3))[0]
+            if not len(cand):
+                continue
+            t = int(rng_c.choice(cand))
+            cols, rows = rt.serve_find_path(1, [s], [t], [1], 3, False,
+                                            {1: "e"})
+            path_oracle.check(rows, path_oracle.all_paths([s], t, 3), [s],
+                              t)
+            if not rows:
+                raise AssertionError(f"FIND ALL PATH {s} -> {t}: no path "
+                                     f"to a reached target")
+            all_checked += 1
+            all_rows += len(rows)
+        t_all = time.perf_counter() - t_all
+    if all_checked < 8:
+        raise AssertionError(f"{all_checked} FIND ALL PATH pairs found")
+    launches = dict(ell_ops.LAUNCHES)
+    require_launched(launches, "unpacked")
+    out["c"] = dict(lat_stats(path_requests, wall, list(plat.values())),
+                    threads=path_threads, checked=path_requests,
+                    checked_reachable=reachable,
+                    bfs_dispatches=stats["bfs_dispatches"],
+                    levels_per_dispatch=stats["bfs_levels"]
+                    / max(stats["bfs_dispatches"], 1),
+                    all_path_checked=all_checked, all_path_rows=all_rows,
+                    all_path_s=t_all)
+    out["launches"] = launches
+    out["launches_a"] = a_launch
+    return out
+
+
 # ========================================================= --profile
 def profile_phase(torch, run) -> dict:
     """``run() -> (requests, wall seconds)`` under torch.profiler (CPU +
@@ -2918,6 +3441,10 @@ def main(argv=None) -> int:
                     help="forward edges of the [write] space (each "
                          "stored in both directions)")
     ap.add_argument("--write-seconds", type=float, default=20.0)
+    ap.add_argument("--unpacked-requests", type=int, default=1024,
+                    help="GO requests of each of the [unpacked] phase's "
+                         "parts a and b")
+    ap.add_argument("--unpacked-path-requests", type=int, default=128)
     args = ap.parse_args(argv)
 
     import torch
@@ -3024,6 +3551,22 @@ def main(argv=None) -> int:
         log("[kernel] ell_absorb equal=True inputs_unchanged=True "
             + json.dumps(absorb_rows["ell_absorb"]))
         log(f"[kernel] absorb phase {time.perf_counter() - t0:.2f} s")
+        int8_rows = {}
+        for B in (1024, 128):
+            t0 = time.perf_counter()
+            int8_rows[B] = int8_kernel_phase(torch, ell_ops, m, ix, tables,
+                                             eslot, hrows, B, (1,), rng)
+            for k, v in int8_rows[B].items():
+                log(f"[kernel] {k} B={B} equal=True " + json.dumps(v))
+            log(f"[kernel] int8 B={B} phase "
+                f"{time.perf_counter() - t0:.2f} s")
+        tail = int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows,
+                               (1,), rng)
+        log("[kernel] int8 byte tail " + json.dumps(tail))
+        log("[compare] ell_go at 3 steps, int8 vs packed, ms: "
+            + json.dumps({B: [int8_rows[B]["ell_go_i8"]["ms"],
+                              int8_rows[B]["ell_go_i8"]["packed_ell_go_ms"]]
+                          for B in (1024, 128)}))
 
         # ---- 4. serve (continuous)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,
@@ -3075,28 +3618,38 @@ def main(argv=None) -> int:
             for k, v in profile_all(torch, rt, flags, m.vids, args,
                                     blobs).items():
                 log(f"[profile] {k} " + json.dumps(v))
+
+        # ---- 10. write (a store-backed space written while it is read)
+        t0 = time.perf_counter()
+        write = write_phase(torch, ell_ops, args.write_vertices,
+                            args.write_edges, args.write_seconds,
+                            WRITE_READERS, args.seed)
+        log("[write] " + json.dumps(write))
+        log(f"[write] phase {time.perf_counter() - t0:.2f} s")
+        log("[compare] reader qps while writing vs [serve]: " + json.dumps(
+            [write["reader_qps"], serve["qps"]]))
+
+        # ---- 11. unpacked (tpu_packed_frontier=false on the serve graph)
+        t0 = time.perf_counter()
+        unpacked = unpacked_phase(
+            torch, rt, ell_ops, flags, oracle, PathOracle(oracle), m.vids,
+            args.vertices, args.unpacked_requests, args.threads,
+            args.unpacked_path_requests, args.path_threads, args.seed)
+        log("[unpacked] " + json.dumps(unpacked))
+        log(f"[unpacked] phase {time.perf_counter() - t0:.2f} s")
     finally:
         rt.close()
 
-    # ---- 10. write (a store-backed space written while it is read)
-    t0 = time.perf_counter()
-    write = write_phase(torch, ell_ops, args.write_vertices,
-                        args.write_edges, args.write_seconds,
-                        WRITE_READERS, args.seed)
-    log("[write] " + json.dumps(write))
-    log(f"[write] phase {time.perf_counter() - t0:.2f} s")
-    log("[compare] reader qps while writing vs [serve]: " + json.dumps(
-        [write["reader_qps"], serve["qps"]]))
-
-    # ---- 11. kernels line: the serve rung's numbers (B=128, W=16),
-    # with the W=128 numbers beside them, and for the sparse and
+    # ---- 12. kernels line: the serve rung's numbers (B=128, W=16),
+    # with the W=128 (B=1024) numbers beside them, and for the sparse and
     # adaptive programs and their kernels the runs ROW_FROM names (the
     # programs: c0 256, 3 steps, an 8-query batch; adaptive K 2048, 3
     # steps); launches from the counted phases that run each kernel
     phases = {"serve": serve["launches"], "windowed": windowed["launches"],
               "sparse": sparse["launches"],
               "adaptive": adaptive["launches"], "fused": fused["launches"],
-              "path": path["launches"], "write": write["launches"]}
+              "path": path["launches"], "write": write["launches"],
+              "unpacked": unpacked["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -3111,6 +3664,13 @@ def main(argv=None) -> int:
             row.update({a: v[a] for a in keys})
             row.update({a: b for a, b in v.items() if a not in keys})
             row["runtime_path"] = k not in NO_RUNTIME_PATH
+        elif k in INT8_KERNELS:
+            v = int8_rows[128][k]
+            row["width_lanes"] = 128
+            row.update({a: v[a] for a in keys})
+            row.update({a: b for a, b in v.items() if a not in keys})
+            row["b1024"] = {a: b for a, b in int8_rows[1024][k].items()
+                            if a != "bound_by"}
         elif k in absorb_rows:
             v = absorb_rows[k]
             row.update({a: v[a] for a in keys})

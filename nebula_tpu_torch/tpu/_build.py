@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``load()`` compiles ``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``,
-``csrc/edge_go.cu``, ``csrc/expr_filter.cu`` and ``csrc/ell_absorb.cu``
-with nvcc into
+``csrc/edge_go.cu``, ``csrc/expr_filter.cu``, ``csrc/ell_absorb.cu``
+and ``csrc/ell_int8.cu`` with nvcc into
 ``_build_out/libell_lanes.so`` beside this file (a
 directory git ignores) at first use, rebuilding when a source is newer
 than the library, and loads it with ctypes.  Each source compiles to an
@@ -30,7 +30,8 @@ SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "sparse_go.cu"),
            os.path.join(CSRC, "edge_go.cu"),
            os.path.join(CSRC, "expr_filter.cu"),
-           os.path.join(CSRC, "ell_absorb.cu"))
+           os.path.join(CSRC, "ell_absorb.cu"),
+           os.path.join(CSRC, "ell_int8.cu"))
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -166,6 +167,14 @@ def load() -> ctypes.CDLL:
         # csrc/ell_absorb.cu (the bucket table by value)
         from .ell_ops import _AbsorbBuckets
         lib.ell_absorb.argtypes = [vp, vp, vp, vp, i64, _AbsorbBuckets, vp]
+        # csrc/ell_int8.cu
+        lib.i8_frontier_upload.argtypes = [vp, vp, vp, i64, i64, i64, i64,
+                                           vp]
+        lib.i8_go_hop.argtypes = [vp, vp, vp, vp, vp, p64, i32, vp, vp,
+                                  i64, p32, i32, i64, i64, i64, vp]
+        lib.i8_pack_rows.argtypes = [vp, vp, i64, i64, vp]
+        lib.i8_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
+                                     i64, vp]
         for fn in (lib.ell_go_hop, lib.ell_lane_join,
                    lib.ell_lane_extract, lib.ell_lane_clear,
                    lib.ell_frontier_upload, lib.ell_go_count,
@@ -173,7 +182,8 @@ def load() -> ctypes.CDLL:
                    lib.sg_compact, lib.sg_reduce, lib.ad_switch,
                    lib.ad_bitmap_lanes, lib.edge_seed, lib.edge_hop,
                    lib.edge_final, lib.edge_bfs_level, lib.expr_filter,
-                   lib.ell_absorb):
+                   lib.ell_absorb, lib.i8_frontier_upload,
+                   lib.i8_go_hop, lib.i8_pack_rows, lib.i8_bfs_level):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib

@@ -4,15 +4,18 @@
 packed frontier upload (``tpu/runtime.py:3251``), batched dense GO and
 its COUNT(*) fold (``ell.py:572``), batched BFS (``ell.py:1080``), the
 sparse pair-list GO with its COUNT(*) and LIMIT variants
-(``ell.py:1222``), the adaptive single-query GO (``ell.py:1493``) and
+(``ell.py:1222``), the adaptive single-query GO (``ell.py:1493``),
 the write path's ``ell_absorb`` (``ell.py:1011``), which derives the
-next mirror generation's tables from the resident ones.
+next mirror generation's tables from the resident ones, and the
+packing-off route's int8 twins (``tpu_packed_frontier=false``): the
+int8 start upload (``runtime.py:3228``), dense GO with its row pack
+(``ell.py:1140``, ``:439``) and batched BFS (``ell.py:1616``).
 
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``, a transcription of the JAX function on the
 same layout); on a CUDA device it launches its hand-written kernel from
-``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu`` or ``csrc/ell_absorb.cu``
-and adds one to its
+``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``, ``csrc/ell_absorb.cu`` or
+``csrc/ell_int8.cu`` and adds one to its
 entry in ``LAUNCHES``, or raises — there is no fallback from one to the
 other.  Any other device raises.
 
@@ -21,9 +24,11 @@ in place where it can and says so per function: join, clear and the
 hop's ``accp`` union write the carriers in place, the hop's new
 frontier goes to a separate ``out`` buffer (its gathers read the
 previous generation), and extract writes a fresh ``[n_rows + 1, P]``
-buffer.  ``ell_go`` and ``ell_bfs`` consume their start frontier (it
-becomes one of their two ping-pong buffers).  Lane layout at every
-function here: bit k of word j is lane 8j + k (``ell.pack_lanes_host``).
+buffer.  ``ell_go`` and ``ell_bfs`` (and their int8 twins) consume
+their start frontier (it becomes one of their two ping-pong buffers).
+Lane layout at every packed function here: bit k of word j is lane
+8j + k (``ell.pack_lanes_host``); the int8 carrier holds one byte a
+lane.
 """
 from __future__ import annotations
 
@@ -44,7 +49,10 @@ LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
                             "adaptive_switch": 0, "bitmap_lanes": 0,
                             "sparse_go": 0, "sparse_go_count": 0,
                             "sparse_go_limit": 0, "adaptive_go": 0,
-                            "ell_absorb": 0}
+                            "ell_absorb": 0, "frontier_upload_i8": 0,
+                            "go_hop_i8": 0, "pack_rows": 0,
+                            "bfs_level_i8": 0, "ell_go_i8": 0,
+                            "ell_bfs_i8": 0}
 MAX_OVER = 32        # csrc kMaxOver
 MAX_BUCKETS = 32     # csrc kMaxBuckets
 MAX_COUNT_W = 1024   # csrc ell_go_count: W / 4 <= kThreads
@@ -473,6 +481,18 @@ def go_count(out: torch.Tensor, deg: torch.Tensor, counts: torch.Tensor
     return counts
 
 
+def ell_go_count_ref(f0p: torch.Tensor, deg: torch.Tensor,
+                     tables: DeviceTables, eslot: torch.Tensor,
+                     hrows: torch.Tensor, over: Sequence[int], steps: int,
+                     upto: bool = False) -> torch.Tensor:
+    """Plain version of ``ell_go_count``: ``ell_go_ref`` then
+    ``go_count_ref``."""
+    out = ell_go_ref(f0p, tables, eslot, hrows, over, steps, upto)
+    counts = torch.empty(8 * out.shape[1], dtype=torch.int32,
+                         device=out.device)
+    return go_count_ref(out, deg, counts)
+
+
 def ell_go_count(f0p: torch.Tensor, deg: torch.Tensor,
                  tables: DeviceTables, eslot: torch.Tensor,
                  hrows: torch.Tensor, over: Sequence[int], steps: int,
@@ -559,13 +579,13 @@ def bfs_depth_i8(d: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 
 def _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps, stop,
-              hop, level, final):
-    R1, W = _frontier(f0p, "f0p")
-    _check(t0p, "t0p", torch.uint8, (R1, W), f0p.device)
+              hop, level, final, lanes: int):
+    """The BFS program over one carrier layout (``hop``/``level`` of the
+    packed or the int8 form); ``d`` is int16 [R1, lanes]."""
     if not 0 <= max_steps < int(INT16_INF) - 1:
         raise ValueError(f"max_steps={max_steps} does not fit int16")
     dev = f0p.device
-    d = torch.empty((R1, 8 * W), dtype=torch.int16, device=dev)
+    d = torch.empty((f0p.shape[0], lanes), dtype=torch.int16, device=dev)
     flags = torch.zeros((max_steps + 1, 2), dtype=torch.int32, device=dev)
     fp, buf = f0p, torch.empty_like(f0p)
     level(fp, t0p, d, flags[0], 0, True, stop)
@@ -584,6 +604,13 @@ def _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps, stop,
     return d, step
 
 
+def _bfs_pair(f0p: torch.Tensor, t0p: torch.Tensor) -> int:
+    """Check the packed start/target pair; returns the lane count."""
+    R1, W = _frontier(f0p, "f0p")
+    _check(t0p, "t0p", torch.uint8, (R1, W), f0p.device)
+    return 8 * W
+
+
 def ell_bfs_ref(f0p: torch.Tensor, t0p: torch.Tensor,
                 tables: DeviceTables, eslot: torch.Tensor,
                 hrows: torch.Tensor, over: Sequence[int], max_steps: int,
@@ -592,7 +619,7 @@ def ell_bfs_ref(f0p: torch.Tensor, t0p: torch.Tensor,
     versions of the hop, the level pass and the int8 form."""
     return _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps,
                      stop_when_found, go_hop_ref, bfs_level_ref,
-                     bfs_depth_i8_ref)
+                     bfs_depth_i8_ref, _bfs_pair(f0p, t0p))
 
 
 def ell_bfs(f0p: torch.Tensor, t0p: torch.Tensor, tables: DeviceTables,
@@ -608,7 +635,299 @@ def ell_bfs(f0p: torch.Tensor, t0p: torch.Tensor, tables: DeviceTables,
     launching the next (one sync a level), so it stops exactly where
     ``jax.lax.while_loop``'s condition does."""
     return _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps,
-                     stop_when_found, go_hop, bfs_level, bfs_depth_i8)
+                     stop_when_found, go_hop, bfs_level, bfs_depth_i8,
+                     _bfs_pair(f0p, t0p))
+
+
+# ====================================================================
+# Packing off (``tpu_packed_frontier=false``): the int8 carrier, one
+# byte a query lane — int8 [n_rows + 1, B], lane b of row r at r*B + b,
+# any B >= 1 — and csrc/ell_int8.cu's K12 upload, K13 hop, K14 row pack
+# and K15 BFS level pass.  The plain versions compute what the
+# reference computes on the whole int8 domain (a signed max, live = a
+# signed > 0), not only on 0/1 lanes.
+# ====================================================================
+def _carrier(f: torch.Tensor, name: str) -> Tuple[int, int]:
+    if not isinstance(f, torch.Tensor) or f.dim() != 2:
+        raise ValueError(f"{name} must be a [n_rows + 1, B] tensor")
+    R1, B = f.shape
+    if R1 < 1 or B < 1:
+        raise ValueError(f"{name} has shape {tuple(f.shape)}")
+    _check(f, name, torch.int8, (R1, B), f.device)
+    return R1, B
+
+
+def frontier_upload_i8_ref(out: torch.Tensor, rows: torch.Tensor,
+                           cols: torch.Tensor, S: int) -> torch.Tensor:
+    """Plain version of ``frontier_upload_i8`` (runtime.py:3228-3248):
+    zeros, then a scatter-max of 1 at the first ``S`` entries and of 0
+    at the rest; entries out of range drop."""
+    R1, B = out.shape
+    out.zero_()
+    vals = torch.zeros(rows.shape[0], dtype=torch.int8, device=out.device)
+    vals[:S] = 1
+    r, c = rows.long(), cols.long()
+    keep = (r >= 0) & (r < R1) & (c >= 0) & (c < B)
+    out.view(-1).scatter_reduce_(0, r[keep] * B + c[keep], vals[keep],
+                                 "amax")
+    return out
+
+
+def frontier_upload_i8(out: torch.Tensor, rows: torch.Tensor,
+                       cols: torch.Tensor, S: int) -> torch.Tensor:
+    """K12: overwrite ``out`` int8 [n_rows + 1, B] with a fresh start
+    frontier — 1 at (rows[i], cols[i]) for i < S, zero elsewhere.
+    ``rows``/``cols`` int32 [Sp] are the reference's padded lists: the
+    entries past S are padding aimed at the pad row n_rows with value
+    0, so it ends zero.  Duplicates need no dedup (every value is 1)."""
+    R1, B = _carrier(out, "out")
+    dev = out.device
+    Sp = _vec(rows, "rows", torch.int32, dev)
+    _vec(cols, "cols", torch.int32, dev, Sp)
+    if not 0 <= S <= Sp:
+        raise ValueError(f"S={S} live entries of {Sp}")
+    if not _route(dev):
+        return frontier_upload_i8_ref(out, rows, cols, S)
+    rc = _lib().i8_frontier_upload(out.data_ptr(), rows.data_ptr(),
+                                   cols.data_ptr(), Sp, S, R1, B,
+                                   _stream(dev))
+    _ok(rc, "i8_frontier_upload")
+    LAUNCHES["frontier_upload_i8"] += 1
+    return out
+
+
+def go_hop_i8_ref(f: torch.Tensor, acc: Optional[torch.Tensor],
+                  out: torch.Tensor, tables: DeviceTables,
+                  eslot: torch.Tensor, hrows: torch.Tensor,
+                  over: Sequence[int]
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of ``go_hop_i8`` (ell.py:386 _hop_body and :368
+    _bucket_expand): per bucket, the max over the D in-slots of
+    f[nbr] * ok(et) from 0; buckets concatenate; the extra rows max
+    into their owners (owners >= n_rows drop); the pad row is zero;
+    acc = max(acc, out) when an accumulator is given."""
+    B = f.shape[1]
+    over_t = torch.tensor(sorted(set(int(e) for e in over)),
+                          dtype=torch.int32, device=f.device)
+    for b in range(len(tables.D)):
+        nbr, et = tables.bucket(b)
+        ok = torch.isin(et, over_t).to(torch.int8)
+        a = torch.zeros((nbr.shape[0], B), dtype=torch.int8,
+                        device=f.device)
+        for j in range(nbr.shape[1]):
+            a = torch.maximum(a, f[nbr[:, j].long()] * ok[:, j, None])
+        r0 = tables.row0[b]
+        out[r0:r0 + nbr.shape[0]] = a
+    n, n_rows = tables.n, tables.n_rows
+    out[n_rows] = 0
+    if n_rows > n:
+        owner = hrows[eslot.long()].long()
+        live = (owner >= 0) & (owner < n_rows)
+        body = out[:n_rows]
+        ext = body[n:][live]
+        body.scatter_reduce_(0, owner[live][:, None].expand(-1, B), ext,
+                             "amax")
+    if acc is not None:
+        torch.maximum(acc, out, out=acc)
+    return out, acc
+
+
+def go_hop_i8(f: torch.Tensor, acc: Optional[torch.Tensor],
+              out: torch.Tensor, tables: DeviceTables, eslot: torch.Tensor,
+              hrows: torch.Tensor, over: Sequence[int]
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K13, one int8 frontier advance of every lane: ``out`` gets the
+    next frontier (all of it, pad row zero), ``acc`` (None: no UPTO
+    union) becomes max(acc, out) in place, after the hub pass.  The hub
+    merge takes ``go_hop``'s (eslot, hrows).  ``out`` must not alias
+    ``f``.  Returns (out, acc)."""
+    R1, B = _carrier(f, "f")
+    dev = f.device
+    _check(out, "out", torch.int8, (R1, B), dev)
+    if acc is not None:
+        _check(acc, "acc", torch.int8, (R1, B), dev)
+    if out.data_ptr() == f.data_ptr():
+        raise ValueError("out must be a separate buffer from f")
+    if R1 != tables.n_rows + 1:
+        raise ValueError(f"carrier has {R1} rows, tables "
+                         f"{tables.n_rows + 1}")
+    n_extras = tables.n_rows - tables.n
+    _check(eslot, "eslot", torch.int32, (n_extras,), dev)
+    _vec(hrows, "hrows", torch.int32, dev)
+    _tables_check(tables, dev)
+    over = _over_check(over)
+    if not _route(dev):
+        return go_hop_i8_ref(f, acc, out, tables, eslot, hrows, over)
+    _aligned(f, out, *(() if acc is None else (acc,)))
+    ov = (ctypes.c_int32 * len(over))(*over)
+    rc = _lib().i8_go_hop(
+        f.data_ptr(), None if acc is None else acc.data_ptr(),
+        out.data_ptr(), tables.nbr.data_ptr(), tables.et.data_ptr(),
+        _bucket_desc(tables), len(tables.D), eslot.data_ptr(),
+        hrows.data_ptr(), n_extras, ov, len(over), tables.n, tables.n_rows,
+        B, _stream(dev))
+    _ok(rc, "i8_go_hop")
+    LAUNCHES["go_hop_i8"] += 1
+    return out, acc
+
+
+def pack_rows_ref(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``pack_rows`` (ell.py:439 pack_bits)."""
+    R1, B = x.shape
+    G = out.shape[0]
+    padded = torch.zeros((8 * G, B), dtype=torch.uint8, device=x.device)
+    padded[:R1] = (x > 0).to(torch.uint8)
+    w = torch.tensor([1 << k for k in range(8)], dtype=torch.uint8,
+                     device=x.device)
+    out.copy_((padded.view(G, 8, B) * w[None, :, None])
+              .sum(dim=1, dtype=torch.uint8))
+    return out
+
+
+def pack_rows(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """K14: bit-pack ``x`` int8 [R1, B] along rows into ``out`` uint8
+    [ceil(R1 / 8), B]: bit k of out[g, b] is x[8g + k, b] > 0 (little
+    bit order; ``ell.unpack_bits`` inverts it), rows past R1 zero."""
+    R1, B = _carrier(x, "x")
+    dev = x.device
+    _check(out, "out", torch.uint8, (-(-R1 // 8), B), dev)
+    if not _route(dev):
+        return pack_rows_ref(x, out)
+    _aligned(x, out)
+    rc = _lib().i8_pack_rows(x.data_ptr(), out.data_ptr(), R1, B,
+                             _stream(dev))
+    _ok(rc, "i8_pack_rows")
+    LAUNCHES["pack_rows"] += 1
+    return out
+
+
+def bfs_level_i8_ref(nxt: torch.Tensor, tp: torch.Tensor, d: torch.Tensor,
+                     flags: torch.Tensor, step: int, first: bool,
+                     stop: bool) -> None:
+    """Plain version of ``bfs_level_i8`` (ell.py:1638-1656)."""
+    inf = int(INT16_INF)
+    live = nxt > 0
+    if first:
+        d.copy_(torch.where(live, 0, inf).to(torch.int16))
+        newly = live
+    else:
+        newly = live & (d == inf)
+        d.masked_fill_(newly, step + 1)
+        nxt.copy_(newly.to(torch.int8))
+    flags[0] |= newly.any().to(torch.int32)
+    if stop:
+        flags[1] |= ((tp > 0) & (d == inf)).any().to(torch.int32)
+
+
+def bfs_level_i8(nxt: torch.Tensor, tp: torch.Tensor, d: torch.Tensor,
+                 flags: torch.Tensor, step: int, first: bool = False,
+                 stop: bool = True) -> None:
+    """K15, one int8 BFS level after the hop wrote ``nxt`` int8
+    [n_rows + 1, B]: ``newly = (nxt > 0) & (d == INF)``, ``d = step +
+    1`` there, ``nxt`` becomes ``newly`` (0/1) in place, and ``flags``
+    int32 [2] (zero before) gets 1 in slot 0 when any lane was newly
+    reached and, with ``stop``, 1 in slot 1 when any target lane
+    (``tp > 0``) is still INF.  With ``first``, ``nxt`` is the start
+    frontier (left as it is) and ``d`` int16 [n_rows + 1, B] is
+    written whole: 0 where nxt > 0, INF elsewhere."""
+    R1, B = _carrier(nxt, "nxt")
+    dev = nxt.device
+    _check(tp, "tp", torch.int8, (R1, B), dev)
+    _check(d, "d", torch.int16, (R1, B), dev)
+    _check(flags, "flags", torch.int32, (2,), dev)
+    if not 0 <= step < int(INT16_INF) - 1:
+        raise ValueError(f"level {step} does not fit an int16 depth")
+    if not _route(dev):
+        return bfs_level_i8_ref(nxt, tp, d, flags, step, first, stop)
+    _aligned(nxt, tp, d, flags)
+    rc = _lib().i8_bfs_level(nxt.data_ptr(), tp.data_ptr(), d.data_ptr(),
+                             flags.data_ptr(), step, int(first), int(stop),
+                             R1, B, _stream(dev))
+    _ok(rc, "i8_bfs_level")
+    LAUNCHES["bfs_level_i8"] += 1
+
+
+def _go_loop_i8(f0, tables, eslot, hrows, over, steps, upto, pack, hop,
+                packer):
+    out = f0
+    if steps > 1:
+        acc = f0.clone() if upto else None
+        cur, buf = f0, torch.empty_like(f0)
+        for _ in range(steps - 1):
+            hop(cur, acc, buf, tables, eslot, hrows, over)
+            cur, buf = buf, cur
+        out = acc if upto else cur
+    if not pack:
+        return out
+    R1, B = out.shape
+    return packer(out, torch.empty((-(-R1 // 8), B), dtype=torch.uint8,
+                                   device=out.device))
+
+
+def ell_go_i8_ref(f0: torch.Tensor, tables: DeviceTables,
+                  eslot: torch.Tensor, hrows: torch.Tensor,
+                  over: Sequence[int], steps: int, upto: bool = False,
+                  pack: bool = False) -> torch.Tensor:
+    """Plain version of ``ell_go_i8``: the same loop over the plain hop
+    and row pack."""
+    return _go_loop_i8(f0, tables, eslot, hrows, over, steps, upto, pack,
+                       go_hop_i8_ref, pack_rows_ref)
+
+
+def ell_go_i8(f0: torch.Tensor, tables: DeviceTables, eslot: torch.Tensor,
+              hrows: torch.Tensor, over: Sequence[int], steps: int,
+              upto: bool = False, pack: bool = False) -> torch.Tensor:
+    """Batched dense GO over the int8 carrier (ell.py:1140
+    make_batched_go_kernel): ``steps - 1`` hops of the start frontier
+    ``f0`` int8 [n_rows + 1, B]; with ``upto`` the running max of
+    depths 0 .. steps-1 (the accumulator starts as a copy of ``f0``);
+    with ``pack`` the result bit-packed along ROWS, uint8
+    [ceil((n_rows + 1) / 8), B] (``pack_rows``) — not the packed
+    route's lane-packed [n_rows + 1, B / 8].  The hops ping-pong
+    between ``f0`` and one spare buffer, so ``f0`` is consumed."""
+    _carrier(f0, "f0")
+    out = _go_loop_i8(f0, tables, eslot, hrows, over, steps, upto, pack,
+                      go_hop_i8, pack_rows)
+    if (steps > 1 or pack) and _route(f0.device):
+        LAUNCHES["ell_go_i8"] += 1
+    return out
+
+
+def _bfs_pair_i8(f0: torch.Tensor, t0: torch.Tensor) -> int:
+    """Check the int8 start/target pair; returns the lane count."""
+    R1, B = _carrier(f0, "f0")
+    _check(t0, "t0", torch.int8, (R1, B), f0.device)
+    return B
+
+
+def ell_bfs_i8_ref(f0: torch.Tensor, t0: torch.Tensor,
+                   tables: DeviceTables, eslot: torch.Tensor,
+                   hrows: torch.Tensor, over: Sequence[int], max_steps: int,
+                   stop_when_found: bool = True) -> Tuple[torch.Tensor, int]:
+    """Plain version of ``ell_bfs_i8``: the same loop over the plain
+    versions of the hop, the level pass and the int8 form."""
+    return _bfs_loop(f0, t0, tables, eslot, hrows, over, max_steps,
+                     stop_when_found, go_hop_i8_ref, bfs_level_i8_ref,
+                     bfs_depth_i8_ref, _bfs_pair_i8(f0, t0))
+
+
+def ell_bfs_i8(f0: torch.Tensor, t0: torch.Tensor, tables: DeviceTables,
+               eslot: torch.Tensor, hrows: torch.Tensor,
+               over: Sequence[int], max_steps: int,
+               stop_when_found: bool = True) -> Tuple[torch.Tensor, int]:
+    """Batched BFS depths over the int8 carrier (ell.py:1616
+    make_batched_bfs_kernel): ``f0``/``t0`` int8 [n_rows + 1, B] start
+    and target lanes (``f0`` is consumed).  Returns (depth, levels
+    run) in ``ell_bfs``'s form: [n_rows + 1, B], int8 with -1 for
+    unreached when ``max_steps <= 120`` (``bfs_depth_i8``), else int16
+    with INT16_INF.  The level loop runs on the host and reads this
+    level's two flags back once a level, as ``ell_bfs`` does."""
+    out = _bfs_loop(f0, t0, tables, eslot, hrows, over, max_steps,
+                    stop_when_found, go_hop_i8, bfs_level_i8, bfs_depth_i8,
+                    _bfs_pair_i8(f0, t0))
+    if _route(f0.device):
+        LAUNCHES["ell_bfs_i8"] += 1
+    return out
 
 
 # ====================================================================

@@ -45,12 +45,18 @@ The entry points:
   the compiled WHERE (``expr_filter``) on the card, then YIELD
   materialization on the host.
 - ``serve_find_path`` answers ``FIND SHORTEST|ALL PATH``: batched BFS
-  depths on the card (``ell_bfs``), then the host's parent walk
+  depths on the card (``ell_bfs``, or ``ell_bfs_i8`` with packing
+  off), then the host's parent walk
   (``_reconstruct_paths``).
 
-Everything else raises ``TpuDecline``; the mesh kernels, the unpacked
-dense kernels and the dispatcher's host filter and materialization
-are not ported yet and their branches decline naming what they need.
+With ``tpu_packed_frontier=false`` the dense GO and the BFS ride the
+int8 carrier instead (``ell_go_i8``, ``ell_bfs_i8``; the GO result
+bit-packed along rows), and the continuous tier is refused, so every
+GO takes the windowed pipeline.
+
+Everything else raises ``TpuDecline``; the mesh kernels and the
+dispatcher's host filter and materialization are not ported yet and
+their branches decline naming what they need.
 
 Semantics held exactly: ``GO N STEPS`` is N-1 device hops, then the
 host-side final hop over the frontier's out-edges in the OVER set
@@ -1240,7 +1246,11 @@ class TorchQueryRuntime:
                            ) -> Optional["_ContinuousGoSession"]:
         """Anchor one device session for a (space, OVER set) stream over
         the current mirror, on the smallest ``go_batch_widths`` rung
-        covering ``min_lanes``; None for an empty or unloaded space."""
+        covering ``min_lanes``; None for an empty or unloaded space or
+        with ``tpu_packed_frontier`` off (runtime.py:1529: the session's
+        carriers are packed only)."""
+        if not flags.get("tpu_packed_frontier", True):
+            return None
         m = self.mirror(space_id)
         if m is None or m.m == 0:
             return None
@@ -1669,16 +1679,17 @@ class TorchQueryRuntime:
                       q_all: np.ndarray, nq: int,
                       et_tuple: Tuple[int, ...], steps: int,
                       upto: bool = False, reduce=None):
-        """The packed single-chip dense route (runtime.py:2020): upload
-        the start lanes, enqueue ``ell_go`` or, for COUNT(*),
+        """The single-chip dense route (runtime.py:2020): upload the
+        start lanes, enqueue ``ell_go`` or, for COUNT(*),
         ``ell_go_count``; the resolver fetches the live word columns (or
         the nq counts).  Unlike the reference, whose count kernel is
         built without ``upto`` (its front end never sends UPTO with a
         count reduction), the count here folds the UPTO union, as the
-        continuous path's count does."""
+        continuous path's count does.  With ``tpu_packed_frontier``
+        off the int8 route runs instead (``_launch_dense_i8``)."""
         if not flags.get("tpu_packed_frontier", True):
-            raise TpuDecline("tpu_packed_frontier=false needs the unpacked "
-                             "ell_go kernel (ell.py:1140), not ported")
+            return self._launch_dense_i8(m, ix, d_all, q_all, nq, et_tuple,
+                                         steps, upto)
         B = self._batch_width(nq)
         f0 = self._upload_frontier_packed(ix, ix.perm[d_all],
                                           q_all.astype(np.int32), B)
@@ -1704,12 +1715,55 @@ class TorchQueryRuntime:
             # slice to the live query words ON DEVICE before the fetch
             nwp = min(lanes_width(B), max(1, -(-nq // 8)))
             lanes = self._fetch(out_dev[:, :nwp])   # [R1, nwp] uint8
-            old = unpack_lanes_host(lanes, nq)[ix.perm]   # [n, nq]
-            qs, vs = np.nonzero(old.T)
-            bounds = np.searchsorted(qs, np.arange(nq + 1))
-            return [vs[bounds[q]:bounds[q + 1]] for q in range(nq)], m
+            return _per_query(unpack_lanes_host(lanes, nq)[ix.perm]), m
 
         return resolve
+
+    def _launch_dense_i8(self, m: CsrMirror, ix: EllIndex,
+                         d_all: np.ndarray, q_all: np.ndarray, nq: int,
+                         et_tuple: Tuple[int, ...], steps: int,
+                         upto: bool = False):
+        """The unpacked dense route (runtime.py:2050-2055, :2106-2115,
+        :2139-2144): the int8 start upload, ``ell_go_i8`` with its
+        result bit-packed along ROWS (uint8 [ceil(R1 / 8), B]); the
+        resolver fetches the first ``nqp`` columns and unpacks them by
+        rows.  There is no count kernel on this route (the reference's
+        ``count_mode`` needs the packed layout): a COUNT(*) gets the
+        vertex lists, and ``_count_results`` or the split's stitch
+        folds them on the host."""
+        B = self._batch_width(nq)
+        f0 = self._upload_frontier(ix, ix.perm[d_all],
+                                   q_all.astype(np.int32), B)
+        eslot, hrows = self._hub_merge_dev(m, ix)
+        out_dev = ell_ops.ell_go_i8(f0, self._device_tables(m, ix), eslot,
+                                    hrows, et_tuple, steps, upto, pack=True)
+        self._bump("go_dense")
+
+        def resolve():
+            # slice to the live query columns ON DEVICE before the fetch
+            nqp = min(B, max(8, -(-nq // 8) * 8))
+            packed = self._fetch(out_dev[:, :nqp])   # [G, nqp] uint8
+            return _per_query(unpack_bits(packed[:, :nq],
+                                          ix.n_rows + 1)[ix.perm]), m
+
+        return resolve
+
+    def _upload_frontier(self, ix: EllIndex, new_ids: np.ndarray,
+                         qcols: np.ndarray, B: int) -> torch.Tensor:
+        """The int8 start frontier [rows+1, B] built ON the card from
+        the flat (new-id row, query col) coordinates (runtime.py:3228):
+        the list pads to a power of two of at least 8 entries aimed at
+        the pad row with value 0; duplicates need no dedup."""
+        S = len(new_ids)
+        Sp = max(8, 1 << (max(S, 1) - 1).bit_length())
+        rows_p = np.full(Sp, ix.n_rows, np.int32)
+        cols_p = np.zeros(Sp, np.int32)
+        rows_p[:S] = new_ids
+        cols_p[:S] = qcols
+        out = torch.empty((ix.n_rows + 1, B), dtype=torch.int8,
+                          device=self.device)
+        return ell_ops.frontier_upload_i8(out, self._up(rows_p),
+                                          self._up(cols_p), S)
 
     def _upload_frontier_packed(self, ix: EllIndex, new_ids: np.ndarray,
                                 qcols: np.ndarray, B: int) -> torch.Tensor:
@@ -1757,29 +1811,29 @@ class TorchQueryRuntime:
                     targets_per_query, et_tuple: Tuple[int, ...],
                     max_steps: int, shortest: bool) -> np.ndarray:
         """Batched BFS core against an already-fetched mirror: int16
-        [B, n] depths (INT16_INF = unreached), the packed single-chip
-        route of runtime.py:3319."""
+        [B, n] depths (INT16_INF = unreached), the single-chip route of
+        runtime.py:3319, packed or (``tpu_packed_frontier`` off) int8;
+        both give depths [n_rows + 1, B]."""
         if int(flags.get("tpu_mesh_devices") or 0) > 1:
             raise TpuDecline("mesh-sharded FIND PATH needs the "
                              "mesh_sparse_bfs / ell_bfs_sharded kernels "
                              "(ell.py:2179, :1799), not ported")
-        if not flags.get("tpu_packed_frontier", True):
-            raise TpuDecline("tpu_packed_frontier=false needs the unpacked "
-                             "ell_bfs kernel (ell.py:1616), not ported")
         t0 = time.perf_counter()
         ix = self.ell(m)
         nq = len(starts_per_query)
         B = self._batch_width(nq)
         tables = self._device_tables(m, ix)
         eslot, hrows = self._hub_merge_dev(m, ix)
-        f0 = self._upload_frontier_packed(
-            ix, *self._flat_coords(m, ix, starts_per_query, nq), B)
-        t0p = self._upload_frontier_packed(
-            ix, *self._flat_coords(m, ix, targets_per_query, nq), B)
+        if flags.get("tpu_packed_frontier", True):
+            upload, bfs = self._upload_frontier_packed, ell_ops.ell_bfs
+        else:           # the int8 route (runtime.py:3369-3380)
+            upload, bfs = self._upload_frontier, ell_ops.ell_bfs_i8
+        f0 = upload(ix, *self._flat_coords(m, ix, starts_per_query, nq), B)
+        t0p = upload(ix, *self._flat_coords(m, ix, targets_per_query, nq),
+                     B)
         self._bump("path_device", nq)
-        d_dev, levels = ell_ops.ell_bfs(f0, t0p, tables, eslot, hrows,
-                                        et_tuple, max_steps,
-                                        stop_when_found=shortest)
+        d_dev, levels = bfs(f0, t0p, tables, eslot, hrows, et_tuple,
+                            max_steps, stop_when_found=shortest)
         nqp = min(B, max(8, -(-nq // 8) * 8))
         host = self._fetch(d_dev[:, :nqp])[:, :nq]   # device slice
         with self._lock:
@@ -2021,6 +2075,15 @@ class _ContinuousGoSession:
 
 # ================================================== path reconstruction
 MAX_PATHS = 1000
+
+
+def _per_query(old: np.ndarray) -> List[np.ndarray]:
+    """bool [n, nq] frontier bits in old dense ids -> each query's
+    ascending vertex array."""
+    nq = old.shape[1]
+    qs, vs = np.nonzero(old.T)
+    bounds = np.searchsorted(qs, np.arange(nq + 1))
+    return [vs[bounds[q]:bounds[q + 1]] for q in range(nq)]
 
 
 def _reconstruct_paths(m: CsrMirror, depth: np.ndarray, srcs, dsts,

@@ -197,19 +197,28 @@ def test_in_edge_cache_keeps_the_reference_order(paths):
 
 
 def test_find_path_declines(paths):
-    _ok, rt, space, et, _jrt = paths
+    """An unloaded space and the mesh route decline; with packing off
+    the path is served on the int8 route and its rows equal the
+    cluster's."""
+    ok, rt, space, et, _jrt = paths
     with pytest.raises(TpuDecline):
         rt.serve_find_path(space + 99, [1], [2], [et], 3, True, {et: "e"})
     for setting, needs in (({"tpu_mesh_devices": 2}, "mesh_sparse_bfs"),
-                           ({"tpu_packed_frontier": False},
-                            "unpacked ell_bfs")):
+                           ({"tpu_packed_frontier": False}, None)):
         (k, v), = setting.items()
         old = flags.get(k)
         flags.set(k, v)
         try:
-            with pytest.raises(TpuDecline, match=needs):
-                rt.serve_find_path(space, [1], [2], [et], 3, True,
-                                   {et: "e"})
+            if needs is None:
+                cols, rows = rt.serve_find_path(space, [1], [2], [et], 3,
+                                                True, {et: "e"})
+                assert cols == ["path"] and sorted(map(tuple, rows)) == \
+                    _rows(ok("FIND SHORTEST PATH FROM 1 TO 2 OVER e "
+                             "UPTO 3 STEPS"))
+            else:
+                with pytest.raises(TpuDecline, match=needs):
+                    rt.serve_find_path(space, [1], [2], [et], 3, True,
+                                       {et: "e"})
         finally:
             flags.set(k, old)
     # empty endpoint lists answer no rows without touching the card

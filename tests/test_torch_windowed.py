@@ -498,7 +498,8 @@ def test_continuous_and_windowed_answers_agree(windowed):
     assert cont_rows == windowed_rows
 
 
-SERVED_ROUTES = {"sparse_go": "go_sparse", "adaptive_go": "go_adaptive"}
+SERVED_ROUTES = {"sparse_go": "go_sparse", "adaptive_go": "go_adaptive",
+                 "unpacked ell_go": "go_dense"}
 
 
 @pytest.mark.parametrize("setting,starts,needs", [
@@ -509,9 +510,9 @@ SERVED_ROUTES = {"sparse_go": "go_sparse", "adaptive_go": "go_adaptive"}
 ])
 def test_unported_routes_decline_naming_their_kernel(windowed, setting,
                                                      starts, needs):
-    """The mesh and unpacked routes decline naming their kernel; the
-    sparse and adaptive routes (ported) serve, their counter moves and
-    the rows equal the cluster's."""
+    """The mesh route declines naming its kernel; the sparse, adaptive
+    and unpacked routes (ported) serve, their counter moves and the rows
+    equal the cluster's."""
     from nebula_tpu_torch.common.flags import flags
     from nebula_tpu_torch.storage.device import TpuDecline
     ok, rt_, space, et = windowed
