@@ -10,6 +10,7 @@ Hopper card.
                           [--write-vertices WN] [--write-edges WM]
                           [--write-seconds WS] [--unpacked-requests U]
                           [--unpacked-path-requests UP]
+                          [--mesh-requests MR] [--mesh-path-requests MP]
 
 The defaults are the serve cell; ``--vertices 16777216 --edges
 105000000 --cap 256 --widths 128`` is the round-5 scale shape, and
@@ -64,7 +65,18 @@ Phases, in order; any failure exits non-zero:
              ``pack_rows``, ``ell_bfs_i8`` (UPTO 5, a connected and an
              unreachable pair among random lanes) and K15
              ``bfs_level_i8``; and all of them once more, untimed, at
-             the off-ladder width B = 10 (the byte-tail path)
+             the off-ladder width B = 10 (the byte-tail path); then the
+             replicated-frontier mesh (``mesh_kernel_phase``) with the
+             serve tables cut into k = 2 and 4 shards that all sit on
+             this card, at B = 1024 and 128: M1 ``shard_hop`` per shard,
+             ``hop_merge`` and a whole mesh hop against ``go_hop``,
+             ``ell_go_sharded`` at 1-4 steps against its plain version
+             and ``ell_go``, ``ell_bfs_sharded`` (shortest and all)
+             against ``ell_bfs``, ``ell_absorb_sharded`` and M2
+             ``shard_absorb`` on the absorb plans (gathered shards equal
+             to ``ell_absorb``'s tables, inputs unchanged),
+             ``sharded_go`` and ``or_into`` against the ``go`` program,
+             all exactly, with the copy time of the row replication
 4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
              edges, stored in both directions, with seeded columns:
              edge ``w`` int, ``score`` double, ``kind`` string, tag
@@ -131,12 +143,28 @@ Phases, in order; any failure exits non-zero:
              SHORTEST PATH ... UPTO 5 STEPS`` from PT threads, every
              answer checked, and 8 aimed ``FIND ALL PATH ... UPTO 3
              STEPS``; 64 GO answers of (a) and of (b) checked
-12. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
-13. the last line ``{"ok": true, "device": {...}}``
+12. mesh     ``tpu_mesh_devices=4``, ``tpu_mesh_mode=dense`` on a runtime
+             with ``mesh_devices=[cuda:0] * 4``, one counted window:
+             (a) MR GO of phase 4's kinds without UPTO (COUNT(*), and
+             ``| LIMIT 10`` on a quarter of the plain ones) from T
+             threads in the default continuous mode, no stream may
+             anchor, 64 checked; (b) MP FIND SHORTEST PATH from PT
+             threads and 8 FIND ALL PATH, every answer checked; (c) an
+             UPTO GO and a ``tpu_mesh_mode=sparse`` GO must decline,
+             the second naming ``mesh_sparse_go``; (d) a 2^14-vertex
+             store-backed space on the same mesh: 64 edge writes, each
+             read back by a mesh GO from both ends, absorbed into the
+             sharded tables (``ell_absorb_sharded``), which must then
+             equal ``shard_ell`` of the new host ELL; no single-card
+             hop, count or absorb kernel may run in the window
+13. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
+14. the last line ``{"ok": true, "device": {...}}``
 
-Every launch count is zeroed just before each of phases 4-11 drives the
-port and read just after it; every kernel of a phase's path must have
-been launched there.  The script imports nothing of the JAX package.
+Every mesh number is k shards on ONE card: the exchange between shards
+is a copy on that card, and a link between separate cards is not
+measured.  Every launch count is zeroed just before each of phases 4-12
+drives the port and read just after it; every kernel of a phase's path
+must have been launched there.  The script imports nothing of the JAX package.
 It needs one CUDA card and refuses to run (non-zero exit, no result)
 without one.
 """
@@ -186,6 +214,14 @@ REPLACES = {
     "bfs_level_i8": "nebula_tpu/tpu/ell.py:1616",
     "ell_go_i8": "nebula_tpu/tpu/ell.py:1140",
     "ell_bfs_i8": "nebula_tpu/tpu/ell.py:1616",
+    "shard_hop": "nebula_tpu/tpu/ell.py:1740",
+    "hop_merge": "nebula_tpu/tpu/ell.py:1792",
+    "shard_absorb": "nebula_tpu/tpu/ell.py:1036",
+    "or_into": "nebula_tpu/tpu/kernels.py:384",
+    "ell_go_sharded": "nebula_tpu/tpu/ell.py:1712",
+    "ell_bfs_sharded": "nebula_tpu/tpu/ell.py:1799",
+    "ell_absorb_sharded": "nebula_tpu/tpu/ell.py:1036",
+    "sharded_go": "nebula_tpu/tpu/kernels.py:364",
 }
 INT8_KERNELS = ("frontier_upload_i8", "go_hop_i8", "pack_rows",
                 "bfs_level_i8", "ell_go_i8", "ell_bfs_i8")
@@ -203,10 +239,28 @@ SOURCES["ell_absorb"] = "nebula_tpu_torch/tpu/csrc/ell_absorb.cu"
 SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/ell_int8.cu"
                 for k in INT8_KERNELS})
 SOURCES["ell_bfs_i8"] += " + ell_lanes.cu"
+MESH_KERNELS = ("shard_hop", "hop_merge", "shard_absorb", "or_into",
+                "ell_go_sharded", "ell_bfs_sharded", "ell_absorb_sharded",
+                "sharded_go")
+SOURCES.update({
+    "shard_hop": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu",
+    "hop_merge": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu",
+    "shard_absorb": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
+                    "ell_absorb.cu",
+    "or_into": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu",
+    "ell_go_sharded": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
+                      "ell_lanes.cu",
+    "ell_bfs_sharded": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
+                       "ell_lanes.cu",
+    "ell_absorb_sharded": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
+                          "ell_absorb.cu",
+    "sharded_go": "nebula_tpu_torch/tpu/csrc/edge_go.cu + ell_lanes.cu"})
 # the edge-list programs no runtime path calls (the reference's only
 # caller of go is _run_go_kernel's no-filter branch, which
-# _execute_fused never takes; bfs has only its registry entry)
-NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level")
+# _execute_fused never takes; bfs has only its registry entry; the
+# reference runtime never calls make_sharded_go_kernel, and or_into is
+# only sharded_go's combine)
+NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go", "or_into")
 EDGE_KERNELS = ("edge_seed", "edge_hop", "edge_final", "expr_filter",
                 "edge_bfs_level", "go", "go_filtered", "bfs")
 # which counted phase runs each kernel on its main path
@@ -225,6 +279,9 @@ PATH_KERNELS = {
     "unpacked": ("frontier_upload_i8", "go_hop_i8", "pack_rows",
                  "bfs_level_i8", "bfs_depth_i8", "ell_go_i8",
                  "ell_bfs_i8"),
+    "mesh": ("frontier_upload", "shard_hop", "hop_merge", "ell_go_sharded",
+             "bfs_level", "bfs_depth_i8", "ell_bfs_sharded", "shard_absorb",
+             "ell_absorb_sharded"),
 }
 LIMIT_N = 10                   # the sparse phase's | LIMIT n
 MAX_PATHS = 1000               # the port's FIND PATH result cap
@@ -1088,18 +1145,18 @@ SPIN_CYCLES = 8_000_000   # about 4 ms of the card's clock
 PROBE_REPS = 8            # timed calls of each probed kernel call
 
 
-def queued_times(torch, fn, iters: int) -> tuple:
+def queued_times(torch, fn, iters: int, spin: int = SPIN_CYCLES) -> tuple:
     """(mean milliseconds of ``fn()`` on the card alone, host
-    milliseconds to enqueue them all): a spin kernel holds the card
-    while the host enqueues the calls, so the events bracket only their
-    device work as long as the enqueue stays below the spin's time
-    (``fn`` must not wait on the card)."""
+    milliseconds to enqueue them all): a spin kernel of ``spin`` cycles
+    holds the card while the host enqueues the calls, so the events
+    bracket only their device work as long as the enqueue stays below
+    the spin's time (``fn`` must not wait on the card)."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     h0 = time.perf_counter()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin)
     t0.record()
     for _ in range(iters):
         fn()
@@ -3204,6 +3261,55 @@ def lat_stats(requests: int, wall: float, lat) -> dict:
                 p99_ms=float(np.percentile(lat, 99) * 1e3))
 
 
+def check_paths(rt, path_oracle: PathOracle, vids: np.ndarray, srcs, dsts,
+                presults, rng) -> tuple:
+    """Every FIND SHORTEST PATH answer of ``drive_paths`` against the
+    oracle, then 8 aimed ``FIND ALL PATH ... UPTO 3 STEPS`` (a source
+    and a target it reaches within 3) served and checked.  Returns
+    (reachable answers, ALL PATH pairs, their rows, their seconds)."""
+    if len(presults) != len(srcs):
+        raise AssertionError(f"{len(presults)} of {len(srcs)} path "
+                             f"requests served")
+    reachable = 0
+    for i in range(len(srcs)):
+        s, t = int(srcs[i]), int(dsts[i])
+        want, _ = path_oracle.depths([s], [t], 5, True)
+        cols, rows = presults[i]
+        d = int(want[t])
+        if cols != ["path"]:
+            raise AssertionError(f"path request {i}: columns {cols}")
+        if d == path_oracle.INF or d == 0:
+            if rows:
+                raise AssertionError(f"path request {i}: rows for an "
+                                     f"unreached target")
+            continue
+        reachable += 1
+        path_oracle.check(rows, path_oracle.shortest_paths([s], t, want),
+                          [s], t, length=d)
+    all_rows = all_checked = 0
+    t_all = time.perf_counter()
+    for s in rng.choice(vids, 64).tolist():
+        if all_checked == 8:
+            break
+        reach, _ = path_oracle.depths([s], [], 3, False)
+        cand = np.nonzero((reach >= 1) & (reach <= 3))[0]
+        if not len(cand):
+            continue
+        t = int(rng.choice(cand))
+        cols, rows = rt.serve_find_path(1, [s], [t], [1], 3, False,
+                                        {1: "e"})
+        path_oracle.check(rows, path_oracle.all_paths([s], t, 3), [s], t)
+        if not rows:
+            raise AssertionError(f"FIND ALL PATH {s} -> {t}: no path to a "
+                                 f"reached target")
+        all_checked += 1
+        all_rows += len(rows)
+    t_all = time.perf_counter() - t_all
+    if all_checked < 8:
+        raise AssertionError(f"{all_checked} FIND ALL PATH pairs found")
+    return reachable, all_checked, all_rows, t_all
+
+
 def unpacked_phase(torch, rt, ell_ops, flags, oracle: GoOracle,
                    path_oracle: PathOracle, vids: np.ndarray, n: int,
                    requests: int, threads: int, path_requests: int,
@@ -3291,47 +3397,8 @@ def unpacked_phase(torch, rt, ell_ops, flags, oracle: GoOracle,
         rt0 = dict(rt.stats)
         wall, plat, presults = drive_paths(rt, srcs, dsts, path_threads)
         stats = {k: rt.stats[k] - rt0[k] for k in rt0}
-        if len(presults) != path_requests:
-            raise AssertionError(f"{len(presults)} of {path_requests} path "
-                                 f"requests served")
-        reachable = 0
-        for i in range(path_requests):
-            s, t = int(srcs[i]), int(dsts[i])
-            want, _ = path_oracle.depths([s], [t], 5, True)
-            cols, rows = presults[i]
-            d = int(want[t])
-            if cols != ["path"]:
-                raise AssertionError(f"path request {i}: columns {cols}")
-            if d == path_oracle.INF or d == 0:
-                if rows:
-                    raise AssertionError(f"path request {i}: rows for an "
-                                         f"unreached target")
-                continue
-            reachable += 1
-            path_oracle.check(rows, path_oracle.shortest_paths([s], t, want),
-                              [s], t, length=d)
-        all_rows = all_checked = 0
-        t_all = time.perf_counter()
-        for s in rng_c.choice(vids, 64).tolist():
-            if all_checked == 8:
-                break
-            reach, _ = path_oracle.depths([s], [], 3, False)
-            cand = np.nonzero((reach >= 1) & (reach <= 3))[0]
-            if not len(cand):
-                continue
-            t = int(rng_c.choice(cand))
-            cols, rows = rt.serve_find_path(1, [s], [t], [1], 3, False,
-                                            {1: "e"})
-            path_oracle.check(rows, path_oracle.all_paths([s], t, 3), [s],
-                              t)
-            if not rows:
-                raise AssertionError(f"FIND ALL PATH {s} -> {t}: no path "
-                                     f"to a reached target")
-            all_checked += 1
-            all_rows += len(rows)
-        t_all = time.perf_counter() - t_all
-    if all_checked < 8:
-        raise AssertionError(f"{all_checked} FIND ALL PATH pairs found")
+        reachable, all_checked, all_rows, t_all = check_paths(
+            rt, path_oracle, vids, srcs, dsts, presults, rng_c)
     launches = dict(ell_ops.LAUNCHES)
     require_launched(launches, "unpacked")
     out["c"] = dict(lat_stats(path_requests, wall, list(plat.values())),
@@ -3344,6 +3411,562 @@ def unpacked_phase(torch, rt, ell_ops, flags, oracle: GoOracle,
                     all_path_s=t_all)
     out["launches"] = launches
     out["launches_a"] = a_launch
+    return out
+
+
+# ============================================================ the mesh
+MESH_KS = (2, 4)               # phase 3's shard counts, all on one card
+MESH_MAIN = (4, 128)           # the (k, B) the kernels line reports
+MESH_VERTICES = 1 << 14        # part (d)'s store-backed space
+MESH_WRITES = 64               # part (d)'s acked, read-back edge writes
+
+
+MESH_SPIN = 8 * SPIN_CYCLES     # about 32 ms: a mesh program's enqueue
+_MESH_SPIN_MS: list = []        # the spin's milliseconds, measured once
+
+
+def mesh_queued_ms(torch, fn, label: str, iters: int = PROBE_REPS) -> float:
+    """Device milliseconds of ``fn()`` over ``iters`` calls queued behind
+    a MESH_SPIN spin kernel (``queued_times``); logs when the host's
+    enqueue outlasted the spin, so the time holds launch gaps."""
+    ms, enqueue_ms = queued_times(torch, fn, iters, MESH_SPIN)
+    if not _MESH_SPIN_MS:
+        _MESH_SPIN_MS.append(cuda_ms(
+            torch, lambda: torch.cuda._sleep(MESH_SPIN), 1, 1))
+    spin_ms = _MESH_SPIN_MS[0]
+    if enqueue_ms >= spin_ms:
+        log(f"[kernel] {label}: host enqueue {enqueue_ms:.3f} ms outlasted "
+            f"the spin ({spin_ms:.3f} ms); its device time holds launch "
+            f"gaps")
+    return ms
+
+
+def restored_queued_ms(torch, run, restore, label: str,
+                       iters: int = 4 * PROBE_REPS) -> float:
+    """``restored_ms`` in device time: ``run()`` after ``restore()``,
+    less ``restore()`` alone, each queued behind a spin kernel."""
+    def both():
+        restore()
+        run()
+    return max(0.0, mesh_queued_ms(torch, both, label, iters)
+               - mesh_queued_ms(torch, restore, label + " restore", iters))
+
+
+def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
+                      hrows, k: int, B: int, over, rng, windows) -> dict:
+    """The replicated-frontier mesh's kernels and programs on the serve
+    graph's tables, cut into k shards that all sit on this card (each
+    shard its own buffers; what moves between shards is copied), at
+    lane width B.  Exact equality throughout: M1 ``shard_hop`` per shard
+    against its plain version, and one whole mesh hop (M1 on every
+    shard, the row replication, ``hop_merge`` on every replica) against
+    the single-card ``go_hop``; ``ell_go_sharded`` at 1-4 steps against
+    its plain version and the single-card ``ell_go``;
+    ``ell_bfs_sharded``, shortest and all, against ``ell_bfs`` (and its
+    plain version); ``ell_absorb_sharded`` on ``windows`` (the absorb
+    phase's three plans) against its plain version, its gathered shards
+    against the single-card ``ell_absorb``, its inputs unchanged;
+    ``sharded_go`` against the ``go`` program from 1 and 256 starts.
+    Times are CUDA events, but ``hop_merge``, M2 and
+    ``ell_absorb_sharded`` report device time over calls queued behind
+    a spin kernel (``ms``; their event time beside as ``event_ms``).
+    Bounds are the bytes each function must move over the card's rate;
+    an absorb counts only the real replacement rows, once, at the
+    shard that owns each.  Returns {name: numbers}."""
+    from nebula_tpu_torch.tpu.ell import absorb_update_arrays, mesh_tables
+    from nebula_tpu_torch.tpu.mesh import PartsMesh, replicate_rows
+    dev = tables.nbr.device
+    mesh = PartsMesh([dev] * k)
+    mt = mesh_tables(ix, mesh)
+    W = B // 8
+    R1 = ix.n_rows + 1
+    n_extras = ix.n_rows - ix.n
+    es, hs = [eslot] * k, [hrows] * k
+    blocks = [mt.owned(s) for s in range(k)]
+    hub_bytes = 4 * (n_extras + int(hrows.numel()))
+    res = {}
+
+    # ---- M1 per shard, on a frontier with ~2% of the real rows live
+    fp_h = np.zeros((R1, W), np.uint8)
+    live = rng.random(ix.n) < 0.02
+    fp_h[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
+                                     dtype=np.uint8)
+    fp0 = torch.from_numpy(fp_h).to(dev)
+    per_ms, per_plain, per_bound = [], [], []
+    outs = [torch.empty_like(fp0) for _ in range(k)]
+    for s in range(k):
+        ok_ = torch.full_like(fp0, 0xA5)
+        or_ = ok_.clone()
+        ell_ops.shard_hop(fp0, ok_, mt, s, over)
+        ell_ops.shard_hop_ref(fp0, or_, mt, s, over)
+        require_equal(torch, f"shard_hop k={k} s={s}", B, (ok_, or_))
+        per_ms.append(cuda_ms(torch, lambda: ell_ops.shard_hop(
+            fp0, outs[s], mt, s, over), 50))
+        per_plain.append(cuda_ms(torch, lambda: ell_ops.shard_hop_ref(
+            fp0, outs[s], mt, s, over), 2, warmup=1))
+        t = mt.shards[s]
+        live_rows = sum(hi - lo for lo, hi in blocks[s])
+        per_bound.append(bytes_ms(8 * int(t.nbr.numel()) + R1 * W
+                                  + (live_rows + 1) * W))
+    res["shard_hop"] = dict(
+        max_abs_err=0, ms=float(np.mean(per_ms)),
+        plain_ms=float(np.mean(per_plain)),
+        bound_ms=float(np.mean(per_bound)), bound_by="bytes",
+        library_ms=None, k=k,
+        library_none="none: no PyTorch call gathers over ELL slots with "
+                     "an etype mask",
+        per_shard_ms=per_ms, sum_ms=float(np.sum(per_ms)),
+        per_shard_bound_ms=per_bound)
+
+    # ---- the owned rows replicated: every shard's buffer holds the hop
+    # before its hub merge
+    for s in range(k):
+        ell_ops.shard_hop(fp0, outs[s], mt, s, over)
+    copy_bytes = replicate_rows(outs, blocks)
+    copy_ms = cuda_ms(torch, lambda: replicate_rows(outs, blocks), 20)
+
+    # ---- hop_merge on one replica
+    pre = outs[0].clone()
+    ok_, or_ = pre.clone(), pre.clone()
+    ell_ops.hop_merge(ok_, eslot, hrows, ix.n, ix.n_rows)
+    ell_ops.hop_merge_ref(or_, eslot, hrows, ix.n, ix.n_rows)
+    require_equal(torch, f"hop_merge k={k}", B, (ok_, or_))
+    merge_ms = restored_queued_ms(torch, lambda: ell_ops.hop_merge(
+        ok_, eslot, hrows, ix.n, ix.n_rows), lambda: ok_.copy_(pre),
+        f"hop_merge k={k} B={B}")
+    merge_ev = restored_ms(torch, lambda: ell_ops.hop_merge(
+        ok_, eslot, hrows, ix.n, ix.n_rows), lambda: ok_.copy_(pre), 50)
+    merge_plain = restored_ms(torch, lambda: ell_ops.hop_merge_ref(
+        or_, eslot, hrows, ix.n, ix.n_rows), lambda: or_.copy_(pre), 5)
+    n_owners = int(torch.unique(hrows[eslot.long()]).numel()) \
+        if n_extras else 0
+    res["hop_merge"] = dict(
+        max_abs_err=0, ms=merge_ms, event_ms=merge_ev, plain_ms=merge_plain,
+        bound_ms=bytes_ms(hub_bytes + n_extras * W + 2 * n_owners * W),
+        bound_by="bytes", library_ms=None,
+        library_none="none: torch has no OR scatter (scatter_reduce_ "
+                     "has no bitwise or)", n_extras=n_extras,
+        owners=n_owners)
+
+    # ---- one whole mesh hop against the single-card hop
+    cur = mesh.replicas(fp0)
+    ell_ops.mesh_hop(cur, outs, mt, es, hs, over, blocks, ell_ops.shard_hop,
+                     ell_ops.hop_merge)
+    single = torch.empty_like(fp0)
+    ell_ops.go_hop(fp0, None, single, tables, eslot, hrows, over)
+    require_equal(torch, f"mesh hop k={k}", B,
+                  *[(o, single) for o in outs])
+    mesh_hop_ms = cuda_ms(torch, lambda: ell_ops.mesh_hop(
+        cur, outs, mt, es, hs, over, blocks, ell_ops.shard_hop,
+        ell_ops.hop_merge), 20)
+    go_hop_ms = cuda_ms(torch, lambda: ell_ops.go_hop(
+        fp0, None, single, tables, eslot, hrows, over), 20)
+
+    # ---- ell_go_sharded at 1-4 steps; B queries, one start each
+    starts = rng.integers(0, ix.n, B)
+    f0 = rt._upload_frontier_packed(ix, ix.perm[starts],
+                                    np.arange(B, dtype=np.int32), B)
+    for steps in (1, 2, 3, 4):
+        gk = ell_ops.ell_go_sharded(f0, mt, es, hs, over, steps)
+        gr = ell_ops.ell_go_sharded_ref(f0, mt, es, hs, over, steps)
+        one = ell_ops.ell_go(f0.clone(), tables, eslot, hrows, over, steps)
+        require_equal(torch, f"ell_go_sharded k={k} steps={steps}", B,
+                      *[(a, gr[0]) for a in gk + gr[1:]], (gk[0], one))
+    slots_all = sum(int(t.nbr.numel()) for t in mt.shards)
+    go_ms = cuda_ms(torch, lambda: ell_ops.ell_go_sharded(
+        f0, mt, es, hs, over, 3), 10)
+    go_plain = cuda_ms(torch, lambda: ell_ops.ell_go_sharded_ref(
+        f0, mt, es, hs, over, 3), 1, warmup=0)
+    one_ms = cuda_ms(torch, lambda: ell_ops.ell_go(
+        f0.clone(), tables, eslot, hrows, over, 3), 10)
+    go_bytes = 2 * (8 * slots_all + (1 + k) * R1 * W + hub_bytes)
+    res["ell_go_sharded"] = dict(
+        max_abs_err=0, ms=go_ms, plain_ms=go_plain,
+        bound_ms=bytes_ms(go_bytes), bound_by="bytes", library_ms=None,
+        library_none="none: a multi-kernel program", k=k, steps=3,
+        single_card_ell_go_ms=one_ms, mesh_hop_ms=mesh_hop_ms,
+        single_card_go_hop_ms=go_hop_ms, copy_ms=copy_ms,
+        copy_bytes=copy_bytes, copy_bound_ms=bytes_ms(2 * copy_bytes))
+
+    # ---- ell_bfs_sharded, shortest and all, UPTO 5
+    t0 = rt._upload_frontier_packed(ix, ix.perm[rng.integers(0, ix.n, B)],
+                                    np.arange(B, dtype=np.int32), B)
+    bfs_rows = {}
+    for stop in (True, False):
+        dk, lk = ell_ops.ell_bfs_sharded(f0, t0, mt, es, hs, over, 5, stop)
+        dr, lr = ell_ops.ell_bfs_sharded_ref(f0, t0, mt, es, hs, over, 5,
+                                             stop)
+        d1, l1 = ell_ops.ell_bfs(f0.clone(), t0, tables, eslot, hrows, over,
+                                 5, stop)
+        require_equal(torch, f"ell_bfs_sharded k={k} stop={stop}", B,
+                      (dk, dr), (dk, d1))
+        if not lk == lr == l1:
+            raise AssertionError(f"ell_bfs_sharded ran {lk} levels, plain "
+                                 f"{lr}, ell_bfs {l1}")
+        ms = cuda_ms(torch, lambda: ell_ops.ell_bfs_sharded(
+            f0, t0, mt, es, hs, over, 5, stop), 3, 1)
+        plain = cuda_ms(torch, lambda: ell_ops.ell_bfs_sharded_ref(
+            f0, t0, mt, es, hs, over, 5, stop), 1, warmup=0)
+        one = cuda_ms(torch, lambda: ell_ops.ell_bfs(
+            f0.clone(), t0, tables, eslot, hrows, over, 5, stop), 3, 1)
+        nbytes = lk * (8 * slots_all + (1 + k) * R1 * W + hub_bytes) \
+            + k * (2 * R1 * B + 2 * R1 * W) + R1 * B
+        bfs_rows[stop] = dict(max_abs_err=0, ms=ms, plain_ms=plain,
+                              bound_ms=bytes_ms(nbytes), bound_by="bytes",
+                              library_ms=None, levels=lk,
+                              single_card_ell_bfs_ms=one)
+    res["ell_bfs_sharded"] = dict(
+        bfs_rows[True], library_none="none: a multi-kernel program", k=k,
+        max_steps=5, all_paths=bfs_rows[False])
+
+    # ---- ell_absorb_sharded on the absorb phase's three plans
+    absorb = {}
+    m2 = {}
+    for label, (plan, claims, _events) in windows.items():
+        _counts, upd = absorb_update_arrays(ix, plan)
+        rows, nn, ne = rt._absorb_args(upd)
+        before = [(t.nbr.clone(), t.et.clone()) for t in mt.shards]
+        got = ell_ops.ell_absorb_sharded(mt, rows, nn, ne)
+        want = ell_ops.ell_absorb_sharded_ref(mt, rows, nn, ne)
+        one = ell_ops.ell_absorb(tables, rows, nn, ne)
+        pairs = []
+        for a, b in zip(got.shards, want.shards):
+            pairs += [(a.nbr, b.nbr), (a.et, b.et)]
+        for b in range(len(tables.D)):
+            real = mt.real_rows[b]
+            for col in (0, 1):
+                gathered = torch.cat([t.bucket(b)[col] for t in
+                                      got.shards])[:real]
+                pairs.append((gathered, one.bucket(b)[col]))
+        require_equal(torch, f"ell_absorb_sharded k={k} {label}", 0,
+                      *pairs)
+        for t, (n0, e0) in zip(mt.shards, before):
+            if not (torch.equal(t.nbr, n0) and torch.equal(t.et, e0)):
+                raise AssertionError(f"ell_absorb_sharded {label} changed "
+                                     f"its input tables")
+        del got, want, one, before, pairs
+        per = ell_ops._replicate_updates(mt, rows, nn, ne)
+        kp = int(rows[0].numel())
+        nb = len(rows)
+        n_real = [int((r.long() < mt.real_rows[b]).sum())
+                  for b, r in enumerate(rows)]
+        ms_s, ev_s, plain_s, lib_s, bound_s = [], [], [], [], []
+        owned = [0] * nb
+        for s in range(k):
+            t = mt.shards[s]
+            kern = lambda: ell_ops.shard_absorb(mt, s, *per[s])  # noqa: E731
+            ev_s.append(cuda_ms(torch, kern, ABSORB_ITERS))
+            ms_s.append(mesh_queued_ms(torch, kern,
+                                       f"shard_absorb k={k} s={s}"))
+            plain_s.append(cuda_ms(torch, lambda: ell_ops.shard_absorb_ref(
+                mt, s, *per[s]), 3, warmup=1))
+            # the rows shard s really replaces: its own, and no pad entry
+            # (a pad in the last shard's padded tail rewrites sentinels)
+            keep = []
+            for b, r in enumerate(per[s][0]):
+                loc = r.long() - s * t.rows[b]
+                keep.append(((loc >= 0) & (loc < t.rows[b])
+                             & (r.long() < mt.real_rows[b]))
+                            .nonzero().squeeze(1))
+                owned[b] += int(keep[b].numel())
+            idx = [per[s][0][b].long()[keep[b]] - s * t.rows[b]
+                   for b in range(nb)]
+            n_in = [per[s][1][b][keep[b]].contiguous() for b in range(nb)]
+            e_in = [per[s][2][b][keep[b]].contiguous() for b in range(nb)]
+
+            def lib(t=t, idx=idx, n_in=n_in, e_in=e_in):
+                a, e = t.nbr.clone(), t.et.clone()
+                for b in range(len(idx)):
+                    lo, cnt = t.slot0[b], t.rows[b] * t.D[b]
+                    shape = (t.rows[b], t.D[b])
+                    a[lo:lo + cnt].view(shape).index_copy_(0, idx[b],
+                                                           n_in[b])
+                    e[lo:lo + cnt].view(shape).index_copy_(0, idx[b],
+                                                           e_in[b])
+                return a, e
+            lib_s.append(cuda_ms(torch, lib, ABSORB_ITERS))
+            bound_s.append(bytes_ms(
+                16 * int(t.nbr.numel()) + 4 * nb * kp
+                + 8 * sum(int(x.numel()) * d for x, d in zip(keep, t.D))))
+        if owned != n_real:
+            raise AssertionError(f"ell_absorb_sharded {label}: the shards "
+                                 f"own {owned} real rows, the set holds "
+                                 f"{n_real}")
+        prog = lambda: ell_ops.ell_absorb_sharded(  # noqa: E731
+            mt, rows, nn, ne)
+        prog_ev = cuda_ms(torch, prog, ABSORB_ITERS)
+        prog_ms = mesh_queued_ms(torch, prog, f"ell_absorb_sharded k={k}")
+        prog_plain = cuda_ms(torch, lambda: ell_ops.ell_absorb_sharded_ref(
+            mt, rows, nn, ne), 3, warmup=1)
+        prog_bytes = 16 * sum(int(t.nbr.numel()) for t in mt.shards) \
+            + 4 * nb * kp + 8 * sum(c * d for c, d in zip(n_real,
+                                                           mt.shards[0].D))
+        absorb[label] = dict(
+            max_abs_err=0, ms=prog_ms, event_ms=prog_ev, plain_ms=prog_plain,
+            bound_ms=bytes_ms(prog_bytes), bound_by="bytes",
+            library_ms=None, claims=len(claims), kp=kp,
+            rows_replaced=sum(n_real), pads=nb * kp - sum(n_real))
+        m2[label] = dict(max_abs_err=0, ms=float(np.mean(ms_s)),
+                         event_ms=float(np.mean(ev_s)),
+                         plain_ms=float(np.mean(plain_s)),
+                         bound_ms=float(np.mean(bound_s)), bound_by="bytes",
+                         library_ms=float(np.mean(lib_s)),
+                         library_call="clone + index_copy_",
+                         per_shard_ms=ms_s)
+    res["ell_absorb_sharded"] = dict(
+        absorb["a_4096_events"], k=k, inputs_unchanged=True,
+        library_none="none: a per-shard program",
+        windows={a: {x: v[x] for x in ("ms", "event_ms", "plain_ms",
+                                       "bound_ms", "claims")}
+                 for a, v in absorb.items()})
+    res["shard_absorb"] = dict(
+        m2["a_4096_events"], k=k,
+        windows={a: {x: v[x] for x in ("ms", "event_ms", "plain_ms",
+                                       "bound_ms", "library_ms")}
+                 for a, v in m2.items()})
+
+    # ---- sharded_go (edge-sharded, psum_or) against the go program
+    src_h = m.edge_src.astype(np.int32)
+    dst_h = m.edge_dst.astype(np.int32)
+    et_h = m.edge_etype.astype(np.int32)
+    src_sh, dst_sh, et_sh, size = edge_ops.shard_edges(mesh, src_h, dst_h,
+                                                       et_h)
+    up = lambda a: torch.from_numpy(a).to(dev)      # noqa: E731
+    e_src, e_dst, e_et = up(src_h), up(dst_h), up(et_h)
+    n = m.n
+    for S in (1, 256):
+        idx_h = rng.integers(0, n, S).astype(np.int32)
+        idx = up(idx_h)
+        f0b = torch.zeros(n, dtype=torch.bool, device=dev)
+        f0b[idx.long()] = True
+        fin, fr = edge_ops.sharded_go(src_sh, dst_sh, et_sh, f0b, n, 3,
+                                      over, mesh)
+        fin_r, fr_r = edge_ops.sharded_go_ref(src_sh, dst_sh, et_sh, f0b, n,
+                                              3, over, mesh)
+        gm, gf = edge_ops.go(e_src, e_dst, e_et, idx, n, 3, over)
+        require_equal(torch, f"sharded_go k={k} S={S}", 0,
+                      (torch.cat(fin), torch.cat(fin_r)),
+                      (torch.cat(fin)[:m.m], gm),
+                      *[(a, gf) for a in fr + fr_r])
+    sg_ms = cuda_ms(torch, lambda: edge_ops.sharded_go(
+        src_sh, dst_sh, et_sh, f0b, n, 3, over, mesh), 10)
+    sg_plain = cuda_ms(torch, lambda: edge_ops.sharded_go_ref(
+        src_sh, dst_sh, et_sh, f0b, n, 3, over, mesh), 3, warmup=1)
+    go1_ms = cuda_ms(torch, lambda: edge_ops.go(e_src, e_dst, e_et, idx, n,
+                                                3, over), 10)
+    sg_bytes = 2 * (12 * size + 3 * k * n + 2 * k * (k - 1) * n) \
+        + 9 * size + k * n
+    res["sharded_go"] = dict(
+        max_abs_err=0, ms=sg_ms, plain_ms=sg_plain,
+        bound_ms=bytes_ms(sg_bytes), bound_by="bytes", library_ms=None,
+        library_none="none: a multi-kernel program", k=k, steps=3,
+        starts=256, single_card_go_ms=go1_ms)
+
+    # ---- or_into (psum_or's combine) on two [n] partial bitmaps
+    n4 = -(-n // 4) * 4
+    a = (torch.rand(n4, device=dev) < 0.01)
+    b = (torch.rand(n4, device=dev) < 0.01)
+    ok_, or_ = b.clone(), b.clone()
+    ell_ops.or_into(a, ok_)
+    ell_ops.or_into_ref(a, or_)
+    require_equal(torch, f"or_into k={k}", 0, (ok_, or_))
+    or_ms = cuda_ms(torch, lambda: ell_ops.or_into(a, ok_), 50)
+    or_plain = cuda_ms(torch, lambda: ell_ops.or_into_ref(a, or_), 50)
+    or_lib = cuda_ms(torch, lambda: torch.bitwise_or(or_, a, out=or_), 50)
+    res["or_into"] = dict(max_abs_err=0, ms=or_ms, plain_ms=or_plain,
+                          bound_ms=bytes_ms(3 * n4), bound_by="bytes",
+                          library_ms=or_lib, library_call="bitwise_or",
+                          bytes=n4)
+    return res
+
+
+MESH = {"tpu_mesh_devices": 4, "tpu_mesh_mode": "dense"}
+# a mesh path that quietly ran single-device would launch one of these
+SINGLE_CARD = ("go_hop", "ell_go", "go_count", "sparse_go", "adaptive_go",
+               "ell_absorb", "go_hop_i8", "lane_join")
+
+
+def mesh_write_part(torch, ell_ops, flags, dev, seed: int) -> dict:
+    """Phase 12 (d): a store-backed space (``WriteSpace`` at
+    MESH_VERTICES vertices) served on a 4-shard mesh on this card,
+    windowed.  MESH_WRITES new edges s -> d are written one at a time;
+    each is read back by a mesh GO from both ends (``GO 2 STEPS FROM s``
+    must yield every out-neighbour of d, ``GO 2 STEPS FROM d
+    REVERSELY`` every in-neighbour of s; every eighth checked whole
+    against the oracle).  Then the sharded tables must equal
+    ``shard_ell`` of the host's new ELL."""
+    from nebula_tpu_torch.tpu.ell import shard_ell
+    from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
+    ws = WriteSpace(MESH_VERTICES, 8 * MESH_VERTICES, seed + 5)
+    rt = TorchQueryRuntime(stores=[ws.store], schema_man=ws.sm, device=dev,
+                           mesh_devices=[dev] * MESH["tpu_mesh_devices"])
+    S, E = WRITE_SPACE, WRITE_ET
+    rng = np.random.default_rng(seed + 61)
+    out = {"load_s": ws.load_s}
+    try:
+        with flag_mode(flags, {"go_dispatch_mode": "windowed"}):
+            t0 = time.perf_counter()
+            rt.serve_go(S, [1], [E], 2, {E: "e"})
+            out["fold_s"] = time.perf_counter() - t0
+            radj = {}
+            for (a, b, _r) in ws.live:
+                radj.setdefault(b, set()).add(a)
+            outv = np.nonzero(ws.out_deg > 0)[0]
+            inv_ = np.asarray(sorted(radj), np.int64)
+            lat = []
+            checked_whole = 0
+            for i in range(MESH_WRITES):
+                while True:
+                    s_, d_ = int(rng.choice(inv_)), int(rng.choice(outv))
+                    if s_ != d_ and d_ not in ws.adj.get(s_, {}):
+                        break
+                t0 = time.perf_counter()
+                ws.write_edges([(s_, d_, 1000 + i, int(rng.integers(0,
+                                                                  1000)))])
+                radj.setdefault(d_, set()).add(s_)
+                _c, fwd = rt.serve_go(S, [s_], [E], 2, {E: "e"})
+                _c, rev = rt.serve_go(S, [d_], [-E], 2, {-E: "e"})
+                lat.append(time.perf_counter() - t0)
+                got_f = {r[0] for r in fwd}
+                got_r = {r[0] for r in rev}
+                if not set(ws.adj.get(d_, {})) <= got_f \
+                        or not radj[s_] <= got_r:
+                    raise AssertionError(f"write {i} ({s_} -> {d_}) not "
+                                         f"read back by the mesh GO")
+                if i % 8 == 0:
+                    want = ws.oracle().rows([s_], 2)[:, 0]
+                    if sorted(r[0] for r in fwd) != sorted(want.tolist()):
+                        raise AssertionError(f"write {i}: GO 2 STEPS FROM "
+                                             f"{s_} differs from the oracle")
+                    checked_whole += 1
+            m1 = rt.mirror(S)
+            k, mt = m1._mesh_tables_cache
+            gn, ge = mt.host_shards()
+            hn, he, _ = shard_ell(rt.ell(m1), k)
+            for s in range(k):
+                for b in range(len(hn[s])):
+                    if not (np.array_equal(gn[s][b], hn[s][b])
+                            and np.array_equal(ge[s][b], he[s][b])):
+                        raise AssertionError(f"shard {s} bucket {b} after "
+                                             f"the window != shard_ell")
+        out.update(writes=MESH_WRITES, checked_whole=checked_whole,
+                   write_read_p50_ms=float(np.percentile(lat, 50) * 1e3),
+                   write_read_p99_ms=float(np.percentile(lat, 99) * 1e3),
+                   **{x: rt.stats[x] for x in (
+                       "mirror_builds", "mirror_absorbs", "mesh_absorbs",
+                       "mirror_absorb_failed", "go_mesh")})
+        if not (rt.stats["mirror_absorbs"] and rt.stats["mesh_absorbs"]):
+            raise AssertionError(f"the mesh window absorbed nothing: "
+                                 f"{out}")
+    finally:
+        rt.close()
+    return out
+
+
+def mesh_phase(torch, ell_ops, flags, m, schema, oracle: GoOracle,
+               path_oracle: PathOracle, vids: np.ndarray, n: int,
+               requests: int, threads: int, path_requests: int,
+               path_threads: int, seed: int, device=None) -> dict:
+    """``tpu_mesh_devices=4``, ``tpu_mesh_mode=dense`` on a runtime whose
+    4 shards all sit on this card (``mesh_devices=[cuda:0] * 4``),
+    counted as one window (launch counts zeroed before part a, read
+    after part d): (a) ``requests`` GO of the serve kinds without UPTO
+    (COUNT(*) and ``| LIMIT 10`` among them) from ``threads`` threads
+    in the default continuous mode — no stream may anchor; (b)
+    ``path_requests`` FIND SHORTEST PATH from ``path_threads`` threads
+    and 8 FIND ALL PATH, every answer checked; (c) an UPTO GO and a
+    sparse-mode single-start GO must decline, the second naming
+    ``mesh_sparse_go``; (d) ``mesh_write_part``.  64 GO answers of (a)
+    are checked against the oracle; no single-card kernel may run.
+    ``device`` is the shards' (None: the card)."""
+    from nebula_tpu_torch.storage.device import TpuDecline
+    from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
+    dev = torch.device("cuda", 0) if device is None else device
+    rt = TorchQueryRuntime(device=dev,
+                           mesh_devices=[dev] * MESH["tpu_mesh_devices"])
+    out = {}
+    try:
+        rt.load_space(1, m, schema)
+        rng = np.random.default_rng(seed + 67)
+        mix, limits = unpacked_mix(rng, n, requests)
+        mix = (mix[0], mix[1], np.zeros(requests, bool), mix[3])
+        limits = ~mix[3] & (rng.random(requests) < 0.25)
+        check = go_check_set(rng, limits, requests)
+        with flag_mode(flags, MESH):
+            if rt.continuous_session(1, (1,)) is not None:
+                raise AssertionError("a continuous session anchored on a "
+                                     "mesh")
+            t0 = time.perf_counter()
+            rt.serve_go(1, [1], [1], 3, {1: "e"})     # shards the tables
+            out["shard_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            ell_ops.reset_launches()
+            rt0 = dict(rt.stats)
+            wall, lat, results = drive(rt, mix, threads, check, limits)
+            stats = {x: rt.stats[x] - rt0[x] for x in rt0}
+        check_go(oracle, mix, results, check, limits)
+        if rt.continuous.streams():
+            raise AssertionError("a continuous stream anchored on a mesh")
+        if not stats["go_mesh"] or stats["go_sparse"] \
+                or stats["go_adaptive"]:
+            raise AssertionError(f"part (a) left the mesh: {stats}")
+        out["a"] = dict(lat_stats(requests, wall, lat), threads=threads,
+                        checked=len(check), go_mesh=stats["go_mesh"],
+                        mean_batch=requests / max(stats["go_mesh"], 1),
+                        count_requests=int(mix[3].sum()),
+                        limit_requests=int(limits.sum()))
+
+        # (b) FIND SHORTEST PATH, every answer checked, then FIND ALL PATH
+        rng_b = np.random.default_rng(seed + 71)
+        srcs = rng_b.choice(vids, path_requests)
+        dsts = rng_b.choice(vids, path_requests)
+        with flag_mode(flags, MESH):
+            rt0 = dict(rt.stats)
+            wall, plat, presults = drive_paths(rt, srcs, dsts, path_threads)
+            reachable, all_checked, all_rows, t_all = check_paths(
+                rt, path_oracle, vids, srcs, dsts, presults, rng_b)
+            stats = {x: rt.stats[x] - rt0[x] for x in rt0}
+        if stats["path_mesh"] != stats["bfs_dispatches"] \
+                or not stats["path_mesh"]:
+            raise AssertionError(f"part (b) left the mesh: {stats}")
+        out["b"] = dict(lat_stats(path_requests, wall, list(plat.values())),
+                        threads=path_threads, checked=path_requests,
+                        checked_reachable=reachable,
+                        bfs_dispatches=stats["bfs_dispatches"],
+                        levels_per_dispatch=stats["bfs_levels"]
+                        / max(stats["bfs_dispatches"], 1),
+                        all_path_checked=all_checked,
+                        all_path_rows=all_rows, all_path_s=t_all)
+
+        # (c) what the mesh still declines
+        declined = []
+        for label, mode, kw, needs in (
+                ("upto", MESH, {"upto": True}, "UPTO"),
+                ("sparse_mode", dict(MESH, tpu_mesh_mode="sparse"), {},
+                 "mesh_sparse_go")):
+            with flag_mode(flags, mode):
+                try:
+                    rt.serve_go(1, [int(vids[0])], [1], 3, {1: "e"}, **kw)
+                except TpuDecline as ex:
+                    if needs not in str(ex):
+                        raise AssertionError(f"({label}) declined without "
+                                             f"naming {needs}: {ex}")
+                    declined.append(label)
+                    continue
+            raise AssertionError(f"({label}) was served on a mesh")
+        out["c"] = {"declined": declined}
+
+        # (d) writes absorbed into the sharded tables, read back
+        with flag_mode(flags, MESH):
+            out["d"] = mesh_write_part(torch, ell_ops, flags, dev, seed)
+    finally:
+        rt.close()
+    launches = dict(ell_ops.LAUNCHES)
+    require_launched(launches, "mesh")
+    ran = {x: launches[x] for x in SINGLE_CARD if launches[x]}
+    if ran:
+        raise AssertionError(f"the mesh phase ran single-card kernels: {ran}")
+    out["launches"] = launches
     return out
 
 
@@ -3378,8 +4001,9 @@ def profile_all(torch, rt, flags, vids, args, blobs) -> dict:
     """``--profile R``: a further window of each traffic kind — R
     continuous GO, R windowed GO on the dense route and R on the sparse
     route, R / 16 sequential adaptive GO, R / 4 fused GO with a WHERE,
-    R / 4 FIND SHORTEST PATH — each under the profiler, on fresh
-    seeds."""
+    R / 4 FIND SHORTEST PATH, then R GO without UPTO on a 4-shard mesh
+    on this card (``[mesh]``'s runtime and flags) — each under the
+    profiler, on fresh seeds."""
     R = args.profile
     mix = request_mix(np.random.default_rng(args.seed + 2), args.vertices,
                       R)
@@ -3409,6 +4033,19 @@ def profile_all(torch, rt, flags, vids, args, blobs) -> dict:
     ends = rng.choice(vids, (2, P))
     out["path"] = profile_phase(torch, lambda: (
         P, drive_paths(rt, ends[0], ends[1], args.path_threads)[0]))
+    from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
+    dev = torch.device("cuda", 0)
+    mrt = TorchQueryRuntime(device=dev,
+                            mesh_devices=[dev] * MESH["tpu_mesh_devices"])
+    try:
+        mrt.load_space(1, rt.mirror(1), rt.schemas[1])
+        flat = (mix[0], mix[1], np.zeros(R, bool), mix[3])
+        with flag_mode(flags, MESH):
+            mrt.serve_go(1, [1], [1], 3, {1: "e"})     # shards the tables
+            out["mesh"] = profile_phase(torch, lambda: (
+                R, drive(mrt, flat, args.threads)[0]))
+    finally:
+        mrt.close()
     return out
 
 
@@ -3429,8 +4066,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", type=int, default=0, metavar="R",
                     help="after phase 9, serve R more continuous, R "
                          "dense and R sparse windowed GO requests, R/16 "
-                         "adaptive GO, R/4 fused GO and R/4 FIND PATH "
-                         "requests, each "
+                         "adaptive GO, R/4 fused GO, R/4 FIND PATH "
+                         "and R GO on a 4-shard mesh, each "
                          "under torch.profiler, and print the card's busy "
                          "time and idle share")
     ap.add_argument("--adaptive-requests", type=int, default=256)
@@ -3445,6 +4082,9 @@ def main(argv=None) -> int:
                     help="GO requests of each of the [unpacked] phase's "
                          "parts a and b")
     ap.add_argument("--unpacked-path-requests", type=int, default=128)
+    ap.add_argument("--mesh-requests", type=int, default=1024,
+                    help="GO requests of the [mesh] phase's part a")
+    ap.add_argument("--mesh-path-requests", type=int, default=128)
     args = ap.parse_args(argv)
 
     import torch
@@ -3567,6 +4207,21 @@ def main(argv=None) -> int:
             + json.dumps({B: [int8_rows[B]["ell_go_i8"]["ms"],
                               int8_rows[B]["ell_go_i8"]["packed_ell_go_ms"]]
                           for B in (1024, 128)}))
+        mesh_rows = {}
+        mesh_windows = absorb_windows(m, ix,
+                                      np.random.default_rng(args.seed + 13))
+        for k in MESH_KS:
+            for B in (1024, 128):
+                t0 = time.perf_counter()
+                mesh_rows[k, B] = mesh_kernel_phase(
+                    torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
+                    hrows, k, B, (1,), rng, mesh_windows)
+                for kname, v in mesh_rows[k, B].items():
+                    log(f"[kernel] {kname} k={k} B={B} equal=True "
+                        + json.dumps(v))
+                log(f"[kernel] mesh k={k} B={B} phase "
+                    f"{time.perf_counter() - t0:.2f} s")
+        del mesh_windows
 
         # ---- 4. serve (continuous)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,
@@ -3637,10 +4292,20 @@ def main(argv=None) -> int:
             args.unpacked_path_requests, args.path_threads, args.seed)
         log("[unpacked] " + json.dumps(unpacked))
         log(f"[unpacked] phase {time.perf_counter() - t0:.2f} s")
+
+        # ---- 12. mesh (tpu_mesh_mode=dense, 4 shards on this card)
+        t0 = time.perf_counter()
+        mesh = mesh_phase(
+            torch, ell_ops, flags, m, rt.schemas[1], oracle,
+            PathOracle(oracle), m.vids, args.vertices, args.mesh_requests,
+            args.threads, args.mesh_path_requests, args.path_threads,
+            args.seed)
+        log("[mesh] " + json.dumps(mesh))
+        log(f"[mesh] phase {time.perf_counter() - t0:.2f} s")
     finally:
         rt.close()
 
-    # ---- 12. kernels line: the serve rung's numbers (B=128, W=16),
+    # ---- 13. kernels line: the serve rung's numbers (B=128, W=16),
     # with the W=128 (B=1024) numbers beside them, and for the sparse and
     # adaptive programs and their kernels the runs ROW_FROM names (the
     # programs: c0 256, 3 steps, an 8-query batch; adaptive K 2048, 3
@@ -3649,7 +4314,7 @@ def main(argv=None) -> int:
               "sparse": sparse["launches"],
               "adaptive": adaptive["launches"], "fused": fused["launches"],
               "path": path["launches"], "write": write["launches"],
-              "unpacked": unpacked["launches"]}
+              "unpacked": unpacked["launches"], "mesh": mesh["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -3659,7 +4324,18 @@ def main(argv=None) -> int:
         row = dict(name=k, route="cuda", source=SOURCES[k],
                    replaces=REPLACES[k], launches=sum(by_phase.values()),
                    launches_by_phase=by_phase, equal=True)
-        if k in EDGE_KERNELS:
+        if k in MESH_KERNELS:
+            v = mesh_rows[MESH_MAIN][k]
+            row.update({a: v[a] for a in keys})
+            row.update({a: b for a, b in v.items() if a not in keys})
+            row.update(width_lanes=MESH_MAIN[1], shards=MESH_MAIN[0],
+                       shards_on_one_card=True)
+            row["others"] = {f"k{kk}_b{bb}": {
+                a: mesh_rows[kk, bb][k][a]
+                for a in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                for kk, bb in mesh_rows if (kk, bb) != MESH_MAIN}
+            row["runtime_path"] = k not in NO_RUNTIME_PATH
+        elif k in EDGE_KERNELS:
             v = edge_rows[k]
             row.update({a: v[a] for a in keys})
             row.update({a: b for a, b in v.items() if a not in keys})

@@ -181,6 +181,15 @@ flags.define(
     "shard the ELL tables over this many devices (a 1-D 'parts' Mesh). "
     "0 = single-device. The TPU analogue of the reference's "
     "multi-storaged partition spread (SURVEY.md §2.12)")
+flags.define(
+    "tpu_mesh_mode", "sparse",
+    "multi-chip GO strategy: 'sparse' (frontier partitioned by vertex "
+    "range per chip, candidate pairs exchanged via all_to_all over ICI "
+    "— per-chip memory is graph/k + frontier/k, so chips ADD servable "
+    "scale; ell.make_frontier_sharded_sparse_go_kernel) or 'dense' "
+    "(tables sharded, frontier replicated + re-replicated per hop — "
+    "the round-4 design, kept as the overflow fallback and the BFS "
+    "path)")
 
 # the fused WHERE route (nebula_tpu/tpu/runtime.py:171)
 flags.define(

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``load()`` compiles ``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``,
-``csrc/edge_go.cu``, ``csrc/expr_filter.cu``, ``csrc/ell_absorb.cu``
-and ``csrc/ell_int8.cu`` with nvcc into
+``csrc/edge_go.cu``, ``csrc/expr_filter.cu``, ``csrc/ell_absorb.cu``,
+``csrc/ell_int8.cu`` and ``csrc/ell_mesh.cu`` with nvcc into
 ``_build_out/libell_lanes.so`` beside this file (a
 directory git ignores) at first use, rebuilding when a source is newer
 than the library, and loads it with ctypes.  Each source compiles to an
@@ -31,7 +31,8 @@ SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "edge_go.cu"),
            os.path.join(CSRC, "expr_filter.cu"),
            os.path.join(CSRC, "ell_absorb.cu"),
-           os.path.join(CSRC, "ell_int8.cu"))
+           os.path.join(CSRC, "ell_int8.cu"),
+           os.path.join(CSRC, "ell_mesh.cu"))
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -175,6 +176,16 @@ def load() -> ctypes.CDLL:
         lib.i8_pack_rows.argtypes = [vp, vp, i64, i64, vp]
         lib.i8_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
                                      i64, vp]
+        lib.ell_table_copy.argtypes = [vp, vp, vp, vp, i64, vp]
+        # the mesh: csrc/ell_mesh.cu (bucket tables by value) and the
+        # lane kernels it reuses from csrc/ell_lanes.cu
+        from .ell_ops import _ShardAbsorb, _ShardBuckets
+        lib.ell_shard_hop.argtypes = [vp, vp, vp, vp, _ShardBuckets, p32,
+                                      i32, i64, i64, i64, vp]
+        lib.ell_shard_absorb.argtypes = [vp, vp, vp, vp, i64, _ShardAbsorb,
+                                         vp]
+        lib.ell_hop_merge.argtypes = [vp, vp, vp, i64, i64, i64, i64, vp]
+        lib.ell_or_into.argtypes = [vp, vp, i64, vp]
         for fn in (lib.ell_go_hop, lib.ell_lane_join,
                    lib.ell_lane_extract, lib.ell_lane_clear,
                    lib.ell_frontier_upload, lib.ell_go_count,
@@ -183,7 +194,10 @@ def load() -> ctypes.CDLL:
                    lib.ad_bitmap_lanes, lib.edge_seed, lib.edge_hop,
                    lib.edge_final, lib.edge_bfs_level, lib.expr_filter,
                    lib.ell_absorb, lib.i8_frontier_upload,
-                   lib.i8_go_hop, lib.i8_pack_rows, lib.i8_bfs_level):
+                   lib.i8_go_hop, lib.i8_pack_rows, lib.i8_bfs_level,
+                   lib.ell_table_copy, lib.ell_shard_hop,
+                   lib.ell_shard_absorb, lib.ell_hop_merge,
+                   lib.ell_or_into):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib

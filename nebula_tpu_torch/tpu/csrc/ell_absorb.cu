@@ -135,4 +135,19 @@ int ell_absorb(const void* nbr, const void* et, void* out_nbr, void* out_et,
     return (int)cudaGetLastError();
 }
 
+// The copy half alone: out_nbr / out_et = nbr / et (int32[n_slots], all
+// 16-byte aligned).  The mesh's per-shard absorb (ell_mesh.cu) runs it
+// on each shard's tables before its own scatter.
+int ell_table_copy(const void* nbr, const void* et, void* out_nbr,
+                   void* out_et, int64_t n_slots, void* stream) {
+    if (n_slots < 0) return -1;
+    if (n_slots == 0) return 0;
+    const long long n4 = n_slots / 4;
+    absorb_copy_kernel<<<blocks_for(2 * n4 + 8, kMaxCopyBlocks), kThreads,
+                         0, (cudaStream_t)stream>>>(
+        (const int4*)nbr, (const int4*)et, (int4*)out_nbr, (int4*)out_et,
+        n4, n_slots);
+    return (int)cudaGetLastError();
+}
+
 }  // extern "C"

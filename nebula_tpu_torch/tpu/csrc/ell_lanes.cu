@@ -452,6 +452,33 @@ int ell_bfs_level(void* nxt, const void* tp, void* d, void* flags,
     return (int)cudaGetLastError();
 }
 
+// The hub OR-merge alone (hop_merge_kernel) on one frontier replica:
+// the mesh's hop runs it on every shard's replica after the owned rows
+// were replicated (ell.py:1780-1788).  out: uint8 [n_rows + 1, W].
+int ell_hop_merge(void* out, const void* eslot, const void* hrows,
+                  int64_t n, int64_t n_rows, int64_t n_extras, int64_t W,
+                  void* stream) {
+    if (W <= 0 || W % 4 != 0 || n_extras < 0) return -1;
+    if (n_extras == 0) return 0;
+    const int W4 = (int)(W / 4);
+    hop_merge_kernel<<<grid_for(n_extras * W4), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const int32_t*)eslot, (const int32_t*)hrows, n,
+        n_rows, n_extras, W4);
+    return (int)cudaGetLastError();
+}
+
+// dst |= src over nbytes bytes (or_into_kernel; nbytes % 4 == 0, both
+// 4-byte aligned): the mesh's psum_or combines what it received with it.
+int ell_or_into(const void* src, void* dst, int64_t nbytes, void* stream) {
+    if (nbytes < 0 || nbytes % 4 != 0) return -1;
+    const long long words = nbytes / 4;
+    if (words == 0) return 0;
+    or_into_kernel<<<grid_for(words), kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)src, (uint32_t*)dst, words);
+    return (int)cudaGetLastError();
+}
+
 int ell_bfs_depth_i8(const void* d, void* out, int64_t total,
                      void* stream) {
     if (total <= 0) return -1;

@@ -22,12 +22,16 @@ fallback from one to the other.  The programs:
 - ``bfs`` = ``edge_seed`` × 2 + ``edge_bfs_level`` (first) + per level
   ``edge_hop`` + ``edge_bfs_level``, the host reading the level's two
   flags before it launches the next (one 8-byte read a level).
+- ``sharded_go`` = per hop ``edge_hop`` on every shard's edge slice,
+  then ``mesh.psum_or`` (``ell_ops.or_into``), then ``edge_final`` on
+  every slice (kernels.py:364).
 """
 from __future__ import annotations
 
 import ctypes
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .ell_ops import (_check, _lib, _ok, _over_check, _route, _stream)
@@ -39,7 +43,7 @@ INT32_INF = 2**31 - 1          # kernels.py INT32_INF: unreached depth
 LAUNCHES: Dict[str, int] = {"edge_seed": 0, "edge_hop": 0,
                             "edge_final": 0, "expr_filter": 0,
                             "edge_bfs_level": 0, "go": 0,
-                            "go_filtered": 0, "bfs": 0}
+                            "go_filtered": 0, "bfs": 0, "sharded_go": 0}
 
 
 def reset_launches() -> None:
@@ -414,4 +418,90 @@ def bfs(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                     edge_hop, edge_bfs_level)
     if _route(edge_src.device):
         LAUNCHES["bfs"] += 1
+    return out
+
+
+# =========================================================== sharded_go
+def shard_edges(mesh, edge_src, edge_dst, edge_etype):
+    """kernels.py:484 ``shard_edges``: the edge arrays (numpy) padded to
+    a multiple of the mesh's k with zeros (etype 0 is never a real
+    etype, so a pad edge never passes the OVER test) and cut into k
+    equal slices, slice s on shard s's device.  Returns (src slices,
+    dst slices, etype slices, padded size)."""
+    k = mesh.k
+    m = len(edge_src)
+    size = ((m + k - 1) // k) * k if m else k
+    cols = []
+    for a in (edge_src, edge_dst, edge_etype):
+        p = np.zeros(size, np.int32)
+        p[:m] = a
+        chunk = size // k
+        cols.append([torch.from_numpy(p[s * chunk:(s + 1) * chunk].copy())
+                     .to(d) for s, d in enumerate(mesh.devices)])
+    return cols[0], cols[1], cols[2], size
+
+
+def _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over, mesh, hop,
+                     final, or_into):
+    from .mesh import on, psum_or
+    k = mesh.k
+    if not (len(src_sh) == len(dst_sh) == len(et_sh) == k):
+        raise ValueError(f"edge slices for {len(src_sh)} shards, mesh of "
+                         f"{k}")
+    for s in range(k):
+        m_s, dev = _edges(src_sh[s], dst_sh[s], et_sh[s])
+        if dev != mesh.devices[s] or m_s != int(src_sh[0].shape[0]):
+            raise ValueError(f"edge slice {s}: {m_s} edges on {dev}")
+    _check(f0, "f0", torch.bool, (n,), f0.device)
+    over = _over_check(over)
+    n4 = max(4, -(-n // 4) * 4)     # or_into works on whole 32-bit words
+
+    def words():
+        return [torch.zeros(n4, dtype=torch.bool, device=d)
+                for d in mesh.devices]
+    f = words()
+    for s in range(k):
+        f[s][:n].copy_(f0)
+    if steps > 1:
+        partial, recv = words(), words()
+        for _ in range(steps - 1):
+            for s in range(k):
+                with on(mesh.devices[s]):
+                    hop(f[s][:n], partial[s][:n], src_sh[s], dst_sh[s],
+                        et_sh[s], over)
+            psum_or(partial, f, recv, or_into)
+    finals = []
+    for s in range(k):
+        with on(mesh.devices[s]):
+            finals.append(final(f[s][:n], src_sh[s], et_sh[s], over, None,
+                                torch.empty(src_sh[s].shape,
+                                            dtype=torch.bool,
+                                            device=mesh.devices[s])))
+    return finals, [x[:n] for x in f]
+
+
+def sharded_go_ref(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
+                   steps: int, over: Sequence[int], mesh):
+    """Plain version of ``sharded_go``."""
+    from .ell_ops import or_into_ref
+    return _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over,
+                            mesh, edge_hop_ref, edge_final_ref, or_into_ref)
+
+
+def sharded_go(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
+               steps: int, over: Sequence[int], mesh):
+    """Edge-sharded GO (kernels.py:364 make_sharded_go_kernel): the edge
+    slices of ``shard_edges`` on the mesh's shards, the frontier bool
+    [n] replicated (``f0`` is copied to every shard).  Each hop, every
+    shard runs ``edge_hop`` over its slice into a partial bitmap, and
+    ``mesh.psum_or`` gives every shard the OR of the partials; then
+    ``edge_final`` on each shard's slice.  Returns (the per-shard final
+    edge masks, bool [m / k] each — concatenated in shard order they
+    are the reference's sharded [m] mask — and the k replicas of the
+    frontier)."""
+    from .ell_ops import or_into
+    out = _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over,
+                           mesh, edge_hop, edge_final, or_into)
+    if _route(mesh.devices[0]):
+        LAUNCHES["sharded_go"] += 1
     return out

@@ -20,6 +20,9 @@ The write path's host half is the reference's too (``ell.py:809-1008``):
 (with growth-spare claims), ``apply_ell_absorb_host`` the next
 generation's copy-on-write host index, and ``absorb_update_arrays``
 the padded per-bucket arguments of ``ell_ops.ell_absorb``.
+``shard_ell`` (``ell.py:1688``) cuts the buckets into the row shards of
+the replicated-frontier mesh, and ``mesh_tables`` lays them out on the
+mesh's shard devices.
 """
 from __future__ import annotations
 
@@ -507,6 +510,108 @@ def absorb_update_arrays(ell: EllIndex, plan):
         counts.append(kp)
         outs.append((rp, pn, pe))
     return tuple(counts), outs
+
+
+# ====================================================================
+# Row-sharded tables of the replicated-frontier mesh (ell.py:1688)
+# ====================================================================
+def shard_ell(ell: EllIndex, k: int):
+    """The reference's ``shard_ell`` (``ell.py:1688``) as host arrays:
+    each bucket is padded to a multiple of ``k`` rows with sentinel rows
+    (nbr ``n_rows``, et 0) and cut into k equal chunks, shard s taking
+    the bucket-local rows ``[s * padded / k, (s + 1) * padded / k)``
+    (an empty bucket pads to k rows).  Returns (nbr[s][b], et[s][b],
+    real_rows[b]) — shard s's ``[padded_b / k, D_b]`` block of bucket b
+    and each bucket's unpadded row count."""
+    if k < 1:
+        raise ValueError(f"k={k} shards")
+    sentinel = np.int32(ell.n_rows)
+    nbrs: List[List[np.ndarray]] = [[] for _ in range(k)]
+    ets: List[List[np.ndarray]] = [[] for _ in range(k)]
+    reals: List[int] = []
+    for nbr, et in zip(ell.bucket_nbr, ell.bucket_et):
+        nb, D = nbr.shape
+        padded = ((nb + k - 1) // k) * k if nb else k
+        if padded != nb:
+            nbr = np.concatenate(
+                [nbr, np.full((padded - nb, D), sentinel, np.int32)])
+            et = np.concatenate([et, np.zeros((padded - nb, D), np.int32)])
+        chunk = padded // k
+        for s in range(k):
+            nbrs[s].append(nbr[s * chunk:(s + 1) * chunk])
+            ets[s].append(et[s * chunk:(s + 1) * chunk])
+        reals.append(int(nb))
+    return nbrs, ets, reals
+
+
+class MeshTables(NamedTuple):
+    """``shard_ell``'s tables on a mesh (``mesh.PartsMesh``), one
+    ``DeviceTables`` per shard on its device: shard s's
+    ``shards[s].rows[b]`` is bucket b's chunk, its ``row0[b]`` the
+    frontier row of the chunk's first row (``brow0[b] + s * chunk``),
+    its ``slot0`` shard-local.  ``real_rows[b]`` trims the padding:
+    only chunk rows below it are frontier rows."""
+    mesh: object
+    shards: Tuple[DeviceTables, ...]
+    real_rows: Tuple[int, ...]
+    brow0: Tuple[int, ...]
+
+    @property
+    def k(self) -> int:
+        return len(self.shards)
+
+    def owned(self, s: int) -> List[Tuple[int, int]]:
+        """Shard s's frontier rows, as one half-open range per bucket
+        (empty ranges left out)."""
+        t = self.shards[s]
+        out = []
+        for b, real in enumerate(self.real_rows):
+            lo = t.row0[b]
+            hi = self.brow0[b] + min(real, (s + 1) * t.rows[b])
+            if hi > lo:
+                out.append((lo, hi))
+        return out
+
+    def host_shards(self):
+        """(nbr[s][b], et[s][b]) as numpy, ``shard_ell``'s form."""
+        nbrs, ets = [], []
+        for t in self.shards:
+            nbrs.append([a.cpu().numpy() for a in
+                         (t.bucket(b)[0] for b in range(len(t.D)))])
+            ets.append([a.cpu().numpy() for a in
+                        (t.bucket(b)[1] for b in range(len(t.D)))])
+        return nbrs, ets
+
+
+def mesh_tables(ell: EllIndex, mesh) -> MeshTables:
+    """``shard_ell(ell, mesh.k)`` laid out flat on each shard's device."""
+    nbrs, ets, reals = shard_ell(ell, mesh.k)
+    brow0, r = [], 0
+    for nbr in ell.bucket_nbr:
+        brow0.append(r)
+        r += int(nbr.shape[0])
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        row0, rows, Ds, slot0 = [], [], [], []
+        off = 0
+        for b, blk in enumerate(nbrs[s]):
+            chunk, D = blk.shape
+            row0.append(brow0[b] + s * chunk)
+            rows.append(int(chunk))
+            Ds.append(int(D))
+            slot0.append(off)
+            off += int(blk.size)
+
+        def flat(parts, dev=dev):
+            a = (np.concatenate([p.reshape(-1) for p in parts])
+                 if parts else np.zeros(0, np.int32))
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)) \
+                .to(dev)
+        shards.append(DeviceTables(flat(nbrs[s]), flat(ets[s]),
+                                   tuple(row0), tuple(rows), tuple(Ds),
+                                   tuple(slot0), int(ell.n),
+                                   int(ell.n_rows)))
+    return MeshTables(mesh, tuple(shards), tuple(reals), tuple(brow0))
 
 
 # ====================================================================

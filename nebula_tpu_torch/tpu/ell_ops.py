@@ -9,13 +9,18 @@ the write path's ``ell_absorb`` (``ell.py:1011``), which derives the
 next mirror generation's tables from the resident ones, and the
 packing-off route's int8 twins (``tpu_packed_frontier=false``): the
 int8 start upload (``runtime.py:3228``), dense GO with its row pack
-(``ell.py:1140``, ``:439``) and batched BFS (``ell.py:1616``).
+(``ell.py:1140``, ``:439``) and batched BFS (``ell.py:1616``), and the
+replicated-frontier mesh's programs over row-sharded tables:
+``ell_go_sharded`` (``ell.py:1712``), ``ell_bfs_sharded`` (``:1799``)
+and ``ell_absorb_sharded`` (``:1036``), with their per-shard kernels
+``shard_hop`` and ``shard_absorb`` and the reused ``hop_merge`` and
+``or_into``.
 
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``, a transcription of the JAX function on the
 same layout); on a CUDA device it launches its hand-written kernel from
-``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``, ``csrc/ell_absorb.cu`` or
-``csrc/ell_int8.cu`` and adds one to its
+``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``, ``csrc/ell_absorb.cu``,
+``csrc/ell_int8.cu`` or ``csrc/ell_mesh.cu`` and adds one to its
 entry in ``LAUNCHES``, or raises — there is no fallback from one to the
 other.  Any other device raises.
 
@@ -52,7 +57,10 @@ LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
                             "ell_absorb": 0, "frontier_upload_i8": 0,
                             "go_hop_i8": 0, "pack_rows": 0,
                             "bfs_level_i8": 0, "ell_go_i8": 0,
-                            "ell_bfs_i8": 0}
+                            "ell_bfs_i8": 0, "shard_hop": 0,
+                            "hop_merge": 0, "or_into": 0,
+                            "shard_absorb": 0, "ell_go_sharded": 0,
+                            "ell_bfs_sharded": 0, "ell_absorb_sharded": 0}
 MAX_OVER = 32        # csrc kMaxOver
 MAX_BUCKETS = 32     # csrc kMaxBuckets
 MAX_COUNT_W = 1024   # csrc ell_go_count: W / 4 <= kThreads
@@ -1826,3 +1834,417 @@ def ell_absorb(tables: DeviceTables, rows: Sequence[torch.Tensor],
     _ok(rc, "ell_absorb")
     LAUNCHES["ell_absorb"] += 1
     return tables._replace(nbr=out_nbr, et=out_et)
+
+
+# ====================================================================
+# The replicated-frontier mesh (ell.py:1688-1846, :1036): the tables
+# row-sharded over a mesh.PartsMesh (ell.MeshTables), the packed
+# frontier replicated, one buffer per shard.  A hop is M1 (``shard_hop``,
+# csrc/ell_mesh.cu) on every shard into its own next buffer, the
+# owned rows copied to every other shard (mesh.replicate_rows), then
+# the hub OR-merge (``hop_merge``) on every replica — after the
+# replication, never per shard (ell.py:1780-1788).  Launches on a
+# shard run on its device's current stream.
+# ====================================================================
+class _ShardBuckets(ctypes.Structure):
+    """``ShardBuckets`` of csrc/ell_mesh.cu, passed by value."""
+    _fields_ = [("grow0", ctypes.c_longlong * MAX_BUCKETS),
+                ("lrow0", ctypes.c_longlong * MAX_BUCKETS),
+                ("slot0", ctypes.c_longlong * MAX_BUCKETS),
+                ("live", ctypes.c_longlong * MAX_BUCKETS),
+                ("D", ctypes.c_int * MAX_BUCKETS), ("n", ctypes.c_int)]
+
+
+class _ShardAbsorb(ctypes.Structure):
+    """``ShardAbsorb`` of csrc/ell_mesh.cu, passed by value."""
+    _fields_ = [("rows", ctypes.c_void_p * MAX_BUCKETS),
+                ("un", ctypes.c_void_p * MAX_BUCKETS),
+                ("ue", ctypes.c_void_p * MAX_BUCKETS),
+                ("slot0", ctypes.c_longlong * MAX_BUCKETS),
+                ("lo", ctypes.c_longlong * MAX_BUCKETS),
+                ("chunk", ctypes.c_longlong * MAX_BUCKETS),
+                ("D", ctypes.c_int * MAX_BUCKETS),
+                ("n", ctypes.c_int), ("kp", ctypes.c_int)]
+
+
+def _live(mt, s: int, b: int) -> int:
+    """Shard s's chunk rows of bucket b below the bucket's real rows."""
+    t = mt.shards[s]
+    return max(0, min(t.rows[b], mt.brow0[b] + mt.real_rows[b]
+                      - t.row0[b]))
+
+
+def _shard_check(fp: torch.Tensor, out: torch.Tensor, mt, s: int
+                 ) -> Tuple[int, int]:
+    if not 0 <= s < mt.k:
+        raise ValueError(f"shard {s} of a {mt.k}-shard mesh")
+    t = mt.shards[s]
+    dev = t.nbr.device
+    if fp.device != dev:
+        raise ValueError(f"fp is on {fp.device}, shard {s} on {dev}")
+    R1, W = _frontier(fp)
+    _check(out, "out", torch.uint8, (R1, W), dev)
+    if out.data_ptr() == fp.data_ptr():
+        raise ValueError("out must be a separate buffer from fp")
+    if R1 != t.n_rows + 1:
+        raise ValueError(f"frontier has {R1} rows, tables {t.n_rows + 1}")
+    _tables_check(t, dev)
+    return R1, W
+
+
+def shard_hop_ref(fp: torch.Tensor, out: torch.Tensor, mt, s: int,
+                  over: Sequence[int]) -> torch.Tensor:
+    """Plain version of ``shard_hop``: _bucket_expand_packed over each
+    of shard s's chunks, the rows past the real rows trimmed, the rest
+    written at their frontier rows; the pad row zero."""
+    t = mt.shards[s]
+    W = fp.shape[1]
+    over_t = torch.tensor(sorted(set(int(e) for e in over)),
+                          dtype=torch.int32, device=fp.device)
+    for b in range(len(t.D)):
+        live = _live(mt, s, b)
+        if live <= 0:
+            continue
+        nbr, et = t.bucket(b)
+        nbr, et = nbr[:live], et[:live]
+        ok = torch.isin(et, over_t).to(torch.uint8)
+        acc = torch.zeros((live, W), dtype=torch.uint8, device=fp.device)
+        for j in range(nbr.shape[1]):
+            acc |= fp[nbr[:, j].long()] * ok[:, j, None]
+        out[t.row0[b]:t.row0[b] + live] = acc
+    out[t.n_rows] = 0
+    return out
+
+
+def shard_hop(fp: torch.Tensor, out: torch.Tensor, mt, s: int,
+              over: Sequence[int]) -> torch.Tensor:
+    """M1: shard s's part of one packed hop (ell.py:1740).  ``fp`` is
+    shard s's replica of the frontier uint8 [n_rows + 1, W]; ``out``
+    (a separate buffer on the same device) gets, at each of the shard's
+    frontier rows, the OR over the row's slots whose etype is in
+    ``over`` of the gathered ``fp`` rows, and a zero pad row.  Every
+    other row of ``out`` is left as it was."""
+    _R1, W = _shard_check(fp, out, mt, s)
+    over = _over_check(over)
+    dev = fp.device
+    if not _route(dev):
+        return shard_hop_ref(fp, out, mt, s, over)
+    _aligned(fp, out)
+    t = mt.shards[s]
+    bk = _ShardBuckets()
+    lrow = 0
+    for b in range(len(t.D)):
+        bk.grow0[b] = t.row0[b]
+        bk.lrow0[b] = lrow
+        bk.slot0[b] = t.slot0[b]
+        bk.live[b] = _live(mt, s, b)
+        bk.D[b] = t.D[b]
+        lrow += t.rows[b]
+    bk.n = len(t.D)
+    ov = (ctypes.c_int32 * len(over))(*over)
+    with torch.cuda.device(dev):
+        rc = _lib().ell_shard_hop(fp.data_ptr(), out.data_ptr(),
+                                  t.nbr.data_ptr(), t.et.data_ptr(), bk, ov,
+                                  len(over), lrow, t.n_rows, W,
+                                  _stream(dev))
+    _ok(rc, "ell_shard_hop")
+    LAUNCHES["shard_hop"] += 1
+    return out
+
+
+def hop_merge_ref(out: torch.Tensor, eslot: torch.Tensor,
+                  hrows: torch.Tensor, n: int, n_rows: int) -> torch.Tensor:
+    """Plain version of ``hop_merge`` (ell.py:519 _scatter_or_rows)."""
+    if n_rows > n:
+        body = out[:n_rows]
+        _scatter_or_rows_ref(body, body[n:].clone(), eslot, hrows)
+    return out
+
+
+def hop_merge(out: torch.Tensor, eslot: torch.Tensor, hrows: torch.Tensor,
+              n: int, n_rows: int) -> torch.Tensor:
+    """The hub OR-merge of one frontier ``out`` uint8 [n_rows + 1, W]
+    in place: extra row n + e is OR-ed into its owner
+    ``hrows[eslot[e]]`` (owners past the table merge nowhere)."""
+    R1, W = _frontier(out, "out")
+    dev = out.device
+    if R1 != n_rows + 1:
+        raise ValueError(f"frontier has {R1} rows, tables {n_rows + 1}")
+    n_extras = n_rows - n
+    _check(eslot, "eslot", torch.int32, (n_extras,), dev)
+    if hrows.dim() != 1:
+        raise ValueError("hrows must be 1-D")
+    _check(hrows, "hrows", torch.int32, tuple(hrows.shape), dev)
+    if not _route(dev):
+        return hop_merge_ref(out, eslot, hrows, n, n_rows)
+    if n_extras == 0:
+        return out
+    _aligned(out)
+    with torch.cuda.device(dev):
+        rc = _lib().ell_hop_merge(out.data_ptr(), eslot.data_ptr(),
+                                  hrows.data_ptr(), n, n_rows, n_extras, W,
+                                  _stream(dev))
+    _ok(rc, "ell_hop_merge")
+    LAUNCHES["hop_merge"] += 1
+    return out
+
+
+def or_into_ref(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``or_into``."""
+    dst |= src
+    return dst
+
+
+def or_into(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``dst |= src`` in place, two contiguous uint8 or bool tensors of
+    one shape on one device, a whole number of 32-bit words long."""
+    if not isinstance(src, torch.Tensor) or src.dtype not in (
+            torch.uint8, torch.bool):
+        raise TypeError("or_into takes uint8 or bool tensors")
+    dev = dst.device
+    _check(src, "src", src.dtype, tuple(dst.shape), dev)
+    _check(dst, "dst", src.dtype, tuple(dst.shape), dev)
+    if src.numel() % 4:
+        raise ValueError(f"or_into works on 32-bit words: {src.numel()} "
+                         f"bytes")
+    if not _route(dev):
+        return or_into_ref(src, dst)
+    _aligned(src, dst)
+    with torch.cuda.device(dev):
+        rc = _lib().ell_or_into(src.data_ptr(), dst.data_ptr(),
+                                src.numel(), _stream(dev))
+    _ok(rc, "ell_or_into")
+    LAUNCHES["or_into"] += 1
+    return dst
+
+
+def _mesh_args(mt, eslot, hrows) -> None:
+    for name, v in (("eslot", eslot), ("hrows", hrows)):
+        if len(v) != mt.k:
+            raise ValueError(f"{name}: {len(v)} tensors for {mt.k} shards")
+        for s, x in enumerate(v):
+            if x.device != mt.shards[s].nbr.device:
+                raise ValueError(f"{name}[{s}] is on {x.device}, shard "
+                                 f"{s} on {mt.shards[s].nbr.device}")
+
+
+def mesh_hop(cur, nxt, mt, eslot, hrows, over, blocks, hop, merge) -> None:
+    """One replicated-frontier hop (ell.py:1771-1796): ``hop`` (M1 or
+    its plain version) on every shard from its replica ``cur[s]`` into
+    ``nxt[s]``, the owned rows (``blocks[s] = mt.owned(s)``) replicated
+    to every shard, then ``merge`` (the hub merge) on every replica."""
+    from .mesh import replicate_rows
+    for s in range(mt.k):
+        hop(cur[s], nxt[s], mt, s, over)
+    replicate_rows(nxt, blocks)
+    t = mt.shards[0]
+    for s in range(mt.k):
+        merge(nxt[s], eslot[s], hrows[s], t.n, t.n_rows)
+
+
+def _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, hop, merge):
+    _frontier(f0p, "f0p")
+    _mesh_args(mt, eslot, hrows)
+    over = _over_check(over)
+    cur = mt.mesh.replicas(f0p)
+    if steps <= 1:
+        return cur
+    nxt = [torch.empty_like(c) for c in cur]
+    blocks = [mt.owned(s) for s in range(mt.k)]
+    for _ in range(steps - 1):
+        mesh_hop(cur, nxt, mt, eslot, hrows, over, blocks, hop, merge)
+        cur, nxt = nxt, cur
+    return cur
+
+
+def ell_go_sharded_ref(f0p: torch.Tensor, mt, eslot, hrows,
+                       over: Sequence[int], steps: int):
+    """Plain version of ``ell_go_sharded``: the same loop over the plain
+    versions of M1 and the merge."""
+    return _go_sharded_loop(f0p, mt, eslot, hrows, over, steps,
+                            shard_hop_ref, hop_merge_ref)
+
+
+def ell_go_sharded(f0p: torch.Tensor, mt, eslot, hrows,
+                   over: Sequence[int], steps: int):
+    """Batched dense GO on the mesh (ell.py:1712
+    make_sharded_batched_go_kernel): the start frontier ``f0p`` uint8
+    [n_rows + 1, W] (read only) is copied to every shard, then
+    ``steps - 1`` replicated-frontier hops run.  ``eslot``/``hrows``
+    hold one tensor per shard, on its device.  Returns the k replicas of
+    the result, equal to ``ell_go``'s exact-depth frontier (there is no
+    UPTO form: the mesh declines UPTO)."""
+    out = _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, shard_hop,
+                           hop_merge)
+    if steps > 1 and _route(f0p.device):
+        LAUNCHES["ell_go_sharded"] += 1
+    return out
+
+
+def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
+                      hop, merge, level, final):
+    from .mesh import on
+    lanes = _bfs_pair(f0p, t0p)
+    _mesh_args(mt, eslot, hrows)
+    over = _over_check(over)
+    if not 0 <= max_steps < int(INT16_INF) - 1:
+        raise ValueError(f"max_steps={max_steps} does not fit int16")
+    fp, tp = mt.mesh.replicas(f0p), mt.mesh.replicas(t0p)
+    buf = [torch.empty_like(f) for f in fp]
+    d = [torch.empty((f.shape[0], lanes), dtype=torch.int16,
+                     device=f.device) for f in fp]
+    flags = [torch.zeros((max_steps + 1, 2), dtype=torch.int32,
+                         device=f.device) for f in fp]
+    blocks = [mt.owned(s) for s in range(mt.k)]
+    for s in range(mt.k):
+        with on(fp[s].device):
+            level(fp[s], tp[s], d[s], flags[s][0], 0, True, stop)
+    step = 0
+    # ell.py:1824-1836's loop condition, read from replica 0 (every
+    # replica holds the same frontier and depths) once a level
+    while step < max_steps:
+        f_any, t_any = flags[0][step].tolist()
+        if not f_any or (stop and not t_any):
+            break
+        mesh_hop(fp, buf, mt, eslot, hrows, over, blocks, hop, merge)
+        for s in range(mt.k):
+            with on(buf[s].device):
+                level(buf[s], tp[s], d[s], flags[s][step + 1], step,
+                      False, stop)
+        fp, buf = buf, fp
+        step += 1
+    out = d[0]
+    if max_steps <= 120:
+        with on(out.device):
+            out = final(out, torch.empty(out.shape, dtype=torch.int8,
+                                         device=out.device))
+    return out, step
+
+
+def ell_bfs_sharded_ref(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
+                        hrows, over: Sequence[int], max_steps: int,
+                        stop_when_found: bool = True):
+    """Plain version of ``ell_bfs_sharded``."""
+    return _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
+                             stop_when_found, shard_hop_ref, hop_merge_ref,
+                             bfs_level_ref, bfs_depth_i8_ref)
+
+
+def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
+                    hrows, over: Sequence[int], max_steps: int,
+                    stop_when_found: bool = True):
+    """Batched BFS depths on the mesh (ell.py:1799
+    make_sharded_batched_bfs_kernel): ``f0p``/``t0p`` packed start and
+    target lanes (read only) are copied to every shard; each level is a
+    replicated-frontier hop, then the level pass (``bfs_level``) on
+    every replica.  Returns (depth of shard 0's replica, levels run),
+    in ``ell_bfs``'s form: int8 with -1 unreached when ``max_steps <=
+    120``, else int16 with INT16_INF."""
+    out = _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
+                            stop_when_found, shard_hop, hop_merge,
+                            bfs_level, bfs_depth_i8)
+    if _route(f0p.device):
+        LAUNCHES["ell_bfs_sharded"] += 1
+    return out
+
+
+def _shard_absorb_check(mt, s: int, rows, nn, ne) -> int:
+    if not 0 <= s < mt.k:
+        raise ValueError(f"shard {s} of a {mt.k}-shard mesh")
+    return _absorb_check(mt.shards[s], rows, nn, ne)
+
+
+def shard_absorb_ref(mt, s: int, rows, nn, ne):
+    """Plain version of ``shard_absorb`` (ell.py:1061-1073)."""
+    t = mt.shards[s]
+    out = t._replace(nbr=t.nbr.clone(), et=t.et.clone())
+    for b in range(len(t.D)):
+        loc = rows[b].long() - s * t.rows[b]
+        keep = (loc >= 0) & (loc < t.rows[b])
+        nbr_b, et_b = out.bucket(b)
+        nbr_b[loc[keep]] = nn[b][keep]
+        et_b[loc[keep]] = ne[b][keep]
+    return out
+
+
+def shard_absorb(mt, s: int, rows, nn, ne):
+    """M2: shard s's next-generation tables — fresh copies of its
+    ``nbr``/``et`` with each replacement row it owns written in:
+    ``loc = rows[b][i] - s * chunk_b``, kept when ``0 <= loc <
+    chunk_b`` (``rows``/``nn``/``ne``: the reference's padded
+    per-bucket arguments, on shard s's device).  The input tables are
+    only read.  Returns a DeviceTables of the same geometry."""
+    kp = _shard_absorb_check(mt, s, rows, nn, ne)
+    t = mt.shards[s]
+    dev = t.nbr.device
+    if not _route(dev):
+        return shard_absorb_ref(mt, s, rows, nn, ne)
+    out_nbr = torch.empty_like(t.nbr)
+    out_et = torch.empty_like(t.et)
+    for x in (t.nbr, t.et, out_nbr, out_et):
+        if x.data_ptr() % 16:
+            raise ValueError("shard_absorb's tables must be 16-byte "
+                             "aligned (the copy moves int4 words)")
+    bk = _ShardAbsorb()
+    for b in range(len(t.D)):
+        bk.rows[b] = rows[b].data_ptr()
+        bk.un[b] = nn[b].data_ptr()
+        bk.ue[b] = ne[b].data_ptr()
+        bk.slot0[b] = t.slot0[b]
+        bk.lo[b] = s * t.rows[b]
+        bk.chunk[b] = t.rows[b]
+        bk.D[b] = t.D[b]
+    bk.n, bk.kp = len(t.D), kp
+    with torch.cuda.device(dev):
+        rc = _lib().ell_shard_absorb(t.nbr.data_ptr(), t.et.data_ptr(),
+                                     out_nbr.data_ptr(), out_et.data_ptr(),
+                                     int(t.nbr.numel()), bk, _stream(dev))
+    _ok(rc, "ell_shard_absorb")
+    LAUNCHES["shard_absorb"] += 1
+    return t._replace(nbr=out_nbr, et=out_et)
+
+
+def _replicate_updates(mt, rows, nn, ne):
+    """The replacement-row set copied to every shard (one flat buffer a
+    shard): per shard, per-bucket views in the arguments' shapes."""
+    parts = [x.reshape(-1) for trip in zip(rows, nn, ne) for x in trip]
+    flat = torch.cat(parts)
+    out = []
+    for flat_s in mt.mesh.replicas(flat):
+        views, off = [], 0
+        for x in parts:
+            views.append(flat_s[off:off + x.numel()])
+            off += x.numel()
+        r = views[0::3]
+        n_ = [v.view(tuple(x.shape)) for v, x in zip(views[1::3], nn)]
+        e_ = [v.view(tuple(x.shape)) for v, x in zip(views[2::3], ne)]
+        out.append((r, n_, e_))
+    return out
+
+
+def _absorb_sharded(mt, rows, nn, ne, one):
+    per = _replicate_updates(mt, rows, nn, ne)
+    shards = tuple(one(mt, s, *per[s]) for s in range(mt.k))
+    return mt._replace(shards=shards)
+
+
+def ell_absorb_sharded_ref(mt, rows, nn, ne):
+    """Plain version of ``ell_absorb_sharded``."""
+    return _absorb_sharded(mt, rows, nn, ne, shard_absorb_ref)
+
+
+def ell_absorb_sharded(mt, rows: Sequence[torch.Tensor],
+                       nn: Sequence[torch.Tensor],
+                       ne: Sequence[torch.Tensor]):
+    """The next generation's mesh tables (ell.py:1036
+    make_sharded_ell_absorb_kernel): the replacement-row set (the
+    reference's ``absorb_update_arrays`` form, on any one device) is
+    copied to every shard, and each shard applies only the rows it owns
+    (``shard_absorb``); nothing else moves between shards.  The inputs
+    are only read.  Returns a MeshTables over the new tensors."""
+    if not (len(rows) == len(nn) == len(ne)):
+        raise ValueError("absorb arguments of unequal bucket counts")
+    out = _absorb_sharded(mt, rows, nn, ne, shard_absorb)
+    if _route(mt.shards[0].nbr.device):
+        LAUNCHES["ell_absorb_sharded"] += 1
+    return out

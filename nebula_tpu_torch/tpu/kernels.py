@@ -9,8 +9,10 @@ holds the port's plain PyTorch function (run on CPU tensors and held
 against the JAX function in the tests), its hand-kernel function (the
 wrapper that launches the CUDA kernel on a card tensor), and the
 ``csrc`` sources that kernel is built from.  A family with no hand
-kernel yet has None in all three: only the six mesh families, which
-need several cards (``ROADMAP.md`` queue 2).  ``sparse_go_count`` and
+kernel yet has None in all three: only the frontier-sharded mesh
+families ``mesh_sparse_go`` and ``mesh_sparse_bfs`` (``ROADMAP.md``
+queue 2).  The replicated-frontier mesh families run their shards'
+kernels from ``csrc/ell_mesh.cu`` and reuse the single-card ones.  ``sparse_go_count`` and
 ``sparse_go_limit`` are ``sparse_go`` with ``count=True`` and
 ``limit=n``, as in the reference, where one factory makes all three.
 """
@@ -31,7 +33,8 @@ _LANES = ("ell_lanes.cu",)
 _SPARSE = ("sparse_go.cu",)
 _EDGE = ("edge_go.cu",)
 _INT8 = ("ell_int8.cu",)
-_MESH = PortKernel(None, None, None)
+_MESH = ("ell_mesh.cu",)
+_UNPORTED = PortKernel(None, None, None)
 
 KERNELS: Dict[str, PortKernel] = {
     # continuous session (ell.py:665-743)
@@ -68,14 +71,21 @@ KERNELS: Dict[str, PortKernel] = {
     # the write path (ell.py:1011)
     "ell_absorb": PortKernel(ell_ops.ell_absorb_ref, ell_ops.ell_absorb,
                              ("ell_absorb.cu",)),
-    # mesh families (kernels.py:364; ell.py:1712, :1799, :1036, :2052,
-    # :2179): not ported
-    "sharded_go": _MESH,
-    "ell_go_sharded": _MESH,
-    "ell_bfs_sharded": _MESH,
-    "ell_absorb_sharded": _MESH,
-    "mesh_sparse_go": _MESH,
-    "mesh_sparse_bfs": _MESH,
+    # the replicated-frontier mesh (kernels.py:364; ell.py:1712, :1799,
+    # :1036): edge-sharded GO over the edge kernels and or_into, and the
+    # row-sharded programs over M1 / M2 and the reused lane kernels
+    "sharded_go": PortKernel(edge_ops.sharded_go_ref, edge_ops.sharded_go,
+                             _EDGE + _LANES),
+    "ell_go_sharded": PortKernel(ell_ops.ell_go_sharded_ref,
+                                 ell_ops.ell_go_sharded, _MESH + _LANES),
+    "ell_bfs_sharded": PortKernel(ell_ops.ell_bfs_sharded_ref,
+                                  ell_ops.ell_bfs_sharded, _MESH + _LANES),
+    "ell_absorb_sharded": PortKernel(ell_ops.ell_absorb_sharded_ref,
+                                     ell_ops.ell_absorb_sharded,
+                                     _MESH + ("ell_absorb.cu",)),
+    # the frontier-sharded mesh (ell.py:2052, :2179): not ported
+    "mesh_sparse_go": _UNPORTED,
+    "mesh_sparse_bfs": _UNPORTED,
     # unregistered runtime helpers (runtime.py:3228, :3251) and the
     # packing-off programs (ell.py:1140, :1616)
     "_upload_frontier": PortKernel(ell_ops.frontier_upload_i8_ref,

@@ -1,0 +1,110 @@
+"""A 1-D mesh of shard devices and the collectives of the replicated-
+frontier mesh — the port's counterpart of the reference's
+``jax.sharding.Mesh`` with its ``"parts"`` axis and of what its
+``shard_map`` bodies exchange (``nebula_tpu/tpu/ell.py:1789``'s
+re-replication, ``kernels.py:384``'s ``psum``).
+
+One process drives every shard, as the reference's single controller
+drives its mesh: there is no ``torch.distributed``.  A shard is an
+index into ``PartsMesh.devices``; several shards may sit on one device
+(k shards on one card, or on the CPU, play the part of the test
+suite's virtual devices).  Each shard keeps its own buffers, and
+whatever moves between shards moves by ``Tensor.copy_`` into the
+receiving shard's buffer — a peer copy between two cards, a device
+copy when both shards share one — so shards on one card move the same
+bytes a mesh of cards would.  Combining what arrived (the OR of
+``psum_or``) is a kernel (``ell_ops.or_into``).  A copy between two
+cards runs on the current streams of both (``Tensor.copy_``'s own
+ordering); only one card has been run.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import List, Sequence, Tuple
+
+import torch
+
+
+def on(device: torch.device):
+    """A context in which a kernel launch lands on ``device``: its card
+    made current (a launch goes to the current card), or nothing for the
+    CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class PartsMesh:
+    """k shard devices in shard order; repeats allowed."""
+
+    __slots__ = ("devices",)
+
+    def __init__(self, devices: Sequence):
+        devs = tuple(torch.device("cuda", 0) if torch.device(d) ==
+                     torch.device("cuda") else torch.device(d)
+                     for d in devices)
+        if len(devs) < 2:
+            raise ValueError(f"a mesh needs at least 2 shards, got "
+                             f"{len(devs)}")
+        kinds = {d.type for d in devs}
+        if len(kinds) != 1 or kinds - {"cpu", "cuda"}:
+            raise ValueError(f"mesh devices must all be CUDA cards or all "
+                             f"the CPU: {devs}")
+        self.devices = devs
+
+    @property
+    def k(self) -> int:
+        return len(self.devices)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, PartsMesh) and self.devices == other.devices
+
+    def __hash__(self) -> int:
+        return hash(self.devices)
+
+    def __repr__(self) -> str:
+        return f"PartsMesh({[str(d) for d in self.devices]})"
+
+    def replicas(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """One fresh copy of ``t`` on every shard (a replicated input)."""
+        out = []
+        for d in self.devices:
+            r = torch.empty(t.shape, dtype=t.dtype, device=d)
+            r.copy_(t)
+            out.append(r)
+        return out
+
+
+def replicate_rows(bufs: Sequence[torch.Tensor],
+                   blocks: Sequence[Sequence[Tuple[int, int]]]) -> int:
+    """Every shard receives every other shard's owned rows: shard s owns
+    the row ranges ``blocks[s]`` (half-open, along dim 0) of its buffer
+    ``bufs[s]``, and each of them is copied into the same rows of every
+    other shard's buffer.  Returns the bytes copied."""
+    moved = 0
+    for t, rows in enumerate(blocks):
+        for lo, hi in rows:
+            if hi <= lo:
+                continue
+            src = bufs[t][lo:hi]
+            for s, dst in enumerate(bufs):
+                if s != t:
+                    dst[lo:hi].copy_(src)
+                    moved += src.numel() * src.element_size()
+    return moved
+
+
+def psum_or(partials: Sequence[torch.Tensor], outs: Sequence[torch.Tensor],
+            recv: Sequence[torch.Tensor], or_into) -> None:
+    """``outs[s]`` = the OR of every shard's ``partials``: shard s
+    copies its own partial into ``outs[s]``, then receives each other
+    shard's into its ``recv[s]`` buffer and ORs it in with
+    ``or_into(recv[s], outs[s])``.  Buffers are per shard, all of one
+    shape; ``partials`` are only read."""
+    for s, out in enumerate(outs):
+        out.copy_(partials[s])
+        for t, p in enumerate(partials):
+            if t != s:
+                recv[s].copy_(p)
+                with on(out.device):
+                    or_into(recv[s], out)

@@ -54,9 +54,21 @@ int8 carrier instead (``ell_go_i8``, ``ell_bfs_i8``; the GO result
 bit-packed along rows), and the continuous tier is refused, so every
 GO takes the windowed pipeline.
 
-Everything else raises ``TpuDecline``; the mesh kernels and the
-dispatcher's host filter and materialization are not ported yet and
-their branches decline naming what they need.
+With ``tpu_mesh_devices=k > 1`` the runtime serves on a mesh of k
+shards (``mesh.PartsMesh``: the first k cards, k shards of the CPU
+when the runtime's device is the CPU, or the ``mesh_devices`` it was
+given).  In ``tpu_mesh_mode=dense`` windowed GO and FIND PATH run the
+replicated-frontier programs over the row-sharded tables
+(``ell_go_sharded``, ``ell_bfs_sharded``; always packed, COUNT(*)
+folded on the host), absorbed writes update the sharded tables with
+``ell_absorb_sharded``, and the continuous tier is refused.  The
+frontier-sharded design of the default ``tpu_mesh_mode=sparse``
+(``mesh_sparse_go``, ``mesh_sparse_bfs``) is not ported: a batch it
+would take declines naming it, as does UPTO on a mesh.
+
+Everything else raises ``TpuDecline``; the dispatcher's host filter
+and materialization are not ported yet and their branches decline
+naming what they need.
 
 Semantics held exactly: ``GO N STEPS`` is N-1 device hops, then the
 host-side final hop over the frontier's out-edges in the OVER set
@@ -85,13 +97,15 @@ from .csr import (CsrMirror, absorb_overlay, build_delta_mirror,
                   build_mirror, commit_vertex_plan, plan_vertex_events)
 from .device import DeviceLike, resolve_device
 from .ell import (INT16_INF, INT32_INF, DeviceTables, EllIndex,
-                  absorb_update_arrays, apply_ell_absorb_host, lanes_width,
-                  plan_ell_absorb, sparse_caps, sparse_go_pairs,
-                  sparse_pack32, unpack_bits, unpack_lanes_host)
+                  MeshTables, absorb_update_arrays, apply_ell_absorb_host,
+                  lanes_width, mesh_tables, plan_ell_absorb, sparse_caps,
+                  sparse_go_pairs, sparse_pack32, unpack_bits,
+                  unpack_lanes_host)
 from .expr_compile import (K_BOOL, K_FLOAT, K_STR, K_STRCODE, K_VIDRANK,
                            CompileError, CVal, Env, ExprCompiler)
 from .expr_program import B as T_BOOL, F as T_FLOAT, I as T_INT
 from .expr_program import ExprProgram, trace_filter
+from .mesh import PartsMesh
 
 
 class _Pending:
@@ -201,11 +215,19 @@ class TorchQueryRuntime:
     """The port's device runtime: GO (continuous and windowed) and
     FIND PATH, over mirrors folded from ``stores`` (``NebulaStore``s,
     with ``schema_man`` resolving their schemas and names) or loaded
-    ready-made (``load_space``)."""
+    ready-made (``load_space``).  ``mesh_devices`` places mesh shard i
+    on ``mesh_devices[i]`` (repeats allowed) when
+    ``tpu_mesh_devices`` > 1; None means the first k cards, or k shards
+    of the CPU when ``device`` is the CPU."""
 
     def __init__(self, stores=None, schema_man=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh_devices=None):
         self.device = resolve_device(device)
+        self._mesh_devices = None if mesh_devices is None else [
+            torch.device(d) for d in mesh_devices]
+        self._mesh_cache: Optional[Tuple[int, Optional[PartsMesh]]] = None
+        self._mesh_warned = False
+        self._mesh_lock = threading.Lock()
         self.stores = list(stores or [])
         self.sm = schema_man
         self._lock = threading.Lock()
@@ -227,6 +249,9 @@ class TorchQueryRuntime:
                       "go_sparse": 0, "go_sparse_split": 0,
                       "sparse_overflows": 0, "go_adaptive": 0,
                       "path_device": 0, "bfs_dispatches": 0,
+                      # the replicated-frontier mesh's GO launches, BFS
+                      # dispatches and absorbed table generations
+                      "go_mesh": 0, "path_mesh": 0, "mesh_absorbs": 0,
                       "bfs_levels": 0, "fetch_bytes": 0,
                       "fetch_wait_s": 0.0, "t_launch_s": 0.0,
                       "t_fetch_s": 0.0, "t_assemble_s": 0.0,
@@ -539,11 +564,21 @@ class TorchQueryRuntime:
         ix2 = apply_ell_absorb_host(ix, plan, new_m.m, claims=claims)
         tables = (getattr(m, "_tables_cache", None) or {}).get(
             str(self.device))
-        if tables is not None:
+        mesh_cached = getattr(m, "_mesh_tables_cache", None)
+        if tables is not None or mesh_cached is not None:
             _counts, upd = absorb_update_arrays(ix, plan)
             rows, nn, ne = self._absorb_args(upd)
+        if tables is not None:
             new_m._tables_cache = {str(self.device): ell_ops.ell_absorb(
                 tables, rows, nn, ne)}
+        if mesh_cached is not None:
+            # the resident mesh tables absorb shard by shard, each shard
+            # applying only the rows it owns (runtime.py:1081-1095) —
+            # never a re-shard of the host arrays
+            k, mt = mesh_cached
+            new_m._mesh_tables_cache = (k, ell_ops.ell_absorb_sharded(
+                mt, rows, nn, ne))
+            self._bump("mesh_absorbs")
         self._bump("t_absorb_ell_s",
                    time.perf_counter() - t_start - (t1 - t0))
         new_m._ell = ix2
@@ -594,14 +629,16 @@ class TorchQueryRuntime:
         """A host array copied to this runtime's device."""
         return torch.from_numpy(a).to(self.device)
 
-    def _mirror_cached(self, m: CsrMirror, attr: str, build):
-        """``build()`` cached on the mirror per device under ``attr``
-        (EllIndex has __slots__, so device caches hang on the mirror)."""
+    def _mirror_cached(self, m: CsrMirror, attr: str, build,
+                       device: Optional[torch.device] = None):
+        """``build()`` cached on the mirror per device (this runtime's,
+        or ``device``) under ``attr`` (EllIndex has __slots__, so device
+        caches hang on the mirror)."""
         cache = getattr(m, attr, None)
         if cache is None:
             cache = {}
             setattr(m, attr, cache)
-        key = str(self.device)
+        key = str(self.device if device is None else device)
         if key not in cache:
             cache[key] = build()
         return cache[key]
@@ -618,6 +655,67 @@ class TorchQueryRuntime:
         return self._mirror_cached(
             m, "_hub_merge_cache",
             lambda: tuple(self._up(a) for a in ix.hub_merge()))
+
+    def _hub_merge_shards(self, m: CsrMirror, ix: EllIndex,
+                          mesh: PartsMesh):
+        """(eslot per shard, hrows per shard): the hub OR-merge arrays
+        on each shard's device (one cached copy per device)."""
+        per = [self._mirror_cached(
+            m, "_hub_merge_cache",
+            lambda d=d: tuple(torch.from_numpy(a).to(d)
+                              for a in ix.hub_merge()), device=d)
+            for d in mesh.devices]
+        return [p[0] for p in per], [p[1] for p in per]
+
+    # ------------------------------------------------------------- mesh
+    def _mesh_only(self) -> Optional[PartsMesh]:
+        """The configured mesh (runtime.py:3144), or None when
+        ``tpu_mesh_devices`` <= 1 — without building any table.  With
+        no ``mesh_devices`` list and fewer than k cards visible, the
+        reference's one-time warning goes to stderr and the runtime
+        runs single-device."""
+        k = int(flags.get("tpu_mesh_devices") or 0)
+        if k <= 1:
+            return None
+        cached = self._mesh_cache
+        if cached is not None and cached[0] == k:
+            return cached[1]
+        if self._mesh_devices is not None:
+            devs = self._mesh_devices
+        elif self.device.type == "cpu":
+            devs = [self.device] * k
+        else:
+            devs = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        if len(devs) < k:
+            if not self._mesh_warned:
+                self._mesh_warned = True
+                import sys
+                sys.stderr.write(
+                    f"tpu_mesh_devices={k} but only {len(devs)} devices "
+                    f"visible — running single-device\n")
+            self._mesh_cache = (k, None)
+            return None
+        mesh = PartsMesh(devs[:k])
+        self._mesh_cache = (k, mesh)
+        return mesh
+
+    def _mesh_tables(self, m: CsrMirror, ix: EllIndex
+                     ) -> Optional[MeshTables]:
+        """The row-sharded tables on the mesh (runtime.py:3170), cached
+        on the mirror per k so they follow its lifecycle (an absorbed
+        generation carries its own); None without a mesh."""
+        mesh = self._mesh_only()
+        if mesh is None:
+            return None
+        with self._mesh_lock:
+            cached = getattr(m, "_mesh_tables_cache", None)
+            if cached is not None and cached[0] == mesh.k \
+                    and cached[1].mesh == mesh:
+                return cached[1]
+            mt = mesh_tables(ix, mesh)
+            m._mesh_tables_cache = (mesh.k, mt)
+            return mt
 
     def _hub_dev(self, m: CsrMirror, ix: EllIndex) -> torch.Tensor:
         """uint8[n+1] hub table (ell.EllIndex.hub_table) on the device
@@ -1248,8 +1346,13 @@ class TorchQueryRuntime:
         the current mirror, on the smallest ``go_batch_widths`` rung
         covering ``min_lanes``; None for an empty or unloaded space or
         with ``tpu_packed_frontier`` off (runtime.py:1529: the session's
-        carriers are packed only)."""
+        carriers are packed only) or on a mesh (runtime.py:1531-1534:
+        the replicated-frontier kernels have no resident-lane protocol,
+        so the stream is refused and GO serves windowed through the
+        mesh; the flag alone decides, and no mesh state is built)."""
         if not flags.get("tpu_packed_frontier", True):
+            return None
+        if int(flags.get("tpu_mesh_devices") or 0) > 1:
             return None
         m = self.mirror(space_id)
         if m is None or m.m == 0:
@@ -1461,10 +1564,12 @@ class TorchQueryRuntime:
         dense-id frontier arrays, or _DeviceCounts, and the mirror).
         The reference's selection order (runtime.py:1664-1693):
         host-only (steps == 1) → mesh → sparse pair-list → sparse split
-        → adaptive single → dense bit-packed.  The mesh kernels are not
-        ported: with ``tpu_mesh_devices`` > 1 a batch raises TpuDecline
-        naming them.  ``upto`` returns the UNION of depths
-        0..steps-1."""
+        → adaptive single → dense bit-packed.  On a mesh in
+        ``tpu_mesh_mode=sparse`` a batch with a sparse rung raises
+        TpuDecline naming ``mesh_sparse_go`` (not ported); every other
+        mesh batch runs ``ell_go_sharded``, and the single-device
+        sparse, split and adaptive routes stay off.  ``upto`` returns
+        the UNION of depths 0..steps-1."""
         m = self.mirror(space_id)
         if m is None:
             raise TpuDecline(f"space {space_id} is not loaded")
@@ -1499,10 +1604,17 @@ class TorchQueryRuntime:
 
         ix = self.ell(m)
         c0 = self._sparse_c0(len(d_all))
-        if int(flags.get("tpu_mesh_devices") or 0) > 1:
-            raise TpuDecline("mesh-sharded GO needs the mesh_sparse_go / "
-                             "ell_go_sharded kernels (ell.py:2052, "
-                             ":1712), not ported")
+        mesh = self._mesh_only()
+        if mesh is not None and c0 is not None and not upto \
+                and flags.get("tpu_mesh_mode") == "sparse":
+            raise TpuDecline("mesh-sharded GO in tpu_mesh_mode=sparse "
+                             "needs the mesh_sparse_go kernel "
+                             "(ell.py:2052), not ported")
+        mesh_mt = self._mesh_tables(m, ix) if mesh is not None else None
+        if mesh_mt is not None:
+            return self._launch_dense(m, ix, d_all, q_all, nq, et_tuple,
+                                      steps, upto=upto, reduce=reduce,
+                                      mesh_mt=mesh_mt)
         if flags.get("tpu_sparse_go") and c0 is not None:
             return self._launch_sparse(m, ix, d_all, q_all, nq, et_tuple,
                                        steps, c0, upto=upto, reduce=reduce)
@@ -1678,7 +1790,8 @@ class TorchQueryRuntime:
     def _launch_dense(self, m: CsrMirror, ix: EllIndex, d_all: np.ndarray,
                       q_all: np.ndarray, nq: int,
                       et_tuple: Tuple[int, ...], steps: int,
-                      upto: bool = False, reduce=None):
+                      upto: bool = False, reduce=None,
+                      mesh_mt: Optional[MeshTables] = None):
         """The single-chip dense route (runtime.py:2020): upload the
         start lanes, enqueue ``ell_go`` or, for COUNT(*),
         ``ell_go_count``; the resolver fetches the live word columns (or
@@ -1686,22 +1799,35 @@ class TorchQueryRuntime:
         built without ``upto`` (its front end never sends UPTO with a
         count reduction), the count here folds the UPTO union, as the
         continuous path's count does.  With ``tpu_packed_frontier``
-        off the int8 route runs instead (``_launch_dense_i8``)."""
-        if not flags.get("tpu_packed_frontier", True):
+        off the int8 route runs instead (``_launch_dense_i8``).  Given
+        the mesh tables ``mesh_mt`` the batch runs ``ell_go_sharded``
+        (runtime.py:2053-2076): always packed, whatever the flag, with
+        no count kernel (a COUNT(*) gets the vertex lists and the host
+        folds them) and no UPTO (the mesh declines it)."""
+        if mesh_mt is None and not flags.get("tpu_packed_frontier", True):
             return self._launch_dense_i8(m, ix, d_all, q_all, nq, et_tuple,
                                          steps, upto)
+        if mesh_mt is not None and upto:
+            raise TpuDecline("UPTO on a mesh-sharded space")
         B = self._batch_width(nq)
         f0 = self._upload_frontier_packed(ix, ix.perm[d_all],
                                           q_all.astype(np.int32), B)
-        tables = self._device_tables(m, ix)
-        eslot, hrows = self._hub_merge_dev(m, ix)
-        count_mode = reduce is not None and reduce[0] == "count"
-        if count_mode:
+        count_mode = reduce is not None and reduce[0] == "count" \
+            and mesh_mt is None
+        if mesh_mt is not None:
+            eslot, hrows = self._hub_merge_shards(m, ix, mesh_mt.mesh)
+            # the k replicas are equal: shard 0's is the answer
+            out_dev = ell_ops.ell_go_sharded(f0, mesh_mt, eslot, hrows,
+                                             et_tuple, steps)[0]
+            self._bump("go_mesh")
+        elif count_mode:
             out_dev = ell_ops.ell_go_count(
-                f0, self._deg_dev(m, ix, et_tuple), tables, eslot, hrows,
+                f0, self._deg_dev(m, ix, et_tuple),
+                self._device_tables(m, ix), *self._hub_merge_dev(m, ix),
                 et_tuple, steps, upto)
         else:
-            out_dev = ell_ops.ell_go(f0, tables, eslot, hrows, et_tuple,
+            out_dev = ell_ops.ell_go(f0, self._device_tables(m, ix),
+                                     *self._hub_merge_dev(m, ix), et_tuple,
                                      steps, upto)
         self._bump("go_dense")
 
@@ -1813,27 +1939,38 @@ class TorchQueryRuntime:
         """Batched BFS core against an already-fetched mirror: int16
         [B, n] depths (INT16_INF = unreached), the single-chip route of
         runtime.py:3319, packed or (``tpu_packed_frontier`` off) int8;
-        both give depths [n_rows + 1, B]."""
-        if int(flags.get("tpu_mesh_devices") or 0) > 1:
-            raise TpuDecline("mesh-sharded FIND PATH needs the "
-                             "mesh_sparse_bfs / ell_bfs_sharded kernels "
-                             "(ell.py:2179, :1799), not ported")
+        both give depths [n_rows + 1, B].  On a mesh (runtime.py:3327-
+        3351) ``tpu_mesh_mode=sparse`` declines naming
+        ``mesh_sparse_bfs`` (not ported) and ``dense`` runs
+        ``ell_bfs_sharded``, packed whatever the flag."""
+        mesh = self._mesh_only()
+        if mesh is not None and flags.get("tpu_mesh_mode") == "sparse":
+            raise TpuDecline("mesh-sharded FIND PATH in tpu_mesh_mode="
+                             "sparse needs the mesh_sparse_bfs kernel "
+                             "(ell.py:2179), not ported")
         t0 = time.perf_counter()
         ix = self.ell(m)
         nq = len(starts_per_query)
         B = self._batch_width(nq)
-        tables = self._device_tables(m, ix)
-        eslot, hrows = self._hub_merge_dev(m, ix)
-        if flags.get("tpu_packed_frontier", True):
-            upload, bfs = self._upload_frontier_packed, ell_ops.ell_bfs
-        else:           # the int8 route (runtime.py:3369-3380)
-            upload, bfs = self._upload_frontier, ell_ops.ell_bfs_i8
+        mt = self._mesh_tables(m, ix) if mesh is not None else None
+        # the int8 route (runtime.py:3369-3380) only off the mesh
+        packed = mt is not None or flags.get("tpu_packed_frontier", True)
+        upload = self._upload_frontier_packed if packed \
+            else self._upload_frontier
         f0 = upload(ix, *self._flat_coords(m, ix, starts_per_query, nq), B)
         t0p = upload(ix, *self._flat_coords(m, ix, targets_per_query, nq),
                      B)
         self._bump("path_device", nq)
-        d_dev, levels = bfs(f0, t0p, tables, eslot, hrows, et_tuple,
-                            max_steps, stop_when_found=shortest)
+        if mt is not None:
+            self._bump("path_mesh")
+            d_dev, levels = ell_ops.ell_bfs_sharded(
+                f0, t0p, mt, *self._hub_merge_shards(m, ix, mt.mesh),
+                et_tuple, max_steps, stop_when_found=shortest)
+        else:
+            bfs = ell_ops.ell_bfs if packed else ell_ops.ell_bfs_i8
+            d_dev, levels = bfs(f0, t0p, self._device_tables(m, ix),
+                                *self._hub_merge_dev(m, ix), et_tuple,
+                                max_steps, stop_when_found=shortest)
         nqp = min(B, max(8, -(-nq // 8) * 8))
         host = self._fetch(d_dev[:, :nqp])[:, :nq]   # device slice
         with self._lock:

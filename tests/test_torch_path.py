@@ -197,7 +197,8 @@ def test_in_edge_cache_keeps_the_reference_order(paths):
 
 
 def test_find_path_declines(paths):
-    """An unloaded space and the mesh route decline; with packing off
+    """An unloaded space and the mesh route in the default
+    tpu_mesh_mode=sparse decline (naming mesh_sparse_bfs); with packing off
     the path is served on the int8 route and its rows equal the
     cluster's."""
     ok, rt, space, et, _jrt = paths

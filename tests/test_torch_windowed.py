@@ -510,7 +510,8 @@ SERVED_ROUTES = {"sparse_go": "go_sparse", "adaptive_go": "go_adaptive",
 ])
 def test_unported_routes_decline_naming_their_kernel(windowed, setting,
                                                      starts, needs):
-    """The mesh route declines naming its kernel; the sparse, adaptive
+    """The mesh route in the default tpu_mesh_mode=sparse declines naming
+    the kernel still missing (mesh_sparse_go); the sparse, adaptive
     and unpacked routes (ported) serve, their counter moves and the rows
     equal the cluster's."""
     from nebula_tpu_torch.common.flags import flags
