@@ -76,7 +76,23 @@ Phases, in order; any failure exits non-zero:
              ``shard_absorb`` on the absorb plans (gathered shards equal
              to ``ell_absorb``'s tables, inputs unchanged),
              ``sharded_go`` and ``or_into`` against the ``go`` program,
-             all exactly, with the copy time of the row replication
+             all exactly, with the copy time of the row replication;
+             last the frontier-sharded mesh (``mesh_sparse_kernel_phase``)
+             on the serve tables cut into k = 2 and 4 chunks on this
+             card: ``mesh_sparse_go`` at c0 256 (128 queries, also
+             against ``ell_go_sharded`` on the same starts) and 2048,
+             3 and 4 steps, and four tight-cap batches (cap_x, the dedup
+             cap, the hub budget, cap_e), ``mesh_sparse_bfs`` shortest
+             and all at B = 128 and 1024 (against its plain version and
+             ``ell_bfs``), every X1 ``mesh_route``, X2 ``mesh_mark``, K5
+             (with its row base) and X3 ``mesh_bfs_stamp`` call held to
+             its plain version on copies of its operands; per-shard
+             outputs equal when no overflow, the flags always, for the
+             probed run and for one call of each public wrapper.  A
+             program's ``ms`` is its device time, its calls queued
+             behind a spin kernel (the BFS replayed with the level
+             flags the probed run read, so the host never waits on
+             the card), its event time beside as ``event_ms``
 4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
              edges, stored in both directions, with seeded columns:
              edge ``w`` int, ``score`` double, ``kind`` string, tag
@@ -150,19 +166,30 @@ Phases, in order; any failure exits non-zero:
              threads in the default continuous mode, no stream may
              anchor, 64 checked; (b) MP FIND SHORTEST PATH from PT
              threads and 8 FIND ALL PATH, every answer checked; (c) an
-             UPTO GO and a ``tpu_mesh_mode=sparse`` GO must decline,
-             the second naming ``mesh_sparse_go``; (d) a 2^14-vertex
+             UPTO GO must decline; (d) a 2^14-vertex
              store-backed space on the same mesh: 64 edge writes, each
              read back by a mesh GO from both ends, absorbed into the
              sharded tables (``ell_absorb_sharded``), which must then
              equal ``shard_ell`` of the new host ELL; no single-card
              hop, count or absorb kernel may run in the window
-13. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
-14. the last line ``{"ok": true, "device": {...}}``
+13. mesh-sparse  ``tpu_mesh_devices=4`` in the default
+             ``tpu_mesh_mode=sparse``, 4 shards on this card, one
+             counted window: (a) MR GO as in phase 12 (a) from T
+             threads, continuous (refused), 64 checked; (b) MP FIND
+             SHORTEST PATH ... UPTO 5 STEPS from PT threads and 8 FIND
+             ALL PATH, every answer checked; (c) phase 12 (d)'s space
+             with 16 writes, each read back by a frontier-sharded GO
+             from both ends, the new generation's chunk-sharded view
+             equal to ``build_sharded_ell`` of its ELL.
+             ``mesh_sparse_go`` and ``mesh_sparse_bfs`` must serve; a
+             batch they overflow reruns on the dense mesh (counted); no
+             single-card hop, sparse or adaptive kernel may run
+14. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
+15. the last line ``{"ok": true, "device": {...}}``
 
 Every mesh number is k shards on ONE card: the exchange between shards
 is a copy on that card, and a link between separate cards is not
-measured.  Every launch count is zeroed just before each of phases 4-12
+measured.  Every launch count is zeroed just before each of phases 4-13
 drives the port and read just after it; every kernel of a phase's path
 must have been launched there.  The script imports nothing of the JAX package.
 It needs one CUDA card and refuses to run (non-zero exit, no result)
@@ -222,6 +249,11 @@ REPLACES = {
     "ell_bfs_sharded": "nebula_tpu/tpu/ell.py:1799",
     "ell_absorb_sharded": "nebula_tpu/tpu/ell.py:1036",
     "sharded_go": "nebula_tpu/tpu/kernels.py:364",
+    "mesh_route": "nebula_tpu/tpu/ell.py:1970",
+    "mesh_mark": "nebula_tpu/tpu/ell.py:2019",
+    "mesh_bfs_stamp": "nebula_tpu/tpu/ell.py:2279",
+    "mesh_sparse_go": "nebula_tpu/tpu/ell.py:2052",
+    "mesh_sparse_bfs": "nebula_tpu/tpu/ell.py:2179",
 }
 INT8_KERNELS = ("frontier_upload_i8", "go_hop_i8", "pack_rows",
                 "bfs_level_i8", "ell_go_i8", "ell_bfs_i8")
@@ -255,12 +287,20 @@ SOURCES.update({
     "ell_absorb_sharded": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
                           "ell_absorb.cu",
     "sharded_go": "nebula_tpu_torch/tpu/csrc/edge_go.cu + ell_lanes.cu"})
+MESH_SPARSE_KERNELS = ("mesh_route", "mesh_mark", "mesh_bfs_stamp",
+                       "mesh_sparse_go", "mesh_sparse_bfs")
+SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/mesh_sparse.cu"
+                for k in MESH_SPARSE_KERNELS[:3]})
+SOURCES.update({
+    "mesh_sparse_go": "nebula_tpu_torch/tpu/csrc/mesh_sparse.cu + "
+                      "sparse_go.cu + ell_lanes.cu",
+    "mesh_sparse_bfs": "nebula_tpu_torch/tpu/csrc/mesh_sparse.cu + "
+                       "sparse_go.cu"})
 # the edge-list programs no runtime path calls (the reference's only
 # caller of go is _run_go_kernel's no-filter branch, which
 # _execute_fused never takes; bfs has only its registry entry; the
-# reference runtime never calls make_sharded_go_kernel, and or_into is
-# only sharded_go's combine)
-NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go", "or_into")
+# reference runtime never calls make_sharded_go_kernel)
+NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go")
 EDGE_KERNELS = ("edge_seed", "edge_hop", "edge_final", "expr_filter",
                 "edge_bfs_level", "go", "go_filtered", "bfs")
 # which counted phase runs each kernel on its main path
@@ -282,6 +322,9 @@ PATH_KERNELS = {
     "mesh": ("frontier_upload", "shard_hop", "hop_merge", "ell_go_sharded",
              "bfs_level", "bfs_depth_i8", "ell_bfs_sharded", "shard_absorb",
              "ell_absorb_sharded"),
+    "mesh_sparse": ("mesh_route", "mesh_mark", "pair_compact",
+                    "pair_reduce", "or_into", "mesh_sparse_go",
+                    "mesh_bfs_stamp", "mesh_sparse_bfs"),
 }
 LIMIT_N = 10                   # the sparse phase's | LIMIT n
 MAX_PATHS = 1000               # the port's FIND PATH result cap
@@ -1183,13 +1226,16 @@ class Probe:
     ``pre(args)`` / ``post(args)`` give the
     bytes the call must move (read before and after the call);
     ``lib(args)``, when given, times the PyTorch library call computing
-    the same function."""
+    the same function; ``same(i, a, b)``, when given, decides whether
+    operand i of the kernel's call (``a``) equals the plain version's
+    (``b``) in place of ``torch.equal``."""
 
     def __init__(self, torch, name, kern, ref, pre=None, post=None,
-                 lib=None):
+                 lib=None, same=None):
         self.torch, self.name = torch, name
         self.kern, self.ref = kern, ref
         self.pre, self.post, self.lib = pre, post, lib
+        self.same = same or (lambda _i, a, b: torch.equal(a, b))
         self.calls = 0
         self.k_ms = self.r_ms = self.enqueue_ms = 0.0
         self.bytes = 0
@@ -1211,7 +1257,7 @@ class Probe:
         ev[1].record()
         torch.cuda.synchronize()
         for k, (a, b) in enumerate(zip(args, copies[0])):
-            if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+            if isinstance(a, torch.Tensor) and not self.same(k, a, b):
                 raise AssertionError(f"{self.name} != its plain version "
                                      f"(operand {k})")
         t0 = time.perf_counter()
@@ -3786,16 +3832,19 @@ SINGLE_CARD = ("go_hop", "ell_go", "go_count", "sparse_go", "adaptive_go",
                "ell_absorb", "go_hop_i8", "lane_join")
 
 
-def mesh_write_part(torch, ell_ops, flags, dev, seed: int) -> dict:
-    """Phase 12 (d): a store-backed space (``WriteSpace`` at
-    MESH_VERTICES vertices) served on a 4-shard mesh on this card,
-    windowed.  MESH_WRITES new edges s -> d are written one at a time;
-    each is read back by a mesh GO from both ends (``GO 2 STEPS FROM s``
-    must yield every out-neighbour of d, ``GO 2 STEPS FROM d
-    REVERSELY`` every in-neighbour of s; every eighth checked whole
-    against the oracle).  Then the sharded tables must equal
-    ``shard_ell`` of the host's new ELL."""
-    from nebula_tpu_torch.tpu.ell import shard_ell
+def mesh_write_part(torch, ell_ops, flags, dev, seed: int,
+                    writes: int = MESH_WRITES, sparse: bool = False) -> dict:
+    """Phase 12 (d), and with ``sparse`` phase 13 (c): a store-backed
+    space (``WriteSpace`` at MESH_VERTICES vertices) served on a 4-shard
+    mesh on this card, windowed.  ``writes`` new edges s -> d are
+    written one at a time; each is read back by a mesh GO from both
+    ends (``GO 2 STEPS FROM s`` must yield every out-neighbour of d,
+    ``GO 2 STEPS FROM d REVERSELY`` every in-neighbour of s; every
+    eighth checked whole against the oracle).  Then the row-sharded
+    tables (dense mode) must equal ``shard_ell`` of the host's new ELL,
+    or (sparse mode) the newest generation's chunk-sharded view must
+    equal ``build_sharded_ell`` of it."""
+    from nebula_tpu_torch.tpu.ell import build_sharded_ell, shard_ell
     from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
     ws = WriteSpace(MESH_VERTICES, 8 * MESH_VERTICES, seed + 5)
     rt = TorchQueryRuntime(stores=[ws.store], schema_man=ws.sm, device=dev,
@@ -3815,7 +3864,7 @@ def mesh_write_part(torch, ell_ops, flags, dev, seed: int) -> dict:
             inv_ = np.asarray(sorted(radj), np.int64)
             lat = []
             checked_whole = 0
-            for i in range(MESH_WRITES):
+            for i in range(writes):
                 while True:
                     s_, d_ = int(rng.choice(inv_)), int(rng.choice(outv))
                     if s_ != d_ and d_ not in ws.adj.get(s_, {}):
@@ -3840,24 +3889,41 @@ def mesh_write_part(torch, ell_ops, flags, dev, seed: int) -> dict:
                                              f"{s_} differs from the oracle")
                     checked_whole += 1
             m1 = rt.mirror(S)
-            k, mt = m1._mesh_tables_cache
-            gn, ge = mt.host_shards()
-            hn, he, _ = shard_ell(rt.ell(m1), k)
+            if sparse:
+                k, st = m1._sharded_ell_cache
+                gn, ge, gc, _gz = st.host_shards()
+                want = build_sharded_ell(rt.ell(m1), k)
+                hn = [[want.nbr_s[b][s] for b in range(len(want.D))]
+                      for s in range(k)]
+                he = [[want.et_s[b][s] for b in range(len(want.D))]
+                      for s in range(k)]
+                if not all(np.array_equal(gc[s], want.ecnt_s[s])
+                           for s in range(k)):
+                    raise AssertionError("the sharded hub runs after the "
+                                         "window != build_sharded_ell")
+            else:
+                k, mt = m1._mesh_tables_cache
+                gn, ge = mt.host_shards()
+                hn, he, _ = shard_ell(rt.ell(m1), k)
             for s in range(k):
                 for b in range(len(hn[s])):
                     if not (np.array_equal(gn[s][b], hn[s][b])
                             and np.array_equal(ge[s][b], he[s][b])):
                         raise AssertionError(f"shard {s} bucket {b} after "
-                                             f"the window != shard_ell")
-        out.update(writes=MESH_WRITES, checked_whole=checked_whole,
+                                             f"the window != its host "
+                                             f"build")
+        out.update(writes=writes, checked_whole=checked_whole,
                    write_read_p50_ms=float(np.percentile(lat, 50) * 1e3),
                    write_read_p99_ms=float(np.percentile(lat, 99) * 1e3),
                    **{x: rt.stats[x] for x in (
                        "mirror_builds", "mirror_absorbs", "mesh_absorbs",
-                       "mirror_absorb_failed", "go_mesh")})
-        if not (rt.stats["mirror_absorbs"] and rt.stats["mesh_absorbs"]):
-            raise AssertionError(f"the mesh window absorbed nothing: "
-                                 f"{out}")
+                       "mirror_absorb_failed", "go_mesh", "go_mesh_sparse",
+                       "sparse_overflows")})
+        if not rt.stats["mirror_absorbs"] or not (
+                rt.stats["go_mesh_sparse"] if sparse
+                else rt.stats["mesh_absorbs"]):
+            raise AssertionError(f"the mesh window absorbed nothing or "
+                                 f"left the mesh: {out}")
     finally:
         rt.close()
     return out
@@ -3874,9 +3940,8 @@ def mesh_phase(torch, ell_ops, flags, m, schema, oracle: GoOracle,
     (COUNT(*) and ``| LIMIT 10`` among them) from ``threads`` threads
     in the default continuous mode — no stream may anchor; (b)
     ``path_requests`` FIND SHORTEST PATH from ``path_threads`` threads
-    and 8 FIND ALL PATH, every answer checked; (c) an UPTO GO and a
-    sparse-mode single-start GO must decline, the second naming
-    ``mesh_sparse_go``; (d) ``mesh_write_part``.  64 GO answers of (a)
+    and 8 FIND ALL PATH, every answer checked; (c) an UPTO GO must
+    decline; (d) ``mesh_write_part``.  64 GO answers of (a)
     are checked against the oracle; no single-card kernel may run.
     ``device`` is the shards' (None: the card)."""
     from nebula_tpu_torch.storage.device import TpuDecline
@@ -3941,9 +4006,7 @@ def mesh_phase(torch, ell_ops, flags, m, schema, oracle: GoOracle,
         # (c) what the mesh still declines
         declined = []
         for label, mode, kw, needs in (
-                ("upto", MESH, {"upto": True}, "UPTO"),
-                ("sparse_mode", dict(MESH, tpu_mesh_mode="sparse"), {},
-                 "mesh_sparse_go")):
+                ("upto", MESH, {"upto": True}, "UPTO"),):
             with flag_mode(flags, mode):
                 try:
                     rt.serve_go(1, [int(vids[0])], [1], 3, {1: "e"}, **kw)
@@ -3966,6 +4029,516 @@ def mesh_phase(torch, ell_ops, flags, m, schema, oracle: GoOracle,
     ran = {x: launches[x] for x in SINGLE_CARD if launches[x]}
     if ran:
         raise AssertionError(f"the mesh phase ran single-card kernels: {ran}")
+    out["launches"] = launches
+    return out
+
+
+# ============================================== the frontier-sharded mesh
+MESH_SPARSE_MAIN = 4           # the k the kernels line reports
+
+
+def _send_same(torch):
+    """Probe ``same`` for X1: the exchange buffer's counts must be
+    equal, and each block's live keys as a set where the block kept
+    them all (the kernel places them in any order); the rest equal."""
+    def same(i, a, b):
+        if i != 7:
+            return torch.equal(a, b)
+        if not torch.equal(a[:, 0], b[:, 0]):
+            return False
+        cap = a.shape[1] - 1
+        for d in range(a.shape[0]):
+            c = int(a[d, 0])
+            if c <= cap and not torch.equal(
+                    torch.sort(a[d, 1:1 + c])[0],
+                    torch.sort(b[d, 1:1 + c])[0]):
+                return False
+        return True
+    return same
+
+
+def mesh_sparse_probes(torch, ell_ops, st):
+    """Probes of X1 (both modes), X2, K5 with its row base and X3, with
+    their bytes bounds from this run's data, where a pad of a list
+    (ids == n_rows) counts its ids word only: X1 the list's ids, the
+    live pairs' qids, 8 bytes a slot of the rows walked (hub mode: the
+    live pairs' ecnt, and e0 and qid where a run starts) and the keys
+    and counts written; X2 the keys read and the bitmap words set; K5 the
+    bitmap read and its set words zeroed and the pairs written; X3 the
+    list's ids, the live pairs' qids and depth cells, the fresh ones'
+    depth writes and target words, the others' pad writes (init: the
+    starts' ids, the live ones' qids and depth writes, the targets'
+    ids, the live ones' qids, target words and depth cells).  X2's
+    library yardstick is ``torch.unique`` over the received keys packed
+    as q * chunk + row (X2 + K5's dedup in one call; it waits on the
+    card for its output's size)."""
+    bstarts = torch.tensor(st.bstarts, device=st.shards[0].nbr.device)
+    Ds = torch.tensor(st.shards[0].D, device=bstarts.device)
+    ctx = {"slots": 0, "keys": [], "live": 0}
+
+    def route_pre(args):
+        hub, ids, qid, recv, _st, s = args[:6]
+        live = ids.long() != st.n_rows
+        n_live = int(live.sum())
+        if hub:
+            li = ids.long()[live] - s * st.chunk
+            runs = int((st.ecnt[s].long()[li.clamp(0, st.chunk - 1)]
+                        > 0).sum())
+            return 4 * ids.numel() + 4 * n_live + 8 * runs
+        rows = ids.long()[live]
+        if recv is not None:
+            rows = torch.cat([rows, ell_ops._slot_pairs(recv)[1]])
+        b = torch.bucketize(rows, bstarts, right=True) - 1
+        slots = int(Ds[b.clamp(min=0)].sum())
+        ctx["slots"] += slots
+        return 4 * ids.numel() + 4 * n_live \
+            + 8 * (rows.numel() - n_live) + 8 * slots
+
+    def route_post(args):
+        send = args[7]
+        cap = send.shape[1] - 1
+        return 8 * int(send[:, 0].clamp(max=cap).sum()) + 8 * send.shape[0]
+
+    def mark_pre(args):
+        recv, base = args[0], args[1]
+        q, u = ell_ops._slot_pairs(recv)
+        ctx["keys"].append(q * st.chunk + (u - base))
+        return 8 * q.numel() + 8 * recv.shape[0]
+
+    def mark_post(args):
+        return 4 * int((args[3] != 0).sum())
+
+    def mark_lib(args):
+        keys = ctx["keys"][-1]
+        return cuda_ms(torch, lambda: torch.unique(keys, sorted=True), 5, 1)
+
+    def compact_pre(args):
+        mark = args[0]
+        return 4 * mark.numel() + 4 * int((mark != 0).sum()) + 8 * args[2]
+
+    def stamp_pre(args):
+        init, ids = args[:2]
+        live = int((ids.long() != st.n_rows).sum())
+        ctx["live"] = live
+        if init:
+            tids = args[10]
+            tl = int((tids.long() != st.n_rows).sum())
+            return 4 * (ids.numel() + tids.numel()) + 6 * live + 10 * tl
+        return 4 * ids.numel() + 6 * live
+
+    def stamp_post(args):
+        if args[0]:
+            return 0
+        fresh = int(args[9][ell_ops.CTL_LIVE])
+        return 6 * fresh + 8 * (ctx["live"] - fresh)
+
+    probes = {
+        "mesh_route": Probe(torch, "mesh_route", ell_ops.mesh_route,
+                            ell_ops.mesh_route_ref, route_pre, route_post,
+                            same=_send_same(torch)),
+        "mesh_mark": Probe(torch, "mesh_mark", ell_ops.mesh_mark,
+                           ell_ops.mesh_mark_ref, mark_pre, mark_post,
+                           lib=mark_lib),
+        "pair_compact": Probe(torch, "pair_compact", ell_ops.pair_compact,
+                              ell_ops.pair_compact_ref, compact_pre),
+        "mesh_bfs_stamp": Probe(torch, "mesh_bfs_stamp",
+                                ell_ops.mesh_bfs_stamp,
+                                ell_ops.mesh_bfs_stamp_ref, stamp_pre,
+                                stamp_post),
+    }
+    return probes, ctx
+
+
+def _mesh_batch(ix, starts, per_query: int, nq: int):
+    """(new rows, qids): ``nq`` queries of ``per_query`` start vertices
+    each, drawn in order from ``starts`` (old dense ids)."""
+    S = nq * per_query
+    new = ix.perm[np.asarray(starts[:S], np.int64)].astype(np.int32)
+    return new, (np.arange(len(new)) // per_query).astype(np.int32)
+
+
+def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
+                             hrows, k: int, over, starts, rng) -> dict:
+    """The frontier-sharded mesh's kernels and programs on the serve
+    graph's tables cut into k chunks that all sit on this card, every
+    kernel call of the programs probed (X1, X2, K5 with its row base,
+    X3 against their plain versions on copies of their operands, timed
+    as device time behind a spin kernel).  ``mesh_sparse_go`` at c0 256
+    (128 queries, one start each, the ``ell_go_sharded`` comparison of
+    the dense mesh) and 2048 (1024 queries, two starts each), 3 and 4
+    steps, and four tight-cap batches, each setting one overflow
+    source (cap_x, the dedup cap, the hub budget, cap_e): per-shard
+    outputs equal to the plain version's when no overflow, the flag
+    always; the c0 256 pairs equal to ``ell_go_sharded``'s frontier.
+    ``mesh_sparse_bfs``, shortest (UPTO 5, each target one a single-
+    card BFS reaches within 2 levels) and all (2 levels) at B = 128 and
+    1024, equal to its plain version and, at every real vertex, to
+    ``ell_bfs`` on the same starts.  One call of each public wrapper is
+    held to the plain version too.  A program's ``ms`` is device time
+    behind a spin kernel: the BFS is replayed with the level flags the
+    probed run read, so its host loop waits on nothing (``event_ms``,
+    the public call's CUDA-event time, holds a host read per level).
+    ``starts`` are old dense ids from the serve mix.  Returns {name:
+    numbers}."""
+    from nebula_tpu_torch.tpu.ell import (INT16_INF, build_sharded_ell,
+                                          mesh_tables, sharded_sparse_pairs,
+                                          sharded_tables, sparse_caps,
+                                          split_start_pairs_by_owner)
+    from nebula_tpu_torch.tpu.mesh import PartsMesh
+    dev = tables.nbr.device
+    mesh = PartsMesh([dev] * k)
+    t0 = time.perf_counter()
+    st = sharded_tables(build_sharded_ell(ix, k), mesh)
+    shard_s = time.perf_counter() - t0
+    over = tuple(over)
+    d_max = max(tables.D)
+    up = lambda a: [torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+                    for x in a]
+    res = {"go_runs": {}, "bfs_runs": {}}
+    hubs = np.nonzero(ix.hub_table()[:ix.n])[0]        # new ids
+    wide = starts[np.argsort(-rt._deg_host(m, over)[starts], kind="stable")]
+    # (label, c0, queries, starts a query, steps, start set, tight caps)
+    configs = [
+        ("c0_256_s3", 256, 128, 1, 3, starts, {}),
+        ("c0_256_s4", 256, 128, 1, 4, starts, {}),
+        ("c0_2048_s3", 2048, 1024, 2, 3, starts, {}),
+        ("c0_2048_s4", 2048, 1024, 2, 4, starts, {}),
+        ("tight_cap_x", 256, 64, 1, 3, wide, {"cap_x": 64}),
+        ("tight_dedup", 256, 64, 1, 3, starts, {"final": 16}),
+        ("tight_hub_budget", 256, len(hubs), 1, 3,
+         ix.inv[hubs], {}),
+        ("tight_cap_e", 256, len(hubs), 1, 3, ix.inv[hubs],
+         {"cap_e": 4, "cap_x": 1 << 17}),
+    ]
+    go_probes = None
+    moved_hops = {}
+    for label, c0, nq, per, steps, pool, tight in configs:
+        rows, qs = _mesh_batch(ix, pool, per, nq)
+        if label == "tight_hub_budget":
+            # one start on every hub: the runs' total passes c0 = EX
+            rows, qs = rows[:c0], qs[:c0]
+        placed = split_start_pairs_by_owner(st, rows, qs, c0)
+        if placed is None:
+            raise AssertionError(f"mesh_sparse_go {label}: a shard's share "
+                                 f"passed c0")
+        caps = sparse_caps(c0, d_max, steps, 1 << 17)
+        if "final" in tight:
+            caps = caps[:-1] + (tight["final"],)
+        cap_x = tight.get("cap_x", max(256, caps[-1] // max(k // 2, 1)))
+        cap_e = tight.get("cap_e", max(64, c0))
+        ids, qid = up(placed[0]), up(placed[1])
+        probes, ctx = mesh_sparse_probes(torch, ell_ops, st)
+        outs, moved = ell_ops._mesh_go_steps(
+            ids, qid, st, over, steps, caps, cap_x, cap_e, nq,
+            probes["mesh_route"], probes["mesh_mark"],
+            probes["pair_compact"], ell_ops.pair_reduce, ell_ops.or_into)
+        want, plain = timed(torch, lambda: ell_ops.mesh_sparse_go_ref(
+            ids, qid, st, over, steps, caps, cap_x, cap_e, nq))
+        got_h = torch.stack(outs).cpu().numpy()
+        want_h = torch.stack(want).cpu().numpy()
+        ovf = bool(want_h[:, 1].any())
+        if not np.array_equal(got_h[:, 1], want_h[:, 1]) or (
+                not ovf and not np.array_equal(got_h, want_h)):
+            raise AssertionError(f"mesh_sparse_go k={k} {label} != its "
+                                 f"plain version")
+        if (label.startswith("tight") and not ovf) or (
+                label == "c0_256_s3" and ovf):
+            raise AssertionError(f"mesh_sparse_go k={k} {label}: overflow "
+                                 f"{ovf}")
+
+        def run():
+            return ell_ops.mesh_sparse_go(ids, qid, st, over, steps, caps,
+                                          cap_x, cap_e, nq)
+        pub_h = torch.stack(run()).cpu().numpy()
+        if not np.array_equal(pub_h[:, 1], want_h[:, 1]) or (
+                not ovf and not np.array_equal(pub_h, want_h)):
+            raise AssertionError(f"ell_ops.mesh_sparse_go k={k} {label} "
+                                 f"!= its plain version")
+        ev = cuda_ms(torch, run, 5, 1)
+        dev_ms = mesh_queued_ms(torch, run, f"mesh_sparse_go k={k} {label}",
+                                4)
+        out_bytes = 4 * sum(o.numel() for o in outs)
+        n_live = int((placed[0] != st.n_rows).sum())
+        prog_bytes = 4 * k * c0 + 4 * n_live + 8 * ctx["slots"] + out_bytes
+        hops = steps - 1
+        moved_hops[label] = moved[1] / max(hops, 1)
+        row = dict(max_abs_err=0, ms=dev_ms, event_ms=ev, plain_ms=plain,
+                   bound_ms=bytes_ms(prog_bytes), bound_by="bytes",
+                   library_ms=None, overflow=int(ovf),
+                   count=int(want_h[:, 0].sum()), caps=list(caps),
+                   cap_x=cap_x, cap_e=cap_e, queries=nq,
+                   starts=int(len(rows)), steps=steps,
+                   a2a_copies_per_hop=moved[0] / max(hops, 1),
+                   a2a_bytes_per_hop=moved[1] / max(hops, 1),
+                   kernels={a: p.numbers() for a, p in probes.items()
+                            if p.calls})
+        if label == "c0_256_s3":
+            go_probes = probes
+            # the dense mesh on the same starts, one query a lane
+            mt = mesh_tables(ix, mesh)
+            es_, hs_ = [eslot] * k, [hrows] * k
+            f0 = rt._upload_frontier_packed(ix, rows, qs, 128)
+            dense = ell_ops.ell_go_sharded(f0, mt, es_, hs_, over, steps)[0]
+            lanes = ell_ops._unpack_ref(dense)[:ix.n, :nq]
+            _o, q_, u_ = sharded_sparse_pairs(want_h)
+            pairs = torch.zeros_like(lanes)
+            pairs[torch.from_numpy(u_).long().to(dev),
+                  torch.from_numpy(q_).long().to(dev)] = True
+            if not torch.equal(lanes, pairs):
+                raise AssertionError(f"mesh_sparse_go k={k} != "
+                                     f"ell_go_sharded on the same starts")
+            row["ell_go_sharded_ms"] = cuda_ms(
+                torch, lambda: ell_ops.ell_go_sharded(f0, mt, es_, hs_,
+                                                      over, steps), 10)
+            del mt, dense, lanes, pairs
+        res["go_runs"][label] = row
+    res["mesh_sparse_go"] = dict(
+        {a: b for a, b in res["go_runs"]["c0_256_s3"].items()
+         if a != "kernels"},
+        library_none="none: a multi-kernel program", k=k, shard_s=shard_s,
+        others={lb: {a: r[a] for a in ("ms", "event_ms", "plain_ms",
+                                       "bound_ms", "overflow")}
+                for lb, r in res["go_runs"].items() if lb != "c0_256_s3"})
+
+    # ---- BFS: B queries, one start each: shortest (UPTO 5) toward
+    # targets a single-card BFS reaches within ``near`` levels, and all
+    # at ``max_steps`` levels; the last run's frontier outgrows the caps
+    bfs_probes = None
+    cap = 1 << 17
+    cap_x, cap_e = max(256, cap // max(k // 2, 1)), max(64, cap // 8)
+    runs = [(128, True, 5, 2), (128, False, 2, 0), (1024, True, 5, 1),
+            (1024, False, 1, 0), (1024, False, 4, 0)]
+    exact = {128: 0, 1024: 0}
+    inputs = {}
+    for B, stop, max_steps, near in runs:
+        if B not in inputs:
+            s_new = ix.perm[rng.choice(starts, B)].astype(np.int32)
+            qq = np.arange(B, dtype=np.int32)
+            f0 = rt._upload_frontier_packed(ix, s_new, qq, B)
+            reach, _l = ell_ops.ell_bfs(f0.clone(), torch.zeros_like(f0),
+                                        tables, eslot, hrows, over, 2,
+                                        False)
+            inputs[B] = (s_new, qq, f0, reach[:ix.n].cpu().numpy())
+        s_new, qq, f0, reach = inputs[B]
+        t_new = s_new.copy()
+        if near:
+            for q in range(B):
+                cand = np.nonzero((reach[:, q] >= 1)
+                                  & (reach[:, q] <= near))[0]
+                if len(cand):
+                    t_new[q] = cand[rng.integers(len(cand))]
+        ps = split_start_pairs_by_owner(st, s_new, qq, cap)
+        pt = split_start_pairs_by_owner(st, t_new, qq, cap)
+        args = (up(ps[0]), up(ps[1]), up(pt[0]), up(pt[1]))
+        t0p = rt._upload_frontier_packed(ix, t_new, qq, B)
+        label = f"b{B}_{'shortest' if stop else 'all'}_s{max_steps}"
+        probes, ctx = mesh_sparse_probes(torch, ell_ops, st)
+        seen = []
+
+        def record(ctl):
+            seen.append(ell_ops._read_ctl(ctl))
+            return seen[-1]
+        dep, ovf, levels, moved = ell_ops._mesh_bfs_steps(
+            *args, st, over, max_steps, cap, cap_x, cap_e, B, stop,
+            probes["mesh_route"], probes["mesh_mark"],
+            probes["pair_compact"], probes["mesh_bfs_stamp"], read=record)
+        (wdep, wovf, wlev), plain = timed(
+            torch, lambda: ell_ops.mesh_sparse_bfs_ref(
+                *args, st, over, max_steps, cap, cap_x, cap_e, B, stop))
+        if ovf != wovf or levels != wlev or not (ovf or all(
+                torch.equal(a, b) for a, b in zip(dep, wdep))):
+            raise AssertionError(f"mesh_sparse_bfs k={k} {label} != its "
+                                 f"plain version (overflow {ovf} / {wovf}, "
+                                 f"levels {levels} / {wlev})")
+        if not ovf:
+            one, _ol = ell_ops.ell_bfs(f0.clone(), t0p, tables, eslot,
+                                       hrows, over, max_steps, stop)
+            one = one[:ix.n].to(torch.int16)
+            one = torch.where(one < 0, int(INT16_INF), one)
+            if not torch.equal(one, torch.cat(dep)[:ix.n]):
+                raise AssertionError(f"mesh_sparse_bfs k={k} {label} != "
+                                     f"ell_bfs on the same starts")
+            exact[B] += 1
+
+        def run():
+            return ell_ops.mesh_sparse_bfs(*args, st, over, max_steps, cap,
+                                           cap_x, cap_e, B, stop)
+        pdep, povf, plev = run()
+        if povf != wovf or plev != wlev or not (povf or all(
+                torch.equal(a, b) for a, b in zip(pdep, wdep))):
+            raise AssertionError(f"ell_ops.mesh_sparse_bfs k={k} {label} "
+                                 f"!= its plain version")
+        del pdep
+
+        def replay():
+            # the same kernels and copies, the level flags given back
+            # from the probed run: nothing waits on the card
+            flags = iter(seen)
+            return ell_ops._mesh_bfs_steps(
+                *args, st, over, max_steps, cap, cap_x, cap_e, B, stop,
+                ell_ops.mesh_route, ell_ops.mesh_mark, ell_ops.pair_compact,
+                ell_ops.mesh_bfs_stamp, read=lambda _c: next(flags))
+        dev_ms = mesh_queued_ms(torch, replay,
+                                f"mesh_sparse_bfs k={k} {label}", 3)
+        ms = cuda_ms(torch, run, 3, 1)
+        one_ms = cuda_ms(torch, lambda: ell_ops.ell_bfs(
+            f0.clone(), t0p, tables, eslot, hrows, over, max_steps, stop),
+            3, 1)
+        n_live = sum(int((p[0] != st.n_rows).sum()) for p in (ps, pt))
+        nbytes = 8 * k * cap + 4 * n_live + 8 * ctx["slots"] \
+            + 2 * k * st.chunk * B
+        res["bfs_runs"][label] = dict(
+            max_abs_err=0, ms=dev_ms, event_ms=ms, plain_ms=plain,
+            bound_ms=bytes_ms(nbytes), bound_by="bytes", library_ms=None,
+            levels=levels, overflow=int(ovf), max_steps=max_steps,
+            queries=B, single_card_ell_bfs_ms=one_ms,
+            a2a_copies_per_level=moved[0] / max(levels, 1),
+            a2a_bytes_per_level=moved[1] / max(levels, 1),
+            kernels={a: p.numbers() for a, p in probes.items() if p.calls})
+        if label == "b128_shortest_s5":
+            bfs_probes = probes
+    if not all(exact.values()):
+        raise AssertionError(f"mesh_sparse_bfs k={k}: no run without "
+                             f"overflow at some width: {exact}")
+    res["mesh_sparse_bfs"] = dict(
+        {a: b for a, b in res["bfs_runs"]["b128_shortest_s5"].items()
+         if a != "kernels"},
+        library_none="none: a multi-kernel program", k=k,
+        others={lb: {a: r[a] for a in ("ms", "event_ms", "plain_ms",
+                                       "bound_ms", "levels", "overflow")}
+                for lb, r in res["bfs_runs"].items()
+                if lb != "b128_shortest_s5"})
+    for name in ("mesh_route", "mesh_mark", "pair_compact"):
+        res[name] = dict(go_probes[name].numbers(), run="c0_256_s3", k=k)
+    res["mesh_mark"]["library_call"] = "torch.unique (X2 + K5)"
+    res["mesh_route"]["library_none"] = \
+        "none: no call routes pairs to per-owner slot blocks"
+    res["pair_compact"]["library_none"] = \
+        "see mesh_mark: torch.unique covers X2 + K5"
+    res["mesh_bfs_stamp"] = dict(bfs_probes["mesh_bfs_stamp"].numbers(),
+                                 run="b128_shortest_s5", k=k,
+                                 library_none="none: a depth update with "
+                                              "its loop flags")
+    res["a2a_bytes_per_hop"] = moved_hops
+    return res
+
+
+MESH_SPARSE = {"tpu_mesh_devices": 4, "tpu_mesh_mode": "sparse"}
+MESH_SPARSE_WRITES = 16        # part (c)'s acked, read-back edge writes
+# a frontier-sharded batch that quietly ran single-device would launch
+# one of these
+SINGLE_SPARSE = SINGLE_CARD + ("sparse_expand",)
+
+
+def mesh_sparse_phase(torch, ell_ops, flags, m, schema, oracle: GoOracle,
+                      path_oracle: PathOracle, vids: np.ndarray, n: int,
+                      requests: int, threads: int, path_requests: int,
+                      path_threads: int, seed: int, device=None) -> dict:
+    """``tpu_mesh_devices=4`` in the default ``tpu_mesh_mode=sparse`` on
+    a runtime whose 4 shards all sit on this card, counted as one window
+    (launch counts zeroed before part a, read after part c): (a)
+    ``requests`` GO of the serve kinds without UPTO (COUNT(*) and ``|
+    LIMIT 10`` among them) from ``threads`` threads in the default
+    continuous mode, which refuses the stream; (b) ``path_requests``
+    FIND SHORTEST PATH ... UPTO 5 STEPS from ``path_threads`` threads and
+    8 FIND ALL PATH, every answer checked; (c) ``mesh_write_part`` in
+    sparse mode with MESH_SPARSE_WRITES writes.  64 GO answers of (a)
+    are checked against the oracle.  ``mesh_sparse_go`` and
+    ``mesh_sparse_bfs`` must have served; a batch the frontier-sharded
+    programs overflow reruns on the dense mesh (counted); no single-card
+    hop, sparse or adaptive kernel may run.  ``device`` is the shards'
+    (None: the card)."""
+    from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
+    dev = torch.device("cuda", 0) if device is None else device
+    rt = TorchQueryRuntime(device=dev,
+                           mesh_devices=[dev] * MESH_SPARSE[
+                               "tpu_mesh_devices"])
+    out = {}
+    served = {}
+    try:
+        rt.load_space(1, m, schema)
+        rng = np.random.default_rng(seed + 73)
+        mix, limits = unpacked_mix(rng, n, requests)
+        mix = (mix[0], mix[1], np.zeros(requests, bool), mix[3])
+        limits = ~mix[3] & (rng.random(requests) < 0.25)
+        check = go_check_set(rng, limits, requests)
+        with flag_mode(flags, MESH_SPARSE):
+            if rt.continuous_session(1, (1,)) is not None:
+                raise AssertionError("a continuous session anchored on a "
+                                     "mesh")
+            t0 = time.perf_counter()
+            rt.serve_go(1, [1], [1], 3, {1: "e"})     # cuts the chunks
+            out["shard_s"] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            ell_ops.reset_launches()
+            rt0 = dict(rt.stats)
+            wall, lat, results = drive(rt, mix, threads, check, limits)
+            stats = {x: rt.stats[x] - rt0[x] for x in rt0}
+        check_go(oracle, mix, results, check, limits)
+        if rt.continuous.streams():
+            raise AssertionError("a continuous stream anchored on a mesh")
+        if not stats["go_mesh_sparse"] or stats["go_sparse"] \
+                or stats["go_adaptive"]:
+            raise AssertionError(f"part (a) left the mesh: {stats}")
+        out["a"] = dict(lat_stats(requests, wall, lat), threads=threads,
+                        checked=len(check),
+                        go_mesh_sparse=stats["go_mesh_sparse"],
+                        go_mesh_dense=stats["go_mesh"],
+                        sparse_overflows=stats["sparse_overflows"],
+                        mean_batch=requests / max(
+                            stats["go_mesh_sparse"] + stats["go_mesh"]
+                            - stats["sparse_overflows"], 1),
+                        count_requests=int(mix[3].sum()),
+                        limit_requests=int(limits.sum()))
+        served["go"] = {"mesh_sparse_go": stats["go_mesh_sparse"]
+                        - stats["sparse_overflows"],
+                        "ell_go_sharded": stats["go_mesh"]}
+
+        # (b) FIND SHORTEST PATH, every answer checked, then FIND ALL PATH
+        rng_b = np.random.default_rng(seed + 79)
+        srcs = rng_b.choice(vids, path_requests)
+        dsts = rng_b.choice(vids, path_requests)
+        with flag_mode(flags, MESH_SPARSE):
+            rt0 = dict(rt.stats)
+            wall, plat, presults = drive_paths(rt, srcs, dsts, path_threads)
+            reachable, all_checked, all_rows, t_all = check_paths(
+                rt, path_oracle, vids, srcs, dsts, presults, rng_b)
+            stats = {x: rt.stats[x] - rt0[x] for x in rt0}
+        if stats["bfs_mesh_sparse"] + stats["path_mesh"] \
+                != stats["bfs_dispatches"] or not stats["bfs_mesh_sparse"]:
+            raise AssertionError(f"part (b) left the mesh or never took "
+                                 f"the frontier-sharded BFS: {stats}")
+        out["b"] = dict(lat_stats(path_requests, wall, list(plat.values())),
+                        threads=path_threads, checked=path_requests,
+                        checked_reachable=reachable,
+                        bfs_dispatches=stats["bfs_dispatches"],
+                        bfs_mesh_sparse=stats["bfs_mesh_sparse"],
+                        bfs_mesh_dense=stats["path_mesh"],
+                        sparse_overflows=stats["sparse_overflows"],
+                        levels_per_dispatch=stats["bfs_levels"]
+                        / max(stats["bfs_dispatches"], 1),
+                        all_path_checked=all_checked,
+                        all_path_rows=all_rows, all_path_s=t_all)
+        served["bfs"] = {"mesh_sparse_bfs": stats["bfs_mesh_sparse"],
+                         "ell_bfs_sharded": stats["path_mesh"]}
+
+        # (c) writes read back through the frontier-sharded mesh
+        with flag_mode(flags, MESH_SPARSE):
+            out["c"] = mesh_write_part(torch, ell_ops, flags, dev, seed,
+                                       writes=MESH_SPARSE_WRITES,
+                                       sparse=True)
+    finally:
+        rt.close()
+    launches = dict(ell_ops.LAUNCHES)
+    require_launched(launches, "mesh_sparse")
+    ran = {x: launches[x] for x in SINGLE_SPARSE if launches[x]}
+    if ran:
+        raise AssertionError(f"the mesh-sparse phase ran single-card "
+                             f"kernels: {ran}")
+    log(f"[mesh-sparse] batches served by design: {json.dumps(served)}; "
+        f"sparse_overflows (a) {out['a']['sparse_overflows']}, (b) "
+        f"{out['b']['sparse_overflows']}")
+    out["served"] = served
     out["launches"] = launches
     return out
 
@@ -4083,8 +4656,11 @@ def main(argv=None) -> int:
                          "parts a and b")
     ap.add_argument("--unpacked-path-requests", type=int, default=128)
     ap.add_argument("--mesh-requests", type=int, default=1024,
-                    help="GO requests of the [mesh] phase's part a")
-    ap.add_argument("--mesh-path-requests", type=int, default=128)
+                    help="GO requests of the [mesh] and [mesh-sparse] "
+                         "phases' part a")
+    ap.add_argument("--mesh-path-requests", type=int, default=128,
+                    help="FIND SHORTEST PATH requests of the [mesh] and "
+                         "[mesh-sparse] phases' part b")
     args = ap.parse_args(argv)
 
     import torch
@@ -4222,6 +4798,20 @@ def main(argv=None) -> int:
                 log(f"[kernel] mesh k={k} B={B} phase "
                     f"{time.perf_counter() - t0:.2f} s")
         del mesh_windows
+        mesh_sparse_rows = {}
+        for k in MESH_KS:
+            t0 = time.perf_counter()
+            mesh_sparse_rows[k] = mesh_sparse_kernel_phase(
+                torch, ell_ops, rt, m, ix, tables, eslot, hrows, k, (1,),
+                mix_starts[mix_starts >= 0], rng)
+            for label, v in mesh_sparse_rows[k]["go_runs"].items():
+                log(f"[kernel] mesh_sparse_go k={k} {label} equal=True "
+                    + json.dumps(v))
+            for label, v in mesh_sparse_rows[k]["bfs_runs"].items():
+                log(f"[kernel] mesh_sparse_bfs k={k} {label} equal=True "
+                    + json.dumps(v))
+            log(f"[kernel] mesh-sparse k={k} phase "
+                f"{time.perf_counter() - t0:.2f} s")
 
         # ---- 4. serve (continuous)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,
@@ -4302,6 +4892,16 @@ def main(argv=None) -> int:
             args.seed)
         log("[mesh] " + json.dumps(mesh))
         log(f"[mesh] phase {time.perf_counter() - t0:.2f} s")
+
+        # ---- 13. mesh-sparse (tpu_mesh_mode=sparse, 4 shards, this card)
+        t0 = time.perf_counter()
+        mesh_sparse = mesh_sparse_phase(
+            torch, ell_ops, flags, m, rt.schemas[1], oracle,
+            PathOracle(oracle), m.vids, args.vertices,
+            args.mesh_requests, args.threads, args.mesh_path_requests,
+            args.path_threads, args.seed)
+        log("[mesh-sparse] " + json.dumps(mesh_sparse))
+        log(f"[mesh-sparse] phase {time.perf_counter() - t0:.2f} s")
     finally:
         rt.close()
 
@@ -4314,7 +4914,8 @@ def main(argv=None) -> int:
               "sparse": sparse["launches"],
               "adaptive": adaptive["launches"], "fused": fused["launches"],
               "path": path["launches"], "write": write["launches"],
-              "unpacked": unpacked["launches"], "mesh": mesh["launches"]}
+              "unpacked": unpacked["launches"], "mesh": mesh["launches"],
+              "mesh_sparse": mesh_sparse["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
@@ -4324,7 +4925,17 @@ def main(argv=None) -> int:
         row = dict(name=k, route="cuda", source=SOURCES[k],
                    replaces=REPLACES[k], launches=sum(by_phase.values()),
                    launches_by_phase=by_phase, equal=True)
-        if k in MESH_KERNELS:
+        if k in MESH_SPARSE_KERNELS:
+            v = mesh_sparse_rows[MESH_SPARSE_MAIN][k]
+            row.update({a: v[a] for a in keys})
+            row.update({a: b for a, b in v.items() if a not in keys})
+            row.update(shards=MESH_SPARSE_MAIN, shards_on_one_card=True)
+            row["others"] = {f"k{kk}": {
+                a: mesh_sparse_rows[kk][k][a]
+                for a in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                for kk in mesh_sparse_rows if kk != MESH_SPARSE_MAIN}
+            row["runtime_path"] = True
+        elif k in MESH_KERNELS:
             v = mesh_rows[MESH_MAIN][k]
             row.update({a: v[a] for a in keys})
             row.update({a: b for a, b in v.items() if a not in keys})
@@ -4362,6 +4973,11 @@ def main(argv=None) -> int:
             v = sparse_rows[k]
             row.update({a: v[a] for a in keys})
             row.update({a: b for a, b in v.items() if a not in keys})
+        if k == "pair_compact":       # K5 with the shard's row base
+            row["mesh_base"] = {kk: {
+                a: mesh_sparse_rows[kk][k][a]
+                for a in ("ms", "plain_ms", "bound_ms", "calls")}
+                for kk in mesh_sparse_rows}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

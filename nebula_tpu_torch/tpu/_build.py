@@ -2,7 +2,8 @@
 
 ``load()`` compiles ``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``,
 ``csrc/edge_go.cu``, ``csrc/expr_filter.cu``, ``csrc/ell_absorb.cu``,
-``csrc/ell_int8.cu`` and ``csrc/ell_mesh.cu`` with nvcc into
+``csrc/ell_int8.cu``, ``csrc/ell_mesh.cu`` and ``csrc/mesh_sparse.cu``
+with nvcc into
 ``_build_out/libell_lanes.so`` beside this file (a
 directory git ignores) at first use, rebuilding when a source is newer
 than the library, and loads it with ctypes.  Each source compiles to an
@@ -32,7 +33,8 @@ SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "expr_filter.cu"),
            os.path.join(CSRC, "ell_absorb.cu"),
            os.path.join(CSRC, "ell_int8.cu"),
-           os.path.join(CSRC, "ell_mesh.cu"))
+           os.path.join(CSRC, "ell_mesh.cu"),
+           os.path.join(CSRC, "mesh_sparse.cu"))
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -149,7 +151,7 @@ def load() -> ctypes.CDLL:
         lib.sg_compact_blocks.argtypes = [i64]
         lib.sg_compact_blocks.restype = i64
         lib.sg_compact.argtypes = [vp, i64, i64, i64, vp, vp, vp, vp, i64,
-                                   vp, vp, i32, i64, vp]
+                                   vp, vp, i32, i64, i64, vp]
         lib.sg_reduce.argtypes = [i32, vp, vp, i64, vp, vp, i32, i64, i64,
                                   i64, i64, i64, i64, vp, vp, vp]
         lib.ad_switch.argtypes = [vp, i64, vp, i64, i64, vp, vp]
@@ -186,6 +188,15 @@ def load() -> ctypes.CDLL:
                                          vp]
         lib.ell_hop_merge.argtypes = [vp, vp, vp, i64, i64, i64, i64, vp]
         lib.ell_or_into.argtypes = [vp, vp, i64, vp]
+        # the frontier-sharded mesh: csrc/mesh_sparse.cu (X1-X3)
+        lib.mesh_route.argtypes = [i32, vp, vp, i64, vp, i64, i32, vp, vp,
+                                   p64, i32, p32, i32, vp, vp, i64, i64,
+                                   i64, vp, i64, i32, vp, i64, vp]
+        lib.mesh_mark.argtypes = [vp, i64, i64, i64, i64, vp, i64, i64,
+                                  vp]
+        lib.mesh_bfs_stamp.argtypes = [i32, vp, vp, i64, vp, vp, i64, vp,
+                                       i64, i64, vp, i64, i64, i64, i64,
+                                       vp, vp]
         for fn in (lib.ell_go_hop, lib.ell_lane_join,
                    lib.ell_lane_extract, lib.ell_lane_clear,
                    lib.ell_frontier_upload, lib.ell_go_count,
@@ -197,7 +208,8 @@ def load() -> ctypes.CDLL:
                    lib.i8_go_hop, lib.i8_pack_rows, lib.i8_bfs_level,
                    lib.ell_table_copy, lib.ell_shard_hop,
                    lib.ell_shard_absorb, lib.ell_hop_merge,
-                   lib.ell_or_into):
+                   lib.ell_or_into, lib.mesh_route, lib.mesh_mark,
+                   lib.mesh_bfs_stamp):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib

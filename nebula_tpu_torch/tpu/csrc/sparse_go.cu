@@ -253,8 +253,9 @@ __global__ void pair_scan_kernel(unsigned long long* __restrict__ boff,
 }
 
 // Pass 3: the first c_out set bits in word order ((q, v) order) as
-// (ids_out, qid_out) pairs; positions past the count get the pads
-// (n_rows, BIG_Q).  Each word read is zeroed (zero), ORed into uni, or
+// (ids_out, qid_out) pairs, row_base added to every vertex (a
+// frontier-sharded shard's first row; 0 on one card); positions past
+// the count get the pads (n_rows, BIG_Q).  Each word read is zeroed (zero), ORed into uni, or
 // copied into copy_to, as asked.  qid_out may be null.
 __global__ void pair_compact_kernel(uint32_t* __restrict__ mark,
                                     long long words, long long R1w,
@@ -266,7 +267,8 @@ __global__ void pair_compact_kernel(uint32_t* __restrict__ mark,
                                     const long long* __restrict__ ctl,
                                     uint32_t* __restrict__ uni,
                                     uint32_t* __restrict__ copy_to,
-                                    int zero, long long n_rows) {
+                                    int zero, long long n_rows,
+                                    long long row_base) {
     long long base = (long long)boff[blockIdx.x];
     const long long w0 = (long long)blockIdx.x * kChunk;
     for (int r = 0; r < kRounds; ++r) {
@@ -281,7 +283,7 @@ __global__ void pair_compact_kernel(uint32_t* __restrict__ mark,
             while (bits && pos < c_out) {
                 const int k = __ffs(bits) - 1;
                 bits &= bits - 1u;
-                ids_out[pos] = (int32_t)(vb + k);
+                ids_out[pos] = (int32_t)(row_base + vb + k);
                 if (qid_out) qid_out[pos] = (int32_t)q;
                 ++pos;
             }
@@ -573,7 +575,7 @@ int64_t sg_compact_blocks(int64_t words) {
 int sg_compact(void* mark, int64_t words, int64_t R1w, int64_t c_out,
                void* ids_out, void* qid_out, void* boff, void* ctl,
                int64_t ex, void* uni, void* copy_to, int zero,
-               int64_t n_rows, void* stream) {
+               int64_t n_rows, int64_t row_base, void* stream) {
     if (words <= 0 || R1w <= 0 || c_out <= 0) return -1;
     cudaStream_t s = (cudaStream_t)stream;
     const long long nb = sg_compact_blocks(words);
@@ -590,7 +592,7 @@ int sg_compact(void* mark, int64_t words, int64_t R1w, int64_t c_out,
         (uint32_t*)mark, words, R1w, c_out, (int32_t*)ids_out,
         (int32_t*)qid_out, (const unsigned long long*)boff,
         (const long long*)ctl, (uint32_t*)uni, (uint32_t*)copy_to, zero,
-        n_rows);
+        n_rows, row_base);
     return (int)cudaGetLastError();
 }
 

@@ -22,7 +22,9 @@ generation's copy-on-write host index, and ``absorb_update_arrays``
 the padded per-bucket arguments of ``ell_ops.ell_absorb``.
 ``shard_ell`` (``ell.py:1688``) cuts the buckets into the row shards of
 the replicated-frontier mesh, and ``mesh_tables`` lays them out on the
-mesh's shard devices.
+mesh's shard devices; ``build_sharded_ell`` (``ell.py:1871``) cuts the
+row space into the chunks of the frontier-sharded mesh, and
+``sharded_tables`` lays those out.
 """
 from __future__ import annotations
 
@@ -613,6 +615,183 @@ def mesh_tables(ell: EllIndex, mesh) -> MeshTables:
                                    int(ell.n_rows)))
     return MeshTables(mesh, tuple(shards), tuple(reals), tuple(brow0))
 
+
+
+# ====================================================================
+# Chunk-sharded tables of the frontier-sharded mesh (ell.py:1849-1934)
+# ====================================================================
+class ShardedEll:
+    """The reference's ``ShardedEll`` (``ell.py:1849``), host arrays:
+    the new-id row space [0, n_rows] cut into k contiguous chunks of
+    ``chunk`` rows, shard d owning rows [d * chunk, (d + 1) * chunk).
+    Every bucket's intersection with a chunk is one local block, padded
+    (nbr ``n_rows``, et 0) to the largest block across shards:
+    ``nbr_s[b]``/``et_s[b]`` are [k, mx[b], D[b]], ``starts_s[d, b]``
+    the global row of shard d's block row 0, ``bstarts[b]`` the
+    bucket's first global row.  ``ecnt_s``/``e0_s`` [k, chunk] are the
+    hub expansion (``EllIndex.hub_expansion``) cut by the same chunks,
+    0 / n_rows past the real vertices."""
+
+    __slots__ = ("k", "chunk", "bstarts", "mx", "D", "nbr_s", "et_s",
+                 "starts_s", "ecnt_s", "e0_s", "n", "n_rows", "n_extras")
+
+
+def build_sharded_ell(ell: EllIndex, k: int) -> ShardedEll:
+    """Split ``ell`` into k per-shard chunks (``ell.py:1871``)."""
+    if k < 1:
+        raise ValueError(f"k={k} shards")
+    sh = ShardedEll()
+    sh.k = k
+    R1 = ell.n_rows + 1
+    sh.chunk = -(-R1 // k)
+    sh.n, sh.n_rows = ell.n, ell.n_rows
+    sh.n_extras = len(ell.extra_owner)
+    sh.bstarts, sh.mx, sh.D = [], [], []
+    sh.nbr_s, sh.et_s = [], []
+    starts = np.zeros((k, len(ell.bucket_nbr)), np.int32)
+    sentinel = np.int32(ell.n_rows)
+    bstart = 0
+    for b, (nbr, et) in enumerate(zip(ell.bucket_nbr, ell.bucket_et)):
+        nb, D = nbr.shape
+        lo = np.maximum(bstart, np.arange(k, dtype=np.int64) * sh.chunk)
+        hi = np.minimum(bstart + nb,
+                        (np.arange(k, dtype=np.int64) + 1) * sh.chunk)
+        cnt = np.maximum(hi - lo, 0)
+        mx = max(int(cnt.max()), 1) if nb else 1
+        nbr_k = np.full((k, mx, D), sentinel, np.int32)
+        et_k = np.zeros((k, mx, D), np.int32)
+        for d in range(k):
+            c = int(cnt[d])
+            if c:
+                s = int(lo[d]) - bstart
+                nbr_k[d, :c] = nbr[s:s + c]
+                et_k[d, :c] = et[s:s + c]
+            starts[d, b] = int(lo[d])
+        sh.bstarts.append(bstart)
+        sh.mx.append(mx)
+        sh.D.append(D)
+        sh.nbr_s.append(nbr_k)
+        sh.et_s.append(et_k)
+        bstart += nb
+    sh.starts_s = starts
+    ecnt, e0 = ell.hub_expansion()
+    pad = k * sh.chunk
+    ec = np.zeros(pad, np.int32)
+    ez = np.full(pad, ell.n_rows, np.int32)
+    ec[:len(ecnt) - 1] = ecnt[:-1]        # rows >= n never expand
+    ez[:len(e0) - 1] = e0[:-1]
+    sh.ecnt_s = ec.reshape(k, sh.chunk)
+    sh.e0_s = ez.reshape(k, sh.chunk)
+    return sh
+
+
+def split_start_pairs_by_owner(sh: ShardedEll, new_ids: np.ndarray,
+                               qids: np.ndarray, c0: int):
+    """Place each (query, start row) pair on the shard owning the row
+    (``ell.py:1934``): (ids [k, c0] padded with n_rows, qid [k, c0]
+    padded with 0), or None when a shard's share passes ``c0``.  ``sh``
+    is a ShardedEll or a ShardedTables (its k, chunk and n_rows)."""
+    k, chunk = sh.k, sh.chunk
+    ids = np.full((k, c0), sh.n_rows, np.int32)
+    qid = np.zeros((k, c0), np.int32)
+    new_ids = np.asarray(new_ids)
+    qids = np.asarray(qids)
+    owner = new_ids // chunk
+    for d in range(k):
+        sel = owner == d
+        c = int(sel.sum())
+        if c > c0:
+            return None
+        ids[d, :c] = new_ids[sel]
+        qid[d, :c] = qids[sel]
+    return ids, qid
+
+
+def sharded_sparse_pairs(out: np.ndarray):
+    """Decode the frontier-sharded GO's [k, 2 + 2c] output (``ell.py:
+    2162``) -> (overflow, qids, new row ids), merged across shards."""
+    out = np.asarray(out)
+    k = out.shape[0]
+    c = (out.shape[1] - 2) // 2
+    overflow = bool(out[:, 1].any())
+    qs, us = [], []
+    for d in range(k):
+        q = out[d, 2:2 + c]
+        u = out[d, 2 + c:]
+        live = q >= 0
+        qs.append(q[live])
+        us.append(u[live])
+    return overflow, np.concatenate(qs), np.concatenate(us)
+
+
+class ShardedTables(NamedTuple):
+    """A ``ShardedEll`` on a mesh (``mesh.PartsMesh``), the port's form
+    of the reference's ``sharded_device_args``: per shard, on its
+    device, its local blocks flat as a ``DeviceTables`` (``row0[b]`` the
+    global row of block row 0, ``rows[b]`` the padded block rows
+    ``mx[b]``, ``slot0`` shard-local) and its chunk of the hub
+    expansion (``ecnt``/``e0`` int32 [chunk]).  ``bstarts`` are the
+    buckets' first global rows; shard s's rows start at ``s * chunk``."""
+    mesh: object
+    shards: Tuple[DeviceTables, ...]
+    ecnt: Tuple[torch.Tensor, ...]
+    e0: Tuple[torch.Tensor, ...]
+    bstarts: Tuple[int, ...]
+    chunk: int
+    n_extras: int
+
+    @property
+    def k(self) -> int:
+        return len(self.shards)
+
+    @property
+    def n_rows(self) -> int:
+        return self.shards[0].n_rows
+
+    def bucket_end(self, b: int) -> int:
+        """One past bucket b's last global row."""
+        return self.bstarts[b + 1] if b + 1 < len(self.bstarts) \
+            else self.n_rows
+
+    def host_shards(self):
+        """(nbr[s][b], et[s][b], ecnt[s], e0[s]) as numpy: the blocks of
+        ``build_sharded_ell``'s ``nbr_s[b][s]``, ``et_s[b][s]``."""
+        nbrs, ets = [], []
+        for t in self.shards:
+            nbrs.append([t.bucket(b)[0].cpu().numpy()
+                         for b in range(len(t.D))])
+            ets.append([t.bucket(b)[1].cpu().numpy()
+                        for b in range(len(t.D))])
+        return (nbrs, ets, [x.cpu().numpy() for x in self.ecnt],
+                [x.cpu().numpy() for x in self.e0])
+
+
+def sharded_tables(sh: ShardedEll, mesh) -> ShardedTables:
+    """``sh`` laid out flat on each of the mesh's shard devices."""
+    if mesh.k != sh.k:
+        raise ValueError(f"a {sh.k}-way ShardedEll on a {mesh.k}-shard "
+                         f"mesh")
+    shards, ecnt, e0 = [], [], []
+    for s, dev in enumerate(mesh.devices):
+        slot0, off = [], 0
+        for nbr in sh.nbr_s:
+            slot0.append(off)
+            off += int(nbr[s].size)
+
+        def flat(parts, dev=dev):
+            a = (np.concatenate([p[s].reshape(-1) for p in parts])
+                 if parts else np.zeros(0, np.int32))
+            return torch.from_numpy(np.ascontiguousarray(a, np.int32)) \
+                .to(dev)
+        shards.append(DeviceTables(
+            flat(sh.nbr_s), flat(sh.et_s),
+            tuple(int(x) for x in sh.starts_s[s]), tuple(sh.mx),
+            tuple(sh.D), tuple(slot0), int(sh.n), int(sh.n_rows)))
+        ecnt.append(torch.from_numpy(sh.ecnt_s[s].copy()).to(dev))
+        e0.append(torch.from_numpy(sh.e0_s[s].copy()).to(dev))
+    return ShardedTables(mesh, tuple(shards), tuple(ecnt), tuple(e0),
+                         tuple(int(x) for x in sh.bstarts), int(sh.chunk),
+                         int(sh.n_extras))
 
 # ====================================================================
 # Bit-packed lanes: 8 query lanes per uint8 word, little bit order —

@@ -14,15 +14,17 @@ replicated-frontier mesh's programs over row-sharded tables:
 ``ell_go_sharded`` (``ell.py:1712``), ``ell_bfs_sharded`` (``:1799``)
 and ``ell_absorb_sharded`` (``:1036``), with their per-shard kernels
 ``shard_hop`` and ``shard_absorb`` and the reused ``hop_merge`` and
-``or_into``.
+``or_into``, and the frontier-sharded mesh's ``mesh_sparse_go``
+(``ell.py:2052``) and ``mesh_sparse_bfs`` (``:2179``) with their
+kernels ``mesh_route``, ``mesh_mark`` and ``mesh_bfs_stamp``.
 
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``, a transcription of the JAX function on the
 same layout); on a CUDA device it launches its hand-written kernel from
 ``csrc/ell_lanes.cu``, ``csrc/sparse_go.cu``, ``csrc/ell_absorb.cu``,
-``csrc/ell_int8.cu`` or ``csrc/ell_mesh.cu`` and adds one to its
-entry in ``LAUNCHES``, or raises — there is no fallback from one to the
-other.  Any other device raises.
+``csrc/ell_int8.cu``, ``csrc/ell_mesh.cu`` or ``csrc/mesh_sparse.cu``
+and adds one to its entry in ``LAUNCHES``, or raises — there is no
+fallback from one to the other.  Any other device raises.
 
 The reference's kernels are pure and donate the pair; the port updates
 in place where it can and says so per function: join, clear and the
@@ -60,7 +62,10 @@ LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
                             "ell_bfs_i8": 0, "shard_hop": 0,
                             "hop_merge": 0, "or_into": 0,
                             "shard_absorb": 0, "ell_go_sharded": 0,
-                            "ell_bfs_sharded": 0, "ell_absorb_sharded": 0}
+                            "ell_bfs_sharded": 0, "ell_absorb_sharded": 0,
+                            "mesh_route": 0, "mesh_mark": 0,
+                            "mesh_bfs_stamp": 0, "mesh_sparse_go": 0,
+                            "mesh_sparse_bfs": 0}
 MAX_OVER = 32        # csrc kMaxOver
 MAX_BUCKETS = 32     # csrc kMaxBuckets
 MAX_COUNT_W = 1024   # csrc ell_go_count: W / 4 <= kThreads
@@ -1107,7 +1112,7 @@ def sparse_expand(ids: torch.Tensor, qid: Optional[torch.Tensor],
 
 # ----------------------------------------------------- K5 compact
 def pair_compact_ref(mark, R1w, c_out, ids_out, qid_out, ctl, ex,
-                     n_rows, uni=None, copy_to=None, zero=True):
+                     n_rows, uni=None, copy_to=None, zero=True, base=0):
     """Plain version of ``pair_compact`` (K5)."""
     idx = torch.nonzero(_bits_of(mark)).reshape(-1)
     total = idx.numel()
@@ -1122,7 +1127,7 @@ def pair_compact_ref(mark, R1w, c_out, ids_out, qid_out, ctl, ex,
         ctl[CTL_OVF] = 1
     k = min(total, c_out)
     row_bits = R1w * 32
-    ids_out[:k] = (idx[:k] % row_bits).to(torch.int32)
+    ids_out[:k] = (idx[:k] % row_bits + base).to(torch.int32)
     ids_out[k:c_out] = n_rows
     if qid_out is not None:
         qid_out[:k] = (idx[:k] // row_bits).to(torch.int32)
@@ -1141,7 +1146,7 @@ def pair_compact(mark: torch.Tensor, R1w: int, c_out: int,
                  ctl: torch.Tensor, ex: int, n_rows: int,
                  uni: Optional[torch.Tensor] = None,
                  copy_to: Optional[torch.Tensor] = None,
-                 zero: bool = True):
+                 zero: bool = True, base: int = 0):
     """K5: the set bits of ``mark`` [nq * R1w] in (query, vertex) order
     -> the first ``c_out`` as (``ids_out``, ``qid_out``) int32 [>= c_out]
     pairs, the rest of the first c_out places padded (n_rows, BIG_Q);
@@ -1150,8 +1155,9 @@ def pair_compact(mark: torch.Tensor, R1w: int, c_out: int,
     ``ex >= 0``, when this hop's hub budget (``ctl[CTL_HUB_TOTAL]``
     past ``ex``, or ``ctl[CTL_HUB_BIG]``) overflowed; the budget then
     resets.  The words read are ORed into ``uni``, copied into
-    ``copy_to`` and (``zero``) cleared, as asked.  Returns (ids_out,
-    qid_out)."""
+    ``copy_to`` and (``zero``) cleared, as asked.  ``base`` is added to
+    every emitted vertex (a frontier-sharded shard's first row; 0 on
+    one card).  Returns (ids_out, qid_out)."""
     dev = mark.device
     words = _vec(mark, "mark", torch.int32, dev)
     if R1w <= 0 or words % R1w or c_out <= 0:
@@ -1168,7 +1174,7 @@ def pair_compact(mark: torch.Tensor, R1w: int, c_out: int,
     _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
     if not _route(dev):
         return pair_compact_ref(mark, R1w, c_out, ids_out, qid_out, ctl,
-                                ex, n_rows, uni, copy_to, zero)
+                                ex, n_rows, uni, copy_to, zero, base)
     lib = _lib()
     boff = torch.empty(int(lib.sg_compact_blocks(words)), dtype=torch.int64,
                        device=dev)
@@ -1176,7 +1182,7 @@ def pair_compact(mark: torch.Tensor, R1w: int, c_out: int,
     rc = lib.sg_compact(mark.data_ptr(), words, R1w, c_out,
                         ids_out.data_ptr(), ptr(qid_out), boff.data_ptr(),
                         ctl.data_ptr(), ex, ptr(uni), ptr(copy_to),
-                        int(zero), n_rows, _stream(dev))
+                        int(zero), n_rows, base, _stream(dev))
     _ok(rc, "sg_compact")
     LAUNCHES["pair_compact"] += 1
     return ids_out, qid_out
@@ -2248,3 +2254,777 @@ def ell_absorb_sharded(mt, rows: Sequence[torch.Tensor],
     if _route(mt.shards[0].nbr.device):
         LAUNCHES["ell_absorb_sharded"] += 1
     return out
+
+
+# ====================================================================
+# The frontier-sharded mesh (ell.py:1849-2310): the row space cut into
+# k chunks (ell.ShardedTables), each shard holding its chunk's pairs of
+# every query's frontier as a (qid, row) list.  A hop is X1
+# (``mesh_route``) on every shard — the shard's pairs (and the hub
+# extra-row pairs it received) walked in its local blocks, each
+# candidate sent to the slot block of the shard owning it — then
+# ``mesh.all_to_all``, X2 (``mesh_mark``) at the owner and K5
+# (``pair_compact`` with the shard's row base) for the deduped, capped,
+# sorted next list; hub pairs travel the same way in X1's hub mode.
+# The BFS stamps its depth with X3 (``mesh_bfs_stamp``).  Exchange
+# buffers are int64 [k, 1 + cap]: per destination block, its count
+# (every pair sent, kept or not) then up to ``cap`` keys q << 32 | row;
+# a receiver reads min(count, cap) keys, so nothing is refilled.
+# Launches on a shard run on its device's current stream.
+# ====================================================================
+CTL_LIVE, CTL_UNFOUND = 6, 7    # the BFS stamp's flags (ctl slots)
+KEY_SHIFT = 32                  # exchange key: q << 32 | row
+
+
+def _slot_pairs(buf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q, row) int64 of the live keys of an exchange buffer [blocks,
+    1 + cap], in block order."""
+    cap = buf.shape[1] - 1
+    qs, us = [], []
+    for blk in buf:
+        c = min(int(blk[0]), cap)
+        key = blk[1:1 + c]
+        qs.append(key >> KEY_SHIFT)
+        us.append(key & 0xFFFFFFFF)
+    if not qs:
+        z = torch.zeros(0, dtype=torch.int64, device=buf.device)
+        return z, z
+    return torch.cat(qs), torch.cat(us)
+
+
+class _MeshTools:
+    """ell.py:1954 ``_mesh_sparse_tools`` on per-shard tensors (each on
+    its shard's device): the local bucket-block gather, the router, the
+    all_to_all, the owner's sort dedup and the local hub expansion."""
+
+    def __init__(self, st, over):
+        self.st = st
+        self.k, self.chunk, self.sent = st.k, st.chunk, st.n_rows
+        self.devs = [t.nbr.device for t in st.shards]
+        self.neg = torch.tensor([-t for t in over], dtype=torch.int32)
+        self.d_max = max(st.shards[0].D) if st.shards[0].D else 1
+
+    def local_gather(self, s, rows):
+        """[g, d_max] candidate rows of each row's out-slots."""
+        t, st = self.st.shards[s], self.st
+        rows = rows.long()
+        cand = torch.full((rows.shape[0], self.d_max), self.sent,
+                          dtype=torch.int64, device=rows.device)
+        for b in range(len(t.D)):
+            nbr, et = t.bucket(b)
+            mxb, D = t.rows[b], t.D[b]
+            loc = rows - t.row0[b]
+            inb = (loc >= 0) & (loc < mxb) & (rows >= st.bstarts[b]) \
+                & (rows < st.bucket_end(b))
+            safe = torch.where(inb, loc, 0)
+            ok = inb[:, None] & torch.isin(et[safe], self.neg.to(et.device))
+            block = torch.where(ok, nbr[safe].long(), self.sent)
+            cand[:, :D] = torch.where(inb[:, None], block, cand[:, :D])
+        return cand
+
+    def route(self, q, u, slot_cap):
+        """(q_x [k, slot_cap], u_x [k, slot_cap], overflow, each
+        owner's count): the pairs sorted by (owner, q, u), BIG_Q /
+        sentinel padding."""
+        k, sent = self.k, self.sent
+        q, u = q.long(), u.long()
+        valid = u != sent
+        dest = torch.where(valid, u // self.chunk, k)
+        order = torch.argsort(u, stable=True)
+        order = order[torch.argsort(q[order], stable=True)]
+        order = order[torch.argsort(dest[order], stable=True)]
+        sd, sq, su = dest[order], q[order], u[order]
+        cnt = torch.bincount(sd, minlength=k + 1)[:k]
+        off = torch.cumsum(cnt, 0) - cnt
+        q_x = torch.full((k, slot_cap), BIG_Q, dtype=torch.int64,
+                         device=u.device)
+        u_x = torch.full((k, slot_cap), sent, dtype=torch.int64,
+                         device=u.device)
+        for d in range(k):
+            take = min(int(cnt[d]), slot_cap)
+            lo = int(off[d])
+            q_x[d, :take] = sq[lo:lo + take]
+            u_x[d, :take] = su[lo:lo + take]
+        return q_x, u_x, bool((cnt > slot_cap).any()), cnt
+
+    def exchange(self, qs, us, slot_cap):
+        """route on every shard + all_to_all -> per shard (flat q, flat
+        u, overflow)."""
+        routed = [self.route(q, u, slot_cap) for q, u in zip(qs, us)]
+        out = []
+        for d in range(self.k):
+            dev = self.devs[d]
+            out.append((torch.cat([routed[s][0][d].to(dev)
+                                   for s in range(self.k)]),
+                        torch.cat([routed[s][1][d].to(dev)
+                                   for s in range(self.k)]),
+                        routed[d][2]))
+        return out
+
+    def dedup(self, q, u, c_out):
+        i, qq, cnt = _dedup_compact_ref(q, u, c_out, self.sent,
+                                        self.sent + 1)
+        return qq.long(), i.long(), cnt > c_out, cnt
+
+    def hubs(self, s, q, u):
+        """expand_local_hubs (EX = the list's length)."""
+        base = s * self.chunk
+        li = torch.where(u == self.sent, 0, u - base)
+        li = li.clamp(0, self.chunk - 1)
+        raw = torch.where(u == self.sent, 0,
+                          self.st.ecnt[s].long()[li])
+        return _hub_iota_ref(raw, self.st.e0[s].long()[li], q,
+                             u.shape[0], self.sent)
+
+
+def _send_ref(T, q: torch.Tensor, u: torch.Tensor, send: torch.Tensor,
+              ctl: torch.Tensor) -> None:
+    """ell.py:1993 ``route`` into an exchange buffer (``T`` a
+    ``_MeshTools``): each owner's count of the valid pairs and its
+    first ``cap`` keys in (q, u) order; a count past the cap raises the
+    overflow."""
+    cap = send.shape[1] - 1
+    q_x, u_x, ovf, cnt = T.route(q, u, cap)
+    send[:, 0] = cnt
+    keys = (q_x << KEY_SHIFT) | u_x
+    for d in range(T.k):
+        take = min(int(cnt[d]), cap)
+        send[d, 1:1 + take] = keys[d, :take]
+    if ovf:
+        ctl[CTL_OVF] = 1
+
+
+def _hub_c_lim(c_in: int) -> int:
+    """_segmented_hub_iota's per-pair clamp (ell.py:415)."""
+    return max(1, (2**31 - 1) // max(c_in, 1))
+
+
+def mesh_route_ref(hub, ids, qid, recv, st, s, over, send, ctl):
+    """Plain version of ``mesh_route`` (X1).  Hub mode sends every run
+    (the kernel does not stop at the budget), so the counts agree on an
+    overflow too."""
+    T = _MeshTools(st, over)
+    n_rows, chunk, base = st.n_rows, st.chunk, s * st.chunk
+    v, q = ids.long(), qid.long()
+    live = (v >= 0) & (v < n_rows)
+    if hub:
+        c_in = v.shape[0]
+        li = (v - base).clamp(0, chunk - 1)
+        ce = torch.where(live, st.ecnt[s].long()[li], 0)
+        total = int(ce.sum())
+        ctl[CTL_HUB_TOTAL] = total
+        if total > c_in or bool((ce > _hub_c_lim(c_in)).any()):
+            ctl[CTL_OVF] = 1
+        first = st.e0[s].long()[li].repeat_interleave(ce)
+        start = torch.cumsum(ce, 0) - ce
+        j = torch.arange(total, device=v.device) \
+            - start.repeat_interleave(ce)
+        _send_ref(T, q.repeat_interleave(ce), first + j, send, ctl)
+        return send
+    rows, rq = v[live], q[live]
+    if recv is not None:
+        eq, er = _slot_pairs(recv)
+        rows, rq = torch.cat([rows, er]), torch.cat([rq, eq])
+    cand = T.local_gather(s, rows)
+    _send_ref(T, rq.repeat_interleave(cand.shape[1]), cand.reshape(-1),
+              send, ctl)
+    return send
+
+
+def _xbuf(t: torch.Tensor, name: str, k: int, dev: torch.device) -> int:
+    """Check an exchange buffer int64 [k, 1 + cap]; returns cap."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 2 or t.shape[1] < 2:
+        raise ValueError(f"{name} must be an int64 [k, 1 + cap] buffer")
+    _check(t, name, torch.int64, (k, t.shape[1]), dev)
+    return t.shape[1] - 1
+
+
+def _mesh_bucket_desc(st, s: int):
+    """Shard s's blocks as the host int64 array X1 takes: per bucket
+    (first global row, one past its last, block row 0's global row,
+    block rows, first slot, D)."""
+    t = st.shards[s]
+    vals = []
+    for b in range(len(t.D)):
+        vals += [st.bstarts[b], st.bucket_end(b), t.row0[b], t.rows[b],
+                 t.slot0[b], t.D[b]]
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def mesh_route(hub: bool, ids: torch.Tensor, qid: torch.Tensor,
+               recv: Optional[torch.Tensor], st, s: int,
+               over: Sequence[int], send: torch.Tensor,
+               ctl: torch.Tensor) -> torch.Tensor:
+    """X1: shard s's pairs (``ids``/``qid`` int32 [c], ids == n_rows
+    inactive) routed to their owners' slot blocks of ``send`` (int64 [k,
+    1 + cap], its counts reset first).
+
+    - candidate mode (ell.py:1970 ``local_gather`` + :1993 ``route``):
+      each live pair, and each live key of ``recv`` (the hub extra-row
+      pairs shard s received, int64 [k, 1 + cap_e], or None), walks its
+      row in shard s's local blocks; every slot whose etype is in the
+      negated OVER set sends (q, u) to block ``u // chunk``.
+    - hub mode (``hub``; ell.py:2042 ``expand_local_hubs``): each live
+      pair whose row owns an extra-row run (the shard's ``ecnt``/``e0``)
+      sends (q, e0 + j) for j < ecnt; the run lengths' total past c
+      (the reference's budget EX = c) or one past ``_hub_c_lim(c)``
+      raises the overflow, and ``ctl[CTL_HUB_TOTAL]`` gets the total.
+
+    Every pair is counted; only the first ``cap`` of a block are kept
+    (in any order) and a count past ``cap`` sets ``ctl[CTL_OVF]``."""
+    if not 0 <= s < st.k:
+        raise ValueError(f"shard {s} of a {st.k}-shard mesh")
+    t = st.shards[s]
+    dev = t.nbr.device
+    c = _vec(ids, "ids", torch.int32, dev)
+    _vec(qid, "qid", torch.int32, dev, c)
+    cap = _xbuf(send, "send", st.k, dev)
+    recv_cap = 0
+    if recv is not None:
+        if hub:
+            raise ValueError("hub mode takes no received pairs")
+        recv_cap = _xbuf(recv, "recv", st.k, dev)
+    _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    over = _over_check(over)
+    _tables_check(t, dev)
+    if not _route(dev):
+        return mesh_route_ref(hub, ids, qid, recv, st, s, over, send, ctl)
+    neg = (ctypes.c_int32 * len(over))(*[-e for e in over])
+    with torch.cuda.device(dev):
+        rc = _lib().mesh_route(
+            int(hub), ids.data_ptr(), qid.data_ptr(), c,
+            None if recv is None else recv.data_ptr(), recv_cap,
+            0 if recv is None else st.k, t.nbr.data_ptr(),
+            t.et.data_ptr(), _mesh_bucket_desc(st, s), len(t.D), neg,
+            len(over), st.ecnt[s].data_ptr(), st.e0[s].data_ptr(),
+            s * st.chunk, st.chunk, st.n_rows, send.data_ptr(), cap, st.k,
+            ctl.data_ptr(), _hub_c_lim(c), _stream(dev))
+    _ok(rc, "mesh_route")
+    LAUNCHES["mesh_route"] += 1
+    return send
+
+
+def mesh_mark_ref(recv, base, chunk, mark, W):
+    """Plain version of ``mesh_mark`` (X2)."""
+    q, u = _slot_pairs(recv)
+    li = u - base
+    ok = (li >= 0) & (li < chunk) & (q >= 0) & (q < mark.numel() // W)
+    _mark_bits(mark, W, q[ok], li[ok])
+    return mark
+
+
+def mesh_mark(recv: torch.Tensor, base: int, chunk: int,
+              mark: torch.Tensor, W: int) -> torch.Tensor:
+    """X2: every live key (q, u) of the received exchange buffer
+    ``recv`` int64 [k, 1 + cap] ORed into the owner's mark bitmap
+    ``mark`` int32 [qrows * W] (W = ceil(chunk / 32) words a query) as
+    bit (q, u - base); keys outside the chunk or the rows are
+    dropped."""
+    dev = mark.device
+    words = _vec(mark, "mark", torch.int32, dev)
+    if W != _words(chunk) or words % W or words == 0:
+        raise ValueError(f"mark of {words} words, rows of {W}, chunk "
+                         f"{chunk}")
+    if not isinstance(recv, torch.Tensor) or recv.dim() != 2:
+        raise ValueError("recv must be an int64 [k, 1 + cap] buffer")
+    cap = _xbuf(recv, "recv", recv.shape[0], dev)
+    if not _route(dev):
+        return mesh_mark_ref(recv, base, chunk, mark, W)
+    with torch.cuda.device(dev):
+        rc = _lib().mesh_mark(recv.data_ptr(), recv.shape[0], cap, base,
+                              chunk, mark.data_ptr(), W, words,
+                              _stream(dev))
+    _ok(rc, "mesh_mark")
+    LAUNCHES["mesh_mark"] += 1
+    return mark
+
+
+def _tbit(tbits: torch.Tensor, W: int, q: torch.Tensor,
+          li: torch.Tensor) -> torch.Tensor:
+    """Bit (q, li) of a [qrows * W] bitmap, as bool."""
+    w = tbits.long()[q * W + (li >> 5)]
+    return ((w >> (li & 31)) & 1).bool()
+
+
+def mesh_bfs_stamp_ref(init, ids, qid, depth, tbits, W, base, n_rows,
+                       step, ctl, tids=None, tqid=None):
+    """Plain version of ``mesh_bfs_stamp`` (X3)."""
+    chunk, qmax = depth.shape
+    flat = depth.view(-1)
+    inf = int(INT16_INF)
+    if init:
+        live = ids.long() != n_rows
+        li = (ids.long() - base).clamp(0, chunk - 1)[live]
+        q = qid.long().clamp(0, qmax - 1)[live]
+        flat[li * qmax + q] = 0
+        ctl[CTL_LIVE] = int(live.sum())
+        tl = tids.long() != n_rows
+        tli = (tids.long() - base).clamp(0, chunk - 1)[tl]
+        tq = tqid.long().clamp(0, qmax - 1)[tl]
+        cell = torch.unique(tq * chunk + tli)
+        tq, tli = cell // chunk, cell % chunk
+        new = ~_tbit(tbits, W, tq, tli)
+        _mark_bits(tbits, W, tq, tli)
+        ctl[CTL_UNFOUND] += int((new & (flat[tli * qmax + tq] == inf))
+                                .sum())
+        return depth
+    live = ids.long() != n_rows
+    li = (ids.long() - base).clamp(0, chunk - 1)
+    q = qid.long().clamp(0, qmax - 1)
+    fresh = live & (flat[li * qmax + q] == inf)
+    flat[(li * qmax + q)[fresh]] = step + 1
+    ids[live & ~fresh] = n_rows
+    qid[live & ~fresh] = BIG_Q
+    ctl[CTL_LIVE] = int(fresh.sum())
+    ctl[CTL_UNFOUND] -= int((fresh & _tbit(tbits, W, q, li)).sum())
+    return depth
+
+
+def mesh_bfs_stamp(init: bool, ids: torch.Tensor, qid: torch.Tensor,
+                   depth: torch.Tensor, tbits: torch.Tensor, W: int,
+                   base: int, n_rows: int, step: int, ctl: torch.Tensor,
+                   tids: Optional[torch.Tensor] = None,
+                   tqid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """X3, a shard's BFS depth ``depth`` int16 [chunk, qmax] (INT16_INF
+    unreached; row li is global row base + li) and its target bitmap
+    ``tbits`` int32 [qmax * W]; (q, row) is clipped to the block as the
+    reference clips (ell.py:2230-2241).
+
+    - ``init``: depth 0 at every live start pair (``ids``/``qid``),
+      ``ctl[CTL_LIVE]`` = their count; every live target pair
+      (``tids``/``tqid``) sets its bit, and each bit newly set whose
+      depth is still unset adds one to ``ctl[CTL_UNFOUND]``.
+    - a level (ell.py:2279-2287): each live pair of the compacted list
+      (``ids`` == n_rows: a pad) whose depth is unset gets ``step + 1``
+      and stays in the next frontier, one more in ``ctl[CTL_LIVE]``
+      (reset first) and, on a target bit, one less in
+      ``ctl[CTL_UNFOUND]``; every other live place becomes the pad
+      (n_rows, BIG_Q), in place, and a pad is left as it is (K5 writes
+      its pads as (n_rows, BIG_Q)).
+
+    ``CTL_UNFOUND`` thus counts the unfound target cells, where the
+    reference scans [chunk, qmax] for any each level."""
+    dev = depth.device
+    if depth.dim() != 2:
+        raise ValueError("depth must be int16 [chunk, qmax]")
+    chunk, qmax = depth.shape
+    _check(depth, "depth", torch.int16, (chunk, qmax), dev)
+    if W != _words(chunk):
+        raise ValueError(f"W={W} for a chunk of {chunk} rows")
+    _vec(tbits, "tbits", torch.int32, dev, qmax * W)
+    c = _vec(ids, "ids", torch.int32, dev)
+    _vec(qid, "qid", torch.int32, dev, c)
+    _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    ct = 0
+    if init:
+        ct = _vec(tids, "tids", torch.int32, dev)
+        _vec(tqid, "tqid", torch.int32, dev, ct)
+    if not 0 <= step < int(INT16_INF) - 1:
+        raise ValueError(f"step {step} does not fit int16")
+    if not _route(dev):
+        return mesh_bfs_stamp_ref(init, ids, qid, depth, tbits, W, base,
+                                  n_rows, step, ctl, tids, tqid)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dev):
+        rc = _lib().mesh_bfs_stamp(
+            int(init), ids.data_ptr(), qid.data_ptr(), c, ptr(tids),
+            ptr(tqid), ct, depth.data_ptr(), chunk, qmax, tbits.data_ptr(),
+            W, base, n_rows, step, ctl.data_ptr(), _stream(dev))
+    _ok(rc, "mesh_bfs_stamp")
+    LAUNCHES["mesh_bfs_stamp"] += 1
+    return depth
+
+
+# ----------------------------------- the plain programs (ell.py:1954)
+def _mesh_go_args(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax):
+    if len(ids0) != st.k or len(qid0) != st.k:
+        raise ValueError(f"{len(ids0)} / {len(qid0)} start lists for "
+                         f"{st.k} shards")
+    c0 = None
+    for s in range(st.k):
+        dev = st.shards[s].nbr.device
+        c = _vec(ids0[s], f"ids0[{s}]", torch.int32, dev)
+        _vec(qid0[s], f"qid0[{s}]", torch.int32, dev, c)
+        if c0 is not None and c != c0:
+            raise ValueError("every shard's start list has one length")
+        c0 = c
+        _tables_check(st.shards[s], dev)
+    if steps < 2 or len(caps) != steps or min(caps) <= 0 or not c0 \
+            or caps[0] != c0:
+        raise ValueError(f"steps {steps} with caps {caps} over {c0} "
+                         f"starts a shard (the program runs >= 1 hop)")
+    if cap_x <= 0 or cap_e <= 0 or qmax <= 0:
+        raise ValueError(f"cap_x {cap_x}, cap_e {cap_e}, qmax {qmax}")
+    return _over_check(over)
+
+
+def mesh_sparse_go_ref(ids0, qid0, st, over, steps, caps, cap_x, cap_e,
+                       qmax):
+    """Plain version of ``mesh_sparse_go``: ell.py:2052
+    ``make_frontier_sharded_sparse_go_kernel`` transcribed, shard by
+    shard."""
+    T = _MeshTools(st, over)
+    k, sent = T.k, T.sent
+    has_hubs = st.n_extras > 0
+    ids = [x.long() for x in ids0]
+    qid = [torch.where(x == sent, BIG_Q, y.long())
+           for x, y in zip(ids, qid0)]
+    overflow = [False] * k
+    cnt = [int((x != sent).sum()) for x in ids]
+    ext_q = ext_r = None
+
+    def hub_exchange():
+        exp = [T.hubs(s, qid[s], ids[s]) for s in range(k)]
+        got = T.exchange([e[1] for e in exp], [e[0] for e in exp], cap_e)
+        for s in range(k):
+            overflow[s] |= exp[s][2] or got[s][2]
+        return [g[0] for g in got], [g[1] for g in got]
+
+    if has_hubs:
+        ext_q, ext_r = hub_exchange()
+    for h in range(steps - 1):
+        fq, fu = [], []
+        for s in range(k):
+            g_rows, g_q = ids[s], qid[s]
+            if has_hubs:
+                g_rows = torch.cat([g_rows, ext_r[s]])
+                g_q = torch.cat([g_q, ext_q[s]])
+            cand = T.local_gather(s, g_rows)
+            fu.append(cand.reshape(-1))
+            fq.append(g_q.repeat_interleave(cand.shape[1]))
+        got = T.exchange(fq, fu, cap_x)
+        for s in range(k):
+            qid[s], ids[s], ovf_c, cnt[s] = T.dedup(got[s][0], got[s][1],
+                                                   caps[h + 1])
+            overflow[s] |= got[s][2] or ovf_c
+        if has_hubs and h < steps - 2:
+            ext_q, ext_r = hub_exchange()
+    ovf_all = int(any(overflow))
+    out = []
+    for s in range(k):
+        o = torch.cat([torch.tensor([cnt[s], ovf_all], dtype=torch.int64,
+                                    device=ids[s].device),
+                       torch.where(qid[s] == BIG_Q, -1, qid[s]), ids[s]])
+        out.append(o.to(torch.int32))
+    return out
+
+
+def _mesh_bfs_args(ids0, qid0, tids, tqid, st, over, max_steps, cap,
+                   cap_x, cap_e, qmax):
+    for name, a, b in (("ids0", ids0, qid0), ("tids", tids, tqid)):
+        if len(a) != st.k or len(b) != st.k:
+            raise ValueError(f"{name}: lists for {st.k} shards")
+        for s in range(st.k):
+            dev = st.shards[s].nbr.device
+            _vec(a[s], f"{name}[{s}]", torch.int32, dev, cap)
+            _vec(b[s], f"{name} qids[{s}]", torch.int32, dev, cap)
+    if not 0 <= max_steps < int(INT16_INF) - 1:
+        raise ValueError(f"max_steps={max_steps} does not fit int16")
+    if min(cap, cap_x, cap_e, qmax) <= 0:
+        raise ValueError(f"cap {cap}, cap_x {cap_x}, cap_e {cap_e}, "
+                         f"qmax {qmax}")
+    return _over_check(over)
+
+
+def mesh_sparse_bfs_ref(ids0, qid0, tids, tqid, st, over, max_steps, cap,
+                        cap_x, cap_e, qmax, stop_when_found=True):
+    """Plain version of ``mesh_sparse_bfs``: ell.py:2179
+    ``make_frontier_sharded_sparse_bfs_kernel`` transcribed, the
+    ``while_loop`` on the host."""
+    T = _MeshTools(st, over)
+    k, sent, chunk = T.k, T.sent, T.chunk
+    inf = int(INT16_INF)
+    has_hubs = st.n_extras > 0
+    ids = [x.long() for x in ids0]
+    qid = [torch.where(x == sent, BIG_Q, y.long())
+           for x, y in zip(ids, qid0)]
+    dep, tgt = [], []
+    for s in range(k):
+        base, dev = s * chunk, T.devs[s]
+        d = torch.full((chunk, qmax), inf, dtype=torch.int16, device=dev)
+        live = ids[s] != sent
+        li = (ids[s] - base).clamp(0, chunk - 1)[live]
+        d[li, qid[s].clamp(0, qmax - 1)[live]] = 0
+        dep.append(d)
+        tg = torch.zeros((chunk, qmax), dtype=torch.bool, device=dev)
+        ti, tq = tids[s].long(), tqid[s].long()
+        tl = ti != sent
+        tg[(ti - base).clamp(0, chunk - 1)[tl], tq.clamp(0, qmax - 1)[tl]] \
+            = True
+        tgt.append(tg)
+
+    def unfound_any():
+        return any(bool((tgt[s] & (dep[s] == inf)).any()) for s in range(k))
+
+    def frontier_any():
+        return any(bool((x != sent).any()) for x in ids)
+
+    go = frontier_any() and max_steps > 0
+    if stop_when_found:
+        go = go and unfound_any()
+    step, ovf = 0, False
+    while go and not ovf:
+        ovf_l = False
+        er = [torch.zeros(0, dtype=torch.int64, device=d) for d in T.devs]
+        eq = list(er)
+        if has_hubs:
+            exp = [T.hubs(s, qid[s], ids[s]) for s in range(k)]
+            got = T.exchange([e[1] for e in exp], [e[0] for e in exp],
+                             cap_e)
+            er = [g[1] for g in got]
+            eq = [g[0] for g in got]
+            ovf_l |= any(e[2] for e in exp) or any(g[2] for g in got)
+        fq, fu = [], []
+        for s in range(k):
+            cand = T.local_gather(s, torch.cat([ids[s], er[s]]))
+            fu.append(cand.reshape(-1))
+            fq.append(torch.cat([qid[s], eq[s]])
+                      .repeat_interleave(cand.shape[1]))
+        got = T.exchange(fq, fu, cap_x)
+        for s in range(k):
+            nq2, nu2, ovf_c, _cnt = T.dedup(got[s][0], got[s][1], cap)
+            ovf_l |= got[s][2] or ovf_c
+            li = (nu2 - s * chunk).clamp(0, chunk - 1)
+            qi = nq2.clamp(0, qmax - 1)
+            fresh = (nu2 != sent) & (dep[s][li, qi] == inf)
+            dep[s][li[fresh], qi[fresh]] = step + 1
+            ids[s] = torch.where(fresh, nu2, sent)
+            qid[s] = torch.where(fresh, nq2, BIG_Q)
+        ovf = ovf or ovf_l
+        step += 1
+        go = step < max_steps and frontier_any()
+        if stop_when_found:
+            go = go and unfound_any()
+    return dep, ovf, step
+
+
+# --------------------------- the programs over the kernels (X1-X3)
+def _agree_overflow(st, ctl, orr) -> None:
+    """Every shard's ``ctl[CTL_OVF]`` becomes the OR over the shards
+    (the reference's psum, ell.py:2148): each shard's word is copied
+    aside, then ``mesh.psum_or`` with ``orr`` (``or_into``) over the
+    words' bytes."""
+    from .mesh import psum_or
+    snap = [c[CTL_OVF:CTL_OVF + 1].clone() for c in ctl]
+    recv = [torch.empty(8, dtype=torch.uint8, device=c.device)
+            for c in ctl]
+    psum_or([x.view(torch.uint8) for x in snap],
+            [c[CTL_OVF:CTL_OVF + 1].view(torch.uint8) for c in ctl],
+            recv, orr)
+
+
+def _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax,
+                   route, mark, compact, reduce, orr):
+    """The frontier-sharded GO as per-shard X1, X2, K5 and K6 calls
+    between all_to_all exchanges (``route``, ``mark``, ``compact``,
+    ``reduce``, ``orr`` are the kernels' wrappers or their plain
+    versions).  Returns (per-shard outputs, [the copies the exchanges
+    made, the bytes they copied between shards])."""
+    from .mesh import all_to_all, on
+    k, chunk, n_rows = st.k, st.chunk, st.n_rows
+    W = _words(chunk)
+    devs = [t.nbr.device for t in st.shards]
+    has_hubs = st.n_extras > 0
+    i32, i64 = torch.int32, torch.int64
+    ctl = [torch.zeros(CTL_SIZE, dtype=i64, device=d) for d in devs]
+    marks = [torch.zeros(qmax * W, dtype=i32, device=d) for d in devs]
+    sx = [torch.zeros((k, 1 + cap_x), dtype=i64, device=d) for d in devs]
+    rx = [torch.zeros_like(x) for x in sx]
+    se = re = None
+    if has_hubs:
+        se = [torch.zeros((k, 1 + cap_e), dtype=i64, device=d)
+              for d in devs]
+        re = [torch.zeros_like(x) for x in se]
+    cmax = max(caps[1:])
+    bufs = [[(torch.empty(cmax, dtype=i32, device=d),
+              torch.empty(cmax, dtype=i32, device=d)) for d in devs]
+            for _ in range(2)]
+    cur_i, cur_q = list(ids0), list(qid0)
+    moved = [0, 0]
+
+    def exchange(send, recv):
+        for i, x in enumerate(all_to_all(send, recv)):
+            moved[i] += x
+
+    def hub_exchange():
+        for s in range(k):
+            with on(devs[s]):
+                route(True, cur_i[s], cur_q[s], None, st, s, over, se[s],
+                      ctl[s])
+        exchange(se, re)
+
+    if has_hubs:
+        hub_exchange()
+    for h in range(steps - 1):
+        c_out = caps[h + 1]
+        for s in range(k):
+            with on(devs[s]):
+                route(False, cur_i[s], cur_q[s], re[s] if has_hubs else None,
+                      st, s, over, sx[s], ctl[s])
+        exchange(sx, rx)
+        nxt = bufs[h % 2]
+        for s in range(k):
+            with on(devs[s]):
+                mark(rx[s], s * chunk, chunk, marks[s], W)
+                compact(marks[s], W, c_out, nxt[s][0], nxt[s][1], ctl[s],
+                        -1, n_rows, None, None, True, s * chunk)
+        cur_i = [b[0][:c_out] for b in nxt]
+        cur_q = [b[1][:c_out] for b in nxt]
+        if has_hubs and h < steps - 2:
+            hub_exchange()
+    _agree_overflow(st, ctl, orr)
+    outs = []
+    for s in range(k):
+        out = torch.empty(2 + 2 * caps[-1], dtype=i32, device=devs[s])
+        with on(devs[s]):
+            reduce(REDUCE_EMIT, cur_i[s], cur_q[s], None, out, False,
+                   n_rows + 1, n_rows, qmax, qmax, 0, 0, ctl[s])
+        outs.append(out)
+    return outs, moved
+
+
+def mesh_sparse_go(ids0: Sequence[torch.Tensor],
+                   qid0: Sequence[torch.Tensor], st, over: Sequence[int],
+                   steps: int, caps: Sequence[int], cap_x: int, cap_e: int,
+                   qmax: int):
+    """Frontier-sharded sparse GO (ell.py:2052
+    make_frontier_sharded_sparse_go_kernel) over the chunk-sharded
+    tables ``st`` (ell.ShardedTables): ``ids0[s]``/``qid0[s]`` int32
+    [caps[0]] are shard s's start pairs (``ell.split_start_pairs_by_
+    owner``: rows it owns, n_rows inactive; qids < ``qmax``), on its
+    device.  ``steps - 1`` hops: each shard routes its candidates to
+    their owners (``cap_x`` a source-destination block; hub extra-row
+    pairs in ``cap_e`` blocks) and the owner keeps the sorted, deduped
+    pairs up to ``caps[h + 1]``.  Returns per shard the reference's
+    int32 [2 + 2 * caps[-1]]: the shard's count, the overflow flag
+    agreed by every shard, qids (-1 unused), global rows (n_rows
+    unused).  On overflow the other entries are not defined."""
+    over = _mesh_go_args(ids0, qid0, st, over, steps, caps, cap_x, cap_e,
+                         qmax)
+    caps = tuple(int(c) for c in caps)
+    if not _route(st.shards[0].nbr.device):
+        return mesh_sparse_go_ref(ids0, qid0, st, over, steps, caps, cap_x,
+                                  cap_e, qmax)
+    outs, _moved = _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x,
+                                  cap_e, qmax, mesh_route, mesh_mark,
+                                  pair_compact, pair_reduce, or_into)
+    LAUNCHES["mesh_sparse_go"] += 1
+    return outs
+
+
+def _read_ctl(ctl) -> torch.Tensor:
+    """Every shard's ctl words on the host, [k, CTL_SIZE] (one wait for
+    the level)."""
+    host = torch.empty((len(ctl), CTL_SIZE), dtype=torch.int64)
+    for s, c in enumerate(ctl):
+        host[s].copy_(c)
+    return host
+
+
+def _mesh_bfs_steps(ids0, qid0, tids, tqid, st, over, max_steps, cap,
+                    cap_x, cap_e, qmax, stop, route, mark, compact, stamp,
+                    read=None):
+    """The frontier-sharded BFS as per-shard X1, X2, K5 and X3 calls
+    between all_to_all exchanges; the level loop on the host, which
+    reads the shards' flags once a level with ``read(ctl)`` (default
+    ``_read_ctl``; a caller that knows the flags a run reads can give
+    them back without waiting on the card) and agrees them (any
+    overflow, any live pair, any unfound target).  Returns (depth per
+    shard, overflow, levels run, [the copies the exchanges made, the
+    bytes they copied between shards])."""
+    from .mesh import all_to_all, on
+    k, chunk, n_rows = st.k, st.chunk, st.n_rows
+    W = _words(chunk)
+    devs = [t.nbr.device for t in st.shards]
+    has_hubs = st.n_extras > 0
+    i32, i64 = torch.int32, torch.int64
+    ctl = [torch.zeros(CTL_SIZE, dtype=i64, device=d) for d in devs]
+    depth = [torch.full((chunk, qmax), int(INT16_INF), dtype=torch.int16,
+                        device=d) for d in devs]
+    tbits = [torch.zeros(qmax * W, dtype=i32, device=d) for d in devs]
+    for s in range(k):
+        with on(devs[s]):
+            stamp(True, ids0[s], qid0[s], depth[s], tbits[s], W, s * chunk,
+                  n_rows, 0, ctl[s], tids[s], tqid[s])
+    read = read or _read_ctl
+    flags = read(ctl)
+    go = bool((flags[:, CTL_LIVE] > 0).any()) and max_steps > 0
+    if stop:
+        go = go and bool((flags[:, CTL_UNFOUND] > 0).any())
+    step, ovf, moved = 0, False, [0, 0]
+    if not go:
+        return depth, ovf, step, moved
+    marks = [torch.zeros(qmax * W, dtype=i32, device=d) for d in devs]
+    sx = [torch.zeros((k, 1 + cap_x), dtype=i64, device=d) for d in devs]
+    rx = [torch.zeros_like(x) for x in sx]
+    se = re = None
+    if has_hubs:
+        se = [torch.zeros((k, 1 + cap_e), dtype=i64, device=d)
+              for d in devs]
+        re = [torch.zeros_like(x) for x in se]
+    bufs = [[(torch.empty(cap, dtype=i32, device=d),
+              torch.empty(cap, dtype=i32, device=d)) for d in devs]
+            for _ in range(2)]
+    cur_i, cur_q = list(ids0), list(qid0)
+    while go and not ovf:
+        if has_hubs:
+            for s in range(k):
+                with on(devs[s]):
+                    route(True, cur_i[s], cur_q[s], None, st, s, over,
+                          se[s], ctl[s])
+            for i, x in enumerate(all_to_all(se, re)):
+                moved[i] += x
+        for s in range(k):
+            with on(devs[s]):
+                route(False, cur_i[s], cur_q[s], re[s] if has_hubs else None,
+                      st, s, over, sx[s], ctl[s])
+        for i, x in enumerate(all_to_all(sx, rx)):
+            moved[i] += x
+        nxt = bufs[step % 2]
+        for s in range(k):
+            with on(devs[s]):
+                mark(rx[s], s * chunk, chunk, marks[s], W)
+                compact(marks[s], W, cap, nxt[s][0], nxt[s][1], ctl[s], -1,
+                        n_rows, None, None, True, s * chunk)
+                stamp(False, nxt[s][0], nxt[s][1], depth[s], tbits[s], W,
+                      s * chunk, n_rows, step, ctl[s])
+        cur_i = [b[0] for b in nxt]
+        cur_q = [b[1] for b in nxt]
+        step += 1
+        flags = read(ctl)
+        ovf = bool((flags[:, CTL_OVF] != 0).any())
+        go = step < max_steps and bool((flags[:, CTL_LIVE] > 0).any())
+        if stop:
+            go = go and bool((flags[:, CTL_UNFOUND] > 0).any())
+    return depth, ovf, step, moved
+
+
+def mesh_sparse_bfs(ids0: Sequence[torch.Tensor],
+                    qid0: Sequence[torch.Tensor],
+                    tids: Sequence[torch.Tensor],
+                    tqid: Sequence[torch.Tensor], st, over: Sequence[int],
+                    max_steps: int, cap: int, cap_x: int, cap_e: int,
+                    qmax: int, stop_when_found: bool = True):
+    """Frontier-sharded batched BFS (ell.py:2179
+    make_frontier_sharded_sparse_bfs_kernel): shard s's start and
+    target pairs ``ids0[s]``/``qid0[s]``, ``tids[s]``/``tqid[s]`` int32
+    [cap] (``ell.split_start_pairs_by_owner`` at ``cap``), on its
+    device.  Each level routes the frontier's candidates to their
+    owners (hub pairs first), dedups them at ``cap`` and stamps the
+    ones whose depth is unset.  The loop stops where the reference's
+    ``while_loop`` does: ``max_steps`` levels, an empty frontier, with
+    ``stop_when_found`` every target found, or an overflow.  Returns
+    (depth per shard int16 [chunk, qmax], INT16_INF unreached, row li
+    of shard s global row s * chunk + li; overflow; levels run)."""
+    over = _mesh_bfs_args(ids0, qid0, tids, tqid, st, over, max_steps, cap,
+                          cap_x, cap_e, qmax)
+    if not _route(st.shards[0].nbr.device):
+        return mesh_sparse_bfs_ref(ids0, qid0, tids, tqid, st, over,
+                                   max_steps, cap, cap_x, cap_e, qmax,
+                                   stop_when_found)
+    depth, ovf, levels, _moved = _mesh_bfs_steps(
+        ids0, qid0, tids, tqid, st, over, max_steps, cap, cap_x, cap_e,
+        qmax, stop_when_found, mesh_route, mesh_mark, pair_compact,
+        mesh_bfs_stamp)
+    LAUNCHES["mesh_sparse_bfs"] += 1
+    return depth, ovf, levels

@@ -8,11 +8,13 @@ unregistered device helpers under their reference names
 holds the port's plain PyTorch function (run on CPU tensors and held
 against the JAX function in the tests), its hand-kernel function (the
 wrapper that launches the CUDA kernel on a card tensor), and the
-``csrc`` sources that kernel is built from.  A family with no hand
-kernel yet has None in all three: only the frontier-sharded mesh
-families ``mesh_sparse_go`` and ``mesh_sparse_bfs`` (``ROADMAP.md``
-queue 2).  The replicated-frontier mesh families run their shards'
-kernels from ``csrc/ell_mesh.cu`` and reuse the single-card ones.  ``sparse_go_count`` and
+``csrc`` sources that kernel is built from; every family has all
+three.  The replicated-frontier mesh families run their shards'
+kernels from ``csrc/ell_mesh.cu`` and reuse the single-card ones; the
+frontier-sharded ones (``mesh_sparse_go``, ``mesh_sparse_bfs``) run
+X1-X3 from ``csrc/mesh_sparse.cu`` with K5 / K6 from
+``csrc/sparse_go.cu`` and ``or_into`` from ``csrc/ell_lanes.cu``.
+``sparse_go_count`` and
 ``sparse_go_limit`` are ``sparse_go`` with ``count=True`` and
 ``limit=n``, as in the reference, where one factory makes all three.
 """
@@ -34,7 +36,7 @@ _SPARSE = ("sparse_go.cu",)
 _EDGE = ("edge_go.cu",)
 _INT8 = ("ell_int8.cu",)
 _MESH = ("ell_mesh.cu",)
-_UNPORTED = PortKernel(None, None, None)
+_MESH_SPARSE = ("mesh_sparse.cu",) + _SPARSE
 
 KERNELS: Dict[str, PortKernel] = {
     # continuous session (ell.py:665-743)
@@ -83,9 +85,13 @@ KERNELS: Dict[str, PortKernel] = {
     "ell_absorb_sharded": PortKernel(ell_ops.ell_absorb_sharded_ref,
                                      ell_ops.ell_absorb_sharded,
                                      _MESH + ("ell_absorb.cu",)),
-    # the frontier-sharded mesh (ell.py:2052, :2179): not ported
-    "mesh_sparse_go": _UNPORTED,
-    "mesh_sparse_bfs": _UNPORTED,
+    # the frontier-sharded mesh (ell.py:2052, :2179): X1-X3 with K5 (and
+    # for GO K6, and or_into for the agreed overflow)
+    "mesh_sparse_go": PortKernel(ell_ops.mesh_sparse_go_ref,
+                                 ell_ops.mesh_sparse_go,
+                                 _MESH_SPARSE + _LANES),
+    "mesh_sparse_bfs": PortKernel(ell_ops.mesh_sparse_bfs_ref,
+                                  ell_ops.mesh_sparse_bfs, _MESH_SPARSE),
     # unregistered runtime helpers (runtime.py:3228, :3251) and the
     # packing-off programs (ell.py:1140, :1616)
     "_upload_frontier": PortKernel(ell_ops.frontier_upload_i8_ref,

@@ -1,8 +1,9 @@
 """A 1-D mesh of shard devices and the collectives of the replicated-
-frontier mesh — the port's counterpart of the reference's
-``jax.sharding.Mesh`` with its ``"parts"`` axis and of what its
-``shard_map`` bodies exchange (``nebula_tpu/tpu/ell.py:1789``'s
-re-replication, ``kernels.py:384``'s ``psum``).
+frontier mesh and the frontier-sharded one — the port's counterpart of
+the reference's ``jax.sharding.Mesh`` with its ``"parts"`` axis and of
+what its ``shard_map`` bodies exchange (``nebula_tpu/tpu/ell.py:1789``'s
+re-replication, ``kernels.py:384``'s ``psum``, ``ell.py:2003``'s
+``all_to_all``).
 
 One process drives every shard, as the reference's single controller
 drives its mesh: there is no ``torch.distributed``.  A shard is an
@@ -108,3 +109,31 @@ def psum_or(partials: Sequence[torch.Tensor], outs: Sequence[torch.Tensor],
                 recv[s].copy_(p)
                 with on(out.device):
                     or_into(recv[s], out)
+
+
+def all_to_all(send: Sequence[torch.Tensor],
+               recv: Sequence[torch.Tensor]) -> Tuple[int, int]:
+    """``jax.lax.all_to_all(x, axis, 0, 0, tiled=False)``: shard s's
+    buffer ``send[s]`` holds one block per destination along dim 0,
+    and block d lands in shard d's buffer ``recv[d]`` at block s — one
+    ``copy_`` per (source, destination) pair, the local one included.
+    Returns (the copies made, the bytes copied between shards)."""
+    k = len(send)
+    if len(recv) != k:
+        raise ValueError(f"{k} send buffers, {len(recv)} receive buffers")
+    for s in range(k):
+        for b in (send[s], recv[s]):
+            if b.shape[0] != k or b.shape != send[0].shape \
+                    or b.dtype != send[0].dtype:
+                raise ValueError(f"shard {s}: buffers must all be "
+                                 f"{tuple(send[0].shape)} "
+                                 f"{send[0].dtype} with {k} blocks")
+    copies = moved = 0
+    for s in range(k):
+        for d in range(k):
+            blk = send[s][d]
+            recv[d][s].copy_(blk)
+            copies += 1
+            if s != d:
+                moved += blk.numel() * blk.element_size()
+    return copies, moved

@@ -57,14 +57,18 @@ GO takes the windowed pipeline.
 With ``tpu_mesh_devices=k > 1`` the runtime serves on a mesh of k
 shards (``mesh.PartsMesh``: the first k cards, k shards of the CPU
 when the runtime's device is the CPU, or the ``mesh_devices`` it was
-given).  In ``tpu_mesh_mode=dense`` windowed GO and FIND PATH run the
-replicated-frontier programs over the row-sharded tables
-(``ell_go_sharded``, ``ell_bfs_sharded``; always packed, COUNT(*)
-folded on the host), absorbed writes update the sharded tables with
-``ell_absorb_sharded``, and the continuous tier is refused.  The
-frontier-sharded design of the default ``tpu_mesh_mode=sparse``
-(``mesh_sparse_go``, ``mesh_sparse_bfs``) is not ported: a batch it
-would take declines naming it, as does UPTO on a mesh.
+given).  In the default ``tpu_mesh_mode=sparse`` windowed GO with a
+sparse rung and FIND PATH run the frontier-sharded programs over the
+chunk-sharded tables (``mesh_sparse_go``, ``mesh_sparse_bfs``; the
+view built per mirror on first use, never carried to the next
+generation); a start placement past the cap, or an overflow in the
+program, runs the batch on the replicated-frontier design of
+``tpu_mesh_mode=dense`` instead (counted in ``sparse_overflows`` when
+the program overflowed): ``ell_go_sharded`` and ``ell_bfs_sharded``
+over the row-sharded tables (always packed, COUNT(*) and LIMIT
+applied on the host).  Absorbed writes update the row-sharded tables
+with ``ell_absorb_sharded``; the continuous tier is refused, and UPTO
+on a mesh declines.
 
 Everything else raises ``TpuDecline``; the dispatcher's host filter
 and materialization are not ported yet and their branches decline
@@ -97,9 +101,11 @@ from .csr import (CsrMirror, absorb_overlay, build_delta_mirror,
                   build_mirror, commit_vertex_plan, plan_vertex_events)
 from .device import DeviceLike, resolve_device
 from .ell import (INT16_INF, INT32_INF, DeviceTables, EllIndex,
-                  MeshTables, absorb_update_arrays, apply_ell_absorb_host,
-                  lanes_width, mesh_tables, plan_ell_absorb, sparse_caps,
-                  sparse_go_pairs, sparse_pack32, unpack_bits,
+                  MeshTables, ShardedTables, absorb_update_arrays,
+                  apply_ell_absorb_host, build_sharded_ell, lanes_width,
+                  mesh_tables, plan_ell_absorb, sharded_sparse_pairs,
+                  sharded_tables, sparse_caps, sparse_go_pairs,
+                  sparse_pack32, split_start_pairs_by_owner, unpack_bits,
                   unpack_lanes_host)
 from .expr_compile import (K_BOOL, K_FLOAT, K_STR, K_STRCODE, K_VIDRANK,
                            CompileError, CVal, Env, ExprCompiler)
@@ -250,8 +256,11 @@ class TorchQueryRuntime:
                       "sparse_overflows": 0, "go_adaptive": 0,
                       "path_device": 0, "bfs_dispatches": 0,
                       # the replicated-frontier mesh's GO launches, BFS
-                      # dispatches and absorbed table generations
+                      # dispatches and absorbed table generations, and
+                      # the frontier-sharded mesh's GO launches and BFS
+                      # dispatches that served
                       "go_mesh": 0, "path_mesh": 0, "mesh_absorbs": 0,
+                      "go_mesh_sparse": 0, "bfs_mesh_sparse": 0,
                       "bfs_levels": 0, "fetch_bytes": 0,
                       "fetch_wait_s": 0.0, "t_launch_s": 0.0,
                       "t_fetch_s": 0.0, "t_assemble_s": 0.0,
@@ -716,6 +725,27 @@ class TorchQueryRuntime:
             mt = mesh_tables(ix, mesh)
             m._mesh_tables_cache = (mesh.k, mt)
             return mt
+
+    def _sharded_tables(self, m: CsrMirror, ix: EllIndex,
+                        mesh: PartsMesh) -> ShardedTables:
+        """The k-way chunk-sharded view (runtime.py:1916
+        ``_sharded_ell``) on the mesh, cached on the mirror per k: the
+        one view both frontier-sharded entry points (GO and FIND PATH)
+        read.  An absorbed generation builds its own on first use."""
+        with self._mesh_lock:
+            cached = getattr(m, "_sharded_ell_cache", None)
+            if cached is not None and cached[0] == mesh.k \
+                    and cached[1].mesh == mesh:
+                return cached[1]
+            st = sharded_tables(build_sharded_ell(ix, mesh.k), mesh)
+            m._sharded_ell_cache = (mesh.k, st)
+            return st
+
+    def _up_shards(self, st: ShardedTables, a: np.ndarray
+                   ) -> List[torch.Tensor]:
+        """Row s of the host array ``a`` [k, c] on shard s's device."""
+        return [torch.from_numpy(np.ascontiguousarray(a[s])).to(
+            t.nbr.device) for s, t in enumerate(st.shards)]
 
     def _hub_dev(self, m: CsrMirror, ix: EllIndex) -> torch.Tensor:
         """uint8[n+1] hub table (ell.EllIndex.hub_table) on the device
@@ -1565,11 +1595,12 @@ class TorchQueryRuntime:
         The reference's selection order (runtime.py:1664-1693):
         host-only (steps == 1) → mesh → sparse pair-list → sparse split
         → adaptive single → dense bit-packed.  On a mesh in
-        ``tpu_mesh_mode=sparse`` a batch with a sparse rung raises
-        TpuDecline naming ``mesh_sparse_go`` (not ported); every other
-        mesh batch runs ``ell_go_sharded``, and the single-device
-        sparse, split and adaptive routes stay off.  ``upto`` returns
-        the UNION of depths 0..steps-1."""
+        ``tpu_mesh_mode=sparse`` a batch with a sparse rung and no UPTO
+        runs ``mesh_sparse_go`` (runtime.py:1648-1662); every other
+        mesh batch, and one whose starts outgrow a shard's share, runs
+        ``ell_go_sharded``, and the single-device sparse, split and
+        adaptive routes stay off.  ``upto`` returns the UNION of depths
+        0..steps-1."""
         m = self.mirror(space_id)
         if m is None:
             raise TpuDecline(f"space {space_id} is not loaded")
@@ -1607,9 +1638,13 @@ class TorchQueryRuntime:
         mesh = self._mesh_only()
         if mesh is not None and c0 is not None and not upto \
                 and flags.get("tpu_mesh_mode") == "sparse":
-            raise TpuDecline("mesh-sharded GO in tpu_mesh_mode=sparse "
-                             "needs the mesh_sparse_go kernel "
-                             "(ell.py:2052), not ported")
+            # the dense replicated-frontier tables are NOT built here;
+            # the dense fallback builds them on overflow only
+            launched = self._launch_mesh_sparse(m, ix, d_all, q_all, nq,
+                                                et_tuple, steps, c0, mesh)
+            if launched is not None:
+                return launched
+            # start placement outgrew a shard's share: the dense mesh
         mesh_mt = self._mesh_tables(m, ix) if mesh is not None else None
         if mesh_mt is not None:
             return self._launch_dense(m, ix, d_all, q_all, nq, et_tuple,
@@ -1633,6 +1668,51 @@ class TorchQueryRuntime:
             return self._launch_adaptive(m, ix, d_all, et_tuple, steps)
         return self._launch_dense(m, ix, d_all, q_all, nq, et_tuple, steps,
                                   upto=upto, reduce=reduce)
+
+    def _launch_mesh_sparse(self, m: CsrMirror, ix: EllIndex,
+                            d_all: np.ndarray, q_all: np.ndarray, nq: int,
+                            et_tuple: Tuple[int, ...], steps: int, c0: int,
+                            mesh: PartsMesh):
+        """The frontier-sharded GO (runtime.py:1930-1990): the starts
+        placed on the shards owning them, ``mesh_sparse_go`` on the
+        mesh; None when a shard's share outgrows ``c0`` (the caller
+        runs the dense mesh).  The resolver merges the shards' pairs
+        and re-sorts them by (query, old id), or, when the program
+        overflowed, reruns the batch on ``ell_go_sharded`` with no
+        reduction (COUNT(*) and LIMIT then apply on the host)."""
+        st = self._sharded_tables(m, ix, mesh)
+        placed = split_start_pairs_by_owner(
+            st, ix.perm[d_all].astype(np.int32),
+            q_all.astype(np.int32), c0)
+        if placed is None:
+            return None
+        d_max = max(ix.bucket_D) if ix.bucket_D else 1
+        cap = int(flags.get("tpu_sparse_cap") or (1 << 17))
+        caps = sparse_caps(c0, d_max, steps, cap,
+                           growth=int(flags.get("tpu_sparse_growth") or 8))
+        k = mesh.k
+        cap_x = max(256, caps[-1] // max(k // 2, 1))
+        cap_e = max(64, c0)
+        outs = ell_ops.mesh_sparse_go(
+            self._up_shards(st, placed[0]), self._up_shards(st, placed[1]),
+            st, et_tuple, steps, caps, cap_x, cap_e, max(nq, 1))
+        self._bump("go_mesh_sparse")
+
+        def resolve():
+            overflow, qids, vids_new = sharded_sparse_pairs(
+                np.stack([self._fetch(o) for o in outs]))
+            if overflow:
+                self._bump("sparse_overflows")
+                return self._launch_dense(m, ix, d_all, q_all, nq,
+                                          et_tuple, steps,
+                                          mesh_mt=self._mesh_tables(m, ix))()
+            vs_old = ix.inv[vids_new].astype(np.int64)
+            order2 = np.lexsort((vs_old, qids))
+            q2, v2 = qids[order2], vs_old[order2]
+            bounds = np.searchsorted(q2, np.arange(nq + 1))
+            return [v2[bounds[q]:bounds[q + 1]] for q in range(nq)], m
+
+        return resolve
 
     def _launch_sparse_split(self, m: CsrMirror, ix: EllIndex,
                              d_all: np.ndarray, q_all: np.ndarray, nq: int,
@@ -1940,18 +2020,22 @@ class TorchQueryRuntime:
         [B, n] depths (INT16_INF = unreached), the single-chip route of
         runtime.py:3319, packed or (``tpu_packed_frontier`` off) int8;
         both give depths [n_rows + 1, B].  On a mesh (runtime.py:3327-
-        3351) ``tpu_mesh_mode=sparse`` declines naming
-        ``mesh_sparse_bfs`` (not ported) and ``dense`` runs
-        ``ell_bfs_sharded``, packed whatever the flag."""
+        3351) ``tpu_mesh_mode=sparse`` runs ``mesh_sparse_bfs``
+        (``_mesh_sparse_bfs``) and, when its placement or the program
+        overflows, the batch runs ``ell_bfs_sharded`` as ``dense`` does,
+        packed whatever the flag."""
         mesh = self._mesh_only()
-        if mesh is not None and flags.get("tpu_mesh_mode") == "sparse":
-            raise TpuDecline("mesh-sharded FIND PATH in tpu_mesh_mode="
-                             "sparse needs the mesh_sparse_bfs kernel "
-                             "(ell.py:2179), not ported")
         t0 = time.perf_counter()
         ix = self.ell(m)
         nq = len(starts_per_query)
         B = self._batch_width(nq)
+        if mesh is not None and flags.get("tpu_mesh_mode") == "sparse":
+            d = self._mesh_sparse_bfs(m, ix, starts_per_query,
+                                      targets_per_query, et_tuple,
+                                      max_steps, shortest, B, mesh, t0)
+            if d is not None:
+                return d
+            # placement or overflow: the replicated-frontier design
         mt = self._mesh_tables(m, ix) if mesh is not None else None
         # the int8 route (runtime.py:3369-3380) only off the mesh
         packed = mt is not None or flags.get("tpu_packed_frontier", True)
@@ -1982,6 +2066,48 @@ class TorchQueryRuntime:
         else:
             d = host
         return ix.to_old(d).T
+
+    def _mesh_sparse_bfs(self, m: CsrMirror, ix: EllIndex,
+                         starts_per_query, targets_per_query,
+                         et_tuple: Tuple[int, ...], max_steps: int,
+                         shortest: bool, B: int, mesh: PartsMesh,
+                         t0: float) -> Optional[np.ndarray]:
+        """The frontier-sharded BFS (runtime.py:3433-3505): starts and
+        targets placed on their owners at ``tpu_sparse_cap`` pairs a
+        shard, ``mesh_sparse_bfs`` on the mesh, the shards' depth blocks
+        fetched (the live query columns only) and stacked in row order;
+        returns depths as ``_bfs_depths`` does, or None when a shard's
+        share outgrows the cap or the program overflows."""
+        st = self._sharded_tables(m, ix, mesh)
+        nq = len(starts_per_query)
+        cap = int(flags.get("tpu_sparse_cap") or (1 << 17))
+        k = mesh.k
+        cap_x = max(256, cap // max(k // 2, 1))
+        cap_e = max(64, cap // 8)
+        ps = split_start_pairs_by_owner(
+            st, *self._flat_coords(m, ix, starts_per_query, nq), cap)
+        pt = split_start_pairs_by_owner(
+            st, *self._flat_coords(m, ix, targets_per_query, nq), cap)
+        if ps is None or pt is None:
+            return None
+        dep, overflow, levels = ell_ops.mesh_sparse_bfs(
+            self._up_shards(st, ps[0]), self._up_shards(st, ps[1]),
+            self._up_shards(st, pt[0]), self._up_shards(st, pt[1]), st,
+            et_tuple, max_steps, cap, cap_x, cap_e, B,
+            stop_when_found=shortest)
+        if overflow:
+            self._bump("sparse_overflows")
+            return None
+        self._bump("path_device", nq)
+        self._bump("bfs_mesh_sparse")
+        nqp = min(B, max(8, -(-nq // 8) * 8))
+        host = np.concatenate([self._fetch(d[:, :nqp])
+                               for d in dep])[:ix.n_rows + 1, :nq]
+        with self._lock:
+            self.stats["bfs_dispatches"] += 1
+            self.stats["bfs_levels"] += levels
+        self._tick("t_bfs_s", t0)
+        return ix.to_old(host).T
 
     def bfs_batch(self, space_id: int, starts_per_query, targets_per_query,
                   etypes: Sequence[int], max_steps: int,

@@ -501,16 +501,26 @@ def test_dense_mesh_find_path_matches_cluster(served, modes, k, shortest):
 
 
 def test_sparse_mode_and_upto_decline_naming_the_kernel(served, modes):
+    """``tpu_mesh_mode=sparse`` now serves GO and FIND PATH on the
+    frontier-sharded programs (rows equal the cluster's); UPTO on a mesh
+    still declines, in either mode."""
     from nebula_tpu_torch.storage.device import TpuDecline
-    _ok, rt_, space, et, _ref_rt = served
+    ok, rt_, space, et, _ref_rt = served
     modes({"tpu_mesh_devices": 2, "tpu_mesh_mode": "sparse"})
-    with pytest.raises(TpuDecline, match="mesh_sparse_go"):
-        rt_.serve_go(space, [1], [et], 3, {et: "e"})
-    with pytest.raises(TpuDecline, match="mesh_sparse_bfs"):
-        rt_.serve_find_path(space, [1], [2], [et], 3, True, {et: "e"})
-    modes({"tpu_mesh_mode": "dense"})
-    with pytest.raises(TpuDecline, match="UPTO"):
-        rt_.serve_go(space, [1], [et], 3, {et: "e"}, upto=True)
+    before = dict(rt_.stats)
+    cols, rows = rt_.serve_go(space, [1], [et], 3, {et: "e"})
+    assert cols == ["e._dst"]
+    assert rows == ok("GO 3 STEPS FROM 1 OVER e YIELD e._dst").rows
+    cols, rows = rt_.serve_find_path(space, [1], [2], [et], 3, True,
+                                     {et: "e"})
+    assert sorted(map(tuple, rows)) == sorted(map(tuple, ok(
+        "FIND SHORTEST PATH FROM 1 TO 2 OVER e UPTO 3 STEPS").rows))
+    assert rt_.stats["go_mesh_sparse"] == before["go_mesh_sparse"] + 1
+    assert rt_.stats["bfs_mesh_sparse"] == before["bfs_mesh_sparse"] + 1
+    for mode in ("sparse", "dense"):
+        modes({"tpu_mesh_mode": mode})
+        with pytest.raises(TpuDecline, match="UPTO"):
+            rt_.serve_go(space, [1], [et], 3, {et: "e"}, upto=True)
 
 
 def test_continuous_mode_refuses_the_stream_under_a_mesh(served, modes):

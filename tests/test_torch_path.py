@@ -197,31 +197,27 @@ def test_in_edge_cache_keeps_the_reference_order(paths):
 
 
 def test_find_path_declines(paths):
-    """An unloaded space and the mesh route in the default
-    tpu_mesh_mode=sparse decline (naming mesh_sparse_bfs); with packing off
-    the path is served on the int8 route and its rows equal the
+    """An unloaded space declines; the mesh route in the default
+    tpu_mesh_mode=sparse (``mesh_sparse_bfs``) and, with packing off,
+    the int8 route serve the path, and their rows equal the
     cluster's."""
     ok, rt, space, et, _jrt = paths
     with pytest.raises(TpuDecline):
         rt.serve_find_path(space + 99, [1], [2], [et], 3, True, {et: "e"})
-    for setting, needs in (({"tpu_mesh_devices": 2}, "mesh_sparse_bfs"),
-                           ({"tpu_packed_frontier": False}, None)):
+    for setting, mesh_runs in (({"tpu_mesh_devices": 2}, 1),
+                               ({"tpu_packed_frontier": False}, 0)):
         (k, v), = setting.items()
         old = flags.get(k)
         flags.set(k, v)
+        before = rt.stats["bfs_mesh_sparse"]
         try:
-            if needs is None:
-                cols, rows = rt.serve_find_path(space, [1], [2], [et], 3,
-                                                True, {et: "e"})
-                assert cols == ["path"] and sorted(map(tuple, rows)) == \
-                    _rows(ok("FIND SHORTEST PATH FROM 1 TO 2 OVER e "
-                             "UPTO 3 STEPS"))
-            else:
-                with pytest.raises(TpuDecline, match=needs):
-                    rt.serve_find_path(space, [1], [2], [et], 3, True,
-                                       {et: "e"})
+            cols, rows = rt.serve_find_path(space, [1], [2], [et], 3, True,
+                                            {et: "e"})
         finally:
             flags.set(k, old)
+        assert cols == ["path"] and sorted(map(tuple, rows)) == \
+            _rows(ok("FIND SHORTEST PATH FROM 1 TO 2 OVER e UPTO 3 STEPS"))
+        assert rt.stats["bfs_mesh_sparse"] == before + mesh_runs
     # empty endpoint lists answer no rows without touching the card
     assert rt.serve_find_path(space, [], [2], [et], 3, True,
                               {et: "e"}) == (["path"], [])

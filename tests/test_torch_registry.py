@@ -1,9 +1,8 @@
 """The port's kernel registry (``nebula_tpu_torch/tpu/kernels.py``)
 against the reference's ``KERNEL_REGISTRY``: every reference family
-has an entry; every family that runs on one card, and the four
-replicated-frontier mesh families, have a plain version and a hand
-kernel whose sources exist; only the two frontier-sharded mesh
-families have none yet."""
+has an entry, and every one (the six mesh families included) has a
+plain version and a hand kernel whose sources exist; no family is
+without a hand kernel."""
 import os
 
 import pytest
@@ -18,7 +17,7 @@ HELPERS = ("_upload_frontier", "_upload_frontier_packed",
            "make_batched_go_kernel", "make_batched_bfs_kernel")
 MESH = {name for name, spec in KERNEL_REGISTRY.items()
         if spec.mesh_instantiate is not None}
-UNPORTED = {"mesh_sparse_go", "mesh_sparse_bfs"}
+UNPORTED: set = set()            # every family has a hand kernel
 
 
 def test_every_reference_family_has_an_entry():
@@ -40,16 +39,19 @@ def test_single_card_entries_have_a_plain_and_a_hand_kernel(name):
 
 
 def test_only_the_six_mesh_families_have_no_hand_kernel():
-    """Of the six mesh families, the four of the replicated-frontier
-    design are ported; the two frontier-sharded ones have nothing yet."""
+    """No family lacks a hand kernel now: the six mesh families, the
+    four of the replicated-frontier design (``ell_mesh.cu``, and the
+    edge kernels for ``sharded_go``) and the two frontier-sharded ones
+    (``mesh_sparse.cu`` with ``sparse_go.cu``'s K5 / K6), all have one."""
     assert MESH == {"sharded_go", "ell_go_sharded", "ell_bfs_sharded",
                     "ell_absorb_sharded", "mesh_sparse_go",
                     "mesh_sparse_bfs"}
     missing = {name for name, e in kernels.KERNELS.items()
-               if e.hand is None}
-    assert missing == UNPORTED and UNPORTED < MESH
-    assert all(kernels.KERNELS[n].plain is None
-               and kernels.KERNELS[n].csrc is None for n in UNPORTED)
-    for name in MESH - UNPORTED:
-        assert "ell_mesh.cu" in kernels.KERNELS[name].csrc \
-            or name == "sharded_go"
+               if e.hand is None or e.plain is None or not e.csrc}
+    assert missing == UNPORTED == set()
+    for name in MESH:
+        src = kernels.KERNELS[name].csrc
+        if name.startswith("mesh_sparse"):
+            assert "mesh_sparse.cu" in src and "sparse_go.cu" in src
+        else:
+            assert "ell_mesh.cu" in src or name == "sharded_go"

@@ -499,7 +499,8 @@ def test_continuous_and_windowed_answers_agree(windowed):
 
 
 SERVED_ROUTES = {"sparse_go": "go_sparse", "adaptive_go": "go_adaptive",
-                 "unpacked ell_go": "go_dense"}
+                 "unpacked ell_go": "go_dense",
+                 "mesh_sparse_go": "go_mesh_sparse"}
 
 
 @pytest.mark.parametrize("setting,starts,needs", [
@@ -510,10 +511,10 @@ SERVED_ROUTES = {"sparse_go": "go_sparse", "adaptive_go": "go_adaptive",
 ])
 def test_unported_routes_decline_naming_their_kernel(windowed, setting,
                                                      starts, needs):
-    """The mesh route in the default tpu_mesh_mode=sparse declines naming
-    the kernel still missing (mesh_sparse_go); the sparse, adaptive
-    and unpacked routes (ported) serve, their counter moves and the rows
-    equal the cluster's."""
+    """Every route serves now: the sparse, adaptive and unpacked routes
+    and the mesh in the default tpu_mesh_mode=sparse (mesh_sparse_go);
+    each one's counter moves and the rows equal the cluster's.  A route
+    not in SERVED_ROUTES would have to decline naming its kernel."""
     from nebula_tpu_torch.common.flags import flags
     from nebula_tpu_torch.storage.device import TpuDecline
     ok, rt_, space, et = windowed
