@@ -25,7 +25,9 @@ Phases, in order; any failure exits non-zero:
              with nvcc (sm_90a) and load them
 3. kernels   each kernel against its plain PyTorch version on the serve
              graph's real tables, at W = 128 (B = 1024 lanes) and W = 16
-             (B = 128): exact equality, CUDA-event times for the kernel,
+             (B = 128): exact equality, CUDA-event times for the kernel
+             (for the hop and ``or_into`` their device time, the calls
+             queued behind a spin kernel, with the event time beside),
              the plain version and, where one exists, the PyTorch
              library call computing the same function, and the card's
              bound for the work.  The continuous session's four
@@ -65,7 +67,12 @@ Phases, in order; any failure exits non-zero:
              ``pack_rows``, ``ell_bfs_i8`` (UPTO 5, a connected and an
              unreachable pair among random lanes) and K15
              ``bfs_level_i8``; and all of them once more, untimed, at
-             the off-ladder width B = 10 (the byte-tail path); then the
+             the off-ladder width B = 10 (the byte-tail path); the
+             packed hop, untimed, three chained hops with and without
+             the accumulator at W = 16, 128, 4, 12, 20 and 48, at
+             W = 16 on rows, slot tables or both 4 bytes off alignment
+             (its 4-byte paths), and at W = 160 on rows off alignment
+             (more 4-byte columns than a warp has lanes); then the
              replicated-frontier mesh (``mesh_kernel_phase``) with the
              serve tables cut into k = 2 and 4 shards that all sit on
              this card, at B = 1024 and 128: M1 ``shard_hop`` per shard,
@@ -76,7 +83,12 @@ Phases, in order; any failure exits non-zero:
              ``shard_absorb`` on the absorb plans (gathered shards equal
              to ``ell_absorb``'s tables, inputs unchanged),
              ``sharded_go`` and ``or_into`` against the ``go`` program,
-             all exactly, with the copy time of the row replication;
+             all exactly, with the copy time of the row replication,
+             and ``mesh.psum_or`` (receive slabs, one ``or_many`` a
+             shard) at 2^19 bytes and 8 against the pairwise
+             composition of ``or_into`` calls it replaced and the same
+             pairs combined by ``torch.bitwise_or`` (equal outputs,
+             event times, OR launches: k against k(k - 1));
              last the frontier-sharded mesh (``mesh_sparse_kernel_phase``)
              on the serve tables cut into k = 2 and 4 chunks on this
              card: ``mesh_sparse_go`` at c0 256 (128 queries, also
@@ -205,6 +217,9 @@ import threading
 import time
 
 import numpy as np
+
+from nebula_tpu_torch.tools.cardtime import (SPIN_CYCLES, cuda_ms, queued_ms,
+                                           queued_times)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 REPLACES = {
@@ -496,21 +511,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of ``fn()`` on the card by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
 def timed(torch, fn):
     """(``fn()``, its milliseconds on the card by CUDA events): one
     call, for the plain versions that are slow at full size."""
@@ -592,8 +592,17 @@ def kernel_phase(torch, ell_ops, tables, eslot, hrows, ix, B: int,
         fr, orf = orf, fr
     out = torch.empty_like(fp0)
     a1 = acc0.clone()
-    ms = cuda_ms(torch, lambda: ell_ops.go_hop(fp0, a1, out, tables, eslot,
-                                               hrows, over), 50)
+
+    def hop():
+        ell_ops.go_hop(fp0, a1, out, tables, eslot, hrows, over)
+    hops = ell_ops.LAUNCHES["go_hop"]
+    ors = ell_ops.LAUNCHES["or_into"]
+    ms = queued_ms(torch, hop, PROBE_REPS)      # device time
+    event_ms = cuda_ms(torch, hop, 50)
+    if ell_ops.LAUNCHES["go_hop"] == hops or \
+            ell_ops.LAUNCHES["or_into"] != ors:
+        raise AssertionError("the timed hops did not launch ell_go_hop "
+                             "alone")
     a2 = acc0.clone()
     plain = cuda_ms(torch, lambda: ell_ops.go_hop_ref(
         fp0, a2, out, tables, eslot, hrows, over), 2, warmup=1)
@@ -605,7 +614,8 @@ def kernel_phase(torch, ell_ops, tables, eslot, hrows, ix, B: int,
                        for r, d in zip(tables.rows, tables.D))
     res["go_hop"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=bytes_ms(hop_bytes), bound_by="bytes",
-                         library_ms=None, bytes=hop_bytes,
+                         library_ms=None, event_ms=event_ms,
+                         bytes=hop_bytes,
                          gather_model_ms=bytes_ms(gather_bytes))
 
     # ---- clear: drop 8 random lanes
@@ -1183,35 +1193,64 @@ def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over,
     return dict(B=B, levels=lk, equal=True)
 
 
+HOP_TAIL_WIDTHS = (4, 12, 20, 48)   # off the ladder: the 4-byte columns,
+                                    # and 16-byte columns that fill no warp
+
+
+def hop_width_check(torch, ell_ops, ix, tables, eslot, hrows, over,
+                    rng) -> dict:
+    """``go_hop`` against ``go_hop_ref``, untimed: three chained hops
+    with and without the UPTO accumulator at W = 16 and 128 and at the
+    off-ladder widths, then at W = 16 on rows 4 bytes off a 16-byte
+    boundary (the 4-byte row path), on slot tables 4 bytes off (the
+    4-byte slot path) and on both (the two 4-byte paths together), and
+    at W = 160 on rows 4 bytes off (40 4-byte columns a row: more than
+    a warp's lanes, so each lane takes two), all on the serve tables
+    with their hub rows."""
+    dev = tables.nbr.device
+    R1 = ix.n_rows + 1
+
+    def shifted(t):       # the same values 4 bytes past an aligned start
+        buf = torch.empty(t.numel() * t.element_size() + 4,
+                          dtype=torch.uint8, device=dev)
+        v = buf[4:].view(t.dtype).view(t.shape)
+        v.copy_(t)
+        return v
+    cases = [(W, False, False) for W in (16, 128) + HOP_TAIL_WIDTHS]
+    cases += [(16, True, False), (16, False, True), (16, True, True),
+              (160, True, False)]
+    for W, rows_off, slots_off in cases:
+        tb = tables
+        if slots_off:
+            tb = tables._replace(nbr=shifted(tables.nbr),
+                                 et=shifted(tables.et))
+        f_h = np.zeros((R1, W), np.uint8)
+        live = rng.random(ix.n) < 0.02
+        f_h[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
+                                        dtype=np.uint8)
+        f0 = torch.from_numpy(f_h).to(dev)
+        for with_acc in (True, False):
+            mk = shifted if rows_off else (lambda t: t.clone())
+            fk, ok_ = mk(f0), mk(torch.zeros_like(f0))
+            fr, orf = f0.clone(), torch.zeros_like(f0)
+            ak = mk(f0) if with_acc else None
+            ar = f0.clone() if with_acc else None
+            for h in range(3):
+                ell_ops.go_hop(fk, ak, ok_, tb, eslot, hrows, over)
+                ell_ops.go_hop_ref(fr, ar, orf, tb, eslot, hrows, over)
+                pairs = [(ok_, orf)] + ([(ak, ar)] if with_acc else [])
+                require_equal(torch, f"go_hop W={W} acc={with_acc} "
+                              f"rows_off={rows_off} slots_off={slots_off} "
+                              f"hop {h}", 8 * W, *pairs)
+                fk, ok_ = ok_, fk
+                fr, orf = orf, fr
+    return dict(cases=[dict(W=W, rows_off=r, slots_off=q)
+                       for W, r, q in cases], chained_hops=3,
+                with_and_without_acc=True, equal=True)
+
+
 # =================================================== phase 3, sparse
-SPIN_CYCLES = 8_000_000   # about 4 ms of the card's clock
 PROBE_REPS = 8            # timed calls of each probed kernel call
-
-
-def queued_times(torch, fn, iters: int, spin: int = SPIN_CYCLES) -> tuple:
-    """(mean milliseconds of ``fn()`` on the card alone, host
-    milliseconds to enqueue them all): a spin kernel of ``spin`` cycles
-    holds the card while the host enqueues the calls, so the events
-    bracket only their device work as long as the enqueue stays below
-    the spin's time (``fn`` must not wait on the card)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    h0 = time.perf_counter()
-    torch.cuda._sleep(spin)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    enqueue_ms = (time.perf_counter() - h0) * 1e3
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters, enqueue_ms
-
-
-def queued_ms(torch, fn, iters: int) -> float:
-    """Mean milliseconds of ``fn()`` on the card alone (queued_times)."""
-    return queued_times(torch, fn, iters)[0]
 
 
 class Probe:
@@ -3808,7 +3847,7 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         library_none="none: a multi-kernel program", k=k, steps=3,
         starts=256, single_card_go_ms=go1_ms)
 
-    # ---- or_into (psum_or's combine) on two [n] partial bitmaps
+    # ---- or_into (or_many's one-source call) on two [n] bitmaps
     n4 = -(-n // 4) * 4
     a = (torch.rand(n4, device=dev) < 0.01)
     b = (torch.rand(n4, device=dev) < 0.01)
@@ -3816,13 +3855,81 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     ell_ops.or_into(a, ok_)
     ell_ops.or_into_ref(a, or_)
     require_equal(torch, f"or_into k={k}", 0, (ok_, or_))
-    or_ms = cuda_ms(torch, lambda: ell_ops.or_into(a, ok_), 50)
+    one = lambda: ell_ops.or_into(a, ok_)                   # noqa: E731
+    lib_or = lambda: torch.bitwise_or(or_, a, out=or_)      # noqa: E731
     or_plain = cuda_ms(torch, lambda: ell_ops.or_into_ref(a, or_), 50)
-    or_lib = cuda_ms(torch, lambda: torch.bitwise_or(or_, a, out=or_), 50)
-    res["or_into"] = dict(max_abs_err=0, ms=or_ms, plain_ms=or_plain,
-                          bound_ms=bytes_ms(3 * n4), bound_by="bytes",
-                          library_ms=or_lib, library_call="bitwise_or",
-                          bytes=n4)
+    res["or_into"] = dict(
+        max_abs_err=0, ms=queued_ms(torch, one, 50), plain_ms=or_plain,
+        bound_ms=bytes_ms(3 * n4), bound_by="bytes",
+        library_ms=queued_ms(torch, lib_or, 50),
+        library_call="bitwise_or", event_ms=cuda_ms(torch, one, 50),
+        library_event_ms=cuda_ms(torch, lib_or, 50), bytes=n4)
+    return res
+
+
+PSUM_BYTES = (1 << 19, 8)      # psum_or's sizes: a [n] bitmap, a ctl word
+PSUM_ROUNDS = 4                # event timings of each composition
+
+
+def psum_phase(torch, ell_ops, psum_or, k: int, dev, rng) -> dict:
+    """``mesh.psum_or`` over k shards on this card (receive slabs, one
+    ``or_many`` a shard) against the pairwise composition it replaced
+    (each received partial OR-ed in by its own ``or_into``) and the same
+    pairs combined by ``torch.bitwise_or``: equal outputs, the OR
+    launches of one call, and event times over back-to-back calls (the
+    median of PSUM_ROUNDS measurements each, the three taken in turns,
+    forward then backward, since the host's launch path is most of the
+    time), at a bitmap of 2^19 bytes and at one 8-byte word (the agreed
+    overflow's)."""
+    res = {}
+    for nb in PSUM_BYTES:
+        parts = [torch.from_numpy(
+            rng.integers(0, 256, nb, dtype=np.uint8)
+            & (rng.random(nb) < 0.05).astype(np.uint8) * 255).to(dev)
+            for _ in range(k)]
+        outs = {c: [torch.empty(nb, dtype=torch.uint8, device=dev)
+                    for _ in range(k)]
+                for c in ("slab", "pairwise", "torch")}
+        slabs = [torch.empty((k - 1, nb), dtype=torch.uint8, device=dev)
+                 for _ in range(k)]
+        recv = [torch.empty(nb, dtype=torch.uint8, device=dev)
+                for _ in range(k)]
+
+        def pairwise(combine, out_list):
+            for s, out in enumerate(out_list):
+                out.copy_(parts[s])
+                for t, p in enumerate(parts):
+                    if t != s:
+                        recv[s].copy_(p)
+                        combine(recv[s], out)
+        runs = {
+            "slab": lambda: psum_or(parts, outs["slab"], slabs,
+                                    ell_ops.or_many),
+            "pairwise": lambda: pairwise(ell_ops.or_into, outs["pairwise"]),
+            "torch": lambda: pairwise(
+                lambda r, o: torch.bitwise_or(o, r, out=o), outs["torch"])}
+        row, times = {}, {c: [] for c in runs}
+        for c, fn in runs.items():
+            before = ell_ops.LAUNCHES["or_into"]
+            fn()
+            row[f"{c}_launches"] = ell_ops.LAUNCHES["or_into"] - before
+        for r in range(PSUM_ROUNDS):
+            for c in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                times[c].append(cuda_ms(torch, runs[c], 50))
+        for c, ts in times.items():
+            row[f"{c}_ms"] = float(np.median(ts))
+        want = parts[0].clone()
+        for p in parts[1:]:
+            want |= p
+        require_equal(torch, f"psum_or k={k} bytes={nb}", 0,
+                      *[(o, want) for c in outs for o in outs[c]])
+        if row["slab_launches"] != k or \
+                row["pairwise_launches"] != k * (k - 1):
+            raise AssertionError(f"psum_or k={k}: {row['slab_launches']} "
+                                 f"OR launches (want {k}), pairwise "
+                                 f"{row['pairwise_launches']}")
+        row["bound_ms"] = bytes_ms(k * (3 * k + 1) * nb)
+        res[nb] = row
     return res
 
 
@@ -4231,7 +4338,7 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
         outs, moved = ell_ops._mesh_go_steps(
             ids, qid, st, over, steps, caps, cap_x, cap_e, nq,
             probes["mesh_route"], probes["mesh_mark"],
-            probes["pair_compact"], ell_ops.pair_reduce, ell_ops.or_into)
+            probes["pair_compact"], ell_ops.pair_reduce, ell_ops.or_many)
         want, plain = timed(torch, lambda: ell_ops.mesh_sparse_go_ref(
             ids, qid, st, over, steps, caps, cap_x, cap_e, nq))
         got_h = torch.stack(outs).cpu().numpy()
@@ -4779,6 +4886,8 @@ def main(argv=None) -> int:
         tail = int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows,
                                (1,), rng)
         log("[kernel] int8 byte tail " + json.dumps(tail))
+        log("[kernel] go_hop widths " + json.dumps(hop_width_check(
+            torch, ell_ops, ix, tables, eslot, hrows, (1,), rng)))
         log("[compare] ell_go at 3 steps, int8 vs packed, ms: "
             + json.dumps({B: [int8_rows[B]["ell_go_i8"]["ms"],
                               int8_rows[B]["ell_go_i8"]["packed_ell_go_ms"]]
@@ -4798,6 +4907,13 @@ def main(argv=None) -> int:
                 log(f"[kernel] mesh k={k} B={B} phase "
                     f"{time.perf_counter() - t0:.2f} s")
         del mesh_windows
+        from nebula_tpu_torch.tpu.mesh import psum_or
+        psum_rows = {}
+        for k in MESH_KS:
+            psum_rows[k] = psum_phase(torch, ell_ops, psum_or, k,
+                                      tables.nbr.device, rng)
+            log(f"[kernel] psum_or k={k} equal=True "
+                + json.dumps(psum_rows[k]))
         mesh_sparse_rows = {}
         for k in MESH_KS:
             t0 = time.perf_counter()
@@ -4973,6 +5089,8 @@ def main(argv=None) -> int:
             v = sparse_rows[k]
             row.update({a: v[a] for a in keys})
             row.update({a: b for a, b in v.items() if a not in keys})
+        if k == "or_into":            # the mesh's psum_or over it
+            row["psum_or"] = {f"k{kk}": v for kk, v in psum_rows.items()}
         if k == "pair_compact":       # K5 with the shard's row base
             row["mesh_base"] = {kk: {
                 a: mesh_sparse_rows[kk][k][a]

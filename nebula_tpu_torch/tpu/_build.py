@@ -131,8 +131,9 @@ def load() -> ctypes.CDLL:
         p64, p32 = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(
             ctypes.c_int32)
         lib.ell_go_hop.argtypes = [
-            vp, vp, vp, vp, vp, p64, i32, vp, vp, i64, p32, i32, i64, i64,
-            i64, vp]
+            vp, vp, vp, vp, vp, p64, i32, i64, i32, i32, vp, vp, i64, p32,
+            i32, i64, i64, i64, vp]
+        lib.ell_or_many.argtypes = [vp, ctypes.POINTER(vp), i32, i64, vp]
         lib.ell_lane_join.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64,
                                       vp]
         lib.ell_lane_extract.argtypes = [vp, vp, vp, vp, vp, i64, i64,
@@ -187,7 +188,6 @@ def load() -> ctypes.CDLL:
         lib.ell_shard_absorb.argtypes = [vp, vp, vp, vp, i64, _ShardAbsorb,
                                          vp]
         lib.ell_hop_merge.argtypes = [vp, vp, vp, i64, i64, i64, i64, vp]
-        lib.ell_or_into.argtypes = [vp, vp, i64, vp]
         # the frontier-sharded mesh: csrc/mesh_sparse.cu (X1-X3)
         lib.mesh_route.argtypes = [i32, vp, vp, i64, vp, i64, i32, vp, vp,
                                    p64, i32, p32, i32, vp, vp, i64, i64,
@@ -208,7 +208,7 @@ def load() -> ctypes.CDLL:
                    lib.i8_go_hop, lib.i8_pack_rows, lib.i8_bfs_level,
                    lib.ell_table_copy, lib.ell_shard_hop,
                    lib.ell_shard_absorb, lib.ell_hop_merge,
-                   lib.ell_or_into, lib.mesh_route, lib.mesh_mark,
+                   lib.ell_or_many, lib.mesh_route, lib.mesh_mark,
                    lib.mesh_bfs_stamp):
             fn.restype = ctypes.c_int
         _lib = lib

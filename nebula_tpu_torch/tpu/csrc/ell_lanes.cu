@@ -1,12 +1,14 @@
 // Lane kernels for Hopper (sm_90a), behind a plain C interface that
 // nebula_tpu_torch/tpu/ell_ops.py loads with ctypes: the continuous
-// session's hop, join, extract and clear, and the windowed path's
-// packed frontier upload, per-lane COUNT(*) fold and BFS level pass.
+// session's hop, join, extract and clear, the windowed path's packed
+// frontier upload, per-lane COUNT(*) fold and BFS level pass, and the
+// mesh's multi-source OR (psum_or's combine).
 //
 // Layout shared by every kernel: the resident frontier pair fp / accp is
 // uint8 [n_rows + 1, W] row-major, 8 query lanes per byte (bit k of byte
 // j is lane 8j + k), W % 4 == 0, so each row is a whole number of 32-bit
-// words and the kernels work on uint32 words.  Row n_rows is the pad row:
+// words and the kernels work on uint32 words (the hop on 16-byte
+// columns where W % 16 == 0).  Row n_rows is the pad row:
 // every sentinel slot points at it and it stays zero.  Byte and word
 // offsets are 64-bit (rows * W passes 2^31 at 2^24 rows and W = 128).
 //
@@ -18,6 +20,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The OR-combine's sources, by value: at global scope, since the
+// extern "C" entry point builds it (a struct of an anonymous namespace
+// would give that entry internal linkage under nvcc).
+constexpr int kMaxSrcs = 16;
+struct OrSources {
+    const void* p[kMaxSrcs];
+    int m;
+};
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -25,20 +36,30 @@ constexpr long long kMaxBlocks = 1LL << 20;   // grid-stride beyond this
 constexpr int kMaxBuckets = 32;
 constexpr int kMaxOver = 32;
 constexpr int kCountBlocks = 1024;             // go_count grid cap
+constexpr int kChunk = 8;                      // slots a hop lane holds
 constexpr uint32_t kInt16Inf = 0x7FFF;         // ell.py:51 INT16_INF
 
-// Per-bucket geometry of the flat slot tables, passed by value.
-struct Buckets {
-    long long row0[kMaxBuckets];    // first frontier row of bucket b
-    long long slot0[kMaxBuckets];   // first slot of bucket b in nbr/et
-    int D[kMaxBuckets];             // slots per row of bucket b
+// The hop's launch plan (ell_ops.hop_plan), by value: bucket b's rows
+// are frontier rows row0[b] .. row0[b] + rows[b], its slots start at
+// slot0[b], D[b] a row; 2^lg[b] lanes own one row, and its blocks are
+// blk0[b] .. blk0[b + 1] (the last bucket's end is the grid).
+struct HopPlan {
+    long long row0[kMaxBuckets];
+    long long slot0[kMaxBuckets];
+    long long rows[kMaxBuckets];
+    int blk0[kMaxBuckets];
+    int D[kMaxBuckets];
+    int lg[kMaxBuckets];
     int n;
 };
 
-// The OVER set as signed etypes (negative = REVERSELY), by value.
+// The OVER set as signed etypes (negative = REVERSELY), by value, with
+// a bitmask of etype + 32 when every member lies in [-32, 31].
 struct OverSet {
     int et[kMaxOver];
     int n;
+    int use_mask;
+    unsigned long long mask;
 };
 
 inline unsigned grid_for(long long total) {
@@ -48,51 +69,165 @@ inline unsigned grid_for(long long total) {
     return (unsigned)blocks;
 }
 
+__device__ __forceinline__ uint4 or_v(uint4 a, uint4 b) {
+    return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+}
+__device__ __forceinline__ uint32_t or_v(uint32_t a, uint32_t b) {
+    return a | b;
+}
+__device__ __forceinline__ void zero_v(uint4& v) {
+    v = make_uint4(0u, 0u, 0u, 0u);
+}
+__device__ __forceinline__ void zero_v(uint32_t& v) { v = 0u; }
+// v | the value of lane (this lane ^ o), every lane of the warp taking
+// part
+__device__ __forceinline__ uint4 shfl_or(uint4 v, int o) {
+    uint4 t;
+    t.x = __shfl_xor_sync(0xffffffffu, v.x, o);
+    t.y = __shfl_xor_sync(0xffffffffu, v.y, o);
+    t.z = __shfl_xor_sync(0xffffffffu, v.z, o);
+    t.w = __shfl_xor_sync(0xffffffffu, v.w, o);
+    return or_v(v, t);
+}
+__device__ __forceinline__ uint32_t shfl_or(uint32_t v, int o) {
+    return v | __shfl_xor_sync(0xffffffffu, v, o);
+}
+
+__device__ __forceinline__ bool in_over(int e, const OverSet& ov) {
+    if (ov.use_mask) {
+        const unsigned k = (unsigned)(e + 32);
+        return k < 64u && ((ov.mask >> k) & 1ull);
+    }
+    bool ok = false;
+    for (int k = 0; k < ov.n; ++k) ok |= (e == ov.et[k]);
+    return ok;
+}
+
 // ---------------------------------------------------------------- hop
 // Replaces nebula_tpu/tpu/ell.py:665 make_continuous_hop_kernel (body
-// _hop_body_packed :556, _bucket_expand_packed :541, _etype_ok :361).
-// One thread owns one (row, 32-bit word): it walks the row's D slots,
-// ORing the gathered source word when the slot's etype is in the OVER
-// set.  Bound on this card: bytes — per row D slot reads of nbr + et
-// (8 bytes each) and D word gathers, each of which moves a 32-byte
-// sector; threads of one row share the slot loads (a broadcast), and at
-// W = 128 a warp reads one row's whole 128-byte word run per slot.  The
-// output is a separate buffer: every gather must read the previous
-// generation, so the caller ping-pongs two buffers.  The pad row of the
-// output is written zero here.
-__global__ void hop_gather_kernel(const uint32_t* __restrict__ fp,
-                                  uint32_t* __restrict__ out,
-                                  const int32_t* __restrict__ nbr,
-                                  const int32_t* __restrict__ et,
-                                  Buckets bk, OverSet ov,
-                                  long long n_rows, int W4) {
-    const long long total = (n_rows + 1) * (long long)W4;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += stride) {
-        const long long r = i / W4;
-        const int w = (int)(i - r * W4);
-        if (r == n_rows) {              // pad row: pinned to zero
-            out[i] = 0u;
-            continue;
+// _hop_body_packed :556, _bucket_expand_packed :541, _etype_ok :361):
+// out[r] = OR over row r's D slots of fp[nbr] where the slot's etype is
+// in the OVER set, and, with an accumulator, accp[r] |= out[r] (the
+// UPTO union, fused: the hub merge below ORs its extra rows into both).
+//
+// Bound on this card: bytes — the slot tables (8 bytes a slot) once,
+// the gathered source rows (mostly L2 hits at W = 16; at W = 128 the
+// frontier passes the 50 MB L2), out written once and accp read and
+// written once.  The design moves fewer and wider bytes with many in
+// flight:
+//   * a block takes kThreads / G consecutive rows of ONE bucket (the
+//     host's plan), so it finds its bucket once;
+//   * a row belongs to G = Cg * P lanes: Cg lanes split its C columns
+//     (16 bytes each when V is uint4, W % 16 == 0; 4 bytes otherwise)
+//     and P parts split its D slots; the parts read the row's slots as
+//     consecutive 16-byte units (Q: 4 slots a unit) or 4-byte ones;
+//   * a lane loads its chunk's kChunk slots before any gather, skips
+//     pad slots (nbr == n_rows) and etypes outside OVER, and issues its
+//     gathers together;
+//   * the parts' partial ORs meet by __shfl_xor_sync, and part 0 writes
+//     out and accp once;
+//   * kMinBlocks > 1 caps the registers so more warps share an SM: at
+//     8 or more 16-byte columns a row (W >= 128) most gathers miss the
+//     L2 and more loads in flight win (on an H100 SXM at 700 W, 0.27
+//     against 0.32 ms a hop at W = 128 on chip_smoke.py's serve
+//     tables), while at W = 16 the same cap costs 9%.
+// The output is a separate buffer: every gather reads the previous
+// generation, so the caller ping-pongs two.  Block 0 zeroes the pad
+// row of out (no other thread writes it); accp's pad row stays zero.
+template <typename V, bool Q, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
+                  V* __restrict__ accp, const int32_t* __restrict__ nbr,
+                  const int32_t* __restrict__ et, HopPlan pl, OverSet ov,
+                  long long n_rows, int C, int lgc) {
+    const int blk = (int)blockIdx.x;
+    if (blk == 0)
+        for (int t = threadIdx.x; t < C; t += blockDim.x)
+            zero_v(out[n_rows * C + t]);
+    int b = 0;                          // uniform over the block
+    for (int k = 1; k < pl.n; ++k)
+        if (pl.blk0[k] <= blk) b = k;
+    const int lg = pl.lg[b];
+    const int G = 1 << lg;
+    const int lane = threadIdx.x & (G - 1);
+    const long long lr = (long long)(blk - pl.blk0[b]) * (kThreads >> lg)
+                         + (threadIdx.x >> lg);
+    const bool live = lr < pl.rows[b];
+    const int D = pl.D[b];
+    const int Cg = 1 << lgc;
+    const int P = G >> lgc;             // slot parts of a row
+    const int part = lane >> lgc;
+    const int col0 = lane & (Cg - 1);
+    constexpr int U = Q ? 4 : 1;        // slots a unit
+    constexpr int UC = kChunk / U;      // units a lane holds at once
+    const int NU = D / U;               // units of a row
+    const long long base = pl.slot0[b] + lr * D;
+    const int32_t pad = (int32_t)n_rows;
+    const long long r = pl.row0[b] + lr;
+    // every lane runs the same trip counts (C, NU, P are the block's),
+    // so the whole warp reaches each shuffle
+    for (int cb = 0; cb < C; cb += Cg) {
+        const int c = cb + col0;
+        const bool act = live && c < C;
+        V acc;
+        zero_v(acc);
+        for (int u0 = 0; u0 < NU; u0 += P * UC) {
+            int nb[kChunk];
+            unsigned ok = 0u;
+#pragma unroll
+            for (int q = 0; q < UC; ++q) {
+                const int u = u0 + part + q * P;
+                if constexpr (Q) {
+                    int4 a = make_int4(pad, pad, pad, pad);
+                    int4 e = make_int4(0, 0, 0, 0);
+                    if (act && u < NU) {
+                        a = __ldcs(reinterpret_cast<const int4*>(nbr + base)
+                                   + u);
+                        e = __ldcs(reinterpret_cast<const int4*>(et + base)
+                                   + u);
+                    }
+                    nb[4 * q] = a.x;
+                    nb[4 * q + 1] = a.y;
+                    nb[4 * q + 2] = a.z;
+                    nb[4 * q + 3] = a.w;
+                    ok |= (unsigned)(a.x != pad && in_over(e.x, ov)) << 4 * q;
+                    ok |= (unsigned)(a.y != pad && in_over(e.y, ov))
+                          << (4 * q + 1);
+                    ok |= (unsigned)(a.z != pad && in_over(e.z, ov))
+                          << (4 * q + 2);
+                    ok |= (unsigned)(a.w != pad && in_over(e.w, ov))
+                          << (4 * q + 3);
+                } else {
+                    int a = pad, e = 0;
+                    if (act && u < NU) {
+                        a = __ldcs(nbr + base + u);
+                        e = __ldcs(et + base + u);
+                    }
+                    nb[q] = a;
+                    ok |= (unsigned)(a != pad && in_over(e, ov)) << q;
+                }
+            }
+            V g[kChunk];
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j) {
+                zero_v(g[j]);
+                if ((ok >> j) & 1u) g[j] = fp[(long long)nb[j] * C + c];
+            }
+#pragma unroll
+            for (int j = 0; j < kChunk; ++j) acc = or_v(acc, g[j]);
         }
-        int b = 0;
-        for (int k = 1; k < bk.n; ++k)
-            if (bk.row0[k] <= r) b = k;
-        const int D = bk.D[b];
-        const long long base = bk.slot0[b] + (r - bk.row0[b]) * D;
-        uint32_t acc = 0u;
-        for (int j = 0; j < D; ++j) {
-            const int e = et[base + j];
-            bool ok = false;
-            for (int k = 0; k < ov.n; ++k) ok |= (e == ov.et[k]);
-            if (ok) acc |= fp[(long long)nbr[base + j] * W4 + w];
+        for (int o = Cg; o < G; o <<= 1) acc = shfl_or(acc, o);
+        if (act && part == 0) {
+            const long long i = r * C + c;
+            out[i] = acc;
+            if (accp) accp[i] = or_v(accp[i], acc);
         }
-        out[i] = acc;
     }
 }
 
-// Hub fix-up: OR each extra row n + e into its owner hrows[eslot[e]].
+// Hub fix-up: OR each extra row n + e into its owner hrows[eslot[e]],
+// in out and, when given, in accp (the hop's fused union: an extra row's
+// out is final after the gather, since extra rows are never owners).
 // Replaces the bit-plane max of _scatter_or_rows (ell.py:519), which
 // exists only because XLA has no OR-scatter; a 32-bit atomicOr is exact
 // for duplicate owners.  Owners >= n_rows are unclaimed growth spares
@@ -100,6 +235,7 @@ __global__ void hop_gather_kernel(const uint32_t* __restrict__ fp,
 // never gather sources and are re-derived next hop), as in the
 // reference.  Bound: bytes, O(n_extras * W).
 __global__ void hop_merge_kernel(uint32_t* __restrict__ out,
+                                 uint32_t* __restrict__ accp,
                                  const int32_t* __restrict__ eslot,
                                  const int32_t* __restrict__ hrows,
                                  long long n, long long n_rows,
@@ -113,21 +249,35 @@ __global__ void hop_merge_kernel(uint32_t* __restrict__ out,
         const long long owner = hrows[eslot[e]];
         if (owner < 0 || owner >= n_rows) continue;
         const uint32_t v = out[(n + e) * W4 + w];
-        if (v) atomicOr(out + owner * W4 + w, v);
+        if (!v) continue;
+        atomicOr(out + owner * W4 + w, v);
+        if (accp) atomicOr(accp + owner * W4 + w, v);
     }
 }
 
-// accp |= out over the whole pair (the UPTO union; the pad rows of both
-// are zero).  Bound: bytes, 3 * (n_rows + 1) * W.  Skipped when the
-// caller passes no accumulator (exact-depth GO and BFS read only the
-// new frontier).
-__global__ void or_into_kernel(const uint32_t* __restrict__ src,
-                               uint32_t* __restrict__ dst,
-                               long long total) {
+// dst |= src[0] | ... | src[m - 1] over `words` 32-bit words: the first
+// n16 * 4 as 16-byte loads and stores (every operand 16-byte aligned),
+// the rest as words.  Replaces the combine of nebula_tpu/tpu/
+// kernels.py:384's psum (the mesh's psum_or ORs each shard's receive
+// slab into its output with one launch).  Bound: bytes, (m + 2) * 4 *
+// words; a call of a few words is one warp.
+__global__ void or_many_kernel(uint32_t* __restrict__ dst, OrSources src,
+                               long long n16, long long words) {
     const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += stride)
-        dst[i] |= src[i];
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (long long i = t0; i < n16; i += stride) {
+        uint4 v = d4[i];
+        for (int k = 0; k < src.m; ++k)
+            v = or_v(v, reinterpret_cast<const uint4*>(src.p[k])[i]);
+        d4[i] = v;
+    }
+    for (long long i = 4 * n16 + t0; i < words; i += stride) {
+        uint32_t v = dst[i];
+        for (int k = 0; k < src.m; ++k)
+            v |= reinterpret_cast<const uint32_t*>(src.p[k])[i];
+        dst[i] = v;
+    }
 }
 
 // --------------------------------------------------------------- join
@@ -350,45 +500,87 @@ __global__ void bfs_depth_i8_kernel(const uint16_t* __restrict__ d,
 
 extern "C" {
 
-// bucket_desc: host int64 [n_buckets * 3] = (row0, slot0, D) per bucket.
-// over: host int32 [n_over].  Returns 0, a cudaError_t, or -1 for an
-// argument the kernels cannot take.
+// plan: host int64 [n_buckets * 6] = (row0, slot0, rows, D, lg, blk0)
+// per bucket, ell_ops.hop_plan's launch plan, which owns it: 2^lg lanes
+// a row, kThreads >> lg rows a block, blk0 each bucket's first block,
+// `blocks` the grid, 2^lgc lanes a row's columns, `wide` the 16-byte row
+// path (W % 16 == 0 and fp, out and accp 16-byte aligned; else the
+// 4-byte path).  The entry checks only that the plan is safe to run:
+// every block then reads and writes inside its own bucket's rows.  The
+// 16-byte slot path runs when every bucket's slots start 16-byte
+// aligned in nbr and et, else the 4-byte one.  over: host int32
+// [n_over].  accp may be null (no union).  Returns 0, a cudaError_t, or
+// -1 for an argument the kernels cannot take.
 int ell_go_hop(const void* fp, void* accp, void* out, const void* nbr,
-               const void* et, const int64_t* bucket_desc, int n_buckets,
-               const void* eslot, const void* hrows, int64_t n_extras,
-               const int32_t* over, int n_over, int64_t n, int64_t n_rows,
-               int64_t W, void* stream) {
-    if (n_buckets < 1 || n_buckets > kMaxBuckets || n_over < 0 ||
-        n_over > kMaxOver || W <= 0 || W % 4 != 0)
+               const void* et, const int64_t* plan, int n_buckets,
+               int64_t blocks, int lgc, int wide, const void* eslot,
+               const void* hrows, int64_t n_extras, const int32_t* over,
+               int n_over, int64_t n, int64_t n_rows, int64_t W,
+               void* stream) {
+    if (n_buckets < 1 || n_buckets > kMaxBuckets || n_over < 1 ||
+        n_over > kMaxOver || W <= 0 || W % 4 != 0 || n_rows < 0 ||
+        blocks < 1 || blocks > 0x7FFFFFFFLL || lgc < 0 || lgc > 5)
         return -1;
-    Buckets bk;
-    bk.n = n_buckets;
+    const uintptr_t rows_at = (uintptr_t)fp | (uintptr_t)out |
+                              (uintptr_t)accp;
+    if (wide && (W % 16 != 0 || (rows_at & 15) != 0)) return -1;
+    const int C = (int)(wide ? W / 16 : W / 4);
+    bool quads = (((uintptr_t)nbr | (uintptr_t)et) & 15) == 0;
+    HopPlan pl;
+    pl.n = n_buckets;
     for (int b = 0; b < n_buckets; ++b) {
-        bk.row0[b] = bucket_desc[3 * b];
-        bk.slot0[b] = bucket_desc[3 * b + 1];
-        bk.D[b] = (int)bucket_desc[3 * b + 2];
+        const int64_t* d = plan + 6 * b;
+        if (d[2] < 0 || d[3] < 1 || d[4] < lgc || d[4] > 5 ||
+            d[5] < (b ? pl.blk0[b - 1] : 0) || (!b && d[5] != 0) ||
+            d[5] > blocks)
+            return -1;
+        pl.row0[b] = d[0];
+        pl.slot0[b] = d[1];
+        pl.rows[b] = d[2];
+        pl.D[b] = (int)d[3];
+        pl.lg[b] = (int)d[4];
+        pl.blk0[b] = (int)d[5];
+        quads = quads && d[1] % 4 == 0 && d[3] % 4 == 0;
     }
     OverSet ov;
     ov.n = n_over;
-    for (int k = 0; k < n_over; ++k) ov.et[k] = over[k];
-    cudaStream_t s = (cudaStream_t)stream;
-    const int W4 = (int)(W / 4);
-    const long long words = (n_rows + 1) * (long long)W4;
-    hop_gather_kernel<<<grid_for(words), kThreads, 0, s>>>(
-        (const uint32_t*)fp, (uint32_t*)out, (const int32_t*)nbr,
-        (const int32_t*)et, bk, ov, n_rows, W4);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    if (n_extras > 0) {
-        hop_merge_kernel<<<grid_for(n_extras * W4), kThreads, 0, s>>>(
-            (uint32_t*)out, (const int32_t*)eslot, (const int32_t*)hrows,
-            n, n_rows, n_extras, W4);
-        err = cudaGetLastError();
-        if (err != cudaSuccess) return (int)err;
+    ov.use_mask = 1;
+    ov.mask = 0ull;
+    for (int k = 0; k < n_over; ++k) {
+        ov.et[k] = over[k];
+        if (over[k] < -32 || over[k] > 31) ov.use_mask = 0;
+        else ov.mask |= 1ull << (over[k] + 32);
     }
-    if (accp == nullptr) return 0;
-    or_into_kernel<<<grid_for(words), kThreads, 0, s>>>(
-        (const uint32_t*)out, (uint32_t*)accp, words);
+    cudaStream_t s = (cudaStream_t)stream;
+    const unsigned grid = (unsigned)blocks;
+    const int32_t* nb = (const int32_t*)nbr;
+    const int32_t* ev = (const int32_t*)et;
+    if (wide && quads && lgc >= 3)
+        hop_gather_kernel<uint4, true, 7><<<grid, kThreads, 0, s>>>(
+            (const uint4*)fp, (uint4*)out, (uint4*)accp, nb, ev, pl, ov,
+            n_rows, C, lgc);
+    else if (wide && quads)
+        hop_gather_kernel<uint4, true, 1><<<grid, kThreads, 0, s>>>(
+            (const uint4*)fp, (uint4*)out, (uint4*)accp, nb, ev, pl, ov,
+            n_rows, C, lgc);
+    else if (wide)
+        hop_gather_kernel<uint4, false, 1><<<grid, kThreads, 0, s>>>(
+            (const uint4*)fp, (uint4*)out, (uint4*)accp, nb, ev, pl, ov,
+            n_rows, C, lgc);
+    else if (quads)
+        hop_gather_kernel<uint32_t, true, 1><<<grid, kThreads, 0, s>>>(
+            (const uint32_t*)fp, (uint32_t*)out, (uint32_t*)accp, nb, ev,
+            pl, ov, n_rows, C, lgc);
+    else
+        hop_gather_kernel<uint32_t, false, 1><<<grid, kThreads, 0, s>>>(
+            (const uint32_t*)fp, (uint32_t*)out, (uint32_t*)accp, nb, ev,
+            pl, ov, n_rows, C, lgc);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_extras <= 0) return (int)err;
+    const int W4 = (int)(W / 4);
+    hop_merge_kernel<<<grid_for(n_extras * W4), kThreads, 0, s>>>(
+        (uint32_t*)out, (uint32_t*)accp, (const int32_t*)eslot,
+        (const int32_t*)hrows, n, n_rows, n_extras, W4);
     return (int)cudaGetLastError();
 }
 
@@ -463,19 +655,35 @@ int ell_hop_merge(void* out, const void* eslot, const void* hrows,
     const int W4 = (int)(W / 4);
     hop_merge_kernel<<<grid_for(n_extras * W4), kThreads, 0,
                        (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const int32_t*)eslot, (const int32_t*)hrows, n,
-        n_rows, n_extras, W4);
+        (uint32_t*)out, nullptr, (const int32_t*)eslot,
+        (const int32_t*)hrows, n, n_rows, n_extras, W4);
     return (int)cudaGetLastError();
 }
 
-// dst |= src over nbytes bytes (or_into_kernel; nbytes % 4 == 0, both
-// 4-byte aligned): the mesh's psum_or combines what it received with it.
-int ell_or_into(const void* src, void* dst, int64_t nbytes, void* stream) {
-    if (nbytes < 0 || nbytes % 4 != 0) return -1;
+// dst |= srcs[0] | ... | srcs[m - 1] over nbytes bytes (or_many_kernel;
+// nbytes % 4 == 0, every operand 4-byte aligned; srcs a host array of m
+// device pointers, 1 <= m <= kMaxSrcs): the mesh's psum_or ORs a
+// shard's receive slab into its output with it, and or_into is m = 1.
+// The grid follows the bytes: a few words take one warp.
+int ell_or_many(void* dst, const void* const* srcs, int m, int64_t nbytes,
+                void* stream) {
+    if (m < 1 || m > kMaxSrcs || nbytes < 0 || nbytes % 4 != 0) return -1;
+    OrSources src;
+    src.m = m;
+    uintptr_t at = (uintptr_t)dst;
+    for (int k = 0; k < m; ++k) {
+        src.p[k] = srcs[k];
+        at |= (uintptr_t)srcs[k];
+    }
+    if (at & 3) return -1;
     const long long words = nbytes / 4;
     if (words == 0) return 0;
-    or_into_kernel<<<grid_for(words), kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)src, (uint32_t*)dst, words);
+    const long long n16 = (at & 15) ? 0 : words / 4;
+    const long long items = n16 + (words - 4 * n16);
+    const int threads = items < kThreads ? (int)((items + 31) / 32 * 32)
+                                         : kThreads;
+    or_many_kernel<<<grid_for(items), threads, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)dst, src, n16, words);
     return (int)cudaGetLastError();
 }
 

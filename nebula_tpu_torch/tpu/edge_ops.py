@@ -23,7 +23,7 @@ fallback from one to the other.  The programs:
   ``edge_hop`` + ``edge_bfs_level``, the host reading the level's two
   flags before it launches the next (one 8-byte read a level).
 - ``sharded_go`` = per hop ``edge_hop`` on every shard's edge slice,
-  then ``mesh.psum_or`` (``ell_ops.or_into``), then ``edge_final`` on
+  then ``mesh.psum_or`` (``ell_ops.or_many``), then ``edge_final`` on
   every slice (kernels.py:364).
 """
 from __future__ import annotations
@@ -442,7 +442,7 @@ def shard_edges(mesh, edge_src, edge_dst, edge_etype):
 
 
 def _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over, mesh, hop,
-                     final, or_into):
+                     final, or_many):
     from .mesh import on, psum_or
     k = mesh.k
     if not (len(src_sh) == len(dst_sh) == len(et_sh) == k):
@@ -454,22 +454,22 @@ def _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over, mesh, hop,
             raise ValueError(f"edge slice {s}: {m_s} edges on {dev}")
     _check(f0, "f0", torch.bool, (n,), f0.device)
     over = _over_check(over)
-    n4 = max(4, -(-n // 4) * 4)     # or_into works on whole 32-bit words
+    n4 = max(4, -(-n // 4) * 4)     # or_many works on whole 32-bit words
 
-    def words():
-        return [torch.zeros(n4, dtype=torch.bool, device=d)
+    def words(*lead):
+        return [torch.zeros((*lead, n4), dtype=torch.bool, device=d)
                 for d in mesh.devices]
     f = words()
     for s in range(k):
         f[s][:n].copy_(f0)
     if steps > 1:
-        partial, recv = words(), words()
+        partial, recv = words(), words(k - 1)
         for _ in range(steps - 1):
             for s in range(k):
                 with on(mesh.devices[s]):
                     hop(f[s][:n], partial[s][:n], src_sh[s], dst_sh[s],
                         et_sh[s], over)
-            psum_or(partial, f, recv, or_into)
+            psum_or(partial, f, recv, or_many)
     finals = []
     for s in range(k):
         with on(mesh.devices[s]):
@@ -483,9 +483,9 @@ def _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over, mesh, hop,
 def sharded_go_ref(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
                    steps: int, over: Sequence[int], mesh):
     """Plain version of ``sharded_go``."""
-    from .ell_ops import or_into_ref
+    from .ell_ops import or_many_ref
     return _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over,
-                            mesh, edge_hop_ref, edge_final_ref, or_into_ref)
+                            mesh, edge_hop_ref, edge_final_ref, or_many_ref)
 
 
 def sharded_go(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
@@ -499,9 +499,9 @@ def sharded_go(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
     edge masks, bool [m / k] each — concatenated in shard order they
     are the reference's sharded [m] mask — and the k replicas of the
     frontier)."""
-    from .ell_ops import or_into
+    from .ell_ops import or_many
     out = _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over,
-                           mesh, edge_hop, edge_final, or_into)
+                           mesh, edge_hop, edge_final, or_many)
     if _route(mesh.devices[0]):
         LAUNCHES["sharded_go"] += 1
     return out

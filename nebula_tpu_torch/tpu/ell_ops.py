@@ -14,9 +14,10 @@ replicated-frontier mesh's programs over row-sharded tables:
 ``ell_go_sharded`` (``ell.py:1712``), ``ell_bfs_sharded`` (``:1799``)
 and ``ell_absorb_sharded`` (``:1036``), with their per-shard kernels
 ``shard_hop`` and ``shard_absorb`` and the reused ``hop_merge`` and
-``or_into``, and the frontier-sharded mesh's ``mesh_sparse_go``
-(``ell.py:2052``) and ``mesh_sparse_bfs`` (``:2179``) with their
-kernels ``mesh_route``, ``mesh_mark`` and ``mesh_bfs_stamp``.
+``or_many`` (``or_into`` its one-source call), and the
+frontier-sharded mesh's ``mesh_sparse_go`` (``ell.py:2052``) and
+``mesh_sparse_bfs`` (``:2179``) with their kernels ``mesh_route``,
+``mesh_mark`` and ``mesh_bfs_stamp``.
 
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``, a transcription of the JAX function on the
@@ -40,6 +41,7 @@ lane.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -128,7 +130,7 @@ def _aligned(*ts: torch.Tensor) -> None:
 
 def _lib():
     from . import _build
-    return _build.load()
+    return _build._lib or _build.load()
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -142,18 +144,33 @@ def _ok(rc: int, what: str) -> None:
 
 def _bucket_desc(tables: DeviceTables):
     """The buckets' (row0, slot0, D) triples as the host int64 array the
-    kernels take by value."""
-    nb = len(tables.D)
-    return (ctypes.c_int64 * (3 * nb))(
-        *[v for b in range(nb)
-          for v in (tables.row0[b], tables.slot0[b], tables.D[b])])
+    kernels take by value (made once per bucket geometry)."""
+    return _bucket_desc_of(tables.row0, tables.slot0, tables.D)
+
+
+@functools.lru_cache(maxsize=64)
+def _bucket_desc_of(row0, slot0, D):
+    return (ctypes.c_int64 * (3 * len(D)))(
+        *[v for b in range(len(D)) for v in (row0[b], slot0[b], D[b])])
 
 
 def _over_check(over: Sequence[int]) -> Tuple[int, ...]:
+    """The OVER set sorted and deduplicated (once per set)."""
+    return _over_sorted(tuple(over))
+
+
+@functools.lru_cache(maxsize=256)
+def _over_sorted(over: Tuple[int, ...]) -> Tuple[int, ...]:
     over = tuple(sorted(set(int(e) for e in over)))
     if not 0 < len(over) <= MAX_OVER:
         raise ValueError(f"OVER set of {len(over)} etypes (1..{MAX_OVER})")
     return over
+
+
+@functools.lru_cache(maxsize=256)
+def _over_array(over: Tuple[int, ...]):
+    """A checked OVER set as the host int32 array the kernels take."""
+    return (ctypes.c_int32 * len(over))(*over)
 
 
 def _tables_check(tables: DeviceTables, dev: torch.device) -> None:
@@ -224,6 +241,54 @@ def go_hop_ref(fp: torch.Tensor, accp: Optional[torch.Tensor],
     return out, accp
 
 
+HOP_THREADS = 256    # csrc ell_lanes.cu kThreads: a hop block's threads
+HOP_CHUNK = 8        # csrc kChunk: the slots a hop lane holds at once
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def hop_plan(rows: Sequence[int], D: Sequence[int], W: int, wide: bool
+             ) -> Tuple[int, Tuple[int, ...], Tuple[int, ...], int]:
+    """The hop kernel's launch plan for buckets of ``rows[b]`` rows of
+    ``D[b]`` slots at W frontier bytes a row: ``(lgc, lg, blk0,
+    blocks)``.  Cg = 2^lgc lanes split a row's columns; G = 2^lg[b]
+    lanes own one row of bucket b; a block takes HOP_THREADS / G
+    consecutive rows of ONE bucket; bucket b's blocks are blk0[b] ..
+    blk0[b] + ceil(rows[b] * G / HOP_THREADS); ``blocks`` is the grid.
+    The kernel runs this plan as given (its entry checks only that it
+    is safe to run).
+
+    The rule: a row's C columns (16 bytes each when ``wide``, the
+    kernel's path when W % 16 == 0 and the rows are 16-byte aligned;
+    else 4 bytes) go to Cg = min(32, the power of two >= C) lanes, and
+    its D slots to P = min(32 / Cg, the power of two >= ceil(D /
+    HOP_CHUNK)) parts, so a lane holds about HOP_CHUNK slots; G = Cg *
+    P <= 32."""
+    cg = min(32, _pow2_at_least(W // 16 if wide else W // 4))
+    lg, blk0, blocks = [], [], 0
+    for r, d in zip(rows, D):
+        g = cg * min(32 // cg, _pow2_at_least(-(-int(d) // HOP_CHUNK)))
+        lg.append(g.bit_length() - 1)
+        blk0.append(blocks)
+        blocks += -(-int(r) * g // HOP_THREADS)
+    return cg.bit_length() - 1, tuple(lg), tuple(blk0), blocks
+
+
+@functools.lru_cache(maxsize=64)
+def _hop_desc(row0, slot0, rows, D, W: int, wide: bool):
+    """``hop_plan`` as ``ell_go_hop`` takes it: (the host int64 array of
+    (row0, slot0, rows, D, lg, blk0) per bucket, the grid (at least one
+    block: block 0 zeroes the pad row), lgc), made once per geometry,
+    width and row path."""
+    lgc, lg, blk0, blocks = hop_plan(rows, D, W, wide)
+    desc = (ctypes.c_int64 * (6 * len(D)))(
+        *[v for b in range(len(D))
+          for v in (row0[b], slot0[b], rows[b], D[b], lg[b], blk0[b])])
+    return desc, max(1, blocks), lgc
+
+
 def go_hop(fp: torch.Tensor, accp: Optional[torch.Tensor],
            out: torch.Tensor, tables: DeviceTables, eslot: torch.Tensor,
            hrows: torch.Tensor, over: Sequence[int]
@@ -231,7 +296,9 @@ def go_hop(fp: torch.Tensor, accp: Optional[torch.Tensor],
     """One packed frontier advance of every lane: ``out`` gets the next
     frontier (all of it, pad row zero), ``accp`` is OR-ed with it in
     place (``accp=None``: no union, as exact-depth GO and BFS need).
-    ``out`` must not alias ``fp``.  Returns (out, accp)."""
+    ``out`` must not alias ``fp``.  Returns (out, accp).  On the card
+    one gather launch (``hop_plan``'s grid; the union fused into it)
+    and, with hub extra rows, the merge."""
     R1, W = _frontier(fp) if accp is None else _pair(fp, accp)
     dev = fp.device
     _check(out, "out", torch.uint8, (R1, W), dev)
@@ -248,14 +315,20 @@ def go_hop(fp: torch.Tensor, accp: Optional[torch.Tensor],
     over = _over_check(over)
     if not _route(dev):
         return go_hop_ref(fp, accp, out, tables, eslot, hrows, over)
-    _aligned(fp, out, *(() if accp is None else (accp,)))
-    ov = (ctypes.c_int32 * len(over))(*over)
+    fpp, outp = fp.data_ptr(), out.data_ptr()
+    accpp = None if accp is None else accp.data_ptr()
+    at = fpp | outp | (accpp or 0)
+    if at % 4:
+        raise ValueError("kernel operands must be 4-byte aligned "
+                         "(the kernels work on 32-bit words)")
+    wide = W % 16 == 0 and not at % 16
+    desc, blocks, lgc = _hop_desc(tables.row0, tables.slot0, tables.rows,
+                                  tables.D, W, wide)
     rc = _lib().ell_go_hop(
-        fp.data_ptr(), None if accp is None else accp.data_ptr(),
-        out.data_ptr(),
-        tables.nbr.data_ptr(), tables.et.data_ptr(), _bucket_desc(tables),
-        len(tables.D), eslot.data_ptr(), hrows.data_ptr(), n_extras, ov,
-        len(over), tables.n, tables.n_rows, W, _stream(dev))
+        fpp, accpp, outp, tables.nbr.data_ptr(), tables.et.data_ptr(),
+        desc, len(tables.D), blocks, lgc, wide, eslot.data_ptr(),
+        hrows.data_ptr(), n_extras, _over_array(over), len(over), tables.n,
+        tables.n_rows, W, _stream(dev))
     _ok(rc, "ell_go_hop")
     LAUNCHES["go_hop"] += 1
     return out, accp
@@ -1995,6 +2068,55 @@ def hop_merge(out: torch.Tensor, eslot: torch.Tensor, hrows: torch.Tensor,
     return out
 
 
+MAX_OR_SOURCES = 16   # csrc ell_lanes.cu kMaxSrcs
+
+
+def or_many_ref(srcs: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``or_many``: each row of the slab OR-ed into
+    ``dst`` in turn."""
+    for src in srcs:
+        dst |= src
+    return dst
+
+
+def or_many(srcs: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``dst |= srcs[0] | ... | srcs[m - 1]`` in place, one launch:
+    ``dst`` a contiguous uint8 or bool tensor a whole number of 32-bit
+    words long, ``srcs`` a contiguous slab ``[m, *dst.shape]`` of its
+    dtype on its device (a receive slab, checked once for all its
+    rows), 1 <= m <= MAX_OR_SOURCES.  The library and the stream are
+    taken once, and a device context is entered only when ``dst``'s
+    card is not the current one."""
+    if not isinstance(dst, torch.Tensor) or dst.dtype not in (
+            torch.uint8, torch.bool):
+        raise TypeError("or_many takes uint8 or bool tensors")
+    dev, shape, nbytes = dst.device, tuple(dst.shape), dst.numel()
+    _check(dst, "dst", dst.dtype, shape, dev)
+    m = srcs.shape[0] if isinstance(srcs, torch.Tensor) and srcs.dim() \
+        else 0
+    _check(srcs, "srcs", dst.dtype, (m, *shape), dev)
+    if not 0 < m <= MAX_OR_SOURCES:
+        raise ValueError(f"{m} sources (1..{MAX_OR_SOURCES})")
+    if nbytes % 4:
+        raise ValueError(f"or_many works on 32-bit words: {nbytes} bytes")
+    if not _route(dev):
+        return or_many_ref(srcs, dst)
+    dptr, base = dst.data_ptr(), srcs.data_ptr()
+    if (dptr | base) % 4:
+        raise ValueError("kernel operands must be 4-byte aligned "
+                         "(the kernels work on 32-bit words)")
+    ptrs = (ctypes.c_void_p * m)(*[base + i * nbytes for i in range(m)])
+    lib = _lib()
+    if torch.cuda.current_device() == dev.index:
+        rc = lib.ell_or_many(dptr, ptrs, m, nbytes, _stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.ell_or_many(dptr, ptrs, m, nbytes, _stream(dev))
+    _ok(rc, "ell_or_many")
+    LAUNCHES["or_into"] += 1
+    return dst
+
+
 def or_into_ref(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Plain version of ``or_into``."""
     dst |= src
@@ -2003,25 +2125,12 @@ def or_into_ref(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
 
 def or_into(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """``dst |= src`` in place, two contiguous uint8 or bool tensors of
-    one shape on one device, a whole number of 32-bit words long."""
-    if not isinstance(src, torch.Tensor) or src.dtype not in (
-            torch.uint8, torch.bool):
+    one shape on one device, a whole number of 32-bit words long: the
+    one-source call of ``or_many`` (its launches count under
+    ``LAUNCHES["or_into"]``, as ``or_many``'s do)."""
+    if not isinstance(src, torch.Tensor):
         raise TypeError("or_into takes uint8 or bool tensors")
-    dev = dst.device
-    _check(src, "src", src.dtype, tuple(dst.shape), dev)
-    _check(dst, "dst", src.dtype, tuple(dst.shape), dev)
-    if src.numel() % 4:
-        raise ValueError(f"or_into works on 32-bit words: {src.numel()} "
-                         f"bytes")
-    if not _route(dev):
-        return or_into_ref(src, dst)
-    _aligned(src, dst)
-    with torch.cuda.device(dev):
-        rc = _lib().ell_or_into(src.data_ptr(), dst.data_ptr(),
-                                src.numel(), _stream(dev))
-    _ok(rc, "ell_or_into")
-    LAUNCHES["or_into"] += 1
-    return dst
+    return or_many(src.unsqueeze(0), dst)
 
 
 def _mesh_args(mt, eslot, hrows) -> None:
@@ -2799,26 +2908,26 @@ def mesh_sparse_bfs_ref(ids0, qid0, tids, tqid, st, over, max_steps, cap,
 
 
 # --------------------------- the programs over the kernels (X1-X3)
-def _agree_overflow(st, ctl, orr) -> None:
+def _agree_overflow(st, ctl, orm) -> None:
     """Every shard's ``ctl[CTL_OVF]`` becomes the OR over the shards
     (the reference's psum, ell.py:2148): each shard's word is copied
-    aside, then ``mesh.psum_or`` with ``orr`` (``or_into``) over the
-    words' bytes."""
+    aside, then ``mesh.psum_or`` with ``orm`` (``or_many``) over the
+    words' bytes: k launches, one a shard."""
     from .mesh import psum_or
     snap = [c[CTL_OVF:CTL_OVF + 1].clone() for c in ctl]
-    recv = [torch.empty(8, dtype=torch.uint8, device=c.device)
-            for c in ctl]
+    recv = [torch.empty((len(ctl) - 1, 8), dtype=torch.uint8,
+                        device=c.device) for c in ctl]
     psum_or([x.view(torch.uint8) for x in snap],
             [c[CTL_OVF:CTL_OVF + 1].view(torch.uint8) for c in ctl],
-            recv, orr)
+            recv, orm)
 
 
 def _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax,
-                   route, mark, compact, reduce, orr):
+                   route, mark, compact, reduce, orm):
     """The frontier-sharded GO as per-shard X1, X2, K5 and K6 calls
     between all_to_all exchanges (``route``, ``mark``, ``compact``,
-    ``reduce``, ``orr`` are the kernels' wrappers or their plain
-    versions).  Returns (per-shard outputs, [the copies the exchanges
+    ``reduce``, ``orm`` (``or_many``) are the kernels' wrappers or their
+    plain versions).  Returns (per-shard outputs, [the copies the exchanges
     made, the bytes they copied between shards])."""
     from .mesh import all_to_all, on
     k, chunk, n_rows = st.k, st.chunk, st.n_rows
@@ -2872,7 +2981,7 @@ def _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax,
         cur_q = [b[1][:c_out] for b in nxt]
         if has_hubs and h < steps - 2:
             hub_exchange()
-    _agree_overflow(st, ctl, orr)
+    _agree_overflow(st, ctl, orm)
     outs = []
     for s in range(k):
         out = torch.empty(2 + 2 * caps[-1], dtype=i32, device=devs[s])
@@ -2907,7 +3016,7 @@ def mesh_sparse_go(ids0: Sequence[torch.Tensor],
                                   cap_e, qmax)
     outs, _moved = _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x,
                                   cap_e, qmax, mesh_route, mesh_mark,
-                                  pair_compact, pair_reduce, or_into)
+                                  pair_compact, pair_reduce, or_many)
     LAUNCHES["mesh_sparse_go"] += 1
     return outs
 

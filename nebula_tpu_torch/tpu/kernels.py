@@ -13,7 +13,7 @@ three.  The replicated-frontier mesh families run their shards'
 kernels from ``csrc/ell_mesh.cu`` and reuse the single-card ones; the
 frontier-sharded ones (``mesh_sparse_go``, ``mesh_sparse_bfs``) run
 X1-X3 from ``csrc/mesh_sparse.cu`` with K5 / K6 from
-``csrc/sparse_go.cu`` and ``or_into`` from ``csrc/ell_lanes.cu``.
+``csrc/sparse_go.cu`` and ``or_many`` from ``csrc/ell_lanes.cu``.
 ``sparse_go_count`` and
 ``sparse_go_limit`` are ``sparse_go`` with ``count=True`` and
 ``limit=n``, as in the reference, where one factory makes all three.
@@ -74,7 +74,7 @@ KERNELS: Dict[str, PortKernel] = {
     "ell_absorb": PortKernel(ell_ops.ell_absorb_ref, ell_ops.ell_absorb,
                              ("ell_absorb.cu",)),
     # the replicated-frontier mesh (kernels.py:364; ell.py:1712, :1799,
-    # :1036): edge-sharded GO over the edge kernels and or_into, and the
+    # :1036): edge-sharded GO over the edge kernels and or_many, and the
     # row-sharded programs over M1 / M2 and the reused lane kernels
     "sharded_go": PortKernel(edge_ops.sharded_go_ref, edge_ops.sharded_go,
                              _EDGE + _LANES),
@@ -86,7 +86,7 @@ KERNELS: Dict[str, PortKernel] = {
                                      ell_ops.ell_absorb_sharded,
                                      _MESH + ("ell_absorb.cu",)),
     # the frontier-sharded mesh (ell.py:2052, :2179): X1-X3 with K5 (and
-    # for GO K6, and or_into for the agreed overflow)
+    # for GO K6, and or_many for the agreed overflow)
     "mesh_sparse_go": PortKernel(ell_ops.mesh_sparse_go_ref,
                                  ell_ops.mesh_sparse_go,
                                  _MESH_SPARSE + _LANES),

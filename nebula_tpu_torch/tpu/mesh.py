@@ -14,9 +14,9 @@ whatever moves between shards moves by ``Tensor.copy_`` into the
 receiving shard's buffer — a peer copy between two cards, a device
 copy when both shards share one — so shards on one card move the same
 bytes a mesh of cards would.  Combining what arrived (the OR of
-``psum_or``) is a kernel (``ell_ops.or_into``).  A copy between two
-cards runs on the current streams of both (``Tensor.copy_``'s own
-ordering); only one card has been run.
+``psum_or``) is one kernel launch a shard (``ell_ops.or_many``).  A
+copy between two cards runs on the current streams of both
+(``Tensor.copy_``'s own ordering); only one card has been run.
 """
 from __future__ import annotations
 
@@ -96,19 +96,27 @@ def replicate_rows(bufs: Sequence[torch.Tensor],
 
 
 def psum_or(partials: Sequence[torch.Tensor], outs: Sequence[torch.Tensor],
-            recv: Sequence[torch.Tensor], or_into) -> None:
+            recv: Sequence[torch.Tensor], or_many) -> None:
     """``outs[s]`` = the OR of every shard's ``partials``: shard s
-    copies its own partial into ``outs[s]``, then receives each other
-    shard's into its ``recv[s]`` buffer and ORs it in with
-    ``or_into(recv[s], outs[s])``.  Buffers are per shard, all of one
-    shape; ``partials`` are only read."""
+    copies its own partial into ``outs[s]``, receives each other
+    shard's, in shard order, into a row of its receive slab ``recv[s]``
+    ([k - 1, *shape], on its device), then ORs the whole slab in with
+    one ``or_many(recv[s], outs[s])``: k combine launches, and the same
+    k(k - 1) copies a mesh of cards would move.  ``partials`` and
+    ``outs`` are per shard, all of one shape; ``partials`` are only
+    read."""
+    k = len(partials)
     for s, out in enumerate(outs):
         out.copy_(partials[s])
+        slab = recv[s]
+        if slab.shape[0] != k - 1:
+            raise ValueError(f"shard {s}: a receive slab of "
+                             f"{slab.shape[0]} rows for {k} shards")
+        rows = iter(slab.unbind(0))
         for t, p in enumerate(partials):
             if t != s:
-                recv[s].copy_(p)
-                with on(out.device):
-                    or_into(recv[s], out)
+                next(rows).copy_(p)
+        or_many(slab, out)
 
 
 def all_to_all(send: Sequence[torch.Tensor],

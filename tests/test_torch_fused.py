@@ -58,6 +58,11 @@ def fused():
     the reference mirror, the tag id of person)."""
     c = LocalCluster(num_storage=1, tpu_backend=True)
     port = None
+    # both runtimes route a WHERE by their own tpu_filter_mode: pin the
+    # reference's to the port's default, whatever an earlier test in
+    # this process left it at
+    ref_mode = ref_flags.get("tpu_filter_mode")
+    ref_flags.set("tpu_filter_mode", flags.get("tpu_filter_mode"))
     try:
         g = c.client()
 
@@ -98,6 +103,7 @@ def fused():
                                    {"e": et_e, "f": et_f}))
         yield ok, rt, port, space, et_e, et_f, m, tag
     finally:
+        ref_flags.set("tpu_filter_mode", ref_mode)
         if port is not None:
             port.close()
         c.stop()

@@ -164,8 +164,8 @@ def test_mesh_collectives():
              torch.tensor([0, 0, 1, 0, 0, 0, 0, 0], dtype=torch.bool),
              torch.tensor([0, 0, 0, 0, 0, 0, 0, 1], dtype=torch.bool)]
     outs = [torch.zeros(8, dtype=torch.bool) for _ in range(3)]
-    recv = [torch.zeros(8, dtype=torch.bool) for _ in range(3)]
-    psum_or(parts, outs, recv, ell_ops.or_into)
+    recv = [torch.zeros((2, 8), dtype=torch.bool) for _ in range(3)]
+    psum_or(parts, outs, recv, ell_ops.or_many)
     for o in outs:
         assert o.nonzero().flatten().tolist() == [0, 2, 7]
     assert mesh.k == 3 and mesh == _pmesh(3)

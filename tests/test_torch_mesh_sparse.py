@@ -161,7 +161,7 @@ def _port_go(tix, k, steps, over, caps, cap_x, cap_e, placed, qmax):
     steps_out, moved = ell_ops._mesh_go_steps(
         ids, qid, st, over, steps, caps, cap_x, cap_e, qmax,
         ell_ops.mesh_route, ell_ops.mesh_mark, ell_ops.pair_compact,
-        ell_ops.pair_reduce, ell_ops.or_into)
+        ell_ops.pair_reduce, ell_ops.or_many)
     copies, nbytes = moved         # k * k copies an exchange
     assert nbytes > 0 and copies % (k * k) == 0 \
         and copies >= k * k * (steps - 1)
