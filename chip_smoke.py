@@ -59,15 +59,22 @@ Phases, in order; any failure exits non-zero:
              (``csrc/ell_int8.cu``) at B = 1024 and 128 on the inputs
              that route gives them: K12 ``frontier_upload_i8`` (with
              ``index_put_`` as its library yardstick), K13 ``go_hop_i8``
-             (three chained hops, exact and UPTO, and one hop of an
-             arbitrary int8 frontier), ``ell_go_i8`` at 1-4 steps
+             (three chained hops, their live bitmaps chained as a
+             program chains them, exact and UPTO, on the start
+             frontier, a dense and an arbitrary one, every ``live_out``
+             equal to the plain version's and a superset of the rows
+             with a byte > 0; device and event times on the start and
+             dense frontiers, as a first hop and as a later one),
+             ``ell_go_i8`` at 1-4 steps
              (exact and UPTO, row-packed; timed at 3) beside the packed
              ``ell_go`` on the
              same starts and tables (the same vertex sets), K14
              ``pack_rows``, ``ell_bfs_i8`` (UPTO 5, a connected and an
              unreachable pair among random lanes) and K15
-             ``bfs_level_i8``; and all of them once more, untimed, at
-             the off-ladder width B = 10 (the byte-tail path); the
+             ``bfs_level_i8``; and all of them once more, untimed, off
+             the ladder: B = 10 (K13's byte columns), 12 (its 4-byte
+             columns) and 128 with K13's carriers 4 bytes off a 16-byte
+             boundary; the
              packed hop, untimed, three chained hops with and without
              the accumulator at W = 16, 128, 4, 12, 20 and 48, at
              W = 16 on rows, slot tables or both 4 bytes off alignment
@@ -75,16 +82,18 @@ Phases, in order; any failure exits non-zero:
              (more 4-byte columns than a warp has lanes); then the
              replicated-frontier mesh (``mesh_kernel_phase``) with the
              serve tables cut into k = 2 and 4 shards that all sit on
-             this card, at B = 1024 and 128: M1 ``shard_hop`` per shard,
+             this card, at B = 1024 and 128: M1 ``shard_hop`` (the
+             hop's gather on the shard's plan) per shard, M3
+             ``replicate_rows`` (one launch a source shard: k a hop,
+             against the per-block ``copy_`` loop it replaced),
              ``hop_merge`` and a whole mesh hop against ``go_hop``,
              ``ell_go_sharded`` at 1-4 steps against its plain version
-             and ``ell_go``, ``ell_bfs_sharded`` (shortest and all)
-             against ``ell_bfs``, ``ell_absorb_sharded`` and M2
+             and ``ell_go``, ``ell_bfs_sharded`` at 1-4 steps and UPTO
+             5 (shortest and all) against ``ell_bfs``, ``ell_absorb_sharded`` and M2
              ``shard_absorb`` on the absorb plans (gathered shards equal
              to ``ell_absorb``'s tables, inputs unchanged),
              ``sharded_go`` and ``or_into`` against the ``go`` program,
-             all exactly, with the copy time of the row replication,
-             and ``mesh.psum_or`` (receive slabs, one ``or_many`` a
+             all exactly, and ``mesh.psum_or`` (receive slabs, one ``or_many`` a
              shard) at 2^19 bytes and 8 against the pairwise
              composition of ``or_into`` calls it replaced and the same
              pairs combined by ``torch.bitwise_or`` (equal outputs,
@@ -258,6 +267,7 @@ REPLACES = {
     "ell_bfs_i8": "nebula_tpu/tpu/ell.py:1616",
     "shard_hop": "nebula_tpu/tpu/ell.py:1740",
     "hop_merge": "nebula_tpu/tpu/ell.py:1792",
+    "replicate_rows": "nebula_tpu/tpu/ell.py:1789",
     "shard_absorb": "nebula_tpu/tpu/ell.py:1036",
     "or_into": "nebula_tpu/tpu/kernels.py:384",
     "ell_go_sharded": "nebula_tpu/tpu/ell.py:1712",
@@ -286,11 +296,13 @@ SOURCES["ell_absorb"] = "nebula_tpu_torch/tpu/csrc/ell_absorb.cu"
 SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/ell_int8.cu"
                 for k in INT8_KERNELS})
 SOURCES["ell_bfs_i8"] += " + ell_lanes.cu"
-MESH_KERNELS = ("shard_hop", "hop_merge", "shard_absorb", "or_into",
-                "ell_go_sharded", "ell_bfs_sharded", "ell_absorb_sharded",
-                "sharded_go")
+SOURCES["go_hop_i8"] += " + hop_plan.cuh"
+MESH_KERNELS = ("shard_hop", "hop_merge", "replicate_rows", "shard_absorb",
+                "or_into", "ell_go_sharded", "ell_bfs_sharded",
+                "ell_absorb_sharded", "sharded_go")
 SOURCES.update({
-    "shard_hop": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu",
+    "shard_hop": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu + hop_plan.cuh",
+    "replicate_rows": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu",
     "hop_merge": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu",
     "shard_absorb": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
                     "ell_absorb.cu",
@@ -334,9 +346,9 @@ PATH_KERNELS = {
     "unpacked": ("frontier_upload_i8", "go_hop_i8", "pack_rows",
                  "bfs_level_i8", "bfs_depth_i8", "ell_go_i8",
                  "ell_bfs_i8"),
-    "mesh": ("frontier_upload", "shard_hop", "hop_merge", "ell_go_sharded",
-             "bfs_level", "bfs_depth_i8", "ell_bfs_sharded", "shard_absorb",
-             "ell_absorb_sharded"),
+    "mesh": ("frontier_upload", "shard_hop", "hop_merge", "replicate_rows",
+             "ell_go_sharded", "bfs_level", "bfs_depth_i8", "ell_bfs_sharded",
+             "shard_absorb", "ell_absorb_sharded"),
     "mesh_sparse": ("mesh_route", "mesh_mark", "pair_compact",
                     "pair_reduce", "or_into", "mesh_sparse_go",
                     "mesh_bfs_stamp", "mesh_sparse_bfs"),
@@ -891,6 +903,9 @@ def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
 
 # ====================================================== phase 3, int8
 TAIL_B = 10                    # an off-ladder width: the byte-tail path
+# K13's column paths off the ladder: bytes, 4-byte words, and 4-byte
+# words at a 16-byte multiple on carriers 4 bytes off alignment
+TAIL_CASES = ((TAIL_B, 0), (12, 0), (128, 4))
 
 
 def int8_pairs(m):
@@ -913,6 +928,71 @@ def int8_pairs(m):
     if not len(sources):
         raise AssertionError("the graph has no vertex without in-edges")
     return (s, far[0]), (s, int(sources[0]))
+
+
+def k13_bytes(slots: int, R1: int, B: int, live_rows: int, hub_bytes: int,
+              upto: bool) -> int:
+    """The bytes one K13 advance must move for this data: the slot
+    tables (8 bytes a slot), the written carrier, the live bitmaps read
+    and written, each live source row once, the hub arrays, and with
+    UPTO the accumulator read and written.  A program's first hop also
+    reads the carrier once for its live bitmap: that pass is work the
+    data does not need, so it is not counted."""
+    return (8 * slots + R1 * B + 8 * ((R1 + 31) // 32) + live_rows * B
+            + hub_bytes + (2 * R1 * B if upto else 0))
+
+
+def go_i8_bytes(slots: int, R1: int, B: int, G: int, live_hops,
+                hub_bytes: int, upto: bool) -> int:
+    """The bytes ``ell_go_i8`` at 3 steps must move for this data, as
+    one program with the row pack fused into its last advance (as
+    ell.py:439 is): each advance's slot tables and hub arrays and the
+    rows its input holds live (``live_hops``), the first advance's
+    written carrier, and the packed [G, B] result; with UPTO the start
+    frontier and the first advance's carrier read once more for the
+    max.  The row-live pass and the bitmaps are the design's, not the
+    data's."""
+    return (2 * (8 * slots + hub_bytes) + R1 * B + B * sum(live_hops)
+            + G * B + (2 * R1 * B if upto else 0))
+
+
+def k13_check(torch, ell_ops, f0, tables, eslot, hrows, over, label: str,
+              mk=None, hops: int = 3) -> int:
+    """K13 against its plain version: ``hops`` chained advances of
+    ``f0``, without and with the UPTO accumulator, the live arrays
+    chained as a program chains them (none for the first hop, then
+    each hop's ``live_out``); every output, accumulator and
+    ``live_out`` equal, and every ``live_out`` a superset of the rows
+    of its output that hold a byte > 0.  ``mk`` places the kernel's
+    carriers (default: a clone).  Returns the max abs error (0)."""
+    mk = mk or (lambda t: t.clone())
+    R1, B = f0.shape
+    dev = f0.device
+    for upto in (False, True):
+        fk, fr = mk(f0), f0.clone()
+        ak = mk(f0) if upto else None
+        ar = f0.clone() if upto else None
+        ok_, orf = mk(torch.zeros_like(f0)), torch.empty_like(f0)
+        lk = [torch.empty(ell_ops.live_words(R1), dtype=torch.int32,
+                          device=dev) for _ in range(2)]
+        lr = [torch.empty_like(x) for x in lk]
+        li_k = li_r = None
+        for h in range(hops):
+            ell_ops.go_hop_i8(fk, ak, ok_, tables, eslot, hrows, over, li_k,
+                              lk[h % 2])
+            ell_ops.go_hop_i8_ref(fr, ar, orf, tables, eslot, hrows, over,
+                                  li_r, lr[h % 2])
+            pairs = [(ok_, orf), (lk[h % 2], lr[h % 2])]
+            require_equal(torch, f"go_hop_i8 {label} upto={upto} hop {h}",
+                          B, *pairs + ([(ak, ar)] if upto else []))
+            missed = (ok_ > 0).any(1) & ~ell_ops.live_rows(lk[h % 2], R1)
+            if bool(missed.any()):
+                raise AssertionError(f"go_hop_i8 {label} hop {h}: live_out "
+                                     f"misses a row with a byte > 0")
+            li_k, li_r = lk[h % 2], lr[h % 2]
+            fk, ok_ = ok_, fk
+            fr, orf = orf, fr
+    return 0
 
 
 def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
@@ -969,38 +1049,55 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
         bound_ms=bytes_ms(R1 * B + 8 * Sp), bound_by="bytes",
         library_ms=lib)
 
-    # ---- K13 hop: three chained advances, exact and with the UPTO
-    # accumulator, then one advance of an arbitrary int8 frontier
-    err = 0
-    for upto in (False, True):
-        ck, cr = f0.clone(), f0.clone()
-        ak = f0.clone() if upto else None
-        ar = f0.clone() if upto else None
-        ok_, orf = torch.empty_like(f0), torch.empty_like(f0)
-        for _ in range(3):
-            ell_ops.go_hop_i8(ck, ak, ok_, tables, eslot, hrows, over)
-            ell_ops.go_hop_i8_ref(cr, ar, orf, tables, eslot, hrows, over)
-            pairs = [(ok_, orf)] + ([(ak, ar)] if upto else [])
-            err = max(err, require_equal(torch, f"go_hop_i8 upto={upto}",
-                                         B, *pairs))
-            ck, ok_ = ok_, ck
-            cr, orf = orf, cr
+    # ---- K13 hop: three chained advances (the live arrays chained as
+    # a program chains them), exact and with the UPTO accumulator, on
+    # the start frontier, a dense one and an arbitrary one
+    dense = (torch.rand((R1, B), device=dev) < 0.5).to(i8)
+    dense[-1] = 0
     arb = torch.randint(-128, 128, (R1, B), dtype=i8, device=dev)
-    ok_, orf = torch.empty_like(arb), torch.empty_like(arb)
-    ell_ops.go_hop_i8(arb, None, ok_, tables, eslot, hrows, over)
-    ell_ops.go_hop_i8_ref(arb, None, orf, tables, eslot, hrows, over)
-    err = max(err, require_equal(torch, "go_hop_i8 arbitrary", B,
-                                 (ok_, orf)))
-    del arb, orf
+    err = 0
+    for label, fx in (("start", f0), ("dense", dense), ("arbitrary", arb)):
+        err = max(err, k13_check(torch, ell_ops, fx, tables, eslot, hrows,
+                                 over, f"B={B} {label}"))
+    del arb
     out = torch.empty_like(f0)
-    ms = cuda_ms(torch, lambda: ell_ops.go_hop_i8(
-        f0, None, out, tables, eslot, hrows, over), 20)
+    lout = torch.empty(ell_ops.live_words(R1), dtype=torch.int32,
+                       device=dev)
+    k13 = {}
+    for label, fx in (("start", f0), ("dense", dense)):
+        live_rows = int((fx > 0).any(1).sum().item())
+        lin = ell_ops.row_live_i8_ref(fx)
+        acc = fx.clone()
+        for upto in (False, True):
+            a = acc if upto else None
+
+            def first():       # a program's first hop: the pass included
+                ell_ops.go_hop_i8(fx, a, out, tables, eslot, hrows, over,
+                                  None, lout)
+
+            def later():       # a later hop: the previous live_out given
+                ell_ops.go_hop_i8(fx, a, out, tables, eslot, hrows, over,
+                                  lin, lout)
+            nbytes = k13_bytes(slots, R1, B, live_rows, hub_bytes, upto)
+            k13[label, upto] = dict(
+                ms=queued_ms(torch, first, PROBE_REPS),
+                event_ms=cuda_ms(torch, first, 20),
+                live_in_ms=queued_ms(torch, later, PROBE_REPS),
+                live_in_event_ms=cuda_ms(torch, later, 20),
+                bound_ms=bytes_ms(nbytes), bytes=nbytes, live_rows=live_rows)
+    del dense
     plain = cuda_ms(torch, lambda: ell_ops.go_hop_i8_ref(
         f0, None, out, tables, eslot, hrows, over), 2, warmup=1)
-    hop_bytes = 8 * slots + 2 * R1 * B + hub_bytes
-    res["go_hop_i8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=bytes_ms(hop_bytes), bound_by="bytes",
-                            library_ms=None, bytes=hop_bytes)
+    row = k13["start", False]
+    res["go_hop_i8"] = dict(
+        max_abs_err=err, ms=row["ms"], plain_ms=plain,
+        bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None,
+        library_none="none: no call gathers over ELL slots with an etype "
+                     "mask and a hub merge",
+        **{x: row[x] for x in ("event_ms", "live_in_ms",
+                               "live_in_event_ms", "bytes", "live_rows")},
+        upto=k13["start", True], dense=k13["dense", False],
+        dense_upto=k13["dense", True])
 
     # ---- the program at 3 steps, exact and UPTO, row-packed; the
     # packed ell_go beside it on the same starts and tables
@@ -1009,6 +1106,10 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
     def restore():
         work.copy_(f0)
     go_rows = {}
+    h1 = torch.empty_like(f0)
+    ell_ops.go_hop_i8(f0, None, h1, tables, eslot, hrows, over)
+    live_hops = [int((x > 0).any(1).sum().item()) for x in (f0, h1)]
+    del h1
     for upto in (False, True):
         gk = ell_ops.ell_go_i8(f0.clone(), tables, eslot, hrows, over, 3,
                                upto, pack=True)
@@ -1021,10 +1122,10 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
         plain = restored_ms(torch, lambda: ell_ops.ell_go_i8_ref(
             work, tables, eslot, hrows, over, 3, upto, pack=True),
             restore, 1, 1)
-        go_bytes = 8 * slots + R1 * B + G * B + hub_bytes
+        go_bytes = go_i8_bytes(slots, R1, B, G, live_hops, hub_bytes, upto)
         go_rows[upto] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=bytes_ms(go_bytes), bound_by="bytes",
-                             library_ms=None, steps=3,
+                             library_ms=None, steps=3, live_rows=live_hops,
                              live_bits=int(ell_ops._unpack_ref(gk).sum(
                                  dtype=torch.int64).item()))
         if not upto:
@@ -1148,15 +1249,21 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
     return res
 
 
-def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over,
-                    rng) -> dict:
-    """The byte-tail path (B % 4 != 0, a width flags can set off the
-    ladder): upload, hop with the UPTO accumulator, row pack, the BFS
-    and its level pass, each equal to its plain version; untimed."""
+def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over, rng,
+                    B: int = TAIL_B, offset: int = 0) -> dict:
+    """The int8 route off the 128/1024 ladder, untimed, each function
+    equal to its plain version: upload, ``ell_go_i8`` with and without
+    UPTO and the row pack, K13 chained (``k13_check``) on the start, a
+    dense and an arbitrary frontier, and the BFS with its level pass.
+    B = 10 takes K13's byte columns, B = 12 its 4-byte ones; ``offset``
+    places K13's carriers that many bytes past a 16-byte boundary (B =
+    128 at 4: the 4-byte columns at a width the 16-byte ones take).
+    K13 also runs on slot tables 4 bytes off a 16-byte boundary (its
+    one-slot scan, ``Q = false``) with aligned carriers: at B = 128 on
+    its 16-byte columns, at B = 12 on 4-byte ones, at B = 10 on bytes."""
     dev = tables.nbr.device
-    B = TAIL_B
     R1 = ix.n_rows + 1
-    S = 4 * B
+    S = min(4 * B, 64)
     rows_h = np.full(64, ix.n_rows, np.int32)
     cols_h = np.zeros(64, np.int32)
     rows_h[:S] = ix.perm[rng.integers(0, ix.n, S)]
@@ -1176,12 +1283,29 @@ def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over,
                                        over, 4, upto, pack)
             require_equal(torch, f"ell_go_i8 upto={upto} pack={pack}", B,
                           (gk, gr))
+
+    def shifted(t):       # the same values `offset` bytes past 16
+        buf = torch.empty(t.numel() + 16, dtype=torch.int8, device=dev)
+        v = buf[offset:offset + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+    dense = (torch.rand((R1, B), device=dev) < 0.5).to(torch.int8)
+    dense[-1] = 0
     arb = torch.randint(-128, 128, (R1, B), dtype=torch.int8, device=dev)
-    ok_, orf = torch.empty_like(arb), torch.empty_like(arb)
-    ak, ar = arb.clone(), arb.clone()
-    ell_ops.go_hop_i8(arb, ak, ok_, tables, eslot, hrows, over)
-    ell_ops.go_hop_i8_ref(arb, ar, orf, tables, eslot, hrows, over)
-    require_equal(torch, "go_hop_i8 arbitrary", B, (ok_, orf), (ak, ar))
+    def slots_off(t):     # int32 slots 4 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=dev)
+        v = buf[1:1 + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+    off_tables = tables._replace(nbr=slots_off(tables.nbr),
+                                 et=slots_off(tables.et))
+    for label, fx in (("start", fk), ("dense", dense), ("arbitrary", arb)):
+        k13_check(torch, ell_ops, fx, tables, eslot, hrows, over,
+                  f"B={B} offset={offset} {label}",
+                  shifted if offset else None)
+        k13_check(torch, ell_ops, fx, off_tables, eslot, hrows, over,
+                  f"B={B} slots 4 bytes off {label}")
+    del dense, arb, off_tables
     tk = fk.roll(1, dims=0).contiguous()
     dk, lk = ell_ops.ell_bfs_i8(fk.clone(), tk, tables, eslot, hrows, over,
                                 5, False)
@@ -1190,7 +1314,7 @@ def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over,
     require_equal(torch, "ell_bfs_i8", B, (dk, dr))
     if lk != lr:
         raise AssertionError(f"ell_bfs_i8 ran {lk} levels, plain {lr}")
-    return dict(B=B, levels=lk, equal=True)
+    return dict(B=B, offset=offset, levels=lk, equal=True)
 
 
 HOP_TAIL_WIDTHS = (4, 12, 20, 48)   # off the ladder: the 4-byte columns,
@@ -3543,18 +3667,20 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     graph's tables, cut into k shards that all sit on this card (each
     shard its own buffers; what moves between shards is copied), at
     lane width B.  Exact equality throughout: M1 ``shard_hop`` per shard
-    against its plain version, and one whole mesh hop (M1 on every
-    shard, the row replication, ``hop_merge`` on every replica) against
-    the single-card ``go_hop``; ``ell_go_sharded`` at 1-4 steps against
-    its plain version and the single-card ``ell_go``;
-    ``ell_bfs_sharded``, shortest and all, against ``ell_bfs`` (and its
+    against its plain version, M3 ``replicate_rows`` against the
+    per-block ``copy_`` loop (k launches), and one whole mesh hop (M1
+    on every shard, M3, ``hop_merge`` on every replica) against the
+    single-card ``go_hop``; ``ell_go_sharded`` at 1-4 steps against its
+    plain version and the single-card ``ell_go``; ``ell_bfs_sharded`` at
+    1-4 steps and UPTO 5, shortest and all, against ``ell_bfs`` (and its
     plain version); ``ell_absorb_sharded`` on ``windows`` (the absorb
     phase's three plans) against its plain version, its gathered shards
     against the single-card ``ell_absorb``, its inputs unchanged;
     ``sharded_go`` against the ``go`` program from 1 and 256 starts.
-    Times are CUDA events, but ``hop_merge``, M2 and
+    Times are CUDA events, but M3, ``hop_merge``, M2 and
     ``ell_absorb_sharded`` report device time over calls queued behind
-    a spin kernel (``ms``; their event time beside as ``event_ms``).
+    a spin kernel (``ms``; their event time beside as ``event_ms``), and
+    M1 and ``ell_go_sharded`` add theirs as ``device_ms``.
     Bounds are the bytes each function must move over the card's rate;
     an absorb counts only the real replacement rows, once, at the
     shard that owns each.  Returns {name: numbers}."""
@@ -3577,7 +3703,7 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     fp_h[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
                                      dtype=np.uint8)
     fp0 = torch.from_numpy(fp_h).to(dev)
-    per_ms, per_plain, per_bound = [], [], []
+    per_ms, per_dev, per_plain, per_bound = [], [], [], []
     outs = [torch.empty_like(fp0) for _ in range(k)]
     for s in range(k):
         ok_ = torch.full_like(fp0, 0xA5)
@@ -3587,6 +3713,8 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         require_equal(torch, f"shard_hop k={k} s={s}", B, (ok_, or_))
         per_ms.append(cuda_ms(torch, lambda: ell_ops.shard_hop(
             fp0, outs[s], mt, s, over), 50))
+        per_dev.append(mesh_queued_ms(torch, lambda: ell_ops.shard_hop(
+            fp0, outs[s], mt, s, over), f"shard_hop k={k} B={B} s={s}"))
         per_plain.append(cuda_ms(torch, lambda: ell_ops.shard_hop_ref(
             fp0, outs[s], mt, s, over), 2, warmup=1))
         t = mt.shards[s]
@@ -3601,14 +3729,40 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         library_none="none: no PyTorch call gathers over ELL slots with "
                      "an etype mask",
         per_shard_ms=per_ms, sum_ms=float(np.sum(per_ms)),
-        per_shard_bound_ms=per_bound)
+        per_shard_bound_ms=per_bound, device_ms=float(np.mean(per_dev)),
+        per_shard_device_ms=per_dev)
 
-    # ---- the owned rows replicated: every shard's buffer holds the hop
-    # before its hub merge
-    for s in range(k):
-        ell_ops.shard_hop(fp0, outs[s], mt, s, over)
-    copy_bytes = replicate_rows(outs, blocks)
-    copy_ms = cuda_ms(torch, lambda: replicate_rows(outs, blocks), 20)
+    # ---- M3: the owned rows replicated, one launch a source shard,
+    # against the per-block copy_ loop it replaced, on buffers whose
+    # every byte differs between shards
+    bufs = [torch.randint(0, 256, fp0.shape, dtype=torch.uint8,
+                          device=dev) for _ in range(k)]
+    bk_, br_ = [b.clone() for b in bufs], [b.clone() for b in bufs]
+    ell_ops.reset_launches()
+    copy_bytes = replicate_rows(bk_, blocks, ell_ops.copy_rows)
+    m3_launches = ell_ops.LAUNCHES["replicate_rows"]
+    replicate_rows(br_, blocks, ell_ops.copy_rows_ref)
+    require_equal(torch, f"replicate_rows k={k}", B, *zip(bk_, br_))
+    if m3_launches != k:
+        raise AssertionError(f"replicate_rows k={k}: {m3_launches} "
+                             f"launches, not one a source shard")
+    del bk_, br_
+    m3 = lambda: replicate_rows(bufs, blocks, ell_ops.copy_rows)  # noqa
+    loop = lambda: replicate_rows(bufs, blocks,  # noqa: E731
+                                  ell_ops.copy_rows_ref)
+    copy_ms = mesh_queued_ms(torch, m3, f"replicate_rows k={k} B={B}")
+    copy_ev = cuda_ms(torch, m3, 20)
+    loop_ms = cuda_ms(torch, loop, 20)
+    loop_dev = mesh_queued_ms(torch, loop, f"copy_ loop k={k} B={B}")
+    del bufs
+    res["replicate_rows"] = dict(
+        max_abs_err=0, ms=copy_ms, event_ms=copy_ev, plain_ms=loop_ms,
+        bound_ms=bytes_ms(k * ix.n_rows * W), bound_by="bytes",
+        library_ms=loop_ms,
+        library_call="Tensor.copy_ per (owned block, receiver), events",
+        library_device_ms=loop_dev, launches_a_hop=m3_launches,
+        copies_replaced=sum(len(r) for r in blocks) * (k - 1),
+        bytes=copy_bytes, k=k)
 
     # ---- hop_merge on one replica
     pre = outs[0].clone()
@@ -3636,14 +3790,14 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     # ---- one whole mesh hop against the single-card hop
     cur = mesh.replicas(fp0)
     ell_ops.mesh_hop(cur, outs, mt, es, hs, over, blocks, ell_ops.shard_hop,
-                     ell_ops.hop_merge)
+                     ell_ops.hop_merge, ell_ops.copy_rows)
     single = torch.empty_like(fp0)
     ell_ops.go_hop(fp0, None, single, tables, eslot, hrows, over)
     require_equal(torch, f"mesh hop k={k}", B,
                   *[(o, single) for o in outs])
     mesh_hop_ms = cuda_ms(torch, lambda: ell_ops.mesh_hop(
         cur, outs, mt, es, hs, over, blocks, ell_ops.shard_hop,
-        ell_ops.hop_merge), 20)
+        ell_ops.hop_merge, ell_ops.copy_rows), 20)
     go_hop_ms = cuda_ms(torch, lambda: ell_ops.go_hop(
         fp0, None, single, tables, eslot, hrows, over), 20)
 
@@ -3660,6 +3814,8 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     slots_all = sum(int(t.nbr.numel()) for t in mt.shards)
     go_ms = cuda_ms(torch, lambda: ell_ops.ell_go_sharded(
         f0, mt, es, hs, over, 3), 10)
+    go_dev = mesh_queued_ms(torch, lambda: ell_ops.ell_go_sharded(
+        f0, mt, es, hs, over, 3), f"ell_go_sharded k={k} B={B}")
     go_plain = cuda_ms(torch, lambda: ell_ops.ell_go_sharded_ref(
         f0, mt, es, hs, over, 3), 1, warmup=0)
     one_ms = cuda_ms(torch, lambda: ell_ops.ell_go(
@@ -3669,13 +3825,26 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         max_abs_err=0, ms=go_ms, plain_ms=go_plain,
         bound_ms=bytes_ms(go_bytes), bound_by="bytes", library_ms=None,
         library_none="none: a multi-kernel program", k=k, steps=3,
-        single_card_ell_go_ms=one_ms, mesh_hop_ms=mesh_hop_ms,
+        device_ms=go_dev, single_card_ell_go_ms=one_ms,
+        mesh_hop_ms=mesh_hop_ms,
         single_card_go_hop_ms=go_hop_ms, copy_ms=copy_ms,
-        copy_bytes=copy_bytes, copy_bound_ms=bytes_ms(2 * copy_bytes))
+        copy_bytes=copy_bytes,
+        copy_bound_ms=res["replicate_rows"]["bound_ms"])
 
     # ---- ell_bfs_sharded, shortest and all, UPTO 5
     t0 = rt._upload_frontier_packed(ix, ix.perm[rng.integers(0, ix.n, B)],
                                     np.arange(B, dtype=np.int32), B)
+    for steps in (1, 2, 3, 4):      # the shorter programs, untimed
+        dk, lk = ell_ops.ell_bfs_sharded(f0, t0, mt, es, hs, over, steps)
+        dr, lr = ell_ops.ell_bfs_sharded_ref(f0, t0, mt, es, hs, over,
+                                             steps)
+        d1, l1 = ell_ops.ell_bfs(f0.clone(), t0, tables, eslot, hrows, over,
+                                 steps)
+        require_equal(torch, f"ell_bfs_sharded k={k} steps={steps}", B,
+                      (dk, dr), (dk, d1))
+        if not lk == lr == l1:
+            raise AssertionError(f"ell_bfs_sharded ran {lk} levels, plain "
+                                 f"{lr}, ell_bfs {l1}")
     bfs_rows = {}
     for stop in (True, False):
         dk, lk = ell_ops.ell_bfs_sharded(f0, t0, mt, es, hs, over, 5, stop)
@@ -4883,9 +5052,10 @@ def main(argv=None) -> int:
                 log(f"[kernel] {k} B={B} equal=True " + json.dumps(v))
             log(f"[kernel] int8 B={B} phase "
                 f"{time.perf_counter() - t0:.2f} s")
-        tail = int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows,
-                               (1,), rng)
-        log("[kernel] int8 byte tail " + json.dumps(tail))
+        for B, offset in TAIL_CASES:
+            tail = int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows,
+                                   (1,), rng, B, offset)
+            log("[kernel] int8 off the ladder " + json.dumps(tail))
         log("[kernel] go_hop widths " + json.dumps(hop_width_check(
             torch, ell_ops, ix, tables, eslot, hrows, (1,), rng)))
         log("[compare] ell_go at 3 steps, int8 vs packed, ms: "

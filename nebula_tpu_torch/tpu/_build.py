@@ -6,7 +6,8 @@
 with nvcc into
 ``_build_out/libell_lanes.so`` beside this file (a
 directory git ignores) at first use, rebuilding when a source is newer
-than the library, and loads it with ctypes.  Each source compiles to an
+than the library (or the header ``csrc/hop_plan.cuh`` they share),
+and loads it with ctypes.  Each source compiles to an
 object in its own nvcc process, all started together, and one more
 nvcc call links them; ``LAST_BUILD`` keeps each step's seconds.  The
 sources have a plain C interface and include no PyTorch header, so a
@@ -35,6 +36,8 @@ SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "ell_int8.cu"),
            os.path.join(CSRC, "ell_mesh.cu"),
            os.path.join(CSRC, "mesh_sparse.cu"))
+# included by ell_lanes.cu and ell_int8.cu: the hop's shared gather
+HEADERS = (os.path.join(CSRC, "hop_plan.cuh"),)
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -67,7 +70,7 @@ def _stale() -> bool:
     if not os.path.isfile(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in SOURCES)
+    return any(os.path.getmtime(s) > built for s in SOURCES + HEADERS)
 
 
 def _run_all(cmds) -> list:
@@ -174,17 +177,19 @@ def load() -> ctypes.CDLL:
         # csrc/ell_int8.cu
         lib.i8_frontier_upload.argtypes = [vp, vp, vp, i64, i64, i64, i64,
                                            vp]
-        lib.i8_go_hop.argtypes = [vp, vp, vp, vp, vp, p64, i32, vp, vp,
-                                  i64, p32, i32, i64, i64, i64, vp]
+        lib.i8_row_live.argtypes = [vp, vp, i64, i64, vp]
+        lib.i8_go_hop.argtypes = [vp, vp, vp, vp, vp, vp, vp, p64, i32, i64,
+                                  i32, i32, i32, vp, vp, i64, p32, i32, i64,
+                                  i64, i64, vp]
         lib.i8_pack_rows.argtypes = [vp, vp, i64, i64, vp]
         lib.i8_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
                                      i64, vp]
         lib.ell_table_copy.argtypes = [vp, vp, vp, vp, i64, vp]
         # the mesh: csrc/ell_mesh.cu (bucket tables by value) and the
         # lane kernels it reuses from csrc/ell_lanes.cu
-        from .ell_ops import _ShardAbsorb, _ShardBuckets
-        lib.ell_shard_hop.argtypes = [vp, vp, vp, vp, _ShardBuckets, p32,
-                                      i32, i64, i64, i64, vp]
+        from .ell_ops import _ShardAbsorb
+        lib.mesh_replicate_rows.argtypes = [vp, ctypes.POINTER(vp), i32, p64,
+                                            i32, vp]
         lib.ell_shard_absorb.argtypes = [vp, vp, vp, vp, i64, _ShardAbsorb,
                                          vp]
         lib.ell_hop_merge.argtypes = [vp, vp, vp, i64, i64, i64, i64, vp]
@@ -205,8 +210,9 @@ def load() -> ctypes.CDLL:
                    lib.ad_bitmap_lanes, lib.edge_seed, lib.edge_hop,
                    lib.edge_final, lib.edge_bfs_level, lib.expr_filter,
                    lib.ell_absorb, lib.i8_frontier_upload,
-                   lib.i8_go_hop, lib.i8_pack_rows, lib.i8_bfs_level,
-                   lib.ell_table_copy, lib.ell_shard_hop,
+                   lib.i8_row_live, lib.i8_go_hop, lib.i8_pack_rows,
+                   lib.i8_bfs_level, lib.ell_table_copy,
+                   lib.mesh_replicate_rows,
                    lib.ell_shard_absorb, lib.ell_hop_merge,
                    lib.ell_or_many, lib.mesh_route, lib.mesh_mark,
                    lib.mesh_bfs_stamp):

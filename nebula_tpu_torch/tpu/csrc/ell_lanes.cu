@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hop_plan.cuh"
+
 // The OR-combine's sources, by value: at global scope, since the
 // extern "C" entry point builds it (a struct of an anonymous namespace
 // would give that entry internal linkage under nvcc).
@@ -33,34 +35,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1LL << 20;   // grid-stride beyond this
-constexpr int kMaxBuckets = 32;
-constexpr int kMaxOver = 32;
 constexpr int kCountBlocks = 1024;             // go_count grid cap
-constexpr int kChunk = 8;                      // slots a hop lane holds
 constexpr uint32_t kInt16Inf = 0x7FFF;         // ell.py:51 INT16_INF
-
-// The hop's launch plan (ell_ops.hop_plan), by value: bucket b's rows
-// are frontier rows row0[b] .. row0[b] + rows[b], its slots start at
-// slot0[b], D[b] a row; 2^lg[b] lanes own one row, and its blocks are
-// blk0[b] .. blk0[b + 1] (the last bucket's end is the grid).
-struct HopPlan {
-    long long row0[kMaxBuckets];
-    long long slot0[kMaxBuckets];
-    long long rows[kMaxBuckets];
-    int blk0[kMaxBuckets];
-    int D[kMaxBuckets];
-    int lg[kMaxBuckets];
-    int n;
-};
-
-// The OVER set as signed etypes (negative = REVERSELY), by value, with
-// a bitmask of etype + 32 when every member lies in [-32, 31].
-struct OverSet {
-    int et[kMaxOver];
-    int n;
-    int use_mask;
-    unsigned long long mask;
-};
 
 inline unsigned grid_for(long long total) {
     long long blocks = (total + kThreads - 1) / kThreads;
@@ -75,33 +51,14 @@ __device__ __forceinline__ uint4 or_v(uint4 a, uint4 b) {
 __device__ __forceinline__ uint32_t or_v(uint32_t a, uint32_t b) {
     return a | b;
 }
-__device__ __forceinline__ void zero_v(uint4& v) {
-    v = make_uint4(0u, 0u, 0u, 0u);
-}
-__device__ __forceinline__ void zero_v(uint32_t& v) { v = 0u; }
-// v | the value of lane (this lane ^ o), every lane of the warp taking
-// part
-__device__ __forceinline__ uint4 shfl_or(uint4 v, int o) {
-    uint4 t;
-    t.x = __shfl_xor_sync(0xffffffffu, v.x, o);
-    t.y = __shfl_xor_sync(0xffffffffu, v.y, o);
-    t.z = __shfl_xor_sync(0xffffffffu, v.z, o);
-    t.w = __shfl_xor_sync(0xffffffffu, v.w, o);
-    return or_v(v, t);
-}
-__device__ __forceinline__ uint32_t shfl_or(uint32_t v, int o) {
-    return v | __shfl_xor_sync(0xffffffffu, v, o);
-}
 
-__device__ __forceinline__ bool in_over(int e, const OverSet& ov) {
-    if (ov.use_mask) {
-        const unsigned k = (unsigned)(e + 32);
-        return k < 64u && ((ov.mask >> k) & 1ull);
-    }
-    bool ok = false;
-    for (int k = 0; k < ov.n; ++k) ok |= (e == ov.et[k]);
-    return ok;
-}
+// the hop's plan, OVER set and element helpers (hop_plan.cuh)
+using HopPlan = hop::Plan;
+using hop::OverSet;
+using hop::in_over;
+using hop::kChunk;
+using hop::shfl_x;
+using hop::zero_v;
 
 // ---------------------------------------------------------------- hop
 // Replaces nebula_tpu/tpu/ell.py:665 make_continuous_hop_kernel (body
@@ -131,9 +88,12 @@ __device__ __forceinline__ bool in_over(int e, const OverSet& ov) {
 //     L2 and more loads in flight win (on an H100 SXM at 700 W, 0.27
 //     against 0.32 ms a hop at W = 128 on chip_smoke.py's serve
 //     tables), while at W = 16 the same cap costs 9%.
-// The output is a separate buffer: every gather reads the previous
-// generation, so the caller ping-pongs two.  Block 0 zeroes the pad
-// row of out (no other thread writes it); accp's pad row stays zero.
+// The plan and OVER set are hop_plan.cuh's; the mesh's M1 runs this
+// kernel on one shard's plan (its chunk rows, shard-local slots, no
+// accumulator, no merge).  The output is a separate buffer: every
+// gather reads the previous generation, so the caller ping-pongs two.
+// Block 0 zeroes the pad row of out (no other thread writes it); accp's
+// pad row stays zero.
 template <typename V, bool Q, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
@@ -216,7 +176,7 @@ hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
 #pragma unroll
             for (int j = 0; j < kChunk; ++j) acc = or_v(acc, g[j]);
         }
-        for (int o = Cg; o < G; o <<= 1) acc = shfl_or(acc, o);
+        for (int o = Cg; o < G; o <<= 1) acc = or_v(acc, shfl_x(acc, o));
         if (act && part == 0) {
             const long long i = r * C + c;
             out[i] = acc;
@@ -224,6 +184,7 @@ hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
         }
     }
 }
+
 
 // Hub fix-up: OR each extra row n + e into its owner hrows[eslot[e]],
 // in out and, when given, in accp (the hop's fused union: an extra row's
@@ -517,42 +478,19 @@ int ell_go_hop(const void* fp, void* accp, void* out, const void* nbr,
                const void* hrows, int64_t n_extras, const int32_t* over,
                int n_over, int64_t n, int64_t n_rows, int64_t W,
                void* stream) {
-    if (n_buckets < 1 || n_buckets > kMaxBuckets || n_over < 1 ||
-        n_over > kMaxOver || W <= 0 || W % 4 != 0 || n_rows < 0 ||
-        blocks < 1 || blocks > 0x7FFFFFFFLL || lgc < 0 || lgc > 5)
-        return -1;
+    if (W <= 0 || W % 4 != 0 || n_rows < 0) return -1;
     const uintptr_t rows_at = (uintptr_t)fp | (uintptr_t)out |
                               (uintptr_t)accp;
     if (wide && (W % 16 != 0 || (rows_at & 15) != 0)) return -1;
-    const int C = (int)(wide ? W / 16 : W / 4);
     bool quads = (((uintptr_t)nbr | (uintptr_t)et) & 15) == 0;
-    HopPlan pl;
-    pl.n = n_buckets;
-    for (int b = 0; b < n_buckets; ++b) {
-        const int64_t* d = plan + 6 * b;
-        if (d[2] < 0 || d[3] < 1 || d[4] < lgc || d[4] > 5 ||
-            d[5] < (b ? pl.blk0[b - 1] : 0) || (!b && d[5] != 0) ||
-            d[5] > blocks)
-            return -1;
-        pl.row0[b] = d[0];
-        pl.slot0[b] = d[1];
-        pl.rows[b] = d[2];
-        pl.D[b] = (int)d[3];
-        pl.lg[b] = (int)d[4];
-        pl.blk0[b] = (int)d[5];
-        quads = quads && d[1] % 4 == 0 && d[3] % 4 == 0;
-    }
-    OverSet ov;
-    ov.n = n_over;
-    ov.use_mask = 1;
-    ov.mask = 0ull;
-    for (int k = 0; k < n_over; ++k) {
-        ov.et[k] = over[k];
-        if (over[k] < -32 || over[k] > 31) ov.use_mask = 0;
-        else ov.mask |= 1ull << (over[k] + 32);
-    }
+    hop::Plan pl;
+    hop::OverSet ov;
+    if (!hop::read_plan(plan, n_buckets, blocks, lgc, &pl, &quads) ||
+        !hop::read_over(over, n_over, &ov))
+        return -1;
     cudaStream_t s = (cudaStream_t)stream;
     const unsigned grid = (unsigned)blocks;
+    const int C = (int)(wide ? W / 16 : W / 4);
     const int32_t* nb = (const int32_t*)nbr;
     const int32_t* ev = (const int32_t*)et;
     if (wide && quads && lgc >= 3)

@@ -13,12 +13,14 @@
 // mesh layer (mesh.py) copies each shard's owned rows into the others'
 // buffers after every hop.
 //
-// M1 shard_hop_gather replaces the per-shard body of
-// nebula_tpu/tpu/ell.py:1740 _make_sharded_hop_packed
-// (_bucket_expand_packed over the shard's blocks, then the trim at
-// real_rows and the concatenation at the blocks' frontier rows).
+// The per-shard hop (M1, nebula_tpu/tpu/ell.py:1740
+// _make_sharded_hop_packed) is the single-card hop's gather
+// (ell_lanes.cu ell_go_hop) run on the shard's plan.  Here:
 // M2 shard_absorb_scatter replaces nebula_tpu/tpu/ell.py:1036
-// make_sharded_ell_absorb_kernel's per-shard scatter.
+// make_sharded_ell_absorb_kernel's per-shard scatter;
+// M3 replicate_rows replaces the re-replication of the hop's owned rows
+// (ell.py:1789, the sharded output gathered back to every shard) where
+// the shards share one card: one launch a source shard.
 //
 // Every entry point runs on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after its launches
@@ -29,23 +31,19 @@
 #include <stdint.h>
 
 constexpr int kMeshMaxBuckets = 32;
-constexpr int kMeshMaxOver = 32;
 
-// One shard's bucket geometry, passed by value.  Global scope: an
-// extern "C" entry point taking a struct from an anonymous namespace
-// would get internal linkage under nvcc.
-struct ShardBuckets {
-    long long grow0[kMeshMaxBuckets];  // frontier row of chunk row 0
-    long long lrow0[kMeshMaxBuckets];  // shard-local row of chunk row 0
-    long long slot0[kMeshMaxBuckets];  // first slot of the chunk
-    long long live[kMeshMaxBuckets];   // chunk rows below real_rows
-    int D[kMeshMaxBuckets];            // slots per row
-    int n;                             // buckets
-};
-
-// The OVER set as signed etypes (negative = REVERSELY), by value.
-struct MeshOverSet {
-    int et[kMeshMaxOver];
+// One source shard's replication, passed by value: its buffer's owned
+// byte ranges [lo[i], lo[i] + len[i]) in `unit`-byte units, each range's
+// first block blk0[i] (the last range's end is the grid), and the
+// receivers' buffers (same shape, same card).  Global scope, as below.
+constexpr int kCopyMaxDst = 15;
+constexpr int kCopyMaxRanges = 32;
+struct RowCopy {
+    void* dst[kCopyMaxDst];
+    long long lo[kCopyMaxRanges];
+    long long len[kCopyMaxRanges];
+    int blk0[kCopyMaxRanges];
+    int n_dst;
     int n;
 };
 
@@ -73,62 +71,6 @@ extern "C" int ell_table_copy(const void* nbr, const void* et,
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1LL << 20;   // grid-stride beyond this
-
-inline unsigned grid_for(long long total) {
-    long long blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    if (blocks < 1) blocks = 1;
-    return (unsigned)blocks;
-}
-
-// ------------------------------------------------------------------ M1
-// One thread owns one (shard-local row, 32-bit word): it walks the row's
-// D slots, ORing the gathered word of the shard's frontier replica when
-// the slot's etype is in the OVER set, and writes the result at the
-// row's frontier row.  Chunk rows at or past the bucket's real row count
-// (the shard_ell padding) are written nowhere: the reference trims them
-// (o[:r], ell.py:1784).  The last W4 threads zero the output's pad row,
-// which no owned row covers.  Rows of other shards are left as they are;
-// the replication copies them in.  Bound on this card: bytes — per row
-// D slot reads of nbr + et (8 bytes each) and D word gathers, each
-// moving a 32-byte sector; the W4 threads of a row share its slot loads
-// (a broadcast).  The same work as the single-card hop_gather_kernel
-// (ell_lanes.cu), cut by shard: k shards together gather each row once.
-__global__ void shard_hop_gather_kernel(const uint32_t* __restrict__ fp,
-                                        uint32_t* __restrict__ out,
-                                        const int32_t* __restrict__ nbr,
-                                        const int32_t* __restrict__ et,
-                                        ShardBuckets bk, MeshOverSet ov,
-                                        long long local_rows,
-                                        long long n_rows, int W4) {
-    const long long total = (local_rows + 1) * (long long)W4;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += stride) {
-        const long long lr = i / W4;
-        const int w = (int)(i - lr * W4);
-        if (lr == local_rows) {         // the pad row: pinned to zero
-            out[n_rows * W4 + w] = 0u;
-            continue;
-        }
-        int b = 0;
-        for (int k = 1; k < bk.n; ++k)
-            if (bk.lrow0[k] <= lr) b = k;
-        const long long li = lr - bk.lrow0[b];
-        if (li >= bk.live[b]) continue;  // padding: trimmed
-        const int D = bk.D[b];
-        const long long base = bk.slot0[b] + li * D;
-        uint32_t acc = 0u;
-        for (int j = 0; j < D; ++j) {
-            const int e = et[base + j];
-            bool ok = false;
-            for (int k = 0; k < ov.n; ++k) ok |= (e == ov.et[k]);
-            if (ok) acc |= fp[(long long)nbr[base + j] * W4 + w];
-        }
-        out[(bk.grow0[b] + li) * W4 + w] = acc;
-    }
-}
 
 // ------------------------------------------------------------------ M2
 // One warp per replacement row g = b * kp + i: loc = rows[b][i] - lo[b]
@@ -160,30 +102,43 @@ __global__ void shard_absorb_scatter_kernel(int32_t* __restrict__ nbr,
     }
 }
 
+// ------------------------------------------------------------------ M3
+// A block copies kCopyUnits * kThreads consecutive units of ONE range
+// (the entry's plan), so it finds its range once: each thread loads its
+// kCopyUnits units together, then stores them into every receiver.  The
+// source is read once whatever the receiver count.  Bound: bytes —
+// (1 + n_dst) times the owned bytes.
+constexpr int kCopyUnits = 4;
+
+template <typename V>
+__global__ void replicate_rows_kernel(const V* __restrict__ src,
+                                      RowCopy rc) {
+    const int blk = (int)blockIdx.x;
+    int b = 0;                          // uniform over the block
+    for (int k = 1; k < rc.n; ++k)
+        if (rc.blk0[k] <= blk) b = k;
+    const long long end = rc.lo[b] + rc.len[b];
+    const long long u0 = rc.lo[b] + (long long)(blk - rc.blk0[b])
+                         * kCopyUnits * kThreads + threadIdx.x;
+    V v[kCopyUnits];
+#pragma unroll
+    for (int j = 0; j < kCopyUnits; ++j) {
+        const long long u = u0 + (long long)j * kThreads;
+        if (u < end) v[j] = __ldcs(src + u);
+    }
+    for (int d = 0; d < rc.n_dst; ++d) {
+        V* dst = reinterpret_cast<V*>(rc.dst[d]);
+#pragma unroll
+        for (int j = 0; j < kCopyUnits; ++j) {
+            const long long u = u0 + (long long)j * kThreads;
+            if (u < end) dst[u] = v[j];
+        }
+    }
+}
+
 }  // namespace
 
 extern "C" {
-
-// fp, out: uint8 [n_rows + 1, W] replicas on this shard (out separate);
-// nbr, et: the shard's flat int32 tables of local_rows rows.
-int ell_shard_hop(const void* fp, void* out, const void* nbr,
-                  const void* et, ShardBuckets bk, const int32_t* over,
-                  int n_over, int64_t local_rows, int64_t n_rows,
-                  int64_t W, void* stream) {
-    if (bk.n < 1 || bk.n > kMeshMaxBuckets || n_over < 1 ||
-        n_over > kMeshMaxOver || W <= 0 || W % 4 != 0 || local_rows < 0 ||
-        n_rows < 0)
-        return -1;
-    MeshOverSet ov;
-    ov.n = n_over;
-    for (int k = 0; k < n_over; ++k) ov.et[k] = over[k];
-    const int W4 = (int)(W / 4);
-    shard_hop_gather_kernel<<<grid_for((local_rows + 1) * W4), kThreads,
-                              0, (cudaStream_t)stream>>>(
-        (const uint32_t*)fp, (uint32_t*)out, (const int32_t*)nbr,
-        (const int32_t*)et, bk, ov, local_rows, n_rows, W4);
-    return (int)cudaGetLastError();
-}
 
 // nbr, et: the shard's int32[n_slots] resident tables (read only);
 // out_nbr, out_et: fresh int32[n_slots] outputs (all 16-byte aligned).
@@ -200,6 +155,54 @@ int ell_shard_absorb(const void* nbr, const void* et, void* out_nbr,
                                              kThreads),
                                   kThreads, 0, (cudaStream_t)stream>>>(
         (int32_t*)out_nbr, (int32_t*)out_et, bk);
+    return (int)cudaGetLastError();
+}
+
+// src: one shard's buffer; dsts: host array of n_dst receiver buffers
+// of the same bytes on the same card; ranges: host int64 [n_ranges * 2]
+// byte ranges (lo, hi) of src, copied to the same bytes of every
+// receiver.  16-byte units when every pointer and bound is 16-byte
+// aligned, else 4-byte ones (the mesh's packed rows are W % 4 == 0
+// bytes); -1 for anything less aligned.  Returns without a launch when
+// there is nothing to copy.
+int mesh_replicate_rows(const void* src, void* const* dsts, int n_dst,
+                        const int64_t* ranges, int n_ranges, void* stream) {
+    if (n_dst < 1 || n_dst > kCopyMaxDst || n_ranges < 0 ||
+        n_ranges > kCopyMaxRanges)
+        return -1;
+    uintptr_t at = (uintptr_t)src;
+    for (int d = 0; d < n_dst; ++d) at |= (uintptr_t)dsts[d];
+    for (int i = 0; i < n_ranges; ++i) {
+        if (ranges[2 * i] < 0 || ranges[2 * i + 1] < ranges[2 * i])
+            return -1;
+        at |= (uintptr_t)ranges[2 * i] | (uintptr_t)ranges[2 * i + 1];
+    }
+    if ((at & 3) != 0) return -1;
+    const int unit = (at & 15) == 0 ? 16 : 4;
+    RowCopy rc;
+    rc.n_dst = n_dst;
+    for (int d = 0; d < n_dst; ++d) rc.dst[d] = dsts[d];
+    const long long per = (long long)kCopyUnits * kThreads;
+    long long blocks = 0;
+    rc.n = 0;
+    for (int i = 0; i < n_ranges; ++i) {
+        const long long len = (ranges[2 * i + 1] - ranges[2 * i]) / unit;
+        if (len == 0) continue;
+        rc.lo[rc.n] = ranges[2 * i] / unit;
+        rc.len[rc.n] = len;
+        rc.blk0[rc.n] = (int)blocks;
+        blocks += (len + per - 1) / per;
+        ++rc.n;
+    }
+    if (blocks == 0) return 0;
+    if (blocks > 0x7FFFFFFFLL) return -1;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (unit == 16)
+        replicate_rows_kernel<uint4><<<(unsigned)blocks, kThreads, 0, s>>>(
+            (const uint4*)src, rc);
+    else
+        replicate_rows_kernel<uint32_t><<<(unsigned)blocks, kThreads, 0,
+                                          s>>>((const uint32_t*)src, rc);
     return (int)cudaGetLastError();
 }
 

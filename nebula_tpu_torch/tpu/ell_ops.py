@@ -13,8 +13,9 @@ int8 start upload (``runtime.py:3228``), dense GO with its row pack
 replicated-frontier mesh's programs over row-sharded tables:
 ``ell_go_sharded`` (``ell.py:1712``), ``ell_bfs_sharded`` (``:1799``)
 and ``ell_absorb_sharded`` (``:1036``), with their per-shard kernels
-``shard_hop`` and ``shard_absorb`` and the reused ``hop_merge`` and
-``or_many`` (``or_into`` its one-source call), and the
+``shard_hop`` (the hop's gather on a shard's plan), ``shard_absorb``
+and ``copy_rows`` (the row replication) and the reused ``hop_merge``
+and ``or_many`` (``or_into`` its one-source call), and the
 frontier-sharded mesh's ``mesh_sparse_go`` (``ell.py:2052``) and
 ``mesh_sparse_bfs`` (``:2179``) with their kernels ``mesh_route``,
 ``mesh_mark`` and ``mesh_bfs_stamp``.
@@ -40,6 +41,7 @@ lane.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Dict, Optional, Sequence, Tuple
@@ -62,7 +64,8 @@ LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
                             "go_hop_i8": 0, "pack_rows": 0,
                             "bfs_level_i8": 0, "ell_go_i8": 0,
                             "ell_bfs_i8": 0, "shard_hop": 0,
-                            "hop_merge": 0, "or_into": 0,
+                            "hop_merge": 0, "replicate_rows": 0,
+                            "or_into": 0,
                             "shard_absorb": 0, "ell_go_sharded": 0,
                             "ell_bfs_sharded": 0, "ell_absorb_sharded": 0,
                             "mesh_route": 0, "mesh_mark": 0,
@@ -249,7 +252,8 @@ def _pow2_at_least(x: int) -> int:
     return 1 << max(0, int(x) - 1).bit_length()
 
 
-def hop_plan(rows: Sequence[int], D: Sequence[int], W: int, wide: bool
+def hop_plan(rows: Sequence[int], D: Sequence[int], W: int, unit: int,
+             cols: int = 1
              ) -> Tuple[int, Tuple[int, ...], Tuple[int, ...], int]:
     """The hop kernel's launch plan for buckets of ``rows[b]`` rows of
     ``D[b]`` slots at W frontier bytes a row: ``(lgc, lg, blk0,
@@ -260,13 +264,14 @@ def hop_plan(rows: Sequence[int], D: Sequence[int], W: int, wide: bool
     The kernel runs this plan as given (its entry checks only that it
     is safe to run).
 
-    The rule: a row's C columns (16 bytes each when ``wide``, the
-    kernel's path when W % 16 == 0 and the rows are 16-byte aligned;
-    else 4 bytes) go to Cg = min(32, the power of two >= C) lanes, and
-    its D slots to P = min(32 / Cg, the power of two >= ceil(D /
-    HOP_CHUNK)) parts, so a lane holds about HOP_CHUNK slots; G = Cg *
-    P <= 32."""
-    cg = min(32, _pow2_at_least(W // 16 if wide else W // 4))
+    The rule: a row's C = W / ``unit`` columns (``unit`` bytes each: 16
+    on the kernels' 16-byte path, else 4, or 1 on the int8 hop's byte
+    path), ``cols`` of them a lane (the int8 hop's 16-byte path takes
+    several: one slot scan serves them all), go to Cg = min(32, the
+    power of two >= ceil(C / cols)) lanes, and its D slots to P =
+    min(32 / Cg, the power of two >= ceil(D / HOP_CHUNK)) parts, so a
+    lane holds about HOP_CHUNK slots; G = Cg * P <= 32."""
+    cg = min(32, _pow2_at_least(-(-(W // unit) // cols)))
     lg, blk0, blocks = [], [], 0
     for r, d in zip(rows, D):
         g = cg * min(32 // cg, _pow2_at_least(-(-int(d) // HOP_CHUNK)))
@@ -277,12 +282,12 @@ def hop_plan(rows: Sequence[int], D: Sequence[int], W: int, wide: bool
 
 
 @functools.lru_cache(maxsize=64)
-def _hop_desc(row0, slot0, rows, D, W: int, wide: bool):
-    """``hop_plan`` as ``ell_go_hop`` takes it: (the host int64 array of
-    (row0, slot0, rows, D, lg, blk0) per bucket, the grid (at least one
-    block: block 0 zeroes the pad row), lgc), made once per geometry,
-    width and row path."""
-    lgc, lg, blk0, blocks = hop_plan(rows, D, W, wide)
+def _hop_desc(row0, slot0, rows, D, W: int, unit: int, cols: int = 1):
+    """``hop_plan`` as ``ell_go_hop`` and ``i8_go_hop`` take it: (the
+    host int64 array of (row0, slot0, rows, D, lg, blk0) per bucket, the
+    grid (at least one block: block 0 zeroes the pad row), lgc), made
+    once per geometry, width, column unit and columns a lane."""
+    lgc, lg, blk0, blocks = hop_plan(rows, D, W, unit, cols)
     desc = (ctypes.c_int64 * (6 * len(D)))(
         *[v for b in range(len(D))
           for v in (row0[b], slot0[b], rows[b], D[b], lg[b], blk0[b])])
@@ -323,7 +328,7 @@ def go_hop(fp: torch.Tensor, accp: Optional[torch.Tensor],
                          "(the kernels work on 32-bit words)")
     wide = W % 16 == 0 and not at % 16
     desc, blocks, lgc = _hop_desc(tables.row0, tables.slot0, tables.rows,
-                                  tables.D, W, wide)
+                                  tables.D, W, 16 if wide else 4)
     rc = _lib().ell_go_hop(
         fpp, accpp, outp, tables.nbr.data_ptr(), tables.et.data_ptr(),
         desc, len(tables.D), blocks, lgc, wide, eslot.data_ptr(),
@@ -782,22 +787,60 @@ def frontier_upload_i8(out: torch.Tensor, rows: torch.Tensor,
     return out
 
 
+def live_words(R1: int) -> int:
+    """int32 words of a live bitmap over R1 carrier rows (bit r % 32 of
+    word r // 32 is row r)."""
+    return (R1 + 31) // 32
+
+
+def live_bitmap(rows: torch.Tensor) -> torch.Tensor:
+    """A bool [R1] row mask as K13's live bitmap, int32 [live_words(R1)]."""
+    R1 = rows.shape[0]
+    bits = torch.zeros(32 * live_words(R1), dtype=torch.int64,
+                       device=rows.device)
+    bits[:R1] = rows.to(torch.int64)
+    w = (bits.view(-1, 32) << torch.arange(32, device=rows.device)).sum(1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def live_rows(words: torch.Tensor, R1: int) -> torch.Tensor:
+    """The bool [R1] row mask of a live bitmap (``live_bitmap``'s
+    inverse)."""
+    sh = torch.arange(32, device=words.device)
+    return ((words.to(torch.int64)[:, None] >> sh) & 1).view(-1)[:R1] != 0
+
+
+def row_live_i8_ref(f: torch.Tensor) -> torch.Tensor:
+    """Plain version of K13's row-live pass: the live bitmap of the rows
+    of ``f`` that hold a byte > 0 (signed); the pad row's bit is 0."""
+    rows = (f > 0).any(dim=1)
+    rows[-1] = False
+    return live_bitmap(rows)
+
+
 def go_hop_i8_ref(f: torch.Tensor, acc: Optional[torch.Tensor],
                   out: torch.Tensor, tables: DeviceTables,
                   eslot: torch.Tensor, hrows: torch.Tensor,
-                  over: Sequence[int]
+                  over: Sequence[int], live_in: Optional[torch.Tensor] = None,
+                  live_out: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of ``go_hop_i8`` (ell.py:386 _hop_body and :368
     _bucket_expand): per bucket, the max over the D in-slots of
     f[nbr] * ok(et) from 0; buckets concatenate; the extra rows max
     into their owners (owners >= n_rows drop); the pad row is zero;
-    acc = max(acc, out) when an accumulator is given."""
-    B = f.shape[1]
+    acc = max(acc, out) when an accumulator is given.  The kernel's skip
+    rule is applied as it is: a slot whose source row has a 0 bit in
+    ``live_in`` (default: ``row_live_i8_ref(f)``) gathers nothing, which
+    changes nothing while ``live_in`` covers every row with a byte > 0.
+    ``live_out`` gets ``row_live_i8_ref(out)``."""
+    R1, B = f.shape
     over_t = torch.tensor(sorted(set(int(e) for e in over)),
                           dtype=torch.int32, device=f.device)
+    src_ok = live_rows(row_live_i8_ref(f) if live_in is None else live_in,
+                       R1)
     for b in range(len(tables.D)):
         nbr, et = tables.bucket(b)
-        ok = torch.isin(et, over_t).to(torch.int8)
+        ok = (torch.isin(et, over_t) & src_ok[nbr.long()]).to(torch.int8)
         a = torch.zeros((nbr.shape[0], B), dtype=torch.int8,
                         device=f.device)
         for j in range(nbr.shape[1]):
@@ -815,18 +858,43 @@ def go_hop_i8_ref(f: torch.Tensor, acc: Optional[torch.Tensor],
                              "amax")
     if acc is not None:
         torch.maximum(acc, out, out=acc)
+    if live_out is not None:
+        live_out.copy_(row_live_i8_ref(out))
     return out, acc
+
+
+def i8_hop_cols(B: int, unit: int) -> int:
+    """The columns a lane of K13 takes (``hop_plan``'s ``cols``, which
+    the kernel's entry takes as given): on 16-byte columns four up to B
+    = 256 (B = 128: a row's 8 columns on 2 lanes) and two above (B =
+    1024: 64 columns on 32 lanes), so one slot scan serves several and a
+    warp holds more rows; one on the narrower column paths."""
+    return 1 if unit != 16 else 4 if B <= 256 else 2
 
 
 def go_hop_i8(f: torch.Tensor, acc: Optional[torch.Tensor],
               out: torch.Tensor, tables: DeviceTables, eslot: torch.Tensor,
-              hrows: torch.Tensor, over: Sequence[int]
+              hrows: torch.Tensor, over: Sequence[int],
+              live_in: Optional[torch.Tensor] = None,
+              live_out: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K13, one int8 frontier advance of every lane: ``out`` gets the
     next frontier (all of it, pad row zero), ``acc`` (None: no UPTO
-    union) becomes max(acc, out) in place, after the hub pass.  The hub
-    merge takes ``go_hop``'s (eslot, hrows).  ``out`` must not alias
-    ``f``.  Returns (out, acc)."""
+    union) becomes max(acc, out) in place.  The hub merge takes
+    ``go_hop``'s (eslot, hrows).  ``out`` must not alias ``f``; the pad
+    row of ``f`` is zero, as everywhere.
+
+    ``live_in`` / ``live_out``: row bitmaps, int32
+    [live_words(n_rows + 1)] (``live_bitmap``, ``live_rows``).  Source
+    rows whose ``live_in`` bit is 0 are not gathered, which is exact
+    while ``live_in`` is a superset of the rows of ``f`` that hold a
+    byte > 0 (a row of bytes <= 0 cannot raise a max from 0).  Without
+    ``live_in`` one read pass over ``f`` makes it (a program's first
+    hop).  ``live_out`` gets exactly the rows of ``out`` with a byte >
+    0, the next hop's ``live_in``.  Returns (out, acc).  On the card the
+    pass (without ``live_in``), one gather launch (``hop_plan``'s grid,
+    the UPTO max fused into it) and, with hub extra rows, the hub pass:
+    one count under ``LAUNCHES["go_hop_i8"]``."""
     R1, B = _carrier(f, "f")
     dev = f.device
     _check(out, "out", torch.int8, (R1, B), dev)
@@ -837,24 +905,63 @@ def go_hop_i8(f: torch.Tensor, acc: Optional[torch.Tensor],
     if R1 != tables.n_rows + 1:
         raise ValueError(f"carrier has {R1} rows, tables "
                          f"{tables.n_rows + 1}")
+    for name, v in (("live_in", live_in), ("live_out", live_out)):
+        if v is not None:
+            _check(v, name, torch.int32, (live_words(R1),), dev)
+    if live_in is not None and live_out is not None \
+            and live_in.data_ptr() == live_out.data_ptr():
+        raise ValueError("live_out must be a separate buffer from live_in")
     n_extras = tables.n_rows - tables.n
     _check(eslot, "eslot", torch.int32, (n_extras,), dev)
     _vec(hrows, "hrows", torch.int32, dev)
     _tables_check(tables, dev)
     over = _over_check(over)
     if not _route(dev):
-        return go_hop_i8_ref(f, acc, out, tables, eslot, hrows, over)
+        return go_hop_i8_ref(f, acc, out, tables, eslot, hrows, over,
+                             live_in, live_out)
     _aligned(f, out, *(() if acc is None else (acc,)))
-    ov = (ctypes.c_int32 * len(over))(*over)
-    rc = _lib().i8_go_hop(
+    lib, stream = _lib(), _stream(dev)
+    if live_in is None:
+        live_in = torch.empty(live_words(R1), dtype=torch.int32, device=dev)
+        _ok(lib.i8_row_live(f.data_ptr(), live_in.data_ptr(), R1 - 1, B,
+                            stream), "i8_row_live")
+    at = f.data_ptr() | out.data_ptr() | (0 if acc is None
+                                          else acc.data_ptr())
+    unit = 16 if B % 16 == 0 and not at % 16 else 4 if B % 4 == 0 else 1
+    cols = i8_hop_cols(B, unit)
+    desc, blocks, lgc = _hop_desc(tables.row0, tables.slot0, tables.rows,
+                                  tables.D, B, unit, cols)
+    rc = lib.i8_go_hop(
         f.data_ptr(), None if acc is None else acc.data_ptr(),
-        out.data_ptr(), tables.nbr.data_ptr(), tables.et.data_ptr(),
-        _bucket_desc(tables), len(tables.D), eslot.data_ptr(),
-        hrows.data_ptr(), n_extras, ov, len(over), tables.n, tables.n_rows,
-        B, _stream(dev))
+        out.data_ptr(), live_in.data_ptr(),
+        None if live_out is None else live_out.data_ptr(),
+        tables.nbr.data_ptr(), tables.et.data_ptr(), desc, len(tables.D),
+        blocks, lgc, unit, cols, eslot.data_ptr(), hrows.data_ptr(),
+        n_extras, _over_array(over), len(over), tables.n, tables.n_rows, B,
+        stream)
     _ok(rc, "i8_go_hop")
     LAUNCHES["go_hop_i8"] += 1
     return out, acc
+
+
+def _live_chain(hop, R1: int, dev: torch.device):
+    """``hop`` (``go_hop_i8`` or its plain version) as a program's hop
+    in ``go_hop``'s form: each call passes the previous call's
+    ``live_out`` as its ``live_in`` (the first call none, so it runs the
+    row-live pass), the two arrays taking turns.  Between two calls the
+    program may only lower bytes of the frontier (K15 does: ``nxt``
+    becomes ``newly``), so every array passed on stays a superset of
+    the rows with a byte > 0."""
+    live = [torch.empty(live_words(R1), dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    prev: list = [None]
+
+    def step(f, acc, out, tables, eslot, hrows, over):
+        nxt = live[1] if prev[0] is live[0] else live[0]
+        hop(f, acc, out, tables, eslot, hrows, over, prev[0], nxt)
+        prev[0] = nxt
+        return out, acc
+    return step
 
 
 def pack_rows_ref(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -939,6 +1046,7 @@ def _go_loop_i8(f0, tables, eslot, hrows, over, steps, upto, pack, hop,
     if steps > 1:
         acc = f0.clone() if upto else None
         cur, buf = f0, torch.empty_like(f0)
+        hop = _live_chain(hop, f0.shape[0], f0.device)
         for _ in range(steps - 1):
             hop(cur, acc, buf, tables, eslot, hrows, over)
             cur, buf = buf, cur
@@ -992,9 +1100,11 @@ def ell_bfs_i8_ref(f0: torch.Tensor, t0: torch.Tensor,
                    stop_when_found: bool = True) -> Tuple[torch.Tensor, int]:
     """Plain version of ``ell_bfs_i8``: the same loop over the plain
     versions of the hop, the level pass and the int8 form."""
+    lanes = _bfs_pair_i8(f0, t0)
     return _bfs_loop(f0, t0, tables, eslot, hrows, over, max_steps,
-                     stop_when_found, go_hop_i8_ref, bfs_level_i8_ref,
-                     bfs_depth_i8_ref, _bfs_pair_i8(f0, t0))
+                     stop_when_found,
+                     _live_chain(go_hop_i8_ref, f0.shape[0], f0.device),
+                     bfs_level_i8_ref, bfs_depth_i8_ref, lanes)
 
 
 def ell_bfs_i8(f0: torch.Tensor, t0: torch.Tensor, tables: DeviceTables,
@@ -1008,9 +1118,11 @@ def ell_bfs_i8(f0: torch.Tensor, t0: torch.Tensor, tables: DeviceTables,
     unreached when ``max_steps <= 120`` (``bfs_depth_i8``), else int16
     with INT16_INF.  The level loop runs on the host and reads this
     level's two flags back once a level, as ``ell_bfs`` does."""
+    lanes = _bfs_pair_i8(f0, t0)
     out = _bfs_loop(f0, t0, tables, eslot, hrows, over, max_steps,
-                    stop_when_found, go_hop_i8, bfs_level_i8, bfs_depth_i8,
-                    _bfs_pair_i8(f0, t0))
+                    stop_when_found,
+                    _live_chain(go_hop_i8, f0.shape[0], f0.device),
+                    bfs_level_i8, bfs_depth_i8, lanes)
     if _route(f0.device):
         LAUNCHES["ell_bfs_i8"] += 1
     return out
@@ -1918,22 +2030,14 @@ def ell_absorb(tables: DeviceTables, rows: Sequence[torch.Tensor],
 # ====================================================================
 # The replicated-frontier mesh (ell.py:1688-1846, :1036): the tables
 # row-sharded over a mesh.PartsMesh (ell.MeshTables), the packed
-# frontier replicated, one buffer per shard.  A hop is M1 (``shard_hop``,
-# csrc/ell_mesh.cu) on every shard into its own next buffer, the
-# owned rows copied to every other shard (mesh.replicate_rows), then
+# frontier replicated, one buffer per shard.  A hop is M1 (``shard_hop``:
+# csrc/ell_lanes.cu's hop gather on the shard's plan) on every shard
+# into its own next buffer, the owned rows copied to every other shard
+# (mesh.replicate_rows with M3 ``copy_rows``, csrc/ell_mesh.cu), then
 # the hub OR-merge (``hop_merge``) on every replica — after the
 # replication, never per shard (ell.py:1780-1788).  Launches on a
 # shard run on its device's current stream.
 # ====================================================================
-class _ShardBuckets(ctypes.Structure):
-    """``ShardBuckets`` of csrc/ell_mesh.cu, passed by value."""
-    _fields_ = [("grow0", ctypes.c_longlong * MAX_BUCKETS),
-                ("lrow0", ctypes.c_longlong * MAX_BUCKETS),
-                ("slot0", ctypes.c_longlong * MAX_BUCKETS),
-                ("live", ctypes.c_longlong * MAX_BUCKETS),
-                ("D", ctypes.c_int * MAX_BUCKETS), ("n", ctypes.c_int)]
-
-
 class _ShardAbsorb(ctypes.Structure):
     """``ShardAbsorb`` of csrc/ell_mesh.cu, passed by value."""
     _fields_ = [("rows", ctypes.c_void_p * MAX_BUCKETS),
@@ -1946,11 +2050,27 @@ class _ShardAbsorb(ctypes.Structure):
                 ("n", ctypes.c_int), ("kp", ctypes.c_int)]
 
 
-def _live(mt, s: int, b: int) -> int:
-    """Shard s's chunk rows of bucket b below the bucket's real rows."""
+def _shard_live(mt, s: int) -> Tuple[int, ...]:
+    """Per bucket, shard s's chunk rows below the bucket's real rows
+    (M1's plan rows)."""
     t = mt.shards[s]
-    return max(0, min(t.rows[b], mt.brow0[b] + mt.real_rows[b]
-                      - t.row0[b]))
+    return _shard_rows(t.rows, t.row0, mt.brow0, mt.real_rows)
+
+
+@functools.lru_cache(maxsize=256)
+def _shard_rows(rows, row0, brow0, real_rows) -> Tuple[int, ...]:
+    """``_shard_live`` from a shard's geometry, made once per geometry."""
+    return tuple(max(0, min(r, b0 + real - r0))
+                 for r, r0, b0, real in zip(rows, row0, brow0, real_rows))
+
+
+def _on_card(dev: torch.device):
+    """A context in which a launch lands on ``dev``: nothing when its
+    card is already the current one (entering a device context costs
+    more host time than the launches here)."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _shard_check(fp: torch.Tensor, out: torch.Tensor, mt, s: int
@@ -1980,8 +2100,7 @@ def shard_hop_ref(fp: torch.Tensor, out: torch.Tensor, mt, s: int,
     W = fp.shape[1]
     over_t = torch.tensor(sorted(set(int(e) for e in over)),
                           dtype=torch.int32, device=fp.device)
-    for b in range(len(t.D)):
-        live = _live(mt, s, b)
+    for b, live in enumerate(_shard_live(mt, s)):
         if live <= 0:
             continue
         nbr, et = t.bucket(b)
@@ -2002,31 +2121,30 @@ def shard_hop(fp: torch.Tensor, out: torch.Tensor, mt, s: int,
     (a separate buffer on the same device) gets, at each of the shard's
     frontier rows, the OR over the row's slots whose etype is in
     ``over`` of the gathered ``fp`` rows, and a zero pad row.  Every
-    other row of ``out`` is left as it was."""
+    other row of ``out`` is left as it was.  On the card it is the
+    single-card hop's gather (``ell_go_hop``) on the shard's plan: per
+    bucket the chunk's first frontier row, its shard-local slots and
+    its rows below the bucket's real count; no accumulator, no merge
+    (the merge runs after the replication)."""
     _R1, W = _shard_check(fp, out, mt, s)
     over = _over_check(over)
     dev = fp.device
     if not _route(dev):
         return shard_hop_ref(fp, out, mt, s, over)
-    _aligned(fp, out)
     t = mt.shards[s]
-    bk = _ShardBuckets()
-    lrow = 0
-    for b in range(len(t.D)):
-        bk.grow0[b] = t.row0[b]
-        bk.lrow0[b] = lrow
-        bk.slot0[b] = t.slot0[b]
-        bk.live[b] = _live(mt, s, b)
-        bk.D[b] = t.D[b]
-        lrow += t.rows[b]
-    bk.n = len(t.D)
-    ov = (ctypes.c_int32 * len(over))(*over)
-    with torch.cuda.device(dev):
-        rc = _lib().ell_shard_hop(fp.data_ptr(), out.data_ptr(),
-                                  t.nbr.data_ptr(), t.et.data_ptr(), bk, ov,
-                                  len(over), lrow, t.n_rows, W,
-                                  _stream(dev))
-    _ok(rc, "ell_shard_hop")
+    fpp, outp = fp.data_ptr(), out.data_ptr()
+    if (fpp | outp) % 4:
+        raise ValueError("kernel operands must be 4-byte aligned "
+                         "(the kernels work on 32-bit words)")
+    wide = W % 16 == 0 and not (fpp | outp) % 16
+    desc, blocks, lgc = _hop_desc(t.row0, t.slot0, _shard_live(mt, s),
+                                  t.D, W, 16 if wide else 4)
+    with _on_card(dev):
+        rc = _lib().ell_go_hop(
+            fpp, None, outp, t.nbr.data_ptr(), t.et.data_ptr(), desc,
+            len(t.D), blocks, lgc, wide, None, None, 0, _over_array(over),
+            len(over), t.n, t.n_rows, W, _stream(dev))
+    _ok(rc, "ell_go_hop (shard plan)")
     LAUNCHES["shard_hop"] += 1
     return out
 
@@ -2059,7 +2177,7 @@ def hop_merge(out: torch.Tensor, eslot: torch.Tensor, hrows: torch.Tensor,
     if n_extras == 0:
         return out
     _aligned(out)
-    with torch.cuda.device(dev):
+    with _on_card(dev):
         rc = _lib().ell_hop_merge(out.data_ptr(), eslot.data_ptr(),
                                   hrows.data_ptr(), n, n_rows, n_extras, W,
                                   _stream(dev))
@@ -2133,6 +2251,79 @@ def or_into(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return or_many(src.unsqueeze(0), dst)
 
 
+MAX_COPY_DST = 15      # csrc ell_mesh.cu kCopyMaxDst
+MAX_COPY_RANGES = 32   # csrc kCopyMaxRanges
+
+
+@functools.lru_cache(maxsize=256)
+def _byte_ranges(rows: Tuple[Tuple[int, int], ...], rb: int):
+    """M3's ranges as the host int64 (lo, hi) byte pairs it takes (made
+    once per shard geometry and row width)."""
+    return (ctypes.c_int64 * (2 * len(rows)))(
+        *[v for lo, hi in rows for v in (lo * rb, hi * rb)])
+
+
+def copy_rows_ref(src: torch.Tensor, dsts: Sequence[torch.Tensor],
+                  ranges: Sequence[Tuple[int, int]]) -> None:
+    """Plain version of ``copy_rows``: one ``copy_`` per (range,
+    receiver), the replication's per-block copies."""
+    for lo, hi in ranges:
+        if hi > lo:
+            for d in dsts:
+                d[lo:hi].copy_(src[lo:hi])
+
+
+def copy_rows(src: torch.Tensor, dsts: Sequence[torch.Tensor],
+              ranges: Sequence[Tuple[int, int]]) -> None:
+    """M3: rows ``[lo, hi)`` of ``src`` for each of ``ranges`` (along
+    dim 0) copied into the same rows of every buffer of ``dsts`` — one
+    source shard's owned rows sent to the k - 1 shards that share its
+    card, in one launch that reads each row once (``mesh.replicate_rows``
+    calls it once a source shard).  ``src`` and ``dsts`` are contiguous
+    tensors of one shape and dtype on one device, none aliasing another,
+    whose rows are a multiple of 4 bytes (4-byte aligned on the card);
+    at most MAX_COPY_DST receivers and MAX_COPY_RANGES ranges.  Counts
+    under ``LAUNCHES["replicate_rows"]``; nothing to copy launches
+    nothing."""
+    dev = src.device
+    shape = tuple(src.shape)
+    _check(src, "src", src.dtype, shape, dev)
+    if src.dim() < 1:
+        raise ValueError("src must have rows (dim 0)")
+    if not 0 < len(dsts) <= MAX_COPY_DST:
+        raise ValueError(f"{len(dsts)} receivers (1..{MAX_COPY_DST})")
+    ptrs = {src.data_ptr()}
+    for i, d in enumerate(dsts):
+        _check(d, f"dsts[{i}]", src.dtype, shape, dev)
+        ptrs.add(d.data_ptr())
+    if len(ptrs) != len(dsts) + 1:
+        raise ValueError("copy_rows' buffers must be distinct")
+    rows = [(int(lo), int(hi)) for lo, hi in ranges if hi > lo]
+    if len(rows) > MAX_COPY_RANGES:
+        raise ValueError(f"{len(rows)} ranges (at most {MAX_COPY_RANGES})")
+    if any(lo < 0 or hi > shape[0] for lo, hi in rows):
+        raise ValueError(f"a range outside rows [0, {shape[0]})")
+    rb = src[0].numel() * src.element_size()
+    if rb % 4:
+        raise ValueError(f"rows of {rb} bytes (the kernel copies 32-bit "
+                         f"words)")
+    if not _route(dev):
+        return copy_rows_ref(src, dsts, rows)
+    if any(p % 4 for p in ptrs):
+        raise ValueError("copy_rows' buffers must be 4-byte aligned")
+    if not rows:
+        return None
+    byte_ranges = _byte_ranges(tuple(rows), rb)
+    dp = (ctypes.c_void_p * len(dsts))(*[d.data_ptr() for d in dsts])
+    with _on_card(dev):
+        rc = _lib().mesh_replicate_rows(src.data_ptr(), dp, len(dsts),
+                                        byte_ranges, len(rows),
+                                        _stream(dev))
+    _ok(rc, "mesh_replicate_rows")
+    LAUNCHES["replicate_rows"] += 1
+    return None
+
+
 def _mesh_args(mt, eslot, hrows) -> None:
     for name, v in (("eslot", eslot), ("hrows", hrows)):
         if len(v) != mt.k:
@@ -2143,21 +2334,25 @@ def _mesh_args(mt, eslot, hrows) -> None:
                                  f"{s} on {mt.shards[s].nbr.device}")
 
 
-def mesh_hop(cur, nxt, mt, eslot, hrows, over, blocks, hop, merge) -> None:
+def mesh_hop(cur, nxt, mt, eslot, hrows, over, blocks, hop, merge,
+             copy) -> None:
     """One replicated-frontier hop (ell.py:1771-1796): ``hop`` (M1 or
     its plain version) on every shard from its replica ``cur[s]`` into
     ``nxt[s]``, the owned rows (``blocks[s] = mt.owned(s)``) replicated
-    to every shard, then ``merge`` (the hub merge) on every replica."""
+    to every shard by ``copy`` (M3 or its plain version, as
+    ``mesh.replicate_rows`` takes it), then ``merge`` (the hub merge)
+    on every replica."""
     from .mesh import replicate_rows
     for s in range(mt.k):
         hop(cur[s], nxt[s], mt, s, over)
-    replicate_rows(nxt, blocks)
+    replicate_rows(nxt, blocks, copy)
     t = mt.shards[0]
     for s in range(mt.k):
         merge(nxt[s], eslot[s], hrows[s], t.n, t.n_rows)
 
 
-def _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, hop, merge):
+def _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, hop, merge,
+                     copy):
     _frontier(f0p, "f0p")
     _mesh_args(mt, eslot, hrows)
     over = _over_check(over)
@@ -2167,7 +2362,8 @@ def _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, hop, merge):
     nxt = [torch.empty_like(c) for c in cur]
     blocks = [mt.owned(s) for s in range(mt.k)]
     for _ in range(steps - 1):
-        mesh_hop(cur, nxt, mt, eslot, hrows, over, blocks, hop, merge)
+        mesh_hop(cur, nxt, mt, eslot, hrows, over, blocks, hop, merge,
+                 copy)
         cur, nxt = nxt, cur
     return cur
 
@@ -2177,7 +2373,7 @@ def ell_go_sharded_ref(f0p: torch.Tensor, mt, eslot, hrows,
     """Plain version of ``ell_go_sharded``: the same loop over the plain
     versions of M1 and the merge."""
     return _go_sharded_loop(f0p, mt, eslot, hrows, over, steps,
-                            shard_hop_ref, hop_merge_ref)
+                            shard_hop_ref, hop_merge_ref, copy_rows_ref)
 
 
 def ell_go_sharded(f0p: torch.Tensor, mt, eslot, hrows,
@@ -2190,14 +2386,14 @@ def ell_go_sharded(f0p: torch.Tensor, mt, eslot, hrows,
     the result, equal to ``ell_go``'s exact-depth frontier (there is no
     UPTO form: the mesh declines UPTO)."""
     out = _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, shard_hop,
-                           hop_merge)
+                           hop_merge, copy_rows)
     if steps > 1 and _route(f0p.device):
         LAUNCHES["ell_go_sharded"] += 1
     return out
 
 
 def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
-                      hop, merge, level, final):
+                      hop, merge, copy, level, final):
     from .mesh import on
     lanes = _bfs_pair(f0p, t0p)
     _mesh_args(mt, eslot, hrows)
@@ -2221,7 +2417,7 @@ def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
         f_any, t_any = flags[0][step].tolist()
         if not f_any or (stop and not t_any):
             break
-        mesh_hop(fp, buf, mt, eslot, hrows, over, blocks, hop, merge)
+        mesh_hop(fp, buf, mt, eslot, hrows, over, blocks, hop, merge, copy)
         for s in range(mt.k):
             with on(buf[s].device):
                 level(buf[s], tp[s], d[s], flags[s][step + 1], step,
@@ -2242,7 +2438,7 @@ def ell_bfs_sharded_ref(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
     """Plain version of ``ell_bfs_sharded``."""
     return _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
                              stop_when_found, shard_hop_ref, hop_merge_ref,
-                             bfs_level_ref, bfs_depth_i8_ref)
+                             copy_rows_ref, bfs_level_ref, bfs_depth_i8_ref)
 
 
 def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
@@ -2257,7 +2453,7 @@ def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
     120``, else int16 with INT16_INF."""
     out = _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
                             stop_when_found, shard_hop, hop_merge,
-                            bfs_level, bfs_depth_i8)
+                            copy_rows, bfs_level, bfs_depth_i8)
     if _route(f0p.device):
         LAUNCHES["ell_bfs_sharded"] += 1
     return out

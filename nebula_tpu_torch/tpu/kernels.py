@@ -75,7 +75,7 @@ KERNELS: Dict[str, PortKernel] = {
                              ("ell_absorb.cu",)),
     # the replicated-frontier mesh (kernels.py:364; ell.py:1712, :1799,
     # :1036): edge-sharded GO over the edge kernels and or_many, and the
-    # row-sharded programs over M1 / M2 and the reused lane kernels
+    # row-sharded programs over M1 / M2 / M3 and the reused lane kernels
     "sharded_go": PortKernel(edge_ops.sharded_go_ref, edge_ops.sharded_go,
                              _EDGE + _LANES),
     "ell_go_sharded": PortKernel(ell_ops.ell_go_sharded_ref,

@@ -10,13 +10,16 @@ drives its mesh: there is no ``torch.distributed``.  A shard is an
 index into ``PartsMesh.devices``; several shards may sit on one device
 (k shards on one card, or on the CPU, play the part of the test
 suite's virtual devices).  Each shard keeps its own buffers, and
-whatever moves between shards moves by ``Tensor.copy_`` into the
-receiving shard's buffer — a peer copy between two cards, a device
-copy when both shards share one — so shards on one card move the same
-bytes a mesh of cards would.  Combining what arrived (the OR of
-``psum_or``) is one kernel launch a shard (``ell_ops.or_many``).  A
-copy between two cards runs on the current streams of both
-(``Tensor.copy_``'s own ordering); only one card has been run.
+whatever moves between shards moves into the receiving shard's
+buffer — a peer copy between two cards, a device copy when both
+shards share one — so shards on one card move the same bytes a mesh of
+cards would.  The hop's row replication sends a source shard's owned
+rows to every shard on its card in one launch (``ell_ops.copy_rows``);
+everything else moves by ``Tensor.copy_``.  Combining what arrived
+(the OR of ``psum_or``) is one kernel launch a shard
+(``ell_ops.or_many``).  A copy between two cards runs on the current
+streams of both (``Tensor.copy_``'s own ordering); only one card has
+been run.
 """
 from __future__ import annotations
 
@@ -77,21 +80,34 @@ class PartsMesh:
 
 
 def replicate_rows(bufs: Sequence[torch.Tensor],
-                   blocks: Sequence[Sequence[Tuple[int, int]]]) -> int:
+                   blocks: Sequence[Sequence[Tuple[int, int]]],
+                   copy) -> int:
     """Every shard receives every other shard's owned rows: shard s owns
     the row ranges ``blocks[s]`` (half-open, along dim 0) of its buffer
     ``bufs[s]``, and each of them is copied into the same rows of every
-    other shard's buffer.  Returns the bytes copied."""
+    other shard's buffer.  The receivers on the source's own device take
+    them through one ``copy(bufs[t], receivers, blocks[t])``
+    (``ell_ops.copy_rows``, M3: one launch a source shard, or its plain
+    version); a receiver on another card takes them by ``copy_`` per
+    range (a peer copy; no such machine has been measured).  Returns the
+    bytes copied."""
     moved = 0
     for t, rows in enumerate(blocks):
-        for lo, hi in rows:
-            if hi <= lo:
-                continue
-            src = bufs[t][lo:hi]
-            for s, dst in enumerate(bufs):
-                if s != t:
-                    dst[lo:hi].copy_(src)
-                    moved += src.numel() * src.element_size()
+        rows = [(lo, hi) for lo, hi in rows if hi > lo]
+        if not rows:
+            continue
+        src = bufs[t]
+        near = [b for s, b in enumerate(bufs)
+                if s != t and b.device == src.device]
+        if near:
+            copy(src, near, rows)
+        for s, dst in enumerate(bufs):
+            if s != t and dst.device != src.device:
+                for lo, hi in rows:
+                    dst[lo:hi].copy_(src[lo:hi])
+        nbytes = sum(hi - lo for lo, hi in rows) * src[0].numel() \
+            * src.element_size()
+        moved += nbytes * (len(bufs) - 1)
     return moved
 
 

@@ -53,7 +53,8 @@ def _blocks(rows, D, W, wide):
     """(bucket, local rows) of every block, by the kernel's lookup:
     bucket = the last b with blk0[b] <= block, rows (block - blk0[b]) *
     (HOP_THREADS / G) onward, those below rows[b] live."""
-    lgc, lg, blk0, blocks = ell_ops.hop_plan(rows, D, W, wide)
+    lgc, lg, blk0, blocks = ell_ops.hop_plan(rows, D, W,
+                                             16 if wide else 4)
     out = []
     for blk in range(blocks):
         b = 0
@@ -126,16 +127,16 @@ def test_hop_plan_is_made_once_per_geometry():
     es, ed, ee, n = _graph()
     ix = EllIndex.build(es, ed, ee, n, cap=16, min_d=8)
     t = ix.device_tables(CPU)
-    a = ell_ops._hop_desc(t.row0, t.slot0, t.rows, t.D, 16, True)
-    b = ell_ops._hop_desc(t.row0, t.slot0, t.rows, t.D, 16, True)
+    a = ell_ops._hop_desc(t.row0, t.slot0, t.rows, t.D, 16, 16)
+    b = ell_ops._hop_desc(t.row0, t.slot0, t.rows, t.D, 16, 16)
     assert a is b
-    lgc, lg, blk0, blocks = ell_ops.hop_plan(t.rows, t.D, 16, True)
+    lgc, lg, blk0, blocks = ell_ops.hop_plan(t.rows, t.D, 16, 16)
     want = [v for i in range(len(t.D))
             for v in (t.row0[i], t.slot0[i], t.rows[i], t.D[i], lg[i],
                       blk0[i])]
     assert list(a[0]) == want and a[1:] == (blocks, lgc)
     # no row at all: still one block, which zeroes the pad row
-    assert ell_ops._hop_desc((0,), (0,), (0,), (8,), 16, True)[1] == 1
+    assert ell_ops._hop_desc((0,), (0,), (0,), (8,), 16, 16)[1] == 1
     assert ell_ops._over_check([2, 1, 2]) == (1, 2)
     assert ell_ops._over_check([1, 2]) is ell_ops._over_check((1, 2))
     assert ell_ops._bucket_desc(t) is ell_ops._bucket_desc(

@@ -155,7 +155,7 @@ def test_mesh_collectives():
     mesh = _pmesh(3)
     bufs = [torch.full((9, 4), s, dtype=torch.uint8) for s in range(3)]
     blocks = [[(0, 2), (6, 7)], [(2, 4)], [(4, 6), (7, 9)]]
-    moved = replicate_rows(bufs, blocks)
+    moved = replicate_rows(bufs, blocks, ell_ops.copy_rows)
     want = torch.tensor([0, 0, 1, 1, 2, 2, 0, 2, 2], dtype=torch.uint8)
     for b in bufs:
         assert torch.equal(b[:, 0], want)
