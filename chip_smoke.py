@@ -82,11 +82,11 @@ Phases, in order; any failure exits non-zero:
              (more 4-byte columns than a warp has lanes); then the
              replicated-frontier mesh (``mesh_kernel_phase``) with the
              serve tables cut into k = 2 and 4 shards that all sit on
-             this card, at B = 1024 and 128: M1 ``shard_hop`` (the
-             hop's gather on the shard's plan) per shard, M3
-             ``replicate_rows`` (one launch a source shard: k a hop,
-             against the per-block ``copy_`` loop it replaced),
-             ``hop_merge`` and a whole mesh hop against ``go_hop``,
+             this card, at B = 1024 and 128: ``mesh_hop``'s stages, each
+             one launch over every shard: M1 ``shard_hop`` (the hop's
+             gather on each shard's chunk), M3 ``replicate_rows``
+             (against the per-block ``copy_`` loop it replaced),
+             ``hop_merge``, and the whole hop against ``go_hop``,
              ``ell_go_sharded`` at 1-4 steps against its plain version
              and ``ell_go``, ``ell_bfs_sharded`` at 1-4 steps and UPTO
              5 (shortest and all) against ``ell_bfs``, ``ell_absorb_sharded`` and M2
@@ -105,15 +105,29 @@ Phases, in order; any failure exits non-zero:
              3 and 4 steps, and four tight-cap batches (cap_x, the dedup
              cap, the hub budget, cap_e), ``mesh_sparse_bfs`` shortest
              and all at B = 128 and 1024 (against its plain version and
-             ``ell_bfs``), every X1 ``mesh_route``, X2 ``mesh_mark``, K5
-             (with its row base) and X3 ``mesh_bfs_stamp`` call held to
-             its plain version on copies of its operands; per-shard
-             outputs equal when no overflow, the flags always, for the
-             probed run and for one call of each public wrapper.  A
-             program's ``ms`` is its device time, its calls queued
-             behind a spin kernel (the BFS replayed with the level
-             flags the probed run read, so the host never waits on
-             the card), its event time beside as ``event_ms``
+             ``ell_bfs``), every call of the card stages (X1
+             ``mesh_route_card``, X2 + K5 ``mesh_dedup``,
+             ``mesh_agree``, K6 ``mesh_emit``, each one launch a kernel
+             over every shard) and of X3 ``mesh_bfs_stamp`` held to its
+             plain version on copies of its operands; per-shard outputs
+             equal when no overflow, the flags always, for the probed
+             run and for one call of each public wrapper; then
+             (``mesh_stage_check``) the stages and all four programs
+             again on hub-free tables at k = 2 and 4 and on the serve
+             tables at k = 4, at caps they keep and at a tight one, on
+             one card and with the shards split over two pretended
+             cards.  A program's ``ms`` is its device time, its calls
+             queued behind a spin kernel (the BFS replayed with the
+             level flags the probed run read, so the host never waits
+             on the card), its event time beside as ``event_ms``, and
+             the four mesh programs' and the card stages'
+             ``launches_a_call`` (CUDA kernels, memsets and memcpys: a
+             call captured into a CUDA graph, a BFS's replay with its
+             host reads added; three calls traced under
+             ``torch.profiler`` beside, none showing more) and
+             ``c_calls_a_call`` (checked C calls), each stage held to
+             its 1, 3 or 4 launches in one C call (``stage_launches``),
+             and X2 + K5 split by kernel in the trace (``dedup_split``)
 4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
              edges, stored in both directions, with seeded columns:
              edge ``w`` int, ``score`` double, ``kind`` string, tag
@@ -227,8 +241,9 @@ import time
 
 import numpy as np
 
-from nebula_tpu_torch.tools.cardtime import (SPIN_CYCLES, cuda_ms, queued_ms,
-                                           queued_times)
+from nebula_tpu_torch.tools.cardtime import (SPIN_CYCLES, cuda_ms,
+                                           kernel_ms, launches_a_call,
+                                           queued_ms, queued_times)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 REPLACES = {
@@ -279,6 +294,10 @@ REPLACES = {
     "mesh_bfs_stamp": "nebula_tpu/tpu/ell.py:2279",
     "mesh_sparse_go": "nebula_tpu/tpu/ell.py:2052",
     "mesh_sparse_bfs": "nebula_tpu/tpu/ell.py:2179",
+    "mesh_hop": "nebula_tpu/tpu/ell.py:1740",
+    "mesh_dedup": "nebula_tpu/tpu/ell.py:2019",
+    "mesh_agree": "nebula_tpu/tpu/ell.py:2148",
+    "mesh_emit": "nebula_tpu/tpu/ell.py:2162",
 }
 INT8_KERNELS = ("frontier_upload_i8", "go_hop_i8", "pack_rows",
                 "bfs_level_i8", "ell_go_i8", "ell_bfs_i8")
@@ -299,11 +318,13 @@ SOURCES["ell_bfs_i8"] += " + ell_lanes.cu"
 SOURCES["go_hop_i8"] += " + hop_plan.cuh"
 MESH_KERNELS = ("shard_hop", "hop_merge", "replicate_rows", "shard_absorb",
                 "or_into", "ell_go_sharded", "ell_bfs_sharded",
-                "ell_absorb_sharded", "sharded_go")
+                "ell_absorb_sharded", "sharded_go", "mesh_hop")
 SOURCES.update({
     "shard_hop": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu + hop_plan.cuh",
     "replicate_rows": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu",
     "hop_merge": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu",
+    "mesh_hop": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + ell_lanes.cu + "
+                "hop_plan.cuh",
     "shard_absorb": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
                     "ell_absorb.cu",
     "or_into": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu",
@@ -315,9 +336,13 @@ SOURCES.update({
                           "ell_absorb.cu",
     "sharded_go": "nebula_tpu_torch/tpu/csrc/edge_go.cu + ell_lanes.cu"})
 MESH_SPARSE_KERNELS = ("mesh_route", "mesh_mark", "mesh_bfs_stamp",
-                       "mesh_sparse_go", "mesh_sparse_bfs")
+                       "mesh_sparse_go", "mesh_sparse_bfs", "mesh_dedup",
+                       "mesh_agree", "mesh_emit")
 SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/mesh_sparse.cu"
-                for k in MESH_SPARSE_KERNELS[:3]})
+                for k in MESH_SPARSE_KERNELS[:3] + ("mesh_agree",)})
+SOURCES.update({
+    "mesh_dedup": "nebula_tpu_torch/tpu/csrc/mesh_sparse.cu + sparse_go.cu",
+    "mesh_emit": "nebula_tpu_torch/tpu/csrc/sparse_go.cu"})
 SOURCES.update({
     "mesh_sparse_go": "nebula_tpu_torch/tpu/csrc/mesh_sparse.cu + "
                       "sparse_go.cu + ell_lanes.cu",
@@ -326,8 +351,9 @@ SOURCES.update({
 # the edge-list programs no runtime path calls (the reference's only
 # caller of go is _run_go_kernel's no-filter branch, which
 # _execute_fused never takes; bfs has only its registry entry; the
-# reference runtime never calls make_sharded_go_kernel)
-NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go")
+# reference runtime never calls make_sharded_go_kernel), and or_into,
+# which only sharded_go and shards on separate cards (psum_or) run
+NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go", "or_into")
 EDGE_KERNELS = ("edge_seed", "edge_hop", "edge_final", "expr_filter",
                 "edge_bfs_level", "go", "go_filtered", "bfs")
 # which counted phase runs each kernel on its main path
@@ -348,10 +374,11 @@ PATH_KERNELS = {
                  "ell_bfs_i8"),
     "mesh": ("frontier_upload", "shard_hop", "hop_merge", "replicate_rows",
              "ell_go_sharded", "bfs_level", "bfs_depth_i8", "ell_bfs_sharded",
-             "shard_absorb", "ell_absorb_sharded"),
+             "shard_absorb", "ell_absorb_sharded", "mesh_hop"),
     "mesh_sparse": ("mesh_route", "mesh_mark", "pair_compact",
-                    "pair_reduce", "or_into", "mesh_sparse_go",
-                    "mesh_bfs_stamp", "mesh_sparse_bfs"),
+                    "pair_reduce", "mesh_sparse_go", "mesh_bfs_stamp",
+                    "mesh_sparse_bfs", "mesh_dedup", "mesh_agree",
+                    "mesh_emit"),
 }
 LIMIT_N = 10                   # the sparse phase's | LIMIT n
 MAX_PATHS = 1000               # the port's FIND PATH result cap
@@ -1391,18 +1418,23 @@ class Probe:
     ``lib(args)``, when given, times the PyTorch library call computing
     the same function; ``same(i, a, b)``, when given, decides whether
     operand i of the kernel's call (``a``) equals the plain version's
-    (``b``) in place of ``torch.equal``."""
+    (``b``) in place of ``torch.equal``.  ``first(spares)``, when given,
+    runs once, after the first call, on ``spares`` more copies of that
+    call's operands as they were, and returns numbers that ``numbers``
+    adds."""
 
     def __init__(self, torch, name, kern, ref, pre=None, post=None,
-                 lib=None, same=None):
+                 lib=None, same=None, first=None, spares=0):
         self.torch, self.name = torch, name
         self.kern, self.ref = kern, ref
         self.pre, self.post, self.lib = pre, post, lib
         self.same = same or (lambda _i, a, b: torch.equal(a, b))
+        self.first, self.spares = first, spares
         self.calls = 0
         self.k_ms = self.r_ms = self.enqueue_ms = 0.0
         self.bytes = 0
         self.lib_ms = []
+        self.extra = {}
 
     def __call__(self, *args):
         torch = self.torch
@@ -1411,8 +1443,13 @@ class Probe:
             t = self.lib(args)
             if t is not None:
                 self.lib_ms.append(t)
+        first = self.first if self.calls == 0 else None
         copies = [[a.clone() if isinstance(a, torch.Tensor) else a
-                   for a in args] for _ in range(1 + PROBE_REPS)]
+                   for a in args]
+                  for _ in range(1 + PROBE_REPS + (self.spares if first
+                                                   else 0))]
+        spares = copies[1 + PROBE_REPS:]
+        del copies[1 + PROBE_REPS:]
         out = self.kern(*args)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
@@ -1436,6 +1473,9 @@ class Probe:
         self.k_ms += ev[2].elapsed_time(ev[3]) / PROBE_REPS
         self.bytes += nb + (self.post(args) if self.post else 0)
         self.calls += 1
+        if first is not None:
+            self.extra.update(first(spares))
+            del spares
         return out
 
     def numbers(self) -> dict:
@@ -1445,7 +1485,31 @@ class Probe:
                     library_ms=(float(np.mean(self.lib_ms))
                                 if self.lib_ms else None),
                     enqueue_ms=self.enqueue_ms,
-                    calls=self.calls)
+                    calls=self.calls, **self.extra)
+
+
+def stage_launches(torch, ell_ops, fn, want: int, counters: dict,
+                   label: str) -> dict:
+    """One call of a card stage, its launches measured two ways and held
+    to what the stage must launch: the trace's device launches a call
+    (``launches_a_call``: the call captured into a CUDA graph) must be
+    ``want`` in one checked C call, and
+    the wrappers' counters (``ell_ops.LAUNCHES``, read around one call)
+    must move by ``counters`` ({name: count}).  Raises otherwise."""
+    before = dict(ell_ops.LAUNCHES)
+    fn()
+    torch.cuda.synchronize()
+    moved = {n: ell_ops.LAUNCHES[n] - before[n] for n in counters}
+    if moved != counters:
+        raise AssertionError(f"{label}: counters moved {moved}, not "
+                             f"{counters}")
+    row = launches_a_call(torch, ell_ops, fn)
+    if row["launches_a_call"] != want or row["c_calls_a_call"] != 1:
+        raise AssertionError(f"{label}: {row['launches_a_call']} launches "
+                             f"in {row['c_calls_a_call']} C calls, not "
+                             f"{want} in 1 ({row['launch_kinds']})")
+    row["counters_moved"] = moved
+    return row
 
 
 def _arg(args, i):
@@ -3666,21 +3730,25 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     """The replicated-frontier mesh's kernels and programs on the serve
     graph's tables, cut into k shards that all sit on this card (each
     shard its own buffers; what moves between shards is copied), at
-    lane width B.  Exact equality throughout: M1 ``shard_hop`` per shard
-    against its plain version, M3 ``replicate_rows`` against the
-    per-block ``copy_`` loop (k launches), and one whole mesh hop (M1
-    on every shard, M3, ``hop_merge`` on every replica) against the
-    single-card ``go_hop``; ``ell_go_sharded`` at 1-4 steps against its
+    lane width B.  Exact equality throughout: ``mesh_hop``'s stages
+    (one call, one launch each over every shard) against its plain
+    version — M1 ``shard_hop``, M3 ``replicate_rows`` (also against the
+    per-block ``copy_`` loop), ``hop_merge`` — and one whole mesh hop
+    against the single-card ``go_hop``; ``ell_go_sharded`` at 1-4 steps
+    against its
     plain version and the single-card ``ell_go``; ``ell_bfs_sharded`` at
     1-4 steps and UPTO 5, shortest and all, against ``ell_bfs`` (and its
     plain version); ``ell_absorb_sharded`` on ``windows`` (the absorb
     phase's three plans) against its plain version, its gathered shards
     against the single-card ``ell_absorb``, its inputs unchanged;
     ``sharded_go`` against the ``go`` program from 1 and 256 starts.
-    Times are CUDA events, but M3, ``hop_merge``, M2 and
-    ``ell_absorb_sharded`` report device time over calls queued behind
-    a spin kernel (``ms``; their event time beside as ``event_ms``), and
-    M1 and ``ell_go_sharded`` add theirs as ``device_ms``.
+    The stages, the hop, M2 and ``ell_absorb_sharded`` report device
+    time over calls queued behind a spin kernel (``ms``; their event
+    time beside as ``event_ms``), ``ell_go_sharded`` adds its as
+    ``device_ms``; both programs and each of ``mesh_hop``'s stages
+    report their launches and checked C calls a call
+    (``launches_a_call``), a stage held to its launches in one call
+    (``stage_launches``).
     Bounds are the bytes each function must move over the card's rate;
     an absorb counts only the real replacement rows, once, at the
     shard that owns each.  Returns {name: numbers}."""
@@ -3697,109 +3765,128 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     hub_bytes = 4 * (n_extras + int(hrows.numel()))
     res = {}
 
-    # ---- M1 per shard, on a frontier with ~2% of the real rows live
+    # ---- M1 over the card's shards, on a frontier with ~2% of the real
+    # rows live: one mesh_hop call (the gather stage), one launch
     fp_h = np.zeros((R1, W), np.uint8)
     live = rng.random(ix.n) < 0.02
     fp_h[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
                                      dtype=np.uint8)
     fp0 = torch.from_numpy(fp_h).to(dev)
-    per_ms, per_dev, per_plain, per_bound = [], [], [], []
-    outs = [torch.empty_like(fp0) for _ in range(k)]
-    for s in range(k):
-        ok_ = torch.full_like(fp0, 0xA5)
-        or_ = ok_.clone()
-        ell_ops.shard_hop(fp0, ok_, mt, s, over)
-        ell_ops.shard_hop_ref(fp0, or_, mt, s, over)
-        require_equal(torch, f"shard_hop k={k} s={s}", B, (ok_, or_))
-        per_ms.append(cuda_ms(torch, lambda: ell_ops.shard_hop(
-            fp0, outs[s], mt, s, over), 50))
-        per_dev.append(mesh_queued_ms(torch, lambda: ell_ops.shard_hop(
-            fp0, outs[s], mt, s, over), f"shard_hop k={k} B={B} s={s}"))
-        per_plain.append(cuda_ms(torch, lambda: ell_ops.shard_hop_ref(
-            fp0, outs[s], mt, s, over), 2, warmup=1))
-        t = mt.shards[s]
-        live_rows = sum(hi - lo for lo, hi in blocks[s])
-        per_bound.append(bytes_ms(8 * int(t.nbr.numel()) + R1 * W
-                                  + (live_rows + 1) * W))
-    res["shard_hop"] = dict(
-        max_abs_err=0, ms=float(np.mean(per_ms)),
-        plain_ms=float(np.mean(per_plain)),
-        bound_ms=float(np.mean(per_bound)), bound_by="bytes",
-        library_ms=None, k=k,
-        library_none="none: no PyTorch call gathers over ELL slots with "
-                     "an etype mask",
-        per_shard_ms=per_ms, sum_ms=float(np.sum(per_ms)),
-        per_shard_bound_ms=per_bound, device_ms=float(np.mean(per_dev)),
-        per_shard_device_ms=per_dev)
+    g = mesh.groups[0]
+    cur = mesh.replicas(fp0)[0]
+    outs = torch.empty_like(cur)
 
-    # ---- M3: the owned rows replicated, one launch a source shard,
-    # against the per-block copy_ loop it replaced, on buffers whose
-    # every byte differs between shards
-    bufs = [torch.randint(0, 256, fp0.shape, dtype=torch.uint8,
-                          device=dev) for _ in range(k)]
-    bk_, br_ = [b.clone() for b in bufs], [b.clone() for b in bufs]
-    ell_ops.reset_launches()
-    copy_bytes = replicate_rows(bk_, blocks, ell_ops.copy_rows)
-    m3_launches = ell_ops.LAUNCHES["replicate_rows"]
-    replicate_rows(br_, blocks, ell_ops.copy_rows_ref)
-    require_equal(torch, f"replicate_rows k={k}", B, *zip(bk_, br_))
-    if m3_launches != k:
-        raise AssertionError(f"replicate_rows k={k}: {m3_launches} "
-                             f"launches, not one a source shard")
+    def stage(st_, out=outs, fn=ell_ops.mesh_hop):
+        return lambda: fn(cur, out, mt, g, eslot, hrows, over, st_)
+    # each stage's launches, measured in the trace and by the counters
+    # the C call's report moves: M1, M3 and the merge one each
+    stage_n = {}
+    for st_ in (ell_ops.HOP_GATHER, ell_ops.HOP_COPY, ell_ops.HOP_MERGE,
+                ell_ops.HOP_STAGES):
+        ok_ = torch.randint(0, 256, cur.shape, dtype=torch.uint8,
+                            device=dev)
+        or_ = ok_.clone()
+        stage(st_, ok_)()
+        stage(st_, or_, ell_ops.mesh_hop_ref)()
+        require_equal(torch, f"mesh_hop k={k} stages={st_}", B, (ok_, or_))
+        if dev.type == "cuda":
+            moves = {"mesh_hop": 1,
+                     "shard_hop": int(bool(st_ & ell_ops.HOP_GATHER)),
+                     "replicate_rows": int(bool(st_ & ell_ops.HOP_COPY)),
+                     "hop_merge": int(bool(st_ & ell_ops.HOP_MERGE)
+                                      and n_extras > 0)}
+            stage_n[st_] = stage_launches(
+                torch, ell_ops, stage(st_, ok_), sum(moves.values()) - 1,
+                moves, f"mesh_hop k={k} stages={st_}")
+    m1_ms = mesh_queued_ms(torch, stage(ell_ops.HOP_GATHER),
+                           f"shard_hop k={k} B={B}")
+    m1_ev = cuda_ms(torch, stage(ell_ops.HOP_GATHER), 50)
+    m1_plain = cuda_ms(torch, stage(ell_ops.HOP_GATHER,
+                                    fn=ell_ops.mesh_hop_ref), 2, warmup=1)
+    owned = sum(hi - lo for rows in blocks for lo, hi in rows)
+    slots_all = sum(int(t.nbr.numel()) for t in mt.shards)
+    res["shard_hop"] = dict(
+        max_abs_err=0, ms=m1_ms, event_ms=m1_ev, plain_ms=m1_plain,
+        bound_ms=bytes_ms(8 * slots_all + k * R1 * W + (owned + k) * W),
+        bound_by="bytes", library_ms=None, k=k,
+        **stage_n.get(ell_ops.HOP_GATHER, {}),
+        library_none="none: no PyTorch call gathers over ELL slots with "
+                     "an etype mask")
+
+    # ---- M3: every shard's owned rows to the card's other replicas, one
+    # launch, against the per-block copy_ loop it replaced
+    bufs = torch.randint(0, 256, cur.shape, dtype=torch.uint8, device=dev)
+    bk_, br_ = bufs.clone(), bufs.clone()
+    ell_ops.mesh_hop(cur, bk_, mt, g, eslot, hrows, over, ell_ops.HOP_COPY)
+    copy_bytes = replicate_rows(list(br_.unbind(0)), blocks,
+                                lambda _m: None,
+                                tuple((dev, (s,)) for s in range(k)))
+    require_equal(torch, f"replicate_rows k={k}", B, (bk_, br_))
     del bk_, br_
-    m3 = lambda: replicate_rows(bufs, blocks, ell_ops.copy_rows)  # noqa
-    loop = lambda: replicate_rows(bufs, blocks,  # noqa: E731
-                                  ell_ops.copy_rows_ref)
-    copy_ms = mesh_queued_ms(torch, m3, f"replicate_rows k={k} B={B}")
-    copy_ev = cuda_ms(torch, m3, 20)
+    rows_b = list(bufs.unbind(0))
+    loop = lambda: replicate_rows(  # noqa: E731
+        rows_b, blocks, lambda _m: None,
+        tuple((dev, (s,)) for s in range(k)))
+    copy_ms = mesh_queued_ms(torch, stage(ell_ops.HOP_COPY, bufs),
+                             f"replicate_rows k={k} B={B}")
+    copy_ev = cuda_ms(torch, stage(ell_ops.HOP_COPY, bufs), 20)
+    copy_plain = cuda_ms(torch, stage(ell_ops.HOP_COPY, bufs,
+                                      ell_ops.mesh_hop_ref), 5)
     loop_ms = cuda_ms(torch, loop, 20)
     loop_dev = mesh_queued_ms(torch, loop, f"copy_ loop k={k} B={B}")
-    del bufs
+    del bufs, rows_b
     res["replicate_rows"] = dict(
-        max_abs_err=0, ms=copy_ms, event_ms=copy_ev, plain_ms=loop_ms,
+        max_abs_err=0, ms=copy_ms, event_ms=copy_ev, plain_ms=copy_plain,
         bound_ms=bytes_ms(k * ix.n_rows * W), bound_by="bytes",
         library_ms=loop_ms,
         library_call="Tensor.copy_ per (owned block, receiver), events",
-        library_device_ms=loop_dev, launches_a_hop=m3_launches,
+        library_device_ms=loop_dev, **stage_n.get(ell_ops.HOP_COPY, {}),
         copies_replaced=sum(len(r) for r in blocks) * (k - 1),
         bytes=copy_bytes, k=k)
 
-    # ---- hop_merge on one replica
-    pre = outs[0].clone()
-    ok_, or_ = pre.clone(), pre.clone()
-    ell_ops.hop_merge(ok_, eslot, hrows, ix.n, ix.n_rows)
-    ell_ops.hop_merge_ref(or_, eslot, hrows, ix.n, ix.n_rows)
-    require_equal(torch, f"hop_merge k={k}", B, (ok_, or_))
-    merge_ms = restored_queued_ms(torch, lambda: ell_ops.hop_merge(
-        ok_, eslot, hrows, ix.n, ix.n_rows), lambda: ok_.copy_(pre),
-        f"hop_merge k={k} B={B}")
-    merge_ev = restored_ms(torch, lambda: ell_ops.hop_merge(
-        ok_, eslot, hrows, ix.n, ix.n_rows), lambda: ok_.copy_(pre), 50)
-    merge_plain = restored_ms(torch, lambda: ell_ops.hop_merge_ref(
-        or_, eslot, hrows, ix.n, ix.n_rows), lambda: or_.copy_(pre), 5)
+    # ---- the hub merge on every replica, one launch
+    stage(ell_ops.HOP_GATHER)()
+    pre = outs.clone()
+    merge_ms = restored_queued_ms(torch, stage(ell_ops.HOP_MERGE),
+                                  lambda: outs.copy_(pre),
+                                  f"hop_merge k={k} B={B}")
+    merge_ev = restored_ms(torch, stage(ell_ops.HOP_MERGE),
+                           lambda: outs.copy_(pre), 50)
+    merge_plain = restored_ms(torch, stage(ell_ops.HOP_MERGE,
+                                           fn=ell_ops.mesh_hop_ref),
+                              lambda: outs.copy_(pre), 3)
     n_owners = int(torch.unique(hrows[eslot.long()]).numel()) \
         if n_extras else 0
     res["hop_merge"] = dict(
         max_abs_err=0, ms=merge_ms, event_ms=merge_ev, plain_ms=merge_plain,
-        bound_ms=bytes_ms(hub_bytes + n_extras * W + 2 * n_owners * W),
+        bound_ms=bytes_ms(hub_bytes + k * (n_extras + 2 * n_owners) * W),
         bound_by="bytes", library_ms=None,
         library_none="none: torch has no OR scatter (scatter_reduce_ "
                      "has no bitwise or)", n_extras=n_extras,
-        owners=n_owners)
+        owners=n_owners, replicas=k, **stage_n.get(ell_ops.HOP_MERGE, {}))
 
-    # ---- one whole mesh hop against the single-card hop
-    cur = mesh.replicas(fp0)
-    ell_ops.mesh_hop(cur, outs, mt, es, hs, over, blocks, ell_ops.shard_hop,
-                     ell_ops.hop_merge, ell_ops.copy_rows)
+    # ---- one whole mesh hop (one call, three launches) against the
+    # single-card hop
+    stage(ell_ops.HOP_STAGES)()
     single = torch.empty_like(fp0)
     ell_ops.go_hop(fp0, None, single, tables, eslot, hrows, over)
     require_equal(torch, f"mesh hop k={k}", B,
-                  *[(o, single) for o in outs])
-    mesh_hop_ms = cuda_ms(torch, lambda: ell_ops.mesh_hop(
-        cur, outs, mt, es, hs, over, blocks, ell_ops.shard_hop,
-        ell_ops.hop_merge, ell_ops.copy_rows), 20)
+                  *[(o, single) for o in outs.unbind(0)])
+    hop_ms = mesh_queued_ms(torch, stage(ell_ops.HOP_STAGES),
+                            f"mesh_hop k={k} B={B}")
+    mesh_hop_ms = cuda_ms(torch, stage(ell_ops.HOP_STAGES), 20)
+    hop_plain = cuda_ms(torch, stage(ell_ops.HOP_STAGES,
+                                     fn=ell_ops.mesh_hop_ref), 2, warmup=1)
     go_hop_ms = cuda_ms(torch, lambda: ell_ops.go_hop(
         fp0, None, single, tables, eslot, hrows, over), 20)
+    res["mesh_hop"] = dict(
+        max_abs_err=0, ms=hop_ms, event_ms=mesh_hop_ms, plain_ms=hop_plain,
+        bound_ms=res["shard_hop"]["bound_ms"]
+        + res["replicate_rows"]["bound_ms"] + res["hop_merge"]["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        library_none="none: three kernels (M1, M3, the merge)", k=k,
+        single_card_go_hop_ms=go_hop_ms,
+        **stage_n.get(ell_ops.HOP_STAGES, {}))
 
     # ---- ell_go_sharded at 1-4 steps; B queries, one start each
     starts = rng.integers(0, ix.n, B)
@@ -3811,7 +3898,6 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         one = ell_ops.ell_go(f0.clone(), tables, eslot, hrows, over, steps)
         require_equal(torch, f"ell_go_sharded k={k} steps={steps}", B,
                       *[(a, gr[0]) for a in gk + gr[1:]], (gk[0], one))
-    slots_all = sum(int(t.nbr.numel()) for t in mt.shards)
     go_ms = cuda_ms(torch, lambda: ell_ops.ell_go_sharded(
         f0, mt, es, hs, over, 3), 10)
     go_dev = mesh_queued_ms(torch, lambda: ell_ops.ell_go_sharded(
@@ -3829,7 +3915,9 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         mesh_hop_ms=mesh_hop_ms,
         single_card_go_hop_ms=go_hop_ms, copy_ms=copy_ms,
         copy_bytes=copy_bytes,
-        copy_bound_ms=res["replicate_rows"]["bound_ms"])
+        copy_bound_ms=res["replicate_rows"]["bound_ms"],
+        **launches_a_call(torch, ell_ops, lambda: ell_ops.ell_go_sharded(
+            f0, mt, es, hs, over, 3)))
 
     # ---- ell_bfs_sharded, shortest and all, UPTO 5
     t0 = rt._upload_frontier_packed(ix, ix.perm[rng.integers(0, ix.n, B)],
@@ -3869,9 +3957,26 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
                               bound_ms=bytes_ms(nbytes), bound_by="bytes",
                               library_ms=None, levels=lk,
                               single_card_ell_bfs_ms=one)
+    # its launches: the loop replayed with the level flags a run read
+    # (nothing waits on the card, so it captures), plus those reads
+    flag_reads = []
+
+    def bfs_loop(read):
+        return ell_ops._bfs_sharded_loop(
+            f0, t0, mt, es, hs, over, 5, True, ell_ops.mesh_hop,
+            ell_ops.bfs_level, ell_ops.bfs_depth_i8, read=read)
+    bfs_loop(lambda flag: flag_reads.append(flag.tolist())
+             or flag_reads[-1])
+
+    def bfs_replay():
+        it = iter(flag_reads)
+        return bfs_loop(lambda _flag: next(it))
     res["ell_bfs_sharded"] = dict(
         bfs_rows[True], library_none="none: a multi-kernel program", k=k,
-        max_steps=5, all_paths=bfs_rows[False])
+        max_steps=5, all_paths=bfs_rows[False],
+        **launches_a_call(torch, ell_ops, lambda: ell_ops.ell_bfs_sharded(
+            f0, t0, mt, es, hs, over, 5, True), replay=bfs_replay,
+            reads=len(flag_reads)))
 
     # ---- ell_absorb_sharded on the absorb phase's three plans
     absorb = {}
@@ -4314,83 +4419,146 @@ MESH_SPARSE_MAIN = 4           # the k the kernels line reports
 
 
 def _send_same(torch):
-    """Probe ``same`` for X1: the exchange buffer's counts must be
-    equal, and each block's live keys as a set where the block kept
-    them all (the kernel places them in any order); the rest equal."""
+    """Probe ``same`` for X1: the exchange slabs' counts must be equal,
+    and each block's live keys as a set where the block kept them all
+    (the kernel places them in any order; past the cap it keeps any
+    cap of them); the rest equal."""
     def same(i, a, b):
-        if i != 7:
+        if i not in (6, 7):
             return torch.equal(a, b)
-        if not torch.equal(a[:, 0], b[:, 0]):
+        if not torch.equal(a[:, :, 0], b[:, :, 0]):
             return False
-        cap = a.shape[1] - 1
-        for d in range(a.shape[0]):
-            c = int(a[d, 0])
-            if c <= cap and not torch.equal(
-                    torch.sort(a[d, 1:1 + c])[0],
-                    torch.sort(b[d, 1:1 + c])[0]):
-                return False
+        cap = a.shape[2] - 1
+        for m in range(a.shape[0]):
+            for d in range(a.shape[1]):
+                c = int(a[m, d, 0])
+                if c <= cap and not torch.equal(
+                        torch.sort(a[m, d, 1:1 + c])[0],
+                        torch.sort(b[m, d, 1:1 + c])[0]):
+                    return False
         return True
     return same
 
 
-def mesh_sparse_probes(torch, ell_ops, st):
-    """Probes of X1 (both modes), X2, K5 with its row base and X3, with
-    their bytes bounds from this run's data, where a pad of a list
-    (ids == n_rows) counts its ids word only: X1 the list's ids, the
-    live pairs' qids, 8 bytes a slot of the rows walked (hub mode: the
-    live pairs' ecnt, and e0 and qid where a run starts) and the keys
-    and counts written; X2 the keys read and the bitmap words set; K5 the
-    bitmap read and its set words zeroed and the pairs written; X3 the
-    list's ids, the live pairs' qids and depth cells, the fresh ones'
-    depth writes and target words, the others' pad writes (init: the
-    starts' ids, the live ones' qids and depth writes, the targets'
-    ids, the live ones' qids, target words and depth cells).  X2's
+DEDUP_SPLIT_CALLS = 5           # X2 + K5 calls traced for their split
+
+
+def dedup_split(torch, ell_ops, st, spares, nbytes) -> dict:
+    """X2 + K5 (``mesh_dedup``) split by kernel, each part beside its own
+    bound and plain version: each kernel's mean duration in a trace
+    (``kernel_ms``: DEDUP_SPLIT_CALLS calls and a warm one, each on its
+    own copy of the operands as they were), X2's
+    (``mark_kernel``) and K5's three (count, scan, compact) summed; the plain parts (``mesh_mark_ref`` on each
+    member, then ``pair_compact_ref`` with the shard's row base, as
+    ``mesh_dedup_ref`` runs them) timed by events on ``spares[0]``;
+    ``nbytes`` = (X2's bytes, K5's) of this call, as ``dedup_pre``
+    counts them.  Returns the mesh_dedup row's ``kernel_ms`` and
+    ``split``."""
+    it = iter(spares[1:])
+    per = kernel_ms(torch, ell_ops, lambda: ell_ops.mesh_dedup(*next(it)),
+                    DEDUP_SPLIT_CALLS)
+    x2 = [ms for n, (ms, _seen) in per.items() if "::mark_kernel" in n]
+    if len(x2) != 1 or len(per) != 4:
+        raise AssertionError(f"mesh_dedup's kernels: {sorted(per)}")
+    recv, _st, g, marks, c_out, ids, qid, ctl = spares[0][:8]
+    chunk, W = st.chunk, (st.chunk + 31) // 32
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for y, s in enumerate(g[1]):
+        ell_ops.mesh_mark_ref(recv[y], s * chunk, chunk, marks[y], W)
+    ev[1].record()
+    for y, s in enumerate(g[1]):
+        ell_ops.pair_compact_ref(marks[y], W, c_out, ids[y], qid[y], ctl[y],
+                                 -1, st.n_rows, None, None, True, s * chunk)
+    ev[2].record()
+    torch.cuda.synchronize()
+    x2_ms = x2[0]
+    return dict(kernel_ms={n: ms for n, (ms, _s) in per.items()},
+                kernel_launches_traced={n: c for n, (_m, c) in per.items()},
+                split={
+        "mesh_mark": dict(ms=x2_ms, plain_ms=ev[0].elapsed_time(ev[1]),
+                          bound_ms=bytes_ms(nbytes[0])),
+        "pair_compact": dict(ms=sum(ms for ms, _s in per.values()) - x2_ms,
+                             plain_ms=ev[1].elapsed_time(ev[2]),
+                             bound_ms=bytes_ms(nbytes[1]))})
+
+
+def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
+    """Probes of the card stages — X1 (``mesh_route_card``, both modes),
+    X2 + K5 (``mesh_dedup``, K5 with the shards' row bases), the
+    agreement (``mesh_agree``), K6's emit (``mesh_emit``) — and of X3
+    (per shard), with their bytes bounds from this run's data, where a
+    pad of a list (ids == n_rows) counts its ids word only: X1 the
+    lists' ids, the live pairs' qids, 8 bytes a slot of the rows walked
+    (hub mode: the live pairs' ecnt, and e0 and qid where a run starts)
+    and the keys and counts written; X2 + K5 the keys and counts read,
+    the bitmap words set, the bitmap read and its set words zeroed, the
+    pairs written and the cleared counts; the agreement a word read and
+    written a shard; the emit the pairs read and the output written; X3
+    the list's ids, the live pairs' qids and depth cells, the fresh
+    ones' depth writes and target words, the others' pad writes (init:
+    the starts' ids, the live ones' qids and depth writes, the targets'
+    ids, the live ones' qids, target words and depth cells).  X2 + K5's
     library yardstick is ``torch.unique`` over the received keys packed
-    as q * chunk + row (X2 + K5's dedup in one call; it waits on the
-    card for its output's size)."""
+    as q * chunk + row (their dedup in one call; it waits on the card
+    for its output's size).  With ``first``, each card stage's first
+    call also has its launches measured and held (``stage_launches``:
+    X1, the agreement and the emit one, X2 + K5 four), and X2 + K5's
+    first call is split by kernel (``dedup_split``)."""
     bstarts = torch.tensor(st.bstarts, device=st.shards[0].nbr.device)
     Ds = torch.tensor(st.shards[0].D, device=bstarts.device)
+    W = (st.chunk + 31) // 32
     ctx = {"slots": 0, "keys": [], "live": 0}
 
     def route_pre(args):
-        hub, ids, qid, recv, _st, s = args[:6]
-        live = ids.long() != st.n_rows
-        n_live = int(live.sum())
-        if hub:
-            li = ids.long()[live] - s * st.chunk
-            runs = int((st.ecnt[s].long()[li.clamp(0, st.chunk - 1)]
-                        > 0).sum())
-            return 4 * ids.numel() + 4 * n_live + 8 * runs
-        rows = ids.long()[live]
-        if recv is not None:
-            rows = torch.cat([rows, ell_ops._slot_pairs(recv)[1]])
-        b = torch.bucketize(rows, bstarts, right=True) - 1
-        slots = int(Ds[b.clamp(min=0)].sum())
-        ctx["slots"] += slots
-        return 4 * ids.numel() + 4 * n_live \
-            + 8 * (rows.numel() - n_live) + 8 * slots
+        hub, ids, qid, _st, g = args[:5]
+        hub_recv = _arg(args, 9)
+        nb = 4 * ids.numel()
+        for y, s in enumerate(g[1]):
+            live = ids[y].long() != st.n_rows
+            n_live = int(live.sum())
+            nb += 4 * n_live
+            if hub:
+                li = ids[y].long()[live] - s * st.chunk
+                nb += 8 * int((st.ecnt[s].long()[li.clamp(0, st.chunk - 1)]
+                               > 0).sum())
+                continue
+            rows = ids[y].long()[live]
+            if hub_recv is not None:
+                rows = torch.cat([rows, ell_ops._slot_pairs(hub_recv[y])[1]])
+            b = torch.bucketize(rows, bstarts, right=True) - 1
+            slots = int(Ds[b.clamp(min=0)].sum())
+            ctx["slots"] += slots
+            nb += 8 * (rows.numel() - n_live) + 8 * slots
+        return nb
 
     def route_post(args):
-        send = args[7]
-        cap = send.shape[1] - 1
-        return 8 * int(send[:, 0].clamp(max=cap).sum()) + 8 * send.shape[0]
+        recv = args[6]
+        cap = recv.shape[2] - 1
+        return 8 * int(recv[:, :, 0].clamp(max=cap).sum()) \
+            + 8 * recv.shape[0] * recv.shape[1]
 
-    def mark_pre(args):
-        recv, base = args[0], args[1]
-        q, u = ell_ops._slot_pairs(recv)
-        ctx["keys"].append(q * st.chunk + (u - base))
-        return 8 * q.numel() + 8 * recv.shape[0]
+    def dedup_pre(args):
+        recv, _st, g, marks = args[:4]
+        x2 = k5 = 0
+        for y, s in enumerate(g[1]):
+            q, u = ell_ops._slot_pairs(recv[y])
+            li = u - s * st.chunk
+            keys = q * st.chunk + li
+            if y == 0:
+                ctx["keys"].append(keys)
+            words = int(torch.unique(q * W + (li >> 5)).numel())
+            x2 += 8 * q.numel() + 8 * recv.shape[1] + 4 * words
+            k5 += 4 * marks.shape[1] + 4 * words + 8 * args[4]
+        cleared = [x for x in (recv, *args[8:]) if x is not None]
+        k5 += sum(16 * x.shape[0] * x.shape[1] for x in cleared)
+        ctx["dedup_bytes"] = (x2, k5)
+        return x2 + k5
 
-    def mark_post(args):
-        return 4 * int((args[3] != 0).sum())
-
-    def mark_lib(args):
+    def dedup_lib(args):
         keys = ctx["keys"][-1]
         return cuda_ms(torch, lambda: torch.unique(keys, sorted=True), 5, 1)
-
-    def compact_pre(args):
-        mark = args[0]
-        return 4 * mark.numel() + 4 * int((mark != 0).sum()) + 8 * args[2]
 
     def stamp_pre(args):
         init, ids = args[:2]
@@ -4408,15 +4576,43 @@ def mesh_sparse_probes(torch, ell_ops, st):
         fresh = int(args[9][ell_ops.CTL_LIVE])
         return 6 * fresh + 8 * (ctx["live"] - fresh)
 
+    def launches(fn, want, counters):
+        if not first:
+            return None
+        return lambda spares: stage_launches(
+            torch, ell_ops, lambda: fn(*spares[0]), want, counters,
+            f"{fn.__name__} k={st.k}")
+
+    def dedup_first(spares):
+        row = launches(ell_ops.mesh_dedup, 4, {
+            "mesh_dedup": 1, "mesh_mark": 1, "pair_compact": 1})(spares)
+        row.update(dedup_split(torch, ell_ops, st, spares[1:],
+                               ctx["dedup_bytes"]))
+        return row
+
     probes = {
-        "mesh_route": Probe(torch, "mesh_route", ell_ops.mesh_route,
-                            ell_ops.mesh_route_ref, route_pre, route_post,
-                            same=_send_same(torch)),
-        "mesh_mark": Probe(torch, "mesh_mark", ell_ops.mesh_mark,
-                           ell_ops.mesh_mark_ref, mark_pre, mark_post,
-                           lib=mark_lib),
-        "pair_compact": Probe(torch, "pair_compact", ell_ops.pair_compact,
-                              ell_ops.pair_compact_ref, compact_pre),
+        "mesh_route": Probe(torch, "mesh_route", ell_ops.mesh_route_card,
+                            ell_ops.mesh_route_card_ref, route_pre,
+                            route_post, same=_send_same(torch),
+                            first=launches(ell_ops.mesh_route_card, 1,
+                                           {"mesh_route": 1}), spares=1),
+        "mesh_dedup": Probe(torch, "mesh_dedup", ell_ops.mesh_dedup,
+                            ell_ops.mesh_dedup_ref, dedup_pre,
+                            lib=dedup_lib,
+                            first=dedup_first if first else None,
+                            spares=2 + DEDUP_SPLIT_CALLS + 1),
+        "mesh_agree": Probe(torch, "mesh_agree", ell_ops.mesh_agree,
+                            ell_ops.mesh_agree_ref,
+                            lambda a: 16 * a[0].shape[0],
+                            first=launches(ell_ops.mesh_agree, 1,
+                                           {"mesh_agree": 1}), spares=1),
+        "mesh_emit": Probe(torch, "mesh_emit", ell_ops.mesh_emit,
+                           ell_ops.mesh_emit_ref,
+                           lambda a: 8 * a[0].numel() + 16 * a[0].shape[0],
+                           lambda a: 4 * a[3].numel(),
+                           first=launches(ell_ops.mesh_emit, 1, {
+                               "mesh_emit": 1, "pair_reduce": 1}),
+                           spares=1),
         "mesh_bfs_stamp": Probe(torch, "mesh_bfs_stamp",
                                 ell_ops.mesh_bfs_stamp,
                                 ell_ops.mesh_bfs_stamp_ref, stamp_pre,
@@ -4437,11 +4633,13 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
                              hrows, k: int, over, starts, rng) -> dict:
     """The frontier-sharded mesh's kernels and programs on the serve
     graph's tables cut into k chunks that all sit on this card, every
-    kernel call of the programs probed (X1, X2, K5 with its row base,
-    X3 against their plain versions on copies of their operands, timed
-    as device time behind a spin kernel).  ``mesh_sparse_go`` at c0 256
-    (128 queries, one start each, the ``ell_go_sharded`` comparison of
-    the dense mesh) and 2048 (1024 queries, two starts each), 3 and 4
+    stage call of the programs probed (X1, X2 + K5 with the shards' row
+    bases, the agreement and K6's emit, each one launch a kernel over
+    every shard, and X3 a shard, against their plain versions on copies
+    of their operands, timed as device time behind a spin kernel).
+    ``mesh_sparse_go`` at c0 256 (128 queries, one start each, the
+    ``ell_go_sharded`` comparison of the dense mesh) and 2048 (1024
+    queries, two starts each), 3 and 4
     steps, and four tight-cap batches, each setting one overflow
     source (cap_x, the dedup cap, the hub budget, cap_e): per-shard
     outputs equal to the plain version's when no overflow, the flag
@@ -4468,8 +4666,7 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
     shard_s = time.perf_counter() - t0
     over = tuple(over)
     d_max = max(tables.D)
-    up = lambda a: [torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
-                    for x in a]
+    up = lambda a: mesh.split(torch.from_numpy(a).to(dev))  # noqa: E731
     res = {"go_runs": {}, "bfs_runs": {}}
     hubs = np.nonzero(ix.hub_table()[:ix.n])[0]        # new ids
     wide = starts[np.argsort(-rt._deg_host(m, over)[starts], kind="stable")]
@@ -4503,15 +4700,17 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
         cap_x = tight.get("cap_x", max(256, caps[-1] // max(k // 2, 1)))
         cap_e = tight.get("cap_e", max(64, c0))
         ids, qid = up(placed[0]), up(placed[1])
-        probes, ctx = mesh_sparse_probes(torch, ell_ops, st)
-        outs, moved = ell_ops._mesh_go_steps(
+        probes, ctx = mesh_sparse_probes(torch, ell_ops, st,
+                                         first=label == "c0_256_s3")
+        outs, exchanges, ctl = ell_ops._mesh_go_steps(
             ids, qid, st, over, steps, caps, cap_x, cap_e, nq,
-            probes["mesh_route"], probes["mesh_mark"],
-            probes["pair_compact"], ell_ops.pair_reduce, ell_ops.or_many)
+            probes["mesh_route"], probes["mesh_dedup"],
+            (probes["mesh_agree"], ell_ops.or_many), probes["mesh_emit"])
+        moved = ell_ops.exchanged_bytes(ctl)
         want, plain = timed(torch, lambda: ell_ops.mesh_sparse_go_ref(
             ids, qid, st, over, steps, caps, cap_x, cap_e, nq))
-        got_h = torch.stack(outs).cpu().numpy()
-        want_h = torch.stack(want).cpu().numpy()
+        got_h = mesh.stacked(outs).cpu().numpy()
+        want_h = mesh.stacked(want).cpu().numpy()
         ovf = bool(want_h[:, 1].any())
         if not np.array_equal(got_h[:, 1], want_h[:, 1]) or (
                 not ovf and not np.array_equal(got_h, want_h)):
@@ -4525,7 +4724,7 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
         def run():
             return ell_ops.mesh_sparse_go(ids, qid, st, over, steps, caps,
                                           cap_x, cap_e, nq)
-        pub_h = torch.stack(run()).cpu().numpy()
+        pub_h = mesh.stacked(run()).cpu().numpy()
         if not np.array_equal(pub_h[:, 1], want_h[:, 1]) or (
                 not ovf and not np.array_equal(pub_h, want_h)):
             raise AssertionError(f"ell_ops.mesh_sparse_go k={k} {label} "
@@ -4537,19 +4736,20 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
         n_live = int((placed[0] != st.n_rows).sum())
         prog_bytes = 4 * k * c0 + 4 * n_live + 8 * ctx["slots"] + out_bytes
         hops = steps - 1
-        moved_hops[label] = moved[1] / max(hops, 1)
+        moved_hops[label] = moved / max(hops, 1)
         row = dict(max_abs_err=0, ms=dev_ms, event_ms=ev, plain_ms=plain,
                    bound_ms=bytes_ms(prog_bytes), bound_by="bytes",
                    library_ms=None, overflow=int(ovf),
                    count=int(want_h[:, 0].sum()), caps=list(caps),
                    cap_x=cap_x, cap_e=cap_e, queries=nq,
                    starts=int(len(rows)), steps=steps,
-                   a2a_copies_per_hop=moved[0] / max(hops, 1),
-                   a2a_bytes_per_hop=moved[1] / max(hops, 1),
+                   exchanges_per_hop=exchanges / max(hops, 1),
+                   exchanged_bytes_per_hop=moved / max(hops, 1),
                    kernels={a: p.numbers() for a, p in probes.items()
                             if p.calls})
         if label == "c0_256_s3":
             go_probes = probes
+            row.update(launches_a_call(torch, ell_ops, run))
             # the dense mesh on the same starts, one query a lane
             mt = mesh_tables(ix, mesh)
             es_, hs_ = [eslot] * k, [hrows] * k
@@ -4614,10 +4814,10 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
         def record(ctl):
             seen.append(ell_ops._read_ctl(ctl))
             return seen[-1]
-        dep, ovf, levels, moved = ell_ops._mesh_bfs_steps(
+        dep, ovf, levels, exchanges, moved = ell_ops._mesh_bfs_steps(
             *args, st, over, max_steps, cap, cap_x, cap_e, B, stop,
-            probes["mesh_route"], probes["mesh_mark"],
-            probes["pair_compact"], probes["mesh_bfs_stamp"], read=record)
+            probes["mesh_route"], probes["mesh_dedup"],
+            probes["mesh_bfs_stamp"], read=record)
         (wdep, wovf, wlev), plain = timed(
             torch, lambda: ell_ops.mesh_sparse_bfs_ref(
                 *args, st, over, max_steps, cap, cap_x, cap_e, B, stop))
@@ -4652,7 +4852,7 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
             flags = iter(seen)
             return ell_ops._mesh_bfs_steps(
                 *args, st, over, max_steps, cap, cap_x, cap_e, B, stop,
-                ell_ops.mesh_route, ell_ops.mesh_mark, ell_ops.pair_compact,
+                ell_ops.mesh_route_card, ell_ops.mesh_dedup,
                 ell_ops.mesh_bfs_stamp, read=lambda _c: next(flags))
         dev_ms = mesh_queued_ms(torch, replay,
                                 f"mesh_sparse_bfs k={k} {label}", 3)
@@ -4668,11 +4868,16 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
             bound_ms=bytes_ms(nbytes), bound_by="bytes", library_ms=None,
             levels=levels, overflow=int(ovf), max_steps=max_steps,
             queries=B, single_card_ell_bfs_ms=one_ms,
-            a2a_copies_per_level=moved[0] / max(levels, 1),
-            a2a_bytes_per_level=moved[1] / max(levels, 1),
+            exchanges_per_level=exchanges / max(levels, 1),
+            exchanged_bytes_per_level=moved / max(levels, 1),
             kernels={a: p.numbers() for a, p in probes.items() if p.calls})
         if label == "b128_shortest_s5":
             bfs_probes = probes
+            # counted on the replay, plus the flag reads (one copy a
+            # card group a read)
+            res["bfs_runs"][label].update(launches_a_call(
+                torch, ell_ops, run, replay=replay,
+                reads=len(seen) * len(st.mesh.groups)))
     if not all(exact.values()):
         raise AssertionError(f"mesh_sparse_bfs k={k}: no run without "
                              f"overflow at some width: {exact}")
@@ -4684,19 +4889,172 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
                                        "bound_ms", "levels", "overflow")}
                 for lb, r in res["bfs_runs"].items()
                 if lb != "b128_shortest_s5"})
-    for name in ("mesh_route", "mesh_mark", "pair_compact"):
+    for name in ("mesh_route", "mesh_dedup", "mesh_agree", "mesh_emit"):
         res[name] = dict(go_probes[name].numbers(), run="c0_256_s3", k=k)
-    res["mesh_mark"]["library_call"] = "torch.unique (X2 + K5)"
+    res["mesh_dedup"]["library_call"] = "torch.unique (X2 + K5)"
     res["mesh_route"]["library_none"] = \
         "none: no call routes pairs to per-owner slot blocks"
-    res["pair_compact"]["library_none"] = \
-        "see mesh_mark: torch.unique covers X2 + K5"
+    res["mesh_agree"]["library_none"] = \
+        "none: an OR of k words into each of them (any + a copy: two calls)"
+    res["mesh_emit"]["library_none"] = \
+        "none: two selects into one layout (torch.where twice, a cat)"
+    # X2 and K5 run in one call (mesh_dedup): their rows are its first
+    # call split by kernel in the trace, each part against its own bound
+    split = res["mesh_dedup"].pop("split")
+    x2_n = res["mesh_dedup"]["counters_moved"]["mesh_mark"]
+    for name, n in (("mesh_mark", x2_n),
+                    ("pair_compact",
+                     res["mesh_dedup"]["launches_a_call"] - x2_n)):
+        res[name] = dict(
+            split[name], max_abs_err=0, bound_by="bytes", library_ms=None,
+            run="c0_256_s3", k=k, calls=1, launches_a_call=n,
+            ms_by="the kernels' mean durations in a trace of mesh_dedup's "
+                  f"first call, {DEDUP_SPLIT_CALLS} copies")
+    res["mesh_mark"]["library_none"] = \
+        "none: an OR of keys into a bitmap (scatter_reduce_ has no bitwise or)"
     res["mesh_bfs_stamp"] = dict(bfs_probes["mesh_bfs_stamp"].numbers(),
                                  run="b128_shortest_s5", k=k,
                                  library_none="none: a depth update with "
                                               "its loop flags")
-    res["a2a_bytes_per_hop"] = moved_hops
+    res["exchanged_bytes_per_hop"] = moved_hops
     return res
+
+
+def mesh_stage_check(torch, ell_ops, ix, k: int, over, rng, label: str,
+                     dev) -> dict:
+    """Untimed: the card stages of both mesh programs against their
+    plain versions on the tables of ``ix`` cut into k shards on this
+    card (the phase-3 runs hold them on the serve tables, which have
+    hub extra rows; here also tables without), and each program with
+    its k shards split over two pretended cards — the exchange's
+    cross-card blocks by ``mesh.all_to_all``, the hop's owned rows by
+    ``copy_``, the overflow agreed by ``psum_or`` — equal to the one-card
+    run: ``mesh_hop``'s stages at W = 16 and 12 (its 4-byte rows), then
+    ``ell_go_sharded`` at 3 steps and ``ell_bfs_sharded`` (5 levels)
+    against ``ell_go`` / ``ell_bfs``; ``mesh_sparse_go`` (128 queries,
+    3 steps) with every stage call probed, at caps it keeps and at a
+    tight cap_x whose overflow every shard must report;
+    ``mesh_sparse_bfs`` (2 levels) against its plain version (the flags
+    always, the depths where neither overflowed).  Returns the runs'
+    overflow flags and the exchanged bytes."""
+    from nebula_tpu_torch.tpu.ell import (build_sharded_ell, mesh_tables,
+                                          sharded_tables, sparse_caps,
+                                          split_start_pairs_by_owner)
+    from nebula_tpu_torch.tpu.mesh import PartsMesh
+    tables = ix.device_tables(dev)
+    eslot, hrows = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                    for a in ix.hub_merge())
+    R1 = ix.n_rows + 1
+    half = (k + 1) // 2
+    cards = ((dev, tuple(range(half))), (dev, tuple(range(half, k))))
+    meshes = [PartsMesh([dev] * k), PartsMesh([dev] * k)]
+    meshes[1].groups = cards
+    es, hs = [eslot] * k, [hrows] * k
+    out = {"hubs": ix.n_rows > ix.n}
+    for W in (16, 12):
+        mt = mesh_tables(ix, meshes[0])
+        g = mt.mesh.groups[0]
+        fh = np.zeros((R1, W), np.uint8)
+        live = rng.random(ix.n) < 0.05
+        fh[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
+                                       dtype=np.uint8)
+        f0 = torch.from_numpy(fh).to(dev)
+        cur = mt.mesh.replicas(f0)[0]
+        for st_ in (ell_ops.HOP_GATHER, ell_ops.HOP_COPY, ell_ops.HOP_MERGE,
+                    ell_ops.HOP_STAGES):
+            a = torch.randint(0, 256, cur.shape, dtype=torch.uint8,
+                              device=dev)
+            b = a.clone()
+            ell_ops.mesh_hop(cur, a, mt, g, eslot, hrows, over, st_)
+            ell_ops.mesh_hop_ref(cur, b, mt, g, eslot, hrows, over, st_)
+            require_equal(torch, f"mesh_hop {label} k={k} W={W} "
+                          f"stages={st_}", W * 8, (a, b))
+        one = torch.empty_like(f0)
+        ell_ops.go_hop(f0, None, one, tables, eslot, hrows, over)
+        require_equal(torch, f"mesh_hop {label} k={k} W={W}", W * 8,
+                      *[(r, one) for r in a.unbind(0)])
+        if W == 12:
+            continue
+        want = ell_ops.ell_go(f0.clone(), tables, eslot, hrows, over, 3)
+        t0p = f0.roll(7, 0).contiguous()
+        t0p[-1] = 0
+        d1, l1 = ell_ops.ell_bfs(f0.clone(), t0p, tables, eslot, hrows, over,
+                                 5)
+        for mesh in meshes:
+            mtx = mesh_tables(ix, mesh)
+            got = ell_ops.ell_go_sharded(f0, mtx, es, hs, over, 3)
+            require_equal(torch, f"ell_go_sharded {label} k={k} cards="
+                          f"{len(mesh.groups)}", W * 8,
+                          *[(r, want) for r in got])
+            d2, l2 = ell_ops.ell_bfs_sharded(f0, t0p, mtx, es, hs, over, 5)
+            require_equal(torch, f"ell_bfs_sharded {label} k={k} cards="
+                          f"{len(mesh.groups)}", W * 8, (d2, d1))
+            if l1 != l2:
+                raise AssertionError(f"ell_bfs_sharded {label}: {l2} levels, "
+                                     f"ell_bfs {l1}")
+    nq, c0 = 128, 256
+    rows = ix.perm[rng.integers(0, ix.n, nq)].astype(np.int32)
+    qs = np.arange(nq, dtype=np.int32)
+    caps = sparse_caps(c0, max(ix.bucket_D), 3, 1 << 17)
+    for mesh in meshes:
+        st = sharded_tables(build_sharded_ell(ix, k), mesh)
+        placed = split_start_pairs_by_owner(st, rows, qs, c0)
+        ids, qid = (mesh.split(torch.from_numpy(x).to(dev)) for x in placed)
+        n_cards = len(mesh.groups)
+        for cap_x, tight in ((1 << 17, False), (64, True)):
+            probes, _ctx = mesh_sparse_probes(torch, ell_ops, st)
+            got, _x, ctl = ell_ops._mesh_go_steps(
+                ids, qid, st, over, 3, caps, cap_x, 1 << 12, nq,
+                probes["mesh_route"], probes["mesh_dedup"],
+                (probes["mesh_agree"], ell_ops.or_many), probes["mesh_emit"])
+            got = mesh.stacked(got)
+            want = mesh.stacked(ell_ops.mesh_sparse_go_ref(
+                ids, qid, st, over, 3, caps, cap_x, 1 << 12, nq))
+            flags = want[:, 1].tolist()
+            if got[:, 1].tolist() != flags or len(set(flags)) != 1 or (
+                    tight and not flags[0]):
+                raise AssertionError(f"mesh_sparse_go {label} k={k} cards="
+                                     f"{n_cards} tight={tight}: flags "
+                                     f"{got[:, 1].tolist()} / {flags}")
+            out[f"overflow_cards{n_cards}_tight{int(tight)}"] = flags[0]
+            if not flags[0]:
+                require_equal(torch, f"mesh_sparse_go {label} k={k} cards="
+                              f"{n_cards}", 0, (got, want))
+                out[f"bytes_cards{n_cards}"] = ell_ops.exchanged_bytes(ctl)
+        cap = 1 << 17
+        ps = split_start_pairs_by_owner(st, rows, qs, cap)
+        pt = split_start_pairs_by_owner(st, np.roll(rows, 3), qs, cap)
+        args = [mesh.split(torch.from_numpy(x).to(dev)) for x in (*ps, *pt)]
+        d, o, lv = ell_ops.mesh_sparse_bfs(*args, st, over, 2, cap, cap,
+                                           1 << 12, nq, False)
+        wd, wo, wl = ell_ops.mesh_sparse_bfs_ref(*args, st, over, 2, cap,
+                                                 cap, 1 << 12, nq, False)
+        if o != wo or lv != wl:
+            raise AssertionError(f"mesh_sparse_bfs {label} k={k}: overflow "
+                                 f"{o} / {wo}, levels {lv} / {wl}")
+        out[f"bfs_overflow_cards{n_cards}"] = o
+        if not o:
+            require_equal(torch, f"mesh_sparse_bfs {label} k={k} cards="
+                          f"{n_cards}", 0, *zip(d, wd))
+    if out.get("bytes_cards1") != out.get("bytes_cards2"):
+        raise AssertionError(f"mesh_sparse_go {label} k={k}: the exchanges "
+                             f"moved {out['bytes_cards1']} bytes on one card, "
+                             f"{out['bytes_cards2']} over two")
+    return out
+
+
+def hubless_ell(n: int, seed: int):
+    """A power-law graph whose every vertex fits its ELL row (no hub
+    extra rows): ``powerlaw_graph(n, 8n, 2.2, 256, seed)`` at cap 512."""
+    from nebula_tpu_torch.tpu.csr import mirror_from_edges
+    from nebula_tpu_torch.tpu.ell import EllIndex
+    from nebula_tpu_torch.tools.graphgen import powerlaw_graph
+    src, dst = powerlaw_graph(n, 8 * n, 2.2, 256, seed)
+    m = mirror_from_edges(src, dst, 1, space_id=1)
+    ix = EllIndex.build(m.edge_src, m.edge_dst, m.edge_etype, m.n, cap=512)
+    if ix.n_rows != ix.n:
+        raise AssertionError("the hub-free graph has hub extra rows")
+    return ix
 
 
 MESH_SPARSE = {"tpu_mesh_devices": 4, "tpu_mesh_mode": "sparse"}
@@ -5098,6 +5456,15 @@ def main(argv=None) -> int:
                     + json.dumps(v))
             log(f"[kernel] mesh-sparse k={k} phase "
                 f"{time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        hubless = hubless_ell(1 << 16, args.seed + 17)
+        for k, lab, ixx in ((2, "hub-free", hubless),
+                            (4, "hub-free", hubless), (4, "serve", ix)):
+            log(f"[kernel] mesh stages {lab} k={k} equal=True "
+                + json.dumps(mesh_stage_check(torch, ell_ops, ixx, k, (1,),
+                                              rng, lab, tables.nbr.device)))
+        del hubless
+        log(f"[kernel] mesh stage checks {time.perf_counter() - t0:.2f} s")
 
         # ---- 4. serve (continuous)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,
@@ -5264,7 +5631,8 @@ def main(argv=None) -> int:
         if k == "pair_compact":       # K5 with the shard's row base
             row["mesh_base"] = {kk: {
                 a: mesh_sparse_rows[kk][k][a]
-                for a in ("ms", "plain_ms", "bound_ms", "calls")}
+                for a in ("ms", "plain_ms", "bound_ms", "calls",
+                          "launches_a_call", "ms_by")}
                 for kk in mesh_sparse_rows}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,10 @@
 the adaptive program (``ell_ops.adaptive_go``), the int8 hop K13
 (``go_hop_i8``) with its programs ``ell_go_i8`` and ``ell_bfs_i8``, and
 the replicated-frontier mesh's M1 (``shard_hop``), row replication
-(M3), hop and programs (``ell_go_sharded``, ``ell_bfs_sharded``) of one
-checkout of the port on one card, so that two checkouts can be held
-side by side in one run.
+(M3), hop and programs (``ell_go_sharded``, ``ell_bfs_sharded``), and
+the frontier-sharded mesh's programs (``mesh_sparse_go``,
+``mesh_sparse_bfs``) of one checkout of the port on one card, so that
+two checkouts can be held side by side in one run.
 
     python3 nebula_tpu_torch/tools/hop_bench.py [--tree DIR]
 
@@ -37,12 +38,18 @@ the row-live pass is part of the call where the checkout has one);
 ``ell_go_i8`` at 3 steps, exact and UPTO, row-packed, from the start
 frontier, the same two ways; ``ell_bfs_i8`` (UPTO 5, stop when found,
 random targets) by events.  The mesh at k = 4 shards on this card and
-W = 16 / 128: M1 on each shard (the mean), the replication of the
-hop's owned rows (``mesh.replicate_rows``), one whole ``mesh_hop`` and
-``ell_go_sharded`` at 3 steps, device and event times, each held equal
-to the single-card functions; ``ell_bfs_sharded`` (UPTO 5) by events.
-A checkout from before M3 (``ell_ops.copy_rows``) replicates by
-``copy_``; both forms are called as that checkout defines them.
+W = 16 / 128: M1 over every shard, the replication of the hop's owned
+rows, one whole mesh hop and ``ell_go_sharded`` at 3 steps, device
+and event times, each held equal to the single-card functions;
+``ell_bfs_sharded`` (UPTO 5) by events; the frontier-sharded
+``mesh_sparse_go`` (c0 256 and 2048, 3 steps; device and event times,
+held to its plain version) and ``mesh_sparse_bfs`` (UPTO 5, by
+events); for the four programs the CUDA launches (kernels, memsets,
+memcpys: a call captured into a CUDA graph, the BFS programs only
+traced under ``torch.profiler``) and checked C calls a call.  A
+checkout from before the card stages (``ell_ops.HOP_STAGES``) runs M1 a
+shard and replicates by ``mesh.replicate_rows``; each checkout is
+called in its own form.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -57,9 +64,13 @@ import time
 
 try:        # run as a script, this file's directory is sys.path[0]: the
     # timing helpers of this checkout, whichever tree the port comes from
-    from cardtime import cuda_ms, queued_ms
+    from cardtime import (SPIN_CYCLES, cuda_ms, launches_a_call,
+                          profiled_calls, queued_ms, queued_times)
 except ImportError:        # imported as a module of the package
-    from nebula_tpu_torch.tools.cardtime import cuda_ms, queued_ms
+    from nebula_tpu_torch.tools.cardtime import (SPIN_CYCLES, cuda_ms,
+                                                 launches_a_call,
+                                                 profiled_calls, queued_ms,
+                                                 queued_times)
 
 VERTICES, EDGES, SEED = 1 << 19, 1 << 22, 0    # chip_smoke.py's defaults
 QUEUED = 8                     # calls queued behind the spin
@@ -69,6 +80,8 @@ ROUNDS = 5                     # adaptive_go measurements (the median)
 MESH_K = 4                     # the mesh's shards, all on this card
 PROGRAM_CALLS = 10             # back-to-back calls of a timed program
 BFS_CALLS = 3                  # back-to-back calls of a timed BFS
+MESH_QUEUED = 4                # mesh_sparse_go calls queued behind a spin
+MESH_SPIN = 16 * SPIN_CYCLES   # about 64 ms: four calls' host enqueue
 
 
 def _equal(torch, what, *pairs):
@@ -140,65 +153,87 @@ def int8_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng, dev):
     return res
 
 
+def counts(torch, ell_ops, fn, waits: bool = False) -> dict:
+    """``launches_a_call`` without the node kinds.  A call that waits on
+    the card (a BFS reads its level flags) cannot be captured: only its
+    traced launches a call (``profiled_calls``; the tracer may lose some,
+    so these are at most what it made) and its C calls."""
+    if waits:
+        traced, c_calls = profiled_calls(torch, ell_ops, fn)
+        return dict(launches_traced=[len(c) for c in traced],
+                    c_calls_a_call=max(c_calls))
+    n = launches_a_call(torch, ell_ops, fn)
+    n.pop("launch_kinds")
+    return n
+
+
 def mesh_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng, dev):
-    """M1, the row replication, ``mesh_hop``, ``ell_go_sharded`` and
-    ``ell_bfs_sharded`` at k = MESH_K on this card, W = 16 and 128."""
+    """M1, the row replication, a whole mesh hop, ``ell_go_sharded`` and
+    ``ell_bfs_sharded`` at k = MESH_K on this card, W = 16 and 128, in
+    the checkout's own form: one ``mesh_hop`` call a stage over the
+    card's shards where the checkout has it, else M1 a shard and the
+    replication by ``mesh.replicate_rows``."""
     import inspect
 
     import numpy as np
+    from nebula_tpu_torch.tpu import mesh as pmesh
     from nebula_tpu_torch.tpu.ell import mesh_tables
-    from nebula_tpu_torch.tpu.mesh import PartsMesh, replicate_rows
     k = MESH_K
-    mt = mesh_tables(ix, PartsMesh([dev] * k))
+    mt = mesh_tables(ix, pmesh.PartsMesh([dev] * k))
     blocks = [mt.owned(s) for s in range(k)]
     es, hs = [eslot] * k, [hrows] * k
-    m3 = hasattr(ell_ops, "copy_rows")
-    extra = (ell_ops.copy_rows,) if m3 else ()
-    if len(inspect.signature(ell_ops.mesh_hop).parameters) != 9 + len(extra):
+    card = hasattr(ell_ops, "HOP_STAGES")
+    if not card and len(inspect.signature(ell_ops.mesh_hop).parameters) \
+            != 10:
         raise AssertionError("mesh_hop's form is not known here")
-
-    def replicate(bufs):
-        return replicate_rows(bufs, blocks, *extra)
     R1 = ix.n_rows + 1
-    res = dict(mesh_k=k, m3=m3)
+    res = dict(mesh_k=k, card_stages=card)
     for W in (16, 128):
         fp_h = np.zeros((R1, W), np.uint8)
         live = rng.random(ix.n) < 0.02
         fp_h[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
                                          dtype=np.uint8)
         fp0 = torch.from_numpy(fp_h).to(dev)
-        outs = [torch.empty_like(fp0) for _ in range(k)]
-        per_ms, per_ev = [], []
-        for s in range(k):
-            a, b = torch.full_like(fp0, 0xA5), torch.full_like(fp0, 0xA5)
-            ell_ops.shard_hop(fp0, a, mt, s, over)
-            ell_ops.shard_hop_ref(fp0, b, mt, s, over)
-            _equal(torch, f"shard_hop W={W} s={s}", (a, b))
+        if card:
+            g = mt.mesh.groups[0]
+            cur = mt.mesh.replicas(fp0)[0]
+            out = torch.empty_like(cur)
+            outs = list(out.unbind(0))
 
-            def m1(s=s):
-                ell_ops.shard_hop(fp0, outs[s], mt, s, over)
-            per_ms.append(queued_ms(torch, m1, QUEUED))
-            per_ev.append(cuda_ms(torch, m1, BACK_TO_BACK))
-        res[f"shard_hop_w{W}"] = dict(ms=float(np.mean(per_ms)),
-                                      event_ms=float(np.mean(per_ev)),
-                                      per_shard_ms=per_ms)
-        nbytes = replicate(outs)
+            def stage(st_):
+                return lambda: ell_ops.mesh_hop(cur, out, mt, g, eslot, hrows,
+                                                over, st_)
+            m1, m3 = stage(ell_ops.HOP_GATHER), stage(ell_ops.HOP_COPY)
+            hop = stage(ell_ops.HOP_STAGES)
+        else:
+            cur = [fp0.clone() for _ in range(k)]
+            outs = [torch.empty_like(fp0) for _ in range(k)]
+
+            def m1():
+                for s in range(k):
+                    ell_ops.shard_hop(fp0, outs[s], mt, s, over)
+
+            def m3():
+                pmesh.replicate_rows(outs, blocks, ell_ops.copy_rows)
+
+            def hop():
+                ell_ops.mesh_hop(cur, outs, mt, es, hs, over, blocks,
+                                 ell_ops.shard_hop, ell_ops.hop_merge,
+                                 ell_ops.copy_rows)
+        res[f"shard_hop_w{W}"] = dict(ms=queued_ms(torch, m1, QUEUED),
+                                      event_ms=cuda_ms(torch, m1,
+                                                       BACK_TO_BACK),
+                                      shards=k)
         res[f"replicate_rows_w{W}"] = dict(
-            ms=queued_ms(torch, lambda: replicate(outs), QUEUED),
-            event_ms=cuda_ms(torch, lambda: replicate(outs), BACK_TO_BACK),
-            bytes=nbytes)
-        cur = [fp0.clone() for _ in range(k)]
-        hop = (ell_ops.shard_hop, ell_ops.hop_merge) + extra
-
-        def mesh_hop():
-            ell_ops.mesh_hop(cur, outs, mt, es, hs, over, blocks, *hop)
-        mesh_hop()
+            ms=queued_ms(torch, m3, QUEUED),
+            event_ms=cuda_ms(torch, m3, BACK_TO_BACK))
+        hop()
         single = torch.empty_like(fp0)
         ell_ops.go_hop(fp0, None, single, tables, eslot, hrows, over)
         _equal(torch, f"mesh_hop W={W}", *[(o, single) for o in outs])
         res[f"mesh_hop_w{W}"] = dict(
-            ms=queued_ms(torch, mesh_hop, QUEUED),
-            event_ms=cuda_ms(torch, mesh_hop, BACK_TO_BACK))
+            ms=queued_ms(torch, hop, QUEUED),
+            event_ms=cuda_ms(torch, hop, BACK_TO_BACK))
 
         def go():
             ell_ops.ell_go_sharded(fp0, mt, es, hs, over, 3)
@@ -207,12 +242,88 @@ def mesh_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng, dev):
                 ell_ops.ell_go(fp0.clone(), tables, eslot, hrows, over, 3)))
         res[f"ell_go_sharded_w{W}"] = dict(
             ms=queued_ms(torch, go, QUEUED),
-            event_ms=cuda_ms(torch, go, PROGRAM_CALLS))
+            event_ms=cuda_ms(torch, go, PROGRAM_CALLS),
+            **counts(torch, ell_ops, go))
         t0 = fp0.roll(1, dims=0).contiguous()
-        res[f"ell_bfs_sharded_w{W}"] = dict(event_ms=cuda_ms(
-            torch, lambda: ell_ops.ell_bfs_sharded(fp0, t0, mt, es, hs, over,
-                                                   5), BFS_CALLS, 1))
+
+        def bfs():
+            ell_ops.ell_bfs_sharded(fp0, t0, mt, es, hs, over, 5)
+        res[f"ell_bfs_sharded_w{W}"] = dict(
+            event_ms=cuda_ms(torch, bfs, BFS_CALLS, 1),
+            **counts(torch, ell_ops, bfs, waits=True))
         del outs, cur
+    return res
+
+
+def mesh_sparse_rows(torch, ell_ops, ix, tables, over, rng, dev):
+    """``mesh_sparse_go`` (c0 256: 128 queries, one start each; c0 2048:
+    1024 queries, two each; 3 steps) and ``mesh_sparse_bfs`` (128
+    queries, UPTO 5, stop when found) at k = MESH_K on this card, the
+    starts in the checkout's own form (one slab a card group where the
+    checkout has the card stages, ``ell_ops.mesh_dedup``; else a tensor
+    a shard): the GO held equal to its plain version, its device time
+    over calls queued behind a longer spin (MESH_SPIN: the parent's host
+    takes about 4 ms a call) with the host's enqueue beside it, its
+    event time, and for both the launches a call."""
+    import numpy as np
+    from nebula_tpu_torch.tpu import mesh as pmesh
+    from nebula_tpu_torch.tpu.ell import (build_sharded_ell, sharded_tables,
+                                          sparse_caps,
+                                          split_start_pairs_by_owner)
+    k = MESH_K
+    st = sharded_tables(build_sharded_ell(ix, k), pmesh.PartsMesh([dev] * k))
+    res = {}
+    if hasattr(ell_ops, "mesh_dedup"):
+        def up(a):
+            return st.mesh.split(torch.from_numpy(a).to(dev))
+        stacked = st.mesh.stacked
+    else:
+        def up(a):
+            return [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                    for x in a]
+
+        def stacked(out):
+            return torch.stack(list(out))
+    for c0, nq, per in ((256, 128, 1), (2048, 1024, 2)):
+        rows = ix.perm[rng.integers(0, ix.n, nq * per)].astype(np.int32)
+        qs = (np.arange(nq * per) // per).astype(np.int32)
+        placed = split_start_pairs_by_owner(st, rows, qs, c0)
+        ids, qid = up(placed[0]), up(placed[1])
+        caps = sparse_caps(c0, max(tables.D), 3, 1 << 17)
+        cap_x, cap_e = max(256, caps[-1] // max(k // 2, 1)), max(64, c0)
+
+        def go():
+            return ell_ops.mesh_sparse_go(ids, qid, st, over, 3, caps, cap_x,
+                                          cap_e, nq)
+        got = stacked(go())
+        want = stacked(ell_ops.mesh_sparse_go_ref(
+            ids, qid, st, over, 3, caps, cap_x, cap_e, nq))
+        _equal(torch, f"mesh_sparse_go c0={c0} flags",
+               (got[:, 1], want[:, 1]))
+        if not bool(want[:, 1].any()):
+            _equal(torch, f"mesh_sparse_go c0={c0}", (got, want))
+        ms, enq = queued_times(torch, go, MESH_QUEUED, MESH_SPIN)
+        res[f"mesh_sparse_go_c0_{c0}"] = dict(
+            ms=ms, enqueue_ms=enq, event_ms=cuda_ms(torch, go,
+                                                    PROGRAM_CALLS),
+            overflow=bool(want[:, 1].any()), **counts(torch, ell_ops, go))
+    cap = 1 << 17
+    s_new = ix.perm[rng.integers(0, ix.n, 128)].astype(np.int32)
+    t_new = ix.perm[rng.integers(0, ix.n, 128)].astype(np.int32)
+    qq = np.arange(128, dtype=np.int32)
+    ps = split_start_pairs_by_owner(st, s_new, qq, cap)
+    pt = split_start_pairs_by_owner(st, t_new, qq, cap)
+    args = (up(ps[0]), up(ps[1]), up(pt[0]), up(pt[1]))
+
+    def bfs():
+        return ell_ops.mesh_sparse_bfs(*args, st, over, 5, cap,
+                                       max(256, cap // max(k // 2, 1)),
+                                       max(64, cap // 8), 128)
+    res["mesh_sparse_bfs_b128"] = dict(event_ms=cuda_ms(torch, bfs,
+                                                        BFS_CALLS, 1),
+                                       levels=bfs()[2],
+                                       **counts(torch, ell_ops, bfs,
+                                                waits=True))
     return res
 
 
@@ -336,6 +447,7 @@ def main(argv=None) -> int:
                          dev))
     res.update(mesh_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng,
                          dev))
+    res.update(mesh_sparse_rows(torch, ell_ops, ix, tables, over, rng, dev))
     print(json.dumps(res), flush=True)
     return 0
 

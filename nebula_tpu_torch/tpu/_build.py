@@ -36,7 +36,7 @@ SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "ell_int8.cu"),
            os.path.join(CSRC, "ell_mesh.cu"),
            os.path.join(CSRC, "mesh_sparse.cu"))
-# included by ell_lanes.cu and ell_int8.cu: the hop's shared gather
+# included by ell_lanes.cu, ell_int8.cu and ell_mesh.cu: the hop's plan
 HEADERS = (os.path.join(CSRC, "hop_plan.cuh"),)
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -185,20 +185,24 @@ def load() -> ctypes.CDLL:
         lib.i8_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
                                      i64, vp]
         lib.ell_table_copy.argtypes = [vp, vp, vp, vp, i64, vp]
-        # the mesh: csrc/ell_mesh.cu (bucket tables by value) and the
-        # lane kernels it reuses from csrc/ell_lanes.cu
-        from .ell_ops import _ShardAbsorb
-        lib.mesh_replicate_rows.argtypes = [vp, ctypes.POINTER(vp), i32, p64,
-                                            i32, vp]
+        # the mesh: csrc/ell_mesh.cu (tables by value) and the lane
+        # kernels it reuses from csrc/ell_lanes.cu
+        from .ell_ops import _MeshCard, _MeshHop, _ShardAbsorb
+        lib.ell_mesh_hop.argtypes = [i32, vp, vp, i64, _MeshHop, p64, i32,
+                                     i64, i32, i32, p32, i32, vp, vp, i64,
+                                     i64, i64, vp, p32]
         lib.ell_shard_absorb.argtypes = [vp, vp, vp, vp, i64, _ShardAbsorb,
                                          vp]
-        lib.ell_hop_merge.argtypes = [vp, vp, vp, i64, i64, i64, i64, vp]
-        # the frontier-sharded mesh: csrc/mesh_sparse.cu (X1-X3)
-        lib.mesh_route.argtypes = [i32, vp, vp, i64, vp, i64, i32, vp, vp,
-                                   p64, i32, p32, i32, vp, vp, i64, i64,
-                                   i64, vp, i64, i32, vp, i64, vp]
-        lib.mesh_mark.argtypes = [vp, i64, i64, i64, i64, vp, i64, i64,
-                                  vp]
+        # the frontier-sharded mesh: csrc/mesh_sparse.cu (X1-X3, the
+        # agreement) and K6's emit over a card (csrc/sparse_go.cu)
+        lib.mesh_route.argtypes = [i32, _MeshCard, vp, vp, i64, vp, i64, p64,
+                                   i32, p32, i32, i64, i64, vp, vp, i64, vp,
+                                   i64, vp]
+        lib.mesh_dedup.argtypes = [_MeshCard, vp, i64, i64, vp, i64, i64,
+                                   i64, vp, vp, i64, vp, vp, i64,
+                                   ctypes.POINTER(vp), p64, p32, vp]
+        lib.mesh_agree.argtypes = [vp, i32, vp]
+        lib.sg_emit.argtypes = [vp, vp, i64, vp, i32, i64, i64, vp, vp]
         lib.mesh_bfs_stamp.argtypes = [i32, vp, vp, i64, vp, vp, i64, vp,
                                        i64, i64, vp, i64, i64, i64, i64,
                                        vp, vp]
@@ -211,10 +215,9 @@ def load() -> ctypes.CDLL:
                    lib.edge_final, lib.edge_bfs_level, lib.expr_filter,
                    lib.ell_absorb, lib.i8_frontier_upload,
                    lib.i8_row_live, lib.i8_go_hop, lib.i8_pack_rows,
-                   lib.i8_bfs_level, lib.ell_table_copy,
-                   lib.mesh_replicate_rows,
-                   lib.ell_shard_absorb, lib.ell_hop_merge,
-                   lib.ell_or_many, lib.mesh_route, lib.mesh_mark,
+                   lib.i8_bfs_level, lib.ell_table_copy, lib.ell_mesh_hop,
+                   lib.ell_shard_absorb, lib.ell_or_many, lib.mesh_route,
+                   lib.mesh_dedup, lib.mesh_agree, lib.sg_emit,
                    lib.mesh_bfs_stamp):
             fn.restype = ctypes.c_int
         _lib = lib

@@ -1,8 +1,9 @@
 // Lane kernels for Hopper (sm_90a), behind a plain C interface that
 // nebula_tpu_torch/tpu/ell_ops.py loads with ctypes: the continuous
 // session's hop, join, extract and clear, the windowed path's packed
-// frontier upload, per-lane COUNT(*) fold and BFS level pass, and the
-// mesh's multi-source OR (psum_or's combine).
+// frontier upload, per-lane COUNT(*) fold and BFS level pass, the
+// replicated-frontier mesh's M1 gather and hub merge over every shard
+// of a card, and the mesh's multi-source OR (psum_or's combine).
 //
 // Layout shared by every kernel: the resident frontier pair fp / accp is
 // uint8 [n_rows + 1, W] row-major, 8 query lanes per byte (bit k of byte
@@ -88,31 +89,39 @@ using hop::zero_v;
 //     L2 and more loads in flight win (on an H100 SXM at 700 W, 0.27
 //     against 0.32 ms a hop at W = 128 on chip_smoke.py's serve
 //     tables), while at W = 16 the same cap costs 9%.
-// The plan and OVER set are hop_plan.cuh's; the mesh's M1 runs this
-// kernel on one shard's plan (its chunk rows, shard-local slots, no
-// accumulator, no merge).  The output is a separate buffer: every
-// gather reads the previous generation, so the caller ping-pongs two.
-// Block 0 zeroes the pad row of out (no other thread writes it); accp's
-// pad row stays zero.
-template <typename V, bool Q, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
-                  V* __restrict__ accp, const int32_t* __restrict__ nbr,
-                  const int32_t* __restrict__ et, HopPlan pl, OverSet ov,
-                  long long n_rows, int C, int lgc) {
-    const int blk = (int)blockIdx.x;
-    if (blk == 0)
-        for (int t = threadIdx.x; t < C; t += blockDim.x)
-            zero_v(out[n_rows * C + t]);
-    int b = 0;                          // uniform over the block
+// The plan and OVER set are hop_plan.cuh's.  The mesh's M1 runs the
+// same rows over every shard of a card (mesh_gather_kernel below).  The
+// output is a separate buffer: every gather reads the previous
+// generation, so the caller ping-pongs two.  Block 0 zeroes the pad row
+// of out (no other thread writes it); accp's pad row stays zero.
+
+// block blk's bucket (uniform over the block)
+__device__ __forceinline__ int plan_bucket(const HopPlan& pl, int blk) {
+    int b = 0;
     for (int k = 1; k < pl.n; ++k)
         if (pl.blk0[k] <= blk) b = k;
+    return b;
+}
+
+// The gather of block blk of bucket b, whose rows start at frontier row
+// row0 and whose first `rows` block rows are live.
+template <typename V, bool Q>
+__device__ __forceinline__ void hop_rows(const V* __restrict__ fp,
+                                         V* __restrict__ out,
+                                         V* __restrict__ accp,
+                                         const int32_t* __restrict__ nbr,
+                                         const int32_t* __restrict__ et,
+                                         const HopPlan& pl,
+                                         const OverSet& ov,
+                                         long long n_rows, int C, int lgc,
+                                         int blk, int b, long long row0,
+                                         long long rows) {
     const int lg = pl.lg[b];
     const int G = 1 << lg;
     const int lane = threadIdx.x & (G - 1);
     const long long lr = (long long)(blk - pl.blk0[b]) * (kThreads >> lg)
                          + (threadIdx.x >> lg);
-    const bool live = lr < pl.rows[b];
+    const bool live = lr < rows;
     const int D = pl.D[b];
     const int Cg = 1 << lgc;
     const int P = G >> lgc;             // slot parts of a row
@@ -123,7 +132,7 @@ hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
     const int NU = D / U;               // units of a row
     const long long base = pl.slot0[b] + lr * D;
     const int32_t pad = (int32_t)n_rows;
-    const long long r = pl.row0[b] + lr;
+    const long long r = row0 + lr;
     // every lane runs the same trip counts (C, NU, P are the block's),
     // so the whole warp reaches each shuffle
     for (int cb = 0; cb < C; cb += Cg) {
@@ -185,6 +194,46 @@ hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
     }
 }
 
+template <typename V, bool Q, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
+                  V* __restrict__ accp, const int32_t* __restrict__ nbr,
+                  const int32_t* __restrict__ et, HopPlan pl, OverSet ov,
+                  long long n_rows, int C, int lgc) {
+    const int blk = (int)blockIdx.x;
+    if (blk == 0)
+        for (int t = threadIdx.x; t < C; t += blockDim.x)
+            zero_v(out[n_rows * C + t]);
+    const int b = plan_bucket(pl, blk);
+    hop_rows<V, Q>(fp, out, accp, nbr, et, pl, ov, n_rows, C, lgc, blk, b,
+                   pl.row0[b], pl.rows[b]);
+}
+
+// M1, the replicated-frontier mesh's gather (replaces the per-shard
+// hop of nebula_tpu/tpu/ell.py:1740 _make_sharded_hop_packed): every
+// member y of a card (blockIdx.y) gathers its shard's chunk rows from
+// its replica fp + y * stride into out + y * stride, on shard 0's plan
+// (the most rows any shard has a bucket; a shard's blocks past its own
+// rows do nothing).  No accumulator, no merge: the merge runs after
+// the replication.
+template <typename V, bool Q, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+mesh_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
+                   long long stride, hop::MeshHop mh, HopPlan pl,
+                   OverSet ov, long long n_rows, int C, int lgc) {
+    const int y = (int)blockIdx.y;
+    const int blk = (int)blockIdx.x;
+    fp += y * stride;
+    out += y * stride;
+    if (blk == 0)
+        for (int t = threadIdx.x; t < C; t += blockDim.x)
+            zero_v(out[n_rows * C + t]);
+    const int b = plan_bucket(pl, blk);
+    hop_rows<V, Q>(fp, out, nullptr, mh.nbr[y], mh.et[y], pl, ov, n_rows,
+                   C, lgc, blk, b, pl.row0[b] + mh.shard[y] * mh.chunk[b],
+                   hop::mesh_rows(mh, y, b, pl.rows[b]));
+}
+
 
 // Hub fix-up: OR each extra row n + e into its owner hrows[eslot[e]],
 // in out and, when given, in accp (the hop's fused union: an extra row's
@@ -195,12 +244,12 @@ hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
 // and merge nowhere.  Extra rows keep their partial values (they are
 // never gather sources and are re-derived next hop), as in the
 // reference.  Bound: bytes, O(n_extras * W).
-__global__ void hop_merge_kernel(uint32_t* __restrict__ out,
-                                 uint32_t* __restrict__ accp,
-                                 const int32_t* __restrict__ eslot,
-                                 const int32_t* __restrict__ hrows,
-                                 long long n, long long n_rows,
-                                 long long n_extras, int W4) {
+__device__ __forceinline__ void merge_rows(uint32_t* __restrict__ out,
+                                           uint32_t* __restrict__ accp,
+                                           const int32_t* __restrict__ eslot,
+                                           const int32_t* __restrict__ hrows,
+                                           long long n, long long n_rows,
+                                           long long n_extras, int W4) {
     const long long total = n_extras * (long long)W4;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -214,6 +263,28 @@ __global__ void hop_merge_kernel(uint32_t* __restrict__ out,
         atomicOr(out + owner * W4 + w, v);
         if (accp) atomicOr(accp + owner * W4 + w, v);
     }
+}
+
+__global__ void hop_merge_kernel(uint32_t* __restrict__ out,
+                                 uint32_t* __restrict__ accp,
+                                 const int32_t* __restrict__ eslot,
+                                 const int32_t* __restrict__ hrows,
+                                 long long n, long long n_rows,
+                                 long long n_extras, int W4) {
+    merge_rows(out, accp, eslot, hrows, n, n_rows, n_extras, W4);
+}
+
+// The mesh hop's merge on every replica of a card (blockIdx.y: the
+// replica out + y * stride words), after the owned rows were replicated
+// (ell.py:1780-1788).
+__global__ void mesh_merge_kernel(uint32_t* __restrict__ out,
+                                  long long stride,
+                                  const int32_t* __restrict__ eslot,
+                                  const int32_t* __restrict__ hrows,
+                                  long long n, long long n_rows,
+                                  long long n_extras, int W4) {
+    merge_rows(out + blockIdx.y * stride, nullptr, eslot, hrows, n, n_rows,
+               n_extras, W4);
 }
 
 // dst |= src[0] | ... | src[m - 1] over `words` 32-bit words: the first
@@ -582,18 +653,67 @@ int ell_bfs_level(void* nxt, const void* tp, void* d, void* flags,
     return (int)cudaGetLastError();
 }
 
-// The hub OR-merge alone (hop_merge_kernel) on one frontier replica:
-// the mesh's hop runs it on every shard's replica after the owned rows
-// were replicated (ell.py:1780-1788).  out: uint8 [n_rows + 1, W].
-int ell_hop_merge(void* out, const void* eslot, const void* hrows,
-                  int64_t n, int64_t n_rows, int64_t n_extras, int64_t W,
-                  void* stream) {
-    if (W <= 0 || W % 4 != 0 || n_extras < 0) return -1;
+// The mesh hop's M1 and merge over every member of a card: called by
+// ell_mesh.cu's ell_mesh_hop (the entry ell_ops.mesh_hop calls), which
+// checks its arguments.  fp / out: the card's [members, n_rows + 1, W]
+// slabs, a replica every `stride` bytes; plan: shard 0's hop_plan as
+// ell_go_hop takes it (`wide` as there, with every replica 16-byte
+// aligned); mh: the members' tables and the chunk geometry.
+int ell_mesh_gather(const void* fp, void* out, int64_t stride,
+                    hop::MeshHop mh, const int64_t* plan, int n_buckets,
+                    int64_t blocks, int lgc, int wide, const int32_t* over,
+                    int n_over, int64_t n_rows, int64_t W, void* stream) {
+    if (W <= 0 || W % 4 != 0 || n_rows < 0 || mh.n < 1 ||
+        mh.n > hop::kCardShards || stride % 4 != 0)
+        return -1;
+    const uintptr_t rows_at = (uintptr_t)fp | (uintptr_t)out |
+                              (uintptr_t)stride;
+    if (wide && (W % 16 != 0 || (rows_at & 15) != 0)) return -1;
+    bool quads = true;
+    for (int y = 0; y < mh.n; ++y)
+        quads = quads && (((uintptr_t)mh.nbr[y] | (uintptr_t)mh.et[y])
+                          & 15) == 0;
+    hop::Plan pl;
+    hop::OverSet ov;
+    if (!hop::read_plan(plan, n_buckets, blocks, lgc, &pl, &quads) ||
+        !hop::read_over(over, n_over, &ov))
+        return -1;
+    const dim3 grid((unsigned)blocks, (unsigned)mh.n);
+    cudaStream_t s = (cudaStream_t)stream;
+    const int C = (int)(wide ? W / 16 : W / 4);
+    const long long st = stride / (wide ? 16 : 4);
+    if (wide && quads && lgc >= 3)
+        mesh_gather_kernel<uint4, true, 7><<<grid, kThreads, 0, s>>>(
+            (const uint4*)fp, (uint4*)out, st, mh, pl, ov, n_rows, C, lgc);
+    else if (wide && quads)
+        mesh_gather_kernel<uint4, true, 1><<<grid, kThreads, 0, s>>>(
+            (const uint4*)fp, (uint4*)out, st, mh, pl, ov, n_rows, C, lgc);
+    else if (wide)
+        mesh_gather_kernel<uint4, false, 1><<<grid, kThreads, 0, s>>>(
+            (const uint4*)fp, (uint4*)out, st, mh, pl, ov, n_rows, C, lgc);
+    else if (quads)
+        mesh_gather_kernel<uint32_t, true, 1><<<grid, kThreads, 0, s>>>(
+            (const uint32_t*)fp, (uint32_t*)out, st, mh, pl, ov, n_rows, C,
+            lgc);
+    else
+        mesh_gather_kernel<uint32_t, false, 1><<<grid, kThreads, 0, s>>>(
+            (const uint32_t*)fp, (uint32_t*)out, st, mh, pl, ov, n_rows, C,
+            lgc);
+    return (int)cudaGetLastError();
+}
+
+int ell_mesh_merge(void* out, int64_t stride, int members,
+                   const void* eslot, const void* hrows, int64_t n,
+                   int64_t n_rows, int64_t W, void* stream) {
+    if (W <= 0 || W % 4 != 0 || stride % 4 != 0 || members < 1 ||
+        members > hop::kCardShards || n_rows < n)
+        return -1;
+    const long long n_extras = n_rows - n;
     if (n_extras == 0) return 0;
     const int W4 = (int)(W / 4);
-    hop_merge_kernel<<<grid_for(n_extras * W4), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-        (uint32_t*)out, nullptr, (const int32_t*)eslot,
+    const dim3 grid(grid_for(n_extras * W4), (unsigned)members);
+    mesh_merge_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, stride / 4, (const int32_t*)eslot,
         (const int32_t*)hrows, n, n_rows, n_extras, W4);
     return (int)cudaGetLastError();
 }

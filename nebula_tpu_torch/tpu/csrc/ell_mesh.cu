@@ -1,4 +1,4 @@
-// The replicated-frontier mesh's per-shard kernels for Hopper (sm_90a),
+// The replicated-frontier mesh's kernels for Hopper (sm_90a),
 // behind a plain C interface that nebula_tpu_torch/tpu/ell_ops.py loads
 // with ctypes.
 //
@@ -13,39 +13,29 @@
 // mesh layer (mesh.py) copies each shard's owned rows into the others'
 // buffers after every hop.
 //
-// The per-shard hop (M1, nebula_tpu/tpu/ell.py:1740
-// _make_sharded_hop_packed) is the single-card hop's gather
-// (ell_lanes.cu ell_go_hop) run on the shard's plan.  Here:
-// M2 shard_absorb_scatter replaces nebula_tpu/tpu/ell.py:1036
-// make_sharded_ell_absorb_kernel's per-shard scatter;
-// M3 replicate_rows replaces the re-replication of the hop's owned rows
-// (ell.py:1789, the sharded output gathered back to every shard) where
-// the shards share one card: one launch a source shard.
+// A hop of the mesh is one call of ell_mesh_hop for the shards that
+// share a card (a card group): M1, the gather (ell_lanes.cu
+// mesh_gather_kernel: the single-card hop's rows on each shard's chunk,
+// nebula_tpu/tpu/ell.py:1740 _make_sharded_hop_packed), then M3, the
+// re-replication of the hop's owned rows (ell.py:1789, the sharded
+// output gathered back to every shard), then the hub merge on every
+// replica (ell_lanes.cu mesh_merge_kernel) — one launch each over every
+// shard of the card, whose replicas are one [members, n_rows + 1, W]
+// slab.  Here also M2 shard_absorb_scatter, which replaces
+// nebula_tpu/tpu/ell.py:1036 make_sharded_ell_absorb_kernel's per-shard
+// scatter.
 //
 // Every entry point runs on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after its launches
 // (0 = launched) or -1 for arguments it refuses.  Nothing here needs a
-// matrix unit: both kernels are bound by device-memory traffic.
+// matrix unit: every kernel is bound by device-memory traffic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-constexpr int kMeshMaxBuckets = 32;
+#include "hop_plan.cuh"
 
-// One source shard's replication, passed by value: its buffer's owned
-// byte ranges [lo[i], lo[i] + len[i]) in `unit`-byte units, each range's
-// first block blk0[i] (the last range's end is the grid), and the
-// receivers' buffers (same shape, same card).  Global scope, as below.
-constexpr int kCopyMaxDst = 15;
-constexpr int kCopyMaxRanges = 32;
-struct RowCopy {
-    void* dst[kCopyMaxDst];
-    long long lo[kCopyMaxRanges];
-    long long len[kCopyMaxRanges];
-    int blk0[kCopyMaxRanges];
-    int n_dst;
-    int n;
-};
+constexpr int kMeshMaxBuckets = 32;
 
 // One shard's replacement rows, passed by value: per bucket b the
 // reference's padded arguments (rows int32[kp] bucket-local row
@@ -66,6 +56,16 @@ struct ShardAbsorb {
 // csrc/ell_absorb.cu: the copy-on-write table copy (absorb_copy_kernel).
 extern "C" int ell_table_copy(const void* nbr, const void* et,
                               void* out_nbr, void* out_et, int64_t n_slots,
+                              void* stream);
+// csrc/ell_lanes.cu: the mesh hop's gather and merge over a card.
+extern "C" int ell_mesh_gather(const void* fp, void* out, int64_t stride,
+                               hop::MeshHop mh, const int64_t* plan,
+                               int n_buckets, int64_t blocks, int lgc,
+                               int wide, const int32_t* over, int n_over,
+                               int64_t n_rows, int64_t W, void* stream);
+extern "C" int ell_mesh_merge(void* out, int64_t stride, int members,
+                              const void* eslot, const void* hrows,
+                              int64_t n, int64_t n_rows, int64_t W,
                               void* stream);
 
 namespace {
@@ -103,31 +103,49 @@ __global__ void shard_absorb_scatter_kernel(int32_t* __restrict__ nbr,
 }
 
 // ------------------------------------------------------------------ M3
-// A block copies kCopyUnits * kThreads consecutive units of ONE range
-// (the entry's plan), so it finds its range once: each thread loads its
-// kCopyUnits units together, then stores them into every receiver.  The
-// source is read once whatever the receiver count.  Bound: bytes —
-// (1 + n_dst) times the owned bytes.
+// Every member y of a card (blockIdx.y) sends its owned rows — per
+// bucket its chunk's frontier rows, as M1 wrote them — from its replica
+// to every other member's, in `unit`-byte units.  A block copies
+// kCopyUnits * kThreads consecutive units of ONE bucket's range (the
+// plan: each bucket's first block, sized for the member with the most
+// rows), so it finds its range once: each thread loads its kCopyUnits
+// units together, then stores them into every receiver.  The source is
+// read once whatever the receiver count; a receiver gets exactly the
+// bytes a mesh of cards would send it.  Bound: bytes — members times
+// the owned bytes.
 constexpr int kCopyUnits = 4;
 
+struct CopyPlan {
+    long long row0[kMeshMaxBuckets];   // shard 0's chunk's first row
+    int blk0[kMeshMaxBuckets];
+    int n;
+};
+
 template <typename V>
-__global__ void replicate_rows_kernel(const V* __restrict__ src,
-                                      RowCopy rc) {
+__global__ void mesh_copy_kernel(V* __restrict__ slab, long long stride,
+                                 long long row_units, hop::MeshHop mh,
+                                 CopyPlan cp) {
+    const int y = (int)blockIdx.y;
     const int blk = (int)blockIdx.x;
     int b = 0;                          // uniform over the block
-    for (int k = 1; k < rc.n; ++k)
-        if (rc.blk0[k] <= blk) b = k;
-    const long long end = rc.lo[b] + rc.len[b];
-    const long long u0 = rc.lo[b] + (long long)(blk - rc.blk0[b])
+    for (int k = 1; k < cp.n; ++k)
+        if (cp.blk0[k] <= blk) b = k;
+    const long long lo = (cp.row0[b] + mh.shard[y] * mh.chunk[b])
+                         * row_units;
+    const long long end = lo + hop::mesh_rows(mh, y, b, mh.chunk[b])
+                               * row_units;
+    const long long u0 = lo + (long long)(blk - cp.blk0[b])
                          * kCopyUnits * kThreads + threadIdx.x;
+    const V* src = slab + y * stride;
     V v[kCopyUnits];
 #pragma unroll
     for (int j = 0; j < kCopyUnits; ++j) {
         const long long u = u0 + (long long)j * kThreads;
         if (u < end) v[j] = __ldcs(src + u);
     }
-    for (int d = 0; d < rc.n_dst; ++d) {
-        V* dst = reinterpret_cast<V*>(rc.dst[d]);
+    for (int d = 0; d < mh.n; ++d) {
+        if (d == y) continue;
+        V* dst = slab + d * stride;
 #pragma unroll
         for (int j = 0; j < kCopyUnits; ++j) {
             const long long u = u0 + (long long)j * kThreads;
@@ -158,52 +176,76 @@ int ell_shard_absorb(const void* nbr, const void* et, void* out_nbr,
     return (int)cudaGetLastError();
 }
 
-// src: one shard's buffer; dsts: host array of n_dst receiver buffers
-// of the same bytes on the same card; ranges: host int64 [n_ranges * 2]
-// byte ranges (lo, hi) of src, copied to the same bytes of every
-// receiver.  16-byte units when every pointer and bound is 16-byte
-// aligned, else 4-byte ones (the mesh's packed rows are W % 4 == 0
-// bytes); -1 for anything less aligned.  Returns without a launch when
-// there is nothing to copy.
-int mesh_replicate_rows(const void* src, void* const* dsts, int n_dst,
-                        const int64_t* ranges, int n_ranges, void* stream) {
-    if (n_dst < 1 || n_dst > kCopyMaxDst || n_ranges < 0 ||
-        n_ranges > kCopyMaxRanges)
+// One hop of the replicated-frontier mesh for the members of a card:
+// stages & 1 M1 (fp -> out), & 2 M3 (out's owned rows to every other
+// member's out), & 4 the hub merge on every member's out.  fp, out: the
+// card's [members, n_rows + 1, W] slabs, a replica every `stride`
+// bytes; mh: the members' tables and chunk geometry; plan, n_buckets,
+// blocks, lgc, wide: shard 0's hop plan as ell_go_hop takes it; over:
+// host int32 [n_over]; eslot / hrows: the hub merge's arrays on this
+// card.  One launch a stage; M3 launches nothing for a lone member or
+// when no member owns a row, the merge nothing without hub extra rows.
+// launched: host int32 [3], the launches made of M1, M3 and the merge
+// (each 0 or 1), written however the call ends.
+int ell_mesh_hop(int stages, const void* fp, void* out, int64_t stride,
+                 hop::MeshHop mh, const int64_t* plan, int n_buckets,
+                 int64_t blocks, int lgc, int wide, const int32_t* over,
+                 int n_over, const void* eslot, const void* hrows,
+                 int64_t n, int64_t n_rows, int64_t W, void* stream,
+                 int32_t* launched) {
+    launched[0] = launched[1] = launched[2] = 0;
+    if (stages < 1 || stages > 7 || mh.n < 1 || mh.n > hop::kCardShards ||
+        n_buckets < 1 || n_buckets > kMeshMaxBuckets || W <= 0 ||
+        W % 4 != 0 || stride % 4 != 0 || stride < (n_rows + 1) * W)
         return -1;
-    uintptr_t at = (uintptr_t)src;
-    for (int d = 0; d < n_dst; ++d) at |= (uintptr_t)dsts[d];
-    for (int i = 0; i < n_ranges; ++i) {
-        if (ranges[2 * i] < 0 || ranges[2 * i + 1] < ranges[2 * i])
-            return -1;
-        at |= (uintptr_t)ranges[2 * i] | (uintptr_t)ranges[2 * i + 1];
+    if (stages & 1) {
+        const int rc = ell_mesh_gather(fp, out, stride, mh, plan, n_buckets,
+                                       blocks, lgc, wide, over, n_over,
+                                       n_rows, W, stream);
+        if (rc != 0) return rc;
+        launched[0] = 1;
     }
-    if ((at & 3) != 0) return -1;
-    const int unit = (at & 15) == 0 ? 16 : 4;
-    RowCopy rc;
-    rc.n_dst = n_dst;
-    for (int d = 0; d < n_dst; ++d) rc.dst[d] = dsts[d];
-    const long long per = (long long)kCopyUnits * kThreads;
-    long long blocks = 0;
-    rc.n = 0;
-    for (int i = 0; i < n_ranges; ++i) {
-        const long long len = (ranges[2 * i + 1] - ranges[2 * i]) / unit;
-        if (len == 0) continue;
-        rc.lo[rc.n] = ranges[2 * i] / unit;
-        rc.len[rc.n] = len;
-        rc.blk0[rc.n] = (int)blocks;
-        blocks += (len + per - 1) / per;
-        ++rc.n;
+    if ((stages & 2) && mh.n > 1) {
+        const uintptr_t at = (uintptr_t)out | (uintptr_t)stride;
+        const int unit = (W % 16 == 0 && (at & 15) == 0) ? 16 : 4;
+        if (at & 3) return -1;
+        const long long row_units = W / unit;
+        const long long per = (long long)kCopyUnits * kThreads;
+        CopyPlan cp;
+        cp.n = n_buckets;
+        long long blocks_m3 = 0;
+        for (int b = 0; b < n_buckets; ++b) {
+            cp.row0[b] = plan[6 * b];
+            cp.blk0[b] = (int)blocks_m3;
+            long long most = 0;
+            for (int y = 0; y < mh.n; ++y) {
+                const long long r = hop::mesh_rows(mh, y, b, mh.chunk[b]);
+                most = r > most ? r : most;
+            }
+            blocks_m3 += (most * row_units + per - 1) / per;
+        }
+        if (blocks_m3 > 0x7FFFFFFFLL) return -1;
+        if (blocks_m3 > 0) {
+            const dim3 grid((unsigned)blocks_m3, (unsigned)mh.n);
+            cudaStream_t s = (cudaStream_t)stream;
+            if (unit == 16)
+                mesh_copy_kernel<uint4><<<grid, kThreads, 0, s>>>(
+                    (uint4*)out, stride / 16, row_units, mh, cp);
+            else
+                mesh_copy_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
+                    (uint32_t*)out, stride / 4, row_units, mh, cp);
+            const cudaError_t err = cudaGetLastError();
+            if (err != cudaSuccess) return (int)err;
+            launched[1] = 1;
+        }
     }
-    if (blocks == 0) return 0;
-    if (blocks > 0x7FFFFFFFLL) return -1;
-    cudaStream_t s = (cudaStream_t)stream;
-    if (unit == 16)
-        replicate_rows_kernel<uint4><<<(unsigned)blocks, kThreads, 0, s>>>(
-            (const uint4*)src, rc);
-    else
-        replicate_rows_kernel<uint32_t><<<(unsigned)blocks, kThreads, 0,
-                                          s>>>((const uint32_t*)src, rc);
-    return (int)cudaGetLastError();
+    if (stages & 4) {
+        const int rc = ell_mesh_merge(out, stride, mh.n, eslot, hrows, n,
+                                      n_rows, W, stream);
+        if (rc != 0) return rc;
+        launched[2] = n_rows > n;      // ell_mesh_merge's launch
+    }
+    return 0;
 }
 
 }  // extern "C"

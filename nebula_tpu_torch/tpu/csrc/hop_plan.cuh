@@ -1,10 +1,12 @@
 // The hop's launch plan and OVER set for Hopper (sm_90a), shared by the
-// packed hop's gather (ell_lanes.cu hop_gather_kernel: go_hop, and the
-// mesh's M1 shard_hop on one shard's plan) and the int8 hop's (ell_int8.cu
-// hop_i8_kernel: K13), with the element helpers both use.  Included by
-// both sources; nothing here has external linkage.
+// packed hop's gather (ell_lanes.cu hop_gather_kernel: go_hop; and
+// mesh_gather_kernel: the mesh's M1 over every shard of a card on shard
+// 0's plan), the mesh's row replication (ell_mesh.cu: M3) and the int8
+// hop's gather (ell_int8.cu hop_i8_kernel: K13), with the element
+// helpers the gathers use.  Included by those sources; the extern "C"
+// entries that take MeshHop by value need it at namespace scope.
 //
-// Both gathers run ell_ops.hop_plan's plan: a block takes kThreads / G
+// Every gather runs ell_ops.hop_plan's plan: a block takes kThreads / G
 // consecutive rows of ONE bucket, so it finds its bucket once and every
 // lane of a warp runs the same trip counts (the warp reaches each
 // shuffle whole); a row belongs to G = Cg * P lanes, Cg of them
@@ -34,6 +36,32 @@ struct Plan {
     int lg[kMaxBuckets];
     int n;
 };
+
+// A card group of the replicated-frontier mesh (ell_ops.mesh_hop), by
+// value: each member's shard-local tables and its index s in the mesh,
+// and per bucket b the shards' chunk: shard s's chunk rows start at
+// frontier row plan.row0[b] + s * chunk[b] (plan.row0 is shard 0's),
+// and those below real[b] - s * chunk[b] are frontier rows (the rest
+// pad the bucket to k chunks).  Every member's slots sit at the same
+// shard-local offsets (plan.slot0), since every chunk of a bucket has
+// the same rows.
+constexpr int kCardShards = 16;
+struct MeshHop {
+    const int32_t* nbr[kCardShards];
+    const int32_t* et[kCardShards];
+    long long shard[kCardShards];
+    long long chunk[kMaxBuckets];
+    long long real[kMaxBuckets];
+    int n;
+};
+
+// member y's frontier rows of bucket b, at most cap
+__host__ __device__ __forceinline__ long long mesh_rows(const MeshHop& mh,
+                                                        int y, int b,
+                                                        long long cap) {
+    const long long r = mh.real[b] - mh.shard[y] * mh.chunk[b];
+    return r < 0 ? 0 : (r > cap ? cap : r);
+}
 
 // The OVER set as signed etypes (negative = REVERSELY), by value, with
 // a bitmask of etype + 32 when every member lies in [-32, 31].

@@ -40,6 +40,11 @@
 //                      frontier for the dense hop (ell_go_hop), and
 //                      back.
 //
+// K5 and K6's plain emit also serve the frontier-sharded mesh: one
+// launch covers every shard of a card (blockIdx.y the shard; the mesh's
+// mesh_dedup and sg_emit entries), K5 with each shard's row base and
+// clearing the exchange blocks the mesh's hop consumed.
+//
 // Every kernel runs on the caller's stream, allocates nothing and does
 // not synchronise; each entry point returns cudaGetLastError() after its
 // launches (0 = launched, -1 = an argument the kernels cannot take).
@@ -60,6 +65,8 @@ constexpr int kRounds = 8;                    // K5: words per thread
 constexpr long long kChunk = (long long)kThreads * kRounds;
 constexpr int kMaxBuckets = 32;
 constexpr int kMaxOver = 32;
+constexpr int kCardShards = 16;               // members of one launch
+constexpr int kClearSlabs = 4;                // K5's exchange slabs
 constexpr int32_t kBigQ = 1 << 30;            // ell.py BIG_Q
 constexpr int32_t kI32Max = 0x7FFFFFFF;
 
@@ -69,6 +76,7 @@ constexpr int kOvf = 1;       // sticky overflow
 constexpr int kHubTotal = 2;  // this hop's hub extra rows (K4 adds)
 constexpr int kHubBig = 3;    // this hop saw a clamped per-pair count
 constexpr int kMode = 4;      // adaptive: 1 sparse arm, 2 dense arm
+constexpr int kXBytes = 4;    // frontier-sharded mesh: bytes exchanged
 constexpr int kSparse = 5;    // adaptive: sticky "may stay sparse"
 
 struct Buckets {
@@ -199,10 +207,34 @@ __global__ void sparse_expand_kernel(const int32_t* __restrict__ ids,
 }
 
 // ---------------------------------------------------------------- K5
+// Every K5 kernel runs once for all the members of a launch
+// (blockIdx.y; one member on one card): member y's bitmap is mark + y *
+// words, its block sums boff + y * nb, its ctl ctl + y * kCtlWords, its
+// pairs ids_out / qid_out + y * ids_stride.
+constexpr int kCtlWords = 8;
+
+// The members of a frontier-sharded card, by value: each member's row
+// base (its shard's first row; 0 on one card), and the exchange blocks
+// its hop consumed, which the scan clears: member y's blocks [y * k,
+// (y + 1) * k) of each slab, int64 [1 + cap[j]] each, the count first.
+// A receive slab's blocks from other shards (the member's own block
+// excepted: shard[y]) are counted first into ctl[kXBytes], 8 bytes a
+// count and a kept key.  k = 0: nothing to clear.
+struct CardCompact {
+    long long base[kCardShards];
+    long long* slab[kClearSlabs];
+    long long cap[kClearSlabs];
+    int recv[kClearSlabs];
+    int shard[kCardShards];
+    int k;
+};
+
 // Pass 1: popcount of each block's kChunk words -> boff[block].
 __global__ void pair_count_kernel(const uint32_t* __restrict__ mark,
-                                  long long words,
+                                  long long words, long long nb,
                                   unsigned long long* __restrict__ boff) {
+    mark += blockIdx.y * words;
+    boff += blockIdx.y * nb;
     const long long w0 = (long long)blockIdx.x * kChunk;
     long long c = 0;
     for (int r = 0; r < kRounds; ++r) {
@@ -232,13 +264,19 @@ __device__ long long scan_inplace(unsigned long long* vals, long long n) {
     return total;
 }
 
-// Pass 2 (one block): block offsets, the unique count into ctl[kCnt],
-// and the sticky overflow: count > c_out, or (ex >= 0) the hop's hub
-// budget total > ex or a clamped per-pair count; the budget resets for
-// the next hop.
+// Pass 2 (one block a member): block offsets, the unique count into
+// ctl[kCnt], and the sticky overflow: count > c_out, or (ex >= 0) the
+// hop's hub budget total > ex or a clamped per-pair count; the budget
+// resets for the next hop.  With a card's exchange blocks (cc.k > 0):
+// their counts cleared (the bytes of the received ones counted first)
+// and the hub runs' total reset, for the next hop's router.
 __global__ void pair_scan_kernel(unsigned long long* __restrict__ boff,
                                  long long nb, long long c_out,
-                                 long long ex, long long* __restrict__ ctl) {
+                                 long long ex, long long* __restrict__ ctl,
+                                 CardCompact cc) {
+    const int y = (int)blockIdx.y;
+    boff += y * nb;
+    ctl += y * kCtlWords;
     const long long total = scan_inplace(boff, nb);
     if (threadIdx.x == 0) {
         ctl[kCnt] = total;
@@ -249,12 +287,27 @@ __global__ void pair_scan_kernel(unsigned long long* __restrict__ boff,
             ctl[kHubBig] = 0;
         }
         if (ovf) ctl[kOvf] = 1;
+        if (cc.k > 0) ctl[kHubTotal] = 0;
+    }
+    for (int j = 0; j < kClearSlabs; ++j) {
+        if (!cc.slab[j]) continue;
+        for (int t = threadIdx.x; t < cc.k; t += blockDim.x) {
+            long long* blk = cc.slab[j] + ((long long)y * cc.k + t)
+                                          * (1 + cc.cap[j]);
+            if (cc.recv[j] && t != cc.shard[y]) {
+                const long long c = blk[0] < cc.cap[j] ? blk[0] : cc.cap[j];
+                atomicAdd(reinterpret_cast<unsigned long long*>(
+                              ctl + kXBytes),
+                          (unsigned long long)(8 * (1 + c)));
+            }
+            blk[0] = 0;
+        }
     }
 }
 
 // Pass 3: the first c_out set bits in word order ((q, v) order) as
-// (ids_out, qid_out) pairs, row_base added to every vertex (a
-// frontier-sharded shard's first row; 0 on one card); positions past
+// (ids_out, qid_out) pairs, the member's row base added to every vertex
+// (a frontier-sharded shard's first row; 0 on one card); positions past
 // the count get the pads (n_rows, BIG_Q).  Each word read is zeroed (zero), ORed into uni, or
 // copied into copy_to, as asked.  qid_out may be null.
 __global__ void pair_compact_kernel(uint32_t* __restrict__ mark,
@@ -262,13 +315,24 @@ __global__ void pair_compact_kernel(uint32_t* __restrict__ mark,
                                     long long c_out,
                                     int32_t* __restrict__ ids_out,
                                     int32_t* __restrict__ qid_out,
+                                    long long ids_stride,
                                     const unsigned long long* __restrict__
                                         boff,
+                                    long long nb,
                                     const long long* __restrict__ ctl,
                                     uint32_t* __restrict__ uni,
                                     uint32_t* __restrict__ copy_to,
                                     int zero, long long n_rows,
-                                    long long row_base) {
+                                    CardCompact cc) {
+    const int y = (int)blockIdx.y;
+    const long long row_base = cc.base[y];
+    mark += y * words;
+    ids_out += y * ids_stride;
+    if (qid_out) qid_out += y * ids_stride;
+    boff += y * nb;
+    ctl += y * kCtlWords;
+    if (uni) uni += y * words;
+    if (copy_to) copy_to += y * words;
     long long base = (long long)boff[blockIdx.x];
     const long long w0 = (long long)blockIdx.x * kChunk;
     for (int r = 0; r < kRounds; ++r) {
@@ -338,13 +402,19 @@ __device__ __forceinline__ void put_head(int32_t* out,
     out[1] = ctl[kOvf] ? 1 : 0;
 }
 
-// The plain result: the final pair list in its layout.
+// The plain result: the final pair list in its layout; member y of a
+// card (blockIdx.y) writes its c pairs ids / qid + y * c into out + y *
+// out_stride with the head from ctl + y * kCtlWords.
 __global__ void pair_emit_kernel(const int32_t* __restrict__ ids,
                                  const int32_t* __restrict__ qid,
                                  long long c, int32_t* __restrict__ out,
-                                 int pack32, long long R1,
-                                 long long n_rows,
+                                 long long out_stride, int pack32,
+                                 long long R1, long long n_rows,
                                  const long long* __restrict__ ctl) {
+    ids += blockIdx.y * c;
+    qid += blockIdx.y * c;
+    out += blockIdx.y * out_stride;
+    ctl += blockIdx.y * kCtlWords;
     const long long stride = (long long)gridDim.x * blockDim.x;
     const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t0 == 0) put_head(out, ctl);
@@ -572,27 +642,91 @@ int64_t sg_compact_blocks(int64_t words) {
     return (words + kChunk - 1) / kChunk;
 }
 
+// K5 for the members of one launch (cc: their row bases and the
+// exchange blocks to clear; one member and nothing to clear on one
+// card); boff: members * sg_compact_blocks(words) entries.
+static int compact_launch(void* mark, int64_t words, int64_t R1w,
+                          int64_t c_out, void* ids_out, void* qid_out,
+                          int64_t ids_stride, void* boff, void* ctl,
+                          int64_t ex, void* uni, void* copy_to, int zero,
+                          int64_t n_rows, int members,
+                          const CardCompact& cc, cudaStream_t s) {
+    if (words <= 0 || R1w <= 0 || c_out <= 0 || members < 1 ||
+        members > kCardShards)
+        return -1;
+    const long long nb = sg_compact_blocks(words);
+    if (nb > (1LL << 30)) return -1;
+    const dim3 grid((unsigned)nb, (unsigned)members);
+    pair_count_kernel<<<grid, kThreads, 0, s>>>(
+        (const uint32_t*)mark, words, nb, (unsigned long long*)boff);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    pair_scan_kernel<<<dim3(1, (unsigned)members), kScanThreads, 0, s>>>(
+        (unsigned long long*)boff, nb, c_out, ex, (long long*)ctl, cc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    pair_compact_kernel<<<grid, kThreads, 0, s>>>(
+        (uint32_t*)mark, words, R1w, c_out, (int32_t*)ids_out,
+        (int32_t*)qid_out, ids_stride, (const unsigned long long*)boff, nb,
+        (const long long*)ctl, (uint32_t*)uni, (uint32_t*)copy_to, zero,
+        n_rows, cc);
+    return (int)cudaGetLastError();
+}
+
 int sg_compact(void* mark, int64_t words, int64_t R1w, int64_t c_out,
                void* ids_out, void* qid_out, void* boff, void* ctl,
                int64_t ex, void* uni, void* copy_to, int zero,
                int64_t n_rows, int64_t row_base, void* stream) {
-    if (words <= 0 || R1w <= 0 || c_out <= 0) return -1;
-    cudaStream_t s = (cudaStream_t)stream;
-    const long long nb = sg_compact_blocks(words);
-    if (nb > (1LL << 30)) return -1;
-    pair_count_kernel<<<(unsigned)nb, kThreads, 0, s>>>(
-        (const uint32_t*)mark, words, (unsigned long long*)boff);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    pair_scan_kernel<<<1, kScanThreads, 0, s>>>(
-        (unsigned long long*)boff, nb, c_out, ex, (long long*)ctl);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    pair_compact_kernel<<<(unsigned)nb, kThreads, 0, s>>>(
-        (uint32_t*)mark, words, R1w, c_out, (int32_t*)ids_out,
-        (int32_t*)qid_out, (const unsigned long long*)boff,
-        (const long long*)ctl, (uint32_t*)uni, (uint32_t*)copy_to, zero,
-        n_rows, row_base);
+    CardCompact cc = {};
+    cc.base[0] = row_base;
+    return compact_launch(mark, words, R1w, c_out, ids_out, qid_out, 0,
+                          boff, ctl, ex, uni, copy_to, zero, n_rows, 1, cc,
+                          (cudaStream_t)stream);
+}
+
+// K5 over the members of a frontier-sharded card (mesh_sparse.cu's
+// mesh_dedup): the marks [members, words], pairs [members, ids_stride],
+// ctl [members, 8]; bases / shards: each member's row base and shard;
+// slabs / caps / recv: the kClearSlabs exchange slabs [members, k, 1 +
+// cap] (null: none), whether each is a receive slab.
+int sg_compact_card(void* mark, int64_t words, int64_t R1w, int64_t c_out,
+                    void* ids_out, void* qid_out, int64_t ids_stride,
+                    void* boff, void* ctl, int64_t n_rows, int members,
+                    const int64_t* bases, const int32_t* shards, int k,
+                    void* const* slabs, const int64_t* caps,
+                    const int32_t* recv, void* stream) {
+    if (members < 1 || members > kCardShards || k < 1 ||
+        ids_stride < c_out)
+        return -1;
+    CardCompact cc = {};
+    cc.k = k;
+    for (int y = 0; y < members; ++y) {
+        cc.base[y] = bases[y];
+        cc.shard[y] = shards[y];
+    }
+    for (int j = 0; j < kClearSlabs; ++j) {
+        cc.slab[j] = (long long*)slabs[j];
+        cc.cap[j] = caps[j];
+        cc.recv[j] = recv[j];
+        if (slabs[j] && caps[j] <= 0) return -1;
+    }
+    return compact_launch(mark, words, R1w, c_out, ids_out, qid_out,
+                          ids_stride, boff, ctl, -1, nullptr, nullptr, 1,
+                          n_rows, members, cc, (cudaStream_t)stream);
+}
+
+// K6's plain result (op 0, the unpacked layout) for the members of a
+// frontier-sharded card at once: ids / qid [members, c], out [members,
+// 2 + 2c], ctl [members, 8].
+int sg_emit(const void* ids, const void* qid, int64_t c, void* out,
+            int members, int64_t R1, int64_t n_rows, const void* ctl,
+            void* stream) {
+    if (c <= 0 || R1 <= 0 || members < 1 || members > kCardShards)
+        return -1;
+    pair_emit_kernel<<<dim3(blocks_for(c, kThreads), (unsigned)members),
+                       kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)ids, (const int32_t*)qid, c, (int32_t*)out,
+        2 + 2 * c, 0, R1, n_rows, (const long long*)ctl);
     return (int)cudaGetLastError();
 }
 
@@ -607,7 +741,7 @@ int sg_reduce(int op, const void* ids, const void* qid, int64_t c,
     cudaStream_t s = (cudaStream_t)stream;
     if (op == 0) {
         pair_emit_kernel<<<blocks_for(c, kThreads), kThreads, 0, s>>>(
-            (const int32_t*)ids, (const int32_t*)qid, c, (int32_t*)out,
+            (const int32_t*)ids, (const int32_t*)qid, c, (int32_t*)out, 0,
             pack32, R1, n_rows, (const long long*)ctl);
         return (int)cudaGetLastError();
     }

@@ -12,13 +12,15 @@ int8 start upload (``runtime.py:3228``), dense GO with its row pack
 (``ell.py:1140``, ``:439``) and batched BFS (``ell.py:1616``), and the
 replicated-frontier mesh's programs over row-sharded tables:
 ``ell_go_sharded`` (``ell.py:1712``), ``ell_bfs_sharded`` (``:1799``)
-and ``ell_absorb_sharded`` (``:1036``), with their per-shard kernels
-``shard_hop`` (the hop's gather on a shard's plan), ``shard_absorb``
-and ``copy_rows`` (the row replication) and the reused ``hop_merge``
-and ``or_many`` (``or_into`` its one-source call), and the
-frontier-sharded mesh's ``mesh_sparse_go`` (``ell.py:2052``) and
-``mesh_sparse_bfs`` (``:2179``) with their kernels ``mesh_route``,
-``mesh_mark`` and ``mesh_bfs_stamp``.
+and ``ell_absorb_sharded`` (``:1036``), with their hop ``mesh_hop``
+(M1, the hop's gather on each shard's chunk, M3, the row replication,
+and the hub merge, one call over every shard of a card), the absorb's
+``shard_absorb`` and ``or_many`` (``or_into`` its one-source call), and
+the frontier-sharded mesh's ``mesh_sparse_go`` (``ell.py:2052``) and
+``mesh_sparse_bfs`` (``:2179``) with their card stages
+``mesh_route_card`` (X1), ``mesh_dedup`` (X2 and K5), ``mesh_agree``
+and ``mesh_emit`` (K6), each one call over every shard of a card, and
+X3 ``mesh_bfs_stamp`` a shard.
 
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``, a transcription of the JAX function on the
@@ -44,10 +46,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import weakref
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .mesh import MAX_CARD_SHARDS
 from .ell import (INT16_INF, DeviceTables, sparse_limit_cap,
                   sparse_pack32)
 
@@ -70,7 +74,9 @@ LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
                             "ell_bfs_sharded": 0, "ell_absorb_sharded": 0,
                             "mesh_route": 0, "mesh_mark": 0,
                             "mesh_bfs_stamp": 0, "mesh_sparse_go": 0,
-                            "mesh_sparse_bfs": 0}
+                            "mesh_sparse_bfs": 0, "mesh_hop": 0,
+                            "mesh_dedup": 0, "mesh_agree": 0,
+                            "mesh_emit": 0}
 MAX_OVER = 32        # csrc kMaxOver
 MAX_BUCKETS = 32     # csrc kMaxBuckets
 MAX_COUNT_W = 1024   # csrc ell_go_count: W / 4 <= kThreads
@@ -2030,13 +2036,15 @@ def ell_absorb(tables: DeviceTables, rows: Sequence[torch.Tensor],
 # ====================================================================
 # The replicated-frontier mesh (ell.py:1688-1846, :1036): the tables
 # row-sharded over a mesh.PartsMesh (ell.MeshTables), the packed
-# frontier replicated, one buffer per shard.  A hop is M1 (``shard_hop``:
-# csrc/ell_lanes.cu's hop gather on the shard's plan) on every shard
-# into its own next buffer, the owned rows copied to every other shard
-# (mesh.replicate_rows with M3 ``copy_rows``, csrc/ell_mesh.cu), then
-# the hub OR-merge (``hop_merge``) on every replica — after the
-# replication, never per shard (ell.py:1780-1788).  Launches on a
-# shard run on its device's current stream.
+# frontier replicated, one replica per shard, the replicas of the shards
+# that share a card one [members, R1, W] slab.  A hop is one
+# ``mesh_hop`` call a card (csrc/ell_mesh.cu ell_mesh_hop): M1, the
+# hop's gather on every shard's chunk into its next replica, then M3,
+# the owned rows copied to every other replica, then the hub OR-merge
+# on every replica — after the replication, never per shard
+# (ell.py:1780-1788) — one launch each.  Shards on other cards take the
+# owned rows by copy_ (mesh.replicate_rows).  Launches on a card run
+# on its current stream.
 # ====================================================================
 class _ShardAbsorb(ctypes.Structure):
     """``ShardAbsorb`` of csrc/ell_mesh.cu, passed by value."""
@@ -2073,29 +2081,12 @@ def _on_card(dev: torch.device):
     return torch.cuda.device(dev)
 
 
-def _shard_check(fp: torch.Tensor, out: torch.Tensor, mt, s: int
-                 ) -> Tuple[int, int]:
-    if not 0 <= s < mt.k:
-        raise ValueError(f"shard {s} of a {mt.k}-shard mesh")
-    t = mt.shards[s]
-    dev = t.nbr.device
-    if fp.device != dev:
-        raise ValueError(f"fp is on {fp.device}, shard {s} on {dev}")
-    R1, W = _frontier(fp)
-    _check(out, "out", torch.uint8, (R1, W), dev)
-    if out.data_ptr() == fp.data_ptr():
-        raise ValueError("out must be a separate buffer from fp")
-    if R1 != t.n_rows + 1:
-        raise ValueError(f"frontier has {R1} rows, tables {t.n_rows + 1}")
-    _tables_check(t, dev)
-    return R1, W
-
-
 def shard_hop_ref(fp: torch.Tensor, out: torch.Tensor, mt, s: int,
                   over: Sequence[int]) -> torch.Tensor:
-    """Plain version of ``shard_hop``: _bucket_expand_packed over each
-    of shard s's chunks, the rows past the real rows trimmed, the rest
-    written at their frontier rows; the pad row zero."""
+    """M1's per-shard plain version (``mesh_hop``'s gather stage on
+    shard s): _bucket_expand_packed over each of shard s's chunks, the
+    rows past the real rows trimmed, the rest written at their frontier
+    rows; the pad row zero."""
     t = mt.shards[s]
     W = fp.shape[1]
     over_t = torch.tensor(sorted(set(int(e) for e in over)),
@@ -2114,75 +2105,13 @@ def shard_hop_ref(fp: torch.Tensor, out: torch.Tensor, mt, s: int,
     return out
 
 
-def shard_hop(fp: torch.Tensor, out: torch.Tensor, mt, s: int,
-              over: Sequence[int]) -> torch.Tensor:
-    """M1: shard s's part of one packed hop (ell.py:1740).  ``fp`` is
-    shard s's replica of the frontier uint8 [n_rows + 1, W]; ``out``
-    (a separate buffer on the same device) gets, at each of the shard's
-    frontier rows, the OR over the row's slots whose etype is in
-    ``over`` of the gathered ``fp`` rows, and a zero pad row.  Every
-    other row of ``out`` is left as it was.  On the card it is the
-    single-card hop's gather (``ell_go_hop``) on the shard's plan: per
-    bucket the chunk's first frontier row, its shard-local slots and
-    its rows below the bucket's real count; no accumulator, no merge
-    (the merge runs after the replication)."""
-    _R1, W = _shard_check(fp, out, mt, s)
-    over = _over_check(over)
-    dev = fp.device
-    if not _route(dev):
-        return shard_hop_ref(fp, out, mt, s, over)
-    t = mt.shards[s]
-    fpp, outp = fp.data_ptr(), out.data_ptr()
-    if (fpp | outp) % 4:
-        raise ValueError("kernel operands must be 4-byte aligned "
-                         "(the kernels work on 32-bit words)")
-    wide = W % 16 == 0 and not (fpp | outp) % 16
-    desc, blocks, lgc = _hop_desc(t.row0, t.slot0, _shard_live(mt, s),
-                                  t.D, W, 16 if wide else 4)
-    with _on_card(dev):
-        rc = _lib().ell_go_hop(
-            fpp, None, outp, t.nbr.data_ptr(), t.et.data_ptr(), desc,
-            len(t.D), blocks, lgc, wide, None, None, 0, _over_array(over),
-            len(over), t.n, t.n_rows, W, _stream(dev))
-    _ok(rc, "ell_go_hop (shard plan)")
-    LAUNCHES["shard_hop"] += 1
-    return out
-
-
 def hop_merge_ref(out: torch.Tensor, eslot: torch.Tensor,
                   hrows: torch.Tensor, n: int, n_rows: int) -> torch.Tensor:
-    """Plain version of ``hop_merge`` (ell.py:519 _scatter_or_rows)."""
+    """The hub merge's plain version on one frontier (``mesh_hop``'s
+    merge stage on a replica; ell.py:519 _scatter_or_rows)."""
     if n_rows > n:
         body = out[:n_rows]
         _scatter_or_rows_ref(body, body[n:].clone(), eslot, hrows)
-    return out
-
-
-def hop_merge(out: torch.Tensor, eslot: torch.Tensor, hrows: torch.Tensor,
-              n: int, n_rows: int) -> torch.Tensor:
-    """The hub OR-merge of one frontier ``out`` uint8 [n_rows + 1, W]
-    in place: extra row n + e is OR-ed into its owner
-    ``hrows[eslot[e]]`` (owners past the table merge nowhere)."""
-    R1, W = _frontier(out, "out")
-    dev = out.device
-    if R1 != n_rows + 1:
-        raise ValueError(f"frontier has {R1} rows, tables {n_rows + 1}")
-    n_extras = n_rows - n
-    _check(eslot, "eslot", torch.int32, (n_extras,), dev)
-    if hrows.dim() != 1:
-        raise ValueError("hrows must be 1-D")
-    _check(hrows, "hrows", torch.int32, tuple(hrows.shape), dev)
-    if not _route(dev):
-        return hop_merge_ref(out, eslot, hrows, n, n_rows)
-    if n_extras == 0:
-        return out
-    _aligned(out)
-    with _on_card(dev):
-        rc = _lib().ell_hop_merge(out.data_ptr(), eslot.data_ptr(),
-                                  hrows.data_ptr(), n, n_rows, n_extras, W,
-                                  _stream(dev))
-    _ok(rc, "ell_hop_merge")
-    LAUNCHES["hop_merge"] += 1
     return out
 
 
@@ -2251,77 +2180,14 @@ def or_into(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return or_many(src.unsqueeze(0), dst)
 
 
-MAX_COPY_DST = 15      # csrc ell_mesh.cu kCopyMaxDst
-MAX_COPY_RANGES = 32   # csrc kCopyMaxRanges
-
-
-@functools.lru_cache(maxsize=256)
-def _byte_ranges(rows: Tuple[Tuple[int, int], ...], rb: int):
-    """M3's ranges as the host int64 (lo, hi) byte pairs it takes (made
-    once per shard geometry and row width)."""
-    return (ctypes.c_int64 * (2 * len(rows)))(
-        *[v for lo, hi in rows for v in (lo * rb, hi * rb)])
-
-
 def copy_rows_ref(src: torch.Tensor, dsts: Sequence[torch.Tensor],
                   ranges: Sequence[Tuple[int, int]]) -> None:
-    """Plain version of ``copy_rows``: one ``copy_`` per (range,
-    receiver), the replication's per-block copies."""
+    """M3's per-source plain version (``mesh_hop``'s copy stage from one
+    shard): one ``copy_`` per (range, receiver)."""
     for lo, hi in ranges:
         if hi > lo:
             for d in dsts:
                 d[lo:hi].copy_(src[lo:hi])
-
-
-def copy_rows(src: torch.Tensor, dsts: Sequence[torch.Tensor],
-              ranges: Sequence[Tuple[int, int]]) -> None:
-    """M3: rows ``[lo, hi)`` of ``src`` for each of ``ranges`` (along
-    dim 0) copied into the same rows of every buffer of ``dsts`` — one
-    source shard's owned rows sent to the k - 1 shards that share its
-    card, in one launch that reads each row once (``mesh.replicate_rows``
-    calls it once a source shard).  ``src`` and ``dsts`` are contiguous
-    tensors of one shape and dtype on one device, none aliasing another,
-    whose rows are a multiple of 4 bytes (4-byte aligned on the card);
-    at most MAX_COPY_DST receivers and MAX_COPY_RANGES ranges.  Counts
-    under ``LAUNCHES["replicate_rows"]``; nothing to copy launches
-    nothing."""
-    dev = src.device
-    shape = tuple(src.shape)
-    _check(src, "src", src.dtype, shape, dev)
-    if src.dim() < 1:
-        raise ValueError("src must have rows (dim 0)")
-    if not 0 < len(dsts) <= MAX_COPY_DST:
-        raise ValueError(f"{len(dsts)} receivers (1..{MAX_COPY_DST})")
-    ptrs = {src.data_ptr()}
-    for i, d in enumerate(dsts):
-        _check(d, f"dsts[{i}]", src.dtype, shape, dev)
-        ptrs.add(d.data_ptr())
-    if len(ptrs) != len(dsts) + 1:
-        raise ValueError("copy_rows' buffers must be distinct")
-    rows = [(int(lo), int(hi)) for lo, hi in ranges if hi > lo]
-    if len(rows) > MAX_COPY_RANGES:
-        raise ValueError(f"{len(rows)} ranges (at most {MAX_COPY_RANGES})")
-    if any(lo < 0 or hi > shape[0] for lo, hi in rows):
-        raise ValueError(f"a range outside rows [0, {shape[0]})")
-    rb = src[0].numel() * src.element_size()
-    if rb % 4:
-        raise ValueError(f"rows of {rb} bytes (the kernel copies 32-bit "
-                         f"words)")
-    if not _route(dev):
-        return copy_rows_ref(src, dsts, rows)
-    if any(p % 4 for p in ptrs):
-        raise ValueError("copy_rows' buffers must be 4-byte aligned")
-    if not rows:
-        return None
-    byte_ranges = _byte_ranges(tuple(rows), rb)
-    dp = (ctypes.c_void_p * len(dsts))(*[d.data_ptr() for d in dsts])
-    with _on_card(dev):
-        rc = _lib().mesh_replicate_rows(src.data_ptr(), dp, len(dsts),
-                                        byte_ranges, len(rows),
-                                        _stream(dev))
-    _ok(rc, "mesh_replicate_rows")
-    LAUNCHES["replicate_rows"] += 1
-    return None
 
 
 def _mesh_args(mt, eslot, hrows) -> None:
@@ -2334,94 +2200,268 @@ def _mesh_args(mt, eslot, hrows) -> None:
                                  f"{s} on {mt.shards[s].nbr.device}")
 
 
-def mesh_hop(cur, nxt, mt, eslot, hrows, over, blocks, hop, merge,
-             copy) -> None:
-    """One replicated-frontier hop (ell.py:1771-1796): ``hop`` (M1 or
-    its plain version) on every shard from its replica ``cur[s]`` into
-    ``nxt[s]``, the owned rows (``blocks[s] = mt.owned(s)``) replicated
-    to every shard by ``copy`` (M3 or its plain version, as
-    ``mesh.replicate_rows`` takes it), then ``merge`` (the hub merge)
-    on every replica."""
-    from .mesh import replicate_rows
-    for s in range(mt.k):
-        hop(cur[s], nxt[s], mt, s, over)
-    replicate_rows(nxt, blocks, copy)
+HOP_GATHER, HOP_COPY, HOP_MERGE = 1, 2, 4   # mesh_hop's stages
+HOP_STAGES = HOP_GATHER | HOP_COPY | HOP_MERGE
+
+
+class _MeshHop(ctypes.Structure):
+    """``hop::MeshHop`` of csrc/hop_plan.cuh, passed by value: a card
+    group's tables and chunk geometry."""
+    _fields_ = [("nbr", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("et", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("shard", ctypes.c_longlong * MAX_CARD_SHARDS),
+                ("chunk", ctypes.c_longlong * MAX_BUCKETS),
+                ("real", ctypes.c_longlong * MAX_BUCKETS),
+                ("n", ctypes.c_int)]
+
+
+_CARD_DESC: Dict[tuple, tuple] = {}
+
+
+def _card_desc(tensors: tuple, extra: tuple, build):
+    """``build()``, a card's by-value descriptor holding the addresses of
+    ``tensors``, made once and kept while every one of them lives (a new
+    table generation gets its own)."""
+    key = tuple(map(id, tensors)) + extra
+    hit = _CARD_DESC.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tensors)):
+        return hit[1]
+    if len(_CARD_DESC) >= 256:
+        for kk, (refs, _v) in list(_CARD_DESC.items()):
+            if any(r() is None for r in refs):
+                _CARD_DESC.pop(kk, None)
+    val = build()
+    _CARD_DESC[key] = (tuple(weakref.ref(t) for t in tensors), val)
+    return val
+
+
+def _mesh_hop_desc(mt, members: Tuple[int, ...]) -> _MeshHop:
+    tabs = tuple(x for s in members
+                 for x in (mt.shards[s].nbr, mt.shards[s].et))
+
+    def build():
+        mh = _MeshHop()
+        for y, s in enumerate(members):
+            mh.nbr[y] = mt.shards[s].nbr.data_ptr()
+            mh.et[y] = mt.shards[s].et.data_ptr()
+            mh.shard[y] = s
+        t = mt.shards[0]
+        for b in range(len(t.D)):
+            mh.chunk[b] = t.rows[b]
+            mh.real[b] = mt.real_rows[b]
+        mh.n = len(members)
+        return mh
+    return _card_desc(tabs, ("hop", members), build)
+
+
+def _card_check(mt, group) -> Tuple[torch.device, Tuple[int, ...]]:
+    dev, members = group
+    members = tuple(members)
+    if not 0 < len(members) <= MAX_CARD_SHARDS or any(
+            not 0 <= s < mt.k or mt.shards[s].nbr.device != dev
+            for s in members):
+        raise ValueError(f"card group {members} on {dev} of a {mt.k}-shard "
+                         f"mesh (at most {MAX_CARD_SHARDS} a card)")
+    return dev, members
+
+
+def _hop_slabs(cur, nxt, mt, members, dev) -> Tuple[int, int]:
+    kg, R1 = len(members), mt.shards[0].n_rows + 1
+    if not isinstance(cur, torch.Tensor) or cur.dim() != 3:
+        raise ValueError("cur must be a [members, n_rows + 1, W] slab")
+    W = cur.shape[2]
+    if W % 4:
+        raise ValueError(f"lane words W={W} must be a multiple of 4 "
+                         f"(the kernels work on 32-bit words)")
+    _check(cur, "cur", torch.uint8, (kg, R1, W), dev)
+    _check(nxt, "nxt", torch.uint8, (kg, R1, W), dev)
+    if nxt.data_ptr() == cur.data_ptr():
+        raise ValueError("nxt must be a separate slab from cur")
+    return R1, W
+
+
+def mesh_hop_ref(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
+                 eslot: torch.Tensor, hrows: torch.Tensor,
+                 over: Sequence[int], stages: int = HOP_STAGES
+                 ) -> torch.Tensor:
+    """Plain version of ``mesh_hop``: the per-shard plain versions of
+    M1, M3 and the merge, composed over the card's members."""
+    members = tuple(group[1])
     t = mt.shards[0]
-    for s in range(mt.k):
-        merge(nxt[s], eslot[s], hrows[s], t.n, t.n_rows)
+    if stages & HOP_GATHER:
+        for y, s in enumerate(members):
+            shard_hop_ref(cur[y], nxt[y], mt, s, over)
+    if stages & HOP_COPY:
+        for y, s in enumerate(members):
+            others = [nxt[z] for z in range(len(members)) if z != y]
+            if others:
+                copy_rows_ref(nxt[y], others, mt.owned(s))
+    if stages & HOP_MERGE:
+        for y in range(len(members)):
+            hop_merge_ref(nxt[y], eslot, hrows, t.n, t.n_rows)
+    return nxt
 
 
-def _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, hop, merge,
-                     copy):
+def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
+             eslot: torch.Tensor, hrows: torch.Tensor, over: Sequence[int],
+             stages: int = HOP_STAGES) -> torch.Tensor:
+    """One replicated-frontier hop (ell.py:1771-1796) for the members of
+    one card group ``group`` = (device, shards) of ``mt.mesh.groups``:
+    ``cur`` / ``nxt`` are their replicas, uint8 [members, n_rows + 1,
+    W] slabs (row y: shard ``group[1][y]``), ``eslot`` / ``hrows`` the
+    hub merge's arrays on the card.  The stages, each one launch over
+    every member:
+
+    - HOP_GATHER (M1): each shard's chunk rows of ``nxt[y]`` get, per
+      row, the OR over its slots whose etype is in ``over`` of the
+      gathered ``cur[y]`` rows; its pad row zero, its other rows left;
+    - HOP_COPY (M3): each member's owned rows (``mt.owned(s)``) of
+      ``nxt[y]`` copied into every other member's (each owned row reaches
+      the members - 1 others: the bytes a mesh of cards moves);
+    - HOP_MERGE: the hub OR-merge on every member's replica.
+
+    Returns ``nxt``.  One checked C call (``ell_mesh_hop``), which
+    reports the launches it made: ``LAUNCHES`` counts those of
+    ``shard_hop``, ``replicate_rows`` and ``hop_merge`` from its report.
+    The shards of other cards get the owned rows from
+    ``mesh.replicate_rows``."""
+    dev, members = _card_check(mt, group)
+    _R1, W = _hop_slabs(cur, nxt, mt, members, dev)
+    if not 0 < stages <= HOP_STAGES:
+        raise ValueError(f"stages {stages}")
+    t = mt.shards[0]
+    n_extras = t.n_rows - t.n
+    _check(eslot, "eslot", torch.int32, (n_extras,), dev)
+    if hrows.dim() != 1:
+        raise ValueError("hrows must be 1-D")
+    _check(hrows, "hrows", torch.int32, tuple(hrows.shape), dev)
+    over = _over_check(over)
+    if not _route(dev):
+        return mesh_hop_ref(cur, nxt, mt, group, eslot, hrows, over, stages)
+    fpp, outp = cur.data_ptr(), nxt.data_ptr()
+    stride = cur[0].numel()
+    if (fpp | outp) % 4:
+        raise ValueError("kernel operands must be 4-byte aligned "
+                         "(the kernels work on 32-bit words)")
+    wide = W % 16 == 0 and not (fpp | outp | stride) % 16
+    desc, blocks, lgc = _hop_desc(t.row0, t.slot0, _shard_live(mt, 0), t.D,
+                                  W, 16 if wide else 4)
+    launched = (ctypes.c_int32 * 3)()
+    with _on_card(dev):
+        rc = _lib().ell_mesh_hop(
+            stages, fpp, outp, stride, _mesh_hop_desc(mt, members), desc,
+            len(t.D), blocks, lgc, wide, _over_array(over), len(over),
+            eslot.data_ptr(), hrows.data_ptr(), t.n, t.n_rows, W,
+            _stream(dev), launched)
+    _ok(rc, "ell_mesh_hop")
+    LAUNCHES["mesh_hop"] += 1
+    # the launches the C call reports it made
+    for name, n in zip(("shard_hop", "replicate_rows", "hop_merge"),
+                       launched):
+        LAUNCHES[name] += n
+    return nxt
+
+
+def _hop_all(cur, nxt, mt, eslot, hrows, over, blocks, hop) -> None:
+    """One replicated-frontier hop of the whole mesh: ``hop`` (``mesh_hop``
+    or its plain version) on every card group's slabs ``cur[g]`` ->
+    ``nxt[g]``.  One card: one call.  Several: the gather a card, the
+    owned rows replicated (``mesh.replicate_rows``: the copy stage a
+    card, ``copy_`` across cards; ``blocks[s] = mt.owned(s)``), then the
+    merge a card."""
+    from .mesh import replicate_rows
+    groups = mt.mesh.groups
+    one = lambda g: (mt, groups[g], eslot[groups[g][1][0]],  # noqa: E731
+                     hrows[groups[g][1][0]], over)
+    if len(groups) == 1:
+        hop(cur[0], nxt[0], *one(0), HOP_STAGES)
+        return
+    for g in range(len(groups)):
+        hop(cur[g], nxt[g], *one(g), HOP_GATHER)
+    card = {members: g for g, (_d, members) in enumerate(groups)}
+    replicate_rows(mt.mesh.rows(nxt), blocks,
+                   lambda members: hop(cur[card[members]], nxt[card[members]],
+                                       *one(card[members]), HOP_COPY),
+                   groups)
+    for g in range(len(groups)):
+        hop(cur[g], nxt[g], *one(g), HOP_MERGE)
+
+
+def _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, hop):
     _frontier(f0p, "f0p")
     _mesh_args(mt, eslot, hrows)
     over = _over_check(over)
     cur = mt.mesh.replicas(f0p)
-    if steps <= 1:
-        return cur
-    nxt = [torch.empty_like(c) for c in cur]
-    blocks = [mt.owned(s) for s in range(mt.k)]
-    for _ in range(steps - 1):
-        mesh_hop(cur, nxt, mt, eslot, hrows, over, blocks, hop, merge,
-                 copy)
-        cur, nxt = nxt, cur
-    return cur
+    if steps > 1:
+        nxt = [torch.empty_like(c) for c in cur]
+        blocks = [mt.owned(s) for s in range(mt.k)] \
+            if len(mt.mesh.groups) > 1 else None
+        for _ in range(steps - 1):
+            _hop_all(cur, nxt, mt, eslot, hrows, over, blocks, hop)
+            cur, nxt = nxt, cur
+    return mt.mesh.rows(cur)
 
 
 def ell_go_sharded_ref(f0p: torch.Tensor, mt, eslot, hrows,
                        over: Sequence[int], steps: int):
     """Plain version of ``ell_go_sharded``: the same loop over the plain
-    versions of M1 and the merge."""
+    version of the hop."""
     return _go_sharded_loop(f0p, mt, eslot, hrows, over, steps,
-                            shard_hop_ref, hop_merge_ref, copy_rows_ref)
+                            mesh_hop_ref)
 
 
 def ell_go_sharded(f0p: torch.Tensor, mt, eslot, hrows,
                    over: Sequence[int], steps: int):
     """Batched dense GO on the mesh (ell.py:1712
     make_sharded_batched_go_kernel): the start frontier ``f0p`` uint8
-    [n_rows + 1, W] (read only) is copied to every shard, then
-    ``steps - 1`` replicated-frontier hops run.  ``eslot``/``hrows``
-    hold one tensor per shard, on its device.  Returns the k replicas of
-    the result, equal to ``ell_go``'s exact-depth frontier (there is no
-    UPTO form: the mesh declines UPTO)."""
-    out = _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, shard_hop,
-                           hop_merge, copy_rows)
+    [n_rows + 1, W] (read only) is copied to every shard (one launch a
+    card), then ``steps - 1`` replicated-frontier hops run, each one
+    ``mesh_hop`` call a card.  ``eslot``/``hrows`` hold one tensor per
+    shard, on its device.  Returns the k replicas of the result (each
+    shard's row of its card's slab), equal to ``ell_go``'s exact-depth
+    frontier (there is no UPTO form: the mesh declines UPTO)."""
+    out = _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, mesh_hop)
     if steps > 1 and _route(f0p.device):
         LAUNCHES["ell_go_sharded"] += 1
     return out
 
 
 def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
-                      hop, merge, copy, level, final):
+                      hop, level, final, read=None):
+    # read(flag): a level's (frontier, target) flags on the host; by
+    # default one copy from the card, or given back by a caller that
+    # knows what a run reads (nothing then waits on the card)
     from .mesh import on
     lanes = _bfs_pair(f0p, t0p)
     _mesh_args(mt, eslot, hrows)
     over = _over_check(over)
     if not 0 <= max_steps < int(INT16_INF) - 1:
         raise ValueError(f"max_steps={max_steps} does not fit int16")
-    fp, tp = mt.mesh.replicas(f0p), mt.mesh.replicas(t0p)
+    mesh = mt.mesh
+    fp, tp = mesh.replicas(f0p), mesh.rows(mesh.replicas(t0p))
     buf = [torch.empty_like(f) for f in fp]
-    d = [torch.empty((f.shape[0], lanes), dtype=torch.int16,
-                     device=f.device) for f in fp]
-    flags = [torch.zeros((max_steps + 1, 2), dtype=torch.int32,
-                         device=f.device) for f in fp]
-    blocks = [mt.owned(s) for s in range(mt.k)]
-    for s in range(mt.k):
-        with on(fp[s].device):
-            level(fp[s], tp[s], d[s], flags[s][0], 0, True, stop)
+    d = mesh.rows(mesh.slabs((f0p.shape[0], lanes), torch.int16))
+    flags = mesh.rows(mesh.slabs((max_steps + 1, 2), torch.int32,
+                                 zero=True))
+    blocks = [mt.owned(s) for s in range(mt.k)] \
+        if len(mesh.groups) > 1 else None
+    devs = mesh.devices
+    for s, f in enumerate(mesh.rows(fp)):
+        with on(devs[s]):
+            level(f, tp[s], d[s], flags[s][0], 0, True, stop)
     step = 0
     # ell.py:1824-1836's loop condition, read from replica 0 (every
     # replica holds the same frontier and depths) once a level
+    read = read or (lambda flag: flag.tolist())
     while step < max_steps:
-        f_any, t_any = flags[0][step].tolist()
+        f_any, t_any = read(flags[0][step])
         if not f_any or (stop and not t_any):
             break
-        mesh_hop(fp, buf, mt, eslot, hrows, over, blocks, hop, merge, copy)
-        for s in range(mt.k):
-            with on(buf[s].device):
-                level(buf[s], tp[s], d[s], flags[s][step + 1], step,
-                      False, stop)
+        _hop_all(fp, buf, mt, eslot, hrows, over, blocks, hop)
+        for s, f in enumerate(mesh.rows(buf)):
+            with on(devs[s]):
+                level(f, tp[s], d[s], flags[s][step + 1], step, False,
+                      stop)
         fp, buf = buf, fp
         step += 1
     out = d[0]
@@ -2437,8 +2477,8 @@ def ell_bfs_sharded_ref(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
                         stop_when_found: bool = True):
     """Plain version of ``ell_bfs_sharded``."""
     return _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
-                             stop_when_found, shard_hop_ref, hop_merge_ref,
-                             copy_rows_ref, bfs_level_ref, bfs_depth_i8_ref)
+                             stop_when_found, mesh_hop_ref, bfs_level_ref,
+                             bfs_depth_i8_ref)
 
 
 def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
@@ -2447,13 +2487,13 @@ def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
     """Batched BFS depths on the mesh (ell.py:1799
     make_sharded_batched_bfs_kernel): ``f0p``/``t0p`` packed start and
     target lanes (read only) are copied to every shard; each level is a
-    replicated-frontier hop, then the level pass (``bfs_level``) on
-    every replica.  Returns (depth of shard 0's replica, levels run),
-    in ``ell_bfs``'s form: int8 with -1 unreached when ``max_steps <=
-    120``, else int16 with INT16_INF."""
+    replicated-frontier hop (``mesh_hop``, one call a card), then the
+    level pass (``bfs_level``) on every replica.  Returns (depth of
+    shard 0's replica, levels run), in ``ell_bfs``'s form: int8 with -1
+    unreached when ``max_steps <= 120``, else int16 with INT16_INF."""
     out = _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
-                            stop_when_found, shard_hop, hop_merge,
-                            copy_rows, bfs_level, bfs_depth_i8)
+                            stop_when_found, mesh_hop, bfs_level,
+                            bfs_depth_i8)
     if _route(f0p.device):
         LAUNCHES["ell_bfs_sharded"] += 1
     return out
@@ -2521,7 +2561,7 @@ def _replicate_updates(mt, rows, nn, ne):
     parts = [x.reshape(-1) for trip in zip(rows, nn, ne) for x in trip]
     flat = torch.cat(parts)
     out = []
-    for flat_s in mt.mesh.replicas(flat):
+    for flat_s in mt.mesh.rows(mt.mesh.replicas(flat)):
         views, off = [], 0
         for x in parts:
             views.append(flat_s[off:off + x.numel()])
@@ -2705,7 +2745,9 @@ def _hub_c_lim(c_in: int) -> int:
 
 
 def mesh_route_ref(hub, ids, qid, recv, st, s, over, send, ctl):
-    """Plain version of ``mesh_route`` (X1).  Hub mode sends every run
+    """X1's per-shard plain version (``mesh_route_card`` on shard s,
+    into a [k, 1 + cap] buffer of its own blocks, one an owner, their
+    counts reset).  Hub mode sends every run
     (the kernel does not stop at the budget), so the counts agree on an
     overflow too."""
     T = _MeshTools(st, over)
@@ -2736,111 +2778,13 @@ def mesh_route_ref(hub, ids, qid, recv, st, s, over, send, ctl):
     return send
 
 
-def _xbuf(t: torch.Tensor, name: str, k: int, dev: torch.device) -> int:
-    """Check an exchange buffer int64 [k, 1 + cap]; returns cap."""
-    if not isinstance(t, torch.Tensor) or t.dim() != 2 or t.shape[1] < 2:
-        raise ValueError(f"{name} must be an int64 [k, 1 + cap] buffer")
-    _check(t, name, torch.int64, (k, t.shape[1]), dev)
-    return t.shape[1] - 1
-
-
-def _mesh_bucket_desc(st, s: int):
-    """Shard s's blocks as the host int64 array X1 takes: per bucket
-    (first global row, one past its last, block row 0's global row,
-    block rows, first slot, D)."""
-    t = st.shards[s]
-    vals = []
-    for b in range(len(t.D)):
-        vals += [st.bstarts[b], st.bucket_end(b), t.row0[b], t.rows[b],
-                 t.slot0[b], t.D[b]]
-    return (ctypes.c_int64 * len(vals))(*vals)
-
-
-def mesh_route(hub: bool, ids: torch.Tensor, qid: torch.Tensor,
-               recv: Optional[torch.Tensor], st, s: int,
-               over: Sequence[int], send: torch.Tensor,
-               ctl: torch.Tensor) -> torch.Tensor:
-    """X1: shard s's pairs (``ids``/``qid`` int32 [c], ids == n_rows
-    inactive) routed to their owners' slot blocks of ``send`` (int64 [k,
-    1 + cap], its counts reset first).
-
-    - candidate mode (ell.py:1970 ``local_gather`` + :1993 ``route``):
-      each live pair, and each live key of ``recv`` (the hub extra-row
-      pairs shard s received, int64 [k, 1 + cap_e], or None), walks its
-      row in shard s's local blocks; every slot whose etype is in the
-      negated OVER set sends (q, u) to block ``u // chunk``.
-    - hub mode (``hub``; ell.py:2042 ``expand_local_hubs``): each live
-      pair whose row owns an extra-row run (the shard's ``ecnt``/``e0``)
-      sends (q, e0 + j) for j < ecnt; the run lengths' total past c
-      (the reference's budget EX = c) or one past ``_hub_c_lim(c)``
-      raises the overflow, and ``ctl[CTL_HUB_TOTAL]`` gets the total.
-
-    Every pair is counted; only the first ``cap`` of a block are kept
-    (in any order) and a count past ``cap`` sets ``ctl[CTL_OVF]``."""
-    if not 0 <= s < st.k:
-        raise ValueError(f"shard {s} of a {st.k}-shard mesh")
-    t = st.shards[s]
-    dev = t.nbr.device
-    c = _vec(ids, "ids", torch.int32, dev)
-    _vec(qid, "qid", torch.int32, dev, c)
-    cap = _xbuf(send, "send", st.k, dev)
-    recv_cap = 0
-    if recv is not None:
-        if hub:
-            raise ValueError("hub mode takes no received pairs")
-        recv_cap = _xbuf(recv, "recv", st.k, dev)
-    _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
-    over = _over_check(over)
-    _tables_check(t, dev)
-    if not _route(dev):
-        return mesh_route_ref(hub, ids, qid, recv, st, s, over, send, ctl)
-    neg = (ctypes.c_int32 * len(over))(*[-e for e in over])
-    with torch.cuda.device(dev):
-        rc = _lib().mesh_route(
-            int(hub), ids.data_ptr(), qid.data_ptr(), c,
-            None if recv is None else recv.data_ptr(), recv_cap,
-            0 if recv is None else st.k, t.nbr.data_ptr(),
-            t.et.data_ptr(), _mesh_bucket_desc(st, s), len(t.D), neg,
-            len(over), st.ecnt[s].data_ptr(), st.e0[s].data_ptr(),
-            s * st.chunk, st.chunk, st.n_rows, send.data_ptr(), cap, st.k,
-            ctl.data_ptr(), _hub_c_lim(c), _stream(dev))
-    _ok(rc, "mesh_route")
-    LAUNCHES["mesh_route"] += 1
-    return send
-
-
 def mesh_mark_ref(recv, base, chunk, mark, W):
-    """Plain version of ``mesh_mark`` (X2)."""
+    """X2's per-shard plain version (``mesh_dedup``'s mark on one
+    shard's receive row ``recv`` [k, 1 + cap])."""
     q, u = _slot_pairs(recv)
     li = u - base
     ok = (li >= 0) & (li < chunk) & (q >= 0) & (q < mark.numel() // W)
     _mark_bits(mark, W, q[ok], li[ok])
-    return mark
-
-
-def mesh_mark(recv: torch.Tensor, base: int, chunk: int,
-              mark: torch.Tensor, W: int) -> torch.Tensor:
-    """X2: every live key (q, u) of the received exchange buffer
-    ``recv`` int64 [k, 1 + cap] ORed into the owner's mark bitmap
-    ``mark`` int32 [qrows * W] (W = ceil(chunk / 32) words a query) as
-    bit (q, u - base); keys outside the chunk or the rows are
-    dropped."""
-    dev = mark.device
-    words = _vec(mark, "mark", torch.int32, dev)
-    if W != _words(chunk) or words % W or words == 0:
-        raise ValueError(f"mark of {words} words, rows of {W}, chunk "
-                         f"{chunk}")
-    if not isinstance(recv, torch.Tensor) or recv.dim() != 2:
-        raise ValueError("recv must be an int64 [k, 1 + cap] buffer")
-    cap = _xbuf(recv, "recv", recv.shape[0], dev)
-    if not _route(dev):
-        return mesh_mark_ref(recv, base, chunk, mark, W)
-    with torch.cuda.device(dev):
-        rc = _lib().mesh_mark(recv.data_ptr(), recv.shape[0], cap, base,
-                              chunk, mark.data_ptr(), W, words,
-                              _stream(dev))
-    _ok(rc, "mesh_mark")
-    LAUNCHES["mesh_mark"] += 1
     return mark
 
 
@@ -2941,19 +2885,24 @@ def mesh_bfs_stamp(init: bool, ids: torch.Tensor, qid: torch.Tensor,
 
 
 # ----------------------------------- the plain programs (ell.py:1954)
+def _start_slabs(st, *lists) -> int:
+    """Check start-pair inputs: each a sequence of one int32 [members, c]
+    slab a card group of ``st.mesh`` (``mesh.slabs`` / ``mesh.split``),
+    on its device, all of one width c; returns c."""
+    c = None
+    for name, x in lists:
+        if len(x) != len(st.mesh.groups):
+            raise ValueError(f"{name}: {len(x)} slabs for "
+                             f"{len(st.mesh.groups)} card groups")
+        for (dev, members), t in zip(st.mesh.groups, x):
+            c = _slab(t, name, torch.int32, len(members), dev, c)
+    for t in st.shards:
+        _tables_check(t, t.nbr.device)
+    return c
+
+
 def _mesh_go_args(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax):
-    if len(ids0) != st.k or len(qid0) != st.k:
-        raise ValueError(f"{len(ids0)} / {len(qid0)} start lists for "
-                         f"{st.k} shards")
-    c0 = None
-    for s in range(st.k):
-        dev = st.shards[s].nbr.device
-        c = _vec(ids0[s], f"ids0[{s}]", torch.int32, dev)
-        _vec(qid0[s], f"qid0[{s}]", torch.int32, dev, c)
-        if c0 is not None and c != c0:
-            raise ValueError("every shard's start list has one length")
-        c0 = c
-        _tables_check(st.shards[s], dev)
+    c0 = _start_slabs(st, ("ids0", ids0), ("qid0", qid0))
     if steps < 2 or len(caps) != steps or min(caps) <= 0 or not c0 \
             or caps[0] != c0:
         raise ValueError(f"steps {steps} with caps {caps} over {c0} "
@@ -2971,9 +2920,9 @@ def mesh_sparse_go_ref(ids0, qid0, st, over, steps, caps, cap_x, cap_e,
     T = _MeshTools(st, over)
     k, sent = T.k, T.sent
     has_hubs = st.n_extras > 0
-    ids = [x.long() for x in ids0]
+    ids = [x.long() for x in st.mesh.rows(ids0)]
     qid = [torch.where(x == sent, BIG_Q, y.long())
-           for x, y in zip(ids, qid0)]
+           for x, y in zip(ids, st.mesh.rows(qid0))]
     overflow = [False] * k
     cnt = [int((x != sent).sum()) for x in ids]
     ext_q = ext_r = None
@@ -3011,18 +2960,16 @@ def mesh_sparse_go_ref(ids0, qid0, st, over, steps, caps, cap_x, cap_e,
                                     device=ids[s].device),
                        torch.where(qid[s] == BIG_Q, -1, qid[s]), ids[s]])
         out.append(o.to(torch.int32))
-    return out
+    return [torch.stack([out[s] for s in members])
+            for _d, members in st.mesh.groups]
 
 
 def _mesh_bfs_args(ids0, qid0, tids, tqid, st, over, max_steps, cap,
                    cap_x, cap_e, qmax):
-    for name, a, b in (("ids0", ids0, qid0), ("tids", tids, tqid)):
-        if len(a) != st.k or len(b) != st.k:
-            raise ValueError(f"{name}: lists for {st.k} shards")
-        for s in range(st.k):
-            dev = st.shards[s].nbr.device
-            _vec(a[s], f"{name}[{s}]", torch.int32, dev, cap)
-            _vec(b[s], f"{name} qids[{s}]", torch.int32, dev, cap)
+    if _start_slabs(st, ("ids0", ids0), ("qid0", qid0), ("tids", tids),
+                    ("tqid", tqid)) != cap:
+        raise ValueError(f"start and target slabs must be [members, "
+                         f"{cap}]")
     if not 0 <= max_steps < int(INT16_INF) - 1:
         raise ValueError(f"max_steps={max_steps} does not fit int16")
     if min(cap, cap_x, cap_e, qmax) <= 0:
@@ -3040,9 +2987,11 @@ def mesh_sparse_bfs_ref(ids0, qid0, tids, tqid, st, over, max_steps, cap,
     k, sent, chunk = T.k, T.sent, T.chunk
     inf = int(INT16_INF)
     has_hubs = st.n_extras > 0
-    ids = [x.long() for x in ids0]
+    rows = st.mesh.rows
+    ids = [x.long() for x in rows(ids0)]
     qid = [torch.where(x == sent, BIG_Q, y.long())
-           for x, y in zip(ids, qid0)]
+           for x, y in zip(ids, rows(qid0))]
+    tids, tqid = rows(tids), rows(tqid)
     dep, tgt = [], []
     for s in range(k):
         base, dev = s * chunk, T.devs[s]
@@ -3103,89 +3052,457 @@ def mesh_sparse_bfs_ref(ids0, qid0, tids, tqid, st, over, max_steps, cap,
     return dep, ovf, step
 
 
-# --------------------------- the programs over the kernels (X1-X3)
+# ------------------------------ the card stages (X1, X2 + K5, agree, K6)
+MAX_MESH_SHARDS = 32   # csrc mesh_sparse.cu kMaxShards
+CTL_XBYTES = 4         # the mesh's exchanged bytes (csrc kXBytes)
+
+
+class _MeshCard(ctypes.Structure):
+    """``MeshCard`` of csrc/mesh_sparse.cu, passed by value: a card
+    group's tables and where each mesh shard sits."""
+    _fields_ = [("nbr", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("et", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("ecnt", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("e0", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("shard", ctypes.c_longlong * MAX_CARD_SHARDS),
+                ("near", ctypes.c_int * MAX_MESH_SHARDS),
+                ("n", ctypes.c_int), ("k", ctypes.c_int)]
+
+
+def _mesh_card(st, members: Tuple[int, ...]) -> _MeshCard:
+    tabs = tuple(x for s in members
+                 for x in (st.shards[s].nbr, st.shards[s].et, st.ecnt[s],
+                           st.e0[s]))
+
+    def build():
+        cd = _MeshCard()
+        for d in range(MAX_MESH_SHARDS):
+            cd.near[d] = -1
+        for y, s in enumerate(members):
+            cd.nbr[y] = st.shards[s].nbr.data_ptr()
+            cd.et[y] = st.shards[s].et.data_ptr()
+            cd.ecnt[y] = st.ecnt[s].data_ptr()
+            cd.e0[y] = st.e0[s].data_ptr()
+            cd.shard[y] = s
+            cd.near[s] = y
+        cd.n, cd.k = len(members), st.k
+        return cd
+    return _card_desc(tabs, ("card", members, st.k), build)
+
+
+@functools.lru_cache(maxsize=64)
+def _mesh_buckets(bstarts, n_rows, mx, slot0, D):
+    """The buckets as X1 takes them: host int64 (first global row, one
+    past its last, block rows, first slot, D) per bucket (made once per
+    geometry)."""
+    ends = tuple(bstarts[1:]) + (n_rows,)
+    return (ctypes.c_int64 * (5 * len(D)))(
+        *[v for b in range(len(D))
+          for v in (bstarts[b], ends[b], mx[b], slot0[b], D[b])])
+
+
+def _card_of(st, group) -> Tuple[torch.device, Tuple[int, ...]]:
+    dev, members = group
+    members = tuple(members)
+    if not 0 < len(members) <= MAX_CARD_SHARDS or st.k > MAX_MESH_SHARDS \
+            or any(not 0 <= s < st.k or st.shards[s].nbr.device != dev
+                   for s in members):
+        raise ValueError(f"card group {members} on {dev} of a {st.k}-shard "
+                         f"mesh (at most {MAX_CARD_SHARDS} a card, "
+                         f"{MAX_MESH_SHARDS} a mesh)")
+    return dev, members
+
+
+def _slab(t, name: str, dtype, rows: int, dev, width=None) -> int:
+    """Check a [rows, width] slab; returns its width."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 2:
+        raise ValueError(f"{name} must be a [{rows}, ...] slab")
+    width = t.shape[1] if width is None else width
+    _check(t, name, dtype, (rows, width), dev)
+    return width
+
+
+def _xslab(t, name: str, kg: int, k: int, dev) -> int:
+    """Check an exchange slab int64 [members, k, 1 + cap]; returns cap."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 3 or t.shape[2] < 2:
+        raise ValueError(f"{name} must be an int64 [members, k, 1 + cap] "
+                         f"slab")
+    _check(t, name, torch.int64, (kg, k, t.shape[2]), dev)
+    return t.shape[2] - 1
+
+
+def _block_of(st, members, recv, send, y: int, d: int) -> torch.Tensor:
+    """The block member y's pairs for owner d go to: the owner's receive
+    row when it shares the card, else y's send row."""
+    if d in members:
+        return recv[members.index(d), members[y]]
+    return send[y, d]
+
+
+def mesh_route_card_ref(hub, ids, qid, st, group, over, recv, send, ctl,
+                        hub_recv=None):
+    """Plain version of ``mesh_route_card``: ``mesh_route_ref`` (X1's
+    per-shard plain version) on each member into a block of its own,
+    each owner's block then written where the kernel writes it."""
+    members = tuple(group[1])
+    k, cap = st.k, recv.shape[2] - 1
+    for y, s in enumerate(members):
+        own = torch.zeros((k, 1 + cap), dtype=torch.int64, device=ids.device)
+        mesh_route_ref(hub, ids[y], qid[y],
+                       None if hub_recv is None else hub_recv[y], st, s,
+                       over, own, ctl[y])
+        for d in range(k):
+            _block_of(st, members, recv, send, y, d).copy_(own[d])
+    return recv
+
+
+def mesh_route_card(hub: bool, ids: torch.Tensor, qid: torch.Tensor, st,
+                    group, over: Sequence[int], recv: torch.Tensor,
+                    send: Optional[torch.Tensor], ctl: torch.Tensor,
+                    hub_recv: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """X1 for the members of one card group ``group`` = (device, shards)
+    of ``st.mesh.groups``, one launch: member y's pairs ``ids[y]`` /
+    ``qid[y]`` (int32 [members, c] slabs, ids == n_rows inactive) routed
+    to their owners.  The pairs member y (shard s) sends owner d land in
+    the block d receives from s — ``recv[m, s]`` when d is member m of
+    this card (the receive slab, int64 [members, k, 1 + cap]), else
+    ``send[y, d]`` (the send slab of the same shape; None when every
+    shard sits on this card), which ``mesh.all_to_all`` copies across.
+    The blocks' counts must be 0 before (the slab's memset, or the last
+    hop's ``mesh_dedup``).  ``ctl`` int64 [members, CTL_SIZE].
+
+    - candidate mode (ell.py:1970 ``local_gather`` + :1993 ``route``):
+      each live pair, and each live key of ``hub_recv[y]`` (the hub
+      extra-row pairs the member received, int64 [members, k, 1 +
+      cap_e], or None), walks its row in the shard's local blocks; every
+      slot whose etype is in the negated OVER set sends (q, u) to owner
+      ``u // chunk``.
+    - hub mode (``hub``; ell.py:2042 ``expand_local_hubs``): each live
+      pair whose row owns an extra-row run (the shard's ``ecnt``/``e0``)
+      sends (q, e0 + j) for j < ecnt; the run lengths' total past c
+      (the reference's budget EX = c) or one past ``_hub_c_lim(c)``
+      raises the overflow, and ``ctl[y, CTL_HUB_TOTAL]`` gets the total.
+
+    Every pair is counted; only the first ``cap`` of a block are kept
+    (in any order) and a count past ``cap`` sets ``ctl[y, CTL_OVF]``."""
+    dev, members = _card_of(st, group)
+    kg, k = len(members), st.k
+    c = _slab(ids, "ids", torch.int32, kg, dev)
+    _slab(qid, "qid", torch.int32, kg, dev, c)
+    cap = _xslab(recv, "recv", kg, k, dev)
+    if send is not None:
+        _check(send, "send", torch.int64, tuple(recv.shape), dev)
+    elif len(members) < k:
+        raise ValueError("owners on another card need a send slab")
+    hub_cap = 0
+    if hub_recv is not None:
+        if hub:
+            raise ValueError("hub mode takes no received pairs")
+        hub_cap = _xslab(hub_recv, "hub_recv", kg, k, dev)
+    _slab(ctl, "ctl", torch.int64, kg, dev, CTL_SIZE)
+    over = _over_check(over)
+    for s in members:
+        _tables_check(st.shards[s], dev)
+    if not _route(dev):
+        return mesh_route_card_ref(hub, ids, qid, st, group, over, recv,
+                                   send, ctl, hub_recv)
+    t = st.shards[0]
+    neg = (ctypes.c_int32 * len(over))(*[-e for e in over])
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    with _on_card(dev):
+        rc = _lib().mesh_route(
+            int(hub), _mesh_card(st, members), ids.data_ptr(),
+            qid.data_ptr(), c, ptr(hub_recv), hub_cap,
+            _mesh_buckets(st.bstarts, st.n_rows, t.rows, t.slot0, t.D),
+            len(t.D), neg, len(over), st.chunk, st.n_rows, recv.data_ptr(),
+            ptr(send), cap, ctl.data_ptr(), _hub_c_lim(c), _stream(dev))
+    _ok(rc, "mesh_route")
+    LAUNCHES["mesh_route"] += 1
+    return recv
+
+
+def _clears(recv, hub_recv, send, hub_send):
+    """The exchange slabs a hop's K5 clears, each with whether it is a
+    receive slab (its blocks from other shards are counted)."""
+    return tuple((x, r) for x, r in ((recv, True), (hub_recv, True),
+                                     (send, False), (hub_send, False))
+                 if x is not None)
+
+
+def mesh_dedup_ref(recv, st, group, marks, c_out, ids_out, qid_out, ctl,
+                   hub_recv=None, send=None, hub_send=None):
+    """Plain version of ``mesh_dedup``: ``mesh_mark_ref`` (X2) and
+    ``pair_compact_ref`` (K5 with the shard's row base) on each member,
+    then the exchange blocks cleared as K5's scan clears them."""
+    members = tuple(group[1])
+    chunk, W = st.chunk, _words(st.chunk)
+    for y, s in enumerate(members):
+        mesh_mark_ref(recv[y], s * chunk, chunk, marks[y], W)
+        pair_compact_ref(marks[y], W, c_out, ids_out[y], qid_out[y], ctl[y],
+                         -1, st.n_rows, None, None, True, s * chunk)
+        ctl[y, CTL_HUB_TOTAL] = 0
+        for slab, received in _clears(recv, hub_recv, send, hub_send):
+            blk = slab[y]
+            if received:
+                cnt = blk[:, 0].clamp(max=blk.shape[1] - 1)
+                cnt[s] = -1                  # its own block stays home
+                ctl[y, CTL_XBYTES] += int((8 * (1 + cnt)).sum())
+            blk[:, 0] = 0
+    return ids_out, qid_out
+
+
+def mesh_dedup(recv: torch.Tensor, st, group, marks: torch.Tensor,
+               c_out: int, ids_out: torch.Tensor, qid_out: torch.Tensor,
+               ctl: torch.Tensor, hub_recv: Optional[torch.Tensor] = None,
+               send: Optional[torch.Tensor] = None,
+               hub_send: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """X2 then K5 for the members of one card group, one call, one launch
+    a kernel (X2, and K5's count, scan and compact): member y ORs every
+    live key of ``recv[y]`` (its receive row, int64 [members, k, 1 +
+    cap]) into its mark bitmap ``marks[y]`` (int32 [members, qrows * W],
+    W = ceil(chunk / 32), zero before and after), and K5 writes the set
+    bits in (query, row) order, the shard's row base added, as the first
+    ``c_out`` pairs of ``ids_out[y]`` / ``qid_out[y]`` (int32 [members,
+    c_out]; pads (n_rows, BIG_Q)), ``ctl[y, CTL_CNT]`` their count before
+    the cut, a count past ``c_out`` raising ``ctl[y, CTL_OVF]``.  Then
+    the exchange blocks this hop consumed are made ready for the next
+    hop's router: member y's blocks of ``recv``, ``hub_recv`` (the hub
+    pairs it received) and the send slabs ``send`` / ``hub_send`` (for
+    owners on other cards; each [members, k, 1 + cap] or None) get a
+    count of 0, a received block from another shard first adding 8 bytes
+    for its count and each key it kept to ``ctl[y, CTL_XBYTES]``; and
+    ``ctl[y, CTL_HUB_TOTAL]`` goes to 0.  Returns (ids_out, qid_out)."""
+    dev, members = _card_of(st, group)
+    kg, k, chunk = len(members), st.k, st.chunk
+    W = _words(chunk)
+    cap = _xslab(recv, "recv", kg, k, dev)
+    words = _slab(marks, "marks", torch.int32, kg, dev)
+    if words % W or c_out <= 0:
+        raise ValueError(f"marks of {words} words, rows of {W}, c_out "
+                         f"{c_out}")
+    _slab(ids_out, "ids_out", torch.int32, kg, dev, c_out)
+    _slab(qid_out, "qid_out", torch.int32, kg, dev, c_out)
+    _slab(ctl, "ctl", torch.int64, kg, dev, CTL_SIZE)
+    for x, name in ((hub_recv, "hub_recv"), (send, "send"),
+                    (hub_send, "hub_send")):
+        if x is not None:
+            _xslab(x, name, kg, k, dev)
+    if not _route(dev):
+        return mesh_dedup_ref(recv, st, group, marks, c_out, ids_out,
+                              qid_out, ctl, hub_recv, send, hub_send)
+    clear = _clears(recv, hub_recv, send, hub_send)
+    lib = _lib()
+    boff = torch.empty(kg * int(lib.sg_compact_blocks(words)),
+                       dtype=torch.int64, device=dev)
+    slabs = (ctypes.c_void_p * 4)(*[x.data_ptr() for x, _r in clear])
+    caps = (ctypes.c_int64 * 4)(*[x.shape[2] - 1 for x, _r in clear])
+    recvd = (ctypes.c_int32 * 4)(*[int(r) for _x, r in clear])
+    with _on_card(dev):
+        rc = lib.mesh_dedup(_mesh_card(st, members), recv.data_ptr(), cap,
+                            chunk, marks.data_ptr(), W, words, c_out,
+                            ids_out.data_ptr(), qid_out.data_ptr(), c_out,
+                            boff.data_ptr(), ctl.data_ptr(), st.n_rows,
+                            slabs, caps, recvd, _stream(dev))
+    _ok(rc, "mesh_dedup")
+    LAUNCHES["mesh_dedup"] += 1
+    LAUNCHES["mesh_mark"] += 1
+    LAUNCHES["pair_compact"] += 1
+    return ids_out, qid_out
+
+
+def mesh_agree_ref(ctl: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``mesh_agree``."""
+    ctl[:, CTL_OVF] = (ctl[:, CTL_OVF] != 0).any().to(torch.int64)
+    return ctl
+
+
+def mesh_agree(ctl: torch.Tensor) -> torch.Tensor:
+    """The overflow agreed over every shard of a card (the reference's
+    psum, ell.py:2148), one launch: every ``ctl[y, CTL_OVF]`` of the
+    card's ctl slab (int64 [members, CTL_SIZE]) becomes the OR of them
+    all.  Shards on several cards agree by ``mesh.psum_or``."""
+    dev = ctl.device
+    kg = ctl.shape[0] if ctl.dim() == 2 else 0
+    if not 0 < kg <= MAX_CARD_SHARDS:
+        raise ValueError(f"a ctl slab of {kg} members")
+    _slab(ctl, "ctl", torch.int64, kg, dev, CTL_SIZE)
+    if not _route(dev):
+        return mesh_agree_ref(ctl)
+    with _on_card(dev):
+        rc = _lib().mesh_agree(ctl.data_ptr(), kg, _stream(dev))
+    _ok(rc, "mesh_agree")
+    LAUNCHES["mesh_agree"] += 1
+    return ctl
+
+
+def mesh_emit_ref(ids, qid, ctl, out, n_rows):
+    """Plain version of ``mesh_emit``: ``pair_reduce_ref``'s emit on
+    each member."""
+    for y in range(ids.shape[0]):
+        pair_reduce_ref(REDUCE_EMIT, ids[y], qid[y], None, out[y], False,
+                        n_rows + 1, n_rows, 1, 1, 0, 0, ctl[y])
+    return out
+
+
+def mesh_emit(ids: torch.Tensor, qid: torch.Tensor, ctl: torch.Tensor,
+              out: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K6's plain result (``pair_reduce``'s REDUCE_EMIT, the unpacked
+    layout) for every member of a card in one launch: member y's pairs
+    ``ids[y]`` / ``qid[y]`` (int32 [members, c]) into ``out[y]`` (int32
+    [members, 2 + 2c]: its ``ctl[y]`` count and overflow, qids -1
+    unused, rows n_rows unused)."""
+    dev = ids.device
+    kg = ids.shape[0] if ids.dim() == 2 else 0
+    if not 0 < kg <= MAX_CARD_SHARDS:
+        raise ValueError(f"a pair slab of {kg} members")
+    c = _slab(ids, "ids", torch.int32, kg, dev)
+    _slab(qid, "qid", torch.int32, kg, dev, c)
+    _slab(ctl, "ctl", torch.int64, kg, dev, CTL_SIZE)
+    _slab(out, "out", torch.int32, kg, dev, 2 + 2 * c)
+    if c == 0:
+        raise ValueError("an empty pair slab")
+    if not _route(dev):
+        return mesh_emit_ref(ids, qid, ctl, out, n_rows)
+    with _on_card(dev):
+        rc = _lib().sg_emit(ids.data_ptr(), qid.data_ptr(), c,
+                            out.data_ptr(), kg, n_rows + 1, n_rows,
+                            ctl.data_ptr(), _stream(dev))
+    _ok(rc, "sg_emit")
+    LAUNCHES["mesh_emit"] += 1
+    LAUNCHES["pair_reduce"] += 1
+    return out
+
+
+# --------------------------------------- the programs over the stages
+class _CardWork:
+    """One card group's working slabs for a frontier-sharded program,
+    carved from one zeroed buffer (one memset): ``ctl`` [members,
+    CTL_SIZE], the exchange slabs [members, k, 1 + cap] — ``xr`` / ``er``
+    receive candidate / hub pairs, ``xs`` / ``es`` send them to owners
+    on other cards (None on one card; ``er`` / ``es`` None without hub
+    extra rows) — and the int32 bitmaps ``marks`` (and, for the BFS,
+    ``tbits``) [members, words]."""
+
+    def __init__(self, st, group, words: int, cap_x: int, cap_e: int,
+                 tbits: bool = False):
+        dev, members = group
+        kg, k = len(members), st.k
+        far = len(members) < k
+        hubs = st.n_extras > 0
+        half = -(-words // 2)              # int32 words in int64 words
+        parts = [("ctl", (kg, CTL_SIZE)), ("xr", (kg, k, 1 + cap_x))]
+        if hubs:
+            parts.append(("er", (kg, k, 1 + cap_e)))
+        if far:
+            parts.append(("xs", (kg, k, 1 + cap_x)))
+            if hubs:
+                parts.append(("es", (kg, k, 1 + cap_e)))
+        sizes = [(n, sh, int(torch.Size(sh).numel())) for n, sh in parts]
+        bitmaps = ["marks"] + (["tbits"] if tbits else [])
+        total = sum(z for _n, _s, z in sizes) + len(bitmaps) * kg * half
+        buf = torch.zeros(total, dtype=torch.int64, device=dev)
+        self.er = self.xs = self.es = self.tbits = None
+        off = 0
+        for name, shape, z in sizes:
+            setattr(self, name, buf[off:off + z].view(shape))
+            off += z
+        for name in bitmaps:
+            setattr(self, name, buf[off:off + kg * half].view(torch.int32)
+                    [:kg * words].view(kg, words))
+            off += kg * half
+
+
 def _agree_overflow(st, ctl, orm) -> None:
     """Every shard's ``ctl[CTL_OVF]`` becomes the OR over the shards
-    (the reference's psum, ell.py:2148): each shard's word is copied
-    aside, then ``mesh.psum_or`` with ``orm`` (``or_many``) over the
-    words' bytes: k launches, one a shard."""
+    (the reference's psum, ell.py:2148): on one card ``mesh_agree``, one
+    launch; across cards each shard's word is copied aside, then
+    ``mesh.psum_or`` with ``orm`` (``or_many``) over the words' bytes.
+    ``ctl`` holds the card groups' slabs."""
     from .mesh import psum_or
-    snap = [c[CTL_OVF:CTL_OVF + 1].clone() for c in ctl]
-    recv = [torch.empty((len(ctl) - 1, 8), dtype=torch.uint8,
-                        device=c.device) for c in ctl]
+    if len(ctl) == 1:
+        return orm[0](ctl[0])
+    rows = st.mesh.rows(ctl)
+    snap = [c[CTL_OVF:CTL_OVF + 1].clone() for c in rows]
+    recv = [torch.empty((len(rows) - 1, 8), dtype=torch.uint8,
+                        device=c.device) for c in rows]
     psum_or([x.view(torch.uint8) for x in snap],
-            [c[CTL_OVF:CTL_OVF + 1].view(torch.uint8) for c in ctl],
-            recv, orm)
+            [c[CTL_OVF:CTL_OVF + 1].view(torch.uint8) for c in rows],
+            recv, orm[1])
+
+
+def exchanged_bytes(ctl) -> int:
+    """The bytes a frontier-sharded program's exchanges moved between
+    shards (``CTL_XBYTES`` over its card groups' ctl slabs): 8 for each
+    block count and each key kept, a shard's own block excepted."""
+    return sum(int(c[:, CTL_XBYTES].sum()) for c in ctl)
+
+
+def _exchange(st, work, send, recv) -> None:
+    """The cross-card part of an exchange (nothing on one card)."""
+    from .mesh import all_to_all
+    if len(work) > 1:
+        all_to_all(st.mesh.rows([getattr(w, send) for w in work]),
+                   st.mesh.rows([getattr(w, recv) for w in work]),
+                   st.mesh.groups)
 
 
 def _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax,
-                   route, mark, compact, reduce, orm):
-    """The frontier-sharded GO as per-shard X1, X2, K5 and K6 calls
-    between all_to_all exchanges (``route``, ``mark``, ``compact``,
-    ``reduce``, ``orm`` (``or_many``) are the kernels' wrappers or their
-    plain versions).  Returns (per-shard outputs, [the copies the exchanges
-    made, the bytes they copied between shards])."""
-    from .mesh import all_to_all, on
-    k, chunk, n_rows = st.k, st.chunk, st.n_rows
-    W = _words(chunk)
-    devs = [t.nbr.device for t in st.shards]
-    has_hubs = st.n_extras > 0
-    i32, i64 = torch.int32, torch.int64
-    ctl = [torch.zeros(CTL_SIZE, dtype=i64, device=d) for d in devs]
-    marks = [torch.zeros(qmax * W, dtype=i32, device=d) for d in devs]
-    sx = [torch.zeros((k, 1 + cap_x), dtype=i64, device=d) for d in devs]
-    rx = [torch.zeros_like(x) for x in sx]
-    se = re = None
-    if has_hubs:
-        se = [torch.zeros((k, 1 + cap_e), dtype=i64, device=d)
-              for d in devs]
-        re = [torch.zeros_like(x) for x in se]
-    cmax = max(caps[1:])
-    bufs = [[(torch.empty(cmax, dtype=i32, device=d),
-              torch.empty(cmax, dtype=i32, device=d)) for d in devs]
-            for _ in range(2)]
-    cur_i, cur_q = list(ids0), list(qid0)
-    moved = [0, 0]
+                   route, dedup, agree, emit):
+    """The frontier-sharded GO as card stages: per card group, X1
+    (``route``), X2 + K5 (``dedup``), the overflow agreement (``agree``:
+    (mesh_agree, or_many) or their plain versions) and K6's emit
+    (``emit``), one call each a stage, between exchanges that move
+    nothing on one card (``route`` writes each pair into its owner's
+    receive block) and copy the cross-card blocks otherwise.  Returns
+    (the output: a [members, 2 + 2 * caps[-1]] slab a card group; the
+    exchanges run; the card groups' ctl slabs, whose
+    ``exchanged_bytes`` are the bytes that reached other shards)."""
+    groups = st.mesh.groups
+    chunk, n_rows = st.chunk, st.n_rows
+    words = qmax * _words(chunk)
+    hubs = st.n_extras > 0
+    i32 = torch.int32
+    work = [_CardWork(st, g, words, cap_x, cap_e) for g in groups]
+    cur = list(zip(ids0, qid0))
+    exchanges = 0
 
-    def exchange(send, recv):
-        for i, x in enumerate(all_to_all(send, recv)):
-            moved[i] += x
+    def route_all(hub: bool) -> None:
+        nonlocal exchanges
+        for g, w, (ids, qid) in zip(groups, work, cur):
+            if hub:
+                route(True, ids, qid, st, g, over, w.er, w.es, w.ctl)
+            else:
+                route(False, ids, qid, st, g, over, w.xr, w.xs, w.ctl,
+                      w.er)
+        _exchange(st, work, "es" if hub else "xs", "er" if hub else "xr")
+        exchanges += 1
 
-    def hub_exchange():
-        for s in range(k):
-            with on(devs[s]):
-                route(True, cur_i[s], cur_q[s], None, st, s, over, se[s],
-                      ctl[s])
-        exchange(se, re)
-
-    if has_hubs:
-        hub_exchange()
+    if hubs:
+        route_all(True)
     for h in range(steps - 1):
         c_out = caps[h + 1]
-        for s in range(k):
-            with on(devs[s]):
-                route(False, cur_i[s], cur_q[s], re[s] if has_hubs else None,
-                      st, s, over, sx[s], ctl[s])
-        exchange(sx, rx)
-        nxt = bufs[h % 2]
-        for s in range(k):
-            with on(devs[s]):
-                mark(rx[s], s * chunk, chunk, marks[s], W)
-                compact(marks[s], W, c_out, nxt[s][0], nxt[s][1], ctl[s],
-                        -1, n_rows, None, None, True, s * chunk)
-        cur_i = [b[0][:c_out] for b in nxt]
-        cur_q = [b[1][:c_out] for b in nxt]
-        if has_hubs and h < steps - 2:
-            hub_exchange()
-    _agree_overflow(st, ctl, orm)
+        route_all(False)
+        nxt = []
+        for g, w in zip(groups, work):
+            ids = torch.empty((len(g[1]), c_out), dtype=i32, device=g[0])
+            qid = torch.empty_like(ids)
+            dedup(w.xr, st, g, w.marks, c_out, ids, qid, w.ctl, w.er, w.xs,
+                  w.es)
+            nxt.append((ids, qid))
+        cur = nxt
+        if hubs and h < steps - 2:
+            route_all(True)
+    ctl = [w.ctl for w in work]
+    _agree_overflow(st, ctl, agree)
     outs = []
-    for s in range(k):
-        out = torch.empty(2 + 2 * caps[-1], dtype=i32, device=devs[s])
-        with on(devs[s]):
-            reduce(REDUCE_EMIT, cur_i[s], cur_q[s], None, out, False,
-                   n_rows + 1, n_rows, qmax, qmax, 0, 0, ctl[s])
+    for g, w, (ids, qid) in zip(groups, work, cur):
+        out = torch.empty((len(g[1]), 2 + 2 * caps[-1]), dtype=i32,
+                          device=g[0])
+        emit(ids, qid, w.ctl, out, n_rows)
         outs.append(out)
-    return outs, moved
+    return outs, exchanges, ctl
 
 
 def mesh_sparse_go(ids0: Sequence[torch.Tensor],
@@ -3196,112 +3513,100 @@ def mesh_sparse_go(ids0: Sequence[torch.Tensor],
     make_frontier_sharded_sparse_go_kernel) over the chunk-sharded
     tables ``st`` (ell.ShardedTables): ``ids0[s]``/``qid0[s]`` int32
     [caps[0]] are shard s's start pairs (``ell.split_start_pairs_by_
-    owner``: rows it owns, n_rows inactive; qids < ``qmax``), on its
-    device.  ``steps - 1`` hops: each shard routes its candidates to
-    their owners (``cap_x`` a source-destination block; hub extra-row
-    pairs in ``cap_e`` blocks) and the owner keeps the sorted, deduped
-    pairs up to ``caps[h + 1]``.  Returns per shard the reference's
-    int32 [2 + 2 * caps[-1]]: the shard's count, the overflow flag
-    agreed by every shard, qids (-1 unused), global rows (n_rows
-    unused).  On overflow the other entries are not defined."""
+    owner``: rows it owns, n_rows inactive; qids < ``qmax``), given as
+    one int32 [members, caps[0]] slab a card group of ``st.mesh``
+    (``mesh.split`` of the [k, caps[0]] arrays).  ``steps - 1`` hops:
+    each shard routes its candidates to their owners (``cap_x`` a
+    source-destination block; hub extra-row pairs in ``cap_e`` blocks)
+    and the owner keeps the sorted, deduped pairs up to ``caps[h + 1]``.
+    Returns one int32 [members, 2 + 2 * caps[-1]] slab a card group
+    (``mesh.stacked`` puts them in shard order), a shard's row the
+    reference's: its count, the overflow flag agreed by every shard,
+    qids (-1 unused), global rows (n_rows unused).  On overflow the
+    other entries are not defined.  On the card each stage is one call
+    a card group."""
     over = _mesh_go_args(ids0, qid0, st, over, steps, caps, cap_x, cap_e,
                          qmax)
     caps = tuple(int(c) for c in caps)
     if not _route(st.shards[0].nbr.device):
         return mesh_sparse_go_ref(ids0, qid0, st, over, steps, caps, cap_x,
                                   cap_e, qmax)
-    outs, _moved = _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x,
-                                  cap_e, qmax, mesh_route, mesh_mark,
-                                  pair_compact, pair_reduce, or_many)
+    out = _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e,
+                         qmax, mesh_route_card, mesh_dedup,
+                         (mesh_agree, or_many), mesh_emit)[0]
     LAUNCHES["mesh_sparse_go"] += 1
-    return outs
+    return out
 
 
 def _read_ctl(ctl) -> torch.Tensor:
-    """Every shard's ctl words on the host, [k, CTL_SIZE] (one wait for
-    the level)."""
-    host = torch.empty((len(ctl), CTL_SIZE), dtype=torch.int64)
-    for s, c in enumerate(ctl):
-        host[s].copy_(c)
-    return host
+    """Every card group's ctl slab on the host, one copy a card, as one
+    [k, CTL_SIZE] tensor in group order (one wait for the level)."""
+    return torch.cat([c.cpu() for c in ctl])
 
 
 def _mesh_bfs_steps(ids0, qid0, tids, tqid, st, over, max_steps, cap,
-                    cap_x, cap_e, qmax, stop, route, mark, compact, stamp,
+                    cap_x, cap_e, qmax, stop, route, dedup, stamp,
                     read=None):
-    """The frontier-sharded BFS as per-shard X1, X2, K5 and X3 calls
-    between all_to_all exchanges; the level loop on the host, which
-    reads the shards' flags once a level with ``read(ctl)`` (default
-    ``_read_ctl``; a caller that knows the flags a run reads can give
-    them back without waiting on the card) and agrees them (any
-    overflow, any live pair, any unfound target).  Returns (depth per
-    shard, overflow, levels run, [the copies the exchanges made, the
-    bytes they copied between shards])."""
-    from .mesh import all_to_all, on
-    k, chunk, n_rows = st.k, st.chunk, st.n_rows
+    """The frontier-sharded BFS as card stages (X1 ``route``, X2 + K5
+    ``dedup``, one call each a card group) and X3 (``stamp``) per shard;
+    the level loop on the host, which reads the card groups' ctl slabs
+    once a level with ``read(ctl)`` (default ``_read_ctl``; a caller that
+    knows the flags a run reads can give them back without waiting on
+    the card) and agrees the flags (any overflow, any live pair, any
+    unfound target).  Returns (depth per shard, overflow, levels run,
+    the exchanges run, the bytes they moved between shards)."""
+    groups, mesh = st.mesh.groups, st.mesh
+    chunk, n_rows = st.chunk, st.n_rows
     W = _words(chunk)
-    devs = [t.nbr.device for t in st.shards]
-    has_hubs = st.n_extras > 0
-    i32, i64 = torch.int32, torch.int64
-    ctl = [torch.zeros(CTL_SIZE, dtype=i64, device=d) for d in devs]
-    depth = [torch.full((chunk, qmax), int(INT16_INF), dtype=torch.int16,
-                        device=d) for d in devs]
-    tbits = [torch.zeros(qmax * W, dtype=i32, device=d) for d in devs]
-    for s in range(k):
-        with on(devs[s]):
-            stamp(True, ids0[s], qid0[s], depth[s], tbits[s], W, s * chunk,
-                  n_rows, 0, ctl[s], tids[s], tqid[s])
+    hubs = st.n_extras > 0
+    i32 = torch.int32
+    work = [_CardWork(st, g, qmax * W, cap_x, cap_e, tbits=True)
+            for g in groups]
+    ctl = [w.ctl for w in work]
+    crow, tbits = mesh.rows(ctl), mesh.rows([w.tbits for w in work])
+    depth = mesh.rows(mesh.slabs((chunk, qmax), torch.int16))
+    for d in depth:
+        d.fill_(int(INT16_INF))
+    tids, tqid = mesh.rows(tids), mesh.rows(tqid)
+    cur = list(zip(ids0, qid0))
+    for (_d, members), (ids, qid) in zip(groups, cur):
+        for y, s in enumerate(members):
+            stamp(True, ids[y], qid[y], depth[s], tbits[s], W, s * chunk,
+                  n_rows, 0, crow[s], tids[s], tqid[s])
     read = read or _read_ctl
     flags = read(ctl)
     go = bool((flags[:, CTL_LIVE] > 0).any()) and max_steps > 0
     if stop:
         go = go and bool((flags[:, CTL_UNFOUND] > 0).any())
-    step, ovf, moved = 0, False, [0, 0]
-    if not go:
-        return depth, ovf, step, moved
-    marks = [torch.zeros(qmax * W, dtype=i32, device=d) for d in devs]
-    sx = [torch.zeros((k, 1 + cap_x), dtype=i64, device=d) for d in devs]
-    rx = [torch.zeros_like(x) for x in sx]
-    se = re = None
-    if has_hubs:
-        se = [torch.zeros((k, 1 + cap_e), dtype=i64, device=d)
-              for d in devs]
-        re = [torch.zeros_like(x) for x in se]
-    bufs = [[(torch.empty(cap, dtype=i32, device=d),
-              torch.empty(cap, dtype=i32, device=d)) for d in devs]
-            for _ in range(2)]
-    cur_i, cur_q = list(ids0), list(qid0)
+    step, ovf, exchanges = 0, False, 0
     while go and not ovf:
-        if has_hubs:
-            for s in range(k):
-                with on(devs[s]):
-                    route(True, cur_i[s], cur_q[s], None, st, s, over,
-                          se[s], ctl[s])
-            for i, x in enumerate(all_to_all(se, re)):
-                moved[i] += x
-        for s in range(k):
-            with on(devs[s]):
-                route(False, cur_i[s], cur_q[s], re[s] if has_hubs else None,
-                      st, s, over, sx[s], ctl[s])
-        for i, x in enumerate(all_to_all(sx, rx)):
-            moved[i] += x
-        nxt = bufs[step % 2]
-        for s in range(k):
-            with on(devs[s]):
-                mark(rx[s], s * chunk, chunk, marks[s], W)
-                compact(marks[s], W, cap, nxt[s][0], nxt[s][1], ctl[s], -1,
-                        n_rows, None, None, True, s * chunk)
-                stamp(False, nxt[s][0], nxt[s][1], depth[s], tbits[s], W,
-                      s * chunk, n_rows, step, ctl[s])
-        cur_i = [b[0] for b in nxt]
-        cur_q = [b[1] for b in nxt]
+        for hub in ((True, False) if hubs else (False,)):
+            for g, w, (ids, qid) in zip(groups, work, cur):
+                if hub:
+                    route(True, ids, qid, st, g, over, w.er, w.es, w.ctl)
+                else:
+                    route(False, ids, qid, st, g, over, w.xr, w.xs, w.ctl,
+                          w.er)
+            _exchange(st, work, "es" if hub else "xs", "er" if hub else "xr")
+            exchanges += 1
+        nxt = []
+        for g, w in zip(groups, work):
+            ids = torch.empty((len(g[1]), cap), dtype=i32, device=g[0])
+            qid = torch.empty_like(ids)
+            dedup(w.xr, st, g, w.marks, cap, ids, qid, w.ctl, w.er, w.xs,
+                  w.es)
+            for y, s in enumerate(g[1]):
+                stamp(False, ids[y], qid[y], depth[s], tbits[s], W,
+                      s * chunk, n_rows, step, crow[s])
+            nxt.append((ids, qid))
+        cur = nxt
         step += 1
         flags = read(ctl)
         ovf = bool((flags[:, CTL_OVF] != 0).any())
         go = step < max_steps and bool((flags[:, CTL_LIVE] > 0).any())
         if stop:
             go = go and bool((flags[:, CTL_UNFOUND] > 0).any())
-    return depth, ovf, step, moved
+    return depth, ovf, step, exchanges, int(flags[:, CTL_XBYTES].sum())
 
 
 def mesh_sparse_bfs(ids0: Sequence[torch.Tensor],
@@ -3311,12 +3616,13 @@ def mesh_sparse_bfs(ids0: Sequence[torch.Tensor],
                     max_steps: int, cap: int, cap_x: int, cap_e: int,
                     qmax: int, stop_when_found: bool = True):
     """Frontier-sharded batched BFS (ell.py:2179
-    make_frontier_sharded_sparse_bfs_kernel): shard s's start and
-    target pairs ``ids0[s]``/``qid0[s]``, ``tids[s]``/``tqid[s]`` int32
-    [cap] (``ell.split_start_pairs_by_owner`` at ``cap``), on its
-    device.  Each level routes the frontier's candidates to their
-    owners (hub pairs first), dedups them at ``cap`` and stamps the
-    ones whose depth is unset.  The loop stops where the reference's
+    make_frontier_sharded_sparse_bfs_kernel): the shards' start and
+    target pairs ``ids0``/``qid0``, ``tids``/``tqid``
+    (``ell.split_start_pairs_by_owner`` at ``cap``), each one int32
+    [members, cap] slab a card group, as ``mesh_sparse_go`` takes its
+    starts.  Each level routes the frontier's candidates to
+    their owners (hub pairs first), dedups them at ``cap`` and stamps
+    the ones whose depth is unset.  The loop stops where the reference's
     ``while_loop`` does: ``max_steps`` levels, an empty frontier, with
     ``stop_when_found`` every target found, or an overflow.  Returns
     (depth per shard int16 [chunk, qmax], INT16_INF unreached, row li
@@ -3327,9 +3633,8 @@ def mesh_sparse_bfs(ids0: Sequence[torch.Tensor],
         return mesh_sparse_bfs_ref(ids0, qid0, tids, tqid, st, over,
                                    max_steps, cap, cap_x, cap_e, qmax,
                                    stop_when_found)
-    depth, ovf, levels, _moved = _mesh_bfs_steps(
+    depth, ovf, levels, _x, _b = _mesh_bfs_steps(
         ids0, qid0, tids, tqid, st, over, max_steps, cap, cap_x, cap_e,
-        qmax, stop_when_found, mesh_route, mesh_mark, pair_compact,
-        mesh_bfs_stamp)
+        qmax, stop_when_found, mesh_route_card, mesh_dedup, mesh_bfs_stamp)
     LAUNCHES["mesh_sparse_bfs"] += 1
     return depth, ovf, levels

@@ -75,7 +75,8 @@ KERNELS: Dict[str, PortKernel] = {
                              ("ell_absorb.cu",)),
     # the replicated-frontier mesh (kernels.py:364; ell.py:1712, :1799,
     # :1036): edge-sharded GO over the edge kernels and or_many, and the
-    # row-sharded programs over M1 / M2 / M3 and the reused lane kernels
+    # row-sharded programs over mesh_hop (M1, M3 and the merge, one call
+    # a card) and M2
     "sharded_go": PortKernel(edge_ops.sharded_go_ref, edge_ops.sharded_go,
                              _EDGE + _LANES),
     "ell_go_sharded": PortKernel(ell_ops.ell_go_sharded_ref,
@@ -86,7 +87,7 @@ KERNELS: Dict[str, PortKernel] = {
                                      ell_ops.ell_absorb_sharded,
                                      _MESH + ("ell_absorb.cu",)),
     # the frontier-sharded mesh (ell.py:2052, :2179): X1-X3 with K5 (and
-    # for GO K6, and or_many for the agreed overflow)
+    # for GO K6 and the agreed overflow), each stage one call a card
     "mesh_sparse_go": PortKernel(ell_ops.mesh_sparse_go_ref,
                                  ell_ops.mesh_sparse_go,
                                  _MESH_SPARSE + _LANES),

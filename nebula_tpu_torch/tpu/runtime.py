@@ -741,11 +741,15 @@ class TorchQueryRuntime:
             m._sharded_ell_cache = (mesh.k, st)
             return st
 
-    def _up_shards(self, st: ShardedTables, a: np.ndarray
-                   ) -> List[torch.Tensor]:
-        """Row s of the host array ``a`` [k, c] on shard s's device."""
-        return [torch.from_numpy(np.ascontiguousarray(a[s])).to(
-            t.nbr.device) for s, t in enumerate(st.shards)]
+    def _up_shards(self, st: ShardedTables, *arrays: np.ndarray):
+        """The host arrays [k, c] (all of one shape) as the card groups'
+        [members, c] slabs (``mesh.slabs``' form), one upload a card
+        group: a list of slabs for each array."""
+        both = np.stack(arrays)                            # [m, k, c]
+        per = [torch.from_numpy(np.ascontiguousarray(
+            both[:, list(members)])).to(d).unbind(0)
+            for d, members in st.mesh.groups]
+        return tuple([p[i] for p in per] for i in range(len(arrays)))
 
     def _hub_dev(self, m: CsrMirror, ix: EllIndex) -> torch.Tensor:
         """uint8[n+1] hub table (ell.EllIndex.hub_table) on the device
@@ -1674,12 +1678,14 @@ class TorchQueryRuntime:
                             et_tuple: Tuple[int, ...], steps: int, c0: int,
                             mesh: PartsMesh):
         """The frontier-sharded GO (runtime.py:1930-1990): the starts
-        placed on the shards owning them, ``mesh_sparse_go`` on the
-        mesh; None when a shard's share outgrows ``c0`` (the caller
-        runs the dense mesh).  The resolver merges the shards' pairs
-        and re-sorts them by (query, old id), or, when the program
-        overflowed, reruns the batch on ``ell_go_sharded`` with no
-        reduction (COUNT(*) and LIMIT then apply on the host)."""
+        placed on the shards owning them (one upload a card),
+        ``mesh_sparse_go`` on the mesh, its output fetched in one copy
+        when the shards share a card; None when a shard's share
+        outgrows ``c0`` (the caller runs the dense mesh).  The resolver
+        merges the shards' pairs and re-sorts them by (query, old id),
+        or, when the program overflowed, reruns the batch on
+        ``ell_go_sharded`` with no reduction (COUNT(*) and LIMIT then
+        apply on the host)."""
         st = self._sharded_tables(m, ix, mesh)
         placed = split_start_pairs_by_owner(
             st, ix.perm[d_all].astype(np.int32),
@@ -1694,13 +1700,13 @@ class TorchQueryRuntime:
         cap_x = max(256, caps[-1] // max(k // 2, 1))
         cap_e = max(64, c0)
         outs = ell_ops.mesh_sparse_go(
-            self._up_shards(st, placed[0]), self._up_shards(st, placed[1]),
-            st, et_tuple, steps, caps, cap_x, cap_e, max(nq, 1))
+            *self._up_shards(st, placed[0], placed[1]), st, et_tuple, steps,
+            caps, cap_x, cap_e, max(nq, 1))
         self._bump("go_mesh_sparse")
 
         def resolve():
             overflow, qids, vids_new = sharded_sparse_pairs(
-                np.stack([self._fetch(o) for o in outs]))
+                self._fetch(mesh.stacked(outs)))
             if overflow:
                 self._bump("sparse_overflows")
                 return self._launch_dense(m, ix, d_all, q_all, nq,
@@ -2091,10 +2097,8 @@ class TorchQueryRuntime:
         if ps is None or pt is None:
             return None
         dep, overflow, levels = ell_ops.mesh_sparse_bfs(
-            self._up_shards(st, ps[0]), self._up_shards(st, ps[1]),
-            self._up_shards(st, pt[0]), self._up_shards(st, pt[1]), st,
-            et_tuple, max_steps, cap, cap_x, cap_e, B,
-            stop_when_found=shortest)
+            *self._up_shards(st, ps[0], ps[1], pt[0], pt[1]), st, et_tuple,
+            max_steps, cap, cap_x, cap_e, B, stop_when_found=shortest)
         if overflow:
             self._bump("sparse_overflows")
             return None

@@ -269,12 +269,27 @@ def _copy_loop(bufs, blocks):
                         dst[lo:hi].copy_(bufs[t][lo:hi])
 
 
+def _near_ref(bufs, blocks, calls):
+    """``replicate_rows``' copy stage of one card on the per-source
+    plain version, recording the card's members."""
+    def near(members):
+        calls.append(members)
+        for t in members:
+            ell_ops.copy_rows_ref(bufs[t], [bufs[s] for s in members
+                                            if s != t], blocks[t])
+    return near
+
+
 @pytest.mark.parametrize("k", [2, 4])
 @pytest.mark.parametrize("copy", ["copy_rows_ref", "copy_rows"])
 def test_replicate_rows_equals_the_per_block_copies(ells, k, copy):
     """On the mesh's own owned blocks (empty buckets left out by
     ``owned``) and on blocks with empty and one-row ranges and a shard
-    that owns nothing."""
+    that owns nothing.  ``copy_rows_ref``: the card's copy stage on the
+    per-source plain version; ``copy_rows``: on the mesh's own blocks
+    M3 itself (``mesh_hop``'s copy stage over the card's replica slab),
+    on the hand blocks every shard on a card of its own (pretended), so
+    every range goes by ``copy_``."""
     _jix, tix, _port, _ref, _k = ells
     mt = mesh_tables(tix, PartsMesh([CPU] * k))
     rng = np.random.default_rng(k)
@@ -283,28 +298,34 @@ def test_replicate_rows_equals_the_per_block_copies(ells, k, copy):
     hand = [[(0, 3), (5, 5), (9, 10)], [], [(3, 5), (20, 20)],
             [(10, 20), (30, 31)]]
     cases.append(hand[:k - 1] + [[(r, r + 1) for r in (40, 50)]])
-    for blocks in cases:
-        init = [_t(rng.integers(0, 256, (R1, 16), dtype=np.uint8))
-                for _ in range(k)]
-        got = [b.clone() for b in init]
+    es, hr = (torch.from_numpy(a) for a in tix.hub_merge())
+    for i, blocks in enumerate(cases):
+        init = torch.from_numpy(rng.integers(0, 256, (k, R1, 16),
+                                             dtype=np.uint8))
+        slab = init.clone()
+        got = list(slab.unbind(0))
         want = [b.clone() for b in init]
         calls = []
-
-        def launcher(src, dsts, ranges):
-            calls.append((src, len(dsts), list(ranges)))
-            getattr(ell_ops, copy)(src, dsts, ranges)
-        moved = replicate_rows(got, blocks, launcher)
+        groups = mt.mesh.groups
+        if copy == "copy_rows_ref":
+            near = _near_ref(got, blocks, calls)
+        elif i == 0:
+            def near(members):
+                calls.append(members)
+                ell_ops.mesh_hop(init.clone(), slab, mt, groups[0], es, hr,
+                                 (1,), ell_ops.HOP_COPY)
+        else:
+            groups = tuple((CPU, (s,)) for s in range(k))
+            near = _near_ref(got, blocks, calls)
+        moved = replicate_rows(got, blocks, near, groups)
         _copy_loop(want, blocks)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
         nrows = sum(hi - lo for rows in blocks for lo, hi in rows
                     if hi > lo)
         assert moved == nrows * 16 * (k - 1)
-        owners = [t for t, rows in enumerate(blocks)
-                  if any(hi > lo for lo, hi in rows)]
-        assert [c[0] for c in calls] == [got[t] for t in owners]
-        assert all(n == k - 1 and all(hi > lo for lo, hi in r)
-                   for _s, n, r in calls)
+        # one call a card with two or more members
+        assert calls == [m for _d, m in groups if len(m) > 1]
 
 
 class _OnDevice:
@@ -323,10 +344,10 @@ class _OnDevice:
 
 
 def test_replicate_rows_sends_to_other_cards_by_copy():
-    """Shards 0, 1 on one card and 2, 3 on another: each source shard's
-    rows reach the shard beside it through one launcher call and the
-    two on the other card by ``copy_`` per range; the result equals the
-    per-block ``copy_`` loop."""
+    """Shards 0, 1 on one card and 2, 3 on another: each card's rows
+    reach its other member through one copy-stage call a card and the
+    two shards on the other card by ``copy_`` per range; the result
+    equals the per-block ``copy_`` loop."""
     rng = np.random.default_rng(7)
     init = [_t(rng.integers(0, 256, (40, 8), dtype=np.uint8))
             for _ in range(4)]
@@ -335,42 +356,50 @@ def test_replicate_rows_sends_to_other_cards_by_copy():
     _copy_loop(want, blocks)
     bufs = [_OnDevice(b.clone(), f"cuda:{s // 2}")
             for s, b in enumerate(init)]
+    cards = ((torch.device("cuda", 0), (0, 1)),
+             (torch.device("cuda", 1), (2, 3)))
     calls = []
-
-    def launcher(src, dsts, ranges):
-        calls.append((src, dsts, list(ranges)))
-        ell_ops.copy_rows_ref(src.t, [d.t for d in dsts], ranges)
-    moved = replicate_rows(bufs, blocks, launcher)
+    moved = replicate_rows(bufs, blocks,
+                           _near_ref([b.t for b in bufs], blocks, calls),
+                           cards)
     for b, w in zip(bufs, want):
         assert torch.equal(b.t, w)
     assert moved == (4 + 6 + 20) * 8 * 3
-    assert [(bufs.index(src), [bufs.index(d) for d in dsts], r)
-            for src, dsts, r in calls] == [(0, [1], [(0, 3), (9, 10)]),
-                                           (1, [0], [(3, 9)]),
-                                           (3, [2], [(20, 40)])]
+    assert calls == [(0, 1), (2, 3)]
 
 
-def test_copy_rows_refuses_what_the_kernel_cannot_take():
-    a = torch.zeros((8, 4), dtype=torch.uint8)
-    b = torch.zeros((8, 4), dtype=torch.uint8)
-    with pytest.raises(ValueError):          # a receiver aliasing src
-        ell_ops.copy_rows(a, [a], [(0, 1)])
-    with pytest.raises(ValueError):          # no receiver
-        ell_ops.copy_rows(a, [], [(0, 1)])
-    with pytest.raises(ValueError):          # a range past the rows
-        ell_ops.copy_rows(a, [b], [(4, 9)])
-    with pytest.raises(ValueError):          # more ranges than it takes
-        ell_ops.copy_rows(a, [b], [(i, i + 1) for i in range(8)] * 5)
-    with pytest.raises(ValueError):          # another shape
-        ell_ops.copy_rows(a, [torch.zeros((8, 8), dtype=torch.uint8)],
-                          [(0, 1)])
+def test_copy_rows_refuses_what_the_kernel_cannot_take(ells):
+    """``mesh_hop`` (whose copy stage is M3) refuses what its kernels
+    cannot take, then copies the owned rows of every member."""
+    _jix, tix, _port, _ref, _k = ells
+    k = 2
+    mt = mesh_tables(tix, PartsMesh([CPU] * k))
+    g = mt.mesh.groups[0]
+    R1 = tix.n_rows + 1
+    es, hr = (torch.from_numpy(a) for a in tix.hub_merge())
+    a = torch.zeros((k, R1, 8), dtype=torch.uint8)
+    b = torch.zeros((k, R1, 8), dtype=torch.uint8)
+    hop = ell_ops.mesh_hop
+    with pytest.raises(ValueError):          # nxt aliasing cur
+        hop(a, a, mt, g, es, hr, (1,), ell_ops.HOP_COPY)
+    with pytest.raises(ValueError):          # one replica short
+        hop(a, b[:1], mt, g, es, hr, (1,), ell_ops.HOP_COPY)
+    with pytest.raises(ValueError):          # a shard the mesh lacks
+        hop(a, b, mt, (CPU, (0, 2)), es, hr, (1,), ell_ops.HOP_COPY)
+    with pytest.raises(ValueError):          # no stage
+        hop(a, b, mt, g, es, hr, (1,), 0)
     with pytest.raises(TypeError):           # another dtype
-        ell_ops.copy_rows(a, [b.to(torch.int8)], [(0, 1)])
-    with pytest.raises(ValueError):          # rows of 3 bytes: no words
-        ell_ops.copy_rows(a[:, :3].contiguous(),
-                          [torch.zeros((8, 3), dtype=torch.uint8)], [(0, 1)])
-    ell_ops.copy_rows(a + 3, [b], [(2, 4), (6, 6)])
-    assert b[2:4].eq(3).all() and not b[:2].any() and not b[4:].any()
+        hop(a, b.to(torch.int8), mt, g, es, hr, (1,), ell_ops.HOP_COPY)
+    with pytest.raises(ValueError):          # rows of 6 bytes: no words
+        hop(a[:, :, :6].contiguous(), b[:, :, :6].contiguous(), mt, g, es,
+            hr, (1,), ell_ops.HOP_COPY)
+    b[0] = 3
+    hop(a, b, mt, g, es, hr, (1,), ell_ops.HOP_COPY)
+    own = np.zeros(R1, bool)
+    for lo, hi in mt.owned(0):
+        own[lo:hi] = True
+    assert b[1][own].eq(3).all() and not b[1][~own].any()
+    assert b[0][own].eq(3).all() and not b[0][:-1][~own[:-1]].any()
 
 
 def test_go_hop_i8_refuses_bad_live_bitmaps(ells):

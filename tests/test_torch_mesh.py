@@ -130,8 +130,9 @@ def test_ell_go_sharded_matches_reference(ells, k, steps):
 
 
 def test_shard_hop_writes_only_its_rows(ells):
-    """M1's plain version writes shard s's frontier rows and the pad row
-    and leaves every other row as it was."""
+    """M1 (``mesh_hop``'s gather stage over every shard of the card)
+    writes each shard's frontier rows and the pad row of its replica and
+    leaves every other row as it was."""
     _jix, tix, *_ = ells
     k = 4
     mt = mesh_tables(tix, _pmesh(k))
@@ -140,26 +141,36 @@ def test_shard_hop_writes_only_its_rows(ells):
                               tix.device_tables(CPU),
                               torch.zeros(0, dtype=torch.int32),
                               torch.zeros(0, dtype=torch.int32), (1,))[0]
+    cur = mt.mesh.replicas(f0)[0]
+    out = torch.full_like(cur, 0xA5)
+    es, hr = tix.hub_merge()
+    ell_ops.mesh_hop(cur, out, mt, mt.mesh.groups[0], _t(es), _t(hr), (1,),
+                     ell_ops.HOP_GATHER)
     for s in range(k):
-        out = torch.full_like(f0, 0xA5)
-        ell_ops.shard_hop(f0, out, mt, s, (1,))
         mine = np.zeros(tix.n_rows + 1, bool)
         for lo, hi in mt.owned(s):
             mine[lo:hi] = True
-        assert torch.equal(out[mine], full[:-1][mine[:-1]])
-        assert not out[-1].any()
-        assert (out[:-1][~mine[:-1]] == 0xA5).all()
+        assert torch.equal(out[s][mine], full[:-1][mine[:-1]])
+        assert not out[s][-1].any()
+        assert (out[s][:-1][~mine[:-1]] == 0xA5).all()
 
 
 def test_mesh_collectives():
     mesh = _pmesh(3)
     bufs = [torch.full((9, 4), s, dtype=torch.uint8) for s in range(3)]
     blocks = [[(0, 2), (6, 7)], [(2, 4)], [(4, 6), (7, 9)]]
-    moved = replicate_rows(bufs, blocks, ell_ops.copy_rows)
+    calls = []
+
+    def near(members):          # the copy stage of one card: every source
+        calls.append(members)
+        for t in members:
+            ell_ops.copy_rows_ref(bufs[t], [bufs[s] for s in members
+                                            if s != t], blocks[t])
+    moved = replicate_rows(bufs, blocks, near, mesh.groups)
     want = torch.tensor([0, 0, 1, 1, 2, 2, 0, 2, 2], dtype=torch.uint8)
     for b in bufs:
         assert torch.equal(b[:, 0], want)
-    assert moved == 2 * 9 * 4
+    assert moved == 2 * 9 * 4 and calls == [(0, 1, 2)]
     parts = [torch.tensor([1, 0, 0, 0, 0, 0, 0, 0], dtype=torch.bool),
              torch.tensor([0, 0, 1, 0, 0, 0, 0, 0], dtype=torch.bool),
              torch.tensor([0, 0, 0, 0, 0, 0, 0, 1], dtype=torch.bool)]
@@ -169,6 +180,7 @@ def test_mesh_collectives():
     for o in outs:
         assert o.nonzero().flatten().tolist() == [0, 2, 7]
     assert mesh.k == 3 and mesh == _pmesh(3)
+    assert mesh.groups == ((CPU, (0, 1, 2)),)
     with pytest.raises(ValueError):
         PartsMesh([CPU])
     with pytest.raises(ValueError):

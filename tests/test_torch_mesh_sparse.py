@@ -6,8 +6,9 @@ Kernel level: the reference's ``build_sharded_ell`` (``ell.py:1871``),
 ``make_frontier_sharded_sparse_go_kernel`` (``:2052``) and
 ``make_frontier_sharded_sparse_bfs_kernel`` (``:2179``) run on a
 ``Mesh`` of the conftest's virtual CPU devices; the port's plain
-versions, and its programs composed of the plain versions of X1-X3, K5
-and K6, run on a ``PartsMesh`` of k CPU shards.  The same seeded numpy
+versions, and its programs composed of the card stages (X1, X2 + K5,
+the agreement, K6; X3 per shard) on their plain versions, run on a
+``PartsMesh`` of k CPU shards.  The same seeded numpy
 inputs go to both; every shard's output array, depth block and
 overflow flag is compared for exact equality.  The ELL is the
 reference's own numpy build at cap 16 (three buckets, hub extra rows,
@@ -122,7 +123,10 @@ def test_build_sharded_ell_and_placement_match_reference(ells, k):
 @pytest.mark.parametrize("k", [2, 3])
 def test_all_to_all_matches_jax_blocks(k):
     """Shard s's block d lands at shard d's block s, as
-    ``jax.lax.all_to_all(x, axis, 0, 0, tiled=False)`` puts it."""
+    ``jax.lax.all_to_all(x, axis, 0, 0, tiled=False)`` puts it: with
+    every shard on a card of its own (pretended), ``all_to_all`` copies
+    the k(k - 1) blocks that cross cards, and the block a shard keeps is
+    the one its router wrote in place."""
     from jax.sharding import PartitionSpec as P
     from nebula_tpu.tpu.compat import shard_map
     x = np.arange(k * k * 5, dtype=np.int32).reshape(k, k, 5) * 3 + 1
@@ -133,10 +137,15 @@ def test_all_to_all_matches_jax_blocks(k):
     want = np.asarray(jax.jit(fn)(jnp.asarray(x)))
     send = [_t(x[s]) for s in range(k)]
     recv = [torch.zeros_like(a) for a in send]
-    copies, moved = all_to_all(send, recv)
+    for s in range(k):
+        recv[s][s].copy_(send[s][s])          # the router's own block
+    cards = tuple((CPU, (s,)) for s in range(k))
+    copies, moved = all_to_all(send, recv, cards)
     for d in range(k):
         assert np.array_equal(recv[d].numpy(), want[d])
-    assert copies == k * k and moved == k * (k - 1) * 5 * 4
+    assert copies == k * (k - 1) and moved == k * (k - 1) * 5 * 4
+    # shards of one card exchange nothing here
+    assert all_to_all(send, recv, ((CPU, tuple(range(k))),)) == (0, 0)
 
 
 # ================================================================ GO
@@ -151,24 +160,35 @@ def _jgo(jix, k, steps, over, caps, cap_x, cap_e, placed):
 
 
 def _port_go(tix, k, steps, over, caps, cap_x, cap_e, placed, qmax):
-    """(the plain program's outputs, the X1/X2/K5/K6 composition's) on
+    """(the plain program's outputs, the card-stage composition's) on
     k CPU shards."""
     st = sharded_tables(build_sharded_ell(tix, k), PartsMesh([CPU] * k))
-    ids = [_t(placed[0][s]) for s in range(k)]
-    qid = [_t(placed[1][s]) for s in range(k)]
+    ids, qid = (st.mesh.split(_t(a)) for a in placed)
     plain = ell_ops.mesh_sparse_go(ids, qid, st, over, steps, caps, cap_x,
                                    cap_e, qmax)
-    steps_out, moved = ell_ops._mesh_go_steps(
-        ids, qid, st, over, steps, caps, cap_x, cap_e, qmax,
-        ell_ops.mesh_route, ell_ops.mesh_mark, ell_ops.pair_compact,
-        ell_ops.pair_reduce, ell_ops.or_many)
-    copies, nbytes = moved         # k * k copies an exchange
-    assert nbytes > 0 and copies % (k * k) == 0 \
-        and copies >= k * k * (steps - 1)
-    for s in range(k):             # the starts are only read
-        assert np.array_equal(ids[s].numpy(), placed[0][s])
-    return (np.stack([o.numpy() for o in plain]),
-            np.stack([o.numpy() for o in steps_out]))
+    routed = []
+
+    def route(*args, **kw):
+        # the bytes that reached other shards: each block from another
+        # shard, 8 bytes for its count and for each key it kept
+        ell_ops.mesh_route_card(*args, **kw)
+        recv = args[6]
+        cap = recv.shape[2] - 1
+        for y in range(k):
+            other = torch.arange(k) != y
+            routed.append(int((8 * (1 + recv[y, other, 0].clamp(max=cap)))
+                              .sum()))
+    steps_out, exchanges, ctl = ell_ops._mesh_go_steps(
+        ids, qid, st, over, steps, caps, cap_x, cap_e, qmax, route,
+        ell_ops.mesh_dedup, (ell_ops.mesh_agree, ell_ops.or_many),
+        ell_ops.mesh_emit)
+    hubs = st.n_extras > 0     # one exchange a hop, and its hub pairs'
+    assert exchanges == (steps - 1) * (2 if hubs else 1) == len(routed) // k
+    assert ell_ops.exchanged_bytes(ctl) == sum(routed) > 0
+    # the starts are only read
+    assert np.array_equal(st.mesh.stacked(ids).numpy(), placed[0])
+    return (st.mesh.stacked(plain).numpy(),
+            st.mesh.stacked(steps_out).numpy())
 
 
 @pytest.mark.parametrize("k,steps", [(2, 2), (2, 3), (4, 3), (4, 4),
@@ -261,10 +281,7 @@ def test_mesh_sparse_bfs_matches_reference(ells, k, max_steps, stop):
                        B, ps, pt)
     assert not wovf.any()
     st = sharded_tables(sh, PartsMesh([CPU] * k))
-    args = ([_t(ps[0][s]) for s in range(k)],
-            [_t(ps[1][s]) for s in range(k)],
-            [_t(pt[0][s]) for s in range(k)],
-            [_t(pt[1][s]) for s in range(k)])
+    args = tuple(st.mesh.split(_t(a)) for a in (*ps, *pt))
     dep, ovf, levels = ell_ops.mesh_sparse_bfs(*args, st, over, max_steps,
                                                cap, cap_x, cap_e, B, stop)
     seen = []
@@ -272,15 +289,15 @@ def test_mesh_sparse_bfs_matches_reference(ells, k, max_steps, stop):
     def record(ctl):
         seen.append(ell_ops._read_ctl(ctl))
         return seen[-1]
-    kern = (ell_ops.mesh_route, ell_ops.mesh_mark, ell_ops.pair_compact,
+    kern = (ell_ops.mesh_route_card, ell_ops.mesh_dedup,
             ell_ops.mesh_bfs_stamp)
-    dep2, ovf2, levels2, _moved = ell_ops._mesh_bfs_steps(
+    dep2, ovf2, levels2, _x, _b = ell_ops._mesh_bfs_steps(
         *args, st, over, max_steps, cap, cap_x, cap_e, B, stop, *kern,
         read=record)
     assert not ovf and not ovf2 and levels == levels2 <= max_steps
     assert len(seen) == levels2 + 1          # the starts', then a level's
     replay = iter(seen)                      # the flags given back
-    dep3, ovf3, levels3, _m = ell_ops._mesh_bfs_steps(
+    dep3, ovf3, levels3, _x, _b = ell_ops._mesh_bfs_steps(
         *args, st, over, max_steps, cap, cap_x, cap_e, B, stop, *kern,
         read=lambda _ctl: next(replay))
     assert not ovf3 and levels3 == levels2
@@ -299,15 +316,12 @@ def test_mesh_sparse_bfs_tight_cap_overflows(ells):
     _want, wovf = _jbfs(jix, k, 5, over, cap, cap_x, cap_e, True, B, ps,
                         pt)
     st = sharded_tables(sh, PartsMesh([CPU] * k))
-    args = ([_t(ps[0][s]) for s in range(k)],
-            [_t(ps[1][s]) for s in range(k)],
-            [_t(pt[0][s]) for s in range(k)],
-            [_t(pt[1][s]) for s in range(k)])
+    args = tuple(st.mesh.split(_t(a)) for a in (*ps, *pt))
     _d, ovf, levels = ell_ops.mesh_sparse_bfs(*args, st, over, 5, cap,
                                               cap_x, cap_e, B, True)
-    _d2, ovf2, levels2, _m = ell_ops._mesh_bfs_steps(
-        *args, st, over, 5, cap, cap_x, cap_e, B, True, ell_ops.mesh_route,
-        ell_ops.mesh_mark, ell_ops.pair_compact, ell_ops.mesh_bfs_stamp)
+    _d2, ovf2, levels2, _x, _b = ell_ops._mesh_bfs_steps(
+        *args, st, over, 5, cap, cap_x, cap_e, B, True,
+        ell_ops.mesh_route_card, ell_ops.mesh_dedup, ell_ops.mesh_bfs_stamp)
     assert wovf.all() and ovf and ovf2 and levels == levels2 < 5
 
 
