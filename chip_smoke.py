@@ -41,15 +41,22 @@ Phases, in order; any failure exits non-zero:
              that forces the dense switch: every kernel call of those
              runs is held against its plain version on copies of its
              operands, and each program's output against the program's
-             plain version; then the edge-list kernels on the graph's
+             plain version, run once as its step sequence and once as the
+             runtime calls it, one C call (``sg_program``,
+             ``ad_program``: device and event times, launches and C
+             calls a call by capture, held to the designed counts);
+             then the edge-list kernels on the graph's
              edge arrays and generated columns: ``edge_hop`` (with
              ``scatter_reduce_`` amax as its library yardstick),
              ``edge_final``, ``edge_seed``, ``expr_filter`` for each
              predicate of phase 8's family in each of its modes,
              ``edge_bfs_level``, the programs ``go`` and
-             ``go_filtered`` at 1-3 steps from 1 and 256 starts, and
-             ``bfs`` on a connected and an unreachable pair, all
-             exactly; then ``ell_absorb`` on the graph's flat tables for
+             ``go_filtered`` at 1-3 steps from 1 and 256 starts
+             (``go_filtered`` launching no ``expr_filter``: its WHERE
+             runs in its final pass ``edge_final_where``, which is held
+             per predicate-mode to its plain version and to K9 over
+             K10's whole mask), and ``bfs`` on a connected and an
+             unreachable pair, all exactly; then ``ell_absorb`` on the graph's flat tables for
              three absorb plans made by ``plan_ell_absorb``: 4096 edge
              events (updates, deletes, inserts on non-hub owners, both
              directions), a growth-spare claim, and every bucket's last
@@ -146,7 +153,9 @@ Phases, in order; any failure exits non-zero:
 7. adaptive  256 single-start plain GO requests, one after another from
              one thread, windowed with ``tpu_sparse_go=false`` (the
              adaptive route), a sixteenth of them from a hub so that
-             the dense arm runs; 64 checked against the oracle
+             the dense arm runs (the program picks its arm on the card:
+             the requests that run a dense hop are predicted from the
+             oracle); 64 checked against the oracle
 8. fused     F ``GO 1-3 STEPS FROM v OVER e WHERE P YIELD e._dst, e.w``
              requests from FT threads on the fused route (``$$.person.age``
              also yielded behind the predicate that reads it), P from
@@ -268,6 +277,7 @@ REPLACES = {
     "edge_seed": "nebula_tpu/tpu/kernels.py:256",
     "edge_hop": "nebula_tpu/tpu/kernels.py:264",
     "edge_final": "nebula_tpu/tpu/kernels.py:264",
+    "edge_final_where": "nebula_tpu/tpu/kernels.py:296",
     "expr_filter": "nebula_tpu/tpu/expr_compile.py:468",
     "edge_bfs_level": "nebula_tpu/tpu/kernels.py:315",
     "go": "nebula_tpu/tpu/kernels.py:284",
@@ -308,9 +318,13 @@ SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/sparse_go.cu"
 SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/edge_go.cu"
                 for k in ("edge_seed", "edge_hop", "edge_final",
                           "edge_bfs_level", "go", "bfs")})
-SOURCES.update({"expr_filter": "nebula_tpu_torch/tpu/csrc/expr_filter.cu",
+SOURCES.update({"expr_filter": "nebula_tpu_torch/tpu/csrc/expr_filter.cu "
+                               "+ expr_core.cuh",
+                "edge_final_where": "nebula_tpu_torch/tpu/csrc/edge_go.cu "
+                                    "+ expr_core.cuh",
                 "go_filtered": "nebula_tpu_torch/tpu/csrc/edge_go.cu "
-                               "+ expr_filter.cu"})
+                               "+ expr_core.cuh"})
+SOURCES["adaptive_go"] += " + ell_lanes.cu"
 SOURCES["ell_absorb"] = "nebula_tpu_torch/tpu/csrc/ell_absorb.cu"
 SOURCES.update({k: "nebula_tpu_torch/tpu/csrc/ell_int8.cu"
                 for k in INT8_KERNELS})
@@ -351,11 +365,15 @@ SOURCES.update({
 # the edge-list programs no runtime path calls (the reference's only
 # caller of go is _run_go_kernel's no-filter branch, which
 # _execute_fused never takes; bfs has only its registry entry; the
-# reference runtime never calls make_sharded_go_kernel), and or_into,
-# which only sharded_go and shards on separate cards (psum_or) run
-NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go", "or_into")
-EDGE_KERNELS = ("edge_seed", "edge_hop", "edge_final", "expr_filter",
-                "edge_bfs_level", "go", "go_filtered", "bfs")
+# reference runtime never calls make_sharded_go_kernel), K9 without the
+# WHERE (only go and sharded_go run it), expr_filter (registry and
+# smoke only: go_filtered evaluates the WHERE in its final pass), and
+# or_into, which only sharded_go and shards on separate cards (psum_or)
+# run
+NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go", "or_into",
+                   "expr_filter", "edge_final")
+EDGE_KERNELS = ("edge_seed", "edge_hop", "edge_final", "edge_final_where",
+                "expr_filter", "edge_bfs_level", "go", "go_filtered", "bfs")
 # which counted phase runs each kernel on its main path
 PATH_KERNELS = {
     "serve": ("go_hop", "lane_join", "lane_extract", "lane_clear"),
@@ -364,8 +382,7 @@ PATH_KERNELS = {
                "sparse_go", "sparse_go_count", "sparse_go_limit"),
     "adaptive": ("sparse_expand", "pair_compact", "adaptive_switch",
                  "bitmap_lanes", "go_hop", "adaptive_go"),
-    "fused": ("edge_seed", "expr_filter", "edge_hop", "edge_final",
-              "go_filtered"),
+    "fused": ("edge_seed", "edge_hop", "edge_final_where", "go_filtered"),
     "path": ("frontier_upload", "go_hop", "bfs_level", "bfs_depth_i8"),
     "write": ("ell_absorb", "go_hop", "lane_join", "lane_extract",
               "lane_clear"),
@@ -1647,14 +1664,40 @@ ROW_FROM = {"sparse_go": "c0_256_s3_plain",
             "bitmap_lanes": "adaptive_K8_s3"}
 
 
+def sparse_launches(hops: int, upto: bool, op: int) -> int:
+    """The launches ``sg_program`` is designed to make: the workspace's
+    memset, with UPTO the starts' self-mark, per hop K4 and K5's count,
+    scan and compact, with UPTO the union's K5, COUNT's output memset,
+    K6 (LIMIT's three passes, else one)."""
+    return (1 + (1 if upto else 0) + 4 * hops + (3 if upto else 0)
+            + (1 if op == 1 else 0) + (3 if op == 2 else 1))
+
+
+def adaptive_launches(hops: int, hub_rows: bool) -> int:
+    """The launches ``ad_program`` is designed to make, the gated ones
+    included: the workspace's memset, the start list, its self-mark,
+    per hop K7, the change to lanes, K4, K5's three, the hop's gather
+    and (with hub extra rows) its merge, then the change back."""
+    return 3 + hops * (7 + (1 if hub_rows else 0)) + 1
+
+
 def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                         over, starts) -> tuple:
     """The sparse and adaptive programs against their plain versions on
-    the serve tables, every kernel call probed.  ``starts`` are old
-    dense ids from the serve mix.  Returns ({name: numbers}, {run:
-    numbers}): the kernels' rows (ROW_FROM), the programs' at the
-    headline (c0 256, 3 steps, an 8-query batch like the windowed
-    batches; adaptive: the default K, 3 steps), and every run."""
+    the serve tables: the step sequences (``_sparse_go_steps``,
+    ``_adaptive_steps``) with every kernel call probed, and the
+    programs as the runtime calls them, one C call each (``sparse_go``:
+    ``sg_program``; ``adaptive_go``: ``ad_program``), held to the plain
+    version, their device time (calls queued behind a spin kernel) and
+    event time, and their launches and C calls a call by capture, held
+    to the designed counts (``sparse_launches``, ``adaptive_launches``)
+    and the kernels' counters to the calls each C call reports
+    (``stage_launches``).
+    ``starts`` are old dense ids from the serve mix.  Returns ({name:
+    numbers}, {run: numbers}): the kernels' rows (ROW_FROM), the
+    programs' at the headline (c0 256, 3 steps, an 8-query batch like
+    the windowed batches; adaptive: the default K, 3 steps), and every
+    run."""
     from nebula_tpu_torch.tpu.ell import sparse_caps
     d_max = max(tables.D)
     ecnt, e0 = rt._hub_expansion_dev(m, ix)
@@ -1706,11 +1749,26 @@ def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                 return ell_ops.sparse_go(ids, qid, ecnt, e0, deg, tables,
                                          tuple(over), steps, caps, qmax,
                                          nq, **kw)
-            ms = cuda_ms(torch, run, 5, 1)
-            prog_bytes = 8 * c0 + 8 * ctx.get("slots", 0) \
-                + 4 * out.numel()
+            got = run()
+            if int(got[1]) != int(want[1]) or (
+                    not int(want[1]) and not torch.equal(got, want)):
+                raise AssertionError(f"sparse_go {run_label}: the one-call "
+                                     f"program != its plain version")
+            op = (ell_ops.REDUCE_COUNT if kw["count"] else
+                  ell_ops.REDUCE_LIMIT if kw["limit"] is not None else
+                  ell_ops.REDUCE_EMIT)
             name = ("sparse_go_count" if var == "count" else
                     "sparse_go_limit" if var == "limit" else "sparse_go")
+            k45 = steps - 1 + (1 if kw["upto"] else 0)
+            counts = stage_launches(
+                torch, ell_ops, run,
+                sparse_launches(steps - 1, kw["upto"], op),
+                {name: 1, "sparse_expand": k45, "pair_compact": k45,
+                 "pair_reduce": 1}, run_label)
+            ms, enqueue_ms = queued_times(torch, run, PROBE_REPS)
+            event_ms = cuda_ms(torch, run, 20, 2)
+            prog_bytes = 8 * c0 + 8 * ctx.get("slots", 0) \
+                + 4 * out.numel()
             kernels = {k: p.numbers() for k, p in probes.items()
                        if p.calls}
             if "padded_read_bytes" in ctx:
@@ -1719,8 +1777,9 @@ def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
             runs[run_label] = dict(
                 name=name, max_abs_err=0, ms=ms, plain_ms=plain,
                 bound_ms=bytes_ms(prog_bytes), bound_by="bytes",
-                library_ms=None,
-                device_ms=sum(p.k_ms for p in probes.values()),
+                library_ms=None, event_ms=event_ms, enqueue_ms=enqueue_ms,
+                kernels_device_ms=sum(p.k_ms for p in probes.values()),
+                **counts,
                 overflow=int(want[1]),
                 count=int(want[0]), caps=list(caps), queries=nq, starts=S,
                 steps=steps, kernels=kernels)
@@ -1763,15 +1822,30 @@ def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
             def run_a():
                 return ell_ops.adaptive_go(start, hub, tables, eslot, hrows,
                                            tuple(over), steps, K)
-            ms = cuda_ms(torch, run_a, 5, 1)
+            got = run_a()
+            gbits = ell_ops._unpack_ref(got[None, :])[0][:keep.numel()]
+            if not torch.equal(gbits[keep], wbits[keep]):
+                raise AssertionError(f"adaptive_go K={K} steps={steps}: the "
+                                     f"one-call program != its plain "
+                                     f"version")
+            hops = steps - 1
+            counts = stage_launches(
+                torch, ell_ops, run_a,
+                adaptive_launches(hops, ix.n_rows > ix.n),
+                {"adaptive_go": 1, "sparse_expand": 1 + hops,
+                 "pair_compact": hops, "adaptive_switch": hops,
+                 "bitmap_lanes": hops + 1, "go_hop": hops}, label)
+            ms, enqueue_ms = queued_times(torch, run_a, PROBE_REPS)
+            event_ms = cuda_ms(torch, run_a, 20, 2)
             prog_bytes = sum(p.bytes for k, p in probes.items()
                              if k in ("sparse_expand", "go_hop")) \
                 + (R1 + 7) // 8
             runs[label] = dict(
                 name="adaptive_go", max_abs_err=0, ms=ms, plain_ms=plain,
                 bound_ms=bytes_ms(prog_bytes), bound_by="bytes",
-                library_ms=None,
-                device_ms=sum(p.k_ms for p in probes.values()),
+                library_ms=None, event_ms=event_ms, enqueue_ms=enqueue_ms,
+                kernels_device_ms=sum(p.k_ms for p in probes.values()),
+                **counts,
                 dense_switch=dense, K=K, steps=steps,
                 kernels={k: p.numbers() for k, p in probes.items()
                          if p.calls})
@@ -1780,6 +1854,8 @@ def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                              f"{switched}")
     late = {f"{label}.{k}": v["enqueue_ms"] for label, r in runs.items()
             for k, v in r["kernels"].items() if v["enqueue_ms"] >= spin_ms}
+    late.update({label: r["enqueue_ms"] for label, r in runs.items()
+                 if r["enqueue_ms"] >= spin_ms})
     log(f"[kernel] spin {spin_ms:.3f} ms; calls whose host enqueue "
         f"outlasted it (their ms include host time): {late or 'none'}")
     kernel_rows = {}
@@ -2054,9 +2130,15 @@ def adaptive_phase(torch, rt, ell_ops, flags, oracle: GoOracle, n: int,
     each rides the adaptive route alone.  A sixteenth of them start on
     a hub (the hubs of least out-degree, at 2 steps), so that the
     program's dense arm runs on this path.  64 checked against the
-    oracle, 8 of them hub starts; the requests that ran a dense hop are
-    counted from the launches (each launches the layout change twice)
-    and, among the checked, predicted from the oracle's frontiers."""
+    oracle, 8 of them hub starts.  The program chooses its arm on the
+    card and its host reads nothing a call; the requests that ran a
+    dense hop are counted on the card (K7 adds one to
+    ``ell_ops.adaptive_dense_tally`` when a call turns dense; zeroed
+    before the drive, read once after it), and the count must equal the
+    oracle's prediction (``adaptive_switches``), which holds every hub
+    start; the checked hub starts show that the dense arm answered them
+    (the sparse arm pushes no hub extra row, so a hub start it served
+    would miss edges)."""
     rng = np.random.default_rng(seed + 13)
     starts = rng.integers(1, n + 1, requests)
     steps = rng.integers(2, 5, requests)
@@ -2078,33 +2160,45 @@ def adaptive_phase(torch, rt, ell_ops, flags, oracle: GoOracle, n: int,
     check = set(rng.choice(at_hub, n_hub_check, replace=False).tolist()) \
         | set(rng.choice(rest, min(64 - n_hub_check, len(rest)),
                          replace=False).tolist())
+    tally = ell_ops.adaptive_dense_tally(rt.device)
     with flag_mode(flags, ADAPTIVE):
         rt.serve_go(1, [1], [1], 3, {1: "e"})
         torch.cuda.synchronize()
         rt0 = dict(rt.stats)
         ell_ops.reset_launches()
+        tally.zero_()
+        torch.cuda.synchronize()
         wall, lat, results = drive(rt, mix, 1, check)
         launches = dict(ell_ops.LAUNCHES)
+        torch.cuda.synchronize()
+        went_dense = int(tally[0])
     traversed = check_go(oracle, mix, results, check)
     require_launched(launches, "adaptive")
     stats = {k: rt.stats[k] - rt0[k] for k in rt0}
     if stats["go_adaptive"] != requests:
         raise AssertionError(f"{stats['go_adaptive']} of {requests} "
                              f"requests rode the adaptive route")
-    dense = launches["bitmap_lanes"] // 2
-    if dense < len(at_hub):
-        raise AssertionError(f"{dense} requests ran a dense hop, fewer "
-                             f"than the {len(at_hub)} hub starts")
     K = int(flags.get("tpu_adaptive_k") or 2048)
-    checked_dense = sum(adaptive_switches(oracle, hub_old, m,
-                                          int(starts[i]), int(steps[i]), K)
-                        for i in check)
+    switches = [adaptive_switches(oracle, hub_old, m, int(starts[i]),
+                                  int(steps[i]), K)
+                for i in range(requests)]
+    dense = int(sum(switches))
+    if dense < len(at_hub) or not all(switches[i] for i in at_hub):
+        raise AssertionError(f"{dense} requests predicted to run a dense "
+                             f"hop, and not every one of the "
+                             f"{len(at_hub)} hub starts")
+    if went_dense < len(at_hub) or went_dense != dense:
+        raise AssertionError(f"{went_dense} requests ran a dense hop on "
+                             f"the card; {len(at_hub)} hub starts, "
+                             f"{dense} predicted by the oracle")
+    checked_dense = sum(switches[i] for i in check)
     qps = requests / wall
     return dict(requests=requests, threads=1, wall_s=wall, qps=qps,
                 p50_ms=float(np.percentile(lat, 50) * 1e3),
                 p99_ms=float(np.percentile(lat, 99) * 1e3),
                 checked=len(check), hub_starts=len(at_hub),
-                checked_hub_starts=n_hub_check, dense_requests=dense,
+                checked_hub_starts=n_hub_check,
+                dense_requests=went_dense, dense_requests_predicted=dense,
                 checked_dense_switch=int(checked_dense),
                 edges_traversed_per_query=float(np.mean(traversed)),
                 go_adaptive=stats["go_adaptive"], launches=launches,
@@ -2412,6 +2506,38 @@ def _slot_bytes(prog, m_edges: int, n: int) -> int:
     return total + 4 * m_edges * len(idx)
 
 
+def edge_pass_bytes(torch, edge_ops, f, src, et, over, kind: str) -> int:
+    """The bytes an edge-list pass from frontier ``f`` (bool [n]) must
+    move on this run's data: src on every edge and f once; etype only
+    on the edges whose source is in f, since each kernel tests
+    ``f[src[e]]`` first and reads ``et[e]`` only then.  ``kind``: "hop"
+    (K8) adds dst on the edges that pass both tests and the n-byte next
+    frontier; "final" (K9 without a mask, ``edge_final_where`` before
+    its WHERE) the 1-byte out of every edge; "final_mask" (K9 with a
+    WHERE mask) also the mask on the passing edges."""
+    M, n = src.numel(), f.numel()
+    from_f = int(f[src.long()].sum())
+    passing = int(edge_ops.edge_final_ref(
+        f, src, et, over, None, torch.empty(M, dtype=torch.bool,
+                                            device=src.device)).sum())
+    nb = 4 * M + n + 4 * from_f
+    if kind == "hop":
+        return nb + 4 * passing + n
+    return nb + M + (passing if kind == "final_mask" else 0)
+
+
+def _live_slot_bytes(prog, live: int) -> int:
+    """The bytes the fused final pass must move for the WHERE: each used
+    column's value for each kept edge (a vertex column gathered at the
+    edge's src or dst), and the dst index where a column is read there
+    (src is read for every edge by the pass's own test)."""
+    size = {0: 1, 1: 4, 2: 4}
+    total = sum(size[typ] * live for _key, _kind, typ in prog.slots)
+    if any(kind == 2 for _key, kind, _typ in prog.slots):
+        total += 4 * live
+    return total
+
+
 def transcendental_check(torch, edge_ops, rt, m, src, dst) -> dict:
     """K10 on CUDA's libm against the plain version's torch functions:
     ``log(e.w + 1) + sin(e.score) + exp2(e.score) - cbrt(e.w) > 6``.
@@ -2458,8 +2584,13 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
     WHERE mask), ``edge_seed``, K10 ``expr_filter`` for each predicate
     of the [fused] family in its modes, K11 ``edge_bfs_level``; the
     programs ``go`` and ``go_filtered`` at 1-3 steps from 1 and 256
-    starts, ``bfs`` on a connected and an unreachable pair.  Returns
-    ({kernel: numbers}, {run: numbers})."""
+    starts (``go_filtered`` launching no ``expr_filter``; its launches
+    and C calls a call at 3 steps by capture), ``bfs`` on a connected
+    and an unreachable pair; then ``go_filtered``'s final pass
+    ``edge_final_where`` on those runs' 3-step frontiers for every
+    predicate-mode, against its plain version and against K9 over K10's
+    whole mask on the card.  Returns ({kernel: numbers}, {run:
+    numbers})."""
     from nebula_tpu_torch.filter.expressions import decode_expr
     csr = rt._device_csr(m)
     src, dst, et = csr["edge_src"], csr["edge_dst"], csr["edge_etype"]
@@ -2493,7 +2624,8 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
                                                     over), 20),
         plain_ms=cuda_ms(torch, lambda: edge_ops.edge_hop_ref(
             f, orf, src, dst, et, over), 3, 1),
-        bound_ms=bytes_ms(12 * M + 2 * n), bound_by="bytes",
+        bound_ms=bytes_ms(edge_pass_bytes(torch, edge_ops, f, src, et,
+                                          over, "hop")), bound_by="bytes",
         library_ms=cuda_ms(torch, lib_hop, 20),
         frontier=int(f.sum()), reached=int(ok_.sum()))
     same("scatter_reduce_ (the library yardstick)", out8.bool(), ok_)
@@ -2511,10 +2643,13 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
                                                       fmask, fk), 20),
         plain_ms=cuda_ms(torch, lambda: edge_ops.edge_final_ref(
             f, src, et, over, fmask, fr), 3, 1),
-        bound_ms=bytes_ms(10 * M + n), bound_by="bytes", library_ms=None,
+        bound_ms=bytes_ms(edge_pass_bytes(torch, edge_ops, f, src, et,
+                                          over, "final_mask")),
+        bound_by="bytes", library_ms=None,
         ms_no_mask=cuda_ms(torch, lambda: edge_ops.edge_final(
             f, src, et, over, None, fk), 20),
-        bound_ms_no_mask=bytes_ms(9 * M + n))
+        bound_ms_no_mask=bytes_ms(edge_pass_bytes(torch, edge_ops, f, src,
+                                                  et, over, "final")))
 
     # ---- edge_seed: 256 starts (-1 padded to 512)
     idx_h = np.full(512, -1, np.int32)
@@ -2602,8 +2737,7 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
     # ---- programs: go and go_filtered (predicate 3, pushed) at 1-3
     # steps from 1 and 256 starts
     prog3, slots3 = progs[(3, True)]
-    sizes = {"edge_seed": n, "edge_hop": 12 * M + 2 * n,
-             "edge_final": 9 * M + n}
+    finals = {}
     for S in (1, 256):
         st_h = np.full(max(8, 1 << (S - 1).bit_length()), -1, np.int32)
         st_h[:S] = rng.integers(0, n, S)
@@ -2613,21 +2747,96 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
                 extra = (prog3, slots3) if name == "go_filtered" else ()
                 kern = getattr(edge_ops, name)
                 ref = getattr(edge_ops, name + "_ref")
+                k10 = edge_ops.LAUNCHES["expr_filter"]
                 out = kern(src, dst, et, st, n, steps, over, *extra)
+                if edge_ops.LAUNCHES["expr_filter"] != k10:
+                    raise AssertionError(f"{name} launched expr_filter")
                 (want, plain) = timed(torch, lambda: ref(
                     src, dst, et, st, n, steps, over, *extra))
                 for a, c in zip(out, want):
                     same(f"{name} S={S} steps={steps}", a, c)
-                nb = sizes["edge_seed"] + 4 * st.numel() \
-                    + (steps - 1) * sizes["edge_hop"] + sizes["edge_final"] \
-                    + (M + _slot_bytes(prog3, M, n) if extra else 0)
+                # this run's data: each hop's and the final pass's bytes
+                # from the frontier it starts from (go_ref's frontier
+                # after h hops), the fused pass's WHERE columns on the
+                # kept edges only
+                live = int(edge_ops.edge_final_ref(
+                    out[1], src, et, over, None,
+                    torch.empty(M, dtype=b, device=dev)).sum())
+                nb = n + 4 * st.numel() + edge_pass_bytes(
+                    torch, edge_ops, out[1], src, et, over, "final") \
+                    + sum(edge_pass_bytes(
+                        torch, edge_ops, edge_ops.go_ref(
+                            src, dst, et, st, n, h + 1, over)[1], src, et,
+                        over, "hop") for h in range(steps - 1)) \
+                    + (_live_slot_bytes(prog3, live) if extra else 0)
+
+                def call():
+                    return kern(src, dst, et, st, n, steps, over, *extra)
                 runs[f"{name}_S{S}_s{steps}"] = dict(
-                    name=name, max_abs_err=0,
-                    ms=cuda_ms(torch, lambda: kern(src, dst, et, st, n,
-                                                   steps, over, *extra), 10),
+                    name=name, max_abs_err=0, ms=queued_ms(torch, call, 10),
+                    event_ms=cuda_ms(torch, call, 10),
                     plain_ms=plain, bound_ms=bytes_ms(nb), bound_by="bytes",
-                    library_ms=None, starts=S, steps=steps,
+                    library_ms=None, starts=S, steps=steps, live_edges=live,
                     kept=int(out[0].sum()))
+                if steps == 3 and name == "go_filtered":
+                    # edge_seed and each hop: a memset and a kernel; the
+                    # final pass one kernel; no expr_filter
+                    row = launches_a_call(torch, edge_ops, call)
+                    if row["launches_a_call"] != 2 * steps + 1 \
+                            or row["c_calls_a_call"] != steps + 1:
+                        raise AssertionError(
+                            f"go_filtered S={S}: {row['launches_a_call']} "
+                            f"launches in {row['c_calls_a_call']} C calls, "
+                            f"not {2 * steps + 1} in {steps + 1} "
+                            f"({row['launch_kinds']})")
+                    runs[f"{name}_S{S}_s{steps}"].update(row)
+                    finals[S] = out[1].clone()
+
+    # ---- go_filtered's final pass on the 3-step frontiers, every
+    # predicate-mode: the WHERE run on the kept edges only
+    per_final = []
+    for S, f_fin in finals.items():
+        keep = edge_ops.edge_final_ref(f_fin, src, et, over, None,
+                                       torch.empty(M, dtype=b, device=dev))
+        live = int(keep.sum())
+        final_nb = edge_pass_bytes(torch, edge_ops, f_fin, src, et, over,
+                                   "final")
+        for (i, pushed), (prog, slots) in progs.items():
+            fk, fr_, k9 = (torch.empty(M, dtype=b, device=dev)
+                           for _ in range(3))
+            edge_ops.edge_final_where(f_fin, src, dst, et, over, prog, slots,
+                                      fk)
+            edge_ops.edge_final_where_ref(f_fin, src, dst, et, over, prog,
+                                          slots, fr_)
+            same(f"edge_final_where S={S} predicate {i} pushed={pushed}",
+                 fk, fr_)
+            mask = torch.empty(M, dtype=b, device=dev)
+            edge_ops.expr_filter(prog, slots, src, dst, mask)
+            edge_ops.edge_final(f_fin, src, et, over, mask, k9)
+            same(f"edge_final_where S={S} predicate {i}: K9 over K10", fk,
+                 k9)
+            per_final.append(dict(
+                starts=S, predicate=i, pushed=pushed, live_edges=live,
+                kept=int(fk.sum()), instructions=len(prog),
+                ms=cuda_ms(torch, lambda: edge_ops.edge_final_where(
+                    f_fin, src, dst, et, over, prog, slots, fk), 20),
+                k9_k10_ms=cuda_ms(torch, lambda: (
+                    edge_ops.expr_filter(prog, slots, src, dst, mask),
+                    edge_ops.edge_final(f_fin, src, et, over, mask, k9)),
+                    20),
+                plain_ms=cuda_ms(torch, lambda: edge_ops.edge_final_where_ref(
+                    f_fin, src, dst, et, over, prog, slots, fr_), 2, 1),
+                bound_ms=bytes_ms(final_nb + _live_slot_bytes(prog,
+                                                              live))))
+    head = next(r for r in per_final
+                if r["starts"] == 1 and r["predicate"] == 3 and r["pushed"])
+    rows["edge_final_where"] = dict(
+        max_abs_err=0, ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by="bytes", library_ms=None,
+        headline="go_filtered's final pass on the 1-start 3-step frontier, "
+                 "predicate 3 (w % 7 == 3 && score > 1.0), pushed",
+        live_edges=head["live_edges"], k9_k10_ms=head["k9_k10_ms"],
+        per_frontier_and_predicate=per_final)
 
     # ---- bfs: a connected pair (a target 2-4 levels away) and an
     # unreachable one (a vid with no in-edge over e), 5 levels
@@ -2764,6 +2973,11 @@ def fused_phase(torch, rt, edge_ops, fo: FusedOracle, blobs, n: int,
                 f"the oracle has {len(want[1])}")
         n_rows += len(want[1])
     require_launched(launches, "fused")
+    if launches["expr_filter"] or launches["edge_final"]:
+        raise AssertionError(f"the fused route launched expr_filter "
+                             f"{launches['expr_filter']} and edge_final "
+                             f"{launches['edge_final']} times: its WHERE "
+                             f"runs in edge_final_where")
     if stats["go_fused"] != requests:
         raise AssertionError(f"{stats['go_fused']} of {requests} requests "
                              f"rode the fused route")
@@ -5391,8 +5605,8 @@ def main(argv=None) -> int:
                                                  oracle, blobs, rng)
         for label, v in edge_runs.items():
             log(f"[kernel] {label} equal=True " + json.dumps(v))
-        for k in ("edge_seed", "edge_hop", "edge_final", "expr_filter",
-                  "edge_bfs_level"):
+        for k in ("edge_seed", "edge_hop", "edge_final", "edge_final_where",
+                  "expr_filter", "edge_bfs_level"):
             log(f"[kernel] {k} equal=True " + json.dumps(edge_rows[k]))
         log(f"[kernel] edge-list phase {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()

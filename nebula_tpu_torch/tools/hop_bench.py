@@ -1,5 +1,7 @@
 """Time the packed hop (``ell_ops.go_hop``), ``ell_go``, ``or_into``,
-the adaptive program (``ell_ops.adaptive_go``), the int8 hop K13
+the adaptive program (``ell_ops.adaptive_go``), the sparse pair-list
+program (``ell_ops.sparse_go``) in its emit, COUNT and LIMIT forms, the
+fused WHERE program (``edge_ops.go_filtered``), the int8 hop K13
 (``go_hop_i8``) with its programs ``ell_go_i8`` and ``ell_bfs_i8``, and
 the replicated-frontier mesh's M1 (``shard_hop``), row replication
 (M3), hop and programs (``ell_go_sharded``, ``ell_bfs_sharded``), and
@@ -7,7 +9,7 @@ the frontier-sharded mesh's programs (``mesh_sparse_go``,
 ``mesh_sparse_bfs``) of one checkout of the port on one card, so that
 two checkouts can be held side by side in one run.
 
-    python3 nebula_tpu_torch/tools/hop_bench.py [--tree DIR]
+    python3 nebula_tpu_torch/tools/hop_bench.py [--tree DIR] [--rows LIST]
 
 Run it as a script: the timing helpers (``cardtime.py``, beside this
 file) come from this file's checkout, the port from ``--tree DIR``
@@ -26,9 +28,23 @@ included); ``ell_go`` at 3 steps, exact and UPTO, the same two ways.
 ``adaptive_go`` at 3 steps from one start with 16 to 128 out-edges
 (the kind of start ``chip_smoke.py``'s row times), at K = 2048 (the
 sparse arm alone) and K = 8 (the dense arm after the first switch),
-by events only: the program reads its mode word on the host each
-sparse hop, so its calls cannot queue behind a spin; the median of
-ROUNDS measurements.
+held equal to its plain version: by events, the median of ROUNDS
+measurements, and, where the checkout chooses the arm on the card
+(``ell_ops._adaptive_plan``), its device time and its launches and C
+calls a call by capture; a checkout whose host reads the mode word
+each sparse hop is timed by events and traced.  Either way its device
+time by kernel from a trace, and, where the arm is chosen on the card,
+the dense arm's hop at W = 4 on the frontier it pulls at K = 8 on the
+plan's whole grid (``go_hop``) and gated as the program launches it,
+its gate open and shut.  ``sparse_go`` at c0
+256, 8 queries, 3 steps (``chip_smoke.py``'s headline batch), plain,
+COUNT and ``LIMIT 10``, held equal to its plain version, device and
+event times, launches and C calls a call.  ``go_filtered`` from one
+start at 3 steps with ``chip_smoke.py``'s predicate 3 (``e.w % 7 == 3
+&& e.score > 1.0``, pushed) on the same seeded columns, held equal to
+its plain version, the same numbers; and ``expr_filter`` with that
+predicate over every edge alone, its device time an instruction and
+edge.
 K13 at B = 128 and 1024 on the start frontier (one start a lane,
 uploaded by K12: B live rows) and on a dense one (every byte of every
 real row random int8, negative ones included), exact and with the UPTO
@@ -50,6 +66,9 @@ traced under ``torch.profiler``) and checked C calls a call.  A
 checkout from before the card stages (``ell_ops.HOP_STAGES``) runs M1 a
 shard and replicates by ``mesh.replicate_rows``; each checkout is
 called in its own form.
+``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
+and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``int8``,
+``mesh``, ``mesh_sparse``.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -58,17 +77,18 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 try:        # run as a script, this file's directory is sys.path[0]: the
     # timing helpers of this checkout, whichever tree the port comes from
-    from cardtime import (SPIN_CYCLES, cuda_ms, launches_a_call,
+    from cardtime import (SPIN_CYCLES, cuda_ms, kernel_ms, launches_a_call,
                           profiled_calls, queued_ms, queued_times)
 except ImportError:        # imported as a module of the package
     from nebula_tpu_torch.tools.cardtime import (SPIN_CYCLES, cuda_ms,
-                                                 launches_a_call,
+                                                 kernel_ms, launches_a_call,
                                                  profiled_calls, queued_ms,
                                                  queued_times)
 
@@ -76,12 +96,22 @@ VERTICES, EDGES, SEED = 1 << 19, 1 << 22, 0    # chip_smoke.py's defaults
 QUEUED = 8                     # calls queued behind the spin
 BACK_TO_BACK = 50              # calls timed back to back
 ADAPTIVE_CALLS = 20            # adaptive_go calls in one measurement
+SPLIT_CALLS = 5                # adaptive_go calls traced for the split
 ROUNDS = 5                     # adaptive_go measurements (the median)
 MESH_K = 4                     # the mesh's shards, all on this card
 PROGRAM_CALLS = 10             # back-to-back calls of a timed program
 BFS_CALLS = 3                  # back-to-back calls of a timed BFS
 MESH_QUEUED = 4                # mesh_sparse_go calls queued behind a spin
 MESH_SPIN = 16 * SPIN_CYCLES   # about 64 ms: four calls' host enqueue
+ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "int8", "mesh",
+              "mesh_sparse")
+SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
+LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
+# chip_smoke.py's predicate 3 and its seeded columns (fused_columns)
+PREDICATE = ["logic", "&&",
+             ["rel", "==", ["arith", "%", ["edge", "e", "w"], ["lit", 7]],
+              ["lit", 3]],
+             ["rel", ">", ["edge", "e", "score"], ["lit", 1.0]]]
 
 
 def _equal(torch, what, *pairs):
@@ -327,43 +357,11 @@ def mesh_sparse_rows(torch, ell_ops, ix, tables, over, rng, dev):
     return res
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    ap.add_argument("--tree", default=here)
-    args = ap.parse_args(argv)
-    sys.path.insert(0, os.path.abspath(args.tree))
-
+def hop_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng, dev):
+    """The packed hop and ``ell_go`` at W = 16 and 128, and ``or_into``."""
     import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        print("hop_bench: no CUDA device", file=sys.stderr)
-        return 2
-    from nebula_tpu_torch.tpu import _build, ell_ops
-    from nebula_tpu_torch.tpu.csr import mirror_from_edges
-    from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
-    from nebula_tpu_torch.tools.graphgen import powerlaw_graph
-
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(smi, flush=True)
-    t0 = time.perf_counter()
-    _build.load()
-    build_s = time.perf_counter() - t0
-    src, dst = powerlaw_graph(VERTICES, EDGES, 2.2, 20000, SEED)
-    m = mirror_from_edges(src, dst, 1, space_id=1)
-    ix = TorchQueryRuntime.ell(m)
-    tables = ix.device_tables(dev)
-    eslot, hrows = (torch.from_numpy(a.astype(np.int32)).to(dev)
-                    for a in ix.hub_merge())
-    rng = np.random.default_rng(SEED + 7)
-    R1, over = ix.n_rows + 1, (1,)
-    res = dict(tree=os.path.abspath(args.tree), card=smi, build_s=build_s,
-               n_rows=ix.n_rows, slots=int(tables.nbr.numel()),
-               buckets=list(tables.D))
+    R1 = ix.n_rows + 1
+    res = {}
     for W in (16, 128):
         fp_h = np.zeros((R1, W), np.uint8)
         live = rng.random(ix.n) < 0.02
@@ -422,32 +420,291 @@ def main(argv=None) -> int:
                           bitwise_or_event_ms=cuda_ms(torch, lib,
                                                       BACK_TO_BACK))
 
-    # adaptive_go: the first vertex with 16 to 128 out-edges over OVER
+    return res
+
+
+def _kernel_name(name: str) -> str:
+    """A traced kernel's name without its namespace, template arguments
+    and parameters ("Memset (Device)" stays whole)."""
+    if name.startswith(("Memset", "Memcpy")):
+        return name
+    s = name.replace("(anonymous namespace)::", "")
+    s = s[5:] if s.startswith("void ") else s
+    return re.split(r"[<(]", s, 1)[0].split("::")[-1]
+
+
+def kernel_split(torch, ell_ops, fn) -> dict:
+    """``fn``'s device time by kernel, from a ``torch.profiler`` trace of
+    SPLIT_CALLS calls (``kernel_ms``): each kernel's mean ms a launch
+    and the launches the trace saw a call, and their sum a call (the
+    card's busy time; the rest of a call's device time is the gaps
+    between its launches)."""
+    split = kernel_ms(torch, ell_ops, fn, SPLIT_CALLS)
+    by = {}
+    for name, (ms, seen) in split.items():
+        k = by.setdefault(_kernel_name(name), [0.0, 0])
+        k[0] += ms * seen
+        k[1] += seen
+    return dict(kernels={k: dict(ms=t / n, a_call=n / SPLIT_CALLS)
+                         for k, (t, n) in by.items()},
+                busy_ms_a_call=sum(t for t, _n in by.values())
+                / SPLIT_CALLS)
+
+
+def gated_hop_rows(torch, ell_ops, start, hub, tables, eslot, hrows, over,
+                   dev):
+    """The dense arm's hop at W = 4 on the frontier it pulls at K = 8
+    (the one after the first, sparse, hop): ``go_hop``'s gather on the
+    plan's whole grid against the gated gather ``ad_program`` launches
+    (``ell_go_hop`` with a gate word), its gate open and shut, device
+    times of one call (gather and hub merge), held equal."""
+    R1 = tables.n_rows + 1
+    bits = ell_ops.adaptive_go(start, hub, tables, eslot, hrows, over, 2,
+                               2048)
+    words = torch.zeros(4 * ell_ops._words(R1), dtype=torch.uint8,
+                        device=dev)
+    words[:bits.numel()] = bits
+    f = torch.empty((R1, 4), dtype=torch.uint8, device=dev)
+    ell_ops.bitmap_lanes(True, words.view(torch.int32), f, R1)
+    out_u, out_g = torch.empty_like(f), torch.empty_like(f)
+    gate = torch.zeros(1, dtype=torch.int64, device=dev)
+    desc, blocks, lgc = ell_ops._hop_desc(tables.row0, tables.slot0,
+                                          tables.rows, tables.D, 4, 4)
+
+    def whole():
+        ell_ops.go_hop(f, None, out_u, tables, eslot, hrows, over)
+
+    def gated():
+        rc = ell_ops._lib().ell_go_hop(
+            f.data_ptr(), None, out_g.data_ptr(), tables.nbr.data_ptr(),
+            tables.et.data_ptr(), desc, len(tables.D), blocks, lgc, 0,
+            eslot.data_ptr(), hrows.data_ptr(), tables.n_rows - tables.n,
+            ell_ops._over_array(over), len(over), tables.n, tables.n_rows,
+            4, gate.data_ptr(), ell_ops.MODE_DENSE, ell_ops._stream(dev))
+        ell_ops._ok(rc, "ell_go_hop")
+    gate.fill_(ell_ops.MODE_DENSE)
+    whole()
+    gated()
+    _equal(torch, "the gated hop", (out_u, out_g))
+    row = dict(plan_blocks=blocks, frontier_rows=int(f[:, 0].sum()),
+               whole_grid_ms=queued_ms(torch, whole, QUEUED),
+               gated_open_ms=queued_ms(torch, gated, QUEUED))
+    gate.fill_(ell_ops.MODE_SPARSE)
+    row["gated_shut_ms"] = queued_ms(torch, gated, QUEUED)
+    return row
+
+
+def adaptive_rows(torch, ell_ops, m, ix, tables, eslot, hrows, over, dev):
+    """``adaptive_go`` at 3 steps, K = 2048 and 8, in the checkout's own
+    form (see the head of this file)."""
+    import numpy as np
     is_over = m.edge_etype == over[0]
     deg = np.bincount(m.edge_src[is_over], minlength=m.n)[:m.n]
     first = int(np.nonzero((deg > 16) & (deg <= 128))[0][0])
     start = torch.from_numpy(
         ix.perm[np.asarray([first])].astype(np.int32)).to(dev)
     hub = torch.from_numpy(ix.hub_table().astype(np.uint8)).to(dev)
+    on_card = hasattr(ell_ops, "_adaptive_plan")
+    res = {}
     for K in (2048, 8):
         def adaptive():
-            ell_ops.adaptive_go(start, hub, tables, eslot, hrows, over, 3,
-                                K)
-        lanes = ell_ops.LAUNCHES["bitmap_lanes"]
-        adaptive()
-        dense = ell_ops.LAUNCHES["bitmap_lanes"] > lanes
+            return ell_ops.adaptive_go(start, hub, tables, eslot, hrows,
+                                       over, 3, K)
+        lanes = []
+
+        def counting(*a):
+            lanes.append(1)
+            return ell_ops.bitmap_lanes(*a)
+        plain = ell_ops._adaptive_steps(
+            start, hub, tables, eslot, hrows, over, 3, K,
+            ell_ops.sparse_expand, ell_ops.pair_compact,
+            ell_ops.adaptive_switch, counting, ell_ops.go_hop)
+        dense = bool(lanes)
         if dense != (K == 8):
             raise AssertionError(f"adaptive_go K={K}: dense arm ran "
                                  f"{dense}")
+        want = ell_ops.adaptive_go_ref(start, hub, tables, eslot, hrows,
+                                       over, 3, K)
+        real = ell_ops._unpack_ref(want[None, :])[0][:ix.n]
+        for got in (adaptive(), plain):
+            bits = ell_ops._unpack_ref(got[None, :])[0][:ix.n]
+            _equal(torch, f"adaptive_go K={K}", (bits, real))
         times = [cuda_ms(torch, adaptive, ADAPTIVE_CALLS)
                  for _ in range(ROUNDS)]
-        res[f"adaptive_K{K}_s3"] = dict(event_ms=float(np.median(times)),
-                                        rounds=times, dense_arm=dense)
-    res.update(int8_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng,
-                         dev))
-    res.update(mesh_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng,
-                         dev))
-    res.update(mesh_sparse_rows(torch, ell_ops, ix, tables, over, rng, dev))
+        row = dict(event_ms=float(np.median(times)), rounds=times,
+                   dense_arm=dense, arm_on_card=on_card)
+        if on_card:
+            row["ms"] = queued_ms(torch, adaptive, QUEUED)
+        row.update(counts(torch, ell_ops, adaptive, waits=not on_card))
+        row.update(kernel_split(torch, ell_ops, adaptive))
+        res[f"adaptive_K{K}_s3"] = row
+    if on_card:
+        res["adaptive_dense_hop_W4"] = gated_hop_rows(
+            torch, ell_ops, start, hub, tables, eslot, hrows, over, dev)
+    return res
+
+
+def sparse_rows(torch, ell_ops, rt, m, ix, tables, over, rng, dev):
+    """``sparse_go`` at chip_smoke.py's headline batch in its three
+    forms."""
+    import numpy as np
+    from nebula_tpu_torch.tpu.ell import sparse_caps
+    deg_h = rt._deg_host(m, tuple(over))
+    pool = np.nonzero(deg_h > 0)[0]
+    old = rng.choice(pool, SPARSE_QUERIES, replace=False)
+    new = ix.perm[old].astype(np.int32)
+    q = np.arange(SPARSE_QUERIES, dtype=np.int32)
+    o = np.lexsort((new, q))
+    ids_h = np.full(SPARSE_C0, ix.n_rows, np.int32)
+    qid_h = np.zeros(SPARSE_C0, np.int32)
+    ids_h[:SPARSE_QUERIES], qid_h[:SPARSE_QUERIES] = new[o], q[o]
+    ids = torch.from_numpy(ids_h).to(dev)
+    qid = torch.from_numpy(qid_h).to(dev)
+    ecnt, e0 = rt._hub_expansion_dev(m, ix)
+    deg = rt._deg_dev(m, ix, tuple(over))
+    caps = sparse_caps(SPARSE_C0, max(tables.D), 3, 1 << 17)
+    qmax = 1024
+    res = {}
+    for form, kw in (("plain", {}), ("count", dict(count=True)),
+                     ("limit", dict(limit=LIMIT_N))):
+        def go():
+            return ell_ops.sparse_go(ids, qid, ecnt, e0, deg, tables, over,
+                                     3, caps, qmax, SPARSE_QUERIES, **kw)
+        want = ell_ops.sparse_go_ref(ids, qid, ecnt, e0, deg, tables, over,
+                                     3, caps, qmax, **kw)
+        got = go()
+        _equal(torch, f"sparse_go {form} flags", (got[1], want[1]))
+        if not int(want[1]):
+            _equal(torch, f"sparse_go {form}", (got, want))
+        ms, enq = queued_times(torch, go, QUEUED)
+        res[f"sparse_go_{form}_c0_{SPARSE_C0}"] = dict(
+            ms=ms, enqueue_ms=enq,
+            event_ms=cuda_ms(torch, go, BACK_TO_BACK),
+            overflow=bool(int(want[1])), **counts(torch, ell_ops, go))
+    return res
+
+
+def fused_rows(torch, edge_ops, rt, m, rng, dev):
+    """``go_filtered`` from one start at 3 steps, predicate 3, pushed."""
+    import numpy as np
+    from nebula_tpu_torch.filter.expressions import (_from_wire,
+                                                     decode_expr,
+                                                     encode_expr)
+    plan = rt._plan_go(1, {"e": 1}, decode_expr(encode_expr(
+        _from_wire(PREDICATE))), True)
+    prog = rt._filter_program(m, 1, plan)
+    env = rt._env_cols(m, {"e": 1}, plan.filter_used, True)
+    slots = [env[k] for k, _kind, _t in prog.slots]
+    csr = rt._device_csr(m)
+    src, dst, et = csr["edge_src"], csr["edge_dst"], csr["edge_etype"]
+    deg = np.bincount(m.edge_src[m.edge_etype == 1], minlength=m.n)[:m.n]
+    st_h = np.full(8, -1, np.int32)
+    st_h[0] = int(rng.choice(np.nonzero(deg > 0)[0]))
+    st = torch.from_numpy(st_h).to(dev)
+
+    def go():
+        return edge_ops.go_filtered(src, dst, et, st, m.n, 3, (1,), prog,
+                                    slots)
+    got = go()
+    want = edge_ops.go_filtered_ref(src, dst, et, st, m.n, 3, (1,), prog,
+                                    slots)
+    _equal(torch, "go_filtered", *zip(got, want))
+    k10 = edge_ops.LAUNCHES["expr_filter"]
+    go()
+    k10 = edge_ops.LAUNCHES["expr_filter"] - k10
+    # the interpreter over every edge, alone: its cost an instruction
+    mask = torch.empty(src.shape, dtype=torch.bool, device=dev)
+    want_mask = torch.empty_like(mask)
+    edge_ops.expr_filter(prog, slots, src, dst, mask)
+    edge_ops.expr_filter_ref(prog, slots, src, dst, want_mask)
+    _equal(torch, "expr_filter", (mask, want_mask))
+
+    def k10_all():
+        edge_ops.expr_filter(prog, slots, src, dst, mask)
+    k10_ms = queued_ms(torch, k10_all, QUEUED)
+    return {"expr_filter_p3": dict(
+        ms=k10_ms, instructions=len(prog), edges=int(src.shape[0]),
+        ns_an_instruction_and_edge=k10_ms * 1e6 / (len(prog)
+                                                   * int(src.shape[0])),
+        event_ms=cuda_ms(torch, k10_all, BACK_TO_BACK)),
+            "go_filtered_S1_s3_p3": dict(
+        ms=queued_ms(torch, go, QUEUED),
+        event_ms=cuda_ms(torch, go, BACK_TO_BACK),
+        kept=int(got[0].sum()),
+        expr_filter_launches=k10,
+        **counts(torch, edge_ops, go))}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--tree", default=here)
+    ap.add_argument("--rows", default=",".join(ROW_GROUPS),
+                    help="row groups to time: " + ", ".join(ROW_GROUPS))
+    args = ap.parse_args(argv)
+    rows = set(args.rows.split(","))
+    if not rows <= set(ROW_GROUPS):
+        ap.error(f"--rows: unknown groups {sorted(rows - set(ROW_GROUPS))}")
+    sys.path.insert(0, os.path.abspath(args.tree))
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("hop_bench: no CUDA device", file=sys.stderr)
+        return 2
+    from nebula_tpu_torch.interface.common import SupportedType as T
+    from nebula_tpu_torch.meta.schema import SchemaView
+    from nebula_tpu_torch.tpu import _build, edge_ops, ell_ops
+    from nebula_tpu_torch.tpu.csr import mirror_from_edges
+    from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
+    from nebula_tpu_torch.tools.graphgen import powerlaw_graph
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    src, dst = powerlaw_graph(VERTICES, EDGES, 2.2, 20000, SEED)
+    crng = np.random.default_rng(SEED + 17)   # chip_smoke.fused_columns
+    w = crng.integers(0, 1000, len(src))
+    score = crng.integers(0, 64, len(src)) / 8.0
+    m = mirror_from_edges(src, dst, 1, space_id=1, edge_props={
+        1: {"w": (T.INT, w), "score": (T.DOUBLE, score)}})
+    rt = TorchQueryRuntime()
+    rt.load_space(1, m, SchemaView().add_space(1, {}, {"e": 1}))
+    ix = rt.ell(m)
+    tables = ix.device_tables(dev)
+    eslot, hrows = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                    for a in ix.hub_merge())
+    rng = np.random.default_rng(SEED + 7)
+    over = (1,)
+    res = dict(tree=os.path.abspath(args.tree), card=smi, build_s=build_s,
+               n_rows=ix.n_rows, slots=int(tables.nbr.numel()),
+               buckets=list(tables.D))
+    groups = (
+        ("hop", lambda: hop_rows(torch, ell_ops, ix, tables, eslot, hrows,
+                                 over, rng, dev)),
+        ("adaptive", lambda: adaptive_rows(torch, ell_ops, m, ix, tables,
+                                           eslot, hrows, over, dev)),
+        ("sparse", lambda: sparse_rows(torch, ell_ops, rt, m, ix, tables,
+                                       over, rng, dev)),
+        ("fused", lambda: fused_rows(torch, edge_ops, rt, m, rng, dev)),
+        ("int8", lambda: int8_rows(torch, ell_ops, ix, tables, eslot, hrows,
+                                   over, rng, dev)),
+        ("mesh", lambda: mesh_rows(torch, ell_ops, ix, tables, eslot, hrows,
+                                   over, rng, dev)),
+        ("mesh_sparse", lambda: mesh_sparse_rows(torch, ell_ops, ix, tables,
+                                                 over, rng, dev)))
+    try:
+        for name, fn in groups:
+            if name in rows:
+                res.update(fn())
+    finally:
+        rt.close()
     print(json.dumps(res), flush=True)
     return 0
 

@@ -6,8 +6,9 @@
 with nvcc into
 ``_build_out/libell_lanes.so`` beside this file (a
 directory git ignores) at first use, rebuilding when a source is newer
-than the library (or the header ``csrc/hop_plan.cuh`` they share),
-and loads it with ctypes.  Each source compiles to an
+than the library (or a header they share: ``csrc/hop_plan.cuh``, the
+hops' plan, and ``csrc/expr_core.cuh``, the WHERE interpreter), and
+loads it with ctypes.  Each source compiles to an
 object in its own nvcc process, all started together, and one more
 nvcc call links them; ``LAST_BUILD`` keeps each step's seconds.  The
 sources have a plain C interface and include no PyTorch header, so a
@@ -36,8 +37,12 @@ SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "ell_int8.cu"),
            os.path.join(CSRC, "ell_mesh.cu"),
            os.path.join(CSRC, "mesh_sparse.cu"))
-# included by ell_lanes.cu, ell_int8.cu and ell_mesh.cu: the hop's plan
-HEADERS = (os.path.join(CSRC, "hop_plan.cuh"),)
+# included by ell_lanes.cu, ell_int8.cu and ell_mesh.cu (the hop's
+# plan), by expr_filter.cu and edge_go.cu (the WHERE interpreter) and by
+# ell_lanes.cu, sparse_go.cu and edge_go.cu (the SM count)
+HEADERS = (os.path.join(CSRC, "hop_plan.cuh"),
+           os.path.join(CSRC, "expr_core.cuh"),
+           os.path.join(CSRC, "sm_count.cuh"))
 LIB_PATH = os.path.join(OUT_DIR, "libell_lanes.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -135,7 +140,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_int32)
         lib.ell_go_hop.argtypes = [
             vp, vp, vp, vp, vp, p64, i32, i64, i32, i32, vp, vp, i64, p32,
-            i32, i64, i64, i64, vp]
+            i32, i64, i64, i64, vp, i64, vp]
         lib.ell_or_many.argtypes = [vp, ctypes.POINTER(vp), i32, i64, vp]
         lib.ell_lane_join.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64,
                                       vp]
@@ -158,8 +163,14 @@ def load() -> ctypes.CDLL:
                                    vp, vp, i32, i64, i64, vp]
         lib.sg_reduce.argtypes = [i32, vp, vp, i64, vp, vp, i32, i64, i64,
                                   i64, i64, i64, i64, vp, vp, vp]
-        lib.ad_switch.argtypes = [vp, i64, vp, i64, i64, vp, vp]
+        lib.ad_switch.argtypes = [vp, i64, vp, i64, i64, vp, vp, vp]
         lib.ad_bitmap_lanes.argtypes = [i32, vp, vp, i64, vp]
+        # the whole programs, one call each (the tables by value)
+        from .ell_ops import _SparseTables
+        lib.sg_program.argtypes = [_SparseTables, vp, vp, i64, vp, p64, i32,
+                                   vp, vp, i64, vp, p32]
+        lib.ad_program.argtypes = [_SparseTables, vp, i64, vp, p64, p64, i64,
+                                   i32, p32, i32, vp, vp, vp, vp, vp, p32]
         # csrc/edge_go.cu and csrc/expr_filter.cu (the slot table
         # travels by value, as edge_ops._Slots)
         from .edge_ops import _Slots
@@ -169,8 +180,10 @@ def load() -> ctypes.CDLL:
         lib.edge_final.argtypes = [vp, vp, vp, vp, vp, i64, p32, i32, vp]
         lib.edge_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
                                        vp]
-        lib.expr_filter.argtypes = [vp, i32, i32, _Slots, vp, vp, i64, vp,
-                                    vp]
+        lib.expr_filter.argtypes = [vp, i32, i32, i32, _Slots, vp, vp, i64,
+                                    vp, vp]
+        lib.edge_final_where.argtypes = [vp, vp, vp, vp, p32, i32, vp, i32,
+                                         i32, i32, _Slots, i64, vp, vp]
         # csrc/ell_absorb.cu (the bucket table by value)
         from .ell_ops import _AbsorbBuckets
         lib.ell_absorb.argtypes = [vp, vp, vp, vp, i64, _AbsorbBuckets, vp]
@@ -211,8 +224,10 @@ def load() -> ctypes.CDLL:
                    lib.ell_frontier_upload, lib.ell_go_count,
                    lib.ell_bfs_level, lib.ell_bfs_depth_i8, lib.sg_expand,
                    lib.sg_compact, lib.sg_reduce, lib.ad_switch,
-                   lib.ad_bitmap_lanes, lib.edge_seed, lib.edge_hop,
-                   lib.edge_final, lib.edge_bfs_level, lib.expr_filter,
+                   lib.ad_bitmap_lanes, lib.sg_program, lib.ad_program,
+                   lib.edge_seed, lib.edge_hop, lib.edge_final,
+                   lib.edge_final_where, lib.edge_bfs_level,
+                   lib.expr_filter,
                    lib.ell_absorb, lib.i8_frontier_upload,
                    lib.i8_row_live, lib.i8_go_hop, lib.i8_pack_rows,
                    lib.i8_bfs_level, lib.ell_table_copy, lib.ell_mesh_hop,

@@ -4,8 +4,9 @@
 // Replaces the edge-list programs of nebula_tpu/tpu/kernels.py:
 //   make_go_kernel (:284, body _go_body :264) = edge_seed + edge_hop x
 //       (steps - 1) + edge_final
-//   make_go_filtered_kernel (:296) = expr_filter (expr_filter.cu) + the
-//       same, the WHERE mask ANDed in edge_final
+//   make_go_filtered_kernel (:296) = edge_seed + edge_hop x (steps - 1)
+//       + edge_final_where: K9's test with the WHERE (expr_core.cuh)
+//       evaluated inside it, on the edges that pass the test only
 //   make_bfs_kernel (:315) = edge_seed x 2 + edge_bfs_level (first) +
 //       per level edge_hop + edge_bfs_level; the host reads the level's
 //       two flags before launching the next, as jax.lax.while_loop
@@ -26,6 +27,18 @@
 // cudaMemsetAsync; the two frontier buffers ping-pong.  BFS levels are
 // one thread a vertex; the loop flags are a block OR and one atomicOr.
 //
+// The fused WHERE.  The reference computes final = frontier[src] & ok &
+// filter_mask with the WHERE evaluated on every edge (kernels.py:296,
+// :264-281).  Every operation of the interpreter is total, so the
+// WHERE's value matters only where keep = f[src[e]] && in_over(et[e])
+// holds, and edge_final_where evaluates it only there: its bound is
+// K9's bytes (src and etype 4 B each, the frontier bytes, 1 B out an
+// edge) plus the used columns over the kept edges.  A warp scans 32
+// edges at a time and queues its kept ones in shared memory (ballot +
+// popc); each time 32 are queued, every lane interprets one, so no lane
+// idles through a program while others run it.  The grid is a few
+// blocks an SM, so that a warp scans enough edges to fill its queue.
+//
 // Every entry point runs on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() after its
 // launches (0 = launched).
@@ -33,12 +46,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "expr_core.cuh"
+#include "sm_count.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1LL << 20;
 constexpr int kMaxOver = 32;
 constexpr int32_t kInt32Inf = 0x7FFFFFFF;      // kernels.py INT32_INF
+constexpr int kWarps = kThreads / 32;
+constexpr int kQueue = 64;                     // a warp's queued edges
+constexpr int kFinalBlocksPerSM = 8;           // edge_final_where's grid
 
 // The OVER set as signed etypes (negative = REVERSELY), by value.
 struct OverSet {
@@ -106,6 +125,59 @@ __global__ void edge_final_kernel(const uint8_t* __restrict__ f,
         bool keep = f[src[e]] && in_over(ov, et[e]);
         if (fmask != nullptr) keep = keep && fmask[e];
         out[e] = keep ? 1 : 0;
+    }
+}
+
+// make_go_filtered_kernel's final mask with the WHERE fused (see the
+// head of this file): out[e] = f[src[e]] && in_over(et[e]) && the
+// program's value at e, the program run only where the first two hold.
+__global__ void __launch_bounds__(kThreads)
+edge_final_where_kernel(const uint8_t* __restrict__ f,
+                        const int32_t* __restrict__ src,
+                        const int32_t* __restrict__ dst,
+                        const int32_t* __restrict__ et, OverSet ov,
+                        const int32_t* __restrict__ ins, int n_ins,
+                        int out_reg, ExprSlots slots, long long m,
+                        uint8_t* __restrict__ out) {
+    extern __shared__ uint32_t smem[];
+    __shared__ long long queue[kWarps][kQueue];
+    int32_t* prog = reinterpret_cast<int32_t*>(smem);
+    uint32_t* regs = smem + n_ins * 5 + threadIdx.x;
+    expr::load_program(prog, ins, n_ins);
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    long long* q = queue[threadIdx.x >> 5];
+    const unsigned below = (1u << lane) - 1u;
+    const long long warps = (long long)gridDim.x * kWarps;
+    int qn = 0;                         // the same on every lane
+    // every lane of a warp runs the same trip count
+    for (long long base = ((long long)blockIdx.x * kWarps
+                           + (threadIdx.x >> 5)) * 32;
+         base < m; base += warps * 32) {
+        const long long e = base + lane;
+        bool keep = false;
+        if (e < m) {
+            keep = f[src[e]] && in_over(ov, et[e]);
+            if (!keep) out[e] = 0;
+        }
+        const unsigned ball = __ballot_sync(0xFFFFFFFFu, keep);
+        if (keep) q[qn + __popc(ball & below)] = e;
+        qn += __popc(ball);
+        __syncwarp();
+        if (qn >= 32) {
+            const long long x = q[lane];
+            out[x] = expr::eval(prog, n_ins, out_reg, regs, slots, src, dst,
+                                x) ? 1 : 0;
+            __syncwarp();
+            if (lane < qn - 32) q[lane] = q[32 + lane];
+            qn -= 32;
+            __syncwarp();
+        }
+    }
+    if (lane < qn) {
+        const long long x = q[lane];
+        out[x] = expr::eval(prog, n_ins, out_reg, regs, slots, src, dst, x)
+                     ? 1 : 0;
     }
 }
 
@@ -185,6 +257,33 @@ int edge_final(const void* f, const void* src, const void* et,
     edge_final_kernel<<<grid_for(m), kThreads, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)f, (const int32_t*)src, (const int32_t*)et,
         (const uint8_t*)fmask, (uint8_t*)out, m, ov);
+    return (int)cudaGetLastError();
+}
+
+// go_filtered's final pass: out bool [m] = f[src] && etype in OVER &&
+// the WHERE (ins: int32 [n_ins, 5] on the card, n_regs registers, the
+// slot table as expr_filter takes it), the WHERE run only where the
+// first two hold.
+int edge_final_where(const void* f, const void* src, const void* dst,
+                     const void* et, const int32_t* over, int n_over,
+                     const void* ins, int n_ins, int n_regs, int out_reg,
+                     ExprSlots slots, int64_t m, void* out, void* stream) {
+    OverSet ov;
+    if (m < 0 || !over_set(over, n_over, &ov) ||
+        !expr::program_ok(n_ins, n_regs, out_reg, slots))
+        return -1;
+    if (m == 0) return (int)cudaGetLastError();
+    const int sms = sm_count();
+    if (sms == 0) return (int)cudaErrorInvalidDevice;
+    const long long most = (long long)sms * kFinalBlocksPerSM;
+    const long long need = (m + kThreads - 1) / kThreads;
+    edge_final_where_kernel<<<(unsigned)(need < most ? need : most),
+                              kThreads,
+                              expr::smem_bytes(n_ins, n_regs, kThreads),
+                              (cudaStream_t)stream>>>(
+        (const uint8_t*)f, (const int32_t*)src, (const int32_t*)dst,
+        (const int32_t*)et, ov, (const int32_t*)ins, n_ins, out_reg, slots,
+        m, (uint8_t*)out);
     return (int)cudaGetLastError();
 }
 

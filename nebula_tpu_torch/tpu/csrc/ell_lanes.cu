@@ -22,6 +22,7 @@
 #include <stdint.h>
 
 #include "hop_plan.cuh"
+#include "sm_count.cuh"
 
 // The OR-combine's sources, by value: at global scope, since the
 // extern "C" entry point builds it (a struct of an anonymous namespace
@@ -194,19 +195,56 @@ __device__ __forceinline__ void hop_rows(const V* __restrict__ fp,
     }
 }
 
-template <typename V, bool Q, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
-                  V* __restrict__ accp, const int32_t* __restrict__ nbr,
-                  const int32_t* __restrict__ et, HopPlan pl, OverSet ov,
-                  long long n_rows, int C, int lgc) {
-    const int blk = (int)blockIdx.x;
+// Plan block blk of the hop: block 0 also zeroes out's pad row.
+template <typename V, bool Q>
+__device__ __forceinline__ void gather_block(const V* __restrict__ fp,
+                                             V* __restrict__ out,
+                                             V* __restrict__ accp,
+                                             const int32_t* __restrict__ nbr,
+                                             const int32_t* __restrict__ et,
+                                             const HopPlan& pl,
+                                             const OverSet& ov,
+                                             long long n_rows, int C,
+                                             int lgc, int blk) {
     if (blk == 0)
         for (int t = threadIdx.x; t < C; t += blockDim.x)
             zero_v(out[n_rows * C + t]);
     const int b = plan_bucket(pl, blk);
     hop_rows<V, Q>(fp, out, accp, nbr, et, pl, ov, n_rows, C, lgc, blk, b,
                    pl.row0[b], pl.rows[b]);
+}
+
+template <typename V, bool Q, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+hop_gather_kernel(const V* __restrict__ fp, V* __restrict__ out,
+                  V* __restrict__ accp, const int32_t* __restrict__ nbr,
+                  const int32_t* __restrict__ et, HopPlan pl, OverSet ov,
+                  long long n_rows, int C, int lgc) {
+    gather_block<V, Q>(fp, out, accp, nbr, et, pl, ov, n_rows, C, lgc,
+                       (int)blockIdx.x);
+}
+
+// The hop gated on a device word (the adaptive program's dense arm): it
+// returns at once unless *gate == want, and walks the plan's n_blocks
+// blocks from a grid of at most a full card's worth of resident blocks,
+// so that a hop of the other arm costs the card one small launch, not
+// the plan's whole grid of empty blocks.  The bounds say one block an
+// SM, as hop_gather_kernel's do: with (kThreads) alone ptxas gave this
+// loop 32 registers, fewer gathers in flight, and the open hop ran 10 %
+// slower than the plain one (52 registers and about 2 % with these).
+template <typename V, bool Q>
+__global__ void __launch_bounds__(kThreads, 1)
+hop_gather_gated_kernel(const V* __restrict__ fp, V* __restrict__ out,
+                        V* __restrict__ accp,
+                        const int32_t* __restrict__ nbr,
+                        const int32_t* __restrict__ et, HopPlan pl,
+                        OverSet ov, long long n_rows, int C, int lgc,
+                        int n_blocks, const long long* __restrict__ gate,
+                        long long want) {
+    if (*gate != want) return;                      // the other arm's hop
+    for (int blk = (int)blockIdx.x; blk < n_blocks; blk += gridDim.x)
+        gather_block<V, Q>(fp, out, accp, nbr, et, pl, ov, n_rows, C, lgc,
+                           blk);
 }
 
 // M1, the replicated-frontier mesh's gather (replaces the per-shard
@@ -270,7 +308,10 @@ __global__ void hop_merge_kernel(uint32_t* __restrict__ out,
                                  const int32_t* __restrict__ eslot,
                                  const int32_t* __restrict__ hrows,
                                  long long n, long long n_rows,
-                                 long long n_extras, int W4) {
+                                 long long n_extras, int W4,
+                                 const long long* __restrict__ gate,
+                                 long long want) {
+    if (gate != nullptr && *gate != want) return;
     merge_rows(out, accp, eslot, hrows, n, n_rows, n_extras, W4);
 }
 
@@ -541,14 +582,17 @@ extern "C" {
 // every block then reads and writes inside its own bucket's rows.  The
 // 16-byte slot path runs when every bucket's slots start 16-byte
 // aligned in nbr and et, else the 4-byte one.  over: host int32
-// [n_over].  accp may be null (no union).  Returns 0, a cudaError_t, or
-// -1 for an argument the kernels cannot take.
+// [n_over].  accp may be null (no union).  gate: null, or a device
+// int64 word: the gather (hop_gather_gated_kernel, 4-byte rows only)
+// and the merge then return at once unless it holds `want` (the
+// adaptive program's dense arm, sparse_go.cu ad_program).  Returns 0, a
+// cudaError_t, or -1 for an argument the kernels cannot take.
 int ell_go_hop(const void* fp, void* accp, void* out, const void* nbr,
                const void* et, const int64_t* plan, int n_buckets,
                int64_t blocks, int lgc, int wide, const void* eslot,
                const void* hrows, int64_t n_extras, const int32_t* over,
                int n_over, int64_t n, int64_t n_rows, int64_t W,
-               void* stream) {
+               const void* gate, int64_t want, void* stream) {
     if (W <= 0 || W % 4 != 0 || n_rows < 0) return -1;
     const uintptr_t rows_at = (uintptr_t)fp | (uintptr_t)out |
                               (uintptr_t)accp;
@@ -564,7 +608,22 @@ int ell_go_hop(const void* fp, void* accp, void* out, const void* nbr,
     const int C = (int)(wide ? W / 16 : W / 4);
     const int32_t* nb = (const int32_t*)nbr;
     const int32_t* ev = (const int32_t*)et;
-    if (wide && quads && lgc >= 3)
+    const long long* g = (const long long*)gate;
+    if (g != nullptr) {
+        if (wide) return -1;
+        const long long most = (long long)sm_count() * (2048 / kThreads);
+        if (most == 0) return (int)cudaErrorInvalidDevice;
+        const unsigned gg = (unsigned)(blocks < most ? blocks : most);
+        if (quads)
+            hop_gather_gated_kernel<uint32_t, true><<<gg, kThreads, 0, s>>>(
+                (const uint32_t*)fp, (uint32_t*)out, (uint32_t*)accp, nb, ev,
+                pl, ov, n_rows, C, lgc, (int)blocks, g, want);
+        else
+            hop_gather_gated_kernel<uint32_t, false><<<gg, kThreads, 0,
+                                                       s>>>(
+                (const uint32_t*)fp, (uint32_t*)out, (uint32_t*)accp, nb, ev,
+                pl, ov, n_rows, C, lgc, (int)blocks, g, want);
+    } else if (wide && quads && lgc >= 3)
         hop_gather_kernel<uint4, true, 7><<<grid, kThreads, 0, s>>>(
             (const uint4*)fp, (uint4*)out, (uint4*)accp, nb, ev, pl, ov,
             n_rows, C, lgc);
@@ -589,7 +648,7 @@ int ell_go_hop(const void* fp, void* accp, void* out, const void* nbr,
     const int W4 = (int)(W / 4);
     hop_merge_kernel<<<grid_for(n_extras * W4), kThreads, 0, s>>>(
         (uint32_t*)out, (uint32_t*)accp, (const int32_t*)eslot,
-        (const int32_t*)hrows, n, n_rows, n_extras, W4);
+        (const int32_t*)hrows, n, n_rows, n_extras, W4, g, want);
     return (int)cudaGetLastError();
 }
 

@@ -45,11 +45,25 @@
 // mesh_dedup and sg_emit entries), K5 with each shard's row base and
 // clearing the exchange blocks the mesh's hop consumed.
 //
+// Each program is one checked C call (sg_program, ad_program) that
+// enqueues all of its launches: the per-call work on the host is one
+// ctypes call, and the host never waits on the card.  sg_program runs
+// ell.py:1222's program on a workspace the caller allocates once a call
+// (ctl, the mark bitmap, the UPTO union, K5's block sums, LIMIT's
+// scratch, two pair buffers), cleared by one memset.  ad_program runs
+// every hop of ell.py:1493's program with the mode chosen on the card,
+// as the reference's lax.cond chooses it: K7 writes the hop's mode word
+// into ctl, and every kernel of the sparse arm (K4, K5's three) and of
+// the dense arm (the layout change to and from lanes, ell_lanes.cu's
+// hop and merge) reads that word and returns at once when the hop is
+// not its arm's (its blocks still launch: the gated grid-stride kernels,
+// the layout change and the hop's gather, take a grid of a few blocks an
+// SM, so a hop of the other arm costs the card about a microsecond a
+// launch and the host nothing).
+//
 // Every kernel runs on the caller's stream, allocates nothing and does
 // not synchronise; each entry point returns cudaGetLastError() after its
 // launches (0 = launched, -1 = an argument the kernels cannot take).
-// The adaptive program's host reads K7's mode word before each sparse
-// hop and launches only the arm it names.
 // Bound on this card: bytes — K4 the live pairs' slot rows (8 bytes per
 // slot) and their bitmap words, K5 the bitmap words read (and zeroed)
 // plus the pairs written, K6 the pair list and the degrees it reads.
@@ -57,14 +71,51 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm_count.cuh"
+
+constexpr int kSgBuckets = 32;                // ell_ops.MAX_BUCKETS
+constexpr int kSgOver = 32;                   // ell_ops.MAX_OVER
+
+// The sparse programs' tables, by value (ell_ops._sparse_desc, made once
+// a table generation and OVER set): the slot tables, the hub expansion
+// (ecnt / e0, null without hub extra rows), the buckets' (row0, slot0,
+// D), the negated OVER set (the push direction), and the geometry.  At
+// global scope: the extern "C" entries take it by value.
+struct SparseTables {
+    const int32_t* nbr;
+    const int32_t* et;
+    const int32_t* ecnt;
+    const int32_t* e0;
+    long long row0[kSgBuckets];
+    long long slot0[kSgBuckets];
+    int D[kSgBuckets];
+    int n_buckets;
+    int neg[kSgOver];
+    int n_neg;
+    long long n;
+    long long n_rows;
+    long long R1w;
+};
+
+// csrc/ell_lanes.cu: the packed hop (gather and hub merge), here the
+// adaptive program's dense arm, gated on its mode word.
+extern "C" int ell_go_hop(const void* fp, void* accp, void* out,
+                          const void* nbr, const void* et,
+                          const int64_t* plan, int n_buckets,
+                          int64_t blocks, int lgc, int wide,
+                          const void* eslot, const void* hrows,
+                          int64_t n_extras, const int32_t* over, int n_over,
+                          int64_t n, int64_t n_rows, int64_t W,
+                          const void* gate, int64_t want, void* stream);
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 1024;            // single-block scans
 constexpr int kRounds = 8;                    // K5: words per thread
 constexpr long long kChunk = (long long)kThreads * kRounds;
-constexpr int kMaxBuckets = 32;
-constexpr int kMaxOver = 32;
+constexpr int kMaxBuckets = kSgBuckets;
+constexpr int kMaxOver = kSgOver;
 constexpr int kCardShards = 16;               // members of one launch
 constexpr int kClearSlabs = 4;                // K5's exchange slabs
 constexpr int32_t kBigQ = 1 << 30;            // ell.py BIG_Q
@@ -78,6 +129,17 @@ constexpr int kHubBig = 3;    // this hop saw a clamped per-pair count
 constexpr int kMode = 4;      // adaptive: 1 sparse arm, 2 dense arm
 constexpr int kXBytes = 4;    // frontier-sharded mesh: bytes exchanged
 constexpr int kSparse = 5;    // adaptive: sticky "may stay sparse"
+constexpr int kConv = 6;      // adaptive: this hop is the first dense one
+constexpr int kModeSparse = 1, kModeDense = 2;
+
+// A kernel of one arm of the adaptive program runs only while the
+// program's mode word says so: gate null (every other caller) or *gate
+// == want.  Every thread reads the word before anything else, so a
+// block returns whole.
+__device__ __forceinline__ bool gated_off(const long long* gate,
+                                          long long want) {
+    return gate != nullptr && *gate != want;
+}
 
 struct Buckets {
     long long row0[kMaxBuckets];
@@ -95,6 +157,14 @@ inline unsigned blocks_for(long long threads, int per_block) {
     long long b = (threads + per_block - 1) / per_block;
     if (b > (1LL << 30)) b = 1LL << 30;
     return (unsigned)(b < 1 ? 1 : b);
+}
+
+// A gated grid-stride launch's grid: at most two blocks an SM, so that
+// the launch costs the card little on the hops it does not run; 0 when
+// the device cannot be queried.
+inline unsigned gated_blocks(unsigned blocks) {
+    const unsigned most = 2u * (unsigned)sm_count();
+    return blocks < most ? blocks : most;
 }
 
 // Exclusive scan of this block's per-thread values (blockDim a multiple
@@ -161,7 +231,10 @@ __global__ void sparse_expand_kernel(const int32_t* __restrict__ ids,
                                      long long n_rows, long long R1w,
                                      uint32_t* __restrict__ mark,
                                      long long* __restrict__ ctl,
-                                     long long c_lim, int self_mode) {
+                                     long long c_lim, int self_mode,
+                                     const long long* __restrict__ gate,
+                                     long long want) {
+    if (gated_off(gate, want)) return;
     const int lane = threadIdx.x & 31;
     const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
     for (long long p = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
@@ -232,7 +305,10 @@ struct CardCompact {
 // Pass 1: popcount of each block's kChunk words -> boff[block].
 __global__ void pair_count_kernel(const uint32_t* __restrict__ mark,
                                   long long words, long long nb,
-                                  unsigned long long* __restrict__ boff) {
+                                  unsigned long long* __restrict__ boff,
+                                  const long long* __restrict__ gate,
+                                  long long want) {
+    if (gated_off(gate, want)) return;
     mark += blockIdx.y * words;
     boff += blockIdx.y * nb;
     const long long w0 = (long long)blockIdx.x * kChunk;
@@ -273,7 +349,10 @@ __device__ long long scan_inplace(unsigned long long* vals, long long n) {
 __global__ void pair_scan_kernel(unsigned long long* __restrict__ boff,
                                  long long nb, long long c_out,
                                  long long ex, long long* __restrict__ ctl,
-                                 CardCompact cc) {
+                                 CardCompact cc,
+                                 const long long* __restrict__ gate,
+                                 long long want) {
+    if (gated_off(gate, want)) return;
     const int y = (int)blockIdx.y;
     boff += y * nb;
     ctl += y * kCtlWords;
@@ -323,7 +402,10 @@ __global__ void pair_compact_kernel(uint32_t* __restrict__ mark,
                                     uint32_t* __restrict__ uni,
                                     uint32_t* __restrict__ copy_to,
                                     int zero, long long n_rows,
-                                    CardCompact cc) {
+                                    CardCompact cc,
+                                    const long long* __restrict__ gate,
+                                    long long want) {
+    if (gated_off(gate, want)) return;
     const int y = (int)blockIdx.y;
     const long long row_base = cc.base[y];
     mark += y * words;
@@ -547,15 +629,34 @@ __global__ void limit_write_kernel(const int32_t* __restrict__ ids,
 }
 
 // ---------------------------------------------------------------- K7
+// The adaptive program's start (one launch): the frontier list fr [K] =
+// the starts, padded with n_rows, and the sticky "may stay sparse" word
+// set (the reference's cnt0 <= K: the caller passes at most K starts).
+__global__ void adaptive_init_kernel(const int32_t* __restrict__ starts,
+                                     long long S, int32_t* __restrict__ fr,
+                                     long long K, long long n_rows,
+                                     long long* __restrict__ ctl) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t0 == 0) ctl[kSparse] = 1;
+    for (long long i = t0; i < K; i += stride)
+        fr[i] = i < S ? starts[i] : (int32_t)n_rows;
+}
+
 // Before each adaptive hop (one block): a sparse previous hop whose
 // unique count passed K ends the sparse mode for good; the sparse arm
-// runs this hop only while the mode holds and no vertex of the
-// frontier list is a hub (hub[min(v, n)], the list padded with n_rows).
+// runs this hop only while the mode holds and no vertex of the frontier
+// list is a hub (hub[min(v, n)], the list padded with n_rows).  kConv
+// is 1 exactly at the hop where the mode first turns dense: the one
+// whose layout change to lanes runs; that hop also adds one to *dense
+// (null: no tally), so a tally read after many calls counts the calls
+// that ran a dense hop.
 __global__ void adaptive_switch_kernel(const int32_t* __restrict__ fr,
                                        long long K,
                                        const uint8_t* __restrict__ hub,
                                        long long n, long long n_rows,
-                                       long long* __restrict__ ctl) {
+                                       long long* __restrict__ ctl,
+                                       unsigned long long* dense) {
     int hit = 0;
     for (long long i = threadIdx.x; i < K; i += blockDim.x) {
         const long long v = fr[i];
@@ -564,20 +665,27 @@ __global__ void adaptive_switch_kernel(const int32_t* __restrict__ fr,
     hit = __syncthreads_or(hit);
     if (threadIdx.x == 0) {
         long long sparse = ctl[kSparse];
-        if (ctl[kMode] == 1 && ctl[kCnt] > K) sparse = 0;
+        const long long was = ctl[kMode];
+        if (was == kModeSparse && ctl[kCnt] > K) sparse = 0;
         const bool take_sparse = sparse != 0 && !hit;
-        ctl[kMode] = take_sparse ? 1 : 2;
+        ctl[kMode] = take_sparse ? kModeSparse : kModeDense;
         ctl[kSparse] = take_sparse ? 1 : 0;
+        const bool conv = !take_sparse && was != kModeDense;
+        ctl[kConv] = conv;
+        if (conv && dense != nullptr) atomicAdd(dense, 1ull);
     }
 }
 
 // The dense arm's layout change: to_lanes writes lane[r] = bit r
 // of the state bitmap (lane 0 of a [R1, 4]-byte frontier, one 32-bit
 // word per row, little-endian); from_lanes rebuilds the bitmap from bit
-// 0 of each row's word.
+// 0 of each row's word.  Gated as the arms' kernels are.
 __global__ void bitmap_to_lanes_kernel(const uint32_t* __restrict__ bits,
                                        uint32_t* __restrict__ lanes,
-                                       long long R1) {
+                                       long long R1,
+                                       const long long* __restrict__ gate,
+                                       long long want) {
+    if (gated_off(gate, want)) return;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          r < R1; r += stride)
@@ -586,7 +694,10 @@ __global__ void bitmap_to_lanes_kernel(const uint32_t* __restrict__ bits,
 
 __global__ void bitmap_from_lanes_kernel(const uint32_t* __restrict__ lanes,
                                          uint32_t* __restrict__ bits,
-                                         long long R1, long long R1w) {
+                                         long long R1, long long R1w,
+                                         const long long* __restrict__ gate,
+                                         long long want) {
+    if (gated_off(gate, want)) return;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          w < R1w; w += stride) {
@@ -599,9 +710,41 @@ __global__ void bitmap_from_lanes_kernel(const uint32_t* __restrict__ lanes,
     }
 }
 
+// sg_program's plan (ell_ops._sparse_plan owns it): the head words, then
+// (c_out, ex, c_lim) per hop.  Offsets count int32 words of the
+// workspace; ctl is its first 16 (int64 [8]); [0, zero) is cleared.
+enum SparsePlan {
+    kPHops, kPNq, kPQmax, kPUpto, kPOp, kPLimit, kPCFin, kPCRed, kPPack,
+    kPCMax, kPMark, kPUni, kPBoff, kPScratch, kPBufs, kPZero, kPWords,
+    kPHead
+};
+
+// ad_program's plan (ell_ops._adaptive_plan), the same way.
+enum AdaptivePlan {
+    kAHops, kAK, kAState, kACand, kAFr, kABoff, kALanes, kAZero, kAWords,
+    kAHead
+};
+
 }  // namespace
 
 extern "C" {
+
+// K4 over one pair list.
+static int expand_launch(const int32_t* ids, const int32_t* qid,
+                         int64_t c_in, const int32_t* ecnt,
+                         const int32_t* e0, const int32_t* nbr,
+                         const int32_t* et, const Buckets& bk,
+                         const OverSet& ov, int64_t n, int64_t n_rows,
+                         int64_t R1w, uint32_t* mark, long long* ctl,
+                         int64_t c_lim, int self_mode, const long long* gate,
+                         long long want, cudaStream_t s) {
+    if (c_in == 0) return 0;
+    sparse_expand_kernel<<<blocks_for(c_in * 32, kThreads), kThreads, 0,
+                           s>>>(ids, qid, c_in, ecnt, e0, nbr, et, bk, ov,
+                                n, n_rows, R1w, mark, ctl, c_lim, self_mode,
+                                gate, want);
+    return (int)cudaGetLastError();
+}
 
 // K4.  bucket_desc: host int64 [n_buckets * 3] (row0, slot0, D); neg:
 // host int32 [n_neg], the negated OVER set.  ecnt / e0 null: no hub
@@ -615,7 +758,6 @@ int sg_expand(const void* ids, const void* qid, int64_t c_in,
     if (n_buckets < 1 || n_buckets > kMaxBuckets || n_neg < 0 ||
         n_neg > kMaxOver || c_in < 0 || R1w <= 0)
         return -1;
-    if (c_in == 0) return 0;
     Buckets bk;
     bk.n = n_buckets;
     for (int b = 0; b < n_buckets; ++b) {
@@ -626,13 +768,12 @@ int sg_expand(const void* ids, const void* qid, int64_t c_in,
     OverSet ov;
     ov.n = n_neg;
     for (int k = 0; k < n_neg; ++k) ov.et[k] = neg[k];
-    sparse_expand_kernel<<<blocks_for(c_in * 32, kThreads), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        (const int32_t*)ids, (const int32_t*)qid, c_in,
-        (const int32_t*)ecnt, (const int32_t*)e0, (const int32_t*)nbr,
-        (const int32_t*)et, bk, ov, n, n_rows, R1w, (uint32_t*)mark,
-        (long long*)ctl, c_lim, self_mode);
-    return (int)cudaGetLastError();
+    return expand_launch((const int32_t*)ids, (const int32_t*)qid, c_in,
+                         (const int32_t*)ecnt, (const int32_t*)e0,
+                         (const int32_t*)nbr, (const int32_t*)et, bk, ov, n,
+                         n_rows, R1w, (uint32_t*)mark, (long long*)ctl,
+                         c_lim, self_mode, nullptr, 0,
+                         (cudaStream_t)stream);
 }
 
 // K5.  boff: uint64 scratch of sg_compact_blocks(words) entries.
@@ -644,13 +785,16 @@ int64_t sg_compact_blocks(int64_t words) {
 
 // K5 for the members of one launch (cc: their row bases and the
 // exchange blocks to clear; one member and nothing to clear on one
-// card); boff: members * sg_compact_blocks(words) entries.
+// card); boff: members * sg_compact_blocks(words) entries; gate / want:
+// the adaptive arm's mode word (null: always run).
 static int compact_launch(void* mark, int64_t words, int64_t R1w,
                           int64_t c_out, void* ids_out, void* qid_out,
                           int64_t ids_stride, void* boff, void* ctl,
                           int64_t ex, void* uni, void* copy_to, int zero,
                           int64_t n_rows, int members,
-                          const CardCompact& cc, cudaStream_t s) {
+                          const CardCompact& cc, cudaStream_t s,
+                          const long long* gate = nullptr,
+                          long long want = 0) {
     if (words <= 0 || R1w <= 0 || c_out <= 0 || members < 1 ||
         members > kCardShards)
         return -1;
@@ -658,18 +802,20 @@ static int compact_launch(void* mark, int64_t words, int64_t R1w,
     if (nb > (1LL << 30)) return -1;
     const dim3 grid((unsigned)nb, (unsigned)members);
     pair_count_kernel<<<grid, kThreads, 0, s>>>(
-        (const uint32_t*)mark, words, nb, (unsigned long long*)boff);
+        (const uint32_t*)mark, words, nb, (unsigned long long*)boff, gate,
+        want);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     pair_scan_kernel<<<dim3(1, (unsigned)members), kScanThreads, 0, s>>>(
-        (unsigned long long*)boff, nb, c_out, ex, (long long*)ctl, cc);
+        (unsigned long long*)boff, nb, c_out, ex, (long long*)ctl, cc, gate,
+        want);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     pair_compact_kernel<<<grid, kThreads, 0, s>>>(
         (uint32_t*)mark, words, R1w, c_out, (int32_t*)ids_out,
         (int32_t*)qid_out, ids_stride, (const unsigned long long*)boff, nb,
         (const long long*)ctl, (uint32_t*)uni, (uint32_t*)copy_to, zero,
-        n_rows, cc);
+        n_rows, cc, gate, want);
     return (int)cudaGetLastError();
 }
 
@@ -733,72 +879,322 @@ int sg_emit(const void* ids, const void* qid, int64_t c, void* out,
 // K6.  op 0: the plain layout of the c-pair list; 1: COUNT into
 // out[2 .. 2 + qmax) (zero before); 2: LIMIT cut compacted to c_red
 // (scratch: uint64 [nq]).  out[0..1] get (count, overflow) from ctl.
-int sg_reduce(int op, const void* ids, const void* qid, int64_t c,
-              const void* deg, void* out, int pack32, int64_t R1,
-              int64_t n_rows, int64_t nq, int64_t qmax, int64_t limit,
-              int64_t c_red, void* scratch, void* ctl, void* stream) {
+static int reduce_launch(int op, const int32_t* ids, const int32_t* qid,
+                         int64_t c, const int32_t* deg, int32_t* out,
+                         int pack32, int64_t R1, int64_t n_rows, int64_t nq,
+                         int64_t qmax, int64_t limit, int64_t c_red,
+                         unsigned long long* scratch, long long* ctl,
+                         cudaStream_t s) {
     if (c <= 0 || R1 <= 0) return -1;
-    cudaStream_t s = (cudaStream_t)stream;
     if (op == 0) {
         pair_emit_kernel<<<blocks_for(c, kThreads), kThreads, 0, s>>>(
-            (const int32_t*)ids, (const int32_t*)qid, c, (int32_t*)out, 0,
-            pack32, R1, n_rows, (const long long*)ctl);
+            ids, qid, c, out, 0, pack32, R1, n_rows, ctl);
         return (int)cudaGetLastError();
     }
     if (op == 1) {
-        if (qmax <= 0) return -1;
+        if (qmax <= 0 || deg == nullptr) return -1;
         pair_count_fold_kernel<<<blocks_for(c, kThreads), kThreads, 0,
-                                 s>>>(
-            (const int32_t*)ids, (const int32_t*)qid, c,
-            (const int32_t*)deg, (int32_t*)out, qmax,
-            (const long long*)ctl);
+                                 s>>>(ids, qid, c, deg, out, qmax, ctl);
         return (int)cudaGetLastError();
     }
-    if (op != 2 || nq <= 0 || c_red <= 0 || limit < 0) return -1;
+    if (op != 2 || nq <= 0 || c_red <= 0 || limit < 0 || deg == nullptr)
+        return -1;
     const unsigned warp_blocks = blocks_for(nq * 32, kThreads);
     limit_count_kernel<<<warp_blocks, kThreads, 0, s>>>(
-        (const int32_t*)ids, (const int32_t*)qid, c, (const int32_t*)deg,
-        nq, limit, (unsigned long long*)scratch);
+        ids, qid, c, deg, nq, limit, scratch);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    limit_scan_kernel<<<1, kScanThreads, 0, s>>>(
-        (unsigned long long*)scratch, nq, c_red, (long long*)ctl);
+    limit_scan_kernel<<<1, kScanThreads, 0, s>>>(scratch, nq, c_red, ctl);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const long long pad_threads = c_red > nq * 32 ? c_red : nq * 32;
     limit_write_kernel<<<blocks_for(pad_threads, kThreads), kThreads, 0,
-                         s>>>(
-        (const int32_t*)ids, (const int32_t*)qid, c, (const int32_t*)deg,
-        nq, limit, (const unsigned long long*)scratch, (int32_t*)out,
-        pack32, c_red, R1, n_rows, (const long long*)ctl);
+                         s>>>(ids, qid, c, deg, nq, limit, scratch, out,
+                              pack32, c_red, R1, n_rows, ctl);
     return (int)cudaGetLastError();
 }
 
-// K7.  hub: uint8 [n + 1]; fr: int32 [K] padded with n_rows.
+int sg_reduce(int op, const void* ids, const void* qid, int64_t c,
+              const void* deg, void* out, int pack32, int64_t R1,
+              int64_t n_rows, int64_t nq, int64_t qmax, int64_t limit,
+              int64_t c_red, void* scratch, void* ctl, void* stream) {
+    return reduce_launch(op, (const int32_t*)ids, (const int32_t*)qid, c,
+                         (const int32_t*)deg, (int32_t*)out, pack32, R1,
+                         n_rows, nq, qmax, limit, c_red,
+                         (unsigned long long*)scratch, (long long*)ctl,
+                         (cudaStream_t)stream);
+}
+
+// The tables' buckets and negated OVER set as the kernels take them;
+// false when a count is out of range.
+static bool read_tables(const SparseTables& t, Buckets* bk, OverSet* ov) {
+    if (t.n_buckets < 1 || t.n_buckets > kMaxBuckets || t.n_neg < 1 ||
+        t.n_neg > kMaxOver || t.n < 0 || t.n_rows < t.n ||
+        t.R1w != (t.n_rows + 32) / 32 || t.nbr == nullptr ||
+        t.et == nullptr)
+        return false;
+    bk->n = t.n_buckets;
+    for (int b = 0; b < t.n_buckets; ++b) {
+        bk->row0[b] = t.row0[b];
+        bk->slot0[b] = t.slot0[b];
+        bk->D[b] = t.D[b];
+    }
+    ov->n = t.n_neg;
+    for (int k = 0; k < t.n_neg; ++k) ov->et[k] = t.neg[k];
+    return true;
+}
+
+// true when [at, at + len) lies in [lo, hi)
+static bool inside(int64_t at, int64_t len, int64_t lo, int64_t hi) {
+    return len >= 0 && at >= lo && at + len <= hi;
+}
+
+// The sparse GO program (ell.py:1222 make_batched_sparse_go_kernel, the
+// order of ell_ops._sparse_go_steps): one memset of the workspace's
+// [0, zero) words (ctl, the mark bitmap, the UPTO union); with UPTO the
+// starts' self-mark into the union; per hop K4 then K5 (count, scan,
+// compact) into the next pair buffer, the union ORed; with UPTO the
+// union's compaction to the final cap; then K6 in the asked form into
+// out (COUNT zeroes out first: its fold adds).  ids / qid: int32 [c0]
+// starts; deg: int32 [n_rows + 1] (COUNT and LIMIT); plan: host int64
+// [n_plan]; ws: int32 [plan[kPWords]]; out: int32 [out_words].
+// launched: host int32 [3], the K4, K5 and K6 calls made (each K5 call
+// three launches, a LIMIT K6 three), written however the call ends.
+// Returns 0, a cudaError_t, or -1 for an argument the kernels cannot
+// take.
+int sg_program(SparseTables t, const void* ids, const void* qid,
+               int64_t c0, const void* deg, const int64_t* plan,
+               int n_plan, void* ws, void* out, int64_t out_words,
+               void* stream, int32_t* launched) {
+    launched[0] = launched[1] = launched[2] = 0;
+    Buckets bk;
+    OverSet ov;
+    if (n_plan < kPHead || !read_tables(t, &bk, &ov)) return -1;
+    const long long hops = plan[kPHops], nq = plan[kPNq];
+    const long long qmax = plan[kPQmax], op = plan[kPOp];
+    const long long c_fin = plan[kPCFin], c_red = plan[kPCRed];
+    const long long cmax = plan[kPCMax], total = plan[kPWords];
+    const int upto = (int)plan[kPUpto], pack32 = (int)plan[kPPack];
+    const long long R1 = t.n_rows + 1, words = nq * t.R1w;
+    if (hops < 1 || n_plan != kPHead + 3 * hops || nq < 1 || nq > qmax ||
+        c0 < 1 || op < 0 || op > 2 || cmax < 1 || c_fin < 1 ||
+        (op != 0 && deg == nullptr))
+        return -1;
+    const long long width = op == 1 ? qmax : op == 2 ? c_red : c_fin;
+    const long long want_out = 2 + (op != 1 && !pack32 ? 2 : 1) * width;
+    if (width < 1 || out_words != want_out) return -1;
+    const long long nb = sg_compact_blocks(words);
+    if (plan[kPMark] != 16 || plan[kPZero] < 16 + words * (upto ? 2 : 1) ||
+        !inside(plan[kPMark], words, 16, plan[kPZero]) ||
+        (upto && !inside(plan[kPUni], words, 16, plan[kPZero])) ||
+        plan[kPBoff] % 2 || !inside(plan[kPBoff], 2 * nb, plan[kPZero],
+                                    total) ||
+        plan[kPScratch] % 2 ||
+        !inside(plan[kPScratch], op == 2 ? 2 * nq : 0, plan[kPZero],
+                total) ||
+        !inside(plan[kPBufs], 4 * cmax, plan[kPZero], total))
+        return -1;
+    for (long long h = 0; h < hops; ++h) {
+        const int64_t* hp = plan + kPHead + 3 * h;
+        if (hp[0] < 1 || hp[0] > cmax) return -1;
+    }
+    if (upto && c_fin > cmax) return -1;
+    cudaStream_t s = (cudaStream_t)stream;
+    int32_t* w = (int32_t*)ws;
+    long long* ctl = (long long*)w;
+    uint32_t* mark = (uint32_t*)(w + plan[kPMark]);
+    uint32_t* uni = upto ? (uint32_t*)(w + plan[kPUni]) : nullptr;
+    void* boff = w + plan[kPBoff];
+    int32_t* bufs = w + plan[kPBufs];
+    const bool hubs = t.ecnt != nullptr && t.e0 != nullptr &&
+                      t.n_rows > t.n;
+    const CardCompact one = {};
+    cudaError_t err = cudaMemsetAsync(ws, 0, (size_t)plan[kPZero] * 4, s);
+    if (err != cudaSuccess) return (int)err;
+    int rc = 0;
+    if (upto) {
+        rc = expand_launch((const int32_t*)ids, (const int32_t*)qid, c0,
+                           nullptr, nullptr, t.nbr, t.et, bk, ov, t.n,
+                           t.n_rows, t.R1w, uni, ctl, 0, 1, nullptr, 0, s);
+        if (rc != 0) return rc;
+        ++launched[0];
+    }
+    const int32_t* cur_i = (const int32_t*)ids;
+    const int32_t* cur_q = (const int32_t*)qid;
+    long long c_in = c0;
+    for (long long h = 0; h < hops; ++h) {
+        const int64_t* hp = plan + kPHead + 3 * h;    // c_out, ex, c_lim
+        rc = expand_launch(cur_i, cur_q, c_in, hubs ? t.ecnt : nullptr,
+                           hubs ? t.e0 : nullptr, t.nbr, t.et, bk, ov, t.n,
+                           t.n_rows, t.R1w, mark, ctl, hp[2], 0, nullptr, 0,
+                           s);
+        if (rc != 0) return rc;
+        ++launched[0];
+        int32_t* nxt_i = bufs + (h % 2) * 2 * cmax;
+        rc = compact_launch(mark, words, t.R1w, hp[0], nxt_i, nxt_i + cmax,
+                            0, boff, ctl, hp[1], uni, nullptr, 1, t.n_rows,
+                            1, one, s);
+        if (rc != 0) return rc;
+        ++launched[1];
+        cur_i = nxt_i;
+        cur_q = nxt_i + cmax;
+        c_in = hp[0];
+    }
+    if (upto) {
+        int32_t* fin_i = bufs + (hops % 2) * 2 * cmax;
+        rc = compact_launch(uni, words, t.R1w, c_fin, fin_i, fin_i + cmax,
+                            0, boff, ctl, -1, nullptr, nullptr, 0,
+                            t.n_rows, 1, one, s);
+        if (rc != 0) return rc;
+        ++launched[1];
+        cur_i = fin_i;
+        cur_q = fin_i + cmax;
+        c_in = c_fin;
+    }
+    if (op == 1) {
+        err = cudaMemsetAsync(out, 0, (size_t)out_words * 4, s);
+        if (err != cudaSuccess) return (int)err;
+    }
+    rc = reduce_launch((int)op, cur_i, cur_q, c_in, (const int32_t*)deg,
+                       (int32_t*)out, pack32, R1, t.n_rows, nq, qmax,
+                       plan[kPLimit], c_red,
+                       (unsigned long long*)(w + plan[kPScratch]), ctl, s);
+    if (rc != 0) return rc;
+    ++launched[2];
+    return 0;
+}
+
+// K7.  hub: uint8 [n + 1]; fr: int32 [K] padded with n_rows; dense:
+// null, or a device int64 tally of the calls that turned dense.
 int ad_switch(const void* fr, int64_t K, const void* hub, int64_t n,
-              int64_t n_rows, void* ctl, void* stream) {
+              int64_t n_rows, void* ctl, void* dense, void* stream) {
     if (K <= 0 || n < 0) return -1;
     adaptive_switch_kernel<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)fr, K, (const uint8_t*)hub, n, n_rows,
-        (long long*)ctl);
+        (long long*)ctl, (unsigned long long*)dense);
+    return (int)cudaGetLastError();
+}
+
+// The layout change (gate null: always; else only while *gate == want,
+// on a grid of gated_blocks).
+static int lanes_launch(int to_lanes, uint32_t* bits, uint32_t* lanes,
+                        int64_t R1, const long long* gate, long long want,
+                        cudaStream_t s) {
+    if (R1 <= 0) return -1;
+    const long long R1w = (R1 + 31) / 32;
+    unsigned grid = blocks_for(to_lanes ? R1 : R1w, kThreads);
+    if (gate != nullptr && (grid = gated_blocks(grid)) == 0)
+        return (int)cudaErrorInvalidDevice;
+    if (to_lanes)
+        bitmap_to_lanes_kernel<<<grid, kThreads, 0, s>>>(bits, lanes, R1,
+                                                         gate, want);
+    else
+        bitmap_from_lanes_kernel<<<grid, kThreads, 0, s>>>(lanes, bits, R1,
+                                                           R1w, gate, want);
     return (int)cudaGetLastError();
 }
 
 // to_lanes 1: bits (uint32 [R1w]) -> lanes (uint32 [R1]); 0: back.
 int ad_bitmap_lanes(int to_lanes, void* bits, void* lanes, int64_t R1,
                     void* stream) {
-    if (R1 <= 0) return -1;
-    const long long R1w = (R1 + 31) / 32;
+    return lanes_launch(to_lanes, (uint32_t*)bits, (uint32_t*)lanes, R1,
+                        nullptr, 0, (cudaStream_t)stream);
+}
+
+// The adaptive single-query GO (ell.py:1493 make_adaptive_go_kernel, the
+// order of ell_ops._adaptive_steps), every hop enqueued with its mode
+// chosen on the card: one memset of the workspace's [0, zero) words
+// (ctl, the state bitmap, the candidate bitmap); the frontier list from
+// the starts and the state's self-mark; then per hop K7, the layout
+// change to lanes (only at the hop where the mode first turns dense),
+// the sparse arm (K4 and K5: the list pushed, the candidates compacted
+// to K ids, the state replaced by every candidate) and the dense arm
+// (ell_lanes.cu's hop and hub merge on lane 0, lanes[h % 2] ->
+// lanes[(h + 1) % 2]), each arm's kernels returning at once on the
+// other arm's hops; last the layout change back into the state (only
+// when a dense hop ran).  starts: int32 [S <= K]; hub: uint8 [n + 1];
+// aplan: host int64 [kAHead]; hop_plan / blocks / lgc: ell_ops._hop_desc
+// at W = 4 (4-byte columns); over: host int32 [n_over], the OVER set;
+// eslot / hrows: the hub merge's arrays; dense: null, or a device int64
+// tally to which K7 adds one when the call turns dense.  launched: host
+// int32 [5], the K4, K5, K7, layout-change and hop calls made (the gated
+// ones included), written however the call ends.
+int ad_program(SparseTables t, const void* starts, int64_t S,
+               const void* hub, const int64_t* aplan,
+               const int64_t* hop_plan, int64_t blocks, int lgc,
+               const int32_t* over, int n_over, const void* eslot,
+               const void* hrows, void* dense, void* ws, void* stream,
+               int32_t* launched) {
+    for (int k = 0; k < 5; ++k) launched[k] = 0;
+    Buckets bk;
+    OverSet ov;
+    if (!read_tables(t, &bk, &ov)) return -1;
+    const long long hops = aplan[kAHops], K = aplan[kAK];
+    const long long R1 = t.n_rows + 1, R1w = t.R1w;
+    const long long total = aplan[kAWords], zero = aplan[kAZero];
+    const long long nb = sg_compact_blocks(R1w);
+    if (hops < 0 || K < 1 || S < 0 || S > K || aplan[kAState] != 16 ||
+        !inside(aplan[kAState], R1w, 16, zero) ||
+        !inside(aplan[kACand], R1w, 16, zero) ||
+        !inside(aplan[kAFr], K, zero, total) || aplan[kABoff] % 2 ||
+        !inside(aplan[kABoff], 2 * nb, zero, total) ||
+        !inside(aplan[kALanes], 2 * R1, zero, total))
+        return -1;
     cudaStream_t s = (cudaStream_t)stream;
-    if (to_lanes)
-        bitmap_to_lanes_kernel<<<blocks_for(R1, kThreads), kThreads, 0,
-                                 s>>>(
-            (const uint32_t*)bits, (uint32_t*)lanes, R1);
-    else
-        bitmap_from_lanes_kernel<<<blocks_for(R1w, kThreads), kThreads, 0,
-                                   s>>>(
-            (const uint32_t*)lanes, (uint32_t*)bits, R1, R1w);
-    return (int)cudaGetLastError();
+    int32_t* w = (int32_t*)ws;
+    long long* ctl = (long long*)w;
+    uint32_t* state = (uint32_t*)(w + aplan[kAState]);
+    uint32_t* cand = (uint32_t*)(w + aplan[kACand]);
+    int32_t* fr = w + aplan[kAFr];
+    void* boff = w + aplan[kABoff];
+    uint32_t* lanes = (uint32_t*)(w + aplan[kALanes]);
+    const long long* mode = ctl + kMode;
+    const CardCompact one = {};
+    cudaError_t err = cudaMemsetAsync(ws, 0, (size_t)zero * 4, s);
+    if (err != cudaSuccess) return (int)err;
+    adaptive_init_kernel<<<blocks_for(K, kThreads), kThreads, 0, s>>>(
+        (const int32_t*)starts, S, fr, K, t.n_rows, ctl);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    int rc = expand_launch(fr, nullptr, K, nullptr, nullptr, t.nbr, t.et,
+                           bk, ov, t.n, t.n_rows, R1w, state, ctl, 0, 1,
+                           nullptr, 0, s);
+    if (rc != 0) return rc;
+    ++launched[0];
+    for (long long h = 0; h < hops; ++h) {
+        uint32_t* f_in = lanes + (h % 2) * R1;
+        uint32_t* f_out = lanes + ((h + 1) % 2) * R1;
+        adaptive_switch_kernel<<<1, kScanThreads, 0, s>>>(
+            fr, K, (const uint8_t*)hub, t.n, t.n_rows, ctl,
+            (unsigned long long*)dense);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+        ++launched[2];
+        rc = lanes_launch(1, state, f_in, R1, ctl + kConv, 1, s);
+        if (rc != 0) return rc;
+        ++launched[3];
+        rc = expand_launch(fr, nullptr, K, nullptr, nullptr, t.nbr, t.et,
+                           bk, ov, t.n, t.n_rows, R1w, cand, ctl, 0, 0,
+                           mode, kModeSparse, s);
+        if (rc != 0) return rc;
+        ++launched[0];
+        rc = compact_launch(cand, R1w, R1w, K, fr, nullptr, 0, boff, ctl,
+                            -1, nullptr, state, 1, t.n_rows, 1, one, s,
+                            mode, kModeSparse);
+        if (rc != 0) return rc;
+        ++launched[1];
+        rc = ell_go_hop(f_in, nullptr, f_out, t.nbr, t.et, hop_plan,
+                        t.n_buckets, blocks, lgc, 0, eslot, hrows,
+                        t.n_rows - t.n, over, n_over, t.n, t.n_rows, 4,
+                        mode, kModeDense, stream);
+        if (rc != 0) return rc;
+        ++launched[4];
+    }
+    rc = lanes_launch(0, state, lanes + (hops % 2) * R1, R1, mode,
+                      kModeDense, s);
+    if (rc != 0) return rc;
+    ++launched[3];
+    return 0;
 }
 
 }  // extern "C"

@@ -17,8 +17,11 @@ and adds one to its entry in ``LAUNCHES``, or raises — there is no
 fallback from one to the other.  The programs:
 
 - ``go`` = ``edge_seed`` + ``edge_hop`` × (steps - 1) + ``edge_final``
-- ``go_filtered`` = ``expr_filter`` + ``go`` with the mask ANDed into
-  ``edge_final``
+- ``go_filtered`` = ``edge_seed`` + ``edge_hop`` × (steps - 1) +
+  ``edge_final_where``: ``edge_final``'s test with the compiled WHERE
+  evaluated inside it, only on the edges that pass the test (every
+  operation of the WHERE is total, so that gives the reference's mask,
+  ``expr_filter``'s ANDed into ``edge_final``'s, without the [m] mask)
 - ``bfs`` = ``edge_seed`` × 2 + ``edge_bfs_level`` (first) + per level
   ``edge_hop`` + ``edge_bfs_level``, the host reading the level's two
   flags before it launches the next (one 8-byte read a level).
@@ -41,7 +44,8 @@ from .expr_program import (B, EDGE, F, I, MAX_INS, MAX_REGS, MAX_SLOTS,
 INT32_INF = 2**31 - 1          # kernels.py INT32_INF: unreached depth
 
 LAUNCHES: Dict[str, int] = {"edge_seed": 0, "edge_hop": 0,
-                            "edge_final": 0, "expr_filter": 0,
+                            "edge_final": 0, "edge_final_where": 0,
+                            "expr_filter": 0,
                             "edge_bfs_level": 0, "go": 0,
                             "go_filtered": 0, "bfs": 0, "sharded_go": 0}
 
@@ -211,17 +215,10 @@ def expr_filter_ref(prog: ExprProgram, slots: Sequence[torch.Tensor],
     return out
 
 
-def expr_filter(prog: ExprProgram, slots: Sequence[torch.Tensor],
-                edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                out: torch.Tensor) -> torch.Tensor:
-    """The compiled WHERE as a bool [m] edge mask: ``prog`` (an
-    ExprProgram) over its slot tensors, edge-aligned [m] or
-    vertex-aligned [n] (read at src[e] / dst[e])."""
-    m, dev = _edges(edge_src, edge_dst, None)
-    _check(out, "out", torch.bool, (m,), dev)
-    _slot_check(prog, slots, m, dev)
-    if not _route(dev):
-        return expr_filter_ref(prog, slots, edge_src, edge_dst, out)
+def _program_args(prog: ExprProgram, slots: Sequence[torch.Tensor],
+                  dev: torch.device) -> tuple:
+    """(instructions on the card, their count, registers, out register,
+    slot table) as the interpreter's entries take them."""
     if len(prog) > MAX_INS or prog.n_regs > MAX_REGS \
             or len(slots) > MAX_SLOTS:
         raise ValueError("program exceeds the kernel's limits")
@@ -231,12 +228,73 @@ def expr_filter(prog: ExprProgram, slots: Sequence[torch.Tensor],
         st.kind[k] = kind
         st.type[k] = typ
     st.n = len(slots)
-    ins = prog.device_ins(dev)
-    rc = _lib().expr_filter(ins.data_ptr(), len(prog), prog.out, st,
+    return (prog.device_ins(dev).data_ptr(), len(prog), prog.n_regs,
+            prog.out, st)
+
+
+def expr_filter(prog: ExprProgram, slots: Sequence[torch.Tensor],
+                edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                out: torch.Tensor) -> torch.Tensor:
+    """The compiled WHERE as a bool [m] edge mask: ``prog`` (an
+    ExprProgram) over its slot tensors, edge-aligned [m] or
+    vertex-aligned [n] (read at src[e] / dst[e]).  The registry family's
+    counterpart; no runtime path launches it (``go_filtered`` runs the
+    same interpreter inside ``edge_final_where``)."""
+    m, dev = _edges(edge_src, edge_dst, None)
+    _check(out, "out", torch.bool, (m,), dev)
+    _slot_check(prog, slots, m, dev)
+    if not _route(dev):
+        return expr_filter_ref(prog, slots, edge_src, edge_dst, out)
+    rc = _lib().expr_filter(*_program_args(prog, slots, dev),
                             edge_src.data_ptr(), edge_dst.data_ptr(), m,
                             out.data_ptr(), _stream(dev))
     _ok(rc, "expr_filter")
     LAUNCHES["expr_filter"] += 1
+    return out
+
+
+# ==================================================== edge_final_where
+def edge_final_where_ref(f: torch.Tensor, edge_src: torch.Tensor,
+                         edge_dst: torch.Tensor, edge_etype: torch.Tensor,
+                         over: Sequence[int], prog: ExprProgram,
+                         slots: Sequence[torch.Tensor], out: torch.Tensor
+                         ) -> torch.Tensor:
+    """Plain version of ``edge_final_where``: ``edge_final_ref``'s test,
+    then ``expr_filter_ref``'s program run on the edges that pass it
+    only (their rows of the edge-aligned columns, their src / dst)."""
+    keep = f[edge_src.long()] & _etype_ok(edge_etype, over)
+    idx = torch.nonzero(keep).reshape(-1)
+    sub = [t[idx] if kind == EDGE else t
+           for t, (_key, kind, _typ) in zip(slots, prog.slots)]
+    out.zero_()
+    out[idx] = run_program(prog, sub, edge_src[idx], edge_dst[idx]).bool()
+    return out
+
+
+def edge_final_where(f: torch.Tensor, edge_src: torch.Tensor,
+                     edge_dst: torch.Tensor, edge_etype: torch.Tensor,
+                     over: Sequence[int], prog: ExprProgram,
+                     slots: Sequence[torch.Tensor], out: torch.Tensor
+                     ) -> torch.Tensor:
+    """``go_filtered``'s final pass: ``out`` bool [m] is ``f[src[e]]``
+    and etype in ``over`` and the WHERE ``prog`` at e, the WHERE
+    evaluated only on the edges where the first two hold (on the card a
+    warp queues them and interprets 32 at a time), so its columns are
+    read for those edges alone and no [m] mask is made."""
+    m, dev = _edges(edge_src, edge_dst, edge_etype)
+    n = int(f.shape[0])
+    _check(f, "f", torch.bool, (n,), dev)
+    _check(out, "out", torch.bool, (m,), dev)
+    _slot_check(prog, slots, m, dev)
+    if not _route(dev):
+        return edge_final_where_ref(f, edge_src, edge_dst, edge_etype, over,
+                                    prog, slots, out)
+    rc = _lib().edge_final_where(
+        f.data_ptr(), edge_src.data_ptr(), edge_dst.data_ptr(),
+        edge_etype.data_ptr(), *_over(over), *_program_args(prog, slots, dev),
+        m, out.data_ptr(), _stream(dev))
+    _ok(rc, "edge_final_where")
+    LAUNCHES["edge_final_where"] += 1
     return out
 
 
@@ -299,7 +357,9 @@ def _frontier0(start_idx: torch.Tensor, n: int, seed) -> torch.Tensor:
 
 
 def _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps, over,
-             fmask, seed, hop, final):
+             seed, hop, final):
+    """The GO programs: the start bitmap, ``steps - 1`` hops, then
+    ``final(f, out)`` into a fresh bool [m]."""
     f = _frontier0(start_idx, n, seed)
     if steps > 1:
         buf = torch.empty_like(f)
@@ -308,7 +368,7 @@ def _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps, over,
             f, buf = buf, f
     out = torch.empty(edge_src.shape, dtype=torch.bool,
                       device=edge_src.device)
-    return final(f, edge_src, edge_etype, over, fmask, out), f
+    return final(f, out), f
 
 
 def go_ref(edge_src: torch.Tensor, edge_dst: torch.Tensor,
@@ -317,8 +377,9 @@ def go_ref(edge_src: torch.Tensor, edge_dst: torch.Tensor,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``go``."""
     return _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps,
-                    over, None, edge_seed_ref, edge_hop_ref,
-                    edge_final_ref)
+                    over, edge_seed_ref, edge_hop_ref,
+                    lambda f, out: edge_final_ref(f, edge_src, edge_etype,
+                                                  over, None, out))
 
 
 def go(edge_src: torch.Tensor, edge_dst: torch.Tensor,
@@ -329,7 +390,9 @@ def go(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     final edge mask.  Returns (final bool [m], frontier bool [n])."""
     _edges(edge_src, edge_dst, edge_etype)
     out = _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps,
-                   over, None, edge_seed, edge_hop, edge_final)
+                   over, edge_seed, edge_hop,
+                   lambda f, out: edge_final(f, edge_src, edge_etype, over,
+                                             None, out))
     if _route(edge_src.device):
         LAUNCHES["go"] += 1
     return out
@@ -340,13 +403,16 @@ def go_filtered_ref(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                     n: int, steps: int, over: Sequence[int],
                     prog: ExprProgram, slots: Sequence[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``go_filtered``."""
+    """Plain version of ``go_filtered``: the reference's order
+    (kernels.py:296), the WHERE over every edge into a mask that ANDs
+    into the final test."""
     fmask = torch.empty(edge_src.shape, dtype=torch.bool,
                         device=edge_src.device)
     expr_filter_ref(prog, slots, edge_src, edge_dst, fmask)
     return _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps,
-                    over, fmask, edge_seed_ref, edge_hop_ref,
-                    edge_final_ref)
+                    over, edge_seed_ref, edge_hop_ref,
+                    lambda f, out: edge_final_ref(f, edge_src, edge_etype,
+                                                  over, fmask, out))
 
 
 def go_filtered(edge_src: torch.Tensor, edge_dst: torch.Tensor,
@@ -355,14 +421,15 @@ def go_filtered(edge_src: torch.Tensor, edge_dst: torch.Tensor,
                 slots: Sequence[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GO with the WHERE fused (kernels.py:296 make_go_filtered_kernel):
-    ``expr_filter`` gives the mask, which ANDs into the final hop's
-    edge mask.  Returns (final bool [m], frontier bool [n])."""
+    the final pass ``edge_final_where`` evaluates the WHERE inside the
+    final hop's edge test, on the edges that pass it only.  Returns
+    (final bool [m], frontier bool [n]), the reference's exactly."""
     _edges(edge_src, edge_dst, edge_etype)
-    fmask = torch.empty(edge_src.shape, dtype=torch.bool,
-                        device=edge_src.device)
-    expr_filter(prog, slots, edge_src, edge_dst, fmask)
     out = _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps,
-                   over, fmask, edge_seed, edge_hop, edge_final)
+                   over, edge_seed, edge_hop,
+                   lambda f, out: edge_final_where(f, edge_src, edge_dst,
+                                                   edge_etype, over, prog,
+                                                   slots, out))
     if _route(edge_src.device):
         LAUNCHES["go_filtered"] += 1
     return out

@@ -22,6 +22,12 @@ the frontier-sharded mesh's ``mesh_sparse_go`` (``ell.py:2052``) and
 and ``mesh_emit`` (K6), each one call over every shard of a card, and
 X3 ``mesh_bfs_stamp`` a shard.
 
+The sparse pair-list GO and the adaptive GO run on the card as one
+checked C call each (``sg_program``, ``ad_program``), whose order of
+launches ``_sparse_go_steps`` and ``_adaptive_steps`` drive with the
+kernels' wrappers or plain versions, on the same workspace layout
+(``_sparse_plan``, ``_adaptive_plan``).
+
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``, a transcription of the JAX function on the
 same layout); on a CUDA device it launches its hand-written kernel from
@@ -47,7 +53,7 @@ import contextlib
 import ctypes
 import functools
 import weakref
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -339,7 +345,7 @@ def go_hop(fp: torch.Tensor, accp: Optional[torch.Tensor],
         fpp, accpp, outp, tables.nbr.data_ptr(), tables.et.data_ptr(),
         desc, len(tables.D), blocks, lgc, wide, eslot.data_ptr(),
         hrows.data_ptr(), n_extras, _over_array(over), len(over), tables.n,
-        tables.n_rows, W, _stream(dev))
+        tables.n_rows, W, None, 0, _stream(dev))
     _ok(rc, "ell_go_hop")
     LAUNCHES["go_hop"] += 1
     return out, accp
@@ -1144,9 +1150,10 @@ def ell_bfs_i8(f0: torch.Tensor, t0: torch.Tensor, tables: DeviceTables,
 # ====================================================================
 BIG_Q = 1 << 30                 # ell.py BIG_Q: the qid of an unused pair
 I32_MAX = 2**31 - 1             # the pack32 key of an unused pair
-CTL_CNT, CTL_OVF, CTL_HUB_TOTAL, CTL_HUB_BIG, CTL_MODE, CTL_SPARSE = \
-    range(6)
+CTL_CNT, CTL_OVF, CTL_HUB_TOTAL, CTL_HUB_BIG, CTL_MODE, CTL_SPARSE, \
+    CTL_CONV = range(7)
 CTL_SIZE = 8
+CTL_WORDS = 2 * CTL_SIZE        # ctl's int32 words at a workspace's head
 MODE_SPARSE, MODE_DENSE = 1, 2  # the adaptive program's mode word
 COMPACT_CHUNK = 2048            # csrc kChunk: bitmap words per K5 block
 
@@ -1483,13 +1490,24 @@ def pair_reduce(op: int, ids: torch.Tensor, qid: torch.Tensor,
 
 
 # ------------------------------------------------- sparse GO program
+def _sparse_tables_check(tables, ecnt, e0, dev) -> None:
+    """The checks of what a sparse program's descriptor holds (made once
+    a table generation on the card, ``_sparse_desc``)."""
+    _tables_check(tables, dev)
+    for t, name in ((ecnt, "ecnt"), (e0, "e0")):
+        if t is not None:
+            _vec(t, name, torch.int32, dev, tables.n + 1)
+
+
 def _sparse_args(ids, qid, ecnt, e0, deg, tables, over, steps, caps, qmax,
                  nq, upto, limit, count):
+    """The per-call checks of ``sparse_go``: the starts, the shape of the
+    program and the degrees; returns the checked OVER set."""
     dev = ids.device
     S = _vec(ids, "ids", torch.int32, dev)
     _vec(qid, "qid", torch.int32, dev, S)
-    _vec(ecnt, "ecnt", torch.int32, dev, tables.n + 1)
-    _vec(e0, "e0", torch.int32, dev, tables.n + 1)
+    if ecnt is None or e0 is None:
+        raise ValueError("ecnt and e0 are the hub expansion's")
     if count and limit is not None:
         raise ValueError("COUNT and LIMIT do not combine")
     if count or limit is not None:
@@ -1504,64 +1522,120 @@ def _sparse_args(ids, qid, ecnt, e0, deg, tables, over, steps, caps, qmax,
         raise ValueError(f"LIMIT {limit}")
     if not 0 < nq <= qmax:
         raise ValueError(f"nq {nq} outside 1..qmax {qmax}")
-    _tables_check(tables, dev)
     return _over_check(over)
+
+
+class SparsePlan(NamedTuple):
+    """One sparse program's shape as ``_sparse_go_steps`` and the card's
+    ``sg_program`` both run it: per hop (c_out, the hub budget ex, the
+    per-pair clamp c_lim); K6's op and widths; the int32 workspace's
+    layout (ctl in words [0, CTL_WORDS), the mark bitmap, the UPTO
+    union, K5's block sums, LIMIT's scratch, two (ids, qid) pair
+    buffers of cmax; [0, zero) is cleared once); ``arr``: all of it as
+    the host int64 array the C entry reads (csrc sparse_go.cu
+    SparsePlan)."""
+    hops: Tuple[Tuple[int, int, int], ...]
+    nq: int
+    qmax: int
+    upto: bool
+    op: int
+    limit: int
+    c_fin: int
+    c_red: int
+    pack32: bool
+    cmax: int
+    mark: int
+    uni: int
+    boff: int
+    scratch: int
+    bufs: int
+    zero: int
+    words: int
+    out_words: int
+    arr: object
+
+
+@functools.lru_cache(maxsize=256)
+def _sparse_plan(S: int, caps: Tuple[int, ...], qmax: int, nq: int, n: int,
+                 n_rows: int, upto: bool, limit: Optional[int],
+                 count: bool) -> SparsePlan:
+    R1w = _words(n_rows + 1)
+    n_extras = n_rows - n
+    ex_pow2 = (1 << max(n_extras * max(qmax, 1) - 1, 1).bit_length()
+               if n_extras else 0)
+    hops, c_in = [], S
+    for c_out in caps[1:]:
+        hops.append((c_out, min(c_in, ex_pow2) if n_extras else -1,
+                     max(1, (2**31 - 1) // max(c_in, 1))))
+        c_in = c_out
+    op = (REDUCE_COUNT if count else
+          REDUCE_LIMIT if limit is not None else REDUCE_EMIT)
+    pack32 = sparse_pack32(qmax, n_rows)
+    c_fin = caps[-1]
+    c_red = sparse_limit_cap(caps, caps[0], limit) if op == REDUCE_LIMIT \
+        else 0
+    width = {REDUCE_EMIT: c_fin, REDUCE_COUNT: qmax, REDUCE_LIMIT: c_red}[op]
+    out_words = 2 + (1 if op == REDUCE_COUNT or pack32 else 2) * width
+    cmax = max(caps[1:])
+    words = nq * R1w
+    mark = CTL_WORDS
+    uni = mark + words
+    zero = uni + (words if upto else 0)
+    boff = zero + zero % 2
+    scratch = boff + 2 * -(-words // COMPACT_CHUNK)
+    bufs = scratch + (2 * nq if op == REDUCE_LIMIT else 0)
+    total = bufs + 4 * cmax
+    head = (len(hops), nq, qmax, int(upto), op, limit or 0, c_fin, c_red,
+            int(pack32), cmax, mark, uni, boff, scratch, bufs, zero, total)
+    flat = head + tuple(v for hp in hops for v in hp)
+    return SparsePlan(tuple(hops), nq, qmax, upto, op, limit or 0, c_fin,
+                      c_red, pack32, cmax, mark, uni, boff, scratch, bufs,
+                      zero, total, out_words,
+                      (ctypes.c_int64 * len(flat))(*flat))
 
 
 def _sparse_go_steps(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
                      qmax, nq, upto, limit, count, expand, compact, reduce):
     """The sparse GO program as a sequence of K4-K6 calls (``expand``,
     ``compact``, ``reduce`` are the kernels' wrappers or their plain
-    versions).  The overflow flag is sticky; once set, later hops still
-    run but the output's other entries are not defined."""
+    versions) on one flat int32 workspace laid out by ``_sparse_plan``,
+    its [0, zero) words cleared first: the order, the workspace and the
+    arguments of the card's ``sg_program``, which runs the same
+    sequence in one C call.  The overflow flag is sticky; once set,
+    later hops still run but the output's other entries are not
+    defined."""
     dev = ids.device
-    n, n_rows = tables.n, tables.n_rows
+    n_rows = tables.n_rows
     R1 = n_rows + 1
     R1w = _words(R1)
-    n_extras = n_rows - n
-    ex_pow2 = (1 << max(n_extras * max(qmax, 1) - 1, 1).bit_length()
-               if n_extras else 0)
-    ctl = torch.zeros(CTL_SIZE, dtype=torch.int64, device=dev)
-    mark = torch.zeros(nq * R1w, dtype=torch.int32, device=dev)
-    uni = torch.zeros_like(mark) if upto else None
+    pl = _sparse_plan(ids.shape[0], tuple(caps), qmax, nq, tables.n, n_rows,
+                      upto, limit, count)
+    hubs = n_rows > tables.n
+    ws = torch.empty(pl.words, dtype=torch.int32, device=dev)
+    ws[:pl.zero].zero_()
+    ctl = ws[:CTL_WORDS].view(torch.int64)
+    mark = ws[pl.mark:pl.mark + nq * R1w]
+    uni = ws[pl.uni:pl.uni + nq * R1w] if upto else None
+    bufs = ws[pl.bufs:pl.bufs + 4 * pl.cmax].view(2, 2, pl.cmax)
     if upto:
         expand(ids, qid, None, None, tables, over, uni, R1w, ctl, 0, True)
-    cmax = max(caps[1:])
-    bufs = [(torch.empty(cmax, dtype=torch.int32, device=dev),
-             torch.empty(cmax, dtype=torch.int32, device=dev))
-            for _ in range(2)]
     cur_i, cur_q = ids, qid
-    for h in range(steps - 1):
-        c_in, c_out = cur_i.shape[0], caps[h + 1]
-        ex = min(c_in, ex_pow2) if n_extras else -1
-        c_lim = max(1, (2**31 - 1) // max(c_in, 1))
-        expand(cur_i, cur_q, ecnt if n_extras else None,
-               e0 if n_extras else None, tables, over, mark, R1w, ctl,
-               c_lim)
+    for h, (c_out, ex, c_lim) in enumerate(pl.hops):
+        expand(cur_i, cur_q, ecnt if hubs else None, e0 if hubs else None,
+               tables, over, mark, R1w, ctl, c_lim)
         nxt_i, nxt_q = bufs[h % 2]
         compact(mark, R1w, c_out, nxt_i, nxt_q, ctl, ex, n_rows, uni)
         cur_i, cur_q = nxt_i[:c_out], nxt_q[:c_out]
-    c_fin = caps[-1]
     if upto:
-        fin_i, fin_q = bufs[(steps - 1) % 2]
-        compact(uni, R1w, c_fin, fin_i, fin_q, ctl, -1, n_rows, None,
+        fin_i, fin_q = bufs[len(pl.hops) % 2]
+        compact(uni, R1w, pl.c_fin, fin_i, fin_q, ctl, -1, n_rows, None,
                 None, False)
-        cur_i, cur_q = fin_i[:c_fin], fin_q[:c_fin]
-    pack32 = sparse_pack32(qmax, n_rows)
-    if count:
-        out = torch.zeros(2 + qmax, dtype=torch.int32, device=dev)
-        return reduce(REDUCE_COUNT, cur_i, cur_q, deg, out, pack32, R1,
-                      n_rows, nq, qmax, 0, 0, ctl)
-    if limit is not None:
-        c_red = sparse_limit_cap(caps, caps[0], limit)
-        out = torch.empty(2 + (1 if pack32 else 2) * c_red,
-                          dtype=torch.int32, device=dev)
-        return reduce(REDUCE_LIMIT, cur_i, cur_q, deg, out, pack32, R1,
-                      n_rows, nq, qmax, limit, c_red, ctl)
-    out = torch.empty(2 + (1 if pack32 else 2) * c_fin, dtype=torch.int32,
-                      device=dev)
-    return reduce(REDUCE_EMIT, cur_i, cur_q, deg, out, pack32, R1, n_rows,
-                  nq, qmax, 0, 0, ctl)
+        cur_i, cur_q = fin_i[:pl.c_fin], fin_q[:pl.c_fin]
+    # COUNT's fold adds into its output: sg_program clears it first too
+    out = (torch.zeros if count else torch.empty)(
+        pl.out_words, dtype=torch.int32, device=dev)
+    return reduce(pl.op, cur_i, cur_q, deg, out, pl.pack32, R1, n_rows, nq,
+                  qmax, pl.limit, pl.c_red, ctl)
 
 
 def _dedup_compact_ref(flat_q, flat_i, c_out, sentinel, R1):
@@ -1711,6 +1785,47 @@ def sparse_go_ref(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
                            R1, n_rows, nq, qmax, 0, 0, ctl)
 
 
+class _SparseTables(ctypes.Structure):
+    """``SparseTables`` of csrc/sparse_go.cu, passed by value: the slot
+    tables, the hub expansion (null without), the bucket triples of
+    ``_bucket_desc``, the negated OVER set and the geometry."""
+    _fields_ = [("nbr", ctypes.c_void_p), ("et", ctypes.c_void_p),
+                ("ecnt", ctypes.c_void_p), ("e0", ctypes.c_void_p),
+                ("row0", ctypes.c_longlong * MAX_BUCKETS),
+                ("slot0", ctypes.c_longlong * MAX_BUCKETS),
+                ("D", ctypes.c_int * MAX_BUCKETS), ("n_buckets", ctypes.c_int),
+                ("neg", ctypes.c_int * MAX_OVER), ("n_neg", ctypes.c_int),
+                ("n", ctypes.c_longlong), ("n_rows", ctypes.c_longlong),
+                ("R1w", ctypes.c_longlong)]
+
+
+def _sparse_desc(tables: DeviceTables, ecnt, e0, over: Tuple[int, ...]
+                 ) -> _SparseTables:
+    """The sparse programs' descriptor, made (and its tables checked)
+    once a table generation, hub expansion and OVER set (``_card_desc``);
+    ``ecnt``/``e0`` None: no hub push (the adaptive program's)."""
+    hubs = ecnt is not None and tables.n_rows > tables.n
+    tensors = (tables.nbr, tables.et) + ((ecnt, e0) if hubs else ())
+
+    def build():
+        _sparse_tables_check(tables, ecnt, e0, tables.nbr.device)
+        d = _SparseTables()
+        d.nbr, d.et = tables.nbr.data_ptr(), tables.et.data_ptr()
+        if hubs:
+            d.ecnt, d.e0 = ecnt.data_ptr(), e0.data_ptr()
+        for b in range(len(tables.D)):
+            d.row0[b], d.slot0[b] = tables.row0[b], tables.slot0[b]
+            d.D[b] = tables.D[b]
+        d.n_buckets = len(tables.D)
+        for k, t in enumerate(over):
+            d.neg[k] = -t
+        d.n_neg = len(over)
+        d.n, d.n_rows = tables.n, tables.n_rows
+        d.R1w = _words(tables.n_rows + 1)
+        return d
+    return _card_desc(tensors, ("sparse", over, hubs), build)
+
+
 def sparse_go(ids: torch.Tensor, qid: torch.Tensor, ecnt: torch.Tensor,
               e0: torch.Tensor, deg: Optional[torch.Tensor],
               tables: DeviceTables, over: Sequence[int], steps: int,
@@ -1734,54 +1849,85 @@ def sparse_go(ids: torch.Tensor, qid: torch.Tensor, ecnt: torch.Tensor,
     ``ell.sparse_limit_cap``.  Overflow (a hop past its cap, the hub
     budget, the UPTO union past the final cap, the LIMIT cut past its
     cap) is sticky: the caller reruns dense; the other entries are then
-    not defined.  Launches K4-K6 on the card."""
+    not defined.  On the card one checked C call (``sg_program``) runs
+    the whole program on a workspace of its own, taken from torch's
+    caching allocator and cleared by one memset inside the call, and
+    reports the K4-K6 calls it made (``LAUNCHES``); each call's output
+    is its own tensor."""
     over = _sparse_args(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
                         qmax, nq, upto, limit, count)
     caps = tuple(int(c) for c in caps)
-    if not _route(ids.device):
+    dev = ids.device
+    if not _route(dev):
+        _sparse_tables_check(tables, ecnt, e0, dev)
         return sparse_go_ref(ids, qid, ecnt, e0, deg, tables, over, steps,
                              caps, qmax, upto, limit, count)
-    out = _sparse_go_steps(ids, qid, ecnt, e0, deg, tables, over, steps,
-                           caps, qmax, nq, upto, limit, count,
-                           sparse_expand, pair_compact, pair_reduce)
+    pl = _sparse_plan(ids.shape[0], caps, qmax, nq, tables.n, tables.n_rows,
+                      upto, limit, count)
+    desc = _sparse_desc(tables, ecnt, e0, over)
+    ws = torch.empty(pl.words, dtype=torch.int32, device=dev)
+    out = torch.empty(pl.out_words, dtype=torch.int32, device=dev)
+    launched = (ctypes.c_int32 * 3)()
+    rc = _lib().sg_program(desc, ids.data_ptr(), qid.data_ptr(),
+                           ids.shape[0],
+                           None if deg is None else deg.data_ptr(), pl.arr,
+                           len(pl.arr), ws.data_ptr(), out.data_ptr(),
+                           pl.out_words, _stream(dev), launched)
+    _ok(rc, "sg_program")
     LAUNCHES["sparse_go_count" if count else
              "sparse_go_limit" if limit is not None else "sparse_go"] += 1
+    # the K4, K5 and K6 calls the C call reports it made
+    for name, k in zip(("sparse_expand", "pair_compact", "pair_reduce"),
+                       launched):
+        LAUNCHES[name] += k
     return out
 
 
 # ------------------------------------------------ K7 and the lanes
-def adaptive_switch_ref(fr, K, hub, n, n_rows, ctl):
+def adaptive_switch_ref(fr, K, hub, n, n_rows, ctl, dense=None):
     """Plain version of ``adaptive_switch`` (K7)."""
     v = fr.long()
     live = v != n_rows
     hit = bool((hub[v.clamp(max=n)].bool() & live).any())
     sparse = int(ctl[CTL_SPARSE]) != 0
-    if int(ctl[CTL_MODE]) == MODE_SPARSE and int(ctl[CTL_CNT]) > K:
+    was = int(ctl[CTL_MODE])
+    if was == MODE_SPARSE and int(ctl[CTL_CNT]) > K:
         sparse = False
     take = sparse and not hit
     ctl[CTL_MODE] = MODE_SPARSE if take else MODE_DENSE
     ctl[CTL_SPARSE] = 1 if take else 0
+    ctl[CTL_CONV] = 1 if not take and was != MODE_DENSE else 0
+    if dense is not None and int(ctl[CTL_CONV]):
+        dense += 1
     return ctl
 
 
 def adaptive_switch(fr: torch.Tensor, hub: torch.Tensor, n: int,
-                    n_rows: int, ctl: torch.Tensor) -> torch.Tensor:
+                    n_rows: int, ctl: torch.Tensor,
+                    dense: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7, before each adaptive hop: a sparse previous hop whose count
     (``ctl[CTL_CNT]``) passed K = len(fr) ends the sparse mode for good;
     this hop's mode word ``ctl[CTL_MODE]`` is MODE_SPARSE while the
     mode holds and no vertex of the frontier list ``fr`` int32 [K]
     (padded with n_rows) is a hub (``hub`` uint8 [n + 1]), else
-    MODE_DENSE (and the sparse mode ends)."""
+    MODE_DENSE (and the sparse mode ends); ``ctl[CTL_CONV]`` is 1 at the
+    hop where the mode first turns dense, else 0, and that hop adds one
+    to ``dense`` (int64 [1], ``adaptive_dense_tally``; None: no
+    tally)."""
     dev = fr.device
     K = _vec(fr, "fr", torch.int32, dev)
     _vec(hub, "hub", torch.uint8, dev, n + 1)
     _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    if dense is not None:
+        _vec(dense, "dense", torch.int64, dev, 1)
     if K == 0:
         raise ValueError("empty frontier list")
     if not _route(dev):
-        return adaptive_switch_ref(fr, K, hub, n, n_rows, ctl)
+        return adaptive_switch_ref(fr, K, hub, n, n_rows, ctl, dense)
     rc = _lib().ad_switch(fr.data_ptr(), K, hub.data_ptr(), n, n_rows,
-                          ctl.data_ptr(), _stream(dev))
+                          ctl.data_ptr(),
+                          None if dense is None else dense.data_ptr(),
+                          _stream(dev))
     _ok(rc, "ad_switch")
     LAUNCHES["adaptive_switch"] += 1
     return ctl
@@ -1821,6 +1967,23 @@ def bitmap_lanes(to_lanes: bool, bits: torch.Tensor, lanes: torch.Tensor,
 
 
 # ------------------------------------------------ adaptive program
+_DENSE: Dict[str, torch.Tensor] = {}
+
+
+def adaptive_dense_tally(device: torch.device) -> torch.Tensor:
+    """The int64 [1] tally on ``device`` to which every ``adaptive_go``
+    call that runs a dense hop adds one (K7 on the card, at the hop where
+    the mode first turns dense): zero it, serve, read it, and the count
+    of the calls that went dense comes from the card, with no read a
+    call."""
+    key = str(torch.device(device))
+    t = _DENSE.get(key)
+    if t is None:
+        t = _DENSE.setdefault(key, torch.zeros(1, dtype=torch.int64,
+                                               device=device))
+    return t
+
+
 def _adaptive_args(starts, hub, tables, eslot, hrows, over, steps, K):
     dev = starts.device
     S = _vec(starts, "starts", torch.int32, dev)
@@ -1835,44 +1998,83 @@ def _adaptive_args(starts, hub, tables, eslot, hrows, over, steps, K):
     return _over_check(over)
 
 
+class AdaptivePlan(NamedTuple):
+    """The adaptive program's int32 workspace as ``_adaptive_steps`` and
+    the card's ``ad_program`` both lay it out: ctl in words [0,
+    CTL_WORDS), the state bitmap, the candidate bitmap ([0, zero)
+    cleared once), the frontier list fr [K], K5's block sums, two
+    [R1, 4]-byte lane frontiers; ``arr`` the host int64 array the C
+    entry reads (csrc sparse_go.cu AdaptivePlan)."""
+    hops: int
+    K: int
+    state: int
+    cand: int
+    fr: int
+    boff: int
+    lanes: int
+    zero: int
+    words: int
+    arr: object
+
+
+@functools.lru_cache(maxsize=64)
+def _adaptive_plan(R1: int, K: int, hops: int) -> AdaptivePlan:
+    R1w = _words(R1)
+    state = CTL_WORDS
+    cand = state + R1w
+    zero = fr = cand + R1w
+    boff = fr + K + (fr + K) % 2
+    lanes = boff + 2 * -(-R1w // COMPACT_CHUNK)
+    words = lanes + 2 * R1
+    flat = (hops, K, state, cand, fr, boff, lanes, zero, words)
+    return AdaptivePlan(*flat, (ctypes.c_int64 * len(flat))(*flat))
+
+
 def _adaptive_steps(starts, hub, tables, eslot, hrows, over, steps, K,
                     expand, compact, switch, lanes, hop):
-    """The adaptive program as a sequence of kernel calls.  While the
-    sparse mode holds, each hop starts with K7 and one host read of its
-    mode word (a sync and an 8-byte copy): the sparse arm is K4 (the
-    push of the list) and K5 (the compaction to K ids, the state
-    bitmap replaced by every candidate).  The first dense hop ends the
-    sparse mode for good, so the rest of the hops run dense with no
-    further read: the state bitmap becomes lane 0 of a lane frontier
-    once, ``go_hop`` pulls it once per hop, and it comes back once.
-    The state bitmap always holds the reference's ``bitmap``."""
+    """The adaptive program as a sequence of kernel calls on the
+    workspace of ``_adaptive_plan``, in the order of the card's
+    ``ad_program``, which enqueues every call in one C call and lets
+    each kernel read the hop's mode word on the card; here the host
+    reads it and skips the calls the card's kernels would return from.
+    After the start (the frontier list, the state's self-mark) each hop
+    runs K7 (``switch``), then the layout change to lanes (``lanes``;
+    only at the hop where the mode first turns dense), then the sparse
+    arm, K4 (the push of the list) and K5 (the compaction to K ids, the
+    state bitmap replaced by every candidate), or the dense arm,
+    ``hop`` on lane 0 from lane frontier h % 2 into (h + 1) % 2; the
+    first dense hop ends the sparse mode for good.  Last, when a dense
+    hop ran, the lanes come back into the state bitmap.  The state
+    bitmap always holds the reference's ``bitmap``."""
     dev = starts.device
     n, n_rows = tables.n, tables.n_rows
     R1 = n_rows + 1
     R1w = _words(R1)
-    fr = torch.full((K,), n_rows, dtype=torch.int32, device=dev)
+    pl = _adaptive_plan(R1, K, steps - 1)
+    ws = torch.empty(pl.words, dtype=torch.int32, device=dev)
+    ws[:pl.zero].zero_()
+    ctl = ws[:CTL_WORDS].view(torch.int64)
+    state = ws[pl.state:pl.state + R1w]
+    cand = ws[pl.cand:pl.cand + R1w]
+    fr = ws[pl.fr:pl.fr + K]
+    bufs = ws[pl.lanes:pl.lanes + 2 * R1].view(torch.uint8).view(2, R1, 4)
+    fr.fill_(n_rows)
     fr[:starts.shape[0]] = starts
-    ctl = torch.zeros(CTL_SIZE, dtype=torch.int64, device=dev)
     ctl[CTL_SPARSE] = 1
-    state = torch.zeros(R1w, dtype=torch.int32, device=dev)
     expand(fr, None, None, None, tables, over, state, R1w, ctl, 0, True)
-    hops = steps - 1
-    cand = torch.zeros_like(state) if hops else None
-    while hops:
+    for h in range(pl.hops):
         switch(fr, hub, n, n_rows, ctl)
-        if int(ctl[CTL_MODE]) != MODE_SPARSE:
-            break
-        expand(fr, None, None, None, tables, over, cand, R1w, ctl, 0)
-        compact(cand, R1w, K, fr, None, ctl, -1, n_rows, None, state, True)
-        hops -= 1
-    if hops:
-        f_in = torch.empty((R1, 4), dtype=torch.uint8, device=dev)
-        f_out = torch.empty_like(f_in)
-        lanes(True, state, f_in, R1)
-        for _ in range(hops):
-            hop(f_in, None, f_out, tables, eslot, hrows, over)
-            f_in, f_out = f_out, f_in
-        lanes(False, state, f_in, R1)
+        if int(ctl[CTL_CONV]):
+            lanes(True, state, bufs[h % 2], R1)
+        if int(ctl[CTL_MODE]) == MODE_SPARSE:
+            expand(fr, None, None, None, tables, over, cand, R1w, ctl, 0)
+            compact(cand, R1w, K, fr, None, ctl, -1, n_rows, None, state,
+                    True)
+        else:
+            hop(bufs[h % 2], None, bufs[(h + 1) % 2], tables, eslot, hrows,
+                over)
+    if int(ctl[CTL_MODE]) == MODE_DENSE:
+        lanes(False, state, bufs[pl.hops % 2], R1)
     return state.view(torch.uint8)[:(R1 + 7) // 8]
 
 
@@ -1937,18 +2139,43 @@ def adaptive_go(starts: torch.Tensor, hub: torch.Tensor,
     the whole bitmap (``go_hop`` with the hub merge).  Returns uint8
     [ceil((n_rows + 1) / 8)]: the frontier's bitmap, row-major, little
     bit order (ell.unpack_bits inverts it); hub extra rows may hold
-    junk, as in the reference.  Launches K4, K5 and K7 per sparse hop,
-    and the lane layout change and the hop once a hop runs dense."""
+    junk, as in the reference.  On the card one checked C call
+    (``ad_program``) enqueues every hop of both arms, the mode chosen
+    on the card (``_adaptive_steps``' order), with no host read; it
+    reports the calls it made, the gated ones included (``LAUNCHES``).
+    On the CPU ``_adaptive_steps`` drives the plain versions in that
+    order.  A call that runs a dense hop adds one to
+    ``adaptive_dense_tally(device)``.  The result is a view of the
+    call's own workspace."""
     over = _adaptive_args(starts, hub, tables, eslot, hrows, over, steps,
                           K)
-    if not _route(starts.device):
-        return adaptive_go_ref(starts, hub, tables, eslot, hrows, over,
-                               steps, K)
-    out = _adaptive_steps(starts, hub, tables, eslot, hrows, over, steps,
-                          K, sparse_expand, pair_compact, adaptive_switch,
-                          bitmap_lanes, go_hop)
+    dev = starts.device
+    dense = adaptive_dense_tally(dev)
+    if not _route(dev):
+        return _adaptive_steps(
+            starts, hub, tables, eslot, hrows, over, steps, K,
+            sparse_expand, pair_compact,
+            functools.partial(adaptive_switch, dense=dense), bitmap_lanes,
+            go_hop)
+    R1 = tables.n_rows + 1
+    pl = _adaptive_plan(R1, K, steps - 1)
+    plan, blocks, lgc = _hop_desc(tables.row0, tables.slot0, tables.rows,
+                                  tables.D, 4, 4)
+    ws = torch.empty(pl.words, dtype=torch.int32, device=dev)
+    launched = (ctypes.c_int32 * 5)()
+    rc = _lib().ad_program(
+        _sparse_desc(tables, None, None, over), starts.data_ptr(),
+        starts.shape[0], hub.data_ptr(), pl.arr, plan, blocks, lgc,
+        _over_array(over), len(over), eslot.data_ptr(), hrows.data_ptr(),
+        dense.data_ptr(), ws.data_ptr(), _stream(dev), launched)
+    _ok(rc, "ad_program")
     LAUNCHES["adaptive_go"] += 1
-    return out
+    # the calls the C call reports it made, those its gates skip included
+    for name, k in zip(("sparse_expand", "pair_compact", "adaptive_switch",
+                        "bitmap_lanes", "go_hop"), launched):
+        LAUNCHES[name] += k
+    return ws[pl.state:pl.state + _words(R1)].view(torch.uint8)[
+        :(R1 + 7) // 8]
 
 
 # ============================================================= absorb

@@ -820,10 +820,20 @@ class ExprProgram:
         self._dev: Dict[str, torch.Tensor] = {}
 
     def device_ins(self, device: torch.device) -> torch.Tensor:
-        """The instructions on ``device`` (uploaded once per device)."""
+        """The instructions on ``device`` (uploaded once per device, after
+        a check that every register they name lies below ``n_regs``: the
+        kernels' register file holds that many a thread)."""
         key = str(device)
         t = self._dev.get(key)
         if t is None:
+            ins = self.ins.reshape(-1, 5)
+            regs = np.where(ins[:, :1] >= OPCODE["CVT_BI"], ins[:, 1:],
+                            ins[:, 1:2])
+            if not (0 <= self.out < self.n_regs <= MAX_REGS) or (
+                    len(ins) and not ((regs >= 0) & (regs < self.n_regs)
+                                      ).all()):
+                raise ValueError("program names a register outside its "
+                                 f"{self.n_regs}")
             t = self._dev[key] = torch.from_numpy(self.ins.copy()).to(device)
         return t
 

@@ -16,7 +16,13 @@ X1-X3 from ``csrc/mesh_sparse.cu`` with K5 / K6 from
 ``csrc/sparse_go.cu`` and ``or_many`` from ``csrc/ell_lanes.cu``.
 ``sparse_go_count`` and
 ``sparse_go_limit`` are ``sparse_go`` with ``count=True`` and
-``limit=n``, as in the reference, where one factory makes all three.
+``limit=n``, as in the reference, where one factory makes all three;
+each program runs on the card as one C call (``sg_program``), as does
+``adaptive_go`` (``ad_program``, whose dense arm is ``ell_lanes.cu``'s
+hop).  ``go_filtered`` evaluates the WHERE inside its final pass
+(``edge_go.cu`` with the interpreter of ``expr_core.cuh``); the
+``expr_filter`` entry, the same interpreter over every edge, serves the
+registry alone.
 """
 from __future__ import annotations
 
@@ -37,6 +43,9 @@ _EDGE = ("edge_go.cu",)
 _INT8 = ("ell_int8.cu",)
 _MESH = ("ell_mesh.cu",)
 _MESH_SPARSE = ("mesh_sparse.cu",) + _SPARSE
+# the WHERE interpreter, which go_filtered's final pass (edge_go.cu) and
+# expr_filter.cu both include
+_EXPR = ("expr_core.cuh",)
 
 KERNELS: Dict[str, PortKernel] = {
     # continuous session (ell.py:665-743)
@@ -65,11 +74,11 @@ KERNELS: Dict[str, PortKernel] = {
     # expr_compile.py:512)
     "go": PortKernel(edge_ops.go_ref, edge_ops.go, _EDGE),
     "go_filtered": PortKernel(edge_ops.go_filtered_ref,
-                              edge_ops.go_filtered,
-                              _EDGE + ("expr_filter.cu",)),
+                              edge_ops.go_filtered, _EDGE + _EXPR),
     "bfs": PortKernel(edge_ops.bfs_ref, edge_ops.bfs, _EDGE),
     "expr_filter": PortKernel(edge_ops.expr_filter_ref,
-                              edge_ops.expr_filter, ("expr_filter.cu",)),
+                              edge_ops.expr_filter,
+                              ("expr_filter.cu",) + _EXPR),
     # the write path (ell.py:1011)
     "ell_absorb": PortKernel(ell_ops.ell_absorb_ref, ell_ops.ell_absorb,
                              ("ell_absorb.cu",)),

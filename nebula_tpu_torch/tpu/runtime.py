@@ -1808,17 +1808,19 @@ class TorchQueryRuntime:
             and reduce[0] == "limit" else None
         count_mode = reduce is not None and reduce[0] == "count"
         S = len(d_all)
-        ids = np.full(c0, ix.n_rows, np.int32)
-        qid = np.zeros(c0, np.int32)
+        # the starts as one [2, c0] upload: row 0 the ids, row 1 the qids
+        st = np.zeros((2, c0), np.int32)
+        st[0] = ix.n_rows
         new = ix.perm[d_all]
         order = np.lexsort((new, q_all))     # per-query ascending new ids
-        ids[:S] = new[order]
-        qid[:S] = q_all[order]
+        st[0, :S] = new[order]
+        st[1, :S] = q_all[order]
         ecnt, e0 = self._hub_expansion_dev(m, ix)
         deg = self._deg_dev(m, ix, et_tuple) \
             if (limit is not None or count_mode) else None
+        st_dev = self._up(st)
         out_dev = ell_ops.sparse_go(
-            self._up(ids), self._up(qid), ecnt, e0, deg,
+            st_dev[0], st_dev[1], ecnt, e0, deg,
             self._device_tables(m, ix), et_tuple, steps, caps, qmax, nq,
             upto=upto, limit=limit, count=count_mode)
         self._bump("go_sparse")

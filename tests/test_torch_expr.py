@@ -602,11 +602,13 @@ def test_program_limits_decline():
 
 
 def test_kernel_opcodes_match_the_program():
-    """csrc/expr_filter.cu's opcode enum lists expr_program's opcodes
-    in the same order (the kernel cannot be run here)."""
+    """The interpreter's opcode enum (csrc/expr_core.cuh, which both
+    expr_filter.cu and edge_go.cu's fused final pass include) lists
+    expr_program's opcodes in the same order (the kernel cannot be run
+    here)."""
     import os
     src = open(os.path.join(os.path.dirname(ep.__file__), "csrc",
-                            "expr_filter.cu")).read()
+                            "expr_core.cuh")).read()
     enum = dict((name, int(v)) for name, v in
                 re.findall(r"OP_([A-Z0-9_]+) = (\d+)", src))
     assert enum == ep.OPCODE
