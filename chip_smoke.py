@@ -44,7 +44,15 @@ Phases, in order; any failure exits non-zero:
              plain version, run once as its step sequence and once as the
              runtime calls it, one C call (``sg_program``,
              ``ad_program``: device and event times, launches and C
-             calls a call by capture, held to the designed counts);
+             calls a call by capture, held to the designed counts, and
+             50 calls more, each equal to the first); K5, one launch a
+             call, then held bit for bit to ``pair_compact_ref`` in
+             each caller's form (``k5_caller_check``: alone,
+             ``sg_program``'s workspace at 8 and 1024 queries,
+             ``ad_program``'s gate open and shut, ``mesh_dedup``'s
+             four shards) on an empty bitmap, bits only in the last
+             chunk, the cap inside a chunk and on a chunk's edge, and
+             50 calls on one look-back state;
              then the edge-list kernels on the graph's
              edge arrays and generated columns: ``edge_hop`` (with
              ``scatter_reduce_`` amax as its library yardstick),
@@ -93,10 +101,15 @@ Phases, in order; any failure exits non-zero:
              one launch over every shard: M1 ``shard_hop`` (the hop's
              gather on each shard's chunk), M3 ``replicate_rows``
              (against the per-block ``copy_`` loop it replaced),
-             ``hop_merge``, and the whole hop against ``go_hop``,
+             ``hop_merge``, and the whole hop against ``go_hop``, the
+             BFS level stage (``mesh_level``: one launch over the
+             card's replicas, one depth matrix) against
+             ``mesh_level_ref`` and the single-card ``bfs_level``,
              ``ell_go_sharded`` at 1-4 steps against its plain version
              and ``ell_go``, ``ell_bfs_sharded`` at 1-4 steps and UPTO
-             5 (shortest and all) against ``ell_bfs``, ``ell_absorb_sharded`` and M2
+             5 (shortest and all) against ``ell_bfs`` (its bound counts
+             one depth matrix a card group, the per-shard design's
+             beside as ``old_bound_ms``), ``ell_absorb_sharded`` and M2
              ``shard_absorb`` on the absorb plans (gathered shards equal
              to ``ell_absorb``'s tables, inputs unchanged),
              ``sharded_go`` and ``or_into`` against the ``go`` program,
@@ -133,7 +146,7 @@ Phases, in order; any failure exits non-zero:
              host reads added; three calls traced under
              ``torch.profiler`` beside, none showing more) and
              ``c_calls_a_call`` (checked C calls), each stage held to
-             its 1, 3 or 4 launches in one C call (``stage_launches``),
+             its 1, 2 or 3 launches in one C call (``stage_launches``),
              and X2 + K5 split by kernel in the trace (``dedup_split``)
 4. serve     a seeded power-law graph (default 2^19 vertices, 2^22
              edges, stored in both directions, with seeded columns:
@@ -308,6 +321,7 @@ REPLACES = {
     "mesh_dedup": "nebula_tpu/tpu/ell.py:2019",
     "mesh_agree": "nebula_tpu/tpu/ell.py:2148",
     "mesh_emit": "nebula_tpu/tpu/ell.py:2162",
+    "mesh_level": "nebula_tpu/tpu/ell.py:1799",
 }
 INT8_KERNELS = ("frontier_upload_i8", "go_hop_i8", "pack_rows",
                 "bfs_level_i8", "ell_go_i8", "ell_bfs_i8")
@@ -332,13 +346,14 @@ SOURCES["ell_bfs_i8"] += " + ell_lanes.cu"
 SOURCES["go_hop_i8"] += " + hop_plan.cuh"
 MESH_KERNELS = ("shard_hop", "hop_merge", "replicate_rows", "shard_absorb",
                 "or_into", "ell_go_sharded", "ell_bfs_sharded",
-                "ell_absorb_sharded", "sharded_go", "mesh_hop")
+                "ell_absorb_sharded", "sharded_go", "mesh_hop", "mesh_level")
 SOURCES.update({
     "shard_hop": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu + hop_plan.cuh",
     "replicate_rows": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu",
     "hop_merge": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu",
     "mesh_hop": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + ell_lanes.cu + "
                 "hop_plan.cuh",
+    "mesh_level": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + ell_lanes.cu",
     "shard_absorb": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
                     "ell_absorb.cu",
     "or_into": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu",
@@ -390,8 +405,9 @@ PATH_KERNELS = {
                  "bfs_level_i8", "bfs_depth_i8", "ell_go_i8",
                  "ell_bfs_i8"),
     "mesh": ("frontier_upload", "shard_hop", "hop_merge", "replicate_rows",
-             "ell_go_sharded", "bfs_level", "bfs_depth_i8", "ell_bfs_sharded",
-             "shard_absorb", "ell_absorb_sharded", "mesh_hop"),
+             "ell_go_sharded", "mesh_level", "bfs_depth_i8",
+             "ell_bfs_sharded", "shard_absorb", "ell_absorb_sharded",
+             "mesh_hop"),
     "mesh_sparse": ("mesh_route", "mesh_mark", "pair_compact",
                     "pair_reduce", "mesh_sparse_go", "mesh_bfs_stamp",
                     "mesh_sparse_bfs", "mesh_dedup", "mesh_agree",
@@ -1534,6 +1550,13 @@ def _arg(args, i):
     return args[i] if len(args) > i else None
 
 
+def _scan_free(torch, at: int):
+    """A probe's operand test for K5's callers: every operand equal but
+    the look-back state at position ``at``, the kernel's own working
+    memory, which the plain version does not keep."""
+    return lambda i, a, b: i == at or torch.equal(a, b)
+
+
 def sparse_probes(torch, ell_ops, tables, ix):
     """Probes of K4-K7, the lane layout change and the hop, with their
     bytes bounds from this run's data (8 bytes per slot of the rows a
@@ -1620,7 +1643,7 @@ def sparse_probes(torch, ell_ops, tables, ix):
                                expand_post),
         "pair_compact": Probe(torch, "pair_compact", ell_ops.pair_compact,
                               ell_ops.pair_compact_ref, compact_pre,
-                              lib=compact_lib),
+                              lib=compact_lib, same=_scan_free(torch, 12)),
         "pair_reduce": Probe(torch, "pair_reduce", ell_ops.pair_reduce,
                              ell_ops.pair_reduce_ref, reduce_pre,
                              lib=reduce_lib),
@@ -1666,19 +1689,19 @@ ROW_FROM = {"sparse_go": "c0_256_s3_plain",
 
 def sparse_launches(hops: int, upto: bool, op: int) -> int:
     """The launches ``sg_program`` is designed to make: the workspace's
-    memset, with UPTO the starts' self-mark, per hop K4 and K5's count,
-    scan and compact, with UPTO the union's K5, COUNT's output memset,
-    K6 (LIMIT's three passes, else one)."""
-    return (1 + (1 if upto else 0) + 4 * hops + (3 if upto else 0)
+    memset, with UPTO the starts' self-mark, per hop K4 and K5 (one
+    launch), with UPTO the union's K5, COUNT's output memset, K6
+    (LIMIT's three passes, else one)."""
+    return (1 + (1 if upto else 0) + 2 * hops + (1 if upto else 0)
             + (1 if op == 1 else 0) + (3 if op == 2 else 1))
 
 
 def adaptive_launches(hops: int, hub_rows: bool) -> int:
     """The launches ``ad_program`` is designed to make, the gated ones
     included: the workspace's memset, the start list, its self-mark,
-    per hop K7, the change to lanes, K4, K5's three, the hop's gather
-    and (with hub extra rows) its merge, then the change back."""
-    return 3 + hops * (7 + (1 if hub_rows else 0)) + 1
+    per hop K7, the change to lanes, K4, K5 (one launch), the hop's
+    gather and (with hub extra rows) its merge, then the change back."""
+    return 3 + hops * (5 + (1 if hub_rows else 0)) + 1
 
 
 def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
@@ -1754,6 +1777,10 @@ def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                     not int(want[1]) and not torch.equal(got, want)):
                 raise AssertionError(f"sparse_go {run_label}: the one-call "
                                      f"program != its plain version")
+            for r in range(K5_REPEATS):     # K5's look-back, call after call
+                if not torch.equal(run(), got):
+                    raise AssertionError(f"sparse_go {run_label}: repeat "
+                                         f"{r} differs")
             op = (ell_ops.REDUCE_COUNT if kw["count"] else
                   ell_ops.REDUCE_LIMIT if kw["limit"] is not None else
                   ell_ops.REDUCE_EMIT)
@@ -1828,6 +1855,11 @@ def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                 raise AssertionError(f"adaptive_go K={K} steps={steps}: the "
                                      f"one-call program != its plain "
                                      f"version")
+            got = got.clone()
+            for r in range(K5_REPEATS):     # K5's look-back, call after call
+                if not torch.equal(run_a(), got):
+                    raise AssertionError(f"adaptive_go K={K} steps={steps}: "
+                                         f"repeat {r} differs")
             hops = steps - 1
             counts = stage_launches(
                 torch, ell_ops, run_a,
@@ -1865,6 +1897,207 @@ def sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                   if a not in ("kernels", "name")}
         kernel_rows[k] = dict(row, run=label)
     return kernel_rows, runs
+
+
+K5_REPEATS = 50                # repeated K5 calls on one look-back state
+
+
+def k5_cases(torch, ell_ops, words: int, row_words: int, dev, rng,
+             rows: int = None) -> dict:
+    """K5's edge cases on a bitmap of ``words`` words, rows of
+    ``row_words`` words (``rows``: the valid bits a row, all when None):
+    {case: (bitmap, c_out)} — an empty bitmap; set bits only in the last
+    chunk (the kernel's chunk for this size, ``ell_ops.compact_chunk``);
+    one bit a word with the cap inside a chunk and on a chunk's edge; a
+    random one with the cap past its count."""
+    chunk = ell_ops.compact_chunk(words)
+    valid = torch.ones(words, dtype=torch.int64, device=dev)
+    if rows is not None:            # a row's bits past ``rows`` stay clear
+        w_in = torch.arange(words, device=dev) % row_words
+        n_ok = (rows - 32 * w_in).clamp(0, 32)
+        valid = torch.where(n_ok >= 32, torch.full_like(n_ok, -1),
+                            (1 << n_ok) - 1)
+    ok = lambda x: (x & valid).to(torch.int32)      # noqa: E731
+    last = torch.zeros(words, dtype=torch.int64, device=dev)
+    lo = (-(-words // chunk) - 1) * chunk
+    at = torch.from_numpy(rng.integers(lo, words, 40)).to(dev)
+    last[at] = torch.from_numpy(rng.integers(1, 2**31, 40)).to(dev)
+    ones = ok(torch.ones(words, dtype=torch.int64, device=dev))
+    rnd = torch.from_numpy(rng.integers(0, 2**31, words)).to(dev) \
+        & torch.from_numpy((rng.random(words) < 0.02).astype(np.int64) *
+                           0x01000101).to(dev)
+    return {"empty": (torch.zeros(words, dtype=torch.int32, device=dev),
+                      4 * chunk),
+            "last_chunk": (ok(last), 4 * chunk),
+            "cap_inside_chunk": (ones, chunk + chunk // 2),
+            "cap_on_chunk_edge": (ones, 2 * chunk),
+            "random": (ok(rnd), 4 * chunk)}
+
+
+def _held(torch, name, a, b) -> None:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if isinstance(x, torch.Tensor) and not torch.equal(x, y):
+            raise AssertionError(f"K5 {name}: operand {i} differs from "
+                                 f"its plain version")
+
+
+def k5_caller_check(torch, ell_ops, ix, tables, rng) -> dict:
+    """K5 (one launch a call) held bit for bit to ``pair_compact_ref``
+    in the form each of its callers launches it, on ``k5_cases``: the
+    standalone ``sg_compact`` (its own zeroed state); ``sg_program``'s
+    (the mark, the UPTO union and the look-back state in one workspace
+    laid out by ``_sparse_plan``, two hops on one state, then the
+    union's compaction) at 8 and 1024 queries (about 8,200 chunks of
+    2048 words); ``ad_program``'s, gated on the mode word (held to the
+    plain version when the word says sparse, and to touching nothing
+    when it says dense); ``mesh_dedup``'s (4 shards of the serve graph
+    on this card, X2 from receive blocks holding each case's bits, K5
+    with the row bases and the clears).  Each form also runs the random
+    case K5_REPEATS times on one state, every call held to the plain
+    version.  Returns the cases and calls held per form."""
+    from nebula_tpu_torch.tpu.ell import (build_sharded_ell, sharded_tables,
+                                          sparse_caps)
+    from nebula_tpu_torch.tpu.mesh import PartsMesh
+    dev = tables.nbr.device
+    R1 = ix.n_rows + 1
+    R1w = ell_ops._words(R1)
+    out = {}
+
+    def hold(name, fn, ref, args, reps=1):
+        for _ in range(reps):
+            a = [x.clone() if isinstance(x, torch.Tensor) else x
+                 for x in args]
+            b = [x.clone() if isinstance(x, torch.Tensor) else x
+                 for x in args]
+            fn(*a)
+            ref(*b)
+            torch.cuda.synchronize()
+            _held(torch, name, a[:12], b[:12])
+        return reps
+
+    # ---- sg_compact alone, and sg_program's form, at 8 and 1024 queries
+    for nq, c0 in ((8, 256), (1024, 2048)):
+        words = nq * R1w
+        caps = sparse_caps(c0, max(tables.D), 3, 1 << 17)
+        pl = ell_ops._sparse_plan(c0, tuple(caps), 1024, nq, ix.n,
+                                  ix.n_rows, True, None, False)
+        held = {"sg_compact": 0, "sg_program": 0}
+        for case, (bm, c_out) in k5_cases(torch, ell_ops, words, R1w, dev,
+                                          rng).items():
+            ids = torch.full((c_out,), -7, dtype=torch.int32, device=dev)
+            ctl = torch.zeros(ell_ops.CTL_SIZE, dtype=torch.int64,
+                              device=dev)
+            args = [bm, R1w, c_out, ids, ids.clone(), ctl, -1, ix.n_rows]
+            reps = K5_REPEATS if case == "random" else 1
+            held["sg_compact"] += hold(f"sg_compact {case} nq={nq}",
+                                       ell_ops.pair_compact,
+                                       ell_ops.pair_compact_ref, args, reps)
+            # the program's workspace: one state for every K5 call
+            ws = torch.empty(pl.words, dtype=torch.int32, device=dev)
+            ws[:pl.zero].zero_()
+            mark = ws[pl.mark:pl.mark + words]
+            uni = ws[pl.uni:pl.uni + words]
+            scan = ws[pl.scan:pl.zero].view(torch.int64)
+            ref_uni = uni.clone()
+            cap = max(c_out, pl.c_fin)
+            bufs = torch.full((2, cap), -7, dtype=torch.int32, device=dev)
+            rbufs = bufs.clone()
+            for call in range(2 + reps):
+                last = call == 1 + reps          # the union's compaction
+                src = uni if last else mark
+                if not last:
+                    mark.copy_(bm)
+                ref_src = ref_uni.clone() if last else bm.clone()
+                c = c_out if not last else pl.c_fin
+                ctl.zero_()
+                rctl = ctl.clone()
+                ell_ops.pair_compact(src, R1w, c, bufs[0], bufs[1], ctl, -1,
+                                     ix.n_rows, None if last else uni,
+                                     None, not last, 0, scan)
+                ell_ops.pair_compact_ref(ref_src, R1w, c, rbufs[0],
+                                         rbufs[1], rctl, -1, ix.n_rows,
+                                         None if last else ref_uni, None,
+                                         not last)
+                torch.cuda.synchronize()
+                _held(torch, f"sg_program {case} nq={nq} call {call}",
+                      (src, bufs, ctl, uni), (ref_src, rbufs, rctl, ref_uni))
+                held["sg_program"] += 1
+            del ws
+        out[f"nq{nq}"] = dict(held, words=words,
+                              chunks=-(-words // ell_ops.compact_chunk(words)))
+
+    # ---- ad_program's form: gated, the state copied, K ids, no qid
+    pl = ell_ops._adaptive_plan(R1, 2048, 2)
+    held = {"gated_on": 0, "gated_off": 0}
+    for case, (bm, K) in k5_cases(torch, ell_ops, R1w, R1w, dev,
+                                  rng).items():
+        for mode in (ell_ops.MODE_SPARSE, ell_ops.MODE_DENSE):
+            ws = torch.empty(pl.words, dtype=torch.int32, device=dev)
+            ws[:pl.zero].zero_()
+            scan = ws[pl.scan:pl.zero].view(torch.int64)
+            reps = K5_REPEATS if case == "random" else 1
+            for _ in range(reps):
+                cand = bm.clone()
+                state = torch.full((R1w,), 7, dtype=torch.int32, device=dev)
+                fr = torch.full((K,), -3, dtype=torch.int32, device=dev)
+                ctl = torch.zeros(ell_ops.CTL_SIZE, dtype=torch.int64,
+                                  device=dev)
+                ctl[ell_ops.CTL_MODE] = mode
+                before = [x.clone() for x in (cand, state, fr, ctl)]
+                ell_ops.pair_compact(cand, R1w, K, fr, None, ctl, -1,
+                                     ix.n_rows, None, state, True, 0, scan,
+                                     ctl[ell_ops.CTL_MODE:ell_ops.CTL_MODE
+                                         + 1], ell_ops.MODE_SPARSE)
+                want = [x.clone() for x in before]
+                if mode == ell_ops.MODE_SPARSE:
+                    ell_ops.pair_compact_ref(want[0], R1w, K, want[2], None,
+                                             want[3], -1, ix.n_rows, None,
+                                             want[1], True)
+                torch.cuda.synchronize()
+                _held(torch, f"ad_program {case} mode {mode}",
+                      (cand, state, fr, ctl), want)
+                held["gated_on" if mode == ell_ops.MODE_SPARSE
+                     else "gated_off"] += 1
+    out["ad_program"] = dict(held, words=R1w)
+
+    # ---- mesh_dedup's form: 4 shards on this card, X2 then K5
+    k, qmax = 4, 128
+    st = sharded_tables(build_sharded_ell(ix, k), PartsMesh([dev] * k))
+    g = st.mesh.groups[0]
+    W = ell_ops._words(st.chunk)
+    words = qmax * W
+    held = 0
+    for case, (bm, c_out) in k5_cases(torch, ell_ops, words, W, dev, rng,
+                                      rows=st.chunk).items():
+        # each member's bits as keys (q, its base + row), in the receive
+        # blocks from every source shard in turn
+        idx = torch.nonzero(ell_ops._bits_of(bm)).reshape(-1)
+        q, row = idx // (W * 32), idx % (W * 32)
+        per = -(-max(idx.numel(), 1) // k)
+        recv = torch.zeros((k, k, 1 + per), dtype=torch.int64, device=dev)
+        for y in range(k):
+            keys = (q << 32) | (y * st.chunk + row)
+            for s_ in range(k):
+                part = keys[s_ * per:(s_ + 1) * per]
+                recv[y, s_, 0] = part.numel()
+                recv[y, s_, 1:1 + part.numel()] = part
+        marks = torch.zeros((k, words), dtype=torch.int32, device=dev)
+        scan = torch.zeros((k, ell_ops.compact_state_words(words)),
+                           dtype=torch.int64, device=dev)
+        reps = K5_REPEATS if case == "random" else 1
+        for _ in range(reps):
+            ids = torch.full((k, c_out), -7, dtype=torch.int32, device=dev)
+            ctl = torch.zeros((k, ell_ops.CTL_SIZE), dtype=torch.int64,
+                              device=dev)
+            a = [recv.clone(), st, g, marks, c_out, ids, ids.clone(), ctl]
+            b = [x.clone() if isinstance(x, torch.Tensor) else x for x in a]
+            ell_ops.mesh_dedup(*a, None, None, None, scan)
+            ell_ops.mesh_dedup_ref(*b)
+            torch.cuda.synchronize()
+            _held(torch, f"mesh_dedup {case}", a, b)
+            held += 1
+    out["mesh_dedup"] = dict(calls=held, words_a_member=words, members=k)
+    return out
 
 
 # ============================================================ phase 4
@@ -4102,6 +4335,77 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         single_card_go_hop_ms=go_hop_ms,
         **stage_n.get(ell_ops.HOP_STAGES, {}))
 
+    # ---- the BFS level stage (one launch over the card's replicas): the
+    # first pass on the start replicas, then a level on the whole hop's
+    # output, against mesh_level_ref and the single-card bfs_level
+    tl = torch.from_numpy(np.where(rng.random((R1, W)) < 0.02,
+                                   rng.integers(0, 256, (R1, W)), 0)
+                          .astype(np.uint8)).to(dev)
+    dl = torch.empty((R1, B), dtype=torch.int16, device=dev)
+    fl = torch.zeros((3, 2), dtype=torch.int32, device=dev)
+    ML = ell_ops.MeshLevel
+
+    def level(nxt_, d_, fl_, first, fn=ell_ops.mesh_hop):
+        stages = ell_ops.HOP_LEVEL
+        return lambda: fn(outs if nxt_ is cur else cur, nxt_, mt, g, eslot,
+                          hrows, over, stages, ML(tl, d_, fl_, 0, first,
+                                                  True))
+    start_rep = cur.clone()
+    level(cur, dl, fl[0], True)()
+    d_ref, f_ref = torch.empty_like(dl), torch.zeros_like(fl[0])
+    ell_ops.mesh_level_ref(start_rep.clone(), ML(tl, d_ref, f_ref, 0, True,
+                                                 True))
+    d_one, f_one = torch.empty_like(dl), torch.zeros_like(fl[0])
+    ell_ops.bfs_level(fp0.clone(), tl, d_one, f_one, 0, first=True)
+    require_equal(torch, f"mesh_level first k={k}", B, (cur, start_rep),
+                  (dl, d_ref), (dl, d_one), (fl[0], f_ref), (fl[0], f_one))
+    first_ms = mesh_queued_ms(torch, level(cur, dl, fl[0], True),
+                              f"mesh_level first k={k} B={B}")
+    stage(ell_ops.HOP_STAGES)()          # outs: the hop's output replicas
+    hop_out, d_first = outs.clone(), dl.clone()
+    level(outs, dl, fl[1], False)()
+    n_ref, d_ref, f_ref = hop_out.clone(), d_first.clone(), \
+        torch.zeros_like(fl[1])
+    ell_ops.mesh_level_ref(n_ref, ML(tl, d_ref, f_ref, 0, False, True))
+    n_one, d_one, f_one = hop_out[0].clone(), d_first.clone(), \
+        torch.zeros_like(fl[1])
+    ell_ops.bfs_level(n_one, tl, d_one, f_one, 0)
+    require_equal(torch, f"mesh_level k={k}", B, (outs, n_ref),
+                  (dl, d_ref), (fl[1], f_ref), (dl, d_one), (fl[1], f_one),
+                  *[(o, n_one) for o in outs.unbind(0)])
+    lv_restore = lambda: (outs.copy_(hop_out), dl.copy_(d_first))  # noqa
+    lv_ms = restored_queued_ms(torch, level(outs, dl, fl[2], False),
+                               lv_restore, f"mesh_level k={k} B={B}")
+    lv_ev = restored_ms(torch, level(outs, dl, fl[2], False), lv_restore,
+                        20)
+    lv_plain = restored_ms(torch, level(outs, dl, fl[2], False,
+                                        ell_ops.mesh_hop_ref), lv_restore, 3)
+    one_ms = restored_ms(torch, lambda: ell_ops.bfs_level(
+        outs[0], tl, dl, fl[2], 0), lv_restore, 20)
+    lv_restore()
+    stage_lv = {}
+    if dev.type == "cuda":
+        stage_lv = stage_launches(
+            torch, ell_ops, level(outs, dl, fl[2], False), 1,
+            {"mesh_hop": 1, "mesh_level": 1, "shard_hop": 0,
+             "replicate_rows": 0, "hop_merge": 0}, f"mesh_level k={k}")
+    lv_restore()
+    changed = int((n_one.view(torch.int32) != hop_out[0].view(torch.int32))
+                  .sum().item())
+    live = popcount(torch, ell_ops, hop_out[0])
+    newly = popcount(torch, ell_ops, n_one)
+    t_other = popcount(torch, ell_ops, tl & ~hop_out[0])
+    res["mesh_level"] = dict(
+        max_abs_err=0, ms=lv_ms, event_ms=lv_ev, plain_ms=lv_plain,
+        bound_ms=bytes_ms(2 * R1 * W + 4 * k * changed
+                          + 2 * (live + newly + t_other)),
+        bound_by="bytes", library_ms=None,
+        library_none="none: a depth update with its loop flags", k=k,
+        first_ms=first_ms, first_bound_ms=bytes_ms(R1 * W + 2 * R1 * B),
+        single_card_bfs_level_ms=one_ms, replicas_written=k,
+        changed_words=changed, **stage_lv)
+    del hop_out, d_first, n_ref, d_ref, n_one, d_one, start_rep
+
     # ---- ell_go_sharded at 1-4 steps; B queries, one start each
     starts = rng.integers(0, ix.n, B)
     f0 = rt._upload_frontier_packed(ix, ix.perm[starts],
@@ -4165,11 +4469,18 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
             f0, t0, mt, es, hs, over, 5, stop), 1, warmup=0)
         one = cuda_ms(torch, lambda: ell_ops.ell_bfs(
             f0.clone(), t0, tables, eslot, hrows, over, 5, stop), 3, 1)
-        nbytes = lk * (8 * slots_all + (1 + k) * R1 * W + hub_bytes) \
-            + k * (2 * R1 * B + 2 * R1 * W) + R1 * B
+        # the hops, then the level passes' depth matrix and targets once
+        # a card group (the design before the level stage kept them once
+        # a shard: old_bound_ms), and the int8 result
+        hops_bytes = lk * (8 * slots_all + (1 + k) * R1 * W + hub_bytes)
+        groups = len(mt.mesh.groups)
+        nbytes = hops_bytes + groups * (2 * R1 * B + 2 * R1 * W) + R1 * B
+        old_bytes = hops_bytes + k * (2 * R1 * B + 2 * R1 * W) + R1 * B
         bfs_rows[stop] = dict(max_abs_err=0, ms=ms, plain_ms=plain,
                               bound_ms=bytes_ms(nbytes), bound_by="bytes",
                               library_ms=None, levels=lk,
+                              old_bound_ms=bytes_ms(old_bytes),
+                              card_groups=groups,
                               single_card_ell_bfs_ms=one)
     # its launches: the loop replayed with the level flags a run read
     # (nothing waits on the card, so it captures), plus those reads
@@ -4178,7 +4489,7 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     def bfs_loop(read):
         return ell_ops._bfs_sharded_loop(
             f0, t0, mt, es, hs, over, 5, True, ell_ops.mesh_hop,
-            ell_ops.bfs_level, ell_ops.bfs_depth_i8, read=read)
+            ell_ops.bfs_depth_i8, read=read)
     bfs_loop(lambda flag: flag_reads.append(flag.tolist())
              or flag_reads[-1])
 
@@ -4661,9 +4972,8 @@ def dedup_split(torch, ell_ops, st, spares, nbytes) -> dict:
     """X2 + K5 (``mesh_dedup``) split by kernel, each part beside its own
     bound and plain version: each kernel's mean duration in a trace
     (``kernel_ms``: DEDUP_SPLIT_CALLS calls and a warm one, each on its
-    own copy of the operands as they were), X2's
-    (``mark_kernel``) and K5's three (count, scan, compact) summed; the plain parts (``mesh_mark_ref`` on each
-    member, then ``pair_compact_ref`` with the shard's row base, as
+    own copy of the operands as they were), X2's (``mark_kernel``) and
+    K5's one pass; the plain parts (``mesh_mark_ref`` on each member, then ``pair_compact_ref`` with the shard's row base, as
     ``mesh_dedup_ref`` runs them) timed by events on ``spares[0]``;
     ``nbytes`` = (X2's bytes, K5's) of this call, as ``dedup_pre``
     counts them.  Returns the mesh_dedup row's ``kernel_ms`` and
@@ -4672,7 +4982,7 @@ def dedup_split(torch, ell_ops, st, spares, nbytes) -> dict:
     per = kernel_ms(torch, ell_ops, lambda: ell_ops.mesh_dedup(*next(it)),
                     DEDUP_SPLIT_CALLS)
     x2 = [ms for n, (ms, _seen) in per.items() if "::mark_kernel" in n]
-    if len(x2) != 1 or len(per) != 4:
+    if len(x2) != 1 or len(per) != 2:
         raise AssertionError(f"mesh_dedup's kernels: {sorted(per)}")
     recv, _st, g, marks, c_out, ids, qid, ctl = spares[0][:8]
     chunk, W = st.chunk, (st.chunk + 31) // 32
@@ -4798,7 +5108,7 @@ def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
             f"{fn.__name__} k={st.k}")
 
     def dedup_first(spares):
-        row = launches(ell_ops.mesh_dedup, 4, {
+        row = launches(ell_ops.mesh_dedup, 2, {
             "mesh_dedup": 1, "mesh_mark": 1, "pair_compact": 1})(spares)
         row.update(dedup_split(torch, ell_ops, st, spares[1:],
                                ctx["dedup_bytes"]))
@@ -4812,7 +5122,7 @@ def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
                                            {"mesh_route": 1}), spares=1),
         "mesh_dedup": Probe(torch, "mesh_dedup", ell_ops.mesh_dedup,
                             ell_ops.mesh_dedup_ref, dedup_pre,
-                            lib=dedup_lib,
+                            lib=dedup_lib, same=_scan_free(torch, 11),
                             first=dedup_first if first else None,
                             spares=2 + DEDUP_SPLIT_CALLS + 1),
         "mesh_agree": Probe(torch, "mesh_agree", ell_ops.mesh_agree,
@@ -4943,6 +5253,14 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
                 not ovf and not np.array_equal(pub_h, want_h)):
             raise AssertionError(f"ell_ops.mesh_sparse_go k={k} {label} "
                                  f"!= its plain version")
+        for r in range(K5_REPEATS):         # K5's look-back, call after call
+            rep_h = mesh.stacked(run()).cpu().numpy()
+            # on overflow only the flags are defined (X1 keeps any cap of
+            # a block's keys)
+            if not np.array_equal(rep_h[:, 1], pub_h[:, 1]) or (
+                    not ovf and not np.array_equal(rep_h, pub_h)):
+                raise AssertionError(f"mesh_sparse_go k={k} {label}: repeat "
+                                     f"{r} differs")
         ev = cuda_ms(torch, run, 5, 1)
         dev_ms = mesh_queued_ms(torch, run, f"mesh_sparse_go k={k} {label}",
                                 4)
@@ -5596,6 +5914,14 @@ def main(argv=None) -> int:
             mix_starts[mix_starts >= 0])
         for label, v in sparse_runs.items():
             log(f"[kernel] {label} equal=True " + json.dumps(v))
+        k5 = k5_caller_check(torch, ell_ops, ix, tables, rng)
+        log("[kernel] pair_compact in each caller's form equal=True "
+            + json.dumps(k5))
+        sparse_rows["pair_compact"].update(
+            callers_held=k5, c0_2048={
+                a: sparse_runs["c0_2048_s3_plain"]["kernels"][
+                    "pair_compact"][a]
+                for a in ("ms", "plain_ms", "bound_ms", "calls")})
         log(f"[kernel] sparse and adaptive phase "
             f"{time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()

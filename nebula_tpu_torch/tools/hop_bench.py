@@ -66,9 +66,13 @@ traced under ``torch.profiler``) and checked C calls a call.  A
 checkout from before the card stages (``ell_ops.HOP_STAGES``) runs M1 a
 shard and replicates by ``mesh.replicate_rows``; each checkout is
 called in its own form.
+K5 (``pair_compact``) alone at c0 256 and 2048 on the mark the first
+hop leaves, device and event times and its kernels from a trace; and
+``ell_bfs_sharded`` beside the single-card ``ell_bfs`` on the same
+starts and targets, event times, both split by kernel from a trace.
 ``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
 and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``int8``,
-``mesh``, ``mesh_sparse``.
+``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -104,7 +108,7 @@ BFS_CALLS = 3                  # back-to-back calls of a timed BFS
 MESH_QUEUED = 4                # mesh_sparse_go calls queued behind a spin
 MESH_SPIN = 16 * SPIN_CYCLES   # about 64 ms: four calls' host enqueue
 ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "int8", "mesh",
-              "mesh_sparse")
+              "mesh_sparse", "k5", "bfs_pair")
 SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
 LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
 # chip_smoke.py's predicate 3 and its seeded columns (fused_columns)
@@ -584,6 +588,106 @@ def sparse_rows(torch, ell_ops, rt, m, ix, tables, over, rng, dev):
     return res
 
 
+def k5_rows(torch, ell_ops, rt, m, ix, tables, over, rng, dev):
+    """K5 (``pair_compact``) alone at c0 256 (8 queries) and c0 2048
+    (1024 queries, about 8,200 chunks of 2048 words), on the mark
+    bitmap the first hop of ``sparse_go`` leaves (K4 from the batch's
+    starts), cut at that hop's cap: held equal to its plain version,
+    then the device time (calls queued behind a spin) and event time of
+    calls that keep the bitmap (``zero`` off), and the device time by
+    kernel from one trace.  A checkout with K5's look-back state
+    (``ell_ops.compact_state_words``) is given one zeroed state for all
+    its calls; an older one allocates its block sums itself."""
+    import numpy as np
+    from nebula_tpu_torch.tpu.ell import sparse_caps
+    deg_h = rt._deg_host(m, tuple(over))
+    pool = np.nonzero(deg_h > 0)[0]
+    ecnt, e0 = rt._hub_expansion_dev(m, ix)
+    R1w = (ix.n_rows + 32) // 32
+    state = hasattr(ell_ops, "compact_state_words")
+    res = {}
+    for c0, nq in ((SPARSE_C0, SPARSE_QUERIES), (2048, 1024)):
+        new = ix.perm[rng.choice(pool, nq, replace=False)].astype(np.int32)
+        ids = torch.from_numpy(new).to(dev)
+        qid = torch.arange(nq, dtype=torch.int32, device=dev)
+        caps = sparse_caps(c0, max(tables.D), 3, 1 << 17)
+        words = nq * R1w
+        mark = torch.zeros(words, dtype=torch.int32, device=dev)
+        ctl = torch.zeros(8, dtype=torch.int64, device=dev)
+        ell_ops.sparse_expand(ids, qid, ecnt, e0, tables, over, mark, R1w,
+                              ctl, 1 << 20)
+        c_out = caps[1]
+        out = torch.empty((2, c_out), dtype=torch.int32, device=dev)
+        extra = ()
+        if state:
+            extra = (torch.zeros(ell_ops.compact_state_words(words),
+                                 dtype=torch.int64, device=dev),)
+
+        def k5():
+            ell_ops.pair_compact(mark, R1w, c_out, out[0], out[1], ctl, -1,
+                                 ix.n_rows, None, None, False, 0, *extra)
+        k5()
+        want = out.clone()
+        ell_ops.pair_compact_ref(mark.clone(), R1w, c_out, want[0], want[1],
+                                 ctl.clone(), -1, ix.n_rows, None, None,
+                                 False)
+        _equal(torch, f"pair_compact c0={c0}", (out, want))
+        set_bits = int(ctl[0])
+        res[f"pair_compact_c0_{c0}"] = dict(
+            ms=queued_ms(torch, k5, QUEUED),
+            event_ms=cuda_ms(torch, k5, BACK_TO_BACK), words=words,
+            set_bits=set_bits, c_out=c_out, look_back_state=state,
+            bound_ms=(4 * words + 8 * c_out) / 3.35e9,
+            **kernel_split(torch, ell_ops, k5))
+    return res
+
+
+def bfs_pair_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng, dev):
+    """``ell_bfs_sharded`` at k = MESH_K on this card beside the single-
+    card ``ell_bfs`` on the same starts and targets (one random start
+    and target a lane, UPTO 5, stop when found) at W = 16 and 128, both
+    held equal: event times, and each one's device time by kernel from
+    one trace, the flag reads included."""
+    import numpy as np
+    from nebula_tpu_torch.tpu import mesh as pmesh
+    from nebula_tpu_torch.tpu.ell import mesh_tables
+    k = MESH_K
+    mt = mesh_tables(ix, pmesh.PartsMesh([dev] * k))
+    es, hs = [eslot] * k, [hrows] * k
+    R1 = ix.n_rows + 1
+    res = {}
+    for W in (16, 128):
+        B = 8 * W
+        f0 = torch.zeros((R1, W), dtype=torch.uint8, device=dev)
+        t0 = torch.zeros_like(f0)
+        lane = torch.arange(B, device=dev)
+        for f in (f0, t0):
+            rows = torch.from_numpy(ix.perm[rng.integers(0, ix.n, B)]
+                                    .astype(np.int64)).to(dev)
+            f.view(-1).index_put_((rows * W + lane // 8,),
+                                  (1 << (lane % 8)).to(torch.uint8),
+                                  accumulate=True)
+
+        def mesh():
+            return ell_ops.ell_bfs_sharded(f0, t0, mt, es, hs, over, 5)
+
+        def one():
+            return ell_ops.ell_bfs(f0.clone(), t0, tables, eslot, hrows,
+                                   over, 5)
+        (dm, lm), (d1, l1) = mesh(), one()
+        _equal(torch, f"ell_bfs_sharded W={W}", (dm, d1))
+        if lm != l1:
+            raise AssertionError(f"ell_bfs_sharded ran {lm} levels, "
+                                 f"ell_bfs {l1}")
+        res[f"bfs_pair_w{W}"] = dict(
+            levels=lm, ell_bfs_sharded_event_ms=cuda_ms(torch, mesh,
+                                                        BFS_CALLS, 1),
+            ell_bfs_event_ms=cuda_ms(torch, one, BFS_CALLS, 1),
+            ell_bfs_sharded_split=kernel_split(torch, ell_ops, mesh),
+            ell_bfs_split=kernel_split(torch, ell_ops, one))
+    return res
+
+
 def fused_rows(torch, edge_ops, rt, m, rng, dev):
     """``go_filtered`` from one start at 3 steps, predicate 3, pushed."""
     import numpy as np
@@ -698,7 +802,11 @@ def main(argv=None) -> int:
         ("mesh", lambda: mesh_rows(torch, ell_ops, ix, tables, eslot, hrows,
                                    over, rng, dev)),
         ("mesh_sparse", lambda: mesh_sparse_rows(torch, ell_ops, ix, tables,
-                                                 over, rng, dev)))
+                                                 over, rng, dev)),
+        ("k5", lambda: k5_rows(torch, ell_ops, rt, m, ix, tables, over, rng,
+                               dev)),
+        ("bfs_pair", lambda: bfs_pair_rows(torch, ell_ops, ix, tables, eslot,
+                                           hrows, over, rng, dev)))
     try:
         for name, fn in groups:
             if name in rows:

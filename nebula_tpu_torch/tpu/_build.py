@@ -157,10 +157,10 @@ def load() -> ctypes.CDLL:
         lib.sg_expand.argtypes = [vp, vp, i64, vp, vp, vp, vp, p64, i32,
                                   p32, i32, i64, i64, i64, vp, vp, i64,
                                   i32, vp]
-        lib.sg_compact_blocks.argtypes = [i64]
-        lib.sg_compact_blocks.restype = i64
+        lib.sg_compact_state.argtypes = [i64]
+        lib.sg_compact_state.restype = i64
         lib.sg_compact.argtypes = [vp, i64, i64, i64, vp, vp, vp, vp, i64,
-                                   vp, vp, i32, i64, i64, vp]
+                                   vp, vp, i32, i64, i64, vp, i64, vp]
         lib.sg_reduce.argtypes = [i32, vp, vp, i64, vp, vp, i32, i64, i64,
                                   i64, i64, i64, i64, vp, vp, vp]
         lib.ad_switch.argtypes = [vp, i64, vp, i64, i64, vp, vp, vp]
@@ -203,7 +203,8 @@ def load() -> ctypes.CDLL:
         from .ell_ops import _MeshCard, _MeshHop, _ShardAbsorb
         lib.ell_mesh_hop.argtypes = [i32, vp, vp, i64, _MeshHop, p64, i32,
                                      i64, i32, i32, p32, i32, vp, vp, i64,
-                                     i64, i64, vp, p32]
+                                     i64, i64, vp, vp, vp, i32, i32, i32,
+                                     vp, p32]
         lib.ell_shard_absorb.argtypes = [vp, vp, vp, vp, i64, _ShardAbsorb,
                                          vp]
         # the frontier-sharded mesh: csrc/mesh_sparse.cu (X1-X3, the

@@ -497,10 +497,15 @@ __global__ void go_count_kernel(const uint32_t* __restrict__ out,
 // nxt instead: d = 0 on its bits and INF everywhere else (every d entry
 // written, as four 16-byte stores per word), the frontier unchanged.
 // Lanes of one row word belong to one thread, so no two threads touch
-// one d entry; the flags only ever go 0 -> 1.  Bound: bytes — nxt read
-// (and written where it changes), the targets read, and the d entries
-// of set bits (all of d on the first pass).
+// one d entry; the flags only ever go 0 -> 1.  The mesh's level stage
+// runs it on a card group's replica slab: nxt is the first of `members`
+// equal replicas, `rep` words apart, and pack(newly) goes into every
+// one of them where it changed (one replica on one card).  Bound: bytes
+// — nxt read (and written where it changes, into every replica), the
+// targets read, and the d entries of set bits (all of d on the first
+// pass).
 __global__ void bfs_level_kernel(uint32_t* __restrict__ nxt,
+                                 long long rep, int members,
                                  const uint32_t* __restrict__ tp,
                                  uint16_t* __restrict__ d,
                                  int32_t* __restrict__ flags, int step,
@@ -543,7 +548,8 @@ __global__ void bfs_level_kernel(uint32_t* __restrict__ nxt,
                     newly |= 1u << k;
                 }
             }
-            if (newly != v) nxt[i] = newly;
+            if (newly != v)
+                for (int m = 0; m < members; ++m) nxt[m * rep + i] = newly;
             bits = t & ~v;              // bits of v are no longer INF
             while (bits) {
                 const int k = __ffs(bits) - 1;
@@ -707,8 +713,32 @@ int ell_bfs_level(void* nxt, const void* tp, void* d, void* flags,
     const int W4 = (int)(W / 4);
     bfs_level_kernel<<<grid_for(R1 * W4), kThreads, 0,
                        (cudaStream_t)stream>>>(
-        (uint32_t*)nxt, (const uint32_t*)tp, (uint16_t*)d,
+        (uint32_t*)nxt, 0, 1, (const uint32_t*)tp, (uint16_t*)d,
         (int32_t*)flags, step, first, stop, R1, W4);
+    return (int)cudaGetLastError();
+}
+
+// The mesh BFS's level stage over a card group (called by ell_mesh.cu's
+// ell_mesh_hop, which checks the slab's geometry): slab, the group's
+// [members, R1, W] replicas, a replica every `stride` bytes, all equal;
+// the pass reads the first, updates the group's one depth matrix d
+// (int16 [R1, 8 * W], 16-byte aligned) against the group's targets tp
+// (uint8 [R1, W]), writes the new frontier into every replica and
+// raises the group's flags (int32 [2]); with `first` it only builds d
+// from the first replica.
+int ell_mesh_level(void* slab, int64_t stride, int members, const void* tp,
+                   void* d, void* flags, int step, int first, int stop,
+                   int64_t R1, int64_t W, void* stream) {
+    if (R1 <= 0 || W <= 0 || W % 4 != 0 || stride % 4 != 0 ||
+        members < 1 || members > hop::kCardShards || step < 0 ||
+        step >= 0x7FFE || ((uintptr_t)d & 15) != 0 ||
+        (((uintptr_t)slab | (uintptr_t)tp | (uintptr_t)flags) & 3) != 0)
+        return -1;
+    const int W4 = (int)(W / 4);
+    bfs_level_kernel<<<grid_for(R1 * W4), kThreads, 0,
+                       (cudaStream_t)stream>>>(
+        (uint32_t*)slab, stride / 4, members, (const uint32_t*)tp,
+        (uint16_t*)d, (int32_t*)flags, step, first, stop, R1, W4);
     return (int)cudaGetLastError();
 }
 

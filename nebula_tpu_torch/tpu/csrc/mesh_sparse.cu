@@ -92,7 +92,7 @@ struct MeshCard {
 // csrc/sparse_go.cu: K5 over a card's members
 extern "C" int sg_compact_card(void* mark, int64_t words, int64_t R1w,
                                int64_t c_out, void* ids_out, void* qid_out,
-                               int64_t ids_stride, void* boff, void* ctl,
+                               int64_t ids_stride, void* scan, void* ctl,
                                int64_t n_rows, int members,
                                const int64_t* bases, const int32_t* shards,
                                int k, void* const* slabs,
@@ -460,13 +460,14 @@ int mesh_route(int hub, MeshCard cd, const void* ids, const void* qid,
 
 // X2 then K5 for every member of a card.  recv: [members, k, 1 + cap];
 // mark: [members, words] uint32, W words a query row; ids_out /
-// qid_out: [members, ids_stride]; boff: K5's block sums (members *
-// sg_compact_blocks(words)); ctl: [members, 8]; slabs / caps / recvs:
-// the four exchange slabs K5's scan clears (null: absent) and which of
-// them are receive slabs.
+// qid_out: [members, ids_stride]; scan: K5's look-back state (members *
+// sg_compact_state(words) int64 words, zero before its first call);
+// ctl: [members, 8]; slabs / caps / recvs: the four exchange slabs K5's
+// finishing block clears (null: absent) and which of them are receive
+// slabs.  Two launches: X2, then K5.
 int mesh_dedup(MeshCard cd, const void* recv, int64_t cap, int64_t chunk,
                void* mark, int64_t W, int64_t words, int64_t c_out,
-               void* ids_out, void* qid_out, int64_t ids_stride, void* boff,
+               void* ids_out, void* qid_out, int64_t ids_stride, void* scan,
                void* ctl, int64_t n_rows, void* const* slabs,
                const int64_t* caps, const int32_t* recvs, void* stream) {
     if (!card_ok(cd) || cap <= 0 || chunk <= 0 || W <= 0 || words <= 0 ||
@@ -485,7 +486,7 @@ int mesh_dedup(MeshCard cd, const void* recv, int64_t cap, int64_t chunk,
         shards[y] = (int32_t)cd.shard[y];
     }
     return sg_compact_card(mark, words, W, c_out, ids_out, qid_out,
-                           ids_stride, boff, ctl, n_rows, cd.n, bases,
+                           ids_stride, scan, ctl, n_rows, cd.n, bases,
                            shards, cd.k, slabs, caps, recvs, stream);
 }
 

@@ -20,13 +20,16 @@
 //                      hub budget total.  Self mode marks (q, v) itself
 //                      (the UPTO union's and the adaptive bitmap's
 //                      start state).
-//   K5 pair_compact    per-block popcounts, one block's exclusive scan
-//                      of the block sums (the count, the cap and hub
-//                      budget checks, the sticky overflow), then the
-//                      first c_out set bits written in (q, v) order;
-//                      the words read are re-zeroed for the next hop,
-//                      and optionally ORed into the UPTO union bitmap
-//                      or copied into the adaptive state bitmap.
+//   K5 pair_compact    one pass, one launch: each chunk of the bitmap
+//                      read once, its bits counted and scanned, its
+//                      offset from a decoupled look-back over the
+//                      earlier chunks, then the first c_out set bits
+//                      written in (q, v) order; the block of the last
+//                      chunk does the count, the cap and hub budget
+//                      checks and the sticky overflow.  The words read
+//                      are re-zeroed for the next hop, and optionally
+//                      ORed into the UPTO union bitmap or copied into
+//                      the adaptive state bitmap.
 //   K6 pair_reduce     the output: the plain pair list in its layout,
 //                      the COUNT fold (per-query int32 sum of deg), or
 //                      the LIMIT cut (each query's shortest prefix whose
@@ -49,12 +52,12 @@
 // enqueues all of its launches: the per-call work on the host is one
 // ctypes call, and the host never waits on the card.  sg_program runs
 // ell.py:1222's program on a workspace the caller allocates once a call
-// (ctl, the mark bitmap, the UPTO union, K5's block sums, LIMIT's
-// scratch, two pair buffers), cleared by one memset.  ad_program runs
-// every hop of ell.py:1493's program with the mode chosen on the card,
-// as the reference's lax.cond chooses it: K7 writes the hop's mode word
-// into ctl, and every kernel of the sparse arm (K4, K5's three) and of
-// the dense arm (the layout change to and from lanes, ell_lanes.cu's
+// (ctl, the mark bitmap, the UPTO union, K5's look-back state, LIMIT's
+// scratch, two pair buffers), its first four cleared by one memset.
+// ad_program runs every hop of ell.py:1493's program with the mode
+// chosen on the card, as the reference's lax.cond chooses it: K7 writes
+// the hop's mode word into ctl, and every kernel of the sparse arm (K4,
+// K5) and of the dense arm (the layout change to and from lanes, ell_lanes.cu's
 // hop and merge) reads that word and returns at once when the hop is
 // not its arm's (its blocks still launch: the gated grid-stride kernels,
 // the layout change and the hop's gather, take a grid of a few blocks an
@@ -67,6 +70,8 @@
 // Bound on this card: bytes — K4 the live pairs' slot rows (8 bytes per
 // slot) and their bitmap words, K5 the bitmap words read (and zeroed)
 // plus the pairs written, K6 the pair list and the degrees it reads.
+
+#include <atomic>
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,8 +117,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 1024;            // single-block scans
-constexpr int kRounds = 8;                    // K5: words per thread
-constexpr long long kChunk = (long long)kThreads * kRounds;
 constexpr int kMaxBuckets = kSgBuckets;
 constexpr int kMaxOver = kSgOver;
 constexpr int kCardShards = 16;               // members of one launch
@@ -280,19 +283,155 @@ __global__ void sparse_expand_kernel(const int32_t* __restrict__ ids,
 }
 
 // ---------------------------------------------------------------- K5
-// Every K5 kernel runs once for all the members of a launch
-// (blockIdx.y; one member on one card): member y's bitmap is mark + y *
-// words, its block sums boff + y * nb, its ctl ctl + y * kCtlWords, its
-// pairs ids_out / qid_out + y * ids_stride.
+// One launch covers every member of a call (blockIdx.y; one member on
+// one card): member y's bitmap is mark + y * words, its look-back state
+// scan + y * scan_stride, its ctl ctl + y * kCtlWords, its pairs
+// ids_out / qid_out + y * ids_stride.
+//
+// A member's bitmap is cut into chunks of kChunk words, kWordsPer
+// contiguous words a thread (16-byte loads; twice that on a bitmap of
+// kWideWords or more), and each word is read once.  A block takes a
+// chunk by an atomic ticket, so it only ever waits on chunks that
+// started before it; it counts the chunk's bits,
+// scans the counts over the block, publishes the chunk's aggregate, and
+// learns the bits before the chunk by a decoupled look-back over the
+// earlier chunks' descriptors, then publishes its inclusive prefix.
+// Still holding its words in registers, it writes its pairs (the first
+// c_out overall, in (q, v) order) and zeroes, ORs or copies the words.
+// The block that takes the member's last chunk knows the count: it does
+// the member's checks and clears the exchange blocks; the pad tail past
+// the count is written once the count is known, by every block of the
+// member's grid row, each waiting on the last chunk's inclusive prefix
+// (at 2^17 pairs a quarter of the time the finishing block alone took
+// on an H100).  The blocks loop over tickets until none is left, so
+// the grid need not be resident: a block waits only after every chunk
+// has been taken by a running block.
 constexpr int kCtlWords = 8;
+constexpr int kWordsPer = 8;                  // K5: words a thread
+constexpr long long kChunk = (long long)kThreads * kWordsPer;
+
+// The look-back state of a member: kScanHead words — the ticket, the
+// count of the launch's blocks that have finished, the tag of the last
+// call — then one descriptor a chunk: flag (aggregate or inclusive, 2
+// bits) | tag (kTagBits) | value (kValBits).  A call's tag is the last
+// call's plus one (1 .. kTagMask), so a descriptor an earlier call left
+// on the same state never reads as ready; the call's last block to
+// finish resets the ticket and the count and records the tag.  The
+// state must be all zero before its first call: the programs clear it
+// with their workspace's memset (one memset serves every hop).
+constexpr int kScanHead = 4;
+constexpr int kTicket = 0, kDoneBlocks = 1, kLastTag = 2;
+constexpr int kValBits = 36, kTagBits = 26;
+constexpr unsigned long long kValMask = (1ULL << kValBits) - 1;
+constexpr unsigned long long kTagMask = (1ULL << kTagBits) - 1;
+constexpr unsigned long long kAggregate = 1ULL << 62;
+constexpr unsigned long long kInclusive = 2ULL << 62;
+
+__device__ __forceinline__ unsigned long long desc_word(
+    unsigned long long flag, unsigned long long tag, long long v) {
+    return flag | (tag << kValBits) | ((unsigned long long)v & kValMask);
+}
+
+__device__ __forceinline__ unsigned long long read_desc(
+    const unsigned long long* p) {
+    return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ void write_desc(unsigned long long* p,
+                                           unsigned long long v) {
+    *reinterpret_cast<volatile unsigned long long*>(p) = v;
+}
+
+__device__ __forceinline__ bool desc_ready(unsigned long long d,
+                                           unsigned long long tag) {
+    return (d >> 62) != 0 && ((d >> kValBits) & kTagMask) == tag;
+}
+
+// Warp 0 of a block: the bits of every chunk before chunk j (> 0), the
+// descriptors of j - 1, j - 2, ... summed 32 at a time back to the
+// nearest inclusive one; spins while one of a window is not ready.
+__device__ long long look_back(const unsigned long long* desc, long long j,
+                               unsigned long long tag) {
+    const int lane = threadIdx.x & 31;
+    long long sum = 0;
+    for (long long top = j - 1;; top -= 32) {
+        const long long i = top - lane;
+        unsigned long long d;
+        bool ok;
+        do {            // before chunk 0: an inclusive prefix of 0
+            d = i >= 0 ? read_desc(desc + i) : desc_word(kInclusive, tag, 0);
+            ok = desc_ready(d, tag);
+        } while (!__all_sync(0xFFFFFFFFu, ok));
+        const unsigned incl = __ballot_sync(0xFFFFFFFFu, (d >> 62) == 2);
+        const int last = incl ? __ffs(incl) - 1 : 31;
+        long long x = lane <= last ? (long long)(d & kValMask) : 0;
+        for (int off = 16; off > 0; off >>= 1)
+            x += __shfl_xor_sync(0xFFFFFFFFu, x, off);
+        sum += x;
+        if (incl) return sum;
+    }
+}
+
+// A thread's run of N words at w (< words): 16-byte accesses when the
+// member's row is 16-byte aligned (vec) and the run lies whole inside
+// it, else word by word.
+template <int N>
+__device__ __forceinline__ void load_run(const uint32_t* p, long long w,
+                                         long long words, bool vec,
+                                         uint32_t (&v)[N]) {
+    if (vec && w + N <= words) {
+#pragma unroll
+        for (int h = 0; h < N; h += 4) {
+            const uint4 a = *reinterpret_cast<const uint4*>(p + w + h);
+            v[h] = a.x; v[h + 1] = a.y; v[h + 2] = a.z; v[h + 3] = a.w;
+        }
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+        v[k] = w + k < words ? p[w + k] : 0u;
+}
+
+template <int N>
+__device__ __forceinline__ void store_run(uint32_t* p, long long w,
+                                          long long words, bool vec,
+                                          const uint32_t (&v)[N]) {
+    if (vec && w + N <= words) {
+#pragma unroll
+        for (int h = 0; h < N; h += 4)
+            *reinterpret_cast<uint4*>(p + w + h) =
+                make_uint4(v[h], v[h + 1], v[h + 2], v[h + 3]);
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+        if (w + k < words) p[w + k] = v[k];
+}
+
+// The run's nonzero words (by 16-byte quarters where vec) set to zero.
+template <int N>
+__device__ __forceinline__ void zero_run(uint32_t* p, long long w,
+                                         long long words, bool vec,
+                                         const uint32_t (&v)[N]) {
+    if (vec && w + N <= words) {
+#pragma unroll
+        for (int h = 0; h < N; h += 4)
+            if (v[h] | v[h + 1] | v[h + 2] | v[h + 3])
+                *reinterpret_cast<uint4*>(p + w + h) = make_uint4(0, 0, 0, 0);
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+        if (w + k < words && v[k]) p[w + k] = 0u;
+}
 
 // The members of a frontier-sharded card, by value: each member's row
 // base (its shard's first row; 0 on one card), and the exchange blocks
-// its hop consumed, which the scan clears: member y's blocks [y * k,
-// (y + 1) * k) of each slab, int64 [1 + cap[j]] each, the count first.
-// A receive slab's blocks from other shards (the member's own block
-// excepted: shard[y]) are counted first into ctl[kXBytes], 8 bytes a
-// count and a kept key.  k = 0: nothing to clear.
+// its hop consumed, which the finishing block clears: member y's blocks
+// [y * k, (y + 1) * k) of each slab, int64 [1 + cap[j]] each, the count
+// first.  A receive slab's blocks from other shards (the member's own
+// block excepted: shard[y]) are counted first into ctl[kXBytes], 8
+// bytes a count and a kept key.  k = 0: nothing to clear.
 struct CardCompact {
     long long base[kCardShards];
     long long* slab[kClearSlabs];
@@ -301,26 +440,6 @@ struct CardCompact {
     int shard[kCardShards];
     int k;
 };
-
-// Pass 1: popcount of each block's kChunk words -> boff[block].
-__global__ void pair_count_kernel(const uint32_t* __restrict__ mark,
-                                  long long words, long long nb,
-                                  unsigned long long* __restrict__ boff,
-                                  const long long* __restrict__ gate,
-                                  long long want) {
-    if (gated_off(gate, want)) return;
-    mark += blockIdx.y * words;
-    boff += blockIdx.y * nb;
-    const long long w0 = (long long)blockIdx.x * kChunk;
-    long long c = 0;
-    for (int r = 0; r < kRounds; ++r) {
-        const long long w = w0 + (long long)r * kThreads + threadIdx.x;
-        if (w < words) c += __popc(mark[w]);
-    }
-    long long total;
-    block_excl_scan(c, &total);
-    if (threadIdx.x == 0) boff[blockIdx.x] = (unsigned long long)total;
-}
 
 // One block of kScanThreads: vals[0..n) -> their exclusive prefix sums,
 // in place; returns the total.  Each thread owns a contiguous run.
@@ -340,23 +459,16 @@ __device__ long long scan_inplace(unsigned long long* vals, long long n) {
     return total;
 }
 
-// Pass 2 (one block a member): block offsets, the unique count into
-// ctl[kCnt], and the sticky overflow: count > c_out, or (ex >= 0) the
-// hop's hub budget total > ex or a clamped per-pair count; the budget
-// resets for the next hop.  With a card's exchange blocks (cc.k > 0):
-// their counts cleared (the bytes of the received ones counted first)
-// and the hub runs' total reset, for the next hop's router.
-__global__ void pair_scan_kernel(unsigned long long* __restrict__ boff,
-                                 long long nb, long long c_out,
-                                 long long ex, long long* __restrict__ ctl,
-                                 CardCompact cc,
-                                 const long long* __restrict__ gate,
-                                 long long want) {
-    if (gated_off(gate, want)) return;
-    const int y = (int)blockIdx.y;
-    boff += y * nb;
-    ctl += y * kCtlWords;
-    const long long total = scan_inplace(boff, nb);
+// The member's checks, by the block that took its last chunk: the unique
+// count into ctl[kCnt], and the sticky overflow: count > c_out, or (ex
+// >= 0) the hop's hub budget total > ex or a clamped per-pair count;
+// the budget resets for the next hop.  With a card's exchange blocks
+// (cc.k > 0): their counts cleared (the bytes of the received ones
+// counted first) and the hub runs' total reset, for the next hop's
+// router.
+__device__ void compact_finish(long long total, long long c_out,
+                               long long ex, long long* ctl,
+                               const CardCompact& cc, int y) {
     if (threadIdx.x == 0) {
         ctl[kCnt] = total;
         bool ovf = total > c_out;
@@ -384,71 +496,162 @@ __global__ void pair_scan_kernel(unsigned long long* __restrict__ boff,
     }
 }
 
-// Pass 3: the first c_out set bits in word order ((q, v) order) as
+// K5: the first c_out set bits in word order ((q, v) order) as
 // (ids_out, qid_out) pairs, the member's row base added to every vertex
 // (a frontier-sharded shard's first row; 0 on one card); positions past
-// the count get the pads (n_rows, BIG_Q).  Each word read is zeroed (zero), ORed into uni, or
-// copied into copy_to, as asked.  qid_out may be null.
-__global__ void pair_compact_kernel(uint32_t* __restrict__ mark,
-                                    long long words, long long R1w,
-                                    long long c_out,
-                                    int32_t* __restrict__ ids_out,
-                                    int32_t* __restrict__ qid_out,
-                                    long long ids_stride,
-                                    const unsigned long long* __restrict__
-                                        boff,
-                                    long long nb,
-                                    const long long* __restrict__ ctl,
-                                    uint32_t* __restrict__ uni,
-                                    uint32_t* __restrict__ copy_to,
-                                    int zero, long long n_rows,
-                                    CardCompact cc,
-                                    const long long* __restrict__ gate,
-                                    long long want) {
+// the count, up to c_out, get the pads (n_rows, BIG_Q).  Each word read
+// is zeroed (zero), ORed into uni, or copied into copy_to, as asked.
+// qid_out may be null.  nb = ceil(words / chunk) chunks a member, of
+// kThreads * WPT words each.
+template <int WPT>
+__global__ void __launch_bounds__(kThreads)
+pair_compact_kernel(uint32_t* __restrict__ mark, long long words,
+                    long long R1w, long long c_out,
+                    int32_t* __restrict__ ids_out,
+                    int32_t* __restrict__ qid_out, long long ids_stride,
+                    unsigned long long* __restrict__ scan,
+                    long long scan_stride, long long nb,
+                    long long* __restrict__ ctl, long long ex,
+                    uint32_t* __restrict__ uni,
+                    uint32_t* __restrict__ copy_to, int zero,
+                    long long n_rows, CardCompact cc,
+                    const long long* __restrict__ gate, long long want) {
     if (gated_off(gate, want)) return;
+    constexpr long long chunk = (long long)kThreads * WPT;
+    __shared__ long long s_ticket, s_before;
+    __shared__ unsigned long long s_tag;
     const int y = (int)blockIdx.y;
     const long long row_base = cc.base[y];
     mark += y * words;
     ids_out += y * ids_stride;
     if (qid_out) qid_out += y * ids_stride;
-    boff += y * nb;
     ctl += y * kCtlWords;
     if (uni) uni += y * words;
     if (copy_to) copy_to += y * words;
-    long long base = (long long)boff[blockIdx.x];
-    const long long w0 = (long long)blockIdx.x * kChunk;
-    for (int r = 0; r < kRounds; ++r) {
-        const long long w = w0 + (long long)r * kThreads + threadIdx.x;
-        const uint32_t v = w < words ? mark[w] : 0u;
-        long long round_total;
-        long long pos = base + block_excl_scan(__popc(v), &round_total);
-        if (v != 0u && pos < c_out) {
-            const long long q = w / R1w;
-            const long long vb = (w - q * R1w) * 32;
-            uint32_t bits = v;
+    unsigned long long* head = scan + y * scan_stride;
+    unsigned long long* desc = head + kScanHead;
+    const bool vm = ((uintptr_t)mark & 15) == 0;
+    const bool vu = ((uintptr_t)uni & 15) == 0;
+    const bool vc = ((uintptr_t)copy_to & 15) == 0;
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) s_tag = head[kLastTag] % kTagMask + 1;
+    long long total = -1;         // the count, in the last chunk's block
+    for (;;) {
+        if (threadIdx.x == 0)
+            s_ticket = (long long)atomicAdd(head + kTicket, 1ULL);
+        __syncthreads();
+        const long long j = s_ticket;
+        const unsigned long long tag = s_tag;
+        if (j >= nb) break;
+        const long long w = j * chunk + (long long)threadIdx.x * WPT;
+        uint32_t v[WPT];
+        load_run(mark, w, words, vm, v);
+        int c = 0;
+#pragma unroll
+        for (int k = 0; k < WPT; ++k) c += __popc(v[k]);
+        long long agg;
+        const long long excl = block_excl_scan(c, &agg);
+        if (threadIdx.x < 32) {
+            long long before = 0;
+            if (j == 0) {
+                if (lane == 0)
+                    write_desc(desc, desc_word(kInclusive, tag, agg));
+            } else {
+                if (lane == 0)
+                    write_desc(desc + j, desc_word(kAggregate, tag, agg));
+                before = look_back(desc, j, tag);
+                if (lane == 0)
+                    write_desc(desc + j,
+                               desc_word(kInclusive, tag, before + agg));
+            }
+            if (lane == 0) s_before = before;
+        }
+        __syncthreads();
+        const long long before = s_before;
+        if (j == nb - 1) total = before + agg;
+        long long pos = before + excl;
+        for (int k = 0; k < WPT && pos < c_out; ++k) {
+            uint32_t bits = v[k];
+            if (!bits) continue;
+            const long long q = (w + k) / R1w;
+            const long long vb = (w + k - q * R1w) * 32;
             while (bits && pos < c_out) {
-                const int k = __ffs(bits) - 1;
+                const int b = __ffs(bits) - 1;
                 bits &= bits - 1u;
-                ids_out[pos] = (int32_t)(row_base + vb + k);
+                ids_out[pos] = (int32_t)(row_base + vb + b);
                 if (qid_out) qid_out[pos] = (int32_t)q;
                 ++pos;
             }
         }
         if (w < words) {
-            if (uni) uni[w] |= v;
-            if (copy_to) copy_to[w] = v;
-            if (zero && v) mark[w] = 0u;
+            if (uni) {
+                uint32_t u[WPT];
+                load_run(uni, w, words, vu, u);
+#pragma unroll
+                for (int k = 0; k < WPT; ++k) u[k] |= v[k];
+                store_run(uni, w, words, vu, u);
+            }
+            if (copy_to) store_run(copy_to, w, words, vc, v);
+            if (zero) zero_run(mark, w, words, vm, v);
         }
-        base += round_total;
+        __syncthreads();                 // s_ticket and s_before reused
     }
-    const long long total = ctl[kCnt];
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         g < c_out; g += stride) {
-        if (g < total) continue;
+    const unsigned long long tag = s_tag;
+    if (total >= 0) compact_finish(total, c_out, ex, ctl, cc, y);
+    if (total < 0) {                     // wait for the last chunk's prefix
+        if (threadIdx.x == 0) {
+            unsigned long long d;
+            do {
+                d = read_desc(desc + nb - 1);
+            } while (!desc_ready(d, tag) || (d >> 62) != 2);
+            s_before = (long long)(d & kValMask);
+        }
+        __syncthreads();
+        total = s_before;
+    }
+    for (long long g = total + (long long)blockIdx.x * blockDim.x
+                       + threadIdx.x;
+         g < c_out; g += (long long)gridDim.x * blockDim.x) {
         ids_out[g] = (int32_t)n_rows;
         if (qid_out) qid_out[g] = kBigQ;
     }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        if (atomicAdd(head + kDoneBlocks, 1ULL) == gridDim.x - 1ULL) {
+            head[kTicket] = 0;
+            head[kDoneBlocks] = 0;
+            head[kLastTag] = tag;
+        }
+    }
+}
+
+// K5 on a bitmap of kWideWords words or more takes chunks of
+// kThreads * 16 words: half the chunks, so half the look-back chain, a
+// third faster at 16.8M words (1024 queries) on an H100; smaller ones
+// keep kChunk, a tenth faster at 131,200 words (8 queries).
+constexpr long long kWideWords = 1LL << 20;
+
+// K5's grid row a member: at most the blocks the card holds at once,
+// shared by the members (the blocks loop over the chunks' tickets); 0
+// when the device cannot be queried.
+template <int WPT>
+unsigned compact_blocks(long long nb, int members) {
+    static std::atomic<int> per_sm{0};
+    int per = per_sm.load(std::memory_order_relaxed);
+    if (per < 1) {
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per, pair_compact_kernel<WPT>, kThreads, 0) !=
+                cudaSuccess ||
+            per < 1)
+            return 0;
+        per_sm.store(per, std::memory_order_relaxed);
+    }
+    const long long sms = sm_count();
+    if (sms < 1) return 0;
+    long long most = (long long)per * sms / members;
+    if (most < 1) most = 1;
+    return (unsigned)(nb < most ? nb : most);
 }
 
 // ---------------------------------------------------------------- K6
@@ -715,13 +918,13 @@ __global__ void bitmap_from_lanes_kernel(const uint32_t* __restrict__ lanes,
 // workspace; ctl is its first 16 (int64 [8]); [0, zero) is cleared.
 enum SparsePlan {
     kPHops, kPNq, kPQmax, kPUpto, kPOp, kPLimit, kPCFin, kPCRed, kPPack,
-    kPCMax, kPMark, kPUni, kPBoff, kPScratch, kPBufs, kPZero, kPWords,
+    kPCMax, kPMark, kPUni, kPScan, kPScratch, kPBufs, kPZero, kPWords,
     kPHead
 };
 
 // ad_program's plan (ell_ops._adaptive_plan), the same way.
 enum AdaptivePlan {
-    kAHops, kAK, kAState, kACand, kAFr, kABoff, kALanes, kAZero, kAWords,
+    kAHops, kAK, kAState, kACand, kAScan, kAFr, kALanes, kAZero, kAWords,
     kAHead
 };
 
@@ -776,68 +979,78 @@ int sg_expand(const void* ids, const void* qid, int64_t c_in,
                          (cudaStream_t)stream);
 }
 
-// K5.  boff: uint64 scratch of sg_compact_blocks(words) entries.
-// ex < 0: no hub budget check (the union's and the adaptive
-// compaction).
-int64_t sg_compact_blocks(int64_t words) {
-    return (words + kChunk - 1) / kChunk;
+// K5's look-back state, int64 words a member, for a bitmap of `words`
+// words (ell_ops.compact_state_words).
+int64_t sg_compact_state(int64_t words) {
+    return kScanHead + (words + kChunk - 1) / kChunk;
 }
 
 // K5 for the members of one launch (cc: their row bases and the
 // exchange blocks to clear; one member and nothing to clear on one
-// card); boff: members * sg_compact_blocks(words) entries; gate / want:
-// the adaptive arm's mode word (null: always run).
+// card); scan: members * sg_compact_state(words) int64 words, zero
+// before its first call (it holds a descriptor a kChunk words, enough
+// for either chunk size); gate / want: the adaptive arm's mode word
+// (null: always run).  One launch.
 static int compact_launch(void* mark, int64_t words, int64_t R1w,
                           int64_t c_out, void* ids_out, void* qid_out,
-                          int64_t ids_stride, void* boff, void* ctl,
+                          int64_t ids_stride, void* scan, void* ctl,
                           int64_t ex, void* uni, void* copy_to, int zero,
                           int64_t n_rows, int members,
                           const CardCompact& cc, cudaStream_t s,
                           const long long* gate = nullptr,
                           long long want = 0) {
     if (words <= 0 || R1w <= 0 || c_out <= 0 || members < 1 ||
-        members > kCardShards)
+        members > kCardShards || scan == nullptr ||
+        (unsigned long long)words * 32 > kValMask)
         return -1;
-    const long long nb = sg_compact_blocks(words);
-    if (nb > (1LL << 30)) return -1;
-    const dim3 grid((unsigned)nb, (unsigned)members);
-    pair_count_kernel<<<grid, kThreads, 0, s>>>(
-        (const uint32_t*)mark, words, nb, (unsigned long long*)boff, gate,
-        want);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    pair_scan_kernel<<<dim3(1, (unsigned)members), kScanThreads, 0, s>>>(
-        (unsigned long long*)boff, nb, c_out, ex, (long long*)ctl, cc, gate,
-        want);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    pair_compact_kernel<<<grid, kThreads, 0, s>>>(
-        (uint32_t*)mark, words, R1w, c_out, (int32_t*)ids_out,
-        (int32_t*)qid_out, ids_stride, (const unsigned long long*)boff, nb,
-        (const long long*)ctl, (uint32_t*)uni, (uint32_t*)copy_to, zero,
-        n_rows, cc, gate, want);
+    const bool wide = words >= kWideWords;
+    const long long chunk = wide ? 2 * kChunk : kChunk;
+    const long long nb = (words + chunk - 1) / chunk;
+    const unsigned gx = wide ? compact_blocks<2 * kWordsPer>(nb, members)
+                             : compact_blocks<kWordsPer>(nb, members);
+    if (gx == 0) return (int)cudaErrorInvalidDevice;
+    const dim3 grid(gx, (unsigned)members);
+    if (wide)
+        pair_compact_kernel<2 * kWordsPer><<<grid, kThreads, 0, s>>>(
+            (uint32_t*)mark, words, R1w, c_out, (int32_t*)ids_out,
+            (int32_t*)qid_out, ids_stride, (unsigned long long*)scan,
+            sg_compact_state(words), nb, (long long*)ctl, ex,
+            (uint32_t*)uni, (uint32_t*)copy_to, zero, n_rows, cc, gate,
+            want);
+    else
+        pair_compact_kernel<kWordsPer><<<grid, kThreads, 0, s>>>(
+            (uint32_t*)mark, words, R1w, c_out, (int32_t*)ids_out,
+            (int32_t*)qid_out, ids_stride, (unsigned long long*)scan,
+            sg_compact_state(words), nb, (long long*)ctl, ex,
+            (uint32_t*)uni, (uint32_t*)copy_to, zero, n_rows, cc, gate,
+            want);
     return (int)cudaGetLastError();
 }
 
+// K5 alone; gate: null, or a device int64 word (the adaptive program's
+// mode word) that must equal `want` for the launch to run.
 int sg_compact(void* mark, int64_t words, int64_t R1w, int64_t c_out,
-               void* ids_out, void* qid_out, void* boff, void* ctl,
+               void* ids_out, void* qid_out, void* scan, void* ctl,
                int64_t ex, void* uni, void* copy_to, int zero,
-               int64_t n_rows, int64_t row_base, void* stream) {
+               int64_t n_rows, int64_t row_base, const void* gate,
+               int64_t want, void* stream) {
     CardCompact cc = {};
     cc.base[0] = row_base;
     return compact_launch(mark, words, R1w, c_out, ids_out, qid_out, 0,
-                          boff, ctl, ex, uni, copy_to, zero, n_rows, 1, cc,
-                          (cudaStream_t)stream);
+                          scan, ctl, ex, uni, copy_to, zero, n_rows, 1, cc,
+                          (cudaStream_t)stream, (const long long*)gate,
+                          want);
 }
 
 // K5 over the members of a frontier-sharded card (mesh_sparse.cu's
 // mesh_dedup): the marks [members, words], pairs [members, ids_stride],
-// ctl [members, 8]; bases / shards: each member's row base and shard;
-// slabs / caps / recv: the kClearSlabs exchange slabs [members, k, 1 +
-// cap] (null: none), whether each is a receive slab.
+// ctl [members, 8], scan [members, sg_compact_state(words)]; bases /
+// shards: each member's row base and shard; slabs / caps / recv: the
+// kClearSlabs exchange slabs [members, k, 1 + cap] (null: none),
+// whether each is a receive slab.
 int sg_compact_card(void* mark, int64_t words, int64_t R1w, int64_t c_out,
                     void* ids_out, void* qid_out, int64_t ids_stride,
-                    void* boff, void* ctl, int64_t n_rows, int members,
+                    void* scan, void* ctl, int64_t n_rows, int members,
                     const int64_t* bases, const int32_t* shards, int k,
                     void* const* slabs, const int64_t* caps,
                     const int32_t* recv, void* stream) {
@@ -857,7 +1070,7 @@ int sg_compact_card(void* mark, int64_t words, int64_t R1w, int64_t c_out,
         if (slabs[j] && caps[j] <= 0) return -1;
     }
     return compact_launch(mark, words, R1w, c_out, ids_out, qid_out,
-                          ids_stride, boff, ctl, -1, nullptr, nullptr, 1,
+                          ids_stride, scan, ctl, -1, nullptr, nullptr, 1,
                           n_rows, members, cc, (cudaStream_t)stream);
 }
 
@@ -949,17 +1162,23 @@ static bool inside(int64_t at, int64_t len, int64_t lo, int64_t hi) {
     return len >= 0 && at >= lo && at + len <= hi;
 }
 
+// true when [a, a + n) and [b, b + m) share a word
+static bool overlap(int64_t a, int64_t n, int64_t b, int64_t m) {
+    return n > 0 && m > 0 && a < b + m && b < a + n;
+}
+
 // The sparse GO program (ell.py:1222 make_batched_sparse_go_kernel, the
 // order of ell_ops._sparse_go_steps): one memset of the workspace's
-// [0, zero) words (ctl, the mark bitmap, the UPTO union); with UPTO the
-// starts' self-mark into the union; per hop K4 then K5 (count, scan,
-// compact) into the next pair buffer, the union ORed; with UPTO the
+// [0, zero) words (ctl, the mark bitmap, the UPTO union, K5's look-back
+// state, which every K5 call of the program shares); with UPTO the
+// starts' self-mark into the union; per hop K4 then K5 (one launch)
+// into the next pair buffer, the union ORed; with UPTO the
 // union's compaction to the final cap; then K6 in the asked form into
 // out (COUNT zeroes out first: its fold adds).  ids / qid: int32 [c0]
 // starts; deg: int32 [n_rows + 1] (COUNT and LIMIT); plan: host int64
 // [n_plan]; ws: int32 [plan[kPWords]]; out: int32 [out_words].
 // launched: host int32 [3], the K4, K5 and K6 calls made (each K5 call
-// three launches, a LIMIT K6 three), written however the call ends.
+// one launch, a LIMIT K6 three), written however the call ends.
 // Returns 0, a cudaError_t, or -1 for an argument the kernels cannot
 // take.
 int sg_program(SparseTables t, const void* ids, const void* qid,
@@ -983,12 +1202,15 @@ int sg_program(SparseTables t, const void* ids, const void* qid,
     const long long width = op == 1 ? qmax : op == 2 ? c_red : c_fin;
     const long long want_out = 2 + (op != 1 && !pack32 ? 2 : 1) * width;
     if (width < 1 || out_words != want_out) return -1;
-    const long long nb = sg_compact_blocks(words);
-    if (plan[kPMark] != 16 || plan[kPZero] < 16 + words * (upto ? 2 : 1) ||
+    const long long scan = 2 * sg_compact_state(words);   // int32 words
+    if (plan[kPMark] != 16 ||
+        plan[kPZero] < 16 + words * (upto ? 2 : 1) + scan ||
         !inside(plan[kPMark], words, 16, plan[kPZero]) ||
-        (upto && !inside(plan[kPUni], words, 16, plan[kPZero])) ||
-        plan[kPBoff] % 2 || !inside(plan[kPBoff], 2 * nb, plan[kPZero],
-                                    total) ||
+        (upto && (!inside(plan[kPUni], words, 16, plan[kPZero]) ||
+                  overlap(plan[kPUni], words, plan[kPMark], words))) ||
+        plan[kPScan] % 2 || !inside(plan[kPScan], scan, 16, plan[kPZero]) ||
+        overlap(plan[kPScan], scan, plan[kPMark], words) ||
+        (upto && overlap(plan[kPScan], scan, plan[kPUni], words)) ||
         plan[kPScratch] % 2 ||
         !inside(plan[kPScratch], op == 2 ? 2 * nq : 0, plan[kPZero],
                 total) ||
@@ -1004,7 +1226,7 @@ int sg_program(SparseTables t, const void* ids, const void* qid,
     long long* ctl = (long long*)w;
     uint32_t* mark = (uint32_t*)(w + plan[kPMark]);
     uint32_t* uni = upto ? (uint32_t*)(w + plan[kPUni]) : nullptr;
-    void* boff = w + plan[kPBoff];
+    void* scan_at = w + plan[kPScan];
     int32_t* bufs = w + plan[kPBufs];
     const bool hubs = t.ecnt != nullptr && t.e0 != nullptr &&
                       t.n_rows > t.n;
@@ -1032,7 +1254,8 @@ int sg_program(SparseTables t, const void* ids, const void* qid,
         ++launched[0];
         int32_t* nxt_i = bufs + (h % 2) * 2 * cmax;
         rc = compact_launch(mark, words, t.R1w, hp[0], nxt_i, nxt_i + cmax,
-                            0, boff, ctl, hp[1], uni, nullptr, 1, t.n_rows,
+                            0, scan_at, ctl, hp[1], uni, nullptr, 1,
+                            t.n_rows,
                             1, one, s);
         if (rc != 0) return rc;
         ++launched[1];
@@ -1043,7 +1266,7 @@ int sg_program(SparseTables t, const void* ids, const void* qid,
     if (upto) {
         int32_t* fin_i = bufs + (hops % 2) * 2 * cmax;
         rc = compact_launch(uni, words, t.R1w, c_fin, fin_i, fin_i + cmax,
-                            0, boff, ctl, -1, nullptr, nullptr, 0,
+                            0, scan_at, ctl, -1, nullptr, nullptr, 0,
                             t.n_rows, 1, one, s);
         if (rc != 0) return rc;
         ++launched[1];
@@ -1104,7 +1327,8 @@ int ad_bitmap_lanes(int to_lanes, void* bits, void* lanes, int64_t R1,
 // The adaptive single-query GO (ell.py:1493 make_adaptive_go_kernel, the
 // order of ell_ops._adaptive_steps), every hop enqueued with its mode
 // chosen on the card: one memset of the workspace's [0, zero) words
-// (ctl, the state bitmap, the candidate bitmap); the frontier list from
+// (ctl, the state bitmap, the candidate bitmap, K5's look-back state,
+// which every hop's K5 shares); the frontier list from
 // the starts and the state's self-mark; then per hop K7, the layout
 // change to lanes (only at the hop where the mode first turns dense),
 // the sparse arm (K4 and K5: the list pushed, the candidates compacted
@@ -1132,12 +1356,15 @@ int ad_program(SparseTables t, const void* starts, int64_t S,
     const long long hops = aplan[kAHops], K = aplan[kAK];
     const long long R1 = t.n_rows + 1, R1w = t.R1w;
     const long long total = aplan[kAWords], zero = aplan[kAZero];
-    const long long nb = sg_compact_blocks(R1w);
+    const long long scan = 2 * sg_compact_state(R1w);     // int32 words
     if (hops < 0 || K < 1 || S < 0 || S > K || aplan[kAState] != 16 ||
         !inside(aplan[kAState], R1w, 16, zero) ||
         !inside(aplan[kACand], R1w, 16, zero) ||
-        !inside(aplan[kAFr], K, zero, total) || aplan[kABoff] % 2 ||
-        !inside(aplan[kABoff], 2 * nb, zero, total) ||
+        overlap(aplan[kAState], R1w, aplan[kACand], R1w) ||
+        aplan[kAScan] % 2 || !inside(aplan[kAScan], scan, 16, zero) ||
+        overlap(aplan[kAScan], scan, aplan[kAState], R1w) ||
+        overlap(aplan[kAScan], scan, aplan[kACand], R1w) ||
+        !inside(aplan[kAFr], K, zero, total) ||
         !inside(aplan[kALanes], 2 * R1, zero, total))
         return -1;
     cudaStream_t s = (cudaStream_t)stream;
@@ -1146,7 +1373,7 @@ int ad_program(SparseTables t, const void* starts, int64_t S,
     uint32_t* state = (uint32_t*)(w + aplan[kAState]);
     uint32_t* cand = (uint32_t*)(w + aplan[kACand]);
     int32_t* fr = w + aplan[kAFr];
-    void* boff = w + aplan[kABoff];
+    void* scan_at = w + aplan[kAScan];
     uint32_t* lanes = (uint32_t*)(w + aplan[kALanes]);
     const long long* mode = ctl + kMode;
     const CardCompact one = {};
@@ -1178,9 +1405,9 @@ int ad_program(SparseTables t, const void* starts, int64_t S,
                            mode, kModeSparse, s);
         if (rc != 0) return rc;
         ++launched[0];
-        rc = compact_launch(cand, R1w, R1w, K, fr, nullptr, 0, boff, ctl,
-                            -1, nullptr, state, 1, t.n_rows, 1, one, s,
-                            mode, kModeSparse);
+        rc = compact_launch(cand, R1w, R1w, K, fr, nullptr, 0, scan_at,
+                            ctl, -1, nullptr, state, 1, t.n_rows, 1, one,
+                            s, mode, kModeSparse);
         if (rc != 0) return rc;
         ++launched[1];
         rc = ell_go_hop(f_in, nullptr, f_out, t.nbr, t.et, hop_plan,

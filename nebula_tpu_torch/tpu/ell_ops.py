@@ -14,7 +14,8 @@ replicated-frontier mesh's programs over row-sharded tables:
 ``ell_go_sharded`` (``ell.py:1712``), ``ell_bfs_sharded`` (``:1799``)
 and ``ell_absorb_sharded`` (``:1036``), with their hop ``mesh_hop``
 (M1, the hop's gather on each shard's chunk, M3, the row replication,
-and the hub merge, one call over every shard of a card), the absorb's
+and the hub merge, one call over every shard of a card; for the BFS
+also its level pass, once a card), the absorb's
 ``shard_absorb`` and ``or_many`` (``or_into`` its one-source call), and
 the frontier-sharded mesh's ``mesh_sparse_go`` (``ell.py:2052``) and
 ``mesh_sparse_bfs`` (``:2179``) with their card stages
@@ -82,7 +83,7 @@ LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
                             "mesh_bfs_stamp": 0, "mesh_sparse_go": 0,
                             "mesh_sparse_bfs": 0, "mesh_hop": 0,
                             "mesh_dedup": 0, "mesh_agree": 0,
-                            "mesh_emit": 0}
+                            "mesh_emit": 0, "mesh_level": 0}
 MAX_OVER = 32        # csrc kMaxOver
 MAX_BUCKETS = 32     # csrc kMaxBuckets
 MAX_COUNT_W = 1024   # csrc ell_go_count: W / 4 <= kThreads
@@ -1155,7 +1156,22 @@ CTL_CNT, CTL_OVF, CTL_HUB_TOTAL, CTL_HUB_BIG, CTL_MODE, CTL_SPARSE, \
 CTL_SIZE = 8
 CTL_WORDS = 2 * CTL_SIZE        # ctl's int32 words at a workspace's head
 MODE_SPARSE, MODE_DENSE = 1, 2  # the adaptive program's mode word
-COMPACT_CHUNK = 2048            # csrc kChunk: bitmap words per K5 block
+COMPACT_CHUNK = 2048            # csrc kChunk: bitmap words per K5 chunk
+COMPACT_HEAD = 4                # csrc kScanHead: K5's state words a member
+COMPACT_WIDE_WORDS = 1 << 20    # csrc kWideWords: doubled chunks from here
+
+
+def compact_state_words(words: int) -> int:
+    """K5's look-back state for a bitmap of ``words`` words: int64 words
+    a member (csrc sg_compact_state), the head and a descriptor a
+    chunk of COMPACT_CHUNK words (enough for the doubled chunks)."""
+    return COMPACT_HEAD + -(-words // COMPACT_CHUNK)
+
+
+def compact_chunk(words: int) -> int:
+    """The words of one K5 chunk on a bitmap of ``words`` words (csrc
+    compact_launch): twice COMPACT_CHUNK from COMPACT_WIDE_WORDS on."""
+    return COMPACT_CHUNK * (2 if words >= COMPACT_WIDE_WORDS else 1)
 
 
 def _words(R1: int) -> int:
@@ -1310,8 +1326,11 @@ def sparse_expand(ids: torch.Tensor, qid: Optional[torch.Tensor],
 
 # ----------------------------------------------------- K5 compact
 def pair_compact_ref(mark, R1w, c_out, ids_out, qid_out, ctl, ex,
-                     n_rows, uni=None, copy_to=None, zero=True, base=0):
-    """Plain version of ``pair_compact`` (K5)."""
+                     n_rows, uni=None, copy_to=None, zero=True, base=0,
+                     scan=None, gate=None, want=0):
+    """Plain version of ``pair_compact`` (K5); ``scan`` is not read."""
+    if gate is not None and int(gate[0]) != want:
+        return ids_out, qid_out
     idx = torch.nonzero(_bits_of(mark)).reshape(-1)
     total = idx.numel()
     ctl[CTL_CNT] = total
@@ -1344,7 +1363,9 @@ def pair_compact(mark: torch.Tensor, R1w: int, c_out: int,
                  ctl: torch.Tensor, ex: int, n_rows: int,
                  uni: Optional[torch.Tensor] = None,
                  copy_to: Optional[torch.Tensor] = None,
-                 zero: bool = True, base: int = 0):
+                 zero: bool = True, base: int = 0,
+                 scan: Optional[torch.Tensor] = None,
+                 gate: Optional[torch.Tensor] = None, want: int = 0):
     """K5: the set bits of ``mark`` [nq * R1w] in (query, vertex) order
     -> the first ``c_out`` as (``ids_out``, ``qid_out``) int32 [>= c_out]
     pairs, the rest of the first c_out places padded (n_rows, BIG_Q);
@@ -1355,7 +1376,15 @@ def pair_compact(mark: torch.Tensor, R1w: int, c_out: int,
     resets.  The words read are ORed into ``uni``, copied into
     ``copy_to`` and (``zero``) cleared, as asked.  ``base`` is added to
     every emitted vertex (a frontier-sharded shard's first row; 0 on
-    one card).  Returns (ids_out, qid_out)."""
+    one card).  ``scan``: the card's look-back state, int64
+    [compact_state_words(nq * R1w)], all zero before its first call and
+    reusable by any later call on the same stream (the programs keep it
+    in their cleared workspace); None: a zeroed one of the call's own
+    (a memset beside the launch).  ``gate``: None, or an int64 [1]
+    word on the device (the adaptive program's mode word,
+    ``ctl[CTL_MODE:CTL_MODE + 1]``); the call then does nothing unless
+    it holds ``want``, as ``ad_program``'s gated K5.  One launch.
+    Returns (ids_out, qid_out)."""
     dev = mark.device
     words = _vec(mark, "mark", torch.int32, dev)
     if R1w <= 0 or words % R1w or c_out <= 0:
@@ -1370,17 +1399,23 @@ def pair_compact(mark: torch.Tensor, R1w: int, c_out: int,
         if t is not None:
             _vec(t, name, torch.int32, dev, words)
     _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    if scan is not None:
+        _vec(scan, "scan", torch.int64, dev, compact_state_words(words))
+    if gate is not None:
+        _vec(gate, "gate", torch.int64, dev, 1)
     if not _route(dev):
         return pair_compact_ref(mark, R1w, c_out, ids_out, qid_out, ctl,
-                                ex, n_rows, uni, copy_to, zero, base)
-    lib = _lib()
-    boff = torch.empty(int(lib.sg_compact_blocks(words)), dtype=torch.int64,
-                       device=dev)
+                                ex, n_rows, uni, copy_to, zero, base, None,
+                                gate, want)
+    if scan is None:
+        scan = torch.zeros(compact_state_words(words), dtype=torch.int64,
+                           device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    rc = lib.sg_compact(mark.data_ptr(), words, R1w, c_out,
-                        ids_out.data_ptr(), ptr(qid_out), boff.data_ptr(),
-                        ctl.data_ptr(), ex, ptr(uni), ptr(copy_to),
-                        int(zero), n_rows, base, _stream(dev))
+    rc = _lib().sg_compact(mark.data_ptr(), words, R1w, c_out,
+                           ids_out.data_ptr(), ptr(qid_out),
+                           scan.data_ptr(), ctl.data_ptr(), ex, ptr(uni),
+                           ptr(copy_to), int(zero), n_rows, base,
+                           ptr(gate), want, _stream(dev))
     _ok(rc, "sg_compact")
     LAUNCHES["pair_compact"] += 1
     return ids_out, qid_out
@@ -1530,8 +1565,9 @@ class SparsePlan(NamedTuple):
     ``sg_program`` both run it: per hop (c_out, the hub budget ex, the
     per-pair clamp c_lim); K6's op and widths; the int32 workspace's
     layout (ctl in words [0, CTL_WORDS), the mark bitmap, the UPTO
-    union, K5's block sums, LIMIT's scratch, two (ids, qid) pair
-    buffers of cmax; [0, zero) is cleared once); ``arr``: all of it as
+    union, K5's look-back state, LIMIT's scratch, two (ids, qid) pair
+    buffers of cmax; [0, zero) is cleared once, which serves every K5
+    call of the program); ``arr``: all of it as
     the host int64 array the C entry reads (csrc sparse_go.cu
     SparsePlan)."""
     hops: Tuple[Tuple[int, int, int], ...]
@@ -1546,7 +1582,7 @@ class SparsePlan(NamedTuple):
     cmax: int
     mark: int
     uni: int
-    boff: int
+    scan: int
     scratch: int
     bufs: int
     zero: int
@@ -1580,16 +1616,16 @@ def _sparse_plan(S: int, caps: Tuple[int, ...], qmax: int, nq: int, n: int,
     words = nq * R1w
     mark = CTL_WORDS
     uni = mark + words
-    zero = uni + (words if upto else 0)
-    boff = zero + zero % 2
-    scratch = boff + 2 * -(-words // COMPACT_CHUNK)
+    scan = uni + (words if upto else 0)
+    scan += scan % 2
+    zero = scratch = scan + 2 * compact_state_words(words)
     bufs = scratch + (2 * nq if op == REDUCE_LIMIT else 0)
     total = bufs + 4 * cmax
     head = (len(hops), nq, qmax, int(upto), op, limit or 0, c_fin, c_red,
-            int(pack32), cmax, mark, uni, boff, scratch, bufs, zero, total)
+            int(pack32), cmax, mark, uni, scan, scratch, bufs, zero, total)
     flat = head + tuple(v for hp in hops for v in hp)
     return SparsePlan(tuple(hops), nq, qmax, upto, op, limit or 0, c_fin,
-                      c_red, pack32, cmax, mark, uni, boff, scratch, bufs,
+                      c_red, pack32, cmax, mark, uni, scan, scratch, bufs,
                       zero, total, out_words,
                       (ctypes.c_int64 * len(flat))(*flat))
 
@@ -1616,6 +1652,7 @@ def _sparse_go_steps(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
     ctl = ws[:CTL_WORDS].view(torch.int64)
     mark = ws[pl.mark:pl.mark + nq * R1w]
     uni = ws[pl.uni:pl.uni + nq * R1w] if upto else None
+    scan = ws[pl.scan:pl.zero].view(torch.int64)
     bufs = ws[pl.bufs:pl.bufs + 4 * pl.cmax].view(2, 2, pl.cmax)
     if upto:
         expand(ids, qid, None, None, tables, over, uni, R1w, ctl, 0, True)
@@ -1624,12 +1661,13 @@ def _sparse_go_steps(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
         expand(cur_i, cur_q, ecnt if hubs else None, e0 if hubs else None,
                tables, over, mark, R1w, ctl, c_lim)
         nxt_i, nxt_q = bufs[h % 2]
-        compact(mark, R1w, c_out, nxt_i, nxt_q, ctl, ex, n_rows, uni)
+        compact(mark, R1w, c_out, nxt_i, nxt_q, ctl, ex, n_rows, uni, None,
+                True, 0, scan)
         cur_i, cur_q = nxt_i[:c_out], nxt_q[:c_out]
     if upto:
         fin_i, fin_q = bufs[len(pl.hops) % 2]
         compact(uni, R1w, pl.c_fin, fin_i, fin_q, ctl, -1, n_rows, None,
-                None, False)
+                None, False, 0, scan)
         cur_i, cur_q = fin_i[:pl.c_fin], fin_q[:pl.c_fin]
     # COUNT's fold adds into its output: sg_program clears it first too
     out = (torch.zeros if count else torch.empty)(
@@ -2001,16 +2039,16 @@ def _adaptive_args(starts, hub, tables, eslot, hrows, over, steps, K):
 class AdaptivePlan(NamedTuple):
     """The adaptive program's int32 workspace as ``_adaptive_steps`` and
     the card's ``ad_program`` both lay it out: ctl in words [0,
-    CTL_WORDS), the state bitmap, the candidate bitmap ([0, zero)
-    cleared once), the frontier list fr [K], K5's block sums, two
+    CTL_WORDS), the state bitmap, the candidate bitmap, K5's look-back
+    state ([0, zero) cleared once), the frontier list fr [K], two
     [R1, 4]-byte lane frontiers; ``arr`` the host int64 array the C
     entry reads (csrc sparse_go.cu AdaptivePlan)."""
     hops: int
     K: int
     state: int
     cand: int
+    scan: int
     fr: int
-    boff: int
     lanes: int
     zero: int
     words: int
@@ -2022,11 +2060,11 @@ def _adaptive_plan(R1: int, K: int, hops: int) -> AdaptivePlan:
     R1w = _words(R1)
     state = CTL_WORDS
     cand = state + R1w
-    zero = fr = cand + R1w
-    boff = fr + K + (fr + K) % 2
-    lanes = boff + 2 * -(-R1w // COMPACT_CHUNK)
+    scan = cand + R1w + (cand + R1w) % 2
+    zero = fr = scan + 2 * compact_state_words(R1w)
+    lanes = fr + K
     words = lanes + 2 * R1
-    flat = (hops, K, state, cand, fr, boff, lanes, zero, words)
+    flat = (hops, K, state, cand, scan, fr, lanes, zero, words)
     return AdaptivePlan(*flat, (ctypes.c_int64 * len(flat))(*flat))
 
 
@@ -2056,6 +2094,7 @@ def _adaptive_steps(starts, hub, tables, eslot, hrows, over, steps, K,
     ctl = ws[:CTL_WORDS].view(torch.int64)
     state = ws[pl.state:pl.state + R1w]
     cand = ws[pl.cand:pl.cand + R1w]
+    scan = ws[pl.scan:pl.zero].view(torch.int64)
     fr = ws[pl.fr:pl.fr + K]
     bufs = ws[pl.lanes:pl.lanes + 2 * R1].view(torch.uint8).view(2, R1, 4)
     fr.fill_(n_rows)
@@ -2069,7 +2108,7 @@ def _adaptive_steps(starts, hub, tables, eslot, hrows, over, steps, K,
         if int(ctl[CTL_MODE]) == MODE_SPARSE:
             expand(fr, None, None, None, tables, over, cand, R1w, ctl, 0)
             compact(cand, R1w, K, fr, None, ctl, -1, n_rows, None, state,
-                    True)
+                    True, 0, scan)
         else:
             hop(bufs[h % 2], None, bufs[(h + 1) % 2], tables, eslot, hrows,
                 over)
@@ -2427,8 +2466,24 @@ def _mesh_args(mt, eslot, hrows) -> None:
                                  f"{s} on {mt.shards[s].nbr.device}")
 
 
-HOP_GATHER, HOP_COPY, HOP_MERGE = 1, 2, 4   # mesh_hop's stages
+# mesh_hop's stages: a hop is the first three, a BFS level adds the last
+HOP_GATHER, HOP_COPY, HOP_MERGE, HOP_LEVEL = 1, 2, 4, 8
 HOP_STAGES = HOP_GATHER | HOP_COPY | HOP_MERGE
+
+
+class MeshLevel(NamedTuple):
+    """The BFS level stage's operands (``mesh_hop`` with HOP_LEVEL) for
+    one card group: its targets ``tp`` uint8 [n_rows + 1, W], its one
+    depth matrix ``d`` int16 [n_rows + 1, 8W] and this level's flags
+    int32 [2] (zero before), all on the group's card; the level
+    ``step``; ``first``: the loop's first pass; ``stop``: the targets'
+    flag wanted (``bfs_level``'s arguments)."""
+    tp: torch.Tensor
+    d: torch.Tensor
+    flags: torch.Tensor
+    step: int
+    first: bool
+    stop: bool
 
 
 class _MeshHop(ctypes.Structure):
@@ -2507,12 +2562,24 @@ def _hop_slabs(cur, nxt, mt, members, dev) -> Tuple[int, int]:
     return R1, W
 
 
+def mesh_level_ref(nxt: torch.Tensor, level: MeshLevel) -> torch.Tensor:
+    """Plain version of ``mesh_hop``'s level stage: ``bfs_level_ref`` on
+    the slab's first replica with the group's depth matrix and flags,
+    then the new frontier copied into the other replicas."""
+    bfs_level_ref(nxt[0], level.tp, level.d, level.flags, level.step,
+                  level.first, level.stop)
+    if not level.first:
+        nxt[1:] = nxt[0]
+    return nxt
+
+
 def mesh_hop_ref(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
                  eslot: torch.Tensor, hrows: torch.Tensor,
-                 over: Sequence[int], stages: int = HOP_STAGES
-                 ) -> torch.Tensor:
+                 over: Sequence[int], stages: int = HOP_STAGES,
+                 level: Optional[MeshLevel] = None) -> torch.Tensor:
     """Plain version of ``mesh_hop``: the per-shard plain versions of
-    M1, M3 and the merge, composed over the card's members."""
+    M1, M3 and the merge, composed over the card's members, then
+    ``mesh_level_ref``."""
     members = tuple(group[1])
     t = mt.shards[0]
     if stages & HOP_GATHER:
@@ -2526,12 +2593,30 @@ def mesh_hop_ref(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
     if stages & HOP_MERGE:
         for y in range(len(members)):
             hop_merge_ref(nxt[y], eslot, hrows, t.n, t.n_rows)
+    if stages & HOP_LEVEL:
+        mesh_level_ref(nxt, level)
     return nxt
+
+
+def _level_check(level: Optional[MeshLevel], stages: int, R1: int, W: int,
+                 dev: torch.device) -> None:
+    if not stages & HOP_LEVEL:
+        if level is not None:
+            raise ValueError("level operands without the HOP_LEVEL stage")
+        return
+    if not isinstance(level, MeshLevel):
+        raise ValueError("the HOP_LEVEL stage needs its MeshLevel")
+    _check(level.tp, "tp", torch.uint8, (R1, W), dev)
+    _check(level.d, "d", torch.int16, (R1, 8 * W), dev)
+    _check(level.flags, "flags", torch.int32, (2,), dev)
+    if not 0 <= level.step < int(INT16_INF) - 1:
+        raise ValueError(f"level {level.step} does not fit an int16 depth")
 
 
 def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
              eslot: torch.Tensor, hrows: torch.Tensor, over: Sequence[int],
-             stages: int = HOP_STAGES) -> torch.Tensor:
+             stages: int = HOP_STAGES, level: Optional[MeshLevel] = None
+             ) -> torch.Tensor:
     """One replicated-frontier hop (ell.py:1771-1796) for the members of
     one card group ``group`` = (device, shards) of ``mt.mesh.groups``:
     ``cur`` / ``nxt`` are their replicas, uint8 [members, n_rows + 1,
@@ -2545,17 +2630,25 @@ def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
     - HOP_COPY (M3): each member's owned rows (``mt.owned(s)``) of
       ``nxt[y]`` copied into every other member's (each owned row reaches
       the members - 1 others: the bytes a mesh of cards moves);
-    - HOP_MERGE: the hub OR-merge on every member's replica.
+    - HOP_MERGE: the hub OR-merge on every member's replica;
+    - HOP_LEVEL: the batched BFS's level pass (``bfs_level`` with
+      ``level``'s operands) on the group's replicas, which the hop left
+      equal: the first replica read once, the group's one depth matrix
+      and flags updated, the new frontier written into every replica
+      where it changed (with ``level.first`` only ``level.d`` is
+      written, from the first replica).
 
     Returns ``nxt``.  One checked C call (``ell_mesh_hop``), which
     reports the launches it made: ``LAUNCHES`` counts those of
-    ``shard_hop``, ``replicate_rows`` and ``hop_merge`` from its report.
+    ``shard_hop``, ``replicate_rows``, ``hop_merge`` and ``mesh_level``
+    from its report.
     The shards of other cards get the owned rows from
     ``mesh.replicate_rows``."""
     dev, members = _card_check(mt, group)
-    _R1, W = _hop_slabs(cur, nxt, mt, members, dev)
-    if not 0 < stages <= HOP_STAGES:
+    R1, W = _hop_slabs(cur, nxt, mt, members, dev)
+    if not 0 < stages <= HOP_STAGES | HOP_LEVEL:
         raise ValueError(f"stages {stages}")
+    _level_check(level, stages, R1, W, dev)
     t = mt.shards[0]
     n_extras = t.n_rows - t.n
     _check(eslot, "eslot", torch.int32, (n_extras,), dev)
@@ -2564,7 +2657,8 @@ def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
     _check(hrows, "hrows", torch.int32, tuple(hrows.shape), dev)
     over = _over_check(over)
     if not _route(dev):
-        return mesh_hop_ref(cur, nxt, mt, group, eslot, hrows, over, stages)
+        return mesh_hop_ref(cur, nxt, mt, group, eslot, hrows, over, stages,
+                            level)
     fpp, outp = cur.data_ptr(), nxt.data_ptr()
     stride = cur[0].numel()
     if (fpp | outp) % 4:
@@ -2573,35 +2667,46 @@ def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
     wide = W % 16 == 0 and not (fpp | outp | stride) % 16
     desc, blocks, lgc = _hop_desc(t.row0, t.slot0, _shard_live(mt, 0), t.D,
                                   W, 16 if wide else 4)
-    launched = (ctypes.c_int32 * 3)()
+    lv = level or MeshLevel(None, None, None, 0, False, False)
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    launched = (ctypes.c_int32 * 4)()
     with _on_card(dev):
         rc = _lib().ell_mesh_hop(
             stages, fpp, outp, stride, _mesh_hop_desc(mt, members), desc,
             len(t.D), blocks, lgc, wide, _over_array(over), len(over),
             eslot.data_ptr(), hrows.data_ptr(), t.n, t.n_rows, W,
-            _stream(dev), launched)
+            ptr(lv.tp), ptr(lv.d), ptr(lv.flags), lv.step, int(lv.first),
+            int(lv.stop), _stream(dev), launched)
     _ok(rc, "ell_mesh_hop")
     LAUNCHES["mesh_hop"] += 1
     # the launches the C call reports it made
-    for name, n in zip(("shard_hop", "replicate_rows", "hop_merge"),
-                       launched):
+    for name, n in zip(("shard_hop", "replicate_rows", "hop_merge",
+                        "mesh_level"), launched):
         LAUNCHES[name] += n
     return nxt
 
 
-def _hop_all(cur, nxt, mt, eslot, hrows, over, blocks, hop) -> None:
+def _hop_all(cur, nxt, mt, eslot, hrows, over, blocks, hop,
+             level=None) -> None:
     """One replicated-frontier hop of the whole mesh: ``hop`` (``mesh_hop``
     or its plain version) on every card group's slabs ``cur[g]`` ->
     ``nxt[g]``.  One card: one call.  Several: the gather a card, the
     owned rows replicated (``mesh.replicate_rows``: the copy stage a
     card, ``copy_`` across cards; ``blocks[s] = mt.owned(s)``), then the
-    merge a card."""
+    merge a card.  ``level``: None, or ``level(g)`` group g's
+    ``MeshLevel``, whose level stage then rides the group's last call."""
     from .mesh import replicate_rows
     groups = mt.mesh.groups
     one = lambda g: (mt, groups[g], eslot[groups[g][1][0]],  # noqa: E731
                      hrows[groups[g][1][0]], over)
+
+    def last(g, stages):
+        if level is None:
+            hop(cur[g], nxt[g], *one(g), stages)
+        else:
+            hop(cur[g], nxt[g], *one(g), stages | HOP_LEVEL, level(g))
     if len(groups) == 1:
-        hop(cur[0], nxt[0], *one(0), HOP_STAGES)
+        last(0, HOP_STAGES)
         return
     for g in range(len(groups)):
         hop(cur[g], nxt[g], *one(g), HOP_GATHER)
@@ -2611,7 +2716,7 @@ def _hop_all(cur, nxt, mt, eslot, hrows, over, blocks, hop) -> None:
                                        *one(card[members]), HOP_COPY),
                    groups)
     for g in range(len(groups)):
-        hop(cur[g], nxt[g], *one(g), HOP_MERGE)
+        last(g, HOP_MERGE)
 
 
 def _go_sharded_loop(f0p, mt, eslot, hrows, over, steps, hop):
@@ -2653,35 +2758,90 @@ def ell_go_sharded(f0p: torch.Tensor, mt, eslot, hrows,
     return out
 
 
-def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
-                      hop, level, final, read=None):
-    # read(flag): a level's (frontier, target) flags on the host; by
-    # default one copy from the card, or given back by a caller that
-    # knows what a run reads (nothing then waits on the card)
-    from .mesh import on
+def _bfs_sharded_start(f0p, t0p, mt, eslot, hrows, over, max_steps):
     lanes = _bfs_pair(f0p, t0p)
     _mesh_args(mt, eslot, hrows)
-    over = _over_check(over)
     if not 0 <= max_steps < int(INT16_INF) - 1:
         raise ValueError(f"max_steps={max_steps} does not fit int16")
+    blocks = [mt.owned(s) for s in range(mt.k)] \
+        if len(mt.mesh.groups) > 1 else None
+    return lanes, _over_check(over), blocks
+
+
+def _bfs_final(d, max_steps, final):
+    from .mesh import on
+    if max_steps <= 120:
+        with on(d.device):
+            d = final(d, torch.empty(d.shape, dtype=torch.int8,
+                                     device=d.device))
+    return d
+
+
+def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
+                      hop, final, read=None):
+    """The mesh BFS with its level pass a stage of ``hop`` (``mesh_hop``
+    or its plain version): one depth matrix, one flags slab and the
+    targets once a card group (``t0p`` itself on its own card); the
+    first pass is the level stage alone, a level the hop with the stage
+    in its group's last call.  ``read(flag)``: a level's (frontier,
+    target) flags on the host, by default one copy from group 0's card,
+    or given back by a caller that knows what a run reads (nothing then
+    waits on the card).  Returns (group 0's depth in the final form,
+    levels run)."""
+    lanes, over, blocks = _bfs_sharded_start(f0p, t0p, mt, eslot, hrows,
+                                             over, max_steps)
+    mesh = mt.mesh
+    R1 = f0p.shape[0]
+    fp = mesh.replicas(f0p)
+    buf = [torch.empty_like(f) for f in fp]
+    tp = [t0p if dev == t0p.device else t0p.to(dev)
+          for dev, _m in mesh.groups]
+    d = [torch.empty((R1, lanes), dtype=torch.int16, device=dev)
+         for dev, _m in mesh.groups]
+    flags = [torch.zeros((max_steps + 1, 2), dtype=torch.int32, device=dev)
+             for dev, _m in mesh.groups]
+    for g in range(len(mesh.groups)):
+        hop(buf[g], fp[g], mt, mesh.groups[g], eslot[mesh.groups[g][1][0]],
+            hrows[mesh.groups[g][1][0]], over, HOP_LEVEL,
+            MeshLevel(tp[g], d[g], flags[g][0], 0, True, stop))
+    step = 0
+    # ell.py:1824-1836's loop condition, read from group 0 (every group
+    # holds the same frontier and depths) once a level
+    read = read or (lambda flag: flag.tolist())
+    while step < max_steps:
+        f_any, t_any = read(flags[0][step])
+        if not f_any or (stop and not t_any):
+            break
+        _hop_all(fp, buf, mt, eslot, hrows, over, blocks, hop,
+                 lambda g, k=step: MeshLevel(tp[g], d[g], flags[g][k + 1],
+                                             k, False, stop))
+        fp, buf = buf, fp
+        step += 1
+    return _bfs_final(d[0], max_steps, final), step
+
+
+def _bfs_replica_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
+                      hop, level, final):
+    """The mesh BFS as the plain program runs it: the targets, a depth
+    matrix and a flags slab on every shard, ``level`` (``bfs_level``'s
+    plain version) on every replica after each hop, the loop condition
+    read from shard 0."""
+    from .mesh import on
+    lanes, over, blocks = _bfs_sharded_start(f0p, t0p, mt, eslot, hrows,
+                                             over, max_steps)
     mesh = mt.mesh
     fp, tp = mesh.replicas(f0p), mesh.rows(mesh.replicas(t0p))
     buf = [torch.empty_like(f) for f in fp]
     d = mesh.rows(mesh.slabs((f0p.shape[0], lanes), torch.int16))
     flags = mesh.rows(mesh.slabs((max_steps + 1, 2), torch.int32,
                                  zero=True))
-    blocks = [mt.owned(s) for s in range(mt.k)] \
-        if len(mesh.groups) > 1 else None
     devs = mesh.devices
     for s, f in enumerate(mesh.rows(fp)):
         with on(devs[s]):
             level(f, tp[s], d[s], flags[s][0], 0, True, stop)
     step = 0
-    # ell.py:1824-1836's loop condition, read from replica 0 (every
-    # replica holds the same frontier and depths) once a level
-    read = read or (lambda flag: flag.tolist())
     while step < max_steps:
-        f_any, t_any = read(flags[0][step])
+        f_any, t_any = flags[0][step].tolist()
         if not f_any or (stop and not t_any):
             break
         _hop_all(fp, buf, mt, eslot, hrows, over, blocks, hop)
@@ -2691,19 +2851,16 @@ def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
                       stop)
         fp, buf = buf, fp
         step += 1
-    out = d[0]
-    if max_steps <= 120:
-        with on(out.device):
-            out = final(out, torch.empty(out.shape, dtype=torch.int8,
-                                         device=out.device))
-    return out, step
+    return _bfs_final(d[0], max_steps, final), step
 
 
 def ell_bfs_sharded_ref(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
                         hrows, over: Sequence[int], max_steps: int,
                         stop_when_found: bool = True):
-    """Plain version of ``ell_bfs_sharded``."""
-    return _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
+    """Plain version of ``ell_bfs_sharded``: the per-replica program
+    (``_bfs_replica_loop``), a depth matrix a shard, over the plain
+    versions of the hop, the level pass and the int8 form."""
+    return _bfs_replica_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
                              stop_when_found, mesh_hop_ref, bfs_level_ref,
                              bfs_depth_i8_ref)
 
@@ -2713,14 +2870,16 @@ def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
                     stop_when_found: bool = True):
     """Batched BFS depths on the mesh (ell.py:1799
     make_sharded_batched_bfs_kernel): ``f0p``/``t0p`` packed start and
-    target lanes (read only) are copied to every shard; each level is a
-    replicated-frontier hop (``mesh_hop``, one call a card), then the
-    level pass (``bfs_level``) on every replica.  Returns (depth of
-    shard 0's replica, levels run), in ``ell_bfs``'s form: int8 with -1
-    unreached when ``max_steps <= 120``, else int16 with INT16_INF."""
+    target lanes (read only); ``f0p`` is copied to every shard.  The
+    first pass is ``mesh_hop``'s level stage alone, each level one
+    ``mesh_hop`` call a card with the level stage after the hop: one
+    depth matrix and one flags pair a card group, the targets read from
+    ``t0p`` on its own card.  Returns (the depth, levels run), in
+    ``ell_bfs``'s form: int8 with -1 unreached when ``max_steps <=
+    120``, else int16 with INT16_INF.  On the CPU the same loop runs
+    the stages' plain versions (``mesh_level_ref``)."""
     out = _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
-                            stop_when_found, mesh_hop, bfs_level,
-                            bfs_depth_i8)
+                            stop_when_found, mesh_hop, bfs_depth_i8)
     if _route(f0p.device):
         LAUNCHES["ell_bfs_sharded"] += 1
     return out
@@ -3458,10 +3617,11 @@ def _clears(recv, hub_recv, send, hub_send):
 
 
 def mesh_dedup_ref(recv, st, group, marks, c_out, ids_out, qid_out, ctl,
-                   hub_recv=None, send=None, hub_send=None):
+                   hub_recv=None, send=None, hub_send=None, scan=None):
     """Plain version of ``mesh_dedup``: ``mesh_mark_ref`` (X2) and
     ``pair_compact_ref`` (K5 with the shard's row base) on each member,
-    then the exchange blocks cleared as K5's scan clears them."""
+    then the exchange blocks cleared as K5's finishing block clears
+    them; ``scan`` is not read."""
     members = tuple(group[1])
     chunk, W = st.chunk, _words(st.chunk)
     for y, s in enumerate(members):
@@ -3483,10 +3643,11 @@ def mesh_dedup(recv: torch.Tensor, st, group, marks: torch.Tensor,
                c_out: int, ids_out: torch.Tensor, qid_out: torch.Tensor,
                ctl: torch.Tensor, hub_recv: Optional[torch.Tensor] = None,
                send: Optional[torch.Tensor] = None,
-               hub_send: Optional[torch.Tensor] = None
+               hub_send: Optional[torch.Tensor] = None,
+               scan: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """X2 then K5 for the members of one card group, one call, one launch
-    a kernel (X2, and K5's count, scan and compact): member y ORs every
+    a kernel (X2, then K5's single pass): member y ORs every
     live key of ``recv[y]`` (its receive row, int64 [members, k, 1 +
     cap]) into its mark bitmap ``marks[y]`` (int32 [members, qrows * W],
     W = ceil(chunk / 32), zero before and after), and K5 writes the set
@@ -3500,7 +3661,12 @@ def mesh_dedup(recv: torch.Tensor, st, group, marks: torch.Tensor,
     owners on other cards; each [members, k, 1 + cap] or None) get a
     count of 0, a received block from another shard first adding 8 bytes
     for its count and each key it kept to ``ctl[y, CTL_XBYTES]``; and
-    ``ctl[y, CTL_HUB_TOTAL]`` goes to 0.  Returns (ids_out, qid_out)."""
+    ``ctl[y, CTL_HUB_TOTAL]`` goes to 0.  ``scan``: K5's look-back
+    state, int64 [members, compact_state_words(words)], all zero before
+    its first call and reusable by later calls on the same stream (the
+    programs keep it in their card group's zeroed slabs); None: a
+    zeroed one of the call's own (a memset beside the launches).
+    Returns (ids_out, qid_out)."""
     dev, members = _card_of(st, group)
     kg, k, chunk = len(members), st.k, st.chunk
     W = _words(chunk)
@@ -3516,22 +3682,24 @@ def mesh_dedup(recv: torch.Tensor, st, group, marks: torch.Tensor,
                     (hub_send, "hub_send")):
         if x is not None:
             _xslab(x, name, kg, k, dev)
+    if scan is not None:
+        _slab(scan, "scan", torch.int64, kg, dev, compact_state_words(words))
     if not _route(dev):
         return mesh_dedup_ref(recv, st, group, marks, c_out, ids_out,
                               qid_out, ctl, hub_recv, send, hub_send)
     clear = _clears(recv, hub_recv, send, hub_send)
-    lib = _lib()
-    boff = torch.empty(kg * int(lib.sg_compact_blocks(words)),
-                       dtype=torch.int64, device=dev)
+    if scan is None:
+        scan = torch.zeros((kg, compact_state_words(words)),
+                           dtype=torch.int64, device=dev)
     slabs = (ctypes.c_void_p * 4)(*[x.data_ptr() for x, _r in clear])
     caps = (ctypes.c_int64 * 4)(*[x.shape[2] - 1 for x, _r in clear])
     recvd = (ctypes.c_int32 * 4)(*[int(r) for _x, r in clear])
     with _on_card(dev):
-        rc = lib.mesh_dedup(_mesh_card(st, members), recv.data_ptr(), cap,
-                            chunk, marks.data_ptr(), W, words, c_out,
-                            ids_out.data_ptr(), qid_out.data_ptr(), c_out,
-                            boff.data_ptr(), ctl.data_ptr(), st.n_rows,
-                            slabs, caps, recvd, _stream(dev))
+        rc = _lib().mesh_dedup(_mesh_card(st, members), recv.data_ptr(),
+                               cap, chunk, marks.data_ptr(), W, words,
+                               c_out, ids_out.data_ptr(), qid_out.data_ptr(),
+                               c_out, scan.data_ptr(), ctl.data_ptr(),
+                               st.n_rows, slabs, caps, recvd, _stream(dev))
     _ok(rc, "mesh_dedup")
     LAUNCHES["mesh_dedup"] += 1
     LAUNCHES["mesh_mark"] += 1
@@ -3609,7 +3777,9 @@ class _CardWork:
     CTL_SIZE], the exchange slabs [members, k, 1 + cap] — ``xr`` / ``er``
     receive candidate / hub pairs, ``xs`` / ``es`` send them to owners
     on other cards (None on one card; ``er`` / ``es`` None without hub
-    extra rows) — and the int32 bitmaps ``marks`` (and, for the BFS,
+    extra rows) — K5's look-back state ``scan`` [members,
+    compact_state_words(words)], which every hop's ``mesh_dedup``
+    shares, and the int32 bitmaps ``marks`` (and, for the BFS,
     ``tbits``) [members, words]."""
 
     def __init__(self, st, group, words: int, cap_x: int, cap_e: int,
@@ -3619,7 +3789,8 @@ class _CardWork:
         far = len(members) < k
         hubs = st.n_extras > 0
         half = -(-words // 2)              # int32 words in int64 words
-        parts = [("ctl", (kg, CTL_SIZE)), ("xr", (kg, k, 1 + cap_x))]
+        parts = [("ctl", (kg, CTL_SIZE)), ("xr", (kg, k, 1 + cap_x)),
+                 ("scan", (kg, compact_state_words(words)))]
         if hubs:
             parts.append(("er", (kg, k, 1 + cap_e)))
         if far:
@@ -3716,7 +3887,7 @@ def _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax,
             ids = torch.empty((len(g[1]), c_out), dtype=i32, device=g[0])
             qid = torch.empty_like(ids)
             dedup(w.xr, st, g, w.marks, c_out, ids, qid, w.ctl, w.er, w.xs,
-                  w.es)
+                  w.es, w.scan)
             nxt.append((ids, qid))
         cur = nxt
         if hubs and h < steps - 2:
@@ -3821,7 +3992,7 @@ def _mesh_bfs_steps(ids0, qid0, tids, tqid, st, over, max_steps, cap,
             ids = torch.empty((len(g[1]), cap), dtype=i32, device=g[0])
             qid = torch.empty_like(ids)
             dedup(w.xr, st, g, w.marks, cap, ids, qid, w.ctl, w.er, w.xs,
-                  w.es)
+                  w.es, w.scan)
             for y, s in enumerate(g[1]):
                 stamp(False, ids[y], qid[y], depth[s], tbits[s], W,
                       s * chunk, n_rows, step, crow[s])

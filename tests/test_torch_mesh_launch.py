@@ -341,11 +341,9 @@ def test_programs_over_two_pretended_cards_equal_one_card(ells, k,
     assert calls == per_hop * 2
     d1, l1 = ell_ops._bfs_sharded_loop(f0, t0, mt1, [es] * k, [hr] * k,
                                        OVER, 5, False, ell_ops.mesh_hop,
-                                       ell_ops.bfs_level_ref,
                                        ell_ops.bfs_depth_i8_ref)
     d2, l2 = ell_ops._bfs_sharded_loop(f0, t0, mt2, [es] * k, [hr] * k,
                                        OVER, 5, False, hop,
-                                       ell_ops.bfs_level_ref,
                                        ell_ops.bfs_depth_i8_ref)
     assert l1 == l2 > 1 and torch.equal(d1, d2)
 

@@ -137,18 +137,22 @@ def _plan_ok(pl, S, nq, R1w, n_rows):
     """The checks sg_program makes of a plan before it launches
     (csrc/sparse_go.cu), written out: the regions lie inside the
     workspace, do not overlap, and the cleared prefix holds ctl, the
-    mark bitmap and the UPTO union."""
+    mark bitmap, the UPTO union and K5's look-back state (a head and a
+    descriptor a chunk, int64 words)."""
     words = nq * R1w
-    nb = -(-words // ell_ops.COMPACT_CHUNK)
-    regions = [(0, ell_ops.CTL_WORDS), (pl.mark, words)]
+    state = 2 * (ell_ops.COMPACT_HEAD + -(-words // ell_ops.COMPACT_CHUNK))
+    assert state == 2 * ell_ops.compact_state_words(words)
+    regions = [(0, ell_ops.CTL_WORDS), (pl.mark, words), (pl.scan, state)]
     if pl.upto:
         regions.append((pl.uni, words))
-    assert pl.zero == ell_ops.CTL_WORDS + words * (2 if pl.upto else 1)
-    assert all(a + n <= pl.zero for a, n in regions)
-    tail = [(pl.boff, 2 * nb), (pl.bufs, 4 * pl.cmax)]
+    assert pl.zero >= ell_ops.CTL_WORDS + words * (2 if pl.upto else 1) \
+        + state
+    assert all(a >= ell_ops.CTL_WORDS and a + n <= pl.zero
+               for a, n in regions[1:])
+    tail = [(pl.bufs, 4 * pl.cmax)]
     if pl.op == ell_ops.REDUCE_LIMIT:
         tail.append((pl.scratch, 2 * nq))
-    assert pl.boff % 2 == 0 and pl.scratch % 2 == 0
+    assert pl.scan % 2 == 0 and pl.scratch % 2 == 0
     assert all(a >= pl.zero and a + n <= pl.words for a, n in tail)
     spans = sorted(regions + tail)
     assert all(a + n <= b for (a, n), (b, _m) in zip(spans, spans[1:]))
@@ -166,7 +170,7 @@ def _plan_ok(pl, S, nq, R1w, n_rows):
     arr = list(pl.arr)
     assert arr[:17] == [len(pl.hops), nq, pl.qmax, int(pl.upto), pl.op,
                         pl.limit, pl.c_fin, pl.c_red, int(pl.pack32),
-                        pl.cmax, pl.mark, pl.uni, pl.boff, pl.scratch,
+                        pl.cmax, pl.mark, pl.uni, pl.scan, pl.scratch,
                         pl.bufs, pl.zero, pl.words]
     assert arr[17:] == [v for hp in pl.hops for v in hp]
 
@@ -197,15 +201,15 @@ def test_adaptive_plan_passes_the_c_entrys_checks(ells, K, steps):
     R1 = tix.n_rows + 1
     R1w = (R1 + 31) // 32
     pl = ell_ops._adaptive_plan(R1, K, steps - 1)
-    nb = -(-R1w // ell_ops.COMPACT_CHUNK)
+    state = 2 * (ell_ops.COMPACT_HEAD + -(-R1w // ell_ops.COMPACT_CHUNK))
     spans = [(0, ell_ops.CTL_WORDS), (pl.state, R1w), (pl.cand, R1w),
-             (pl.fr, K), (pl.boff, 2 * nb), (pl.lanes, 2 * R1)]
-    assert pl.state == ell_ops.CTL_WORDS and pl.boff % 2 == 0
-    assert pl.cand + R1w == pl.zero == pl.fr
+             (pl.scan, state), (pl.fr, K), (pl.lanes, 2 * R1)]
+    assert pl.state == ell_ops.CTL_WORDS and pl.scan % 2 == 0
+    assert pl.scan + state == pl.zero == pl.fr    # the look-back state
     assert all(a + n <= b for (a, n), (b, _m) in zip(spans, spans[1:]))
     assert pl.lanes + 2 * R1 == pl.words
-    assert list(pl.arr) == [steps - 1, K, pl.state, pl.cand, pl.fr,
-                            pl.boff, pl.lanes, pl.zero, pl.words]
+    assert list(pl.arr) == [steps - 1, K, pl.state, pl.cand, pl.scan,
+                            pl.fr, pl.lanes, pl.zero, pl.words]
 
 
 # ======================================================= the programs
@@ -497,3 +501,148 @@ def test_switch_marks_the_first_dense_hop_only(ells):
     fr[1] = int(tix.perm[5])                 # a hub at the first hop
     ell_ops.adaptive_switch(fr, hub, tix.n, tix.n_rows, fresh)
     assert int(fresh[ell_ops.CTL_CONV]) == 1
+
+
+# ================================================= K5's look-back state
+def _spy_compact(seen):
+    """``pair_compact`` that records the look-back state each call was
+    given, as it was before the call."""
+    def compact(*args):
+        scan = args[12]
+        seen.append((scan.data_ptr(), scan.numel(), scan.clone()))
+        return ell_ops.pair_compact(*args)
+    return compact
+
+
+@pytest.mark.parametrize("form", list(FORMS))
+def test_every_k5_call_of_a_program_shares_its_cleared_state(ells, form,
+                                                             noisy_empty):
+    """On a workspace handed out full of garbage, every K5 call of the
+    sparse program gets the same look-back state, the one of the plan
+    (inside the cleared prefix, a descriptor a chunk of the largest
+    bitmap), all zero at the first call; the output is the reference's."""
+    jix, tix, tables = ells
+    rng = np.random.default_rng(47)
+    deg = _deg(rng, tix)
+    ids, qid, nq, caps, steps, qmax = _batch(rng, tix, "roomy")
+    kw = dict(FORMS[form])
+    if kw.get("count"):
+        qmax = PACK32_QMAX
+    seen = []
+    ecnt, e0 = tix.hub_expansion()
+    got = ell_ops._sparse_go_steps(
+        _t(ids), _t(qid), _t(ecnt), _t(e0), _t(deg), tables, (1,), steps,
+        caps, qmax, nq, kw.get("upto", False), kw.get("limit"),
+        kw.get("count", False), ell_ops.sparse_expand, _spy_compact(seen),
+        ell_ops.pair_reduce).numpy()
+    _same(_jax_sparse(jix, ids, qid, deg, (1,), steps, caps, qmax, **kw),
+          got)
+    words = nq * ((tix.n_rows + 32) // 32)
+    assert len(seen) == steps - 1 + (1 if kw.get("upto") else 0)
+    assert len({p for p, _n, _s in seen}) == 1
+    assert {n for _p, n, _s in seen} == {ell_ops.compact_state_words(words)}
+    assert not bool(seen[0][2].any())
+
+
+@pytest.mark.parametrize("case", ADAPTIVE, ids=[c[0] for c in ADAPTIVE])
+def test_every_adaptive_k5_call_shares_its_cleared_state(ells, case,
+                                                         noisy_empty):
+    """The adaptive program's sparse hops hand K5 one look-back state,
+    all zero at the first, on a workspace full of garbage."""
+    jix, tix, tables = ells
+    _name, olds, K = case
+    starts = jix.perm[np.asarray(olds)].astype(np.int32)
+    eslot, hrows = jix.hub_merge()
+    seen = []
+    got = ell_ops._adaptive_steps(
+        _t(starts), _t(jix.hub_table().astype(np.uint8)), tables, _t(eslot),
+        _t(hrows), (1,), 4, K, ell_ops.sparse_expand, _spy_compact(seen),
+        ell_ops.adaptive_switch, ell_ops.bitmap_lanes, ell_ops.go_hop)
+    want = _jax_adaptive(jix, starts, (1,), 4, K)
+    assert np.array_equal(_rows(got.numpy(), tix), _rows(want, tix))
+    R1w = (tix.n_rows + 32) // 32
+    assert len({p for p, _n, _s in seen}) <= 1
+    assert all(n == ell_ops.compact_state_words(R1w) for _p, n, _s in seen)
+    assert not seen or not bool(seen[0][2].any())
+
+
+@pytest.mark.parametrize("words", [1, 2047, 2048, 2049, 1 << 20,
+                                   (1 << 20) + 5])
+def test_compact_state_has_a_descriptor_a_chunk(words):
+    """K5's state: the head, then a descriptor for each chunk of
+    COMPACT_CHUNK words, which also covers the doubled chunks the kernel
+    takes on a bitmap of 2^20 words or more."""
+    n = ell_ops.compact_state_words(words)
+    assert n == ell_ops.COMPACT_HEAD + -(-words // ell_ops.COMPACT_CHUNK)
+    chunk = ell_ops.compact_chunk(words)
+    assert chunk == ell_ops.COMPACT_CHUNK * (2 if words >= 1 << 20 else 1)
+    assert n - ell_ops.COMPACT_HEAD >= -(-words // chunk)
+
+
+@pytest.mark.parametrize("mode", [ell_ops.MODE_SPARSE, ell_ops.MODE_DENSE])
+def test_gated_compact_runs_only_in_its_mode(mode):
+    """K5 with the adaptive program's gate: the mode word holding the
+    sparse mode, it is the ungated K5; else it touches nothing."""
+    rng = np.random.default_rng(mode)
+    R1w, K = 9, 16
+    bits = torch.from_numpy(rng.integers(0, 2**31, R1w, dtype=np.int64)
+                            .astype(np.int32) & 0x01010101)
+    ctl = torch.zeros(ell_ops.CTL_SIZE, dtype=torch.int64)
+    ctl[ell_ops.CTL_MODE] = mode
+    gate = ctl[ell_ops.CTL_MODE:ell_ops.CTL_MODE + 1]
+    outs = []
+    for g in (gate, None):
+        mark, state = bits.clone(), torch.full((R1w,), 7, dtype=torch.int32)
+        fr = torch.full((K,), -3, dtype=torch.int32)
+        c = ctl.clone()
+        ell_ops.pair_compact(mark, R1w, K, fr, None, c, -1, 999, None, state,
+                             True, 0, None,
+                             None if g is None else c[ell_ops.CTL_MODE:
+                                                      ell_ops.CTL_MODE + 1],
+                             ell_ops.MODE_SPARSE)
+        outs.append((mark, state, fr, c))
+    gated, plain = outs
+    if mode == ell_ops.MODE_SPARSE:
+        assert all(torch.equal(a, b) for a, b in zip(gated, plain))
+        assert int(plain[3][ell_ops.CTL_CNT]) > 0
+    else:
+        assert torch.equal(gated[0], bits) and bool((gated[1] == 7).all())
+        assert bool((gated[2] == -3).all()) and torch.equal(gated[3], ctl)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_mesh_dedup_takes_k5_state_from_the_zeroed_card_work(ells, k):
+    """The frontier-sharded GO hands every hop's ``mesh_dedup`` its card
+    group's look-back state, one slab of the group's zeroed working
+    buffer ([members, compact_state_words(words)], zero at the first
+    hop); the result equals the plain program's."""
+    from nebula_tpu_torch.tpu.ell import (build_sharded_ell, sharded_tables,
+                                          split_start_pairs_by_owner)
+    from nebula_tpu_torch.tpu.mesh import PartsMesh
+    _jix, tix, _tables = ells
+    st = sharded_tables(build_sharded_ell(tix, k),
+                        PartsMesh([torch.device("cpu")] * k))
+    rng = np.random.default_rng(k)
+    nq = 5
+    rows = tix.perm[rng.integers(0, tix.n, nq)].astype(np.int32)
+    placed = split_start_pairs_by_owner(st, rows, np.arange(nq,
+                                                            dtype=np.int32),
+                                        64)
+    ids, qid = (st.mesh.split(torch.from_numpy(a)) for a in placed[:2])
+    caps = sparse_caps(64, 8, 3, 1 << 12)
+    seen = []
+
+    def dedup(*args):
+        scan = args[11]
+        seen.append((scan.data_ptr(), tuple(scan.shape), scan.clone()))
+        return ell_ops.mesh_dedup(*args)
+    (got,), _x, _c = ell_ops._mesh_go_steps(
+        ids, qid, st, (1,), 3, caps, 4096, 256, nq, ell_ops.mesh_route_card,
+        dedup, (ell_ops.mesh_agree, ell_ops.or_many), ell_ops.mesh_emit)
+    (want,) = ell_ops.mesh_sparse_go_ref(ids, qid, st, (1,), 3, caps, 4096,
+                                         256, nq)
+    assert torch.equal(got, want)
+    words = nq * ((st.chunk + 31) // 32)
+    assert len(seen) == 2 and len({p for p, _s, _c in seen}) == 1
+    assert seen[0][1] == (k, ell_ops.compact_state_words(words))
+    assert not bool(seen[0][2].any())
