@@ -33,7 +33,13 @@ Phases, in order; any failure exits non-zero:
              bound for the work.  The continuous session's four
              kernels, then the windowed path's: the packed frontier
              upload, ``ell_go`` at 3 steps (exact and UPTO), the
-             COUNT(*) fold, the BFS level pass and its int8 form; then
+             COUNT(*) fold, K3 the BFS level pass (every level of an
+             UPTO 5 BFS, int8 depths, and of a ``max_steps`` 121 one,
+             int16, held to the plain level on the same state; alone,
+             its first pass and the level after one hop from one start
+             a lane and from a 2 %-dense frontier, with a bound for the
+             reached-bitmap design and the one before it) and the int8
+             form of the int16 result; then
              the sparse GO program (K4 expand, K5 compact, K6 reduce)
              at c0 256 and 2048, 3 and 4 steps, with a tight-cap batch
              that overflows, and the adaptive program (K4, K5, K7, the
@@ -103,7 +109,8 @@ Phases, in order; any failure exits non-zero:
              (against the per-block ``copy_`` loop it replaced),
              ``hop_merge``, and the whole hop against ``go_hop``, the
              BFS level stage (``mesh_level``: one launch over the
-             card's replicas, one depth matrix) against
+             card's replicas, one reached bitmap and int8 depth matrix)
+             against
              ``mesh_level_ref`` and the single-card ``bfs_level``,
              ``ell_go_sharded`` at 1-4 steps against its plain version
              and ``ell_go``, ``ell_bfs_sharded`` at 1-4 steps and UPTO
@@ -398,15 +405,15 @@ PATH_KERNELS = {
     "adaptive": ("sparse_expand", "pair_compact", "adaptive_switch",
                  "bitmap_lanes", "go_hop", "adaptive_go"),
     "fused": ("edge_seed", "edge_hop", "edge_final_where", "go_filtered"),
-    "path": ("frontier_upload", "go_hop", "bfs_level", "bfs_depth_i8"),
+    "path": ("frontier_upload", "go_hop", "bfs_level"),
     "write": ("ell_absorb", "go_hop", "lane_join", "lane_extract",
               "lane_clear"),
     "unpacked": ("frontier_upload_i8", "go_hop_i8", "pack_rows",
                  "bfs_level_i8", "bfs_depth_i8", "ell_go_i8",
                  "ell_bfs_i8"),
     "mesh": ("frontier_upload", "shard_hop", "hop_merge", "replicate_rows",
-             "ell_go_sharded", "mesh_level", "bfs_depth_i8",
-             "ell_bfs_sharded", "shard_absorb", "ell_absorb_sharded",
+             "ell_go_sharded", "mesh_level", "ell_bfs_sharded",
+             "shard_absorb", "ell_absorb_sharded",
              "mesh_hop"),
     "mesh_sparse": ("mesh_route", "mesh_mark", "pair_compact",
                     "pair_reduce", "mesh_sparse_go", "mesh_bfs_stamp",
@@ -901,64 +908,197 @@ def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                            bound_by="bytes", library_ms=lib,
                            library_unpack_ms=unpack_ms)
 
-    # ---- K3 through the whole BFS (UPTO 5, stop when found) ...
+    # ---- K3 through whole BFS programs (UPTO 5, stop when found: the
+    # int8 form; and max_steps 121: an int16 d), every level held to the
+    # plain level on the same state, the program to its plain version
     t_rows, t_words, t_vals, _ = coords(rng.integers(0, ix.n, B))
     t0 = torch.empty_like(f0)
     ell_ops.frontier_upload(t0, t_rows, t_words, t_vals)
-    dk, lk = ell_ops.ell_bfs(f0.clone(), t0, tables, eslot, hrows, over, 5)
-    dr, lr = ell_ops.ell_bfs_ref(f0.clone(), t0, tables, eslot, hrows,
-                                 over, 5)
-    err_bfs = require_equal(torch, "ell_bfs", B, (dk, dr))
-    if lk != lr:
-        raise AssertionError(f"ell_bfs ran {lk} levels, plain {lr}")
+    programs = {}
+    for max_steps in (5, 121):
+        held = []
+
+        def level_held(nxt, tp, seen, d, flags, step, first, stop,
+                       max_steps=max_steps, held=held):
+            before = [x.clone() for x in (nxt, seen, d, flags)]
+            ell_ops.bfs_level(nxt, tp, seen, d, flags, step, first, stop)
+            ell_ops.bfs_level_ref(before[0], tp, *before[1:], step, first,
+                                  stop)
+            require_equal(torch, f"bfs_level max_steps={max_steps} "
+                          f"step={step} first={first}", B,
+                          *zip((nxt, seen, d, flags), before))
+            held.append(step)
+        dk, lk = ell_ops._bfs_loop(f0.clone(), t0, tables, eslot, hrows,
+                                   over, max_steps, True, ell_ops.go_hop,
+                                   level_held)
+        dr, lr = ell_ops.ell_bfs_ref(f0.clone(), t0, tables, eslot, hrows,
+                                     over, max_steps)
+        d1, l1 = ell_ops.ell_bfs(f0.clone(), t0, tables, eslot, hrows, over,
+                                 max_steps)
+        err_bfs = require_equal(torch, f"ell_bfs max_steps={max_steps}", B,
+                                (dk, dr), (d1, dr))
+        if not lk == lr == l1 or dk.dtype != ell_ops.depth_dtype(max_steps):
+            raise AssertionError(f"ell_bfs max_steps={max_steps}: {l1} "
+                                 f"levels ({lk} held), plain {lr}, "
+                                 f"{dk.dtype}")
+        programs[max_steps] = (d1, lk, len(held))
+        del dk, dr
     bfs_ms = cuda_ms(torch, lambda: ell_ops.ell_bfs(
         f0.clone(), t0, tables, eslot, hrows, over, 5), 5, 1)
-    # ... and alone, on level 1's state: the first pass, one hop, then
-    # the level under test
-    d0 = torch.empty((R1, B), dtype=torch.int16, device=dev)
-    flags = torch.zeros((2, 2), dtype=i32, device=dev)
-    first_in = f0.clone()
-    ell_ops.bfs_level(first_in, t0, d0, flags[0], 0, first=True)
-    first_ms = cuda_ms(torch, lambda: ell_ops.bfs_level(
-        first_in, t0, d0, flags[0], 0, first=True), 20)
-    nxt0 = torch.empty_like(f0)
-    ell_ops.go_hop(f0, None, nxt0, tables, eslot, hrows, over)
-    nk, dk1, fk1 = nxt0.clone(), d0.clone(), flags[1].clone()
-    nr, dr1, fr1 = nxt0.clone(), d0.clone(), flags[1].clone()
-    ell_ops.bfs_level(nk, t0, dk1, fk1, 0)
-    ell_ops.bfs_level_ref(nr, t0, dr1, fr1, 0, False, True)
-    err = max(err_bfs, require_equal(torch, "bfs_level", B, (nk, nr),
-                                     (dk1, dr1), (fk1, fr1)))
-    changed_words = int((nk.view(i32) != nxt0.view(i32)).sum().item())
-    live = popcount(torch, ell_ops, nxt0)
-    newly = popcount(torch, ell_ops, nk)
-    t_other = popcount(torch, ell_ops, t0 & ~nxt0)
-    level_bytes = 2 * R1 * W + 4 * changed_words + 2 * (live + newly
-                                                        + t_other)
-    ms = restored_ms(torch, lambda: ell_ops.bfs_level(nk, t0, dk1, fk1, 0),
-                     lambda: (nk.copy_(nxt0), dk1.copy_(d0)), 20)
-    plain = restored_ms(torch, lambda: ell_ops.bfs_level_ref(
-        nr, t0, dr1, fr1, 0, False, True),
-        lambda: (nr.copy_(nxt0), dr1.copy_(d0)), 5)
-    res["bfs_level"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                            bound_ms=bytes_ms(level_bytes), bound_by="bytes",
-                            library_ms=None, first_ms=first_ms,
-                            first_bound_ms=bytes_ms(R1 * W + 2 * R1 * B),
-                            bfs_ms=bfs_ms, bfs_levels=lk,
-                            live_bits=live, newly_bits=newly)
+    bfs_plain = cuda_ms(torch, lambda: ell_ops.ell_bfs_ref(
+        f0.clone(), t0, tables, eslot, hrows, over, 5), 1, 0)
+    # its launches: the loop replayed with the level flags a run read
+    # (nothing waits on the card, so it captures), plus those reads, less
+    # the start's clone the call here adds
+    flag_reads = []
 
-    # ---- the int8 form of the result
+    def bfs_loop(read):
+        return ell_ops._bfs_loop(f0.clone(), t0, tables, eslot, hrows, over,
+                                 5, True, ell_ops.go_hop, ell_ops.bfs_level,
+                                 read=read)
+    bfs_loop(lambda flag: flag_reads.append(flag.tolist())
+             or flag_reads[-1])
+
+    def bfs_replay():
+        it = iter(flag_reads)
+        return bfs_loop(lambda _flag: next(it))
+    bfs_n = launches_a_call(torch, ell_ops, lambda: ell_ops.ell_bfs(
+        f0.clone(), t0, tables, eslot, hrows, over, 5), replay=bfs_replay,
+        reads=len(flag_reads))
+    bfs_n["launches_a_call"] -= 1
+    bfs_n["launch_kinds"]["memcpy"] -= 1
+    bfs_n["less"] = "the start frontier's clone"
+
+    # ... and alone, in the result's int8 form: its first pass and the
+    # level after one hop, on level 1's state (one start a lane, targets
+    # one a lane) and on a 2 %-dense frontier (2 % of the real rows
+    # random bytes, 2 % of the target bytes random: mesh_level's
+    # frontier)
+    live_h = np.zeros((R1, W), np.uint8)
+    live = rng.random(ix.n) < 0.02
+    live_h[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
+                                       dtype=np.uint8)
+    dense0 = up(live_h)
+    dense_t = up(np.where(rng.random((R1, W)) < 0.02,
+                          rng.integers(0, 256, (R1, W)), 0)
+                 .astype(np.uint8))
+    flags = torch.zeros((2, 2), dtype=i32, device=dev)
+    d0 = torch.empty((R1, B), dtype=torch.int8, device=dev)
+    seen0 = torch.empty_like(f0)
+    rows = {}
+    for label, start, tp in (("level1", f0, t0), ("dense", dense0,
+                                                  dense_t)):
+        fk, sk, dk0, flk = start.clone(), seen0, d0, flags[0].zero_()
+        ell_ops.bfs_level(fk, tp, sk, dk0, flk, 0, first=True)
+        fr, sr, dr0, flr = start.clone(), torch.empty_like(sk), \
+            torch.empty_like(dk0), torch.zeros_like(flk)
+        ell_ops.bfs_level_ref(fr, tp, sr, dr0, flr, 0, True, True)
+        require_equal(torch, f"bfs_level first pass {label}", B, (fk, fr),
+                      (sk, sr), (dk0, dr0), (flk, flr))
+        first_ms = cuda_ms(torch, lambda: ell_ops.bfs_level(
+            start, tp, sk, dk0, flk, 0, first=True), 20)
+        first_plain = cuda_ms(torch, lambda: ell_ops.bfs_level_ref(
+            fr, tp, sr, dr0, flr, 0, True, True), 5)
+        fill_ms = cuda_ms(torch, lambda: dr0.fill_(-1), 20)
+        nxt0 = torch.empty_like(start)
+        ell_ops.go_hop(start, None, nxt0, tables, eslot, hrows, over)
+        s_first, d_first = sk.clone(), dk0.clone()
+        nk, flk1 = nxt0.clone(), flags[1].zero_()
+        ell_ops.bfs_level(nk, tp, sk, dk0, flk1, 0)
+        nr, sr, dr1, flr1 = nxt0.clone(), s_first.clone(), d_first.clone(), \
+            torch.zeros_like(flk1)
+        ell_ops.bfs_level_ref(nr, tp, sr, dr1, flr1, 0, False, True)
+        err = require_equal(torch, f"bfs_level {label}", B, (nk, nr),
+                            (sk, sr), (dk0, dr1), (flk1, flr1))
+
+        def restore():
+            nk.copy_(nxt0)
+            sk.copy_(s_first)
+            dk0.copy_(d_first)
+        ms = restored_ms(torch, lambda: ell_ops.bfs_level(
+            nk, tp, sk, dk0, flk1, 0), restore, 20)
+        plain = restored_ms(torch, lambda: ell_ops.bfs_level_ref(
+            nr, tp, sr, dr1, flr1, 0, False, True),
+            lambda: (nr.copy_(nxt0), sr.copy_(s_first),
+                     dr1.copy_(d_first)), 5)
+        lb = k3_level_bytes(torch, ell_ops, nxt0, s_first, tp, 1)
+        fb = k3_first_bytes(R1, W, 1)
+        rows[label] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bytes_ms(min(lb["bytes"], lb["old_bytes"])),
+            old_bound_ms=bytes_ms(lb["old_bytes"]),
+            seen_bound_ms=bytes_ms(lb["bytes"]),
+            live_bits=lb["live_bits"], newly_bits=lb["newly_bits"],
+            first_ms=first_ms, first_plain_ms=first_plain,
+            first_bound_ms=bytes_ms(min(fb["bytes"], fb["old_bytes"])),
+            first_old_bound_ms=bytes_ms(fb["old_bytes"]),
+            fill_ms=fill_ms)
+        del fr, sr, dr0, nr, dr1, nxt0, s_first, d_first
+    one = rows["level1"]
+    res["bfs_level"] = dict(
+        one, max_abs_err=max(err_bfs, one["max_abs_err"],
+                             rows["dense"]["max_abs_err"]),
+        bound_by="bytes", library_ms=None,
+        library_none="none: a depth update with its loop flags",
+        dense=rows["dense"], bfs_ms=bfs_ms, bfs_plain_ms=bfs_plain,
+        bfs_levels=programs[5][1], bfs_levels_held=programs[5][2],
+        bfs121_levels=programs[121][1], bfs121_levels_held=programs[121][2],
+        bfs121_dtype="int16", bfs_dtype="int8",
+        bfs_launches={a: bfs_n[a] for a in (
+            "launches_a_call", "c_calls_a_call", "launch_kinds", "less",
+            "host_reads", "launches_traced")})
+
+    # ---- the int8 form of an int16 result (the max_steps 121 BFS's d)
+    d16 = programs[121][0]
     ok8 = torch.empty((R1, B), dtype=torch.int8, device=dev)
     or8 = torch.empty_like(ok8)
-    ell_ops.bfs_depth_i8(dk1, ok8)
-    ell_ops.bfs_depth_i8_ref(dk1, or8)
+    ell_ops.bfs_depth_i8(d16, ok8)
+    ell_ops.bfs_depth_i8_ref(d16, or8)
     err = require_equal(torch, "bfs_depth_i8", B, (ok8, or8))
-    ms = cuda_ms(torch, lambda: ell_ops.bfs_depth_i8(dk1, ok8), 50)
-    plain = cuda_ms(torch, lambda: ell_ops.bfs_depth_i8_ref(dk1, or8), 20)
+    ms = cuda_ms(torch, lambda: ell_ops.bfs_depth_i8(d16, ok8), 50)
+    plain = cuda_ms(torch, lambda: ell_ops.bfs_depth_i8_ref(d16, or8), 20)
+    # INT16_INF's low byte is 0xFF, -1 as int8: one narrowing copy is the
+    # same function, so it is the library call.
+    ol8 = torch.empty_like(ok8)
+    ol8.copy_(d16)
+    require_equal(torch, "bfs_depth_i8 library copy_", B, (ol8, or8))
+    lib = cuda_ms(torch, lambda: ol8.copy_(d16), 50)
     res["bfs_depth_i8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=bytes_ms(3 * R1 * B),
-                               bound_by="bytes", library_ms=None)
+                               bound_by="bytes", library_ms=lib,
+                               library_call="int8 out.copy_(d)")
     return res
+
+
+def k3_first_bytes(R1: int, W: int, dsize: int) -> dict:
+    """K3's first pass: nxt and the targets read, seen and d written
+    whole (``bytes``); the design before ``seen`` read nxt and wrote an
+    int16 d (``old_bytes``)."""
+    return dict(bytes=3 * R1 * W + 8 * R1 * W * dsize,
+                old_bytes=R1 * W + 16 * R1 * W)
+
+
+def k3_level_bytes(torch, ell_ops, nxt, seen, tp, dsize: int,
+                   replicas: int = 1) -> dict:
+    """K3's later level on this run's data: nxt, seen and the targets
+    read, seen's changed words and the frontier's (in every replica)
+    written, d at the newly reached lanes (``bytes``); the design before
+    ``seen`` read nxt and the targets, the int16 d of the live bits and
+    of the target bits not live, and wrote the changed words and the
+    newly reached depths (``old_bytes``)."""
+    R1, W = nxt.shape
+    newly = nxt & ~seen
+    grew = int((newly.view(torch.int32) != 0).sum().item())
+    changed = int((newly.view(torch.int32) != nxt.view(torch.int32))
+                  .sum().item())
+    live = popcount(torch, ell_ops, nxt)
+    n_new = popcount(torch, ell_ops, newly)
+    t_other = popcount(torch, ell_ops, tp & ~nxt)
+    return dict(bytes=3 * R1 * W + 4 * grew + 4 * replicas * changed
+                + dsize * n_new,
+                old_bytes=2 * R1 * W + 4 * replicas * changed
+                + 2 * (live + n_new + t_other),
+                live_bits=live, newly_bits=n_new, changed_words=changed)
 
 
 # ====================================================== phase 3, int8
@@ -1264,12 +1404,37 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
         wb, tb, tables, eslot, hrows, over, 5), lambda: wb.copy_(fb), 3, 1)
     bfs_plain = restored_ms(torch, lambda: ell_ops.ell_bfs_i8_ref(
         wb, tb, tables, eslot, hrows, over, 5), lambda: wb.copy_(fb), 1, 1)
+    # its launches: the loop replayed with the level flags a run read,
+    # plus those reads, less the start's clone the call here adds
+    flag_reads = []
+
+    def bfs_loop(read):
+        return ell_ops._bfs_loop_i8(
+            fb.clone(), tb, tables, eslot, hrows, over, 5, True,
+            ell_ops._live_chain(ell_ops.go_hop_i8, R1, dev),
+            ell_ops.bfs_level_i8, ell_ops.bfs_depth_i8, read=read)
+    bfs_loop(lambda flag: flag_reads.append(flag.tolist())
+             or flag_reads[-1])
+
+    def bfs_replay():
+        it = iter(flag_reads)
+        return bfs_loop(lambda _flag: next(it))
+    bfs_n = launches_a_call(torch, ell_ops, lambda: ell_ops.ell_bfs_i8(
+        fb.clone(), tb, tables, eslot, hrows, over, 5), replay=bfs_replay,
+        reads=len(flag_reads))
+    bfs_n["launches_a_call"] -= 1
+    bfs_n["launch_kinds"]["memcpy"] -= 1
     res["ell_bfs_i8"] = dict(max_abs_err=err_bfs, ms=bfs_ms,
                              plain_ms=bfs_plain, levels=lk,
                              bound_ms=bytes_ms(8 * slots + 3 * R1 * B
                                                + hub_bytes),
                              bound_by="bytes", library_ms=None,
-                             connected_depth=d_conn, unreachable_depth=d_none)
+                             connected_depth=d_conn, unreachable_depth=d_none,
+                             less="the start frontier's clone",
+                             **{a: bfs_n[a] for a in (
+                                 "launches_a_call", "c_calls_a_call",
+                                 "launch_kinds", "host_reads",
+                                 "launches_traced")})
 
     # ---- K15 the level pass: the first pass, then level 1 after a hop
     d0 = torch.empty((R1, B), dtype=torch.int16, device=dev)
@@ -1374,7 +1539,24 @@ def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over, rng,
     require_equal(torch, "ell_bfs_i8", B, (dk, dr))
     if lk != lr:
         raise AssertionError(f"ell_bfs_i8 ran {lk} levels, plain {lr}")
-    return dict(B=B, offset=offset, levels=lk, equal=True)
+    # the int8 form at this width: the whole matrix, a length that is no
+    # multiple of 8 (the vector path, then its tail), and rows from the
+    # second on (not 16-byte aligned at B = 10: one entry a step)
+    inf = int(ell_ops.INT16_INF)
+    d16 = torch.where(torch.rand((R1, B), device=dev) < 0.5, inf,
+                      torch.randint(0, 121, (R1, B), device=dev)
+                      ).to(torch.int16)
+    flat = d16.view(-1)
+    forms = {"whole": d16, "odd_length": flat[:flat.numel() - 3].view(1, -1),
+             "rows_from_1": d16[1:]}
+    for label, x in forms.items():
+        o8 = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        w8 = torch.empty_like(o8)
+        ell_ops.bfs_depth_i8(x, o8)
+        ell_ops.bfs_depth_i8_ref(x, w8)
+        require_equal(torch, f"bfs_depth_i8 B={B} {label}", B, (o8, w8))
+    return dict(B=B, offset=offset, levels=lk, equal=True,
+                bfs_depth_i8_forms=list(forms))
 
 
 HOP_TAIL_WIDTHS = (4, 12, 20, 48)   # off the ladder: the 4-byte columns,
@@ -2481,6 +2663,53 @@ def drive_paths(rt, srcs, dsts, threads: int):
     return wall, lat, results
 
 
+@contextlib.contextmanager
+def uncounted(ell_ops):
+    """Launches made inside are left out of ``ell_ops.LAUNCHES``."""
+    before = dict(ell_ops.LAUNCHES)
+    try:
+        yield
+    finally:
+        ell_ops.LAUNCHES.update(before)
+
+
+def bfs_plain_check(torch, ell_ops, rt, srcs, dsts, kind: str) -> dict:
+    """One batch of a phase's FIND SHORTEST PATH requests (UPTO 5) through
+    the phase's BFS program as ``rt._bfs_depths`` uploads it (``path``:
+    ``ell_bfs``; ``unpacked``: ``ell_bfs_i8``; ``mesh``:
+    ``ell_bfs_sharded``), held bit for bit, with its levels, to the
+    program's plain version; its launches, the two uploads included,
+    left uncounted."""
+    m = rt.mirror(1)
+    ix = rt.ell(m)
+    nq = len(srcs)
+    B = rt._batch_width(nq)
+    up = rt._upload_frontier if kind == "unpacked" \
+        else rt._upload_frontier_packed
+    with uncounted(ell_ops):
+        f0, t0 = (up(ix, *rt._flat_coords(m, ix, [[int(v)] for v in vs],
+                                          nq), B) for vs in (srcs, dsts))
+        if kind == "mesh":
+            mt = rt._mesh_tables(m, ix)
+            args = (mt, *rt._hub_merge_shards(m, ix, mt.mesh), (1,), 5)
+            got = ell_ops.ell_bfs_sharded(f0, t0, *args)
+            want = ell_ops.ell_bfs_sharded_ref(f0, t0, *args)
+        else:
+            prog, ref = (ell_ops.ell_bfs_i8, ell_ops.ell_bfs_i8_ref) \
+                if kind == "unpacked" else (ell_ops.ell_bfs,
+                                            ell_ops.ell_bfs_ref)
+            args = (rt._device_tables(m, ix), *rt._hub_merge_dev(m, ix),
+                    (1,), 5)
+            got = prog(f0.clone(), t0, *args)
+            want = ref(f0.clone(), t0, *args)
+        require_equal(torch, f"[{kind}] BFS program", B, (got[0], want[0]))
+    if got[1] != want[1]:
+        raise AssertionError(f"[{kind}] BFS program ran {got[1]} levels, "
+                             f"plain {want[1]}")
+    return dict(queries=nq, lanes=B, levels=got[1],
+                dtype=str(got[0].dtype).split(".")[-1], equal=True)
+
+
 def path_phase(torch, rt, ell_ops, oracle: PathOracle, vids: np.ndarray,
                requests: int, threads: int, seed: int) -> dict:
     """FIND SHORTEST PATH traffic, counted: ``requests`` (1 src, 1 dst,
@@ -2503,6 +2732,8 @@ def path_phase(torch, rt, ell_ops, oracle: PathOracle, vids: np.ndarray,
     wall, lat, results = drive_paths(rt, srcs, dsts, threads)
     launches = dict(ell_ops.LAUNCHES)
     require_launched(launches, "path")
+    plain_held = bfs_plain_check(torch, ell_ops, rt, srcs[:64], dsts[:64],
+                                 "path")
     served = len(results)
     stats = {k: rt.stats[k] - rt0[k] for k in rt0}
     batches = rt.dispatcher.stats["batches"] - before["batches"]
@@ -2578,7 +2809,8 @@ def path_phase(torch, rt, ell_ops, oracle: PathOracle, vids: np.ndarray,
                 aimed_shortest_checked=aimed["shortest"][0],
                 aimed_shortest_paths=aimed["shortest"][1],
                 all_path_checked=aimed["all"][0],
-                all_path_rows=aimed["all"][1], all_path_s=t_all)
+                all_path_rows=aimed["all"][1], all_path_s=t_all,
+                plain_program=plain_held)
 
 
 # ============================================== the fused WHERE route
@@ -4121,6 +4353,9 @@ def unpacked_phase(torch, rt, ell_ops, flags, oracle: GoOracle,
             rt, path_oracle, vids, srcs, dsts, presults, rng_c)
     launches = dict(ell_ops.LAUNCHES)
     require_launched(launches, "unpacked")
+    with flag_mode(flags, UNPACKED):
+        plain_held = bfs_plain_check(torch, ell_ops, rt, srcs[:64],
+                                     dsts[:64], "unpacked")
     out["c"] = dict(lat_stats(path_requests, wall, list(plat.values())),
                     threads=path_threads, checked=path_requests,
                     checked_reachable=reachable,
@@ -4128,7 +4363,7 @@ def unpacked_phase(torch, rt, ell_ops, flags, oracle: GoOracle,
                     levels_per_dispatch=stats["bfs_levels"]
                     / max(stats["bfs_dispatches"], 1),
                     all_path_checked=all_checked, all_path_rows=all_rows,
-                    all_path_s=t_all)
+                    all_path_s=t_all, plain_program=plain_held)
     out["launches"] = launches
     out["launches_a"] = a_launch
     return out
@@ -4337,74 +4572,88 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
 
     # ---- the BFS level stage (one launch over the card's replicas): the
     # first pass on the start replicas, then a level on the whole hop's
-    # output, against mesh_level_ref and the single-card bfs_level
+    # output, against mesh_level_ref and the single-card bfs_level, in
+    # the result's int8 form
     tl = torch.from_numpy(np.where(rng.random((R1, W)) < 0.02,
                                    rng.integers(0, 256, (R1, W)), 0)
                           .astype(np.uint8)).to(dev)
-    dl = torch.empty((R1, B), dtype=torch.int16, device=dev)
+    sl = torch.empty((R1, W), dtype=torch.uint8, device=dev)
+    dl = torch.empty((R1, B), dtype=torch.int8, device=dev)
     fl = torch.zeros((3, 2), dtype=torch.int32, device=dev)
     ML = ell_ops.MeshLevel
 
-    def level(nxt_, d_, fl_, first, fn=ell_ops.mesh_hop):
+    def level(nxt_, s_, d_, fl_, first, fn=ell_ops.mesh_hop):
         stages = ell_ops.HOP_LEVEL
         return lambda: fn(outs if nxt_ is cur else cur, nxt_, mt, g, eslot,
-                          hrows, over, stages, ML(tl, d_, fl_, 0, first,
+                          hrows, over, stages, ML(tl, s_, d_, fl_, 0, first,
                                                   True))
     start_rep = cur.clone()
-    level(cur, dl, fl[0], True)()
-    d_ref, f_ref = torch.empty_like(dl), torch.zeros_like(fl[0])
-    ell_ops.mesh_level_ref(start_rep.clone(), ML(tl, d_ref, f_ref, 0, True,
-                                                 True))
-    d_one, f_one = torch.empty_like(dl), torch.zeros_like(fl[0])
-    ell_ops.bfs_level(fp0.clone(), tl, d_one, f_one, 0, first=True)
+    level(cur, sl, dl, fl[0], True)()
+    s_ref, d_ref, f_ref = torch.empty_like(sl), torch.empty_like(dl), \
+        torch.zeros_like(fl[0])
+    ell_ops.mesh_level_ref(start_rep.clone(), ML(tl, s_ref, d_ref, f_ref, 0,
+                                                 True, True))
+    s_one, d_one, f_one = torch.empty_like(sl), torch.empty_like(dl), \
+        torch.zeros_like(fl[0])
+    ell_ops.bfs_level(fp0.clone(), tl, s_one, d_one, f_one, 0, first=True)
     require_equal(torch, f"mesh_level first k={k}", B, (cur, start_rep),
-                  (dl, d_ref), (dl, d_one), (fl[0], f_ref), (fl[0], f_one))
-    first_ms = mesh_queued_ms(torch, level(cur, dl, fl[0], True),
+                  (sl, s_ref), (dl, d_ref), (sl, s_one), (dl, d_one),
+                  (fl[0], f_ref), (fl[0], f_one))
+    first_ms = mesh_queued_ms(torch, level(cur, sl, dl, fl[0], True),
                               f"mesh_level first k={k} B={B}")
     stage(ell_ops.HOP_STAGES)()          # outs: the hop's output replicas
-    hop_out, d_first = outs.clone(), dl.clone()
-    level(outs, dl, fl[1], False)()
-    n_ref, d_ref, f_ref = hop_out.clone(), d_first.clone(), \
-        torch.zeros_like(fl[1])
-    ell_ops.mesh_level_ref(n_ref, ML(tl, d_ref, f_ref, 0, False, True))
-    n_one, d_one, f_one = hop_out[0].clone(), d_first.clone(), \
-        torch.zeros_like(fl[1])
-    ell_ops.bfs_level(n_one, tl, d_one, f_one, 0)
+    hop_out, s_first, d_first = outs.clone(), sl.clone(), dl.clone()
+    level(outs, sl, dl, fl[1], False)()
+    n_ref, s_ref, d_ref, f_ref = hop_out.clone(), s_first.clone(), \
+        d_first.clone(), torch.zeros_like(fl[1])
+    ell_ops.mesh_level_ref(n_ref, ML(tl, s_ref, d_ref, f_ref, 0, False,
+                                     True))
+    n_one, s_one, d_one, f_one = hop_out[0].clone(), s_first.clone(), \
+        d_first.clone(), torch.zeros_like(fl[1])
+    ell_ops.bfs_level(n_one, tl, s_one, d_one, f_one, 0)
     require_equal(torch, f"mesh_level k={k}", B, (outs, n_ref),
-                  (dl, d_ref), (fl[1], f_ref), (dl, d_one), (fl[1], f_one),
+                  (sl, s_ref), (dl, d_ref), (fl[1], f_ref), (sl, s_one),
+                  (dl, d_one), (fl[1], f_one),
                   *[(o, n_one) for o in outs.unbind(0)])
-    lv_restore = lambda: (outs.copy_(hop_out), dl.copy_(d_first))  # noqa
-    lv_ms = restored_queued_ms(torch, level(outs, dl, fl[2], False),
+
+    def lv_restore():
+        outs.copy_(hop_out)
+        sl.copy_(s_first)
+        dl.copy_(d_first)
+    lv_ms = restored_queued_ms(torch, level(outs, sl, dl, fl[2], False),
                                lv_restore, f"mesh_level k={k} B={B}")
-    lv_ev = restored_ms(torch, level(outs, dl, fl[2], False), lv_restore,
-                        20)
-    lv_plain = restored_ms(torch, level(outs, dl, fl[2], False,
+    lv_ev = restored_ms(torch, level(outs, sl, dl, fl[2], False),
+                        lv_restore, 20)
+    lv_plain = restored_ms(torch, level(outs, sl, dl, fl[2], False,
                                         ell_ops.mesh_hop_ref), lv_restore, 3)
     one_ms = restored_ms(torch, lambda: ell_ops.bfs_level(
-        outs[0], tl, dl, fl[2], 0), lv_restore, 20)
+        outs[0], tl, sl, dl, fl[2], 0), lv_restore, 20)
     lv_restore()
     stage_lv = {}
     if dev.type == "cuda":
         stage_lv = stage_launches(
-            torch, ell_ops, level(outs, dl, fl[2], False), 1,
+            torch, ell_ops, level(outs, sl, dl, fl[2], False), 1,
             {"mesh_hop": 1, "mesh_level": 1, "shard_hop": 0,
              "replicate_rows": 0, "hop_merge": 0}, f"mesh_level k={k}")
     lv_restore()
-    changed = int((n_one.view(torch.int32) != hop_out[0].view(torch.int32))
-                  .sum().item())
-    live = popcount(torch, ell_ops, hop_out[0])
-    newly = popcount(torch, ell_ops, n_one)
-    t_other = popcount(torch, ell_ops, tl & ~hop_out[0])
+    lb = k3_level_bytes(torch, ell_ops, hop_out[0], s_first, tl, 1,
+                        replicas=k)
+    fb = k3_first_bytes(R1, W, 1)
     res["mesh_level"] = dict(
         max_abs_err=0, ms=lv_ms, event_ms=lv_ev, plain_ms=lv_plain,
-        bound_ms=bytes_ms(2 * R1 * W + 4 * k * changed
-                          + 2 * (live + newly + t_other)),
+        bound_ms=bytes_ms(min(lb["bytes"], lb["old_bytes"])),
+        old_bound_ms=bytes_ms(lb["old_bytes"]),
+        seen_bound_ms=bytes_ms(lb["bytes"]),
         bound_by="bytes", library_ms=None,
         library_none="none: a depth update with its loop flags", k=k,
-        first_ms=first_ms, first_bound_ms=bytes_ms(R1 * W + 2 * R1 * B),
+        first_ms=first_ms,
+        first_bound_ms=bytes_ms(min(fb["bytes"], fb["old_bytes"])),
+        first_old_bound_ms=bytes_ms(fb["old_bytes"]),
         single_card_bfs_level_ms=one_ms, replicas_written=k,
-        changed_words=changed, **stage_lv)
-    del hop_out, d_first, n_ref, d_ref, n_one, d_one, start_rep
+        changed_words=lb["changed_words"], live_bits=lb["live_bits"],
+        newly_bits=lb["newly_bits"], **stage_lv)
+    del hop_out, s_first, d_first, n_ref, s_ref, d_ref, n_one, s_one, \
+        d_one, start_rep
 
     # ---- ell_go_sharded at 1-4 steps; B queries, one start each
     starts = rng.integers(0, ix.n, B)
@@ -4469,13 +4718,15 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
             f0, t0, mt, es, hs, over, 5, stop), 1, warmup=0)
         one = cuda_ms(torch, lambda: ell_ops.ell_bfs(
             f0.clone(), t0, tables, eslot, hrows, over, 5, stop), 3, 1)
-        # the hops, then the level passes' depth matrix and targets once
-        # a card group (the design before the level stage kept them once
-        # a shard: old_bound_ms), and the int8 result
+        # the hops, then a card group's level passes: its targets read,
+        # its reached bitmap written and read, its int8 depth matrix
+        # written once (the design before the level stage kept an int16
+        # depth matrix and the targets once a shard, and converted the
+        # result: old_bound_ms)
         hops_bytes = lk * (8 * slots_all + (1 + k) * R1 * W + hub_bytes)
         groups = len(mt.mesh.groups)
-        nbytes = hops_bytes + groups * (2 * R1 * B + 2 * R1 * W) + R1 * B
-        old_bytes = hops_bytes + k * (2 * R1 * B + 2 * R1 * W) + R1 * B
+        nbytes = hops_bytes + groups * (3 * R1 * W + R1 * B)
+        old_bytes = hops_bytes + k * (2 * R1 * B + 2 * R1 * W) + 3 * R1 * B
         bfs_rows[stop] = dict(max_abs_err=0, ms=ms, plain_ms=plain,
                               bound_ms=bytes_ms(nbytes), bound_by="bytes",
                               library_ms=None, levels=lk,
@@ -4488,8 +4739,7 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
 
     def bfs_loop(read):
         return ell_ops._bfs_sharded_loop(
-            f0, t0, mt, es, hs, over, 5, True, ell_ops.mesh_hop,
-            ell_ops.bfs_depth_i8, read=read)
+            f0, t0, mt, es, hs, over, 5, True, ell_ops.mesh_hop, read=read)
     bfs_loop(lambda flag: flag_reads.append(flag.tolist())
              or flag_reads[-1])
 
@@ -4735,7 +4985,7 @@ def psum_phase(torch, ell_ops, psum_or, k: int, dev, rng) -> dict:
 MESH = {"tpu_mesh_devices": 4, "tpu_mesh_mode": "dense"}
 # a mesh path that quietly ran single-device would launch one of these
 SINGLE_CARD = ("go_hop", "ell_go", "go_count", "sparse_go", "adaptive_go",
-               "ell_absorb", "go_hop_i8", "lane_join")
+               "ell_absorb", "go_hop_i8", "lane_join", "bfs_level")
 
 
 def mesh_write_part(torch, ell_ops, flags, dev, seed: int,
@@ -4897,6 +5147,8 @@ def mesh_phase(torch, ell_ops, flags, m, schema, oracle: GoOracle,
             reachable, all_checked, all_rows, t_all = check_paths(
                 rt, path_oracle, vids, srcs, dsts, presults, rng_b)
             stats = {x: rt.stats[x] - rt0[x] for x in rt0}
+            plain_held = bfs_plain_check(torch, ell_ops, rt, srcs[:64],
+                                         dsts[:64], "mesh")
         if stats["path_mesh"] != stats["bfs_dispatches"] \
                 or not stats["path_mesh"]:
             raise AssertionError(f"part (b) left the mesh: {stats}")
@@ -4907,7 +5159,8 @@ def mesh_phase(torch, ell_ops, flags, m, schema, oracle: GoOracle,
                         levels_per_dispatch=stats["bfs_levels"]
                         / max(stats["bfs_dispatches"], 1),
                         all_path_checked=all_checked,
-                        all_path_rows=all_rows, all_path_s=t_all)
+                        all_path_rows=all_rows, all_path_s=t_all,
+                        plain_program=plain_held)
 
         # (c) what the mesh still declines
         declined = []

@@ -70,9 +70,14 @@ K5 (``pair_compact``) alone at c0 256 and 2048 on the mark the first
 hop leaves, device and event times and its kernels from a trace; and
 ``ell_bfs_sharded`` beside the single-card ``ell_bfs`` on the same
 starts and targets, event times, both split by kernel from a trace.
+K3 (``bfs_level``: its first pass, a level on a 2 %-dense frontier and
+on level 1),
+``bfs_depth_i8`` and the three BFS programs on the same inputs for
+both checkouts, with one trace of ``ell_bfs`` by kernel
+(``bfs_rows``).
 ``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
 and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``int8``,
-``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``.
+``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``, ``bfs``.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -108,7 +113,7 @@ BFS_CALLS = 3                  # back-to-back calls of a timed BFS
 MESH_QUEUED = 4                # mesh_sparse_go calls queued behind a spin
 MESH_SPIN = 16 * SPIN_CYCLES   # about 64 ms: four calls' host enqueue
 ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "int8", "mesh",
-              "mesh_sparse", "k5", "bfs_pair")
+              "mesh_sparse", "k5", "bfs_pair", "bfs")
 SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
 LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
 # chip_smoke.py's predicate 3 and its seeded columns (fused_columns)
@@ -688,6 +693,171 @@ def bfs_pair_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng, dev):
     return res
 
 
+def _one_a_lane(torch, ix, W, rng, dev):
+    """A packed [n_rows + 1, W] frontier with one random row a lane."""
+    import numpy as np
+    R1, B = ix.n_rows + 1, 8 * W
+    f = torch.zeros((R1, W), dtype=torch.uint8, device=dev)
+    lane = torch.arange(B, device=dev)
+    rows = torch.from_numpy(ix.perm[rng.integers(0, ix.n, B)]
+                            .astype(np.int64)).to(dev)
+    f.view(-1).index_put_((rows * W + lane // 8,),
+                          (1 << (lane % 8)).to(torch.uint8), accumulate=True)
+    return f
+
+
+def bfs_rows(torch, ell_ops, ix, tables, eslot, hrows, over, dev):
+    """K3 (``bfs_level``), ``bfs_depth_i8`` and the three BFS programs at
+    W = 16 and 128 (B = 128 and 1024), on inputs made from SEED and W
+    alone, so that two checkouts see the same ones.  K3 in the
+    checkout's own form (a reached bitmap ``seen`` and ``d`` in the
+    result's form where it has ``ell_ops.depth_dtype``, else an int16
+    ``d``; each int16 and int8 where the checkout has both): its first
+    pass on a 2 %-dense frontier (2 % of the rows random bytes), beside
+    a fill of ``d`` alone (``Tensor.fill_``, the copy bound's own
+    kernel); the level after one hop of that frontier (device time less
+    the restore of its state); the level after the first hop from
+    one random start a lane.  Each level of the checkout's own form held
+    equal to its plain version.  ``bfs_depth_i8`` on a seeded int16
+    matrix (70 % INF, made on the card from SEED and W).  ``ell_bfs``,
+    ``ell_bfs_sharded`` (k = MESH_K on this card) and ``ell_bfs_i8`` at
+    UPTO 5, stop when found, from one random start and target a lane,
+    by events and held equal; one trace's device time of ``ell_bfs`` by
+    kernel."""
+    import numpy as np
+    from nebula_tpu_torch.tpu import mesh as pmesh
+    from nebula_tpu_torch.tpu.ell import INT16_INF, mesh_tables
+    new = hasattr(ell_ops, "depth_dtype")
+    R1, k = ix.n_rows + 1, MESH_K
+    mt = mesh_tables(ix, pmesh.PartsMesh([dev] * k))
+    es, hs = [eslot] * k, [hrows] * k
+    res = dict(bfs_form="seen" if new else "int16 d")
+
+    def level(nxt, tp, seen, d, flags, step, first=False):
+        if new:
+            ell_ops.bfs_level(nxt, tp, seen, d, flags, step, first)
+        else:
+            ell_ops.bfs_level(nxt, tp, d, flags, step, first)
+
+    def held(what, nxt, tp, seen, d, flags, step, first, got):
+        if not new:
+            return
+        want = [x.clone() for x in (nxt, seen, d, flags)]
+        ell_ops.bfs_level_ref(*want[:1], tp, *want[1:], step, first, True)
+        _equal(torch, what, *zip(got, want))
+
+    def restored(run, restore, iters=QUEUED):
+        def both():
+            restore()
+            run()
+        return max(0.0, queued_ms(torch, both, iters)
+                   - queued_ms(torch, restore, iters))
+
+    for W in (16, 128):
+        B = 8 * W
+        seed = np.random.default_rng(SEED + W)
+        fp_h = np.zeros((R1, W), np.uint8)
+        live = seed.random(ix.n) < 0.02
+        fp_h[:ix.n][live] = seed.integers(0, 256, (int(live.sum()), W),
+                                          dtype=np.uint8)
+        fp0 = torch.from_numpy(fp_h).to(dev)
+        tl = torch.from_numpy(np.where(seed.random((R1, W)) < 0.02,
+                                       seed.integers(0, 256, (R1, W)), 0)
+                              .astype(np.uint8)).to(dev)
+        f1, t1 = (_one_a_lane(torch, ix, W, seed, dev) for _ in range(2))
+        flags = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+        for dt in (torch.int8, torch.int16) if new else (torch.int16,):
+            tag = f"w{W}_" + ("i8" if dt == torch.int8 else "i16")
+            d = torch.empty((R1, B), dtype=dt, device=dev)
+            seen = torch.empty_like(fp0) if new else None
+            unreached = -1 if dt == torch.int8 else int(INT16_INF)
+
+            def first():
+                level(fp0, tl, seen, d, flags[0], 0, True)
+            first()
+            held(f"first pass {tag}", fp0, tl, seen, d, flags[0], 0, True,
+                 [fp0, seen, d, flags[0]])
+            res[f"bfs_first_{tag}"] = dict(
+                ms=queued_ms(torch, first, QUEUED),
+                event_ms=cuda_ms(torch, first, BACK_TO_BACK),
+                fill_ms=queued_ms(torch, lambda: d.fill_(unreached), QUEUED))
+            for name, start in (("dense", fp0), ("level1", f1)):
+                level(start, tl, seen, d, flags[0], 0, True)
+                nxt0 = torch.empty_like(start)
+                ell_ops.go_hop(start, None, nxt0, tables, eslot, hrows, over)
+                s0 = seen.clone() if new else None
+                d0 = d.clone()
+                nk = nxt0.clone()
+
+                def restore():
+                    nk.copy_(nxt0)
+                    d.copy_(d0)
+                    if new:
+                        seen.copy_(s0)
+
+                def run():
+                    level(nk, tl, seen, d, flags[1], 0)
+                restore()
+                flags[1].zero_()
+                run()
+                held(f"{name} level {tag}", nxt0, tl, s0, d0,
+                     torch.zeros_like(flags[1]), 0, False,
+                     [nk, seen, d, flags[1]])
+                res[f"bfs_level_{name}_{tag}"] = dict(
+                    ms=restored(run, restore),
+                    event_ms=cuda_ms(torch, lambda: (restore(), run()),
+                                     BACK_TO_BACK)
+                    - cuda_ms(torch, restore, BACK_TO_BACK),
+                    live_bits=int(ell_ops._unpack_ref(nxt0).sum(
+                        dtype=torch.int64)))
+                del d0, nk, nxt0, s0
+            del d, seen
+        # the int8 form of an int16 result
+        g = torch.Generator(device=dev).manual_seed(SEED + W)
+        dd = torch.where(torch.rand((R1, B), generator=g, device=dev) < 0.7,
+                         int(INT16_INF),
+                         torch.randint(0, 6, (R1, B), generator=g,
+                                       device=dev)).to(torch.int16)
+        o8, w8 = torch.empty(dd.shape, dtype=torch.int8, device=dev), \
+            torch.empty(dd.shape, dtype=torch.int8, device=dev)
+        ell_ops.bfs_depth_i8(dd, o8)
+        ell_ops.bfs_depth_i8_ref(dd, w8)
+        _equal(torch, f"bfs_depth_i8 W={W}", (o8, w8))
+        res[f"bfs_depth_i8_w{W}"] = dict(
+            ms=queued_ms(torch, lambda: ell_ops.bfs_depth_i8(dd, o8), QUEUED),
+            event_ms=cuda_ms(torch, lambda: ell_ops.bfs_depth_i8(dd, o8),
+                             BACK_TO_BACK))
+        del dd, o8, w8
+
+        # the programs
+        def one():
+            return ell_ops.ell_bfs(f1.clone(), t1, tables, eslot, hrows,
+                                   over, 5)
+
+        def mesh():
+            return ell_ops.ell_bfs_sharded(f1, t1, mt, es, hs, over, 5)
+        s8, t8 = (ell_ops._unpack_ref(x).view(torch.int8).contiguous()
+                  for x in (f1, t1))
+
+        def i8():
+            return ell_ops.ell_bfs_i8(s8.clone(), t8, tables, eslot, hrows,
+                                      over, 5)
+        (d1, l1), (dm, lm), (di, li) = one(), mesh(), i8()
+        _equal(torch, f"BFS programs W={W}", (dm, d1), (di, d1))
+        if not l1 == lm == li:
+            raise AssertionError(f"BFS levels {l1}, {lm}, {li} at W={W}")
+        del d1, dm, di
+        res[f"bfs_programs_w{W}"] = dict(
+            levels=l1,
+            ell_bfs_event_ms=cuda_ms(torch, one, BFS_CALLS, 1)
+            - cuda_ms(torch, lambda: f1.clone(), BFS_CALLS, 1),
+            ell_bfs_sharded_event_ms=cuda_ms(torch, mesh, BFS_CALLS, 1),
+            ell_bfs_i8_event_ms=cuda_ms(torch, i8, BFS_CALLS, 1)
+            - cuda_ms(torch, lambda: s8.clone(), BFS_CALLS, 1),
+            ell_bfs_split=kernel_split(torch, ell_ops, one))
+    return res
+
+
 def fused_rows(torch, edge_ops, rt, m, rng, dev):
     """``go_filtered`` from one start at 3 steps, predicate 3, pushed."""
     import numpy as np
@@ -806,7 +976,9 @@ def main(argv=None) -> int:
         ("k5", lambda: k5_rows(torch, ell_ops, rt, m, ix, tables, over, rng,
                                dev)),
         ("bfs_pair", lambda: bfs_pair_rows(torch, ell_ops, ix, tables, eslot,
-                                           hrows, over, rng, dev)))
+                                           hrows, over, rng, dev)),
+        ("bfs", lambda: bfs_rows(torch, ell_ops, ix, tables, eslot, hrows,
+                                 over, dev)))
     try:
         for name, fn in groups:
             if name in rows:

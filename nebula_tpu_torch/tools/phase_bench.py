@@ -1,5 +1,5 @@
 """Run ``chip_smoke.py``'s end-to-end phases [serve], [windowed],
-[sparse], [adaptive] and [path] on one checkout of the port, so that
+[sparse], [adaptive], [path] and [mesh] on one checkout of the port, so that
 two checkouts can be held side by side in one run on one card.
 
     python3 nebula_tpu_torch/tools/phase_bench.py [--tree DIR]
@@ -11,7 +11,9 @@ Run it as a script.  The phases are the functions of this checkout's
 columns), 4096 GO requests from 64 threads through the continuous
 dispatcher and then the windowed one, the same mix on the sparse
 route, 256 adaptive single-start requests, 512 FIND SHORTEST PATH
-requests from 16 threads; each checks its answers against the oracle
+requests from 16 threads, and the dense mesh of 4 shards on the card
+(1024 GO requests from 64 threads, then 128 FIND SHORTEST PATH from
+16, then its write part); each checks its answers against the oracle
 and its launches as the smoke does.  The port comes from ``--tree DIR``
 (default: this file's checkout), for instance a parent commit unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists; DIR's
@@ -20,7 +22,8 @@ on a checkout that counts its dense calls on the card
 (``ell_ops.adaptive_dense_tally``).  ``--phases`` picks phases
 (default all), in the smoke's order.  Prints the card's name and power
 limit, then one JSON line: each phase's qps, p50 and p99 ms and wall
-seconds.  Needs a CUDA card.
+seconds ([mesh]: its GO part ``a`` and its path part ``b`` apart).
+Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -32,10 +35,11 @@ import subprocess
 import sys
 import time
 
-PHASES = ("serve", "windowed", "sparse", "adaptive", "path")
+PHASES = ("serve", "windowed", "sparse", "adaptive", "path", "mesh")
 REQUESTS, THREADS, SEED = 4096, 64, 0          # chip_smoke.py's defaults
 ADAPTIVE_REQUESTS = 256
 PATH_REQUESTS, PATH_THREADS = 512, 16
+MESH_REQUESTS, MESH_PATH_REQUESTS = 1024, 128
 VERTICES, EDGES = 1 << 19, 1 << 22
 
 
@@ -101,7 +105,11 @@ def main(argv=None) -> int:
                 ADAPTIVE_REQUESTS, SEED),
             "path": lambda: smoke.path_phase(
                 torch, rt, ell_ops, smoke.PathOracle(oracle), m.vids,
-                PATH_REQUESTS, PATH_THREADS, SEED)}
+                PATH_REQUESTS, PATH_THREADS, SEED),
+            "mesh": lambda: smoke.mesh_phase(
+                torch, ell_ops, flags, m, rt.schemas[1], oracle,
+                smoke.PathOracle(oracle), m.vids, VERTICES, MESH_REQUESTS,
+                THREADS, MESH_PATH_REQUESTS, PATH_THREADS, SEED)}
         for name in PHASES:
             if name not in phases or (
                     name == "adaptive"
@@ -109,8 +117,11 @@ def main(argv=None) -> int:
                 continue
             t0 = time.perf_counter()
             out = runs[name]()
-            res[name] = {k: out[k] for k in ("qps", "p50_ms", "p99_ms")
-                         if k in out}
+            keep = ("qps", "p50_ms", "p99_ms")
+            res[name] = {k: out[k] for k in keep if k in out}
+            if name == "mesh":
+                res[name] = {part: {k: out[part][k] for k in keep}
+                             for part in ("a", "b")}
             res[name]["phase_s"] = time.perf_counter() - t0
             if name == "adaptive":
                 res[name]["dense_requests"] = out["dense_requests"]

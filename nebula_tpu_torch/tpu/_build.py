@@ -150,8 +150,8 @@ def load() -> ctypes.CDLL:
         lib.ell_frontier_upload.argtypes = [vp, vp, vp, vp, i64, i64, i64,
                                             vp]
         lib.ell_go_count.argtypes = [vp, vp, vp, i64, i64, vp]
-        lib.ell_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
-                                      i64, vp]
+        lib.ell_bfs_level.argtypes = [vp, vp, vp, vp, i32, vp, i32, i32,
+                                      i32, i64, i64, vp]
         lib.ell_bfs_depth_i8.argtypes = [vp, vp, i64, vp]
         # csrc/sparse_go.cu
         lib.sg_expand.argtypes = [vp, vp, i64, vp, vp, vp, vp, p64, i32,
@@ -203,8 +203,8 @@ def load() -> ctypes.CDLL:
         from .ell_ops import _MeshCard, _MeshHop, _ShardAbsorb
         lib.ell_mesh_hop.argtypes = [i32, vp, vp, i64, _MeshHop, p64, i32,
                                      i64, i32, i32, p32, i32, vp, vp, i64,
-                                     i64, i64, vp, vp, vp, i32, i32, i32,
-                                     vp, p32]
+                                     i64, i64, vp, vp, vp, i32, vp, i32,
+                                     i32, i32, vp, p32]
         lib.ell_shard_absorb.argtypes = [vp, vp, vp, vp, i64, _ShardAbsorb,
                                          vp]
         # the frontier-sharded mesh: csrc/mesh_sparse.cu (X1-X3, the

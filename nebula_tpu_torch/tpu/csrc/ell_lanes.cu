@@ -485,94 +485,253 @@ __global__ void go_count_kernel(const uint32_t* __restrict__ out,
 
 // ---------------------------------------------------------- bfs level
 // Replaces the level body and the loop condition's reductions of
-// ell.py:1080 make_batched_bfs_lanes_kernel.  Depths are int16
-// [n_rows + 1, B] (lane l of row r at r * B + l), INF = 0x7FFF.  After
-// the hop wrote nxt, one thread per (row, 32-bit word) takes
-// newly = bit(nxt) & (d == INF), sets d = step + 1 on those lanes,
-// writes pack(newly) back into nxt (the next level's frontier) and
-// raises this level's flags: flags[0] when any lane was newly reached
-// (the next frontier is nonzero), flags[1] when any target bit still
-// sits at INF (targets read only with stop_when_found).  With ``first``
-// the pass builds the loop's initial state from the start frontier in
-// nxt instead: d = 0 on its bits and INF everywhere else (every d entry
-// written, as four 16-byte stores per word), the frontier unchanged.
-// Lanes of one row word belong to one thread, so no two threads touch
-// one d entry; the flags only ever go 0 -> 1.  The mesh's level stage
-// runs it on a card group's replica slab: nxt is the first of `members`
-// equal replicas, `rep` words apart, and pack(newly) goes into every
-// one of them where it changed (one replica on one card).  Bound: bytes
-// — nxt read (and written where it changes, into every replica), the
-// targets read, and the d entries of set bits (all of d on the first
-// pass).
-__global__ void bfs_level_kernel(uint32_t* __restrict__ nxt,
-                                 long long rep, int members,
-                                 const uint32_t* __restrict__ tp,
-                                 uint16_t* __restrict__ d,
-                                 int32_t* __restrict__ flags, int step,
-                                 int first, int stop, long long R1,
-                                 int W4) {
-    const long long total = R1 * (long long)W4;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    const long long B = 32LL * W4;
-    const uint16_t depth = (uint16_t)(step + 1);
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += stride) {
-        const long long r = i / W4;
-        const int w = (int)(i - r * W4);
-        uint16_t* drow = d + r * B + 32LL * w;
-        const uint32_t v = nxt[i];
-        const uint32_t t = stop ? tp[i] : 0u;
-        uint32_t newly = 0u, rem = 0u;
-        if (first) {
-            uint4* dst = reinterpret_cast<uint4*>(drow);
-            for (int q = 0; q < 4; ++q) {
-                uint32_t p[4];
-                for (int h = 0; h < 4; ++h) {
-                    const int k = 8 * q + 2 * h;
-                    const uint32_t lo = ((v >> k) & 1u) ? 0u : kInt16Inf;
-                    const uint32_t hi =
-                        ((v >> (k + 1)) & 1u) ? 0u : kInt16Inf;
-                    p[h] = lo | (hi << 16);
-                }
-                dst[q] = make_uint4(p[0], p[1], p[2], p[3]);
-            }
-            newly = v;
-            rem = t & ~v;
-        } else {
-            uint32_t bits = v;
-            while (bits) {
-                const int k = __ffs(bits) - 1;
-                bits &= bits - 1u;
-                if (drow[k] == kInt16Inf) {
-                    drow[k] = depth;
-                    newly |= 1u << k;
-                }
-            }
-            if (newly != v)
-                for (int m = 0; m < members; ++m) nxt[m * rep + i] = newly;
-            bits = t & ~v;              // bits of v are no longer INF
-            while (bits) {
-                const int k = __ffs(bits) - 1;
-                bits &= bits - 1u;
-                if (drow[k] == kInt16Inf) rem |= 1u << k;
-            }
-        }
-        if (newly) flags[0] = 1;
-        if (rem) flags[1] = 1;
+// ell.py:1080 make_batched_bfs_lanes_kernel.  The loop state is a packed
+// "reached" bitmap seen, uint8 [n_rows + 1, W] in the frontier's own
+// layout, and the depth matrix d [n_rows + 1, 8 * W] (lane l of row r at
+// r * 8W + l) in the result's own form: int8 with -1 for unreached when
+// the BFS returns int8 (max_steps <= 120), else int16 with INT16_INF.
+// "Unreached" is a bit of seen, so no pass ever reads d: the reference's
+// newly = bit(nxt) & (d == INF) is nxt & ~seen, a word operation.
+// Bound: bytes.  The design's answer to the kernel it replaces (one
+// dependent 2-byte d read a live bit, 15x its bound on a dense frontier;
+// every thread storing the flag): the words of nxt, seen and the targets
+// read once, coalesced, several a thread in flight; d written only in the
+// 16-byte units that hold a newly reached lane; one store a block to each
+// flag, after a warp vote, only where the block saw a 1.  The first pass
+// writes d whole, consecutive threads on consecutive 16-byte units (a
+// thread a frontier word, 32 or 64 bytes of d each, took 1.3-2x as long,
+// PERF.md).  The mesh's level stage runs the same two kernels on a card
+// group's replica slab: nxt is the first of `members` equal replicas,
+// `rep` words apart, and the new frontier goes into every replica where
+// it changed.
+
+// Lanes of a 32-bit word of D: the byte mask of the lanes whose bits are
+// x's low bits (bit i -> lane i; the multiply spreads 4 bits to 4 bytes,
+// 2 bits to 2 halfwords, with no carries).
+template <typename D>
+__device__ __forceinline__ uint32_t lane_mask(uint32_t x);
+template <>
+__device__ __forceinline__ uint32_t lane_mask<uint8_t>(uint32_t x) {
+    return (((x & 0xFu) * 0x204081u) & 0x01010101u) * 0xFFu;
+}
+template <>
+__device__ __forceinline__ uint32_t lane_mask<uint16_t>(uint32_t x) {
+    return (((x & 3u) * 0x8001u) & 0x00010001u) * 0xFFFFu;
+}
+
+// a 32-bit word of D lanes, every one `v`
+template <typename D>
+__device__ __forceinline__ uint32_t lanes_of(uint32_t v) {
+    return sizeof(D) == 1 ? (v & 0xFFu) * 0x01010101u
+                          : (v & 0xFFFFu) * 0x00010001u;
+}
+
+template <typename D>
+__device__ __forceinline__ uint32_t unreached() {
+    return sizeof(D) == 1 ? 0xFFFFFFFFu : lanes_of<uint16_t>(kInt16Inf);
+}
+
+// The block's flags: a warp vote, then at most one store a block to each
+// flag, only when the block saw a 1 (all of the block's threads call it,
+// after their loop).
+__device__ __forceinline__ void raise_flags(bool f, bool r,
+                                            int32_t* __restrict__ flags) {
+    __shared__ int seen_any[2];
+    if (threadIdx.x == 0) seen_any[0] = seen_any[1] = 0;
+    __syncthreads();
+    const bool wf = __any_sync(0xFFFFFFFFu, f);
+    const bool wr = __any_sync(0xFFFFFFFFu, r);
+    if ((threadIdx.x & 31) == 0) {
+        if (wf) seen_any[0] = 1;
+        if (wr) seen_any[1] = 1;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        if (seen_any[0]) flags[0] = 1;
+        if (seen_any[1]) flags[1] = 1;
     }
 }
 
-// The BFS result's int8 form (max_steps <= 120): -1 for INF, else the
-// depth.  Bound: bytes, 3 * (n_rows + 1) * B.
-__global__ void bfs_depth_i8_kernel(const uint16_t* __restrict__ d,
-                                    int8_t* __restrict__ out,
-                                    long long total) {
+// The first pass: seen = the start frontier, d = 0 on its bits and the
+// unreached value elsewhere, written whole at the copy bound: a 16-byte
+// unit of d (16 int8 lanes, their bits a uint16_t P of the frontier; 8
+// int16 lanes, a byte) a step, consecutive threads on consecutive units,
+// U units a thread loaded before any is stored (U loads in flight).
+// flags[0]: any start bit; flags[1] (stop): any target bit not a start.
+template <typename D, typename P, int U>
+__global__ void __launch_bounds__(kThreads)
+bfs_first_kernel(const P* __restrict__ nxt, const P* __restrict__ tp,
+                 P* __restrict__ seen, uint4* __restrict__ d,
+                 int32_t* __restrict__ flags, int stop, long long units) {
+    constexpr int kLW = 4 / (int)sizeof(D);     // lanes a 32-bit word
     const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += stride) {
-        const uint16_t v = d[i];
-        out[i] = v == kInt16Inf ? (int8_t)-1 : (int8_t)v;
+    bool f = false, r = false;
+    for (long long u0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         u0 < units; u0 += U * stride) {
+        uint32_t v[U], t[U];
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+            const long long u = u0 + k * stride;
+            v[k] = u < units ? (uint32_t)nxt[u] : 0u;
+            t[k] = u < units && stop ? (uint32_t)tp[u] : 0u;
+        }
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+            const long long u = u0 + k * stride;
+            if (u >= units) break;
+            seen[u] = (P)v[k];
+            uint32_t q[4];
+#pragma unroll
+            for (int h = 0; h < 4; ++h)
+                q[h] = unreached<D>() & ~lane_mask<D>(v[k] >> (h * kLW));
+            d[u] = make_uint4(q[0], q[1], q[2], q[3]);
+            f |= v[k] != 0u;
+            r |= (t[k] & ~v[k]) != 0u;
+        }
     }
+    raise_flags(f, r, flags);
+}
+
+// A later level, a 32-bit word of the frontier (32 lanes) a step, U
+// words a thread loaded before any is stored: newly = nxt & ~seen;
+// seen |= newly; d = depth at the newly lanes; the frontier becomes
+// newly (in every replica, where it changed); flags[0]: any newly lane;
+// flags[1] (stop): any target bit still unreached.  The word's d lanes
+// are 2 or 4 16-byte units; each unit with a newly lane is stored whole:
+// from the unreached value where seen had none of its lanes (no read),
+// else read, merged and stored.  (A store a newly lane instead took 2.8x
+// as long on a dense level, PERF.md.)
+template <typename D, int U>
+__global__ void __launch_bounds__(kThreads)
+bfs_level_kernel(uint32_t* __restrict__ nxt, long long rep, int members,
+                 const uint32_t* __restrict__ tp,
+                 uint32_t* __restrict__ seen, D* __restrict__ d,
+                 int32_t* __restrict__ flags, int depth, int stop,
+                 long long words) {
+    constexpr int kLW = 4 / (int)sizeof(D);     // lanes a 32-bit word
+    constexpr int kUL = 16 / (int)sizeof(D);    // lanes a 16-byte unit
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    bool f = false, r = false;
+    for (long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i0 < words; i0 += U * stride) {
+        uint32_t v[U], s[U], t[U];
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+            const long long i = i0 + k * stride;
+            v[k] = i < words ? nxt[i] : 0u;
+            s[k] = i < words ? seen[i] : 0u;
+            t[k] = i < words && stop ? tp[i] : 0u;
+        }
+#pragma unroll
+        for (int k = 0; k < U; ++k) {
+            const long long i = i0 + k * stride;
+            if (i >= words) break;
+            const uint32_t newly = v[k] & ~s[k];
+            if (newly) {
+                seen[i] = s[k] | newly;
+                uint4* du = reinterpret_cast<uint4*>(d + 32LL * i);
+#pragma unroll
+                for (int c = 0; c < 32 / kUL; ++c) {
+                    const uint32_t nb = (newly >> (c * kUL)) &
+                                        ((1u << kUL) - 1u);
+                    if (!nb) continue;
+                    const bool read = ((s[k] >> (c * kUL)) &
+                                       ((1u << kUL) - 1u)) != 0u;
+                    uint4 o = read ? du[c]
+                                   : make_uint4(unreached<D>(),
+                                                unreached<D>(),
+                                                unreached<D>(),
+                                                unreached<D>());
+                    uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+                    for (int h = 0; h < 4; ++h) {
+                        const uint32_t m = lane_mask<D>(nb >> (h * kLW));
+                        ow[h] = (ow[h] & ~m) | (lanes_of<D>(depth) & m);
+                    }
+                    du[c] = o;
+                }
+            }
+            if (newly != v[k])
+                for (int m = 0; m < members; ++m) nxt[m * rep + i] = newly;
+            f |= newly != 0u;
+            r |= (t[k] & ~(s[k] | newly)) != 0u;
+        }
+    }
+    raise_flags(f, r, flags);
+}
+
+// The BFS result's int8 form of an int16 depth matrix (max_steps <= 120
+// on the int8 route, whose level pass K15 keeps int16): -1 for INF, else
+// the depth.  INT16_INF is 0x7FFF, whose low byte 0xFF is -1 as int8, so
+// the low byte of every entry is the answer.  Eight entries a step: one
+// 16-byte load, one byte permute a pair of words, one 8-byte store;
+// consecutive threads on consecutive 16-byte units.  Entries past the
+// last whole 8 (and all of them where d or out is not aligned for the
+// vectors) one a step.  A grid of a few blocks an SM strides over the
+// matrix.  Bound: bytes, 3 an entry.
+__global__ void __launch_bounds__(kThreads)
+bfs_depth_i8_kernel(const uint16_t* __restrict__ d, int8_t* __restrict__ out,
+                    long long n8, long long total) {
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const uint4* dv = reinterpret_cast<const uint4*>(d);
+    uint2* ov = reinterpret_cast<uint2*>(out);
+    for (long long i = t0; i < n8; i += stride) {
+        const uint4 a = dv[i];
+        ov[i] = make_uint2(__byte_perm(a.x, a.y, 0x6420),
+                           __byte_perm(a.z, a.w, 0x6420));
+    }
+    for (long long j = 8 * n8 + t0; j < total; j += stride)
+        out[j] = (int8_t)(d[j] & 0xFF);
+}
+
+// The BFS level pass over R1 rows of W frontier bytes (both entries'
+// launcher): `first` the first pass, else a level at `step`; nxt the
+// first of `members` replicas `rep` 32-bit words apart; d of `dbytes`
+// bytes an entry.  The grid is a few blocks an SM, striding; a thread
+// loads 4 steps at once on an int8 d, 2 on an int16 one (measured: 4
+// took an int16 level on a dense frontier 12 % longer than 1, PERF.md).
+int launch_bfs_level(void* nxt, long long rep, int members, const void* tp,
+                     void* seen, void* d, int dbytes, void* flags, int step,
+                     int first, int stop, int64_t R1, int64_t W,
+                     cudaStream_t s) {
+    if (R1 <= 0 || W <= 0 || W % 4 != 0 || members < 1 ||
+        (dbytes != 1 && dbytes != 2) || step < 0 ||
+        step >= (dbytes == 1 ? 0x7F : 0x7FFE) ||
+        ((uintptr_t)d & 15) != 0 ||
+        (((uintptr_t)nxt | (uintptr_t)tp | (uintptr_t)seen |
+          (uintptr_t)flags) & 3) != 0)
+        return -1;
+    const long long most = (long long)sm_count() * (2048 / kThreads);
+    if (most == 0) return (int)cudaErrorInvalidDevice;
+    int32_t* fl = (int32_t*)flags;
+    if (first) {
+        // 16-byte units of d: R1 * 8W lanes of dbytes bytes
+        const long long units = R1 * W * dbytes / 2;
+        const unsigned grid = (unsigned)(grid_for(units) < most
+                                         ? grid_for(units) : most);
+        if (dbytes == 1)
+            bfs_first_kernel<uint8_t, uint16_t, 4><<<grid, kThreads, 0, s>>>(
+                (const uint16_t*)nxt, (const uint16_t*)tp, (uint16_t*)seen,
+                (uint4*)d, fl, stop, units);
+        else
+            bfs_first_kernel<uint16_t, uint8_t, 2><<<grid, kThreads, 0, s>>>(
+                (const uint8_t*)nxt, (const uint8_t*)tp, (uint8_t*)seen,
+                (uint4*)d, fl, stop, units);
+        return (int)cudaGetLastError();
+    }
+    const long long words = R1 * (W / 4);
+    const unsigned grid = (unsigned)(grid_for(words) < most
+                                     ? grid_for(words) : most);
+    if (dbytes == 1)
+        bfs_level_kernel<uint8_t, 4><<<grid, kThreads, 0, s>>>(
+            (uint32_t*)nxt, rep, members, (const uint32_t*)tp,
+            (uint32_t*)seen, (uint8_t*)d, fl, step + 1, stop, words);
+    else
+        bfs_level_kernel<uint16_t, 2><<<grid, kThreads, 0, s>>>(
+            (uint32_t*)nxt, rep, members, (const uint32_t*)tp,
+            (uint32_t*)seen, (uint16_t*)d, fl, step + 1, stop, words);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -703,43 +862,32 @@ int ell_go_count(const void* out, const void* deg, void* counts,
     return (int)cudaGetLastError();
 }
 
-// nxt, tp: uint8 [R1, W]; d: int16 [R1, 8 * W], 16-byte aligned;
-// flags: int32 [2], this level's slot (zero before the launch).
-int ell_bfs_level(void* nxt, const void* tp, void* d, void* flags,
-                  int step, int first, int stop, int64_t R1, int64_t W,
-                  void* stream) {
-    if (R1 <= 0 || W <= 0 || W % 4 != 0 || step < 0 || step >= 0x7FFE)
-        return -1;
-    const int W4 = (int)(W / 4);
-    bfs_level_kernel<<<grid_for(R1 * W4), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-        (uint32_t*)nxt, 0, 1, (const uint32_t*)tp, (uint16_t*)d,
-        (int32_t*)flags, step, first, stop, R1, W4);
-    return (int)cudaGetLastError();
+// nxt, tp, seen: uint8 [R1, W] (4-byte aligned); d: [R1, 8 * W] of
+// dbytes-byte entries (int8, or int16), 16-byte aligned; flags: int32
+// [2], this level's slot (zero before the launch).
+int ell_bfs_level(void* nxt, const void* tp, void* seen, void* d,
+                  int dbytes, void* flags, int step, int first, int stop,
+                  int64_t R1, int64_t W, void* stream) {
+    return launch_bfs_level(nxt, 0, 1, tp, seen, d, dbytes, flags, step,
+                            first, stop, R1, W, (cudaStream_t)stream);
 }
 
 // The mesh BFS's level stage over a card group (called by ell_mesh.cu's
 // ell_mesh_hop, which checks the slab's geometry): slab, the group's
 // [members, R1, W] replicas, a replica every `stride` bytes, all equal;
-// the pass reads the first, updates the group's one depth matrix d
-// (int16 [R1, 8 * W], 16-byte aligned) against the group's targets tp
+// the pass reads the first, updates the group's one reached bitmap seen
+// and depth matrix d (as ell_bfs_level's) against the group's targets tp
 // (uint8 [R1, W]), writes the new frontier into every replica and
-// raises the group's flags (int32 [2]); with `first` it only builds d
-// from the first replica.
+// raises the group's flags (int32 [2]); with `first` it only builds seen
+// and d from the first replica.
 int ell_mesh_level(void* slab, int64_t stride, int members, const void* tp,
-                   void* d, void* flags, int step, int first, int stop,
-                   int64_t R1, int64_t W, void* stream) {
-    if (R1 <= 0 || W <= 0 || W % 4 != 0 || stride % 4 != 0 ||
-        members < 1 || members > hop::kCardShards || step < 0 ||
-        step >= 0x7FFE || ((uintptr_t)d & 15) != 0 ||
-        (((uintptr_t)slab | (uintptr_t)tp | (uintptr_t)flags) & 3) != 0)
-        return -1;
-    const int W4 = (int)(W / 4);
-    bfs_level_kernel<<<grid_for(R1 * W4), kThreads, 0,
-                       (cudaStream_t)stream>>>(
-        (uint32_t*)slab, stride / 4, members, (const uint32_t*)tp,
-        (uint16_t*)d, (int32_t*)flags, step, first, stop, R1, W4);
-    return (int)cudaGetLastError();
+                   void* seen, void* d, int dbytes, void* flags, int step,
+                   int first, int stop, int64_t R1, int64_t W,
+                   void* stream) {
+    if (stride % 4 != 0 || members > hop::kCardShards) return -1;
+    return launch_bfs_level(slab, stride / 4, members, tp, seen, d, dbytes,
+                            flags, step, first, stop, R1, W,
+                            (cudaStream_t)stream);
 }
 
 // The mesh hop's M1 and merge over every member of a card: called by
@@ -834,12 +982,20 @@ int ell_or_many(void* dst, const void* const* srcs, int m, int64_t nbytes,
     return (int)cudaGetLastError();
 }
 
+// d: int16, out: int8, `total` entries each (any alignment: the vector
+// path takes them where both are aligned for it).
 int ell_bfs_depth_i8(const void* d, void* out, int64_t total,
                      void* stream) {
-    if (total <= 0) return -1;
-    bfs_depth_i8_kernel<<<grid_for(total), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-        (const uint16_t*)d, (int8_t*)out, total);
+    if (total <= 0 || ((uintptr_t)d & 1) != 0) return -1;
+    const long long most = (long long)sm_count() * (2048 / kThreads);
+    if (most == 0) return (int)cudaErrorInvalidDevice;
+    const bool vec = (((uintptr_t)d & 15) | ((uintptr_t)out & 7)) == 0;
+    const long long n8 = vec ? total / 8 : 0;
+    const long long items = n8 > 0 ? n8 : total;
+    const unsigned grid = (unsigned)(grid_for(items) < most ? grid_for(items)
+                                                             : most);
+    bfs_depth_i8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const uint16_t*)d, (int8_t*)out, n8, total);
     return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,9 @@
 // shard of the card, whose replicas are one [members, n_rows + 1, W]
 // slab.  The batched BFS adds its level pass as a fourth stage of the
 // same call (ell_lanes.cu bfs_level_kernel over the slab: the hop's
-// frontier read once from the first replica, one depth matrix and one
-// flags pair a card group, the new frontier written into every replica;
+// frontier read once from the first replica, one reached bitmap, one
+// depth matrix and one flags pair a card group, the new frontier
+// written into every replica;
 // nebula_tpu/tpu/ell.py:1799-1840's update, once a card instead of once
 // a shard), so a BFS level is one call a card and its first pass the
 // stage alone.  Here also M2 shard_absorb_scatter, which replaces
@@ -75,9 +76,10 @@ extern "C" int ell_mesh_merge(void* out, int64_t stride, int members,
                               void* stream);
 // csrc/ell_lanes.cu: the BFS level pass over a card's replica slab.
 extern "C" int ell_mesh_level(void* slab, int64_t stride, int members,
-                              const void* tp, void* d, void* flags,
-                              int step, int first, int stop, int64_t R1,
-                              int64_t W, void* stream);
+                              const void* tp, void* seen, void* d,
+                              int dbytes, void* flags, int step, int first,
+                              int stop, int64_t R1, int64_t W,
+                              void* stream);
 
 namespace {
 
@@ -190,11 +192,12 @@ int ell_shard_absorb(const void* nbr, const void* et, void* out_nbr,
 // One hop of the replicated-frontier mesh for the members of a card:
 // stages & 1 M1 (fp -> out), & 2 M3 (out's owned rows to every other
 // member's out), & 4 the hub merge on every member's out, & 8 the BFS
-// level pass on out (its first replica read, the card group's depth
-// matrix d int16 [n_rows + 1, 8 * W] and flags int32 [2] updated
-// against its targets tp uint8 [n_rows + 1, W], the new frontier
-// written into every replica; `first`: d built from out, which stays as
-// it is; `stop`: the targets' flag raised).  fp, out: the
+// level pass on out (its first replica read, the card group's reached
+// bitmap seen uint8 [n_rows + 1, W], depth matrix d [n_rows + 1, 8 * W]
+// of dbytes-byte entries and flags int32 [2] updated against its targets
+// tp uint8 [n_rows + 1, W], the new frontier written into every replica;
+// `first`: seen and d built from out, which stays as it is; `stop`: the
+// targets' flag raised).  fp, out: the
 // card's [members, n_rows + 1, W] slabs, a replica every `stride`
 // bytes; mh: the members' tables and chunk geometry; plan, n_buckets,
 // blocks, lgc, wide: shard 0's hop plan as ell_go_hop takes it; over:
@@ -208,8 +211,8 @@ int ell_mesh_hop(int stages, const void* fp, void* out, int64_t stride,
                  int64_t blocks, int lgc, int wide, const int32_t* over,
                  int n_over, const void* eslot, const void* hrows,
                  int64_t n, int64_t n_rows, int64_t W, const void* tp,
-                 void* d, void* flags, int step, int first, int stop,
-                 void* stream, int32_t* launched) {
+                 void* seen, void* d, int dbytes, void* flags, int step,
+                 int first, int stop, void* stream, int32_t* launched) {
     launched[0] = launched[1] = launched[2] = launched[3] = 0;
     if (stages < 1 || stages > 15 || mh.n < 1 || mh.n > hop::kCardShards ||
         n_buckets < 1 || n_buckets > kMeshMaxBuckets || W <= 0 ||
@@ -263,9 +266,12 @@ int ell_mesh_hop(int stages, const void* fp, void* out, int64_t stride,
         launched[2] = n_rows > n;      // ell_mesh_merge's launch
     }
     if (stages & 8) {
-        if (tp == nullptr || d == nullptr || flags == nullptr) return -1;
-        const int rc = ell_mesh_level(out, stride, mh.n, tp, d, flags, step,
-                                      first, stop, n_rows + 1, W, stream);
+        if (tp == nullptr || seen == nullptr || d == nullptr ||
+            flags == nullptr)
+            return -1;
+        const int rc = ell_mesh_level(out, stride, mh.n, tp, seen, d, dbytes,
+                                      flags, step, first, stop, n_rows + 1,
+                                      W, stream);
         if (rc != 0) return rc;
         launched[3] = 1;
     }

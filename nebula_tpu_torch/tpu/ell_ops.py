@@ -610,51 +610,82 @@ def ell_go_count(f0p: torch.Tensor, deg: torch.Tensor,
 
 
 # ========================================================= bfs level
-def bfs_level_ref(nxt: torch.Tensor, tp: torch.Tensor, d: torch.Tensor,
-                  flags: torch.Tensor, step: int, first: bool,
-                  stop: bool) -> None:
-    """Plain version of ``bfs_level`` (ell.py:1096-1116): the level
-    body and the reductions of the loop condition."""
-    bits = _unpack_ref(nxt).bool()
-    inf = int(INT16_INF)
+def depth_dtype(max_steps: int) -> torch.dtype:
+    """The BFS result's form, which the packed programs also keep their
+    depth matrix in (ell.py:1097, :1119-1121): int8 with -1 for unreached
+    when ``max_steps <= 120``, else int16 with INT16_INF."""
+    return torch.int8 if max_steps <= 120 else torch.int16
+
+
+def _unreached(d: torch.Tensor) -> int:
+    return -1 if d.dtype == torch.int8 else int(INT16_INF)
+
+
+def bfs_level_ref(nxt: torch.Tensor, tp: torch.Tensor, seen: torch.Tensor,
+                  d: torch.Tensor, flags: torch.Tensor, step: int,
+                  first: bool, stop: bool) -> None:
+    """Plain version of ``bfs_level``: the reference's level body
+    (ell.py:1110-1115) and the reductions of its loop condition
+    (:1103-1108) on the packed reached bitmap ``seen`` instead of
+    ``d == INF``."""
     if first:
-        d.copy_(torch.where(bits, 0, inf).to(torch.int16))
-        newly = bits
+        seen.copy_(nxt)
+        d.copy_(torch.where(_unpack_ref(nxt).bool(), 0, _unreached(d))
+                .to(d.dtype))
+        newly = nxt
     else:
-        newly = bits & (d == inf)
-        d.masked_fill_(newly, step + 1)
-        nxt.copy_(_pack_ref(newly))
-    flags[0] |= newly.any().to(torch.int32)
+        newly = nxt & ~seen
+        seen |= newly
+        d.masked_fill_(_unpack_ref(newly).bool(), step + 1)
+        nxt.copy_(newly)
+    flags[0] |= bool(newly.any())
     if stop:
-        rem = _unpack_ref(tp).bool() & (d == inf)
-        flags[1] |= rem.any().to(torch.int32)
+        flags[1] |= bool((tp & ~seen).any())
 
 
-def bfs_level(nxt: torch.Tensor, tp: torch.Tensor, d: torch.Tensor,
-              flags: torch.Tensor, step: int, first: bool = False,
-              stop: bool = True) -> None:
-    """One BFS level after the hop wrote ``nxt`` uint8 [n_rows + 1, W]:
-    ``newly = bit(nxt) & (d == INF)``, ``d = step + 1`` there, ``nxt``
-    becomes ``pack(newly)`` in place, and ``flags`` int32 [2] (zero
-    before) gets 1 in slot 0 when any lane was newly reached and, with
-    ``stop``, 1 in slot 1 when any target bit of ``tp`` is still INF.
-    With ``first``, ``nxt`` is the start frontier and ``d`` int16
-    [n_rows + 1, 8W] is written whole: 0 on its bits, INF elsewhere."""
-    R1, W = _frontier(nxt, "nxt")
-    dev = nxt.device
+def _level_operands(R1: int, W: int, tp, seen, d, flags, step: int,
+                    dev: torch.device) -> None:
     _check(tp, "tp", torch.uint8, (R1, W), dev)
-    _check(d, "d", torch.int16, (R1, 8 * W), dev)
+    _check(seen, "seen", torch.uint8, (R1, W), dev)
+    if not isinstance(d, torch.Tensor) or d.dtype not in (torch.int8,
+                                                          torch.int16):
+        raise TypeError("d must be an int8 or int16 tensor")
+    _check(d, "d", d.dtype, (R1, 8 * W), dev)
     _check(flags, "flags", torch.int32, (2,), dev)
-    if not 0 <= step < int(INT16_INF) - 1:
-        raise ValueError(f"level {step} does not fit an int16 depth")
-    if not _route(dev):
-        return bfs_level_ref(nxt, tp, d, flags, step, first, stop)
-    _aligned(nxt, tp, flags)
+    top = 127 if d.dtype == torch.int8 else int(INT16_INF)
+    if not 0 <= step < top - 1:
+        raise ValueError(f"level {step} does not fit a {d.dtype} depth")
+
+
+def _level_aligned(nxt, tp, seen, d, flags) -> None:
+    _aligned(nxt, tp, seen, flags)
     if d.data_ptr() % 16:
         raise ValueError("d must be 16-byte aligned")
-    rc = _lib().ell_bfs_level(nxt.data_ptr(), tp.data_ptr(), d.data_ptr(),
-                              flags.data_ptr(), step, int(first),
-                              int(stop), R1, W, _stream(dev))
+
+
+def bfs_level(nxt: torch.Tensor, tp: torch.Tensor, seen: torch.Tensor,
+              d: torch.Tensor, flags: torch.Tensor, step: int,
+              first: bool = False, stop: bool = True) -> None:
+    """K3, one BFS level after the hop wrote ``nxt`` uint8 [n_rows + 1,
+    W]: ``newly = nxt & ~seen``, ``seen |= newly`` (uint8 [n_rows + 1,
+    W], the lanes reached so far), ``d = step + 1`` at the newly lanes,
+    ``nxt`` becomes ``newly`` in place, and ``flags`` int32 [2] (zero
+    before) gets 1 in slot 0 when any lane was newly reached and, with
+    ``stop``, 1 in slot 1 when any target bit of ``tp`` is still
+    unreached.  With ``first``, ``nxt`` is the start frontier (left as it
+    is), ``seen`` becomes it and ``d`` [n_rows + 1, 8W] is written whole:
+    0 on its bits, the unreached value elsewhere.  ``d`` is int8 (-1
+    unreached) or int16 (INT16_INF); no pass reads it."""
+    R1, W = _frontier(nxt, "nxt")
+    dev = nxt.device
+    _level_operands(R1, W, tp, seen, d, flags, step, dev)
+    if not _route(dev):
+        return bfs_level_ref(nxt, tp, seen, d, flags, step, first, stop)
+    _level_aligned(nxt, tp, seen, d, flags)
+    rc = _lib().ell_bfs_level(nxt.data_ptr(), tp.data_ptr(),
+                              seen.data_ptr(), d.data_ptr(), d.element_size(),
+                              flags.data_ptr(), step, int(first), int(stop),
+                              R1, W, _stream(dev))
     _ok(rc, "ell_bfs_level")
     LAUNCHES["bfs_level"] += 1
 
@@ -667,7 +698,8 @@ def bfs_depth_i8_ref(d: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 def bfs_depth_i8(d: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """The BFS result's small form: int16 depths -> ``out`` int8 of the
-    same shape, -1 where INF."""
+    same shape, -1 where INF (the int8 route's BFS, whose level pass
+    keeps int16)."""
     if d.dim() != 2:
         raise ValueError("d must be 2-D")
     dev = d.device
@@ -682,37 +714,53 @@ def bfs_depth_i8(d: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps, stop,
-              hop, level, final, lanes: int):
-    """The BFS program over one carrier layout (``hop``/``level`` of the
-    packed or the int8 form); ``d`` is int16 [R1, lanes]."""
+def _bfs_levels(f0, tables, eslot, hrows, over, max_steps, stop, hop,
+                level, read=None) -> int:
+    """The BFS programs' loop, on either carrier: the first pass, then a
+    hop and a level while the loop condition holds; returns the levels
+    run.  ``level(nxt, flag, step, first)`` is the carrier's level pass
+    bound to its state.  ``read(flag)``: a level's two flags on the host,
+    by default one copy, or given back by a caller that knows what a run
+    reads (nothing then waits on the card)."""
     if not 0 <= max_steps < int(INT16_INF) - 1:
         raise ValueError(f"max_steps={max_steps} does not fit int16")
-    dev = f0p.device
-    d = torch.empty((f0p.shape[0], lanes), dtype=torch.int16, device=dev)
-    flags = torch.zeros((max_steps + 1, 2), dtype=torch.int32, device=dev)
-    fp, buf = f0p, torch.empty_like(f0p)
-    level(fp, t0p, d, flags[0], 0, True, stop)
+    flags = torch.zeros((max_steps + 1, 2), dtype=torch.int32,
+                        device=f0.device)
+    fp, buf = f0, torch.empty_like(f0)
+    level(fp, flags[0], 0, True)
     step = 0
-    # the loop condition of ell.py:1103-1108, read back once a level
+    read = read or (lambda flag: flag.tolist())
+    # the loop condition of ell.py:1103-1108 (:1634-1641 on the int8
+    # carrier), read back once a level
     while step < max_steps:
-        f_any, t_any = flags[step].tolist()
+        f_any, t_any = read(flags[step])
         if not f_any or (stop and not t_any):
             break
         hop(fp, None, buf, tables, eslot, hrows, over)
-        level(buf, t0p, d, flags[step + 1], step, False, stop)
+        level(buf, flags[step + 1], step, False)
         fp, buf = buf, fp
         step += 1
-    if max_steps <= 120:
-        d = final(d, torch.empty(d.shape, dtype=torch.int8, device=dev))
+    return step
+
+
+def _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps, stop, hop,
+              level, read=None):
+    """The packed BFS program: ``seen`` and ``d`` (in the result's form,
+    ``depth_dtype``) are its state; ``read`` as ``_bfs_levels``'."""
+    d = torch.empty((f0p.shape[0], 8 * f0p.shape[1]),
+                    dtype=depth_dtype(max_steps), device=f0p.device)
+    seen = torch.empty_like(f0p)
+    step = _bfs_levels(f0p, tables, eslot, hrows, over, max_steps, stop,
+                       hop, lambda nxt, flag, at, first: level(
+                           nxt, t0p, seen, d, flag, at, first, stop),
+                       read)
     return d, step
 
 
-def _bfs_pair(f0p: torch.Tensor, t0p: torch.Tensor) -> int:
-    """Check the packed start/target pair; returns the lane count."""
+def _bfs_pair(f0p: torch.Tensor, t0p: torch.Tensor) -> None:
+    """Check the packed start/target pair."""
     R1, W = _frontier(f0p, "f0p")
     _check(t0p, "t0p", torch.uint8, (R1, W), f0p.device)
-    return 8 * W
 
 
 def ell_bfs_ref(f0p: torch.Tensor, t0p: torch.Tensor,
@@ -720,10 +768,10 @@ def ell_bfs_ref(f0p: torch.Tensor, t0p: torch.Tensor,
                 hrows: torch.Tensor, over: Sequence[int], max_steps: int,
                 stop_when_found: bool = True) -> Tuple[torch.Tensor, int]:
     """Plain version of ``ell_bfs``: the same loop over the plain
-    versions of the hop, the level pass and the int8 form."""
+    versions of the hop and the level pass."""
+    _bfs_pair(f0p, t0p)
     return _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps,
-                     stop_when_found, go_hop_ref, bfs_level_ref,
-                     bfs_depth_i8_ref, _bfs_pair(f0p, t0p))
+                     stop_when_found, go_hop_ref, bfs_level_ref)
 
 
 def ell_bfs(f0p: torch.Tensor, t0p: torch.Tensor, tables: DeviceTables,
@@ -734,13 +782,14 @@ def ell_bfs(f0p: torch.Tensor, t0p: torch.Tensor, tables: DeviceTables,
     ``f0p``/``t0p`` uint8 [n_rows + 1, W] packed start and target
     lanes (``f0p`` is consumed).  Returns (depth, levels run): depth is
     [n_rows + 1, 8W] over every row, int8 with -1 for unreached when
-    ``max_steps <= 120``, else int16 with INT16_INF.  The level loop
-    runs on the host and reads this level's two flags back before
-    launching the next (one sync a level), so it stops exactly where
+    ``max_steps <= 120``, else int16 with INT16_INF, the form the
+    level pass keeps it in (no pass converts it).  The level loop runs
+    on the host and reads this level's two flags back before launching
+    the next (one sync a level), so it stops exactly where
     ``jax.lax.while_loop``'s condition does."""
+    _bfs_pair(f0p, t0p)
     return _bfs_loop(f0p, t0p, tables, eslot, hrows, over, max_steps,
-                     stop_when_found, go_hop, bfs_level, bfs_depth_i8,
-                     _bfs_pair(f0p, t0p))
+                     stop_when_found, go_hop, bfs_level)
 
 
 # ====================================================================
@@ -1100,11 +1149,26 @@ def ell_go_i8(f0: torch.Tensor, tables: DeviceTables, eslot: torch.Tensor,
     return out
 
 
-def _bfs_pair_i8(f0: torch.Tensor, t0: torch.Tensor) -> int:
-    """Check the int8 start/target pair; returns the lane count."""
+def _bfs_loop_i8(f0, t0, tables, eslot, hrows, over, max_steps, stop,
+                 hop, level, final, read=None):
+    """The int8 route's BFS program: K15's level keeps an int16 ``d``
+    [R1, B] with INT16_INF, converted by ``final`` (``bfs_depth_i8``)
+    at the end when ``max_steps <= 120``; ``read`` as ``_bfs_levels``'."""
+    d = torch.empty(f0.shape, dtype=torch.int16, device=f0.device)
+    step = _bfs_levels(f0, tables, eslot, hrows, over, max_steps, stop,
+                       hop, lambda nxt, flag, at, first: level(
+                           nxt, t0, d, flag, at, first, stop),
+                       read)
+    if max_steps <= 120:
+        d = final(d, torch.empty(d.shape, dtype=torch.int8,
+                                 device=f0.device))
+    return d, step
+
+
+def _bfs_pair_i8(f0: torch.Tensor, t0: torch.Tensor) -> None:
+    """Check the int8 start/target pair."""
     R1, B = _carrier(f0, "f0")
     _check(t0, "t0", torch.int8, (R1, B), f0.device)
-    return B
 
 
 def ell_bfs_i8_ref(f0: torch.Tensor, t0: torch.Tensor,
@@ -1113,11 +1177,11 @@ def ell_bfs_i8_ref(f0: torch.Tensor, t0: torch.Tensor,
                    stop_when_found: bool = True) -> Tuple[torch.Tensor, int]:
     """Plain version of ``ell_bfs_i8``: the same loop over the plain
     versions of the hop, the level pass and the int8 form."""
-    lanes = _bfs_pair_i8(f0, t0)
-    return _bfs_loop(f0, t0, tables, eslot, hrows, over, max_steps,
-                     stop_when_found,
-                     _live_chain(go_hop_i8_ref, f0.shape[0], f0.device),
-                     bfs_level_i8_ref, bfs_depth_i8_ref, lanes)
+    _bfs_pair_i8(f0, t0)
+    return _bfs_loop_i8(f0, t0, tables, eslot, hrows, over, max_steps,
+                        stop_when_found,
+                        _live_chain(go_hop_i8_ref, f0.shape[0], f0.device),
+                        bfs_level_i8_ref, bfs_depth_i8_ref)
 
 
 def ell_bfs_i8(f0: torch.Tensor, t0: torch.Tensor, tables: DeviceTables,
@@ -1131,11 +1195,11 @@ def ell_bfs_i8(f0: torch.Tensor, t0: torch.Tensor, tables: DeviceTables,
     unreached when ``max_steps <= 120`` (``bfs_depth_i8``), else int16
     with INT16_INF.  The level loop runs on the host and reads this
     level's two flags back once a level, as ``ell_bfs`` does."""
-    lanes = _bfs_pair_i8(f0, t0)
-    out = _bfs_loop(f0, t0, tables, eslot, hrows, over, max_steps,
-                    stop_when_found,
-                    _live_chain(go_hop_i8, f0.shape[0], f0.device),
-                    bfs_level_i8, bfs_depth_i8, lanes)
+    _bfs_pair_i8(f0, t0)
+    out = _bfs_loop_i8(f0, t0, tables, eslot, hrows, over, max_steps,
+                       stop_when_found,
+                       _live_chain(go_hop_i8, f0.shape[0], f0.device),
+                       bfs_level_i8, bfs_depth_i8)
     if _route(f0.device):
         LAUNCHES["ell_bfs_i8"] += 1
     return out
@@ -2474,11 +2538,13 @@ HOP_STAGES = HOP_GATHER | HOP_COPY | HOP_MERGE
 class MeshLevel(NamedTuple):
     """The BFS level stage's operands (``mesh_hop`` with HOP_LEVEL) for
     one card group: its targets ``tp`` uint8 [n_rows + 1, W], its one
-    depth matrix ``d`` int16 [n_rows + 1, 8W] and this level's flags
-    int32 [2] (zero before), all on the group's card; the level
-    ``step``; ``first``: the loop's first pass; ``stop``: the targets'
-    flag wanted (``bfs_level``'s arguments)."""
+    reached bitmap ``seen`` uint8 [n_rows + 1, W] and depth matrix ``d``
+    int8 or int16 [n_rows + 1, 8W], and this level's flags int32 [2]
+    (zero before), all on the group's card; the level ``step``;
+    ``first``: the loop's first pass; ``stop``: the targets' flag wanted
+    (``bfs_level``'s arguments)."""
     tp: torch.Tensor
+    seen: torch.Tensor
     d: torch.Tensor
     flags: torch.Tensor
     step: int
@@ -2564,10 +2630,11 @@ def _hop_slabs(cur, nxt, mt, members, dev) -> Tuple[int, int]:
 
 def mesh_level_ref(nxt: torch.Tensor, level: MeshLevel) -> torch.Tensor:
     """Plain version of ``mesh_hop``'s level stage: ``bfs_level_ref`` on
-    the slab's first replica with the group's depth matrix and flags,
-    then the new frontier copied into the other replicas."""
-    bfs_level_ref(nxt[0], level.tp, level.d, level.flags, level.step,
-                  level.first, level.stop)
+    the slab's first replica with the group's reached bitmap, depth
+    matrix and flags, then the new frontier copied into the other
+    replicas."""
+    bfs_level_ref(nxt[0], level.tp, level.seen, level.d, level.flags,
+                  level.step, level.first, level.stop)
     if not level.first:
         nxt[1:] = nxt[0]
     return nxt
@@ -2606,11 +2673,8 @@ def _level_check(level: Optional[MeshLevel], stages: int, R1: int, W: int,
         return
     if not isinstance(level, MeshLevel):
         raise ValueError("the HOP_LEVEL stage needs its MeshLevel")
-    _check(level.tp, "tp", torch.uint8, (R1, W), dev)
-    _check(level.d, "d", torch.int16, (R1, 8 * W), dev)
-    _check(level.flags, "flags", torch.int32, (2,), dev)
-    if not 0 <= level.step < int(INT16_INF) - 1:
-        raise ValueError(f"level {level.step} does not fit an int16 depth")
+    _level_operands(R1, W, level.tp, level.seen, level.d, level.flags,
+                    level.step, dev)
 
 
 def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
@@ -2633,10 +2697,11 @@ def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
     - HOP_MERGE: the hub OR-merge on every member's replica;
     - HOP_LEVEL: the batched BFS's level pass (``bfs_level`` with
       ``level``'s operands) on the group's replicas, which the hop left
-      equal: the first replica read once, the group's one depth matrix
-      and flags updated, the new frontier written into every replica
-      where it changed (with ``level.first`` only ``level.d`` is
-      written, from the first replica).
+      equal: the first replica read once, the group's one reached
+      bitmap, depth matrix and flags updated, the new frontier written
+      into every replica where it changed (with ``level.first`` only
+      ``level.seen`` and ``level.d`` are written, from the first
+      replica).
 
     Returns ``nxt``.  One checked C call (``ell_mesh_hop``), which
     reports the launches it made: ``LAUNCHES`` counts those of
@@ -2667,7 +2732,9 @@ def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
     wide = W % 16 == 0 and not (fpp | outp | stride) % 16
     desc, blocks, lgc = _hop_desc(t.row0, t.slot0, _shard_live(mt, 0), t.D,
                                   W, 16 if wide else 4)
-    lv = level or MeshLevel(None, None, None, 0, False, False)
+    lv = level or MeshLevel(None, None, None, None, 0, False, False)
+    if level is not None:
+        _level_aligned(nxt, lv.tp, lv.seen, lv.d, lv.flags)
     ptr = (lambda x: None if x is None else x.data_ptr())
     launched = (ctypes.c_int32 * 4)()
     with _on_card(dev):
@@ -2675,8 +2742,9 @@ def mesh_hop(cur: torch.Tensor, nxt: torch.Tensor, mt, group,
             stages, fpp, outp, stride, _mesh_hop_desc(mt, members), desc,
             len(t.D), blocks, lgc, wide, _over_array(over), len(over),
             eslot.data_ptr(), hrows.data_ptr(), t.n, t.n_rows, W,
-            ptr(lv.tp), ptr(lv.d), ptr(lv.flags), lv.step, int(lv.first),
-            int(lv.stop), _stream(dev), launched)
+            ptr(lv.tp), ptr(lv.seen), ptr(lv.d),
+            lv.d.element_size() if level is not None else 0, ptr(lv.flags),
+            lv.step, int(lv.first), int(lv.stop), _stream(dev), launched)
     _ok(rc, "ell_mesh_hop")
     LAUNCHES["mesh_hop"] += 1
     # the launches the C call reports it made
@@ -2759,51 +2827,44 @@ def ell_go_sharded(f0p: torch.Tensor, mt, eslot, hrows,
 
 
 def _bfs_sharded_start(f0p, t0p, mt, eslot, hrows, over, max_steps):
-    lanes = _bfs_pair(f0p, t0p)
+    _bfs_pair(f0p, t0p)
     _mesh_args(mt, eslot, hrows)
     if not 0 <= max_steps < int(INT16_INF) - 1:
         raise ValueError(f"max_steps={max_steps} does not fit int16")
     blocks = [mt.owned(s) for s in range(mt.k)] \
         if len(mt.mesh.groups) > 1 else None
-    return lanes, _over_check(over), blocks
-
-
-def _bfs_final(d, max_steps, final):
-    from .mesh import on
-    if max_steps <= 120:
-        with on(d.device):
-            d = final(d, torch.empty(d.shape, dtype=torch.int8,
-                                     device=d.device))
-    return d
+    return _over_check(over), blocks
 
 
 def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
-                      hop, final, read=None):
+                      hop, read=None):
     """The mesh BFS with its level pass a stage of ``hop`` (``mesh_hop``
-    or its plain version): one depth matrix, one flags slab and the
-    targets once a card group (``t0p`` itself on its own card); the
-    first pass is the level stage alone, a level the hop with the stage
-    in its group's last call.  ``read(flag)``: a level's (frontier,
-    target) flags on the host, by default one copy from group 0's card,
-    or given back by a caller that knows what a run reads (nothing then
-    waits on the card).  Returns (group 0's depth in the final form,
-    levels run)."""
-    lanes, over, blocks = _bfs_sharded_start(f0p, t0p, mt, eslot, hrows,
-                                             over, max_steps)
+    or its plain version): one reached bitmap, one depth matrix (in the
+    result's form, ``depth_dtype``), one flags slab and the targets once
+    a card group (``t0p`` itself on its own card); the first pass is the
+    level stage alone, a level the hop with the stage in its group's
+    last call.  ``read(flag)``: a level's (frontier, target) flags on
+    the host, by default one copy from group 0's card, or given back by
+    a caller that knows what a run reads (nothing then waits on the
+    card).  Returns (group 0's depth, levels run)."""
+    over, blocks = _bfs_sharded_start(f0p, t0p, mt, eslot, hrows, over,
+                                      max_steps)
     mesh = mt.mesh
-    R1 = f0p.shape[0]
+    R1, W = f0p.shape
     fp = mesh.replicas(f0p)
     buf = [torch.empty_like(f) for f in fp]
     tp = [t0p if dev == t0p.device else t0p.to(dev)
           for dev, _m in mesh.groups]
-    d = [torch.empty((R1, lanes), dtype=torch.int16, device=dev)
+    seen = [torch.empty((R1, W), dtype=torch.uint8, device=dev)
+            for dev, _m in mesh.groups]
+    d = [torch.empty((R1, 8 * W), dtype=depth_dtype(max_steps), device=dev)
          for dev, _m in mesh.groups]
     flags = [torch.zeros((max_steps + 1, 2), dtype=torch.int32, device=dev)
              for dev, _m in mesh.groups]
     for g in range(len(mesh.groups)):
         hop(buf[g], fp[g], mt, mesh.groups[g], eslot[mesh.groups[g][1][0]],
             hrows[mesh.groups[g][1][0]], over, HOP_LEVEL,
-            MeshLevel(tp[g], d[g], flags[g][0], 0, True, stop))
+            MeshLevel(tp[g], seen[g], d[g], flags[g][0], 0, True, stop))
     step = 0
     # ell.py:1824-1836's loop condition, read from group 0 (every group
     # holds the same frontier and depths) once a level
@@ -2813,32 +2874,35 @@ def _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
         if not f_any or (stop and not t_any):
             break
         _hop_all(fp, buf, mt, eslot, hrows, over, blocks, hop,
-                 lambda g, k=step: MeshLevel(tp[g], d[g], flags[g][k + 1],
-                                             k, False, stop))
+                 lambda g, k=step: MeshLevel(tp[g], seen[g], d[g],
+                                             flags[g][k + 1], k, False,
+                                             stop))
         fp, buf = buf, fp
         step += 1
-    return _bfs_final(d[0], max_steps, final), step
+    return d[0], step
 
 
 def _bfs_replica_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
-                      hop, level, final):
-    """The mesh BFS as the plain program runs it: the targets, a depth
-    matrix and a flags slab on every shard, ``level`` (``bfs_level``'s
-    plain version) on every replica after each hop, the loop condition
-    read from shard 0."""
+                      hop, level):
+    """The mesh BFS as the plain program runs it: the targets, a reached
+    bitmap, a depth matrix and a flags slab on every shard, ``level``
+    (``bfs_level``'s plain version) on every replica after each hop, the
+    loop condition read from shard 0."""
     from .mesh import on
-    lanes, over, blocks = _bfs_sharded_start(f0p, t0p, mt, eslot, hrows,
-                                             over, max_steps)
+    over, blocks = _bfs_sharded_start(f0p, t0p, mt, eslot, hrows, over,
+                                      max_steps)
     mesh = mt.mesh
+    R1, W = f0p.shape
     fp, tp = mesh.replicas(f0p), mesh.rows(mesh.replicas(t0p))
     buf = [torch.empty_like(f) for f in fp]
-    d = mesh.rows(mesh.slabs((f0p.shape[0], lanes), torch.int16))
+    seen = mesh.rows(mesh.slabs((R1, W), torch.uint8))
+    d = mesh.rows(mesh.slabs((R1, 8 * W), depth_dtype(max_steps)))
     flags = mesh.rows(mesh.slabs((max_steps + 1, 2), torch.int32,
                                  zero=True))
     devs = mesh.devices
     for s, f in enumerate(mesh.rows(fp)):
         with on(devs[s]):
-            level(f, tp[s], d[s], flags[s][0], 0, True, stop)
+            level(f, tp[s], seen[s], d[s], flags[s][0], 0, True, stop)
     step = 0
     while step < max_steps:
         f_any, t_any = flags[0][step].tolist()
@@ -2847,22 +2911,21 @@ def _bfs_replica_loop(f0p, t0p, mt, eslot, hrows, over, max_steps, stop,
         _hop_all(fp, buf, mt, eslot, hrows, over, blocks, hop)
         for s, f in enumerate(mesh.rows(buf)):
             with on(devs[s]):
-                level(f, tp[s], d[s], flags[s][step + 1], step, False,
-                      stop)
+                level(f, tp[s], seen[s], d[s], flags[s][step + 1], step,
+                      False, stop)
         fp, buf = buf, fp
         step += 1
-    return _bfs_final(d[0], max_steps, final), step
+    return d[0], step
 
 
 def ell_bfs_sharded_ref(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
                         hrows, over: Sequence[int], max_steps: int,
                         stop_when_found: bool = True):
     """Plain version of ``ell_bfs_sharded``: the per-replica program
-    (``_bfs_replica_loop``), a depth matrix a shard, over the plain
-    versions of the hop, the level pass and the int8 form."""
+    (``_bfs_replica_loop``), a reached bitmap and a depth matrix a
+    shard, over the plain versions of the hop and the level pass."""
     return _bfs_replica_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
-                             stop_when_found, mesh_hop_ref, bfs_level_ref,
-                             bfs_depth_i8_ref)
+                             stop_when_found, mesh_hop_ref, bfs_level_ref)
 
 
 def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
@@ -2873,13 +2936,14 @@ def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
     target lanes (read only); ``f0p`` is copied to every shard.  The
     first pass is ``mesh_hop``'s level stage alone, each level one
     ``mesh_hop`` call a card with the level stage after the hop: one
-    depth matrix and one flags pair a card group, the targets read from
-    ``t0p`` on its own card.  Returns (the depth, levels run), in
-    ``ell_bfs``'s form: int8 with -1 unreached when ``max_steps <=
-    120``, else int16 with INT16_INF.  On the CPU the same loop runs
-    the stages' plain versions (``mesh_level_ref``)."""
+    reached bitmap, one depth matrix and one flags pair a card group,
+    the targets read from ``t0p`` on its own card.  Returns (the depth,
+    levels run), in ``ell_bfs``'s form, which the level stage keeps it
+    in: int8 with -1 unreached when ``max_steps <= 120``, else int16
+    with INT16_INF.  On the CPU the same loop runs the stages' plain
+    versions (``mesh_level_ref``)."""
     out = _bfs_sharded_loop(f0p, t0p, mt, eslot, hrows, over, max_steps,
-                            stop_when_found, mesh_hop, bfs_depth_i8)
+                            stop_when_found, mesh_hop)
     if _route(f0p.device):
         LAUNCHES["ell_bfs_sharded"] += 1
     return out

@@ -340,11 +340,9 @@ def test_programs_over_two_pretended_cards_equal_one_card(ells, k,
                for _d, m in cards if st_ != H.HOP_COPY or len(m) > 1]
     assert calls == per_hop * 2
     d1, l1 = ell_ops._bfs_sharded_loop(f0, t0, mt1, [es] * k, [hr] * k,
-                                       OVER, 5, False, ell_ops.mesh_hop,
-                                       ell_ops.bfs_depth_i8_ref)
+                                       OVER, 5, False, ell_ops.mesh_hop)
     d2, l2 = ell_ops._bfs_sharded_loop(f0, t0, mt2, [es] * k, [hr] * k,
-                                       OVER, 5, False, hop,
-                                       ell_ops.bfs_depth_i8_ref)
+                                       OVER, 5, False, hop)
     assert l1 == l2 > 1 and torch.equal(d1, d2)
 
 

@@ -127,8 +127,10 @@ def test_level_stage_bfs_matches_jax(ells, k, cards, stop, max_steps):
 
 @pytest.mark.parametrize("k", [2, 3, 4])
 @pytest.mark.parametrize("hop_first", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int8])
 def test_level_stage_alone_equals_bfs_level_on_every_replica(ells, k,
-                                                            hop_first):
+                                                            hop_first,
+                                                            dtype):
     """The stage (after a hop, or as the first pass) against
     ``bfs_level_ref`` run on every replica with a depth matrix each:
     the group's one matrix equals each of theirs, every replica holds
@@ -142,43 +144,47 @@ def test_level_stage_alone_equals_bfs_level_on_every_replica(ells, k,
     R1, W = f0.shape
     cur = mt.mesh.replicas(f0)[0]
     nxt = torch.empty_like(cur)
-    d = torch.empty((R1, 8 * W), dtype=torch.int16)
+    seen = torch.empty_like(f0)
+    d = torch.empty((R1, 8 * W), dtype=dtype)
     flags = torch.zeros((3, 2), dtype=torch.int32)
     ell_ops.mesh_hop(nxt, cur, mt, g, eslot, hrows, OVER, ell_ops.HOP_LEVEL,
-                     ell_ops.MeshLevel(t0, d, flags[0], 0, True, True))
+                     ell_ops.MeshLevel(t0, seen, d, flags[0], 0, True, True))
     assert all(torch.equal(r, f0) for r in cur)
-    want_d = torch.empty_like(d)
+    want_s, want_d = torch.empty_like(seen), torch.empty_like(d)
     want_f = torch.zeros((2,), dtype=torch.int32)
-    ell_ops.bfs_level_ref(f0.clone(), t0, want_d, want_f, 0, True, True)
+    ell_ops.bfs_level_ref(f0.clone(), t0, want_s, want_d, want_f, 0, True,
+                          True)
     assert torch.equal(d, want_d) and torch.equal(flags[0], want_f)
+    assert torch.equal(seen, want_s) and torch.equal(seen, f0)
     if not hop_first:
         return
     ell_ops.mesh_hop(cur, nxt, mt, g, eslot, hrows, OVER,
                      ell_ops.HOP_STAGES | ell_ops.HOP_LEVEL,
-                     ell_ops.MeshLevel(t0, d, flags[1], 0, False, True))
+                     ell_ops.MeshLevel(t0, seen, d, flags[1], 0, False, True))
     hop = ell_ops.go_hop_ref(f0, None, torch.empty_like(f0),
                              tix.device_tables(CPU), eslot, hrows, OVER)[0]
-    for s in range(k):          # the old path: a matrix and flags a shard
-        rd, rf, rn = want_d.clone(), torch.zeros((2,), dtype=torch.int32), \
-            hop.clone()
-        ell_ops.bfs_level_ref(rn, t0, rd, rf, 0, False, True)
+    for s in range(k):          # the old path: the state and flags a shard
+        rs, rd, rf, rn = want_s.clone(), want_d.clone(), \
+            torch.zeros((2,), dtype=torch.int32), hop.clone()
+        ell_ops.bfs_level_ref(rn, t0, rs, rd, rf, 0, False, True)
         assert torch.equal(nxt[s], rn)
         assert torch.equal(d, rd) and torch.equal(flags[1], rf)
+        assert torch.equal(seen, rs)
     # the same frontier again: every bit is reached, so the stage clears
     # it in every replica and raises no frontier flag
     assert bool(nxt.any())
     ell_ops.mesh_hop(cur, nxt, mt, g, eslot, hrows, OVER, ell_ops.HOP_LEVEL,
-                     ell_ops.MeshLevel(t0, d, flags[2], 1, False, True))
+                     ell_ops.MeshLevel(t0, seen, d, flags[2], 1, False, True))
     assert not bool(nxt.any()) and int(flags[2][0]) == 0
-    assert torch.equal(d, rd)
+    assert torch.equal(d, rd) and torch.equal(seen, rs)
 
 
 def test_the_program_keeps_one_depth_matrix_a_group(ells, monkeypatch):
     """Over two pretended cards: every level stage of a group gets the
-    same depth matrix and its own flags row, the targets are ``t0p``
-    itself, the first pass is the stage alone, and each later level
-    rides the group's merge call (a card of one shard has no copy
-    stage)."""
+    same reached bitmap and depth matrix and its own flags row, the
+    targets are ``t0p`` itself, the first pass is the stage alone, and
+    each later level rides the group's merge call (a card of one shard
+    has no copy stage)."""
     _jix, tix, eslot, hrows = ells
     k = 3
     mt = mesh_tables(tix, _mesh(k, "two"))
@@ -205,6 +211,7 @@ def test_the_program_keeps_one_depth_matrix_a_group(ells, monkeypatch):
                    for st_, lv in with_level[1:])
         assert [lv.step for _s, lv in with_level[1:]] == list(range(levels))
         assert len({lv.d.data_ptr() for _s, lv in with_level}) == 1
+        assert len({lv.seen.data_ptr() for _s, lv in with_level}) == 1
         assert len({lv.flags.data_ptr() for _s, lv in with_level}) \
             == levels + 1
         assert all(lv.tp is t0 for _s, lv in with_level)
@@ -222,7 +229,8 @@ def test_mesh_hop_checks_the_level_operands(ells, bad):
     R1, W = f0.shape
     cur = mt.mesh.replicas(f0)[0]
     nxt = torch.empty_like(cur)
-    lv = ell_ops.MeshLevel(f0, torch.empty((R1, 8 * W), dtype=torch.int16),
+    lv = ell_ops.MeshLevel(f0, torch.empty_like(f0),
+                           torch.empty((R1, 8 * W), dtype=torch.int16),
                            torch.zeros((2,), dtype=torch.int32), 0, False,
                            True)
     args = {"stage_without_operands": (ell_ops.HOP_LEVEL, None),

@@ -262,7 +262,8 @@ def _kernel_calls(tix):
             f, torch.zeros(R1, dtype=torch.int32),
             torch.zeros(128, dtype=torch.int32))),
         "bfs_level": (f, lambda: ell_ops.bfs_level(
-            f, f.clone(), torch.zeros((R1, 128), dtype=torch.int16),
+            f, f.clone(), f.clone(),
+            torch.zeros((R1, 128), dtype=torch.int16),
             torch.zeros(2, dtype=torch.int32), 0)),
         "bfs_depth_i8": (f, lambda: ell_ops.bfs_depth_i8(
             torch.zeros((R1, 128), dtype=torch.int16),
@@ -306,7 +307,8 @@ def test_new_wrappers_reject_bad_operands(ells):
         ell_ops.go_count(f, torch.zeros(R1, dtype=torch.int32),
                          torch.zeros(64, dtype=torch.int32))
     with pytest.raises(ValueError):      # d has 8W lanes per row
-        ell_ops.bfs_level(f, f, torch.zeros((R1, 64), dtype=torch.int16),
+        ell_ops.bfs_level(f, f, f.clone(),
+                          torch.zeros((R1, 64), dtype=torch.int16),
                           torch.zeros(2, dtype=torch.int32), 0)
     with pytest.raises(ValueError):      # depths must fit int16
         ell_ops.ell_bfs(f, f.clone(), _port["tables"], _port["eslot"],
