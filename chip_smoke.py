@@ -32,13 +32,20 @@ Phases, in order; any failure exits non-zero:
              library call computing the same function, and the card's
              bound for the work.  The continuous session's four
              kernels, then the windowed path's: the packed frontier
-             upload, ``ell_go`` at 3 steps (exact and UPTO), the
-             COUNT(*) fold, K3 the BFS level pass (every level of an
+             upload K1 (the runtime's call too: one kernel and one
+             copy a call by capture, its host enqueue behind a spin
+             kernel below the spin's time), ``ell_go`` at 3 steps
+             (exact and UPTO), the COUNT(*) fold K2 (the 3-step
+             frontier, an all-ones one, a deg whose sums wrap; one
+             launch a call), both also at B = 32 and on rows that are
+             not a whole number of K1's 8 KB blocks, K3 the BFS level
+             pass (every level of an
              UPTO 5 BFS, int8 depths, and of a ``max_steps`` 121 one,
              int16, held to the plain level on the same state; alone,
              its first pass and the level after one hop from one start
              a lane and from a 2 %-dense frontier, with a bound for the
-             reached-bitmap design and the one before it) and the int8
+             reached-bitmap design and the one before it; the UPTO 5
+             program's bound from its kernels' bytes) and the int8
              form of the int16 result; then
              the sparse GO program (K4 expand, K5 compact, K6 reduce)
              at c0 256 and 2048, 3 and 4 steps, with a tight-cap batch
@@ -804,6 +811,189 @@ def kernel_phase(torch, ell_ops, tables, eslot, hrows, ix, B: int,
     return res
 
 
+def enqueue_check(torch, what: str, fn) -> dict:
+    """``fn`` queued behind a spin kernel, 8 calls: its device time and
+    its host enqueue time, which must stay below the spin's (a call that
+    waits on the card would wait out the spin).  First behind a spin 16
+    times as long, where the 8 calls may take new pinned blocks (the
+    caching host allocator's blocks of calls still in flight are not
+    free yet), then again behind the usual spin."""
+    cold_spin = cuda_ms(torch, lambda: torch.cuda._sleep(16 * SPIN_CYCLES),
+                        2, 1)
+    spin_ms = cuda_ms(torch, lambda: torch.cuda._sleep(SPIN_CYCLES), 3, 1)
+    row = {}
+    for label, spin, ms in (("cold_", 16 * SPIN_CYCLES, cold_spin),
+                            ("", SPIN_CYCLES, spin_ms)):
+        dev_ms, enqueue_ms = queued_times(torch, fn, PROBE_REPS, spin)
+        if enqueue_ms >= ms:
+            raise AssertionError(f"{what}: {PROBE_REPS} calls took "
+                                 f"{enqueue_ms} ms to enqueue behind a {ms}"
+                                 f" ms spin: the call waits on the card")
+        row.update({f"{label}call_ms": dev_ms,
+                    f"{label}enqueue_ms": enqueue_ms / PROBE_REPS,
+                    f"{label}spin_ms": ms})
+    return dict(row, enqueue_calls=PROBE_REPS)
+
+
+def counted(torch, ell_ops, fn, want: dict, what: str) -> dict:
+    """``launches_a_call`` of ``fn``, held to ``want`` (launch kinds)."""
+    n = launches_a_call(torch, ell_ops, fn)
+    if n["launch_kinds"] != want or n["c_calls_a_call"] != 1:
+        raise AssertionError(f"{what}: {n['launch_kinds']} in "
+                             f"{n['c_calls_a_call']} C calls a call, "
+                             f"expected {want} in 1")
+    return {a: n[a] for a in ("launches_a_call", "c_calls_a_call",
+                              "launch_kinds", "launches_traced")}
+
+
+def upload_rows(torch, ell_ops, rt, ix, B: int, new_ids, qcols):
+    """K1 on the start list (new-id rows, query lanes): the runtime's
+    call (dedup, one pinned copy, one launch) and the kernel alone on
+    the list it sends, held to the plain version; (numbers, frontier).
+    ``ms`` is the kernel's device time (calls queued behind a spin),
+    ``event_ms`` its back-to-back event time, ``call_*`` the runtime's
+    whole call; launches and copies a call by capture."""
+    dev = rt.device
+    R1, W = ix.n_rows + 1, B // 8
+    fk = rt._upload_frontier_packed(ix, new_ids, qcols, B)
+    coords = torch.from_numpy(rt._packed_coords(new_ids, qcols, B)).to(dev)
+    S = int(coords.shape[1])
+    fa = torch.empty_like(fk)
+    ell_ops.frontier_upload(fa, coords)
+    fr = torch.empty_like(fk)
+    ell_ops.frontier_upload_ref(fr, coords)
+    err = require_equal(torch, "frontier_upload", B, (fk, fr), (fa, fr))
+    f0 = fk.clone()
+
+    def kernel():
+        ell_ops.frontier_upload(fa, coords)
+
+    def call():
+        rt._upload_frontier_packed(ix, new_ids, qcols, B)
+    rows, lanes = coords.long()
+    idx = rows * W + (lanes >> 3)
+    vals = torch.bitwise_left_shift(torch.ones_like(lanes), lanes & 7).to(
+        torch.uint8)
+
+    def lib_upload():
+        fr.zero_()
+        fr.view(-1).index_put_((idx,), vals, accumulate=True)
+    lib_upload()
+    require_equal(torch, "frontier_upload's library call", B, (fr, fk))
+    return dict(
+        max_abs_err=err, ms=queued_ms(torch, kernel, PROBE_REPS),
+        event_ms=cuda_ms(torch, kernel, 50),
+        plain_ms=cuda_ms(torch, lambda: ell_ops.frontier_upload_ref(
+            fr, coords), 20),
+        bound_ms=bytes_ms(R1 * W + 8 * S), bound_by="bytes",
+        library_ms=cuda_ms(torch, lib_upload, 50),
+        library_is="zero_ + index_put_ (accumulate)", entries=S,
+        rows_bytes_multiple_of_8192=(R1 * W) % 8192 == 0,
+        call_event_ms=cuda_ms(torch, call, 50),
+        **enqueue_check(torch, f"_upload_frontier_packed B={B}", call),
+        **counted(torch, ell_ops, call, {"kernel": 1, "memcpy": 1},
+                  f"_upload_frontier_packed B={B}")), f0
+
+
+def count_bytes(torch, out, B: int) -> int:
+    """K2's bytes on this frontier: every frontier byte, the 32-byte deg
+    sectors that hold a row with a nonzero word, counts written."""
+    R1, W = out.shape
+    live = out.view(torch.int32).ne(0).any(dim=1)
+    pad = (-R1) % 8
+    sectors = int(torch.nn.functional.pad(live, (0, pad)).view(-1, 8)
+                  .any(dim=1).sum().item())
+    return R1 * W + 32 * sectors + 4 * B
+
+
+def count_rows(torch, ell_ops, out, deg, B: int, what: str,
+               library: bool = True) -> dict:
+    """K2 on the frontier ``out`` with ``deg``, held to its plain version
+    and to a matrix-vector product (float64, exact below 2^53, compared
+    modulo 2^32): device and event times, launches by capture."""
+    dev = out.device
+    ck = torch.full((B,), 7, dtype=torch.int32, device=dev)
+    cr = torch.empty_like(ck)
+    ell_ops.go_count(out, deg, ck)
+    ell_ops.go_count_ref(out, deg, cr)
+    err = require_equal(torch, f"go_count ({what})", B, (ck, cr))
+    again = ck.clone()
+    ell_ops.go_count(out, deg, again)        # the state came back zero
+    require_equal(torch, f"go_count ({what}) twice", B, (again, cr))
+
+    def kernel():
+        ell_ops.go_count(out, deg, ck)
+    row = dict(max_abs_err=err, ms=queued_ms(torch, kernel, PROBE_REPS),
+               event_ms=cuda_ms(torch, kernel, 50),
+               plain_ms=cuda_ms(torch, lambda: ell_ops.go_count_ref(
+                   out, deg, cr), 3, 1),
+               bound_ms=bytes_ms(count_bytes(torch, out, B)),
+               bound_by="bytes", library_ms=None,
+               live_bits=popcount(torch, ell_ops, out),
+               **counted(torch, ell_ops, kernel, {"kernel": 1},
+                         f"go_count ({what})"))
+    if library:
+        def unpack():
+            return ell_ops._unpack_ref(out).double()
+        row["library_unpack_ms"] = cuda_ms(torch, unpack, 2, 1)
+        bits = unpack()
+        degd = deg.double()
+        row["library_ms"] = cuda_ms(torch, lambda: torch.mv(bits.t(), degd),
+                                    5)
+        mv = torch.mv(bits.t(), degd).to(torch.int64)
+        if not torch.equal(mv.remainder(2**32), ck.to(torch.int64)
+                           .remainder(2**32)):
+            raise AssertionError(f"torch.mv disagrees with go_count "
+                                 f"({what}) at B={B}")
+        row["library_is"] = "torch.mv of the unpacked float64 bits"
+        del bits
+    return row
+
+
+def odd_rows_check(torch, ell_ops, dev, rng) -> dict:
+    """K1 and K2, untimed, on R1 = 100003 rows (R1 * W not a multiple of
+    an upload block's 8192 bytes) at B = 32, 128 and 1024: a sorted list
+    with repeats and entries at the pad row and beyond; a random frontier
+    with a wrapping deg, the same with deg up to 2^17, and the all-ones
+    one."""
+    R1 = 100003
+    held = {}
+    for B in (32, 128, 1024):
+        W = B // 8
+        rows = np.concatenate([rng.integers(0, R1 + 2, 4 * B),
+                               [R1 - 2, R1 - 1]])
+        lanes = np.concatenate([rng.integers(0, B, 4 * B), [B - 1, 0]])
+        key = np.sort(np.concatenate([rows * B + lanes, rows[:B] * B
+                                      + lanes[:B]]))
+        coords = torch.from_numpy(np.stack(np.divmod(key, B)).astype(
+            np.int32)).to(dev)
+        fk = torch.empty((R1, W), dtype=torch.uint8, device=dev)
+        fr = torch.empty_like(fk)
+        ell_ops.frontier_upload(fk, coords)
+        ell_ops.frontier_upload_ref(fr, coords)
+        require_equal(torch, "frontier_upload, odd rows", B, (fk, fr))
+        deg = torch.from_numpy(rng.integers(0, 2**31 - 1, R1).astype(
+            np.int32)).to(dev)
+        deg[-1] = 0
+        rand = torch.from_numpy(rng.integers(0, 256, (R1, W), dtype=np.uint8)
+                                ).to(dev)
+        deg17 = torch.from_numpy(rng.integers(0, 2**17, R1).astype(
+            np.int32)).to(dev)
+        deg17[-1] = 0
+        for label, out, dg in (("random", rand, deg),
+                               ("random, deg up to 2^17", rand, deg17),
+                               ("ones", torch.full_like(rand, 255), deg),
+                               ("upload", fk, deg)):
+            ck = torch.empty(B, dtype=torch.int32, device=dev)
+            cr = torch.empty_like(ck)
+            ell_ops.go_count(out, dg, ck)
+            ell_ops.go_count_ref(out, dg, cr)
+            require_equal(torch, f"go_count, odd rows, {label}", B, (ck, cr))
+        held[B] = dict(rows=R1, entries=int(coords.shape[1]),
+                       blocks_of_8192=(R1 * W) / 8192)
+    return held
+
+
 def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                        B: int, over, rng) -> dict:
     """The windowed path's kernels against their plain versions at lane
@@ -820,42 +1010,10 @@ def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
     def up(a):
         return torch.from_numpy(a).to(dev)
 
-    def coords(vertices):
-        """The padded start list runtime._upload_frontier_packed gives
-        the kernel: query q starts at ``vertices[q]``."""
-        S = len(vertices)
-        Sp = max(8, 1 << (S - 1).bit_length())
-        rows_h = np.full(Sp, ix.n_rows, np.int32)
-        words_h = np.zeros(Sp, np.int32)
-        vals_h = np.zeros(Sp, np.uint8)
-        q = np.arange(S)
-        rows_h[:S] = ix.perm[vertices]
-        words_h[:S] = q >> 3
-        vals_h[:S] = np.left_shift(1, q & 7)
-        return up(rows_h), up(words_h), up(vals_h), Sp
-
-    # ---- K1 frontier upload
-    rows_t, words_t, vals_t, Sp = coords(rng.integers(0, ix.n, B))
-    fk = torch.empty((R1, W), dtype=torch.uint8, device=dev)
-    fr = torch.empty_like(fk)
-    ell_ops.frontier_upload(fk, rows_t, words_t, vals_t)
-    ell_ops.frontier_upload_ref(fr, rows_t, words_t, vals_t)
-    err = require_equal(torch, "frontier_upload", B, (fk, fr))
-    f0 = fk.clone()
-    ms = cuda_ms(torch, lambda: ell_ops.frontier_upload(
-        fk, rows_t, words_t, vals_t), 50)
-    plain = cuda_ms(torch, lambda: ell_ops.frontier_upload_ref(
-        fr, rows_t, words_t, vals_t), 50)
-    idx = (rows_t.long(), words_t.long())
-
-    def lib_upload():
-        fr.zero_()
-        fr.index_put_(idx, vals_t, accumulate=True)
-    lib = cuda_ms(torch, lib_upload, 50)
-    res["frontier_upload"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=bytes_ms(R1 * W + 9 * Sp), bound_by="bytes",
-        library_ms=lib)
+    # ---- K1 frontier upload: query q starts at one random vertex
+    res["frontier_upload"], f0 = upload_rows(
+        torch, ell_ops, rt, ix, B, ix.perm[rng.integers(0, ix.n, B)],
+        np.arange(B, dtype=np.int32))
 
     # ---- ell_go at 3 steps, exact and UPTO (two hops each)
     work = torch.empty_like(f0)
@@ -882,44 +1040,60 @@ def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
                              live_bits=popcount(torch, ell_ops, gk))
     res["ell_go"] = dict(go_rows[False], upto=go_rows[True])
 
-    # ---- K2 the COUNT(*) fold of the exact 3-step frontier
-    out = outs[False]
+    # ---- K2 the COUNT(*) fold of the exact 3-step frontier, of an
+    # all-ones frontier, of a random one a quarter dense (mixed words),
+    # and of those two with a deg whose sums wrap (the quarter-dense one
+    # with deg up to 2^17: register pairs flushed often, and past 0xFFFF
+    # the atomic path)
     deg = rt._deg_dev(m, ix, tuple(over))
-    ck = torch.empty(B, dtype=i32, device=dev)
-    cr = torch.empty_like(ck)
-    ell_ops.go_count(out, deg, ck)
-    ell_ops.go_count_ref(out, deg, cr)
-    err = require_equal(torch, "go_count", B, (ck, cr))
-    ms = cuda_ms(torch, lambda: ell_ops.go_count(out, deg, ck), 50)
-    plain = cuda_ms(torch, lambda: ell_ops.go_count_ref(out, deg, cr), 5)
-
-    def unpack():
-        return ell_ops._unpack_ref(out).double()
-    unpack_ms = cuda_ms(torch, unpack, 3, 1)
-    bits = unpack()
-    degd = deg.double()
-    lib = cuda_ms(torch, lambda: torch.mv(bits.t(), degd), 10)
-    if not torch.equal(torch.mv(bits.t(), degd).to(torch.int64),
-                       ck.to(torch.int64)):
-        raise AssertionError(f"torch.mv disagrees with go_count at B={B}")
-    del bits
-    res["go_count"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                           bound_ms=bytes_ms(R1 * W + 4 * R1 + 4 * B),
-                           bound_by="bytes", library_ms=lib,
-                           library_unpack_ms=unpack_ms)
+    ones = torch.full_like(f0, 255)
+    ones[-1] = 0
+    quarter = torch.from_numpy(
+        rng.integers(0, 256, (R1, W), dtype=np.uint8)
+        & rng.integers(0, 256, (R1, W), dtype=np.uint8)).to(dev)
+    quarter[ix.n:] = 0
+    wrap = torch.from_numpy(rng.integers(
+        2**30, 2**31 - 1, R1).astype(np.int32)).to(dev)
+    wrap[ix.n:] = 0
+    wrap17 = torch.from_numpy(rng.integers(0, 2**17, R1).astype(
+        np.int32)).to(dev)
+    wrap17[ix.n:] = 0
+    res["go_count"] = dict(count_rows(torch, ell_ops, outs[False], deg, B,
+                                      "3-step"),
+                           all_ones=count_rows(torch, ell_ops, ones, deg, B,
+                                               "all-ones"),
+                           all_ones_wrapping=count_rows(
+                               torch, ell_ops, ones, wrap, B,
+                               "all-ones, wrapping deg", library=False),
+                           quarter=count_rows(torch, ell_ops, quarter, deg,
+                                              B, "a quarter dense"),
+                           quarter_wrapping=count_rows(
+                               torch, ell_ops, quarter, wrap17, B,
+                               "a quarter dense, deg up to 2^17",
+                               library=False))
+    del ones, quarter, wrap, wrap17
 
     # ---- K3 through whole BFS programs (UPTO 5, stop when found: the
     # int8 form; and max_steps 121: an int16 d), every level held to the
     # plain level on the same state, the program to its plain version
-    t_rows, t_words, t_vals, _ = coords(rng.integers(0, ix.n, B))
-    t0 = torch.empty_like(f0)
-    ell_ops.frontier_upload(t0, t_rows, t_words, t_vals)
+    t0 = rt._upload_frontier_packed(ix, ix.perm[rng.integers(0, ix.n, B)],
+                                    np.arange(B, dtype=np.int32), B)
     programs = {}
+    # the UPTO 5 program's bytes, kernel by kernel on this run's data: the
+    # first pass, and a level's hop (its tables, frontier read, output
+    # written, hubs) and K3 level
+    prog_bytes = []
     for max_steps in (5, 121):
         held = []
 
         def level_held(nxt, tp, seen, d, flags, step, first, stop,
                        max_steps=max_steps, held=held):
+            if max_steps == 5:
+                prog_bytes.append(
+                    k3_first_bytes(R1, W, d.element_size())["bytes"]
+                    if first else 8 * slots + 2 * R1 * W + hub_bytes
+                    + k3_level_bytes(torch, ell_ops, nxt, seen, tp,
+                                     d.element_size())["bytes"])
             before = [x.clone() for x in (nxt, seen, d, flags)]
             ell_ops.bfs_level(nxt, tp, seen, d, flags, step, first, stop)
             ell_ops.bfs_level_ref(before[0], tp, *before[1:], step, first,
@@ -1041,6 +1215,7 @@ def batch_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot, hrows,
         bound_by="bytes", library_ms=None,
         library_none="none: a depth update with its loop flags",
         dense=rows["dense"], bfs_ms=bfs_ms, bfs_plain_ms=bfs_plain,
+        bfs_bound_ms=bytes_ms(sum(prog_bytes)),
         bfs_levels=programs[5][1], bfs_levels_held=programs[5][2],
         bfs121_levels=programs[121][1], bfs121_levels_held=programs[121][2],
         bfs121_dtype="int16", bfs_dtype="int8",
@@ -1343,10 +1518,10 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
     # the packed route on the same starts: its lane bits are the same
     # vertex set as the int8 route's row bits
     W = B // 8
+    key = torch.unique(rows_t[:S].long() * B + cols_t[:S])
     f0p = torch.empty((R1, W), dtype=torch.uint8, device=dev)
-    pval = torch.zeros(Sp, dtype=torch.uint8, device=dev)
-    pval[:S] = (1 << (cols_t[:S] & 7)).to(torch.uint8)
-    ell_ops.frontier_upload(f0p, rows_t, cols_t >> 3, pval)
+    ell_ops.frontier_upload(f0p, torch.stack((key // B, key % B)).to(
+        torch.int32))
     lanes = ell_ops.ell_go(f0p.clone(), tables, eslot, hrows, over, 3)
     bits_i8 = ell_ops._unpack_ref(packed_out.t().contiguous())[:, :R1]
     bits_lanes = ell_ops._unpack_ref(lanes)[:, :B].t()
@@ -6158,6 +6333,22 @@ def main(argv=None) -> int:
                 log(f"[kernel] {k} B={B} W={B // 8} equal=True "
                     + " ".join(f"{a}={b}" for a, b in v.items()))
             log(f"[kernel] B={B} phase {time.perf_counter() - t0:.2f} s")
+        # K1 and K2 at B = 32 too, and on rows off an upload block's range
+        t0 = time.perf_counter()
+        b32, f32 = upload_rows(torch, ell_ops, rt, ix, 32,
+                               ix.perm[rng.integers(0, ix.n, 32)],
+                               np.arange(32, dtype=np.int32))
+        per_width[128]["frontier_upload"]["b32"] = b32
+        per_width[128]["go_count"]["b32"] = count_rows(
+            torch, ell_ops, ell_ops.ell_go(f32, tables, eslot, hrows, (1,), 3),
+            rt._deg_dev(m, ix, (1,)), 32, "3-step")
+        for k in ("frontier_upload", "go_count"):
+            log(f"[kernel] {k} B=32 equal=True "
+                + json.dumps(per_width[128][k]["b32"]))
+        log("[kernel] frontier_upload and go_count on odd rows equal=True "
+            + json.dumps(odd_rows_check(torch, ell_ops, dev, rng)))
+        log(f"[kernel] K1 and K2 at B=32 and on odd rows "
+            f"{time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
         mix_starts = m.to_dense(request_mix(
             np.random.default_rng(args.seed + 1), args.vertices,

@@ -75,9 +75,16 @@ on level 1),
 ``bfs_depth_i8`` and the three BFS programs on the same inputs for
 both checkouts, with one trace of ``ell_bfs`` by kernel
 (``bfs_rows``).
+K1 (``frontier_upload``) at B = 128 and 1024, the kernel alone in each
+checkout's own form and the runtime's whole ``_upload_frontier_packed``
+(device, enqueue and event times, launches and copies a call by capture,
+or traced where the call cannot be captured); K2 (``go_count``) on the
+3-step frontier, an all-ones one and a random one a quarter dense,
+the last also with deg up to 2^17 (``upload_rows``, ``count_rows``).
 ``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
 and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``int8``,
-``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``, ``bfs``.
+``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``, ``bfs``, ``upload``,
+``count``.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -113,7 +120,7 @@ BFS_CALLS = 3                  # back-to-back calls of a timed BFS
 MESH_QUEUED = 4                # mesh_sparse_go calls queued behind a spin
 MESH_SPIN = 16 * SPIN_CYCLES   # about 64 ms: four calls' host enqueue
 ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "int8", "mesh",
-              "mesh_sparse", "k5", "bfs_pair", "bfs")
+              "mesh_sparse", "k5", "bfs_pair", "bfs", "upload", "count")
 SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
 LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
 # chip_smoke.py's predicate 3 and its seeded columns (fused_columns)
@@ -909,6 +916,113 @@ def fused_rows(torch, edge_ops, rt, m, rng, dev):
         **counts(torch, edge_ops, go))}
 
 
+def _launches(torch, ell_ops, fn) -> dict:
+    """Launches and C calls a call of ``fn`` by capture, with their
+    kinds; a call that cannot be captured (a copy from pageable memory
+    waits on the stream) is traced instead."""
+    try:
+        n = launches_a_call(torch, ell_ops, fn)
+    except Exception as e:          # noqa: BLE001 -- reported, not hidden
+        traced, c_calls = profiled_calls(torch, ell_ops, fn)
+        return dict(launches_traced=[len(c) for c in traced],
+                    kinds_traced=sorted({k for c in traced for k, _ in c}),
+                    c_calls_a_call=max(c_calls),
+                    not_captured=f"{type(e).__name__}: {e}"[:200])
+    return {a: n[a] for a in ("launches_a_call", "c_calls_a_call",
+                              "launch_kinds", "launches_traced")}
+
+
+def upload_rows(torch, ell_ops, rt, ix, rng, dev):
+    """K1 at B = 128 and 1024 from one random start a query: the kernel
+    alone on the list the checkout's runtime sends it (a sorted int32
+    [2, S] array where ``ell_ops.count_state`` exists, else the padded
+    rows / words / vals) and the runtime's whole
+    ``_upload_frontier_packed``, held equal to the plain version."""
+    import numpy as np
+    new = hasattr(ell_ops, "count_state")
+    res = {}
+    for B in (128, 1024):
+        new_ids = ix.perm[rng.integers(0, ix.n, B)].astype(np.int32)
+        q = np.arange(B, dtype=np.int32)
+        got = rt._upload_frontier_packed(ix, new_ids, q, B)
+        out = torch.empty_like(got)
+        want = torch.empty_like(got)
+        if new:
+            args = (torch.from_numpy(rt._packed_coords(new_ids, q, B)).to(
+                dev),)
+        else:
+            Sp = max(8, 1 << (B - 1).bit_length())
+            rows = np.full(Sp, ix.n_rows, np.int32)
+            rows[:B] = new_ids
+            words = np.zeros(Sp, np.int32)
+            words[:B] = q >> 3
+            vals = np.zeros(Sp, np.uint8)
+            vals[:B] = np.left_shift(1, q & 7)
+            args = tuple(torch.from_numpy(a).to(dev)
+                         for a in (rows, words, vals))
+        ell_ops.frontier_upload(out, *args)
+        ell_ops.frontier_upload_ref(want, *args)
+        _equal(torch, f"frontier_upload B={B}", (out, want), (got, want))
+
+        def kernel():
+            ell_ops.frontier_upload(out, *args)
+
+        def call():
+            rt._upload_frontier_packed(ix, new_ids, q, B)
+        call_ms, enqueue_ms = queued_times(torch, call, QUEUED)
+        res[f"frontier_upload_b{B}"] = dict(
+            ms=queued_ms(torch, kernel, QUEUED),
+            event_ms=cuda_ms(torch, kernel, BACK_TO_BACK),
+            call_ms=call_ms, call_enqueue_ms=enqueue_ms / QUEUED,
+            call_event_ms=cuda_ms(torch, call, BACK_TO_BACK),
+            **_launches(torch, ell_ops, call))
+    return res
+
+
+def count_rows(torch, ell_ops, rt, m, ix, tables, eslot, hrows, over, rng,
+               dev):
+    """K2 at B = 128 and 1024 on the exact 3-step frontier from one
+    random start a query (``chip_smoke.py``'s), on an all-ones frontier
+    and on a random one a quarter dense (every word mixed), with the
+    real deg, and the quarter-dense one with deg up to 2^17 (most rows
+    past what K2's register pairs take), held equal to the plain
+    version."""
+    import numpy as np
+    deg = rt._deg_dev(m, ix, tuple(over))
+    res = {}
+    for B in (128, 1024):
+        f0 = rt._upload_frontier_packed(
+            ix, ix.perm[rng.integers(0, ix.n, B)].astype(np.int32),
+            np.arange(B, dtype=np.int32), B)
+        step3 = ell_ops.ell_go(f0, tables, eslot, hrows, over, 3)
+        ones = torch.full_like(step3, 255)
+        ones[-1] = 0
+        shape = tuple(step3.shape)
+        quarter = torch.from_numpy(
+            rng.integers(0, 256, shape, dtype=np.uint8)
+            & rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        quarter[ix.n:] = 0
+        big = torch.from_numpy(rng.integers(0, 2**17, ix.n_rows + 1)
+                               .astype(np.int32)).to(dev)
+        big[ix.n:] = 0
+        for label, out, dg in (("step3", step3, deg), ("ones", ones, deg),
+                               ("quarter", quarter, deg),
+                               ("quarter_big_deg", quarter, big)):
+            ck = torch.empty(B, dtype=torch.int32, device=dev)
+            cr = torch.empty_like(ck)
+            ell_ops.go_count(out, dg, ck)
+            ell_ops.go_count_ref(out, dg, cr)
+            _equal(torch, f"go_count {label} B={B}", (ck, cr))
+
+            def kernel():
+                ell_ops.go_count(out, dg, ck)
+            res[f"go_count_{label}_b{B}"] = dict(
+                ms=queued_ms(torch, kernel, QUEUED),
+                event_ms=cuda_ms(torch, kernel, BACK_TO_BACK),
+                **_launches(torch, ell_ops, kernel))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     here = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -978,7 +1092,10 @@ def main(argv=None) -> int:
         ("bfs_pair", lambda: bfs_pair_rows(torch, ell_ops, ix, tables, eslot,
                                            hrows, over, rng, dev)),
         ("bfs", lambda: bfs_rows(torch, ell_ops, ix, tables, eslot, hrows,
-                                 over, dev)))
+                                 over, dev)),
+        ("upload", lambda: upload_rows(torch, ell_ops, rt, ix, rng, dev)),
+        ("count", lambda: count_rows(torch, ell_ops, rt, m, ix, tables,
+                                     eslot, hrows, over, rng, dev)))
     try:
         for name, fn in groups:
             if name in rows:

@@ -147,9 +147,8 @@ def load() -> ctypes.CDLL:
         lib.ell_lane_extract.argtypes = [vp, vp, vp, vp, vp, i64, i64,
                                          i64, vp]
         lib.ell_lane_clear.argtypes = [vp, vp, vp, i64, i64, vp]
-        lib.ell_frontier_upload.argtypes = [vp, vp, vp, vp, i64, i64, i64,
-                                            vp]
-        lib.ell_go_count.argtypes = [vp, vp, vp, i64, i64, vp]
+        lib.ell_frontier_upload.argtypes = [vp, vp, vp, i64, i64, i64, vp]
+        lib.ell_go_count.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
         lib.ell_bfs_level.argtypes = [vp, vp, vp, vp, i32, vp, i32, i32,
                                       i32, i64, i64, vp]
         lib.ell_bfs_depth_i8.argtypes = [vp, vp, i64, vp]

@@ -37,7 +37,17 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 1LL << 20;   // grid-stride beyond this
-constexpr int kCountBlocks = 1024;             // go_count grid cap
+constexpr int kUploadBytes = 8192;     // frontier bytes a block of the upload
+constexpr int kCountWarps = kThreads / 32;
+constexpr int kCountRows = 8;          // rows' words a count thread loads together
+constexpr int kCountBlocksPerSm = 4;
+constexpr int kCountReplicas = 16;     // the count's persistent accumulators
+constexpr int kCountSparse = 2;        // set (or clear) bits a word adds by
+                                       // shared atomics rather than pairs
+constexpr uint32_t kCountPairDeg = 0xFFFu;  // the largest deg the pairs take:
+                                       // 16 words at least between flushes
+constexpr int kCountMaxLanes = 8 * 1024;                  // 8W, W <= 1024
+constexpr int kCountTicket = kCountReplicas * kCountMaxLanes;  // state word
 constexpr uint32_t kInt16Inf = 0x7FFF;         // ell.py:51 INT16_INF
 
 inline unsigned grid_for(long long total) {
@@ -361,8 +371,8 @@ __global__ void or_many_kernel(uint32_t* __restrict__ dst, OrSources src,
 // and needs no ordering between entries.  Entries aimed at the pad row
 // (the padding) or out of range are skipped, and the pad row is zeroed
 // by the first W4 threads — no entry writes it, so there is no race.
-// accp may be null: the frontier upload (below) scatters into one
-// carrier.  Bound: bytes, a read-modify-write per entry in each carrier.
+// accp may be null (one carrier).  Bound: bytes, a read-modify-write
+// per entry in each carrier.
 __global__ void lane_join_kernel(uint32_t* __restrict__ fp,
                                  uint32_t* __restrict__ accp,
                                  const int32_t* __restrict__ rows,
@@ -386,14 +396,82 @@ __global__ void lane_join_kernel(uint32_t* __restrict__ fp,
     if (accp) atomicOr(accp + (byte >> 2), bits);
 }
 
-// Fill a word buffer with zeros (the upload's fresh frontier, the count
-// fold's lane sums).  Bound: bytes, 4 * total.
-__global__ void zero_words_kernel(uint32_t* __restrict__ dst,
-                                  long long total) {
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += stride)
-        dst[i] = 0u;
+// ---------------------------------------------------- frontier upload
+// Replaces nebula_tpu/tpu/runtime.py:3251 _upload_frontier_packed's
+// device half (zeros, then a scatter-add of the deduped lane bits).  The
+// entries (rows[i], lanes[i]) come sorted by (row, lane), so an entry's
+// byte offset row * W + lane / 8 never falls as i rises.  A block owns
+// kUploadBytes consecutive bytes of the frontier: it finds its entries
+// by two block-wide searches, ORs their bits into a shared tile and
+// stores the tile once, 16 bytes a store (4 for a tail).  Every byte of
+// [n_rows + 1, W] is written once and none is read; a block without
+// entries stores zeros at once.  Entries aimed at row n_rows or beyond,
+// or at a lane outside [0, 8W), are skipped, so the pad row ends zero;
+// a duplicate is harmless (an OR).  Bound: bytes, (n_rows + 1) * W
+// written and 8 bytes an entry read.
+__device__ __forceinline__ long long entry_byte(const int32_t* rows,
+                                                const int32_t* lanes, int W,
+                                                long long i) {
+    return (long long)rows[i] * W + (lanes[i] >> 3);
+}
+
+// The first i in [first, last) whose entry_byte is >= key, else last.
+// Every thread of the block calls it with the same arguments: a round
+// samples blockDim.x entries, one a thread, and the barrier's count of
+// those below key narrows the range to the gap after the last of them.
+__device__ long long block_lower_bound(const int32_t* rows,
+                                       const int32_t* lanes, int W,
+                                       long long first, long long last,
+                                       long long key) {
+    const long long T = blockDim.x;
+    while (first < last) {
+        const long long step = (last - first + T - 1) / T;
+        const long long i = first + (long long)threadIdx.x * step;
+        const long long below = __syncthreads_count(
+            i < last && entry_byte(rows, lanes, W, i) < key);
+        if (step == 1) return first + below;
+        if (below == 0) return first;
+        const long long end = min(last, first + below * step);
+        first += (below - 1) * step + 1;
+        last = end;
+    }
+    return first;
+}
+
+__global__ void __launch_bounds__(kThreads)
+frontier_upload_kernel(uint8_t* __restrict__ out,
+                       const int32_t* __restrict__ rows,
+                       const int32_t* __restrict__ lanes, long long S,
+                       long long n_rows, int W, long long total) {
+    __shared__ uint4 tile[kUploadBytes / 16];
+    uint32_t* t32 = reinterpret_cast<uint32_t*>(tile);
+    const long long base = (long long)blockIdx.x * kUploadBytes;
+    const int len = (int)min((long long)kUploadBytes, total - base);
+    const long long lo = block_lower_bound(rows, lanes, W, 0, S, base);
+    const long long hi = block_lower_bound(rows, lanes, W, lo, S,
+                                           base + len);
+    const bool any = lo < hi;                  // the same in every thread
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    if (any) {
+        for (int j = threadIdx.x; j < kUploadBytes / 16; j += blockDim.x)
+            tile[j] = zero;
+        __syncthreads();
+        for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
+            const long long r = rows[i];
+            const int l = lanes[i];
+            if (r < 0 || r >= n_rows || l < 0 || l >= 8LL * W) continue;
+            const int off = (int)(r * W + (l >> 3) - base);
+            atomicOr(t32 + (off >> 2), 1u << (8 * (off & 3) + (l & 7)));
+        }
+        __syncthreads();
+    }
+    uint4* dst = reinterpret_cast<uint4*>(out + base);
+    const int n16 = len >> 4;
+    for (int j = threadIdx.x; j < n16; j += blockDim.x)
+        dst[j] = any ? tile[j] : zero;
+    uint32_t* d32 = reinterpret_cast<uint32_t*>(out + base);
+    for (int j = 4 * n16 + threadIdx.x; j < (len >> 2); j += blockDim.x)
+        d32[j] = any ? t32[j] : 0u;
 }
 
 // ------------------------------------------------------------ extract
@@ -441,46 +519,196 @@ __global__ void lane_clear_kernel(uint32_t* __restrict__ fp,
 
 // ----------------------------------------------------------- go count
 // Replaces the COUNT(*) tail of ell.py:572 make_batched_go_lanes_kernel
-// (count=True): counts[lane] = sum_r deg[r] * bit(out[r], lane) over
-// all n_rows + 1 rows, int32 with wrap-around like the reference's
-// int32 product (deg is zero at extra rows and the pad row).  A thread
-// owns one 32-bit word column w (lanes 32w .. 32w + 31; lane 8j + k is
-// bit k of byte j, and the words are little-endian) and a row of each
-// pass of blockDim / W4 rows; it strides over the rows keeping its 32
-// lane sums in registers, the block folds them in shared memory, and
-// each nonzero block sum is added to the output once.  Bound: bytes —
-// the frontier and deg read once, (n_rows + 1) * (W + 4); the W4
-// threads of a row share its deg load.
-__global__ void go_count_kernel(const uint32_t* __restrict__ out,
-                                const int32_t* __restrict__ deg,
-                                uint32_t* __restrict__ counts,
-                                long long R1, int W4) {
-    extern __shared__ uint32_t sums[];          // [32 * W4] lane sums
+// (count=True): counts[lane] = sum_r deg[r] * bit(out[r], lane) over all
+// n_rows + 1 rows, int32 with wrap-around like the reference's int32
+// product (deg is zero at extra rows and the pad row).  One launch, no
+// clear of counts:
+//   * a thread owns one 32-bit word column w (lanes 32w .. 32w + 31; lane
+//     8j + k is bit k of byte j, the words little-endian) and strides
+//     over the rows, kCountRows rows' words loaded together (a warp's
+//     load covers 128 contiguous bytes; a wider load would give a thread
+//     several columns); deg is read only for a nonzero word;
+//   * each word costs what its kind needs, whatever the frontier's
+//     density: an all-ones word adds deg to one register sum (full) that
+//     the column's 32 lanes take at the end; a word with at most
+//     kCountSparse set bits, or clear ones, adds deg at them by shared
+//     atomics into the block's lane sums S (past 16 set bits deg to full
+//     and -deg at the clear bits: the sums wrap); any other word with
+//     deg <= kCountPairDeg adds into 16 register pairs, lanes k and
+//     k + 16 in the low and high 16 bits of pair k (three operations a
+//     pair), and the thread flushes them into S (32 atomics) before
+//     their fields could carry (room: what a field can still take), so
+//     at most once in 16 such words; a larger deg (a hub's row) takes
+//     the atomic path (at most 16 atomics);
+//   * at the end the threads of a warp that share a column sum full and
+//     the pairs by shuffles, and one of them adds them into S;
+//   * the block adds each nonzero lane sum into one of kCountReplicas
+//     persistent accumulators (blockIdx % kCountReplicas: a sum address
+//     takes the atomics of G / kCountReplicas blocks, not G), then takes
+//     a ticket; the last block sums the replicas into counts and clears
+//     them and the ticket, so the state is zero again for the next call.
+// Bound: bytes, the frontier once, the deg sectors of rows with a nonzero
+// word and counts: at most (n_rows + 1) * (W + 4) + 32W.
+
+// The padded column count a block lays its threads out by: the next
+// power of two up to 32 words, a multiple of 32 (a warp a 32 columns)
+// above.
+__host__ __device__ inline int count_cols(int W4) {
+    if (W4 > 32) return (W4 + 31) & ~31;
+    int p = 1;
+    while (p < W4) p <<= 1;
+    return p;
+}
+
+// Rows a block covers in one pass.
+__host__ __device__ inline int count_rows_a_pass(int W4) {
+    const int p = count_cols(W4);
+    return p >= 32 ? kCountWarps / (p / 32) : kCountWarps * (32 / p);
+}
+
+// Lane k of column w in a block's sums, rotated by w so that the threads
+// of a warp, one a column, add lane k in 32 different banks.
+__device__ __forceinline__ int count_slot(int w, int k) {
+    return 32 * w + ((k + w) & 31);
+}
+
+// Adds a thread's register pairs into the block's lane sums and clears
+// them.
+__device__ __forceinline__ void count_flush(uint32_t* S, int w,
+                                            uint32_t (&pr)[16]) {
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+        const uint32_t lo = pr[k] & 0xFFFFu, hi = pr[k] >> 16;
+        if (lo) atomicAdd(S + count_slot(w, k), lo);
+        if (hi) atomicAdd(S + count_slot(w, k + 16), hi);
+        pr[k] = 0u;
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, kCountBlocksPerSm)
+go_count_kernel(const uint32_t* __restrict__ out,
+                const int32_t* __restrict__ deg, uint32_t* __restrict__ counts,
+                uint32_t* __restrict__ state, long long R1, int W4) {
+    extern __shared__ uint32_t S[];               // [8W] lane sums
+    __shared__ int last;
     const int B = 32 * W4;
-    for (int j = threadIdx.x; j < B; j += blockDim.x) sums[j] = 0u;
+    for (int L = threadIdx.x; L < B; L += blockDim.x) S[L] = 0u;
     __syncthreads();
-    const int rows_per_pass = blockDim.x / W4;
-    const int sub = threadIdx.x / W4;
-    const int w = threadIdx.x - sub * W4;
-    if (sub < rows_per_pass) {
-        uint32_t acc[32];
+    const int p = count_cols(W4);
+    const int wpr = p >= 32 ? p / 32 : 1;        // warps a row
+    const int nsw = kCountWarps / wpr;           // rows of warps
+    const int rpb = count_rows_a_pass(W4);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int w = p < 32 ? (lane & (p - 1)) : (warp % wpr) * 32 + lane;
+    const int rsub = p < 32 ? warp * (32 / p) + lane / p : warp / wpr;
+    const bool active = warp < nsw * wpr && w < W4;
+
+    uint32_t full = 0u, room = 0xFFFFu, pr[16];
+    bool paired = false;
 #pragma unroll
-        for (int k = 0; k < 32; ++k) acc[k] = 0u;
-        for (long long r = (long long)blockIdx.x * rows_per_pass + sub;
-             r < R1; r += (long long)gridDim.x * rows_per_pass) {
-            const uint32_t v = out[r * W4 + w];
-            if (!v) continue;
-            const uint32_t dg = (uint32_t)deg[r];
+    for (int k = 0; k < 16; ++k) pr[k] = 0u;
+    if (active) {
+        const long long step = (long long)gridDim.x * rpb;
+        for (long long r0 = (long long)blockIdx.x * rpb + rsub; r0 < R1;
+             r0 += kCountRows * step) {
+            uint32_t v[kCountRows], d[kCountRows];
 #pragma unroll
-            for (int k = 0; k < 32; ++k) acc[k] += ((v >> k) & 1u) * dg;
+            for (int u = 0; u < kCountRows; ++u) {
+                const long long r = r0 + u * step;
+                v[u] = r < R1 ? __ldcs(out + r * W4 + w) : 0u;
+            }
+#pragma unroll
+            for (int u = 0; u < kCountRows; ++u)
+                d[u] = v[u] ? (uint32_t)__ldg(deg + r0 + u * step) : 0u;
+#pragma unroll
+            for (int u = 0; u < kCountRows; ++u) {
+                uint32_t x = v[u], dg = d[u];
+                if (x == 0u) continue;
+                const int n = __popc(x);
+                if (n == 32) {
+                    full += dg;
+                    continue;
+                }
+                if (n > kCountSparse && n < 32 - kCountSparse &&
+                    dg <= kCountPairDeg) {
+                    if (dg > room) {
+                        count_flush(S, w, pr);
+                        room = 0xFFFFu;
+                    }
+                    room -= dg;
+                    paired = true;
+#pragma unroll
+                    for (int k = 0; k < 16; ++k)
+                        pr[k] += ((x >> k) & 0x00010001u) * dg;
+                    continue;
+                }
+                if (n > 16) {
+                    full += dg;
+                    x = ~x;
+                    dg = 0u - dg;
+                }
+                for (; x; x &= x - 1)
+                    atomicAdd(S + count_slot(w, __ffs(x) - 1), dg);
+            }
         }
+    }
+    // the warp's threads of one column are p lanes apart; one of them
+    // (lane < p) adds the column's sums
+    const bool adds = w < W4 && (p >= 32 || lane < p);
+    for (int o = p; o < 32; o <<= 1)
+        full += __shfl_xor_sync(0xFFFFFFFFu, full, o);
+    if (full && adds) {
 #pragma unroll
-        for (int k = 0; k < 32; ++k)
-            if (acc[k]) atomicAdd(sums + 32 * w + k, acc[k]);
+        for (int k = 0; k < 32; ++k) atomicAdd(S + count_slot(w, k), full);
+    }
+    if (__any_sync(0xFFFFFFFFu, paired)) {
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+            uint32_t lo = pr[k] & 0xFFFFu, hi = pr[k] >> 16;
+            for (int o = p; o < 32; o <<= 1) {
+                lo += __shfl_xor_sync(0xFFFFFFFFu, lo, o);
+                hi += __shfl_xor_sync(0xFFFFFFFFu, hi, o);
+            }
+            if (adds && lo) atomicAdd(S + count_slot(w, k), lo);
+            if (adds && hi) atomicAdd(S + count_slot(w, k + 16), hi);
+        }
     }
     __syncthreads();
-    for (int j = threadIdx.x; j < B; j += blockDim.x)
-        if (sums[j]) atomicAdd(counts + j, sums[j]);
+
+    uint32_t* mine = state + (long long)(blockIdx.x % kCountReplicas) * B;
+    for (int L = threadIdx.x; L < B; L += blockDim.x) {
+        const uint32_t s = S[count_slot(L >> 5, L & 31)];
+        if (s) atomicAdd(mine + L, s);
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+        last = atomicAdd(state + kCountTicket, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int L = threadIdx.x; L < B; L += blockDim.x) {
+        uint32_t s = 0u;
+#pragma unroll
+        for (int r = 0; r < kCountReplicas; ++r)
+            s += __ldcg(state + (long long)r * B + L);
+        counts[L] = s;
+#pragma unroll
+        for (int r = 0; r < kCountReplicas; ++r)
+            state[(long long)r * B + L] = 0u;
+    }
+    if (threadIdx.x == 0) state[kCountTicket] = 0u;
+}
+
+// The count's grid: kCountBlocksPerSm blocks an SM, no more than the
+// rows fill; 0 when the device cannot be queried.
+inline long long count_grid(long long R1, int W4) {
+    const int sms = sm_count();
+    if (sms <= 0) return 0;
+    const long long rpb = count_rows_a_pass(W4);
+    long long G = (long long)kCountBlocksPerSm * sms;
+    if (G > (R1 + rpb - 1) / rpb) G = (R1 + rpb - 1) / rpb;
+    return G < 1 ? 1 : G;
 }
 
 // ---------------------------------------------------------- bfs level
@@ -817,48 +1045,37 @@ int ell_go_hop(const void* fp, void* accp, void* out, const void* nbr,
     return (int)cudaGetLastError();
 }
 
-// Replaces nebula_tpu/tpu/runtime.py:3251 _upload_frontier_packed's
-// device half: out = zeros, then the (deduped) lane bits scattered in
-// by the join kernel on one carrier.  The pad row is zeroed by the
-// first launch and no entry writes it (padding entries aim at it and
-// are skipped).
-int ell_frontier_upload(void* out, const void* rows, const void* words,
-                        const void* vals, int64_t S, int64_t n_rows,
-                        int64_t W, void* stream) {
+// out: uint8 [n_rows + 1, W], 16-byte aligned, overwritten with the
+// start frontier of the S entries rows[i], lanes[i] (int32, sorted by
+// row, then lane): one launch, frontier_upload_kernel.
+int ell_frontier_upload(void* out, const void* rows, const void* lanes,
+                        int64_t S, int64_t n_rows, int64_t W,
+                        void* stream) {
     if (W <= 0 || W % 4 != 0 || S < 0 || n_rows < 0) return -1;
-    cudaStream_t s = (cudaStream_t)stream;
-    const int W4 = (int)(W / 4);
-    const long long total = (n_rows + 1) * (long long)W4;
-    zero_words_kernel<<<grid_for(total), kThreads, 0, s>>>(
-        (uint32_t*)out, total);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long threads = S > W4 ? S : W4;
-    lane_join_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads),
-                       kThreads, 0, s>>>(
-        (uint32_t*)out, nullptr, (const int32_t*)rows,
-        (const int32_t*)words, (const uint8_t*)vals, S, n_rows, (int)W,
-        W4);
+    const long long total = (n_rows + 1) * (long long)W;
+    const long long blocks = (total + kUploadBytes - 1) / kUploadBytes;
+    frontier_upload_kernel<<<(unsigned)blocks, kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        (uint8_t*)out, (const int32_t*)rows, (const int32_t*)lanes, S,
+        n_rows, (int)W, total);
     return (int)cudaGetLastError();
 }
 
-// counts: int32 [8 * W], overwritten.  W / 4 <= kThreads words per row.
-int ell_go_count(const void* out, const void* deg, void* counts,
-                 int64_t R1, int64_t W, void* stream) {
-    if (R1 <= 0 || W <= 0 || W % 4 != 0 || W / 4 > kThreads) return -1;
-    cudaStream_t s = (cudaStream_t)stream;
-    const int W4 = (int)(W / 4);
-    const int B = 32 * W4;
-    zero_words_kernel<<<grid_for(B), kThreads, 0, s>>>((uint32_t*)counts,
-                                                      B);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long rows_per_pass = kThreads / W4;
-    long long blocks = (R1 + rows_per_pass - 1) / rows_per_pass;
-    if (blocks > kCountBlocks) blocks = kCountBlocks;
-    go_count_kernel<<<(unsigned)blocks, kThreads, B * sizeof(uint32_t),
-                      s>>>((const uint32_t*)out, (const int32_t*)deg,
-                           (uint32_t*)counts, R1, W4);
+// counts: int32 [8 * W], overwritten; state: state_words uint32, the
+// count's replicas and ticket (ell_ops.count_state), zero before the
+// first call and left zero by each, so calls in one stream's order share
+// it.  W / 4 <= kThreads.
+int ell_go_count(const void* out, const void* deg, void* counts, void* state,
+                 int64_t state_words, int64_t R1, int64_t W, void* stream) {
+    if (R1 <= 0 || W <= 0 || W % 4 != 0 || W / 4 > kThreads ||
+        state_words <= kCountTicket)
+        return -1;
+    const long long G = count_grid(R1, (int)(W / 4));
+    if (G <= 0) return (int)cudaErrorInvalidDevice;
+    go_count_kernel<<<(unsigned)G, kThreads, 8 * W * sizeof(uint32_t),
+                      (cudaStream_t)stream>>>(
+        (const uint32_t*)out, (const int32_t*)deg, (uint32_t*)counts,
+        (uint32_t*)state, R1, (int)(W / 4));
     return (int)cudaGetLastError();
 }
 

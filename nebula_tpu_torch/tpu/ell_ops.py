@@ -87,6 +87,7 @@ LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
 MAX_OVER = 32        # csrc kMaxOver
 MAX_BUCKETS = 32     # csrc kMaxBuckets
 MAX_COUNT_W = 1024   # csrc ell_go_count: W / 4 <= kThreads
+COUNT_STATE_WORDS = 16 * 8192 + 1  # csrc kCountReplicas * 8W, the ticket
 
 
 def reset_launches() -> None:
@@ -457,38 +458,48 @@ def lane_clear(fp: torch.Tensor, accp: torch.Tensor, keep: torch.Tensor
 
 
 # ==================================================== frontier upload
-def frontier_upload_ref(out: torch.Tensor, rows: torch.Tensor,
-                        words: torch.Tensor, vals: torch.Tensor
+def frontier_upload_ref(out: torch.Tensor, coords: torch.Tensor
                         ) -> torch.Tensor:
-    """Plain version of ``frontier_upload`` (runtime.py:3279-3283):
-    zeros, a scatter-add of the lane bits, the pad row re-zeroed."""
+    """Plain version of ``frontier_upload`` (runtime.py:3279-3283): a
+    zero frontier with each entry's lane bit set, entries off the real
+    rows or lanes skipped, a repeated entry set once.  Refuses entries
+    out of (row, lane) order, which the kernel's searches assume."""
+    R1, W = out.shape
+    rows, lanes = coords.long()
+    at = rows * (8 * W) + lanes
+    if bool((at[1:] < at[:-1]).any()):
+        raise ValueError("coords must be sorted by (row, lane)")
+    keep = (rows >= 0) & (rows < R1 - 1) & (lanes >= 0) & (lanes < 8 * W)
+    key = torch.unique(rows[keep] * (8 * W) + lanes[keep])
+    bits = torch.bitwise_left_shift(torch.ones_like(key), key & 7)
     out.zero_()
-    out.index_put_((rows.long(), words.long()), vals, accumulate=True)
-    out[out.shape[0] - 1] = 0
+    out.view(-1).index_put_((key >> 3,), bits.to(torch.uint8),
+                            accumulate=True)
     return out
 
 
-def frontier_upload(out: torch.Tensor, rows: torch.Tensor,
-                    words: torch.Tensor, vals: torch.Tensor
+def frontier_upload(out: torch.Tensor, coords: torch.Tensor
                     ) -> torch.Tensor:
     """Overwrite ``out`` uint8 [n_rows + 1, W] with a fresh packed start
-    frontier: lane bits ``vals[i]`` at (rows[i], words[i]).  Contract
-    (runtime._upload_frontier_packed's): (row, lane) pairs deduped on
-    the host, so add and or agree; padding entries aim at the pad row
-    n_rows with val 0; the pad row ends zero."""
+    frontier: lane ``coords[1, i]`` of row ``coords[0, i]`` set.
+    ``coords`` int32 [2, S] is sorted by (row, lane) (the order
+    runtime._upload_frontier_packed's dedup leaves), its lanes in
+    [0, 8W); an entry at the pad row n_rows or beyond is skipped, so the
+    pad row ends zero.  One launch on the card, which writes every byte
+    of ``out`` once and reads none."""
     R1, W = _frontier(out, "out")
     dev = out.device
-    if rows.dim() != 1:
-        raise ValueError("rows must be 1-D")
-    S = rows.shape[0]
-    _check(rows, "rows", torch.int32, (S,), dev)
-    _check(words, "words", torch.int32, (S,), dev)
-    _check(vals, "vals", torch.uint8, (S,), dev)
+    if not isinstance(coords, torch.Tensor) or coords.dim() != 2:
+        raise ValueError("coords must be an int32 [2, S] tensor")
+    S = coords.shape[1]
+    _check(coords, "coords", torch.int32, (2, S), dev)
     if not _route(dev):
-        return frontier_upload_ref(out, rows, words, vals)
-    _aligned(out)
-    rc = _lib().ell_frontier_upload(out.data_ptr(), rows.data_ptr(),
-                                    words.data_ptr(), vals.data_ptr(), S,
+        return frontier_upload_ref(out, coords)
+    if out.data_ptr() % 16:
+        raise ValueError("out must be 16-byte aligned")
+    _aligned(coords)
+    ptr = coords.data_ptr()
+    rc = _lib().ell_frontier_upload(out.data_ptr(), ptr, ptr + 4 * S, S,
                                     R1 - 1, W, _stream(dev))
     _ok(rc, "ell_frontier_upload")
     LAUNCHES["frontier_upload"] += 1
@@ -562,12 +573,29 @@ def go_count_ref(out: torch.Tensor, deg: torch.Tensor,
     return counts
 
 
+_COUNT_STATE: Dict[str, torch.Tensor] = {}
+
+
+def count_state(device: torch.device) -> torch.Tensor:
+    """The int32 [COUNT_STATE_WORDS] state of ``go_count`` on ``device``
+    (csrc ell_go_count: its blocks' replicated lane sums and its ticket):
+    zero when made, and each call leaves it zero, so calls in one
+    stream's order share it."""
+    key = str(torch.device(device))
+    t = _COUNT_STATE.get(key)
+    if t is None:
+        t = _COUNT_STATE.setdefault(key, torch.zeros(
+            COUNT_STATE_WORDS, dtype=torch.int32, device=device))
+    return t
+
+
 def go_count(out: torch.Tensor, deg: torch.Tensor, counts: torch.Tensor
              ) -> torch.Tensor:
     """Per-lane COUNT(*) of a packed frontier ``out`` uint8
     [n_rows + 1, W]: ``counts[l] = sum_r deg[r] * bit(out[r], l)`` into
     ``counts`` int32 [8W], overwritten.  ``deg`` int32 [n_rows + 1] is
-    zero at extra rows and the pad row (runtime._deg_dev)."""
+    zero at extra rows and the pad row (runtime._deg_dev).  One launch
+    on the card, on ``count_state(device)``."""
     R1, W = _frontier(out, "out")
     dev = out.device
     _check(deg, "deg", torch.int32, (R1,), dev)
@@ -579,7 +607,8 @@ def go_count(out: torch.Tensor, deg: torch.Tensor, counts: torch.Tensor
         return go_count_ref(out, deg, counts)
     _aligned(out, deg, counts)
     rc = _lib().ell_go_count(out.data_ptr(), deg.data_ptr(),
-                             counts.data_ptr(), R1, W, _stream(dev))
+                             counts.data_ptr(), count_state(dev).data_ptr(),
+                             COUNT_STATE_WORDS, R1, W, _stream(dev))
     _ok(rc, "ell_go_count")
     LAUNCHES["go_count"] += 1
     return counts

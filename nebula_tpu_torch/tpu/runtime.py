@@ -638,6 +638,19 @@ class TorchQueryRuntime:
         """A host array copied to this runtime's device."""
         return torch.from_numpy(a).to(self.device)
 
+    def _up_async(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on this runtime's device by one non-blocking
+        copy from pinned memory, which the caching host allocator keeps
+        until the copy is done: the host does not wait on the card (a
+        copy from pageable memory waits for the stream)."""
+        src = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return src.to(self.device)
+        host = torch.empty(src.shape, dtype=src.dtype,
+                           pin_memory=True).copy_(src)
+        return torch.empty_like(host, device=self.device).copy_(
+            host, non_blocking=True)
+
     def _mirror_cached(self, m: CsrMirror, attr: str, build,
                        device: Optional[torch.device] = None):
         """``build()`` cached on the mirror per device (this runtime's,
@@ -1983,28 +1996,24 @@ class TorchQueryRuntime:
                                 qcols: np.ndarray, B: int) -> torch.Tensor:
         """The packed start frontier uint8 [rows+1, B/8] built ON the
         card from the flat (new-id row, query col) coordinates
-        (runtime.py:3251).  (row, query) pairs are deduped HERE, so two
-        bits never collide in one cell and the kernel's add is an or;
-        the list pads to a power of two of at least 8 entries aimed at
-        the pad row, which ends zero."""
-        if len(new_ids):
-            key = np.asarray(new_ids, np.int64) * max(B, 1) \
-                + np.asarray(qcols, np.int64)
-            _, first = np.unique(key, return_index=True)
-            new_ids = np.asarray(new_ids)[first]
-            qcols = np.asarray(qcols)[first]
-        S = len(new_ids)
-        Sp = max(8, 1 << (max(S, 1) - 1).bit_length())
-        rows_p = np.full(Sp, ix.n_rows, np.int32)
-        word_p = np.zeros(Sp, np.int32)
-        vals_p = np.zeros(Sp, np.uint8)
-        rows_p[:S] = new_ids
-        word_p[:S] = qcols >> 3
-        vals_p[:S] = np.uint8(1) << (qcols & 7).astype(np.uint8)
+        (runtime.py:3251).  (row, query) pairs are deduped HERE, as the
+        reference does, and the dedup leaves them sorted by row and
+        lane, the order the kernel takes; they travel as one int32
+        [2, S] array (``_up_async``), so nothing here waits on the
+        card."""
         out = torch.empty((ix.n_rows + 1, lanes_width(B)), dtype=torch.uint8,
                           device=self.device)
-        return ell_ops.frontier_upload(out, self._up(rows_p),
-                                       self._up(word_p), self._up(vals_p))
+        return ell_ops.frontier_upload(out, self._up_async(
+            self._packed_coords(new_ids, qcols, B)))
+
+    @staticmethod
+    def _packed_coords(new_ids: np.ndarray, qcols: np.ndarray,
+                       B: int) -> np.ndarray:
+        """The deduped (row, lane) pairs, sorted, as int32 [2, S]."""
+        Bk = max(B, 1)
+        key = np.unique(np.asarray(new_ids, np.int64) * Bk
+                        + np.asarray(qcols, np.int64))
+        return np.stack(np.divmod(key, Bk)).astype(np.int32)
 
     # ================================================== FIND PATH
     @staticmethod

@@ -257,7 +257,7 @@ def _kernel_calls(tix):
         "adaptive_go": (lanes, lambda: ell_ops.adaptive_go(
             ids[:2], hub, tables, eslot, hrows, (1,), 3)),
         "frontier_upload": (f, lambda: ell_ops.frontier_upload(
-            f, i32, i32, torch.zeros(8, dtype=torch.uint8))),
+            f, torch.zeros((2, 8), dtype=torch.int32))),
         "go_count": (f, lambda: ell_ops.go_count(
             f, torch.zeros(R1, dtype=torch.int32),
             torch.zeros(128, dtype=torch.int32))),
@@ -299,10 +299,8 @@ def test_new_wrappers_reject_bad_operands(ells):
     _jix, tix, _port, _ref = ells
     R1 = tix.n_rows + 1
     f = torch.zeros((R1, 16), dtype=torch.uint8)
-    with pytest.raises(TypeError):       # rows must be int32
-        ell_ops.frontier_upload(f, torch.zeros(8, dtype=torch.int64),
-                                torch.zeros(8, dtype=torch.int32),
-                                torch.zeros(8, dtype=torch.uint8))
+    with pytest.raises(TypeError):       # coords must be int32
+        ell_ops.frontier_upload(f, torch.zeros((2, 8), dtype=torch.int64))
     with pytest.raises(ValueError):      # counts has 8W lanes
         ell_ops.go_count(f, torch.zeros(R1, dtype=torch.int32),
                          torch.zeros(64, dtype=torch.int32))
