@@ -67,13 +67,20 @@ Phases, in order; any failure exits non-zero:
              chunk, the cap inside a chunk and on a chunk's edge, and
              50 calls on one look-back state;
              then the edge-list kernels on the graph's
-             edge arrays and generated columns: ``edge_hop`` (with
-             ``scatter_reduce_`` amax as its library yardstick),
-             ``edge_final``, ``edge_seed``, ``expr_filter`` for each
+             edge arrays and generated columns: K8 ``edge_hop``, the
+             walk over the CSR rows, on a 2 %-dense frontier (with
+             ``scatter_reduce_`` amax as its library yardstick), one
+             start as a bitmap and as a start list, every vertex and
+             the 16 longest rows (device and event times, a memset
+             and one kernel a call by capture), ``edge_final``,
+             ``edge_seed`` from 1 and 256 starts (one launch a call),
+             ``expr_filter`` for each
              predicate of phase 8's family in each of its modes,
              ``edge_bfs_level``, the programs ``go`` and
-             ``go_filtered`` at 1-3 steps from 1 and 256 starts
-             (``go_filtered`` launching no ``expr_filter``: its WHERE
+             ``go_filtered`` at 1-3 steps from 1 and 256 starts (at 3
+             steps 5 launches in 3 C calls by capture: no start
+             bitmap, the first hop reads the start list;
+             ``go_filtered`` launching no ``expr_filter``: its WHERE
              runs in its final pass ``edge_final_where``, which is held
              per predicate-mode to its plain version and to K9 over
              K10's whole mask), and ``bfs`` on a connected and an
@@ -127,6 +134,8 @@ Phases, in order; any failure exits non-zero:
              ``shard_absorb`` on the absorb plans (gathered shards equal
              to ``ell_absorb``'s tables, inputs unchanged),
              ``sharded_go`` and ``or_into`` against the ``go`` program,
+             its hop ``edge_scan_hop`` (the scan over a shard's slice)
+             against its plain version,
              all exactly, and ``mesh.psum_or`` (receive slabs, one ``or_many`` a
              shard) at 2^19 bytes and 8 against the pairwise
              composition of ``or_into`` calls it replaced and the same
@@ -326,6 +335,7 @@ REPLACES = {
     "ell_bfs_sharded": "nebula_tpu/tpu/ell.py:1799",
     "ell_absorb_sharded": "nebula_tpu/tpu/ell.py:1036",
     "sharded_go": "nebula_tpu/tpu/kernels.py:364",
+    "edge_scan_hop": "nebula_tpu/tpu/kernels.py:380",
     "mesh_route": "nebula_tpu/tpu/ell.py:1970",
     "mesh_mark": "nebula_tpu/tpu/ell.py:2019",
     "mesh_bfs_stamp": "nebula_tpu/tpu/ell.py:2279",
@@ -360,7 +370,8 @@ SOURCES["ell_bfs_i8"] += " + ell_lanes.cu"
 SOURCES["go_hop_i8"] += " + hop_plan.cuh"
 MESH_KERNELS = ("shard_hop", "hop_merge", "replicate_rows", "shard_absorb",
                 "or_into", "ell_go_sharded", "ell_bfs_sharded",
-                "ell_absorb_sharded", "sharded_go", "mesh_hop", "mesh_level")
+                "ell_absorb_sharded", "sharded_go", "mesh_hop", "mesh_level",
+                "edge_scan_hop")
 SOURCES.update({
     "shard_hop": "nebula_tpu_torch/tpu/csrc/ell_lanes.cu + hop_plan.cuh",
     "replicate_rows": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu",
@@ -377,7 +388,8 @@ SOURCES.update({
                        "ell_lanes.cu",
     "ell_absorb_sharded": "nebula_tpu_torch/tpu/csrc/ell_mesh.cu + "
                           "ell_absorb.cu",
-    "sharded_go": "nebula_tpu_torch/tpu/csrc/edge_go.cu + ell_lanes.cu"})
+    "sharded_go": "nebula_tpu_torch/tpu/csrc/edge_go.cu + ell_lanes.cu",
+    "edge_scan_hop": "nebula_tpu_torch/tpu/csrc/edge_go.cu"})
 MESH_SPARSE_KERNELS = ("mesh_route", "mesh_mark", "mesh_bfs_stamp",
                        "mesh_sparse_go", "mesh_sparse_bfs", "mesh_dedup",
                        "mesh_agree", "mesh_emit")
@@ -396,11 +408,11 @@ SOURCES.update({
 # _execute_fused never takes; bfs has only its registry entry; the
 # reference runtime never calls make_sharded_go_kernel), K9 without the
 # WHERE (only go and sharded_go run it), expr_filter (registry and
-# smoke only: go_filtered evaluates the WHERE in its final pass), and
+# smoke only: go_filtered evaluates the WHERE in its final pass),
 # or_into, which only sharded_go and shards on separate cards (psum_or)
-# run
+# run, and edge_scan_hop, sharded_go's hop
 NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go", "or_into",
-                   "expr_filter", "edge_final")
+                   "expr_filter", "edge_final", "edge_scan_hop")
 EDGE_KERNELS = ("edge_seed", "edge_hop", "edge_final", "edge_final_where",
                 "expr_filter", "edge_bfs_level", "go", "go_filtered", "bfs")
 # which counted phase runs each kernel on its main path
@@ -3166,6 +3178,19 @@ def edge_pass_bytes(torch, edge_ops, f, src, et, over, kind: str) -> int:
     return nb + M + (passing if kind == "final_mask" else 0)
 
 
+def walk_bytes(torch, edge_ops, f, rp, et, over, n: int) -> int:
+    """The bytes K8's walk over the CSR rows must move on this run's
+    data: the frontier f (n bytes) or the start list (4 bytes an id),
+    row_ptr at each live source (v and v + 1), etype on each edge of a
+    live source, dst on each of those that passes OVER, and the n-byte
+    next frontier."""
+    v = edge_ops.live_sources(f, n)
+    e = edge_ops.row_edges(rp, v)
+    passing = int(edge_ops._etype_ok(et[e], over).sum())
+    first = n if f.dtype == torch.bool else 4 * f.numel()
+    return first + 8 * v.numel() + 4 * e.numel() + 4 * passing + n
+
+
 def _live_slot_bytes(prog, live: int) -> int:
     """The bytes the fused final pass must move for the WHERE: each used
     column's value for each kept edge (a vertex column gathered at the
@@ -3245,12 +3270,47 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
         if not torch.equal(a, b_):
             raise AssertionError(f"{name} != its plain version")
 
-    # ---- K8 edge_hop: a frontier with about 2% of the vertices set
+    # ---- K8 edge_hop, the walk over the CSR rows, on four frontiers:
+    # about 2 % of the vertices set (the headline row), one start (as a
+    # bitmap and as the start list a program's first hop takes), every
+    # vertex, the 16 longest rows
+    rp = csr["row_ptr"]
+    rows_h = np.diff(m.row_ptr)
+    one = int(rng.choice(np.nonzero(rows_h > 0)[0]))
     f = torch.from_numpy(rng.random(n) < 0.02).to(dev)
-    ok_, orf = torch.empty_like(f), torch.empty_like(f)
-    edge_ops.edge_hop(f, ok_, src, dst, et, over)
-    edge_ops.edge_hop_ref(f, orf, src, dst, et, over)
-    same("edge_hop", ok_, orf)
+    fronts = {"dense2": f, "start": torch.zeros(n, dtype=b, device=dev),
+              "all": torch.ones(n, dtype=b, device=dev),
+              "hubs16": torch.zeros(n, dtype=b, device=dev)}
+    fronts["start"][one] = True
+    fronts["hubs16"][torch.from_numpy(
+        np.argsort(rows_h, kind="stable")[-16:]).to(dev)] = True
+    one_h = np.full(8, -1, np.int32)
+    one_h[0] = one
+    fronts["start_list"] = torch.from_numpy(one_h).to(dev)
+    ok_, orf = (torch.empty(n, dtype=b, device=dev) for _ in range(2))
+    hop_rows = {}
+    for label, fl in fronts.items():
+        edge_ops.edge_hop(fl, ok_, src, dst, et, rp, over)
+        edge_ops.edge_hop_ref(fl, orf, src, dst, et, rp, over)
+        same(f"edge_hop {label}", ok_, orf)
+
+        def hop(fl=fl):
+            edge_ops.edge_hop(fl, ok_, src, dst, et, rp, over)
+        hop_rows[label] = dict(
+            ms=queued_ms(torch, hop, 8), event_ms=cuda_ms(torch, hop, 20),
+            bound_ms=bytes_ms(walk_bytes(torch, edge_ops, fl, rp, et, over,
+                                         n)),
+            scan_bound_ms=bytes_ms(edge_pass_bytes(
+                torch, edge_ops, fl if fl.dtype == b else fronts["start"],
+                src, et, over, "hop")),
+            live=int(edge_ops.live_sources(fl, n).numel()),
+            reached=int(ok_.sum()))
+        hop_rows[label].update(launches_a_call(torch, edge_ops, hop))
+        if hop_rows[label]["launches_a_call"] != 2:
+            raise AssertionError(f"edge_hop {label}: "
+                                 f"{hop_rows[label]['launch_kinds']}, not a "
+                                 f"memset and one kernel")
+    edge_ops.edge_hop(f, ok_, src, dst, et, rp, over)
     active = (f[src.long()] & (et == 1)).to(torch.uint8)
     dst64 = dst.long()
     out8 = torch.zeros(n, dtype=torch.uint8, device=dev)
@@ -3258,16 +3318,15 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
     def lib_hop():
         out8.zero_()
         out8.scatter_reduce_(0, dst64, active, "amax")
+    head = hop_rows["dense2"]
     rows["edge_hop"] = dict(
-        max_abs_err=0,
-        ms=cuda_ms(torch, lambda: edge_ops.edge_hop(f, ok_, src, dst, et,
-                                                    over), 20),
+        max_abs_err=0, ms=head["ms"],
         plain_ms=cuda_ms(torch, lambda: edge_ops.edge_hop_ref(
-            f, orf, src, dst, et, over), 3, 1),
-        bound_ms=bytes_ms(edge_pass_bytes(torch, edge_ops, f, src, et,
-                                          over, "hop")), bound_by="bytes",
-        library_ms=cuda_ms(torch, lib_hop, 20),
-        frontier=int(f.sum()), reached=int(ok_.sum()))
+            f, orf, src, dst, et, rp, over), 3, 1),
+        bound_ms=head["bound_ms"], bound_by="bytes",
+        library_ms=queued_ms(torch, lib_hop, 8),
+        library_event_ms=cuda_ms(torch, lib_hop, 20),
+        headline="the 2 %-dense frontier", frontiers=hop_rows)
     same("scatter_reduce_ (the library yardstick)", out8.bool(), ok_)
 
     # ---- K9 edge_final, without and with a WHERE mask
@@ -3291,20 +3350,35 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
         bound_ms_no_mask=bytes_ms(edge_pass_bytes(torch, edge_ops, f, src,
                                                   et, over, "final")))
 
-    # ---- edge_seed: 256 starts (-1 padded to 512)
-    idx_h = np.full(512, -1, np.int32)
-    idx_h[:256] = rng.integers(0, n, 256)
-    idx = torch.from_numpy(idx_h).to(dev)
+    # ---- edge_seed: 1 and 256 starts (-1 padded to 8 and 512), one
+    # launch a call
+    seeds = {}
     sk, sr = (torch.empty(n, dtype=b, device=dev) for _ in range(2))
-    edge_ops.edge_seed(sk, idx)
-    edge_ops.edge_seed_ref(sr, idx)
-    same("edge_seed", sk, sr)
-    rows["edge_seed"] = dict(
-        max_abs_err=0,
-        ms=cuda_ms(torch, lambda: edge_ops.edge_seed(sk, idx), 20),
-        plain_ms=cuda_ms(torch, lambda: edge_ops.edge_seed_ref(sr, idx),
-                         5, 1),
-        bound_ms=bytes_ms(n + 4 * 512), bound_by="bytes", library_ms=None)
+    for S in (1, 256):
+        idx_h = np.full(max(8, 2 * S), -1, np.int32)
+        idx_h[:S] = rng.integers(0, n, S)
+        idx = torch.from_numpy(idx_h).to(dev)
+        edge_ops.edge_seed(sk, idx)
+        edge_ops.edge_seed_ref(sr, idx)
+        same(f"edge_seed S={S}", sk, sr)
+
+        def seed(idx=idx):
+            edge_ops.edge_seed(sk, idx)
+        seeds[S] = dict(
+            max_abs_err=0, ms=queued_ms(torch, seed, 8),
+            event_ms=cuda_ms(torch, seed, 20),
+            plain_ms=cuda_ms(torch, lambda: edge_ops.edge_seed_ref(sr, idx),
+                             5, 1),
+            bound_ms=bytes_ms(n + 4 * idx_h.size), bound_by="bytes",
+            library_ms=None, starts=S)
+        seeds[S].update(launches_a_call(torch, edge_ops, seed))
+        if seeds[S]["launches_a_call"] != 1:
+            raise AssertionError(f"edge_seed S={S}: "
+                                 f"{seeds[S]['launch_kinds']}, not one "
+                                 f"launch")
+    rows["edge_seed"] = dict(seeds[1], s256=seeds[256],
+                             library_none="none: zeros then an index fill, "
+                                          "two calls")
 
     # ---- K10 expr_filter: every predicate of the family in its modes
     alias = {"e": 1}
@@ -3342,7 +3416,7 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
     d = torch.empty(n, dtype=torch.int32, device=dev)
     tk = torch.from_numpy(rng.random(n) < 0.001).to(dev)
     reached = torch.empty_like(f)
-    edge_ops.edge_hop(f, reached, src, dst, et, over)
+    edge_ops.edge_hop(f, reached, src, dst, et, rp, over)
     d0 = torch.empty_like(d)
     fl = torch.zeros(2, dtype=torch.int32, device=dev)
     edge_ops.edge_bfs_level(f.clone(), d0, tk, fl, 0, True, True)
@@ -3388,49 +3462,55 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
                 kern = getattr(edge_ops, name)
                 ref = getattr(edge_ops, name + "_ref")
                 k10 = edge_ops.LAUNCHES["expr_filter"]
-                out = kern(src, dst, et, st, n, steps, over, *extra)
+                out = kern(src, dst, et, rp, st, n, steps, over, *extra)
                 if edge_ops.LAUNCHES["expr_filter"] != k10:
                     raise AssertionError(f"{name} launched expr_filter")
                 (want, plain) = timed(torch, lambda: ref(
-                    src, dst, et, st, n, steps, over, *extra))
+                    src, dst, et, rp, st, n, steps, over, *extra))
                 for a, c in zip(out, want):
                     same(f"{name} S={S} steps={steps}", a, c)
-                # this run's data: each hop's and the final pass's bytes
-                # from the frontier it starts from (go_ref's frontier
-                # after h hops), the fused pass's WHERE columns on the
-                # kept edges only
+                # this run's data: the start bitmap at one step, else each
+                # hop's walk from the list or frontier it starts from
+                # (go_ref's frontier after h hops), the final pass's bytes,
+                # the fused pass's WHERE columns on the kept edges only
                 live = int(edge_ops.edge_final_ref(
                     out[1], src, et, over, None,
                     torch.empty(M, dtype=b, device=dev)).sum())
-                nb = n + 4 * st.numel() + edge_pass_bytes(
-                    torch, edge_ops, out[1], src, et, over, "final") \
-                    + sum(edge_pass_bytes(
-                        torch, edge_ops, edge_ops.go_ref(
-                            src, dst, et, st, n, h + 1, over)[1], src, et,
-                        over, "hop") for h in range(steps - 1)) \
+                hops = [st] + [edge_ops.go_ref(src, dst, et, rp, st, n,
+                                               h + 1, over)[1]
+                               for h in range(1, steps - 1)]
+                nb = (n + 4 * st.numel() if steps == 1 else 0) \
+                    + edge_pass_bytes(torch, edge_ops, out[1], src, et,
+                                      over, "final") \
+                    + sum(walk_bytes(torch, edge_ops, fh, rp, et, over, n)
+                          for fh in hops[:steps - 1]) \
                     + (_live_slot_bytes(prog3, live) if extra else 0)
 
                 def call():
-                    return kern(src, dst, et, st, n, steps, over, *extra)
+                    return kern(src, dst, et, rp, st, n, steps, over,
+                                *extra)
                 runs[f"{name}_S{S}_s{steps}"] = dict(
                     name=name, max_abs_err=0, ms=queued_ms(torch, call, 10),
                     event_ms=cuda_ms(torch, call, 10),
                     plain_ms=plain, bound_ms=bytes_ms(nb), bound_by="bytes",
                     library_ms=None, starts=S, steps=steps, live_edges=live,
                     kept=int(out[0].sum()))
-                if steps == 3 and name == "go_filtered":
-                    # edge_seed and each hop: a memset and a kernel; the
-                    # final pass one kernel; no expr_filter
+                if steps == 3:
+                    # no start bitmap: each hop a memset and a kernel, the
+                    # first from the start list; the final pass one
+                    # kernel; no expr_filter
                     row = launches_a_call(torch, edge_ops, call)
-                    if row["launches_a_call"] != 2 * steps + 1 \
-                            or row["c_calls_a_call"] != steps + 1:
+                    want_l, want_c = 2 * (steps - 1) + 1, steps
+                    if row["launches_a_call"] != want_l \
+                            or row["c_calls_a_call"] != want_c:
                         raise AssertionError(
-                            f"go_filtered S={S}: {row['launches_a_call']} "
+                            f"{name} S={S}: {row['launches_a_call']} "
                             f"launches in {row['c_calls_a_call']} C calls, "
-                            f"not {2 * steps + 1} in {steps + 1} "
+                            f"not {want_l} in {want_c} "
                             f"({row['launch_kinds']})")
                     runs[f"{name}_S{S}_s{steps}"].update(row)
-                    finals[S] = out[1].clone()
+                    if name == "go_filtered":
+                        finals[S] = out[1].clone()
 
     # ---- go_filtered's final pass on the 3-step frontiers, every
     # predicate-mode: the WHERE run on the kept edges only
@@ -3497,9 +3577,9 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
             [m.to_dense([a])[0]] + [-1] * 7, np.int32)).to(dev)
         ta = torch.from_numpy(np.asarray(
             [m.to_dense([t])[0]] + [-1] * 7, np.int32)).to(dev)
-        got, levels = edge_ops.bfs(src, dst, et, sa, ta, n, 5, over)
+        got, levels = edge_ops.bfs(src, dst, et, rp, sa, ta, n, 5, over)
         (want, wl), plain = timed(torch, lambda: edge_ops.bfs_ref(
-            src, dst, et, sa, ta, n, 5, over))
+            src, dst, et, rp, sa, ta, n, 5, over))
         same(f"bfs {label}", got, want)
         if levels != wl:
             raise AssertionError(f"bfs {label}: {levels} levels, the plain "
@@ -3510,12 +3590,18 @@ def edge_kernel_phase(torch, edge_ops, rt, m, oracle: GoOracle,
             raise AssertionError(f"bfs connected depth {dt} != {want_d}")
         if label == "unreachable" and dt != edge_ops.INT32_INF:
             raise AssertionError("bfs reached an unreachable target")
-        nb = 2 * n + levels * (12 * M + 2 * n + 11 * n) + 9 * n
+        # the seeds and first level, then each level's walk from the
+        # vertices at that depth and its level pass
+        nb = 2 * n + 9 * n + sum(
+            walk_bytes(torch, edge_ops, got == lv, rp, et, over, n) + 11 * n
+            for lv in range(levels))
         runs[f"bfs_{label}"] = dict(
             name="bfs", max_abs_err=0,
-            ms=cuda_ms(torch, lambda: edge_ops.bfs(src, dst, et, sa, ta, n,
-                                                   5, over), 5, 1),
+            ms=cuda_ms(torch, lambda: edge_ops.bfs(src, dst, et, rp, sa, ta,
+                                                   n, 5, over), 5, 1),
             plain_ms=plain, bound_ms=bytes_ms(nb), bound_by="bytes",
+            scan_bound_ms=bytes_ms(2 * n + levels * (12 * M + 13 * n)
+                                   + 9 * n),
             library_ms=None, levels=levels, target_depth=dt)
     rows["go"] = dict(runs["go_S1_s3"])
     rows["go_filtered"] = dict(runs["go_filtered_S1_s3"])
@@ -5042,6 +5128,7 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
                                                        et_h)
     up = lambda a: torch.from_numpy(a).to(dev)      # noqa: E731
     e_src, e_dst, e_et = up(src_h), up(dst_h), up(et_h)
+    e_rp = up(m.row_ptr.astype(np.int32))
     n = m.n
     for S in (1, 256):
         idx_h = rng.integers(0, n, S).astype(np.int32)
@@ -5052,7 +5139,7 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
                                       over, mesh)
         fin_r, fr_r = edge_ops.sharded_go_ref(src_sh, dst_sh, et_sh, f0b, n,
                                               3, over, mesh)
-        gm, gf = edge_ops.go(e_src, e_dst, e_et, idx, n, 3, over)
+        gm, gf = edge_ops.go(e_src, e_dst, e_et, e_rp, idx, n, 3, over)
         require_equal(torch, f"sharded_go k={k} S={S}", 0,
                       (torch.cat(fin), torch.cat(fin_r)),
                       (torch.cat(fin)[:m.m], gm),
@@ -5061,8 +5148,8 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         src_sh, dst_sh, et_sh, f0b, n, 3, over, mesh), 10)
     sg_plain = cuda_ms(torch, lambda: edge_ops.sharded_go_ref(
         src_sh, dst_sh, et_sh, f0b, n, 3, over, mesh), 3, warmup=1)
-    go1_ms = cuda_ms(torch, lambda: edge_ops.go(e_src, e_dst, e_et, idx, n,
-                                                3, over), 10)
+    go1_ms = cuda_ms(torch, lambda: edge_ops.go(e_src, e_dst, e_et, e_rp,
+                                                idx, n, 3, over), 10)
     sg_bytes = 2 * (12 * size + 3 * k * n + 2 * k * (k - 1) * n) \
         + 9 * size + k * n
     res["sharded_go"] = dict(
@@ -5070,6 +5157,28 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
         bound_ms=bytes_ms(sg_bytes), bound_by="bytes", library_ms=None,
         library_none="none: a multi-kernel program", k=k, steps=3,
         starts=256, single_card_go_ms=go1_ms)
+
+    # ---- edge_scan_hop (sharded_go's hop) on shard 0's slice, from the
+    # 2-step frontier of the 256 starts
+    f2 = edge_ops.go(e_src, e_dst, e_et, e_rp, idx, n, 2, over)[1]
+    sk, sr = (torch.empty(n, dtype=torch.bool, device=dev)
+              for _ in range(2))
+    edge_ops.edge_scan_hop(f2, sk, src_sh[0], dst_sh[0], et_sh[0], over)
+    edge_ops.edge_scan_hop_ref(f2, sr, src_sh[0], dst_sh[0], et_sh[0], over)
+    require_equal(torch, f"edge_scan_hop k={k}", 0, (sk, sr))
+
+    def scan():
+        edge_ops.edge_scan_hop(f2, sk, src_sh[0], dst_sh[0], et_sh[0], over)
+    res["edge_scan_hop"] = dict(
+        max_abs_err=0, ms=queued_ms(torch, scan, 8),
+        event_ms=cuda_ms(torch, scan, 20),
+        plain_ms=cuda_ms(torch, lambda: edge_ops.edge_scan_hop_ref(
+            f2, sr, src_sh[0], dst_sh[0], et_sh[0], over), 3, 1),
+        bound_ms=bytes_ms(edge_pass_bytes(torch, edge_ops, f2, src_sh[0],
+                                          et_sh[0], over, "hop")),
+        bound_by="bytes", library_ms=None,
+        library_none="none: scatter_reduce_ needs the active mask first",
+        k=k, slice_edges=int(src_sh[0].numel()), frontier=int(f2.sum()))
 
     # ---- or_into (or_many's one-source call) on two [n] bitmaps
     n4 = -(-n // 4) * 4

@@ -81,8 +81,12 @@ checkout's own form and the runtime's whole ``_upload_frontier_packed``
 or traced where the call cannot be captured); K2 (``go_count``) on the
 3-step frontier, an all-ones one and a random one a quarter dense,
 the last also with deg up to 2^17 (``upload_rows``, ``count_rows``).
+K8 (``edge_hop``) on a 2 %-dense frontier, one start (as a bitmap and,
+where the checkout's hop takes it, as the start list), every vertex
+and the 16 longest rows, and ``edge_seed`` with 1 and 256 starts:
+device and event times, launches a call by capture (``edge_rows``).
 ``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
-and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``int8``,
+and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``edge``, ``int8``,
 ``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``, ``bfs``, ``upload``,
 ``count``.
 Prints the card's name and power limit, then one JSON line.  Needs a
@@ -119,7 +123,7 @@ PROGRAM_CALLS = 10             # back-to-back calls of a timed program
 BFS_CALLS = 3                  # back-to-back calls of a timed BFS
 MESH_QUEUED = 4                # mesh_sparse_go calls queued behind a spin
 MESH_SPIN = 16 * SPIN_CYCLES   # about 64 ms: four calls' host enqueue
-ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "int8", "mesh",
+ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "edge", "int8", "mesh",
               "mesh_sparse", "k5", "bfs_pair", "bfs", "upload", "count")
 SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
 LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
@@ -877,18 +881,20 @@ def fused_rows(torch, edge_ops, rt, m, rng, dev):
     env = rt._env_cols(m, {"e": 1}, plan.filter_used, True)
     slots = [env[k] for k, _kind, _t in prog.slots]
     csr = rt._device_csr(m)
-    src, dst, et = csr["edge_src"], csr["edge_dst"], csr["edge_etype"]
+    # the edges as the checkout's programs take them: with their row
+    # index where the hop walks the CSR rows (edge_ops.edge_scan_hop)
+    edges = (csr["edge_src"], csr["edge_dst"], csr["edge_etype"]) + (
+        (csr["row_ptr"],) if hasattr(edge_ops, "edge_scan_hop") else ())
+    src, dst = edges[:2]
     deg = np.bincount(m.edge_src[m.edge_etype == 1], minlength=m.n)[:m.n]
     st_h = np.full(8, -1, np.int32)
     st_h[0] = int(rng.choice(np.nonzero(deg > 0)[0]))
     st = torch.from_numpy(st_h).to(dev)
 
     def go():
-        return edge_ops.go_filtered(src, dst, et, st, m.n, 3, (1,), prog,
-                                    slots)
+        return edge_ops.go_filtered(*edges, st, m.n, 3, (1,), prog, slots)
     got = go()
-    want = edge_ops.go_filtered_ref(src, dst, et, st, m.n, 3, (1,), prog,
-                                    slots)
+    want = edge_ops.go_filtered_ref(*edges, st, m.n, 3, (1,), prog, slots)
     _equal(torch, "go_filtered", *zip(got, want))
     k10 = edge_ops.LAUNCHES["expr_filter"]
     go()
@@ -914,6 +920,73 @@ def fused_rows(torch, edge_ops, rt, m, rng, dev):
         kept=int(got[0].sum()),
         expr_filter_launches=k10,
         **counts(torch, edge_ops, go))}
+
+
+def edge_rows(torch, edge_ops, rt, m, rng, dev):
+    """K8 (``edge_hop``) on four frontiers of the serve graph: 2 % of
+    the vertices set (``chip_smoke.py``'s), one start, every vertex,
+    the 16 vertices with the longest rows; ``edge_seed`` with 1 and 256
+    starts.  Each held equal to its plain version, with its device
+    time, event time and launches a call by capture, in the checkout's
+    own form: where ``edge_ops.edge_scan_hop`` exists, K8 walks the
+    mirror's CSR rows (``row_ptr`` on the card) and also takes the
+    start list itself (the ``start_list`` row); before, it scans every
+    edge."""
+    import numpy as np
+    csr = rt._device_csr(m)
+    src, dst, et = csr["edge_src"], csr["edge_dst"], csr["edge_etype"]
+    walk = hasattr(edge_ops, "edge_scan_hop")
+    n, over = m.n, (1,)
+    rows = np.diff(m.row_ptr)
+    hubs = np.argsort(rows, kind="stable")[-16:]
+    start = int(rng.choice(np.nonzero(rows > 0)[0]))
+    frontiers = {"dense2": torch.from_numpy(rng.random(n) < 0.02),
+                 "start": torch.zeros(n, dtype=torch.bool),
+                 "all": torch.ones(n, dtype=torch.bool),
+                 "hubs16": torch.zeros(n, dtype=torch.bool)}
+    frontiers["start"][start] = True
+    frontiers["hubs16"][torch.from_numpy(hubs)] = True
+    ids = np.full(8, -1, np.int32)
+    ids[0] = start
+    forms = {k: f.to(dev) for k, f in frontiers.items()}
+    if walk:
+        forms["start_list"] = torch.from_numpy(ids).to(dev)
+        lead = (src, dst, et, csr["row_ptr"])
+    else:
+        lead = (src, dst, et)
+    res = {}
+    for label, f in forms.items():
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        want = torch.empty_like(out)
+        edge_ops.edge_hop(f, out, *lead, over)
+        edge_ops.edge_hop_ref(f, want, *lead, over)
+        _equal(torch, f"edge_hop {label}", (out, want))
+
+        def hop():
+            edge_ops.edge_hop(f, out, *lead, over)
+        live = frontiers.get(label, frontiers["start"]).numpy()
+        res[f"edge_hop_{label}"] = dict(
+            ms=queued_ms(torch, hop, QUEUED),
+            event_ms=cuda_ms(torch, hop, BACK_TO_BACK),
+            live=int(live.sum()), live_edges=int(rows[live].sum()),
+            reached=int(out.sum()), **counts(torch, edge_ops, hop))
+    for S in (1, 256):
+        idx_h = np.full(max(8, 1 << (S - 1).bit_length()), -1, np.int32)
+        idx_h[:S] = rng.integers(0, n, S)
+        idx = torch.from_numpy(idx_h).to(dev)
+        sk = torch.empty(n, dtype=torch.bool, device=dev)
+        sr = torch.empty_like(sk)
+        edge_ops.edge_seed(sk, idx)
+        edge_ops.edge_seed_ref(sr, idx)
+        _equal(torch, f"edge_seed S={S}", (sk, sr))
+
+        def seed():
+            edge_ops.edge_seed(sk, idx)
+        res[f"edge_seed_s{S}"] = dict(
+            ms=queued_ms(torch, seed, QUEUED),
+            event_ms=cuda_ms(torch, seed, BACK_TO_BACK),
+            **counts(torch, edge_ops, seed))
+    return res
 
 
 def _launches(torch, ell_ops, fn) -> dict:
@@ -1081,6 +1154,7 @@ def main(argv=None) -> int:
         ("sparse", lambda: sparse_rows(torch, ell_ops, rt, m, ix, tables,
                                        over, rng, dev)),
         ("fused", lambda: fused_rows(torch, edge_ops, rt, m, rng, dev)),
+        ("edge", lambda: edge_rows(torch, edge_ops, rt, m, rng, dev)),
         ("int8", lambda: int8_rows(torch, ell_ops, ix, tables, eslot, hrows,
                                    over, rng, dev)),
         ("mesh", lambda: mesh_rows(torch, ell_ops, ix, tables, eslot, hrows,

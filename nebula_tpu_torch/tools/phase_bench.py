@@ -1,6 +1,7 @@
 """Run ``chip_smoke.py``'s end-to-end phases [serve], [windowed],
-[sparse], [adaptive], [path] and [mesh] on one checkout of the port, so that
-two checkouts can be held side by side in one run on one card.
+[sparse], [adaptive], [fused], [path] and [mesh] on one checkout of the
+port, so that two checkouts can be held side by side in one run on one
+card.
 
     python3 nebula_tpu_torch/tools/phase_bench.py [--tree DIR]
                                                   [--phases LIST]
@@ -10,7 +11,9 @@ Run it as a script.  The phases are the functions of this checkout's
 (``powerlaw_graph(2^19, 2^22, 2.2, 20000, 0)`` with the [fused]
 columns), 4096 GO requests from 64 threads through the continuous
 dispatcher and then the windowed one, the same mix on the sparse
-route, 256 adaptive single-start requests, 512 FIND SHORTEST PATH
+route, 256 adaptive single-start requests, 512 ``GO 1-3 STEPS ... WHERE
+P YIELD e._dst, e.w`` from 16 threads on the fused route (its 64 checked
+answers against ``FusedOracle``), 512 FIND SHORTEST PATH
 requests from 16 threads, and the dense mesh of 4 shards on the card
 (1024 GO requests from 64 threads, then 128 FIND SHORTEST PATH from
 16, then its write part); each checks its answers against the oracle
@@ -35,9 +38,10 @@ import subprocess
 import sys
 import time
 
-PHASES = ("serve", "windowed", "sparse", "adaptive", "path", "mesh")
+PHASES = ("serve", "windowed", "sparse", "adaptive", "fused", "path", "mesh")
 REQUESTS, THREADS, SEED = 4096, 64, 0          # chip_smoke.py's defaults
 ADAPTIVE_REQUESTS = 256
+FUSED_REQUESTS, FUSED_THREADS = 512, 16
 PATH_REQUESTS, PATH_THREADS = 512, 16
 MESH_REQUESTS, MESH_PATH_REQUESTS = 1024, 128
 VERTICES, EDGES = 1 << 19, 1 << 22
@@ -66,7 +70,7 @@ def main(argv=None) -> int:
     spec.loader.exec_module(smoke)
     from nebula_tpu_torch.common.flags import flags
     from nebula_tpu_torch.meta.schema import SchemaView
-    from nebula_tpu_torch.tpu import _build, ell_ops
+    from nebula_tpu_torch.tpu import _build, edge_ops, ell_ops
     from nebula_tpu_torch.tpu.csr import mirror_from_edges
     from nebula_tpu_torch.tpu.runtime import TorchQueryRuntime
     from nebula_tpu_torch.tools.graphgen import powerlaw_graph
@@ -80,8 +84,8 @@ def main(argv=None) -> int:
     res = dict(tree=os.path.abspath(args.tree), card=smi,
                build_s=time.perf_counter() - t0)
     src, dst = powerlaw_graph(VERTICES, EDGES, 2.2, 20000, SEED)
-    edge_props, vertex_props, _raw = smoke.fused_columns(src, dst, VERTICES,
-                                                         SEED)
+    edge_props, vertex_props, raw = smoke.fused_columns(src, dst, VERTICES,
+                                                        SEED)
     m = mirror_from_edges(src, dst, 1, space_id=1, edge_props=edge_props,
                           vertex_props=vertex_props)
     rt = TorchQueryRuntime()
@@ -103,6 +107,11 @@ def main(argv=None) -> int:
             "adaptive": lambda: smoke.adaptive_phase(
                 torch, rt, ell_ops, flags, oracle, VERTICES,
                 ADAPTIVE_REQUESTS, SEED),
+            "fused": lambda: smoke.fused_phase(
+                torch, rt, edge_ops, smoke.FusedOracle(oracle, src, dst, raw,
+                                                       VERTICES),
+                smoke.fused_request_blobs(smoke.fused_predicates(VERTICES)),
+                VERTICES, FUSED_REQUESTS, FUSED_THREADS, SEED),
             "path": lambda: smoke.path_phase(
                 torch, rt, ell_ops, smoke.PathOracle(oracle), m.vids,
                 PATH_REQUESTS, PATH_THREADS, SEED),

@@ -174,8 +174,10 @@ def load() -> ctypes.CDLL:
         # travels by value, as edge_ops._Slots)
         from .edge_ops import _Slots
         lib.edge_seed.argtypes = [vp, vp, i64, i64, vp]
-        lib.edge_hop.argtypes = [vp, vp, vp, vp, vp, i64, i64, p32, i32,
-                                 vp]
+        lib.edge_hop.argtypes = [vp, vp, i64, vp, vp, vp, vp, i64, p32,
+                                 i32, vp]
+        lib.edge_scan_hop.argtypes = [vp, vp, vp, vp, vp, i64, i64, p32,
+                                      i32, vp]
         lib.edge_final.argtypes = [vp, vp, vp, vp, vp, i64, p32, i32, vp]
         lib.edge_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
                                        vp]

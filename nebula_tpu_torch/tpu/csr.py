@@ -265,6 +265,32 @@ class CsrMirror:
         return p < self.n and int(self.vids[p]) == vid
 
 
+def check_row_index(edge_src: np.ndarray, row_ptr: np.ndarray) -> None:
+    """Raise unless ``row_ptr`` is the CSR row index of ``edge_src``: 0
+    first, the edge count last, never falling, and the edges of row v
+    (``[row_ptr[v], row_ptr[v + 1])``) all from source v, so the edge
+    list is sorted by source.  The card's edge-list hop walks those
+    rows and trusts this."""
+    rp = np.asarray(row_ptr, np.int64)
+    if len(rp) == 0 or rp[0] != 0 or rp[-1] != len(edge_src) \
+            or (np.diff(rp) < 0).any():
+        raise ValueError("row_ptr is not a CSR row index of the edges")
+    if not np.array_equal(np.repeat(np.arange(len(rp) - 1), np.diff(rp)),
+                          edge_src):
+        raise ValueError("the edge rows are not sorted by source as "
+                         "row_ptr says")
+
+
+def check_rows(m: CsrMirror) -> None:
+    """``check_row_index`` of a mirror.  Every function that makes a
+    mirror keeps its rows so by its (src, etype, rank, dst) sort and
+    ``row_ptr`` from the sorted sources' counts;
+    ``mirror_from_reference`` checks the arrays it is given."""
+    if len(m.row_ptr) != m.n + 1:
+        raise ValueError("row_ptr is not a CSR row index of the edges")
+    check_row_index(m.edge_src, m.row_ptr)
+
+
 def _finish(mirror: CsrMirror) -> CsrMirror:
     counts = np.bincount(mirror.edge_src, minlength=mirror.n)
     mirror.row_ptr = np.concatenate([[0], np.cumsum(counts)]) \
@@ -449,6 +475,7 @@ def mirror_from_reference(arrays: Mapping[str, np.ndarray],
             len(a) != m.m for a in (m.edge_dst, m.edge_etype,
                                     m.edge_rank)):
         raise ValueError("reference mirror arrays disagree in length")
+    check_rows(m)
     m.edge_cols = {(int(k[0]), str(k[1])): _carry_column(c)
                    for k, c in (edge_cols or {}).items()}
     m.vertex_cols = {(int(k[0]), str(k[1])): _carry_column(c)

@@ -5,10 +5,12 @@
 (``expr_compile.py``'s CVal closures, registered as ``expr_filter``).
 
 Layout: the mirror's edge arrays ``edge_src`` / ``edge_dst`` /
-``edge_etype`` int32 [m]; a frontier is bool [n] (one byte a vertex);
-start and target lists are int32 dense ids with -1 padding, as
-``bitmap_from_idx`` takes them.  The OVER set is a short tuple of signed
-etypes.
+``edge_etype`` int32 [m], sorted by source, and ``row_ptr`` int32
+[n + 1], their CSR row index (the edges of source v are
+``[row_ptr[v], row_ptr[v + 1])``); a frontier is bool [n] (one byte a
+vertex); start and target lists are int32 dense ids with -1 padding,
+as ``bitmap_from_idx`` takes them.  The OVER set is a short tuple of
+signed etypes.
 
 Each wrapper takes tensors on one device.  On the CPU it runs its plain
 PyTorch version (``*_ref``); on a CUDA device it launches its
@@ -16,18 +18,21 @@ hand-written kernel from ``csrc/edge_go.cu`` or ``csrc/expr_filter.cu``
 and adds one to its entry in ``LAUNCHES``, or raises — there is no
 fallback from one to the other.  The programs:
 
-- ``go`` = ``edge_seed`` + ``edge_hop`` × (steps - 1) + ``edge_final``
-- ``go_filtered`` = ``edge_seed`` + ``edge_hop`` × (steps - 1) +
-  ``edge_final_where``: ``edge_final``'s test with the compiled WHERE
-  evaluated inside it, only on the edges that pass the test (every
-  operation of the WHERE is total, so that gives the reference's mask,
-  ``expr_filter``'s ANDed into ``edge_final``'s, without the [m] mask)
+- ``go`` = ``edge_seed`` + ``edge_final`` at one step; from two,
+  ``edge_hop`` from the start list itself, ``edge_hop`` × (steps - 2)
+  from the frontier, then ``edge_final``
+- ``go_filtered`` = the same with ``edge_final_where``: ``edge_final``'s
+  test with the compiled WHERE evaluated inside it, only on the edges
+  that pass the test (every operation of the WHERE is total, so that
+  gives the reference's mask, ``expr_filter``'s ANDed into
+  ``edge_final``'s, without the [m] mask)
 - ``bfs`` = ``edge_seed`` × 2 + ``edge_bfs_level`` (first) + per level
   ``edge_hop`` + ``edge_bfs_level``, the host reading the level's two
   flags before it launches the next (one 8-byte read a level).
-- ``sharded_go`` = per hop ``edge_hop`` on every shard's edge slice,
-  then ``mesh.psum_or`` (``ell_ops.or_many``), then ``edge_final`` on
-  every slice (kernels.py:364).
+- ``sharded_go`` = per hop ``edge_scan_hop`` on every shard's edge slice
+  (a slice of the padded list is no CSR of its own), then
+  ``mesh.psum_or`` (``ell_ops.or_many``), then ``edge_final`` on every
+  slice (kernels.py:364).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .csr import check_row_index
 from .ell_ops import (_check, _lib, _ok, _over_check, _route, _stream)
 from .expr_program import (B, EDGE, F, I, MAX_INS, MAX_REGS, MAX_SLOTS,
                            ExprProgram, run_program)
@@ -44,8 +50,8 @@ from .expr_program import (B, EDGE, F, I, MAX_INS, MAX_REGS, MAX_SLOTS,
 INT32_INF = 2**31 - 1          # kernels.py INT32_INF: unreached depth
 
 LAUNCHES: Dict[str, int] = {"edge_seed": 0, "edge_hop": 0,
-                            "edge_final": 0, "edge_final_where": 0,
-                            "expr_filter": 0,
+                            "edge_scan_hop": 0, "edge_final": 0,
+                            "edge_final_where": 0, "expr_filter": 0,
                             "edge_bfs_level": 0, "go": 0,
                             "go_filtered": 0, "bfs": 0, "sharded_go": 0}
 
@@ -94,7 +100,8 @@ def edge_seed_ref(f: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def edge_seed(f: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The frontier bitmap of a -1-padded dense-id list: ``f`` bool [n]
-    is zeroed, then set at every id in range."""
+    is 1 at every id in range and 0 elsewhere, each byte written once
+    (one launch)."""
     if f.dim() != 1:
         raise ValueError("f must be a bool [n] tensor")
     n, dev = int(f.shape[0]), f.device
@@ -112,37 +119,115 @@ def edge_seed(f: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # ============================================================ edge_hop
+def live_sources(f: torch.Tensor, n: int) -> torch.Tensor:
+    """The live sources of a hop: the set bytes of a bool [n] frontier,
+    or the ids of an int32 start list that lie in [0, n)."""
+    if f.dtype == torch.bool:
+        return torch.nonzero(f).reshape(-1)
+    return f[(f >= 0) & (f < n)].long()
+
+
+def row_edges(row_ptr: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The edge ids of the rows of sources ``v``, row after row."""
+    begin = row_ptr.long()[v]
+    lens = row_ptr.long()[v + 1] - begin
+    first = torch.cumsum(lens, 0) - lens
+    return torch.repeat_interleave(begin - first, lens) \
+        + torch.arange(int(lens.sum()), device=row_ptr.device)
+
+
 def edge_hop_ref(f: torch.Tensor, out: torch.Tensor,
                  edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                 edge_etype: torch.Tensor, over: Sequence[int]
-                 ) -> torch.Tensor:
-    """Plain version of ``edge_hop`` (kernels.py ``_go_body``'s hop):
-    ``zeros(n).at[dst].max(f[src] & ok)``."""
+                 edge_etype: torch.Tensor, row_ptr: torch.Tensor,
+                 over: Sequence[int]) -> torch.Tensor:
+    """Plain version of ``edge_hop``: the walk over the CSR rows of the
+    live sources, ``zeros(n).at[dst].max(ok)`` over their edges
+    (kernels.py ``_go_body``'s hop, which reads every edge); refuses an
+    edge list that ``row_ptr`` does not index (``csr.check_row_index``)."""
+    check_row_index(edge_src.cpu().numpy(), row_ptr.cpu().numpy())
+    e = row_edges(row_ptr, live_sources(f, out.shape[0]))
+    out.zero_()
+    out[edge_dst[e][_etype_ok(edge_etype[e], over)].long()] = True
+    return out
+
+
+def edge_hop(f: torch.Tensor, out: torch.Tensor, edge_src: torch.Tensor,
+             edge_dst: torch.Tensor, edge_etype: torch.Tensor,
+             row_ptr: torch.Tensor, over: Sequence[int]) -> torch.Tensor:
+    """K8, one hop over the CSR rows: ``out`` bool [n] becomes the
+    destinations of the edges whose etype is in ``over`` and whose
+    source is live: set in the frontier ``f`` bool [n] (a separate
+    buffer from ``out``), or, for ``f`` an int32 [S] start list (-1
+    padded; ids outside [0, n) dropped), one of its ids.  The kernel
+    reads ``row_ptr`` and the live rows' ``edge_dst`` / ``edge_etype``,
+    not ``edge_src``: the edges must be sorted by source with
+    ``row_ptr`` their row index, as the mirror keeps them."""
+    _m, dev = _edges(edge_src, edge_dst, edge_etype)
+    if out.dim() != 1:
+        raise ValueError("out must be a bool [n] tensor")
+    n = int(out.shape[0])
+    _check(out, "out", torch.bool, (n,), dev)
+    _check(row_ptr, "row_ptr", torch.int32, (n + 1,), dev)
+    if f.dtype == torch.bool:
+        _check(f, "f", torch.bool, (n,), dev)
+        if f.data_ptr() == out.data_ptr():
+            raise ValueError("edge_hop writes a separate buffer")
+    elif f.dim() == 1:
+        _check(f, "f", torch.int32, (int(f.shape[0]),), dev)
+    else:
+        raise ValueError("f must be a bool [n] frontier or an int32 [S] "
+                         "start list")
+    if not _route(dev):
+        return edge_hop_ref(f, out, edge_src, edge_dst, edge_etype, row_ptr,
+                            over)
+    front = f.dtype == torch.bool
+    rc = _lib().edge_hop(f.data_ptr() if front else None,
+                         None if front else f.data_ptr(),
+                         0 if front else int(f.shape[0]), out.data_ptr(),
+                         row_ptr.data_ptr(), edge_dst.data_ptr(),
+                         edge_etype.data_ptr(), n, *_over(over),
+                         _stream(dev))
+    _ok(rc, "edge_hop")
+    LAUNCHES["edge_hop"] += 1
+    return out
+
+
+def edge_scan_hop_ref(f: torch.Tensor, out: torch.Tensor,
+                      edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                      edge_etype: torch.Tensor, over: Sequence[int]
+                      ) -> torch.Tensor:
+    """Plain version of ``edge_scan_hop`` (kernels.py ``_go_body``'s
+    hop): ``zeros(n).at[dst].max(f[src] & ok)``."""
     active = f[edge_src.long()] & _etype_ok(edge_etype, over)
     out.zero_()
     out[edge_dst[active].long()] = True
     return out
 
 
-def edge_hop(f: torch.Tensor, out: torch.Tensor, edge_src: torch.Tensor,
-             edge_dst: torch.Tensor, edge_etype: torch.Tensor,
-             over: Sequence[int]) -> torch.Tensor:
-    """One edge-list hop: ``out`` bool [n] (a separate buffer from
-    ``f``) becomes the destinations of the edges whose source is in
-    ``f`` and whose etype is in ``over``."""
+def edge_scan_hop(f: torch.Tensor, out: torch.Tensor,
+                  edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                  edge_etype: torch.Tensor, over: Sequence[int]
+                  ) -> torch.Tensor:
+    """The hop as the reference writes it, a scan over every edge in any
+    order: ``out`` bool [n] (a separate buffer from ``f``) becomes the
+    destinations of the edges whose source is in ``f`` and whose etype
+    is in ``over``.  ``sharded_go``'s hop, whose slices of the padded
+    edge list have no row index of their own."""
     m, dev = _edges(edge_src, edge_dst, edge_etype)
     n = int(f.shape[0])
     _check(f, "f", torch.bool, (n,), dev)
     _check(out, "out", torch.bool, (n,), dev)
     if f.data_ptr() == out.data_ptr():
-        raise ValueError("edge_hop writes a separate buffer")
+        raise ValueError("edge_scan_hop writes a separate buffer")
     if not _route(dev):
-        return edge_hop_ref(f, out, edge_src, edge_dst, edge_etype, over)
-    rc = _lib().edge_hop(f.data_ptr(), out.data_ptr(), edge_src.data_ptr(),
-                         edge_dst.data_ptr(), edge_etype.data_ptr(), m, n,
-                         *_over(over), _stream(dev))
-    _ok(rc, "edge_hop")
-    LAUNCHES["edge_hop"] += 1
+        return edge_scan_hop_ref(f, out, edge_src, edge_dst, edge_etype,
+                                 over)
+    rc = _lib().edge_scan_hop(f.data_ptr(), out.data_ptr(),
+                              edge_src.data_ptr(), edge_dst.data_ptr(),
+                              edge_etype.data_ptr(), m, n, *_over(over),
+                              _stream(dev))
+    _ok(rc, "edge_scan_hop")
+    LAUNCHES["edge_scan_hop"] += 1
     return out
 
 
@@ -356,41 +441,48 @@ def _frontier0(start_idx: torch.Tensor, n: int, seed) -> torch.Tensor:
     return seed(f, start_idx)
 
 
-def _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps, over,
-             seed, hop, final):
-    """The GO programs: the start bitmap, ``steps - 1`` hops, then
-    ``final(f, out)`` into a fresh bool [m]."""
-    f = _frontier0(start_idx, n, seed)
+def _go_loop(edge_src, edge_dst, edge_etype, row_ptr, start_idx, n, steps,
+             over, seed, hop, final):
+    """The GO programs: at one step the start bitmap; from two, the
+    first hop from the start list itself and ``steps - 2`` more from
+    the frontier (no start bitmap); then ``final(f, out)`` into a fresh
+    bool [m]."""
     if steps > 1:
-        buf = torch.empty_like(f)
-        for _ in range(steps - 1):
-            hop(f, buf, edge_src, edge_dst, edge_etype, over)
-            f, buf = buf, f
+        bufs = [torch.empty(n, dtype=torch.bool, device=edge_src.device)
+                for _ in range(min(steps - 1, 2))]
+        f = start_idx
+        for h in range(steps - 1):
+            f = hop(f, bufs[h % 2], edge_src, edge_dst, edge_etype, row_ptr,
+                    over)
+    else:
+        f = _frontier0(start_idx, n, seed)
     out = torch.empty(edge_src.shape, dtype=torch.bool,
                       device=edge_src.device)
     return final(f, out), f
 
 
 def go_ref(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-           edge_etype: torch.Tensor, start_idx: torch.Tensor, n: int,
-           steps: int, over: Sequence[int]
+           edge_etype: torch.Tensor, row_ptr: torch.Tensor,
+           start_idx: torch.Tensor, n: int, steps: int, over: Sequence[int]
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``go``."""
-    return _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps,
-                    over, edge_seed_ref, edge_hop_ref,
+    return _go_loop(edge_src, edge_dst, edge_etype, row_ptr, start_idx, n,
+                    steps, over, edge_seed_ref, edge_hop_ref,
                     lambda f, out: edge_final_ref(f, edge_src, edge_etype,
                                                   over, None, out))
 
 
 def go(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-       edge_etype: torch.Tensor, start_idx: torch.Tensor, n: int,
-       steps: int, over: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Edge-list GO (kernels.py:284 make_go_kernel): the start bitmap of
-    ``start_idx`` (int32, -1 padded), ``steps - 1`` hops, then the
-    final edge mask.  Returns (final bool [m], frontier bool [n])."""
+       edge_etype: torch.Tensor, row_ptr: torch.Tensor,
+       start_idx: torch.Tensor, n: int, steps: int, over: Sequence[int]
+       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edge-list GO (kernels.py:284 make_go_kernel) over the mirror's
+    edges and their row index ``row_ptr``: from ``start_idx`` (int32,
+    -1 padded), ``steps - 1`` hops, then the final edge mask.  Returns
+    (final bool [m], frontier bool [n])."""
     _edges(edge_src, edge_dst, edge_etype)
-    out = _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps,
-                   over, edge_seed, edge_hop,
+    out = _go_loop(edge_src, edge_dst, edge_etype, row_ptr, start_idx, n,
+                   steps, over, edge_seed, edge_hop,
                    lambda f, out: edge_final(f, edge_src, edge_etype, over,
                                              None, out))
     if _route(edge_src.device):
@@ -399,9 +491,10 @@ def go(edge_src: torch.Tensor, edge_dst: torch.Tensor,
 
 
 def go_filtered_ref(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                    edge_etype: torch.Tensor, start_idx: torch.Tensor,
-                    n: int, steps: int, over: Sequence[int],
-                    prog: ExprProgram, slots: Sequence[torch.Tensor]
+                    edge_etype: torch.Tensor, row_ptr: torch.Tensor,
+                    start_idx: torch.Tensor, n: int, steps: int,
+                    over: Sequence[int], prog: ExprProgram,
+                    slots: Sequence[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``go_filtered``: the reference's order
     (kernels.py:296), the WHERE over every edge into a mask that ANDs
@@ -409,15 +502,16 @@ def go_filtered_ref(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     fmask = torch.empty(edge_src.shape, dtype=torch.bool,
                         device=edge_src.device)
     expr_filter_ref(prog, slots, edge_src, edge_dst, fmask)
-    return _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps,
-                    over, edge_seed_ref, edge_hop_ref,
+    return _go_loop(edge_src, edge_dst, edge_etype, row_ptr, start_idx, n,
+                    steps, over, edge_seed_ref, edge_hop_ref,
                     lambda f, out: edge_final_ref(f, edge_src, edge_etype,
                                                   over, fmask, out))
 
 
 def go_filtered(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                edge_etype: torch.Tensor, start_idx: torch.Tensor, n: int,
-                steps: int, over: Sequence[int], prog: ExprProgram,
+                edge_etype: torch.Tensor, row_ptr: torch.Tensor,
+                start_idx: torch.Tensor, n: int, steps: int,
+                over: Sequence[int], prog: ExprProgram,
                 slots: Sequence[torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GO with the WHERE fused (kernels.py:296 make_go_filtered_kernel):
@@ -425,8 +519,8 @@ def go_filtered(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     final hop's edge test, on the edges that pass it only.  Returns
     (final bool [m], frontier bool [n]), the reference's exactly."""
     _edges(edge_src, edge_dst, edge_etype)
-    out = _go_loop(edge_src, edge_dst, edge_etype, start_idx, n, steps,
-                   over, edge_seed, edge_hop,
+    out = _go_loop(edge_src, edge_dst, edge_etype, row_ptr, start_idx, n,
+                   steps, over, edge_seed, edge_hop,
                    lambda f, out: edge_final_where(f, edge_src, edge_dst,
                                                    edge_etype, over, prog,
                                                    slots, out))
@@ -435,8 +529,8 @@ def go_filtered(edge_src: torch.Tensor, edge_dst: torch.Tensor,
     return out
 
 
-def _bfs_loop(edge_src, edge_dst, edge_etype, start_idx, target_idx, n,
-              max_steps, over, stop, seed, hop, level):
+def _bfs_loop(edge_src, edge_dst, edge_etype, row_ptr, start_idx,
+              target_idx, n, max_steps, over, stop, seed, hop, level):
     dev = edge_src.device
     f = _frontier0(start_idx, n, seed)
     targets = _frontier0(target_idx, n, seed) if stop else None
@@ -450,7 +544,7 @@ def _bfs_loop(edge_src, edge_dst, edge_etype, start_idx, target_idx, n,
         f_any, t_any = flags[step].tolist()
         if not f_any or (stop and not t_any):
             break
-        hop(f, buf, edge_src, edge_dst, edge_etype, over)
+        hop(f, buf, edge_src, edge_dst, edge_etype, row_ptr, over)
         level(buf, d, targets, flags[step + 1], step, False, stop)
         f, buf = buf, f
         step += 1
@@ -458,31 +552,32 @@ def _bfs_loop(edge_src, edge_dst, edge_etype, start_idx, target_idx, n,
 
 
 def bfs_ref(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-            edge_etype: torch.Tensor, start_idx: torch.Tensor,
-            target_idx: torch.Tensor, n: int, max_steps: int,
-            over: Sequence[int], stop_when_found: bool = True
-            ) -> Tuple[torch.Tensor, int]:
+            edge_etype: torch.Tensor, row_ptr: torch.Tensor,
+            start_idx: torch.Tensor, target_idx: torch.Tensor, n: int,
+            max_steps: int, over: Sequence[int],
+            stop_when_found: bool = True) -> Tuple[torch.Tensor, int]:
     """Plain version of ``bfs``."""
-    return _bfs_loop(edge_src, edge_dst, edge_etype, start_idx, target_idx,
-                     n, max_steps, over, stop_when_found, edge_seed_ref,
-                     edge_hop_ref, edge_bfs_level_ref)
+    return _bfs_loop(edge_src, edge_dst, edge_etype, row_ptr, start_idx,
+                     target_idx, n, max_steps, over, stop_when_found,
+                     edge_seed_ref, edge_hop_ref, edge_bfs_level_ref)
 
 
 def bfs(edge_src: torch.Tensor, edge_dst: torch.Tensor,
-        edge_etype: torch.Tensor, start_idx: torch.Tensor,
-        target_idx: torch.Tensor, n: int, max_steps: int,
-        over: Sequence[int], stop_when_found: bool = True
+        edge_etype: torch.Tensor, row_ptr: torch.Tensor,
+        start_idx: torch.Tensor, target_idx: torch.Tensor, n: int,
+        max_steps: int, over: Sequence[int], stop_when_found: bool = True
         ) -> Tuple[torch.Tensor, int]:
-    """Level-synchronous BFS depths (kernels.py:315 make_bfs_kernel):
-    int32 [n] with INT32_INF for unreached within ``max_steps``; with
+    """Level-synchronous BFS depths (kernels.py:315 make_bfs_kernel) over
+    the mirror's edges and their row index ``row_ptr``: int32 [n] with
+    INT32_INF for unreached within ``max_steps``; with
     ``stop_when_found`` the levels stop once every target is reached.
     Returns (depths, levels run)."""
     _edges(edge_src, edge_dst, edge_etype)
     if max_steps < 0:
         raise ValueError("max_steps must be >= 0")
-    out = _bfs_loop(edge_src, edge_dst, edge_etype, start_idx, target_idx,
-                    n, max_steps, over, stop_when_found, edge_seed,
-                    edge_hop, edge_bfs_level)
+    out = _bfs_loop(edge_src, edge_dst, edge_etype, row_ptr, start_idx,
+                    target_idx, n, max_steps, over, stop_when_found,
+                    edge_seed, edge_hop, edge_bfs_level)
     if _route(edge_src.device):
         LAUNCHES["bfs"] += 1
     return out
@@ -552,7 +647,8 @@ def sharded_go_ref(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
     """Plain version of ``sharded_go``."""
     from .ell_ops import or_many_ref
     return _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over,
-                            mesh, edge_hop_ref, edge_final_ref, or_many_ref)
+                            mesh, edge_scan_hop_ref, edge_final_ref,
+                            or_many_ref)
 
 
 def sharded_go(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
@@ -560,7 +656,7 @@ def sharded_go(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
     """Edge-sharded GO (kernels.py:364 make_sharded_go_kernel): the edge
     slices of ``shard_edges`` on the mesh's shards, the frontier bool
     [n] replicated (``f0`` is copied to every shard).  Each hop, every
-    shard runs ``edge_hop`` over its slice into a partial bitmap, and
+    shard runs ``edge_scan_hop`` over its slice into a partial bitmap, and
     ``mesh.psum_or`` gives every shard the OR of the partials; then
     ``edge_final`` on each shard's slice.  Returns (the per-shard final
     edge masks, bool [m / k] each — concatenated in shard order they
@@ -568,7 +664,7 @@ def sharded_go(src_sh, dst_sh, et_sh, f0: torch.Tensor, n: int,
     frontier)."""
     from .ell_ops import or_many
     out = _sharded_go_loop(src_sh, dst_sh, et_sh, f0, n, steps, over,
-                           mesh, edge_hop, edge_final, or_many)
+                           mesh, edge_scan_hop, edge_final, or_many)
     if _route(mesh.devices[0]):
         LAUNCHES["sharded_go"] += 1
     return out

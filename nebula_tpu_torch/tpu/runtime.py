@@ -892,6 +892,9 @@ class TorchQueryRuntime:
         if self.mirror(space_id) is None:
             raise TpuDecline(f"space {space_id} is not loaded")
         if limit is not None:
+            if reduce is not None:
+                raise TpuDecline("LIMIT is pushed down only onto a plain "
+                                 "exact-depth GO")
             reduce = ("limit", int(limit))
         alias_to_etype = {a: et for et, a in etype_to_alias.items()}
         plan = self._plan_go(space_id, alias_to_etype, where_expr,
@@ -968,16 +971,19 @@ class TorchQueryRuntime:
                                 and m.edge_rank.max() < 2**31)
 
     def _device_csr(self, m: CsrMirror) -> Dict[str, Optional[torch.Tensor]]:
-        """The edge arrays and the int32 rank (None when it does not
-        fit) on this runtime's device, uploaded once per mirror
-        (runtime.py:1153 ``_device_csr`` / ``_to_device``)."""
+        """The edge arrays, their CSR row index ``row_ptr`` (the edge-list
+        hop walks the live sources' rows) and the int32 rank (None when
+        it does not fit) on this runtime's device, uploaded once per
+        mirror (runtime.py:1153 ``_device_csr`` / ``_to_device``)."""
         return self._mirror_cached(m, "_csr_dev_cache",
                                    lambda: self._to_device(m))
 
     def _to_device(self, m: CsrMirror) -> Dict[str, Optional[torch.Tensor]]:
         dev = {"edge_src": self._up(m.edge_src),
                "edge_dst": self._up(m.edge_dst),
-               "edge_etype": self._up(m.edge_etype)}
+               "edge_etype": self._up(m.edge_etype),
+               "row_ptr": self._up(np.ascontiguousarray(m.row_ptr,
+                                                        np.int32))}
         dev["rank"] = self._up(m.edge_rank.astype(np.int32)) \
             if self._rank_device_ok(m) else None
         return dev
@@ -1049,15 +1055,15 @@ class TorchQueryRuntime:
         start = self._up(np.ascontiguousarray(start_idx, np.int32))
         if plan.filter_cval is None:
             return edge_ops.go(dev["edge_src"], dev["edge_dst"],
-                               dev["edge_etype"], start, m.n, steps,
-                               et_tuple)
+                               dev["edge_etype"], dev["row_ptr"], start, m.n,
+                               steps, et_tuple)
         prog = self._filter_program(m, space_id, plan)
         env = self._env_cols(m, plan.alias_to_etype, plan.filter_used,
                              with_valid=plan.pushed_mode)
         slots = [env[key] for key, _kind, _t in prog.slots]
         return edge_ops.go_filtered(dev["edge_src"], dev["edge_dst"],
-                                    dev["edge_etype"], start, m.n, steps,
-                                    et_tuple, prog, slots)
+                                    dev["edge_etype"], dev["row_ptr"], start,
+                                    m.n, steps, et_tuple, prog, slots)
 
     def _filter_program(self, m: CsrMirror, space_id: int, plan: _GoPlan
                         ) -> ExprProgram:

@@ -55,10 +55,17 @@ def _graph(seed=5, n=N, k=700):
             ee[order].astype(np.int32))
 
 
+def _row_ptr(es, n=N):
+    return np.concatenate([[0], np.cumsum(np.bincount(
+        es, minlength=n))]).astype(np.int32)
+
+
 @pytest.fixture(scope="module")
 def graph():
+    """(src, dst, etype numpy, their tensors and the CSR row index)."""
     es, ed, ee = _graph()
-    return es, ed, ee, [torch.from_numpy(a.copy()) for a in (es, ed, ee)]
+    return es, ed, ee, [torch.from_numpy(a.copy())
+                        for a in (es, ed, ee, _row_ptr(es))]
 
 
 def _starts(rng, case):
@@ -74,10 +81,10 @@ def _starts(rng, case):
 @pytest.mark.parametrize("over", OVER_SETS)
 @pytest.mark.parametrize("case", ["empty", "hub", "some"])
 def test_go_matches_jax(graph, steps, over, case):
-    es, ed, ee, (ts, td, te) = graph
+    es, ed, ee, (ts, td, te, trp) = graph
     start = _starts(np.random.default_rng(steps * 7 + len(over)), case)
     want_f, want_fr = jk.make_go_kernel(N, steps, over)(es, ed, ee, start)
-    got_f, got_fr = edge_ops.go(ts, td, te, torch.from_numpy(start), N,
+    got_f, got_fr = edge_ops.go(ts, td, te, trp, torch.from_numpy(start), N,
                                 steps, over)
     assert got_f.dtype == torch.bool and got_fr.shape == (N,)
     assert np.array_equal(got_f.numpy(), np.asarray(want_f))
@@ -96,8 +103,7 @@ def _mirrors(graph, seed=9):
     m.n, m.m = N, len(es)
     m.edge_src, m.edge_dst, m.edge_etype = es, ed, ee
     m.edge_rank = np.zeros(m.m, np.int64)
-    m.row_ptr = np.concatenate([[0], np.cumsum(np.bincount(
-        es, minlength=N))]).astype(np.int32)
+    m.row_ptr = _row_ptr(es)
     w = rng.integers(0, 50, m.m)
     w[::17] = 0
     score = (rng.integers(0, 64, m.m) / 8.0)
@@ -170,7 +176,7 @@ def test_go_filtered_matches_jax(graph, steps, wi, reverse):
     env = port_rt._env_cols(pm, alias, pcomp.used, with_valid=True)
     dev = port_rt._device_csr(pm)
     got_f, got_fr = edge_ops.go_filtered(
-        dev["edge_src"], dev["edge_dst"], dev["edge_etype"],
+        dev["edge_src"], dev["edge_dst"], dev["edge_etype"], dev["row_ptr"],
         torch.from_numpy(start), N, steps, (et,), prog,
         [env[k] for k, _kind, _t in prog.slots])
     port_rt.close()
@@ -183,7 +189,7 @@ def test_go_filtered_matches_jax(graph, steps, wi, reverse):
 @pytest.mark.parametrize("over", OVER_SETS)
 @pytest.mark.parametrize("stop", [True, False])
 def test_bfs_matches_jax(graph, max_steps, over, stop):
-    es, ed, ee, (ts, td, te) = graph
+    es, ed, ee, (ts, td, te, trp) = graph
     rng = np.random.default_rng(max_steps * 3 + len(over))
     start = _pad_pow2(rng.integers(0, N, 2).astype(np.int32))
     for target in (_pad_pow2(rng.integers(0, N, 3).astype(np.int32)),
@@ -191,7 +197,7 @@ def test_bfs_matches_jax(graph, max_steps, over, stop):
                    _pad_pow2(np.zeros(0, np.int32))):
         want = jk.make_bfs_kernel(N, max_steps, over, stop)(
             es, ed, ee, start, target)
-        got, levels = edge_ops.bfs(ts, td, te, torch.from_numpy(start),
+        got, levels = edge_ops.bfs(ts, td, te, trp, torch.from_numpy(start),
                                    torch.from_numpy(target), N, max_steps,
                                    over, stop_when_found=stop)
         assert got.dtype == torch.int32
@@ -211,8 +217,8 @@ def test_bfs_unreachable_pair_stops_when_the_frontier_empties():
     target = _pad_pow2(np.asarray([5], np.int32))
     want = jk.make_bfs_kernel(8, 5, (1, -1), True)(es, ed, ee, start,
                                                    target)
-    got, levels = edge_ops.bfs(*(torch.from_numpy(a) for a in (es, ed,
-                                                                 ee)),
+    got, levels = edge_ops.bfs(*(torch.from_numpy(a) for a in (
+                                   es, ed, ee, _row_ptr(es, 8))),
                                torch.from_numpy(start),
                                torch.from_numpy(target), 8, 5, (1, -1))
     assert np.array_equal(got.numpy(), np.asarray(want))
@@ -220,32 +226,32 @@ def test_bfs_unreachable_pair_stops_when_the_frontier_empties():
 
 
 def test_kernel_wrappers_check_their_operands(graph):
-    _es, _ed, _ee, (ts, td, te) = graph
+    _es, _ed, _ee, (ts, td, te, trp) = graph
     f = torch.zeros(N, dtype=torch.bool)
     with pytest.raises(ValueError):
-        edge_ops.edge_hop(f, f, ts, td, te, (1,))       # in place
+        edge_ops.edge_hop(f, f, ts, td, te, trp, (1,))  # in place
     with pytest.raises(TypeError):
         edge_ops.edge_hop(f.to(torch.uint8), torch.zeros_like(f), ts, td,
-                          te, (1,))
+                          te, trp, (1,))
     with pytest.raises(ValueError):
         edge_ops.edge_final(f, ts, te, (1,), None,
                             torch.zeros(3, dtype=torch.bool))
     with pytest.raises(ValueError):
-        edge_ops.edge_hop(f, torch.zeros_like(f), ts, td, te, ())
+        edge_ops.edge_hop(f, torch.zeros_like(f), ts, td, te, trp, ())
     with pytest.raises(ValueError):
         edge_ops.edge_bfs_level(f, torch.zeros(N, dtype=torch.int32), None,
                                 torch.zeros(2, dtype=torch.int32), 0)
     with pytest.raises(ValueError):
-        edge_ops.go(ts, td, te, torch.zeros(8, dtype=torch.int32), N, 2,
-                    tuple(range(1, 40)))
+        edge_ops.go(ts, td, te, trp, torch.zeros(8, dtype=torch.int32), N,
+                    2, tuple(range(1, 40)))
 
 
 def test_cpu_route_counts_no_launch(graph):
     """The plain route of every wrapper adds nothing to LAUNCHES (a
     launch is counted only where a kernel is launched)."""
-    _es, _ed, _ee, (ts, td, te) = graph
+    _es, _ed, _ee, (ts, td, te, trp) = graph
     edge_ops.reset_launches()
     start = torch.from_numpy(_pad_pow2(np.asarray([3], np.int32)))
-    edge_ops.go(ts, td, te, start, N, 3, (1,))
-    edge_ops.bfs(ts, td, te, start, start, N, 3, (1,))
+    edge_ops.go(ts, td, te, trp, start, N, 3, (1,))
+    edge_ops.bfs(ts, td, te, trp, start, start, N, 3, (1,))
     assert all(v == 0 for v in edge_ops.LAUNCHES.values())

@@ -63,6 +63,12 @@ def _starts(case, steps, wi):
     return _pad_pow2(rng.integers(0, N, 5).astype(np.int32))
 
 
+def _rp(world):
+    """The port mirror's CSR row index on the CPU."""
+    _m, pm, port_rt, _ref_rt = world
+    return port_rt._device_csr(pm)["row_ptr"]
+
+
 def _programs(world, tree, et, pushed, steps, start):
     """(the reference's (final, frontier), the port's program, its slot
     tensors, the port's edge arrays)."""
@@ -96,7 +102,7 @@ def test_fused_final_pass_matches_jax(world, wi, pushed, steps, start_case):
     start = _starts(start_case, steps, wi)
     (want_f, want_fr), prog, slots, (src, dst, ety) = _programs(
         world, CASES[wi], et, pushed, steps, start)
-    got_f, got_fr = edge_ops.go_filtered(src, dst, ety,
+    got_f, got_fr = edge_ops.go_filtered(src, dst, ety, _rp(world),
                                          torch.from_numpy(start), N, steps,
                                          (et,), prog, slots)
     assert got_f.dtype == torch.bool and got_f.shape == src.shape
@@ -129,8 +135,8 @@ def test_plain_pass_runs_the_program_on_the_kept_edges_only(world,
     start = _starts("some", 2, 3)
     (_want, _fr), prog, slots, (src, dst, ety) = _programs(
         world, CASES[1], 1, True, 2, start)
-    _f, frontier = edge_ops.go(src, dst, ety, torch.from_numpy(start), N, 2,
-                               (1,))
+    _f, frontier = edge_ops.go(src, dst, ety, _rp(world),
+                               torch.from_numpy(start), N, 2, (1,))
     keep = edge_ops.edge_final_ref(frontier, src, ety, (1,), None,
                                    torch.empty(src.shape, dtype=torch.bool))
     sizes = []
@@ -186,6 +192,6 @@ def test_cpu_route_counts_no_launch(world):
     _want, prog, slots, (src, dst, ety) = _programs(world, CASES[0], 1,
                                                     True, 3, start)
     edge_ops.reset_launches()
-    edge_ops.go_filtered(src, dst, ety, torch.from_numpy(start), N, 3, (1,),
-                         prog, slots)
+    edge_ops.go_filtered(src, dst, ety, _rp(world), torch.from_numpy(start),
+                         N, 3, (1,), prog, slots)
     assert all(v == 0 for v in edge_ops.LAUNCHES.values())

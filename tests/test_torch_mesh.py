@@ -326,9 +326,13 @@ def test_sharded_go_matches_reference(k):
         assert np.array_equal(torch.cat(finals).numpy(), np.asarray(mask))
         for f in fronts:
             assert np.array_equal(f.numpy(), np.asarray(front))
-    # and the single-card program
-    gm, gf = edge_ops.go(_t(es), _t(ed), _t(ee), _t(start), n, 3, (1,))
-    assert np.array_equal(gm.numpy(), np.asarray(mask)[:m])
+    # and the single-card program, on the same edges sorted by source
+    # (the CSR its hop walks): its mask in that order
+    order = np.argsort(es, kind="stable")
+    rp = np.concatenate([[0], np.cumsum(np.bincount(es, minlength=n))])
+    gm, gf = edge_ops.go(_t(es[order]), _t(ed[order]), _t(ee[order]),
+                         _t(rp.astype(np.int32)), _t(start), n, 3, (1,))
+    assert np.array_equal(gm.numpy(), np.asarray(mask)[:m][order])
     assert np.array_equal(gf.numpy(), np.asarray(front))
 
 
