@@ -26,12 +26,17 @@ Phases, in order; any failure exits non-zero:
 3. kernels   each kernel against its plain PyTorch version on the serve
              graph's real tables, at W = 128 (B = 1024 lanes) and W = 16
              (B = 128): exact equality, CUDA-event times for the kernel
-             (for the hop and ``or_into`` their device time, the calls
-             queued behind a spin kernel, with the event time beside),
-             the plain version and, where one exists, the PyTorch
-             library call computing the same function, and the card's
-             bound for the work.  The continuous session's four
-             kernels, then the windowed path's: the packed frontier
+             (for the hop, ``or_into`` and the lane join, extract and
+             clear their device time, the calls queued behind a spin
+             kernel, with the event time beside), the plain version
+             and, where one exists, the PyTorch library call computing
+             the same function, and the card's bound for the work.
+             The continuous session's four kernels (the extract also
+             on words within two 16-byte units and one in each unit at
+             W = 128, the sectors its words touch beside its bound, and
+             held untimed at P = 8, 16 and 2W, at W = 4, on odd P, an
+             output one byte off and carriers off 16-byte alignment),
+             then the windowed path's: the packed frontier
              upload K1 (the runtime's call too: one kernel and one
              copy a call by capture, its host enqueue behind a spin
              kernel below the spin's time), ``ell_go`` at 3 steps
@@ -58,7 +63,11 @@ Phases, in order; any failure exits non-zero:
              runtime calls it, one C call (``sg_program``,
              ``ad_program``: device and event times, launches and C
              calls a call by capture, held to the designed counts, and
-             50 calls more, each equal to the first); K5, one launch a
+             50 calls more, each equal to the first); K4 held untimed
+             at odd shapes (``k4_odd_check``: live prefixes followed
+             by stale pairs or sentinels, self mode, hub runs past the
+             clamp, buckets of 1-40 slots off alignment, up to 9000
+             pairs) and its gated launch timed shut and open; K5, one launch a
              call, then held bit for bit to ``pair_compact_ref`` in
              each caller's form (``k5_caller_check``: alone,
              ``sg_program``'s workspace at 8 and 1024 queries,
@@ -176,7 +185,10 @@ Phases, in order; any failure exits non-zero:
              edge ``w`` int, ``score`` double, ``kind`` string, tag
              ``person(age)`` on 15/16 of the vertices) served by
              ``TorchQueryRuntime`` in continuous mode: R GO requests
-             from T threads, 64 checked exactly against a numpy oracle
+             from T threads, 64 checked exactly against a numpy oracle;
+             each extract's (word, sel) pairs recorded on the host, then
+             the extract timed on the commonest pattern and on the one
+             touching the most 16-byte units
 5. windowed  the same R requests with ``go_dispatch_mode=windowed``,
              ``tpu_sparse_go=false`` and ``tpu_adaptive_single=false``
              (the dense ``ell_go`` route), 64 checked against the oracle
@@ -730,7 +742,11 @@ def kernel_phase(torch, ell_ops, tables, eslot, hrows, ix, B: int,
     if not (torch.equal(fk, fr) and torch.equal(ak, ar)):
         raise AssertionError(f"lane_clear != lane_clear_ref at B={B}")
     err = max(max_abs_err(torch, fk, fr), max_abs_err(torch, ak, ar))
-    ms = cuda_ms(torch, lambda: ell_ops.lane_clear(fk, ak, keep), 50)
+
+    def clear():
+        ell_ops.lane_clear(fk, ak, keep)
+    ms = queued_ms(torch, clear, PROBE_REPS)       # device time
+    event_ms = cuda_ms(torch, clear, 50)
     plain = cuda_ms(torch, lambda: ell_ops.lane_clear_ref(fr, ar, keep), 50)
 
     def lib_clear():
@@ -739,7 +755,8 @@ def kernel_phase(torch, ell_ops, tables, eslot, hrows, ix, B: int,
     lib = cuda_ms(torch, lib_clear, 50)
     res["lane_clear"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=bytes_ms(4 * R1 * W + W),
-                             bound_by="bytes", library_ms=lib)
+                             bound_by="bytes", library_ms=lib,
+                             event_ms=event_ms)
 
     # ---- join: 8 cleared lanes reseated, 64 start rows each
     base_f, base_a = fk.clone(), ak.clone()     # those lanes are clear
@@ -770,8 +787,11 @@ def kernel_phase(torch, ell_ops, tables, eslot, hrows, ix, B: int,
     err = max(max_abs_err(torch, fk, fr), max_abs_err(torch, ak, ar))
     # timed on fresh copies each round would time the copy too: the
     # kernel's OR is idempotent, so repeated joins do the same work
-    ms = cuda_ms(torch, lambda: ell_ops.lane_join(fk, ak, rows_t, words_t,
-                                                  vals_t), 50)
+
+    def join():
+        ell_ops.lane_join(fk, ak, rows_t, words_t, vals_t)
+    ms = queued_ms(torch, join, PROBE_REPS)        # device time
+    event_ms = cuda_ms(torch, join, 50)
     fj, aj = base_f.clone(), base_a.clone()
 
     def plain_join():
@@ -797,30 +817,151 @@ def kernel_phase(torch, ell_ops, tables, eslot, hrows, ix, B: int,
     join_bytes = 9 * Sp + 4 * S + 2 * W
     res["lane_join"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=bytes_ms(join_bytes), bound_by="bytes",
-                            library_ms=lib)
+                            library_ms=lib, event_ms=event_ms)
 
-    # ---- extract: 8 word columns, mixed exact-depth / UPTO
-    P = 8
-    words_e = torch.from_numpy(
-        rng.choice(W, P, replace=False).astype(np.int32)).to(dev)
-    sel_e = torch.from_numpy(
-        (rng.random(P) < 0.5).astype(np.uint8)).to(dev)
-    ok_ = torch.empty((R1, P), dtype=u8, device=dev)
-    orf = torch.empty((R1, P), dtype=u8, device=dev)
-    ell_ops.lane_extract(fp0, acc0, words_e, sel_e, ok_)
-    ell_ops.lane_extract_ref(fp0, acc0, words_e, sel_e, orf)
-    torch.cuda.synchronize()
-    if not torch.equal(ok_, orf):
-        raise AssertionError(f"lane_extract != lane_extract_ref at B={B}")
-    err = max_abs_err(torch, ok_, orf)
-    ms = cuda_ms(torch, lambda: ell_ops.lane_extract(fp0, acc0, words_e,
-                                                     sel_e, ok_), 50)
-    plain = cuda_ms(torch, lambda: ell_ops.lane_extract_ref(
-        fp0, acc0, words_e, sel_e, orf), 50)
-    res["lane_extract"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               bound_ms=bytes_ms(2 * R1 * P + 5 * P),
-                               bound_by="bytes", library_ms=None)
+    # ---- extract: 8 word columns, mixed exact-depth / UPTO, and the
+    # row patterns; held at the odd shapes untimed
+    res["lane_extract"] = extract_rows(torch, ell_ops, fp0, acc0, rng)
+    res["lane_extract"]["odd_shapes"] = extract_odd_check(
+        torch, ell_ops, fp0, acc0, rng)
     return res
+
+
+def extract_cases(W: int, rng) -> dict:
+    """The extract's (words, sel) cases at W bytes a row, P = 8 (the
+    same as ``tools/hop_bench.py``'s; this script keeps its own copy, as
+    ``tools/phase_bench.py`` runs its phases on another checkout's
+    port): random distinct words, random sel; the smallest leave cohort
+    (one word, exact and UPTO, then the pads at word 0); at W >= 64 the
+    words within two 16-byte units of fp, and one word in each of 8
+    units with random sel (every 32-byte sector of a 128-byte row)."""
+    P = 8
+    w = int(rng.integers(0, W))
+    cases = {
+        "random": (rng.choice(W, P, replace=False),
+                   (rng.random(P) < 0.5).astype(np.uint8)),
+        "cohort": (np.array([w, w] + [0] * (P - 2)),
+                   np.array([0, 1] + [0] * (P - 2), np.uint8))}
+    if W >= 64:
+        units = rng.choice(W // 16, 2, replace=False)
+        cases["units2"] = (16 * units[rng.integers(0, 2, P)]
+                           + rng.integers(0, 16, P),
+                           np.zeros(P, np.uint8))
+        cases["spread"] = (16 * rng.permutation(W // 16)[:P]
+                           + rng.integers(0, 16, P),
+                           (rng.random(P) < 0.5).astype(np.uint8))
+    return {k: (np.asarray(a, np.int32), s) for k, (a, s) in cases.items()}
+
+
+def extract_units(words, sel) -> dict:
+    """The 16-byte units and 32-byte sectors of a row that the chosen
+    words touch, in fp and accp together."""
+    return dict(units16=len({(int(s), int(w) // 16)
+                             for w, s in zip(words, sel)}),
+                sectors32=len({(int(s), int(w) // 32)
+                               for w, s in zip(words, sel)}))
+
+
+def extract_time(torch, ell_ops, fp0, acc0, words_h, sel_h, what: str,
+                 plain: bool = False) -> dict:
+    """One extract held to its plain version, then its device time
+    (PROBE_REPS calls queued behind a spin) and event time (50 back to
+    back), the bytes bound (each output byte's source byte read, the
+    output written, the pairs read) and the units its words touch."""
+    dev = fp0.device
+    R1 = fp0.shape[0]
+    P = len(words_h)
+    words = torch.from_numpy(np.asarray(words_h, np.int32)).to(dev)
+    sel = torch.from_numpy(np.asarray(sel_h, np.uint8)).to(dev)
+    out = torch.empty((R1, P), dtype=torch.uint8, device=dev)
+    want = torch.empty_like(out)
+    ell_ops.lane_extract(fp0, acc0, words, sel, out)
+    ell_ops.lane_extract_ref(fp0, acc0, words, sel, want)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError(f"lane_extract != lane_extract_ref ({what})")
+
+    def extract():
+        ell_ops.lane_extract(fp0, acc0, words, sel, out)
+    row = dict(ms=queued_ms(torch, extract, PROBE_REPS),
+               event_ms=cuda_ms(torch, extract, 50), P=P,
+               bound_ms=bytes_ms(2 * R1 * P + 5 * P),
+               **extract_units(words_h, sel_h))
+    if plain:
+        row["plain_ms"] = cuda_ms(torch, lambda: ell_ops.lane_extract_ref(
+            fp0, acc0, words, sel, want), 50)
+    return row
+
+
+def extract_rows(torch, ell_ops, fp0, acc0, rng) -> dict:
+    """The extract on ``extract_cases`` at the carriers' width: the row's
+    numbers from the random case (device time; events beside), every
+    case's under ``cases``."""
+    cases = {k: extract_time(torch, ell_ops, fp0, acc0, w, s,
+                             f"{k} W={fp0.shape[1]}", plain=k == "random")
+             for k, (w, s) in extract_cases(fp0.shape[1], rng).items()}
+    head = cases["random"]
+    return dict(max_abs_err=0, ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by="bytes",
+                library_ms=None, event_ms=head["event_ms"],
+                units16=head["units16"], sectors32=head["sectors32"],
+                cases={k: v for k, v in cases.items() if k != "random"})
+
+
+def extract_odd_check(torch, ell_ops, fp0, acc0, rng) -> dict:
+    """The extract held to its plain version (untimed) at P = 8, 16 and
+    2W with distinct, repeated and cohort words and mixed sel, at the
+    carriers' width and at W = 4 (their first 4 bytes a row); then P = 6
+    and 12 (byte and word stores), an output one byte off alignment, and
+    carriers 4 bytes off a 16-byte boundary (the 4-byte unit path)."""
+    dev = fp0.device
+    R1 = fp0.shape[0]
+    n = 0
+
+    def hold(fp, acc, w, s, what, off=0):
+        nonlocal n
+        P = len(w)
+        words = torch.from_numpy(np.asarray(w, np.int32)).to(dev)
+        sel = torch.from_numpy(np.asarray(s, np.uint8)).to(dev)
+        buf = torch.empty(R1 * P + 16, dtype=torch.uint8, device=dev)
+        out = buf[off:off + R1 * P].view(R1, P)
+        want = torch.empty((R1, P), dtype=torch.uint8, device=dev)
+        ell_ops.lane_extract(fp, acc, words, sel, out)
+        ell_ops.lane_extract_ref(fp, acc, words, sel, want)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"lane_extract != lane_extract_ref "
+                                 f"({what})")
+        n += 1
+
+    for fp, acc in ((fp0, acc0), (fp0[:, :4].contiguous(),
+                                  acc0[:, :4].contiguous())):
+        W = fp.shape[1]
+        for P in sorted({8, 16, 2 * W}):
+            sel = (rng.random(P) < 0.5).astype(np.uint8)
+            sel[0], sel[1] = 0, 1
+            cohort = np.zeros(P, np.int64)
+            cohort[:2] = rng.integers(0, W)
+            for kind, w in (
+                    ("distinct", np.concatenate(
+                        [rng.permutation(W)] * (P // W + 1))[:P]),
+                    ("repeated", rng.choice(rng.integers(0, W, 3), P)),
+                    ("cohort", cohort)):
+                hold(fp, acc, w, sel, f"W={W} P={P} {kind}")
+        for P, off in ((6, 0), (12, 0), (8, 1)):
+            hold(fp, acc, rng.integers(0, W, P),
+                 (rng.random(P) < 0.5).astype(np.uint8),
+                 f"W={W} P={P} out +{off}", off)
+    W = fp0.shape[1]
+    shifted = []
+    for t in (fp0, acc0):
+        buf = torch.empty(R1 * W + 16, dtype=torch.uint8, device=dev)
+        v = buf[4:4 + R1 * W].view(R1, W)
+        v.copy_(t)
+        shifted.append(v)
+    hold(*shifted, rng.integers(0, W, 8), (rng.random(8) < 0.5).astype(
+        np.uint8), f"W={W} carriers 4 bytes off 16")
+    return dict(cases=n, widths=[W, 4], equal=True)
 
 
 def enqueue_check(torch, what: str, fn) -> dict:
@@ -1949,6 +2090,11 @@ def sparse_probes(torch, ell_ops, tables, ix):
 
     def expand_pre(args):
         ids, ecnt = args[0], args[2]
+        if _arg(args, 11):                   # counted: K5's live prefix
+            live = min(int(args[8][ell_ops.CTL_CNT]), ids.numel())
+            args = (ids[:live], None if args[1] is None else
+                    args[1][:live]) + tuple(args[2:])
+            ids = args[0]
         if _arg(args, 10):                   # self mode: the start marks
             return 8 * ids.numel()
         rows, rq, slots = walked(args)
@@ -2039,6 +2185,144 @@ def sparse_batch(ix, starts, c0: int, nq: int):
     qid = np.zeros(c0, np.int32)
     ids[:S], qid[:S] = new[order], q[order]
     return ids, qid
+
+
+def odd_tables(torch, rng, n: int, Ds, extra_rows: int, pad: int, dev):
+    """Hand-made slot tables: rows 0 .. n - 1 over buckets of widths Ds
+    (row0 ascending), the ``extra_rows`` hub extra rows in the last
+    bucket, ``pad`` unused slots before each bucket (slot0 off 16 bytes
+    when pad % 4); random neighbours (the sentinel among them) and
+    etypes in {-2, -1, 0, 1, 2}; with each of 3 hubs' extra-row runs
+    (ecnt, e0)."""
+    from nebula_tpu_torch.tpu.ell import DeviceTables
+    nb = len(Ds)
+    cuts = sorted(rng.choice(np.arange(1, n), nb - 1, replace=False))
+    row0 = [0] + [int(c) for c in cuts]
+    rows = [b - a for a, b in zip(row0, row0[1:] + [n])]
+    rows[-1] += extra_rows
+    n_rows = n + extra_rows
+    slot0, nbr, et, at = [], [], [], 0
+    for b in range(nb):
+        nbr.append(np.full(pad, -7, np.int32))
+        et.append(np.zeros(pad, np.int32))
+        at += pad
+        slot0.append(at)
+        k = rows[b] * Ds[b]
+        nbr.append(rng.integers(0, n_rows + 1, k).astype(np.int32))
+        et.append(rng.choice([1, -1, 2, -2, 0], k).astype(np.int32))
+        at += k
+    T = DeviceTables(torch.from_numpy(np.concatenate(nbr)).to(dev),
+                     torch.from_numpy(np.concatenate(et)).to(dev),
+                     tuple(row0), tuple(rows), tuple(Ds), tuple(slot0), n,
+                     n_rows)
+    ecnt = np.zeros(n + 1, np.int32)
+    e0 = np.zeros(n + 1, np.int32)
+    cuts = sorted(rng.choice(np.arange(1, extra_rows), 2, replace=False))
+    for o, a, b in zip(rng.choice(n, 3, replace=False), [0] + cuts,
+                       cuts + [extra_rows]):
+        ecnt[o], e0[o] = b - a, n + a
+    return T, (torch.from_numpy(ecnt).to(dev), torch.from_numpy(e0).to(dev))
+
+
+def k4_odd_check(torch, ell_ops, rt, m, ix, tables, rng) -> dict:
+    """K4 held to its plain version on the card (untimed) at the shapes
+    its callers can give it: on the serve tables a 256-pair list whose
+    40-pair live prefix is followed by stale pairs that only the count K5
+    left cuts off (``counted``) or by sentinels, one and three queries,
+    self mode, the hubs' extra-row runs past a per-pair clamp of 1; on
+    hand-made tables buckets of D = 1, 2, 3, 5, 33 and 40 slots off
+    16-byte alignment, and of 8, 16, 36 and 64 aligned (16-byte units),
+    lists of 5 to 9000 pairs (several tiles a warp).  Then the gated
+    launch as ``ad_program`` makes it on a K = 2048 list: shut (the mark
+    left untouched) and open (held), each with its device time (queued
+    behind a spin) and event time."""
+    dev = tables.nbr.device
+    n = 0
+
+    def hold(label, T, ids_h, qid_h, hub, nq, c_lim, self_mode=False,
+             counted=False, live=0):
+        nonlocal n
+        R1w = ell_ops._words(T.n_rows + 1)
+        ids = torch.from_numpy(np.asarray(ids_h, np.int32)).to(dev)
+        qid = None if qid_h is None else torch.from_numpy(
+            np.asarray(qid_h, np.int32)).to(dev)
+        ec, e_0 = hub if hub is not None else (None, None)
+        mark = torch.zeros(nq * R1w, dtype=torch.int32, device=dev)
+        ctl = torch.zeros(ell_ops.CTL_SIZE, dtype=torch.int64, device=dev)
+        ctl[ell_ops.CTL_CNT] = live
+        mr, cr = mark.clone(), ctl.clone()
+        ell_ops.sparse_expand(ids, qid, ec, e_0, T, (1,), mark, R1w, ctl,
+                              c_lim, self_mode, counted)
+        ell_ops.sparse_expand_ref(ids, qid, ec, e_0, T, (1,), mr, R1w, cr,
+                                  c_lim, self_mode, counted)
+        torch.cuda.synchronize()
+        if not (torch.equal(mark, mr) and torch.equal(ctl, cr)):
+            raise AssertionError(f"sparse_expand != its plain version "
+                                 f"({label})")
+        n += 1
+
+    hub = rt._hub_expansion_dev(m, ix)
+    for nq in (1, 3):
+        for pad, counted in (("stale", True), ("sentinel", False)):
+            ids = ix.perm[rng.integers(0, ix.n, 256)].astype(np.int32)
+            qid = rng.integers(0, nq, 256).astype(np.int32)
+            o = np.lexsort((ids[:40], qid[:40]))
+            ids[:40], qid[:40] = ids[:40][o], qid[:40][o]
+            if pad == "sentinel":
+                ids[40:], qid[40:] = ix.n_rows, ell_ops.BIG_Q
+            for self_mode in (False, True):
+                hold(f"serve nq={nq} {pad} self={self_mode}", tables, ids,
+                     qid if nq > 1 else None, hub, nq, 1 << 20, self_mode,
+                     counted, 40)
+    owners = np.nonzero(hub[0].cpu().numpy() > 1)[0]
+    if len(owners):
+        hold("serve hubs past the clamp", tables,
+             owners[:64].astype(np.int32), None, hub, 1, 1)
+    for Ds, pad in (((1, 2, 3, 5, 33, 40), 1), ((8, 16, 36, 64), 0)):
+        T, th = odd_tables(torch, rng, 3000, Ds, 40, pad, dev)
+        for c_in in (5, 300, 9000):
+            ids = rng.integers(0, T.n_rows + 1, c_in).astype(np.int32)
+            for nq in (1, 3):
+                qid = rng.integers(0, nq, c_in) if nq > 1 else None
+                for c_lim in (1, 1 << 20):
+                    hold(f"D={Ds} c_in={c_in} nq={nq} c_lim={c_lim}", T,
+                         ids, qid, th, nq, c_lim)
+                hold(f"D={Ds} c_in={c_in} nq={nq} counted", T, ids, qid,
+                     th, nq, 1 << 20, False, True, c_in // 3)
+    # the adaptive program's gated launch: a K = 2048 list, a gate word
+    K = 2048
+    R1w = ell_ops._words(ix.n_rows + 1)
+    fr = torch.from_numpy(ix.perm[rng.integers(0, ix.n, K)].astype(
+        np.int32)).to(dev)
+    cand = torch.zeros(R1w, dtype=torch.int32, device=dev)
+    ctl = torch.zeros(ell_ops.CTL_SIZE, dtype=torch.int64, device=dev)
+    ctl[ell_ops.CTL_CNT] = 600
+    gate = ctl[ell_ops.CTL_MODE:ell_ops.CTL_MODE + 1]
+    row = dict(odd_cases=n)
+    for mode, label in ((ell_ops.MODE_DENSE, "shut"),
+                        (ell_ops.MODE_SPARSE, "open")):
+        ctl[ell_ops.CTL_MODE] = mode
+        cand.zero_()
+        cr, mr = ctl.clone(), cand.clone()
+
+        def gated():
+            ell_ops.sparse_expand(fr, None, None, None, tables, (1,), cand,
+                                  R1w, ctl, 0, False, True, gate=gate,
+                                  want=ell_ops.MODE_SPARSE)
+        gated()
+        ell_ops.sparse_expand_ref(fr, None, None, None, tables, (1,), mr,
+                                  R1w, cr, 0, False, True,
+                                  gate=cr[ell_ops.CTL_MODE:
+                                          ell_ops.CTL_MODE + 1],
+                                  want=ell_ops.MODE_SPARSE)
+        torch.cuda.synchronize()
+        if not torch.equal(cand, mr) or bool(cand.any()) != (label ==
+                                                              "open"):
+            raise AssertionError(f"the gated sparse_expand ({label}) != "
+                                 f"its plain version")
+        row[f"gated_{label}_ms"] = queued_ms(torch, gated, PROBE_REPS)
+        row[f"gated_{label}_event_ms"] = cuda_ms(torch, gated, 50)
+    return row
 
 
 # the run each program's and kernel's kernels-line row comes from: the
@@ -2585,7 +2869,8 @@ def serve_phase(torch, rt, ell_ops, oracle: GoOracle, n: int,
     rt.serve_go(1, [1], [1], 2, {1: "e"})
     torch.cuda.synchronize()
     ell_ops.reset_launches()
-    wall, lat, results = drive(rt, mix, threads, check)
+    with extract_patterns() as patterns:
+        wall, lat, results = drive(rt, mix, threads, check)
     launches = dict(ell_ops.LAUNCHES)
     traversed = check_go(oracle, mix, results, check)
     require_launched(launches, "serve")
@@ -2598,7 +2883,72 @@ def serve_phase(torch, rt, ell_ops, oracle: GoOracle, n: int,
                 edges_traversed_per_query=float(np.mean(traversed)),
                 edges_traversed_per_s=float(np.mean(traversed)) * qps,
                 launches=launches, stream=dict(st),
-                runtime=dict(rt.stats))
+                runtime=dict(rt.stats), extracts=patterns)
+
+
+@contextlib.contextmanager
+def extract_patterns():
+    """Inside: every extract the continuous session makes is recorded on
+    the host (its (word, sel) pairs as the session lays them out: one
+    pair a leaving (lane byte, UPTO) class, padded to P, a power of two
+    >= 8, with (0, exact)), at no cost to the card.  Yields a list that
+    holds, on exit, (W, words, sel) a call."""
+    from nebula_tpu_torch.tpu.runtime import _ContinuousGoSession
+    seen = []
+    real = _ContinuousGoSession.extract
+
+    def extract(self, leavers):
+        pairs = {}
+        for lane, upto in leavers:
+            pairs.setdefault((lane >> 3, bool(upto)), len(pairs))
+        P = max(8, 1 << (len(pairs) - 1).bit_length())
+        words = np.zeros(P, np.int32)
+        sel = np.zeros(P, np.uint8)
+        for (w, u), j in pairs.items():
+            words[j], sel[j] = w, u
+        seen.append((self.W, words, sel))
+        return real(self, leavers)
+    _ContinuousGoSession.extract = extract
+    try:
+        yield seen
+    finally:
+        _ContinuousGoSession.extract = real
+
+
+def serve_extract_rows(torch, ell_ops, ix, patterns, rng, dev) -> dict:
+    """The serve phase's extracts: how many of each (W, P, 16-byte units
+    of a row its words touch), and the kernel timed (``extract_time``)
+    on a 2 %-live carrier pair at that W on the commonest pattern and on
+    the one that touches the most units."""
+    if not patterns:
+        raise AssertionError("the serve phase made no extract")
+    hist = {}
+    for W, w, s in patterns:
+        key = (int(W), len(w), extract_units(w, s)["units16"])
+        hist[key] = hist.get(key, 0) + 1
+    common = max(hist, key=hist.get)
+    widest = max(hist, key=lambda k: (k[2], hist[k]))
+    out = dict(calls=len(patterns), by_width_p_units16={
+        f"{W}/{P}/{u}": c for (W, P, u), c in sorted(hist.items())})
+    R1 = ix.n_rows + 1
+    for label, key in (("commonest", common), ("widest", widest)):
+        W, w, s = next(p for p in patterns
+                       if (int(p[0]), len(p[1]),
+                           extract_units(p[1], p[2])["units16"]) == key)
+        fp_h = np.zeros((R1, W), np.uint8)
+        live = rng.random(ix.n) < 0.02
+        fp_h[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
+                                         dtype=np.uint8)
+        acc_h = fp_h | (rng.integers(0, 256, (R1, W), dtype=np.uint8)
+                        & (rng.random((R1, 1)) < 0.02).astype(np.uint8)
+                        * 255)
+        acc_h[-1] = 0
+        fp0 = torch.from_numpy(fp_h).to(dev)
+        acc0 = torch.from_numpy(acc_h).to(dev)
+        out[label] = dict(W=W, words=w.tolist(), sel=s.tolist(),
+                          **extract_time(torch, ell_ops, fp0, acc0, w, s,
+                                         f"serve {label}"))
+    return out
 
 
 WINDOWED = {"go_dispatch_mode": "windowed", "tpu_sparse_go": False,
@@ -6467,6 +6817,10 @@ def main(argv=None) -> int:
             mix_starts[mix_starts >= 0])
         for label, v in sparse_runs.items():
             log(f"[kernel] {label} equal=True " + json.dumps(v))
+        k4 = k4_odd_check(torch, ell_ops, rt, m, ix, tables, rng)
+        log("[kernel] sparse_expand at odd shapes and gated equal=True "
+            + json.dumps(k4))
+        sparse_rows["sparse_expand"].update(k4)
         k5 = k5_caller_check(torch, ell_ops, ix, tables, rng)
         log("[kernel] pair_compact in each caller's form equal=True "
             + json.dumps(k5))
@@ -6562,6 +6916,9 @@ def main(argv=None) -> int:
         # ---- 4. serve (continuous)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,
                             args.requests, args.threads, args.seed)
+        serve["extracts"] = serve_extract_rows(
+            torch, ell_ops, ix, serve["extracts"], rng, tables.nbr.device)
+        per_width[128]["lane_extract"]["serve"] = serve["extracts"]
         log("[serve] " + json.dumps(serve))
 
         # ---- 5. windowed

@@ -85,10 +85,18 @@ K8 (``edge_hop``) on a 2 %-dense frontier, one start (as a bitmap and,
 where the checkout's hop takes it, as the start list), every vertex
 and the 16 longest rows, and ``edge_seed`` with 1 and 256 starts:
 device and event times, launches a call by capture (``edge_rows``).
+The continuous session's join, extract and clear at W = 16 and 128
+(the extract on random words, the smallest leave cohort and, at W =
+128, words within two 16-byte units and one in each unit), device and
+event times, launches a call by capture (``lane_rows``); K4
+(``sparse_expand``) alone as ``sg_program``'s two hops make it at c0
+256 and 2048, its launches in ``adaptive_go`` at K = 2048 and gated
+off at K = 8 by kernel from a trace, and the launches a call of both
+programs (``k4_rows``); each checkout in its own call form.
 ``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
 and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``edge``, ``int8``,
 ``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``, ``bfs``, ``upload``,
-``count``.
+``count``, ``lanes``, ``k4``.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -124,7 +132,8 @@ BFS_CALLS = 3                  # back-to-back calls of a timed BFS
 MESH_QUEUED = 4                # mesh_sparse_go calls queued behind a spin
 MESH_SPIN = 16 * SPIN_CYCLES   # about 64 ms: four calls' host enqueue
 ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "edge", "int8", "mesh",
-              "mesh_sparse", "k5", "bfs_pair", "bfs", "upload", "count")
+              "mesh_sparse", "k5", "bfs_pair", "bfs", "upload", "count",
+              "lanes", "k4")
 SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
 LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
 # chip_smoke.py's predicate 3 and its seeded columns (fused_columns)
@@ -658,6 +667,229 @@ def k5_rows(torch, ell_ops, rt, m, ix, tables, over, rng, dev):
     return res
 
 
+def _pair_frontiers(torch, ix, W, rng, dev):
+    """``chip_smoke.kernel_phase``'s frontier pair at W bytes a row: about
+    2 % of the real rows random in fp, accp their union with another 2 %
+    of the rows random."""
+    import numpy as np
+    R1 = ix.n_rows + 1
+    fp_h = np.zeros((R1, W), np.uint8)
+    live = rng.random(ix.n) < 0.02
+    fp_h[:ix.n][live] = rng.integers(0, 256, (int(live.sum()), W),
+                                     dtype=np.uint8)
+    acc_h = fp_h | (rng.integers(0, 256, (R1, W), dtype=np.uint8)
+                    & (rng.random((R1, 1)) < 0.02).astype(np.uint8) * 255)
+    acc_h[-1] = 0
+    return torch.from_numpy(fp_h).to(dev), torch.from_numpy(acc_h).to(dev)
+
+
+def extract_cases(W: int, rng) -> dict:
+    """The extract's (words, sel) cases at W bytes a row, P = 8: random
+    distinct words and random sel (``chip_smoke.kernel_phase``'s); the
+    smallest leave cohort the continuous session makes (one word, exact
+    and UPTO, then its pads: word 0, exact); at W = 128 the words within
+    two 16-byte units of fp, and one word in each 16-byte unit (all 4
+    sectors of a row) with random sel."""
+    import numpy as np
+    P = 8
+    w = int(rng.integers(0, W))
+    cases = {
+        "random": (rng.choice(W, P, replace=False),
+                   (rng.random(P) < 0.5).astype(np.uint8)),
+        "cohort": (np.array([w, w] + [0] * (P - 2)),
+                   np.array([0, 1] + [0] * (P - 2), np.uint8))}
+    if W >= 64:
+        units = rng.choice(W // 16, 2, replace=False)
+        cases["units2"] = (16 * units[rng.integers(0, 2, P)]
+                           + rng.integers(0, 16, P),
+                           np.zeros(P, np.uint8))
+        cases["spread"] = (16 * rng.permutation(W // 16)[:P]
+                           + rng.integers(0, 16, P),
+                           (rng.random(P) < 0.5).astype(np.uint8))
+    return {k: (np.asarray(a, np.int32), s) for k, (a, s) in cases.items()}
+
+
+def lane_rows(torch, ell_ops, ix, rng, dev):
+    """The continuous session's join, extract and clear at W = 16 and 128
+    on ``chip_smoke.kernel_phase``'s inputs (join: 8 cleared lanes, 64
+    start rows each; clear: 8 lanes; extract: ``extract_cases``), held
+    equal to their plain versions: device time (calls queued behind a
+    spin), event time (back-to-back calls, the wrapper's launch path
+    included) and launches a call by capture."""
+    import numpy as np
+    R1 = ix.n_rows + 1
+    res = {}
+    for W in (16, 128):
+        B = 8 * W
+        fp0, acc0 = _pair_frontiers(torch, ix, W, rng, dev)
+        lanes = rng.choice(B, 8, replace=False)
+        keep_h = np.full(W, 0xFF, np.uint8)
+        for ln in lanes:
+            keep_h[ln >> 3] &= np.uint8(0xFF ^ (1 << (ln & 7)))
+        keep = torch.from_numpy(keep_h).to(dev)
+        fk, ak = fp0.clone(), acc0.clone()
+        fr, ar = fp0.clone(), acc0.clone()
+        ell_ops.lane_clear(fk, ak, keep)
+        ell_ops.lane_clear_ref(fr, ar, keep)
+        _equal(torch, f"lane_clear W={W}", (fk, fr), (ak, ar))
+
+        def clear():
+            ell_ops.lane_clear(fk, ak, keep)
+        res[f"lane_clear_w{W}"] = dict(
+            ms=queued_ms(torch, clear, QUEUED),
+            event_ms=cuda_ms(torch, clear, BACK_TO_BACK),
+            **_launches(torch, ell_ops, clear))
+        S = 64 * len(lanes)
+        rows_h = np.concatenate([rng.choice(ix.n, 64, replace=False)
+                                 for _ in lanes]).astype(np.int32)
+        words_h = np.repeat(lanes >> 3, 64).astype(np.int32)
+        vals_h = np.repeat(np.left_shift(1, lanes & 7), 64).astype(np.uint8)
+        join = tuple(torch.from_numpy(a).to(dev)
+                     for a in (rows_h, words_h, vals_h))
+        fj, aj = fk.clone(), ak.clone()
+        ell_ops.lane_join(fk, ak, *join)
+        ell_ops.lane_join_ref(fj, aj, *join)
+        _equal(torch, f"lane_join W={W}", (fk, fj), (ak, aj))
+
+        def joined():         # the OR is idempotent: each call the same work
+            ell_ops.lane_join(fk, ak, *join)
+        res[f"lane_join_w{W}"] = dict(
+            ms=queued_ms(torch, joined, QUEUED),
+            event_ms=cuda_ms(torch, joined, BACK_TO_BACK), starts=S,
+            **_launches(torch, ell_ops, joined))
+        for case, (words_h, sel_h) in extract_cases(W, rng).items():
+            words = torch.from_numpy(words_h).to(dev)
+            sel = torch.from_numpy(sel_h).to(dev)
+            P = len(words_h)
+            out = torch.empty((R1, P), dtype=torch.uint8, device=dev)
+            want = torch.empty_like(out)
+            ell_ops.lane_extract(fp0, acc0, words, sel, out)
+            ell_ops.lane_extract_ref(fp0, acc0, words, sel, want)
+            _equal(torch, f"lane_extract W={W} {case}", (out, want))
+
+            def extract():
+                ell_ops.lane_extract(fp0, acc0, words, sel, out)
+            units = {(int(s), int(w) // 16) for w, s in zip(words_h, sel_h)}
+            sectors = {(int(s), int(w) // 32) for w, s in zip(words_h, sel_h)}
+            res[f"lane_extract_w{W}_{case}"] = dict(
+                ms=queued_ms(torch, extract, QUEUED),
+                event_ms=cuda_ms(torch, extract, BACK_TO_BACK), P=P,
+                units16=len(units), sectors32=len(sectors),
+                bound_ms=(2 * R1 * P + 5 * P) / 3.35e9,
+                **_launches(torch, ell_ops, extract))
+        del fp0, acc0, fk, ak, fr, ar, fj, aj
+    return res
+
+
+def k4_rows(torch, ell_ops, rt, m, ix, tables, eslot, hrows, over, rng,
+            dev):
+    """K4 (``sparse_expand``) alone as ``sg_program``'s hops make it at
+    c0 256 (8 queries) and c0 2048 (1024 queries), 3 steps: hop 1 on the
+    padded start list, hop 2 on the list K5 leaves (cut at the hop's cap,
+    the pads after its count), each with the plan's hub budget clamp, held
+    equal to the plain version; then device and event times and launches
+    a call by capture, in the checkout's own form (a checkout whose K4
+    reads the live count K5 left in ``ctl``, ``counted``, is given it
+    from hop 2).  The adaptive program's K4 (3 steps, one start with 16
+    to 128 out-edges) by kernel from a trace of ``adaptive_go`` at K =
+    2048 (the sparse arm: K4 runs) and K = 8 (the dense arm from hop 2:
+    K4's launch returns at once on its mode word), and where the wrapper
+    takes a gate (``gate=``), the gated launch alone behind a spin, its
+    gate shut.  Last, the launches and C calls a call of ``sparse_go``
+    and ``adaptive_go`` by capture."""
+    import inspect
+
+    import numpy as np
+    from nebula_tpu_torch.tpu.ell import sparse_caps
+    params = inspect.signature(ell_ops.sparse_expand).parameters
+    counted, gated = "counted" in params, "gate" in params
+    deg_h = rt._deg_host(m, tuple(over))
+    pool = np.nonzero(deg_h > 0)[0]
+    ecnt, e0 = rt._hub_expansion_dev(m, ix)
+    R1w = (ix.n_rows + 32) // 32
+    res = {}
+    for c0, nq in ((SPARSE_C0, SPARSE_QUERIES), (2048, 1024)):
+        new = ix.perm[rng.choice(pool, nq, replace=False)].astype(np.int32)
+        q = np.arange(nq, dtype=np.int32)
+        o = np.lexsort((new, q))
+        ids_h = np.full(c0, ix.n_rows, np.int32)
+        qid_h = np.zeros(c0, np.int32)
+        ids_h[:nq], qid_h[:nq] = new[o], q[o]
+        caps = sparse_caps(c0, max(tables.D), 3, 1 << 17)
+        pl = ell_ops._sparse_plan(c0, tuple(caps), 1024, nq, tables.n,
+                                  tables.n_rows, False, None, False)
+        ids = torch.from_numpy(ids_h).to(dev)
+        qid = torch.from_numpy(qid_h).to(dev)
+        if c0 == SPARSE_C0:
+            def go(ids=ids, qid=qid, caps=caps, nq=nq):
+                return ell_ops.sparse_go(ids, qid, ecnt, e0, None, tables,
+                                         over, 3, caps, 1024, nq)
+            go()
+            res[f"sparse_go_plain_c0_{c0}"] = counts(torch, ell_ops, go)
+        mark = torch.zeros(nq * R1w, dtype=torch.int32, device=dev)
+        ctl = torch.zeros(8, dtype=torch.int64, device=dev)
+        for h, (c_out, ex, c_lim) in enumerate(pl.hops):
+            args = (ids, qid, ecnt, e0, tables, over, mark, R1w, ctl, c_lim)
+            extra = (False, h > 0) if counted else ()
+            m_r, c_r = mark.clone(), ctl.clone()
+            ell_ops.sparse_expand(*args, *extra)
+            ell_ops.sparse_expand_ref(*args[:6], m_r, R1w, c_r, c_lim,
+                                      *extra)
+            _equal(torch, f"sparse_expand c0={c0} hop {h + 1}", (mark, m_r),
+                   (ctl, c_r))
+            live = int((ids != ix.n_rows).sum())
+
+            def k4():
+                ell_ops.sparse_expand(*args, *extra)
+            res[f"sparse_expand_c0_{c0}_hop{h + 1}"] = dict(
+                ms=queued_ms(torch, k4, QUEUED),
+                event_ms=cuda_ms(torch, k4, BACK_TO_BACK),
+                pairs=int(ids.numel()), live_pairs=live,
+                reads_live_count=bool(extra and extra[1]),
+                **_launches(torch, ell_ops, k4))
+            if h + 1 == len(pl.hops):
+                break
+            # the timed calls left the hop's bits (the pushes are ORs);
+            # K5 cuts them to the next hop's list, the count into ctl
+            nxt = torch.empty((2, c_out), dtype=torch.int32, device=dev)
+            ctl.zero_()
+            ell_ops.pair_compact_ref(mark, R1w, c_out, nxt[0], nxt[1], ctl,
+                                     -1, ix.n_rows)
+            ids, qid = nxt[0], nxt[1]
+    is_over = m.edge_etype == over[0]
+    deg = np.bincount(m.edge_src[is_over], minlength=m.n)[:m.n]
+    first = int(np.nonzero((deg > 16) & (deg <= 128))[0][0])
+    start = torch.from_numpy(
+        ix.perm[np.asarray([first])].astype(np.int32)).to(dev)
+    hub = torch.from_numpy(ix.hub_table().astype(np.uint8)).to(dev)
+    for K in (2048, 8):
+        def adaptive():
+            return ell_ops.adaptive_go(start, hub, tables, eslot, hrows,
+                                       over, 3, K)
+        split = kernel_split(torch, ell_ops, adaptive)
+        row = {k: v for k, v in split["kernels"].items()
+               if k == "sparse_expand_kernel"}
+        res[f"sparse_expand_adaptive_K{K}"] = dict(
+            traced=row, **counts(torch, ell_ops, adaptive))
+    if gated:
+        fr = torch.full((2048,), ix.n_rows, dtype=torch.int32, device=dev)
+        cand = torch.zeros(R1w, dtype=torch.int32, device=dev)
+        ctl = torch.zeros(8, dtype=torch.int64, device=dev)
+        ctl[ell_ops.CTL_MODE] = ell_ops.MODE_DENSE
+
+        def shut():
+            ell_ops.sparse_expand(fr, None, None, None, tables, over, cand,
+                                  R1w, ctl, 0, False, True,
+                                  gate=ctl[ell_ops.CTL_MODE:
+                                           ell_ops.CTL_MODE + 1],
+                                  want=ell_ops.MODE_SPARSE)
+        res["sparse_expand_gated_shut"] = dict(
+            ms=queued_ms(torch, shut, QUEUED),
+            event_ms=cuda_ms(torch, shut, BACK_TO_BACK),
+            **_launches(torch, ell_ops, shut))
+    return res
+
+
 def bfs_pair_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng, dev):
     """``ell_bfs_sharded`` at k = MESH_K on this card beside the single-
     card ``ell_bfs`` on the same starts and targets (one random start
@@ -1169,7 +1401,10 @@ def main(argv=None) -> int:
                                  over, dev)),
         ("upload", lambda: upload_rows(torch, ell_ops, rt, ix, rng, dev)),
         ("count", lambda: count_rows(torch, ell_ops, rt, m, ix, tables,
-                                     eslot, hrows, over, rng, dev)))
+                                     eslot, hrows, over, rng, dev)),
+        ("lanes", lambda: lane_rows(torch, ell_ops, ix, rng, dev)),
+        ("k4", lambda: k4_rows(torch, ell_ops, rt, m, ix, tables, eslot,
+                               hrows, over, rng, dev)))
     try:
         for name, fn in groups:
             if name in rows:

@@ -153,9 +153,9 @@ def load() -> ctypes.CDLL:
                                       i32, i64, i64, vp]
         lib.ell_bfs_depth_i8.argtypes = [vp, vp, i64, vp]
         # csrc/sparse_go.cu
-        lib.sg_expand.argtypes = [vp, vp, i64, vp, vp, vp, vp, p64, i32,
-                                  p32, i32, i64, i64, i64, vp, vp, i64,
-                                  i32, vp]
+        lib.sg_expand.argtypes = [vp, vp, i64, vp, vp, vp, vp, vp, p64,
+                                  i32, p32, i32, i64, i64, i64, vp, vp, i64,
+                                  i32, vp, i64, vp]
         lib.sg_compact_state.argtypes = [i64]
         lib.sg_compact_state.restype = i64
         lib.sg_compact.argtypes = [vp, i64, i64, i64, vp, vp, vp, vp, i64,

@@ -476,27 +476,178 @@ frontier_upload_kernel(uint8_t* __restrict__ out,
 
 // ------------------------------------------------------------ extract
 // Replaces ell.py:726 make_lane_extract_kernel: out[:, j] = sel[j] ?
-// accp[:, words[j]] : fp[:, words[j]] as uint8 [n_rows + 1, P].  One
-// thread per output byte, consecutive threads on consecutive output
-// bytes.  Bound: bytes — each output byte pulls one 32-byte sector of
-// its row, so the gather side dominates; a later PR can stage rows
-// through shared memory.
-__global__ void lane_extract_kernel(const uint8_t* __restrict__ fp,
-                                    const uint8_t* __restrict__ accp,
-                                    const int32_t* __restrict__ words,
-                                    const uint8_t* __restrict__ sel,
-                                    uint8_t* __restrict__ out,
-                                    long long R1, int P, int W) {
-    const long long total = R1 * (long long)P;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < total; i += stride) {
-        const long long r = i / P;
-        const int j = (int)(i - r * P);
+// accp[:, words[j]] : fp[:, words[j]] as uint8 [n_rows + 1, P] (a word
+// outside [0, W) gives 0).  Bound: bytes — each output byte's source
+// byte read once and the output written once; what the card moves is
+// the sectors of the rows that hold a chosen word.  So a thread owns a
+// row: each block first reduces the P (word, sel) pairs to the set of
+// U-byte units of a row (U = 16 where the rows are 16-byte aligned,
+// else 4) that hold a chosen word, in fp or in accp, and each pair to
+// its byte in that set; then each thread loads only those units of its
+// row (consecutive threads on consecutive rows: at W = 16 one uint4 a
+// row, the whole rows read once), stages them in its own stretch of
+// shared memory (an odd number of words a thread, so a warp's byte reads
+// hit 32 banks), and builds its P output bytes there in registers,
+// stored `vec` bytes at a time (16, 8, 4 or 1, as P and out allow).  No
+// division by P a byte.  Shared memory (dynamic): the pairs' staged
+// byte offsets [P], the unit list [units_max], the unit bitmap and its
+// word prefix, then the threads' stretches.
+constexpr int kExtractBlocksPerSm = 8;
+constexpr int kExtractNone = 0xFFFF;          // a word outside the row
+
+struct ExtractShape {
+    int P, W, U, units_max, vec, map_words, stride_max;
+};
+
+// dynamic shared bytes of a block of `threads` threads
+inline long long extract_smem(const ExtractShape& e, int threads) {
+    return 4LL * (e.P + e.units_max + 2 * e.map_words + 1)
+           + 4LL * threads * e.stride_max;
+}
+
+// The first len (<= 16) of the 16 bytes v stored at o, vec bytes at a
+// time (16, 8, 4 or 1: what P and out's alignment allow).
+__device__ __forceinline__ void store_chunk(uint8_t* o,
+                                            const uint32_t (&v)[4], int len,
+                                            int vec) {
+    if (vec == 16) {
+        *reinterpret_cast<uint4*>(o) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else if (vec == 8) {
+        for (int h = 0; h < len; h += 8)
+            *reinterpret_cast<uint2*>(o + h) =
+                make_uint2(v[h >> 2], v[(h >> 2) + 1]);
+    } else if (vec == 4) {
+        for (int h = 0; h < len; h += 4)
+            *reinterpret_cast<uint32_t*>(o + h) = v[h >> 2];
+    } else {
+        for (int h = 0; h < len; ++h)
+            o[h] = (uint8_t)(v[h >> 2] >> (8 * (h & 3)));
+    }
+}
+
+template <int U>
+__global__ void __launch_bounds__(kThreads)
+lane_extract_kernel(const uint8_t* __restrict__ fp,
+                    const uint8_t* __restrict__ accp,
+                    const int32_t* __restrict__ words,
+                    const uint8_t* __restrict__ sel,
+                    uint8_t* __restrict__ out, long long R1, ExtractShape e) {
+    extern __shared__ uint32_t smem[];
+    int* s_pos = reinterpret_cast<int*>(smem);             // [P]
+    int* s_unit = s_pos + e.P;                             // [units_max]
+    uint32_t* s_map = smem + e.P + e.units_max;            // [map_words]
+    uint32_t* s_pre = s_map + e.map_words;                 // [map_words + 1]
+    uint32_t* stage = s_pre + e.map_words + 1;
+    const int per_src = e.W / U;                           // units a row
+    for (int k = threadIdx.x; k < e.map_words; k += blockDim.x)
+        s_map[k] = 0u;
+    __syncthreads();
+    for (int j = threadIdx.x; j < e.P; j += blockDim.x) {
         const int w = words[j];
+        if (w >= 0 && w < e.W) {
+            const int id = (sel[j] ? per_src : 0) + w / U;
+            atomicOr(s_map + (id >> 5), 1u << (id & 31));
+        }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        uint32_t run = 0;
+        for (int k = 0; k < e.map_words; ++k) {
+            s_pre[k] = run;
+            run += __popc(s_map[k]);
+        }
+        s_pre[e.map_words] = run;
+    }
+    __syncthreads();
+    const int units = (int)s_pre[e.map_words];
+    const int stride = (units * U / 4) | 1;  // odd: a warp's reads spread
+    for (int id = threadIdx.x; id < 2 * per_src; id += blockDim.x) {
+        const uint32_t m = s_map[id >> 5];
+        if ((m >> (id & 31)) & 1u) {
+            const int k = s_pre[id >> 5] + __popc(m & ((1u << (id & 31)) - 1u));
+            s_unit[k] = ((id >= per_src) << 30) | ((id % per_src) * U);
+        }
+    }
+    for (int j = threadIdx.x; j < e.P; j += blockDim.x) {
+        const int w = words[j];
+        int pos = kExtractNone;
+        if (w >= 0 && w < e.W) {
+            const int id = (sel[j] ? per_src : 0) + w / U;
+            const uint32_t m = s_map[id >> 5];
+            pos = (s_pre[id >> 5] + __popc(m & ((1u << (id & 31)) - 1u))) * U
+                  + w % U;
+        }
+        s_pos[j] = pos;
+    }
+    __syncthreads();
+    uint32_t* st = stage + threadIdx.x * stride;
+    const uint8_t* st8 = reinterpret_cast<const uint8_t*>(st);
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         r < R1; r += step) {
+        const long long row = r * e.W;
+#pragma unroll 4
+        for (int k = 0; k < units; ++k) {
+            const int u = s_unit[k];
+            const uint8_t* src = ((u >> 30) ? accp : fp) + row
+                                 + (u & 0x3FFFFFFF);
+            if (U == 16) {
+                const uint4 x = __ldg(reinterpret_cast<const uint4*>(src));
+                st[4 * k] = x.x;
+                st[4 * k + 1] = x.y;
+                st[4 * k + 2] = x.z;
+                st[4 * k + 3] = x.w;
+            } else {
+                st[k] = __ldg(reinterpret_cast<const uint32_t*>(src));
+            }
+        }
+        uint8_t* o = out + r * e.P;
+        for (int j0 = 0; j0 < e.P; j0 += 16) {
+            uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int jj = 0; jj < 16; ++jj) {
+                const int j = j0 + jj;
+                if (j < e.P) {
+                    const int pos = s_pos[j];
+                    const uint32_t b = pos == kExtractNone ? 0u : st8[pos];
+                    v[jj >> 2] |= b << (8 * (jj & 3));
+                }
+            }
+            store_chunk(o + j0, v, e.P - j0 < 16 ? e.P - j0 : 16, e.vec);
+        }
+    }
+}
+
+// The extract at W >= 32 with P a power of two (the session's P): a
+// thread an output byte, 2^lp = P consecutive threads on one row's P
+// bytes, so a warp's loads touch 32 / P rows (the row's chosen sectors;
+// a thread a row would spread each warp load over 32 rows) and its
+// stores are one 32-byte run; the pairs come from shared memory, the
+// row and column by shifts.
+__global__ void __launch_bounds__(kThreads)
+lane_extract_bytes_kernel(const uint8_t* __restrict__ fp,
+                          const uint8_t* __restrict__ accp,
+                          const int32_t* __restrict__ words,
+                          const uint8_t* __restrict__ sel,
+                          uint8_t* __restrict__ out, long long R1, int lp,
+                          int W) {
+    extern __shared__ uint32_t smem[];
+    int* s_word = reinterpret_cast<int*>(smem);    // [P]: -1 outside
+    const int P = 1 << lp;
+    for (int j = threadIdx.x; j < P; j += blockDim.x) {
+        const int w = words[j];
+        s_word[j] = w >= 0 && w < W ? (w | (sel[j] ? 1 << 30 : 0)) : -1;
+    }
+    __syncthreads();
+    const long long total = R1 << lp;
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < total; i += step) {
+        const int d = s_word[i & (P - 1)];
         uint8_t v = 0;
-        if (w >= 0 && w < W)
-            v = (sel[j] ? accp : fp)[r * W + w];
+        if (d >= 0)
+            v = __ldg(((d >> 30) ? accp : fp) + (i >> lp) * W
+                      + (d & 0x3FFFFFFF));
         out[i] = v;
     }
 }
@@ -1230,14 +1381,54 @@ int ell_lane_join(void* fp, void* accp, const void* rows, const void* words,
     return (int)cudaGetLastError();
 }
 
+// The extract: the per-byte kernel for rows of 32 bytes or more and a
+// power-of-two P (the session's), else the staged one (a thread a row).
 int ell_lane_extract(const void* fp, const void* accp, const void* words,
                      const void* sel, void* out, int64_t P, int64_t R1,
                      int64_t W, void* stream) {
-    if (P <= 0 || R1 <= 0 || W <= 0) return -1;
-    lane_extract_kernel<<<grid_for(R1 * P), kThreads, 0,
-                          (cudaStream_t)stream>>>(
+    if (P <= 0 || P > (1 << 24) || R1 <= 0 || W <= 0 || W % 4 != 0 ||
+        W > (1 << 24) || (((uintptr_t)fp | (uintptr_t)accp) & 3) != 0)
+        return -1;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (W >= 32 && P >= 8 && P <= 4096 && (P & (P - 1)) == 0) {
+        const int lp = __builtin_ctzll((unsigned long long)P);
+        lane_extract_bytes_kernel<<<grid_for(R1 << lp), kThreads,
+                                    4 * (size_t)P, s>>>(
+            (const uint8_t*)fp, (const uint8_t*)accp, (const int32_t*)words,
+            (const uint8_t*)sel, (uint8_t*)out, R1, lp, (int)W);
+        return (int)cudaGetLastError();
+    }
+    ExtractShape e;
+    e.P = (int)P;
+    e.W = (int)W;
+    e.U = (W % 16 == 0 &&
+           (((uintptr_t)fp | (uintptr_t)accp) & 15) == 0) ? 16 : 4;
+    const long long per_src = W / e.U;
+    e.units_max = (int)(P < 2 * per_src ? P : 2 * per_src);
+    e.map_words = (int)((2 * per_src + 31) / 32);
+    e.stride_max = (e.units_max * e.U / 4) | 1;
+    const uintptr_t o = (uintptr_t)out;
+    e.vec = P % 16 == 0 && o % 16 == 0 ? 16
+          : P % 8 == 0 && o % 8 == 0 ? 8
+          : P % 4 == 0 && o % 4 == 0 ? 4 : 1;
+    int threads = kThreads;
+    while (threads > 32 && extract_smem(e, threads) > 48 * 1024)
+        threads /= 2;
+    const long long smem = extract_smem(e, threads);
+    const long long most = (long long)kExtractBlocksPerSm * sm_count();
+    if (most == 0) return (int)cudaErrorInvalidDevice;
+    long long blocks = (R1 + threads - 1) / threads;
+    if (blocks > most) blocks = most;
+    const auto kernel = e.U == 16 ? lane_extract_kernel<16>
+                                  : lane_extract_kernel<4>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<(unsigned)blocks, threads, (size_t)smem, s>>>(
         (const uint8_t*)fp, (const uint8_t*)accp, (const int32_t*)words,
-        (const uint8_t*)sel, (uint8_t*)out, R1, (int)P, (int)W);
+        (const uint8_t*)sel, (uint8_t*)out, R1, e);
     return (int)cudaGetLastError();
 }
 

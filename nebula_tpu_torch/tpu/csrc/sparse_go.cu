@@ -12,14 +12,16 @@
 // sorted by (query, vertex), deduped, cut to the hop's cap, with the
 // unique count before the cut — without a sort:
 //
-//   K4 sparse_expand   one warp per live pair walks the pair's main row
-//                      and, for a hub, its extra-row run, and atomicOrs
-//                      bit (q, u) for every slot whose etype is in the
-//                      negated OVER set (the push direction).  It adds
-//                      the pair's extra-row count to the hop's 64-bit
-//                      hub budget total.  Self mode marks (q, v) itself
-//                      (the UPTO union's and the adaptive bitmap's
-//                      start state).
+//   K4 sparse_expand   a grid of a few blocks an SM strides over the
+//                      live pairs only (K5's count, or the host's); a
+//                      warp lays a tile of pairs' row slots end to end
+//                      over its lanes, walks each hub's extra-row run
+//                      whole, and atomicOrs bit (q, u) for every slot
+//                      whose etype is in the negated OVER set (the push
+//                      direction).  It adds the pairs' extra-row counts
+//                      to the hop's 64-bit hub budget total, one add a
+//                      warp.  Self mode marks (q, v) itself (the UPTO
+//                      union's and the adaptive bitmap's start state).
 //   K5 pair_compact    one pass, one launch: each chunk of the bitmap
 //                      read once, its bits counted and scanned, its
 //                      offset from a decoupled look-back over the
@@ -144,16 +146,25 @@ __device__ __forceinline__ bool gated_off(const long long* gate,
     return gate != nullptr && *gate != want;
 }
 
+// The buckets as K4 takes them: row0 nondecreasing (bucket b holds rows
+// row0[b] .. row0[b + 1]), and a bit b of quads when bucket b's slots
+// start on a 16-byte boundary and D[b] % 4 == 0 (the tables' pointers
+// aligned too): hub extra rows there are read 16 bytes at a time.
 struct Buckets {
     long long row0[kMaxBuckets];
     long long slot0[kMaxBuckets];
     int D[kMaxBuckets];
     int n;
+    unsigned quads;
 };
 
+// The negated OVER set, with a bitmask of etype + 32 when every member
+// lies in [-32, 31] (use_mask).
 struct OverSet {
     int et[kMaxOver];
     int n;
+    int use_mask;
+    unsigned long long mask;
 };
 
 inline unsigned blocks_for(long long threads, int per_block) {
@@ -209,74 +220,236 @@ __device__ __forceinline__ long long warp_incl(long long x) {
     return x;
 }
 
-__device__ __forceinline__ int bucket_of(const Buckets& bk, long long r) {
-    int b = 0;
-    for (int k = 1; k < bk.n; ++k)
-        if (bk.row0[k] <= r) b = k;
-    return b;
-}
 
 // ---------------------------------------------------------------- K4
-// One warp per input pair (p < c_in).  The pair (q, v) is live unless v
-// is the sentinel n_rows.  Rows walked: v, then (when the tables have
-// extra rows) e0[v] .. e0[v] + ecnt[v] - 1; each lane takes every 32nd
-// slot of a row.  The budget: ecnt[v] summed into ctl[kHubTotal] in 64
-// bits, and ctl[kHubBig] raised when ecnt[v] > c_lim (the reference's
-// clamp, _segmented_hub_iota ell.py:402).  qid may be null (one query).
-__global__ void sparse_expand_kernel(const int32_t* __restrict__ ids,
-                                     const int32_t* __restrict__ qid,
-                                     long long c_in,
-                                     const int32_t* __restrict__ ecnt,
-                                     const int32_t* __restrict__ e0,
-                                     const int32_t* __restrict__ nbr,
-                                     const int32_t* __restrict__ et,
-                                     Buckets bk, OverSet neg, long long n,
-                                     long long n_rows, long long R1w,
-                                     uint32_t* __restrict__ mark,
-                                     long long* __restrict__ ctl,
-                                     long long c_lim, int self_mode,
-                                     const long long* __restrict__ gate,
-                                     long long want) {
-    if (gated_off(gate, want)) return;
+// Replaces nebula_tpu/tpu/ell.py:1315 (the hop's candidate matrix, +
+// :1296, and _segmented_hub_iota :402).  The pair (q, v) is live unless
+// v is the sentinel n_rows.  Rows walked: v, then (when the tables have
+// extra rows) e0[v] .. e0[v] + ecnt[v] - 1.  The budget: ecnt[v] summed
+// into ctl[kHubTotal] in 64 bits, and ctl[kHubBig] raised when ecnt[v] >
+// c_lim (the reference's clamp).  qid may be null (one query).
+//
+// Bound on this card: bytes, and at the sizes the programs give it (a
+// few to a few thousand pairs) the latency of its dependent loads: the
+// pair, then its row's slots.  So: the grid strides over the live pairs
+// only — the first `live` of the list, live = min(*cnt, c_in) (the
+// count the previous K5 left; K5 pads the tail) or c_in (the host's
+// count) — at a warp a tile of ppw consecutive pairs (ppw from c_in and
+// the grid: a block for 8 pairs, at most 16 blocks an SM), so a short
+// or gated-off list costs a few blocks and no pass over its pads; with
+// one pair a tile (lists up to about 17,000 pairs on an H100) every lane
+// reads it and the warp walks its row with no shuffle, with more the
+// tile's main rows are laid end to end over the 32 lanes, so a warp
+// serves many small rows at once; et and nbr of a slot are read
+// together, the OVER test is a bitmask; a hub pair's extra-row run is
+// walked by the whole warp, a run inside one bucket as one contiguous
+// range of 16-byte units (where the bucket's slots are aligned), four
+// a lane in flight; one 64-bit hub-budget add a warp.  Measured on an
+// H100: 16-byte units on the main rows, the bucket lookup fully
+// unrolled, or the tables' buckets staged in shared memory, each made
+// the short lists slower (the code and registers they add).
+constexpr int kExpandBlocksPerSm = 16;
+constexpr int kExpandWarps = kThreads / 32;
+
+__device__ __forceinline__ bool in_neg(int e, const OverSet& ov) {
+    if (ov.use_mask) {
+        const unsigned k = (unsigned)(e + 32);
+        return k < 64u && ((ov.mask >> k) & 1ull);
+    }
+    bool ok = false;
+    for (int t = 0; t < ov.n; ++t) ok |= (e == ov.et[t]);
+    return ok;
+}
+
+// Row r's place in the tables: the last bucket whose row0 is <= r (0
+// when none; row0 nondecreasing), found by a count over the kernel's
+// parameters in a loop whose index every lane shares (each read one
+// broadcast), then its first slot, width and unit (4 slots where the
+// bucket's slots are 16-byte aligned, else 1).
+struct RowAt {
+    long long base;
+    int b, D, uw;
+};
+
+__device__ __forceinline__ RowAt row_at(const Buckets& bk, long long r) {
+    int b = 0;
+    for (int k = 1; k < bk.n; ++k) b += bk.row0[k] <= r;
+    return RowAt{bk.slot0[b] + (r - bk.row0[b]) * bk.D[b], b, bk.D[b],
+                 (bk.quads >> b) & 1u ? 4 : 1};
+}
+
+__device__ __forceinline__ void push(uint32_t* row, int e, int u,
+                                     const OverSet& ov, long long n_rows) {
+    if (in_neg(e, ov) && u >= 0 && u < n_rows)
+        atomicOr(row + (u >> 5), 1u << (u & 31));
+}
+
+// `nu` units of `uw` slots (4: 16 bytes, else 1) from slot `base`,
+// spread over the warp's lanes (a hub's extra rows inside one bucket),
+// four units a lane loaded together before their pushes.
+__device__ __forceinline__ void walk_units(uint32_t* row, long long base,
+                                           long long nu, int uw,
+                                           const int32_t* nbr,
+                                           const int32_t* et,
+                                           const OverSet& ov,
+                                           long long n_rows) {
     const int lane = threadIdx.x & 31;
-    const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
-    for (long long p = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
-                       >> 5;
-         p < c_in; p += warps) {
-        const long long v = ids[p];
-        if (v < 0 || v >= n_rows) continue;      // sentinel: inactive
-        const long long q = qid ? qid[p] : 0;
-        uint32_t* row = mark + q * R1w;
-        if (self_mode) {
-            if (lane == 0) atomicOr(row + (v >> 5), 1u << (v & 31));
-            continue;
-        }
-        long long ce = 0, first = 0;
-        if (ecnt != nullptr) {
-            const long long vi = v < n ? v : n;
-            ce = ecnt[vi];
-            first = e0[vi];
-            if (lane == 0 && ce > 0) {
-                atomicAdd(reinterpret_cast<unsigned long long*>(
-                              ctl + kHubTotal),
-                          (unsigned long long)ce);
-                if (ce > c_lim) ctl[kHubBig] = 1;
+    for (long long k0 = 0; k0 < nu; k0 += 128) {
+        int4 e[4], u[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+            const long long k = k0 + lane + 32 * h;
+            e[h] = make_int4(0, 0, 0, 0);
+            u[h] = make_int4(-1, -1, -1, -1);
+            if (k < nu && uw == 4) {
+                e[h] = __ldg(reinterpret_cast<const int4*>(et + base + 4 * k));
+                u[h] = __ldg(reinterpret_cast<const int4*>(nbr + base
+                                                           + 4 * k));
+            } else if (k < nu) {
+                e[h].x = __ldg(et + base + k);
+                u[h].x = __ldg(nbr + base + k);
             }
         }
-        for (long long k = -1; k < ce; ++k) {
-            const long long r = k < 0 ? v : first + k;
-            if (r < 0 || r >= n_rows) continue;
-            const int b = bucket_of(bk, r);
-            const int D = bk.D[b];
-            const long long base = bk.slot0[b] + (r - bk.row0[b]) * D;
-            for (int j = lane; j < D; j += 32) {
-                const int e = et[base + j];
-                bool ok = false;
-                for (int t = 0; t < neg.n; ++t) ok |= (e == neg.et[t]);
-                if (!ok) continue;
-                const long long u = nbr[base + j];
-                if (u < 0 || u >= n_rows) continue;
-                atomicOr(row + (u >> 5), 1u << (u & 31));
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+            push(row, e[h].x, u[h].x, ov, n_rows);
+            push(row, e[h].y, u[h].y, ov, n_rows);
+            push(row, e[h].z, u[h].z, ov, n_rows);
+            push(row, e[h].w, u[h].w, ov, n_rows);
+        }
+    }
+}
+
+// A tile's main rows laid end to end over the warp's lanes: lane l <
+// ppw holds pair l's slot count D (the other lanes 0), first slot and
+// query; each lane walks items lane, lane + 32, ... and finds the pair
+// it falls in by a search of the counts' inclusive scan (span: ppw
+// rounded up to a power of two).  Every lane of the warp takes part.
+__device__ __forceinline__ void spread_slots(int slots, long long base,
+                                             int qv, int ppw, int span,
+                                             uint32_t* mark, long long R1w,
+                                             const int32_t* nbr,
+                                             const int32_t* et,
+                                             const OverSet& neg,
+                                             long long n_rows) {
+    const int lane = threadIdx.x & 31;
+    int incl = slots;
+    for (int o = 1; o < span; o <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+        if (lane >= o) incl += y;
+    }
+    const int total = __shfl_sync(0xFFFFFFFFu, incl, ppw - 1);
+    const long long start = base - (incl - slots);  // base less the items
+                                                     // before the pair
+    for (int i0 = 0; i0 < total; i0 += 32) {
+        const int i = i0 + lane;
+        int o = 0;                            // the first lane with incl > i
+        for (int st = span >> 1; st > 0; st >>= 1) {
+            const int x = __shfl_sync(0xFFFFFFFFu, incl, o + st - 1);
+            if (x <= i) o += st;
+        }
+        const long long os = __shfl_sync(0xFFFFFFFFu, start, o);
+        const int oq = __shfl_sync(0xFFFFFFFFu, qv, o);
+        if (i < total)
+            push(mark + (long long)oq * R1w, __ldg(et + os + i),
+                 __ldg(nbr + os + i), neg, n_rows);
+    }
+}
+
+__global__ void __launch_bounds__(kThreads)
+sparse_expand_kernel(const int32_t* __restrict__ ids,
+                     const int32_t* __restrict__ qid, long long c_in,
+                     const long long* __restrict__ cnt,
+                     const int32_t* __restrict__ ecnt,
+                     const int32_t* __restrict__ e0,
+                     const int32_t* __restrict__ nbr,
+                     const int32_t* __restrict__ et, Buckets bk,
+                     OverSet neg, long long n, long long n_rows,
+                     long long R1w, uint32_t* __restrict__ mark,
+                     long long* __restrict__ ctl, long long c_lim,
+                     int self_mode, int ppw,
+                     const long long* __restrict__ gate, long long want) {
+    const int lane = threadIdx.x & 31;
+    const int span = 1 << (32 - __clz(ppw - 1));  // ppw up to a power of 2
+    const long long warps = (long long)gridDim.x * kExpandWarps;
+    const long long w0 = (long long)blockIdx.x * kExpandWarps
+                         + (threadIdx.x >> 5);
+    // lane l < ppw holds pair l of its warp's tile, the other lanes a copy
+    // of pair 0 (with one pair a tile, every lane has its own); the first
+    // tile's pair is read beside the gate and the count (one round trip:
+    // the list holds c_in pairs whatever the count)
+    const bool mine = lane < ppw;
+    long long p = w0 * ppw + (mine ? lane : 0);
+    int v = p < c_in ? __ldg(ids + p) : -1;
+    int qv = p < c_in && qid ? __ldg(qid + p) : 0;
+    const long long g = gate ? *gate : want;
+    long long live = c_in;
+    if (cnt) {
+        const long long c = *cnt;
+        live = c < c_in ? c : c_in;
+    }
+    if (g != want) return;
+    for (long long t = w0; t * ppw < live; t += warps) {
+        if (t != w0) {
+            p = t * ppw + (mine ? lane : 0);
+            v = p < live ? __ldg(ids + p) : -1;
+            qv = p < live && qid ? __ldg(qid + p) : 0;
+        }
+        const bool ok = p < live && v >= 0 && v < n_rows;
+        const long long q = qv;         // (qid < nq <= 2^30)
+        if (self_mode) {
+            if (ok && mine)
+                atomicOr(mark + q * R1w + (v >> 5), 1u << (v & 31));
+            continue;
+        }
+        int ce = 0, first = 0;
+        if (ok && mine && ecnt != nullptr) {
+            const long long vi = v < n ? v : n;
+            ce = __ldg(ecnt + vi);
+            first = __ldg(e0 + vi);
+        }
+        int slots = 0;
+        long long base = 0;
+        if (ok) {
+            const RowAt at = row_at(bk, v);
+            slots = at.D;
+            base = at.base;
+        }
+        if (ppw == 1) {                 // the warp's one pair, no shuffles
+            for (int i = lane; i < slots; i += 32)
+                push(mark + q * R1w, __ldg(et + base + i),
+                     __ldg(nbr + base + i), neg, n_rows);
+        } else {
+            spread_slots(mine ? slots : 0, base, qv, ppw, span, mark, R1w,
+                         nbr, et, neg, n_rows);
+        }
+        if (ecnt == nullptr) continue;
+        unsigned long long sum = (unsigned long long)ce;   // lanes < span
+        for (int o = span >> 1; o > 0; o >>= 1)
+            sum += __shfl_xor_sync(0xFFFFFFFFu, sum, o);
+        const unsigned big = __ballot_sync(0xFFFFFFFFu, ce > 0 && ce > c_lim);
+        if (lane == 0) {
+            if (sum)
+                atomicAdd(reinterpret_cast<unsigned long long*>(
+                              ctl + kHubTotal), sum);
+            if (big) ctl[kHubBig] = 1;
+        }
+        unsigned hubs = __ballot_sync(0xFFFFFFFFu, ce > 0);
+        while (hubs) {
+            const int src = __ffs(hubs) - 1;
+            hubs &= hubs - 1u;
+            const long long f = __shfl_sync(0xFFFFFFFFu, first, src);
+            const long long c = __shfl_sync(0xFFFFFFFFu, ce, src);
+            uint32_t* row = mark + __shfl_sync(0xFFFFFFFFu, q, src) * R1w;
+            long long r = f < 0 ? 0 : f;
+            const long long end = f + c < n_rows ? f + c : n_rows;
+            while (r < end) {           // the run's part in one bucket
+                const RowAt at = row_at(bk, r);
+                long long stop = at.b + 1 < bk.n ? bk.row0[at.b + 1] : end;
+                if (stop > end || stop <= r) stop = end;
+                walk_units(row, at.base, (stop - r) * at.D / at.uw, at.uw,
+                           nbr, et, neg, n_rows);
+                r = stop;
             }
         }
     }
@@ -932,51 +1105,100 @@ enum AdaptivePlan {
 
 extern "C" {
 
-// K4 over one pair list.
+// K4 over one pair list: the first c_in pairs, or (cnt, a device word)
+// the first min(*cnt, c_in); gate / want as the gated kernels' (null:
+// always run).  One launch, also on an empty list (the programs'
+// launch counts are fixed).
 static int expand_launch(const int32_t* ids, const int32_t* qid,
-                         int64_t c_in, const int32_t* ecnt,
-                         const int32_t* e0, const int32_t* nbr,
-                         const int32_t* et, const Buckets& bk,
-                         const OverSet& ov, int64_t n, int64_t n_rows,
-                         int64_t R1w, uint32_t* mark, long long* ctl,
-                         int64_t c_lim, int self_mode, const long long* gate,
-                         long long want, cudaStream_t s) {
-    if (c_in == 0) return 0;
-    sparse_expand_kernel<<<blocks_for(c_in * 32, kThreads), kThreads, 0,
-                           s>>>(ids, qid, c_in, ecnt, e0, nbr, et, bk, ov,
-                                n, n_rows, R1w, mark, ctl, c_lim, self_mode,
-                                gate, want);
+                         int64_t c_in, const long long* cnt,
+                         const int32_t* ecnt, const int32_t* e0,
+                         const int32_t* nbr, const int32_t* et,
+                         const Buckets& bk, const OverSet& ov, int64_t n,
+                         int64_t n_rows, int64_t R1w, uint32_t* mark,
+                         long long* ctl, int64_t c_lim, int self_mode,
+                         const long long* gate, long long want,
+                         cudaStream_t s) {
+    if (c_in < 0) return -1;
+    const long long most = (long long)kExpandBlocksPerSm * sm_count();
+    if (most == 0) return (int)cudaErrorInvalidDevice;
+    long long blocks = (c_in + 7) / 8;        // at least a pair a warp
+    if (blocks > most) blocks = most;
+    if (blocks < 1) blocks = 1;
+    const long long warps = blocks * kExpandWarps;
+    long long ppw = (c_in + warps - 1) / warps;
+    ppw = ppw < 1 ? 1 : (ppw > 32 ? 32 : ppw);
+    sparse_expand_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+        ids, qid, c_in, cnt, ecnt, e0, nbr, et, bk, ov, n, n_rows, R1w,
+        mark, ctl, c_lim, self_mode, (int)ppw, gate, want);
     return (int)cudaGetLastError();
+}
+
+// The buckets and the negated OVER set as K4 takes them; false when a
+// count is out of range or row0 decreases.
+static bool make_buckets(const long long* row0, const long long* slot0,
+                         const int* D, int n_buckets, const void* nbr,
+                         const void* et, Buckets* bk) {
+    if (n_buckets < 1 || n_buckets > kMaxBuckets) return false;
+    const bool aligned = (((uintptr_t)nbr | (uintptr_t)et) & 15) == 0;
+    bk->n = n_buckets;
+    bk->quads = 0u;
+    for (int b = 0; b < n_buckets; ++b) {
+        if (D[b] < 1 || (b > 0 && row0[b] < row0[b - 1])) return false;
+        bk->row0[b] = row0[b];
+        bk->slot0[b] = slot0[b];
+        bk->D[b] = D[b];
+        if (aligned && slot0[b] % 4 == 0 && D[b] % 4 == 0)
+            bk->quads |= 1u << b;
+    }
+    return true;
+}
+
+static bool make_over(const int32_t* neg, int n_neg, OverSet* ov) {
+    if (n_neg < 0 || n_neg > kMaxOver) return false;
+    ov->n = n_neg;
+    ov->use_mask = 1;
+    ov->mask = 0ull;
+    for (int k = 0; k < n_neg; ++k) {
+        ov->et[k] = neg[k];
+        if (neg[k] < -32 || neg[k] > 31) ov->use_mask = 0;
+        else ov->mask |= 1ull << (neg[k] + 32);
+    }
+    return true;
 }
 
 // K4.  bucket_desc: host int64 [n_buckets * 3] (row0, slot0, D); neg:
 // host int32 [n_neg], the negated OVER set.  ecnt / e0 null: no hub
-// expansion.  qid null: every pair is query 0.
+// expansion.  qid null: every pair is query 0.  cnt: null, or a device
+// int64 word (the previous K5's count, ctl[kCnt]) that cuts the list to
+// its first min(*cnt, c_in) pairs.  gate: null, or a device int64 word
+// (the adaptive program's mode word) that must equal `want` for the
+// launch to run.
 int sg_expand(const void* ids, const void* qid, int64_t c_in,
-              const void* ecnt, const void* e0, const void* nbr,
-              const void* et, const int64_t* bucket_desc, int n_buckets,
-              const int32_t* neg, int n_neg, int64_t n, int64_t n_rows,
-              int64_t R1w, void* mark, void* ctl, int64_t c_lim,
-              int self_mode, void* stream) {
-    if (n_buckets < 1 || n_buckets > kMaxBuckets || n_neg < 0 ||
-        n_neg > kMaxOver || c_in < 0 || R1w <= 0)
-        return -1;
-    Buckets bk;
-    bk.n = n_buckets;
+              const void* cnt, const void* ecnt, const void* e0,
+              const void* nbr, const void* et, const int64_t* bucket_desc,
+              int n_buckets, const int32_t* neg, int n_neg, int64_t n,
+              int64_t n_rows, int64_t R1w, void* mark, void* ctl,
+              int64_t c_lim, int self_mode, const void* gate, int64_t want,
+              void* stream) {
+    if (n_buckets < 1 || n_buckets > kMaxBuckets || R1w <= 0) return -1;
+    long long row0[kMaxBuckets], slot0[kMaxBuckets];
+    int D[kMaxBuckets];
     for (int b = 0; b < n_buckets; ++b) {
-        bk.row0[b] = bucket_desc[3 * b];
-        bk.slot0[b] = bucket_desc[3 * b + 1];
-        bk.D[b] = (int)bucket_desc[3 * b + 2];
+        row0[b] = bucket_desc[3 * b];
+        slot0[b] = bucket_desc[3 * b + 1];
+        D[b] = (int)bucket_desc[3 * b + 2];
     }
+    Buckets bk;
     OverSet ov;
-    ov.n = n_neg;
-    for (int k = 0; k < n_neg; ++k) ov.et[k] = neg[k];
+    if (!make_buckets(row0, slot0, D, n_buckets, nbr, et, &bk) ||
+        !make_over(neg, n_neg, &ov))
+        return -1;
     return expand_launch((const int32_t*)ids, (const int32_t*)qid, c_in,
-                         (const int32_t*)ecnt, (const int32_t*)e0,
-                         (const int32_t*)nbr, (const int32_t*)et, bk, ov, n,
-                         n_rows, R1w, (uint32_t*)mark, (long long*)ctl,
-                         c_lim, self_mode, nullptr, 0,
-                         (cudaStream_t)stream);
+                         (const long long*)cnt, (const int32_t*)ecnt,
+                         (const int32_t*)e0, (const int32_t*)nbr,
+                         (const int32_t*)et, bk, ov, n, n_rows, R1w,
+                         (uint32_t*)mark, (long long*)ctl, c_lim, self_mode,
+                         (const long long*)gate, want, (cudaStream_t)stream);
 }
 
 // K5's look-back state, int64 words a member, for a bitmap of `words`
@@ -1141,20 +1363,13 @@ int sg_reduce(int op, const void* ids, const void* qid, int64_t c,
 // The tables' buckets and negated OVER set as the kernels take them;
 // false when a count is out of range.
 static bool read_tables(const SparseTables& t, Buckets* bk, OverSet* ov) {
-    if (t.n_buckets < 1 || t.n_buckets > kMaxBuckets || t.n_neg < 1 ||
-        t.n_neg > kMaxOver || t.n < 0 || t.n_rows < t.n ||
+    if (t.n_neg < 1 || t.n < 0 || t.n_rows < t.n ||
         t.R1w != (t.n_rows + 32) / 32 || t.nbr == nullptr ||
         t.et == nullptr)
         return false;
-    bk->n = t.n_buckets;
-    for (int b = 0; b < t.n_buckets; ++b) {
-        bk->row0[b] = t.row0[b];
-        bk->slot0[b] = t.slot0[b];
-        bk->D[b] = t.D[b];
-    }
-    ov->n = t.n_neg;
-    for (int k = 0; k < t.n_neg; ++k) ov->et[k] = t.neg[k];
-    return true;
+    return make_buckets(t.row0, t.slot0, t.D, t.n_buckets, t.nbr, t.et,
+                        bk) &&
+           make_over(t.neg, t.n_neg, ov);
 }
 
 // true when [at, at + len) lies in [lo, hi)
@@ -1236,8 +1451,9 @@ int sg_program(SparseTables t, const void* ids, const void* qid,
     int rc = 0;
     if (upto) {
         rc = expand_launch((const int32_t*)ids, (const int32_t*)qid, c0,
-                           nullptr, nullptr, t.nbr, t.et, bk, ov, t.n,
-                           t.n_rows, t.R1w, uni, ctl, 0, 1, nullptr, 0, s);
+                           nullptr, nullptr, nullptr, t.nbr, t.et, bk, ov,
+                           t.n, t.n_rows, t.R1w, uni, ctl, 0, 1, nullptr, 0,
+                           s);
         if (rc != 0) return rc;
         ++launched[0];
     }
@@ -1246,10 +1462,11 @@ int sg_program(SparseTables t, const void* ids, const void* qid,
     long long c_in = c0;
     for (long long h = 0; h < hops; ++h) {
         const int64_t* hp = plan + kPHead + 3 * h;    // c_out, ex, c_lim
-        rc = expand_launch(cur_i, cur_q, c_in, hubs ? t.ecnt : nullptr,
-                           hubs ? t.e0 : nullptr, t.nbr, t.et, bk, ov, t.n,
-                           t.n_rows, t.R1w, mark, ctl, hp[2], 0, nullptr, 0,
-                           s);
+        // from the second hop the list is K5's: its count in ctl
+        rc = expand_launch(cur_i, cur_q, c_in, h > 0 ? ctl + kCnt : nullptr,
+                           hubs ? t.ecnt : nullptr, hubs ? t.e0 : nullptr,
+                           t.nbr, t.et, bk, ov, t.n, t.n_rows, t.R1w, mark,
+                           ctl, hp[2], 0, nullptr, 0, s);
         if (rc != 0) return rc;
         ++launched[0];
         int32_t* nxt_i = bufs + (h % 2) * 2 * cmax;
@@ -1383,9 +1600,9 @@ int ad_program(SparseTables t, const void* starts, int64_t S,
         (const int32_t*)starts, S, fr, K, t.n_rows, ctl);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    int rc = expand_launch(fr, nullptr, K, nullptr, nullptr, t.nbr, t.et,
-                           bk, ov, t.n, t.n_rows, R1w, state, ctl, 0, 1,
-                           nullptr, 0, s);
+    int rc = expand_launch(fr, nullptr, S, nullptr, nullptr, nullptr, t.nbr,
+                           t.et, bk, ov, t.n, t.n_rows, R1w, state, ctl, 0,
+                           1, nullptr, 0, s);
     if (rc != 0) return rc;
     ++launched[0];
     for (long long h = 0; h < hops; ++h) {
@@ -1400,9 +1617,12 @@ int ad_program(SparseTables t, const void* starts, int64_t S,
         rc = lanes_launch(1, state, f_in, R1, ctl + kConv, 1, s);
         if (rc != 0) return rc;
         ++launched[3];
-        rc = expand_launch(fr, nullptr, K, nullptr, nullptr, t.nbr, t.et,
-                           bk, ov, t.n, t.n_rows, R1w, cand, ctl, 0, 0,
-                           mode, kModeSparse, s);
+        // the first hop's list is the S starts; a later one is K5's,
+        // its count in ctl
+        rc = expand_launch(fr, nullptr, h > 0 ? K : S,
+                           h > 0 ? ctl + kCnt : nullptr, nullptr, nullptr,
+                           t.nbr, t.et, bk, ov, t.n, t.n_rows, R1w, cand,
+                           ctl, 0, 0, mode, kModeSparse, s);
         if (rc != 0) return rc;
         ++launched[0];
         rc = compact_launch(cand, R1w, R1w, K, fr, nullptr, 0, scan_at,

@@ -1356,9 +1356,22 @@ def expand_rows(ids, qid, ecnt, e0, n, n_rows):
     return r[ok], rq_[ok], ce
 
 
+def _expand_live(ids, qid, ctl, counted):
+    """K4's list: every pair, or (``counted``) the first
+    ``ctl[CTL_CNT]`` of them, the count the previous K5 left."""
+    if not counted:
+        return ids, qid
+    live = min(int(ctl[CTL_CNT]), ids.shape[0])
+    return ids[:live], None if qid is None else qid[:live]
+
+
 def sparse_expand_ref(ids, qid, ecnt, e0, tables, over, mark, R1w, ctl,
-                      c_lim, self_mode=False):
+                      c_lim, self_mode=False, counted=False, gate=None,
+                      want=0):
     """Plain version of ``sparse_expand`` (K4)."""
+    if gate is not None and int(gate[0]) != want:
+        return mark
+    ids, qid = _expand_live(ids, qid, ctl, counted)
     n, n_rows = tables.n, tables.n_rows
     if self_mode:
         v, q, _ce = expand_rows(ids, qid, None, None, n, n_rows)
@@ -1377,7 +1390,10 @@ def sparse_expand(ids: torch.Tensor, qid: Optional[torch.Tensor],
                   ecnt: Optional[torch.Tensor], e0: Optional[torch.Tensor],
                   tables: DeviceTables, over: Sequence[int],
                   mark: torch.Tensor, R1w: int, ctl: torch.Tensor,
-                  c_lim: int, self_mode: bool = False) -> torch.Tensor:
+                  c_lim: int, self_mode: bool = False,
+                  counted: bool = False,
+                  gate: Optional[torch.Tensor] = None,
+                  want: int = 0) -> torch.Tensor:
     """K4: push every live pair (qid[i], ids[i]) (ids == n_rows:
     inactive; ``qid=None``: all query 0) out of its main row and, given
     ``ecnt``/``e0`` (ell.EllIndex.hub_expansion), out of its hub
@@ -1385,7 +1401,13 @@ def sparse_expand(ids: torch.Tensor, qid: Optional[torch.Tensor],
     every slot u whose etype is in the negated OVER set.  The pairs'
     extra-row counts add to ``ctl[CTL_HUB_TOTAL]``; a count past
     ``c_lim`` sets ``ctl[CTL_HUB_BIG]``.  ``self_mode`` marks (q, v)
-    itself instead.  Contract: every live qid < nq."""
+    itself instead.  ``counted``: the list is a K5 output, whose count
+    ``ctl[CTL_CNT]`` (read on the card) cuts it to its first
+    min(count, len(ids)) pairs (K5 pads the rest).  ``gate``: None, or
+    an int64 [1] word on the device (the adaptive program's mode word,
+    ``ctl[CTL_MODE:CTL_MODE + 1]``); the call then does nothing unless
+    it holds ``want``, as ``ad_program``'s gated K4.  One launch.
+    Contract: every live qid < nq; the buckets' row0 nondecreasing."""
     dev = ids.device
     c_in = _vec(ids, "ids", torch.int32, dev)
     if qid is not None:
@@ -1399,19 +1421,24 @@ def sparse_expand(ids: torch.Tensor, qid: Optional[torch.Tensor],
     if R1w != _words(tables.n_rows + 1) or words % R1w:
         raise ValueError(f"mark has {words} words, not rows of {R1w}")
     _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
+    if gate is not None:
+        _vec(gate, "gate", torch.int64, dev, 1)
     over = _over_check(over)
     _tables_check(tables, dev)
+    _rows_ordered(tables)
     if not _route(dev):
         return sparse_expand_ref(ids, qid, ecnt, e0, tables, over, mark,
-                                 R1w, ctl, c_lim, self_mode)
+                                 R1w, ctl, c_lim, self_mode, counted, gate,
+                                 want)
     neg = (ctypes.c_int32 * len(over))(*[-t for t in over])
     ptr = (lambda t: None if t is None else t.data_ptr())
     rc = _lib().sg_expand(
-        ids.data_ptr(), ptr(qid), c_in, ptr(ecnt), ptr(e0),
-        tables.nbr.data_ptr(), tables.et.data_ptr(), _bucket_desc(tables),
-        len(tables.D), neg, len(over), tables.n, tables.n_rows, R1w,
-        mark.data_ptr(), ctl.data_ptr(), c_lim, int(self_mode),
-        _stream(dev))
+        ids.data_ptr(), ptr(qid), c_in,
+        ctl.data_ptr() + 8 * CTL_CNT if counted else None, ptr(ecnt),
+        ptr(e0), tables.nbr.data_ptr(), tables.et.data_ptr(),
+        _bucket_desc(tables), len(tables.D), neg, len(over), tables.n,
+        tables.n_rows, R1w, mark.data_ptr(), ctl.data_ptr(), c_lim,
+        int(self_mode), ptr(gate), want, _stream(dev))
     _ok(rc, "sg_expand")
     LAUNCHES["sparse_expand"] += 1
     return mark
@@ -1618,10 +1645,19 @@ def pair_reduce(op: int, ids: torch.Tensor, qid: torch.Tensor,
 
 
 # ------------------------------------------------- sparse GO program
+def _rows_ordered(tables: DeviceTables) -> None:
+    """K4 takes a row's bucket as the count of the other buckets' row0
+    at or below it, which is the row's bucket only while row0 is in
+    order."""
+    if any(b < a for a, b in zip(tables.row0, tables.row0[1:])):
+        raise ValueError(f"bucket row0 {tables.row0} decreases")
+
+
 def _sparse_tables_check(tables, ecnt, e0, dev) -> None:
     """The checks of what a sparse program's descriptor holds (made once
     a table generation on the card, ``_sparse_desc``)."""
     _tables_check(tables, dev)
+    _rows_ordered(tables)
     for t, name in ((ecnt, "ecnt"), (e0, "e0")):
         if t is not None:
             _vec(t, name, torch.int32, dev, tables.n + 1)
@@ -1751,8 +1787,9 @@ def _sparse_go_steps(ids, qid, ecnt, e0, deg, tables, over, steps, caps,
         expand(ids, qid, None, None, tables, over, uni, R1w, ctl, 0, True)
     cur_i, cur_q = ids, qid
     for h, (c_out, ex, c_lim) in enumerate(pl.hops):
+        # from the second hop the list is K5's: its count in ctl
         expand(cur_i, cur_q, ecnt if hubs else None, e0 if hubs else None,
-               tables, over, mark, R1w, ctl, c_lim)
+               tables, over, mark, R1w, ctl, c_lim, False, h > 0)
         nxt_i, nxt_q = bufs[h % 2]
         compact(mark, R1w, c_out, nxt_i, nxt_q, ctl, ex, n_rows, uni, None,
                 True, 0, scan)
@@ -2190,16 +2227,20 @@ def _adaptive_steps(starts, hub, tables, eslot, hrows, over, steps, K,
     scan = ws[pl.scan:pl.zero].view(torch.int64)
     fr = ws[pl.fr:pl.fr + K]
     bufs = ws[pl.lanes:pl.lanes + 2 * R1].view(torch.uint8).view(2, R1, 4)
+    S = starts.shape[0]
     fr.fill_(n_rows)
-    fr[:starts.shape[0]] = starts
+    fr[:S] = starts
     ctl[CTL_SPARSE] = 1
-    expand(fr, None, None, None, tables, over, state, R1w, ctl, 0, True)
+    expand(fr[:S], None, None, None, tables, over, state, R1w, ctl, 0, True)
     for h in range(pl.hops):
         switch(fr, hub, n, n_rows, ctl)
         if int(ctl[CTL_CONV]):
             lanes(True, state, bufs[h % 2], R1)
         if int(ctl[CTL_MODE]) == MODE_SPARSE:
-            expand(fr, None, None, None, tables, over, cand, R1w, ctl, 0)
+            # the first hop's list is the S starts; a later one is K5's,
+            # its count in ctl
+            expand(fr if h else fr[:S], None, None, None, tables, over,
+                   cand, R1w, ctl, 0, False, h > 0)
             compact(cand, R1w, K, fr, None, ctl, -1, n_rows, None, state,
                     True, 0, scan)
         else:
