@@ -159,16 +159,21 @@ Phases, in order; any failure exits non-zero:
              and all at B = 128 and 1024 (against its plain version and
              ``ell_bfs``), every call of the card stages (X1
              ``mesh_route_card``, X2 + K5 ``mesh_dedup``,
-             ``mesh_agree``, K6 ``mesh_emit``, each one launch a kernel
-             over every shard) and of X3 ``mesh_bfs_stamp`` held to its
-             plain version on copies of its operands; per-shard outputs
-             equal when no overflow, the flags always, for the probed
-             run and for one call of each public wrapper; then
-             (``mesh_stage_check``) the stages and all four programs
-             again on hub-free tables at k = 2 and 4 and on the serve
-             tables at k = 4, at caps they keep and at a tight one, on
-             one card and with the shards split over two pretended
-             cards.  A program's ``ms`` is its device time, its calls
+             ``mesh_agree``, K6 ``mesh_emit``, X3
+             ``mesh_bfs_stamp_card``, each one launch a kernel over
+             every shard, X3's init two) held to its plain version on
+             copies of its operands, X1 also timed call by call in the
+             BFS; per-shard outputs equal when no overflow, the flags
+             always, for the probed run and for one call of each public
+             wrapper; then (``mesh_stage_check``) the stages and all four
+             programs again on hub-free tables at k = 2 and 4 and on the
+             serve tables at k = 4, at caps they keep and at a tight one,
+             on one card and with the shards split over two pretended
+             cards, and (``mesh_list_check``) X1 and X3 on every shape of
+             list they take (a start list read whole, a list read to
+             the count K5 left: 0, the live count, c, past c, X3's pads
+             inside it; short and long; hub keys received; blocks past
+             their cap).  A program's ``ms`` is its device time, its calls
              queued behind a spin kernel (the BFS replayed with the
              level flags the probed run read, so the host never waits
              on the card), its event time beside as ``event_ms``, and
@@ -1958,6 +1963,8 @@ class Probe:
     from the spin to the last event, must stay below the spin's).
     ``pre(args)`` / ``post(args)`` give the
     bytes the call must move (read before and after the call);
+    Each call's device ms and bound are kept (``call_ms``,
+    ``call_bound_ms``, given by ``numbers`` up to 32 calls);
     ``lib(args)``, when given, times the PyTorch library call computing
     the same function; ``same(i, a, b)``, when given, decides whether
     operand i of the kernel's call (``a``) equals the plain version's
@@ -1977,6 +1984,7 @@ class Probe:
         self.k_ms = self.r_ms = self.enqueue_ms = 0.0
         self.bytes = 0
         self.lib_ms = []
+        self.call_ms, self.call_bound_ms = [], []
         self.extra = {}
 
     def __call__(self, *args):
@@ -2013,8 +2021,11 @@ class Probe:
                               (time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         self.r_ms += ev[0].elapsed_time(ev[1])
-        self.k_ms += ev[2].elapsed_time(ev[3]) / PROBE_REPS
-        self.bytes += nb + (self.post(args) if self.post else 0)
+        self.call_ms.append(ev[2].elapsed_time(ev[3]) / PROBE_REPS)
+        self.k_ms += self.call_ms[-1]
+        nb += self.post(args) if self.post else 0
+        self.call_bound_ms.append(bytes_ms(nb))
+        self.bytes += nb
         self.calls += 1
         if first is not None:
             self.extra.update(first(spares))
@@ -2028,7 +2039,9 @@ class Probe:
                     library_ms=(float(np.mean(self.lib_ms))
                                 if self.lib_ms else None),
                     enqueue_ms=self.enqueue_ms,
-                    calls=self.calls, **self.extra)
+                    calls=self.calls, **({} if self.calls > 32 else dict(
+                        call_ms=self.call_ms,
+                        call_bound_ms=self.call_bound_ms)), **self.extra)
 
 
 def stage_launches(torch, ell_ops, fn, want: int, counters: dict,
@@ -5853,24 +5866,38 @@ def _send_same(torch):
 
 
 DEDUP_SPLIT_CALLS = 5           # X2 + K5 calls traced for their split
+DEDUP_SPLIT_TRACES = 4          # traces tried before the split fails
 
 
 def dedup_split(torch, ell_ops, st, spares, nbytes) -> dict:
     """X2 + K5 (``mesh_dedup``) split by kernel, each part beside its own
     bound and plain version: each kernel's mean duration in a trace
     (``kernel_ms``: DEDUP_SPLIT_CALLS calls and a warm one, each on its
-    own copy of the operands as they were), X2's (``mark_kernel``) and
-    K5's one pass; the plain parts (``mesh_mark_ref`` on each member, then ``pair_compact_ref`` with the shard's row base, as
-    ``mesh_dedup_ref`` runs them) timed by events on ``spares[0]``;
-    ``nbytes`` = (X2's bytes, K5's) of this call, as ``dedup_pre``
-    counts them.  Returns the mesh_dedup row's ``kernel_ms`` and
-    ``split``."""
-    it = iter(spares[1:])
-    per = kernel_ms(torch, ell_ops, lambda: ell_ops.mesh_dedup(*next(it)),
-                    DEDUP_SPLIT_CALLS)
-    x2 = [ms for n, (ms, _seen) in per.items() if "::mark_kernel" in n]
-    if len(x2) != 1 or len(per) != 2:
-        raise AssertionError(f"mesh_dedup's kernels: {sorted(per)}")
+    own copy of ``spares[1]``, the operands as they were), X2's
+    (``mark_kernel``) and K5's one pass.  The tracer can lose every
+    launch of one kernel in a trace (launches are counted by capture,
+    not here), so a trace that shows not both kernels is taken again on
+    new copies, at most DEDUP_SPLIT_TRACES traces in all.  The plain
+    parts (``mesh_mark_ref`` on each member, then ``pair_compact_ref``
+    with the shard's row base, as ``mesh_dedup_ref`` runs them) timed by
+    events on ``spares[0]``; ``nbytes`` = (X2's bytes, K5's) of this
+    call, as ``dedup_pre`` counts them.  Returns the mesh_dedup row's
+    ``kernel_ms``, ``split`` and the traces it took."""
+    seen = []
+    for _ in range(DEDUP_SPLIT_TRACES):
+        it = iter([[a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in spares[1]]
+                   for _ in range(1 + DEDUP_SPLIT_CALLS)])
+        per = kernel_ms(torch, ell_ops,
+                        lambda: ell_ops.mesh_dedup(*next(it)),
+                        DEDUP_SPLIT_CALLS)
+        x2 = [ms for n, (ms, _s) in per.items() if "::mark_kernel" in n]
+        seen.append(sorted(per))
+        if len(x2) == 1 and len(per) == 2:
+            break
+    else:
+        raise AssertionError(f"mesh_dedup's kernels in {len(seen)} "
+                             f"traces: {seen}")
     recv, _st, g, marks, c_out, ids, qid, ctl = spares[0][:8]
     chunk, W = st.chunk, (st.chunk + 31) // 32
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -5887,6 +5914,7 @@ def dedup_split(torch, ell_ops, st, spares, nbytes) -> dict:
     x2_ms = x2[0]
     return dict(kernel_ms={n: ms for n, (ms, _s) in per.items()},
                 kernel_launches_traced={n: c for n, (_m, c) in per.items()},
+                split_traces=len(seen),
                 split={
         "mesh_mark": dict(ms=x2_ms, plain_ms=ev[0].elapsed_time(ev[1]),
                           bound_ms=bytes_ms(nbytes[0])),
@@ -5898,10 +5926,11 @@ def dedup_split(torch, ell_ops, st, spares, nbytes) -> dict:
 def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
     """Probes of the card stages — X1 (``mesh_route_card``, both modes),
     X2 + K5 (``mesh_dedup``, K5 with the shards' row bases), the
-    agreement (``mesh_agree``), K6's emit (``mesh_emit``) — and of X3
-    (per shard), with their bytes bounds from this run's data, where a
-    pad of a list (ids == n_rows) counts its ids word only: X1 the
-    lists' ids, the live pairs' qids, 8 bytes a slot of the rows walked
+    agreement (``mesh_agree``), K6's emit (``mesh_emit``) and X3
+    (``mesh_bfs_stamp_card``) — with their bytes bounds from this run's
+    data, over the places each call reads (a list read to its count: that
+    prefix), where a pad (ids == n_rows) counts its ids word only: X1 the
+    places' ids, the live pairs' qids, 8 bytes a slot of the rows walked
     (hub mode: the live pairs' ecnt, and e0 and qid where a run starts)
     and the keys and counts written; X2 + K5 the keys and counts read,
     the bitmap words set, the bitmap read and its set words zeroed, the
@@ -5924,18 +5953,19 @@ def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
 
     def route_pre(args):
         hub, ids, qid, _st, g = args[:5]
-        hub_recv = _arg(args, 9)
-        nb = 4 * ids.numel()
+        hub_recv, counted = _arg(args, 9), bool(_arg(args, 10))
+        nb = 0
         for y, s in enumerate(g[1]):
-            live = ids[y].long() != st.n_rows
+            places = ids[y, :ell_ops._counted(ids, args[8], y, counted)]
+            live = places.long() != st.n_rows
             n_live = int(live.sum())
-            nb += 4 * n_live
+            nb += 4 * places.numel() + 4 * n_live
             if hub:
-                li = ids[y].long()[live] - s * st.chunk
+                li = places.long()[live] - s * st.chunk
                 nb += 8 * int((st.ecnt[s].long()[li.clamp(0, st.chunk - 1)]
                                > 0).sum())
                 continue
-            rows = ids[y].long()[live]
+            rows = places.long()[live]
             if hub_recv is not None:
                 rows = torch.cat([rows, ell_ops._slot_pairs(hub_recv[y])[1]])
             b = torch.bucketize(rows, bstarts, right=True) - 1
@@ -5973,18 +6003,23 @@ def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
 
     def stamp_pre(args):
         init, ids = args[:2]
-        live = int((ids.long() != st.n_rows).sum())
-        ctx["live"] = live
+        ctl, counted = args[8], bool(_arg(args, 11))
+        nb = ctx["live"] = 0
+        for y in range(ids.shape[0]):
+            places = ids[y, :ell_ops._counted(ids, ctl, y, counted)]
+            live = int((places.long() != st.n_rows).sum())
+            ctx["live"] += live
+            nb += 4 * places.numel() + 6 * live
         if init:
-            tids = args[10]
+            tids = args[9]
             tl = int((tids.long() != st.n_rows).sum())
-            return 4 * (ids.numel() + tids.numel()) + 6 * live + 10 * tl
-        return 4 * ids.numel() + 6 * live
+            nb += 4 * tids.numel() + 10 * tl
+        return nb
 
     def stamp_post(args):
         if args[0]:
             return 0
-        fresh = int(args[9][ell_ops.CTL_LIVE])
+        fresh = int(args[8][:, ell_ops.CTL_LIVE].sum())
         return 6 * fresh + 8 * (ctx["live"] - fresh)
 
     def launches(fn, want, counters):
@@ -6011,7 +6046,7 @@ def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
                             ell_ops.mesh_dedup_ref, dedup_pre,
                             lib=dedup_lib, same=_scan_free(torch, 11),
                             first=dedup_first if first else None,
-                            spares=2 + DEDUP_SPLIT_CALLS + 1),
+                            spares=3),
         "mesh_agree": Probe(torch, "mesh_agree", ell_ops.mesh_agree,
                             ell_ops.mesh_agree_ref,
                             lambda a: 16 * a[0].shape[0],
@@ -6025,8 +6060,8 @@ def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
                                "mesh_emit": 1, "pair_reduce": 1}),
                            spares=1),
         "mesh_bfs_stamp": Probe(torch, "mesh_bfs_stamp",
-                                ell_ops.mesh_bfs_stamp,
-                                ell_ops.mesh_bfs_stamp_ref, stamp_pre,
+                                ell_ops.mesh_bfs_stamp_card,
+                                ell_ops.mesh_bfs_stamp_card_ref, stamp_pre,
                                 stamp_post),
     }
     return probes, ctx
@@ -6258,11 +6293,17 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
         def run():
             return ell_ops.mesh_sparse_bfs(*args, st, over, max_steps, cap,
                                            cap_x, cap_e, B, stop)
+        before = ell_ops.LAUNCHES["mesh_bfs_stamp"]
         pdep, povf, plev = run()
         if povf != wovf or plev != wlev or not (povf or all(
                 torch.equal(a, b) for a, b in zip(pdep, wdep))):
             raise AssertionError(f"ell_ops.mesh_sparse_bfs k={k} {label} "
                                  f"!= its plain version")
+        stamps = ell_ops.LAUNCHES["mesh_bfs_stamp"] - before
+        if stamps != (plev + 1) * len(mesh.groups):
+            raise AssertionError(f"mesh_sparse_bfs k={k} {label}: {stamps} "
+                                 f"X3 calls for {plev} levels, not one a "
+                                 f"card group a level and at init")
         del pdep
 
         def replay():
@@ -6272,7 +6313,7 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
             return ell_ops._mesh_bfs_steps(
                 *args, st, over, max_steps, cap, cap_x, cap_e, B, stop,
                 ell_ops.mesh_route_card, ell_ops.mesh_dedup,
-                ell_ops.mesh_bfs_stamp, read=lambda _c: next(flags))
+                ell_ops.mesh_bfs_stamp_card, read=lambda _c: next(flags))
         dev_ms = mesh_queued_ms(torch, replay,
                                 f"mesh_sparse_bfs k={k} {label}", 3)
         ms = cuda_ms(torch, run, 3, 1)
@@ -6335,6 +6376,13 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
                                  run="b128_shortest_s5", k=k,
                                  library_none="none: a depth update with "
                                               "its loop flags")
+    # X1 in the BFS, where its lists are widest: a level's hub-mode call,
+    # then its candidate call
+    res["mesh_route"]["bfs"] = dict(
+        {a: b for a, b in bfs_probes["mesh_route"].numbers().items()
+         if a in ("ms", "plain_ms", "bound_ms", "enqueue_ms", "calls",
+                  "call_ms", "call_bound_ms")},
+        run="b128_shortest_s5", k=k)
     res["exchanged_bytes_per_hop"] = moved_hops
     return res
 
@@ -6460,6 +6508,140 @@ def mesh_stage_check(torch, ell_ops, ix, k: int, over, rng, label: str,
                              f"moved {out['bytes_cards1']} bytes on one card, "
                              f"{out['bytes_cards2']} over two")
     return out
+
+
+def _pair_lists(st, rng, c: int, live: int, starts: bool):
+    """(ids, qid) int32 [k, c] numpy: on each shard ``live`` distinct
+    (q, row) pairs of its own rows — a start list's scattered between
+    pads (n_rows, 0), else sorted by (q, row) and first, the pads
+    (n_rows, BIG_Q) after them, as K5 writes a list."""
+    k, chunk, n_rows = st.k, st.chunk, st.n_rows
+    ids = np.full((k, c), n_rows, np.int32)
+    qid = np.full((k, c), 0 if starts else 1 << 30, np.int32)
+    for s in range(k):
+        lo, hi = s * chunk, min((s + 1) * chunk, n_rows)
+        key = np.unique(rng.integers(0, 64, 4 * live) * chunk
+                        + rng.integers(lo, hi, 4 * live) - lo)[:live]
+        at = np.arange(len(key))
+        if starts:
+            rng.shuffle(key)
+            at = np.sort(rng.choice(c, len(key), replace=False))
+        ids[s, at] = key % chunk + lo
+        qid[s, at] = key // chunk
+    return ids, qid
+
+
+def mesh_list_check(torch, ell_ops, ix, k: int, over, rng, label: str,
+                    dev) -> dict:
+    """Untimed: X1 (``mesh_route_card``, both modes) and X3
+    (``mesh_bfs_stamp_card``, init and a level) against their plain
+    versions on every shape of list they take, on the tables of ``ix``
+    cut into k shards on this card, one card group and two pretended
+    cards: a start list read whole, its pads between its live pairs; a
+    list whose live pairs come first read to its count, with
+    ``ctl[CTL_CNT]`` 0, the live count, c and past c (an overflowed K5),
+    and with X3's in-place pads inside that prefix; short lists (a warp
+    a pair) and long ones (a tile of pairs a warp); candidate mode with
+    hub keys received, some blocks past their cap; and a cap the blocks
+    fill past.  Returns the cases run."""
+    from nebula_tpu_torch.tpu.ell import build_sharded_ell, sharded_tables
+    from nebula_tpu_torch.tpu.mesh import PartsMesh
+    cap_e = 64
+    half = (k + 1) // 2
+    meshes = [PartsMesh([dev] * k), PartsMesh([dev] * k)]
+    meshes[1].groups = ((dev, tuple(range(half))), (dev, tuple(range(half,
+                                                                      k))))
+    sh = build_sharded_ell(ix, k)
+    same = _send_same(torch)
+    cases = 0
+    for mesh in meshes:
+        st = sharded_tables(sh, mesh)
+        chunk, n_rows = st.chunk, st.n_rows
+        W = (chunk + 31) // 32
+        qmax = 64
+        for c, live, starts, cnt, cap in (
+                (2048, 300, True, None, 1 << 16),
+                (1 << 15, 20000, True, None, 1 << 16),
+                (2048, 300, False, "live", 1 << 16),
+                (2048, 300, False, "zero", 1 << 16),
+                (2048, 300, False, "c", 1 << 16),
+                (2048, 300, False, "past", 1 << 16),
+                (2048, 300, False, "pads", 1 << 16),
+                (1 << 15, 20000, False, "pads", 1 << 16),
+                (2048, 300, False, "live", 16)):
+            ids_h, qid_h = _pair_lists(st, rng, c, live, starts)
+            ids_all = torch.from_numpy(ids_h).to(dev)
+            qid_all = torch.from_numpy(qid_h).to(dev)
+            for g in mesh.groups:
+                members = list(g[1])
+                kg = len(members)
+                ids = ids_all[members].contiguous()
+                qid = qid_all[members].contiguous()
+                ctl = torch.zeros((kg, 8), dtype=torch.int64, device=dev)
+                n_live = (ids != n_rows).sum(1)
+                ctl[:, 0] = {None: 0, "live": n_live, "zero": 0, "c": c,
+                             "past": c + 5, "pads": n_live}[cnt]
+                if cnt == "pads":                    # X3's in-place pads
+                    hole = torch.rand(ids.shape, device=dev) < 0.3
+                    ids[hole], qid[hole] = n_rows, 1 << 30
+                counted = cnt is not None
+                hub_recv = torch.zeros((kg, k, 1 + cap_e), dtype=torch.int64,
+                                       device=dev)
+                for y in range(kg):
+                    for d in range(k):
+                        n = int(rng.integers(0, 2 * cap_e))
+                        lo = members[y] * chunk
+                        rows = rng.integers(lo, min(lo + chunk, n_rows),
+                                            min(n, cap_e))
+                        hub_recv[y, d, 0] = n
+                        hub_recv[y, d, 1:1 + len(rows)] = torch.from_numpy(
+                            (rng.integers(0, qmax, len(rows)) << 32)
+                            | rows).to(dev)
+                for hub, hr in ((True, None), (False, None),
+                                (False, hub_recv)):
+                    recv = torch.zeros((kg, k, 1 + cap), dtype=torch.int64,
+                                       device=dev)
+                    send = torch.zeros_like(recv) if kg < k else None
+                    args = [hub, ids, qid, st, g, tuple(over), recv, send,
+                            ctl.clone(), hr, counted]
+                    want = [a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args]
+                    ell_ops.mesh_route_card(*args)
+                    ell_ops.mesh_route_card_ref(*want)
+                    torch.cuda.synchronize()
+                    for i, (a, b) in enumerate(zip(args, want)):
+                        if isinstance(a, torch.Tensor) and not same(i, a, b):
+                            raise AssertionError(
+                                f"mesh_route_card {label} k={k} c={c} "
+                                f"cnt={cnt} hub={hub} recv={hr is not None}"
+                                f" cap={cap} cards={len(mesh.groups)} != its "
+                                f"plain version (operand {i})")
+                    cases += 1
+                depth = torch.full((kg, chunk, qmax), 0x7FFF,
+                                   dtype=torch.int16, device=dev)
+                depth[torch.rand(depth.shape, device=dev) < 0.01] = 1
+                tbits = torch.randint(-2**31, 2**31 - 1, (kg, qmax * W),
+                                      dtype=torch.int32, device=dev)
+                tick = torch.zeros((kg, 2), dtype=torch.int64, device=dev)
+                init = starts
+                tt = (ids.roll(3, 1).contiguous(), qid.roll(3, 1)
+                      .contiguous()) if init else (None, None)
+                args = [init, ids.clone(), qid.clone(), depth, tbits, st, g,
+                        2, ctl.clone(), *tt, counted, tick]
+                want = [a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args]
+                ell_ops.mesh_bfs_stamp_card(*args)
+                ell_ops.mesh_bfs_stamp_card_ref(*want)
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(args, want)):
+                    if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+                        raise AssertionError(
+                            f"mesh_bfs_stamp_card {label} k={k} c={c} "
+                            f"cnt={cnt} init={init} cards="
+                            f"{len(mesh.groups)} != its plain version "
+                            f"(operand {i})")
+                cases += 1
+    return {"cases": cases}
 
 
 def hubless_ell(n: int, seed: int):
@@ -6910,6 +7092,9 @@ def main(argv=None) -> int:
             log(f"[kernel] mesh stages {lab} k={k} equal=True "
                 + json.dumps(mesh_stage_check(torch, ell_ops, ixx, k, (1,),
                                               rng, lab, tables.nbr.device)))
+            log(f"[kernel] mesh lists {lab} k={k} equal=True "
+                + json.dumps(mesh_list_check(torch, ell_ops, ixx, k, (1,),
+                                             rng, lab, tables.nbr.device)))
         del hubless
         log(f"[kernel] mesh stage checks {time.perf_counter() - t0:.2f} s")
 

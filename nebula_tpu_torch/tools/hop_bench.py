@@ -92,11 +92,16 @@ event times, launches a call by capture (``lane_rows``); K4
 (``sparse_expand``) alone as ``sg_program``'s two hops make it at c0
 256 and 2048, its launches in ``adaptive_go`` at K = 2048 and gated
 off at K = 8 by kernel from a trace, and the launches a call of both
-programs (``k4_rows``); each checkout in its own call form.
+programs (``k4_rows``); each checkout in its own call form.  The
+frontier-sharded mesh's X1 (``mesh_route_card``, both modes) and X3 (the
+BFS stamp) alone on clones of the operands ``mesh_sparse_go`` (c0 256 and
+2048) and ``mesh_sparse_bfs`` (B = 128, cap 2^17) give them, with both
+programs: device and event times, launches and C calls a call by capture
+(``mesh_x_rows``).
 ``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
 and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``edge``, ``int8``,
 ``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``, ``bfs``, ``upload``,
-``count``, ``lanes``, ``k4``.
+``count``, ``lanes``, ``k4``, ``mesh_x``.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -131,9 +136,11 @@ PROGRAM_CALLS = 10             # back-to-back calls of a timed program
 BFS_CALLS = 3                  # back-to-back calls of a timed BFS
 MESH_QUEUED = 4                # mesh_sparse_go calls queued behind a spin
 MESH_SPIN = 16 * SPIN_CYCLES   # about 64 ms: four calls' host enqueue
+MESH_X_SETS = 8                # X1 / X3 steps timed, each on its own clones
+MESH_X_CAP = 1 << 17           # the BFS's pair cap (tpu_sparse_cap)
 ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "edge", "int8", "mesh",
               "mesh_sparse", "k5", "bfs_pair", "bfs", "upload", "count",
-              "lanes", "k4")
+              "lanes", "k4", "mesh_x")
 SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
 LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
 # chip_smoke.py's predicate 3 and its seeded columns (fused_columns)
@@ -383,6 +390,248 @@ def mesh_sparse_rows(torch, ell_ops, ix, tables, over, rng, dev):
                                        levels=bfs()[2],
                                        **counts(torch, ell_ops, bfs,
                                                 waits=True))
+    return res
+
+
+def _clones(torch, args) -> list:
+    return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+
+def _set_times(torch, fn, calls, sets: int = MESH_X_SETS) -> dict:
+    """``fn`` over the operand lists ``calls`` (one step: every call of
+    it, in order), ``sets`` times, each set on its own clones of the
+    operands as they were: device ms a set (the sets queued behind a
+    spin, clones made before it), the host's enqueue, event ms a set
+    (back to back, no spin)."""
+    res = {}
+    for key in ("ms", "event_ms"):
+        copies = [[_clones(torch, a) for a in calls] for _ in range(sets)]
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        if key == "ms":
+            torch.cuda._sleep(SPIN_CYCLES)
+        t0.record()
+        for one in copies:
+            for a in one:
+                fn(*a)
+        t1.record()
+        if key == "ms":
+            res["enqueue_ms"] = (time.perf_counter() - h0) * 1e3
+        torch.cuda.synchronize()
+        res[key] = t0.elapsed_time(t1) / sets
+        del copies
+    return res
+
+
+def _blocks_same(torch, a, b) -> bool:
+    """Two exchange slabs [members, k, 1 + cap] equal as X1 defines
+    them: every count, and each block's kept keys as a set where the
+    block kept them all (past the cap X1 keeps any cap of them)."""
+    if not torch.equal(a[:, :, 0], b[:, :, 0]):
+        return False
+    cap = a.shape[2] - 1
+    for m in range(a.shape[0]):
+        for d in range(a.shape[1]):
+            c = int(a[m, d, 0])
+            if c <= cap and not torch.equal(
+                    torch.sort(a[m, d, 1:1 + c])[0],
+                    torch.sort(b[m, d, 1:1 + c])[0]):
+                return False
+    return True
+
+
+def mesh_x_rows(torch, ell_ops, ix, tables, over, rng, dev):
+    """X1 (``mesh_route_card``, candidate and hub mode) and X3 (the BFS
+    stamp) alone at k = MESH_K on this card, on the operands the
+    programs give them, and the two frontier-sharded programs whole.
+    The programs run once with every X1 and X3 call's operands kept
+    (cloned before the call): ``mesh_sparse_go`` at c0 256 (128 queries,
+    one start each) and c0 2048 (1024 queries, two each), 3 steps (hop 1
+    routes the start list, hop 2 the list K5 left); ``mesh_sparse_bfs``
+    at B = 128, UPTO 5, stop when found, cap 2^17, each target one the
+    BFS reaches within 2 levels (``chip_smoke.py``'s
+    ``b128_shortest_s5``).  Each kept call is held to its plain version
+    on a clone of its operands, then timed on MESH_X_SETS clones: device
+    ms behind a spin, event ms, launches and C calls a call by capture.
+    X3 is timed a step (init, a level) over every call the step makes:
+    one a shard where the checkout stamps a shard at a time, one a card
+    group where it has ``mesh_bfs_stamp_card``.  The programs: device
+    ms (the BFS replayed with the level flags its run read), event ms,
+    launches and C calls a call by capture (the BFS on the replay, plus
+    its flag reads).  Each checkout in its own call form."""
+    import numpy as np
+    from nebula_tpu_torch.tpu import mesh as pmesh
+    from nebula_tpu_torch.tpu.ell import (build_sharded_ell, sharded_tables,
+                                          sparse_caps,
+                                          split_start_pairs_by_owner)
+    k = MESH_K
+    st = sharded_tables(build_sharded_ell(ix, k), pmesh.PartsMesh([dev] * k))
+    card = hasattr(ell_ops, "mesh_bfs_stamp_card")
+    stamp = ell_ops.mesh_bfs_stamp_card if card else ell_ops.mesh_bfs_stamp
+    stamp_ref = ell_ops.mesh_bfs_stamp_card_ref if card \
+        else ell_ops.mesh_bfs_stamp_ref
+    route_k, route_r = ell_ops.mesh_route_card, ell_ops.mesh_route_card_ref
+    res = dict(mesh_k=k, stamp_a_card=card)
+
+    def up(a):
+        return st.mesh.split(torch.from_numpy(a).to(dev))
+    kept = []
+
+    def keep(name, fn):
+        def call(*args):
+            kept.append((name, _clones(torch, args)))
+            return fn(*args)
+        return call
+
+    def live_of(ids):
+        return int((ids != st.n_rows).sum())
+
+    def x1_row(args):
+        got, want = _clones(torch, args), _clones(torch, args)
+        route_k(*got)
+        route_r(*want)
+        torch.cuda.synchronize()
+        for i in (6, 7):
+            if got[i] is not None and not _blocks_same(torch, got[i],
+                                                       want[i]):
+                raise AssertionError("mesh_route_card != its plain version")
+        if not torch.equal(got[8], want[8]):
+            raise AssertionError("mesh_route_card's ctl != its plain "
+                                 "version's")
+        one = _clones(torch, args)
+        return dict(_set_times(torch, route_k, [args]),
+                    places=int(args[1].numel()),
+                    live_places=live_of(args[1]),
+                    counted=bool(len(args) > 10 and args[10]),
+                    received_hub_keys=int(
+                        args[9][:, :, 0].clamp(max=args[9].shape[2] - 1)
+                        .sum()) if len(args) > 9 and args[9] is not None
+                    else 0,
+                    **_launches(torch, ell_ops, lambda: route_k(*one)))
+
+    def x3_row(calls):
+        for args in calls:
+            got, want = _clones(torch, args), _clones(torch, args)
+            stamp(*got)
+            stamp_ref(*want)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+                    raise AssertionError("the BFS stamp != its plain "
+                                         "version")
+        row = dict(_set_times(torch, stamp, calls), calls=len(calls))
+        if len(calls) > 1:
+            row["per_call_ms"] = [_set_times(torch, stamp, [a])["ms"]
+                                  for a in calls]
+        sets = [_clones(torch, a) for a in calls]
+
+        def step():
+            for a in sets:
+                stamp(*a)
+        row.update(_launches(torch, ell_ops, step))
+        return row
+
+    # ---- the GO: X1 on both hops, both modes; the program
+    for c0, nq, per in ((256, 128, 1), (2048, 1024, 2)):
+        rows = ix.perm[rng.integers(0, ix.n, nq * per)].astype(np.int32)
+        qs = (np.arange(nq * per) // per).astype(np.int32)
+        placed = split_start_pairs_by_owner(st, rows, qs, c0)
+        ids, qid = up(placed[0]), up(placed[1])
+        caps = sparse_caps(c0, max(tables.D), 3, MESH_X_CAP)
+        cap_x, cap_e = max(256, caps[-1] // max(k // 2, 1)), max(64, c0)
+        kept.clear()
+        outs = ell_ops._mesh_go_steps(
+            ids, qid, st, over, 3, caps, cap_x, cap_e, nq,
+            keep("route", route_k), ell_ops.mesh_dedup,
+            (ell_ops.mesh_agree, ell_ops.or_many), ell_ops.mesh_emit)[0]
+        want = st.mesh.stacked(ell_ops.mesh_sparse_go_ref(
+            ids, qid, st, over, 3, caps, cap_x, cap_e, nq))
+        got = st.mesh.stacked(outs)
+        _equal(torch, f"mesh_sparse_go c0={c0} flags", (got[:, 1],
+                                                        want[:, 1]))
+        if not bool(want[:, 1].any()):
+            _equal(torch, f"mesh_sparse_go c0={c0}", (got, want))
+        hops = {True: 0, False: 0}
+        for _n, args in list(kept):
+            hub = bool(args[0])
+            hops[hub] += 1
+            mode = "hub" if hub else "cand"
+            res[f"x1_go_c0_{c0}_{mode}_hop{hops[hub]}"] = x1_row(args)
+
+        def go():
+            return ell_ops.mesh_sparse_go(ids, qid, st, over, 3, caps, cap_x,
+                                          cap_e, nq)
+        ms, enq = queued_times(torch, go, MESH_QUEUED, MESH_SPIN)
+        res[f"mesh_sparse_go_c0_{c0}"] = dict(
+            ms=ms, enqueue_ms=enq,
+            event_ms=cuda_ms(torch, go, PROGRAM_CALLS),
+            overflow=bool(want[:, 1].any()), **counts(torch, ell_ops, go))
+
+    # ---- the BFS: X1 and X3 a level; the program
+    B, cap = 128, MESH_X_CAP
+    cap_x, cap_e = max(256, cap // max(k // 2, 1)), max(64, cap // 8)
+    s_new = ix.perm[rng.integers(0, ix.n, B)].astype(np.int32)
+    qq = np.arange(B, dtype=np.int32)
+    ps = split_start_pairs_by_owner(st, s_new, qq, cap)
+    near, _o, _l = ell_ops.mesh_sparse_bfs(
+        up(ps[0]), up(ps[1]), up(ps[0]), up(ps[1]), st, over, 2, cap, cap_x,
+        cap_e, B, False)
+    reach = torch.cat(near)[:ix.n].cpu().numpy()
+    t_new = s_new.copy()
+    for q in range(B):
+        cand = np.nonzero((reach[:, q] >= 1) & (reach[:, q] <= 2))[0]
+        if len(cand):
+            t_new[q] = cand[rng.integers(len(cand))]
+    del near, reach
+    pt = split_start_pairs_by_owner(st, t_new, qq, cap)
+    args = (up(ps[0]), up(ps[1]), up(pt[0]), up(pt[1]))
+    seen = []
+
+    def record(ctl):
+        seen.append(ell_ops._read_ctl(ctl))
+        return seen[-1]
+    kept.clear()
+    dep, ovf, levels, _x, _b = ell_ops._mesh_bfs_steps(
+        *args, st, over, 5, cap, cap_x, cap_e, B, True,
+        keep("route", route_k), ell_ops.mesh_dedup, keep("stamp", stamp),
+        read=record)
+    wdep, wovf, wlev = ell_ops.mesh_sparse_bfs_ref(
+        *args, st, over, 5, cap, cap_x, cap_e, B, True)
+    if ovf != wovf or levels != wlev or not (ovf or all(
+            torch.equal(a, b) for a, b in zip(dep, wdep))):
+        raise AssertionError("mesh_sparse_bfs != its plain version")
+    del dep, wdep
+    level, stamps = 0, {}
+    for name, a in list(kept):
+        if name == "stamp":
+            stamps.setdefault("init" if a[0] else f"level{level}",
+                              []).append(a)
+        elif a[0]:
+            res[f"x1_bfs_level{level + 1}_hub"] = x1_row(a)
+        else:
+            level += 1
+            res[f"x1_bfs_level{level}_cand"] = x1_row(a)
+    for step, calls in stamps.items():
+        res[f"x3_bfs_{step}"] = x3_row(calls)
+    kept.clear()
+
+    def bfs():
+        return ell_ops.mesh_sparse_bfs(*args, st, over, 5, cap, cap_x, cap_e,
+                                       B, True)
+
+    def replay():
+        flags = iter(seen)
+        return ell_ops._mesh_bfs_steps(
+            *args, st, over, 5, cap, cap_x, cap_e, B, True, route_k,
+            ell_ops.mesh_dedup, stamp, read=lambda _c: next(flags))
+    ms, enq = queued_times(torch, replay, 3, MESH_SPIN)
+    res["mesh_sparse_bfs_b128"] = dict(
+        ms=ms, enqueue_ms=enq, event_ms=cuda_ms(torch, bfs, BFS_CALLS, 1),
+        levels=levels, overflow=bool(ovf),
+        **launches_a_call(torch, ell_ops, bfs, replay=replay,
+                          reads=len(seen) * len(st.mesh.groups)))
     return res
 
 
@@ -1404,7 +1653,9 @@ def main(argv=None) -> int:
                                      eslot, hrows, over, rng, dev)),
         ("lanes", lambda: lane_rows(torch, ell_ops, ix, rng, dev)),
         ("k4", lambda: k4_rows(torch, ell_ops, rt, m, ix, tables, eslot,
-                               hrows, over, rng, dev)))
+                               hrows, over, rng, dev)),
+        ("mesh_x", lambda: mesh_x_rows(torch, ell_ops, ix, tables, over, rng,
+                                       dev)))
     try:
         for name, fn in groups:
             if name in rows:

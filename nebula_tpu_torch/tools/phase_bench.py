@@ -1,7 +1,7 @@
 """Run ``chip_smoke.py``'s end-to-end phases [serve], [windowed],
-[sparse], [adaptive], [fused], [path] and [mesh] on one checkout of the
-port, so that two checkouts can be held side by side in one run on one
-card.
+[sparse], [adaptive], [fused], [path], [mesh] and [mesh-sparse] on one
+checkout of the port, so that two checkouts can be held side by side
+in one run on one card.
 
     python3 nebula_tpu_torch/tools/phase_bench.py [--tree DIR]
                                                   [--phases LIST]
@@ -16,8 +16,10 @@ P YIELD e._dst, e.w`` from 16 threads on the fused route (its 64 checked
 answers against ``FusedOracle``), 512 FIND SHORTEST PATH
 requests from 16 threads, and the dense mesh of 4 shards on the card
 (1024 GO requests from 64 threads, then 128 FIND SHORTEST PATH from
-16, then its write part); each checks its answers against the oracle
-and its launches as the smoke does.  The port comes from ``--tree DIR``
+16, then its write part), and the same on the frontier-sharded mesh
+(``tpu_mesh_mode=sparse``, [mesh-sparse]); each checks its answers
+against the oracle and its launches as the smoke does.  The port comes
+from ``--tree DIR``
 (default: this file's checkout), for instance a parent commit unpacked
 with ``git archive`` into a directory that ``.gitignore`` lists; DIR's
 kernels build into DIR's own build directory.  [adaptive] runs only
@@ -25,7 +27,8 @@ on a checkout that counts its dense calls on the card
 (``ell_ops.adaptive_dense_tally``).  ``--phases`` picks phases
 (default all), in the smoke's order.  Prints the card's name and power
 limit, then one JSON line: each phase's qps, p50 and p99 ms and wall
-seconds ([mesh]: its GO part ``a`` and its path part ``b`` apart).
+seconds ([mesh] and [mesh-sparse]: the GO part ``a`` and the path part
+``b`` apart).
 Needs a CUDA card.
 """
 from __future__ import annotations
@@ -38,7 +41,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("serve", "windowed", "sparse", "adaptive", "fused", "path", "mesh")
+PHASES = ("serve", "windowed", "sparse", "adaptive", "fused", "path", "mesh",
+          "mesh_sparse")
 REQUESTS, THREADS, SEED = 4096, 64, 0          # chip_smoke.py's defaults
 ADAPTIVE_REQUESTS = 256
 FUSED_REQUESTS, FUSED_THREADS = 512, 16
@@ -118,6 +122,10 @@ def main(argv=None) -> int:
             "mesh": lambda: smoke.mesh_phase(
                 torch, ell_ops, flags, m, rt.schemas[1], oracle,
                 smoke.PathOracle(oracle), m.vids, VERTICES, MESH_REQUESTS,
+                THREADS, MESH_PATH_REQUESTS, PATH_THREADS, SEED),
+            "mesh_sparse": lambda: smoke.mesh_sparse_phase(
+                torch, ell_ops, flags, m, rt.schemas[1], oracle,
+                smoke.PathOracle(oracle), m.vids, VERTICES, MESH_REQUESTS,
                 THREADS, MESH_PATH_REQUESTS, PATH_THREADS, SEED)}
         for name in PHASES:
             if name not in phases or (
@@ -128,7 +136,7 @@ def main(argv=None) -> int:
             out = runs[name]()
             keep = ("qps", "p50_ms", "p99_ms")
             res[name] = {k: out[k] for k in keep if k in out}
-            if name == "mesh":
+            if name in ("mesh", "mesh_sparse"):
                 res[name] = {part: {k: out[part][k] for k in keep}
                              for part in ("a", "b")}
             res[name]["phase_s"] = time.perf_counter() - t0

@@ -39,7 +39,8 @@ SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "mesh_sparse.cu"))
 # included by ell_lanes.cu, ell_int8.cu and ell_mesh.cu (the hop's
 # plan), by expr_filter.cu and edge_go.cu (the WHERE interpreter) and by
-# ell_lanes.cu, sparse_go.cu and edge_go.cu (the SM count)
+# ell_lanes.cu, sparse_go.cu, edge_go.cu and mesh_sparse.cu (the SM
+# count)
 HEADERS = (os.path.join(CSRC, "hop_plan.cuh"),
            os.path.join(CSRC, "expr_core.cuh"),
            os.path.join(CSRC, "sm_count.cuh"))
@@ -210,17 +211,17 @@ def load() -> ctypes.CDLL:
                                          vp]
         # the frontier-sharded mesh: csrc/mesh_sparse.cu (X1-X3, the
         # agreement) and K6's emit over a card (csrc/sparse_go.cu)
-        lib.mesh_route.argtypes = [i32, _MeshCard, vp, vp, i64, vp, i64, p64,
-                                   i32, p32, i32, i64, i64, vp, vp, i64, vp,
-                                   i64, vp]
+        lib.mesh_route.argtypes = [i32, _MeshCard, vp, vp, i64, i32, vp,
+                                   i64, p64, i32, p32, i32, i64, i64, vp, vp,
+                                   i64, vp, i64, vp]
         lib.mesh_dedup.argtypes = [_MeshCard, vp, i64, i64, vp, i64, i64,
                                    i64, vp, vp, i64, vp, vp, i64,
                                    ctypes.POINTER(vp), p64, p32, vp]
         lib.mesh_agree.argtypes = [vp, i32, vp]
         lib.sg_emit.argtypes = [vp, vp, i64, vp, i32, i64, i64, vp, vp]
-        lib.mesh_bfs_stamp.argtypes = [i32, vp, vp, i64, vp, vp, i64, vp,
-                                       i64, i64, vp, i64, i64, i64, i64,
-                                       vp, vp]
+        lib.mesh_bfs_stamp.argtypes = [i32, _MeshCard, vp, vp, i64, i32,
+                                       vp, vp, i64, vp, i64, i64, vp, i64,
+                                       i64, i64, i64, vp, vp, vp]
         for fn in (lib.ell_go_hop, lib.ell_lane_join,
                    lib.ell_lane_extract, lib.ell_lane_clear,
                    lib.ell_frontier_upload, lib.ell_go_count,

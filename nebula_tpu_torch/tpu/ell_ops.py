@@ -19,9 +19,9 @@ also its level pass, once a card), the absorb's
 ``shard_absorb`` and ``or_many`` (``or_into`` its one-source call), and
 the frontier-sharded mesh's ``mesh_sparse_go`` (``ell.py:2052``) and
 ``mesh_sparse_bfs`` (``:2179``) with their card stages
-``mesh_route_card`` (X1), ``mesh_dedup`` (X2 and K5), ``mesh_agree``
-and ``mesh_emit`` (K6), each one call over every shard of a card, and
-X3 ``mesh_bfs_stamp`` a shard.
+``mesh_route_card`` (X1), ``mesh_dedup`` (X2 and K5), ``mesh_agree``,
+``mesh_emit`` (K6) and X3 ``mesh_bfs_stamp_card``, each one call over
+every shard of a card.
 
 The sparse pair-list GO and the adaptive GO run on the card as one
 checked C call each (``sg_program``, ``ad_program``), whose order of
@@ -3264,18 +3264,19 @@ def _hub_c_lim(c_in: int) -> int:
     return max(1, (2**31 - 1) // max(c_in, 1))
 
 
-def mesh_route_ref(hub, ids, qid, recv, st, s, over, send, ctl):
+def mesh_route_ref(hub, ids, qid, recv, st, s, over, send, ctl,
+                   c_in=None):
     """X1's per-shard plain version (``mesh_route_card`` on shard s,
     into a [k, 1 + cap] buffer of its own blocks, one an owner, their
-    counts reset).  Hub mode sends every run
-    (the kernel does not stop at the budget), so the counts agree on an
-    overflow too."""
+    counts reset).  Hub mode's budget is ``c_in`` (default the list's
+    length) and it sends every run (the kernel does not stop at the
+    budget), so the counts agree on an overflow too."""
     T = _MeshTools(st, over)
     n_rows, chunk, base = st.n_rows, st.chunk, s * st.chunk
     v, q = ids.long(), qid.long()
     live = (v >= 0) & (v < n_rows)
     if hub:
-        c_in = v.shape[0]
+        c_in = v.shape[0] if c_in is None else c_in
         li = (v - base).clamp(0, chunk - 1)
         ce = torch.where(live, st.ecnt[s].long()[li], 0)
         total = int(ce.sum())
@@ -3317,7 +3318,9 @@ def _tbit(tbits: torch.Tensor, W: int, q: torch.Tensor,
 
 def mesh_bfs_stamp_ref(init, ids, qid, depth, tbits, W, base, n_rows,
                        step, ctl, tids=None, tqid=None):
-    """Plain version of ``mesh_bfs_stamp`` (X3)."""
+    """X3's per-shard plain version (``mesh_bfs_stamp_card`` on one
+    member: ``depth`` int16 [chunk, qmax], ``tbits`` int32 [qmax * W],
+    ``ctl`` int64 [CTL_SIZE], the list ``ids`` / ``qid`` read whole)."""
     chunk, qmax = depth.shape
     flat = depth.view(-1)
     inf = int(INT16_INF)
@@ -3327,6 +3330,8 @@ def mesh_bfs_stamp_ref(init, ids, qid, depth, tbits, W, base, n_rows,
         q = qid.long().clamp(0, qmax - 1)[live]
         flat[li * qmax + q] = 0
         ctl[CTL_LIVE] = int(live.sum())
+        at = torch.nonzero(live)
+        ctl[CTL_CNT] = int(at[-1]) + 1 if len(at) else 0
         tl = tids.long() != n_rows
         tli = (tids.long() - base).clamp(0, chunk - 1)[tl]
         tq = tqid.long().clamp(0, qmax - 1)[tl]
@@ -3346,61 +3351,6 @@ def mesh_bfs_stamp_ref(init, ids, qid, depth, tbits, W, base, n_rows,
     qid[live & ~fresh] = BIG_Q
     ctl[CTL_LIVE] = int(fresh.sum())
     ctl[CTL_UNFOUND] -= int((fresh & _tbit(tbits, W, q, li)).sum())
-    return depth
-
-
-def mesh_bfs_stamp(init: bool, ids: torch.Tensor, qid: torch.Tensor,
-                   depth: torch.Tensor, tbits: torch.Tensor, W: int,
-                   base: int, n_rows: int, step: int, ctl: torch.Tensor,
-                   tids: Optional[torch.Tensor] = None,
-                   tqid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """X3, a shard's BFS depth ``depth`` int16 [chunk, qmax] (INT16_INF
-    unreached; row li is global row base + li) and its target bitmap
-    ``tbits`` int32 [qmax * W]; (q, row) is clipped to the block as the
-    reference clips (ell.py:2230-2241).
-
-    - ``init``: depth 0 at every live start pair (``ids``/``qid``),
-      ``ctl[CTL_LIVE]`` = their count; every live target pair
-      (``tids``/``tqid``) sets its bit, and each bit newly set whose
-      depth is still unset adds one to ``ctl[CTL_UNFOUND]``.
-    - a level (ell.py:2279-2287): each live pair of the compacted list
-      (``ids`` == n_rows: a pad) whose depth is unset gets ``step + 1``
-      and stays in the next frontier, one more in ``ctl[CTL_LIVE]``
-      (reset first) and, on a target bit, one less in
-      ``ctl[CTL_UNFOUND]``; every other live place becomes the pad
-      (n_rows, BIG_Q), in place, and a pad is left as it is (K5 writes
-      its pads as (n_rows, BIG_Q)).
-
-    ``CTL_UNFOUND`` thus counts the unfound target cells, where the
-    reference scans [chunk, qmax] for any each level."""
-    dev = depth.device
-    if depth.dim() != 2:
-        raise ValueError("depth must be int16 [chunk, qmax]")
-    chunk, qmax = depth.shape
-    _check(depth, "depth", torch.int16, (chunk, qmax), dev)
-    if W != _words(chunk):
-        raise ValueError(f"W={W} for a chunk of {chunk} rows")
-    _vec(tbits, "tbits", torch.int32, dev, qmax * W)
-    c = _vec(ids, "ids", torch.int32, dev)
-    _vec(qid, "qid", torch.int32, dev, c)
-    _vec(ctl, "ctl", torch.int64, dev, CTL_SIZE)
-    ct = 0
-    if init:
-        ct = _vec(tids, "tids", torch.int32, dev)
-        _vec(tqid, "tqid", torch.int32, dev, ct)
-    if not 0 <= step < int(INT16_INF) - 1:
-        raise ValueError(f"step {step} does not fit int16")
-    if not _route(dev):
-        return mesh_bfs_stamp_ref(init, ids, qid, depth, tbits, W, base,
-                                  n_rows, step, ctl, tids, tqid)
-    ptr = (lambda t: None if t is None else t.data_ptr())
-    with torch.cuda.device(dev):
-        rc = _lib().mesh_bfs_stamp(
-            int(init), ids.data_ptr(), qid.data_ptr(), c, ptr(tids),
-            ptr(tqid), ct, depth.data_ptr(), chunk, qmax, tbits.data_ptr(),
-            W, base, n_rows, step, ctl.data_ptr(), _stream(dev))
-    _ok(rc, "mesh_bfs_stamp")
-    LAUNCHES["mesh_bfs_stamp"] += 1
     return depth
 
 
@@ -3659,18 +3609,28 @@ def _block_of(st, members, recv, send, y: int, d: int) -> torch.Tensor:
     return send[y, d]
 
 
+def _counted(ids: torch.Tensor, ctl: torch.Tensor, y: int,
+             counted: bool) -> int:
+    """The places member y of a card stage reads: min(ctl[y, CTL_CNT],
+    c) of a list K5 built (``counted``), else all c."""
+    c = ids.shape[1]
+    return max(0, min(int(ctl[y, CTL_CNT]), c)) if counted else c
+
+
 def mesh_route_card_ref(hub, ids, qid, st, group, over, recv, send, ctl,
-                        hub_recv=None):
+                        hub_recv=None, counted=False):
     """Plain version of ``mesh_route_card``: ``mesh_route_ref`` (X1's
-    per-shard plain version) on each member into a block of its own,
-    each owner's block then written where the kernel writes it."""
+    per-shard plain version) on each member's places into a block of
+    its own, each owner's block then written where the kernel writes
+    it."""
     members = tuple(group[1])
     k, cap = st.k, recv.shape[2] - 1
     for y, s in enumerate(members):
+        c = _counted(ids, ctl, y, counted)
         own = torch.zeros((k, 1 + cap), dtype=torch.int64, device=ids.device)
-        mesh_route_ref(hub, ids[y], qid[y],
+        mesh_route_ref(hub, ids[y, :c], qid[y, :c],
                        None if hub_recv is None else hub_recv[y], st, s,
-                       over, own, ctl[y])
+                       over, own, ctl[y], ids.shape[1])
         for d in range(k):
             _block_of(st, members, recv, send, y, d).copy_(own[d])
     return recv
@@ -3679,18 +3639,21 @@ def mesh_route_card_ref(hub, ids, qid, st, group, over, recv, send, ctl,
 def mesh_route_card(hub: bool, ids: torch.Tensor, qid: torch.Tensor, st,
                     group, over: Sequence[int], recv: torch.Tensor,
                     send: Optional[torch.Tensor], ctl: torch.Tensor,
-                    hub_recv: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    hub_recv: Optional[torch.Tensor] = None,
+                    counted: bool = False) -> torch.Tensor:
     """X1 for the members of one card group ``group`` = (device, shards)
     of ``st.mesh.groups``, one launch: member y's pairs ``ids[y]`` /
     ``qid[y]`` (int32 [members, c] slabs, ids == n_rows inactive) routed
-    to their owners.  The pairs member y (shard s) sends owner d land in
-    the block d receives from s — ``recv[m, s]`` when d is member m of
-    this card (the receive slab, int64 [members, k, 1 + cap]), else
-    ``send[y, d]`` (the send slab of the same shape; None when every
-    shard sits on this card), which ``mesh.all_to_all`` copies across.
-    The blocks' counts must be 0 before (the slab's memset, or the last
-    hop's ``mesh_dedup``).  ``ctl`` int64 [members, CTL_SIZE].
+    to their owners; with ``counted`` only the first min(ctl[y, CTL_CNT],
+    c) of them (a list whose live pairs all lie below that count:
+    ``mesh_dedup``'s, or the BFS starts after ``mesh_bfs_stamp_card``'s
+    init; the count read on the card), else all c.  The pairs member y
+    (shard s) sends owner d land in the block d receives from s — ``recv[m,
+    s]`` when d is member m of this card (the receive slab, int64 [members, k,
+    1 + cap]), else ``send[y, d]`` (the send slab of the same shape; None when
+    every shard sits on this card), which ``mesh.all_to_all`` copies across.
+    The blocks' counts must be 0 before (the slab's memset, or the last hop's
+    ``mesh_dedup``).  ``ctl`` int64 [members, CTL_SIZE].
 
     - candidate mode (ell.py:1970 ``local_gather`` + :1993 ``route``):
       each live pair, and each live key of ``hub_recv[y]`` (the hub
@@ -3705,7 +3668,8 @@ def mesh_route_card(hub: bool, ids: torch.Tensor, qid: torch.Tensor, st,
       raises the overflow, and ``ctl[y, CTL_HUB_TOTAL]`` gets the total.
 
     Every pair is counted; only the first ``cap`` of a block are kept
-    (in any order) and a count past ``cap`` sets ``ctl[y, CTL_OVF]``."""
+    (in any order) and a count past ``cap`` sets ``ctl[y, CTL_OVF]``.
+    The hub budget is the list's width c either way."""
     dev, members = _card_of(st, group)
     kg, k = len(members), st.k
     c = _slab(ids, "ids", torch.int32, kg, dev)
@@ -3726,14 +3690,14 @@ def mesh_route_card(hub: bool, ids: torch.Tensor, qid: torch.Tensor, st,
         _tables_check(st.shards[s], dev)
     if not _route(dev):
         return mesh_route_card_ref(hub, ids, qid, st, group, over, recv,
-                                   send, ctl, hub_recv)
+                                   send, ctl, hub_recv, counted)
     t = st.shards[0]
     neg = (ctypes.c_int32 * len(over))(*[-e for e in over])
     ptr = (lambda x: None if x is None else x.data_ptr())
     with _on_card(dev):
         rc = _lib().mesh_route(
             int(hub), _mesh_card(st, members), ids.data_ptr(),
-            qid.data_ptr(), c, ptr(hub_recv), hub_cap,
+            qid.data_ptr(), c, int(counted), ptr(hub_recv), hub_cap,
             _mesh_buckets(st.bstarts, st.n_rows, t.rows, t.slot0, t.D),
             len(t.D), neg, len(over), st.chunk, st.n_rows, recv.data_ptr(),
             ptr(send), cap, ctl.data_ptr(), _hub_c_lim(c), _stream(dev))
@@ -3866,6 +3830,97 @@ def mesh_agree(ctl: torch.Tensor) -> torch.Tensor:
     return ctl
 
 
+def mesh_bfs_stamp_card_ref(init, ids, qid, depth, tbits, st, group, step,
+                            ctl, tids=None, tqid=None, counted=False,
+                            tick=None):
+    """Plain version of ``mesh_bfs_stamp_card``: ``mesh_bfs_stamp_ref``
+    on each member's places (``tick`` is not read)."""
+    W = _words(st.chunk)
+    for y, s in enumerate(tuple(group[1])):
+        c = _counted(ids, ctl, y, counted)
+        mesh_bfs_stamp_ref(init, ids[y, :c], qid[y, :c], depth[y],
+                           tbits[y, :depth.shape[2] * W], W, s * st.chunk,
+                           st.n_rows, step, ctl[y],
+                           None if tids is None else tids[y],
+                           None if tqid is None else tqid[y])
+    return depth
+
+
+def mesh_bfs_stamp_card(init: bool, ids: torch.Tensor, qid: torch.Tensor,
+                        depth: torch.Tensor, tbits: torch.Tensor, st, group,
+                        step: int, ctl: torch.Tensor,
+                        tids: Optional[torch.Tensor] = None,
+                        tqid: Optional[torch.Tensor] = None,
+                        counted: bool = False,
+                        tick: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """X3 for the members of one card group ``group`` of ``st.mesh``,
+    one call: ``mesh_bfs_stamp_ref`` on every member y (shard s) at
+    once.  Member y's BFS depth is ``depth[y]`` (int16 [members, chunk,
+    qmax], INT16_INF unreached; row li is global row s * chunk + li), its
+    target bitmap ``tbits[y]`` (int32 [members, words], its first qmax *
+    W words a query row of W = ceil(chunk / 32)), its flags ``ctl[y]``
+    (int64 [members, CTL_SIZE]), its list ``ids[y]`` / ``qid[y]`` (int32
+    [members, c]; with ``counted`` only the first min(ctl[y, CTL_CNT],
+    c) places, a list ``mesh_dedup`` built, else all c); (q, row) is
+    clipped to the block as the reference clips (ell.py:2230-2241).
+
+    - ``init`` (two launches): depth 0 at every live start pair,
+      ``ctl[y, CTL_LIVE]`` = their count, ``ctl[y, CTL_CNT]`` = one past
+      the last live start's place (so the first level's X1 reads the
+      starts to it, counted); then every live target pair
+      (``tids[y]`` / ``tqid[y]``, int32 [members, ct]) sets its bit, and
+      each bit newly set whose depth is still unset adds one to
+      ``ctl[y, CTL_UNFOUND]``.
+    - a level (ell.py:2279-2287; one launch): each live pair (``ids`` ==
+      n_rows: a pad) whose depth is unset gets ``step + 1`` and stays in
+      the next frontier, ``ctl[y, CTL_LIVE]`` their count and, on a
+      target bit, one less in ``ctl[y, CTL_UNFOUND]``; every other live
+      place becomes the pad (n_rows, BIG_Q), in place, and a pad is left
+      as it is (K5 writes its pads as (n_rows, BIG_Q)).
+
+    ``CTL_UNFOUND`` thus counts the unfound target cells, where the
+    reference scans [chunk, qmax] for any each level.  ``tick``: the
+    kernels' int64 [members, 2] scratch, zero before and left zero (the
+    programs keep it in their card group's zeroed slabs); None: a zeroed
+    one of the call's own (a memset beside the launches)."""
+    dev, members = _card_of(st, group)
+    kg, chunk = len(members), st.chunk
+    W = _words(chunk)
+    if not isinstance(depth, torch.Tensor) or depth.dim() != 3:
+        raise ValueError("depth must be int16 [members, chunk, qmax]")
+    qmax = depth.shape[2]
+    _check(depth, "depth", torch.int16, (kg, chunk, qmax), dev)
+    words = _slab(tbits, "tbits", torch.int32, kg, dev)
+    if words < qmax * W:
+        raise ValueError(f"tbits of {words} words for {qmax} rows of {W}")
+    c = _slab(ids, "ids", torch.int32, kg, dev)
+    _slab(qid, "qid", torch.int32, kg, dev, c)
+    _slab(ctl, "ctl", torch.int64, kg, dev, CTL_SIZE)
+    ct = 0
+    if init:
+        ct = _slab(tids, "tids", torch.int32, kg, dev)
+        _slab(tqid, "tqid", torch.int32, kg, dev, ct)
+    if tick is not None:
+        _slab(tick, "tick", torch.int64, kg, dev, 2)
+    if not 0 <= step < int(INT16_INF) - 1:
+        raise ValueError(f"step {step} does not fit int16")
+    if not _route(dev):
+        return mesh_bfs_stamp_card_ref(init, ids, qid, depth, tbits, st,
+                                       group, step, ctl, tids, tqid, counted)
+    if tick is None:
+        tick = torch.zeros((kg, 2), dtype=torch.int64, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with _on_card(dev):
+        rc = _lib().mesh_bfs_stamp(
+            int(init), _mesh_card(st, members), ids.data_ptr(),
+            qid.data_ptr(), c, int(counted), ptr(tids), ptr(tqid), ct,
+            depth.data_ptr(), chunk, qmax, tbits.data_ptr(), W, words,
+            st.n_rows, step, ctl.data_ptr(), tick.data_ptr(), _stream(dev))
+    _ok(rc, "mesh_bfs_stamp")
+    LAUNCHES["mesh_bfs_stamp"] += 1
+    return depth
+
+
 def mesh_emit_ref(ids, qid, ctl, out, n_rows):
     """Plain version of ``mesh_emit``: ``pair_reduce_ref``'s emit on
     each member."""
@@ -3913,8 +3968,8 @@ class _CardWork:
     on other cards (None on one card; ``er`` / ``es`` None without hub
     extra rows) — K5's look-back state ``scan`` [members,
     compact_state_words(words)], which every hop's ``mesh_dedup``
-    shares, and the int32 bitmaps ``marks`` (and, for the BFS,
-    ``tbits``) [members, words]."""
+    shares, for the BFS X3's scratch ``tick`` [members, 2], and the int32
+    bitmaps ``marks`` (and, for the BFS, ``tbits``) [members, words]."""
 
     def __init__(self, st, group, words: int, cap_x: int, cap_e: int,
                  tbits: bool = False):
@@ -3927,6 +3982,8 @@ class _CardWork:
                  ("scan", (kg, compact_state_words(words)))]
         if hubs:
             parts.append(("er", (kg, k, 1 + cap_e)))
+        if tbits:
+            parts.append(("tick", (kg, 2)))
         if far:
             parts.append(("xs", (kg, k, 1 + cap_x)))
             if hubs:
@@ -3935,7 +3992,7 @@ class _CardWork:
         bitmaps = ["marks"] + (["tbits"] if tbits else [])
         total = sum(z for _n, _s, z in sizes) + len(bitmaps) * kg * half
         buf = torch.zeros(total, dtype=torch.int64, device=dev)
-        self.er = self.xs = self.es = self.tbits = None
+        self.er = self.xs = self.es = self.tbits = self.tick = None
         off = 0
         for name, shape, z in sizes:
             setattr(self, name, buf[off:off + z].view(shape))
@@ -3987,10 +4044,12 @@ def _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax,
     (mesh_agree, or_many) or their plain versions) and K6's emit
     (``emit``), one call each a stage, between exchanges that move
     nothing on one card (``route`` writes each pair into its owner's
-    receive block) and copy the cross-card blocks otherwise.  Returns
-    (the output: a [members, 2 + 2 * caps[-1]] slab a card group; the
-    exchanges run; the card groups' ctl slabs, whose
-    ``exchanged_bytes`` are the bytes that reached other shards)."""
+    receive block) and copy the cross-card blocks otherwise.  X1 reads
+    the start lists whole and each later list's counted prefix (the
+    count K5 left in ctl).  Returns (the output: a [members, 2 + 2 *
+    caps[-1]] slab a card group; the exchanges run; the card groups' ctl
+    slabs, whose ``exchanged_bytes`` are the bytes that reached other
+    shards)."""
     groups = st.mesh.groups
     chunk, n_rows = st.chunk, st.n_rows
     words = qmax * _words(chunk)
@@ -4000,22 +4059,23 @@ def _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax,
     cur = list(zip(ids0, qid0))
     exchanges = 0
 
-    def route_all(hub: bool) -> None:
+    def route_all(hub: bool, counted: bool) -> None:
         nonlocal exchanges
         for g, w, (ids, qid) in zip(groups, work, cur):
             if hub:
-                route(True, ids, qid, st, g, over, w.er, w.es, w.ctl)
+                route(True, ids, qid, st, g, over, w.er, w.es, w.ctl, None,
+                      counted)
             else:
                 route(False, ids, qid, st, g, over, w.xr, w.xs, w.ctl,
-                      w.er)
+                      w.er, counted)
         _exchange(st, work, "es" if hub else "xs", "er" if hub else "xr")
         exchanges += 1
 
     if hubs:
-        route_all(True)
+        route_all(True, False)
     for h in range(steps - 1):
         c_out = caps[h + 1]
-        route_all(False)
+        route_all(False, h > 0)
         nxt = []
         for g, w in zip(groups, work):
             ids = torch.empty((len(g[1]), c_out), dtype=i32, device=g[0])
@@ -4025,7 +4085,7 @@ def _mesh_go_steps(ids0, qid0, st, over, steps, caps, cap_x, cap_e, qmax,
             nxt.append((ids, qid))
         cur = nxt
         if hubs and h < steps - 2:
-            route_all(True)
+            route_all(True, True)
     ctl = [w.ctl for w in work]
     _agree_overflow(st, ctl, agree)
     outs = []
@@ -4079,32 +4139,31 @@ def _read_ctl(ctl) -> torch.Tensor:
 def _mesh_bfs_steps(ids0, qid0, tids, tqid, st, over, max_steps, cap,
                     cap_x, cap_e, qmax, stop, route, dedup, stamp,
                     read=None):
-    """The frontier-sharded BFS as card stages (X1 ``route``, X2 + K5
-    ``dedup``, one call each a card group) and X3 (``stamp``) per shard;
-    the level loop on the host, which reads the card groups' ctl slabs
-    once a level with ``read(ctl)`` (default ``_read_ctl``; a caller that
-    knows the flags a run reads can give them back without waiting on
-    the card) and agrees the flags (any overflow, any live pair, any
-    unfound target).  Returns (depth per shard, overflow, levels run,
-    the exchanges run, the bytes they moved between shards)."""
+    """The frontier-sharded BFS as card stages, one call each a card
+    group: X1 (``route``; counted: the start lists to the extent X3's
+    init left in ctl, a later level's list to K5's count), X2 + K5
+    (``dedup``) and X3 (``stamp``; its init, then once a level on the
+    counted prefix); the level loop on the host, which reads the card
+    groups' ctl slabs once a level with ``read(ctl)`` (default
+    ``_read_ctl``; a caller that knows the flags a run reads can give
+    them back without waiting on the card) and agrees the flags (any overflow,
+    any live pair, any unfound target).  Returns (depth per shard, overflow,
+    levels run, the exchanges run, the bytes they moved between shards)."""
     groups, mesh = st.mesh.groups, st.mesh
-    chunk, n_rows = st.chunk, st.n_rows
-    W = _words(chunk)
+    chunk = st.chunk
     hubs = st.n_extras > 0
     i32 = torch.int32
-    work = [_CardWork(st, g, qmax * W, cap_x, cap_e, tbits=True)
+    work = [_CardWork(st, g, qmax * _words(chunk), cap_x, cap_e, tbits=True)
             for g in groups]
     ctl = [w.ctl for w in work]
-    crow, tbits = mesh.rows(ctl), mesh.rows([w.tbits for w in work])
-    depth = mesh.rows(mesh.slabs((chunk, qmax), torch.int16))
-    for d in depth:
+    dslabs = mesh.slabs((chunk, qmax), torch.int16)
+    for d in dslabs:
         d.fill_(int(INT16_INF))
-    tids, tqid = mesh.rows(tids), mesh.rows(tqid)
     cur = list(zip(ids0, qid0))
-    for (_d, members), (ids, qid) in zip(groups, cur):
-        for y, s in enumerate(members):
-            stamp(True, ids[y], qid[y], depth[s], tbits[s], W, s * chunk,
-                  n_rows, 0, crow[s], tids[s], tqid[s])
+    for g, w, d, (ids, qid), ti, tq in zip(groups, work, dslabs, cur, tids,
+                                           tqid):
+        stamp(True, ids, qid, d, w.tbits, st, g, 0, w.ctl, ti, tq, False,
+              w.tick)
     read = read or _read_ctl
     flags = read(ctl)
     go = bool((flags[:, CTL_LIVE] > 0).any()) and max_steps > 0
@@ -4115,21 +4174,21 @@ def _mesh_bfs_steps(ids0, qid0, tids, tqid, st, over, max_steps, cap,
         for hub in ((True, False) if hubs else (False,)):
             for g, w, (ids, qid) in zip(groups, work, cur):
                 if hub:
-                    route(True, ids, qid, st, g, over, w.er, w.es, w.ctl)
+                    route(True, ids, qid, st, g, over, w.er, w.es, w.ctl,
+                          None, True)
                 else:
                     route(False, ids, qid, st, g, over, w.xr, w.xs, w.ctl,
-                          w.er)
+                          w.er, True)
             _exchange(st, work, "es" if hub else "xs", "er" if hub else "xr")
             exchanges += 1
         nxt = []
-        for g, w in zip(groups, work):
+        for g, w, d in zip(groups, work, dslabs):
             ids = torch.empty((len(g[1]), cap), dtype=i32, device=g[0])
             qid = torch.empty_like(ids)
             dedup(w.xr, st, g, w.marks, cap, ids, qid, w.ctl, w.er, w.xs,
                   w.es, w.scan)
-            for y, s in enumerate(g[1]):
-                stamp(False, ids[y], qid[y], depth[s], tbits[s], W,
-                      s * chunk, n_rows, step, crow[s])
+            stamp(False, ids, qid, d, w.tbits, st, g, step, w.ctl, None,
+                  None, True, w.tick)
             nxt.append((ids, qid))
         cur = nxt
         step += 1
@@ -4138,7 +4197,8 @@ def _mesh_bfs_steps(ids0, qid0, tids, tqid, st, over, max_steps, cap,
         go = step < max_steps and bool((flags[:, CTL_LIVE] > 0).any())
         if stop:
             go = go and bool((flags[:, CTL_UNFOUND] > 0).any())
-    return depth, ovf, step, exchanges, int(flags[:, CTL_XBYTES].sum())
+    return (mesh.rows(dslabs), ovf, step, exchanges,
+            int(flags[:, CTL_XBYTES].sum()))
 
 
 def mesh_sparse_bfs(ids0: Sequence[torch.Tensor],
@@ -4167,6 +4227,7 @@ def mesh_sparse_bfs(ids0: Sequence[torch.Tensor],
                                    stop_when_found)
     depth, ovf, levels, _x, _b = _mesh_bfs_steps(
         ids0, qid0, tids, tqid, st, over, max_steps, cap, cap_x, cap_e,
-        qmax, stop_when_found, mesh_route_card, mesh_dedup, mesh_bfs_stamp)
+        qmax, stop_when_found, mesh_route_card, mesh_dedup,
+        mesh_bfs_stamp_card)
     LAUNCHES["mesh_sparse_bfs"] += 1
     return depth, ovf, levels

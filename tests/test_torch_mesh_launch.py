@@ -316,7 +316,7 @@ def test_programs_over_two_pretended_cards_equal_one_card(ells, k,
             *map(st.mesh.split, args), st, OVER, 4, 4096, 4096, 256, 16,
             False,
             ell_ops.mesh_route_card, ell_ops.mesh_dedup,
-            ell_ops.mesh_bfs_stamp)
+            ell_ops.mesh_bfs_stamp_card)
         assert not ovf and levels == 4 and xb > 0
         if st is one:
             want = dep

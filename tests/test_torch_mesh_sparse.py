@@ -7,7 +7,7 @@ Kernel level: the reference's ``build_sharded_ell`` (``ell.py:1871``),
 ``make_frontier_sharded_sparse_bfs_kernel`` (``:2179``) run on a
 ``Mesh`` of the conftest's virtual CPU devices; the port's plain
 versions, and its programs composed of the card stages (X1, X2 + K5,
-the agreement, K6; X3 per shard) on their plain versions, run on a
+the agreement, K6, X3) on their plain versions, run on a
 ``PartsMesh`` of k CPU shards.  The same seeded numpy
 inputs go to both; every shard's output array, depth block and
 overflow flag is compared for exact equality.  The ELL is the
@@ -290,7 +290,7 @@ def test_mesh_sparse_bfs_matches_reference(ells, k, max_steps, stop):
         seen.append(ell_ops._read_ctl(ctl))
         return seen[-1]
     kern = (ell_ops.mesh_route_card, ell_ops.mesh_dedup,
-            ell_ops.mesh_bfs_stamp)
+            ell_ops.mesh_bfs_stamp_card)
     dep2, ovf2, levels2, _x, _b = ell_ops._mesh_bfs_steps(
         *args, st, over, max_steps, cap, cap_x, cap_e, B, stop, *kern,
         read=record)
@@ -321,7 +321,8 @@ def test_mesh_sparse_bfs_tight_cap_overflows(ells):
                                               cap_x, cap_e, B, True)
     _d2, ovf2, levels2, _x, _b = ell_ops._mesh_bfs_steps(
         *args, st, over, 5, cap, cap_x, cap_e, B, True,
-        ell_ops.mesh_route_card, ell_ops.mesh_dedup, ell_ops.mesh_bfs_stamp)
+        ell_ops.mesh_route_card, ell_ops.mesh_dedup,
+        ell_ops.mesh_bfs_stamp_card)
     assert wovf.all() and ovf and ovf2 and levels == levels2 < 5
 
 
