@@ -109,16 +109,23 @@ Phases, in order; any failure exits non-zero:
              equal to the plain version's and a superset of the rows
              with a byte > 0; device and event times on the start and
              dense frontiers, as a first hop and as a later one),
-             ``ell_go_i8`` at 1-4 steps
-             (exact and UPTO, row-packed; timed at 3) beside the packed
-             ``ell_go`` on the
-             same starts and tables (the same vertex sets), K14
-             ``pack_rows``, ``ell_bfs_i8`` (UPTO 5, a connected and an
-             unreachable pair among random lanes) and K15
-             ``bfs_level_i8``; and all of them once more, untimed, off
-             the ladder: B = 10 (K13's byte columns), 12 (its 4-byte
-             columns) and 128 with K13's carriers 4 bytes off a 16-byte
-             boundary; the
+             K13's row-packed last advance (with and without UPTO, from
+             a first and a later hop), ``ell_go_i8`` at 1-4 steps
+             (exact and UPTO, row-packed; timed at 3, its launches a
+             call by capture, no K14) beside the packed ``ell_go`` on
+             the same starts and tables (the same vertex sets), K14
+             ``pack_rows`` (a 1-step call's only pass), ``ell_bfs_i8``
+             (UPTO 5, a connected and an unreachable pair among random
+             lanes, its targets as K1's lane bits and as an int8
+             carrier, every level held to the plain level, no
+             ``bfs_depth_i8``) and K15 ``bfs_level_i8`` (its first pass
+             both ways, a level on level 1's state and on a dense
+             frontier); and all of them once more, untimed, off the
+             ladder: B = 10 (K13's byte columns, K15's byte path), 12
+             (their 4-byte paths) and 128 with the carriers 4 bytes off
+             a 16-byte boundary, K15 five levels state by state with an
+             int8 and an int16 d; the row-packed advance on hand-made
+             tables whose buckets start inside 8-row groups; the
              packed hop, untimed, three chained hops with and without
              the accumulator at W = 16, 128, 4, 12, 20 and 48, at
              W = 16 on rows, slot tables or both 4 bytes off alignment
@@ -432,6 +439,11 @@ NO_RUNTIME_PATH = ("go", "bfs", "edge_bfs_level", "sharded_go", "or_into",
                    "expr_filter", "edge_final", "edge_scan_hop")
 EDGE_KERNELS = ("edge_seed", "edge_hop", "edge_final", "edge_final_where",
                 "expr_filter", "edge_bfs_level", "go", "go_filtered", "bfs")
+# kernels kept ported that no runtime path launches any more: K14 runs
+# only for a row-packed GO with no advance (steps <= 1, which the
+# runtime answers on the host), and no BFS converts an int16 d since
+# every level pass keeps d in the result's form
+OFF_PATH = ("pack_rows", "bfs_depth_i8")
 # which counted phase runs each kernel on its main path
 PATH_KERNELS = {
     "serve": ("go_hop", "lane_join", "lane_extract", "lane_clear"),
@@ -444,9 +456,8 @@ PATH_KERNELS = {
     "path": ("frontier_upload", "go_hop", "bfs_level"),
     "write": ("ell_absorb", "go_hop", "lane_join", "lane_extract",
               "lane_clear"),
-    "unpacked": ("frontier_upload_i8", "go_hop_i8", "pack_rows",
-                 "bfs_level_i8", "bfs_depth_i8", "ell_go_i8",
-                 "ell_bfs_i8"),
+    "unpacked": ("frontier_upload_i8", "frontier_upload", "go_hop_i8",
+                 "bfs_level_i8", "ell_go_i8", "ell_bfs_i8"),
     "mesh": ("frontier_upload", "shard_hop", "hop_merge", "replicate_rows",
              "ell_go_sharded", "mesh_level", "ell_bfs_sharded",
              "shard_absorb", "ell_absorb_sharded",
@@ -1489,6 +1500,112 @@ def go_i8_bytes(slots: int, R1: int, B: int, G: int, live_hops,
             + G * B + (2 * R1 * B if upto else 0))
 
 
+def k15_first_bytes(R1: int, B: int, dsize: int, packs: bool) -> dict:
+    """K15's first pass: the start carrier read, ``seen`` and ``d`` written
+    whole, the targets' lane bits read (as K1 uploads them) or, with
+    ``packs``, their int8 carrier read and its bits written (``bytes``);
+    the int16 design read the start and the targets whole and wrote an
+    int16 d (``old_bytes``)."""
+    Wb = -(-B // 8)
+    return dict(bytes=R1 * B + R1 * Wb + dsize * R1 * B
+                + (R1 * B + R1 * Wb if packs else R1 * Wb),
+                old_bytes=4 * R1 * B)
+
+
+def k15_level_bytes(torch, ell_ops, nxt, seen, dsize: int) -> dict:
+    """K15's later level on this run's data: nxt, ``seen`` and the target
+    bits read, the seen bytes and the nxt bytes that change written, and
+    the newly lanes' d (``bytes``); the int16 design read nxt and the
+    int8 targets whole, the int16 d of the live lanes, and wrote the
+    changed nxt bytes and the newly lanes' d (``old_bytes``)."""
+    R1, B = nxt.shape
+    Wb = seen.shape[1]
+    newly = ell_ops.lane_bits_ref(nxt) & ~seen
+    lanes = ell_ops._unpack_ref(newly)[:, :B]
+    n_new = int(lanes.sum(dtype=torch.int64).item())
+    live = int((nxt > 0).sum().item())
+    changed = int((nxt != lanes.to(torch.int8)).sum().item())
+    grew = int((newly != 0).sum().item())
+    return dict(bytes=R1 * B + 2 * R1 * Wb + grew + changed + dsize * n_new,
+                old_bytes=2 * R1 * B + changed + 2 * (live + n_new),
+                live_lanes=live, newly_lanes=n_new, changed_bytes=changed)
+
+
+def fused_pack_check(torch, ell_ops, f0, tables, eslot, hrows, over,
+                     label: str, mk=None) -> int:
+    """K13's row-packed last advance against its plain version: the
+    packed result, exact and with the UPTO accumulator (read, not
+    written), from a program's first hop (no live array) and from a
+    later one (the row-live array given), and ``out``'s extra rows,
+    which the hub pass reads.  ``mk`` places the kernel's carriers
+    (default: a clone).  Returns the max abs error (0)."""
+    mk = mk or (lambda t: t.clone())
+    R1, B = f0.shape
+    n, n_rows = tables.n, tables.n_rows
+    live = ell_ops.row_live_i8_ref(f0)
+    fk = mk(f0)
+    for upto in (False, True):
+        for live_in in (None, live):
+            ak = mk(f0) if upto else None
+            ok_ = mk(torch.zeros_like(f0))
+            pk = ell_ops.packed_rows(R1, B, f0.device)
+            got, _a = ell_ops.go_hop_i8(fk, ak, ok_, tables, eslot, hrows,
+                                        over, live_in, None, pk)
+            orf = torch.zeros_like(f0)
+            pr = ell_ops.packed_rows(R1, B, f0.device)
+            ell_ops.go_hop_i8_ref(f0, f0.clone() if upto else None, orf,
+                                  tables, eslot, hrows, over, live_in, None,
+                                  pr)
+            pairs = [(got, pr), (ok_[n:n_rows], orf[n:n_rows])]
+            if upto:
+                pairs.append((ak, f0))
+            require_equal(torch, f"fused pack {label} upto={upto} "
+                          f"live_in={live_in is not None}", B, *pairs)
+    return 0
+
+
+def fused_pack_odd_check(torch, ell_ops, rng, dev) -> dict:
+    """The row-packed last advance on hand-made tables whose buckets start
+    inside 8-row groups, whose hub owners sit in the groups two buckets
+    share and in the group the first extra rows share with the last real
+    rows, with an unclaimed spare (owner n_rows), and whose n_rows + 1
+    is no multiple of 8 (and again with n_rows a multiple of 8: the pad
+    row's group its own), at B = 10, 12, 128 and 1024; and the packed
+    programs at 2 and 3 steps, exact and UPTO.  Equal to the plain
+    versions throughout."""
+    out = {}
+    for n, extra in ((4101, 37), (4099, 45)):
+        T, _runs = odd_tables(torch, rng, n, (4, 8, 16, 32), extra, 0, dev)
+        starts = [r for r in T.row0[1:] if r % 8]
+        owners = [s - 1 for s in starts] + [s + 1 for s in starts] \
+            + [n - 1, n - 2]
+        hrows_h = np.array([owners[e % len(owners)] for e in range(extra)],
+                           np.int32)
+        hrows_h[-1] = T.n_rows                  # an unclaimed spare
+        hr = torch.from_numpy(hrows_h).to(dev)
+        es = torch.arange(extra, dtype=torch.int32, device=dev)
+        R1 = T.n_rows + 1
+        for B in (10, 12, 128, 1024):
+            f0 = torch.zeros((R1, B), dtype=torch.int8, device=dev)
+            f0[:n] = torch.from_numpy(rng.choice(
+                np.array([0, 0, 0, 1, 2, -1], np.int8), (n, B))).to(dev)
+            fused_pack_check(torch, ell_ops, f0, T, es, hr, (-1, 1, 2),
+                             f"odd n={n} B={B}")
+            for steps in (2, 3):
+                for upto in (False, True):
+                    require_equal(
+                        torch, f"ell_go_i8 odd n={n} B={B} steps={steps} "
+                        f"upto={upto}", B,
+                        (ell_ops.ell_go_i8(f0.clone(), T, es, hr, (-1, 1, 2),
+                                           steps, upto, pack=True),
+                         ell_ops.ell_go_i8_ref(f0.clone(), T, es, hr,
+                                               (-1, 1, 2), steps, upto,
+                                               pack=True)))
+        out[f"n{n}"] = dict(row0=list(T.row0), n_rows=T.n_rows,
+                            mid_group_starts=starts, equal=True)
+    return out
+
+
 def k13_check(torch, ell_ops, f0, tables, eslot, hrows, over, label: str,
               mk=None, hops: int = 3) -> int:
     """K13 against its plain version: ``hops`` chained advances of
@@ -1592,6 +1709,8 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
     for label, fx in (("start", f0), ("dense", dense), ("arbitrary", arb)):
         err = max(err, k13_check(torch, ell_ops, fx, tables, eslot, hrows,
                                  over, f"B={B} {label}"))
+        err = max(err, fused_pack_check(torch, ell_ops, fx, tables, eslot,
+                                        hrows, over, f"B={B} {label}"))
     del arb
     out = torch.empty_like(f0)
     lout = torch.empty(ell_ops.live_words(R1), dtype=torch.int32,
@@ -1656,11 +1775,24 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
             work, tables, eslot, hrows, over, 3, upto, pack=True),
             restore, 1, 1)
         go_bytes = go_i8_bytes(slots, R1, B, G, live_hops, hub_bytes, upto)
+        # its launches a call by capture: the last advance writes the
+        # packed result, so no K14
+        k14 = ell_ops.LAUNCHES["pack_rows"]
+        ell_ops.ell_go_i8(work, tables, eslot, hrows, over, 3, upto,
+                          pack=True)
+        if ell_ops.LAUNCHES["pack_rows"] != k14:
+            raise AssertionError("ell_go_i8 at 3 steps launched K14")
+        go_n = launches_a_call(torch, ell_ops, lambda: ell_ops.ell_go_i8(
+            work, tables, eslot, hrows, over, 3, upto, pack=True))
         go_rows[upto] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=bytes_ms(go_bytes), bound_by="bytes",
                              library_ms=None, steps=3, live_rows=live_hops,
                              live_bits=int(ell_ops._unpack_ref(gk).sum(
-                                 dtype=torch.int64).item()))
+                                 dtype=torch.int64).item()),
+                             pack_rows_a_call=0,
+                             **{a: go_n[a] for a in (
+                                 "launches_a_call", "c_calls_a_call",
+                                 "launch_kinds", "launches_traced")})
         if not upto:
             packed_out = gk
     # the other depths, untimed: 1, 2 and 4 steps, exact and UPTO
@@ -1694,7 +1826,8 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
                             int8_over_packed=go_rows[False]["ms"]
                             / max(packed_ms, 1e-9))
 
-    # ---- K14 the row pack of a 3-step frontier
+    # ---- K14 the row pack of a 3-step frontier (the programs run it only
+    # where there is no advance: a 1-step call, one launch)
     x = ell_ops.ell_go_i8(f0.clone(), tables, eslot, hrows, over, 3)
     pk = torch.empty((G, B), dtype=torch.uint8, device=dev)
     pr = torch.empty_like(pk)
@@ -1703,12 +1836,19 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
     err = require_equal(torch, "pack_rows", B, (pk, pr))
     ms = cuda_ms(torch, lambda: ell_ops.pack_rows(x, pk), 50)
     plain = cuda_ms(torch, lambda: ell_ops.pack_rows_ref(x, pr), 5)
+    k14 = ell_ops.LAUNCHES["pack_rows"]
+    ell_ops.ell_go_i8(f0.clone(), tables, eslot, hrows, over, 1, pack=True)
     res["pack_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                             bound_ms=bytes_ms(R1 * B + G * B),
-                            bound_by="bytes", library_ms=None)
+                            bound_by="bytes", library_ms=None,
+                            one_step_launches=ell_ops.LAUNCHES["pack_rows"]
+                            - k14, runs="ell_go_i8 at steps <= 1 only")
 
     # ---- the BFS (UPTO 5, stop when found): lane 0 a connected pair,
-    # lane 1 an unreachable one, the rest random
+    # lane 1 an unreachable one, the rest random; the targets as the
+    # runtime uploads them (K1's lane bits) and as an int8 carrier (the
+    # first pass packs it), every level held to the plain level on the
+    # same state
     (s0, t0_), (s1, t1_) = int8_pairs(m)
     starts_b = starts.copy()
     starts_b[:2] = (s0, s1)
@@ -1720,90 +1860,182 @@ def int8_kernel_phase(torch, ell_ops, m, ix, tables, eslot, hrows, B: int,
     tb = torch.empty_like(f0)
     ell_ops.frontier_upload_i8(fb, b_rows, b_cols, bS)
     ell_ops.frontier_upload_i8(tb, t_rows, t_cols, tS)
-    dk, lk = ell_ops.ell_bfs_i8(fb.clone(), tb, tables, eslot, hrows,
+    Wb = -(-B // 8)
+    tbits = torch.empty((R1, Wb), dtype=torch.uint8, device=dev)
+    tkey = torch.unique(t_rows[:tS].long() * B + t_cols[:tS])
+    ell_ops.frontier_upload(tbits, torch.stack((tkey // B, tkey % B)).to(
+        torch.int32))
+    prog_bytes = []
+
+    def level_held(nxt, tp, seen, d, flags, step, first, stop, t8=None):
+        prog_bytes.append(
+            k15_first_bytes(R1, B, 1, t8 is not None)["bytes"] if first
+            else k15_level_bytes(torch, ell_ops, nxt, seen, 1)["bytes"])
+        before = [x.clone() for x in (nxt, tp, seen, d, flags)]
+        ell_ops.bfs_level_i8(nxt, tp, seen, d, flags, step, first, stop, t8)
+        ell_ops.bfs_level_i8_ref(*before, step, first, stop, t8)
+        require_equal(torch, f"bfs_level_i8 step={step} first={first}", B,
+                      *zip((nxt, tp, seen, d, flags), before))
+
+    def hop_counted(f, acc, out, tables_, eslot_, hrows_, over_, live_in,
+                    live_out):
+        prog_bytes.append(k13_bytes(slots, R1, B, int((f > 0).any(1).sum()
+                                                      .item()),
+                                    hub_bytes, False))
+        return ell_ops.go_hop_i8(f, acc, out, tables_, eslot_, hrows_, over_,
+                                 live_in, live_out)
+    dh, lh = ell_ops._bfs_loop_i8(fb.clone(), tbits, tables, eslot, hrows,
+                                  over, 5, True,
+                                  ell_ops._live_chain(hop_counted, R1, dev),
+                                  level_held)
+    dk, lk = ell_ops.ell_bfs_i8(fb.clone(), tbits, tables, eslot, hrows,
                                 over, 5)
+    d8, l8 = ell_ops.ell_bfs_i8(fb.clone(), tb, tables, eslot, hrows, over,
+                                5)
     dr, lr = ell_ops.ell_bfs_i8_ref(fb.clone(), tb, tables, eslot, hrows,
                                     over, 5)
-    err_bfs = require_equal(torch, "ell_bfs_i8", B, (dk, dr))
-    if lk != lr:
-        raise AssertionError(f"ell_bfs_i8 ran {lk} levels, plain {lr}")
+    err_bfs = require_equal(torch, "ell_bfs_i8", B, (dk, dr), (d8, dr),
+                            (dh, dr))
+    if not lk == l8 == lr == lh or dk.dtype != torch.int8:
+        raise AssertionError(f"ell_bfs_i8 ran {lk} / {l8} levels ({lh} "
+                             f"held), plain {lr}, {dk.dtype}")
     d_conn = int(dk[int(ix.perm[t0_]), 0].item())
     d_none = int(dk[int(ix.perm[t1_]), 1].item())
     if d_conn != 2 or d_none != -1:
         raise AssertionError(f"BFS depths {d_conn} (want 2) and {d_none} "
                              f"(want -1) on the aimed lanes")
+    del dh, d8
     wb = torch.empty_like(fb)
     bfs_ms = restored_ms(torch, lambda: ell_ops.ell_bfs_i8(
+        wb, tbits, tables, eslot, hrows, over, 5), lambda: wb.copy_(fb), 3, 1)
+    bfs_t8_ms = restored_ms(torch, lambda: ell_ops.ell_bfs_i8(
         wb, tb, tables, eslot, hrows, over, 5), lambda: wb.copy_(fb), 3, 1)
     bfs_plain = restored_ms(torch, lambda: ell_ops.ell_bfs_i8_ref(
         wb, tb, tables, eslot, hrows, over, 5), lambda: wb.copy_(fb), 1, 1)
     # its launches: the loop replayed with the level flags a run read,
-    # plus those reads, less the start's clone the call here adds
+    # plus those reads, less the start's clone the call here adds; no
+    # bfs_depth_i8 (d is kept in the result's form)
     flag_reads = []
 
     def bfs_loop(read):
         return ell_ops._bfs_loop_i8(
-            fb.clone(), tb, tables, eslot, hrows, over, 5, True,
+            fb.clone(), tbits, tables, eslot, hrows, over, 5, True,
             ell_ops._live_chain(ell_ops.go_hop_i8, R1, dev),
-            ell_ops.bfs_level_i8, ell_ops.bfs_depth_i8, read=read)
+            ell_ops.bfs_level_i8, read=read)
     bfs_loop(lambda flag: flag_reads.append(flag.tolist())
              or flag_reads[-1])
 
     def bfs_replay():
         it = iter(flag_reads)
         return bfs_loop(lambda _flag: next(it))
+    depth_passes = ell_ops.LAUNCHES["bfs_depth_i8"]
     bfs_n = launches_a_call(torch, ell_ops, lambda: ell_ops.ell_bfs_i8(
-        fb.clone(), tb, tables, eslot, hrows, over, 5), replay=bfs_replay,
-        reads=len(flag_reads))
+        fb.clone(), tbits, tables, eslot, hrows, over, 5),
+        replay=bfs_replay, reads=len(flag_reads))
+    if ell_ops.LAUNCHES["bfs_depth_i8"] != depth_passes:
+        raise AssertionError("ell_bfs_i8 launched bfs_depth_i8")
     bfs_n["launches_a_call"] -= 1
     bfs_n["launch_kinds"]["memcpy"] -= 1
     res["ell_bfs_i8"] = dict(max_abs_err=err_bfs, ms=bfs_ms,
                              plain_ms=bfs_plain, levels=lk,
-                             bound_ms=bytes_ms(8 * slots + 3 * R1 * B
-                                               + hub_bytes),
+                             bound_ms=bytes_ms(8 * slots + 2 * R1 * B
+                                               + R1 * Wb + hub_bytes),
+                             old_bound_ms=bytes_ms(8 * slots + 3 * R1 * B
+                                                   + hub_bytes),
+                             design_bound_ms=bytes_ms(sum(prog_bytes)),
                              bound_by="bytes", library_ms=None,
+                             int8_targets_ms=bfs_t8_ms,
                              connected_depth=d_conn, unreachable_depth=d_none,
+                             bfs_depth_i8_a_call=0,
                              less="the start frontier's clone",
                              **{a: bfs_n[a] for a in (
                                  "launches_a_call", "c_calls_a_call",
                                  "launch_kinds", "host_reads",
                                  "launches_traced")})
 
-    # ---- K15 the level pass: the first pass, then level 1 after a hop
-    d0 = torch.empty((R1, B), dtype=torch.int16, device=dev)
+    # ---- K15 alone (device time queued behind a spin, events beside):
+    # the first pass (the targets as lane bits, and packed from the int8
+    # carrier), then a level after a hop on level 1's state (one start
+    # and target a lane) and on a dense frontier (the hop of a start with
+    # 2 % of the rows 0/1 lanes at random)
+    d0 = torch.empty((R1, B), dtype=torch.int8, device=dev)
+    seen0 = torch.empty((R1, Wb), dtype=torch.uint8, device=dev)
+    tpk = torch.empty_like(seen0)
     flg = torch.zeros((2, 2), dtype=torch.int32, device=dev)
     first_in = fb.clone()
-    ell_ops.bfs_level_i8(first_in, tb, d0, flg[0], 0, first=True)
-    dr0, fr0 = torch.empty_like(d0), torch.zeros(2, dtype=torch.int32,
-                                                 device=dev)
-    ell_ops.bfs_level_i8_ref(fb.clone(), tb, dr0, fr0, 0, True, True)
-    require_equal(torch, "bfs_level_i8 first", B, (d0, dr0), (flg[0], fr0))
-    first_ms = cuda_ms(torch, lambda: ell_ops.bfs_level_i8(
-        first_in, tb, d0, flg[0], 0, first=True), 20)
-    nxt0 = torch.empty_like(fb)
-    ell_ops.go_hop_i8(fb, None, nxt0, tables, eslot, hrows, over)
-    nk, dk1, fk1 = nxt0.clone(), d0.clone(), flg[1].clone()
-    nr, dr1, fr1 = nxt0.clone(), d0.clone(), flg[1].clone()
-    ell_ops.bfs_level_i8(nk, tb, dk1, fk1, 0)
-    ell_ops.bfs_level_i8_ref(nr, tb, dr1, fr1, 0, False, True)
-    err = require_equal(torch, "bfs_level_i8", B, (nk, nr), (dk1, dr1),
-                        (fk1, fr1))
-    live = int((nxt0 > 0).sum().item())
-    newly = int((nk > 0).sum().item())
-    changed = int((nk != nxt0).sum().item())
-    level_bytes = 2 * R1 * B + changed + 2 * (live + newly)
-    ms = restored_ms(torch, lambda: ell_ops.bfs_level_i8(nk, tb, dk1, fk1,
-                                                         0),
-                     lambda: (nk.copy_(nxt0), dk1.copy_(d0)), 20)
-    plain = restored_ms(torch, lambda: ell_ops.bfs_level_i8_ref(
-        nr, tb, dr1, fr1, 0, False, True),
-        lambda: (nr.copy_(nxt0), dr1.copy_(d0)), 5)
-    res["bfs_level_i8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               bound_ms=bytes_ms(level_bytes),
-                               bound_by="bytes", library_ms=None,
-                               first_ms=first_ms,
-                               first_bound_ms=bytes_ms(4 * R1 * B),
-                               live_lanes=live, newly_lanes=newly)
+    firsts = {}
+    for label, tp, t8 in (("bits", tbits, None), ("carrier", tpk, tb)):
+        ell_ops.bfs_level_i8(first_in, tp, seen0, d0, flg[0].zero_(), 0,
+                             True, True, t8)
+        rr = [torch.empty_like(x) for x in (tp, seen0, d0)]
+        if t8 is None:
+            rr[0].copy_(tp)
+        fr0 = torch.zeros(2, dtype=torch.int32, device=dev)
+        ell_ops.bfs_level_i8_ref(fb.clone(), rr[0], rr[1], rr[2], fr0, 0,
+                                 True, True, t8)
+        require_equal(torch, f"bfs_level_i8 first pass {label}", B,
+                      (first_in, fb), (tp, rr[0]), (seen0, rr[1]),
+                      (d0, rr[2]), (flg[0], fr0))
+        fbytes = k15_first_bytes(R1, B, 1, t8 is not None)
+
+        def first():
+            ell_ops.bfs_level_i8(first_in, tp, seen0, d0, flg[0], 0, True,
+                                 True, t8)
+        firsts[label] = dict(
+            ms=queued_ms(torch, first, PROBE_REPS),
+            event_ms=cuda_ms(torch, first, 20),
+            plain_ms=cuda_ms(torch, lambda: ell_ops.bfs_level_i8_ref(
+                first_in, rr[0], rr[1], rr[2], fr0, 0, True, True, t8), 3),
+            bound_ms=bytes_ms(fbytes["bytes"]),
+            old_bound_ms=bytes_ms(fbytes["old_bytes"]))
+    live_h = np.zeros((R1, B), np.int8)
+    rows2 = rng.random(ix.n) < 0.02
+    live_h[:ix.n][rows2] = rng.integers(0, 2, (int(rows2.sum()), B))
+    dense0 = up(live_h)
+    del live_h
+    levels = {}
+    for label, start in (("level1", fb), ("dense", dense0)):
+        ell_ops.bfs_level_i8(start, tbits, seen0, d0, flg[0].zero_(), 0,
+                             True)
+        nxt0 = torch.empty_like(start)
+        ell_ops.go_hop_i8(start, None, nxt0, tables, eslot, hrows, over)
+        s_first, d_first = seen0.clone(), d0.clone()
+        nk, fk1 = nxt0.clone(), flg[1].zero_()
+        ell_ops.bfs_level_i8(nk, tbits, seen0, d0, fk1, 0)
+        nr, sr, dr1, fr1 = nxt0.clone(), s_first.clone(), d_first.clone(), \
+            torch.zeros_like(fk1)
+        ell_ops.bfs_level_i8_ref(nr, tbits, sr, dr1, fr1, 0, False, True)
+        err = require_equal(torch, f"bfs_level_i8 {label}", B, (nk, nr),
+                            (seen0, sr), (d0, dr1), (fk1, fr1))
+
+        def restore():
+            nk.copy_(nxt0)
+            seen0.copy_(s_first)
+            d0.copy_(d_first)
+        lb = k15_level_bytes(torch, ell_ops, nxt0, s_first, 1)
+
+        def level():
+            ell_ops.bfs_level_i8(nk, tbits, seen0, d0, fk1, 0)
+        levels[label] = dict(
+            max_abs_err=err,
+            ms=restored_queued_ms(torch, level, restore,
+                                  f"bfs_level_i8 {label} B={B}"),
+            event_ms=restored_ms(torch, level, restore, 20),
+            plain_ms=restored_ms(torch, lambda: ell_ops.bfs_level_i8_ref(
+                nr, tbits, sr, dr1, fr1, 0, False, True),
+                lambda: (nr.copy_(nxt0), sr.copy_(s_first),
+                         dr1.copy_(d_first)), 5),
+            bound_ms=bytes_ms(lb["bytes"]),
+            old_bound_ms=bytes_ms(lb["old_bytes"]),
+            live_lanes=lb["live_lanes"], newly_lanes=lb["newly_lanes"])
+        del nxt0, s_first, d_first, nr, sr, dr1
+    del dense0
+    one = levels["level1"]
+    res["bfs_level_i8"] = dict(
+        one, bound_by="bytes", library_ms=None,
+        first_ms=firsts["bits"]["ms"],
+        first_bound_ms=firsts["bits"]["bound_ms"],
+        first=firsts, dense=levels["dense"])
     return res
 
 
@@ -1811,8 +2043,11 @@ def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over, rng,
                     B: int = TAIL_B, offset: int = 0) -> dict:
     """The int8 route off the 128/1024 ladder, untimed, each function
     equal to its plain version: upload, ``ell_go_i8`` with and without
-    UPTO and the row pack, K13 chained (``k13_check``) on the start, a
-    dense and an arbitrary frontier, and the BFS with its level pass.
+    UPTO and the row pack, K13 chained (``k13_check``) and its row-packed
+    last advance (``fused_pack_check``) on the start, a dense and an
+    arbitrary frontier, and the BFS (targets as an int8 carrier and as
+    lane bits, with and without stop) with K15's first pass and five
+    levels held state by state, int8 and int16 d.
     B = 10 takes K13's byte columns, B = 12 its 4-byte ones; ``offset``
     places K13's carriers that many bytes past a 16-byte boundary (B =
     128 at 4: the 4-byte columns at a width the 16-byte ones take).
@@ -1863,15 +2098,57 @@ def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over, rng,
                   shifted if offset else None)
         k13_check(torch, ell_ops, fx, off_tables, eslot, hrows, over,
                   f"B={B} slots 4 bytes off {label}")
+        fused_pack_check(torch, ell_ops, fx, tables, eslot, hrows, over,
+                         f"B={B} offset={offset} {label}",
+                         shifted if offset else None)
     del dense, arb, off_tables
+    # the BFS with and without stop, its targets as an int8 carrier and
+    # as lane bits, then K15's passes alone on carriers `offset` bytes
+    # off (B = 128 at 4: the 8-lane path with 4-byte words), each held
     tk = fk.roll(1, dims=0).contiguous()
-    dk, lk = ell_ops.ell_bfs_i8(fk.clone(), tk, tables, eslot, hrows, over,
-                                5, False)
-    dr, lr = ell_ops.ell_bfs_i8_ref(fk.clone(), tk, tables, eslot, hrows,
-                                    over, 5, False)
-    require_equal(torch, "ell_bfs_i8", B, (dk, dr))
-    if lk != lr:
-        raise AssertionError(f"ell_bfs_i8 ran {lk} levels, plain {lr}")
+    tbits = ell_ops.lane_bits_ref(tk)
+    for stop in (False, True):
+        dr, lr = ell_ops.ell_bfs_i8_ref(fk.clone(), tk, tables, eslot,
+                                        hrows, over, 5, stop)
+        for t in (tk, tbits):
+            dk, lk = ell_ops.ell_bfs_i8(fk.clone(), t, tables, eslot, hrows,
+                                        over, 5, stop)
+            require_equal(torch, f"ell_bfs_i8 stop={stop}", B, (dk, dr))
+            if lk != lr:
+                raise AssertionError(f"ell_bfs_i8 ran {lk} levels, plain "
+                                     f"{lr}")
+    place = shifted if offset else (lambda t: t.clone())
+    Wb = -(-B // 8)
+    seen = torch.empty((R1, Wb), dtype=torch.uint8, device=dev)
+    tp = torch.empty_like(seen)
+    for dt in (torch.int8, torch.int16):
+        dk = torch.empty((R1, B), dtype=dt, device=dev)
+        if offset:        # d `offset` * element size bytes off as well
+            buf = torch.empty(R1 * B + 16, dtype=dt, device=dev)
+            dk = buf[offset:offset + R1 * B].view(R1, B)
+        st_r = [torch.empty_like(tp), torch.empty_like(seen),
+                torch.empty((R1, B), dtype=dt, device=dev)]
+        flk = torch.zeros((6, 2), dtype=torch.int32, device=dev)
+        flr = torch.zeros_like(flk)
+        cur_k, cur_r = place(fk), fk.clone()
+        t8k = place(tk)
+        ell_ops.bfs_level_i8(cur_k, tp, seen, dk, flk[0], 0, True, True, t8k)
+        ell_ops.bfs_level_i8_ref(cur_r, *st_r, flr[0], 0, True, True, tk)
+        chain_k = ell_ops._live_chain(ell_ops.go_hop_i8, R1, dev)
+        for step in range(5):
+            require_equal(torch, f"bfs_level_i8 {dt} B={B} offset={offset} "
+                          f"step={step}", B, (cur_k, cur_r), (tp, st_r[0]),
+                          (seen, st_r[1]), (dk, st_r[2]), (flk, flr))
+            nk, nr = place(torch.zeros_like(fk)), torch.empty_like(fk)
+            chain_k(cur_k, None, nk, tables, eslot, hrows, over)
+            ell_ops.go_hop_i8_ref(cur_r, None, nr, tables, eslot, hrows, over)
+            ell_ops.bfs_level_i8(nk, tp, seen, dk, flk[step + 1], step)
+            ell_ops.bfs_level_i8_ref(nr, *st_r, flr[step + 1], step, False,
+                                     True)
+            cur_k, cur_r = nk, nr
+        require_equal(torch, f"bfs_level_i8 {dt} B={B} offset={offset} "
+                      f"last level", B, (cur_k, cur_r), (seen, st_r[1]),
+                      (dk, st_r[2]), (flk, flr))
     # the int8 form at this width: the whole matrix, a length that is no
     # multiple of 8 (the vector path, then its tail), and rows from the
     # second on (not 16-byte aligned at B = 10: one entry a step)
@@ -1889,7 +2166,9 @@ def int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows, over, rng,
         ell_ops.bfs_depth_i8_ref(x, w8)
         require_equal(torch, f"bfs_depth_i8 B={B} {label}", B, (o8, w8))
     return dict(B=B, offset=offset, levels=lk, equal=True,
-                bfs_depth_i8_forms=list(forms))
+                bfs_depth_i8_forms=list(forms),
+                k15_paths="16-lane" if B % 16 == 0 and not offset
+                else "8-lane, 4-byte words" if B % 4 == 0 else "8-lane, bytes")
 
 
 HOP_TAIL_WIDTHS = (4, 12, 20, 48)   # off the ladder: the 4-byte columns,
@@ -7043,6 +7322,8 @@ def main(argv=None) -> int:
             tail = int8_tail_check(torch, ell_ops, ix, tables, eslot, hrows,
                                    (1,), rng, B, offset)
             log("[kernel] int8 off the ladder " + json.dumps(tail))
+        log("[kernel] go_hop_i8 row-packed on mid-group buckets equal=True "
+            + json.dumps(fused_pack_odd_check(torch, ell_ops, rng, dev)))
         log("[kernel] go_hop widths " + json.dumps(hop_width_check(
             torch, ell_ops, ix, tables, eslot, hrows, (1,), rng)))
         log("[compare] ell_go at 3 steps, int8 vs packed, ms: "
@@ -7261,6 +7542,8 @@ def main(argv=None) -> int:
             v = sparse_rows[k]
             row.update({a: v[a] for a in keys})
             row.update({a: b for a, b in v.items() if a not in keys})
+        if k in OFF_PATH:
+            row["runtime_path"] = False
         if k == "or_into":            # the mesh's psum_or over it
             row["psum_or"] = {f"k{kk}": v for kk, v in psum_rows.items()}
         if k == "pair_compact":       # K5 with the shard's row base

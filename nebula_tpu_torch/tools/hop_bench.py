@@ -97,11 +97,13 @@ frontier-sharded mesh's X1 (``mesh_route_card``, both modes) and X3 (the
 BFS stamp) alone on clones of the operands ``mesh_sparse_go`` (c0 256 and
 2048) and ``mesh_sparse_bfs`` (B = 128, cap 2^17) give them, with both
 programs: device and event times, launches and C calls a call by capture
-(``mesh_x_rows``).
+(``mesh_x_rows``).  K15 (``bfs_level_i8``) with ``ell_go_i8`` and
+``ell_bfs_i8`` at B = 128 and 1024 in each checkout's own form, the
+BFS's device time split by launch (``k15_rows``).
 ``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
 and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``edge``, ``int8``,
 ``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``, ``bfs``, ``upload``,
-``count``, ``lanes``, ``k4``, ``mesh_x``.
+``count``, ``lanes``, ``k4``, ``mesh_x``, ``k15``.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -117,11 +119,13 @@ import time
 
 try:        # run as a script, this file's directory is sys.path[0]: the
     # timing helpers of this checkout, whichever tree the port comes from
-    from cardtime import (SPIN_CYCLES, cuda_ms, kernel_ms, launches_a_call,
-                          profiled_calls, queued_ms, queued_times)
+    from cardtime import (SPIN_CYCLES, cuda_ms, graph_launches, kernel_ms,
+                          launches_a_call, profiled_calls, queued_ms,
+                          queued_times)
 except ImportError:        # imported as a module of the package
     from nebula_tpu_torch.tools.cardtime import (SPIN_CYCLES, cuda_ms,
-                                                 kernel_ms, launches_a_call,
+                                                 graph_launches, kernel_ms,
+                                                 launches_a_call,
                                                  profiled_calls, queued_ms,
                                                  queued_times)
 
@@ -140,7 +144,7 @@ MESH_X_SETS = 8                # X1 / X3 steps timed, each on its own clones
 MESH_X_CAP = 1 << 17           # the BFS's pair cap (tpu_sparse_cap)
 ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "edge", "int8", "mesh",
               "mesh_sparse", "k5", "bfs_pair", "bfs", "upload", "count",
-              "lanes", "k4", "mesh_x")
+              "lanes", "k4", "mesh_x", "k15")
 SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
 LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
 # chip_smoke.py's predicate 3 and its seeded columns (fused_columns)
@@ -216,6 +220,249 @@ def int8_rows(torch, ell_ops, ix, tables, eslot, hrows, over, rng, dev):
             event_ms=cuda_ms(torch, bfs, BFS_CALLS, 1)
             - cuda_ms(torch, copy, BFS_CALLS, 1))
         del start, dense, work, targets
+    return res
+
+
+def _lane_bits(torch, x):
+    """An int8 carrier [R1, B] as a lane bitmap uint8 [R1, ceil(B / 8)]
+    (bit j of byte w lane 8w + j > 0), in plain torch, for either
+    checkout."""
+    R1, B = x.shape
+    pos = torch.zeros((R1, 8 * -(-B // 8)), dtype=torch.uint8,
+                      device=x.device)
+    pos[:, :B] = x > 0
+    w = torch.tensor([1 << k for k in range(8)], dtype=torch.uint8,
+                     device=x.device)
+    return (pos.view(R1, -1, 8) * w).sum(dim=2, dtype=torch.uint8)
+
+
+def _graph_ms(torch, fn, iters: int = PROGRAM_CALLS) -> float:
+    """Mean device milliseconds of ``fn`` captured once into a CUDA graph
+    and replayed ``iters`` times between two events (no host launch
+    path; ``fn`` must not wait on the card and must have run once)."""
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / iters
+    g.reset()
+    return ms
+
+
+def _stage_split(torch, ell_ops, fn) -> dict:
+    """``fn``'s launches in order with each one's device ms, from the
+    ``torch.profiler`` trace of three calls (the call that showed the
+    most launches: the tracer loses some), and their sums by stage."""
+    traced, _c = profiled_calls(torch, ell_ops, fn, 3)
+    call = max(traced, key=len)
+    by: dict = {}
+    for name, ms in call:
+        k = _kernel_name(name)
+        by[k] = by.get(k, 0.0) + ms
+    return dict(launches=[[_kernel_name(n), ms] for n, ms in call],
+                by_kernel=by, busy_ms=sum(ms for _n, ms in call),
+                traced_a_call=[len(c) for c in traced])
+
+
+def k15_rows(torch, ell_ops, ix, tables, eslot, hrows, over, dev):
+    """The int8 route's BFS level pass K15 (``bfs_level_i8``) and both
+    int8 programs at B = 128 and 1024, in each checkout's own form
+    (lane bitmaps ``seen`` and ``tp`` with ``d`` in the result's form
+    where ``bfs_level_i8`` takes ``seen``, else an int16 ``d`` and int8
+    targets), on inputs made from SEED and B alone.  K15's first pass
+    from one random start a lane (the targets as an int8 carrier, and
+    in the new form also as the lane bitmap K1 uploads); a level on a
+    2 %-dense frontier (2 % of the rows 0/1 lanes at random) after the
+    starts' first pass, on a dense one (the hop of a 2 %-dense start)
+    after that start's first pass, and level 1 (the hop of the starts):
+    device time less the restore of the state, and event time, each
+    level held equal to its plain version.  ``ell_go_i8`` at 3 steps,
+    exact and UPTO, row-packed: device and event times less the start's
+    copy, launches and C calls a call by capture, K14 launches a call,
+    held equal.  ``ell_bfs_i8`` (UPTO 5, stop when found, one target a
+    lane): event time, device time of the replayed loop captured into a
+    CUDA graph (less the start's copy), its launches in order with
+    their device ms from a trace, the ``bfs_depth_i8`` launches a call,
+    held equal with its levels."""
+    import inspect
+    import numpy as np
+    new = "seen" in inspect.signature(ell_ops.bfs_level_i8).parameters
+    R1 = ix.n_rows + 1
+    res = dict(k15_form="lane bitmaps" if new else "int16 d")
+    for B in (128, 1024):
+        seed = np.random.default_rng(SEED + 3 * B)
+        i8 = torch.int8
+        f_h = np.zeros((R1, B), np.int8)
+        live = seed.random(ix.n) < 0.02
+        f_h[:ix.n][live] = seed.integers(0, 2, (int(live.sum()), B))
+        sparse2 = torch.from_numpy(f_h).to(dev)
+        del f_h
+        lanes = torch.arange(B, device=dev)
+
+        def one_a_lane():
+            x = torch.zeros((R1, B), dtype=i8, device=dev)
+            rows = torch.from_numpy(ix.perm[seed.integers(0, ix.n, B)]
+                                    .astype(np.int64)).to(dev)
+            x[rows, lanes] = 1
+            return x
+        one, tgt = one_a_lane(), one_a_lane()
+        tbits = _lane_bits(torch, tgt)
+        flags = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+        if new:
+            d = torch.empty((R1, B), dtype=i8, device=dev)
+            seen = torch.empty((R1, -(-B // 8)), dtype=torch.uint8,
+                               device=dev)
+            tpk = torch.empty_like(seen)
+            state = (seen, d)
+
+            def level(nxt, flag, first=False, t8=None):
+                ell_ops.bfs_level_i8(nxt, tbits if t8 is None else tpk,
+                                     seen, d, flag, 0, first, True, t8)
+
+            def plain(nxt, st, flag):
+                ell_ops.bfs_level_i8_ref(nxt, tbits, st[0], st[1], flag, 0,
+                                         False, True)
+        else:
+            d = torch.empty((R1, B), dtype=torch.int16, device=dev)
+            state = (d,)
+
+            def level(nxt, flag, first=False, t8=None):
+                ell_ops.bfs_level_i8(nxt, tgt, d, flag, 0, first)
+
+            def plain(nxt, st, flag):
+                ell_ops.bfs_level_i8_ref(nxt, tgt, st[0], flag, 0, False,
+                                         True)
+        tag = f"b{B}"
+        # the first pass from the starts
+        firsts = {"first": lambda: level(one, flags[0], True, tgt)}
+        if new:
+            firsts["first_tbits"] = lambda: level(one, flags[0], True)
+        for name, fn in firsts.items():
+            fn()
+            res[f"k15_{name}_{tag}"] = dict(
+                ms=queued_ms(torch, fn, QUEUED),
+                event_ms=cuda_ms(torch, fn, BACK_TO_BACK))
+        # the levels
+        h_one, h_dense = torch.empty_like(one), torch.empty_like(one)
+        ell_ops.go_hop_i8(one, None, h_one, tables, eslot, hrows, over)
+        ell_ops.go_hop_i8(sparse2, None, h_dense, tables, eslot, hrows,
+                          over)
+        for name, start, nxt0 in (("2pct", one, sparse2),
+                                  ("dense", sparse2, h_dense),
+                                  ("level1", one, h_one)):
+            level(start, flags[0], True, tgt)
+            st0 = [x.clone() for x in state]
+            nk = nxt0.clone()
+
+            def restore():
+                nk.copy_(nxt0)
+                for x, x0 in zip(state, st0):
+                    x.copy_(x0)
+
+            def run():
+                level(nk, flags[1])
+            restore()
+            flags[1].zero_()
+            run()
+            nr, sr = nxt0.clone(), [x.clone() for x in st0]
+            fr = torch.zeros_like(flags[1])
+            plain(nr, sr, fr)
+            _equal(torch, f"bfs_level_i8 {name} B={B}", (nk, nr),
+                   *zip(state, sr), (flags[1], fr))
+
+            def both():
+                restore()
+                run()
+            res[f"k15_level_{name}_{tag}"] = dict(
+                ms=max(0.0, queued_ms(torch, both, QUEUED)
+                       - queued_ms(torch, restore, QUEUED)),
+                event_ms=cuda_ms(torch, both, BACK_TO_BACK)
+                - cuda_ms(torch, restore, BACK_TO_BACK),
+                live_lanes=int((nxt0 > 0).sum().item()),
+                newly_lanes=int((nk > 0).sum().item()))
+            del st0, nk, nr, sr
+        del h_one, h_dense, sparse2
+        # ell_go_i8, 3 steps, row-packed
+        work = torch.empty_like(one)
+
+        def copy():
+            work.copy_(one)
+        for upto in (False, True):
+            got = ell_ops.ell_go_i8(one.clone(), tables, eslot, hrows, over,
+                                    3, upto, pack=True)
+            want = ell_ops.ell_go_i8_ref(one.clone(), tables, eslot, hrows,
+                                         over, 3, upto, pack=True)
+            _equal(torch, f"ell_go_i8 B={B} upto={upto}", (got, want))
+            del got, want
+
+            def go():
+                copy()
+                ell_ops.ell_go_i8(work, tables, eslot, hrows, over, 3, upto,
+                                  pack=True)
+            k14 = ell_ops.LAUNCHES["pack_rows"]
+            go()
+            k14 = ell_ops.LAUNCHES["pack_rows"] - k14
+            res[f"k15_ell_go_i8_{tag}" + ("_upto" if upto else "")] = dict(
+                ms=queued_ms(torch, go, QUEUED)
+                - queued_ms(torch, copy, QUEUED),
+                event_ms=cuda_ms(torch, go, PROGRAM_CALLS)
+                - cuda_ms(torch, copy, PROGRAM_CALLS),
+                pack_rows_a_call=k14,
+                **_launches(torch, ell_ops, lambda: ell_ops.ell_go_i8(
+                    work, tables, eslot, hrows, over, 3, upto, pack=True)))
+        # ell_bfs_i8, UPTO 5
+        targets = {"t8": tgt, "tbits": tbits} if new else {"t8": tgt}
+        for tname, t in targets.items():
+            dk, lk = ell_ops.ell_bfs_i8(one.clone(), t, tables, eslot,
+                                        hrows, over, 5)
+            dr, lr = ell_ops.ell_bfs_i8_ref(one.clone(), tgt, tables, eslot,
+                                            hrows, over, 5)
+            _equal(torch, f"ell_bfs_i8 B={B} {tname}", (dk, dr))
+            if lk != lr:
+                raise AssertionError(f"ell_bfs_i8 ran {lk} levels, plain "
+                                     f"{lr}")
+            del dk, dr
+
+            def loop(read, t=t):
+                chain = ell_ops._live_chain(ell_ops.go_hop_i8, R1, dev)
+                args = (one.clone(), t, tables, eslot, hrows, over, 5, True,
+                        chain, ell_ops.bfs_level_i8)
+                if not new:
+                    args += (ell_ops.bfs_depth_i8,)
+                return ell_ops._bfs_loop_i8(*args, read=read)
+            reads: list = []
+            loop(lambda flag: reads.append(flag.tolist()) or reads[-1])
+
+            def replay():
+                it = iter(reads)
+                return loop(lambda _flag: next(it))
+
+            def bfs(t=t):
+                return ell_ops.ell_bfs_i8(one.clone(), t, tables, eslot,
+                                          hrows, over, 5)
+            k = ell_ops.LAUNCHES["bfs_depth_i8"]
+            bfs()
+            k = ell_ops.LAUNCHES["bfs_depth_i8"] - k
+            clone_ms = _graph_ms(torch, lambda: one.clone())
+            res[f"k15_ell_bfs_i8_{tag}_{tname}"] = dict(
+                levels=lk, bfs_depth_i8_a_call=k,
+                event_ms=cuda_ms(torch, bfs, BFS_CALLS, 1)
+                - cuda_ms(torch, lambda: one.clone(), BFS_CALLS, 1),
+                device_ms=_graph_ms(torch, replay) - clone_ms,
+                clone_ms=clone_ms, flag_reads=len(reads),
+                split=_stage_split(torch, ell_ops, replay),
+                **{a: v for a, v in graph_launches(
+                    torch, ell_ops, replay).items()})
+        del one, tgt, tbits, work, d, state
     return res
 
 
@@ -1655,7 +1902,9 @@ def main(argv=None) -> int:
         ("k4", lambda: k4_rows(torch, ell_ops, rt, m, ix, tables, eslot,
                                hrows, over, rng, dev)),
         ("mesh_x", lambda: mesh_x_rows(torch, ell_ops, ix, tables, over, rng,
-                                       dev)))
+                                       dev)),
+        ("k15", lambda: k15_rows(torch, ell_ops, ix, tables, eslot, hrows,
+                                 over, dev)))
     try:
         for name, fn in groups:
             if name in rows:

@@ -1,7 +1,7 @@
 """Run ``chip_smoke.py``'s end-to-end phases [serve], [windowed],
-[sparse], [adaptive], [fused], [path], [mesh] and [mesh-sparse] on one
-checkout of the port, so that two checkouts can be held side by side
-in one run on one card.
+[sparse], [adaptive], [fused], [path], [unpacked], [mesh] and
+[mesh-sparse] on one checkout of the port, so that two checkouts can be
+held side by side in one run on one card.
 
     python3 nebula_tpu_torch/tools/phase_bench.py [--tree DIR]
                                                   [--phases LIST]
@@ -14,7 +14,10 @@ dispatcher and then the windowed one, the same mix on the sparse
 route, 256 adaptive single-start requests, 512 ``GO 1-3 STEPS ... WHERE
 P YIELD e._dst, e.w`` from 16 threads on the fused route (its 64 checked
 answers against ``FusedOracle``), 512 FIND SHORTEST PATH
-requests from 16 threads, and the dense mesh of 4 shards on the card
+requests from 16 threads, the packing-off route ([unpacked]: 1024 GO
+on the sparse route with its dense reruns, the same on the dense route
+and a burst to the 1024 rung, then 128 FIND SHORTEST PATH and FIND ALL
+PATH), and the dense mesh of 4 shards on the card
 (1024 GO requests from 64 threads, then 128 FIND SHORTEST PATH from
 16, then its write part), and the same on the frontier-sharded mesh
 (``tpu_mesh_mode=sparse``, [mesh-sparse]); each checks its answers
@@ -28,26 +31,36 @@ on a checkout that counts its dense calls on the card
 (default all), in the smoke's order.  Prints the card's name and power
 limit, then one JSON line: each phase's qps, p50 and p99 ms and wall
 seconds ([mesh] and [mesh-sparse]: the GO part ``a`` and the path part
-``b`` apart).
+``b`` apart; [unpacked]: its parts ``a``, ``b`` and ``c``).  A checkout
+whose int8 BFS level pass keeps no lane bitmaps (before ``seen``) is
+held to the [unpacked] launches of its own path: K14 and
+``bfs_depth_i8``, and no K1.
 Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
 import sys
 import time
 
-PHASES = ("serve", "windowed", "sparse", "adaptive", "fused", "path", "mesh",
-          "mesh_sparse")
+PHASES = ("serve", "windowed", "sparse", "adaptive", "fused", "path",
+          "unpacked", "mesh", "mesh_sparse")
 REQUESTS, THREADS, SEED = 4096, 64, 0          # chip_smoke.py's defaults
 ADAPTIVE_REQUESTS = 256
 FUSED_REQUESTS, FUSED_THREADS = 512, 16
 PATH_REQUESTS, PATH_THREADS = 512, 16
 MESH_REQUESTS, MESH_PATH_REQUESTS = 1024, 128
+UNPACKED_REQUESTS, UNPACKED_PATH_REQUESTS = 1024, 128
+# the [unpacked] path's kernels on a checkout before the int8 route's
+# lane bitmaps
+UNPACKED_BEFORE_BITMAPS = ("frontier_upload_i8", "go_hop_i8", "pack_rows",
+                           "bfs_level_i8", "bfs_depth_i8", "ell_go_i8",
+                           "ell_bfs_i8")
 VERTICES, EDGES = 1 << 19, 1 << 22
 
 
@@ -119,6 +132,10 @@ def main(argv=None) -> int:
             "path": lambda: smoke.path_phase(
                 torch, rt, ell_ops, smoke.PathOracle(oracle), m.vids,
                 PATH_REQUESTS, PATH_THREADS, SEED),
+            "unpacked": lambda: smoke.unpacked_phase(
+                torch, rt, ell_ops, flags, oracle, smoke.PathOracle(oracle),
+                m.vids, VERTICES, UNPACKED_REQUESTS, THREADS,
+                UNPACKED_PATH_REQUESTS, PATH_THREADS, SEED),
             "mesh": lambda: smoke.mesh_phase(
                 torch, ell_ops, flags, m, rt.schemas[1], oracle,
                 smoke.PathOracle(oracle), m.vids, VERTICES, MESH_REQUESTS,
@@ -127,6 +144,9 @@ def main(argv=None) -> int:
                 torch, ell_ops, flags, m, rt.schemas[1], oracle,
                 smoke.PathOracle(oracle), m.vids, VERTICES, MESH_REQUESTS,
                 THREADS, MESH_PATH_REQUESTS, PATH_THREADS, SEED)}
+        if "seen" not in inspect.signature(
+                ell_ops.bfs_level_i8).parameters:
+            smoke.PATH_KERNELS["unpacked"] = UNPACKED_BEFORE_BITMAPS
         for name in PHASES:
             if name not in phases or (
                     name == "adaptive"
@@ -136,9 +156,9 @@ def main(argv=None) -> int:
             out = runs[name]()
             keep = ("qps", "p50_ms", "p99_ms")
             res[name] = {k: out[k] for k in keep if k in out}
-            if name in ("mesh", "mesh_sparse"):
+            if name in ("mesh", "mesh_sparse", "unpacked"):
                 res[name] = {part: {k: out[part][k] for k in keep}
-                             for part in ("a", "b")}
+                             for part in ("a", "b", "c") if part in out}
             res[name]["phase_s"] = time.perf_counter() - t0
             if name == "adaptive":
                 res[name]["dense_requests"] = out["dense_requests"]

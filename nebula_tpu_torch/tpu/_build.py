@@ -39,8 +39,8 @@ SOURCES = (os.path.join(CSRC, "ell_lanes.cu"),
            os.path.join(CSRC, "mesh_sparse.cu"))
 # included by ell_lanes.cu, ell_int8.cu and ell_mesh.cu (the hop's
 # plan), by expr_filter.cu and edge_go.cu (the WHERE interpreter) and by
-# ell_lanes.cu, sparse_go.cu, edge_go.cu and mesh_sparse.cu (the SM
-# count)
+# ell_lanes.cu, sparse_go.cu, edge_go.cu, mesh_sparse.cu and ell_int8.cu
+# (the SM count)
 HEADERS = (os.path.join(CSRC, "hop_plan.cuh"),
            os.path.join(CSRC, "expr_core.cuh"),
            os.path.join(CSRC, "sm_count.cuh"))
@@ -193,12 +193,12 @@ def load() -> ctypes.CDLL:
         lib.i8_frontier_upload.argtypes = [vp, vp, vp, i64, i64, i64, i64,
                                            vp]
         lib.i8_row_live.argtypes = [vp, vp, i64, i64, vp]
-        lib.i8_go_hop.argtypes = [vp, vp, vp, vp, vp, vp, vp, p64, i32, i64,
-                                  i32, i32, i32, vp, vp, i64, p32, i32, i64,
-                                  i64, i64, vp]
+        lib.i8_go_hop.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, p64, i32,
+                                  i64, i32, i32, i32, vp, vp, i64, p32, i32,
+                                  i64, i64, i64, vp]
         lib.i8_pack_rows.argtypes = [vp, vp, i64, i64, vp]
-        lib.i8_bfs_level.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
-                                     i64, vp]
+        lib.i8_bfs_level.argtypes = [vp, vp, vp, vp, i32, vp, vp, i32, i32,
+                                     i32, i64, i64, vp]
         lib.ell_table_copy.argtypes = [vp, vp, vp, vp, i64, vp]
         # the mesh: csrc/ell_mesh.cu (tables by value) and the lane
         # kernels it reuses from csrc/ell_lanes.cu

@@ -1,7 +1,7 @@
 // The current device's SM count, for the launches whose grid is a few
 // blocks an SM (ell_lanes.cu's gated hop, sparse_go.cu's gated layout
 // change and K4, edge_go.cu's fused final pass, mesh_sparse.cu's X1 and
-// X3).  Included by those sources.
+// X3, ell_int8.cu's K15).  Included by those sources.
 #pragma once
 
 #include <atomic>

@@ -59,7 +59,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from .mesh import MAX_CARD_SHARDS
-from .ell import (INT16_INF, DeviceTables, sparse_limit_cap,
+from .ell import (INT16_INF, DeviceTables, lanes_width, sparse_limit_cap,
                   sparse_pack32)
 
 LAUNCHES: Dict[str, int] = {"go_hop": 0, "lane_join": 0,
@@ -267,7 +267,7 @@ def _pow2_at_least(x: int) -> int:
 
 
 def hop_plan(rows: Sequence[int], D: Sequence[int], W: int, unit: int,
-             cols: int = 1
+             cols: int = 1, lead: Sequence[int] = ()
              ) -> Tuple[int, Tuple[int, ...], Tuple[int, ...], int]:
     """The hop kernel's launch plan for buckets of ``rows[b]`` rows of
     ``D[b]`` slots at W frontier bytes a row: ``(lgc, lg, blk0,
@@ -284,24 +284,32 @@ def hop_plan(rows: Sequence[int], D: Sequence[int], W: int, unit: int,
     several: one slot scan serves them all), go to Cg = min(32, the
     power of two >= ceil(C / cols)) lanes, and its D slots to P =
     min(32 / Cg, the power of two >= ceil(D / HOP_CHUNK)) parts, so a
-    lane holds about HOP_CHUNK slots; G = Cg * P <= 32."""
+    lane holds about HOP_CHUNK slots; G = Cg * P <= 32.  ``lead[b]``
+    (default none): places before bucket b's first row that its first
+    block leaves idle (the int8 hop's row-packed last advance starts a
+    bucket's blocks at the 8-row group holding its first row)."""
     cg = min(32, _pow2_at_least(-(-(W // unit) // cols)))
     lg, blk0, blocks = [], [], 0
-    for r, d in zip(rows, D):
+    for b, (r, d) in enumerate(zip(rows, D)):
         g = cg * min(32 // cg, _pow2_at_least(-(-int(d) // HOP_CHUNK)))
         lg.append(g.bit_length() - 1)
         blk0.append(blocks)
-        blocks += -(-int(r) * g // HOP_THREADS)
+        places = int(r) + (int(lead[b]) if lead and r else 0)
+        blocks += -(-places * g // HOP_THREADS)
     return cg.bit_length() - 1, tuple(lg), tuple(blk0), blocks
 
 
 @functools.lru_cache(maxsize=64)
-def _hop_desc(row0, slot0, rows, D, W: int, unit: int, cols: int = 1):
+def _hop_desc(row0, slot0, rows, D, W: int, unit: int, cols: int = 1,
+              packed: bool = False):
     """``hop_plan`` as ``ell_go_hop`` and ``i8_go_hop`` take it: (the
     host int64 array of (row0, slot0, rows, D, lg, blk0) per bucket, the
     grid (at least one block: block 0 zeroes the pad row), lgc), made
-    once per geometry, width, column unit and columns a lane."""
-    lgc, lg, blk0, blocks = hop_plan(rows, D, W, unit, cols)
+    once per geometry, width, column unit and columns a lane; with
+    ``packed`` each bucket's blocks start at the 8-row group holding its
+    first row (``lead`` = row0 % 8, the int8 hop's row-packed advance)."""
+    lgc, lg, blk0, blocks = hop_plan(
+        rows, D, W, unit, cols, tuple(r % 8 for r in row0) if packed else ())
     desc = (ctypes.c_int64 * (6 * len(D)))(
         *[v for b in range(len(D))
           for v in (row0[b], slot0[b], rows[b], D[b], lg[b], blk0[b])])
@@ -727,8 +735,8 @@ def bfs_depth_i8_ref(d: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 def bfs_depth_i8(d: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """The BFS result's small form: int16 depths -> ``out`` int8 of the
-    same shape, -1 where INF (the int8 route's BFS, whose level pass
-    keeps int16)."""
+    same shape, -1 where INF.  No program runs it: every level pass
+    keeps ``d`` in the result's form (``depth_dtype``)."""
     if d.dim() != 2:
         raise ValueError("d must be 2-D")
     dev = d.device
@@ -824,10 +832,12 @@ def ell_bfs(f0p: torch.Tensor, t0p: torch.Tensor, tables: DeviceTables,
 # ====================================================================
 # Packing off (``tpu_packed_frontier=false``): the int8 carrier, one
 # byte a query lane — int8 [n_rows + 1, B], lane b of row r at r*B + b,
-# any B >= 1 — and csrc/ell_int8.cu's K12 upload, K13 hop, K14 row pack
-# and K15 BFS level pass.  The plain versions compute what the
-# reference computes on the whole int8 domain (a signed max, live = a
-# signed > 0), not only on 0/1 lanes.
+# any B >= 1 — and csrc/ell_int8.cu's K12 upload, K13 hop (with the
+# row pack fused into a packed GO's last advance), K14 row pack (a GO
+# with no advance) and K15 BFS level pass (on lane bitmaps, as K3).
+# The plain versions compute what the reference computes on the whole
+# int8 domain (a signed max, live = a signed > 0), not only on 0/1
+# lanes.
 # ====================================================================
 def _carrier(f: torch.Tensor, name: str) -> Tuple[int, int]:
     if not isinstance(f, torch.Tensor) or f.dim() != 2:
@@ -909,21 +919,13 @@ def row_live_i8_ref(f: torch.Tensor) -> torch.Tensor:
     return live_bitmap(rows)
 
 
-def go_hop_i8_ref(f: torch.Tensor, acc: Optional[torch.Tensor],
-                  out: torch.Tensor, tables: DeviceTables,
-                  eslot: torch.Tensor, hrows: torch.Tensor,
-                  over: Sequence[int], live_in: Optional[torch.Tensor] = None,
-                  live_out: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain version of ``go_hop_i8`` (ell.py:386 _hop_body and :368
-    _bucket_expand): per bucket, the max over the D in-slots of
-    f[nbr] * ok(et) from 0; buckets concatenate; the extra rows max
-    into their owners (owners >= n_rows drop); the pad row is zero;
-    acc = max(acc, out) when an accumulator is given.  The kernel's skip
-    rule is applied as it is: a slot whose source row has a 0 bit in
-    ``live_in`` (default: ``row_live_i8_ref(f)``) gathers nothing, which
-    changes nothing while ``live_in`` covers every row with a byte > 0.
-    ``live_out`` gets ``row_live_i8_ref(out)``."""
+def _gather_i8_ref(f: torch.Tensor, out: torch.Tensor, tables: DeviceTables,
+                   over: Sequence[int], live_in: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """K13's gather, plain: per bucket, the max over the D in-slots of
+    f[nbr] * ok(et) from 0, into ``out``'s bucket rows; a slot whose
+    source row has a 0 bit in ``live_in`` (default: ``row_live_i8_ref(f)``)
+    gathers nothing; the pad row zero."""
     R1, B = f.shape
     over_t = torch.tensor(sorted(set(int(e) for e in over)),
                           dtype=torch.int32, device=f.device)
@@ -938,15 +940,57 @@ def go_hop_i8_ref(f: torch.Tensor, acc: Optional[torch.Tensor],
             a = torch.maximum(a, f[nbr[:, j].long()] * ok[:, j, None])
         r0 = tables.row0[b]
         out[r0:r0 + nbr.shape[0]] = a
+    out[tables.n_rows] = 0
+    return out
+
+
+def _hub_owners(tables: DeviceTables, eslot: torch.Tensor,
+                hrows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The extra rows' owners (``hrows[eslot]``) and which of them merge:
+    owners >= n_rows are unclaimed growth spares, which drop."""
+    owner = hrows[eslot.long()].long()
+    return owner, (owner >= 0) & (owner < tables.n_rows)
+
+
+def go_hop_i8_ref(f: torch.Tensor, acc: Optional[torch.Tensor],
+                  out: torch.Tensor, tables: DeviceTables,
+                  eslot: torch.Tensor, hrows: torch.Tensor,
+                  over: Sequence[int], live_in: Optional[torch.Tensor] = None,
+                  live_out: Optional[torch.Tensor] = None,
+                  pack: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of ``go_hop_i8`` (ell.py:386 _hop_body and :368
+    _bucket_expand): per bucket, the max over the D in-slots of
+    f[nbr] * ok(et) from 0; buckets concatenate; the extra rows max
+    into their owners (owners >= n_rows drop); the pad row is zero;
+    acc = max(acc, out) when an accumulator is given.  The kernel's skip
+    rule is applied as it is: a slot whose source row has a 0 bit in
+    ``live_in`` (default: ``row_live_i8_ref(f)``) gathers nothing, which
+    changes nothing while ``live_in`` covers every row with a byte > 0.
+    ``live_out`` gets ``row_live_i8_ref(out)``.  With ``pack``, the
+    kernel's fused last advance: the gathered rows' bits (with ``acc``
+    OR its bits), then each merging extra row's bits ORed into its
+    owner's, row-packed into ``pack`` (``pack_rows_ref``); ``out`` gets
+    the extra rows alone and ``acc`` is not written."""
     n, n_rows = tables.n, tables.n_rows
-    out[n_rows] = 0
+    if pack is not None:
+        g = _gather_i8_ref(f, torch.empty_like(out), tables, over, live_in)
+        bits = (g > 0) if acc is None else (g > 0) | (acc > 0)
+        if n_rows > n:
+            owner, live = _hub_owners(tables, eslot, hrows)
+            hub = torch.zeros(g.shape, dtype=torch.int32, device=g.device)
+            hub.index_put_((owner[live],), (g[n:n_rows][live] > 0)
+                           .to(torch.int32), accumulate=True)
+            bits |= hub > 0
+            out[n:n_rows] = g[n:n_rows]
+        return pack_rows_ref(bits.to(torch.int8), pack), acc
+    _gather_i8_ref(f, out, tables, over, live_in)
     if n_rows > n:
-        owner = hrows[eslot.long()].long()
-        live = (owner >= 0) & (owner < n_rows)
+        owner, live = _hub_owners(tables, eslot, hrows)
         body = out[:n_rows]
         ext = body[n:][live]
-        body.scatter_reduce_(0, owner[live][:, None].expand(-1, B), ext,
-                             "amax")
+        body.scatter_reduce_(0, owner[live][:, None].expand(-1, f.shape[1]),
+                             ext, "amax")
     if acc is not None:
         torch.maximum(acc, out, out=acc)
     if live_out is not None:
@@ -967,13 +1011,22 @@ def go_hop_i8(f: torch.Tensor, acc: Optional[torch.Tensor],
               out: torch.Tensor, tables: DeviceTables, eslot: torch.Tensor,
               hrows: torch.Tensor, over: Sequence[int],
               live_in: Optional[torch.Tensor] = None,
-              live_out: Optional[torch.Tensor] = None
+              live_out: Optional[torch.Tensor] = None,
+              pack: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K13, one int8 frontier advance of every lane: ``out`` gets the
     next frontier (all of it, pad row zero), ``acc`` (None: no UPTO
     union) becomes max(acc, out) in place.  The hub merge takes
     ``go_hop``'s (eslot, hrows).  ``out`` must not alias ``f``; the pad
     row of ``f`` is zero, as everywhere.
+
+    ``pack`` (a row-packed GO's last advance, ``ell.py:439`` fused):
+    uint8 [ceil((n_rows + 1) / 8), B] (``pack_rows``' layout, its storage
+    holding whole 4-byte words: ``packed_rows``) gets the result — the
+    advance's rows > 0, with ``acc`` or its rows > 0 — and is returned
+    in ``out``'s place; ``out`` then gets only the extra rows (the hub
+    pass reads them), ``acc`` is read and not written, and ``live_out``
+    must be None.
 
     ``live_in`` / ``live_out``: row bitmaps, int32
     [live_words(n_rows + 1)] (``live_bitmap``, ``live_rows``).  Source
@@ -983,9 +1036,10 @@ def go_hop_i8(f: torch.Tensor, acc: Optional[torch.Tensor],
     ``live_in`` one read pass over ``f`` makes it (a program's first
     hop).  ``live_out`` gets exactly the rows of ``out`` with a byte >
     0, the next hop's ``live_in``.  Returns (out, acc).  On the card the
-    pass (without ``live_in``), one gather launch (``hop_plan``'s grid,
-    the UPTO max fused into it) and, with hub extra rows, the hub pass:
-    one count under ``LAUNCHES["go_hop_i8"]``."""
+    pass (without ``live_in``), with ``pack`` a memset of the result,
+    one gather launch (``hop_plan``'s grid, the UPTO max fused into it)
+    and, with hub extra rows, the hub pass: one count under
+    ``LAUNCHES["go_hop_i8"]``."""
     R1, B = _carrier(f, "f")
     dev = f.device
     _check(out, "out", torch.int8, (R1, B), dev)
@@ -1002,6 +1056,10 @@ def go_hop_i8(f: torch.Tensor, acc: Optional[torch.Tensor],
     if live_in is not None and live_out is not None \
             and live_in.data_ptr() == live_out.data_ptr():
         raise ValueError("live_out must be a separate buffer from live_in")
+    if pack is not None:
+        _check(pack, "pack", torch.uint8, (-(-R1 // 8), B), dev)
+        if live_out is not None:
+            raise ValueError("a row-packed advance writes no live_out")
     n_extras = tables.n_rows - tables.n
     _check(eslot, "eslot", torch.int32, (n_extras,), dev)
     _vec(hrows, "hrows", torch.int32, dev)
@@ -1009,30 +1067,38 @@ def go_hop_i8(f: torch.Tensor, acc: Optional[torch.Tensor],
     over = _over_check(over)
     if not _route(dev):
         return go_hop_i8_ref(f, acc, out, tables, eslot, hrows, over,
-                             live_in, live_out)
+                             live_in, live_out, pack)
     _aligned(f, out, *(() if acc is None else (acc,)))
+    if pack is not None:
+        _aligned(pack)
+        if pack.untyped_storage().nbytes() < pack.storage_offset() \
+                + -(-pack.numel() // 4) * 4:
+            raise ValueError("pack's storage must hold whole 4-byte words "
+                             "(packed_rows)")
     lib, stream = _lib(), _stream(dev)
     if live_in is None:
         live_in = torch.empty(live_words(R1), dtype=torch.int32, device=dev)
         _ok(lib.i8_row_live(f.data_ptr(), live_in.data_ptr(), R1 - 1, B,
                             stream), "i8_row_live")
-    at = f.data_ptr() | out.data_ptr() | (0 if acc is None
-                                          else acc.data_ptr())
+    at = f.data_ptr() | out.data_ptr() \
+        | (0 if acc is None else acc.data_ptr()) \
+        | (0 if pack is None else pack.data_ptr())
     unit = 16 if B % 16 == 0 and not at % 16 else 4 if B % 4 == 0 else 1
     cols = i8_hop_cols(B, unit)
     desc, blocks, lgc = _hop_desc(tables.row0, tables.slot0, tables.rows,
-                                  tables.D, B, unit, cols)
+                                  tables.D, B, unit, cols, pack is not None)
     rc = lib.i8_go_hop(
         f.data_ptr(), None if acc is None else acc.data_ptr(),
         out.data_ptr(), live_in.data_ptr(),
         None if live_out is None else live_out.data_ptr(),
+        None if pack is None else pack.data_ptr(),
         tables.nbr.data_ptr(), tables.et.data_ptr(), desc, len(tables.D),
         blocks, lgc, unit, cols, eslot.data_ptr(), hrows.data_ptr(),
         n_extras, _over_array(over), len(over), tables.n, tables.n_rows, B,
         stream)
     _ok(rc, "i8_go_hop")
     LAUNCHES["go_hop_i8"] += 1
-    return out, acc
+    return (out if pack is None else pack), acc
 
 
 def _live_chain(hop, R1: int, dev: torch.device):
@@ -1042,17 +1108,29 @@ def _live_chain(hop, R1: int, dev: torch.device):
     row-live pass), the two arrays taking turns.  Between two calls the
     program may only lower bytes of the frontier (K15 does: ``nxt``
     becomes ``newly``), so every array passed on stays a superset of
-    the rows with a byte > 0."""
+    the rows with a byte > 0.  A call with ``pack`` (the row-packed last
+    advance) passes no ``live_out`` and returns the packed result."""
     live = [torch.empty(live_words(R1), dtype=torch.int32, device=dev)
             for _ in range(2)]
     prev: list = [None]
 
-    def step(f, acc, out, tables, eslot, hrows, over):
+    def step(f, acc, out, tables, eslot, hrows, over, pack=None):
+        if pack is not None:
+            return hop(f, acc, out, tables, eslot, hrows, over, prev[0],
+                       None, pack)
         nxt = live[1] if prev[0] is live[0] else live[0]
         hop(f, acc, out, tables, eslot, hrows, over, prev[0], nxt)
         prev[0] = nxt
         return out, acc
     return step
+
+
+def packed_rows(R1: int, B: int, device) -> torch.Tensor:
+    """A row-packed result's buffer, uint8 [ceil(R1 / 8), B], its storage
+    rounded up to whole 4-byte words (the fused pack ORs by words)."""
+    G = -(-R1 // 8)
+    return torch.empty(-(-G * B // 4) * 4, dtype=torch.uint8,
+                       device=device)[:G * B].view(G, B)
 
 
 def pack_rows_ref(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -1085,68 +1163,111 @@ def pack_rows(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def bfs_level_i8_ref(nxt: torch.Tensor, tp: torch.Tensor, d: torch.Tensor,
+def lane_bits_ref(x: torch.Tensor) -> torch.Tensor:
+    """An int8 carrier [R1, B] as a lane bitmap, uint8 [R1, ceil(B / 8)]:
+    bit j of byte w set where lane 8w + j is > 0 (signed); the bits past
+    B zero."""
+    R1, B = x.shape
+    pos = torch.zeros((R1, 8 * lanes_width(B)), dtype=torch.uint8,
+                      device=x.device)
+    pos[:, :B] = x > 0
+    return _pack_ref(pos)
+
+
+def bfs_level_i8_ref(nxt: torch.Tensor, tp: torch.Tensor,
+                     seen: torch.Tensor, d: torch.Tensor,
                      flags: torch.Tensor, step: int, first: bool,
-                     stop: bool) -> None:
-    """Plain version of ``bfs_level_i8`` (ell.py:1638-1656)."""
-    inf = int(INT16_INF)
-    live = nxt > 0
+                     stop: bool, t8: Optional[torch.Tensor] = None) -> None:
+    """Plain version of ``bfs_level_i8`` (ell.py:1634-1656): the level
+    body and the loop condition's reductions on the reached lane bitmap
+    ``seen`` instead of ``d == INF``."""
+    B = nxt.shape[1]
+    bits = lane_bits_ref(nxt)
     if first:
-        d.copy_(torch.where(live, 0, inf).to(torch.int16))
-        newly = live
+        seen.copy_(bits)
+        d.copy_(torch.where(_unpack_ref(bits)[:, :B].bool(), 0,
+                            _unreached(d)).to(d.dtype))
+        newly = bits
+        if t8 is not None and stop:
+            tp.copy_(lane_bits_ref(t8))
     else:
-        newly = live & (d == inf)
-        d.masked_fill_(newly, step + 1)
-        nxt.copy_(newly.to(torch.int8))
-    flags[0] |= newly.any().to(torch.int32)
+        newly = bits & ~seen
+        seen |= newly
+        lanes = _unpack_ref(newly)[:, :B].bool()
+        d.masked_fill_(lanes, step + 1)
+        nxt.copy_(lanes.to(torch.int8))
+    flags[0] |= bool(newly.any())
     if stop:
-        flags[1] |= ((tp > 0) & (d == inf)).any().to(torch.int32)
+        flags[1] |= bool((tp & ~seen).any())
 
 
-def bfs_level_i8(nxt: torch.Tensor, tp: torch.Tensor, d: torch.Tensor,
-                 flags: torch.Tensor, step: int, first: bool = False,
-                 stop: bool = True) -> None:
-    """K15, one int8 BFS level after the hop wrote ``nxt`` int8
-    [n_rows + 1, B]: ``newly = (nxt > 0) & (d == INF)``, ``d = step +
-    1`` there, ``nxt`` becomes ``newly`` (0/1) in place, and ``flags``
-    int32 [2] (zero before) gets 1 in slot 0 when any lane was newly
-    reached and, with ``stop``, 1 in slot 1 when any target lane
-    (``tp > 0``) is still INF.  With ``first``, ``nxt`` is the start
-    frontier (left as it is) and ``d`` int16 [n_rows + 1, B] is
-    written whole: 0 where nxt > 0, INF elsewhere."""
+def bfs_level_i8(nxt: torch.Tensor, tp: torch.Tensor, seen: torch.Tensor,
+                 d: torch.Tensor, flags: torch.Tensor, step: int,
+                 first: bool = False, stop: bool = True,
+                 t8: Optional[torch.Tensor] = None) -> None:
+    """K15, one BFS level after the hop wrote ``nxt`` int8 [n_rows + 1,
+    B]: ``newly = (nxt > 0) & ~seen`` (``seen``, uint8 [n_rows + 1,
+    ceil(B / 8)]: the lanes reached so far as a lane bitmap, bit j of
+    byte w lane 8w + j), ``seen |= newly``, ``d = step + 1`` at the newly
+    lanes, ``nxt`` becomes ``newly`` (0/1) in place, and ``flags`` int32
+    [2] (zero before) gets 1 in slot 0 when any lane was newly reached
+    and, with ``stop``, 1 in slot 1 when any target bit of ``tp`` (a
+    lane bitmap like ``seen``) is still unreached.  With ``first``,
+    ``nxt`` is the start frontier, read as values (> 0) and left as it
+    is, ``seen`` becomes its lanes, ``d`` is written whole (0 on them,
+    the unreached value elsewhere) and, given ``t8`` (int8 [n_rows + 1,
+    B] targets) and ``stop``, ``tp`` becomes the lane bitmap of ``t8 >
+    0``.  ``d`` [n_rows + 1, B] is int8 (-1 unreached) or int16
+    (INT16_INF), the BFS result's form (``depth_dtype``); no pass reads
+    it."""
     R1, B = _carrier(nxt, "nxt")
     dev = nxt.device
-    _check(tp, "tp", torch.int8, (R1, B), dev)
-    _check(d, "d", torch.int16, (R1, B), dev)
+    Wb = lanes_width(B)
+    _check(tp, "tp", torch.uint8, (R1, Wb), dev)
+    _check(seen, "seen", torch.uint8, (R1, Wb), dev)
+    if not isinstance(d, torch.Tensor) or d.dtype not in (torch.int8,
+                                                          torch.int16):
+        raise TypeError("d must be an int8 or int16 tensor")
+    _check(d, "d", d.dtype, (R1, B), dev)
     _check(flags, "flags", torch.int32, (2,), dev)
-    if not 0 <= step < int(INT16_INF) - 1:
-        raise ValueError(f"level {step} does not fit an int16 depth")
+    if t8 is not None:
+        if not first:
+            raise ValueError("t8 is the first pass's")
+        _check(t8, "t8", torch.int8, (R1, B), dev)
+    top = 127 if d.dtype == torch.int8 else int(INT16_INF)
+    if not 0 <= step < top - 1:
+        raise ValueError(f"level {step} does not fit a {d.dtype} depth")
     if not _route(dev):
-        return bfs_level_i8_ref(nxt, tp, d, flags, step, first, stop)
-    _aligned(nxt, tp, d, flags)
-    rc = _lib().i8_bfs_level(nxt.data_ptr(), tp.data_ptr(), d.data_ptr(),
-                             flags.data_ptr(), step, int(first), int(stop),
-                             R1, B, _stream(dev))
+        return bfs_level_i8_ref(nxt, tp, seen, d, flags, step, first, stop,
+                                t8)
+    _aligned(flags)
+    rc = _lib().i8_bfs_level(nxt.data_ptr(), tp.data_ptr(), seen.data_ptr(),
+                             d.data_ptr(), d.element_size(), flags.data_ptr(),
+                             None if t8 is None else t8.data_ptr(), step,
+                             int(first), int(stop), R1, B, _stream(dev))
     _ok(rc, "i8_bfs_level")
     LAUNCHES["bfs_level_i8"] += 1
 
 
 def _go_loop_i8(f0, tables, eslot, hrows, over, steps, upto, pack, hop,
                 packer):
-    out = f0
-    if steps > 1:
-        acc = f0.clone() if upto else None
-        cur, buf = f0, torch.empty_like(f0)
-        hop = _live_chain(hop, f0.shape[0], f0.device)
-        for _ in range(steps - 1):
-            hop(cur, acc, buf, tables, eslot, hrows, over)
-            cur, buf = buf, cur
-        out = acc if upto else cur
-    if not pack:
-        return out
-    R1, B = out.shape
-    return packer(out, torch.empty((-(-R1 // 8), B), dtype=torch.uint8,
-                                   device=out.device))
+    """``steps - 1`` advances; with ``pack`` the last one writes the
+    row-packed result itself, and with no advance (``steps <= 1``) the
+    start frontier goes through ``packer`` (K14)."""
+    R1, B = f0.shape
+    if steps <= 1:
+        return packer(f0, packed_rows(R1, B, f0.device)) if pack else f0
+    acc = f0.clone() if upto else None
+    cur, buf = f0, torch.empty_like(f0)
+    hop = _live_chain(hop, R1, f0.device)
+    for _ in range(steps - 2):
+        hop(cur, acc, buf, tables, eslot, hrows, over)
+        cur, buf = buf, cur
+    if pack:
+        return hop(cur, acc, buf, tables, eslot, hrows, over,
+                   pack=packed_rows(R1, B, f0.device))[0]
+    hop(cur, acc, buf, tables, eslot, hrows, over)
+    return acc if upto else buf
 
 
 def ell_go_i8_ref(f0: torch.Tensor, tables: DeviceTables,
@@ -1167,9 +1288,11 @@ def ell_go_i8(f0: torch.Tensor, tables: DeviceTables, eslot: torch.Tensor,
     ``f0`` int8 [n_rows + 1, B]; with ``upto`` the running max of
     depths 0 .. steps-1 (the accumulator starts as a copy of ``f0``);
     with ``pack`` the result bit-packed along ROWS, uint8
-    [ceil((n_rows + 1) / 8), B] (``pack_rows``) — not the packed
-    route's lane-packed [n_rows + 1, B / 8].  The hops ping-pong
-    between ``f0`` and one spare buffer, so ``f0`` is consumed."""
+    [ceil((n_rows + 1) / 8), B] — not the packed route's lane-packed
+    [n_rows + 1, B / 8] — written by the last advance itself (K14
+    ``pack_rows`` only where there is no advance, ``steps <= 1``).  The
+    hops ping-pong between ``f0`` and one spare buffer, so ``f0`` is
+    consumed."""
     _carrier(f0, "f0")
     out = _go_loop_i8(f0, tables, eslot, hrows, over, steps, upto, pack,
                       go_hop_i8, pack_rows)
@@ -1179,25 +1302,33 @@ def ell_go_i8(f0: torch.Tensor, tables: DeviceTables, eslot: torch.Tensor,
 
 
 def _bfs_loop_i8(f0, t0, tables, eslot, hrows, over, max_steps, stop,
-                 hop, level, final, read=None):
-    """The int8 route's BFS program: K15's level keeps an int16 ``d``
-    [R1, B] with INT16_INF, converted by ``final`` (``bfs_depth_i8``)
-    at the end when ``max_steps <= 120``; ``read`` as ``_bfs_levels``'."""
-    d = torch.empty(f0.shape, dtype=torch.int16, device=f0.device)
+                 hop, level, read=None):
+    """The int8 route's BFS program: ``seen`` (a lane bitmap) and ``d``
+    (in the result's form, ``depth_dtype``) are its state, the targets a
+    lane bitmap: ``t0`` itself when it is one, else the first pass packs
+    the int8 ``t0``; ``read`` as ``_bfs_levels``'."""
+    R1, B = f0.shape
+    d = torch.empty((R1, B), dtype=depth_dtype(max_steps), device=f0.device)
+    seen = torch.empty((R1, lanes_width(B)), dtype=torch.uint8,
+                       device=f0.device)
+    tp, t8 = (t0, None) if t0.dtype == torch.uint8 else \
+        (torch.empty_like(seen), t0)
     step = _bfs_levels(f0, tables, eslot, hrows, over, max_steps, stop,
                        hop, lambda nxt, flag, at, first: level(
-                           nxt, t0, d, flag, at, first, stop),
+                           nxt, tp, seen, d, flag, at, first, stop,
+                           t8 if first else None),
                        read)
-    if max_steps <= 120:
-        d = final(d, torch.empty(d.shape, dtype=torch.int8,
-                                 device=f0.device))
     return d, step
 
 
 def _bfs_pair_i8(f0: torch.Tensor, t0: torch.Tensor) -> None:
-    """Check the int8 start/target pair."""
+    """Check the int8 start carrier and its targets: an int8 carrier of
+    the same shape, or its lane bitmap."""
     R1, B = _carrier(f0, "f0")
-    _check(t0, "t0", torch.int8, (R1, B), f0.device)
+    if isinstance(t0, torch.Tensor) and t0.dtype == torch.uint8:
+        _check(t0, "t0", torch.uint8, (R1, lanes_width(B)), f0.device)
+    else:
+        _check(t0, "t0", torch.int8, (R1, B), f0.device)
 
 
 def ell_bfs_i8_ref(f0: torch.Tensor, t0: torch.Tensor,
@@ -1205,12 +1336,12 @@ def ell_bfs_i8_ref(f0: torch.Tensor, t0: torch.Tensor,
                    hrows: torch.Tensor, over: Sequence[int], max_steps: int,
                    stop_when_found: bool = True) -> Tuple[torch.Tensor, int]:
     """Plain version of ``ell_bfs_i8``: the same loop over the plain
-    versions of the hop, the level pass and the int8 form."""
+    versions of the hop and the level pass."""
     _bfs_pair_i8(f0, t0)
     return _bfs_loop_i8(f0, t0, tables, eslot, hrows, over, max_steps,
                         stop_when_found,
                         _live_chain(go_hop_i8_ref, f0.shape[0], f0.device),
-                        bfs_level_i8_ref, bfs_depth_i8_ref)
+                        bfs_level_i8_ref)
 
 
 def ell_bfs_i8(f0: torch.Tensor, t0: torch.Tensor, tables: DeviceTables,
@@ -1218,17 +1349,20 @@ def ell_bfs_i8(f0: torch.Tensor, t0: torch.Tensor, tables: DeviceTables,
                over: Sequence[int], max_steps: int,
                stop_when_found: bool = True) -> Tuple[torch.Tensor, int]:
     """Batched BFS depths over the int8 carrier (ell.py:1616
-    make_batched_bfs_kernel): ``f0``/``t0`` int8 [n_rows + 1, B] start
-    and target lanes (``f0`` is consumed).  Returns (depth, levels
-    run) in ``ell_bfs``'s form: [n_rows + 1, B], int8 with -1 for
-    unreached when ``max_steps <= 120`` (``bfs_depth_i8``), else int16
-    with INT16_INF.  The level loop runs on the host and reads this
-    level's two flags back once a level, as ``ell_bfs`` does."""
+    make_batched_bfs_kernel): ``f0`` int8 [n_rows + 1, B] start lanes
+    (consumed), ``t0`` the targets, an int8 carrier of the same shape
+    (lanes > 0) or its lane bitmap uint8 [n_rows + 1, ceil(B / 8)] (bit j
+    of byte w lane 8w + j, as ``frontier_upload`` writes it).  Returns
+    (depth, levels run) in ``ell_bfs``'s form: [n_rows + 1, B], int8
+    with -1 for unreached when ``max_steps <= 120``, else int16 with
+    INT16_INF, the form the level pass keeps it in (no pass converts
+    it).  The level loop runs on the host and reads this level's two
+    flags back once a level, as ``ell_bfs`` does."""
     _bfs_pair_i8(f0, t0)
     out = _bfs_loop_i8(f0, t0, tables, eslot, hrows, over, max_steps,
                        stop_when_found,
                        _live_chain(go_hop_i8, f0.shape[0], f0.device),
-                       bfs_level_i8, bfs_depth_i8)
+                       bfs_level_i8)
     if _route(f0.device):
         LAUNCHES["ell_bfs_i8"] += 1
     return out

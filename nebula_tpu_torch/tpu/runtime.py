@@ -51,8 +51,9 @@ The entry points:
 
 With ``tpu_packed_frontier=false`` the dense GO and the BFS ride the
 int8 carrier instead (``ell_go_i8``, ``ell_bfs_i8``; the GO result
-bit-packed along rows), and the continuous tier is refused, so every
-GO takes the windowed pipeline.
+bit-packed along rows by its last advance, the BFS's targets uploaded
+as lane bits by ``frontier_upload``), and the continuous tier is
+refused, so every GO takes the windowed pipeline.
 
 With ``tpu_mesh_devices=k > 1`` the runtime serves on a mesh of k
 shards (``mesh.PartsMesh``: the first k cards, k shards of the CPU
@@ -2065,6 +2066,11 @@ class TorchQueryRuntime:
         upload = self._upload_frontier_packed if packed \
             else self._upload_frontier
         f0 = upload(ix, *self._flat_coords(m, ix, starts_per_query, nq), B)
+        # the int8 route reads its targets as a lane bitmap: K1 writes it
+        # where its rows are whole 4-byte words, else K15's first pass
+        # packs K12's carrier
+        if not packed and lanes_width(B) % 4 == 0:
+            upload = self._upload_frontier_packed
         t0p = upload(ix, *self._flat_coords(m, ix, targets_per_query, nq),
                      B)
         self._bump("path_device", nq)

@@ -151,17 +151,19 @@ def test_stale_live_array_stays_a_superset_after_the_level_pass(ells, B,
     f0[rows, np.arange(3 * B) % B] = 1
     t0 = np.zeros_like(f0)
     t0[tix.perm[rng.integers(0, tix.n, B)], np.arange(B)] = 1
-    d = torch.empty((R1, B), dtype=torch.int16)
+    d = torch.empty((R1, B), dtype=torch.int8)
+    seen = torch.empty((R1, -(-B // 8)), dtype=torch.uint8)
+    tp = torch.empty_like(seen)
     flags = torch.zeros((4, 2), dtype=torch.int32)
     f = _t(f0)
-    ell_ops.bfs_level_i8_ref(f, _t(t0), d, flags[0], 0, True, True)
+    ell_ops.bfs_level_i8_ref(f, tp, seen, d, flags[0], 0, True, True, _t(t0))
     live = torch.empty(ell_ops.live_words(R1), dtype=torch.int32)
     nxt = torch.empty_like(f)
     for step in range(2):       # the second hop reaches the starts again
         ell_ops.go_hop_i8_ref(f, None, nxt, over=over, live_out=live,
                               **port)
         before = nxt.clone()
-        ell_ops.bfs_level_i8_ref(nxt, _t(t0), d, flags[step + 1], step,
+        ell_ops.bfs_level_i8_ref(nxt, tp, seen, d, flags[step + 1], step,
                                  False, False)
         f, nxt = nxt, f
     nxt = f

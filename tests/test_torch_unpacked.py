@@ -286,9 +286,23 @@ def test_int8_wrappers_refuse_what_the_kernels_cannot_take(ells):
                                    torch.zeros(8, dtype=torch.int32), 9)
     with pytest.raises(ValueError):      # pack output has ceil(R1/8) rows
         ell_ops.pack_rows(f, torch.zeros((R1, 8), dtype=torch.uint8))
+    bits = torch.zeros((R1, 1), dtype=torch.uint8)     # ceil(8 / 8)
+    flags = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError):      # d is [R1, B]
-        ell_ops.bfs_level_i8(f, f, torch.zeros((R1, 64), dtype=torch.int16),
-                             torch.zeros(2, dtype=torch.int32), 0)
+        ell_ops.bfs_level_i8(f, bits, bits.clone(),
+                             torch.zeros((R1, 64), dtype=torch.int16),
+                             flags, 0)
+    with pytest.raises(ValueError):      # seen is a lane bitmap [R1, B/8]
+        ell_ops.bfs_level_i8(f, bits, torch.zeros((R1, 8), dtype=torch.uint8),
+                             torch.zeros((R1, 8), dtype=torch.int8), flags, 0)
+    with pytest.raises(ValueError):      # an int8 depth stops below 127
+        ell_ops.bfs_level_i8(f, bits, bits.clone(),
+                             torch.zeros((R1, 8), dtype=torch.int8), flags,
+                             126)
+    with pytest.raises(ValueError):      # only the first pass packs t8
+        ell_ops.bfs_level_i8(f, bits, bits.clone(),
+                             torch.zeros((R1, 8), dtype=torch.int8), flags,
+                             0, t8=f)
     with pytest.raises(ValueError):      # depths must fit int16
         ell_ops.ell_bfs_i8(f, f.clone(), over=(1,), max_steps=1 << 15,
                            **port)
