@@ -146,9 +146,13 @@ Phases, in order; any failure exits non-zero:
              and ``ell_go``, ``ell_bfs_sharded`` at 1-4 steps and UPTO
              5 (shortest and all) against ``ell_bfs`` (its bound counts
              one depth matrix a card group, the per-shard design's
-             beside as ``old_bound_ms``), ``ell_absorb_sharded`` and M2
-             ``shard_absorb`` on the absorb plans (gathered shards equal
-             to ``ell_absorb``'s tables, inputs unchanged),
+             beside as ``old_bound_ms``), ``ell_absorb_sharded`` (one
+             ``mesh_absorb`` a card group: two kernels in one C call
+             by capture) on one card and over two pretended cards, the
+             update set walked whole and to the plan's real rows, and
+             M2 ``shard_absorb`` (its one-member call) on the absorb
+             plans (gathered shards equal to ``ell_absorb``'s tables,
+             inputs unchanged),
              ``sharded_go`` and ``or_into`` against the ``go`` program,
              its hop ``edge_scan_hop`` (the scan over a shard's slice)
              against its plain version,
@@ -180,7 +184,12 @@ Phases, in order; any failure exits non-zero:
              list they take (a start list read whole, a list read to
              the count K5 left: 0, the live count, c, past c, X3's pads
              inside it; short and long; hub keys received; blocks past
-             their cap).  A program's ``ms`` is its device time, its calls
+             their cap), and (``emit_count_check``) K6's emit, which
+             reads only the count K5 left, at count 0, 1, c / 3, c and
+             past c as ``mesh_emit``, ``pair_reduce``'s emit and
+             ``sparse_go``'s plain result, each list also with its tail
+             overwritten (the same output), ``mesh_emit`` timed at each
+             count.  A program's ``ms`` is its device time, its calls
              queued behind a spin kernel (the BFS replayed with the
              level flags the probed run read, so the host never waits
              on the card), its event time beside as ``event_ms``, and
@@ -2417,11 +2426,13 @@ def sparse_probes(torch, ell_ops, tables, ix):
 
     def reduce_pre(args):
         # the live pairs (and, for COUNT and LIMIT, their degrees) read
-        # and the output written; the kernels also read the padded tail
-        # of the capacity-sized list, a cost of the design kept apart
+        # and the output written; COUNT and LIMIT also read the padded
+        # tail of the capacity-sized list, a cost of the design kept
+        # apart (the emit stops at K5's count)
         op, ids, qid, deg, out = args[:5]
         live = int((qid != ell_ops.BIG_Q).sum())
-        ctx["padded_read_bytes"] = 8 * (ids.numel() - live)
+        ctx["padded_read_bytes"] = 0 if op == ell_ops.REDUCE_EMIT \
+            else 8 * (ids.numel() - live)
         return 8 * live + (4 * live if op else 0) + 4 * out.numel()
 
     def reduce_lib(args):
@@ -5310,6 +5321,26 @@ def restored_queued_ms(torch, run, restore, label: str,
                - mesh_queued_ms(torch, restore, label + " restore", iters))
 
 
+def absorb_launches(torch, ell_ops, fn, groups: int, copies: int,
+                    what: str) -> dict:
+    """``launches_a_call`` of a mesh absorb, held to two kernels (the
+    copy and the scatter) in one C call a card group and at most
+    ``copies`` copies of the update set."""
+    n = launches_a_call(torch, ell_ops, fn)
+    kinds = n["launch_kinds"]
+    kernels = kinds.get("kernel", 0)
+    extra = kernels + kinds.get("memcpy", 0) - 2 * groups
+    if set(kinds) - {"kernel", "memcpy"} or kernels < 2 * groups \
+            or not 0 <= extra <= copies or n["c_calls_a_call"] != groups:
+        raise AssertionError(f"{what}: {n['launch_kinds']} in "
+                             f"{n['c_calls_a_call']} C calls a call, "
+                             f"expected 2 kernels a card group in one C "
+                             f"call each ({groups}), {copies} copies at "
+                             f"most")
+    return {a: n[a] for a in ("launches_a_call", "c_calls_a_call",
+                              "launch_kinds", "launches_traced")}
+
+
 def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
                       hrows, k: int, B: int, over, rng, windows) -> dict:
     """The replicated-frontier mesh's kernels and programs on the serve
@@ -5337,7 +5368,8 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
     Bounds are the bytes each function must move over the card's rate;
     an absorb counts only the real replacement rows, once, at the
     shard that owns each.  Returns {name: numbers}."""
-    from nebula_tpu_torch.tpu.ell import absorb_update_arrays, mesh_tables
+    from nebula_tpu_torch.tpu.ell import (absorb_live, absorb_update_arrays,
+                                          mesh_tables)
     from nebula_tpu_torch.tpu.mesh import PartsMesh, replicate_rows
     dev = tables.nbr.device
     mesh = PartsMesh([dev] * k)
@@ -5656,60 +5688,76 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
             f0, t0, mt, es, hs, over, 5, True), replay=bfs_replay,
             reads=len(flag_reads)))
 
-    # ---- ell_absorb_sharded on the absorb phase's three plans
+    # ---- ell_absorb_sharded on the absorb phase's three plans: one
+    # mesh_absorb a card group (a copy of its members' tables, then one
+    # walk over the update set, read in place), on one card and over two
+    # pretended cards (the second group takes one copy of the set)
     absorb = {}
     m2 = {}
+    half = (k + 1) // 2
+    mesh2 = PartsMesh([dev] * k)
+    mesh2.groups = ((dev, tuple(range(half))), (dev, tuple(range(half, k))))
+    mt2 = mt._replace(mesh=mesh2)
     for label, (plan, claims, _events) in windows.items():
         _counts, upd = absorb_update_arrays(ix, plan)
         rows, nn, ne = rt._absorb_args(upd)
+        live = absorb_live(ix, plan)
         before = [(t.nbr.clone(), t.et.clone()) for t in mt.shards]
-        got = ell_ops.ell_absorb_sharded(mt, rows, nn, ne)
         want = ell_ops.ell_absorb_sharded_ref(mt, rows, nn, ne)
         one = ell_ops.ell_absorb(tables, rows, nn, ne)
-        pairs = []
-        for a, b in zip(got.shards, want.shards):
-            pairs += [(a.nbr, b.nbr), (a.et, b.et)]
-        for b in range(len(tables.D)):
-            real = mt.real_rows[b]
-            for col in (0, 1):
-                gathered = torch.cat([t.bucket(b)[col] for t in
-                                      got.shards])[:real]
-                pairs.append((gathered, one.bucket(b)[col]))
-        require_equal(torch, f"ell_absorb_sharded k={k} {label}", 0,
-                      *pairs)
+        for lv in (None, live):
+            for cards, m_ in (("one card", mt), ("two cards", mt2)):
+                got = ell_ops.ell_absorb_sharded(m_, rows, nn, ne, lv)
+                pairs = []
+                for a, b in zip(got.shards, want.shards):
+                    pairs += [(a.nbr, b.nbr), (a.et, b.et)]
+                for b in range(len(tables.D)):
+                    real = mt.real_rows[b]
+                    for col in (0, 1):
+                        gathered = torch.cat([t.bucket(b)[col] for t in
+                                              got.shards])[:real]
+                        pairs.append((gathered, one.bucket(b)[col]))
+                require_equal(torch, f"ell_absorb_sharded k={k} {label} "
+                              f"{cards} live={lv is not None}", 0, *pairs)
         for t, (n0, e0) in zip(mt.shards, before):
             if not (torch.equal(t.nbr, n0) and torch.equal(t.et, e0)):
                 raise AssertionError(f"ell_absorb_sharded {label} changed "
                                      f"its input tables")
         del got, want, one, before, pairs
-        per = ell_ops._replicate_updates(mt, rows, nn, ne)
         kp = int(rows[0].numel())
         nb = len(rows)
         n_real = [int((r.long() < mt.real_rows[b]).sum())
                   for b, r in enumerate(rows)]
+        if n_real != list(live):
+            raise AssertionError(f"ell_absorb_sharded {label}: the plan's "
+                                 f"{live} real rows, the set holds "
+                                 f"{n_real}")
+        walked = 4 * sum(live) + 8 * sum(c * d for c, d in
+                                         zip(live, mt.shards[0].D))
         ms_s, ev_s, plain_s, lib_s, bound_s = [], [], [], [], []
         owned = [0] * nb
         for s in range(k):
             t = mt.shards[s]
-            kern = lambda: ell_ops.shard_absorb(mt, s, *per[s])  # noqa: E731
+            # M2 through its one-member call: shard s's copy, then the
+            # walk over the whole set, keeping the rows it owns
+            kern = lambda: ell_ops.shard_absorb(  # noqa: E731
+                mt, s, rows, nn, ne, live)
             ev_s.append(cuda_ms(torch, kern, ABSORB_ITERS))
             ms_s.append(mesh_queued_ms(torch, kern,
                                        f"shard_absorb k={k} s={s}"))
             plain_s.append(cuda_ms(torch, lambda: ell_ops.shard_absorb_ref(
-                mt, s, *per[s]), 3, warmup=1))
-            # the rows shard s really replaces: its own, and no pad entry
-            # (a pad in the last shard's padded tail rewrites sentinels)
+                mt, s, rows, nn, ne, live), 3, warmup=1))
             keep = []
-            for b, r in enumerate(per[s][0]):
-                loc = r.long() - s * t.rows[b]
-                keep.append(((loc >= 0) & (loc < t.rows[b])
-                             & (r.long() < mt.real_rows[b]))
+            for b, r in enumerate(rows):
+                r = r[:live[b]].long()
+                loc = r - s * t.rows[b]
+                keep.append(((loc >= 0) & (loc < t.rows[b]))
                             .nonzero().squeeze(1))
                 owned[b] += int(keep[b].numel())
-            idx = [per[s][0][b].long()[keep[b]] - s * t.rows[b]
+            idx = [rows[b][:live[b]].long()[keep[b]] - s * t.rows[b]
                    for b in range(nb)]
-            n_in = [per[s][1][b][keep[b]].contiguous() for b in range(nb)]
-            e_in = [per[s][2][b][keep[b]].contiguous() for b in range(nb)]
+            n_in = [nn[b][keep[b]].contiguous() for b in range(nb)]
+            e_in = [ne[b][keep[b]].contiguous() for b in range(nb)]
 
             def lib(t=t, idx=idx, n_in=n_in, e_in=e_in):
                 a, e = t.nbr.clone(), t.et.clone()
@@ -5722,44 +5770,63 @@ def mesh_kernel_phase(torch, ell_ops, edge_ops, rt, m, ix, tables, eslot,
                                                            e_in[b])
                 return a, e
             lib_s.append(cuda_ms(torch, lib, ABSORB_ITERS))
+            # its tables copied, every walked row's index read, its own
+            # rows' contents read
             bound_s.append(bytes_ms(
-                16 * int(t.nbr.numel()) + 4 * nb * kp
+                16 * int(t.nbr.numel()) + 4 * sum(live)
                 + 8 * sum(int(x.numel()) * d for x, d in zip(keep, t.D))))
         if owned != n_real:
             raise AssertionError(f"ell_absorb_sharded {label}: the shards "
                                  f"own {owned} real rows, the set holds "
                                  f"{n_real}")
         prog = lambda: ell_ops.ell_absorb_sharded(  # noqa: E731
-            mt, rows, nn, ne)
+            mt, rows, nn, ne, live)
+        prog2 = lambda: ell_ops.ell_absorb_sharded(  # noqa: E731
+            mt2, rows, nn, ne, live)
         prog_ev = cuda_ms(torch, prog, ABSORB_ITERS)
         prog_ms = mesh_queued_ms(torch, prog, f"ell_absorb_sharded k={k}")
         prog_plain = cuda_ms(torch, lambda: ell_ops.ell_absorb_sharded_ref(
-            mt, rows, nn, ne), 3, warmup=1)
+            mt, rows, nn, ne, live), 3, warmup=1)
         prog_bytes = 16 * sum(int(t.nbr.numel()) for t in mt.shards) \
-            + 4 * nb * kp + 8 * sum(c * d for c, d in zip(n_real,
-                                                           mt.shards[0].D))
+            + walked
+        # by capture: a copy and a scatter a card group, one C call a
+        # group; over two pretended cards also the second group's one
+        # copy of the update set
+        counts_ = [absorb_launches(torch, ell_ops, f, groups, copies,
+                                   f"{what} {label}")
+                   for f, groups, copies, what in (
+                       (prog, 1, 0, f"ell_absorb_sharded k={k}"),
+                       (prog2, 2, 1, f"ell_absorb_sharded k={k} two cards"),
+                       (lambda: ell_ops.shard_absorb(
+                           mt, k - 1, rows, nn, ne, live), 1, 0,
+                        f"shard_absorb k={k}"))]
         absorb[label] = dict(
             max_abs_err=0, ms=prog_ms, event_ms=prog_ev, plain_ms=prog_plain,
             bound_ms=bytes_ms(prog_bytes), bound_by="bytes",
             library_ms=None, claims=len(claims), kp=kp,
-            rows_replaced=sum(n_real), pads=nb * kp - sum(n_real))
+            rows_replaced=sum(n_real), pads=nb * kp - sum(n_real),
+            two_cards=dict(ms=mesh_queued_ms(
+                torch, prog2, f"ell_absorb_sharded k={k} two cards"),
+                event_ms=cuda_ms(torch, prog2, ABSORB_ITERS), **counts_[1]),
+            **counts_[0])
         m2[label] = dict(max_abs_err=0, ms=float(np.mean(ms_s)),
                          event_ms=float(np.mean(ev_s)),
                          plain_ms=float(np.mean(plain_s)),
                          bound_ms=float(np.mean(bound_s)), bound_by="bytes",
                          library_ms=float(np.mean(lib_s)),
                          library_call="clone + index_copy_",
-                         per_shard_ms=ms_s)
+                         per_shard_ms=ms_s, **counts_[2])
+    keys = ("ms", "event_ms", "plain_ms", "bound_ms", "claims",
+            "launches_a_call", "c_calls_a_call")
     res["ell_absorb_sharded"] = dict(
         absorb["a_4096_events"], k=k, inputs_unchanged=True,
         library_none="none: a per-shard program",
-        windows={a: {x: v[x] for x in ("ms", "event_ms", "plain_ms",
-                                       "bound_ms", "claims")}
-                 for a, v in absorb.items()})
+        windows={a: {x: v[x] for x in keys} for a, v in absorb.items()})
     res["shard_absorb"] = dict(
         m2["a_4096_events"], k=k,
         windows={a: {x: v[x] for x in ("ms", "event_ms", "plain_ms",
-                                       "bound_ms", "library_ms")}
+                                       "bound_ms", "library_ms",
+                                       "launches_a_call")}
                  for a, v in m2.items()})
 
     # ---- sharded_go (edge-sharded, psum_or) against the go program
@@ -6333,8 +6400,10 @@ def mesh_sparse_probes(torch, ell_ops, st, first: bool = False):
                                            {"mesh_agree": 1}), spares=1),
         "mesh_emit": Probe(torch, "mesh_emit", ell_ops.mesh_emit,
                            ell_ops.mesh_emit_ref,
-                           lambda a: 8 * a[0].numel() + 16 * a[0].shape[0],
-                           lambda a: 4 * a[3].numel(),
+                           lambda a: 16 * a[0].shape[0],
+                           lambda a: 4 * a[3].numel() + 8 * int(
+                               a[2][:, ell_ops.CTL_CNT].clamp(
+                                   0, a[0].shape[1]).sum()),
                            first=launches(ell_ops.mesh_emit, 1, {
                                "mesh_emit": 1, "pair_reduce": 1}),
                            spares=1),
@@ -6663,6 +6732,144 @@ def mesh_sparse_kernel_phase(torch, ell_ops, rt, m, ix, tables, eslot,
                   "call_ms", "call_bound_ms")},
         run="b128_shortest_s5", k=k)
     res["exchanged_bytes_per_hop"] = moved_hops
+    return res
+
+
+def emit_count_check(torch, ell_ops, rt, m, ix, tables, rng) -> dict:
+    """K6's emit (``pair_emit_kernel``) on K5's lists at count 0, one, a
+    mid count, c and past c (an overflowed list, its flag raised), held
+    exactly to its plain version over the whole list: as ``mesh_emit``
+    (4 members at the main path's c = 2^17, and 3 members at c = 130
+    and 131, whose members' rows sit off 16-byte alignment), as
+    ``pair_reduce``'s emit in both layouts into outputs 0-3 words off
+    alignment, and as ``sparse_go``'s plain result (one query, one hop,
+    both layouts: no live start, the cap past the count, the cap cut to
+    the count, one below it: an overflow, whose flags are held); each
+    list again with its places past min(count, c) overwritten gives the
+    same output (the kernel reads none of them).  ``mesh_emit`` at
+    c = 2^17 is timed at each count (device ms, calls queued behind a
+    spin) beside its plain version and its bound (the counted prefix
+    read, the whole output written).  Returns the numbers."""
+    E = ell_ops
+    dev = tables.nbr.device
+    n_rows = ix.n_rows
+    R1 = n_rows + 1
+    R1w = (R1 + 31) // 32
+    nq = max(4, -(-2 * ((1 << 17) + 8) // R1))     # room for c + 7 pairs
+
+    def k5_slab(members, c, bits):
+        ids = torch.empty((members, c), dtype=torch.int32, device=dev)
+        qid = torch.empty_like(ids)
+        ctl = torch.zeros((members, E.CTL_SIZE), dtype=torch.int64,
+                          device=dev)
+        for y in range(members):
+            flat = rng.choice(nq * R1, bits, replace=False)
+            q, v = flat // R1, flat % R1
+            words = np.zeros(nq * R1w, np.uint32)
+            np.bitwise_or.at(words, q * R1w + v // 32,
+                             np.left_shift(1, v % 32).astype(np.uint32))
+            mark = torch.from_numpy(words.view(np.int32)).to(dev)
+            E.pair_compact(mark, R1w, c, ids[y], qid[y], ctl[y], -1, n_rows)
+        return ids, qid, ctl
+
+    def poisoned(ids, qid, ctl):
+        ids2, qid2 = ids.clone(), qid.clone()
+        for y, cnt in enumerate(ctl[:, E.CTL_CNT].tolist()):
+            n = min(cnt, ids.shape[1])
+            ids2[y, n:] = 5
+            qid2[y, n:] = 0
+        return ids2, qid2
+
+    res = {"mesh_emit": {}, "pair_reduce": {}, "sparse_go": {}}
+    for members, c in ((4, 1 << 17), (3, 130), (3, 131)):
+        for bits in sorted({0, 1, c // 3, c, c + 7}):
+            label = f"c{c}_count{bits}"
+            ids, qid, ctl = k5_slab(members, c, bits)
+            out = torch.full((members, 2 + 2 * c), 7, dtype=torch.int32,
+                             device=dev)
+            want = torch.full_like(out, 9)
+            E.mesh_emit(ids, qid, ctl, out, n_rows)
+            E.mesh_emit_ref(ids, qid, ctl, want, n_rows)
+            pairs = [(out, want)]
+            if dev.type == "cuda":      # the plain version reads the tail
+                out2 = torch.full_like(out, 3)
+                E.mesh_emit(*poisoned(ids, qid, ctl), ctl, out2, n_rows)
+                pairs.append((out2, want))
+            require_equal(torch, f"mesh_emit {label}", 0, *pairs)
+            for y in (0, members - 1):
+                for pack32 in (False, True):
+                    w = 2 + (1 if pack32 else 2) * c
+                    for off in range(4):
+                        buf = torch.full((off + w,), 7, dtype=torch.int32,
+                                         device=dev)
+                        ref = torch.full((w,), 9, dtype=torch.int32,
+                                         device=dev)
+                        E.pair_reduce(E.REDUCE_EMIT, ids[y], qid[y], None,
+                                      buf[off:], pack32, R1, n_rows, nq, nq,
+                                      0, 0, ctl[y])
+                        E.pair_reduce_ref(E.REDUCE_EMIT, ids[y], qid[y],
+                                          None, ref, pack32, R1, n_rows, nq,
+                                          nq, 0, 0, ctl[y])
+                        require_equal(torch, f"pair_reduce emit {label} "
+                                      f"pack32={pack32} off={off}", 0,
+                                      (buf[off:], ref))
+            if c != 1 << 17:
+                continue
+            live = sum(min(x, c) for x in ctl[:, E.CTL_CNT].tolist())
+
+            def kern(ids=ids, qid=qid, ctl=ctl, out=out):
+                return E.mesh_emit(ids, qid, ctl, out, n_rows)
+            res["mesh_emit"][label] = dict(
+                ms=mesh_queued_ms(torch, kern, f"mesh_emit {label}"),
+                event_ms=cuda_ms(torch, kern, 20),
+                plain_ms=cuda_ms(torch, lambda: E.mesh_emit_ref(
+                    ids, qid, ctl, want, n_rows), 3, warmup=1),
+                bound_ms=bytes_ms(8 * live + 16 * members
+                                  + 4 * out.numel()),
+                bound_by="bytes", live_pairs=live, members=members)
+        res["pair_reduce"][f"c{c}"] = "held at every count, both layouts"
+
+    # sparse_go's plain result: one query from a vertex of a few edges
+    from nebula_tpu_torch.tpu.ell import sparse_pack32
+    ecnt, e0 = rt._hub_expansion_dev(m, ix)
+    deg_h = rt._deg_host(m, (1,))
+    v = int(np.flatnonzero((deg_h > 2) & (deg_h < 200))[0])
+    c0 = 8
+    for qmax in (1, (2**31 - 1) // R1 + 1):     # both output layouts
+        layout = "pack32" if sparse_pack32(qmax, n_rows) else "pairs"
+        for label, start in (("none live", None), ("one start", v)):
+            ids_h, qid_h = sparse_batch(
+                ix, np.zeros(0, np.int64) if start is None
+                else np.array([start]), c0, 1)
+            ids, qid = rt._up(ids_h), rt._up(qid_h)
+
+            def go(cap):
+                args = (ids, qid, ecnt, e0, None, tables, (1,), 2,
+                        (c0, cap), qmax)
+                return E.sparse_go(*args, 1), E.sparse_go_ref(*args)
+            got, want = go(1 << 17)
+            require_equal(torch, f"sparse_go {layout} {label}", 0,
+                          (got, want))
+            cnt = int(want[0])
+            res["sparse_go"][f"{layout} {label}"] = cnt
+            if start is None:
+                if cnt:
+                    raise AssertionError("sparse_go from no live start "
+                                         f"counted {cnt}")
+                continue
+            for cap, what in ((cnt, "count = c"), (cnt - 1, "overflow")):
+                if cap < 1:
+                    continue
+                got, want = go(cap)
+                if got[:2].tolist() != want[:2].tolist() or \
+                        int(want[1]) != (cap < cnt):
+                    raise AssertionError(f"sparse_go {layout} {what}: "
+                                         f"{got[:2].tolist()} against "
+                                         f"{want[:2].tolist()}")
+                if cap == cnt:
+                    require_equal(torch, f"sparse_go {layout} {what}", 0,
+                                  (got, want))
+                res["sparse_go"][f"{layout} {what}"] = got[:2].tolist()
     return res
 
 
@@ -7378,6 +7585,14 @@ def main(argv=None) -> int:
                                              rng, lab, tables.nbr.device)))
         del hubless
         log(f"[kernel] mesh stage checks {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        emit_rows = emit_count_check(torch, ell_ops, rt, m, ix, tables, rng)
+        log("[kernel] K6 emit at counts 0, 1, mid, c, past c equal=True "
+            + json.dumps(emit_rows))
+        mesh_sparse_rows[MESH_SPARSE_MAIN]["mesh_emit"]["at_counts"] = \
+            emit_rows["mesh_emit"]
+        sparse_rows["sparse_go"]["emit_at_counts"] = emit_rows["sparse_go"]
+        log(f"[kernel] emit checks {time.perf_counter() - t0:.2f} s")
 
         # ---- 4. serve (continuous)
         serve = serve_phase(torch, rt, ell_ops, oracle, args.vertices,

@@ -100,10 +100,16 @@ programs: device and event times, launches and C calls a call by capture
 (``mesh_x_rows``).  K15 (``bfs_level_i8``) with ``ell_go_i8`` and
 ``ell_bfs_i8`` at B = 128 and 1024 in each checkout's own form, the
 BFS's device time split by launch (``k15_rows``).
+``ell_absorb``, ``ell_absorb_sharded`` (on one card and over two
+pretended ones) and M2 alone on each shard for ``chip_smoke.py``'s three
+absorb plans (``absorb_rows``), and K6's emit over the card on the
+operands ``mesh_sparse_go`` gives it and on K5's lists at counts 0, c / 3
+and c, with ``sparse_go``'s plain result (``emit_rows``), each checkout
+in its own form.
 ``--rows`` picks row groups (default all): ``hop`` (the hop, ``ell_go``
 and ``or_into``), ``adaptive``, ``sparse``, ``fused``, ``edge``, ``int8``,
 ``mesh``, ``mesh_sparse``, ``k5``, ``bfs_pair``, ``bfs``, ``upload``,
-``count``, ``lanes``, ``k4``, ``mesh_x``, ``k15``.
+``count``, ``lanes``, ``k4``, ``mesh_x``, ``k15``, ``absorb``, ``emit``.
 Prints the card's name and power limit, then one JSON line.  Needs a
 CUDA card.
 """
@@ -144,7 +150,8 @@ MESH_X_SETS = 8                # X1 / X3 steps timed, each on its own clones
 MESH_X_CAP = 1 << 17           # the BFS's pair cap (tpu_sparse_cap)
 ROW_GROUPS = ("hop", "adaptive", "sparse", "fused", "edge", "int8", "mesh",
               "mesh_sparse", "k5", "bfs_pair", "bfs", "upload", "count",
-              "lanes", "k4", "mesh_x", "k15")
+              "lanes", "k4", "mesh_x", "k15", "absorb", "emit")
+EMIT_C = 1 << 17               # the frontier-sharded GO's last cap
 SPARSE_C0, SPARSE_QUERIES = 256, 8     # chip_smoke.py's headline batch
 LIMIT_N = 10                   # chip_smoke.py's | LIMIT n
 # chip_smoke.py's predicate 3 and its seeded columns (fused_columns)
@@ -1069,9 +1076,10 @@ def adaptive_rows(torch, ell_ops, m, ix, tables, eslot, hrows, over, dev):
     return res
 
 
-def sparse_rows(torch, ell_ops, rt, m, ix, tables, over, rng, dev):
+def sparse_rows(torch, ell_ops, rt, m, ix, tables, over, rng, dev,
+                forms=("plain", "count", "limit")):
     """``sparse_go`` at chip_smoke.py's headline batch in its three
-    forms."""
+    forms (or those of ``forms``)."""
     import numpy as np
     from nebula_tpu_torch.tpu.ell import sparse_caps
     deg_h = rt._deg_host(m, tuple(over))
@@ -1092,6 +1100,9 @@ def sparse_rows(torch, ell_ops, rt, m, ix, tables, over, rng, dev):
     res = {}
     for form, kw in (("plain", {}), ("count", dict(count=True)),
                      ("limit", dict(limit=LIMIT_N))):
+        if form not in forms:
+            continue
+
         def go():
             return ell_ops.sparse_go(ids, qid, ecnt, e0, deg, tables, over,
                                      3, caps, qmax, SPARSE_QUERIES, **kw)
@@ -1733,6 +1744,171 @@ def _launches(torch, ell_ops, fn) -> dict:
                               "launch_kinds", "launches_traced")}
 
 
+def _smoke_module():
+    """This checkout's ``chip_smoke.py`` (its seeded absorb plans)."""
+    import importlib.util
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    spec = importlib.util.spec_from_file_location(
+        "_hop_bench_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def absorb_rows(torch, ell_ops, rt, m, ix, tables, dev):
+    """``ell_absorb`` on the serve tables, ``ell_absorb_sharded`` at k =
+    MESH_K on this card (and over two pretended cards) and M2 alone on
+    each shard, for ``chip_smoke.py``'s three absorb plans
+    (``absorb_windows``, seeded), the update set as the runtime uploads
+    it, each checkout in its own form: where it has ``mesh_absorb``, the
+    set read in place to the plan's real rows (``ell.absorb_live``) and
+    M2 as ``shard_absorb``'s one-member call; else M2 on the copy of the
+    set ``_replicate_updates`` gives each shard.  Each held equal to its
+    plain version; device ms (calls queued behind a spin, the host's
+    enqueue beside), event ms, launches and C calls a call by
+    capture."""
+    import numpy as np
+    from nebula_tpu_torch.tpu import mesh as pmesh
+    from nebula_tpu_torch.tpu.ell import absorb_update_arrays, mesh_tables
+    wins = _smoke_module().absorb_windows(m, ix,
+                                          np.random.default_rng(SEED + 13))
+    new = hasattr(ell_ops, "mesh_absorb")
+    k = MESH_K
+    mt = mesh_tables(ix, pmesh.PartsMesh([dev] * k))
+    split = pmesh.PartsMesh([dev] * k)
+    half = (k + 1) // 2
+    split.groups = ((dev, tuple(range(half))), (dev, tuple(range(half, k))))
+    mt2 = mt._replace(mesh=split)
+    res = dict(absorb_card_groups=new)
+
+    def row(fn):
+        ms, enq = queued_times(torch, fn, QUEUED, MESH_SPIN)
+        return dict(ms=ms, enqueue_ms=enq,
+                    event_ms=cuda_ms(torch, fn, BACK_TO_BACK),
+                    **_launches(torch, ell_ops, fn))
+    for label, (plan, _claims, _events) in wins.items():
+        _c, upd = absorb_update_arrays(ix, plan)
+        rows, nn, ne = rt._absorb_args(upd)
+        if new:
+            from nebula_tpu_torch.tpu.ell import absorb_live
+            extra = (absorb_live(ix, plan),)
+        else:
+            extra = ()
+            per = ell_ops._replicate_updates(mt, rows, nn, ne)
+        want = ell_ops.ell_absorb_sharded_ref(mt, rows, nn, ne)
+        for m_ in (mt, mt2):
+            got = ell_ops.ell_absorb_sharded(m_, rows, nn, ne, *extra)
+            _equal(torch, f"ell_absorb_sharded {label}",
+                   *[(a.nbr, b.nbr) for a, b in zip(got.shards,
+                                                    want.shards)],
+                   *[(a.et, b.et) for a, b in zip(got.shards, want.shards)])
+        del got
+
+        def one():
+            return ell_ops.ell_absorb(tables, rows, nn, ne)
+        _equal(torch, f"ell_absorb {label}",
+               (one().nbr, ell_ops.ell_absorb_ref(tables, rows, nn, ne).nbr))
+        res[f"ell_absorb_{label}"] = row(one)
+        for cards, m_ in (("", mt), ("_two_cards", mt2)):
+            res[f"ell_absorb_sharded_{label}{cards}"] = row(
+                lambda m_=m_: ell_ops.ell_absorb_sharded(m_, rows, nn, ne,
+                                                         *extra))
+        shards = []
+        for s in range(k):
+            args = (rows, nn, ne) + extra if new else per[s]
+
+            def m2(s=s, args=args):
+                return ell_ops.shard_absorb(mt, s, *args)
+            got = m2()
+            _equal(torch, f"shard_absorb {label} s={s}",
+                   (got.nbr, want.shards[s].nbr), (got.et, want.shards[s].et))
+            shards.append(row(m2))
+        res[f"shard_absorb_{label}"] = dict(
+            ms=float(np.mean([r["ms"] for r in shards])),
+            event_ms=float(np.mean([r["event_ms"] for r in shards])),
+            per_shard_ms=[r["ms"] for r in shards],
+            per_shard=shards)
+        del want
+    return res
+
+
+def emit_rows(torch, ell_ops, rt, m, ix, tables, over, rng, dev):
+    """K6's emit over the card (``mesh_emit``) on the operands
+    ``mesh_sparse_go`` gives it (c0 256: 128 queries, one start each;
+    c0 2048: 1024 queries, two each; 3 steps), kept from one run of its
+    card stages, and on K5's lists at c = EMIT_C, MESH_K members, at
+    count 0, a third of c and c (``pair_compact`` of random marks); held
+    to its plain version, device ms over MESH_X_SETS sets on clones
+    behind a spin, event ms, launches and C calls a call by capture; and
+    ``sparse_go``'s plain result, whose last launch is the same kernel
+    (``sparse_rows``' plain form)."""
+    import numpy as np
+    from nebula_tpu_torch.tpu import mesh as pmesh
+    from nebula_tpu_torch.tpu.ell import (build_sharded_ell, sharded_tables,
+                                          sparse_caps,
+                                          split_start_pairs_by_owner)
+    k = MESH_K
+    st = sharded_tables(build_sharded_ell(ix, k), pmesh.PartsMesh([dev] * k))
+    n_rows = st.n_rows
+    res = {}
+
+    def emit_row(args, label):
+        got, want = _clones(torch, args), _clones(torch, args)
+        ell_ops.mesh_emit(*got)
+        ell_ops.mesh_emit_ref(*want)
+        _equal(torch, f"mesh_emit {label}", (got[3], want[3]))
+        c = int(args[0].shape[1])
+        live = int(args[2][:, ell_ops.CTL_CNT].clamp(0, c).sum())
+        one = _clones(torch, args)
+        return dict(_set_times(torch, ell_ops.mesh_emit, [args]), places=c,
+                    members=int(args[0].shape[0]), live_pairs=live,
+                    **_launches(torch, ell_ops,
+                                lambda: ell_ops.mesh_emit(*one)))
+    for c0, nq, per in ((256, 128, 1), (2048, 1024, 2)):
+        rows = ix.perm[rng.integers(0, ix.n, nq * per)].astype(np.int32)
+        qs = (np.arange(nq * per) // per).astype(np.int32)
+        placed = split_start_pairs_by_owner(st, rows, qs, c0)
+        ids, qid = (st.mesh.split(torch.from_numpy(a).to(dev))
+                    for a in placed)
+        caps = sparse_caps(c0, max(tables.D), 3, 1 << 17)
+        cap_x, cap_e = max(256, caps[-1] // max(k // 2, 1)), max(64, c0)
+        kept = []
+
+        def emit(*args):
+            kept.append(_clones(torch, args))
+            return ell_ops.mesh_emit(*args)
+        ell_ops._mesh_go_steps(ids, qid, st, over, 3, caps, cap_x, cap_e,
+                               nq, ell_ops.mesh_route_card,
+                               ell_ops.mesh_dedup,
+                               (ell_ops.mesh_agree, ell_ops.or_many), emit)
+        res[f"mesh_emit_c0_{c0}"] = emit_row(kept[0], f"c0 {c0}")
+    R1 = n_rows + 1
+    R1w = (R1 + 31) // 32
+    nqs = max(4, -(-2 * EMIT_C // R1))
+    for bits in (0, EMIT_C // 3, EMIT_C):
+        ids = torch.empty((k, EMIT_C), dtype=torch.int32, device=dev)
+        qid = torch.empty_like(ids)
+        ctl = torch.zeros((k, ell_ops.CTL_SIZE), dtype=torch.int64,
+                          device=dev)
+        for y in range(k):
+            flat = rng.choice(nqs * R1, bits, replace=False)
+            words = np.zeros(nqs * R1w, np.uint32)
+            np.bitwise_or.at(words, flat // R1 * R1w + flat % R1 // 32,
+                             np.left_shift(1, flat % R1 % 32)
+                             .astype(np.uint32))
+            ell_ops.pair_compact(torch.from_numpy(words.view(np.int32))
+                                 .to(dev), R1w, EMIT_C, ids[y], qid[y],
+                                 ctl[y], -1, n_rows)
+        out = torch.empty((k, 2 + 2 * EMIT_C), dtype=torch.int32,
+                          device=dev)
+        res[f"mesh_emit_count_{bits}"] = emit_row(
+            (ids, qid, ctl, out, n_rows), f"count {bits}")
+    res.update(sparse_rows(torch, ell_ops, rt, m, ix, tables, over, rng,
+                           dev, forms=("plain",)))
+    return res
+
+
 def upload_rows(torch, ell_ops, rt, ix, rng, dev):
     """K1 at B = 128 and 1024 from one random start a query: the kernel
     alone on the list the checkout's runtime sends it (a sorted int32
@@ -1904,7 +2080,11 @@ def main(argv=None) -> int:
         ("mesh_x", lambda: mesh_x_rows(torch, ell_ops, ix, tables, over, rng,
                                        dev)),
         ("k15", lambda: k15_rows(torch, ell_ops, ix, tables, eslot, hrows,
-                                 over, dev)))
+                                 over, dev)),
+        ("absorb", lambda: absorb_rows(torch, ell_ops, rt, m, ix, tables,
+                                       dev)),
+        ("emit", lambda: emit_rows(torch, ell_ops, rt, m, ix, tables, over,
+                                   rng, dev)))
     try:
         for name, fn in groups:
             if name in rows:

@@ -158,7 +158,8 @@ def main(argv=None) -> int:
             res[name] = {k: out[k] for k in keep if k in out}
             if name in ("mesh", "mesh_sparse", "unpacked"):
                 res[name] = {part: {k: out[part][k] for k in keep}
-                             for part in ("a", "b", "c") if part in out}
+                             for part in ("a", "b", "c")
+                             if "qps" in out.get(part, {})}
             res[name]["phase_s"] = time.perf_counter() - t0
             if name == "adaptive":
                 res[name]["dense_requests"] = out["dense_requests"]

@@ -199,16 +199,14 @@ def load() -> ctypes.CDLL:
         lib.i8_pack_rows.argtypes = [vp, vp, i64, i64, vp]
         lib.i8_bfs_level.argtypes = [vp, vp, vp, vp, i32, vp, vp, i32, i32,
                                      i32, i64, i64, vp]
-        lib.ell_table_copy.argtypes = [vp, vp, vp, vp, i64, vp]
         # the mesh: csrc/ell_mesh.cu (tables by value) and the lane
         # kernels it reuses from csrc/ell_lanes.cu
-        from .ell_ops import _MeshCard, _MeshHop, _ShardAbsorb
+        from .ell_ops import _MeshAbsorb, _MeshCard, _MeshHop
         lib.ell_mesh_hop.argtypes = [i32, vp, vp, i64, _MeshHop, p64, i32,
                                      i64, i32, i32, p32, i32, vp, vp, i64,
                                      i64, i64, vp, vp, vp, i32, vp, i32,
                                      i32, i32, vp, p32]
-        lib.ell_shard_absorb.argtypes = [vp, vp, vp, vp, i64, _ShardAbsorb,
-                                         vp]
+        lib.ell_mesh_absorb.argtypes = [_MeshAbsorb, i64, vp]
         # the frontier-sharded mesh: csrc/mesh_sparse.cu (X1-X3, the
         # agreement) and K6's emit over a card (csrc/sparse_go.cu)
         lib.mesh_route.argtypes = [i32, _MeshCard, vp, vp, i64, i32, vp,
@@ -233,8 +231,8 @@ def load() -> ctypes.CDLL:
                    lib.expr_filter,
                    lib.ell_absorb, lib.i8_frontier_upload,
                    lib.i8_row_live, lib.i8_go_hop, lib.i8_pack_rows,
-                   lib.i8_bfs_level, lib.ell_table_copy, lib.ell_mesh_hop,
-                   lib.ell_shard_absorb, lib.ell_or_many, lib.mesh_route,
+                   lib.i8_bfs_level, lib.ell_mesh_hop,
+                   lib.ell_mesh_absorb, lib.ell_or_many, lib.mesh_route,
                    lib.mesh_dedup, lib.mesh_agree, lib.sg_emit,
                    lib.mesh_bfs_stamp):
             fn.restype = ctypes.c_int

@@ -28,9 +28,10 @@
 // written into every replica;
 // nebula_tpu/tpu/ell.py:1799-1840's update, once a card instead of once
 // a shard), so a BFS level is one call a card and its first pass the
-// stage alone.  Here also M2 shard_absorb_scatter, which replaces
-// nebula_tpu/tpu/ell.py:1036 make_sharded_ell_absorb_kernel's per-shard
-// scatter.
+// stage alone.  Here also the mesh's absorb, M2 (ell_mesh_absorb), which
+// replaces nebula_tpu/tpu/ell.py:1036 make_sharded_ell_absorb_kernel:
+// one call a card group, a copy of every member's tables and one walk
+// over the update set.
 //
 // Every entry point runs on the caller's stream, allocates nothing, does
 // not synchronise, and returns cudaGetLastError() after its launches
@@ -44,26 +45,37 @@
 
 constexpr int kMeshMaxBuckets = 32;
 
-// One shard's replacement rows, passed by value: per bucket b the
-// reference's padded arguments (rows int32[kp] bucket-local row
-// indices, un / ue int32[kp, D_b] full row contents), the shard's first
-// bucket-local row lo[b] = s * chunk_b and its chunk.
-struct ShardAbsorb {
+// A card group's absorb, passed by value: per member y its shard index
+// and its resident tables nbr / et (int32 [n_slots], read only) with
+// their fresh copies out_nbr / out_et; per bucket b the update set as
+// the reference's padded arguments (ell.py:970 absorb_update_arrays:
+// rows int32[kp] bucket-local rows, un / ue int32[kp, D_b] full row
+// contents; a pad entry carries the row real[b]), read in place, of
+// which the first live[b] entries are walked (the plan's real rows come
+// first), the chunk chunk[b] every shard holds, and the slots' offset
+// slot0[b] (the same in every shard).  first[] is the entry's own: each
+// bucket's first warp of the scatter.  Global scope: an extern "C"
+// entry taking a struct from an anonymous namespace would get internal
+// linkage under nvcc.
+struct MeshAbsorb {
+    const int32_t* nbr[hop::kCardShards];
+    const int32_t* et[hop::kCardShards];
+    int32_t* out_nbr[hop::kCardShards];
+    int32_t* out_et[hop::kCardShards];
+    long long shard[hop::kCardShards];
     const int32_t* rows[kMeshMaxBuckets];
     const int32_t* un[kMeshMaxBuckets];
     const int32_t* ue[kMeshMaxBuckets];
     long long slot0[kMeshMaxBuckets];
-    long long lo[kMeshMaxBuckets];
     long long chunk[kMeshMaxBuckets];
+    long long real[kMeshMaxBuckets];
+    long long live[kMeshMaxBuckets];
+    long long first[kMeshMaxBuckets];
     int D[kMeshMaxBuckets];
-    int n;
-    int kp;
+    int n_buckets;
+    int members;
 };
 
-// csrc/ell_absorb.cu: the copy-on-write table copy (absorb_copy_kernel).
-extern "C" int ell_table_copy(const void* nbr, const void* et,
-                              void* out_nbr, void* out_et, int64_t n_slots,
-                              void* stream);
 // csrc/ell_lanes.cu: the mesh hop's gather and merge over a card.
 extern "C" int ell_mesh_gather(const void* fp, void* out, int64_t stride,
                                hop::MeshHop mh, const int64_t* plan,
@@ -86,33 +98,107 @@ namespace {
 constexpr int kThreads = 256;
 
 // ------------------------------------------------------------------ M2
-// One warp per replacement row g = b * kp + i: loc = rows[b][i] - lo[b]
-// is the row's index in this shard's chunk; the row is kept only when
-// 0 <= loc < chunk[b].  A row of another shard gives a negative loc or
-// one past the chunk, and is dropped — a negative loc is never wrapped
-// into a neighbour's row (ell.py:1065-1070).  The kept row's D_b slots
-// of nbr and et are written by the warp's lanes (coalesced runs).  Rows
-// of one absorption are distinct, so writes never conflict.  Bound:
-// bytes, the replacement rows only; the copy before it moves the
-// shard's tables.
-__global__ void shard_absorb_scatter_kernel(int32_t* __restrict__ nbr,
-                                            int32_t* __restrict__ et,
-                                            ShardAbsorb bk) {
+// The copy: member y = blockIdx.y's out_nbr / out_et = nbr / et, n4
+// int4 words of each table, then the n % 4 tail elements (csrc/
+// ell_absorb.cu absorb_copy_kernel's loop, a grid row a member).
+constexpr long long kMaxCopyBlocks = 4096;   // a member's; grid-stride
+
+__global__ void mesh_absorb_copy_kernel(MeshAbsorb ma, long long n4,
+                                        long long n) {
+    const int y = (int)blockIdx.y;
+    const int4* __restrict__ a = reinterpret_cast<const int4*>(ma.nbr[y]);
+    const int4* __restrict__ b = reinterpret_cast<const int4*>(ma.et[y]);
+    int4* __restrict__ out_a = reinterpret_cast<int4*>(ma.out_nbr[y]);
+    int4* __restrict__ out_b = reinterpret_cast<int4*>(ma.out_et[y]);
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    for (long long i = tid; i < 2 * n4; i += stride) {
+        if (i < n4) out_a[i] = __ldg(a + i);
+        else out_b[i - n4] = __ldg(b + (i - n4));
+    }
+    const long long tail = n - 4 * n4;
+    if (tid < 2 * tail) {
+        const long long j = 4 * n4 + (tid % tail);
+        if (tid < tail) ma.out_nbr[y][j] = ma.nbr[y][j];
+        else ma.out_et[y][j] = ma.et[y][j];
+    }
+}
+
+// The scatter: one warp per walked update row, every bucket's live
+// entries laid end to end (warp w is entry i = w - first[b] of the
+// bucket b holding it), the update set walked once for the whole card
+// group.  A pad entry (row >= real[b]) is dropped before any member is
+// looked at; otherwise the row's owner is s = row / chunk[b] at
+// loc = row - s * chunk[b] < chunk[b], so a row never wraps into a
+// neighbour's chunk (ell.py:1065-1070), and its D_b slots of nbr and et
+// go into that member's outputs when the owner is on this card; a row
+// owned on another card is dropped.  Rows of one absorption are
+// distinct, so writes never conflict.  Bound: bytes, the walked rows;
+// the copy before it moves the tables.  A warp's time is its chain of
+// round trips, and the widest rows (D_b up to the cap) set the
+// kernel's: each lane loads all its units of the row (16 bytes each
+// where the row and the update sit on 16-byte boundaries, else 4)
+// before it stores any, so a row of up to 32 * kRowUnits units costs
+// one round trip, not one a 32 units.
+constexpr int kRowUnits = 4;
+
+template <typename V>
+__device__ __forceinline__ void copy_row(V* __restrict__ dn,
+                                         V* __restrict__ de,
+                                         const V* __restrict__ sn,
+                                         const V* __restrict__ se,
+                                         int units, int lane) {
+    for (int u0 = 0; u0 < units; u0 += 32 * kRowUnits) {
+        V a[kRowUnits], e[kRowUnits];
+#pragma unroll
+        for (int k = 0; k < kRowUnits; ++k) {
+            const int u = u0 + k * 32 + lane;
+            if (u < units) {
+                a[k] = __ldg(sn + u);
+                e[k] = __ldg(se + u);
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kRowUnits; ++k) {
+            const int u = u0 + k * 32 + lane;
+            if (u < units) {
+                dn[u] = a[k];
+                de[u] = e[k];
+            }
+        }
+    }
+}
+
+__global__ void mesh_absorb_scatter_kernel(MeshAbsorb ma, long long warps) {
     const long long warp = ((long long)blockIdx.x * blockDim.x
                             + threadIdx.x) >> 5;
     const int lane = threadIdx.x & 31;
-    if (warp >= (long long)bk.n * bk.kp) return;
-    const int b = (int)(warp / bk.kp);
-    const int i = (int)(warp - (long long)b * bk.kp);
-    const long long loc = (long long)bk.rows[b][i] - bk.lo[b];
-    if (loc < 0 || loc >= bk.chunk[b]) return;    // not this shard's
-    const int D = bk.D[b];
-    const long long dst = bk.slot0[b] + loc * D;
-    const long long src = (long long)i * D;
-    for (int j = lane; j < D; j += 32) {
-        nbr[dst + j] = bk.un[b][src + j];
-        et[dst + j] = bk.ue[b][src + j];
-    }
+    if (warp >= warps) return;
+    int b = 0;                                   // uniform over the warp
+    for (int j = 1; j < ma.n_buckets; ++j)
+        if (ma.first[j] <= warp) b = j;
+    const long long i = warp - ma.first[b];
+    const long long row = ma.rows[b][i];
+    if (row < 0 || row >= ma.real[b]) return;    // a pad entry
+    const long long s = row / ma.chunk[b];
+    int y = -1;
+    for (int j = 0; j < ma.members; ++j)
+        if (ma.shard[j] == s) y = j;
+    if (y < 0) return;                           // owned on another card
+    const int D = ma.D[b];
+    const long long dst = ma.slot0[b] + (row - s * ma.chunk[b]) * D;
+    int32_t* dn = ma.out_nbr[y] + dst;
+    int32_t* de = ma.out_et[y] + dst;
+    const int32_t* sn = ma.un[b] + i * D;
+    const int32_t* se = ma.ue[b] + i * D;
+    const uintptr_t at = (uintptr_t)dn | (uintptr_t)de | (uintptr_t)sn |
+                         (uintptr_t)se;
+    if ((D & 3) == 0 && (at & 15) == 0)
+        copy_row(reinterpret_cast<int4*>(dn), reinterpret_cast<int4*>(de),
+                 reinterpret_cast<const int4*>(sn),
+                 reinterpret_cast<const int4*>(se), D >> 2, lane);
+    else
+        copy_row(dn, de, sn, se, D, lane);
 }
 
 // ------------------------------------------------------------------ M3
@@ -171,21 +257,46 @@ __global__ void mesh_copy_kernel(V* __restrict__ slab, long long stride,
 
 extern "C" {
 
-// nbr, et: the shard's int32[n_slots] resident tables (read only);
-// out_nbr, out_et: fresh int32[n_slots] outputs (all 16-byte aligned).
-int ell_shard_absorb(const void* nbr, const void* et, void* out_nbr,
-                     void* out_et, int64_t n_slots, ShardAbsorb bk,
-                     void* stream) {
-    if (n_slots < 0 || bk.n < 1 || bk.n > kMeshMaxBuckets || bk.kp < 1)
+// M2, the absorb of a card group's members (ma: their tables and the
+// update set, by value; n_slots: every member's table length, all
+// pointers 16-byte aligned): the copy, one launch over every member,
+// then the scatter, one launch over the walked update rows (none when
+// no row is walked).
+int ell_mesh_absorb(MeshAbsorb ma, int64_t n_slots, void* stream) {
+    if (n_slots < 0 || ma.members < 1 || ma.members > hop::kCardShards ||
+        ma.n_buckets < 1 || ma.n_buckets > kMeshMaxBuckets)
         return -1;
-    int rc = ell_table_copy(nbr, et, out_nbr, out_et, n_slots, stream);
-    if (rc != 0) return rc;
-    // not grid-stride: one warp per replacement row, every row launched
-    const long long threads = (long long)bk.n * bk.kp * 32;
-    shard_absorb_scatter_kernel<<<(unsigned)((threads + kThreads - 1) /
-                                             kThreads),
-                                  kThreads, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out_nbr, (int32_t*)out_et, bk);
+    for (int y = 0; y < ma.members; ++y) {
+        const uintptr_t at = (uintptr_t)ma.nbr[y] | (uintptr_t)ma.et[y] |
+                             (uintptr_t)ma.out_nbr[y] |
+                             (uintptr_t)ma.out_et[y];
+        if (at & 15) return -1;
+    }
+    long long warps = 0;
+    for (int b = 0; b < ma.n_buckets; ++b) {
+        if (ma.live[b] < 0 || ma.chunk[b] < 1 || ma.real[b] < 0 ||
+            ma.D[b] < 0)
+            return -1;
+        ma.first[b] = warps;
+        warps += ma.live[b];
+    }
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n_slots > 0) {
+        const long long n4 = n_slots / 4;
+        long long blocks = (2 * n4 + 8 + kThreads - 1) / kThreads;
+        if (blocks > kMaxCopyBlocks) blocks = kMaxCopyBlocks;
+        mesh_absorb_copy_kernel<<<dim3((unsigned)blocks,
+                                       (unsigned)ma.members),
+                                  kThreads, 0, s>>>(ma, n4, n_slots);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    if (warps > 0) {
+        const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
+        if (blocks > 0x7FFFFFFFLL) return -1;
+        mesh_absorb_scatter_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+            ma, warps);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -860,9 +860,39 @@ __device__ __forceinline__ void put_head(int32_t* out,
     out[1] = ctl[kOvf] ? 1 : 0;
 }
 
+// len places from p (4-byte aligned) set to v: a scalar head up to the
+// first 16-byte boundary, int4 stores, a scalar tail; thread t of a
+// grid of `stride` threads.
+__device__ __forceinline__ void fill_places(int32_t* p, long long len,
+                                            int32_t v, long long t,
+                                            long long stride) {
+    if (len <= 0) return;
+    const long long mis = (long long)((16 - ((uintptr_t)p & 15)) & 15) >> 2;
+    const long long head = mis < len ? mis : len;
+    if (t < head) p[t] = v;
+    const long long n4 = (len - head) >> 2;
+    int4* p4 = reinterpret_cast<int4*>(p + head);
+    const int4 v4 = make_int4(v, v, v, v);
+    for (long long i = t; i < n4; i += stride) p4[i] = v4;
+    const long long tail = len - head - 4 * n4;
+    if (t < tail) p[head + 4 * n4 + t] = v;
+}
+
 // The plain result: the final pair list in its layout; member y of a
 // card (blockIdx.y) writes its c pairs ids / qid + y * c into out + y *
-// out_stride with the head from ctl + y * kCtlWords.
+// out_stride with the head from ctl + y * kCtlWords.  The lists are
+// K5's: every place at or past its count ctl[kCnt] is a pad (n_rows,
+// BIG_Q), the contract K4 and X1 already read by.  So a block reads the
+// count once and n = min(count, c): places below n are read and written
+// pair by pair; the pad tail [n, c) is stored without reading ids or
+// qid, 16 bytes at a time (put_pad's layout: qid -1 and row n_rows, or
+// the pack32 key 2^31-1).  Bound: bytes, the live prefix read and the
+// whole output written.  A grid of c / 4 threads a member: a thread
+// loads its (at most) kEmitPlaces live places, a grid's stride apart,
+// before it stores any (one round trip, not one a place), and stores an
+// int4 of each pad row.
+constexpr int kEmitPlaces = 4;
+
 __global__ void pair_emit_kernel(const int32_t* __restrict__ ids,
                                  const int32_t* __restrict__ qid,
                                  long long c, int32_t* __restrict__ out,
@@ -873,13 +903,39 @@ __global__ void pair_emit_kernel(const int32_t* __restrict__ ids,
     qid += blockIdx.y * c;
     out += blockIdx.y * out_stride;
     ctl += blockIdx.y * kCtlWords;
+    __shared__ long long live;
+    if (threadIdx.x == 0) {
+        const long long cnt = ctl[kCnt];
+        live = cnt < 0 ? 0 : (cnt < c ? cnt : c);
+    }
+    __syncthreads();
+    const long long n = live;
     const long long stride = (long long)gridDim.x * blockDim.x;
     const long long t0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t0 == 0) put_head(out, ctl);
-    for (long long i = t0; i < c; i += stride) {
-        const int32_t q = qid[i];
-        if (q == kBigQ) put_pad(out, pack32, i, c, n_rows);
-        else put_pair(out, pack32, i, c, q, ids[i], R1);
+    for (long long i0 = t0; i0 < n; i0 += kEmitPlaces * stride) {
+        int32_t q[kEmitPlaces], v[kEmitPlaces];
+#pragma unroll
+        for (int k = 0; k < kEmitPlaces; ++k) {
+            const long long i = i0 + k * stride;
+            if (i < n) {
+                q[k] = qid[i];
+                v[k] = ids[i];
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < kEmitPlaces; ++k) {
+            const long long i = i0 + k * stride;
+            if (i >= n) break;
+            if (q[k] == kBigQ) put_pad(out, pack32, i, c, n_rows);
+            else put_pair(out, pack32, i, c, q[k], v[k], R1);
+        }
+    }
+    if (pack32) {
+        fill_places(out + 2 + n, c - n, kI32Max, t0, stride);
+    } else {
+        fill_places(out + 2 + n, c - n, -1, t0, stride);
+        fill_places(out + 2 + c + n, c - n, (int32_t)n_rows, t0, stride);
     }
 }
 
@@ -1304,7 +1360,8 @@ int sg_emit(const void* ids, const void* qid, int64_t c, void* out,
             void* stream) {
     if (c <= 0 || R1 <= 0 || members < 1 || members > kCardShards)
         return -1;
-    pair_emit_kernel<<<dim3(blocks_for(c, kThreads), (unsigned)members),
+    pair_emit_kernel<<<dim3(blocks_for((c + 3) / 4, kThreads),
+                            (unsigned)members),
                        kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)ids, (const int32_t*)qid, c, (int32_t*)out,
         2 + 2 * c, 0, R1, n_rows, (const long long*)ctl);
@@ -1322,7 +1379,8 @@ static int reduce_launch(int op, const int32_t* ids, const int32_t* qid,
                          cudaStream_t s) {
     if (c <= 0 || R1 <= 0) return -1;
     if (op == 0) {
-        pair_emit_kernel<<<blocks_for(c, kThreads), kThreads, 0, s>>>(
+        pair_emit_kernel<<<blocks_for((c + 3) / 4, kThreads), kThreads, 0,
+                           s>>>(
             ids, qid, c, out, 0, pack32, R1, n_rows, ctl);
         return (int)cudaGetLastError();
     }

@@ -514,6 +514,14 @@ def absorb_update_arrays(ell: EllIndex, plan):
     return tuple(counts), outs
 
 
+def absorb_live(ell: EllIndex, plan) -> Tuple[int, ...]:
+    """Per bucket, the real entries of ``absorb_update_arrays(ell,
+    plan)``: its first ones, the rest being pads (the rows the mesh's
+    absorb walks, ``ell_ops.mesh_absorb``)."""
+    return tuple(len(plan[b][0]) if b in plan else 0
+                 for b in range(len(ell.bucket_nbr)))
+
+
 # ====================================================================
 # Row-sharded tables of the replicated-frontier mesh (ell.py:1688)
 # ====================================================================

@@ -15,8 +15,9 @@ replicated-frontier mesh's programs over row-sharded tables:
 and ``ell_absorb_sharded`` (``:1036``), with their hop ``mesh_hop``
 (M1, the hop's gather on each shard's chunk, M3, the row replication,
 and the hub merge, one call over every shard of a card; for the BFS
-also its level pass, once a card), the absorb's
-``shard_absorb`` and ``or_many`` (``or_into`` its one-source call), and
+also its level pass, once a card), the absorb's ``mesh_absorb`` (M2,
+one call a card group; ``shard_absorb`` its one-member call) and
+``or_many`` (``or_into`` its one-source call), and
 the frontier-sharded mesh's ``mesh_sparse_go`` (``ell.py:2052``) and
 ``mesh_sparse_bfs`` (``:2179``) with their card stages
 ``mesh_route_card`` (X1), ``mesh_dedup`` (X2 and K5), ``mesh_agree``,
@@ -2580,16 +2581,25 @@ def ell_absorb(tables: DeviceTables, rows: Sequence[torch.Tensor],
 # owned rows by copy_ (mesh.replicate_rows).  Launches on a card run
 # on its current stream.
 # ====================================================================
-class _ShardAbsorb(ctypes.Structure):
-    """``ShardAbsorb`` of csrc/ell_mesh.cu, passed by value."""
-    _fields_ = [("rows", ctypes.c_void_p * MAX_BUCKETS),
+class _MeshAbsorb(ctypes.Structure):
+    """``MeshAbsorb`` of csrc/ell_mesh.cu, passed by value: a card
+    group's tables, their fresh copies and the update set (``first`` is
+    the C entry's own)."""
+    _fields_ = [("nbr", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("et", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("out_nbr", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("out_et", ctypes.c_void_p * MAX_CARD_SHARDS),
+                ("shard", ctypes.c_longlong * MAX_CARD_SHARDS),
+                ("rows", ctypes.c_void_p * MAX_BUCKETS),
                 ("un", ctypes.c_void_p * MAX_BUCKETS),
                 ("ue", ctypes.c_void_p * MAX_BUCKETS),
                 ("slot0", ctypes.c_longlong * MAX_BUCKETS),
-                ("lo", ctypes.c_longlong * MAX_BUCKETS),
                 ("chunk", ctypes.c_longlong * MAX_BUCKETS),
+                ("real", ctypes.c_longlong * MAX_BUCKETS),
+                ("live", ctypes.c_longlong * MAX_BUCKETS),
+                ("first", ctypes.c_longlong * MAX_BUCKETS),
                 ("D", ctypes.c_int * MAX_BUCKETS),
-                ("n", ctypes.c_int), ("kp", ctypes.c_int)]
+                ("n_buckets", ctypes.c_int), ("members", ctypes.c_int)]
 
 
 def _shard_live(mt, s: int) -> Tuple[int, ...]:
@@ -3153,106 +3163,161 @@ def ell_bfs_sharded(f0p: torch.Tensor, t0p: torch.Tensor, mt, eslot,
     return out
 
 
-def _shard_absorb_check(mt, s: int, rows, nn, ne) -> int:
+def _absorb_live(live, nb: int, kp: int) -> Tuple[int, ...]:
+    """The update rows walked a bucket: the first ``live[b]`` of its kp
+    (the plan's real rows come first, ``ell.absorb_live``); None: all
+    kp, the pads dropped by their row."""
+    if live is None:
+        return (kp,) * nb
+    live = tuple(int(x) for x in live)
+    if len(live) != nb or any(not 0 <= x <= kp for x in live):
+        raise ValueError(f"live rows {live} for {nb} buckets of {kp}")
+    return live
+
+
+def shard_absorb_ref(mt, s: int, rows, nn, ne, live=None):
+    """Plain version of ``shard_absorb`` (ell.py:1061-1073): shard s's
+    tables cloned, then each of the first ``live[b]`` update rows that
+    shard s owns written in."""
     if not 0 <= s < mt.k:
         raise ValueError(f"shard {s} of a {mt.k}-shard mesh")
-    return _absorb_check(mt.shards[s], rows, nn, ne)
-
-
-def shard_absorb_ref(mt, s: int, rows, nn, ne):
-    """Plain version of ``shard_absorb`` (ell.py:1061-1073)."""
     t = mt.shards[s]
+    kp = _absorb_check(t, rows, nn, ne)
+    live = _absorb_live(live, len(t.D), kp)
     out = t._replace(nbr=t.nbr.clone(), et=t.et.clone())
     for b in range(len(t.D)):
-        loc = rows[b].long() - s * t.rows[b]
+        r = rows[b][:live[b]]
+        loc = r.long() - s * t.rows[b]
         keep = (loc >= 0) & (loc < t.rows[b])
         nbr_b, et_b = out.bucket(b)
-        nbr_b[loc[keep]] = nn[b][keep]
-        et_b[loc[keep]] = ne[b][keep]
+        nbr_b[loc[keep]] = nn[b][:live[b]][keep]
+        et_b[loc[keep]] = ne[b][:live[b]][keep]
     return out
 
 
-def shard_absorb(mt, s: int, rows, nn, ne):
-    """M2: shard s's next-generation tables — fresh copies of its
-    ``nbr``/``et`` with each replacement row it owns written in:
-    ``loc = rows[b][i] - s * chunk_b``, kept when ``0 <= loc <
-    chunk_b`` (``rows``/``nn``/``ne``: the reference's padded
-    per-bucket arguments, on shard s's device).  The input tables are
-    only read.  Returns a DeviceTables of the same geometry."""
-    kp = _shard_absorb_check(mt, s, rows, nn, ne)
-    t = mt.shards[s]
-    dev = t.nbr.device
+def mesh_absorb(mt, group, rows: Sequence[torch.Tensor],
+                nn: Sequence[torch.Tensor], ne: Sequence[torch.Tensor],
+                live: Optional[Sequence[int]] = None):
+    """M2 for the members of one card group ``group`` = (device,
+    shards): each member's next-generation tables, fresh copies of its
+    ``nbr`` / ``et`` with every update row it owns written in (row r of
+    bucket b is shard ``r // chunk_b``'s chunk row ``r % chunk_b``).
+    ``rows`` / ``nn`` / ``ne``: the update set on the card, the
+    reference's padded per-bucket arguments (int32 [kp] and [kp, D_b]),
+    read in place; ``live``: the rows walked a bucket, its first ones
+    (``_absorb_live``).  A pad entry (row past the bucket's real rows)
+    is dropped.  The input tables are only read.  On the card one C
+    call (``ell_mesh_absorb``): a copy of every member's tables, then
+    one walk over the update rows, a launch each.  Returns the members'
+    DeviceTables, of their geometry, in the group's order."""
+    dev, members = _card_check(mt, group)
+    kp = _absorb_check(mt.shards[members[0]], rows, nn, ne)
+    nb = len(rows)
+    live = _absorb_live(live, nb, kp)
     if not _route(dev):
-        return shard_absorb_ref(mt, s, rows, nn, ne)
-    out_nbr = torch.empty_like(t.nbr)
-    out_et = torch.empty_like(t.et)
-    for x in (t.nbr, t.et, out_nbr, out_et):
-        if x.data_ptr() % 16:
-            raise ValueError("shard_absorb's tables must be 16-byte "
-                             "aligned (the copy moves int4 words)")
-    bk = _ShardAbsorb()
-    for b in range(len(t.D)):
-        bk.rows[b] = rows[b].data_ptr()
-        bk.un[b] = nn[b].data_ptr()
-        bk.ue[b] = ne[b].data_ptr()
-        bk.slot0[b] = t.slot0[b]
-        bk.lo[b] = s * t.rows[b]
-        bk.chunk[b] = t.rows[b]
-        bk.D[b] = t.D[b]
-    bk.n, bk.kp = len(t.D), kp
-    with torch.cuda.device(dev):
-        rc = _lib().ell_shard_absorb(t.nbr.data_ptr(), t.et.data_ptr(),
-                                     out_nbr.data_ptr(), out_et.data_ptr(),
-                                     int(t.nbr.numel()), bk, _stream(dev))
-    _ok(rc, "ell_shard_absorb")
+        return tuple(shard_absorb_ref(mt, s, rows, nn, ne, live)
+                     for s in members)
+    ma = _MeshAbsorb()
+    outs = []
+    for y, s in enumerate(members):
+        t = mt.shards[s]
+        _tables_check(t, dev)
+        a, e = torch.empty_like(t.nbr), torch.empty_like(t.et)
+        for x in (t.nbr, t.et, a, e):
+            if x.data_ptr() % 16:
+                raise ValueError("shard_absorb's tables must be 16-byte "
+                                 "aligned (the copy moves int4 words)")
+        ma.nbr[y], ma.et[y] = t.nbr.data_ptr(), t.et.data_ptr()
+        ma.out_nbr[y], ma.out_et[y] = a.data_ptr(), e.data_ptr()
+        ma.shard[y] = s
+        outs.append(t._replace(nbr=a, et=e))
+    t = mt.shards[members[0]]
+    for b in range(nb):
+        ma.rows[b] = rows[b].data_ptr()
+        ma.un[b] = nn[b].data_ptr()
+        ma.ue[b] = ne[b].data_ptr()
+        ma.slot0[b] = t.slot0[b]
+        ma.chunk[b] = t.rows[b]
+        ma.real[b] = mt.real_rows[b]
+        ma.live[b] = live[b]
+        ma.D[b] = t.D[b]
+    ma.n_buckets, ma.members = nb, len(members)
+    with _on_card(dev):
+        rc = _lib().ell_mesh_absorb(ma, int(t.nbr.numel()), _stream(dev))
+    _ok(rc, "ell_mesh_absorb")
     LAUNCHES["shard_absorb"] += 1
-    return t._replace(nbr=out_nbr, et=out_et)
+    return tuple(outs)
 
 
-def _replicate_updates(mt, rows, nn, ne):
-    """The replacement-row set copied to every shard (one flat buffer a
-    shard): per shard, per-bucket views in the arguments' shapes."""
-    parts = [x.reshape(-1) for trip in zip(rows, nn, ne) for x in trip]
-    flat = torch.cat(parts)
-    out = []
-    for flat_s in mt.mesh.rows(mt.mesh.replicas(flat)):
-        views, off = [], 0
+def shard_absorb(mt, s: int, rows, nn, ne, live=None):
+    """M2 on shard s alone: ``mesh_absorb``'s one-member call (the
+    update set on shard s's device).  Returns a DeviceTables of its
+    geometry."""
+    if not 0 <= s < mt.k:
+        raise ValueError(f"shard {s} of a {mt.k}-shard mesh")
+    return mesh_absorb(mt, (mt.shards[s].nbr.device, (s,)), rows, nn, ne,
+                       live)[0]
+
+
+def updates_to(rows, nn, ne, dev: torch.device):
+    """The update set copied to ``dev`` in one copy: the buffer its
+    per-bucket views share (the runtime's one upload), or the views laid
+    end to end when they share none, re-viewed in the arguments'
+    shapes.  Returns (rows, nn, ne) on ``dev``."""
+    parts = [x for trip in zip(rows, nn, ne) for x in trip]
+    base = parts[0]._base
+    if base is not None and base.is_contiguous() and all(
+            x._base is base and x.is_contiguous() for x in parts):
+        flat = base.reshape(-1)
+        offs = [x.storage_offset() - base.storage_offset() for x in parts]
+    else:
+        flat = torch.cat([x.reshape(-1) for x in parts])
+        offs, at = [], 0
         for x in parts:
-            views.append(flat_s[off:off + x.numel()])
-            off += x.numel()
-        r = views[0::3]
-        n_ = [v.view(tuple(x.shape)) for v, x in zip(views[1::3], nn)]
-        e_ = [v.view(tuple(x.shape)) for v, x in zip(views[2::3], ne)]
-        out.append((r, n_, e_))
-    return out
+            offs.append(at)
+            at += x.numel()
+    moved = flat.to(dev, copy=True)
+    views = [moved[o:o + x.numel()].view(tuple(x.shape))
+             for o, x in zip(offs, parts)]
+    return views[0::3], views[1::3], views[2::3]
 
 
-def _absorb_sharded(mt, rows, nn, ne, one):
-    per = _replicate_updates(mt, rows, nn, ne)
-    shards = tuple(one(mt, s, *per[s]) for s in range(mt.k))
+def ell_absorb_sharded_ref(mt, rows, nn, ne, live=None):
+    """Plain version of ``ell_absorb_sharded``: ``shard_absorb_ref`` on
+    every shard, the update set read on its device."""
+    shards = tuple(shard_absorb_ref(
+        mt, s, *[[x.to(t.nbr.device) for x in xs] for xs in (rows, nn, ne)],
+        live) for s, t in enumerate(mt.shards))
     return mt._replace(shards=shards)
-
-
-def ell_absorb_sharded_ref(mt, rows, nn, ne):
-    """Plain version of ``ell_absorb_sharded``."""
-    return _absorb_sharded(mt, rows, nn, ne, shard_absorb_ref)
 
 
 def ell_absorb_sharded(mt, rows: Sequence[torch.Tensor],
                        nn: Sequence[torch.Tensor],
-                       ne: Sequence[torch.Tensor]):
+                       ne: Sequence[torch.Tensor],
+                       live: Optional[Sequence[int]] = None):
     """The next generation's mesh tables (ell.py:1036
-    make_sharded_ell_absorb_kernel): the replacement-row set (the
-    reference's ``absorb_update_arrays`` form, on any one device) is
-    copied to every shard, and each shard applies only the rows it owns
-    (``shard_absorb``); nothing else moves between shards.  The inputs
-    are only read.  Returns a MeshTables over the new tensors."""
+    make_sharded_ell_absorb_kernel): each shard applies the rows of the
+    replacement-row set (the reference's ``absorb_update_arrays`` form,
+    on any one device; ``live``: ``mesh_absorb``'s) that it owns, one
+    ``mesh_absorb`` a card group; the group on the set's card reads it
+    in place, another card's group takes one copy; nothing else moves
+    between shards.  The inputs are only read.  Returns a MeshTables
+    over the new tensors."""
     if not (len(rows) == len(nn) == len(ne)):
         raise ValueError("absorb arguments of unequal bucket counts")
-    out = _absorb_sharded(mt, rows, nn, ne, shard_absorb)
+    # the group on the set's device reads it in place (the first, where
+    # several pretend to be cards)
+    home = next((g for g, (d, _m) in enumerate(mt.mesh.groups)
+                 if d == rows[0].device), None)
+    shards = [None] * mt.k
+    for g, group in enumerate(mt.mesh.groups):
+        upd = (rows, nn, ne) if g == home else \
+            updates_to(rows, nn, ne, group[0])
+        for s, t in zip(group[1], mesh_absorb(mt, group, *upd, live)):
+            shards[s] = t
     if _route(mt.shards[0].nbr.device):
         LAUNCHES["ell_absorb_sharded"] += 1
-    return out
+    return mt._replace(shards=tuple(shards))
 
 
 # ====================================================================

@@ -94,7 +94,7 @@ KERNELS: Dict[str, PortKernel] = {
                                   ell_ops.ell_bfs_sharded, _MESH + _LANES),
     "ell_absorb_sharded": PortKernel(ell_ops.ell_absorb_sharded_ref,
                                      ell_ops.ell_absorb_sharded,
-                                     _MESH + ("ell_absorb.cu",)),
+                                     _MESH),
     # the frontier-sharded mesh (ell.py:2052, :2179): X1-X3 with K5 (and
     # for GO K6 and the agreed overflow), each stage one call a card
     "mesh_sparse_go": PortKernel(ell_ops.mesh_sparse_go_ref,

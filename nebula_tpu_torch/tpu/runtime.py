@@ -102,7 +102,8 @@ from .csr import (CsrMirror, absorb_overlay, build_delta_mirror,
                   build_mirror, commit_vertex_plan, plan_vertex_events)
 from .device import DeviceLike, resolve_device
 from .ell import (INT16_INF, INT32_INF, DeviceTables, EllIndex,
-                  MeshTables, ShardedTables, absorb_update_arrays,
+                  MeshTables, ShardedTables, absorb_live,
+                  absorb_update_arrays,
                   apply_ell_absorb_host, build_sharded_ell, lanes_width,
                   mesh_tables, plan_ell_absorb, sharded_sparse_pairs,
                   sharded_tables, sparse_caps, sparse_go_pairs,
@@ -587,7 +588,7 @@ class TorchQueryRuntime:
             # never a re-shard of the host arrays
             k, mt = mesh_cached
             new_m._mesh_tables_cache = (k, ell_ops.ell_absorb_sharded(
-                mt, rows, nn, ne))
+                mt, rows, nn, ne, absorb_live(ix, plan)))
             self._bump("mesh_absorbs")
         self._bump("t_absorb_ell_s",
                    time.perf_counter() - t_start - (t1 - t0))
