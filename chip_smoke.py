@@ -11,6 +11,7 @@ Hopper card.
                           [--write-seconds WS] [--unpacked-requests U]
                           [--unpacked-path-requests UP]
                           [--mesh-requests MR] [--mesh-path-requests MP]
+                          [--props-requests PR]
 
 The defaults are the serve cell; ``--vertices 16777216 --edges
 105000000 --cap 256 --widths 128`` is the round-5 scale shape, and
@@ -297,12 +298,31 @@ Phases, in order; any failure exits non-zero:
              ``mesh_sparse_go`` and ``mesh_sparse_bfs`` must serve; a
              batch they overflow reruns on the dense mesh (counted); no
              single-card hop, sparse or adaptive kernel may run
-14. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
-15. the last line ``{"ok": true, "device": {...}}``
+14. props    the shapes the dispatcher's host half serves, on the
+             serve graph at default flags (continuous), one counted
+             window of PR requests from 16 threads, a quarter each: (a)
+             ``GO UPTO 2-3 STEPS ... WHERE P YIELD e._dst, e.w`` (P
+             from phase 8's family in its modes, a quarter DISTINCT) on
+             the continuous stream, which must take every one; (b)
+             phase 8's ``GO 1-3 STEPS ... WHERE P`` under
+             ``tpu_filter_mode=host``, windowed; (c) ``GO 1-3 STEPS ...
+             YIELD e._src, e._dst, e._rank, e.w, e.score, e.kind`` (an
+             eighth ``YIELD DISTINCT e.kind``); (d) ``GO 2-3 STEPS ...
+             YIELD e._src, e._dst``, half ``| LIMIT 10``, half ``|
+             YIELD COUNT(*)``; 64 answers of each held to a numpy
+             int64 / float64 oracle; then (e) a second space of the
+             same edges, each of type e or f by a seeded coin: 128 ``GO
+             2 STEPS ... OVER e, f YIELD e._dst, e._type`` and 64
+             REVERSELY, every answer checked.  No request may decline
+             or fail, nothing may fuse, the window must launch the
+             continuous session's kernels and the sparse program's,
+             and (e), counted apart, the continuous session's
+15. a JSON line ``{"kernels": [...]}`` with each kernel's numbers
+16. the last line ``{"ok": true, "device": {...}}``
 
 Every mesh number is k shards on ONE card: the exchange between shards
 is a copy on that card, and a link between separate cards is not
-measured.  Every launch count is zeroed just before each of phases 4-13
+measured.  Every launch count is zeroed just before each of phases 4-14
 drives the port and read just after it; every kernel of a phase's path
 must have been launched there.  The script imports nothing of the JAX package.
 It needs one CUDA card and refuses to run (non-zero exit, no result)
@@ -3067,16 +3087,12 @@ def request_mix(rng, n: int, requests: int):
     return starts, steps, upto, count
 
 
-def drive(rt, mix, threads: int, keep=frozenset(), limits=None):
-    """Serve every request of ``mix`` through ``serve_go`` from
-    ``threads`` client threads (request i ends in ``| LIMIT LIMIT_N``
-    where ``limits[i]``).  Returns (wall seconds, per-request latency
-    seconds, {i: answer} for i in ``keep``); raises if any request
-    failed."""
-    starts, steps, upto, count = mix
-    requests = len(starts)
+def drive_calls(call, reqs, threads: int, keep):
+    """``call(req)`` for every request from ``threads`` client threads.
+    Returns (wall s, latency s a request, {i: answer} for i in
+    ``keep``); raises if any request declined or failed."""
     kept = {}
-    lat = np.zeros(requests)
+    lat = np.zeros(len(reqs))
     errors = []
     next_i = [0]
     lock = threading.Lock()
@@ -3086,24 +3102,20 @@ def drive(rt, mix, threads: int, keep=frozenset(), limits=None):
             with lock:
                 i = next_i[0]
                 next_i[0] += 1
-            if i >= requests:
+            if i >= len(reqs):
                 return
             t0 = time.perf_counter()
             try:
-                out = rt.serve_go(1, [int(starts[i])], [1], int(steps[i]),
-                                  {1: "e"}, upto=bool(upto[i]),
-                                  reduce=("count",) if count[i] else None,
-                                  limit=LIMIT_N if limits is not None
-                                  and limits[i] else None)
+                out = call(reqs[i])
             except Exception as ex:     # noqa: BLE001 — raised below
                 with lock:
-                    errors.append(f"request {i}: {ex!r}")
+                    errors.append(f"request {i} {reqs[i]}: {ex!r}")
                 return
             lat[i] = time.perf_counter() - t0
             if i in keep:
                 kept[i] = out
 
-    pool = [threading.Thread(target=worker, name=f"smoke-client-{k}")
+    pool = [threading.Thread(target=worker, name=f"smoke-props-{k}")
             for k in range(threads)]
     t0 = time.perf_counter()
     for t in pool:
@@ -3115,6 +3127,22 @@ def drive(rt, mix, threads: int, keep=frozenset(), limits=None):
         raise AssertionError(f"{len(errors)} requests failed: "
                              f"{errors[:3]}")
     return wall, lat, kept
+
+
+def drive(rt, mix, threads: int, keep=frozenset(), limits=None):
+    """Serve every request of ``mix`` through ``serve_go`` from
+    ``threads`` client threads (request i ends in ``| LIMIT LIMIT_N``
+    where ``limits[i]``).  Returns (wall seconds, per-request latency
+    seconds, {i: answer} for i in ``keep``); raises if any request
+    failed."""
+    starts, steps, upto, count = mix
+    return drive_calls(
+        lambda i: rt.serve_go(1, [int(starts[i])], [1], int(steps[i]),
+                              {1: "e"}, upto=bool(upto[i]),
+                              reduce=("count",) if count[i] else None,
+                              limit=LIMIT_N if limits is not None
+                              and limits[i] else None),
+        range(len(starts)), threads, keep)
 
 
 def check_go(oracle: GoOracle, mix, results, check, limits=None) -> list:
@@ -4266,46 +4294,13 @@ def drive_fused(rt, reqs, blobs, threads: int, keep):
     """Serve every fused request from ``threads`` client threads.
     Returns (wall s, latency s per request, {i: answer} for i in
     ``keep``); raises if any request failed."""
-    kept = {}
-    lat = np.zeros(len(reqs))
-    errors = []
-    next_i = [0]
-    lock = threading.Lock()
-
-    def worker():
-        while True:
-            with lock:
-                i = next_i[0]
-                next_i[0] += 1
-            if i >= len(reqs):
-                return
-            start, steps, p, pushed, distinct = reqs[i]
-            where, ys = blobs[p]
-            t0 = time.perf_counter()
-            try:
-                out = rt.serve_go(1, [start], [1], steps, {1: "e"},
-                                  where_blob=where, yield_specs=ys,
-                                  distinct=distinct, pushed_mode=pushed)
-            except Exception as ex:     # noqa: BLE001 — raised below
-                with lock:
-                    errors.append(f"request {i}: {ex!r}")
-                return
-            lat[i] = time.perf_counter() - t0
-            if i in keep:
-                kept[i] = out
-
-    pool = [threading.Thread(target=worker, name=f"smoke-fused-{k}")
-            for k in range(threads)]
-    t0 = time.perf_counter()
-    for t in pool:
-        t.start()
-    for t in pool:
-        t.join()
-    wall = time.perf_counter() - t0
-    if errors:
-        raise AssertionError(f"{len(errors)} fused requests failed: "
-                             f"{errors[:3]}")
-    return wall, lat, kept
+    def call(req):
+        start, steps, p, pushed, distinct = req
+        where, ys = blobs[p]
+        return rt.serve_go(1, [start], [1], steps, {1: "e"},
+                           where_blob=where, yield_specs=ys,
+                           distinct=distinct, pushed_mode=pushed)
+    return drive_calls(call, reqs, threads, keep)
 
 
 def fused_phase(torch, rt, edge_ops, fo: FusedOracle, blobs, n: int,
@@ -7264,6 +7259,375 @@ def mesh_sparse_phase(torch, ell_ops, flags, m, schema, oracle: GoOracle,
     return out
 
 
+# ================================= phase 14: the dispatcher's host half
+PROPS_THREADS = 16
+PROPS_E = (128, 64)            # part (e): OVER e, f; the same REVERSELY
+PROPS_COLS = ["e._src", "e._dst", "e._rank", "e.w", "e.score", "e.kind"]
+# the windowed route's kernels part (b) runs (the sparse program at the
+# default flags) beside the continuous session's four
+PATH_KERNELS["props"] = PATH_KERNELS["serve"] + (
+    "sparse_go", "sparse_expand", "pair_compact", "pair_reduce")
+
+
+class PropsOracle:
+    """Plain numpy semantics, at the store's precision (int64, float64),
+    of the GO shapes the dispatcher's host half serves, independent of
+    the port's compiler: ``GO [UPTO] N STEPS FROM v OVER e [WHERE P]
+    YIELD ...`` on the forward edge list (an edge key keeps the values
+    of its last input occurrence, N-1 hops as GoOracle, UPTO the union
+    of depths 0..N-1, the final hop's out-edges in (src, dst) order), P
+    one of ``FUSED_PREDICATES`` written directly in int64 / float64, a
+    pushed row whose P reads an absent tag prop or divides by zero
+    dropped."""
+
+    def __init__(self, go: GoOracle, src, dst, raw, n: int):
+        self.go = go
+        key = (np.asarray(src, np.int64) << 32) | np.asarray(dst, np.int64)
+        uk, first = np.unique(key[::-1], return_index=True)
+        if not np.array_equal(uk, (go.src << 32) | go.dst):
+            raise AssertionError("oracle keys disagree")
+        last = len(key) - 1 - first
+        self.w = raw["w"][last].astype(np.int64)
+        self.score = raw["score"][last].astype(np.float64)
+        self.kind = raw["kind"][last].astype(np.int64)
+        self.tagged, self.age = raw["tagged"], raw["age"].astype(np.int64)
+        self.vid_lit = n // 2
+
+    def frontier(self, start: int, steps: int, upto: bool) -> np.ndarray:
+        f = np.unique(np.asarray([start], np.int64))
+        acc = f
+        for _ in range(steps - 1):
+            f = np.unique(self.go.dst[self.go.out_edges(f)])
+            acc = np.union1d(acc, f)
+        return acc if upto else f
+
+    def where(self, p: int, idx: np.ndarray) -> np.ndarray:
+        w, s, k = self.w[idx], self.score[idx], self.kind[idx]
+        sv, dv = self.go.src[idx], self.go.dst[idx]
+        if p == 0:
+            return w > 500
+        if p == 1:
+            return s <= 2.5
+        if p == 2:
+            return (k == 3) | (k > 12)
+        if p == 3:
+            return (w % 7 == 3) & (s > 1.0)
+        if p == 4:
+            return self.tagged[dv] & (self.age[dv] > 40)
+        if p == 5:
+            return self.tagged[sv] & (self.age[sv] < 30) & (w < 700)
+        if p == 6:
+            return dv < self.vid_lit
+        if p == 7:
+            return (w != 0) & (1000 // np.maximum(w, 1) > 3)
+        raise ValueError(p)
+
+    @staticmethod
+    def _distinct(rows):
+        seen, out = set(), []
+        for r in rows:
+            if tuple(r) not in seen:
+                seen.add(tuple(r))
+                out.append(r)
+        return out
+
+    def where_rows(self, start: int, steps: int, upto: bool, p: int,
+                   distinct: bool):
+        """(columns, rows) of ``... WHERE P YIELD e._dst, e.w`` (and
+        ``$$.person.age`` behind AGE_PREDICATE)."""
+        idx = self.go.out_edges(self.frontier(start, steps, upto))
+        idx = idx[self.where(p, idx)]
+        cols = [self.go.dst[idx], self.w[idx]]
+        names = ["e._dst", "e.w"]
+        if p == AGE_PREDICATE:
+            cols.append(self.age[self.go.dst[idx]])
+            names.append("$$.person.age")
+        rows = [list(r) for r in zip(*[c.tolist() for c in cols])]
+        return names, self._distinct(rows) if distinct else rows
+
+    def prop_rows(self, start: int, steps: int, kind_only: bool):
+        """(columns, rows) of ``YIELD e._src, e._dst, e._rank, e.w,
+        e.score, e.kind``, or of ``YIELD DISTINCT e.kind``."""
+        idx = self.go.out_edges(self.frontier(start, steps, False))
+        kinds = np.asarray(KINDS)[self.kind[idx]].tolist()
+        if kind_only:
+            return ["e.kind"], self._distinct([[k] for k in kinds])
+        cols = [self.go.src[idx].tolist(), self.go.dst[idx].tolist(),
+                [0] * len(idx), self.w[idx].tolist(),
+                self.score[idx].tolist(), kinds]
+        return list(PROPS_COLS), [list(r) for r in zip(*cols)]
+
+    def meta_rows(self, start: int, steps: int) -> list:
+        idx = self.go.out_edges(self.frontier(start, steps, False))
+        return [list(r) for r in zip(self.go.src[idx].tolist(),
+                                     self.go.dst[idx].tolist())]
+
+
+class TypedOracle:
+    """``GO 2 STEPS FROM v OVER e, f [REVERSELY] YIELD e._dst, e._type``
+    on an edge list whose edges have a type each (1 = e, 2 = f),
+    independent of the port: a stored row per (src, type, dst) in both
+    directions (a reverse row under -type, so f's rows lead there), a
+    vertex's rows sorted by (signed type, dst); the frontier is every
+    row's dst out of the start, the final hop every row out of it in
+    vid order."""
+
+    def __init__(self, src, dst, types):
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        types = np.asarray(types, np.int64)
+        self.rows = {}
+        for reverse, (a, b, t) in ((False, (src, dst, types)),
+                                   (True, (dst, src, -types))):
+            key = np.unique(((a << 34) | ((t + 2) << 31) | b))
+            self.rows[reverse] = (key >> 34, ((key >> 31) & 7) - 2,
+                                  key & ((1 << 31) - 1))
+
+    def rows_from(self, start: int, reverse: bool) -> list:
+        a, t, b = self.rows[reverse]
+        lo, hi = np.searchsorted(a, [start, start + 1])
+        f = np.unique(b[lo:hi])
+        lo, hi = np.searchsorted(a, f, "left"), np.searchsorted(a, f, "right")
+        idx = np.concatenate([np.arange(x, y) for x, y in zip(lo, hi)]
+                             + [np.zeros(0, np.int64)]).astype(np.int64)
+        return [[int(v), "e" if abs(int(e)) == 1 else "f"]
+                for v, e in zip(b[idx], t[idx])]
+
+
+def props_mix(rng, n: int, requests: int):
+    """The four windowed parts' requests: (part, start, steps, predicate,
+    pushed, distinct, variant) a request, a quarter each."""
+    q = requests // 4
+    out = []
+    for part in "abcd":
+        starts = rng.integers(1, n + 1, q)
+        pushed = rng.random(q) < 0.75
+        preds = np.where(pushed, rng.choice(PUSHED_PREDICATES, q),
+                         rng.choice(GRAPHD_PREDICATES, q))
+        distinct = rng.random(q) < 0.25
+        if part == "a":
+            steps = rng.integers(2, 4, q)
+        elif part == "d":
+            steps = rng.integers(2, 4, q)
+            distinct = rng.random(q) < 0.5          # variant: LIMIT
+        else:
+            steps = rng.integers(1, 4, q)
+        if part == "c":
+            distinct = rng.random(q) < 0.125        # YIELD DISTINCT e.kind
+        out.append([(part, int(starts[i]), int(steps[i]), int(preds[i]),
+                     bool(pushed[i]), bool(distinct[i]))
+                    for i in range(q)])
+    return out
+
+
+def props_call(rt, blobs, meta, req):
+    """One request of ``props_mix`` through the user's entry point."""
+    part, start, steps, p, pushed, flag = req
+    if part in "ab":
+        where, ys = blobs[p]
+        return rt.serve_go(1, [start], [1], steps, {1: "e"},
+                           upto=part == "a", where_blob=where,
+                           yield_specs=ys, distinct=flag,
+                           pushed_mode=pushed)
+    if part == "c":
+        ys = meta["kind"] if flag else meta["props"]
+        return rt.serve_go(1, [start], [1], steps, {1: "e"},
+                           yield_specs=ys, distinct=flag)
+    return rt.serve_go(1, [start], [1], steps, {1: "e"},
+                       yield_specs=meta["meta"],
+                       reduce=None if flag else ("count",),
+                       limit=LIMIT_N if flag else None)
+
+
+def _limit_cut(rows, full, label: str) -> None:
+    """``rows`` are min(LIMIT_N, len(full)) rows of ``full``, each as
+    often at most as it is there (phase 6's LIMIT check)."""
+    want = {}
+    for r in full:
+        want[tuple(r)] = want.get(tuple(r), 0) + 1
+    got = {}
+    for r in rows:
+        got[tuple(r)] = got.get(tuple(r), 0) + 1
+    if len(rows) != min(LIMIT_N, len(full)) or any(
+            c > want.get(k, 0) for k, c in got.items()):
+        raise AssertionError(f"{label}: LIMIT {LIMIT_N} rows are not a "
+                             f"cut of the oracle's")
+
+
+def props_check(po: PropsOracle, req, answer) -> int:
+    """Hold one answer of ``props_mix`` to the oracle; returns its
+    rows."""
+    part, start, steps, p, pushed, flag = req
+    cols, rows = list(answer[0]), [list(r) for r in answer[1]]
+    label = f"[props] ({part}) {req}"
+    if part in "ab":
+        want = po.where_rows(start, steps, part == "a", p, flag)
+    elif part == "c":
+        want = po.prop_rows(start, steps, flag)
+    elif flag:
+        if cols != ["e._src", "e._dst"]:
+            raise AssertionError(f"{label}: columns {cols}")
+        _limit_cut(rows, po.meta_rows(start, steps), label)
+        return len(rows)
+    else:
+        want = (["__count__"], [[len(po.meta_rows(start, steps))]])
+    if (cols, rows) != (want[0], want[1]):
+        raise AssertionError(f"{label}: {len(rows)} rows, the oracle has "
+                             f"{len(want[1])}")
+    return len(rows)
+
+
+def _assemble_s(rt) -> float:
+    """Host assembly seconds so far: the windowed leaders' and every
+    continuous stream's."""
+    return rt.stats["t_assemble_s"] + sum(
+        st.stats["t_assemble_s"] for st in rt.continuous.streams())
+
+
+def _leaves(rt, space: int) -> int:
+    return sum(st.stats["leaves"] for st in rt.continuous.streams()
+               if st.space_id == space)
+
+
+def props_space(src, dst, n: int, seed: int):
+    """Part (e)'s space: the serve graph's edges, each of type e (1) or
+    f (2) by a seeded coin, with the serve graph's columns on both
+    types.  Returns (mirror, the type of each input edge)."""
+    from nebula_tpu_torch.tpu.csr import mirror_from_edges
+    types = np.where(np.random.default_rng(seed + 23).random(len(src))
+                     < 0.5, 1, 2)
+    edge_props, vertex_props, _raw = fused_columns(src, dst, n, seed)
+    m2 = mirror_from_edges(src, dst, types, space_id=2,
+                           edge_props={1: edge_props[1], 2: edge_props[1]},
+                           vertex_props=vertex_props)
+    return m2, types
+
+
+def props_phase(torch, rt, ell_ops, edge_ops, flags, po: PropsOracle,
+                blobs, src, dst, n: int, requests: int, seed: int,
+                fused_qps: float) -> dict:
+    """Phase 14: the shapes the dispatcher's host half serves, on the
+    serve graph at default flags (continuous mode).  One counted window
+    of four parts, each from PROPS_THREADS threads: (a) ``GO UPTO 2-3
+    STEPS ... WHERE P YIELD e._dst, e.w`` (P from phase 8's family in
+    its modes, a quarter DISTINCT) on the continuous stream; (b) phase
+    8's ``GO 1-3 STEPS ... WHERE P`` under ``tpu_filter_mode=host``,
+    windowed at the default routes; (c) ``GO 1-3 STEPS ... YIELD
+    e._src, e._dst, e._rank, e.w, e.score, e.kind`` (an eighth ``YIELD
+    DISTINCT e.kind``); (d) ``GO 2-3 STEPS ... YIELD e._src, e._dst``,
+    half ``| LIMIT 10``, half ``| YIELD COUNT(*)``.  64 answers of each
+    checked.  Then (e) on a second space (the same edges, each of type
+    e or f): PROPS_E ``GO 2 STEPS ... OVER e, f YIELD e._dst, e._type``
+    and as many REVERSELY, every answer checked.  No request may
+    decline or fail, nothing may fuse, the continuous stream must take
+    the UPTO riders and every (e) request, the window of (a)-(d) must
+    launch the continuous session's kernels and the windowed route's,
+    and (e)'s own counted window the continuous session's."""
+    from nebula_tpu_torch.filter.expressions import _from_wire, encode_expr
+    from nebula_tpu_torch.meta.schema import SchemaView
+
+    def enc(ws):
+        return [(encode_expr(_from_wire(w)), None) for w in ws]
+
+    meta = {"props": enc([["e_src", "e"], ["e_dst", "e"], ["e_rank", "e"],
+                          E_ + ["w"], E_ + ["score"], E_ + ["kind"]]),
+            "kind": enc([E_ + ["kind"]]),
+            "meta": enc([["e_src", "e"], ["e_dst", "e"]])}
+    rng = np.random.default_rng(seed + 29)
+    parts = props_mix(rng, n, requests)
+    # warm every (predicate, mode) group's columns and the stream outside
+    # the window, as a server holds them warm
+    for i, (where, ys) in enumerate(blobs):
+        for pm in _modes(i):
+            rt.serve_go(1, [1], [1], 2, {1: "e"}, upto=True,
+                        where_blob=where, yield_specs=ys, pushed_mode=pm)
+    torch.cuda.synchronize()
+    rt0 = dict(rt.stats)
+    ell_ops.reset_launches()
+    edge_ops.reset_launches()
+    out = {}
+    for part, reqs in zip("abcd", parts):
+        check = set(rng.choice(len(reqs), min(64, len(reqs)),
+                               replace=False).tolist())
+        leaves0, asm0 = _leaves(rt, 1), _assemble_s(rt)
+        mode = {"tpu_filter_mode": "host", "go_dispatch_mode": "windowed"} \
+            if part == "b" else {}
+        with flag_mode(flags, mode):
+            wall, lat, kept = drive_calls(
+                lambda r: props_call(rt, blobs, meta, r), reqs,
+                PROPS_THREADS, check)
+        rows = sum(props_check(po, reqs[i], kept[i]) for i in sorted(check))
+        out[part] = dict(lat_stats(len(reqs), wall, lat), checked=len(check),
+                         checked_rows=rows,
+                         t_assemble_s=_assemble_s(rt) - asm0,
+                         stream_leaves=_leaves(rt, 1) - leaves0)
+        out[part]["t_assemble_s_per_request"] = \
+            out[part]["t_assemble_s"] / len(reqs)
+    launches = dict(ell_ops.LAUNCHES)
+    fused_launches = dict(edge_ops.LAUNCHES)
+    stats = {k: rt.stats[k] - rt0[k] for k in rt0}
+    require_launched(launches, "props")
+    if out["a"]["stream_leaves"] != len(parts[0]):
+        raise AssertionError(f"the continuous stream took "
+                             f"{out['a']['stream_leaves']} of "
+                             f"{len(parts[0])} UPTO riders")
+    # (e): a second space with two edge types
+    t0 = time.perf_counter()
+    m2, types = props_space(src, dst, n, seed)
+    rt.load_space(2, m2, SchemaView().add_space(
+        2, {"person": FUSED_TAG}, {"e": 1, "f": 2}))
+    typed = TypedOracle(src, dst, types)
+    ys = enc([["e_dst", "e"], ["e_type", "e"]])
+    fwd, rev = ({1: "e", 2: "f"}, {-1: "e", -2: "f"})
+    for e2a in (fwd, rev):
+        rt.serve_go(2, [1], list(e2a), 2, e2a, yield_specs=ys)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    e_reqs = [(int(v), False) for v in rng.integers(1, n + 1, PROPS_E[0])] \
+        + [(int(v), True) for v in rng.integers(1, n + 1, PROPS_E[1])]
+    leaves0, asm0, fused0 = _leaves(rt, 2), _assemble_s(rt), \
+        rt.stats["go_fused"]
+    ell_ops.reset_launches()
+    edge_ops.reset_launches()
+    wall, lat, kept = drive_calls(
+        lambda r: rt.serve_go(2, [r[0]], list(rev if r[1] else fwd), 2,
+                              rev if r[1] else fwd, yield_specs=ys),
+        e_reqs, PROPS_THREADS, set(range(len(e_reqs))))
+    launches_e = dict(ell_ops.LAUNCHES)
+    fused_launches = {k: v + edge_ops.LAUNCHES[k]
+                      for k, v in fused_launches.items()}
+    require_launched(launches_e, "serve")
+    rows_e = 0
+    for i, (start, reverse) in enumerate(e_reqs):
+        cols, rows = kept[i]
+        want = typed.rows_from(start, reverse)
+        if list(cols) != ["e._dst", "e._type"] or \
+                [list(r) for r in rows] != want:
+            raise AssertionError(f"[props] (e) {start} reverse {reverse}: "
+                                 f"{len(rows)} rows, the oracle has "
+                                 f"{len(want)}")
+        rows_e += len(want)
+    out["e"] = dict(lat_stats(len(e_reqs), wall, lat),
+                    checked=len(e_reqs), checked_rows=rows_e,
+                    reversely=PROPS_E[1], load_s=load_s,
+                    t_assemble_s=_assemble_s(rt) - asm0,
+                    stream_leaves=_leaves(rt, 2) - leaves0)
+    out["e"]["t_assemble_s_per_request"] = \
+        out["e"]["t_assemble_s"] / len(e_reqs)
+    if out["e"]["stream_leaves"] != len(e_reqs):
+        raise AssertionError(f"the continuous stream took "
+                             f"{out['e']['stream_leaves']} of "
+                             f"{len(e_reqs)} (e) requests")
+    launches = {k: v + launches_e[k] for k, v in launches.items()}
+    fused_moved = stats["go_fused"] + rt.stats["go_fused"] - fused0
+    if fused_moved or any(fused_launches.values()):
+        raise AssertionError(f"go_fused moved by {fused_moved} in [props]")
+    out.update(requests=requests + len(e_reqs), threads=PROPS_THREADS,
+               fused_qps_same_family=fused_qps, launches=launches,
+               go_fused=fused_moved, runtime=stats)
+    return out
+
+
 # ========================================================= --profile
 def profile_phase(torch, run) -> dict:
     """``run() -> (requests, wall seconds)`` under torch.profiler (CPU +
@@ -7382,6 +7746,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-path-requests", type=int, default=128,
                     help="FIND SHORTEST PATH requests of the [mesh] and "
                          "[mesh-sparse] phases' part b")
+    ap.add_argument("--props-requests", type=int, default=512,
+                    help="GO requests of the [props] phase's parts a-d, "
+                         "a quarter each")
     args = ap.parse_args(argv)
 
     import torch
@@ -7686,10 +8053,21 @@ def main(argv=None) -> int:
             args.path_threads, args.seed)
         log("[mesh-sparse] " + json.dumps(mesh_sparse))
         log(f"[mesh-sparse] phase {time.perf_counter() - t0:.2f} s")
+
+        # ---- 14. props (the dispatcher's host filter and YIELD groups)
+        t0 = time.perf_counter()
+        props = props_phase(
+            torch, rt, ell_ops, edge_ops, flags,
+            PropsOracle(oracle, src, dst, raw, args.vertices), blobs, src,
+            dst, args.vertices, args.props_requests, args.seed, fused["qps"])
+        log("[props] " + json.dumps(props))
+        log("[compare] WHERE family qps, host filter (b) vs fused [fused]: "
+            + json.dumps([props["b"]["qps"], fused["qps"]]))
+        log(f"[props] phase {time.perf_counter() - t0:.2f} s")
     finally:
         rt.close()
 
-    # ---- 13. kernels line: the serve rung's numbers (B=128, W=16),
+    # ---- 15. kernels line: the serve rung's numbers (B=128, W=16),
     # with the W=128 (B=1024) numbers beside them, and for the sparse and
     # adaptive programs and their kernels the runs ROW_FROM names (the
     # programs: c0 256, 3 steps, an 8-query batch; adaptive K 2048, 3
@@ -7699,7 +8077,8 @@ def main(argv=None) -> int:
               "adaptive": adaptive["launches"], "fused": fused["launches"],
               "path": path["launches"], "write": write["launches"],
               "unpacked": unpacked["launches"], "mesh": mesh["launches"],
-              "mesh_sparse": mesh_sparse["launches"]}
+              "mesh_sparse": mesh_sparse["launches"],
+              "props": props["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []

@@ -196,9 +196,12 @@ flags.define(
     "tpu_filter_mode", "auto",
     "where a GO's WHERE filter evaluates on the device path: 'auto' "
     "(default — the mask fuses into the GO program whenever "
-    "expr_compile covers the predicate), 'host' (float64 numpy over "
-    "the candidate edges on the dispatcher, not ported: such a GO "
-    "declines) or 'device' (fuse always; no cross-query batching)")
+    "expr_compile covers the predicate, so fetch returns only "
+    "surviving rows; anything uncompilable keeps the host float64 "
+    "parity path), 'host' (always float64 numpy over the candidate "
+    "edges, bit-identical to the CPU executor path, and every GO "
+    "shape batches through the dispatcher) or 'device' (fuse always; "
+    "no cross-query batching)")
 
 # the write path's flags (nebula_tpu/kvstore/store.py:53,
 # nebula_tpu/tpu/runtime.py:254-267).  mirror_refresh_mode is not

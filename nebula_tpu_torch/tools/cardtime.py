@@ -151,6 +151,20 @@ def graph_launches(torch, ell_ops, fn) -> dict:
                 c_calls_a_call=n_ok[0], launch_kinds=kinds)
 
 
+def merged_calls(seen, launches: int, calls: int) -> bool:
+    """Whether a trace that shows a call with more than ``launches``
+    launches is explained by the tracer merging neighbouring calls: the
+    tracer can shift a call's device timestamps onto its neighbour's, so
+    that the idle gap between them vanishes and the two read as one.  A
+    merge is shown when every over-counted call shows a whole multiple k
+    of ``launches`` (k calls), and the calls so read, with the others,
+    are no more than were made."""
+    over = [s for s in seen if s > launches]
+    if not launches or any(s % launches for s in over):
+        return False
+    return len(seen) + sum(s // launches - 1 for s in over) <= calls
+
+
 def launches_a_call(torch, ell_ops, fn, replay=None, reads: int = 0,
                     calls: int = 3) -> dict:
     """The device launches (kernels, memcpys and memsets) and checked C
@@ -159,9 +173,10 @@ def launches_a_call(torch, ell_ops, fn, replay=None, reads: int = 0,
     ``replay``: the same call with the flags it read given back, plus
     ``reads`` host copies (one a read).  Beside the count, ``fn``'s
     calls traced under ``torch.profiler`` (``profiled_calls``):
-    ``launches_traced`` a call; raises when a traced call shows more
-    launches than the count or other C calls, or the trace splits into
-    more calls than were made."""
+    ``launches_traced`` a call; raises when a call makes other C calls
+    than the count, when the trace splits into more calls than were
+    made, or when a traced call shows more launches than the count and
+    no merge of calls (``merged_calls``) explains it."""
     row = graph_launches(torch, ell_ops, replay or fn)
     row["launches_a_call"] += reads
     if reads:
@@ -170,10 +185,11 @@ def launches_a_call(torch, ell_ops, fn, replay=None, reads: int = 0,
         row["host_reads"] = reads
     traced, c_calls = profiled_calls(torch, ell_ops, fn, calls)
     seen = [len(c) for c in traced]
-    if len(traced) > calls or max(seen, default=0) \
-            > row["launches_a_call"] or set(c_calls) != {
-                row["c_calls_a_call"]}:
-        raise AssertionError(f"{row['launches_a_call']} launches and "
+    n = row["launches_a_call"]
+    if len(traced) > calls or set(c_calls) != {row["c_calls_a_call"]} \
+            or (max(seen, default=0) > n
+                and not merged_calls(seen, n, calls)):
+        raise AssertionError(f"{n} launches and "
                              f"{row['c_calls_a_call']} C calls a call, "
                              f"but traced {seen} in {c_calls}")
     row.update(launches_traced=seen, counted_by="CUDA graph capture"

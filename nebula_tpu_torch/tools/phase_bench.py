@@ -1,10 +1,12 @@
 """Run ``chip_smoke.py``'s end-to-end phases [serve], [windowed],
-[sparse], [adaptive], [fused], [path], [unpacked], [mesh] and
-[mesh-sparse] on one checkout of the port, so that two checkouts can be
-held side by side in one run on one card.
+[sparse], [adaptive], [fused], [path], [unpacked], [mesh],
+[mesh-sparse] and [props] on one checkout of the port, so that two
+checkouts can be held side by side in one run on one card.
 
     python3 nebula_tpu_torch/tools/phase_bench.py [--tree DIR]
                                                   [--phases LIST]
+                                                  [--fused-requests N]
+                                                  [--props-requests N]
 
 Run it as a script.  The phases are the functions of this checkout's
 ``chip_smoke.py`` at its defaults: the serve graph
@@ -19,8 +21,11 @@ on the sparse route with its dense reruns, the same on the dense route
 and a burst to the 1024 rung, then 128 FIND SHORTEST PATH and FIND ALL
 PATH), and the dense mesh of 4 shards on the card
 (1024 GO requests from 64 threads, then 128 FIND SHORTEST PATH from
-16, then its write part), and the same on the frontier-sharded mesh
-(``tpu_mesh_mode=sparse``, [mesh-sparse]); each checks its answers
+16, then its write part), the same on the frontier-sharded mesh
+(``tpu_mesh_mode=sparse``, [mesh-sparse]), and the dispatcher's host
+half ([props]: 512 GO with WHERE and UPTO, WHERE under
+``tpu_filter_mode=host``, YIELD props, meta-only LIMIT and COUNT(*),
+then 192 over two edge types on a second space); each checks its answers
 against the oracle and its launches as the smoke does.  The port comes
 from ``--tree DIR``
 (default: this file's checkout), for instance a parent commit unpacked
@@ -28,10 +33,14 @@ with ``git archive`` into a directory that ``.gitignore`` lists; DIR's
 kernels build into DIR's own build directory.  [adaptive] runs only
 on a checkout that counts its dense calls on the card
 (``ell_ops.adaptive_dense_tally``).  ``--phases`` picks phases
-(default all), in the smoke's order.  Prints the card's name and power
+(default all), in the smoke's order; ``--fused-requests`` and
+``--props-requests`` size [fused]'s window and [props]'s (a)-(d)
+window (default 512 each, the smoke's).  Prints the card's name and power
 limit, then one JSON line: each phase's qps, p50 and p99 ms and wall
 seconds ([mesh] and [mesh-sparse]: the GO part ``a`` and the path part
-``b`` apart; [unpacked]: its parts ``a``, ``b`` and ``c``).  A checkout
+``b`` apart; [unpacked]: its parts ``a``, ``b`` and ``c``; [props]: its
+parts ``a``-``e``, or a note on a checkout without the host filter,
+which declines those shapes).  A checkout
 whose int8 BFS level pass keeps no lane bitmaps (before ``seen``) is
 held to the [unpacked] launches of its own path: K14 and
 ``bfs_depth_i8``, and no K1.
@@ -49,12 +58,13 @@ import sys
 import time
 
 PHASES = ("serve", "windowed", "sparse", "adaptive", "fused", "path",
-          "unpacked", "mesh", "mesh_sparse")
+          "unpacked", "mesh", "mesh_sparse", "props")
 REQUESTS, THREADS, SEED = 4096, 64, 0          # chip_smoke.py's defaults
 ADAPTIVE_REQUESTS = 256
 FUSED_REQUESTS, FUSED_THREADS = 512, 16
 PATH_REQUESTS, PATH_THREADS = 512, 16
 MESH_REQUESTS, MESH_PATH_REQUESTS = 1024, 128
+PROPS_REQUESTS = 512
 UNPACKED_REQUESTS, UNPACKED_PATH_REQUESTS = 1024, 128
 # the [unpacked] path's kernels on a checkout before the int8 route's
 # lane bitmaps
@@ -71,6 +81,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=here)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="phases to run: " + ", ".join(PHASES))
+    ap.add_argument("--fused-requests", type=int, default=FUSED_REQUESTS)
+    ap.add_argument("--props-requests", type=int, default=PROPS_REQUESTS)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
@@ -128,7 +140,7 @@ def main(argv=None) -> int:
                 torch, rt, edge_ops, smoke.FusedOracle(oracle, src, dst, raw,
                                                        VERTICES),
                 smoke.fused_request_blobs(smoke.fused_predicates(VERTICES)),
-                VERTICES, FUSED_REQUESTS, FUSED_THREADS, SEED),
+                VERTICES, args.fused_requests, FUSED_THREADS, SEED),
             "path": lambda: smoke.path_phase(
                 torch, rt, ell_ops, smoke.PathOracle(oracle), m.vids,
                 PATH_REQUESTS, PATH_THREADS, SEED),
@@ -143,7 +155,12 @@ def main(argv=None) -> int:
             "mesh_sparse": lambda: smoke.mesh_sparse_phase(
                 torch, ell_ops, flags, m, rt.schemas[1], oracle,
                 smoke.PathOracle(oracle), m.vids, VERTICES, MESH_REQUESTS,
-                THREADS, MESH_PATH_REQUESTS, PATH_THREADS, SEED)}
+                THREADS, MESH_PATH_REQUESTS, PATH_THREADS, SEED),
+            "props": lambda: smoke.props_phase(
+                torch, rt, ell_ops, edge_ops, flags,
+                smoke.PropsOracle(oracle, src, dst, raw, VERTICES),
+                smoke.fused_request_blobs(smoke.fused_predicates(VERTICES)),
+                src, dst, VERTICES, args.props_requests, SEED, None)}
         if "seen" not in inspect.signature(
                 ell_ops.bfs_level_i8).parameters:
             smoke.PATH_KERNELS["unpacked"] = UNPACKED_BEFORE_BITMAPS
@@ -152,13 +169,19 @@ def main(argv=None) -> int:
                     name == "adaptive"
                     and not hasattr(ell_ops, "adaptive_dense_tally")):
                 continue
+            if name == "props" and not hasattr(rt, "_host_filter"):
+                res[name] = "not served by this checkout"
+                continue
             t0 = time.perf_counter()
             out = runs[name]()
             keep = ("qps", "p50_ms", "p99_ms")
             res[name] = {k: out[k] for k in keep if k in out}
-            if name in ("mesh", "mesh_sparse", "unpacked"):
-                res[name] = {part: {k: out[part][k] for k in keep}
-                             for part in ("a", "b", "c")
+            if name in ("mesh", "mesh_sparse", "unpacked", "props"):
+                per = keep + (("t_assemble_s_per_request",)
+                              if name == "props" else ())
+                res[name] = {part: {k: out[part][k] for k in per
+                                    if k in out[part]}
+                             for part in ("a", "b", "c", "d", "e")
                              if "qps" in out.get(part, {})}
             res[name]["phase_s"] = time.perf_counter() - t0
             if name == "adaptive":

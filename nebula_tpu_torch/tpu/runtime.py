@@ -26,8 +26,9 @@ places:
 
 The entry points:
 
-- ``serve_go`` answers ``GO [UPTO] N STEPS FROM ... OVER e YIELD
-  e._dst [| YIELD COUNT(*)] [| LIMIT n]``.  With
+- ``serve_go`` answers ``GO [UPTO] N STEPS FROM ... OVER e [, f | *]
+  [REVERSELY] [WHERE ...] YIELD [DISTINCT] ... [| YIELD COUNT(*)]
+  [| LIMIT n]``.  With
   ``go_dispatch_mode=continuous`` (the default) multi-hop GO rides one
   in-flight lane batch per (space, OVER set)
   (``_ContinuousGoSession``); windowed mode and single-step GO ride
@@ -43,7 +44,13 @@ The entry points:
   (``runtime.py:1376-1390``): ``_execute_fused`` runs one query
   outside the dispatcher, the edge-list ``go_filtered`` program with
   the compiled WHERE (``expr_filter``) on the card, then YIELD
-  materialization on the host.
+  materialization on the host.  Every other planned GO (a WHERE with
+  UPTO or under ``tpu_filter_mode=host``, YIELD props or meta columns
+  with no WHERE, DISTINCT, several OVER aliases) rides the dispatcher:
+  the frontier advance on the card for the whole batch or cohort, then
+  on the host one numpy int64 / float64 pass per (WHERE, YIELD, mode)
+  signature group (``_assemble_results``: ``_host_filter``,
+  ``_materialize_group``), a query that must decline declining alone.
 - ``serve_find_path`` answers ``FIND SHORTEST|ALL PATH``: batched BFS
   depths on the card (``ell_bfs``, or ``ell_bfs_i8`` with packing
   off), then the host's parent walk
@@ -71,9 +78,10 @@ applied on the host).  Absorbed writes update the row-sharded tables
 with ``ell_absorb_sharded``; the continuous tier is refused, and UPTO
 on a mesh declines.
 
-Everything else raises ``TpuDecline``; the dispatcher's host filter
-and materialization are not ported yet and their branches decline
-naming what they need.
+Everything else raises ``TpuDecline`` naming what it needs: a WHERE
+that does not compile, a pipe reduction the reference's front end
+never pushes down (over a WHERE, DISTINCT or YIELD props), UPTO on a
+mesh.
 
 Semantics held exactly: ``GO N STEPS`` is N-1 device hops, then the
 host-side final hop over the frontier's out-edges in the OVER set
@@ -91,10 +99,13 @@ import torch
 
 from ..common import protocol
 from ..common.flags import flags
-from ..filter.expressions import (EdgeDstIdExpr, Expression, ExprContext,
-                                  ExprError, LogicalExpr, decode_expr)
+from ..filter.expressions import (EdgeDstIdExpr, EdgeRankExpr,
+                                  EdgeSrcIdExpr, EdgeTypeExpr, Expression,
+                                  ExprContext, ExprError, LogicalExpr,
+                                  decode_expr)
 from ..graph.batch_dispatch import ContinuousGoScheduler, GoBatchDispatcher
-from ..graph.interim import ConstCol, DictCol, _col_tolist, default_col_name
+from ..graph.interim import (ColumnarRows, ConstCol, DictCol, _col_tolist,
+                             default_col_name)
 from ..meta.schema import SchemaView
 from ..storage.device import DeviceExecError, TpuDecline
 from . import edge_ops, ell_ops
@@ -140,14 +151,25 @@ class _DeviceCounts:
 
 
 class _GoQuery:
-    """One GO request riding the continuous batch (the slice's subset
-    of the reference's _GoQuery: no WHERE, no YIELD expressions)."""
+    """One GO request riding a ``go_batch_execute`` dispatch or the
+    continuous stream (runtime.py:120-138): its starts, its plan (the
+    compiled WHERE and the OVER aliases), its YIELD columns, DISTINCT,
+    the decoded WHERE (recompiled when the dispatch's mirror is newer
+    than the plan's) and the OVER set's aliases.  A query error raises
+    DeviceExecError."""
 
-    __slots__ = ("start_vids", "column")
+    __slots__ = ("start_vids", "plan", "yield_cols", "distinct",
+                 "where_expr", "etype_to_alias")
 
-    def __init__(self, start_vids: Sequence[int], column: str):
+    def __init__(self, start_vids: Sequence[int], plan: "_GoPlan",
+                 yield_cols, distinct: bool, where_expr,
+                 etype_to_alias: Dict[int, str]):
         self.start_vids = list(start_vids)
-        self.column = column
+        self.plan = plan
+        self.yield_cols = yield_cols
+        self.distinct = distinct
+        self.where_expr = where_expr
+        self.etype_to_alias = etype_to_alias
 
 
 class _GoPlan:
@@ -208,6 +230,10 @@ class _YieldCol:
         self.expr = expr
         self.alias = alias
 
+
+# the YIELD columns that never raise per row: a pipe reduction is pushed
+# down only over these (traverse.py:976-980)
+_META_EXPRS = (EdgeDstIdExpr, EdgeSrcIdExpr, EdgeRankExpr, EdgeTypeExpr)
 
 _DEVICE_TYPE = {np.dtype(bool): T_BOOL, np.dtype(np.int32): T_INT,
                 np.dtype(np.float32): T_FLOAT}
@@ -801,7 +827,8 @@ class TorchQueryRuntime:
         routed by ``_serve_go_exprs``.  Otherwise:
 
         ``etypes`` are signed (negative = REVERSELY) and must name one
-        edge alias in ``etype_to_alias``; the result column is
+        edge alias in ``etype_to_alias`` (several ride ``yield_specs``);
+        the result column is
         ``"<alias>._dst"`` with one row per final-hop edge, or with
         ``reduce=("count",)`` the single row ``[[n]]`` under
         ``"__count__"``.  ``limit=n`` is ``GO ... | LIMIT n``: the
@@ -812,10 +839,10 @@ class TorchQueryRuntime:
         dense route's first rows.  The request enters the dispatcher as
         ``_go_via_dispatcher`` (runtime.py:1352) submits it: multi-hop
         GO rides the continuous stream in continuous mode, everything
-        else ``go_batch_execute``.  WHERE, other YIELD columns, other
-        reductions, LIMIT with UPTO or a reduction (the reference's
-        ``_go_reduce_shape`` never pushes those down) and unloaded
-        spaces raise TpuDecline."""
+        else ``go_batch_execute``.  A ``where``, other ``yield_cols``,
+        other reductions, LIMIT with UPTO or a reduction (the
+        reference's ``_go_reduce_shape`` never pushes those down) and
+        unloaded spaces raise TpuDecline."""
         if where_blob is not None or yield_specs is not None:
             if where is not None or yield_cols is not None:
                 raise TpuDecline("WHERE and YIELD come either as blobs "
@@ -840,22 +867,39 @@ class TorchQueryRuntime:
             raise TpuDecline("GO needs an OVER edge type")
         aliases = {etype_to_alias.get(e) for e in et_tuple}
         if len(aliases) != 1 or None in aliases:
-            raise TpuDecline("the device slice serves one OVER edge alias")
-        column = f"{aliases.pop()}._dst"
+            raise TpuDecline("yield_cols names its column by one OVER "
+                             "edge alias; several ride yield_specs")
+        alias = aliases.pop()
+        column = f"{alias}._dst"
         if yield_cols is not None and list(yield_cols) != [column]:
             raise TpuDecline(f"YIELD {list(yield_cols)} is not served; "
                              f"only {column}")
-        if self.mirror(space_id) is None:
+        m = self.mirror(space_id)
+        if m is None:
             raise TpuDecline(f"space {space_id} is not loaded")
+        plan = _GoPlan(m, {a: et for et, a in etype_to_alias.items()},
+                       None, {}, True, None, None)
+        return self._dispatch_go(
+            space_id, et_tuple, steps, upto, reduce, limit,
+            _GoQuery(start_vids, plan, [_YieldCol(EdgeDstIdExpr(alias),
+                                                  None)],
+                     False, None, etype_to_alias))
+
+    def _dispatch_go(self, space_id: int, et_tuple: Tuple[int, ...],
+                     steps: int, upto: bool, reduce, limit: Optional[int],
+                     q: _GoQuery):
+        """Submit one GO onto the coalescing dispatcher
+        (``_go_via_dispatcher``'s else branch, runtime.py:1386-1393):
+        multi-hop GO rides the continuous stream in continuous mode,
+        everything else ``go_batch_execute``.  ``| LIMIT n`` keeps the
+        first n assembled rows, as the reference's pipe does."""
         self._bump("go_device")
-        result, _m = self.dispatcher.submit_batched(
-            ("go_batch_execute", space_id, et_tuple, steps, bool(upto),
-             None if reduce is None else tuple(reduce)),
-            _GoQuery(start_vids, column))
+        cols, rows = self.dispatcher.submit_batched(
+            ("go_batch_execute", space_id, et_tuple, int(steps), bool(upto),
+             None if reduce is None else tuple(reduce)), q)[0]
         if limit is not None:
-            cols, rows = result
             return cols, rows[:limit]
-        return result
+        return cols, rows
 
     # ---------------------------------------- GO with WHERE and YIELD
     def _schema(self, space_id: int):
@@ -870,13 +914,19 @@ class TorchQueryRuntime:
                         reduce, limit: Optional[int],
                         where_blob: Optional[bytes], yield_specs,
                         distinct: bool, pushed_mode: bool):
-        """The reference ``serve_go``'s routing (runtime.py:1309-1390):
+        """The reference ``serve_go``'s routing (runtime.py:1309-1393):
         decode the trees, plan, and send a compiled WHERE with no UPTO
         and no reduction to ``_execute_fused`` when ``tpu_filter_mode``
-        is ``auto`` or ``device``.  A GO without WHERE whose YIELD is
-        only ``<alias>._dst`` rides the dispatcher as before.  The rest
-        rides the reference's dispatcher host filter and group
-        materialization, which are not ported: it declines."""
+        is ``auto`` or ``device``.  Every other planned GO (a WHERE with
+        UPTO or under ``tpu_filter_mode=host``, any YIELD with no WHERE,
+        DISTINCT, any OVER set) rides the dispatcher, whose host half
+        filters and materializes per signature group
+        (``_assemble_results``).  A reduction (``| YIELD COUNT(*)``,
+        ``| LIMIT n``) is served only on the shapes the reference's
+        front end pushes down (traverse.py:958-994): no WHERE, no
+        DISTINCT, meta-only YIELD columns, and LIMIT not with UPTO;
+        the reference's ``go_batch_execute`` would reduce an unfiltered
+        frontier, so anything else declines."""
         try:
             where_expr = decode_expr(where_blob) if where_blob else None
             ycols = [_YieldCol(decode_expr(blob), alias)
@@ -886,54 +936,41 @@ class TorchQueryRuntime:
         et_tuple = tuple(sorted(set(int(e) for e in etypes)))
         if not et_tuple or 0 in et_tuple:
             raise TpuDecline("GO needs an OVER edge type")
-        aliases = {etype_to_alias.get(e) for e in et_tuple}
-        if len(aliases) != 1 or None in aliases:
-            raise TpuDecline("the device slice serves one OVER edge alias")
         if upto and int(flags.get("tpu_mesh_devices") or 0) > 1:
             raise TpuDecline("UPTO on a mesh-sharded space")
         if self.mirror(space_id) is None:
             raise TpuDecline(f"space {space_id} is not loaded")
+        if reduce is not None and tuple(reduce) != ("count",):
+            raise TpuDecline(f"reduction {reduce!r} is not served")
         if limit is not None:
-            if reduce is not None:
+            if reduce is not None or upto or int(limit) < 0:
                 raise TpuDecline("LIMIT is pushed down only onto a plain "
                                  "exact-depth GO")
-            reduce = ("limit", int(limit))
+            limit = int(limit)
+            reduce = ("limit", limit)
+        if reduce is not None:
+            if where_expr is not None or distinct or not all(
+                    isinstance(c.expr, _META_EXPRS) for c in ycols):
+                raise TpuDecline("a pipe reduction is pushed down only "
+                                 "onto a GO with no WHERE, no DISTINCT "
+                                 "and meta-only YIELD columns")
         alias_to_etype = {a: et for et, a in etype_to_alias.items()}
         plan = self._plan_go(space_id, alias_to_etype, where_expr,
                              bool(pushed_mode))
         if plan is None:
             raise TpuDecline("device cannot reproduce this query")
-        fmode = flags.get("tpu_filter_mode")
         if plan.filter_cval is not None and not upto and reduce is None \
-                and fmode in ("device", "auto"):
+                and flags.get("tpu_filter_mode") in ("device", "auto"):
             self._bump("go_device")
             self._bump("go_fused")
             return self._execute_fused(space_id, plan, start_vids, et_tuple,
                                        int(steps), etype_to_alias, ycols,
                                        bool(distinct), where_expr,
                                        DeviceExecError)
-        alias = aliases.pop()
-        if where_expr is None and not distinct and ycols and all(
-                isinstance(c.expr, EdgeDstIdExpr) and c.expr.alias == alias
-                for c in ycols):
-            cols, rows = self.serve_go(
-                space_id, start_vids, etypes, steps, etype_to_alias,
-                upto=upto, reduce=None if limit is not None else reduce,
-                limit=limit)
-            if cols == ["__count__"]:
-                return cols, rows
-            return ([c.alias or default_col_name(c.expr) for c in ycols],
-                    [r * len(ycols) for r in rows])
-        if where_expr is not None and fmode not in ("device", "auto"):
-            why = f"tpu_filter_mode={fmode}"
-        elif where_expr is not None:
-            why = "WHERE with UPTO or a pipe reduction"
-        else:
-            why = "YIELD expressions other than <alias>._dst"
-        raise TpuDecline(f"{why} rides the dispatcher's host filter and "
-                         f"group materialization (_host_filter, "
-                         f"_assemble_group, _materialize_group; "
-                         f"runtime.py:2666, :2457, :2923), not ported")
+        return self._dispatch_go(
+            space_id, et_tuple, steps, upto, reduce, limit,
+            _GoQuery(start_vids, plan, ycols, bool(distinct), where_expr,
+                     etype_to_alias))
 
     def _plan_go(self, space_id: int, alias_to_etype: Dict[str, int],
                  where_expr: Optional[Expression],
@@ -1333,9 +1370,11 @@ class TorchQueryRuntime:
                          et_tuple: Tuple[int, ...], steps: int,
                          upto: bool = False, reduce=None) -> _Pending:
         """Dispatcher leader entry: one device launch for the whole
-        batch's frontier advance, then one vectorized host pass.  The
-        returned _Pending's finish() yields (results, mirror), results[i]
-        being (columns, rows)."""
+        batch's frontier advance, then one vectorized host pass per
+        (WHERE, YIELD, mode) signature group (``_assemble_results``).
+        The returned _Pending's finish() yields (results, mirror),
+        results[i] being (columns, rows) or an Exception for that query
+        alone (the dispatcher raises it only for its own waiter)."""
         t0 = time.perf_counter()
         launch = self._launch_frontiers(
             space_id, [q.start_vids for q in queries], et_tuple, steps,
@@ -1352,8 +1391,8 @@ class TorchQueryRuntime:
             else:
                 if reduce is not None:       # LIMIT: the caller slices
                     self._bump("go_reduced", len(queries))
-                results = self._assemble_results(m, queries, vs_lists,
-                                                 et_tuple)
+                results = self._assemble_results(space_id, m, queries,
+                                                 vs_lists, et_tuple)
             self._tick("t_assemble_s", t1)
             return results, m
 
@@ -1424,10 +1463,11 @@ class TorchQueryRuntime:
     def continuous_results(self, space_id: int, m: CsrMirror,
                            queries: List[_GoQuery], reduces,
                            vs_lists, et_tuple: Tuple[int, ...]):
-        """Post-frontier half for a leave cohort: COUNT riders fold the
-        cached degree vector over their frontier, the rest (LIMIT riders
-        too: their caller slices) assemble their ``_dst`` rows.
-        results[i] is (columns, rows)."""
+        """Post-frontier half for a leave cohort (runtime.py:1555): COUNT
+        riders fold the cached degree vector over their frontier, the
+        rest (LIMIT riders too: their caller slices; UPTO unions) run
+        the windowed leader's grouped assembly.  results[i] is
+        (columns, rows) or an Exception for that rider alone."""
         results: List[object] = [None] * len(queries)
         count_idx = [i for i, red in enumerate(reduces)
                      if red is not None and red[0] == "count"]
@@ -1442,7 +1482,7 @@ class TorchQueryRuntime:
                 self.stats["go_reduced"] += len(count_idx)
         if other_idx:
             sub = self._assemble_results(
-                m, [queries[i] for i in other_idx],
+                space_id, m, [queries[i] for i in other_idx],
                 [vs_lists[i] for i in other_idx], et_tuple)
             n_lim = 0
             for j, i in enumerate(other_idx):
@@ -1465,15 +1505,209 @@ class TorchQueryRuntime:
                       for vs in vs_lists]
         return [(["__count__"], [[int(c)]]) for c in counts]
 
-    def _assemble_results(self, m: CsrMirror, queries: List[_GoQuery],
-                          vs_lists, et_tuple: Tuple[int, ...]):
-        """``_dst`` rows per query: one vectorized candidate pass for
-        the cohort, split back per query."""
-        cand, _qseg, qbounds = self._frontier_edges_multi(m, vs_lists,
-                                                          et_tuple)
-        dst = m.vids[m.edge_dst[cand]].tolist()
-        return [([q.column], [[v] for v in dst[qbounds[g]:qbounds[g + 1]]])
-                for g, q in enumerate(queries)]
+    def _assemble_results(self, space_id: int, m: CsrMirror,
+                          queries: List[_GoQuery], vs_lists,
+                          et_tuple: Tuple[int, ...]):
+        """Vectorized final hop for a batch (runtime.py:2431): queries
+        grouped by (WHERE, pushed mode, OVER aliases, YIELD, DISTINCT)
+        signature, then per group ONE candidate assembly, filter and
+        materialization over the concatenated frontier, split back per
+        query.  A group's failure reaches only its own riders."""
+        results: List[object] = [None] * len(queries)
+        groups: Dict[Tuple, List[int]] = {}
+        for i, q in enumerate(queries):
+            sig = (q.plan.expr_str, q.plan.pushed_mode,
+                   tuple(sorted(q.plan.alias_to_etype.items())),
+                   tuple((str(c.expr), c.alias) for c in q.yield_cols),
+                   q.distinct)
+            groups.setdefault(sig, []).append(i)
+        for idxs in groups.values():
+            try:
+                self._assemble_group(space_id, m, queries, idxs, vs_lists,
+                                     et_tuple, results)
+            except Exception as ex:     # noqa: BLE001 — group-level
+                for i in idxs:
+                    if results[i] is None:
+                        results[i] = ex
+        return results
+
+    def _assemble_group(self, space_id: int, m: CsrMirror,
+                        queries: List[_GoQuery], idxs: List[int],
+                        vs_lists, et_tuple: Tuple[int, ...],
+                        results: List[object]) -> None:
+        """One signature group's host half (runtime.py:2457): the WHERE
+        recompiled against the dispatch's mirror when planning raced a
+        generation bump; the queries whose candidates read an invalid
+        used prop decline alone (graphd mode, or a pushed ``||``) and
+        their rows leave before the group mask; then ``_host_filter``,
+        ``_materialize_group`` and DISTINCT per query (first occurrence
+        kept)."""
+        rep = queries[idxs[0]]
+        plan = rep.plan
+        columns = [c.alias or default_col_name(c.expr)
+                   for c in rep.yield_cols]
+        vs_group = [vs_lists[i] for i in idxs]
+        if plan.mirror is not m and plan.filter_cval is not None:
+            compiler = ExprCompiler(m, space_id, self._schema(space_id),
+                                    plan.alias_to_etype)
+            try:
+                cval = compiler.compile(rep.where_expr)
+            except CompileError:
+                for i in idxs:
+                    results[i] = DeviceExecError(
+                        "schema changed while the query ran")
+                return
+            plan = _GoPlan(m, plan.alias_to_etype, cval,
+                           dict(compiler.used), plan.pushed_mode,
+                           compiler, plan.expr_str, sc_or=plan.sc_or)
+        cand, qseg, _qb = self._frontier_edges_multi(m, vs_group, et_tuple)
+        bad = np.zeros(len(idxs), dtype=bool)
+        if plan.filter_cval is not None \
+                and (not plan.pushed_mode or plan.sc_or):
+            # a mask cannot reproduce the CPU executor's short-circuit
+            # order over an invalid prop: the affected queries decline,
+            # and their rows leave before the group mask, which would
+            # otherwise raise for the whole group
+            invalid = self._invalid_candidates(m, plan.filter_used, cand)
+            if invalid is not None and invalid.any():
+                hit = np.unique(qseg[invalid])
+                bad[hit] = True
+                for g in hit:
+                    results[idxs[int(g)]] = TpuDecline(
+                        "WHERE reads a prop invalid on candidate rows; "
+                        "CPU short-circuit semantics decide")
+                keep_rows = ~bad[qseg]
+                cand, qseg = cand[keep_rows], qseg[keep_rows]
+        if plan.filter_cval is not None:
+            mask = self._host_filter(m, plan, cand)
+            cand, qseg = cand[mask], qseg[mask]
+        qb = np.searchsorted(qseg, np.arange(len(idxs) + 1))
+        rows_per_query = self._materialize_group(
+            m, space_id, plan.alias_to_etype, rep.etype_to_alias,
+            rep.yield_cols, cand, qseg, qb, len(idxs))
+        for g, i in enumerate(idxs):
+            rows = rows_per_query[g]
+            if bad[g] or isinstance(rows, Exception):
+                if results[i] is None:
+                    results[i] = rows if isinstance(rows, Exception) \
+                        else DeviceExecError("prop unavailable in WHERE")
+                continue
+            if queries[i].distinct:
+                seen = set()
+                out = []
+                for r in rows:
+                    key = tuple(r)
+                    if key not in seen:
+                        seen.add(key)
+                        out.append(r)
+                rows = out
+            results[i] = (columns, rows)
+
+    def _host_filter(self, m: CsrMirror, plan: _GoPlan,
+                     idx: np.ndarray) -> np.ndarray:
+        """The compiled WHERE over candidate edges ``idx`` in numpy
+        int64 / float64 (runtime.py:2666): the CPU executor's exact
+        precision, with pushed mode's validity and div-guard semantics.
+        Returns a bool mask."""
+        if len(idx) == 0:
+            return np.zeros(0, dtype=bool)
+        # pushed-mode validity is snapshotted BEFORE the value gather: a
+        # vertex write commits values first and valid bits last, so a
+        # valid bit read here is never fresher than the value it gates
+        valid_snap: Dict[str, np.ndarray] = {}
+        if plan.pushed_mode:
+            for k, desc in plan.filter_used.items():
+                if desc[0] == "edge":
+                    valid_snap[k] = \
+                        m.edge_cols[(desc[1], desc[2])].valid[idx]
+                elif desc[0] == "vertex":
+                    gather = m.edge_src[idx] if desc[3] == "src" \
+                        else m.edge_dst[idx]
+                    valid_snap[k] = \
+                        m.vertex_cols[(desc[1], desc[2])].valid[gather]
+            if plan.sc_or and valid_snap \
+                    and not all(v.all() for v in valid_snap.values()):
+                # `x || missing` keeps the row on the per-row path
+                # without touching the prop; an AND with validity cannot
+                raise TpuDecline(
+                    "pushed WHERE with || over a partially-valid "
+                    "prop; per-row short-circuit semantics decide")
+        env = Env(np, self._gather_cols(m, plan.alias_to_etype,
+                                        plan.filter_used, idx))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            mask = np.broadcast_to(np.asarray(plan.filter_cval.fn(env)),
+                                   idx.shape)
+            if mask.dtype != np.bool_:
+                # a numeric WHERE keeps a nonzero row, and the caller
+                # indexes with the mask, so it is always bool
+                mask = mask != 0
+            else:
+                mask = mask.copy()
+            for g in plan.compiler.div_guards:
+                # a real x/0 drops the row in pushed mode (_plan_go
+                # declines div guards in graphd mode)
+                mask &= ~np.broadcast_to(np.asarray(g(env)), idx.shape)
+        if plan.pushed_mode:
+            for v in valid_snap.values():
+                mask &= v
+        return mask
+
+    def _materialize_group(self, m: CsrMirror, space_id: int,
+                           alias_to_etype: Dict[str, int],
+                           etype_to_alias: Dict[int, str], yield_cols,
+                           idx: np.ndarray, qseg: np.ndarray,
+                           qbounds: np.ndarray, nq: int) -> List[object]:
+        """A signature group's YIELD (runtime.py:2923): one compile and
+        one column evaluation over the group's kept edges, split per
+        query as ``ColumnarRows``.  A query whose rows are irregular (an
+        invalid prop, a live div guard) and every query of a YIELD that
+        does not compile fall back to ``_materialize`` alone, its result
+        or error its own.  Returns per query rows or an Exception."""
+        def slice_q(g):
+            return idx[qbounds[g]:qbounds[g + 1]]
+
+        def alone(g):
+            try:
+                return self._materialize(
+                    m, space_id, alias_to_etype, etype_to_alias,
+                    yield_cols, slice_q(g), DeviceExecError)
+            except Exception as ex:     # noqa: BLE001 — per query
+                return ex
+
+        if len(idx) == 0:
+            return [[] for _ in range(nq)]
+        compiler = ExprCompiler(m, space_id, self._schema(space_id),
+                                alias_to_etype)
+        try:
+            cvals = [compiler.compile(c.expr) for c in yield_cols]
+        except CompileError:
+            return [alone(g) for g in range(nq)]
+        irregular = np.zeros(nq, dtype=bool)
+        inv = self._invalid_candidates(m, compiler.used, idx)
+        if inv is not None and inv.any():
+            irregular[np.unique(qseg[inv])] = True
+        if irregular.all():
+            return [alone(g) for g in range(nq)]
+        env = Env(np, self._gather_cols(m, alias_to_etype, compiler.used,
+                                        idx))
+        if compiler.div_guards:
+            g_any = np.zeros(len(idx), dtype=bool)
+            for guard in compiler.div_guards:
+                g_any |= np.broadcast_to(np.asarray(guard(env)), idx.shape)
+            if g_any.any():
+                irregular[np.unique(qseg[g_any])] = True
+        k_edges = len(idx)
+        out_cols = [self._decode_col(m, cv, yc, cv.fn(env), idx, k_edges,
+                                     etype_to_alias)
+                    for cv, yc in zip(cvals, yield_cols)]
+        results: List[object] = [None] * nq
+        for g in range(nq):
+            if irregular[g]:
+                results[g] = alone(g)
+                continue
+            lo, hi = int(qbounds[g]), int(qbounds[g + 1])
+            results[g] = ColumnarRows([c[lo:hi] for c in out_cols], hi - lo)
+        return results
 
     def _deg_host(self, m: CsrMirror, et_tuple: Tuple[int, ...]
                   ) -> np.ndarray:

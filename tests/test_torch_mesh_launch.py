@@ -382,18 +382,23 @@ def test_split_calls_cuts_the_trace_where_the_card_idles():
 
 
 @pytest.mark.parametrize("case", ["agree", "lost", "more", "c_calls",
-                                  "split", "replay"])
+                                  "split", "replay", "merged",
+                                  "merged_too_many"])
 def test_launches_a_call_counts_the_capture_checks_the_trace(monkeypatch,
                                                              case):
     """``launches_a_call`` gives the captured graph's count (a replay's
     plus its host reads for a call that waits on the card) and holds the
     profiler's trace to it: a traced call may show fewer launches (the
     tracer loses some) but never more, nor other C calls, and the trace
-    may not split into more calls than were made."""
+    may not split into more calls than were made.  A call showing a
+    whole multiple of the count passes only as that many merged calls,
+    no more in all than were made."""
     from nebula_tpu_torch.tools import cardtime
     one = [("k1", 0.01), ("k2", 0.02), ("Memset (Device)", 0.001)]
     traced = {"lost": [one[:1], one], "more": [one, one + one[:1]],
-              "split": [one] * 4}.get(case, [one] * 3)
+              "split": [one] * 4, "merged": [one + one, one],
+              "merged_too_many": [one + one, one, one]
+              }.get(case, [one] * 3)
     c_calls = [2, 3, 2] if case == "c_calls" else [2, 2, 2]
     captured = []
 
@@ -402,17 +407,22 @@ def test_launches_a_call_counts_the_capture_checks_the_trace(monkeypatch,
         return dict(launches_a_call=3, c_calls_a_call=2,
                     launch_kinds={"kernel": 2, "memset": 1})
     monkeypatch.setattr(cardtime, "graph_launches", graph)
-    monkeypatch.setattr(cardtime, "profiled_calls",
-                        lambda *a, **k: (traced, c_calls))
+    traces = []
+
+    def profiled(*a, **k):
+        traces.append(1)
+        return traced, c_calls
+    monkeypatch.setattr(cardtime, "profiled_calls", profiled)
 
     def run():
         return None
 
     def replay():
         return None
-    if case in ("more", "c_calls", "split"):
+    if case in ("more", "c_calls", "split", "merged_too_many"):
         with pytest.raises(AssertionError, match="but traced"):
             cardtime.launches_a_call(torch, ell_ops, run)
+        assert len(traces) == 1
         return
     if case == "replay":
         got = cardtime.launches_a_call(torch, ell_ops, run, replay=replay,
@@ -421,7 +431,7 @@ def test_launches_a_call_counts_the_capture_checks_the_trace(monkeypatch,
         assert got["launch_kinds"]["memcpy"] == 4 and got["host_reads"] == 4
         return
     got = cardtime.launches_a_call(torch, ell_ops, run)
-    assert captured == [run]
+    assert captured == [run] and len(traces) == 1
     assert got["launches_a_call"] == 3 and got["c_calls_a_call"] == 2
     assert got["launches_traced"] == [len(c) for c in traced]
 

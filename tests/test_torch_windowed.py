@@ -682,8 +682,11 @@ def test_forced_split_matches_cluster(default_flags, reduce):
     boundaries; every query's rows equal the cluster's (for LIMIT the
     first n rows the pipe keeps)."""
     from nebula_tpu_torch.common.flags import flags
-    from nebula_tpu_torch.tpu.runtime import _GoQuery
+    from nebula_tpu_torch.filter.expressions import EdgeDstIdExpr
+    from nebula_tpu_torch.tpu.runtime import _GoQuery, _YieldCol
     ok, rt_, space, et, _ref_rt = default_flags
+    plan = rt_._plan_go(space, {"e": et}, None, True)
+    ydst = [_YieldCol(EdgeDstIdExpr("e"), None)]
     rng = np.random.default_rng(53)
     starts = [[int(v) for v in rng.integers(1, N_VERTICES + 1,
                                             int(rng.integers(2, 4)))]
@@ -695,7 +698,8 @@ def test_forced_split_matches_cluster(default_flags, reduce):
     split0 = rt_.stats["go_sparse_split"]
     try:
         pending = rt_.go_batch_execute(
-            space, [_GoQuery(s, "e._dst") for s in starts], (et,), 3,
+            space, [_GoQuery(s, plan, ydst, False, None, {et: "e"})
+                    for s in starts], (et,), 3,
             upto=upto, reduce=red)
         results, _m = pending.finish()
     finally:
